@@ -291,16 +291,255 @@ def check_decode(gen, request: str):
     return row
 
 
+QUANT = (torch.int8, torch.float8_e4m3fn)
+SHORT = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float8_e4m3fn: "e4m3"}
+
+
+def _dense_sets(gen, b, hk, S, d, dtype, min_bytes=128e6):
+    """Enough (k, v) cache copies of request A's shape, bf16 or QuantizedKV,
+    that together they exceed the 50 MB L2."""
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
+    elem = 2 if dtype == torch.bfloat16 else 1 + 4 / d
+    n_sets = max(1, math.ceil(min_bytes / (2 * b * hk * S * d * elem)))
+    sets = []
+    for _ in range(n_sets):
+        kv = [torch.randn(b, hk, S, d, generator=gen, device="cuda")
+              for _ in range(2)]
+        sets.append([quantize_kv(x, dtype) if dtype in QUANT else x.bfloat16()
+                     for x in kv])
+    return sets, elem
+
+
+def check_decode_quant(gen, dtype):
+    """flash_decode over an int8 / e4m3 QuantizedKV cache at request A's
+    last decode step."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        decode_kernel as dk
+    c = LLAMA3_8B
+    b, _, S = REQUESTS["A"]
+    h, hk = c["num_attention_heads"], c["num_key_value_heads"]
+    d = c["hidden_size"] // h
+    sets, elem = _dense_sets(gen, b, hk, S, d, dtype)
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
+    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    ragged = torch.tensor([S, S - 29], dtype=torch.int32, device="cuda")
+    kc, vc = sets[0]
+    scale = d ** -0.5
+    err = max(max_err(dk.flash_decode(q, kc, vc, ln, softmax_scale=scale),
+                      dk.flash_decode_ref(q, kc, vc, ln, scale))
+              for ln in (ragged, lengths))
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, scale)
+    torch.cuda.synchronize()
+    tol = BF16_ULP * ref.float().abs().max().item() + 1e-6
+    check(err <= tol, f"flash_decode {SHORT[dtype]} err {err} > {tol}")
+    nbytes = 2.0 * b * hk * S * d * elem + 2 * 2.0 * b * h * d
+    flops = 4.0 * b * h * S * d
+    bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    deq = [x.values.float().mul(x.scales).bfloat16() for x in (kc, vc)]
+    row = dict(
+        name=f"flash_decode ({SHORT[dtype]})", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_decode.cu",
+        replaces="xhy_flash_attention_tpu/ops/flash_attention/decode_kernel.py:47",
+        max_abs_err=err,
+        ms=time_ms([lambda kc=kc, vc=vc: dk.flash_decode(
+            q, kc, vc, lengths, softmax_scale=scale) for kc, vc in sets],
+            iters=10 * len(sets)),
+        plain_ms=time_ms([lambda: dk.flash_decode_ref(
+            q, kc, vc, lengths, scale)]),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), deq[0], deq[1], enable_gqa=True)]))
+    report(row, f"request A last step, {SHORT[dtype]} payload with per-token "
+                f"scales: tol {tol:.3g} = 1 bf16 ulp of max|out|; b{b} h{h} "
+                f"hk{hk} len {S} d{d}, bytes {nbytes:.4g}, {len(sets)} cache "
+                "copies rotated; library: SDPA on the dequantized bf16 cache")
+    return row
+
+
+def splitkv_plain(q, kc, vc, lengths, scale, splits, split_len):
+    """The plain version of flash_decode_splitkv: partials, then the merge."""
+    from xhy_flash_attention_tpu_torch.inference import combine
+    outs, ms, ls = combine.splitkv_partials_ref(q, kc, vc, lengths, scale,
+                                                splits, split_len)
+    return combine.merge_attention_partials(outs, ms[..., None],
+                                            ls[..., None], axis=2)[0]
+
+
+def check_splitkv(gen, dtype, decode_ms):
+    """flash_decode_splitkv at request A's last decode step with the
+    heuristic's split count, beside flash_decode's time at that shape."""
+    from xhy_flash_attention_tpu_torch.inference import combine
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        decode_kernel as dk
+    c = LLAMA3_8B
+    b, _, S = REQUESTS["A"]
+    h, hk = c["num_attention_heads"], c["num_key_value_heads"]
+    d = c["hidden_size"] // h
+    sets, elem = _dense_sets(gen, b, hk, S, d, dtype)
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
+    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    ragged = torch.tensor([S, 700], dtype=torch.int32, device="cuda")
+    kc, vc = sets[0]
+    scale = d ** -0.5
+    splits, split_len = combine._split_plan(q, kc, 0, 512)
+    err = max(max_err(combine.flash_decode_splitkv(q, kc, vc, ln),
+                      dk.flash_decode_ref(q, kc, vc, ln, scale))
+              for ln in (ragged, lengths))
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, scale)
+    torch.cuda.synchronize()
+    tol = BF16_ULP * ref.float().abs().max().item() + 1e-6
+    check(err <= tol, f"flash_decode_splitkv {SHORT[dtype]} err {err} > {tol}")
+    nbytes = 2.0 * b * hk * S * d * elem + 2 * 2.0 * b * h * d
+    flops = 4.0 * b * h * S * d
+    bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    if dtype in QUANT:
+        lib_k, lib_v = [x.values.float().mul(x.scales).bfloat16()
+                        for x in (kc, vc)]
+    else:
+        lib_k, lib_v = kc, vc
+    row = dict(
+        name=f"flash_decode_splitkv ({SHORT[dtype]})", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_decode.cu",
+        replaces="xhy_flash_attention_tpu/inference/combine.py:75",
+        max_abs_err=err,
+        ms=time_ms([lambda kc=kc, vc=vc: combine.flash_decode_splitkv(
+            q, kc, vc, lengths) for kc, vc in sets], iters=10 * len(sets)),
+        plain_ms=time_ms([lambda: splitkv_plain(q, kc, vc, lengths, scale,
+                                                splits, split_len)]),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), lib_k, lib_v, enable_gqa=True)]))
+    report(row, f"request A last step, {splits} splits of {split_len} keys "
+                f"(heuristic, {torch.cuda.get_device_properties(0).multi_processor_count}"
+                f" SMs) beside flash_decode (bf16, one split) {decode_ms:.4f} "
+                f"ms: tol {tol:.3g}; b{b} h{h} hk{hk} len {S} d{d}, bytes "
+                f"{nbytes:.4g}; ms includes the merge")
+    return row
+
+
+ENGINE_DECODE = dict(b=8, h=32, hk=8, d=128,
+                     lengths=[4096, 3000, 2048, 1500, 1024, 700, 300, 0])
+
+
+def _paged_sets(gen, dtype, ps, npp, n_sets=3):
+    """``n_sets`` paged caches at the engine's decode shape over one pool
+    of pages, each sequence's pages taken in a shuffled order from the
+    seed; the sets' pages are disjoint and exceed L2 together. int8 / e4m3
+    pages carry the linear scales of their own quantization."""
+    from xhy_flash_attention_tpu_torch.inference.paged import PagedKVCache
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
+    c = ENGINE_DECODE
+    b, hk, d = c["b"], c["hk"], c["d"]
+    P = n_sets * b * npp + 1
+    kv = torch.randn(P, hk, 2, ps, d, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    page_scales = None
+    if dtype in QUANT:
+        qkv = quantize_kv(kv, dtype)
+        kv, page_scales = qkv.values, qkv.scales[..., 0]
+    perm = torch.randperm(P - 1, generator=gen, device="cuda")
+    lengths = torch.tensor(c["lengths"], dtype=torch.int32, device="cuda")
+    sets = []
+    for i in range(n_sets):
+        table = perm[i * b * npp:(i + 1) * b * npp].reshape(b, npp)
+        scales = None
+        if page_scales is not None:
+            scales = page_scales[table].permute(0, 2, 3, 1, 4).reshape(
+                b, hk, 2, npp * ps).contiguous()
+        sets.append(PagedKVCache(kv, table.to(torch.int32).contiguous(),
+                                 lengths, scales))
+    return sets
+
+
+def _visible_pairs(lengths, sq, cap):
+    """(query row, key) pairs that the causal paged kernels attend, per
+    query head: sum over sequences and new tokens of the visible keys."""
+    return sum(max(0, min(L, cap, L - sq + si + 1))
+               for L in lengths for si in range(sq))
+
+
+def check_paged(gen, entry, dtype, sq=1):
+    """One paged-decode entry at the engine's decode shape (b8 h32 hk8 d128,
+    lengths 4096 ... 0): the chunked entry over pages of 512, 8 per
+    sequence, the page entry over one page of 4096 per sequence."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    c = ENGINE_DECODE
+    b, h, hk, d = c["b"], c["h"], c["hk"], c["d"]
+    ps, npp = (512, 8) if entry == "chunked" else (4096, 1)
+    sets = _paged_sets(gen, dtype, ps, npp)
+    fn = getattr(paged, f"paged_decode_{entry}")
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").bfloat16()
+    scale = d ** -0.5
+    cache = sets[0]
+    before = fn.launches
+    out = paged.paged_flash_decode(q, cache)
+    check(fn.launches == before + 1, f"paged_flash_decode did not route to "
+                                     f"the {entry} entry")
+    ref = paged.paged_flash_decode_ref(q, cache, scale)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = BF16_ULP * ref.float().abs().max().item() + 1e-3
+    check(err <= tol, f"paged_decode ({entry}) {SHORT[dtype]} sq {sq}: err "
+                      f"{err} > {tol}")
+    check(not out[-1].float().abs().any(), "the empty slot is not zero")
+    cap = ps * npp
+    n_tok = sum(min(L, cap) for L in c["lengths"])
+    elem = 2 if dtype == torch.bfloat16 else 1 + 4 / d
+    nbytes = (2.0 * hk * n_tok * d * elem + 2 * 2.0 * b * sq * h * d
+              + 4.0 * b * (npp + 1))
+    flops = 4.0 * h * d * _visible_pairs(c["lengths"], sq, cap)
+    bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    # library yardstick: SDPA with a mask over the dense-equivalent bf16
+    # cache (pages gathered, dequantized, K/V heads repeated)
+    k, v, ks, vs = paged._gather(cache)
+    if ks is not None:
+        k, v = k.float() * ks[..., None], v.float() * vs[..., None]
+    k, v = (x.bfloat16().repeat_interleave(h // hk, dim=1) for x in (k, v))
+    cols = torch.arange(cap, device="cuda")
+    pos = cache.lengths.long()[:, None] - sq + torch.arange(sq, device="cuda")
+    mask = (cols[None, None] <= pos[:, :, None])[:, None]
+    del ref, out
+    name = f"paged_decode ({entry}, {SHORT[dtype]}" + (
+        f", sq {sq})" if sq > 1 else ")")
+    row = dict(
+        name=name, route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/paged_decode.cu",
+        replaces=("xhy_flash_attention_tpu/inference/paged.py:219"
+                  if entry == "chunked" else
+                  "xhy_flash_attention_tpu/inference/paged.py:149"),
+        max_abs_err=err,
+        ms=time_ms([lambda s=s: paged.paged_flash_decode(q, s) for s in sets],
+                   iters=10 * len(sets)),
+        plain_ms=time_ms([lambda: paged.paged_flash_decode_ref(
+            q, cache, scale)], iters=3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v, attn_mask=mask)]))
+    report(row, f"tol {tol:.3g} = 1 bf16 ulp of max|out| + 1e-3 (P rounded "
+                f"to bf16 on both sides); b{b} h{h} hk{hk} d{d} sq {sq}, pages "
+                f"of {ps}, {npp} per sequence, lengths {c['lengths']}, flops "
+                f"{flops:.4g}, bytes {nbytes:.4g}, {len(sets)} page tables "
+                "rotated over disjoint shuffled pages; library: SDPA with a "
+                "mask on the dense-equivalent bf16 cache")
+    del sets, k, v, mask
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------- phase 4
 
 def counters():
+    from xhy_flash_attention_tpu_torch.inference import combine, paged
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         decode_kernel, fused_heads, fwd)
     from xhy_flash_attention_tpu_torch.ops import layer_norm
     return {"rms_norm_add": layer_norm.ln_fwd,
             "flash_fwd (flash_attention_fwd)": fwd.flash_attention_fwd,
             "flash_fwd (fused_heads)": fused_heads.fused_heads_fwd,
-            "flash_decode": decode_kernel.flash_decode}
+            "flash_decode": decode_kernel.flash_decode,
+            "flash_decode_splitkv": combine.flash_decode_splitkv,
+            "paged_decode (chunked)": paged.paged_decode_chunked,
+            "paged_decode (page)": paged.paged_decode_page}
 
 
 def reset_counts():
@@ -314,7 +553,8 @@ def read_counts():
 
 def expected_counts(prompt: int, max_length: int):
     steps = max_length - prompt
-    return {"rms_norm_add": (2 * LAYERS + 1) * (1 + steps),
+    return {**{k: 0 for k in counters()},
+            "rms_norm_add": (2 * LAYERS + 1) * (1 + steps),
             "flash_fwd (flash_attention_fwd)": LAYERS if prompt > 1024 else 0,
             "flash_fwd (fused_heads)": LAYERS if prompt <= 1024 else 0,
             "flash_decode": LAYERS * steps}
@@ -413,8 +653,7 @@ def serve(model, gen, name):
     print(f"  request {name} kernels: " + json.dumps(
         [{"tpu_kernel": TPU_OF[k], "cuda": k, "launches": v}
          for k, v in counts.items()]), flush=True)
-    return counts, dict(prefill_s=prefill_s, decode_s=decode_s,
-                        total_s=total_s, peak=peak)
+    return counts, seq, scores
 
 
 # ---------------------------------------------------------------- phase 5
@@ -424,7 +663,7 @@ _PKG = "xhy_flash_attention_tpu_torch.ops."
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's four kernel calls to their plain PyTorch versions,
+    """Route the model's kernel calls to their plain PyTorch versions,
     which run on the card's tensors as they are; restored on exit."""
     ln = importlib.import_module(_PKG + "layer_norm")
     fwd = importlib.import_module(_PKG + "flash_attention.fwd")
@@ -432,6 +671,7 @@ def plain_versions():
     iface = importlib.import_module(_PKG + "flash_attention.interface")
     dk = importlib.import_module(_PKG + "flash_attention.decode_kernel")
     dec = importlib.import_module(_PKG + "decode")
+    paged = importlib.import_module("xhy_flash_attention_tpu_torch.inference.paged")
 
     def attention(q, k, v, *unused, sm_scale, causal, softcap, need_lse,
                   **flags):
@@ -440,14 +680,21 @@ def plain_versions():
                                      need_lse=need_lse)
 
     def decode(q, k_cache, v_cache, lengths, *, softmax_scale, window_size,
-               softcap, **unused):
+               softcap, kv_batch_idx=None, leftpad_k=None):
         return dk.flash_decode_ref(q, k_cache, v_cache, lengths,
-                                   softmax_scale, window_size, softcap)
+                                   softmax_scale, window_size, softcap,
+                                   kv_batch_idx, leftpad_k)
+
+    def paged_decode(q, cache, *, softmax_scale, window_size, softcap):
+        return paged.paged_flash_decode_ref(q, cache, softmax_scale,
+                                            window_size, softcap)
 
     patches = [(ln, "ln_fwd", ln.ln_fwd_ref),
                (iface, "flash_attention_fwd", attention),
                (fh, "fused_heads_fwd", fh.fused_heads_fwd_ref),
-               (dec, "flash_decode", decode)]
+               (dec, "flash_decode", decode),
+               (paged, "paged_decode_chunked", paged_decode),
+               (paged, "paged_decode_page", paged_decode)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -499,12 +746,16 @@ TPU_OF = {
     "flash_fwd (flash_attention_fwd)": "ops/flash_attention/fwd.py:78 _fwd_kernel",
     "flash_fwd (fused_heads)": "ops/flash_attention/fused_heads.py:59 _fwd_kernel",
     "flash_decode": "ops/flash_attention/decode_kernel.py:47 _decode_kernel",
+    "flash_decode_splitkv": "inference/combine.py:75 _splitkv_kernel",
+    "paged_decode (chunked)": "inference/paged.py:219 _paged_decode_chunked_kernel",
+    "paged_decode (page)": "inference/paged.py:149 _paged_decode_kernel",
 }
 
 
 # ---------------------------------------------------------------- phase 6
 
 KERNEL_GROUPS = (  # device kernel name fragment -> group
+    ("paged_decode_kernel", "paged_decode"),
     ("flash_decode_kernel", "flash_decode"),
     ("flash_fwd_kernel", "flash_fwd"),
     ("ln_fwd_kernel", "rms_norm_add"),
@@ -519,33 +770,20 @@ def _group(kernel: str) -> str:
                 "other")
 
 
-def decode_breakdown(model, gen, name, steps: int = 8):
-    """Where a decode step's time goes: ``steps`` greedy decode steps of
-    request ``name`` under torch.profiler (after one unprofiled step),
-    device time summed by kernel group per step, and the device's idle
-    share of the window."""
+def profile_steps(step, steps: int, label: dict):
+    """``steps`` calls of ``step`` under torch.profiler (device activity
+    only: tracing every host-side op would slow the host down and inflate
+    the idle share): device time summed by kernel group per step, and the
+    device's idle share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    b, prompt, max_length = REQUESTS[name]
-    ids = torch.randint(0, model.config.vocab_size, (b, prompt),
-                        generator=gen, device="cuda")
-    with torch.inference_mode():
-        caches = model.allocate_kv_caches(b, max_length)
-        logits, _ = model(ids, kv_caches=caches)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        logits, _ = model(tok, kv_caches=caches, seqlen_offset=prompt)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
-        # device activity only: tracing every host-side op would slow the
-        # host down and inflate the idle share
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(1, steps + 1):
-                logits, _ = model(tok, kv_caches=caches,
-                                  seqlen_offset=prompt + i)
-                tok = logits[:, -1].argmax(-1, keepdim=True)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     groups, kernels = {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
@@ -555,7 +793,7 @@ def decode_breakdown(model, gen, name, steps: int = 8):
         groups[g] = groups.get(g, 0.0) + ms
         kernels.append((ms, e.key))
     busy = sum(groups.values())
-    out = {"request": name, "steps": steps,
+    out = {**label, "steps": steps,
            "wall_ms_per_step_profiled": wall_ms / steps,
            "device_ms_per_step": {g: v / steps for g, v in sorted(
                groups.items(), key=lambda kv: -kv[1])},
@@ -567,6 +805,364 @@ def decode_breakdown(model, gen, name, steps: int = 8):
         print("  the profiler saw no device time: breakdown not measured",
               flush=True)
     return out
+
+
+def decode_breakdown(model, gen, name, steps: int = 8):
+    """Where a decode step's time goes: ``steps`` greedy decode steps of
+    request ``name`` under torch.profiler, after one unprofiled step."""
+    b, prompt, max_length = REQUESTS[name]
+    ids = torch.randint(0, model.config.vocab_size, (b, prompt),
+                        generator=gen, device="cuda")
+    state = {}
+    with torch.inference_mode():
+        caches = model.allocate_kv_caches(b, max_length)
+        logits, _ = model(ids, kv_caches=caches)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        logits, _ = model(tok, kv_caches=caches, seqlen_offset=prompt)
+        state.update(tok=logits[:, -1].argmax(-1, keepdim=True), pos=prompt)
+
+        def step():
+            state["pos"] += 1
+            logits, _ = model(state["tok"], kv_caches=caches,
+                              seqlen_offset=state["pos"])
+            state["tok"] = logits[:, -1].argmax(-1, keepdim=True)
+
+        return profile_steps(step, steps, {"request": name})
+
+
+# --------------------------------------------------- phases 4b, 4c, 5, 6
+
+ENGINE_RUN = dict(max_batch=8, page_size=512, max_pages_per_seq=8,
+                  num_pages=65, prefill_chunk=512)
+N_REQUESTS = 12
+# An engine request's greedy token may differ from the argmax of a dense
+# prefill over prompt + generated tokens only where that prefill puts it
+# within a bound of its maximum: bf16 pages, NEAR_TIE (the pages hold the
+# bf16 values a dense cache holds). INT8 pages add quantization error.
+# Reading on an H100 (seed 0, all 32 layers, 12 requests): the largest gap
+# of an INT8-page token, 0.3125 logit (bf16 pages: 0.1562). The bound is
+# 1.5x that reading.
+INT8_NEAR_TIE = 1.5 * 0.3125
+
+
+def _model_dims(model):
+    c = model.config
+    return c.num_hidden_layers, c.kv_heads, c.dim_head
+
+
+def _engine_requests(seed: int, vocab: int):
+    """N_REQUESTS prompts of 64-2000 tokens and max_new_tokens of 16-64,
+    drawn once from the seed."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch.inference import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 2001, N_REQUESTS)
+    news = rng.integers(16, 65, N_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=int(m))
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+def _timed_engine(model, dtype, **kw):
+    """An InferenceEngine whose prefill, chunk and decode steps are timed on
+    the host clock around work that ends in a synchronize."""
+    from xhy_flash_attention_tpu_torch.inference import InferenceEngine
+
+    class TimedEngine(InferenceEngine):
+        def _timed(self, key, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            self.times.setdefault(key, []).append(time.perf_counter() - t0)
+
+        def _prefill_batch(self, reqs, cap):
+            self._timed("prefill", super()._prefill_batch, reqs, cap)
+
+        def _prefill_chunk_step(self):
+            if self._prefilling:
+                self._timed("chunk", super()._prefill_chunk_step)
+
+        def _decode_step(self, active):
+            self._timed(len(active), super()._decode_step, active)
+
+    layers, hk, d = _model_dims(model)
+    eng = TimedEngine(model, num_layers=layers, num_kv_heads=hk, head_dim=d,
+                      dtype=dtype, **kw)
+    eng.times = {}
+    return eng
+
+
+def check_engine_tokens(model, what, reqs, bound):
+    """Hold every request's generated tokens against one dense prefill over
+    prompt + generated tokens: a token may differ from that prefill's
+    argmax only within ``bound`` logit of its maximum."""
+    worst, differ, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for r in reqs:
+            seq = torch.tensor(list(r.prompt) + r.output, device="cuda")
+            logits, _ = model(seq[None])
+            n = len(r.prompt)
+            lg = logits[0, n - 1: n - 1 + len(r.output)].float()
+            tok = torch.tensor(r.output, device="cuda")
+            gap = lg.max(-1).values - lg.gather(-1, tok[:, None])[:, 0]
+            worst = max(worst, gap.max().item())
+            differ += int((gap > 0).sum().item())
+            total += len(r.output)
+    print(f"  {what}: greedy tokens differ from the dense prefill's argmax "
+          f"at {differ}/{total}, largest gap {worst:.4g} logit (bound "
+          f"{bound:.4g})", flush=True)
+    check(worst <= bound, f"{what}: a token differs by {worst} > {bound}")
+    return dict(tokens_differ=differ, tokens=total, largest_gap=worst)
+
+
+def serve_engine(model, dtype, seed):
+    """Phase 4b: 12 greedy requests through InferenceEngine at full width
+    and depth; exact launch counts, tokens against a dense prefill."""
+    layers = model.config.num_hidden_layers
+    reqs = _engine_requests(seed, model.config.vocab_size)
+    eng = _timed_engine(model, dtype, **ENGINE_RUN)
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    calls = st["prefill"] + st["chunk"] + st["decode"]
+    want = {**{k: 0 for k in counters()},
+            "rms_norm_add": (2 * layers + 1) * calls,
+            "flash_fwd (fused_heads)": layers * st["prefill"],
+            "paged_decode (chunked)": layers * (st["chunk"] + st["decode"])}
+    check(counts == want, f"engine {SHORT[dtype]}: launches {counts} != {want}")
+    check(sorted(results) == list(range(N_REQUESTS)) and all(
+        len(results[r.rid]) == r.max_new_tokens for r in reqs),
+        "engine: a request did not finish with its tokens")
+    gen_tokens = sum(r.max_new_tokens for r in reqs)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    prefill_s = sum(eng.times.get("prefill", [])) + sum(
+        eng.times.get("chunk", []))
+    per_batch = {n: (1e3 * sum(t) / len(t), len(t))
+                 for n, t in sorted((n, t) for n, t in eng.times.items()
+                                    if isinstance(n, int))}
+    print(f"  engine, {SHORT[dtype]} pages: {N_REQUESTS} requests, prompts "
+          f"{[len(r.prompt) for r in reqs]}, new tokens "
+          f"{[r.max_new_tokens for r in reqs]}; model calls {dict(st)}; "
+          f"total {total_s:.4f} s, generated {gen_tokens / total_s:.1f} "
+          f"tok/s, prefill {prompt_tokens / prefill_s:.1f} tok/s "
+          f"({prefill_s:.4f} s in prefill and chunk steps), decode ms/step "
+          f"by batch {{batch: (ms, steps)}} "
+          + json.dumps({str(k): [round(v[0], 3), v[1]]
+                        for k, v in per_batch.items()})
+          + f", max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
+    bound_ = NEAR_TIE if dtype == torch.bfloat16 else INT8_NEAR_TIE
+    check_engine_tokens(model, f"engine {SHORT[dtype]} pages", reqs, bound_)
+    print(f"  engine {SHORT[dtype]} kernels: " + json.dumps(
+        [{"tpu_kernel": TPU_OF[k], "cuda": k, "launches": v}
+         for k, v in counts.items() if v]), flush=True)
+    return counts, st
+
+
+def _kvcache_inputs(gen, b, hk, S, d, h):
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, 1, hk, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, 1, hk, d, generator=gen, device="cuda").bfloat16()
+    return q, k, v
+
+
+def kvcache_api(gen):
+    """Phase 4c: flash_attn_with_kvcache, the decode entry a user calls per
+    layer, at Llama-3-8B width for all 32 layers of request A's last step:
+    append + rotary + split-KV (num_splits=0) over bf16 (b, S, hk, d) caches
+    and int8 QuantizedKV caches, an e4m3 QuantizedKV cache through
+    flash_decode, and a PagedKVCache of one page per sequence (the page
+    entry). Layer 0 of each is held against the same call on the CPU (the
+    plain versions): two bf16 units of the largest output (rotary's cos/sin
+    round differently on the two devices)."""
+    from xhy_flash_attention_tpu_torch import flash_attn_with_kvcache
+    from xhy_flash_attention_tpu_torch.inference import PagedKVCache
+    from xhy_flash_attention_tpu_torch.layers.rotary import RotaryEmbedding
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
+    c = LLAMA3_8B
+    b, _, S = REQUESTS["A"]
+    h, hk = c["num_attention_heads"], c["num_key_value_heads"]
+    d = c["hidden_size"] // h
+    cos, sin = RotaryEmbedding(d, base=c["rope_theta"]).cos_sin(
+        S, torch.bfloat16, device="cuda")
+    seqlens = torch.full((b,), S - 1, dtype=torch.int32, device="cuda")
+
+    def dense(kind):
+        x = [torch.randn(b, S, hk, d, generator=gen, device="cuda")
+             for _ in range(2)]
+        if kind == "bf16":
+            return tuple(t.bfloat16() for t in x)
+        return tuple(quantize_kv(t.transpose(1, 2).contiguous(),
+                                 {"int8": torch.int8,
+                                  "e4m3": torch.float8_e4m3fn}[kind])
+                     for t in x)
+
+    def paged():
+        kv = torch.randn(b + 1, hk, 2, 4096, d, generator=gen,
+                         device="cuda").bfloat16()
+        table = torch.arange(b, dtype=torch.int32, device="cuda")[:, None]
+        return PagedKVCache(kv, table, seqlens.clone())
+
+    def to_cpu(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return None if x is None else x.cpu()
+        if isinstance(x, tuple):
+            return tuple(to_cpu(t) for t in x)
+        return type(x)(**{f: to_cpu(getattr(x, f)) for f in
+                          x.__dataclass_fields__})
+
+    cases = [("split-KV, bf16 (b, S, hk, d) caches", dense, "bf16", 0),
+             ("split-KV, int8 QuantizedKV", dense, "int8", 0),
+             ("flash_decode, e4m3 QuantizedKV", dense, "e4m3", 1),
+             ("paged, one page of 4096 per sequence", None, "paged", 1)]
+    counts = {}
+    for what, make, kind, splits in cases:
+        reset_counts()
+        for layer in range(LAYERS):
+            cache = paged() if kind == "paged" else make(kind)
+            q, k, v = _kvcache_inputs(gen, b, hk, S, d, h)
+            args = ((cache, None) if kind == "paged" else cache)
+            kw = dict(rotary_cos=cos, rotary_sin=sin, num_splits=splits)
+            if kind != "paged":
+                kw["cache_seqlens"] = seqlens
+            if layer == 0:
+                cpu_args = to_cpu(args)
+                want = flash_attn_with_kvcache(
+                    q.cpu(), *cpu_args, k.cpu(), v.cpu(),
+                    **{n: to_cpu(t) if isinstance(t, torch.Tensor) else t
+                       for n, t in kw.items()})[0]
+            out = flash_attn_with_kvcache(q, *args, k, v, **kw)[0]
+            if layer == 0:
+                torch.cuda.synchronize()
+                err = max_err(out.cpu(), want)
+                tol = 2 * BF16_ULP * want.float().abs().max().item() + 1e-3
+                print(f"  flash_attn_with_kvcache, {what}: layer 0 against "
+                      f"the CPU: max |diff| {err:.4g} (tol {tol:.4g})",
+                      flush=True)
+                check(err <= tol, f"flash_attn_with_kvcache {what}: {err}")
+            del cache
+        torch.cuda.synchronize()
+        counts[kind] = read_counts()
+    return counts
+
+
+def quantized_decode(model, name, seq, scores, dtype):
+    """Phase 4c: request ``name`` through decode(cache_dtype=int8 | e4m3),
+    teacher-forced on the bf16 run's tokens, against that run's logits."""
+    from xhy_flash_attention_tpu_torch import decode
+    b, prompt, max_length = REQUESTS[name]
+    t0 = time.perf_counter()
+    _, got = decode(model, seq[:, :prompt], max_length, teacher_outputs=seq,
+                    return_scores=True, cache_dtype=dtype)
+    torch.cuda.synchronize()
+    diff = (got - scores).abs()
+    dmax = diff.max().item()
+    rms = diff.square().mean().sqrt().item()
+    tol, rms_tol = QUANT_TOL[dtype]
+    print(f"  decode(cache_dtype={SHORT[dtype]}), request {name}: "
+          f"{time.perf_counter() - t0:.4f} s; logits against the bf16 cache: "
+          f"max |difference| {dmax:.4g}, rms {rms:.4g} (bounds {tol:.4g}, "
+          f"{rms_tol:.4g})", flush=True)
+    check(bool(torch.isfinite(got).all()), "non-finite quantized logits")
+    check(dmax <= tol and rms <= rms_tol,
+          f"decode(cache_dtype={SHORT[dtype]}) logits off by {dmax} (rms {rms})")
+
+
+# Quantized dense caches against the bf16 cache: the logits of request A's
+# 32 teacher-forced decode steps. Readings on an H100 (seed 0, all 32
+# layers): int8 largest difference 0.6211 logit, rms 0.1074; e4m3 (three
+# mantissa bits) 2.375, rms 0.3795. Bounds: 1.5x the readings.
+QUANT_TOL = {torch.int8: (1.5 * 0.6211, 1.5 * 0.1074),
+             torch.float8_e4m3fn: (1.5 * 2.375, 1.5 * 0.3795)}
+
+
+def engine_vs_plain(model, dtype, seed):
+    """Phase 5 (engine): eight requests admitted into an engine, then one
+    decode step at full depth through the kernels and through the plain
+    versions on clones of the same paged caches. Returns the engine, its
+    slots still decoding, for phase 6."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch.inference import Request
+    layers = model.config.num_hidden_layers
+    rng = np.random.default_rng(seed + 1)
+    eng = _timed_engine(model, dtype, **{**ENGINE_RUN, "prefill_chunk": None})
+    for i, n in enumerate(rng.integers(64, 2001, ENGINE_RUN["max_batch"])):
+        eng.add_request(Request(
+            rid=i, prompt=rng.integers(0, model.config.vocab_size, n).astype(
+                np.int32), max_new_tokens=1000))
+    eng._admit()
+    for r in eng.slots:  # pages for the next token
+        while len(r.pages) < (len(r.prompt) + 1) // eng.page_size + 1:
+            eng._alloc_page(r)
+    eng._sync_caches()
+    tokens = torch.from_numpy(eng._last_tokens[:, None]).cuda()
+    kern = list(eng.caches)
+    plain = [c.clone() for c in eng.caches]
+    lengths = eng.caches[0].lengths
+    with torch.inference_mode():
+        reset_counts()
+        lk, kern = model(tokens, kv_caches=kern, seqlen_offset=lengths)
+        with plain_versions():
+            lp, plain = model(tokens, kv_caches=plain, seqlen_offset=lengths)
+    want = {**{k: 0 for k in counters()}, "paged_decode (chunked)": layers,
+            "rms_norm_add": 2 * layers + 1}
+    check(read_counts() == want,
+          f"engine decode steps launched {read_counts()}, not {want}")
+    compare_logits(f"engine decode step, {SHORT[dtype]} pages, kernels vs "
+                   "plain", lk, lp)
+    # the step appended one row per sequence and layer: everything else in
+    # the pages and scales is bit-equal
+    table, lens = eng._table, eng._lengths
+    rows = [(int(table[i, lens[i] // eng.page_size]), int(lens[i] %
+             eng.page_size)) for i in range(len(lens))]
+    row_err = 0.0
+    for a, c in zip(kern, plain):
+        pa, pc = a.kv_pages.clone(), c.kv_pages.clone()
+        for i, (page, off) in enumerate(rows):
+            x, y = pa[page, :, :, off].float(), pc[page, :, :, off].float()
+            if a.kv_scales is not None:
+                x = x * a.kv_scales[i, :, :, lens[i], None]
+                y = y * c.kv_scales[i, :, :, lens[i], None]
+            row_err = max(row_err, max_err(x, y))
+            pa[page, :, :, off] = 0
+            pc[page, :, :, off] = 0
+        check(torch.equal(pa.view(torch.uint8), pc.view(torch.uint8)),
+              "the kernel and plain steps wrote different pages outside the "
+              "appended rows")
+        if a.kv_scales is not None:
+            sa, sc = a.kv_scales.clone(), c.kv_scales.clone()
+            for i in range(len(lens)):
+                sa[i, :, :, lens[i]] = 0
+                sc[i, :, :, lens[i]] = 0
+            check(torch.equal(sa, sc), "scales differ outside the new rows")
+    print(f"  engine step, {SHORT[dtype]} pages: pages and scales bit-equal "
+          f"outside the appended rows; appended rows (the new K/V, after 32 "
+          f"layers of kernel vs plain rounding) max |diff| {row_err:.4g}",
+          flush=True)
+    for r in eng.slots:
+        eng._lengths[r.slot] += 1
+        r.output.append(int(lk[r.slot, 0].argmax()))
+        eng._last_tokens[r.slot] = r.output[-1]
+    return eng
+
+
+def engine_breakdown(eng, steps: int = 6):
+    """Phase 6 (engine): decode steps of eight sequences over bf16 pages
+    under torch.profiler."""
+    active = [r for r in eng.slots if r is not None]
+    eng._decode_step(active)
+    return profile_steps(lambda: eng._decode_step(active), steps,
+                         {"engine": f"{len(active)} sequences, lengths "
+                                    f"{eng._lengths.tolist()}"})
 
 
 def tiny_parity():
@@ -626,6 +1222,13 @@ def main():
     rows = [check_norm(gen), check_flash_fwd(gen), check_fused_heads(gen),
             check_decode(gen, "A")]
     check_decode(gen, "B")  # printed; the JSON line keeps request A's row
+    rows += [check_decode_quant(gen, dt) for dt in QUANT]
+    rows += [check_splitkv(gen, dt, rows[3]["ms"])
+             for dt in (torch.bfloat16, torch.int8)]
+    rows += [check_paged(gen, "chunked", torch.bfloat16),
+             check_paged(gen, "chunked", torch.int8),
+             check_paged(gen, "chunked", torch.bfloat16, sq=512),
+             check_paged(gen, "page", torch.bfloat16)]
     torch.cuda.empty_cache()
 
     print(f"[4] slice: Llama-3-8B width, {LAYERS} layers, random bf16 "
@@ -640,20 +1243,71 @@ def main():
     print(f"  {n_params / 1e9:.3f} B parameters built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     totals = {name: 0 for name in counters()}
-    for name in REQUESTS:
-        counts, _ = serve(model, gen, name)
+    launches = {}  # kernel row -> its launches on the main path
+
+    def add(counts):
         for k, v in counts.items():
             totals[k] += v
+        return counts
+
+    for name in REQUESTS:
+        counts, seq, scores = serve(model, gen, name)
+        launches["flash_decode"] = launches.get("flash_decode", 0) + add(
+            counts)["flash_decode"]
+        if name == "A":
+            seq_a, scores_a = seq, scores
+    print("[4b] paged continuous batching: InferenceEngine, 12 requests",
+          flush=True)
+    for dt in (torch.bfloat16, torch.int8):
+        counts, st = serve_engine(model, dt, args.seed)
+        add(counts)
+        if dt == torch.bfloat16:
+            launches["paged_decode (chunked, bf16)"] = LAYERS * st["decode"]
+            launches["paged_decode (chunked, bf16, sq 512)"] = \
+                LAYERS * st["chunk"]
+        else:
+            launches["paged_decode (chunked, int8)"] = \
+                counts["paged_decode (chunked)"]
+        torch.cuda.empty_cache()
+    print("[4c] flash_attn_with_kvcache and quantized dense caches",
+          flush=True)
+    per_case = kvcache_api(gen)
+    for kind, counts in per_case.items():
+        add(counts)
+    launches["flash_decode_splitkv (bf16)"] = \
+        per_case["bf16"]["flash_decode_splitkv"]
+    launches["flash_decode_splitkv (int8)"] = \
+        per_case["int8"]["flash_decode_splitkv"]
+    launches["paged_decode (page, bf16)"] = \
+        per_case["paged"]["paged_decode (page)"]
+    launches["flash_decode (e4m3)"] = per_case["e4m3"]["flash_decode"]
+    for dt in QUANT:
+        reset_counts()
+        quantized_decode(model, "A", seq_a, scores_a, dt)
+        counts = add(read_counts())
+        check(counts["flash_decode"] == LAYERS * (REQUESTS["A"][2]
+                                                  - REQUESTS["A"][1]),
+              f"quantized decode launches {counts}")
+        key = f"flash_decode ({SHORT[dt]})"
+        launches[key] = launches.get(key, 0) + counts["flash_decode"]
+    del seq_a, scores_a
     check(all(v > 0 for v in totals.values()),
           f"a kernel of the path never launched: {totals}")
+    print(f"  launches on the main path, by kernel: {json.dumps(totals)}",
+          flush=True)
     print("[5] the kernel path against the plain path, full width and depth",
           flush=True)
     for name in REQUESTS:
         kernel_vs_plain(model, gen, name)
     torch.cuda.empty_cache()
+    engines = {dt: engine_vs_plain(model, dt, args.seed)
+               for dt in (torch.bfloat16, torch.int8)}
+    del engines[torch.int8]
+    torch.cuda.empty_cache()
     print("[6] where the time goes", flush=True)
     for name in REQUESTS:
         decode_breakdown(model, gen, name)
+    engine_breakdown(engines.pop(torch.bfloat16))
     del model
     torch.cuda.empty_cache()
     print("[7] tiny model: the card (bf16) against the CPU (fp32)",
@@ -661,7 +1315,9 @@ def main():
     tiny_parity()
 
     for row in rows:
-        row["launches"] = totals[row["name"]]
+        row["launches"] = launches.get(row["name"], totals.get(row["name"]))
+        check(row["launches"] > 0, f"{row['name']} never launched on the "
+                                   "main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

@@ -71,19 +71,29 @@ def test_cpu_cache_takes_the_plain_version():
     assert decode_kernel.flash_decode.launches == before
 
 
-@pytest.mark.parametrize("kw", [dict(kv_batch_idx=torch.tensor([1, 0])),
-                                dict(leftpad_k=torch.tensor([0, 3]))])
+@pytest.mark.parametrize("kw", [dict(kv_batch_idx=np.array([1, 0], np.int32)),
+                                dict(leftpad_k=np.array([0, 3], np.int32))])
 def test_serving_slice_options_raise(kw):
+    """kv_batch_idx and leftpad_k, which raised before the paged-serving
+    slice, now agree with the JAX kernel within 1e-5 (fp32)."""
     q, kc, vc = _inputs(1, seed=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
-                         torch.from_numpy(vc), torch.from_numpy(LENGTHS),
-                         0.125, **kw)
+    lengths = np.array([150, 77], np.int32)
+    want = jflash_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                         jnp.asarray(lengths), softmax_scale=0.125,
+                         **{k: jnp.asarray(v) for k, v in kw.items()})
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                           torch.from_numpy(vc), torch.from_numpy(lengths),
+                           0.125, **{k: torch.from_numpy(v)
+                                     for k, v in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
 
 
 def test_quantized_cache_raises():
+    """A quantized payload comes as a QuantizedKV with its scales; a bare
+    int8 tensor raises."""
     q, kc, vc = _inputs(1, seed=5)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    with pytest.raises(TypeError, match="quantized"):
         decode_attention(torch.from_numpy(q), torch.from_numpy(kc).to(torch.int8),
                          torch.from_numpy(vc).to(torch.int8),
                          torch.from_numpy(LENGTHS), 0.125)

@@ -172,3 +172,147 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda):
         _, got = decode(gpu, ids, max_length, teacher_outputs=seq,
                         return_scores=True)
         assert _err(got.cpu(), ref) <= 0.05 * ref.abs().max().item()
+
+
+# ---- paged serving: quantized flash_decode, split-KV, paged decode
+
+QDTYPES = [torch.int8, torch.float8_e4m3fn]
+
+
+def _quant_pair(cuda, shape, dtype):
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
+    x = torch.randn(*shape, generator=cuda, device="cuda")
+    return quantize_kv(x, dtype) if dtype in QDTYPES else x.to(dtype)
+
+
+@pytest.mark.parametrize("option,cache", [
+    (option, cache) for option in ("plain", "kv_batch_idx", "leftpad_k")
+    for cache in [torch.bfloat16] + QDTYPES] + [("strided", torch.bfloat16)])
+@pytest.mark.parametrize("sq,h,hk,d,window,softcap",
+                         [(1, 32, 8, 128, -1, 0.0), (2, 16, 2, 64, 100, 20.0)])
+def test_flash_decode_options_match_plain(cuda, sq, h, hk, d, window, softcap,
+                                          option, cache):
+    """Quantized payloads, kv_batch_idx, leftpad_k and (b, S, hk, d) caches
+    read through strides; both sides keep P in fp32, so one bf16 unit of the
+    largest output."""
+    b, S = 3, 1300
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    shape = (b, S, hk, d) if option == "strided" else (b, hk, S, d)
+    kc, vc = (_quant_pair(cuda, shape, cache) for _ in range(2))
+    if option == "strided":  # quantized caches come in (b, hk, S, d)
+        kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+    lengths = torch.tensor([S, 1000, 3], dtype=torch.int32, device="cuda")
+    kw = dict(window_size=(window, -1), softcap=softcap)
+    if option == "kv_batch_idx":
+        kw["kv_batch_idx"] = torch.tensor([2, 0, 0], dtype=torch.int32,
+                                          device="cuda")
+    if option == "leftpad_k":
+        lengths = torch.tensor([S - 50, 900, 0], dtype=torch.int32,
+                               device="cuda")
+        kw["leftpad_k"] = torch.tensor([50, 7, 3], dtype=torch.int32,
+                                       device="cuda")
+    before = dk.flash_decode.launches
+    out = dk.flash_decode(q, kc, vc, lengths, softmax_scale=d ** -0.5, **kw)
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, d ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert dk.flash_decode.launches == before + 1
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("num_splits", [0, 1, 2, 3])
+def test_splitkv_matches_plain(cuda, num_splits, cache):
+    """Partials against splitkv_partials_ref (fp32 on both sides: 1e-5 of
+    the largest |v|), and the merged output within one bf16 unit."""
+    from xhy_flash_attention_tpu_torch.inference import combine
+    b, h, hk, d, S = 2, 32, 8, 128, 2080
+    q = torch.randn(b, 1, h, d, generator=cuda, device="cuda").bfloat16()
+    kc, vc = (_quant_pair(cuda, (b, hk, S, d), cache) for _ in range(2))
+    lengths = torch.tensor([S, 700], dtype=torch.int32, device="cuda")
+    before = combine.flash_decode_splitkv.launches
+    out = combine.flash_decode_splitkv(q, kc, vc, lengths,
+                                       num_splits=num_splits)
+    assert combine.flash_decode_splitkv.launches == before + 1
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-6
+    splits, split_len = combine._split_plan(q, kc, num_splits, 512)
+    rows = h // hk
+    outs = torch.empty(b, hk, splits, rows, d, device="cuda")
+    ms = torch.empty(b, hk, splits, rows, device="cuda")
+    ls = torch.empty_like(ms)
+    dk.launch_decode(q, kc, vc, lengths, softmax_scale=d ** -0.5,
+                     partials=(outs, ms, ls), split_len=split_len)
+    ro, rm, rl = combine.splitkv_partials_ref(q, kc, vc, lengths, d ** -0.5,
+                                              splits, split_len)
+    torch.cuda.synchronize()
+    vmax = (vc.values.float() * vc.scales if cache in QDTYPES
+            else vc.float()).abs().max().item()
+    assert _err(outs, ro) <= 1e-5 * vmax
+    seen = rl > 0
+    assert torch.equal(seen, ls > 0)
+    assert _err(ms[seen], rm[seen]) <= 1e-5
+    assert ((ls - rl).abs() <= 1e-5 * rl.abs()).all()
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16] + QDTYPES)
+@pytest.mark.parametrize("d,npp,ps,entry", [(128, 8, 64, "chunked"),
+                                            (64, 8, 64, "page"),
+                                            (128, 1, 512, "page")])
+@pytest.mark.parametrize("sq,window,softcap", [(1, -1, 0.0), (37, 200, 30.0)])
+def test_paged_decode_matches_plain(cuda, sq, window, softcap, d, npp, ps,
+                                    entry, pages):
+    """Both entries over shuffled pages with ragged lengths, a zero-length
+    slot and sq * g up to 148 rows; P is rounded to bf16 for P.V on both
+    sides: one bf16 unit of the largest output plus 1e-3."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
+    b, h, hk = 4, 32, 8
+    cap = npp * ps
+    P = b * npp + 1
+    kv = torch.randn(P, hk, 2, ps, d, generator=cuda, device="cuda")
+    scales = None
+    if pages in QDTYPES:
+        qkv = quantize_kv(kv, pages)
+        kv = qkv.values
+        # linear per-sequence scales, random in [0.5, 1.5)
+        scales = 0.5 + torch.rand(b, hk, 2, cap, generator=cuda, device="cuda")
+    else:
+        kv = kv.to(pages)
+    perm = torch.randperm(b * npp, generator=cuda, device="cuda")
+    table = perm.reshape(b, npp).to(torch.int32)
+    lengths = torch.tensor([cap, 0, cap // 2 + 5, max(sq, 3)],
+                           dtype=torch.int32, device="cuda")
+    cache = paged.PagedKVCache(kv, table, lengths, scales)
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    fn = getattr(paged, f"paged_decode_{entry}")
+    before = fn.launches
+    out = paged.paged_flash_decode(q, cache, window_size=(window, -1),
+                                   softcap=softcap)
+    ref = paged.paged_flash_decode_ref(q, cache, d ** -0.5, (window, -1),
+                                       softcap)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert not out[1].float().abs().any()
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-3
+
+
+def test_paged_append_on_the_card(cuda):
+    """append_paged_kv through CUDA index_put equals the same append on
+    the CPU, bit for bit (e4m3 pages and scales)."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    b, hk, d, ps, npp = 3, 2, 64, 16, 3
+    caches = {}
+    for dev in ("cpu", "cuda"):
+        c = paged.PagedKVCache.create(b * npp + 1, hk, ps, d, b, npp,
+                                      torch.float8_e4m3fn, device=dev)
+        c.page_table.copy_(torch.arange(b * npp).reshape(b, npp))
+        c.lengths.copy_(torch.tensor([5, 0, npp * ps - 1]))
+        caches[dev] = c
+    k = torch.randn(b, hk, 4, d, generator=torch.Generator().manual_seed(1))
+    out = {dev: paged.append_paged_kv(c, k.to(dev), (2 * k).to(dev))
+           for dev, c in caches.items()}
+    assert torch.equal(out["cuda"].kv_pages.view(torch.uint8).cpu(),
+                       out["cpu"].kv_pages.view(torch.uint8))
+    assert torch.equal(out["cuda"].kv_scales.cpu(), out["cpu"].kv_scales)
+    assert out["cuda"].lengths.tolist() == [9, 0, npp * ps + 3]

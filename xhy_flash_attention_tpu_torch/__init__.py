@@ -5,14 +5,21 @@ names. Each TPU (Pallas) kernel on the ported path has a hand-written CUDA
 kernel under ``csrc/``, built at first use (ops/_cuda.py), and a plain
 PyTorch version beside its wrapper: CPU tensors take the plain version,
 CUDA tensors the kernel. Entry points build models on ``cuda`` unless told
-otherwise. This slice serves inference: greedy / sampled decoding of a
-Llama-shaped model with a dense KV cache.
+otherwise. The ported slices serve inference: greedy / sampled decoding
+of a Llama-shaped model with a dense bf16, fp32, int8 or e4m3 KV cache,
+`flash_attn_with_kvcache`, and continuous-batching serving over paged KV
+caches (``inference``: InferenceEngine, PagedKVCache, split-KV decode).
 """
 
 from .models.gpt import GPTConfig, GPTLMHeadModel, state_dict_from_jax
 from .models.llama import llama_config_to_gpt_config
 from .ops.decode import decode_attention
-from .ops.flash_attention import attention_ref, flash_attention, flash_attn_func
+from .ops.flash_attention import (
+    attention_ref,
+    flash_attention,
+    flash_attn_func,
+    flash_attn_with_kvcache,
+)
 from .ops.flash_attention.decode_kernel import flash_decode
 from .ops.flash_attention.fused_heads import (
     packed_heads_attention,
@@ -36,6 +43,7 @@ __all__ = [
     "dropout_add_rms_norm",
     "flash_attention",
     "flash_attn_func",
+    "flash_attn_with_kvcache",
     "flash_decode",
     "layer_norm",
     "llama_config_to_gpt_config",

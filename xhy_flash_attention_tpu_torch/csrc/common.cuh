@@ -6,7 +6,9 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -14,8 +16,13 @@
 
 namespace xfa {
 
-// dtype codes passed from Python (ops/_cuda.py DTYPE_CODES)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes passed from Python (ops/_cuda.py DTYPE_CODES and, for KV
+// caches, CACHE_CODES)
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kE4M3 = 3 };
+
+// The finite mask value of the TPU package (common.py DEFAULT_MASK_VALUE):
+// the running max that split-KV partials report for a split that sees no key.
+constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float load_as_float(const void* p, int64_t i, int dt) {
   return dt == kBF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
@@ -32,6 +39,10 @@ __device__ __forceinline__ void store_from_float(void* p, int64_t i, float v, in
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+// int8 and e4m3 cache payloads convert exactly (Hopper converts e4m3 natively,
+// subnormals included)
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);

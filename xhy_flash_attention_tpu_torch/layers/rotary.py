@@ -13,9 +13,10 @@ __all__ = ["apply_rotary_emb", "RotaryEmbedding"]
 
 
 def _rotate(x, cos, sin, interleaved: bool):
-    """x: (b, s, h, d_ro) fp32; cos/sin: (s, d_ro / 2) fp32."""
-    cos = cos[:, None, :]
-    sin = sin[:, None, :]
+    """x: (b, s, h, d_ro) fp32; cos/sin: (s, d_ro / 2) or per sample
+    (b, s, d_ro / 2) fp32, broadcast over heads."""
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
     if not interleaved:
         x1, x2 = x.chunk(2, dim=-1)
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -25,7 +26,8 @@ def _rotate(x, cos, sin, interleaved: bool):
 
 
 def apply_rotary_emb(x, cos, sin, interleaved: bool = False):
-    """x: (batch, seqlen, nheads, head_dim); cos/sin: (seqlen, rotary_dim/2).
+    """x: (batch, seqlen, nheads, head_dim); cos/sin: (seqlen, rotary_dim/2),
+    or (batch, seqlen, rotary_dim/2) at per-sample positions.
 
     The rotation runs in fp32 and the result returns in x's dtype.
     """
@@ -50,12 +52,17 @@ class RotaryEmbedding:
             torch.arange(0, self.dim, 2, dtype=torch.float32, device=device)
             / self.dim))
 
-    def cos_sin(self, seqlen: int, dtype=torch.float32, offset: int = 0,
+    def cos_sin(self, seqlen: int, dtype=torch.float32, offset=0,
                 device=None):
-        """(cos, sin) of shape (seqlen, dim / 2) for positions
-        offset .. offset + seqlen - 1, cast to ``dtype`` as the TPU package
-        does."""
-        t = torch.arange(offset, offset + seqlen, dtype=torch.float32,
-                         device=device)
-        freqs = torch.outer(t, self._inv_freq(device))
+        """(cos, sin) for positions offset .. offset + seqlen - 1, cast to
+        ``dtype`` as the TPU package does. An int (or 0-d tensor) offset
+        gives (seqlen, dim / 2) tables; a (b,) tensor of per-sample offsets
+        gives (b, seqlen, dim / 2) (≙ the TPU package's traced offsets,
+        modules/mha.py:233-256)."""
+        t = torch.arange(seqlen, dtype=torch.float32, device=device)
+        if isinstance(offset, torch.Tensor):
+            t = offset.to(device=device, dtype=torch.float32)[..., None] + t
+        else:
+            t = t + offset
+        freqs = t[..., None] * self._inv_freq(device)
         return freqs.cos().to(dtype), freqs.sin().to(dtype)

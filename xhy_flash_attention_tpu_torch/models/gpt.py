@@ -23,7 +23,8 @@ from ..modules.block import Block, _Norm
 from ..modules.embedding import GPT2Embeddings
 from ..modules.mha import MHA
 from ..modules.mlp import GatedMlp, Mlp
-from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED, NEXT_SLICES
+from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED
+from ..ops.quant import QUANT_DTYPES, QuantizedKV
 from ..utils.generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPTLMHeadModel", "GPTModel", "state_dict_from_jax"]
@@ -121,15 +122,20 @@ class GPTModel(nn.Module):
                              device=device) if c.prenorm else None)
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset: int = 0):
-        """Returns (hidden_states, kv_caches)."""
+                seqlen_offset=0):
+        """Returns (hidden_states, kv_caches). seqlen_offset: int or (b,)
+        tensor. Dense caches are written in place; a layer's PagedKVCache
+        comes back with advanced lengths and replaces its entry of the
+        ``kv_caches`` list, which is returned."""
         hidden = self.embeddings(input_ids, position_ids,
                                  seqlen_offset=seqlen_offset)
         residual = None
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
-            hidden, residual, _ = layer(hidden, residual, cache,
-                                        seqlen_offset)
+            hidden, residual, cache = layer(hidden, residual, cache,
+                                            seqlen_offset)
+            if kv_caches is not None:
+                kv_caches[i] = cache
         if self.norm_f is not None:
             hidden = self.norm_f(hidden, residual, False,
                                  self.config.residual_in_fp32)
@@ -169,7 +175,7 @@ class GPTLMHeadModel(GenerationMixin, nn.Module):
         return self.transformer.embeddings.word_embeddings.weight.device
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset: int = 0):
+                seqlen_offset=0):
         """Returns (logits (b, s, padded_vocab), kv_caches)."""
         hidden, kv_caches = self.transformer(
             input_ids, position_ids, kv_caches=kv_caches,
@@ -182,18 +188,24 @@ class GPTLMHeadModel(GenerationMixin, nn.Module):
         return logits, kv_caches
 
     def allocate_kv_caches(self, batch_size: int, max_seqlen: int,
-                           dtype=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Per-layer zeroed (k, v) caches of shape (b, hk, max_seqlen, d)."""
+                           dtype=None) -> List[Tuple[Any, Any]]:
+        """Per-layer (k, v) caches of shape (b, hk, max_seqlen, d): zeroed
+        tensors, or for int8 / float8_e4m3fn a QuantizedKV pair (zero
+        payload, unit scales (b, hk, max_seqlen, 1))."""
         c = self.config
         shape = (batch_size, c.kv_heads, max_seqlen, c.dim_head)
         dtype = dtype or c.dtype
-        if dtype not in (torch.bfloat16, torch.float32, torch.float16):
-            raise NotImplementedError(
-                "a quantized KV cache comes with slice 2 (Paged serving) "
-                f"{NEXT_SLICES}")
+        dev = self.device
+        if dtype in QUANT_DTYPES:
+            def mk():
+                return QuantizedKV(
+                    torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                               device=dev))
+            return [(mk(), mk()) for _ in range(c.num_hidden_layers)]
         return [
-            (torch.zeros(shape, dtype=dtype, device=self.device),
-             torch.zeros(shape, dtype=dtype, device=self.device))
+            (torch.zeros(shape, dtype=dtype, device=dev),
+             torch.zeros(shape, dtype=dtype, device=dev))
             for _ in range(c.num_hidden_layers)
         ]
 

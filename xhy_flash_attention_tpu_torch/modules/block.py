@@ -53,7 +53,7 @@ class Block(nn.Module):
         self.norm2 = _Norm(dim, rms_norm, norm_eps, device=device)
 
     def forward(self, hidden_states, residual=None, kv_cache=None,
-                seqlen_offset: int = 0):
+                seqlen_offset=0):
         """Returns (hidden_states, residual, kv_cache). residual is the
         running residual stream (None into the first block; None out of a
         postnorm block)."""

@@ -23,12 +23,17 @@ class GPT2Embeddings(nn.Module):
                          device=device)
             if max_position_embeddings > 0 else None)
 
-    def forward(self, input_ids, position_ids=None, seqlen_offset: int = 0):
+    def forward(self, input_ids, position_ids=None, seqlen_offset=0):
+        """seqlen_offset: int, or (b,) tensor of per-sample offsets."""
         x = self.word_embeddings(input_ids)
         if self.position_embeddings is not None:
             if position_ids is None:
                 s = input_ids.shape[1]
-                position_ids = torch.arange(
-                    seqlen_offset, seqlen_offset + s, device=input_ids.device)
+                position_ids = torch.arange(s, device=input_ids.device)
+                if isinstance(seqlen_offset, torch.Tensor):
+                    seqlen_offset = seqlen_offset.to(input_ids.device)
+                    if seqlen_offset.ndim == 1:
+                        seqlen_offset = seqlen_offset[:, None]
+                position_ids = position_ids + seqlen_offset
             x = x + self.position_embeddings(position_ids)
         return x

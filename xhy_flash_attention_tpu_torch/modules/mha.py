@@ -1,16 +1,24 @@
-"""Multi-head attention with a dense KV cache (≙ xhy_flash_attention_tpu
+"""Multi-head attention with a KV cache (≙ xhy_flash_attention_tpu
 modules/mha.py `MHA`).
 
-Routing follows the TPU package (mha.py:285-377):
+Routing follows the TPU package (mha.py:268-377):
   * no cache, no rotary, h == hk: attention straight on the packed Wqkv
     output (packed_qkv_attention) when the packed gate allows;
-  * prefill (seqlen_offset == 0) and calls without a cache: `_attend`, which
-    takes the packed-heads kernel when supported, else flash_attention;
-  * decode (seqlen_offset > 0): decode_attention against the cache at
-    lengths offset + sq.
+  * a PagedKVCache (continuous batching: decode, chunked prefill,
+    speculative verify): append_paged_kv, then paged_flash_decode;
+  * a dense cache, bf16 / fp32 tensors or QuantizedKV (int8 / e4m3 with
+    per-token scales): the new keys and values are written at
+    seqlen_offset; prefill (seqlen_offset == 0) runs `_attend`, which takes
+    the packed-heads kernel when supported, else flash_attention; decode
+    runs decode_attention against the cache at lengths offset + sq;
+  * no cache: `_attend`.
+seqlen_offset is an int, or a (b,) tensor of per-sample offsets (rotary
+then rotates each sample at its own positions).
 
-The TPU package returns a new cache; here the (b, hk, max_seqlen, d)
-caches are written in place and the same tensors are returned.
+The TPU package returns new caches; here dense caches and pages are written
+in place and the same tensors are returned. A paged cache comes back as a
+new PagedKVCache over the same pages, with advanced lengths
+(inference/paged.py).
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..inference.paged import PagedKVCache, append_paged_kv, paged_flash_decode
 from ..layers.rotary import RotaryEmbedding, apply_rotary_emb
-from ..ops.decode import decode_attention
+from ..ops.decode import decode_attention, write_kv
 from ..ops.flash_attention.fused_heads import (
     packed_heads_attention,
     packed_heads_supported,
@@ -73,11 +82,13 @@ class MHA(nn.Module):
         self.rotary = (RotaryEmbedding(rotary_emb_dim, base=rotary_emb_base)
                        if rotary_emb_dim > 0 else None)
 
-    def forward(self, x, kv_cache=None, seqlen_offset: int = 0):
+    def forward(self, x, kv_cache=None, seqlen_offset=0):
         """x: (batch, seqlen, embed_dim). Returns (out, kv_cache).
 
-        kv_cache: (k_cache, v_cache), each (batch, hk, max_seqlen, d); the
-        new keys and values are written in place at seqlen_offset.
+        kv_cache: (k_cache, v_cache), each a (batch, hk, max_seqlen, d)
+        tensor or QuantizedKV, whose new keys and values are written in
+        place at seqlen_offset; or a PagedKVCache. seqlen_offset: int or
+        (batch,) tensor.
         """
         b, sq, _ = x.shape
         h, hk, d = self.h, self.hk, self.d
@@ -100,20 +111,26 @@ class MHA(nn.Module):
             q = apply_rotary_emb(q, cos, sin, self.rotary_emb_interleaved)
             k = apply_rotary_emb(k, cos, sin, self.rotary_emb_interleaved)
 
-        if kv_cache is None:
+        scale = self.softmax_scale or d ** -0.5
+        if isinstance(kv_cache, PagedKVCache):
+            kv_cache = append_paged_kv(kv_cache, k.transpose(1, 2),
+                                       v.transpose(1, 2))
+            out = paged_flash_decode(q, kv_cache, softmax_scale=scale,
+                                     window_size=self.window_size,
+                                     softcap=self.softcap)
+        elif kv_cache is None:
             out = self._attend(q, k, v)
         else:
             k_cache, v_cache = kv_cache
-            end = seqlen_offset + sq
-            k_cache[:, :, seqlen_offset:end] = k.transpose(1, 2)
-            v_cache[:, :, seqlen_offset:end] = v.transpose(1, 2)
-            if seqlen_offset == 0:
+            write_kv(k_cache, k, seqlen_offset)
+            write_kv(v_cache, v, seqlen_offset)
+            if isinstance(seqlen_offset, int) and seqlen_offset == 0:
                 out = self._attend(q, k, v)
             else:
+                lengths = (torch.as_tensor(seqlen_offset, device=x.device)
+                           + sq).to(torch.int32).expand(b).contiguous()
                 out = decode_attention(
-                    q, k_cache, v_cache,
-                    torch.full((b,), end, dtype=torch.int32, device=x.device),
-                    softmax_scale=self.softmax_scale or d ** -0.5,
+                    q, k_cache, v_cache, lengths, softmax_scale=scale,
                     window_size=self.window_size, softcap=self.softcap)
         return self.out_proj(out.reshape(b, sq, h * d)), kv_cache
 

@@ -35,8 +35,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# dtype codes of csrc/common.cuh
+# dtype codes of csrc/common.cuh; KV caches may also hold int8 / e4m3
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CACHE_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _c_void_p, _c_int, _c_int64, _c_float = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float)
@@ -46,7 +47,10 @@ _SIGNATURES = {
                    _c_float, _c_int, _c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int, _c_void_p],
-    "xfa_flash_decode": [_c_void_p] * 5 + [_c_int] * 7
+    "xfa_flash_decode": [_c_void_p] * 12 + [_c_int64, _c_int64, _c_int] * 2
+    + [_c_int] * 10
+    + [_c_float, _c_float, _c_int, _c_void_p],
+    "xfa_paged_decode": [_c_void_p] * 6 + [_c_int] * 9
     + [_c_float, _c_float, _c_int, _c_void_p],
 }
 
@@ -148,6 +152,11 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def ptr(t):
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return t.data_ptr() if t is not None else None
+
+
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -159,6 +168,15 @@ def dtype_code(t: torch.Tensor) -> int:
         raise TypeError(
             f"the CUDA kernels take float32 or bfloat16, got {t.dtype}"
         ) from None
+
+
+def cache_dtype_code(t: torch.Tensor) -> int:
+    try:
+        return CACHE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(
+            "the CUDA decode kernels take float32, bfloat16, int8 or "
+            f"float8_e4m3fn caches, got {t.dtype}") from None
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:
