@@ -26,7 +26,10 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention import (
 )
 from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads as tfh
 from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
-    TRAINING_NOT_PORTED,
+    NO_BACKWARD,
+)
+from xhy_flash_attention_tpu_torch.ops.flash_attention.decode_kernel import (
+    flash_decode,
 )
 
 B, H, HK, D = 2, 4, 2, 64
@@ -135,14 +138,22 @@ def test_packed_gate_matches_jax(shape, ok):
 
 
 def test_attention_inputs_needing_grad_raise():
+    """Prefill attention is differentiable now (slice 3); decode against a
+    cache has no backward, as in the TPU package, and raises."""
     q = torch.randn(1, 2, 8, 64, requires_grad=True)
     k = torch.randn(1, 2, 8, 64)
-    with pytest.raises(RuntimeError, match="Training"):
-        flash_attention(q, k, k, causal=True)
-    with pytest.raises(RuntimeError, match="Training"):
-        tfh.packed_heads_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   k.transpose(1, 2))
-    assert "ROADMAP.md" in TRAINING_NOT_PORTED
+    assert flash_attention(q, k, k, causal=True).grad_fn is not None
+    assert tfh.packed_heads_attention(
+        q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2)
+    ).grad_fn is not None
+    lengths = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_decode(q.transpose(1, 2)[:, :1], k, k, lengths,
+                     softmax_scale=0.125)
+    with torch.no_grad():
+        flash_decode(q.transpose(1, 2)[:, :1], k, k, lengths,
+                     softmax_scale=0.125)
+    assert "no backward" in NO_BACKWARD
 
 
 @pytest.mark.parametrize("kw", [dict(window_size=(16, 0)),

@@ -316,3 +316,184 @@ def test_paged_append_on_the_card(cuda):
                        out["cpu"].kv_pages.view(torch.uint8))
     assert torch.equal(out["cuda"].kv_scales.cpu(), out["cpu"].kv_scales)
     assert out["cuda"].lengths.tolist() == [9, 0, npp * ps + 3]
+
+
+# ---- training: attention backward (dK/dV, dQ, packed dqkv), norm backward
+
+def _grad_contract(grads, q, k, v, do, causal, softcap):
+    """Each kernel gradient against the fp32 `attention_ref` gradient: at
+    most twice the error of the bf16 reorder-ops baseline's gradient."""
+    def ref_grads(upcast, reorder):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out, _ = attention_ref(*ins, causal=causal, softcap=softcap,
+                               upcast=upcast, reorder_ops=reorder)
+        return torch.autograd.grad(out, ins, do)
+    want = ref_grads(True, False)
+    low = ref_grads(False, True)
+    for got, w, lo in zip(grads, want, low):
+        assert _err(got, w) <= 2 * _err(lo, w) + 1e-3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1100, 1100), (77, 300), (300, 77)])
+def test_flash_bwd_matches_plain(cuda, sq, sk, causal, softcap, d):
+    """dK/dV and dQ kernels (GQA, h 8 over hk 2) against the plain backward
+    on the same forward outputs: four bf16 units of each gradient's largest
+    entry (both round P and dS to bf16, in sums of another order); and the
+    repository's contract against the fp32 reference."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h, hk = 2, 8, 2
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    k = torch.randn(b, sk, hk, d, generator=cuda, device="cuda").bfloat16()
+    v = torch.randn(b, sk, hk, d, generator=cuda, device="cuda").bfloat16()
+    do = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=softcap)
+    out, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
+    before = (bwd.flash_bwd_dkv.launches, bwd.flash_bwd_dq.launches)
+    got = bwd.flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
+    want = bwd.attention_bwd_ref(qt, kt, vt, out, lse, dot, **kw)
+    torch.cuda.synchronize()
+    assert (bwd.flash_bwd_dkv.launches, bwd.flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    _grad_contract([g.transpose(1, 2) for g in got], q, k, v, do, causal,
+                   softcap)
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    """Three backward passes give bitwise equal dq, dk and dv (no atomics:
+    every output element is summed by one thread in a fixed order)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import flash_attn_func
+    b, s, h, hk, d = 2, 1100, 8, 2, 128
+    q = torch.randn(b, s, h, d, generator=cuda, device="cuda").bfloat16()
+    k = torch.randn(b, s, hk, d, generator=cuda, device="cuda").bfloat16()
+    v = torch.randn(b, s, hk, d, generator=cuda, device="cuda").bfloat16()
+    do = torch.randn(b, s, h, d, generator=cuda, device="cuda").bfloat16()
+    runs = []
+    for _ in range(3):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attn_func(*ins, causal=True)
+        runs.append(torch.autograd.grad(out, ins, do))
+    for other in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hk", [(8, 8), (8, 2)])
+def test_fused_heads_bwd_matches_plain(cuda, h, hk, d):
+    """The packed entry: one dqkv in [dq | dk | dv] column order, written
+    through strides, against the plain version and the contract."""
+    b, s = 2, 960
+    qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=cuda,
+                      device="cuda").bfloat16().requires_grad_()
+    do = torch.randn(b, s, h * d, generator=cuda, device="cuda").bfloat16()
+    before = (fh.fused_heads_fwd.launches, fh.fused_heads_bwd.launches)
+    out = fh.packed_qkv_attention(qkv, num_heads=h, num_heads_kv=hk,
+                                  head_dim=d, causal=True)
+    dqkv, = torch.autograd.grad(out, qkv, do)
+    assert (fh.fused_heads_fwd.launches, fh.fused_heads_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    q, k, v = fh._split(qkv.detach(), h, hk, d)
+    ref_out, lse = fh.fused_heads_fwd_ref(q, k, v, sm_scale=d ** -0.5,
+                                          causal=True, softcap=0.0,
+                                          need_lse=True)
+    want = fh.fused_heads_bwd_ref(q, k, v, ref_out, lse, do.view(b, s, h, d),
+                                  sm_scale=d ** -0.5, causal=True,
+                                  softcap=0.0)
+    torch.cuda.synchronize()
+    for g, w in zip(fh._split(dqkv, h, hk, d), want):
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    _grad_contract(fh._split(dqkv, h, hk, d), q, k, v, do.view(b, s, h, d),
+                   True, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("residual", [None, torch.float32, "x0"])
+@pytest.mark.parametrize("prenorm", [False, True])
+@pytest.mark.parametrize("rows,hidden", [(37, 4096), (5000, 1024)])
+def test_ln_bwd_matches_plain(cuda, rows, hidden, prenorm, residual, rms,
+                              dtype):
+    """The norm backward against its plain version on the same saved
+    forward: dx0 to one unit in the last place of its dtype (of the largest
+    entry), dresidual likewise, dgamma / dbeta (fp32 sums of another order
+    over the rows) to 1e-4 of the largest entry."""
+    x0 = torch.randn(rows, hidden, generator=cuda, device="cuda").to(dtype)
+    res = None
+    if residual is not None:
+        res = 3 * torch.randn(rows, hidden, generator=cuda, device="cuda")
+        res = res.to(dtype if residual == "x0" else residual)
+    w = 1 + 0.1 * torch.randn(hidden, generator=cuda, device="cuda")
+    b = None if rms else 0.1 * torch.randn(hidden, generator=cuda, device="cuda")
+    res_dtype = torch.float32
+    _, resout, mu, rstd = ln.ln_fwd(x0, res, w, b, 1e-5, rms, res_dtype,
+                                    True, True)
+    _, ref_res, ref_mu, ref_rstd = ln.ln_fwd_ref(x0, res, w, b, 1e-5, rms,
+                                                 res_dtype, True, True)
+    assert _err(rstd, ref_rstd) <= 1e-5 * ref_rstd.abs().max().item()
+    if not rms:
+        assert _err(mu, ref_mu) <= 1e-5 * ref_mu.abs().max().item() + 1e-6
+    dout = torch.randn(rows, hidden, generator=cuda, device="cuda").to(dtype)
+    dres_in = (torch.randn(rows, hidden, generator=cuda, device="cuda")
+               if prenorm else None)
+    kw = dict(is_rms=rms, has_bias=b is not None, x0_dtype=dtype,
+              res_dtype=None if res is None else res.dtype)
+    before = ln.ln_bwd.launches
+    got = ln.ln_bwd(dout, dres_in, resout, mu, rstd, w, **kw)
+    want = ln.ln_bwd_ref(dout, dres_in, resout, mu, rstd, w, **kw)
+    torch.cuda.synchronize()
+    assert ln.ln_bwd.launches == before + 1
+    for i, (g, wt) in enumerate(zip(got, want)):
+        assert (g is None) == (wt is None)
+        if g is None:
+            continue
+        assert g.dtype == wt.dtype and g.shape == wt.shape
+        scale = wt.float().abs().max().item()
+        if i < 2:
+            ulp = BF16_ULP if g.dtype == torch.bfloat16 else 1e-6
+            assert _err(g, wt) <= ulp * scale + 1e-6
+        else:
+            assert _err(g, wt) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_two_layer_model_trains_on_the_card(cuda, rotary):
+    """A 2-layer bf16 GPT on the card: the norm's outputs carry a grad_fn
+    (no gradient is cut at the kernel), every parameter gets a finite,
+    non-zero gradient, and the backward ran through the kernels. hidden 256
+    with 4 heads: without rotary the packed route (kernels #5/#6), with
+    rotary (and s > 1024) flash_attention (#1, #2/#3)."""
+    from xhy_flash_attention_tpu_torch import GPTConfig, GPTLMHeadModel
+    from xhy_flash_attention_tpu_torch.losses import cross_entropy_loss
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    s = 1100 if rotary else 512
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=0 if rotary
+                    else s, rotary_emb_fraction=0.5 if rotary else 0.0,
+                    dtype=torch.bfloat16)
+    model = GPTLMHeadModel(cfg, device="cuda")
+    ids = torch.randint(0, 512, (2, s + 1), generator=cuda, device="cuda")
+    counts = lambda: (ln.ln_fwd.launches, ln.ln_bwd.launches,
+                      bwd.flash_bwd_dkv.launches, bwd.flash_bwd_dq.launches,
+                      fh.fused_heads_bwd.launches)
+    before = counts()
+    normed = model.transformer.layers[0].norm1(
+        model.transformer.embeddings(ids[:, :-1]), None, True, True)
+    assert normed[0].grad_fn is not None and normed[1].grad_fn is not None
+    logits, _ = model(ids[:, :-1])
+    loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                              ids[:, 1:].reshape(-1)).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+        assert p.grad.float().abs().max().item() > 0, name
+    delta = [a - c for a, c in zip(counts(), before)]
+    assert delta[0] == 2 * 2 + 1 + 1 and delta[1] == 2 * 2 + 1
+    assert delta[2:] == ([2, 2, 0] if rotary else [0, 0, 2])

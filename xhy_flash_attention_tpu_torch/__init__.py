@@ -5,12 +5,16 @@ names. Each TPU (Pallas) kernel on the ported path has a hand-written CUDA
 kernel under ``csrc/``, built at first use (ops/_cuda.py), and a plain
 PyTorch version beside its wrapper: CPU tensors take the plain version,
 CUDA tensors the kernel. Entry points build models on ``cuda`` unless told
-otherwise. The ported slices serve inference: greedy / sampled decoding
-of a Llama-shaped model with a dense bf16, fp32, int8 or e4m3 KV cache,
-`flash_attn_with_kvcache`, and continuous-batching serving over paged KV
-caches (``inference``: InferenceEngine, PagedKVCache, split-KV decode).
+otherwise. The ported slices: greedy / sampled decoding of a Llama-shaped
+model with a dense bf16, fp32, int8 or e4m3 KV cache,
+`flash_attn_with_kvcache`, continuous-batching serving over paged KV caches
+(``inference``: InferenceEngine, PagedKVCache, split-KV decode), and
+training on one device (``training``: Trainer, train, AdamW, the
+cross-entropy loss), with backward kernels for attention and the fused
+norm.
 """
 
+from .losses import CrossEntropyLoss, cross_entropy_loss
 from .models.gpt import GPTConfig, GPTLMHeadModel, state_dict_from_jax
 from .models.llama import llama_config_to_gpt_config
 from .ops.decode import decode_attention
@@ -18,6 +22,7 @@ from .ops.flash_attention import (
     attention_ref,
     flash_attention,
     flash_attn_func,
+    flash_attn_qkvpacked_func,
     flash_attn_with_kvcache,
 )
 from .ops.flash_attention.decode_kernel import flash_decode
@@ -31,18 +36,23 @@ from .ops.layer_norm import (
     layer_norm,
     rms_norm,
 )
+from .training import Trainer, train
 from .utils.generation import decode, sample_logits
 
 __all__ = [
+    "CrossEntropyLoss",
     "GPTConfig",
     "GPTLMHeadModel",
+    "Trainer",
     "attention_ref",
+    "cross_entropy_loss",
     "decode",
     "decode_attention",
     "dropout_add_layer_norm",
     "dropout_add_rms_norm",
     "flash_attention",
     "flash_attn_func",
+    "flash_attn_qkvpacked_func",
     "flash_attn_with_kvcache",
     "flash_decode",
     "layer_norm",
@@ -52,4 +62,5 @@ __all__ = [
     "rms_norm",
     "sample_logits",
     "state_dict_from_jax",
+    "train",
 ]

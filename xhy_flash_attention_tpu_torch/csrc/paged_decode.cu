@@ -57,26 +57,10 @@ struct PagedParams {
   int window_left;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
+using xfa::ldmatrix_x2_trans;
+using xfa::mma_16816;
+using xfa::pack_a;
+using xfa::pack_bf16;
 
 // Eight consecutive cache elements as eight bf16 (one 16-byte shared store).
 __device__ __forceinline__ uint4 load8(const bf16* p) {
@@ -260,10 +244,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const PagedParam
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pack_a(a, s, kk);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         uint32_t b0, b1;

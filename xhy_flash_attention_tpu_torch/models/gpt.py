@@ -5,9 +5,9 @@ this skeleton plus a config translation. Linear and embedding weights live
 in ``config.dtype``; norm weights stay fp32, as in the TPU package. Weights
 are drawn from ``normal(0, initializer_range)`` with an explicit
 ``torch.Generator``; `state_dict_from_jax` converts the TPU package's
-parameter tree instead.
-
-Inference only: call under ``torch.inference_mode()`` (``decode`` does).
+parameter tree instead. The forward without caches is differentiable (the
+training path, training/train.py); decoding against caches runs under
+``torch.inference_mode()`` (``decode`` does).
 """
 
 from __future__ import annotations
@@ -239,7 +239,9 @@ def state_dict_from_jax(params: Mapping, config: GPTConfig) -> Dict[str, torch.T
         return out
 
     tr = p["transformer"]
-    emb = tr["embeddings"]
+    # rotary-only with tied word embeddings: the embeddings module owns no
+    # parameter, and flax leaves it out of the tree
+    emb = tr.get("embeddings", {})
     sd: Dict[str, torch.Tensor] = {}
     word = (p["wte"]["embedding"] if config.tie_word_embeddings
             else emb["word_embeddings"]["embedding"])

@@ -41,12 +41,20 @@ CACHE_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _c_void_p, _c_int, _c_int64, _c_float = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float)
+_BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
+             + [_c_float, _c_float, _c_int, _c_void_p])
 _SIGNATURES = {
     "xfa_ln_fwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p,
-                   _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int64, _c_int,
-                   _c_float, _c_int, _c_void_p],
+                   _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                   _c_void_p, _c_int64, _c_int, _c_float, _c_int, _c_void_p],
+    "xfa_ln_bwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_int,
+                   _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+                   _c_void_p, _c_int, _c_void_p, _c_void_p, _c_int64, _c_int,
+                   _c_int, _c_int, _c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int, _c_void_p],
+    "xfa_flash_bwd_dkv": _BWD_ARGS,
+    "xfa_flash_bwd_dq": _BWD_ARGS,
     "xfa_flash_decode": [_c_void_p] * 12 + [_c_int64, _c_int64, _c_int] * 2
     + [_c_int] * 10
     + [_c_float, _c_float, _c_int, _c_void_p],
@@ -197,3 +205,12 @@ def require_aligned(t: torch.Tensor, elems: int, what: str) -> None:
         raise ValueError(
             f"{what}: pointer and strides must be multiples of {elems} "
             f"elements, got strides {t.stride()}")
+
+
+def aligned(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """``t`` if :func:`require_aligned` accepts it, else a contiguous copy
+    (autograd may hand a kernel an expanded or transposed gradient)."""
+    if t.stride(-1) == 1 and t.data_ptr() % (elems * t.element_size()) == 0 \
+            and not any(s % elems for s in t.stride()[:-1]):
+        return t
+    return t.contiguous()

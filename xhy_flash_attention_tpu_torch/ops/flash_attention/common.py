@@ -18,10 +18,10 @@ NEG_INF = DEFAULT_MASK_VALUE
 # Kernel numbers are those of the TPU kernel table (PERF.md section 6,
 # ROADMAP.md queue B).
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
-TRAINING_NOT_PORTED = (
-    "the PyTorch port serves inference only; gradients through attention "
-    "need the backward TPU kernels #2, #3 and #6, which come with slice 3 "
-    f"(Training) {NEXT_SLICES}. Call under torch.inference_mode()."
+NO_BACKWARD = (
+    "attention against a KV cache (dense, paged or split-KV decode) has no "
+    "backward, as in the TPU package: call it under torch.no_grad() or "
+    "torch.inference_mode()"
 )
 CUDA_DTYPE_NOT_PORTED = (
     "the CUDA attention kernel (TPU kernels #1 and #5) takes bfloat16 "
@@ -38,6 +38,8 @@ def round_up(a: int, b: int) -> int:
 
 
 def require_inference(*tensors) -> None:
-    """Raise when any tensor would need a gradient through attention."""
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(TRAINING_NOT_PORTED)
+    """Raise when any tensor would need a gradient through a decode
+    kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(NO_BACKWARD)

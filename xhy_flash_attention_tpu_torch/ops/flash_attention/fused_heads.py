@@ -1,16 +1,21 @@
 """Attention on the packed projection layout (≙ xhy_flash_attention_tpu
-ops/flash_attention/fused_heads.py), forward.
+ops/flash_attention/fused_heads.py), forward and backward.
 
 q/k/v stay in the projection layout (b, s, h*d) — as (b, s, h, d) views or
 as column ranges of one packed (b, s, (h + 2hk)*d) Wqkv output — and the
-kernel csrc/flash_fwd.cu reads them through strides, with no slice or
-transpose copy. It is the counterpart of the TPU kernel `_fwd_kernel`
-(fused_heads.py:59) and shares its CUDA source with fwd.py; the launch is
-counted here, apart from flash_attention_fwd's. On a CPU tensor the plain
-version :func:`fused_heads_fwd_ref` runs.
+kernels read them through strides, with no slice or transpose copy. The
+forward runs csrc/flash_fwd.cu (the counterpart of the TPU kernel
+`_fwd_kernel`, fused_heads.py:59); the backward (≙ `_bwd_kernel`,
+fused_heads.py:105) runs the dK/dV and dQ kernels of csrc/flash_bwd.cu, which
+write dq/dk/dv through strides: `packed_qkv_attention`'s gradient is one
+packed dqkv in [dq | dk | dv] column order, as `_bwd_call_qkv` emits it
+(fused_heads.py:400-429), with no concatenation. Launches are counted here,
+apart from flash_attention_fwd's and the dK/dV and dQ entries'. On CPU
+tensors the plain versions :func:`fused_heads_fwd_ref` and
+:func:`fused_heads_bwd_ref` run.
 
 Scope, as in the TPU package: sq == sk <= MAX_SEQ, causal or full, softcap,
-MQA/GQA; no bias, windows or segments. Dropout comes with the training slice.
+MQA/GQA; no bias, windows or segments. Dropout comes with slice 4.
 """
 
 from __future__ import annotations
@@ -19,11 +24,15 @@ from typing import Optional
 
 import torch
 
-from .common import NEXT_SLICES, require_inference
+from .. import _cuda
+from .bwd import attention_bwd_ref, attention_delta, launch_flash_bwd
+from .common import NEXT_SLICES
 from .fwd import attention_fwd_ref, launch_flash_fwd
 
 __all__ = [
     "MAX_SEQ",
+    "fused_heads_bwd",
+    "fused_heads_bwd_ref",
     "fused_heads_fwd",
     "fused_heads_fwd_ref",
     "packed_heads_attention",
@@ -56,56 +65,172 @@ def packed_heads_supported(q_shape, k_shape, *, causal, window_size,
         q_seg, kv_seg)
 
 
+def _bhsd(*ts):
+    return [t.transpose(1, 2) for t in ts]
+
+
 def fused_heads_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
-                        softcap: float):
+                        softcap: float, need_lse: bool = False):
     """Plain version on (b, s, h, d) / (b, s, hk, d) views; returns
-    (b, s, h, d)."""
-    out, _ = attention_fwd_ref(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        sm_scale=sm_scale, causal=causal, softcap=softcap, need_lse=False)
-    return out.transpose(1, 2)
+    (b, s, h, d), and with ``need_lse`` also the fp32 (b, h, s) LSE."""
+    out, lse = attention_fwd_ref(
+        *_bhsd(q, k, v), sm_scale=sm_scale, causal=causal, softcap=softcap,
+        need_lse=need_lse)
+    out = out.transpose(1, 2)
+    return (out, lse) if need_lse else out
 
 
 def fused_heads_fwd(q, k, v, *, sm_scale: float, causal: bool,
-                    softcap: float):
+                    softcap: float, need_lse: bool = False):
     """Kernel wrapper on (b, s, h, d) / (b, s, hk, d) views of the
-    projection layout. Returns a contiguous (b, s, h, d) tensor.
+    projection layout. Returns a contiguous (b, s, h, d) tensor, and with
+    ``need_lse`` also the fp32 (b, h, s) LSE.
 
     ``fused_heads_fwd.launches`` counts kernel launches.
     """
-    require_inference(q, k, v)
+    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
     if q.device.type == "cpu":
-        return fused_heads_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
-                                   softcap=softcap)
+        return fused_heads_fwd_ref(q, k, v, need_lse=need_lse, **kw)
+    b, s, h, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch_flash_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                     out.transpose(1, 2), None, sm_scale=sm_scale,
-                     causal=causal, softcap=softcap)
+    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    launch_flash_fwd(*_bhsd(q, k, v, out), lse, **kw)
     fused_heads_fwd.launches += 1
-    return out
+    return (out, lse) if need_lse else out
 
 
 fused_heads_fwd.launches = 0
 
 
+def fused_heads_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
+                        causal: bool, softcap: float, dq=None, dk=None,
+                        dv=None):
+    """Plain version of :func:`fused_heads_bwd`: the same gradients from
+    `attention_bwd_ref`, copied into dq/dk/dv where they are given."""
+    grads = attention_bwd_ref(*_bhsd(q, k, v, out), lse, do.transpose(1, 2),
+                              sm_scale=sm_scale, causal=causal,
+                              softcap=softcap)
+    grads = [g.transpose(1, 2) for g in grads]
+    for dst, g in zip((dq, dk, dv), grads):
+        if dst is not None:
+            dst.copy_(g)
+    return tuple(g if dst is None else dst
+                 for dst, g in zip((dq, dk, dv), grads))
+
+
+def fused_heads_bwd(q, k, v, out, lse, do, *, sm_scale: float, causal: bool,
+                    softcap: float, dq=None, dk=None, dv=None):
+    """Backward of the packed-layout attention on (b, s, h, d) / (b, s, hk,
+    d) views: q/k/v and out of the forward, its fp32 (b, h, s) LSE and the
+    output gradient do. dq/dk/dv, where given, are (b, s, ·, d) views to
+    write (column ranges of a packed dqkv); the others are allocated.
+    Returns (dq, dk, dv).
+
+    ``fused_heads_bwd.launches`` counts its entries on CUDA (each runs the
+    dK/dV and the dQ kernel).
+    """
+    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+    if q.device.type == "cpu":
+        return fused_heads_bwd_ref(q, k, v, out, lse, do, dq=dq, dk=dk,
+                                   dv=dv, **kw)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) \
+        if dq is None else dq
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device) \
+        if dk is None else dk
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device) \
+        if dv is None else dv
+    do = _cuda.aligned(do, 8)
+    qt, kt, vt, dot = _bhsd(q, k, v, do)
+    args = (qt, kt, vt, dot, lse, attention_delta(*_bhsd(out, do)),
+            *_bhsd(dq, dk, dv))
+    launch_flash_bwd("dkv", *args, **kw)
+    launch_flash_bwd("dq", *args, **kw)
+    fused_heads_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_heads_bwd.launches = 0
+
+
 def _check(dropout_p):
     if dropout_p > 0.0:
         raise NotImplementedError(
-            "dropout in packed attention comes with slice 3 (Training) "
+            "dropout in packed attention comes with slice 4 (The rest) "
             f"{NEXT_SLICES}")
+
+
+class _PackedHeads(torch.autograd.Function):
+    """(b, s, h, d) q and (b, s, hk, d) k/v -> (b, s, h, d)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal, softcap):
+        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+        out, lse = fused_heads_fwd(q, k, v, need_lse=True, **ctx.kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fused_heads_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def _split(qkv, h, hk, d):
+    b, s, _ = qkv.shape
+    return (qkv[..., : h * d].view(b, s, h, d),
+            qkv[..., h * d: (h + hk) * d].view(b, s, hk, d),
+            qkv[..., (h + hk) * d:].view(b, s, hk, d))
+
+
+class _PackedQKV(torch.autograd.Function):
+    """(b, s, (h + 2hk) d) packed qkv -> (b, s, h d); the gradient is one
+    packed dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, h, hk, d, sm_scale, causal, softcap):
+        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+        ctx.heads = (h, hk, d)
+        out, lse = fused_heads_fwd(*_split(qkv, h, hk, d), need_lse=True,
+                                   **ctx.kw)
+        b, s = qkv.shape[:2]
+        out = out.reshape(b, s, h * d)
+        ctx.save_for_backward(qkv, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        h, hk, d = ctx.heads
+        b, s = qkv.shape[:2]
+        dqkv = torch.empty_like(qkv)
+        fused_heads_bwd(*_split(qkv, h, hk, d), out.view(b, s, h, d), lse,
+                        dout.reshape(b, s, h, d), **ctx.kw,
+                        **dict(zip(("dq", "dk", "dv"),
+                                   _split(dqkv, h, hk, d))))
+        return dqkv, None, None, None, None, None, None
+
+
+def _needs_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def packed_heads_attention(q, k, v, *, softmax_scale: Optional[float] = None,
                            causal: bool = False, softcap: float = 0.0,
                            dropout_p: float = 0.0, dropout_seed=None):
     """Attention on (b, s, h, d) inputs without layout transposes. Returns
-    (b, s, h, d). The caller checks :func:`packed_heads_supported` first."""
+    (b, s, h, d); differentiable in q, k and v. The caller checks
+    :func:`packed_heads_supported` first."""
     _check(dropout_p)
     d = q.shape[-1]
     if softmax_scale is None:
         softmax_scale = d ** -0.5
-    return fused_heads_fwd(q, k, v, sm_scale=float(softmax_scale),
-                           causal=causal, softcap=float(softcap))
+    kw = dict(sm_scale=float(softmax_scale), causal=bool(causal),
+              softcap=float(softcap))
+    if _needs_grad(q, k, v):
+        return _PackedHeads.apply(q, k, v, *kw.values())
+    return fused_heads_fwd(q, k, v, **kw)
 
 
 def packed_qkv_attention(qkv, *, num_heads: int, num_heads_kv: int,
@@ -113,7 +238,8 @@ def packed_qkv_attention(qkv, *, num_heads: int, num_heads_kv: int,
                          causal: bool = False, softcap: float = 0.0,
                          dropout_p: float = 0.0, dropout_seed=None):
     """Attention directly on the packed Wqkv output (b, s, (h + 2hk)*d) in
-    [q | k | v] column order. Returns (b, s, h*d), ready for out_proj."""
+    [q | k | v] column order. Returns (b, s, h*d), ready for out_proj;
+    differentiable in qkv, whose gradient comes back packed."""
     _check(dropout_p)
     h, hk, d = num_heads, num_heads_kv, head_dim
     b, s, w = qkv.shape
@@ -122,9 +248,8 @@ def packed_qkv_attention(qkv, *, num_heads: int, num_heads_kv: int,
                          f"{(h + 2 * hk) * d}")
     if softmax_scale is None:
         softmax_scale = d ** -0.5
-    q = qkv[..., : h * d].view(b, s, h, d)
-    k = qkv[..., h * d: (h + hk) * d].view(b, s, hk, d)
-    v = qkv[..., (h + hk) * d:].view(b, s, hk, d)
-    out = fused_heads_fwd(q, k, v, sm_scale=float(softmax_scale),
-                          causal=causal, softcap=float(softcap))
-    return out.reshape(b, s, h * d)
+    kw = dict(sm_scale=float(softmax_scale), causal=bool(causal),
+              softcap=float(softcap))
+    if _needs_grad(qkv):
+        return _PackedQKV.apply(qkv, h, hk, d, *kw.values())
+    return fused_heads_fwd(*_split(qkv, h, hk, d), **kw).reshape(b, s, h * d)

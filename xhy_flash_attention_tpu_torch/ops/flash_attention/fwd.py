@@ -4,9 +4,10 @@ ops/flash_attention/fwd.py `flash_attention_fwd`).
 On a CUDA tensor the work runs in csrc/flash_fwd.cu, the counterpart of the
 TPU kernel `_fwd_kernel` (fwd.py:78); on a CPU tensor in its plain version
 :func:`attention_fwd_ref`. This slice covers causal and full attention,
-GQA, softcap and the LSE output. Bias, segment ids, positions, sliding
-windows, dropout, FlashMask, block sparsity and fp8 raise
-NotImplementedError until their slices.
+GQA, softcap and the LSE output; the backward is bwd.py, joined to this
+forward by interface.py's autograd function. Bias, segment ids, positions,
+sliding windows, dropout, FlashMask, block sparsity and fp8 raise
+NotImplementedError until slice 4.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _cuda
-from .common import CUDA_DTYPE_NOT_PORTED, NEXT_SLICES, require_inference
+from .common import CUDA_DTYPE_NOT_PORTED, NEXT_SLICES
 
 __all__ = ["attention_fwd_ref", "flash_attention_fwd"]
 
@@ -96,9 +97,7 @@ def _check_supported(causal, window_size, dropout_p, optional) -> bool:
     flags["sliding window"] = left >= 0 or right > 0
     unsupported = [name for name, on in flags.items() if on]
     if dropout_p > 0.0:
-        raise NotImplementedError(
-            "flash_attention_fwd: dropout comes with slice 3 (Training) "
-            f"{NEXT_SLICES}")
+        unsupported.append("dropout")
     if unsupported:
         raise NotImplementedError(
             f"flash_attention_fwd: {', '.join(unsupported)} not ported yet: "
@@ -144,7 +143,6 @@ def flash_attention_fwd(
     if q.dtype == torch.float8_e4m3fn:
         raise NotImplementedError("fp8 attention comes with slice 4 (The rest) "
                                   f"{NEXT_SLICES}")
-    require_inference(q, k, v)
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
                                  softcap=softcap, need_lse=need_lse)

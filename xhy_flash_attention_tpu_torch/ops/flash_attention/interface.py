@@ -1,9 +1,12 @@
-"""Public flash-attention API, forward (≙ xhy_flash_attention_tpu
+"""Public flash-attention API (≙ xhy_flash_attention_tpu
 ops/flash_attention/interface.py), and decode against a growing KV cache
 (`flash_attn_with_kvcache`).
 
-Inference only: an input that requires grad raises (the backward kernels
-come with the training slice).
+`flash_attention` is differentiable in q, k and v: when an input needs a
+gradient it runs as an autograd function, as the TPU package's custom VJP
+(interface.py:96-131): the forward saves (q, k, v, out, lse) and the
+backward calls `flash_attention_bwd` (the dK/dV and dQ kernels). Decode
+against a cache has no backward, as in the TPU package.
 """
 
 from __future__ import annotations
@@ -15,10 +18,30 @@ import torch
 
 from ..decode import write_kv
 from ..quant import QuantizedKV
+from .bwd import flash_attention_bwd
 from .decode_kernel import flash_decode
-from .fwd import flash_attention_fwd
+from .fwd import _check_supported, flash_attention_fwd
 
-__all__ = ["flash_attention", "flash_attn_func", "flash_attn_with_kvcache"]
+__all__ = ["flash_attention", "flash_attn_func", "flash_attn_qkvpacked_func",
+           "flash_attn_with_kvcache"]
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal, softcap):
+        out, lse = flash_attention_fwd(q, k, v, sm_scale=sm_scale,
+                                       causal=causal, softcap=softcap,
+                                       need_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -36,16 +59,21 @@ def flash_attention(
     """Kernel-layout attention: q (b, h, sq, d), k/v (b, hk, sk, d).
 
     Returns out (b, h, sq, d) and, with ``return_lse``, the fp32 logsumexp
-    (b, h, sq).
+    (b, h, sq). Differentiable in q, k and v (not through the LSE).
     """
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    out, lse = flash_attention_fwd(
-        q, k, v, bias, q_segment_ids, kv_segment_ids,
-        sm_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, dropout_p=dropout_p, dropout_seed=dropout_seed,
-        need_lse=return_lse, q_positions=q_positions,
-        kv_positions=kv_positions)
+    causal = _check_supported(causal, window_size, dropout_p, {
+        "bias": bias, "segment ids": q_segment_ids,
+        "kv segment ids": kv_segment_ids, "q positions": q_positions,
+        "kv positions": kv_positions})
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, float(softmax_scale),
+                                         causal, float(softcap))
+    else:
+        out, lse = flash_attention_fwd(
+            q, k, v, sm_scale=softmax_scale, causal=causal, softcap=softcap,
+            need_lse=return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -59,9 +87,9 @@ def flash_attn_func(q, k, v, dropout_p: float = 0.0,
     """q: (batch, seqlen_q, nheads, head_dim); k/v: (batch, seqlen_k,
     nheads_k, head_dim). Returns out in the same layout.
 
-    The layout swaps are views: the kernel reads strided inputs, and the
-    output comes back in (b, s, h, d) memory order. The kernel is
-    deterministic, so ``deterministic`` is accepted and ignored.
+    The layout swaps are views: the kernels read strided inputs, and the
+    output and the gradients come back in (b, s, h, d) memory order. The
+    kernels are deterministic, so ``deterministic`` is accepted and ignored.
     """
     del deterministic
     out = flash_attention(
@@ -69,6 +97,24 @@ def flash_attn_func(q, k, v, dropout_p: float = 0.0,
         softmax_scale=softmax_scale, causal=causal, window_size=window_size,
         softcap=softcap, dropout_p=dropout_p, dropout_seed=dropout_seed)
     return out.transpose(1, 2)
+
+
+def flash_attn_qkvpacked_func(qkv, dropout_p: float = 0.0,
+                              softmax_scale: Optional[float] = None,
+                              causal: bool = False,
+                              window_size: Tuple[int, int] = (-1, -1),
+                              softcap: float = 0.0,
+                              deterministic: bool = True,
+                              dropout_seed=None):
+    """qkv: (batch, seqlen, 3, nheads, head_dim). Returns (batch, seqlen,
+    nheads, head_dim); the gradient of qkv gathers dq, dk and dv."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (b, s, 3, h, d), got {tuple(qkv.shape)}")
+    return flash_attn_func(
+        qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dropout_p=dropout_p,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, deterministic=deterministic,
+        dropout_seed=dropout_seed)
 
 
 def _rotate_at(x, rotary_cos, rotary_sin, pos, interleaved):
