@@ -32,9 +32,22 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      no call of any plain version;
   9. one training step of each recipe at depth 2 through the kernels and
      through the plain versions: the loss and every parameter's gradient;
- 10. where a training step's device time goes, by kernel group.
+ 10. where a training step's device time goes, by kernel group;
+ 11. sparse masks (slice 4) at full width, data from --seed, through
+     `flashmask_attention`, `blocksparse_attention` and
+     `calc_reduced_attn_scores`, forward and backward: FM-doc (b16 h16 s2048
+     d64, the gpt3m-flash.yaml attention, a causal document mask with
+     document lengths in 128-1024), FM-swg (Llama-3-8B width b1 h32 hk8
+     s8192 d128, global_sliding_window_mask(1024, 64), then the reduced
+     scores of its LSE), FM-full (b2 h16 s2048 d64, full_2 and full_4 with
+     random bands, 4 mask heads), BS (b16 h16 s2048 d64, a BigBird-like
+     block mask at granularity 256); launches exact, the error against the
+     fp32 plain version at most twice the bf16 plain version's, a second
+     pass bitwise equal.
 Phase 3 also holds the backward kernels (attention dK/dV and dQ, the
-packed dqkv entry, the norm backward) against their plain versions and
+packed dqkv entry, the norm backward) and the sparse-mask kernels (the
+forward and both backward kernels under FM-doc's and BS's masks, the
+reduced-scores kernel at FM-swg's shape) against their plain versions and
 checks that three attention backward passes are bitwise equal.
 The last lines: the card, one JSON object with a row per kernel, and
 {"ok": true, "device": {...}}.
@@ -104,9 +117,10 @@ def max_err(a, b) -> float:
 
 
 def report(row: dict, extra: str) -> None:
+    lib = row["library_ms"]
     print(f"  {row['name']}: max_abs_err {row['max_abs_err']:.3g} "
           f"({extra}); ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, "
-          f"library_ms {row['library_ms']:.4f}, bound_ms "
+          f"library_ms {'-' if lib is None else f'{lib:.4f}'}, bound_ms "
           f"{row['bound_ms']:.4f} by {row['bound_by']} "
           f"(roofline share {row['bound_ms'] / row['ms']:.3f})", flush=True)
 
@@ -555,7 +569,7 @@ TRAINING_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq", "fused_heads_bwd",
 def counters():
     from xhy_flash_attention_tpu_torch.inference import combine, paged
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
-        bwd, decode_kernel, fused_heads, fwd)
+        bwd, decode_kernel, fused_heads, fwd, reduced_scores)
     from xhy_flash_attention_tpu_torch.ops import layer_norm
     return {"rms_norm_add": layer_norm.ln_fwd,
             "flash_fwd (flash_attention_fwd)": fwd.flash_attention_fwd,
@@ -567,7 +581,8 @@ def counters():
             "flash_bwd_dkv": bwd.flash_bwd_dkv,
             "flash_bwd_dq": bwd.flash_bwd_dq,
             "fused_heads_bwd": fused_heads.fused_heads_bwd,
-            "ln_bwd": layer_norm.ln_bwd}
+            "ln_bwd": layer_norm.ln_bwd,
+            "reduced_scores": reduced_scores.calc_reduced_attn_scores}
 
 
 def reset_counts():
@@ -790,6 +805,7 @@ TPU_OF = {
     "flash_bwd_dq": "ops/flash_attention/bwd.py:511 _bwd_dq_kernel",
     "fused_heads_bwd": "ops/flash_attention/fused_heads.py:105 _bwd_kernel",
     "ln_bwd": "ops/layer_norm.py:102 _ln_bwd_kernel",
+    "reduced_scores": "ops/flash_attention/reduced_scores.py:34 _reduced_kernel",
 }
 
 
@@ -1477,6 +1493,409 @@ def check_ln_bwd(gen, rows, hidden, rms, label):
     return row
 
 
+# ------------------------- phase 3: the sparse-mask kernels, and phase 11
+
+FM_DOC = dict(b=16, h=16, hk=16, s=2048, d=64)  # gpt3m-flash.yaml attention
+FM_SWG = dict(b=1, h=32, hk=8, s=8192, d=128)   # Llama-3-8B width
+FM_FULL = dict(b=2, h=16, hk=16, s=2048, d=64)
+FM_FULL_HEADS = 4                               # mask heads of FM-full
+BS = dict(b=16, h=16, hk=16, s=2048, d=64)
+BS_BLOCK = 256                                  # block-sparse granularity
+SWG_WINDOW, SWG_GLOBAL = 1024, 64
+DOC_LENGTHS = (128, 1024)                       # FM-doc document lengths
+# the plain versions run a group of kv heads at a time, so that one fp32
+# score tensor stays under this size (8.6 GB at FM-swg's whole width)
+PLAIN_CHUNK_BYTES = 1.2e9
+
+
+def _dims(shape):
+    return tuple(shape[k] for k in ("b", "h", "hk", "s", "d"))
+
+
+def _sparse_inputs(gen, shape):
+    """q, do (b, h, s, d) and k, v (b, hk, s, d): bf16, contiguous."""
+    b, h, hk, s, d = _dims(shape)
+    q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    return q, k, v, do
+
+
+def doc_indices(gen, b, s):
+    """FM-doc: causal_document_mask of documents whose lengths are drawn
+    uniformly in DOC_LENGTHS, the last one cut at s; (b, 1, s, 1)."""
+    from xhy_flash_attention_tpu_torch import causal_document_mask
+    lo, hi = DOC_LENGTHS
+    lens = torch.randint(lo, hi + 1, (b, s // lo + 1), generator=gen,
+                         device="cuda")
+    docs = torch.arange(lens.shape[1], device="cuda")
+    ids = torch.stack([torch.repeat_interleave(docs, n)[:s] for n in lens])
+    return causal_document_mask(ids)
+
+
+def random_bands(gen, nv, b, hm, s):
+    """FM-full: random non-causal bands drawn as tests/test_flashmask.py
+    draws them; (b, hm, s, NV)."""
+    def ints(lo, hi):  # uniform in [lo, hi); hi an int or a tensor
+        u = torch.rand(b, hm, s, generator=gen, device="cuda")
+        return (lo + u * (hi - lo)).long()
+    lts = ints(0, s + 1)
+    if nv == 2:  # [LTStart, UTEnd], UTEnd <= LTStart
+        vecs = [lts, ints(0, lts + 1)]
+    else:
+        uts = ints(0, s + 1)
+        vecs = [lts, torch.clamp(lts + ints(0, s // 2), max=s), uts,
+                torch.clamp(uts + ints(0, s // 2), max=s)]
+    return torch.stack(vecs, -1).to(torch.int32)
+
+
+def bigbird_mask(gen, b, nb):
+    """BS: a local band of +-1 block, block column 0 global and one random
+    block per block row, per batch element; (b, 1, nb, nb) int32."""
+    i = torch.arange(nb, device="cuda")
+    m = ((i[:, None] - i[None, :]).abs() <= 1) | (i[None, :] == 0)
+    m = m[None].repeat(b, 1, 1)
+    pick = torch.randint(0, nb, (b, nb, 1), generator=gen, device="cuda")
+    m.scatter_(2, pick, True)
+    return m[:, None].to(torch.int32)
+
+
+def _flags(indices=None, causal=False, block_mask=None):
+    """The kernel flags of a FlashMask index tensor or a block mask."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import \
+        fm_mode_for
+    if indices is not None:
+        return dict(flashmask_vecs=indices.movedim(-1, 2).to(torch.int32),
+                    flashmask_mode=fm_mode_for(causal, indices.shape[-1]))
+    return dict(block_mask=(block_mask, BS_BLOCK, BS_BLOCK))
+
+
+def _keep(flags, causal, h, sq, sk):
+    """The dense keep mask of ``flags`` (b|1, hm|1, sq, sk), the causal
+    part included (for the visible-pair count and SDPA's mask)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import common
+    keep = common.dense_keep_mask(sq, sk, h, **flags)
+    if causal:
+        rows = torch.arange(sq, device="cuda")[:, None]
+        cols = torch.arange(sk, device="cuda")[None, :]
+        keep = keep & (cols <= rows + (sk - sq))
+    return keep
+
+
+def visible_pairs(keep, b, h):
+    """(row, key) pairs attended over all batch elements and heads."""
+    return (float(keep.sum(dtype=torch.int64).item()) * (b / keep.shape[0])
+            * (h / keep.shape[1]))
+
+
+def _sdpa_masked_ms(q, k, v, do, keep):
+    """SDPA with the dense boolean mask: (forward ms, backward ms as fwd +
+    bwd minus fwd), the library yardstick of the sparse rows."""
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    gqa = q.shape[1] != k.shape[1]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep,
+                                              enable_gqa=gqa)
+    with torch.no_grad():
+        only = time_ms([fwd], iters=10)
+    both = time_ms([lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do)],
+                   iters=10)
+    return only, both - only
+
+
+def check_sparse_kernels(gen, label, shape, causal, make_flags):
+    """Phase 3 rows of the forward (#1) and of the dK/dV (#2) and dQ (#3)
+    kernels under a sparse mask at ``shape``: each against its plain
+    version with the dense mask on the same inputs, timed (CUDA events,
+    warmed), with bounds from the visible pairs and SDPA with the dense
+    mask as the library call."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, common, fwd)
+    b, h, hk, s, d = _dims(shape)
+    q, k, v, do = _sparse_inputs(gen, shape)
+    flags = make_flags(gen)
+    dense = common.dense_keep_mask(s, s, h, **flags)
+    masks = common.KernelMasks(b, h, s, s, **flags)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw, **flags)
+    ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=dense,
+                                         **kw)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = BF16_ULP * ref.float().abs().max().item() + 1e-3
+    fin = torch.isfinite(ref_lse)
+    check(torch.equal(fin, torch.isfinite(lse)),
+          f"flash_fwd ({label}): rows with no key differ")
+    err_lse = max_err(lse[fin], ref_lse[fin])
+    check(err <= tol and err_lse <= 1e-3,
+          f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
+    del ref, ref_lse
+    delta = bwd.attention_delta(out, do)
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **flags)
+    want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=dense, **kw)
+    torch.cuda.synchronize()
+    err_dq = max_err(grads[0], want[0])
+    err_dkv = max(max_err(grads[1], want[1]), max_err(grads[2], want[2]))
+    gtol = 4 * BF16_ULP * max(w.float().abs().max().item() for w in want)
+    check(max(err_dq, err_dkv) <= gtol,
+          f"flash_bwd ({label}): err vs plain {err_dq}, {err_dkv} > {gtol}")
+    del want
+    keep = _keep(flags, causal, h, s, s)
+    n_vis = visible_pairs(keep, b, h)
+    share = n_vis / (b * h * s * s)
+    lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, do, keep)
+    del keep
+    io = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, o | do and k, v (bf16)
+    bms, by = bound(2 * 2 * d * n_vis, PEAK_BF16_FLOPS, io)
+    shape_txt = f"b{b} h{h} hk{hk} s{s} d{d} {'causal' if causal else 'full'}"
+    rows = [dict(
+        name=f"flash_fwd ({label})", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+        replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
+        max_abs_err=err,
+        ms=time_ms([lambda: fwd.flash_attention_fwd(
+            q, k, v, need_lse=False, **kw, **flags)]),
+        plain_ms=time_ms([lambda: fwd.attention_fwd_ref(
+            q, k, v, need_lse=False, mask=dense, **kw)], iters=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=lib_fwd)]
+    report(rows[0], f"tol {tol:.3g} = 1 bf16 ulp of max|out| + 1e-3; lse err "
+                    f"{err_lse:.3g}; {shape_txt}, visible share {share:.4f}, "
+                    f"flops {4 * d * n_vis:.4g}; ms includes the stats "
+                    "prepass; library: SDPA with the dense boolean mask")
+    dq, dk, dv = (torch.empty_like(t) for t in grads)
+    args = (q, k, v, do, lse, delta, dq, dk, dv)
+    stats = 2 * 4.0 * b * h * s  # lse, delta (fp32)
+    plain_ms = time_ms([lambda: bwd.attention_bwd_ref(
+        q, k, v, out, lse, do, mask=dense, **kw)], iters=3, warmup=1)
+    for name, fn, n_mm, out_bytes, e in (
+            ("flash_bwd_dkv", bwd.flash_bwd_dkv, 4, 2 * 2.0 * b * s * hk * d,
+             err_dkv),
+            ("flash_bwd_dq", bwd.flash_bwd_dq, 3, 2.0 * b * s * h * d, err_dq)):
+        bms, by = bound(n_mm * 2 * d * n_vis, PEAK_BF16_FLOPS,
+                        io + stats + out_bytes)
+        row = dict(
+            name=f"{name} ({label})", route="cuda",
+            source="xhy_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+            replaces=("xhy_flash_attention_tpu/ops/flash_attention/bwd.py:180"
+                      if name == "flash_bwd_dkv" else
+                      "xhy_flash_attention_tpu/ops/flash_attention/bwd.py:511"),
+            max_abs_err=e,
+            ms=time_ms([lambda fn=fn: fn(*args, masks=masks, **kw)], iters=10),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+        report(row, f"tol {gtol:.3g} = 4 bf16 ulp of max|grad| vs the plain "
+                    f"backward; {shape_txt}, {n_mm} products over the visible "
+                    f"pairs (flops {n_mm * 2 * d * n_vis:.4g}); plain_ms and "
+                    "library_ms are of the whole backward (library: SDPA with "
+                    "the dense mask, fwd + bwd minus fwd)")
+        rows.append(row)
+    summed = rows[1]["ms"] + rows[2]["ms"]
+    bms, by = bound(5 * 2 * d * n_vis, PEAK_BF16_FLOPS,
+                    io + stats + 2.0 * b * s * d * (h + 2 * hk))
+    print(f"  attention backward ({label}): dK/dV + dQ {summed:.4f} ms against "
+          f"the 5-product bound of the visible pairs {bms:.4f} ms by {by} "
+          f"(share {bms / summed:.3f}); SDPA backward with the mask "
+          f"{lib_bwd:.4f} ms", flush=True)
+    return rows
+
+
+def check_reduced(gen):
+    """Phase 3 row of the reduced-scores kernel (#12) at FM-swg's shape, on
+    the LSE of FM-swg's masked forward: against the plain version (same
+    bf16 values; its q . k an fp32 product summed in another order: 1e-4
+    of the largest score), bitwise equal across two launches. No single
+    PyTorch call computes the function: library_ms is null."""
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        fwd, reduced_scores as rs)
+    b, h, hk, s, d = _dims(FM_SWG)
+    q, k, v, _ = _sparse_inputs(gen, FM_SWG)
+    flags = _flags(global_sliding_window_mask(b, s, SWG_WINDOW, SWG_GLOBAL),
+                   causal=True)
+    _, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5, causal=True,
+                                     **flags)
+    got = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    again = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    want = rs.reduced_scores_ref(q, k, lse, sm_scale=d ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "reduced_scores: two launches differ")
+    err = max_err(got, want)
+    tol = 1e-4 * want.abs().max().item()
+    check(err <= tol, f"reduced_scores err {err} > {tol}")
+    del want
+    n_vis = b * h * s * (s + 1) / 2.0  # the causal region
+    nbytes = 2.0 * b * s * d * (h + hk) + 4.0 * b * h * s * 2  # q, k | lse, out
+    bms, by = bound(2 * d * n_vis, PEAK_BF16_FLOPS, nbytes)
+    row = dict(
+        name="reduced_scores", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/reduced_scores.cu",
+        replaces=("xhy_flash_attention_tpu/ops/flash_attention/"
+                  "reduced_scores.py:34"),
+        max_abs_err=err,
+        ms=time_ms([lambda: rs.calc_reduced_attn_scores(q, k, lse,
+                                                        causal=True)]),
+        plain_ms=time_ms([lambda: rs.reduced_scores_ref(
+            q, k, lse, sm_scale=d ** -0.5, causal=True)], iters=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    report(row, f"tol {tol:.3g} = 1e-4 of max|score|; two launches bitwise "
+                f"equal; b{b} h{h} hk{hk} s{s} d{d} causal, flops "
+                f"{2 * d * n_vis:.4g}; library: none (no single PyTorch call "
+                "computes it)")
+    return row
+
+
+def plain_attention(q, k, v, do, causal, keep, upcast):
+    """The plain forward and backward with the dense keep mask (no causal
+    part), in fp32 (``upcast``) or in the inputs' bf16, a group of kv heads
+    at a time: out, lse, dq, dk, dv."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, common, fwd)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    keep = common.expand_heads(keep, h)
+    step = max(1, int(PLAIN_CHUNK_BYTES // (b * g * sq * sk * 4)))
+    cast = (lambda t: t.float()) if upcast else (lambda t: t)
+    parts = []
+    for j in range(0, hk, step):
+        hs, ks = slice(j * g, (j + step) * g), slice(j, j + step)
+        qc, kc, vc, dc = cast(q[:, hs]), cast(k[:, ks]), cast(v[:, ks]), \
+            cast(do[:, hs])
+        kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0,
+                  mask=keep if keep.shape[1] == 1 else keep[:, hs])
+        o, lse = fwd.attention_fwd_ref(qc, kc, vc, need_lse=True, **kw)
+        parts.append((o, lse) + bwd.attention_bwd_ref(qc, kc, vc, o, lse, dc,
+                                                      **kw))
+    return [torch.cat(p, 1) for p in zip(*parts)]
+
+
+def sparse_case(gen, name, shape, causal, indices=None, block_mask=None,
+                reduced=False):
+    """Phase 11, one case: forward and backward through the public entry
+    (`flashmask_attention` or `blocksparse_attention`, an autograd
+    function), and `calc_reduced_attn_scores` on its LSE when ``reduced``;
+    launches exact; the contract of the fp32 plain version against the bf16
+    plain version on out, the finite LSE and every gradient; a second pass
+    bitwise equal. Returns its launches by kernel."""
+    from xhy_flash_attention_tpu_torch import (
+        blocksparse_attention, calc_reduced_attn_scores, flashmask_attention)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import common
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        reduced_scores as rs
+    b, h, hk, s, d = _dims(shape)
+    q, k, v, do = _sparse_inputs(gen, shape)
+    flags = _flags(indices, causal, block_mask)
+
+    def run():
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        if indices is not None:
+            out, lse = flashmask_attention(*ins, indices, causal=causal,
+                                           return_lse=True)
+        else:
+            out, lse = blocksparse_attention(*ins, block_mask,
+                                             block_size=BS_BLOCK), None
+        grads = torch.autograd.grad(out, ins, do)
+        red = (calc_reduced_attn_scores(q, k, lse, causal=True)
+               if reduced else None)
+        return out.detach(), lse, grads, red
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out, lse, grads, red = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()},
+            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_dkv": 1,
+            "flash_bwd_dq": 1, "reduced_scores": int(reduced)}
+    check(counts == want, f"{name}: launches {counts} != {want}")
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+          f"{name}: non-finite output or gradient")
+    keep = common.dense_keep_mask(s, s, h, **flags)
+    share = visible_pairs(_keep(flags, causal, h, s, s), b, h) / (b * h * s * s)
+    ref = plain_attention(q, k, v, do, causal, keep, upcast=True)
+    low = plain_attention(q, k, v, do, causal, keep, upcast=False)
+    errs = {}
+    for what, got, w, lo in zip(("out", "lse", "dq", "dk", "dv"),
+                                (out, lse, *grads), ref, low):
+        if got is None:
+            continue
+        if what == "lse":
+            fin = torch.isfinite(w)
+            check(torch.equal(fin, torch.isfinite(got)),
+                  f"{name}: rows with no key differ")
+            got, w, lo = got[fin], w[fin], lo[fin]
+        e, e_lp = max_err(got, w), max_err(lo, w)
+        errs[what] = (e, e_lp)
+        check(e <= 2 * e_lp + (1e-4 if what in ("out", "lse") else 1e-3),
+              f"{name} {what}: err vs fp32 plain {e} > 2 x bf16 plain {e_lp}")
+    del ref, low
+    out2, _, grads2, red2 = run()
+    check(torch.equal(out, out2) and all(torch.equal(a, c) for a, c in
+                                         zip(grads, grads2)),
+          f"{name}: a second pass is not bitwise equal")
+    line = (f"  {name}: b{b} h{h} hk{hk} s{s} d{d} "
+            f"{'causal' if causal else 'full'}, visible share {share:.4f}; "
+            + ", ".join(f"{w_} err {e:.3g} (bf16 plain {e_lp:.3g})"
+                        for w_, (e, e_lp) in errs.items())
+            + "; second pass bitwise equal")
+    if reduced:
+        check(torch.equal(red, red2), f"{name}: reduced scores differ")
+        fin = torch.isfinite(lse)
+        want_red = torch.cat([rs.reduced_scores_ref(
+            q[:, i:i + h // hk], k[:, j:j + 1], lse[:, i:i + h // hk],
+            sm_scale=d ** -0.5, causal=True)
+            for j, i in enumerate(range(0, h, h // hk))], 1)
+        e = max_err(red, want_red)
+        tol = 1e-4 * want_red.abs().max().item()
+        check(e <= tol and bool(fin.all()), f"{name} reduced scores err {e}")
+        line += (f"; reduced scores err {e:.3g} (tol {tol:.3g}), bitwise "
+                 "equal across two runs")
+    ms = time_ms([run], iters=3, warmup=1)
+    print(line + f"; fwd + bwd{' + reduced' if reduced else ''} {ms:.4f} ms; "
+          f"launches {json.dumps({k_: v_ for k_, v_ in counts.items() if v_})}",
+          flush=True)
+    return counts
+
+
+def sparse_masks(gen):
+    """Phase 11: the four sparse-mask cases at full width. Returns the
+    launches of each phase 3 row on this path."""
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    fm, bs = {}, {}
+
+    def add(into, counts):
+        for k_, v_ in counts.items():
+            into[k_] = into.get(k_, 0) + v_
+
+    b, _, _, s, _ = _dims(FM_DOC)
+    add(fm, sparse_case(gen, "FM-doc", FM_DOC, True,
+                        indices=doc_indices(gen, b, s)))
+    torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(FM_SWG)
+    add(fm, sparse_case(gen, "FM-swg", FM_SWG, True,
+                        indices=global_sliding_window_mask(
+                            b, s, SWG_WINDOW, SWG_GLOBAL), reduced=True))
+    torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(FM_FULL)
+    for nv in (2, 4):
+        add(fm, sparse_case(gen, f"FM-full (full_{nv}, hm {FM_FULL_HEADS})",
+                            FM_FULL, False, indices=random_bands(
+                                gen, nv, b, FM_FULL_HEADS, s)))
+    torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(BS)
+    add(bs, sparse_case(gen, "BS", BS, False,
+                        block_mask=bigbird_mask(gen, b, s // BS_BLOCK)))
+    torch.cuda.empty_cache()
+    rows = {}
+    for label, c in (("FlashMask", fm), ("block-sparse", bs)):
+        rows[f"flash_fwd ({label})"] = c["flash_fwd (flash_attention_fwd)"]
+        rows[f"flash_bwd_dkv ({label})"] = c["flash_bwd_dkv"]
+        rows[f"flash_bwd_dq ({label})"] = c["flash_bwd_dq"]
+    rows["reduced_scores"] = fm["reduced_scores"]
+    return rows
+
+
 # ------------------------------------------------- phase 8: the training slice
 
 CONFIGS = "xhy_flash_attention_tpu/training/configs/experiment"
@@ -1776,6 +2195,18 @@ def main():
     rows += [check_ln_bwd(gen, 32768, 1024, False, "LayerNorm 32768x1024"),
              check_ln_bwd(gen, 4096, 4096, True, "RMSNorm 4096x4096")]
     torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(FM_DOC)
+    rows += check_sparse_kernels(
+        gen, "FlashMask", FM_DOC, True,
+        lambda g: _flags(doc_indices(g, b, s), causal=True))
+    torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(BS)
+    rows += check_sparse_kernels(
+        gen, "block-sparse", BS, False,
+        lambda g: _flags(block_mask=bigbird_mask(g, b, s // BS_BLOCK)))
+    torch.cuda.empty_cache()
+    rows.append(check_reduced(gen))
+    torch.cuda.empty_cache()
 
     print(f"[4] slice: Llama-3-8B width, {LAYERS} layers, random bf16 "
           "weights", flush=True)
@@ -1881,6 +2312,10 @@ def main():
     del trainers
     print(f"  launches on the main path, by kernel: {json.dumps(totals)}",
           flush=True)
+    torch.cuda.empty_cache()
+    print("[11] sparse masks: FM-doc, FM-swg and its reduced scores, FM-full, "
+          "BS", flush=True)
+    launches.update(sparse_masks(gen))
 
     for row in rows:
         row["launches"] = launches.get(

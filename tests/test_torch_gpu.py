@@ -497,3 +497,154 @@ def test_two_layer_model_trains_on_the_card(cuda, rotary):
     delta = [a - c for a, c in zip(counts(), before)]
     assert delta[0] == 2 * 2 + 1 + 1 and delta[1] == 2 * 2 + 1
     assert delta[2:] == ([2, 2, 0] if rotary else [0, 0, 2])
+
+
+# ---- sparse masks: FlashMask and block-sparse attention, reduced scores
+
+def _sparse_case(cuda, b, h, hk, s, d):
+    q, do = (torch.randn(b, s, h, d, generator=cuda, device="cuda").bfloat16()
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, s, hk, d, generator=cuda, device="cuda").bfloat16()
+            .transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+def _random_bands(cuda, causal, nv, b, hm, sk):
+    """Random bands as tests/test_flashmask.py draws them, (b, hm, NV, sk)."""
+    def ints(lo, hi):  # uniform in [lo, hi), hi a tensor or an int
+        u = torch.rand(b, hm, sk, generator=cuda, device="cuda")
+        return (lo + u * (hi - lo)).long()
+    lts = ints(0, sk + 1)
+    if causal and nv == 1:
+        vecs = [lts]
+    elif causal:
+        vecs = [lts, torch.clamp(lts + ints(0, sk), max=sk)]
+    elif nv == 2:
+        vecs = [lts, ints(0, lts + 1)]
+    else:
+        uts = ints(0, sk + 1)
+        vecs = [lts, torch.clamp(lts + ints(0, sk // 2), max=sk), uts,
+                torch.clamp(uts + ints(0, sk // 2), max=sk)]
+    return torch.stack(vecs, 2).to(torch.int32)
+
+
+def _sparse_kernels_vs_plain(q, k, v, do, causal, masks):
+    """Forward and both backward kernels against the plain versions with
+    the dense mask, on the same inputs: out to one bf16 unit of its largest
+    entry (+1e-3), the finite LSE to 1e-3 and the same rows +inf, gradients
+    to four bf16 units; each kernel launched once."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+    b, h, sq, d = q.shape
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
+    mask = common.dense_keep_mask(sq, k.shape[2], h, **masks)
+    before = (fwd.flash_attention_fwd.launches, bwd.flash_bwd_dkv.launches,
+              bwd.flash_bwd_dq.launches)
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw, **masks)
+    ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=mask,
+                                         **kw)
+    got = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **masks)
+    want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert (fwd.flash_attention_fwd.launches, bwd.flash_bwd_dkv.launches,
+            bwd.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-3
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert _err(lse[finite], ref_lse[finite]) <= 1e-3
+    assert not out[~finite].float().abs().any()
+    for g, w in zip(got, want):
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hm", [1, 8])
+@pytest.mark.parametrize("causal,nv", [(True, 1), (True, 2), (False, 2),
+                                       (False, 4)])
+def test_flashmask_kernels_match_plain(cuda, causal, nv, hm, d):
+    """Every FlashMask mode, one mask for all heads and one per head, GQA
+    (h 8 over hk 2), s 300: a tail tile of 44 keys (the vectors padded as
+    fully masked columns) and random bands that mask some rows fully."""
+    b, h, hk, s = 2, 8, 2, 300
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    vecs = _random_bands(cuda, causal, nv, b, hm, s)
+    _sparse_kernels_vs_plain(q, k, v, do, causal, dict(
+        flashmask_vecs=vecs, flashmask_mode=f"{'causal' if causal else 'full'}_{nv}"))
+
+
+def test_flashmask_fully_masked_rows_on_the_card(cuda):
+    """Rows that see no key give out 0 and LSE +inf: LTStart = 0 on every
+    column (causal_1) masks all rows; LTEnd = 100 on the first 64 keys
+    (causal_2) masks the first tile of rows 64-99, which see later keys."""
+    b, h, s, d = 1, 4, 256, 64
+    q, k, v, do = _sparse_case(cuda, b, h, h, s, d)
+    zeros = torch.zeros(b, 1, 1, s, dtype=torch.int32, device="cuda")
+    out, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5,
+                                       causal=True, flashmask_vecs=zeros,
+                                       flashmask_mode="causal_1")
+    torch.cuda.synchronize()
+    assert not out.float().abs().any() and torch.isinf(lse).all()
+    cols = torch.arange(s, device="cuda")
+    lte = torch.where(cols < 64, 100, 0).to(torch.int32)
+    vecs = torch.stack([torch.zeros_like(lte), lte])[None, None]
+    _sparse_kernels_vs_plain(q, k, v, do, True, dict(
+        flashmask_vecs=vecs, flashmask_mode="causal_2"))
+
+
+def test_flashmask_bwd_is_deterministic(cuda):
+    """Two backward passes through a causal document mask give bitwise
+    equal dq, dk and dv."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        causal_document_mask, flashmask_attention)
+    b, h, hk, s, d = 2, 8, 2, 1100, 128
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    doc = (torch.arange(s, device="cuda") // 150)[None].expand(b, s)
+    idx = causal_document_mask(doc)
+    runs = []
+    for _ in range(2):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = flashmask_attention(*ins, idx, causal=True)
+        runs.append(torch.autograd.grad(out, ins, do))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hm", [1, 8])
+@pytest.mark.parametrize("causal", [False, True])
+def test_blocksparse_kernels_match_plain(cuda, causal, hm, d):
+    """A random 0/1 mask at granularity (128, 256) over s 700 (tail blocks
+    in both axes), with one block row off: its rows see nothing."""
+    b, h, hk, s = 2, 8, 2, 700
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    gq, gk = 128, 256
+    bm = (torch.rand(1, hm, -(-s // gq), -(-s // gk), generator=cuda,
+                     device="cuda") < 0.6).to(torch.int32)
+    bm[:, :, 1] = 0
+    _sparse_kernels_vs_plain(q, k, v, do, causal,
+                             dict(block_mask=(bm, gq, gk)))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk,h,hk,d", [(1000, 1000, 8, 2, 128),
+                                          (300, 700, 4, 4, 64)])
+def test_reduced_scores_match_plain(cuda, sq, sk, h, hk, d, causal):
+    """The kernel against its plain version, whose q . k is an fp32 product
+    of the same bf16 values summed in another order: 1e-4 of the largest
+    score; and bitwise equal across two launches."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        reduced_scores as rs)
+    b = 2
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(b, sk, hk, d, generator=cuda, device="cuda")
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    q = q.transpose(1, 2)
+    _, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5,
+                                     causal=causal)
+    before = rs.calc_reduced_attn_scores.launches
+    got = rs.calc_reduced_attn_scores(q, k, lse, causal=causal)
+    again = rs.calc_reduced_attn_scores(q, k, lse, causal=causal)
+    want = rs.reduced_scores_ref(q, k, lse, sm_scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert rs.calc_reduced_attn_scores.launches == before + 2
+    assert torch.equal(got, again)
+    assert _err(got, want) <= 1e-4 * want.abs().max().item()

@@ -33,7 +33,23 @@ def test_the_port_has_modules():
             "models/gpt.py", "utils/generation.py",
             "ops/flash_attention/bwd.py", "losses/cross_entropy.py",
             "training/config.py", "training/data.py", "training/optim.py",
-            "training/callbacks.py", "training/train.py"} <= names
+            "training/callbacks.py", "training/train.py",
+            "ops/flash_attention/flashmask.py",
+            "ops/flash_attention/blocksparse.py",
+            "ops/flash_attention/reduced_scores.py"} <= names
+
+
+def test_sparse_mask_entry_points_at_the_top_level():
+    """The sparse-mask entries and mask constructors, under the JAX
+    package's names, importing no JAX."""
+    import xhy_flash_attention_tpu_torch as port
+    names = ("flashmask_attention", "flashmask_to_dense",
+             "causal_document_mask", "sliding_window_mask",
+             "global_sliding_window_mask", "blocksparse_attention",
+             "blockmask_to_dense", "flash_blocksparse_attn_func",
+             "calc_reduced_attn_scores")
+    for name in names:
+        assert name in port.__all__ and callable(getattr(port, name)), name
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.relative_to(PORT).as_posix())

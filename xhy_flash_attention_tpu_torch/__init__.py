@@ -11,7 +11,9 @@ model with a dense bf16, fp32, int8 or e4m3 KV cache,
 (``inference``: InferenceEngine, PagedKVCache, split-KV decode), and
 training on one device (``training``: Trainer, train, AdamW, the
 cross-entropy loss), with backward kernels for attention and the fused
-norm.
+norm, and sparse-mask attention (``flashmask_attention``,
+``blocksparse_attention``, forward and backward) with
+``calc_reduced_attn_scores``.
 """
 
 from .losses import CrossEntropyLoss, cross_entropy_loss
@@ -20,10 +22,19 @@ from .models.llama import llama_config_to_gpt_config
 from .ops.decode import decode_attention
 from .ops.flash_attention import (
     attention_ref,
+    blockmask_to_dense,
+    blocksparse_attention,
+    calc_reduced_attn_scores,
+    causal_document_mask,
     flash_attention,
     flash_attn_func,
     flash_attn_qkvpacked_func,
     flash_attn_with_kvcache,
+    flash_blocksparse_attn_func,
+    flashmask_attention,
+    flashmask_to_dense,
+    global_sliding_window_mask,
+    sliding_window_mask,
 )
 from .ops.flash_attention.decode_kernel import flash_decode
 from .ops.flash_attention.fused_heads import (
@@ -45,6 +56,10 @@ __all__ = [
     "GPTLMHeadModel",
     "Trainer",
     "attention_ref",
+    "blockmask_to_dense",
+    "blocksparse_attention",
+    "calc_reduced_attn_scores",
+    "causal_document_mask",
     "cross_entropy_loss",
     "decode",
     "decode_attention",
@@ -54,13 +69,18 @@ __all__ = [
     "flash_attn_func",
     "flash_attn_qkvpacked_func",
     "flash_attn_with_kvcache",
+    "flash_blocksparse_attn_func",
     "flash_decode",
+    "flashmask_attention",
+    "flashmask_to_dense",
+    "global_sliding_window_mask",
     "layer_norm",
     "llama_config_to_gpt_config",
     "packed_heads_attention",
     "packed_qkv_attention",
     "rms_norm",
     "sample_logits",
+    "sliding_window_mask",
     "state_dict_from_jax",
     "train",
 ]

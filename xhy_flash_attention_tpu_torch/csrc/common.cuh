@@ -121,4 +121,165 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N][4],
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
+// Stage rows [row0, row0 + ROWS) of a (seq, D) bf16 slice with row stride
+// `stride` into shared memory with padded rows of D + 8 (conflict-free
+// fragment reads), THREADS threads cooperating. Rows at or past `limit` are
+// zero. With SCALE the values are multiplied by `scale` in fp32 and rounded
+// to bf16 (q_s).
+template <int D, int ROWS, bool SCALE, int THREADS = 128>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int64_t stride, int row0, int limit, float scale) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += THREADS) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const int row = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < limit) {
+      val = *reinterpret_cast<const uint4*>(src + row * stride + c);
+      if (SCALE) {
+        uint32_t* w = reinterpret_cast<uint32_t*>(&val);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[i]));
+          w[i] = pack_bf16(f.x * scale, f.y * scale);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(&dst[r * (D + 8) + c]) = val;
+  }
+}
+
+// A fragment of k-step kk for the 16 rows starting at `row` of a staged tile.
+template <int D>
+__device__ __forceinline__ void smem_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int row,
+                                       int kk, int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    a[r] = *reinterpret_cast<const uint32_t*>(
+        &tile[(row + g + (r & 1) * 8) * (D + 8) + kk * 16 + (r >> 1) * 8 + 2 * t]);
+  }
+}
+
+// acc[j] (16 x 8 n-tiles, N columns) += A(16 x D) B^T where A's 16 rows
+// start at `a_row` of the staged `a_tile` and B's N rows are staged in
+// `b_tile` (rows = columns of the product, D = the contraction).
+template <int D, int N>
+__device__ __forceinline__ void mma_abt_smem_a(float (&acc)[N / 8][4],
+                                               const __nv_bfloat16* a_tile, int a_row,
+                                               const __nv_bfloat16* b_tile, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    smem_a<D>(a, a_tile, a_row, kk, g, t);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const __nv_bfloat16* br = &b_tile[(j * 8 + g) * (D + 8) + kk * 16 + 2 * t];
+      mma_16816(acc[j], a, *reinterpret_cast<const uint32_t*>(br),
+                *reinterpret_cast<const uint32_t*>(br + 8));
+    }
+  }
+}
+
+// ---- FlashMask and block-sparse masks (ops/flash_attention/common.py
+// KernelMasks). FlashMask: each key column carries NV row indices; the
+// bands [LTStart, LTEnd) and [UTStart, UTEnd) are masked (half-open, as
+// the TPU package's fm_banned, common.py:244-266); per key tile max/min of
+// each vector decide whether a (query tile, key tile) pair is masked
+// everywhere (skip: never loaded) or nowhere (bypass: no elementwise band
+// test). The causal part of the causal modes is the kernels' causal flag.
+// Block mask: a 0/1 entry per (gq rows, gk keys) block at the user's
+// granularity, which every tile of the kernels (32 or 64) divides.
+enum FmMode : int { kFmNone = 0, kFmCausal1 = 1, kFmCausal2 = 2, kFmFull2 = 3, kFmFull4 = 4 };
+
+struct MaskParams {
+  const int* fm_vecs;   // (b, fm_heads, nv, fm_skp) int32 (padding masked), or null
+  const int* fm_stats;  // (b, fm_heads, fm_skp / tile, nv, 2): max, min per key tile
+  int fm_mode, fm_heads, fm_skp;
+  const int* bm;        // (b|1, hm|1, ceil(sq/gq), bm_nk) int32, or null
+  int64_t bm_sb, bm_sh;  // 0 on a broadcast axis
+  int bm_heads, bm_nk, gq, gk;
+};
+
+// The trailing arguments of every attention entry point that takes masks.
+#define XFA_MASK_ARGS                                                                        \
+  const void *fm_vecs, const void *fm_stats, int fm_mode, int fm_heads, int fm_skp,          \
+      const void *bm, int64_t bm_sb, int64_t bm_sh, int bm_heads, int bm_nk, int gq, int gk
+#define XFA_MASK_VALUES                                                                    \
+  xfa::MaskParams {                                                                        \
+    static_cast<const int*>(fm_vecs), static_cast<const int*>(fm_stats), fm_mode, fm_heads, \
+        fm_skp, static_cast<const int*>(bm), bm_sb, bm_sh, bm_heads, bm_nk, gq, gk         \
+  }
+
+__host__ __device__ __forceinline__ int fm_nv(int mode) {
+  return mode == kFmCausal1 ? 1 : (mode == kFmFull4 ? 4 : 2);
+}
+
+// The FlashMask head that query head `head` of `h` reads.
+__device__ __forceinline__ int fm_head(const MaskParams& m, int head, int h) {
+  return head / (h / m.fm_heads);
+}
+
+// Vector v of key column `col` for (batch, mask head fh).
+__device__ __forceinline__ int fm_vec(const MaskParams& m, int batch, int fh, int v, int col) {
+  return m.fm_vecs[(static_cast<int64_t>(batch * m.fm_heads + fh) * fm_nv(m.fm_mode) + v) *
+                       m.fm_skp + col];
+}
+
+// Stats of the key tile starting at col0 (tiles of tile_keys keys):
+// st[v * 2] = max, st[v * 2 + 1] = min of vector v.
+__device__ __forceinline__ const int* fm_tile_stats(const MaskParams& m, int batch, int fh,
+                                                    int col0, int tile_keys) {
+  const int nv = fm_nv(m.fm_mode);
+  return m.fm_stats + (static_cast<int64_t>(batch * m.fm_heads + fh) * (m.fm_skp / tile_keys) +
+                       col0 / tile_keys) * nv * 2;
+}
+
+// True when an element at `row` of a column with vectors a, b, c, d is
+// masked out (the vectors past the mode's NV are not read).
+__device__ __forceinline__ bool fm_banned(int mode, int row, int a, int b, int c, int d) {
+  switch (mode) {
+    case kFmCausal1: return row >= a;
+    case kFmCausal2: return row >= a && row < b;
+    case kFmFull2: return row >= a || row < b;
+    default: return (row >= a && row < b) || (row >= c && row < d);
+  }
+}
+
+// The tile decision for query rows [q0, q1) of (batch, head) against the
+// key tile of tile_keys keys at col0: false when the tile is skipped;
+// `band` set when the elementwise FlashMask test is needed (the tile is
+// neither skipped nor bypassed). The same for every thread of a block.
+__device__ __forceinline__ bool mask_tile(const MaskParams& m, int batch, int head, int h, int q0,
+                                          int q1, int col0, int tile_keys, bool& band) {
+  band = false;
+  if (m.bm != nullptr) {
+    const int bh = head / (h / m.bm_heads);
+    if (m.bm[batch * m.bm_sb + bh * m.bm_sh + static_cast<int64_t>(q0 / m.gq) * m.bm_nk +
+             col0 / m.gk] == 0)
+      return false;
+  }
+  if (m.fm_vecs == nullptr) return true;
+  const int* st = fm_tile_stats(m, batch, fm_head(m, head, h), col0, tile_keys);
+  bool skip, bypass;
+  switch (m.fm_mode) {
+    case kFmCausal1:
+      skip = q0 >= st[0];
+      bypass = q1 <= st[1];
+      break;
+    case kFmCausal2:  // [LTStart, LTEnd)
+      skip = q0 >= st[0] && q1 <= st[3];
+      bypass = q1 <= st[1] || q0 >= st[2];
+      break;
+    case kFmFull2:  // [LTStart, UTEnd)
+      skip = q0 >= st[0] || q1 <= st[3];
+      bypass = q1 <= st[1] && q0 >= st[2];
+      break;
+    default:  // [LTStart, LTEnd, UTStart, UTEnd)
+      skip = (q0 >= st[0] && q1 <= st[3]) || (q0 >= st[4] && q1 <= st[7]);
+      bypass = (q1 <= st[1] || q0 >= st[2]) && (q1 <= st[5] || q0 >= st[6]);
+  }
+  band = !bypass;
+  return !skip;
+}
+
 }  // namespace xfa

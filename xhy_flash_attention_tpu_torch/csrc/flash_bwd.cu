@@ -42,6 +42,18 @@
 //     holding q_s and dO fragments in registers; key tiles (64 at d 64, 32 at
 //     d 128) up to the causal edge are staged in shared memory; dQ += dS K
 //     through ldmatrix.trans of the K tile.
+// Sparse masks (slice 4, the TPU kernels' FlashMask and block-mask flags,
+// bwd.py:332-350, 582-600): both kernels skip, unread, the tiles the
+// forward skips, and run the elementwise band test only on tiles the
+// FlashMask stats do not bypass; stats come per each kernel's own key tile
+// (64 keys in dK/dV, kKT in dQ). In dK/dV a key tile serves the g query
+// heads of its group, and each reads its own mask head, head / (h / hm):
+// the block reloads its keys' vectors per head, and skips every query tile
+// whose rows are all masked. In causal_1 (a causal document mask) that ends
+// the query loop at the tile's largest LTStart, the end of the last
+// document its keys belong to: the work a packed batch saves. The mask code
+// is a template branch (MASKED): the kernels without masks compile as they
+// did before it.
 // Not yet used: wgmma, TMA, cp.async pipelining — the work of later tuning.
 #include "common.cuh"
 
@@ -50,8 +62,10 @@ namespace {
 using bf16 = __nv_bfloat16;
 using xfa::ldmatrix_x2_trans;
 using xfa::mma_16816;
+using xfa::mma_abt_smem_a;
 using xfa::pack_a;
 using xfa::pack_bf16;
+using xfa::stage_rows;
 
 constexpr int kThreads = 128;     // four warps
 constexpr int kKeysPerBlock = 64;  // dKV: 16 keys per warp
@@ -77,65 +91,11 @@ struct BwdParams {
   int h, hk, sq, sk;
   float sm_scale, softcap;
   int causal;
+  xfa::MaskParams mask;
 };
 
-// Stage rows [row0, row0 + ROWS) of a (seq, D) slice with row stride
-// `stride` into shared memory with padded rows of D + 8 (conflict-free
-// fragment reads). Rows at or past `limit` are zero. With SCALE the values
-// are multiplied by `scale` in fp32 and rounded to bf16 (q_s).
-template <int D, int ROWS, bool SCALE>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int64_t stride, int row0,
-                                           int limit, float scale) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit) {
-      val = *reinterpret_cast<const uint4*>(src + row * stride + c);
-      if (SCALE) {
-        uint32_t* w = reinterpret_cast<uint32_t*>(&val);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[i]));
-          w[i] = pack_bf16(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(&dst[r * (D + 8) + c]) = val;
-  }
-}
-
-// A fragment of k-step kk for the 16 rows starting at `row` of a staged tile.
-template <int D>
-__device__ __forceinline__ void smem_a(uint32_t (&a)[4], const bf16* tile, int row, int kk, int g,
-                                       int t) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    a[r] = *reinterpret_cast<const uint32_t*>(
-        &tile[(row + g + (r & 1) * 8) * (D + 8) + kk * 16 + (r >> 1) * 8 + 2 * t]);
-  }
-}
-
-// acc[j] (16 x 8 n-tiles, N columns) += A(16 x D) B^T where B's N rows are
-// staged in `tile` (rows = columns of the product, D = the contraction).
-template <int D, int N>
-__device__ __forceinline__ void mma_abt_smem_a(float (&acc)[N / 8][4], const bf16* a_tile,
-                                               int a_row, const bf16* b_tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    smem_a<D>(a, a_tile, a_row, kk, g, t);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const bf16* br = &b_tile[(j * 8 + g) * (D + 8) + kk * 16 + 2 * t];
-      mma_16816(acc[j], a, *reinterpret_cast<const uint32_t*>(br),
-                *reinterpret_cast<const uint32_t*>(br + 8));
-    }
-  }
-}
-
-// Same with the A operand already in registers (D / 16 k-steps).
+// As xfa::mma_abt_smem_a, with the A operand already in registers (D / 16
+// k-steps).
 template <int D, int N>
 __device__ __forceinline__ void mma_abt_reg_a(float (&acc)[N / 8][4], const uint32_t (&a)[D / 16][4],
                                               const bf16* b_tile, int g, int t) {
@@ -193,7 +153,7 @@ __host__ __device__ constexpr size_t dkv_smem_bytes() {
          2 * dkv_query_tile<D>() * sizeof(float);
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kQT = dkv_query_tile<D>();
@@ -205,6 +165,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
   bf16* dos = qs + kQT * kStride;
   float* lse_s = reinterpret_cast<float*>(dos + kQT * kStride);
   float* delta_s = lse_s + kQT;
+  __shared__ int fm_s[4][kKeysPerBlock];  // the block's keys' FlashMask vectors
 
   const int n0 = blockIdx.x * kKeysPerBlock;  // low key tiles see most rows: first
   const int kv_head = blockIdx.y, batch = blockIdx.z;
@@ -213,6 +174,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
   const int key0 = n0 + warp * 16;  // this warp's first key
   const int offset = p.sk - p.sq;
   const int group = p.h / p.hk;
+  const xfa::MaskParams& mk = p.mask;
 
   stage_rows<D, kKeysPerBlock, false>(ks, p.k + batch * p.k_sb + kv_head * p.k_sh, p.k_ss, n0,
                                       p.sk, 1.f);
@@ -236,8 +198,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
     const bf16* qb = p.q + batch * p.q_sb + head * p.q_sh;
     const bf16* dob = p.dout + batch * p.do_sb + head * p.do_sh;
     const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
-    for (int mt = m_begin; mt < n_qtiles; ++mt) {
+    int m_end = n_qtiles;
+    if (MASKED && mk.fm_vecs != nullptr) {  // this head's mask head: its vectors
+      const int fh = xfa::fm_head(mk, head, p.h);
+      __syncthreads();  // the previous head's last tile is consumed
+      if (threadIdx.x < kKeysPerBlock) {
+        for (int vi = 0; vi < xfa::fm_nv(mk.fm_mode); ++vi)
+          fm_s[vi][threadIdx.x] = xfa::fm_vec(mk, batch, fh, vi, n0 + threadIdx.x);
+      }
+      if (mk.fm_mode == xfa::kFmCausal1) {  // rows >= max LTStart: all masked
+        const int lts_max = xfa::fm_tile_stats(mk, batch, fh, n0, kKeysPerBlock)[0];
+        m_end = min(m_end, (lts_max + kQT - 1) / kQT);
+      }
+    }
+    for (int mt = m_begin; mt < m_end; ++mt) {
       const int m0 = mt * kQT;
+      bool band = false;  // uniform over the block
+      if (MASKED && !xfa::mask_tile(mk, batch, head, p.h, m0, min(m0 + kQT, p.sq), n0,
+                                    kKeysPerBlock, band))
+        continue;
       __syncthreads();  // the previous tile is consumed (and K/V staged)
       stage_rows<D, kQT, true>(qs, qb, p.q_ss, m0, p.sq, p.sm_scale);
       stage_rows<D, kQT, false>(dos, dob, p.do_ss, m0, p.sq, 1.f);
@@ -267,8 +246,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
           const int key = key0 + g + (e >> 1) * 8;
           const int qi = j * 8 + 2 * t + (e & 1);
           const int row = m0 + qi;
+          const int c = key - n0;
           const bool visible =
-              key < p.sk && row < p.sq && (!p.causal || key <= row + offset);
+              key < p.sk && row < p.sq && (!p.causal || key <= row + offset) &&
+              !(band && xfa::fm_banned(mk.fm_mode, row, fm_s[0][c], fm_s[1][c], fm_s[2][c],
+                                       fm_s[3][c]));
           s[j][e] = p_and_ds(s[j][e], dp[j][e], lse_s[qi], delta_s[qi], visible, p.softcap);
         }
       }
@@ -293,13 +275,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams
   }
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kKT = D == 128 ? 32 : 64;  // keys per tile
   constexpr int kStride = D + 8;
   __shared__ __align__(16) bf16 ks[kKT * kStride];
   __shared__ __align__(16) bf16 vs[kKT * kStride];
+  __shared__ int fm_s[4][kKT];  // the tile's FlashMask vectors
 
   // heaviest causal query tiles first
   const int m_block = gridDim.x - 1 - blockIdx.x;
@@ -309,6 +292,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
   const int g = lane >> 2, t = lane & 3;
   const int row0 = m_block * kRowsPerBlock + warp * 16;
   const int offset = p.sk - p.sq;
+  const xfa::MaskParams& mk = p.mask;
+  const int q0 = m_block * kRowsPerBlock, q1 = min(q0 + kRowsPerBlock, p.sq);
 
   const bf16* qb = p.q + batch * p.q_sb + head * p.q_sh;
   const bf16* dob = p.dout + batch * p.do_sb + head * p.do_sh;
@@ -356,9 +341,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
 
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int n0 = nt * kKT;
+    bool band = false;  // uniform over the block
+    if (MASKED && !xfa::mask_tile(mk, batch, head, p.h, q0, q1, n0, kKT, band)) continue;
     __syncthreads();  // the previous tile is consumed
     stage_rows<D, kKT, false>(ks, kb, p.k_ss, n0, p.sk, 1.f);
     stage_rows<D, kKT, false>(vs, vb, p.v_ss, n0, p.sk, 1.f);
+    if (band && threadIdx.x < kKT) {
+      const int fh = xfa::fm_head(mk, head, p.h);
+      for (int vi = 0; vi < xfa::fm_nv(mk.fm_mode); ++vi)
+        fm_s[vi][threadIdx.x] = xfa::fm_vec(mk, batch, fh, vi, n0 + threadIdx.x);
+    }
     __syncthreads();
 
     float s[kKT / 8][4], dp[kKT / 8][4];
@@ -375,7 +367,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + g + (e >> 1) * 8;
         const int col = n0 + j * 8 + 2 * t + (e & 1);
-        const bool visible = col < p.sk && row < p.sq && (!p.causal || col <= row + offset);
+        const int c = col - n0;
+        const bool visible =
+            col < p.sk && row < p.sq && (!p.causal || col <= row + offset) &&
+            !(band && xfa::fm_banned(mk.fm_mode, row, fm_s[0][c], fm_s[1][c], fm_s[2][c],
+                                     fm_s[3][c]));
         p_and_ds(s[j][e], dp[j][e], lse_r[e >> 1], delta_r[e >> 1], visible, p.softcap);
       }
     }
@@ -399,7 +395,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
 BwdParams make_params(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, void* dk, void* dv,
                       const int64_t* st, int h, int hk, int sq, int sk, float sm_scale,
-                      float softcap, int causal) {
+                      float softcap, int causal, const xfa::MaskParams& mask) {
   BwdParams p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -418,25 +414,36 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.causal = causal;
+  p.mask = mask;
   return p;
+}
+
+bool has_masks(const BwdParams& p) { return p.mask.fm_vecs != nullptr || p.mask.bm != nullptr; }
+
+template <int D, bool MASKED>
+cudaError_t launch_dkv(const BwdParams& p, int b, cudaStream_t s) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, MASKED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.sk + kKeysPerBlock - 1) / kKeysPerBlock, p.hk, b);
+  flash_bwd_dkv_kernel<D, MASKED><<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const BwdParams& p, int b, cudaStream_t s) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.sk + kKeysPerBlock - 1) / kKeysPerBlock, p.hk, b);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  return has_masks(p) ? launch_dkv<D, true>(p, b, s) : launch_dkv<D, false>(p, b, s);
 }
 
 }  // namespace
 
 // The 21 strides, in elements, are (batch, head, seq) of q, k, v, dout, dq,
 // dk and dv in that order; the head-dim axis of every tensor is contiguous.
-// lse and delta are (b, h, sq) fp32 contiguous. dk/dv are written by
+// lse and delta are (b, h, sq) fp32 contiguous. The mask arguments
+// (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per key tile of the
+// kernel launched: 64 keys for dK/dV, kKT (64 at d 64, 32 at d 128) for dQ. dk/dv are written by
 // xfa_flash_bwd_dkv, dq by xfa_flash_bwd_dq; each launch overwrites its
 // outputs (no zero fill needed).
 #define XFA_BWD_ARGS                                                                           \
@@ -446,13 +453,13 @@ cudaError_t launch_dkv(const BwdParams& p, int b, cudaStream_t s) {
       int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, \
       int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, \
       int b, int h, int hk, int sq, int sk, int d, float sm_scale, float softcap, int causal,    \
-      void *stream
+      XFA_MASK_ARGS, void *stream
 #define XFA_BWD_PARAMS                                                                        \
   const int64_t st[21] = {q_sb,  q_sh,  q_ss,  k_sb,  k_sh,  k_ss,  v_sb,  v_sh,  v_ss,  do_sb, \
                           do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, \
                           dv_ss};                                                              \
   const BwdParams p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, st, h, hk, sq, sk,    \
-                                  sm_scale, softcap, causal);                                  \
+                                  sm_scale, softcap, causal, XFA_MASK_VALUES);                 \
   cudaStream_t s = static_cast<cudaStream_t>(stream)
 
 XFA_EXPORT int xfa_flash_bwd_dkv(XFA_BWD_ARGS) {
@@ -467,10 +474,13 @@ XFA_EXPORT int xfa_flash_bwd_dq(XFA_BWD_ARGS) {
   XFA_BWD_PARAMS;
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, h, b);
+  const bool masked = has_masks(p);
   if (d == 64) {
-    flash_bwd_dq_kernel<64><<<grid, kThreads, 0, s>>>(p);
+    if (masked) flash_bwd_dq_kernel<64, true><<<grid, kThreads, 0, s>>>(p);
+    else flash_bwd_dq_kernel<64, false><<<grid, kThreads, 0, s>>>(p);
   } else if (d == 128) {
-    flash_bwd_dq_kernel<128><<<grid, kThreads, 0, s>>>(p);
+    if (masked) flash_bwd_dq_kernel<128, true><<<grid, kThreads, 0, s>>>(p);
+    else flash_bwd_dq_kernel<128, false><<<grid, kThreads, 0, s>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,6 +17,17 @@
 // divided by the fp32 row sum; an optional fp32 LSE (+inf on rows with no
 // visible key, whose output is 0).
 //
+// Sparse masks (slice 4, the TPU kernel's FlashMask and block-mask flags,
+// fwd.py:244-264): a 64-key tile that the block mask turns off, or that
+// the FlashMask stats show masked for all of the block's 64 rows, is
+// skipped before its K/V are loaded; the elementwise band test runs only on
+// tiles the stats do not bypass (the tile's vectors are staged in shared
+// memory beside K and V). The mask head of query head i is
+// i / (h / hm). A row whose every tile is skipped or masked keeps m = -inf
+// and l = 0 and writes 0 with LSE +inf, whichever of its tiles come first.
+// The mask code is a template branch (MASKED): the kernel without masks
+// compiles as it did before it, registers and all.
+//
 // Softmax: the max-shifted online softmax. The TPU kernels use a zero shift,
 // exp(min(s, 70)) (fwd.py:60-65, fused_heads.py:81). Both give the same
 // P / l to fp32 rounding while scores stay under 70; the shifted form also
@@ -58,15 +69,17 @@ struct FwdParams {
   int h, hk, sq, sk;
   float sm_scale, softcap;
   int causal;
+  xfa::MaskParams mask;
 };
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + 8;  // padded smem row (bf16): conflict-free fragment reads
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   __shared__ __align__(16) bf16 ks[kBlockN * kStride];
   __shared__ __align__(16) bf16 vs[kBlockN * kStride];
+  __shared__ int fm_s[4][kBlockN];  // the tile's FlashMask vectors
 
   // heaviest causal q blocks first
   const int m_block = gridDim.x - 1 - blockIdx.x;
@@ -76,6 +89,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   const int g = lane >> 2, t = lane & 3;
   const int row0 = m_block * kBlockM + warp * 16;
   const int offset = p.sk - p.sq;
+  const xfa::MaskParams& mk = p.mask;
+  const int q0 = m_block * kBlockM, q1 = min(q0 + kBlockM, p.sq);
 
   const bf16* qb = p.q + batch * p.q_sb + head * p.q_sh;
   const bf16* kb = p.k + batch * p.k_sb + kv_head * p.k_sh;
@@ -116,7 +131,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int n0 = nt * kBlockN;
+    bool band = false;  // the same for every thread: skips keep barriers uniform
+    if (MASKED && !xfa::mask_tile(mk, batch, head, p.h, q0, q1, n0, kBlockN, band)) continue;
     __syncthreads();  // the previous tile is fully consumed
+    if (band && threadIdx.x < kBlockN) {
+      const int fh = xfa::fm_head(mk, head, p.h);
+      for (int vi = 0; vi < xfa::fm_nv(mk.fm_mode); ++vi)
+        fm_s[vi][threadIdx.x] = xfa::fm_vec(mk, batch, fh, vi, n0 + threadIdx.x);
+    }
     for (int idx = threadIdx.x; idx < kBlockN * kChunks; idx += kThreads) {
       const int r = idx / kChunks, c = (idx % kChunks) * 8;
       const int key = n0 + r;
@@ -156,7 +178,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
         const int col = n0 + j * 8 + 2 * t + (e & 1);
         float x = s[j][e];
         if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
-        const bool visible = col < p.sk && (!p.causal || col <= row + offset);
+        const int c = col - n0;
+        const bool visible =
+            col < p.sk && (!p.causal || col <= row + offset) &&
+            !(band && xfa::fm_banned(mk.fm_mode, row, fm_s[0][c], fm_s[1][c], fm_s[2][c],
+                                     fm_s[3][c]));
         x = visible ? x : -INFINITY;
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -232,13 +258,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 }  // namespace
 
 // q/k/v/o strides are in elements for the (batch, head, seq) axes; the
-// head-dim axis is contiguous. lse may be null.
+// head-dim axis is contiguous. lse may be null. The mask arguments
+// (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per 64-key tile.
 XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                              int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                              int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int b,
                              int h, int hk, int sq, int sk, int d, float sm_scale,
-                             float softcap, int causal, void* stream) {
+                             float softcap, int causal, XFA_MASK_ARGS, void* stream) {
   FwdParams p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -253,13 +280,17 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.causal = causal;
+  p.mask = XFA_MASK_VALUES;
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid((sq + kBlockM - 1) / kBlockM, h, b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool masked = p.mask.fm_vecs != nullptr || p.mask.bm != nullptr;
   if (d == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, s>>>(p);
+    if (masked) flash_fwd_kernel<64, true><<<grid, kThreads, 0, s>>>(p);
+    else flash_fwd_kernel<64, false><<<grid, kThreads, 0, s>>>(p);
   } else if (d == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, s>>>(p);
+    if (masked) flash_fwd_kernel<128, true><<<grid, kThreads, 0, s>>>(p);
+    else flash_fwd_kernel<128, false><<<grid, kThreads, 0, s>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

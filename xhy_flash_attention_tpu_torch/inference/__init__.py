@@ -1,8 +1,8 @@
 """Inference runtime: paged KV cache, split-KV decode, continuous batching
 (≙ xhy_flash_attention_tpu inference/).
 
-`tp_model_apply` (tensor-parallel serving) comes with slice 4 (The rest)
-(ROADMAP.md, 'Next slices of the port').
+`tp_model_apply` (tensor-parallel serving) comes with slice 9
+(parallelism) (ROADMAP.md, 'Next slices of the port').
 """
 
 from .combine import flash_decode_splitkv, merge_attention_partials

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import _cuda
-from ..ops.flash_attention.common import NEG_INF, NEXT_SLICES, require_inference
+from ..ops.flash_attention.common import NEG_INF, SLICE_DTYPES, require_inference
 from ..ops.quant import QUANT_DTYPES, bits, quantize_kv
 
 __all__ = ["PagedKVCache", "append_paged_kv", "hk_of", "paged_decode_chunked",
@@ -187,7 +187,7 @@ def _launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
         raise NotImplementedError(
             f"the CUDA paged kernel takes bfloat16 queries with bfloat16, "
             f"int8 or float8_e4m3fn pages (got {q.dtype}, {pages.dtype}); "
-            f"fp16 and fp32 come with slice 4 (The rest) {NEXT_SLICES}")
+            f"fp16 and fp32 come with {SLICE_DTYPES}")
     if d not in (64, 128):
         raise NotImplementedError(f"head dim {d}: the kernel takes 64 or 128")
     if pages.shape[4] != d or h % hk or cache.page_table.shape[0] != b \

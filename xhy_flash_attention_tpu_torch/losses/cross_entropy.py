@@ -8,7 +8,7 @@ in chunks, so the fp32 copy of the logits that either pass needs is at most
 _CHUNK_ELEMS elements at a time. `ignore_index` rows give zero loss and
 zero gradient. Both passes run inside a profiler range named
 ``xfa::cross_entropy``, so a trace can attribute their kernels. The
-tensor-parallel vocab split (``axis_name``) comes with slice 4.
+tensor-parallel vocab split (``axis_name``) comes with slice 9.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ __all__ = ["cross_entropy_loss", "CrossEntropyLoss"]
 PROFILE_RANGE = "xfa::cross_entropy"
 _CHUNK_ELEMS = 1 << 27  # fp32 elements of logits per chunk (512 MiB)
 _TP_NOT_PORTED = ("tensor-parallel cross-entropy (axis_name, vocab_start) "
-                  "comes with slice 4 (The rest) (ROADMAP.md, 'Next slices "
-                  "of the port')")
+                  "comes with slice 9 (parallelism) (ROADMAP.md, 'Next "
+                  "slices of the port')")
 
 
 def _chunks(n: int, v: int):

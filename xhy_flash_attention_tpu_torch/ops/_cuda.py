@@ -41,8 +41,12 @@ CACHE_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _c_void_p, _c_int, _c_int64, _c_float = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float)
+# XFA_MASK_ARGS of csrc/common.cuh: FlashMask vectors, stats, mode, heads,
+# padded length; block mask, batch and head strides, heads, columns, gq, gk
+_MASK_ARGS = ([_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
+               _c_int64, _c_int64] + [_c_int] * 4)
 _BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
-             + [_c_float, _c_float, _c_int, _c_void_p])
+             + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p])
 _SIGNATURES = {
     "xfa_ln_fwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p,
                    _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
@@ -52,7 +56,7 @@ _SIGNATURES = {
                    _c_void_p, _c_int, _c_void_p, _c_void_p, _c_int64, _c_int,
                    _c_int, _c_int, _c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
-    + [_c_float, _c_float, _c_int, _c_void_p],
+    + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p],
     "xfa_flash_bwd_dkv": _BWD_ARGS,
     "xfa_flash_bwd_dq": _BWD_ARGS,
     "xfa_flash_decode": [_c_void_p] * 12 + [_c_int64, _c_int64, _c_int] * 2
@@ -60,6 +64,8 @@ _SIGNATURES = {
     + [_c_float, _c_float, _c_int, _c_void_p],
     "xfa_paged_decode": [_c_void_p] * 6 + [_c_int] * 9
     + [_c_float, _c_float, _c_int, _c_void_p],
+    "xfa_reduced_scores": [_c_void_p] * 4 + [_c_int64] * 6 + [_c_int] * 6
+    + [_c_float, _c_int, _c_void_p],
 }
 
 

@@ -15,7 +15,7 @@ tensors the plain versions :func:`fused_heads_fwd_ref` and
 :func:`fused_heads_bwd_ref` run.
 
 Scope, as in the TPU package: sq == sk <= MAX_SEQ, causal or full, softcap,
-MQA/GQA; no bias, windows or segments. Dropout comes with slice 4.
+MQA/GQA; no bias, windows or segments. Dropout comes with slice 6.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 
 from .. import _cuda
 from .bwd import attention_bwd_ref, attention_delta, launch_flash_bwd
-from .common import NEXT_SLICES
+from .common import SLICE_DROPOUT
 from .fwd import attention_fwd_ref, launch_flash_fwd
 
 __all__ = [
@@ -156,8 +156,7 @@ fused_heads_bwd.launches = 0
 def _check(dropout_p):
     if dropout_p > 0.0:
         raise NotImplementedError(
-            "dropout in packed attention comes with slice 4 (The rest) "
-            f"{NEXT_SLICES}")
+            f"dropout in packed attention comes with {SLICE_DROPOUT}")
 
 
 class _PackedHeads(torch.autograd.Function):

@@ -4,10 +4,12 @@ ops/flash_attention/fwd.py `flash_attention_fwd`).
 On a CUDA tensor the work runs in csrc/flash_fwd.cu, the counterpart of the
 TPU kernel `_fwd_kernel` (fwd.py:78); on a CPU tensor in its plain version
 :func:`attention_fwd_ref`. This slice covers causal and full attention,
-GQA, softcap and the LSE output; the backward is bwd.py, joined to this
-forward by interface.py's autograd function. Bias, segment ids, positions,
-sliding windows, dropout, FlashMask, block sparsity and fp8 raise
-NotImplementedError until slice 4.
+GQA, softcap, the LSE output, FlashMask (slice 4: column-wise row bands,
+four modes, mask heads dividing the query heads) and block-sparse masks
+(a 0/1 mask at a granularity the kernel's tiles divide); the backward is
+bwd.py, joined to this forward by interface.py's autograd function. Bias,
+segment ids, positions and sliding windows raise NotImplementedError until
+slice 5, dropout until slice 6, fp8 until slice 7.
 """
 
 from __future__ import annotations
@@ -18,20 +20,24 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _cuda
-from .common import CUDA_DTYPE_NOT_PORTED, NEXT_SLICES
+from .common import (CUDA_DTYPE_NOT_PORTED, FWD_KEY_TILE, SLICE_DROPOUT,
+                     SLICE_DTYPES, SLICE_VARLEN, KernelMasks, dense_keep_mask,
+                     expand_heads)
 
 __all__ = ["attention_fwd_ref", "flash_attention_fwd"]
 
 
 def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
-                      softcap: float, need_lse: bool):
+                      softcap: float, need_lse: bool, mask=None):
     """Plain version of the kernel on (b, h, s, d) tensors of any strides.
 
     The same arithmetic as the kernel and the TPU kernels: q scaled in fp32
     and rounded to its dtype, fp32 scores, softcap, bottom-right causal
-    mask, fp32 softmax with P rounded to v's dtype for P.V, division by the
-    fp32 row sum. Returns (out (b, h, sq, d), lse (b, h, sq) fp32 | None);
-    rows that see no key give 0 and lse +inf.
+    mask, the optional dense keep mask ``mask`` (b|1, hm|1, sq, sk), True =
+    attend, head i reading mask head i // (h / hm), fp32 softmax with P
+    rounded to v's dtype for P.V, division by the fp32 row sum. Returns (out
+    (b, h, sq, d), lse (b, h, sq) fp32 | None); rows that see no key give 0
+    and lse +inf.
     """
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -46,6 +52,8 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(cols > rows + (sk - sq), -math.inf)
+    if mask is not None:
+        s = s.masked_fill(~expand_heads(mask, h), -math.inf)
     m = s.amax(-1, keepdim=True)
     m = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(s - m)
@@ -59,11 +67,14 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
 
 
 def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
-                     softcap: float) -> None:
+                     softcap: float, masks: KernelMasks = None) -> None:
     """Launch csrc/flash_fwd.cu on (b, h, s, d)-shaped views of any strides
     (head dim contiguous): q, out (b, h, sq, d); k, v (b, hk, sk, d); lse
-    (b, h, sq) fp32 contiguous or None. The callers count the launch."""
+    (b, h, sq) fp32 contiguous or None; ``masks`` the FlashMask and block
+    mask flags, or None. The callers count the launch."""
     tensors = [t for t in (q, k, v, out, lse) if t is not None]
+    if masks is not None:
+        tensors += masks.tensors()
     _cuda.require_cuda(*tensors)
     b, h, sq, d = q.shape
     _, hk, sk, _ = k.shape
@@ -84,7 +95,7 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
         lse.data_ptr() if lse is not None else None,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap), int(causal),
-        _cuda.stream())
+        *KernelMasks.c_args(masks, FWD_KEY_TILE), _cuda.stream())
     _cuda.check(code, "flash_fwd")
 
 
@@ -93,15 +104,17 @@ def _check_supported(causal, window_size, dropout_p, optional) -> bool:
     left, right = window_size
     if causal:
         right = 0
-    flags = {name: value is not None for name, value in optional.items()}
-    flags["sliding window"] = left >= 0 or right > 0
-    unsupported = [name for name, on in flags.items() if on]
-    if dropout_p > 0.0:
-        unsupported.append("dropout")
+    unsupported = [name for name, value in optional.items()
+                   if value is not None]
+    if left >= 0 or right > 0:
+        unsupported.append("sliding window")
     if unsupported:
         raise NotImplementedError(
             f"flash_attention_fwd: {', '.join(unsupported)} not ported yet: "
-            f"slice 4 (The rest) {NEXT_SLICES}")
+            f"{SLICE_VARLEN}")
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            f"flash_attention_fwd: dropout not ported yet: {SLICE_DROPOUT}")
     return right == 0
 
 
@@ -121,6 +134,7 @@ def flash_attention_fwd(
     dropout_seed=None,
     need_lse: bool = True,
     flashmask_vecs=None,
+    flashmask_mode: Optional[str] = None,
     block_mask=None,
     q_positions=None,
     kv_positions=None,
@@ -133,26 +147,36 @@ def flash_attention_fwd(
     returned as a (b, h, sq, d) view, so that swapping it back to the
     projection layout is free.
 
+    flashmask_vecs: optional (b, hm, NV, sk) int32 FlashMask row-index
+    vectors with ``flashmask_mode`` one of common.FM_NV's keys; hm divides
+    h. block_mask: optional (mask, gq, gk), mask (b|1, hm|1, ceil(sq/gq),
+    ceil(sk/gk)) 0/1, granularities multiples of 64. Tiles that a mask
+    turns off everywhere are skipped unread; rows that see no key give 0
+    and lse +inf.
+
     ``flash_attention_fwd.launches`` counts kernel launches.
     """
     causal = _check_supported(causal, window_size, dropout_p, {
         "bias": bias, "segment ids": q_segment_ids,
-        "kv segment ids": kv_segment_ids, "FlashMask": flashmask_vecs,
-        "block mask": block_mask, "q positions": q_positions,
+        "kv segment ids": kv_segment_ids, "q positions": q_positions,
         "kv positions": kv_positions})
     if q.dtype == torch.float8_e4m3fn:
-        raise NotImplementedError("fp8 attention comes with slice 4 (The rest) "
-                                  f"{NEXT_SLICES}")
+        raise NotImplementedError(f"fp8 attention comes with {SLICE_DTYPES}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    mask_kw = dict(flashmask_vecs=flashmask_vecs,
+                   flashmask_mode=flashmask_mode, block_mask=block_mask)
+    masks = KernelMasks(b, h, sq, sk, **mask_kw)
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
-                                 softcap=softcap, need_lse=need_lse)
-    b, h, sq, d = q.shape
+                                 softcap=softcap, need_lse=need_lse,
+                                 mask=dense_keep_mask(sq, sk, h, **mask_kw))
     out = torch.empty(b, sq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
            if need_lse else None)
     launch_flash_fwd(q, k, v, out, lse, sm_scale=sm_scale, causal=causal,
-                     softcap=softcap)
+                     softcap=softcap, masks=masks)
     flash_attention_fwd.launches += 1
     return out, lse
 

@@ -5,8 +5,10 @@ ops/flash_attention/interface.py), and decode against a growing KV cache
 `flash_attention` is differentiable in q, k and v: when an input needs a
 gradient it runs as an autograd function, as the TPU package's custom VJP
 (interface.py:96-131): the forward saves (q, k, v, out, lse) and the
-backward calls `flash_attention_bwd` (the dK/dV and dQ kernels). Decode
-against a cache has no backward, as in the TPU package.
+backward calls `flash_attention_bwd` (the dK/dV and dQ kernels). The same
+function carries the FlashMask and block-sparse entries (flashmask.py,
+blocksparse.py) with their mask flags. Decode against a cache has no
+backward, as in the TPU package.
 """
 
 from __future__ import annotations
@@ -27,13 +29,15 @@ __all__ = ["flash_attention", "flash_attn_func", "flash_attn_qkvpacked_func",
 
 
 class _FlashAttention(torch.autograd.Function):
+    """``masks``: the forward's mask flags (``flashmask_vecs``,
+    ``flashmask_mode``, ``block_mask``) as a dict, or None."""
+
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, softcap):
-        out, lse = flash_attention_fwd(q, k, v, sm_scale=sm_scale,
-                                       causal=causal, softcap=softcap,
-                                       need_lse=True)
+    def forward(ctx, q, k, v, sm_scale, causal, softcap, masks):
+        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+                      **(masks or {}))
+        out, lse = flash_attention_fwd(q, k, v, need_lse=True, **ctx.kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -41,7 +45,24 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+def attention(q, k, v, *, softmax_scale: Optional[float], causal: bool,
+              softcap: float = 0.0, return_lse: bool = False, masks=None):
+    """(b, h, s, d) attention through the autograd function when an input
+    needs a gradient, else the forward alone; ``masks`` as
+    `_FlashAttention`'s. Returns out, or (out, lse) with ``return_lse``."""
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, float(softmax_scale),
+                                         causal, float(softcap), masks)
+    else:
+        out, lse = flash_attention_fwd(
+            q, k, v, sm_scale=softmax_scale, causal=causal, softcap=softcap,
+            need_lse=return_lse, **(masks or {}))
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(
@@ -61,20 +82,12 @@ def flash_attention(
     Returns out (b, h, sq, d) and, with ``return_lse``, the fp32 logsumexp
     (b, h, sq). Differentiable in q, k and v (not through the LSE).
     """
-    if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     causal = _check_supported(causal, window_size, dropout_p, {
         "bias": bias, "segment ids": q_segment_ids,
         "kv segment ids": kv_segment_ids, "q positions": q_positions,
         "kv positions": kv_positions})
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashAttention.apply(q, k, v, float(softmax_scale),
-                                         causal, float(softcap))
-    else:
-        out, lse = flash_attention_fwd(
-            q, k, v, sm_scale=softmax_scale, causal=causal, softcap=softcap,
-            need_lse=return_lse)
-    return (out, lse) if return_lse else out
+    return attention(q, k, v, softmax_scale=softmax_scale, causal=causal,
+                     softcap=softcap, return_lse=return_lse)
 
 
 def flash_attn_func(q, k, v, dropout_p: float = 0.0,

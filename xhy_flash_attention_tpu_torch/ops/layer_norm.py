@@ -12,7 +12,7 @@ on a CPU tensor in their plain versions :func:`ln_fwd_ref` and
 function, as the TPU package's custom VJP: the forward saves residual_out,
 the row mean and 1/std, and the backward kernel computes dx0, dresidual and
 the dgamma / dbeta partials. Dropout, rowscale and layerscale wait for
-slice 4.
+slice 6.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ __all__ = [
 ]
 
 _NOT_PORTED = ("dropout, rowscale and layerscale in the fused norm come with "
-               "slice 4 (The rest) (ROADMAP.md, 'Next slices of the port')")
+               "slice 6 (dropout) (ROADMAP.md, 'Next slices of the port')")
 
 # Rows per block of the backward kernel: at most 64, and enough blocks for
 # two per SM of an H100 (132 SMs) where there are rows for them.

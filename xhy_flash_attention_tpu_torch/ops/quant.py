@@ -7,7 +7,7 @@ the payload and the scales agree bit for bit with the JAX package.
 
 The weight-only quantization (`quantize_weight`, `weight_only_quant_matmul`)
 and `quantize_fp8_per_head` come with the model's weight-quant and fp8-prefill
-paths (slice 4).
+paths (slice 7).
 """
 
 from __future__ import annotations

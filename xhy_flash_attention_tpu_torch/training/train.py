@@ -12,8 +12,8 @@ update. Checkpoints store the masters, the moments, the data cursor and the
 token count, so a resumed run lands bitwise on the same parameters.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"`` (the tests).
-Parallel training (a mesh other than (1, 1), pipeline stages), the vision
-task and rematerialisation come with slice 4.
+Parallel training (a mesh other than (1, 1), pipeline stages) comes with
+slice 9, the vision task with slice 8 and rematerialisation with slice 7.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from .optim import make_optimizer
 
 __all__ = ["Trainer", "train"]
 
-_SLICE_4 = "comes with slice 4 (The rest) (ROADMAP.md, 'Next slices of the port')"
+_NEXT = "(ROADMAP.md, 'Next slices of the port')"
 _PDROP = ("embd_pdrop", "resid_pdrop", "attn_pdrop")
 
 
@@ -46,19 +46,23 @@ def _model_config(model: Dict, dtype: torch.dtype) -> GPTConfig:
     remat is not ported."""
     model = {k: v for k, v in model.items() if k not in _PDROP}
     if model.pop("remat", False):
-        raise NotImplementedError(f"remat {_SLICE_4}")
+        raise NotImplementedError(
+            f"remat comes with slice 7 (fp16/fp32 and fp8 inputs, weight-only "
+            f"quantization, remat) {_NEXT}")
     return GPTConfig(**{**model, "dtype": dtype})
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, *, device="cuda"):
         if cfg.task != "lm":
-            raise NotImplementedError(f"task {cfg.task!r}: the vision "
-                                      f"trainer {_SLICE_4}")
+            raise NotImplementedError(
+                f"task {cfg.task!r}: the vision trainer comes with slice 8 "
+                f"(the other models and the vision trainer) {_NEXT}")
         if tuple(cfg.mesh) != (1, 1) or cfg.pipeline_parallel > 1:
             raise NotImplementedError(
                 f"mesh {tuple(cfg.mesh)}, pipeline_parallel "
-                f"{cfg.pipeline_parallel}: parallel training {_SLICE_4}")
+                f"{cfg.pipeline_parallel}: parallel training comes with "
+                f"slice 9 (parallelism) {_NEXT}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = model_dtype(cfg)
