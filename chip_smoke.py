@@ -11,6 +11,10 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the serving path gives it, with max error, tolerance and times
      (kernel, plain version, one PyTorch library call, roofline bound);
+     the decode kernels also at the JAX package's headline decode shape
+     (b8 h32 hk8 d128 S8192, bf16 / int8 / e4m3), with their cluster plan
+     and the time of each cluster size, all timed as CUDA graphs of calls
+     (their wrappers take longer on the host than the kernels on the card);
   4. the slice: random bf16 weights at Llama-3-8B width serve request A
      (batch 2, prompt 2048, max_length 2080) and request B (batch 2,
      prompt 960, max_length 1024) through `decode`; launch counts of every
@@ -265,69 +269,47 @@ def check_fused_heads(gen):
     return row
 
 
-def check_decode(gen, request: str):
-    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
-        decode_kernel as dk
-    c = LLAMA3_8B
-    b, _, S = REQUESTS[request]
-    h, hk = c["num_attention_heads"], c["num_key_value_heads"]
-    d = c["hidden_size"] // h
-    # enough cache copies that they exceed the 50 MB L2 together: every
-    # layer of a decode step finds its cache cold
-    per_set = 2 * b * hk * S * d * 2
-    n_sets = max(1, math.ceil(128e6 / per_set))
-    sets = []
-    for _ in range(n_sets):
-        kc = torch.randn(b, hk, S, d, generator=gen, device="cuda").bfloat16()
-        vc = torch.randn(b, hk, S, d, generator=gen, device="cuda").bfloat16()
-        sets.append((kc, vc))
-    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
-    scale = d ** -0.5
-    kc, vc = sets[0]
-    # ragged lengths first (length handling), then the last step's lengths
-    ragged = torch.tensor([S, S - 29], dtype=torch.int32, device="cuda")
-    err_ragged = max_err(dk.flash_decode(q, kc, vc, ragged, softmax_scale=scale),
-                         dk.flash_decode_ref(q, kc, vc, ragged, scale))
-    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
-    out = dk.flash_decode(q, kc, vc, lengths, softmax_scale=scale)
-    ref = dk.flash_decode_ref(q, kc, vc, lengths, scale)
+def graph_ms(fns, reps: int = 10, replays: int = 20) -> float:
+    """Mean device time of one call, cycling over ``fns``, with the calls
+    captured in one CUDA graph: the decode kernels take less time on the
+    card than their wrappers take on the host, and launched one by one they
+    would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the graph
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    err = max(max_err(out, ref), err_ragged)
-    tol = BF16_ULP * ref.float().abs().max().item() + 1e-6
-    check(err <= tol, f"flash_decode err {err} > {tol}")
-    n_tok = int(lengths.sum().item())
-    # the cache positions read (k and v, bf16), q in and out
-    nbytes = 2.0 * hk * n_tok * d * 2 + 2 * 2.0 * b * h * d
-    flops = 4.0 * h * n_tok * d  # q.k and p.v for every head
-    bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-    row = dict(
-        name="flash_decode", route="cuda",
-        source="xhy_flash_attention_tpu_torch/csrc/flash_decode.cu",
-        replaces="xhy_flash_attention_tpu/ops/flash_attention/decode_kernel.py:47",
-        max_abs_err=err,
-        ms=time_ms([lambda kc=kc, vc=vc: dk.flash_decode(
-            q, kc, vc, lengths, softmax_scale=scale) for kc, vc in sets],
-            iters=10 * n_sets),
-        plain_ms=time_ms([lambda: dk.flash_decode_ref(
-            q, kc, vc, lengths, scale)]),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms([lambda kc=kc, vc=vc: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kc, vc, enable_gqa=True) for kc, vc in sets],
-            iters=10 * n_sets))
-    report(row, f"request {request} last step: tol {tol:.3g} = 1 bf16 ulp "
-                f"of max|out|; b{b} h{h} hk{hk} len {S} d{d}, flops {flops:.4g}, bytes "
-                f"{nbytes:.4g}, {n_sets} cache copies rotated")
-    del sets
-    return row
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
 
 
 QUANT = (torch.int8, torch.float8_e4m3fn)
 SHORT = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float8_e4m3fn: "e4m3"}
+DECODE_SHAPES = {  # batch, cache length
+    "A": (REQUESTS["A"][0], REQUESTS["A"][2]),
+    "B": (REQUESTS["B"][0], REQUESTS["B"][2]),
+    # the JAX package's headline decode shape (bench.py:139)
+    "b8 S8192": (8, 8192),
+}
 
 
 def _dense_sets(gen, b, hk, S, d, dtype, min_bytes=128e6):
-    """Enough (k, v) cache copies of request A's shape, bf16 or QuantizedKV,
-    that together they exceed the 50 MB L2."""
+    """Enough (k, v) cache copies, bf16 or QuantizedKV, that together they
+    exceed the 50 MB L2."""
     from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
     elem = 2 if dtype == torch.bfloat16 else 1 + 4 / d
     n_sets = max(1, math.ceil(min_bytes / (2 * b * hk * S * d * elem)))
@@ -340,49 +322,85 @@ def _dense_sets(gen, b, hk, S, d, dtype, min_bytes=128e6):
     return sets, elem
 
 
-def check_decode_quant(gen, dtype):
-    """flash_decode over an int8 / e4m3 QuantizedKV cache at request A's
-    last decode step."""
+def _bf16_caches(sets, dtype):
+    """The caches as SDPA takes them: bf16, dequantized for 1-byte ones."""
+    if dtype not in QUANT:
+        return sets
+    return [[x.values.float().mul(x.scales).bfloat16() for x in kv]
+            for kv in sets]
+
+
+def _plan_text(q, kc, splits=1, split_len=0):
+    """The cluster size, CTAs and the card's room for such clusters."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        decode_kernel as dk
+    b, hk, S = q.shape[0], dk._payload(kc)[0].shape[1], dk._payload(kc)[0].shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cluster, chunk = dk.decode_launch_plan(b, hk, S, splits, split_len, sms)
+    room = dk.max_active_clusters(q, kc, cluster, partial=splits > 1)
+    return (f"cluster {cluster} x {b * hk * splits} = "
+            f"{cluster * b * hk * splits} CTAs, chunk {chunk} keys, "
+            f"{room} clusters fit at once")
+
+
+def check_decode(gen, shape: str, dtype=torch.bfloat16):
+    """flash_decode at a serving shape's last decode step (bf16 cache, or an
+    int8 / e4m3 QuantizedKV); at bf16 also the time with each cluster size
+    forced."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import \
         decode_kernel as dk
     c = LLAMA3_8B
-    b, _, S = REQUESTS["A"]
+    b, S = DECODE_SHAPES[shape]
     h, hk = c["num_attention_heads"], c["num_key_value_heads"]
     d = c["hidden_size"] // h
     sets, elem = _dense_sets(gen, b, hk, S, d, dtype)
     q = torch.randn(b, 1, h, d, generator=gen, device="cuda").bfloat16()
-    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
-    ragged = torch.tensor([S, S - 29], dtype=torch.int32, device="cuda")
-    kc, vc = sets[0]
     scale = d ** -0.5
+    kc, vc = sets[0]
+    # ragged lengths first (length handling), then the last step's lengths
+    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    ragged = lengths.clone()
+    ragged[1::2] -= 29
     err = max(max_err(dk.flash_decode(q, kc, vc, ln, softmax_scale=scale),
                       dk.flash_decode_ref(q, kc, vc, ln, scale))
               for ln in (ragged, lengths))
     ref = dk.flash_decode_ref(q, kc, vc, lengths, scale)
     torch.cuda.synchronize()
     tol = BF16_ULP * ref.float().abs().max().item() + 1e-6
-    check(err <= tol, f"flash_decode {SHORT[dtype]} err {err} > {tol}")
-    nbytes = 2.0 * b * hk * S * d * elem + 2 * 2.0 * b * h * d
-    flops = 4.0 * b * h * S * d
+    name = "flash_decode" + ("" if dtype == torch.bfloat16
+                             else f" ({SHORT[dtype]})")
+    check(err <= tol, f"{name} at {shape} err {err} > {tol}")
+    n_tok = int(lengths.sum().item())
+    # the cache positions read (k and v, with their scales), q in and out
+    nbytes = 2.0 * hk * n_tok * d * elem + 2 * 2.0 * b * h * d
+    flops = 4.0 * h * n_tok * d  # q.k and p.v for every head
     bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-    deq = [x.values.float().mul(x.scales).bfloat16() for x in (kc, vc)]
+    lib = _bf16_caches(sets, dtype)
     row = dict(
-        name=f"flash_decode ({SHORT[dtype]})", route="cuda",
+        name=name, route="cuda",
         source="xhy_flash_attention_tpu_torch/csrc/flash_decode.cu",
         replaces="xhy_flash_attention_tpu/ops/flash_attention/decode_kernel.py:47",
         max_abs_err=err,
-        ms=time_ms([lambda kc=kc, vc=vc: dk.flash_decode(
-            q, kc, vc, lengths, softmax_scale=scale) for kc, vc in sets],
-            iters=10 * len(sets)),
-        plain_ms=time_ms([lambda: dk.flash_decode_ref(
-            q, kc, vc, lengths, scale)]),
+        ms=graph_ms([lambda kc=kc, vc=vc: dk.flash_decode(
+            q, kc, vc, lengths, softmax_scale=scale) for kc, vc in sets]),
+        plain_ms=graph_ms([lambda: dk.flash_decode_ref(
+            q, kc, vc, lengths, scale)], reps=2, replays=5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), deq[0], deq[1], enable_gqa=True)]))
-    report(row, f"request A last step, {SHORT[dtype]} payload with per-token "
-                f"scales: tol {tol:.3g} = 1 bf16 ulp of max|out|; b{b} h{h} "
-                f"hk{hk} len {S} d{d}, bytes {nbytes:.4g}, {len(sets)} cache "
-                "copies rotated; library: SDPA on the dequantized bf16 cache")
+        library_ms=graph_ms([lambda kc=kc, vc=vc: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc, vc, enable_gqa=True) for kc, vc in lib]))
+    report(row, f"{shape} last step, {SHORT[dtype]} cache: tol {tol:.3g} = 1 "
+                f"bf16 ulp of max|out|; b{b} h{h} hk{hk} len {S} d{d}, flops "
+                f"{flops:.4g}, bytes {nbytes:.4g}, {len(sets)} cache copies "
+                f"rotated; {_plan_text(q, kc)}; times of CUDA graphs of "
+                "calls; library: SDPA on the bf16"
+                f"{' (dequantized)' if dtype in QUANT else ''} caches")
+    if dtype == torch.bfloat16:
+        out = torch.empty_like(q)
+        by_cluster = {cl: graph_ms([lambda kc=kc, vc=vc, cl=cl: dk.launch_decode(
+            q, kc, vc, lengths, softmax_scale=scale, out=out, cluster=cl)
+            for kc, vc in sets]) for cl in dk.CLUSTER_SIZES}
+        print(f"    ms by cluster size: {json.dumps(by_cluster)}", flush=True)
+    del sets, lib
     return row
 
 
@@ -402,7 +420,7 @@ def check_splitkv(gen, dtype, decode_ms):
     from xhy_flash_attention_tpu_torch.ops.flash_attention import \
         decode_kernel as dk
     c = LLAMA3_8B
-    b, _, S = REQUESTS["A"]
+    b, S = DECODE_SHAPES["A"]
     h, hk = c["num_attention_heads"], c["num_key_value_heads"]
     d = c["hidden_size"] // h
     sets, elem = _dense_sets(gen, b, hk, S, d, dtype)
@@ -422,28 +440,27 @@ def check_splitkv(gen, dtype, decode_ms):
     nbytes = 2.0 * b * hk * S * d * elem + 2 * 2.0 * b * h * d
     flops = 4.0 * b * h * S * d
     bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
-    if dtype in QUANT:
-        lib_k, lib_v = [x.values.float().mul(x.scales).bfloat16()
-                        for x in (kc, vc)]
-    else:
-        lib_k, lib_v = kc, vc
+    lib = _bf16_caches(sets, dtype)
     row = dict(
         name=f"flash_decode_splitkv ({SHORT[dtype]})", route="cuda",
         source="xhy_flash_attention_tpu_torch/csrc/flash_decode.cu",
         replaces="xhy_flash_attention_tpu/inference/combine.py:75",
         max_abs_err=err,
-        ms=time_ms([lambda kc=kc, vc=vc: combine.flash_decode_splitkv(
-            q, kc, vc, lengths) for kc, vc in sets], iters=10 * len(sets)),
-        plain_ms=time_ms([lambda: splitkv_plain(q, kc, vc, lengths, scale,
-                                                splits, split_len)]),
+        ms=graph_ms([lambda kc=kc, vc=vc: combine.flash_decode_splitkv(
+            q, kc, vc, lengths) for kc, vc in sets]),
+        plain_ms=graph_ms([lambda: splitkv_plain(q, kc, vc, lengths, scale,
+                                                 splits, split_len)],
+                          reps=2, replays=5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), lib_k, lib_v, enable_gqa=True)]))
+        library_ms=graph_ms([lambda kc=kc, vc=vc: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc, vc, enable_gqa=True) for kc, vc in lib]))
     report(row, f"request A last step, {splits} splits of {split_len} keys "
                 f"(heuristic, {torch.cuda.get_device_properties(0).multi_processor_count}"
                 f" SMs) beside flash_decode (bf16, one split) {decode_ms:.4f} "
                 f"ms: tol {tol:.3g}; b{b} h{h} hk{hk} len {S} d{d}, bytes "
-                f"{nbytes:.4g}; ms includes the merge")
+                f"{nbytes:.4g}; {_plan_text(q, kc, splits, split_len)}; ms "
+                "includes the merge; times of CUDA graphs of calls")
+    del sets, lib
     return row
 
 
@@ -2178,8 +2195,12 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = [check_norm(gen), check_flash_fwd(gen), check_fused_heads(gen),
             check_decode(gen, "A")]
-    check_decode(gen, "B")  # printed; the JSON line keeps request A's row
-    rows += [check_decode_quant(gen, dt) for dt in QUANT]
+    # printed; the JSON line keeps request A's rows, the shapes of the path
+    check_decode(gen, "B")
+    rows += [check_decode(gen, "A", dt) for dt in QUANT]
+    for dt in (torch.bfloat16,) + QUANT:
+        check_decode(gen, "b8 S8192", dt)
+    torch.cuda.empty_cache()
     rows += [check_splitkv(gen, dt, rows[3]["ms"])
              for dt in (torch.bfloat16, torch.int8)]
     rows += [check_paged(gen, "chunked", torch.bfloat16),

@@ -255,6 +255,160 @@ def test_splitkv_matches_plain(cuda, num_splits, cache):
     assert ((ls - rl).abs() <= 1e-5 * rl.abs()).all()
 
 
+# ---- the cluster design of csrc/flash_decode.cu
+
+def _partials(cuda, q, kc, vc, lengths, split_len, splits, cluster=None, **kw):
+    """flash_decode.cu's partials (and splitkv_partials_ref's) over splits of
+    split_len keys."""
+    from xhy_flash_attention_tpu_torch.inference import combine
+    b, _, h, d = q.shape
+    hk = dk._payload(kc)[0].shape[1]
+    rows = q.shape[1] * h // hk
+    outs = torch.empty(b, hk, splits, rows, d, device="cuda")
+    ms = torch.empty(b, hk, splits, rows, device="cuda")
+    ls = torch.empty_like(ms)
+    dk.launch_decode(q, kc, vc, lengths, softmax_scale=d ** -0.5,
+                     partials=(outs, ms, ls), split_len=split_len,
+                     cluster=cluster, **kw)
+    ref = combine.splitkv_partials_ref(q, kc, vc, lengths, d ** -0.5, splits,
+                                       split_len, **kw)
+    return (outs, ms, ls), ref
+
+
+def _assert_partials(got, ref, vc):
+    (outs, ms, ls), (ro, rm, rl) = got, ref
+    torch.cuda.synchronize()
+    vmax = (vc.values.float() * vc.scales if isinstance(vc, dk.QuantizedKV)
+            else vc.float()).abs().max().item()
+    assert _err(outs, ro) <= 1e-5 * vmax
+    seen = rl > 0
+    assert torch.equal(seen, ls > 0)
+    assert _err(ms[seen], rm[seen]) <= 1e-5
+    assert (ms[~seen] == -0.7 * torch.finfo(torch.float32).max).all()
+    assert ((ls - rl).abs() <= 1e-5 * rl.abs()).all()
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("b", [1, 8])
+def test_flash_decode_long_cache(cuda, b, cache):
+    """S 8192 (the JAX package's headline decode shape at b8): the whole
+    output and the partials of 4 splits of 2048, with the host's plan."""
+    h, hk, d, S = 32, 8, 128, 8192
+    q = torch.randn(b, 1, h, d, generator=cuda, device="cuda").bfloat16()
+    kc, vc = (_quant_pair(cuda, (b, hk, S, d), cache) for _ in range(2))
+    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    lengths[1::2] = torch.arange(5000, 5000 + 777 * (b // 2), 777)[:b // 2]
+    before = dk.flash_decode.launches
+    out = dk.flash_decode(q, kc, vc, lengths, softmax_scale=d ** -0.5)
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, d ** -0.5)
+    torch.cuda.synchronize()
+    assert dk.flash_decode.launches == before + 1
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-6
+    _assert_partials(*_partials(cuda, q, kc, vc, lengths, 2048, 4), vc)
+
+
+# lengths ending inside a CTA's chunk, 0 and 3; leftpad and window edges at
+# chunk and tile boundaries (S 1300: 21 tiles, chunks of 3 tiles at c = 8)
+EDGE_CASES = {
+    "ragged": dict(lengths=[1300, 1000, 577, 3, 0, 193]),
+    "leftpad": dict(lengths=[1236, 900, 128, 3, 0, 640],
+                    leftpad_k=[64, 63, 192, 1297, 5, 0]),
+    "window": dict(lengths=[1300, 1000, 577, 3, 0, 193],
+                   window_size=(191, -1)),
+    "window_leftpad": dict(lengths=[1236, 900, 128, 3, 0, 640],
+                           leftpad_k=[64, 63, 192, 1297, 5, 0],
+                           window_size=(64, -1)),
+}
+
+
+def _edge_inputs(cuda, case, cache, sq=1, h=32, hk=8, d=128, S=1300):
+    spec = dict(EDGE_CASES[case])
+    b = len(spec["lengths"])
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    kc, vc = (_quant_pair(cuda, (b, hk, S, d), cache) for _ in range(2))
+    lengths = torch.tensor(spec.pop("lengths"), dtype=torch.int32,
+                           device="cuda")
+    if "leftpad_k" in spec:
+        spec["leftpad_k"] = torch.tensor(spec["leftpad_k"], dtype=torch.int32,
+                                         device="cuda")
+    return q, kc, vc, lengths, spec
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_flash_decode_cluster_sizes(cuda, cluster, case, cache):
+    """Every cluster size, forced, against the plain version: the output
+    within one bf16 unit, and the partials of splits of 512 keys (the
+    splitkv entry takes no leftpad)."""
+    q, kc, vc, lengths, kw = _edge_inputs(cuda, case, cache)
+    d = q.shape[-1]
+    out = torch.empty_like(q)
+    dk.launch_decode(q, kc, vc, lengths, softmax_scale=d ** -0.5, out=out,
+                     cluster=cluster, **kw)
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, d ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-6
+    assert torch.isfinite(out).all()
+    assert not out[lengths == 0].any()
+    if "leftpad_k" not in kw:
+        _assert_partials(*_partials(cuda, q, kc, vc, lengths, 512, 3,
+                                    cluster=cluster, **kw), vc)
+
+
+def test_flash_decode_is_deterministic(cuda):
+    """Two calls of each entry give the same bits (the cluster merges in a
+    fixed order)."""
+    q, kc, vc, lengths, kw = _edge_inputs(cuda, "window", torch.bfloat16,
+                                          sq=2, h=16, hk=4)
+    d = q.shape[-1]
+    for cluster in (None, 8):
+        outs = []
+        for _ in range(2):
+            out = torch.empty_like(q)
+            dk.launch_decode(q, kc, vc, lengths, softmax_scale=d ** -0.5,
+                             out=out, cluster=cluster, **kw)
+            outs.append(out)
+        assert torch.equal(*outs)
+        parts = [_partials(cuda, q, kc, vc, lengths, 512, 3,
+                           cluster=cluster, **kw)[0] for _ in range(2)]
+        for a, b in zip(*parts):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+def test_flash_decode_unaligned_cache_raises(cuda, cache):
+    """Key rows arrive by 16-byte copies: a cache whose sequence stride or
+    pointer is not a multiple of 16 bytes raises ValueError, as does a
+    cluster size the kernel does not take."""
+    from xhy_flash_attention_tpu_torch.ops.quant import QuantizedKV
+    b, h, hk, d, S = 2, 8, 2, 64, 256
+    q = torch.randn(b, 1, h, d, generator=cuda, device="cuda").bfloat16()
+    lengths = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    pad = 8 // torch.tensor([], dtype=cache).element_size()  # 8 bytes
+    wide = _quant_pair(cuda, (b, hk, S, d + pad), torch.bfloat16).to(cache)
+    for kc in (wide[..., :d], wide[..., pad:]):  # the stride, the pointer
+        if cache == torch.int8:
+            kc = QuantizedKV(kc, torch.ones(b, hk, S, 1, device="cuda"))
+        with pytest.raises(ValueError, match="multiples of"):
+            dk.flash_decode(q, kc, kc, lengths, softmax_scale=0.125)
+    kc = wide[..., :d].contiguous()
+    if cache == torch.int8:
+        kc = QuantizedKV(kc, torch.ones(b, hk, S, 1, device="cuda"))
+    with pytest.raises(ValueError, match="cluster"):
+        dk.launch_decode(q, kc, kc, lengths, softmax_scale=0.125,
+                         out=torch.empty_like(q), cluster=3)
+    # q rows arrive by 16-byte copies too: launch_decode raises on a q off
+    # that boundary, flash_decode copies it
+    q_off = torch.empty(q.numel() + 4, device="cuda").bfloat16()[4:].view(q.shape)
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        dk.launch_decode(q_off, kc, kc, lengths, softmax_scale=0.125,
+                         out=torch.empty_like(q))
+    assert torch.equal(dk.flash_decode(q_off, kc, kc, lengths, softmax_scale=0.125),
+                       dk.flash_decode(q, kc, kc, lengths, softmax_scale=0.125))
+
+
 @pytest.mark.parametrize("pages", [torch.bfloat16] + QDTYPES)
 @pytest.mark.parametrize("d,npp,ps,entry", [(128, 8, 64, "chunked"),
                                             (64, 8, 64, "page"),

@@ -1,12 +1,12 @@
 // Few-query decode attention against a dense (b, hk, S, d) KV cache, whole
-// or split across blocks.
+// or split, each (batch, kv head[, split]) spread over a thread-block cluster.
 //
 // Replaces two TPU kernels:
 //   * xhy_flash_attention_tpu/ops/flash_attention/decode_kernel.py:47
-//     `_decode_kernel` (entry xfa_flash_decode with num_splits = 1): the
+//     `_decode_kernel` (entry xfa_flash_decode without partials): the
 //     normalised output;
 //   * xhy_flash_attention_tpu/inference/combine.py:75 `_splitkv_kernel`
-//     (num_splits > 1): per split of the cache, the normalised partial
+//     (with partials): per split of split_len keys, the normalised partial
 //     output out_i and its running max m_i and sum l_i, which
 //     merge_attention_partials (plain PyTorch) combines.
 // What it computes, as the TPU kernels do:
@@ -18,35 +18,69 @@
 //   * kv_batch_idx remaps query batch row b to cache batch row kv_batch_idx[b];
 //   * the cache is bf16 or fp32 (the query's dtype), or an int8 / e4m3
 //     payload with per-token fp32 scales: s = (q . k) * k_scale[j] * sm_scale
-//     and P.V takes p * v_scale[j]. Hopper converts e4m3 natively, so the TPU
-//     kernels' rebias folded into the scales (common.py:44) is not needed;
+//     and P.V takes p * v_scale[j]. int8 and e4m3 convert exactly here, so the
+//     TPU kernels' rebias folded into the scales (common.py:44) is not needed;
 //   * s in fp32, optional softcap tanh(s / c) * c, online softmax in fp32,
 //     output divided by the row sum (0 when a row sees nothing).
 // P stays in fp32 for P.V here (the TPU kernels round it to the query dtype
 // for the matrix unit); the plain versions keep fp32 too.
 //
-// Bound on the H100: bytes. Each step reads 2 * length * d cache elements
-// per (b, kv head) and does ~4 * sq * g flops per element read. Caches are
-// read in place through element strides for their batch, head and sequence
-// axes, so flash_attn_with_kvcache's (b, S, hk, d) caches cost no copy.
-// Design: one block of eight warps per (kv head, batch, split). Keys go in
-// tiles of 64: each warp takes 8 keys, reads each key row with one coalesced
-// warp load (lanes split d) and reduces the sq * g dot products with
-// shuffles; one warp per row runs the online-softmax update; then every
-// thread owns one d column of a few rows and streams V rows with coalesced
-// loads. Known limit: with one split the grid holds only b * hk blocks (16 at
-// b = 2, hk = 8) on the card's 132 SMs, and decode reaches a small share of
-// the memory rate; num_splits multiplies the blocks, at the cost of a merge.
+// Bound on the H100: bytes. A step reads 2 * length * d cache elements per
+// (b, kv head) and does ~4 * sq * g operations per element (16 at g = 4),
+// far below the ~295 operations per byte where the tensor cores would
+// become the limit. So the design keeps bytes in flight on every SM and
+// keeps the work per tile short enough to hide under them:
+//   * the grid is (cluster, hk, b * splits): the c CTAs of a cluster (c in
+//     1, 2, 4, 8; decode_kernel.py decode_launch_plan picks it so that the
+//     grid holds about one CTA per SM) each take a contiguous, tile-aligned
+//     run of the row's visible keys, found on the device from lengths,
+//     leftpad and window_left. A CTA whose run is empty loads nothing;
+//   * each CTA streams its K and V tiles of 64 keys through a ring of 2-6
+//     stages in dynamic shared memory (three for bf16 d128: two tiles in
+//     flight while one is computed), filled by 16-byte cp.async copies that
+//     zero-fill keys outside the visible range; 1-byte payloads travel as
+//     bytes and their scales come with their tile; key rows are padded by 16
+//     bytes so that reads of neighbouring keys hit different banks. At most
+//     ~111 KB and 128 registers a CTA, so two CTAs fit on an SM and 30
+//     clusters of 8 on the card;
+//   * warp w owns keys 8w .. 8w + 7 of every tile, with its own online
+//     softmax and accumulator rows, so a tile costs one barrier (for the
+//     ring). Scores of a bf16 query run on the tensor cores (mma.sync
+//     m16n8k16, rows padded to 16, K exact in bf16: bf16, int8 and e4m3
+//     values are, and the products sum in fp32); an fp32 query's on CUDA
+//     cores in fp32. The softmax works on the mma fragments (quad shuffles);
+//     P.V on CUDA cores in fp32, each lane D / 32 columns of every row, each
+//     V element read and converted once. int8 and e4m3 convert by integer
+//     tricks, not the conversion unit (16 results per SM and clock);
+//   * the warps merge in warp order in shared memory, then the cluster in
+//     distributed shared memory: each CTA leaves (m, l) and its fp32
+//     accumulator rows in its own shared memory, and after cluster.sync()
+//     every CTA merges its share of the output columns over all CTAs in rank
+//     order, with the formula of merge_attention_partials. No workspace, no
+//     atomics, no second launch; the order is fixed, so two calls give the
+//     same bits.
+// Caches are read in place through element strides for their batch, head
+// and sequence axes, so flash_attn_with_kvcache's (b, S, hk, d) caches cost
+// no copy; the pointer and those strides are multiples of 16 bytes.
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;     // keys per tile
-constexpr int kMaxRows = 16;  // sq * g
+constexpr int kTile = 64;        // keys per tile
+constexpr int kMaxRows = 16;     // sq * g
+constexpr int kMaxCluster = 8;   // the portable cluster size
+// bytes of shared memory for the K/V ring: three stages of bf16 d128 tiles
+// (two in flight while one is computed), and two CTAs still fit on an SM (30
+// clusters of 8 on the card)
+constexpr int kRingBudget = 102 * 1024;
 
 struct DecodeParams {
   const void* q;        // (b, sq, h, d) contiguous
@@ -64,71 +98,193 @@ struct DecodeParams {
   int64_t k_sb, k_sh, v_sb, v_sh;
   int k_ss, v_ss;  // sequence strides: offsets inside one (batch, head) fit in 32 bits
   int sq, h, hk, S;
-  int split_len;  // keys per split
+  int splits, split_len;  // splits of split_len keys (partials only)
   float sm_scale, softcap;
   int window_left;
 };
 
-// kPerLane consecutive cache elements, one aligned vector load
-template <typename C, int N>
-struct alignas(N * sizeof(C)) Vec {
-  C v[N];
+// Shared memory of one CTA: the ring of K/V tiles (and, for 1-byte
+// payloads, their scales), q (bf16 rows padded to 16 for the tensor-core
+// scores of a bf16 query, else fp32), and each warp's P and alpha. After
+// the last tile the ring holds the warps' row states and the CTA's merged
+// accumulator rows.
+template <typename T, typename C, int D>
+struct Smem {
+  static constexpr bool kQuant = sizeof(C) == 1;  // int8 / e4m3 payload with scales
+  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(C)) + 16;  // padded key row
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K and V
+  static constexpr int kStages = kRingBudget / kStageBytes < 2   ? 2
+                                 : kRingBudget / kStageBytes > 6 ? 6
+                                                                 : kRingBudget / kStageBytes;
+  static constexpr int kRing = kStages * kStageBytes;
+  static constexpr int kScales = kQuant ? kStages * 2 * kTile * 4 : 0;  // [stage][k, v][key]
+  static constexpr int kQRow = kMma ? (D + 8) * 2 : D * 4;  // q row: bf16 padded, or fp32
+  static constexpr int kQ = kRing + kScales;
+  static constexpr int kPw = kQ + kMaxRows * kQRow;             // p_w [warp][row][8 keys]
+  static constexpr int kAw = kPw + kWarps * kMaxRows * 8 * 4;   // alpha_w [warp][row]
+  static constexpr int kBytes = kAw + kWarps * kMaxRows * 4;
+  // after the loop: the warps' acc [warp][row][D], m, l [warp][row], then
+  // the CTA's acc_s [row][D]
+  static constexpr int kAcc = kWarps * kMaxRows * (D + 2) * 4;
+  static_assert(kRing >= kAcc + kMaxRows * D * 4, "the ring holds the row states");
 };
 
-template <typename T, typename C, int D, bool kPartial>
-__global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodeParams p) {
-  constexpr int kPerLane = D / 32;         // q/k elements per lane in the score phase
-  constexpr int kRowGroups = kThreads / D;  // rows sharing one d column in the P.V phase
-  constexpr int kRowsPerThread = kMaxRows / kRowGroups;
-  constexpr bool kQuant = !std::is_same<C, T>::value;  // int8 / e4m3 payload with scales
-  __shared__ float p_s[kMaxRows][kTile];
-  __shared__ float vsc_s[kTile];
-  __shared__ float alpha_s[kMaxRows];
-  __shared__ float l_s[kMaxRows];
-  __shared__ float m_s[kMaxRows];
+// Byte i of w, an int8 or e4m3 cache element, as a float: exact, and without
+// the conversion unit (16 results per SM and clock on Hopper).
+// int8 x: the bits 0x4B0000uu with u = x + 128 are the float 2^23 + u.
+__device__ __forceinline__ float byte_to_float(uint32_t w, int i, int8_t) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+// e4m3 s.eeee.mmm: the fp32 bits s.0000eeee.mmm0... hold the same value
+// times 2^-120 (a normal e4m3 becomes a normal float, a subnormal one a
+// subnormal float), so a multiply by 2^120 restores it exactly. The two NaN
+// codes of e4m3fn, which quantize_kv never writes, read as +-480.
+__device__ __forceinline__ float byte_to_float(uint32_t w, int i, __nv_fp8_e4m3) {
+  const uint32_t t = __byte_perm(w, 0u, 0x0444 | (i << 12));  // byte i in the top byte
+  return __uint_as_float((t & 0x80000000u) | ((t >> 4) & 0x07F00000u)) * 0x1p120f;
+}
 
-  const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+// Element i of a 32-bit word of cache elements as a float, exact
+__device__ __forceinline__ float elem_to_float(uint32_t w, int, float) { return __uint_as_float(w); }
+__device__ __forceinline__ float elem_to_float(uint32_t w, int i, __nv_bfloat16) {
+  return __uint_as_float(i == 0 ? w << 16 : w & 0xffff0000u);
+}
+template <typename C>
+__device__ __forceinline__ float elem_to_float(uint32_t w, int i, C tag) {
+  return byte_to_float(w, i, tag);
+}
+
+// Four 8x8 bf16 matrices: lanes 8i .. 8i + 7 address the rows of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Elements e and e + 1 of a key row in shared memory as a bf16x2 (the B
+// fragment of mma.sync); exact for bf16, int8 and e4m3 values
+__device__ __forceinline__ uint32_t bf16_pair(const unsigned char* row, int e, __nv_bfloat16) {
+  return *reinterpret_cast<const uint32_t*>(row + 2 * e);
+}
+template <typename C>
+__device__ __forceinline__ uint32_t bf16_pair(const unsigned char* row, int e, C tag) {
+  const uint32_t w = *reinterpret_cast<const uint16_t*>(row + e);
+  return xfa::pack_bf16(byte_to_float(w, 0, tag), byte_to_float(w, 1, tag));
+}
+
+// N consecutive cache elements (2 to 32 bytes, aligned to their size or to
+// 16) from shared memory as floats, read with the widest loads that fit
+template <typename C, int N>
+__device__ __forceinline__ void load_floats(float* f, const unsigned char* src) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(C));
+  constexpr int kPerWord = 4 / static_cast<int>(sizeof(C));
+  uint32_t w[(kBytes + 3) / 4];
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) {
+      const uint4 x = reinterpret_cast<const uint4*>(src)[i];
+      w[4 * i] = x.x;
+      w[4 * i + 1] = x.y;
+      w[4 * i + 2] = x.z;
+      w[4 * i + 3] = x.w;
+    }
+  } else if constexpr (kBytes == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    w[0] = x.x;
+    w[1] = x.y;
+  } else if constexpr (kBytes == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(src);
+  } else {
+    static_assert(kBytes == 2, "2 to 32 bytes");
+    w[0] = *reinterpret_cast<const uint16_t*>(src);
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) f[e] = elem_to_float(w[e / kPerWord], e % kPerWord, C{});
+}
+
+// cp.async of 16 (or 4) bytes; with ok false nothing is read and the
+// destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// kRows: the rows a thread's accumulators hold, 4 (rows <= 4: every sq = 1,
+// g <= 4 step) or kMaxRows
+template <typename T, typename C, int D, bool kPartial, int kRows>
+__global__ void __launch_bounds__(kThreads, 2) flash_decode_kernel(const DecodeParams p) {
+  using L = Smem<T, C, D>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr bool kMma = L::kMma;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(C));  // elements per 16-byte chunk
+  constexpr int kChunks = D / kVec;                        // chunks per key row
+  constexpr int kCols = D / 32;                            // P.V columns per lane
+  constexpr int kQuarter = D / 4;                          // d elements per lane (CUDA-core scores)
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc_s = reinterpret_cast<float*>(smem + L::kRing);
+  unsigned char* q_s = smem + L::kQ;
+  float* acc_s = reinterpret_cast<float*>(smem + L::kAcc);  // after the loop
+  __shared__ float m_s[kMaxRows], l_s[kMaxRows];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int kh = blockIdx.y;
+  const int b = kPartial ? blockIdx.z / p.splits : blockIdx.z;
+  const int split = kPartial ? blockIdx.z % p.splits : 0;
   const int sq = p.sq, h = p.h, hk = p.hk;
   const int g = h / hk;
   const int rows = sq * g;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cb = p.kv_batch_idx != nullptr ? p.kv_batch_idx[b] : b;
-  const int lp = p.leftpad != nullptr ? p.leftpad[b] : 0;
-  const int end_pos = lp + p.lengths[b];  // one past the sequence's last column
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
 
-  const C* kbase = static_cast<const C*>(p.k) + cb * p.k_sb + kh * p.k_sh;
-  const C* vbase = static_cast<const C*>(p.v) + cb * p.v_sb + kh * p.v_sh;
-  const int64_t sc_off = (static_cast<int64_t>(cb) * hk + kh) * p.S;
-  const T* q = static_cast<const T*>(p.q);
-
-  // this lane's slice of every query row
-  float qr[kMaxRows][kPerLane];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      float x = 0.f;
-      if (r < rows) {
-        const int si = r / g, gi = r % g;
-        const int64_t off = ((static_cast<int64_t>(b) * sq + si) * h + kh * g + gi) * D;
-        x = xfa::to_float(q[off + lane * kPerLane + e]);
-      }
-      qr[r][e] = x;
+  // q rows first (they need no length): bf16 rows padded to 16 for
+  // mma.sync, or fp32; rows past sq * g are zero
+  {
+    constexpr int kQChunks = D * static_cast<int>(sizeof(T)) / 16;
+    const T* q = static_cast<const T*>(p.q);
+    for (int i = tid; i < kMaxRows * kQChunks; i += kThreads) {
+      const int r = i / kQChunks, c = (i % kQChunks) * (16 / static_cast<int>(sizeof(T)));
+      const bool ok = r < rows;
+      const int si = ok ? r / g : 0, gi = ok ? r % g : 0;
+      cp_async16(q_s + r * L::kQRow + c * static_cast<int>(sizeof(T)),
+                 q + ((static_cast<int64_t>(b) * sq + si) * h + kh * g + gi) * D + c, ok);
     }
   }
 
-  // softmax state of the rows this warp owns (rows warp and warp + 8)
-  float m_row[kMaxRows / kWarps], l_row[kMaxRows / kWarps];
-#pragma unroll
-  for (int i = 0; i < kMaxRows / kWarps; ++i) {
-    m_row[i] = -INFINITY;
-    l_row[i] = 0.f;
-  }
-  // P.V accumulators: column dcol of rows rg, rg + kRowGroups, ...
-  const int dcol = threadIdx.x % D, rg = threadIdx.x / D;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.f;
+  const int cb = p.kv_batch_idx != nullptr ? p.kv_batch_idx[b] : b;
+  const int lp = p.leftpad != nullptr ? p.leftpad[b] : 0;
+  const int end_pos = lp + p.lengths[b];  // one past the sequence's last column
+  const C* kbase = static_cast<const C*>(p.k) + cb * p.k_sb + kh * p.k_sh;
+  const C* vbase = static_cast<const C*>(p.v) + cb * p.v_sb + kh * p.v_sh;
+  const int64_t sc_off = (static_cast<int64_t>(cb) * hk + kh) * p.S;
 
   // the keys any row can see, cut to this split
   int start = lp;
@@ -139,159 +295,387 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const DecodePara
     stop = min(stop, (split + 1) * p.split_len);
   }
   start = max(0, start);
+  // this CTA's chunk: the tiles from the tile holding `start` (tiles start
+  // at the split's first key) to `stop`, cut into csize runs of `per` tiles
+  // (decode_kernel.py cta_chunk is the same computation in Python)
   const int first = kPartial ? split * p.split_len : 0;
-  start = first + ((start - first) / kTile) * kTile;
+  const int start_al = first + ((start - first) / kTile) * kTile;
+  const int n_all = stop > start_al ? (stop - start_al + kTile - 1) / kTile : 0;
+  const int per = (n_all + csize - 1) / csize;
+  const int t_lo = min(n_all, rank * per);
+  const int n_tiles = min(n_all, t_lo + per) - t_lo;
+  const int key0 = start_al + t_lo * kTile;
 
-  for (int n0 = start; n0 < stop; n0 += kTile) {
-    if (kQuant && threadIdx.x < kTile) {
-      const int key = n0 + threadIdx.x;
-      vsc_s[threadIdx.x] = key < stop ? p.v_scale[sc_off + key] : 0.f;
-    }
-    // scores: warp w takes keys w, w + 8, ... of the tile
-    for (int j = warp; j < kTile; j += kWarps) {
+  // K and V rows of tile k into ring stage `stage`; keys outside [start,
+  // stop) are zero-filled, never read
+  auto load_tile = [&](int k, int stage) {
+    const int n0 = key0 + k * kTile;
+    unsigned char* kt = smem + stage * L::kStageBytes;
+    unsigned char* vt = kt + L::kTileBytes;
+    static_assert(kTile * kChunks % kThreads == 0, "whole rounds of copies");
+#pragma unroll
+    for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int j = i / kChunks, c = (i % kChunks) * kVec;
       const int key = n0 + j;
-      float part[kMaxRows];
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) part[r] = 0.f;
-      if (key < stop) {
-        const Vec<C, kPerLane> kvec =
-            *reinterpret_cast<const Vec<C, kPerLane>*>(kbase + key * p.k_ss + lane * kPerLane);
-        float kv[kPerLane];
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) kv[e] = xfa::to_float(kvec.v[e]);
-#pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < rows) {
-#pragma unroll
-            for (int e = 0; e < kPerLane; ++e) part[r] += qr[r][e] * kv[e];
-          }
-        }
-      }
-      const float ksc = kQuant && key < stop ? p.k_scale[sc_off + key] : 1.f;
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) {
-          const float dot = xfa::warp_sum(part[r]);
-          if (lane == 0) {
-            float s = dot;
-            if (kQuant) s *= ksc;
-            s *= p.sm_scale;
-            if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
-            const int pos = end_pos - sq + r / g;
-            bool visible = key < stop && key >= lp && key <= pos;
-            if (p.window_left >= 0) visible = visible && key >= pos - p.window_left;
-            p_s[r][j] = visible ? s : -INFINITY;
-          }
-        }
-      }
+      const bool ok = key >= start && key < stop;
+      const int row = ok ? key : 0;
+      const int so = j * L::kRowBytes + c * static_cast<int>(sizeof(C));
+      cp_async16(kt + so, kbase + row * p.k_ss + c, ok);
+      cp_async16(vt + so, vbase + row * p.v_ss + c, ok);
     }
-    __syncthreads();
-
-    // online softmax: warp w updates rows w and w + 8
-#pragma unroll
-    for (int i = 0; i < kMaxRows / kWarps; ++i) {
-      const int r = warp + i * kWarps;
-      if (r < rows) {
-        const float x0 = p_s[r][lane], x1 = p_s[r][lane + 32];
-        const float m_new = fmaxf(m_row[i], xfa::warp_max(fmaxf(x0, x1)));
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = expf(m_row[i] - m_use);
-        const float p0 = expf(x0 - m_use), p1 = expf(x1 - m_use);
-        l_row[i] = l_row[i] * alpha + xfa::warp_sum(p0 + p1);
-        m_row[i] = m_new;
-        // P.V takes p * v_scale: folded in here, after the row sum
-        p_s[r][lane] = kQuant ? p0 * vsc_s[lane] : p0;
-        p_s[r][lane + 32] = kQuant ? p1 * vsc_s[lane + 32] : p1;
-        if (lane == 0) alpha_s[r] = alpha;
-      }
+    if (kQuant && tid < 2 * kTile) {
+      const int j = tid % kTile, key = n0 + j;
+      const bool ok = key >= start && key < stop;
+      const float* src = (tid < kTile ? p.k_scale : p.v_scale) + sc_off + (ok ? key : 0);
+      cp_async4(sc_s + (stage * 2 + tid / kTile) * kTile + j, src, ok);
     }
-    __syncthreads();
-
-    // O = O * alpha + P V
-    const int n_keys = min(kTile, stop - n0);
+  };
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int r = rg + i * kRowGroups;
-      if (r < rows) acc[i] *= alpha_s[r];
-    }
-    for (int j = 0; j < n_keys; ++j) {
-      const float vv = xfa::to_float(vbase[(n0 + j) * p.v_ss + dcol]);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const int r = rg + i * kRowGroups;
-        if (r < rows) acc[i] += p_s[r][j] * vv;
-      }
-    }
-    __syncthreads();  // p_s, vsc_s and alpha_s are rewritten by the next tile
+  for (int s = 0; s < L::kStages - 1; ++s) {  // q joins the first group
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
   }
 
+  // Warp w owns keys 8w .. 8w + 7 of every tile, with its own online softmax
+  // and accumulator rows, so the loop needs one barrier per tile (for the
+  // ring). Softmax state: rows g8 and g8 + 8 (replicated over the quad).
+  constexpr int kHalves = kRows > 8 ? 2 : 1;  // rows g8 (and g8 + 8)
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  // the keys row g8 + 8 * half sees: [lo_r, hi_r], empty past sq * g
+  int lo_r[2], hi_r[2];
 #pragma unroll
-  for (int i = 0; i < kMaxRows / kWarps; ++i) {
-    const int r = warp + i * kWarps;
-    if (r < rows && lane == 0) {
-      l_s[r] = l_row[i];
-      m_s[r] = m_row[i];
+  for (int half = 0; half < 2; ++half) {
+    const int r = g8 + half * 8, pos = end_pos - sq + r / g;
+    lo_r[half] = p.window_left >= 0 ? max(lp, pos - p.window_left) : lp;
+    hi_r[half] = r < rows ? min(pos, stop - 1) : -1;
+  }
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+  }
+  float* p_w = reinterpret_cast<float*>(smem + L::kPw) + warp * kMaxRows * 8;
+  float* alpha_w = reinterpret_cast<float*>(smem + L::kAw) + warp * kMaxRows;
+  // q's A fragments: in registers with 4-row accumulators, else read from
+  // shared memory at every tile (in registers they would crowd out the
+  // 16-row accumulators)
+  constexpr bool kQaRegs = kMma && kRows == 4;
+  uint32_t qa[kQaRegs ? D / 16 : 1][4];
+
+  for (int k = 0; k < n_tiles; ++k) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // tile k (and q) have landed; every warp is done with tile k - 1
+    {
+      const int nk = k + L::kStages - 1;
+      if (nk < n_tiles) load_tile(nk, nk % L::kStages);
+      cp_async_commit();
+    }
+    const int stage = k % L::kStages;
+    const unsigned char* kt = smem + stage * L::kStageBytes;
+    const unsigned char* vt = kt + L::kTileBytes;
+    const float* ksc = sc_s + stage * 2 * kTile;
+    const float* vsc = ksc + kTile;
+    const int jw = warp * 8;  // this warp's first key in the tile
+
+    // x[e]: the score of row g8 + (e >> 1) * 8 and key jw + 2 * t4 + (e & 1)
+    float x[4];
+    if constexpr (kMma) {
+      // q . k on the tensor cores, all 16 (padded) rows; products and sums
+      // in fp32, K exact in bf16; two chains of products, even and odd
+      // k-steps, halve the latency
+      const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(q_s);
+      if constexpr (kQaRegs) {
+        if (k == 0) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) xfa::smem_a<D>(qa[kk], qb, 0, kk, g8, t4);
+        }
+      }
+      float xo[4] = {0.f, 0.f, 0.f, 0.f};
+      x[0] = x[1] = x[2] = x[3] = 0.f;
+      const unsigned char* krow = kt + (jw + g8) * L::kRowBytes;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        // B fragments of k-steps kk and kk + 1: bf16 rows by ldmatrix
+        // (lane l addresses key jw + l % 8 at d 16 kk + 8 (l / 8)), 1-byte
+        // rows converted pair by pair
+        uint32_t bf[4];
+        if constexpr (std::is_same<C, __nv_bfloat16>::value) {
+          ldmatrix_x4(bf, kt + (jw + (lane & 7)) * L::kRowBytes + (kk * 16 + (lane >> 3) * 8) * 2);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) bf[i] = bf16_pair(krow, kk * 16 + i * 8 + 2 * t4, C{});
+        }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          uint32_t a[4];
+          if constexpr (kQaRegs) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = qa[kk + h2][i];
+          } else {
+            xfa::smem_a<D>(a, qb, 0, kk + h2, g8, t4);
+          }
+          if (h2)
+            xfa::mma_16816(xo, a, bf[2], bf[3]);
+          else
+            xfa::mma_16816(x, a, bf[0], bf[1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] += xo[e];
+    } else {
+      // q . k on CUDA cores in fp32: lane = (key jw + g8, d quarter t4), the
+      // quarters summed over the quad; through p_w into the fragment layout
+      const float* qf = reinterpret_cast<const float*>(q_s);
+      float kf[kQuarter];
+      const unsigned char* kq = kt + (jw + g8) * L::kRowBytes + t4 * kQuarter * static_cast<int>(sizeof(C));
+#pragma unroll
+      for (int c = 0; c < kQuarter; c += kVec) {
+        load_floats<C, kVec>(kf + c, kq + c * static_cast<int>(sizeof(C)));
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r >= rows) break;
+        const float* qr = qf + r * D + t4 * kQuarter;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int e = 0; e < kQuarter; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          s0 = fmaf(qv.x, kf[e], s0);
+          s1 = fmaf(qv.y, kf[e + 1], s1);
+          s0 = fmaf(qv.z, kf[e + 2], s0);
+          s1 = fmaf(qv.w, kf[e + 3], s1);
+        }
+        const float s = quad_sum(s0 + s1);
+        if (t4 == 0) p_w[r * 8 + g8] = s;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g8 + (e >> 1) * 8;
+        x[e] = r < rows ? p_w[r * 8 + 2 * t4 + (e & 1)] : 0.f;
+      }
+      __syncwarp();
+    }
+
+    // scale, softcap and mask; online softmax of rows g8 and g8 + 8 over
+    // this warp's 8 keys
+    const int n0 = key0 + k * kTile;
+#pragma unroll
+    for (int e = 0; e < 2 * kHalves; ++e) {
+      const int j = jw + 2 * t4 + (e & 1), key = n0 + j;
+      float s = x[e] * (kQuant ? ksc[j] * p.sm_scale : p.sm_scale);
+      if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
+      x[e] = key >= lo_r[e >> 1] && key <= hi_r[e >> 1] ? s : -INFINITY;
+    }
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+      const int r = g8 + half * 8;
+      const float m_new = fmaxf(m_r[half], quad_max(fmaxf(x[2 * half], x[2 * half + 1])));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m_r[half] - m_use);
+      const float p0 = expf(x[2 * half] - m_use), p1 = expf(x[2 * half + 1] - m_use);
+      l_r[half] = l_r[half] * alpha + quad_sum(p0 + p1);
+      m_r[half] = m_new;
+      if (r < rows) {
+        // P.V takes p * v_scale: folded in here, after the row sum
+        const int j = jw + 2 * t4;
+        *reinterpret_cast<float2*>(&p_w[r * 8 + 2 * t4]) =
+            kQuant ? make_float2(p0 * vsc[j], p1 * vsc[j + 1]) : make_float2(p0, p1);
+        if (t4 == 0) alpha_w[r] = alpha;
+      }
+    }
+    __syncwarp();
+
+    // O = O * alpha + P V over this warp's keys: lane = kCols columns, P in
+    // fp32, each V element read and converted once
+    float vf[8][kCols];
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) {
+      load_floats<C, kCols>(vf[k8], vt + (jw + k8) * L::kRowBytes +
+                                        lane * kCols * static_cast<int>(sizeof(C)));
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= rows) break;
+      const float4 pa = *reinterpret_cast<const float4*>(&p_w[r * 8]);
+      const float4 pb = *reinterpret_cast<const float4*>(&p_w[r * 8 + 4]);
+      const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      const float alpha = alpha_w[r];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        float a = acc[r][c] * alpha;
+#pragma unroll
+        for (int k8 = 0; k8 < 8; ++k8) a = fmaf(pr[k8], vf[k8][c], a);
+        acc[r][c] = a;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it takes the warps' row states
+
+  // merge the warps in warp order into this CTA's m_s, l_s, acc_s
+  float* accw = reinterpret_cast<float*>(smem);             // [warp][row][D]
+  float* mw = accw + kWarps * kMaxRows * D;                 // [warp][row]
+  float* lw = mw + kWarps * kMaxRows;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r >= rows) break;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) accw[(warp * kMaxRows + r) * D + lane * kCols + c] = acc[r][c];
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+      const int r = g8 + half * 8;
+      if (r < rows) {
+        mw[warp * kMaxRows + r] = m_r[half];
+        lw[warp * kMaxRows + r] = l_r[half];
+      }
     }
   }
   __syncthreads();
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = i / D, col = i % D;
+    float m = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = rg + i * kRowGroups;
-    if (r < rows) {
-      const float l = l_s[r];
-      const float o = l > 0.f ? acc[i] / l : 0.f;
-      if (kPartial) {
-        const int64_t cell = ((static_cast<int64_t>(b) * hk + kh) * gridDim.z + split) * rows + r;
-        p.part_out[cell * D + dcol] = o;
-        if (dcol == 0) {
-          p.part_m[cell] = l > 0.f ? m_s[r] : xfa::kMaskValue;
-          p.part_l[cell] = l;
-        }
-      } else {
-        const int si = r / g, gi = r % g;
-        const int64_t off = ((static_cast<int64_t>(b) * sq + si) * h + kh * g + gi) * D + dcol;
-        static_cast<T*>(p.out)[off] = xfa::from_float<T>(o);
-      }
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, mw[w * kMaxRows + r]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = m == -INFINITY ? 0.f : expf(mw[w * kMaxRows + r] - m);
+      l += lw[w * kMaxRows + r] * wt;
+      a += accw[(w * kMaxRows + r) * D + col] * wt;
+    }
+    acc_s[i] = a;
+    if (col == 0) {
+      m_s[r] = m;
+      l_s[r] = l;
     }
   }
-}
+  cluster.sync();  // every CTA's m_s, l_s and acc_s are final
 
-template <typename T, typename C, bool kPartial>
-cudaError_t launch_d(const DecodeParams& p, dim3 grid, int d, cudaStream_t stream) {
-  if (d == 64) {
-    flash_decode_kernel<T, C, 64, kPartial><<<grid, kThreads, 0, stream>>>(p);
-  } else if (d == 128) {
-    flash_decode_kernel<T, C, 128, kPartial><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    return cudaErrorInvalidValue;
+  // this CTA's share of the (row, column) outputs, merged over the cluster
+  // in rank order: m = max m_i, w_i = exp(m_i - m), l = sum l_i w_i,
+  // out = sum w_i acc_i / l (one round of reads of the other CTAs)
+  for (int i = rank * kThreads + tid; i < rows * D; i += csize * kThreads) {
+    const int r = i / D, col = i % D;
+    float mc[kMaxCluster], lc[kMaxCluster], ac[kMaxCluster];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      const bool in = c < csize;
+      mc[c] = in ? *cluster.map_shared_rank(&m_s[r], c) : -INFINITY;
+      lc[c] = in ? *cluster.map_shared_rank(&l_s[r], c) : 0.f;
+      ac[c] = in ? cluster.map_shared_rank(acc_s, c)[i] : 0.f;
+    }
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) m = fmaxf(m, mc[c]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      const float w = m == -INFINITY ? 0.f : expf(mc[c] - m);
+      l += lc[c] * w;
+      a += ac[c] * w;
+    }
+    const float o = l > 0.f ? a / l : 0.f;
+    if (kPartial) {
+      const int64_t cell = ((static_cast<int64_t>(b) * hk + kh) * p.splits + split) * rows + r;
+      p.part_out[cell * D + col] = o;
+      if (col == 0) {
+        p.part_m[cell] = l > 0.f ? m : xfa::kMaskValue;
+        p.part_l[cell] = l;
+      }
+    } else {
+      const int si = r / g, gi = r % g;
+      const int64_t off = ((static_cast<int64_t>(b) * sq + si) * h + kh * g + gi) * D + col;
+      static_cast<T*>(p.out)[off] = xfa::from_float<T>(o);
+    }
   }
-  return cudaGetLastError();
+  cluster.sync();  // the other CTAs' shared memory stays alive until every read is done
 }
 
-template <typename T, bool kPartial>
-cudaError_t launch_c(const DecodeParams& p, dim3 grid, int d, int cache_dtype,
-                     cudaStream_t stream) {
+template <typename X>
+struct Tag {
+  using type = X;
+};
+
+// f(Tag<T>, Tag<C>, D, kPartial, kRows) for the kernel instance of these
+// codes and rows (4 for rows <= 4, else kMaxRows)
+template <typename T, typename C, int D, typename F>
+cudaError_t dispatch_p(bool partial, int rows, F& f) {
+  using R4 = std::integral_constant<int, 4>;
+  using R16 = std::integral_constant<int, kMaxRows>;
+  const auto dd = std::integral_constant<int, D>{};
+  if (partial)
+    return rows <= 4 ? f(Tag<T>{}, Tag<C>{}, dd, std::true_type{}, R4{})
+                     : f(Tag<T>{}, Tag<C>{}, dd, std::true_type{}, R16{});
+  return rows <= 4 ? f(Tag<T>{}, Tag<C>{}, dd, std::false_type{}, R4{})
+                   : f(Tag<T>{}, Tag<C>{}, dd, std::false_type{}, R16{});
+}
+
+template <typename T, typename C, typename F>
+cudaError_t dispatch_d(int d, bool partial, int rows, F& f) {
+  if (d == 64) return dispatch_p<T, C, 64>(partial, rows, f);
+  if (d == 128) return dispatch_p<T, C, 128>(partial, rows, f);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, typename F>
+cudaError_t dispatch_c(int cache_dtype, int d, bool partial, int rows, F& f) {
   switch (cache_dtype) {
     case xfa::kI8:
-      return launch_d<T, int8_t, kPartial>(p, grid, d, stream);
+      return dispatch_d<T, int8_t>(d, partial, rows, f);
     case xfa::kE4M3:
-      return launch_d<T, __nv_fp8_e4m3, kPartial>(p, grid, d, stream);
+      return dispatch_d<T, __nv_fp8_e4m3>(d, partial, rows, f);
     default:
-      return launch_d<T, T, kPartial>(p, grid, d, stream);
+      return dispatch_d<T, T>(d, partial, rows, f);
   }
 }
+
+template <typename F>
+cudaError_t dispatch(int dtype, int cache_dtype, int d, bool partial, int rows, F& f) {
+  return dtype == xfa::kBF16 ? dispatch_c<__nv_bfloat16>(cache_dtype, d, partial, rows, f)
+                             : dispatch_c<float>(cache_dtype, d, partial, rows, f);
+}
+
+// A launch configuration with a cluster of `cluster` CTAs along x; sets the
+// kernel's dynamic shared memory limit first.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int smem, dim3 grid, int cluster, cudaStream_t s,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+bool valid_cluster(int c) { return c == 1 || c == 2 || c == 4 || c == 8; }
 
 }  // namespace
 
-// q: (b, sq, h, d) contiguous, dtype 0 fp32 / 1 bf16. k, v: caches of dtype
-// cache_dtype (the query's, or 2 int8 / 3 e4m3 with k_scale, v_scale: (cache
-// b, hk, S) fp32 contiguous), element strides for batch, head and sequence
-// (the sequence stride and the head dim aligned to d / 32 elements).
-// lengths: (b,) int32 counting the sq new tokens; kv_batch_idx and leftpad:
-// (b,) int32 or null. Without part_out it writes out (b, sq, h, d) (and
-// num_splits must be 1); with it the partials part_out (b, hk, splits,
-// sq * g, d) fp32 and part_m, part_l (b, hk, splits, sq * g) over splits of
-// split_len keys.
+// q: (b, sq, h, d) contiguous on a 16-byte boundary, dtype 0 fp32 / 1 bf16.
+// k, v: caches of dtype cache_dtype (the query's, or 2 int8 / 3 e4m3 with
+// k_scale, v_scale: (cache b, hk, S) fp32 contiguous), element strides for
+// batch, head and sequence
+// (pointer and strides multiples of 16 bytes). lengths: (b,) int32 counting
+// the sq new tokens; kv_batch_idx and leftpad: (b,) int32 or null. Without
+// part_out it writes out (b, sq, h, d) (and num_splits must be 1); with it
+// the partials part_out (b, hk, splits, sq * g, d) fp32 and part_m, part_l
+// (b, hk, splits, sq * g) over splits of split_len keys. Each (batch, kv
+// head, split) runs on a cluster of `cluster` CTAs (1, 2, 4 or 8).
 XFA_EXPORT int xfa_flash_decode(const void* q, const void* k, const void* v, const void* k_scale,
                                 const void* v_scale, const void* lengths,
                                 const void* kv_batch_idx, const void* leftpad, void* out,
@@ -299,8 +683,10 @@ XFA_EXPORT int xfa_flash_decode(const void* q, const void* k, const void* v, con
                                 int64_t k_sh, int k_ss, int64_t v_sb, int64_t v_sh, int v_ss,
                                 int b, int sq, int h, int hk, int S, int d,
                                 int dtype, int cache_dtype, int num_splits, int split_len,
-                                float sm_scale, float softcap, int window_left, void* stream) {
-  if (sq * (h / hk) > kMaxRows || num_splits < 1 || (part_out == nullptr && num_splits != 1))
+                                int cluster, float sm_scale, float softcap, int window_left,
+                                void* stream) {
+  if (sq * (h / hk) > kMaxRows || num_splits < 1 || (part_out == nullptr && num_splits != 1) ||
+      !valid_cluster(cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((cache_dtype == xfa::kI8 || cache_dtype == xfa::kE4M3) != (k_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -321,19 +707,47 @@ XFA_EXPORT int xfa_flash_decode(const void* q, const void* k, const void* v, con
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.sq = sq; p.h = h; p.hk = hk; p.S = S;
+  p.splits = num_splits;
   p.split_len = split_len;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.window_left = window_left;
-  const dim3 grid(hk, b, num_splits);
+  const dim3 grid(cluster, hk, b * num_splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (part_out != nullptr) {
-    err = dtype == xfa::kBF16 ? launch_c<__nv_bfloat16, true>(p, grid, d, cache_dtype, s)
-                              : launch_c<float, true>(p, grid, d, cache_dtype, s);
-  } else {
-    err = dtype == xfa::kBF16 ? launch_c<__nv_bfloat16, false>(p, grid, d, cache_dtype, s)
-                              : launch_c<float, false>(p, grid, d, cache_dtype, s);
-  }
-  return static_cast<int>(err);
+  auto launch = [&](auto t, auto c, auto dd, auto partial, auto rows_cap) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    using C = typename decltype(c)::type;
+    constexpr int D = decltype(dd)::value;
+    auto kernel = flash_decode_kernel<T, C, D, decltype(partial)::value, decltype(rows_cap)::value>;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_config(kernel, Smem<T, C, D>::kBytes, grid, cluster, s, cfg, attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel, p);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  };
+  return static_cast<int>(
+      dispatch(dtype, cache_dtype, d, part_out != nullptr, sq * (h / hk), launch));
+}
+
+// How many clusters of `cluster` CTAs of the kernel instance for these codes
+// and rows the card holds at once (cudaOccupancyMaxActiveClusters), into
+// *count.
+XFA_EXPORT int xfa_flash_decode_max_clusters(int dtype, int cache_dtype, int d, int partial,
+                                             int rows, int cluster, int* count) {
+  if (!valid_cluster(cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  auto query = [&](auto t, auto c, auto dd, auto part, auto rows_cap) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    using C = typename decltype(c)::type;
+    constexpr int D = decltype(dd)::value;
+    auto kernel = flash_decode_kernel<T, C, D, decltype(part)::value, decltype(rows_cap)::value>;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    const cudaError_t err =
+        cluster_config(kernel, Smem<T, C, D>::kBytes, dim3(cluster), cluster, nullptr, cfg, attr);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+  };
+  return static_cast<int>(dispatch(dtype, cache_dtype, d, partial != 0, rows, query));
 }

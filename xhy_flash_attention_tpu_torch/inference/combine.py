@@ -24,6 +24,7 @@ from ..ops.flash_attention.common import NEG_INF, cdiv, require_inference
 from ..ops.flash_attention.decode_kernel import (
     _payload,
     _unpack_rows,
+    contiguous_q,
     decode_scores_ref,
     launch_decode,
 )
@@ -138,7 +139,7 @@ def flash_decode_splitkv(
         ms = torch.empty(b, hk, splits, rows, dtype=torch.float32,
                          device=q.device)
         ls = torch.empty_like(ms)
-        launch_decode(q.contiguous(), k_cache, v_cache, lengths,
+        launch_decode(contiguous_q(q), k_cache, v_cache, lengths,
                       softmax_scale=softmax_scale, window_size=window_size,
                       softcap=softcap, partials=(outs, ms, ls),
                       split_len=split_len)

@@ -60,8 +60,10 @@ _SIGNATURES = {
     "xfa_flash_bwd_dkv": _BWD_ARGS,
     "xfa_flash_bwd_dq": _BWD_ARGS,
     "xfa_flash_decode": [_c_void_p] * 12 + [_c_int64, _c_int64, _c_int] * 2
-    + [_c_int] * 10
+    + [_c_int] * 11
     + [_c_float, _c_float, _c_int, _c_void_p],
+    "xfa_flash_decode_max_clusters": [_c_int] * 6
+    + [ctypes.POINTER(ctypes.c_int)],
     "xfa_paged_decode": [_c_void_p] * 6 + [_c_int] * 9
     + [_c_float, _c_float, _c_int, _c_void_p],
     "xfa_reduced_scores": [_c_void_p] * 4 + [_c_int64] * 6 + [_c_int] * 6
