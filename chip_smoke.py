@@ -11,6 +11,9 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the serving path gives it, with max error, tolerance and times
      (kernel, plain version, one PyTorch library call, roofline bound);
+     the dense forward (#1, #5) at requests A and B and at T-long's
+     attention (b16 h16 s2048 d64), with its TFLOP/s and share of the
+     bound, the kernel and SDPA timed as CUDA graphs of calls;
      the decode kernels also at the JAX package's headline decode shape
      (b8 h32 hk8 d128 S8192, bf16 / int8 / e4m3), with their cluster plan
      and the time of each cluster size, all timed as CUDA graphs of calls
@@ -187,11 +190,10 @@ def _attn_contract(out_bshd, q, k, v, causal):
     return e, e_lp
 
 
-def _qkv(gen, b, s):
-    c = LLAMA3_8B
-    h, hk = c["num_attention_heads"], c["num_key_value_heads"]
-    d = c["hidden_size"] // h
-    # the projection layout of the serving path: one packed Wqkv output
+def _packed_qkv(gen, b, s, h, hk, d):
+    """q, k, v as (b, s, heads, d) views of one packed Wqkv output, the
+    projection layout of the serving and training paths (sequence stride
+    (h + 2 hk) d)."""
     qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=gen,
                       device="cuda").bfloat16()
     q = qkv[..., : h * d].view(b, s, h, d)
@@ -200,16 +202,35 @@ def _qkv(gen, b, s):
     return q, k, v, (b, h, hk, s, d)
 
 
+def _qkv(gen, b, s):
+    c = LLAMA3_8B
+    h, hk = c["num_attention_heads"], c["num_key_value_heads"]
+    return _packed_qkv(gen, b, s, h, hk, c["hidden_size"] // h)
+
+
 def _attn_flops_bytes(b, h, hk, s, d):
     flops = 4.0 * b * h * s * s * d / 2  # causal, as bench.py:92 counts
     nbytes = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, k, v in; o out
     return flops, nbytes
 
 
-def check_flash_fwd(gen):
+def _fwd_rate(row, flops):
+    return (f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+
+
+def check_flash_fwd(gen, label="A"):
+    """#1 through flash_attention_fwd on (b, h, s, d) views of the packed
+    projection layout: at request A's shape (Llama-3-8B width) or at
+    T-long's (the gpt3m-flash.yaml attention, d 64). ms and library_ms are
+    device times of CUDA graphs of calls (graph_ms), as the decode rows."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd
-    b, s, _ = REQUESTS["A"]
-    q, k, v, (b, h, hk, s, d) = _qkv(gen, b, s)
+    if label == "A":
+        q, k, v, (b, h, hk, s, d) = _qkv(gen, *REQUESTS["A"][:2])
+    else:
+        q, k, v, (b, h, hk, s, d) = _packed_qkv(
+            gen, T_LONG["b"], T_LONG["s"], T_LONG["h"], T_LONG["hk"],
+            T_LONG["d"])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
     out, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
@@ -217,37 +238,48 @@ def check_flash_fwd(gen):
     torch.cuda.synchronize()
     err = max_err(out, ref)
     err_lse = max_err(lse, ref_lse)
-    check(err_lse <= 1e-3, f"flash_fwd lse err {err_lse}")
+    del ref, ref_lse
+    check(err_lse <= 1e-3, f"flash_fwd ({label}) lse err {err_lse}")
     e, e_lp = _attn_contract(out.transpose(1, 2), q, k, v, True)
     flops, nbytes = _attn_flops_bytes(b, h, hk, s, d)
     bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    name = "flash_fwd (flash_attention_fwd)"
     row = dict(
-        name="flash_fwd (flash_attention_fwd)", route="cuda",
+        name=name if label == "A" else f"{name[:-1]}, {label})",
+        kernel=name, route="cuda",
         source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
         replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
         max_abs_err=err,
-        ms=time_ms([lambda: fwd.flash_attention_fwd(
-            qt, kt, vt, need_lse=False, **kw)]),
+        ms=graph_ms([lambda: fwd.flash_attention_fwd(
+            qt, kt, vt, need_lse=True, **kw)]),
         plain_ms=time_ms([lambda: fwd.attention_fwd_ref(
             qt, kt, vt, need_lse=False, **kw)], iters=5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
+        library_ms=graph_ms([lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)]))
     report(row, f"vs fp32 attention_ref {e:.3g} <= 2 x bf16 baseline "
-                f"{e_lp:.3g}; lse err {err_lse:.3g}; b{b} h{h} hk{hk} s{s} "
-                f"d{d} causal, flops {flops:.4g}, bytes {nbytes:.4g}")
+                f"{e_lp:.3g}; lse err {err_lse:.3g} <= 1e-3; {label}: b{b} "
+                f"h{h} hk{hk} s{s} d{d} causal, flops {flops:.4g}, bytes "
+                f"{nbytes:.4g}; {_fwd_rate(row, flops)}; ms and library_ms "
+                "from CUDA graphs")
     return row
 
 
 def check_fused_heads(gen):
+    """#5 through fused_heads_fwd at request B's shape, with its LSE; ms
+    and library_ms from CUDA graphs (the call takes about as long on the
+    host as the kernel on the card)."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads
     b, s, _ = REQUESTS["B"]
     q, k, v, (b, h, hk, s, d) = _qkv(gen, b, s)
     kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
-    out = fused_heads.fused_heads_fwd(q, k, v, **kw)
-    ref = fused_heads.fused_heads_fwd_ref(q, k, v, **kw)
+    out, lse = fused_heads.fused_heads_fwd(q, k, v, need_lse=True, **kw)
+    ref, ref_lse = fused_heads.fused_heads_fwd_ref(q, k, v, need_lse=True,
+                                                   **kw)
     torch.cuda.synchronize()
     err = max_err(out, ref)
+    err_lse = max_err(lse, ref_lse)
+    check(err_lse <= 1e-3, f"flash_fwd (fused_heads) lse err {err_lse}")
     e, e_lp = _attn_contract(out, q, k, v, True)
     flops, nbytes = _attn_flops_bytes(b, h, hk, s, d)
     bms, by = bound(flops, PEAK_BF16_FLOPS, nbytes)
@@ -257,15 +289,17 @@ def check_fused_heads(gen):
         source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
         replaces="xhy_flash_attention_tpu/ops/flash_attention/fused_heads.py:59",
         max_abs_err=err,
-        ms=time_ms([lambda: fused_heads.fused_heads_fwd(q, k, v, **kw)]),
+        ms=graph_ms([lambda: fused_heads.fused_heads_fwd(q, k, v, **kw)]),
         plain_ms=time_ms([lambda: fused_heads.fused_heads_fwd_ref(
             q, k, v, **kw)], iters=5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms([lambda: F.scaled_dot_product_attention(
+        library_ms=graph_ms([lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)]))
     report(row, f"vs fp32 attention_ref {e:.3g} <= 2 x bf16 baseline "
-                f"{e_lp:.3g}; packed layout b{b} s{s} h{h} hk{hk} d{d} "
-                f"causal, flops {flops:.4g}, bytes {nbytes:.4g}")
+                f"{e_lp:.3g}; lse err {err_lse:.3g} <= 1e-3; packed layout "
+                f"b{b} s{s} h{h} hk{hk} d{d} causal, flops {flops:.4g}, "
+                f"bytes {nbytes:.4g}; {_fwd_rate(row, flops)}; ms and "
+                "library_ms from CUDA graphs")
     return row
 
 
@@ -1963,6 +1997,14 @@ def count_plain_calls():
             setattr(mod, name, fn)
 
 
+# Readings on one H100 at 700 W while the dense forward was the earlier
+# mma.sync kernel (PERF.md section 5), printed beside this run's: the median
+# step of phase 8, its MFU, and phase 10's "attention fwd" group
+MMA_SYNC_TRAINING = {
+    "T-long": dict(step_ms=451.0, mfu=0.178, attention_fwd_ms=35.4),
+    "T-packed": dict(step_ms=303.4, mfu=0.248, attention_fwd_ms=19.6)}
+
+
 def train_recipe(name, seed, tmp):
     """Phase 8 for one recipe: ``train(config, **overrides)`` for
     TRAIN_STEPS steps; each step's launches checked exactly in the log
@@ -2045,6 +2087,10 @@ def train_recipe(name, seed, tmp):
         flops_per_token=flops_tok, peak_memory_gib=peak / 2 ** 30,
         losses=losses, launches={k: v for k, v in launches.items() if v})
     print(f"  {name} summary: {json.dumps(summary)}", flush=True)
+    before = MMA_SYNC_TRAINING[name]
+    print(f"  {name}: step ms {steady:.1f} (mma.sync forward: "
+          f"{before['step_ms']}), MFU {summary['mfu']:.4f} (mma.sync "
+          f"forward: {before['mfu']})", flush=True)
     return trainer, summary
 
 
@@ -2162,6 +2208,9 @@ def train_breakdown(trainer, name):
                              else "not measured (no kernels under the "
                                   "range); inside other")}
     print(f"  training step breakdown: {json.dumps(out)}", flush=True)
+    print(f"  {name}: attention fwd {groups.get('attention fwd', 0.0):.1f} "
+          f"ms of the step (mma.sync forward: "
+          f"{MMA_SYNC_TRAINING[name]['attention_fwd_ms']})", flush=True)
     check(busy > 0, f"{name}: the profiler saw no device time")
     return out
 
@@ -2207,6 +2256,8 @@ def main():
              check_paged(gen, "chunked", torch.int8),
              check_paged(gen, "chunked", torch.bfloat16, sq=512),
              check_paged(gen, "page", torch.bfloat16)]
+    torch.cuda.empty_cache()
+    rows.append(check_flash_fwd(gen, "T-long"))
     torch.cuda.empty_cache()
     rows += check_flash_bwd(gen, T_LONG, "T-long")
     torch.cuda.empty_cache()

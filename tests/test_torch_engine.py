@@ -172,3 +172,37 @@ def test_layers_share_lengths_untouched(setup):
     for c in caches:
         assert c.kv_pages[0, :, :, 3].abs().sum() > 0
         assert c.kv_pages[1].abs().sum() == 0
+
+
+def test_engine_refuses_requests_past_the_page_table(setup):
+    """A request that would write past ``max_pages_per_seq * page_size``
+    positions raises ValueError (append_paged_kv, bit-exact with JAX, would
+    clamp those rows onto the sequence's last page, over committed rows):
+    at admission, and before a prefill chunk that would run a slot past its
+    table. A request that fits exactly runs to the end."""
+    tmodel = setup[0]
+    cap = ENGINE["max_pages_per_seq"] * ENGINE["page_size"]
+    prompt = (np.arange(100) % CONFIG["vocab_size"]).astype(np.int32)
+    eng = InferenceEngine(tmodel, dtype=torch.float32, **ENGINE)
+    with pytest.raises(ValueError, match="max_pages_per_seq"):
+        eng.add_request(Request(rid=0, prompt=prompt,
+                                max_new_tokens=cap - len(prompt) + 1))
+    eng.add_request(Request(rid=1, prompt=prompt,
+                            max_new_tokens=cap - len(prompt)))
+    assert len(eng.run()[1]) == cap - len(prompt)
+    spec = InferenceEngine(tmodel, dtype=torch.float32, speculate_len=3,
+                           **ENGINE)
+    with pytest.raises(ValueError, match="speculate_len"):
+        spec.add_request(Request(rid=2, prompt=prompt,
+                                 max_new_tokens=cap - len(prompt)))
+    chunk = 16
+    chunked = InferenceEngine(tmodel, dtype=torch.float32,
+                              prefill_chunk=chunk, **ENGINE)
+    chunked.add_request(Request(rid=3, prompt=prompt[:10],
+                                max_new_tokens=cap - 10))
+    while chunked._lengths.max() + chunk <= cap:
+        chunked.step()
+    chunked.add_request(Request(rid=4, prompt=prompt[:2 * chunk],
+                                max_new_tokens=4))
+    with pytest.raises(ValueError, match="prefill chunk"):
+        chunked.step()

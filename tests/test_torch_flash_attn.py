@@ -7,7 +7,9 @@ interpret mode on the CPU) and the port (plain versions on CPU tensors):
     repo's contract (error against the fp32 reference at most twice the
     error of the bf16 reorder-ops baseline);
   * packed_heads_attention and packed_qkv_attention (the projection-layout
-    kernel's entries) within 2e-5 of JAX in fp32.
+    kernel's entries) within 2e-5 of JAX in fp32;
+  * the dense CUDA kernel's tile plan (`fwd_tile_plan`, the mirror of its
+    `dense_tiles`) against the pairs the plain version lets through.
 """
 
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention import (
     flash_attn_func,
 )
 from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads as tfh
+from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd as tfwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
     NO_BACKWARD,
 )
@@ -162,3 +165,56 @@ def test_unported_flags_raise(kw):
     q = torch.randn(1, 2, 8, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attention(q, q, q, causal=True, **kw)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (129, 2049), (2048, 2048),
+                                   (1100, 1100), (77, 300), (300, 77),
+                                   (1, 1), (256, 1000), (1000, 256),
+                                   (960, 960)])
+def test_fwd_tile_plan_covers_the_visible_pairs(sq, sk, causal):
+    """Every pair the plain version keeps (the bottom-right causal rule of
+    `attention_fwd_ref`, keys below sk) lies in a tile the kernel visits;
+    every visited tile holds a visible pair of the block's rows; a tile
+    marked mask-free is visible over all its in-range rows and columns; the
+    masked tiles come first (one loop runs them, another the rest)."""
+    m, n = tfwd.FWD_DENSE_TILE_M, tfwd.FWD_DENSE_TILE_N
+    rows = torch.arange(sq)[:, None]
+    cols = torch.arange(sk)[None, :]
+    visible = (cols <= rows + (sk - sq)) if causal else \
+        torch.ones(sq, sk, dtype=torch.bool)
+    plan = tfwd.fwd_tile_plan(sq, sk, causal)
+    assert len(plan) == -(-sq // m)
+    for mb, tiles in enumerate(plan):
+        vis = visible[mb * m:(mb + 1) * m]
+        order = [t for t, _ in tiles]
+        assert order == sorted(set(order), reverse=True)
+        masked = [flag for _, flag in tiles]
+        assert masked == sorted(masked, reverse=True)
+        covered = torch.zeros(sk, dtype=torch.bool)
+        for t, flag in tiles:
+            block = vis[:, t * n:(t + 1) * n]
+            assert block.any()
+            covered[t * n:(t + 1) * n] = True
+            if not flag:
+                assert block.shape[1] == n and block.all()
+        assert not (vis & ~covered).any()
+
+
+@pytest.mark.parametrize("sq,h,b", [(2048, 32, 2), (960, 32, 2),
+                                    (2048, 16, 16), (300, 4, 3), (1, 2, 1),
+                                    (1100, 8, 2)])
+def test_fwd_schedule_runs_every_block_once(sq, h, b):
+    """The persistent CTAs (132, an H100's SMs, or fewer when there are
+    fewer pairs) run every (batch, head, query block) exactly once, and
+    under the causal plan their key tiles differ by at most one pair's."""
+    n_mb = -(-sq // tfwd.FWD_DENSE_TILE_M)
+    ctas = min(132, (n_mb + 1) // 2 * h * b)
+    sched = tfwd.fwd_schedule(sq, h, b, ctas)
+    assert len(sched) == ctas and all(sched)
+    runs = [blk for cta in sched for blk in cta]
+    assert sorted(runs) == [(bb, hh, m) for bb in range(b) for hh in range(h)
+                            for m in range(n_mb)]
+    tiles = [len(t) for t in tfwd.fwd_tile_plan(sq, sq, True)]
+    load = [sum(tiles[m] for _, _, m in cta) for cta in sched]
+    assert max(load) - min(load) <= max(tiles) + min(tiles)

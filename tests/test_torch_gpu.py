@@ -80,12 +80,7 @@ def _contract(out_bshd, q, k, v, causal, softcap):
     assert _err(out_bshd, ref) <= 2 * _err(lp, ref) + 1e-4
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("softcap", [0.0, 30.0])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("sq,sk", [(1100, 1100), (77, 300), (300, 77)])
-def test_flash_fwd_matches_plain(cuda, sq, sk, causal, softcap, d):
-    b, h, hk = 2, 8, 2
+def _check_fwd(cuda, b, h, hk, sq, sk, d, causal, softcap):
     q = torch.randn(b, h, sq, d, generator=cuda, device="cuda").bfloat16()
     k = torch.randn(b, hk, sk, d, generator=cuda, device="cuda").bfloat16()
     v = torch.randn(b, hk, sk, d, generator=cuda, device="cuda").bfloat16()
@@ -99,13 +94,62 @@ def test_flash_fwd_matches_plain(cuda, sq, sk, causal, softcap, d):
     finite = torch.isfinite(ref_lse)
     assert torch.equal(finite, torch.isfinite(lse))
     assert _err(lse[finite], ref_lse[finite]) <= 1e-3
+    assert not out[~finite].any()  # rows with no visible key give 0
     _contract(out.transpose(1, 2), q.transpose(1, 2), k.transpose(1, 2),
               v.transpose(1, 2), causal, softcap)
 
 
-@pytest.mark.parametrize("h,hk", [(32, 8), (8, 8)])
-def test_fused_heads_matches_plain(cuda, h, hk):
-    b, s, d = 2, 960, 128
+# every tile class of the dense kernel (fwd.py fwd_tile_plan): one exact
+# tile, a ragged last tile on both axes, long rows, sq < sk and sq > sk
+# (rows that see no key when causal)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (129, 2049), (2048, 2048),
+                                   (1100, 1100), (77, 300), (300, 77)])
+def test_flash_fwd_matches_plain(cuda, sq, sk, causal, softcap, d):
+    _check_fwd(cuda, 2, 8, 2, sq, sk, d, causal, softcap)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hk", [8, 2, 1])  # GQA groups 1, 4 and 8
+def test_flash_fwd_gqa_groups(cuda, hk, causal, d):
+    _check_fwd(cuda, 2, 8, hk, 700, 700, d, causal, 0.0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_is_deterministic(cuda, d):
+    """Two calls on the same inputs give the same bits, out and LSE."""
+    b, h, hk, s = 2, 8, 2, 1500
+    q = torch.randn(b, h, s, d, generator=cuda, device="cuda").bfloat16()
+    k = torch.randn(b, hk, s, d, generator=cuda, device="cuda").bfloat16()
+    v = torch.randn(b, hk, s, d, generator=cuda, device="cuda").bfloat16()
+    runs = [fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5, causal=True)
+            for _ in range(3)]
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+
+
+def test_flash_fwd_misaligned_stride_raises(cuda):
+    """The tensor maps need 16-byte strides: a view whose sequence stride
+    is not a multiple of 8 elements is refused before any launch."""
+    wide = torch.randn(1, 4, 256, 68, device="cuda").bfloat16()
+    q = wide[..., :64]  # sequence stride 68 elements = 136 bytes
+    k = torch.randn(1, 4, 256, 64, device="cuda").bfloat16()
+    before = fwd.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fwd.flash_attention_fwd(q, k, k, sm_scale=0.125, causal=True)
+    odd = torch.randn(1, 4, 256, 76, device="cuda").bfloat16()[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fwd.flash_attention_fwd(k, odd, odd, sm_scale=0.125)
+    assert fwd.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hk", [(32, 8), (8, 8), (16, 2)])
+def test_fused_heads_matches_plain(cuda, h, hk, d):
+    b, s = 2, 960
     qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=cuda,
                       device="cuda").bfloat16()
     before = fh.fused_heads_fwd.launches

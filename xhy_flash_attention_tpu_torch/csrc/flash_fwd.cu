@@ -1,48 +1,87 @@
-// FlashAttention-2 forward for bf16 q/k/v with fp32 accumulation.
+// FlashAttention forward for bf16 q/k/v with fp32 accumulation.
 //
 // Replaces two TPU kernels:
 //   * xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78 `_fwd_kernel`
-//     (driven by flash_attention_fwd, (b, h, s, d) layout);
+//     (kernel #1, driven by flash_attention_fwd, (b, h, s, d) layout);
 //   * xhy_flash_attention_tpu/ops/flash_attention/fused_heads.py:59
-//     `_fwd_kernel` (the packed projection layout (b, s, h*d)).
-// The kernel takes element strides for the batch, head and sequence axes of
-// q, k, v and o (the head-dim stride is 1), so both layouts are read and
-// written in place with no copy.
+//     `_fwd_kernel` (kernel #5, the packed projection layout (b, s, h*d)).
+// Both layouts reach one C entry with element strides for the batch, head
+// and sequence axes of q, k, v and o (the head-dim stride is 1), so they are
+// read and written in place with no copy.
 //
 // What it computes, as the TPU kernels do: q is scaled by sm_scale in fp32
 // and rounded to bf16 before QK^T; scores accumulate in fp32; optional
-// softcap tanh(s / c) * c; causal mask aligned to the bottom right
-// (key j visible to query i when j <= i + sk - sq); GQA through
+// softcap tanh(s / c) * c; causal mask aligned to the bottom right (key j
+// visible to query i when j <= i + sk - sq); GQA through
 // kv_head = head / (h / hk); P is rounded to bf16 for P.V; the output is
-// divided by the fp32 row sum; an optional fp32 LSE (+inf on rows with no
-// visible key, whose output is 0).
-//
-// Sparse masks (slice 4, the TPU kernel's FlashMask and block-mask flags,
-// fwd.py:244-264): a 64-key tile that the block mask turns off, or that
-// the FlashMask stats show masked for all of the block's 64 rows, is
-// skipped before its K/V are loaded; the elementwise band test runs only on
-// tiles the stats do not bypass (the tile's vectors are staged in shared
-// memory beside K and V). The mask head of query head i is
-// i / (h / hm). A row whose every tile is skipped or masked keeps m = -inf
-// and l = 0 and writes 0 with LSE +inf, whichever of its tiles come first.
-// The mask code is a template branch (MASKED): the kernel without masks
-// compiles as it did before it, registers and all.
+// divided by the fp32 row sum; an optional fp32 LSE, (b, h, sq) contiguous
+// (+inf on rows with no visible key, whose output is 0).
 //
 // Softmax: the max-shifted online softmax. The TPU kernels use a zero shift,
 // exp(min(s, 70)) (fwd.py:60-65, fused_heads.py:81). Both give the same
 // P / l to fp32 rounding while scores stay under 70; the shifted form also
-// stays finite above it.
+// stays finite above it. exp is taken as exp2 with log2(e) folded in.
 //
 // Bound on the H100: operations. Causal prefill at Llama-3-8B width
-// (b2 h32 s2048 d128) does ~69 GFLOP against ~50 MB of q/k/v/o traffic.
-// Design: one block of four warps owns 64 query rows of one (batch, head);
-// each warp keeps its 16 rows of Q (pre-scaled, bf16) and the O accumulator
-// in registers and runs mma.sync m16n8k16 bf16 tiles. K and V tiles of 64
-// keys are staged in padded shared memory (conflict-free fragment reads; V
-// fragments come through ldmatrix.trans). KV tiles past the causal edge are
-// never loaded. Not yet used: wgmma, TMA, cp.async double buffering, warp
-// specialisation — the work of later tuning.
+// (b2 h32 s2048 d128) does ~69 GFLOP (0.070 ms at 989 TFLOP/s) against
+// ~50 MB of q/k/v/o traffic (0.015 ms at 3.35 TB/s), so only the tensor
+// cores' rate matters, and on Hopper only wgmma reaches it.
+//
+// Two routes, chosen by whether a sparse mask is given:
+//
+// * Dense (flash_fwd_kernel): persistent CTAs, one per SM, of three
+//   warpgroups; a CTA runs blocks of 128 query rows (kTileM) of one (batch,
+//   head), taken in pairs that hold equal causal work (the heavier block j
+//   from the end with block j from the start), pairs dealt round-robin in
+//   head order so that the CTAs at work share the K/V of a few heads in L2.
+//   - Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
+//     and one thread issues TMA copies through 4-D tensor maps (d, s, h, b)
+//     built from the strides: each block's Q (into the one of two
+//     buffers the consumers have released), then its K and V tiles of 128
+//     keys (kTileN) into a ring of kStages stages (4 at d 64, 2 at d 128)
+//     that runs on across blocks, each stage with K-full, V-full and empty
+//     mbarriers.
+//     Rows or keys past sq / sk arrive as zeros and stop at the batch row's
+//     end (no flattening).
+//   - Warpgroups 1 and 2 are consumers of 64 rows each (setmaxnreg.inc).
+//     They scale their Q rows in shared memory (fp32, rounded to bf16) and
+//     fence them to the async proxy; then per key tile: S = Q K^T by
+//     wgmma m64n128k16 from 128-byte-swizzled shared memory; the online
+//     softmax in registers; O += P V by wgmma with P's bf16 fragment as the
+//     register A operand and V read MN-major (the transpose bit on B).
+//   - At d 64, inside a consumer, tile i's softmax runs while tile i - 1's
+//     P.V is on the tensor cores (QK^T(i) and PV(i - 1) are issued
+//     together).
+//   - The key tiles are visited from the last to the first, so the tiles
+//     that need the elementwise mask (a causal diagonal tile, the ragged
+//     last tile) come first and the interior ones run with no mask test
+//     (fwd.py fwd_tile_plan mirrors the plan, fwd_schedule the pairs).
+//   - Epilogue: O is normalised, written to the consumer's staging rows in
+//     shared memory (swizzled) and stored by TMA, which drops rows past sq,
+//     while the next block's loads are under way; the LSE by one thread per
+//     row.
+//   Shared memory: d 128: 2 x Q 32 KB + O 32 KB + 2 x (K 32 + V 32) KB;
+//   d 64: 2 x Q 16 KB + O 16 KB + 4 x (K 16 + V 16) KB.
+//   Not yet used: ping-pong ordering of the two consumers, TMA multicast
+//   of K/V across a cluster.
+//
+// * Masked (masked_flash_fwd_kernel; slice 4, the TPU kernel's FlashMask and
+//   block-mask flags, fwd.py:244-264): mma.sync m16n8k16 on 64-key tiles.
+//   A 64-key tile that the block mask turns off, or that the FlashMask stats
+//   show masked for all of the block's 64 rows, is skipped before its K/V
+//   are loaded; the elementwise band test runs only on tiles the stats do
+//   not bypass (the tile's vectors are staged in shared memory beside K and
+//   V). The mask head of query head i is i / (h / hm). A row whose every
+//   tile is skipped or masked keeps m = -inf and l = 0 and writes 0 with LSE
+//   +inf, whichever of its tiles come first. One block of four warps owns 64
+//   query rows; each warp keeps its 16 rows of Q (pre-scaled, bf16) and the
+//   O accumulator in registers; K and V tiles of 64 keys (common.py
+//   FWD_KEY_TILE, the FlashMask stats' tile) are staged in padded shared
+//   memory (V fragments through ldmatrix.trans).
+#include <atomic>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,9 +90,538 @@ using xfa::ldmatrix_x2_trans;
 using xfa::mma_16816;
 using xfa::pack_a;
 using xfa::pack_bf16;
+namespace sm90 = xfa::sm90;
+
+// ------------------------------------------------------------ dense route
+
+constexpr int kTileM = 128;  // query rows per block (fwd.py FWD_DENSE_TILE_M)
+constexpr int kTileN = 128;  // keys per tile (fwd.py FWD_DENSE_TILE_N)
+constexpr int kDenseThreads = 384;  // producer warpgroup + two consumers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kBox = 8192;  // one 64-row x 128-byte swizzled box
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct DenseSmem {
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kHalves = D / 64;  // 64-column (128-byte) tiles of a row
+  // Q (two buffers) and O: [consumer 2][half][64 rows][128 B]; a K or V
+  // stage: [half][128 keys][128 B]
+  static constexpr int kQWarpgroup = kHalves * kBox;
+  static constexpr int kQBuffer = 2 * kQWarpgroup;
+  static constexpr int kStage = kTileN * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQ + 2 * kQBuffer;
+  static constexpr int kK = kO + 2 * kQWarpgroup;
+  static constexpr int kV = kK + kStages * kStage;
+  // barriers: Q full[2], Q empty[2], K full[], V full[], K/V empty[]
+  static constexpr int kBar = kV + kStages * kStage;
+  static constexpr int kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+struct DenseParams {
+  float* lse;  // (b, h, sq) contiguous, or null
+  int b, h, hk, sq, sk;
+  float sm_scale, softcap;
+  int causal;
+};
+
+// The key tiles query block m_block visits, [0, n_tiles), and how many of
+// them from tile 0 on need no elementwise mask, n_free (every key of such a
+// tile is below sk and visible to every row of the block); the others are
+// the last n_tiles - n_free. Mirrored by fwd.py fwd_tile_plan.
+__device__ __forceinline__ void dense_tiles(int m_block, int sq, int sk, int causal,
+                                            int& n_tiles, int& n_free) {
+  const int q0 = m_block * kTileM;
+  n_tiles = (sk + kTileN - 1) / kTileN;
+  n_free = sk / kTileN;
+  if (causal) {
+    const int offset = sk - sq;
+    const int max_col = min(q0 + kTileM, sq) - 1 + offset;  // the block's last row sees up to here
+    n_tiles = max_col < 0 ? 0 : min(n_tiles, max_col / kTileN + 1);
+    const int seen = q0 + offset + 1;  // keys [0, seen) are visible to the block's first row
+    n_free = min(n_free, seen <= 0 ? 0 : seen / kTileN);
+  }
+  n_free = min(n_free, n_tiles);
+}
+
+// The CTAs are persistent: CTA c takes pairs c, c + gridDim.x, ... of
+// query blocks. Pair j of a (batch, head) is block n_mb - 1 - j, then block
+// j, so that every pair of a causal row of blocks holds the same number of
+// key tiles; the middle block of an odd count is a pair alone. Pairs are
+// numbered head by head, so the CTAs at work at one time share the K/V of
+// a few heads in L2. Mirrored by fwd.py fwd_schedule.
+__host__ __device__ __forceinline__ int dense_pairs(int n_mb, int h, int b) {
+  return (n_mb + 1) / 2 * h * b;
+}
+
+// Block `half` (0: the heavier, 1: the lighter) of pair `pair`; false when
+// the pair has no second block.
+__device__ __forceinline__ bool pair_block(int pair, int half, int n_mb, int h, int& m_block,
+                                           int& head, int& batch) {
+  const int per_head = (n_mb + 1) / 2;
+  const int j = pair % per_head, bh = pair / per_head;
+  head = bh % h;
+  batch = bh / h;
+  m_block = half == 0 ? n_mb - 1 - j : j;
+  return half == 0 || j != n_mb - 1 - j;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T of one key tile into s (issued and committed, not waited for):
+// wgmma m64n128k16, Q and K K-major from the swizzled tiles.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2], uint32_t q_wg, uint32_t k_st) {
+  const uint64_t dq = sm90::desc_b128(q_wg, 16), dk = sm90::desc_b128(k_st, 16);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns = 32 bytes inside the swizzled row; past 64 columns, the
+    // next 64-column tile (offsets in the descriptor's 16-byte units)
+    const uint32_t col = (kk & 3) * 2;
+    sm90::wgmma_ss_n128(s, dq + (kk >> 2) * (kBox >> 4) + col,
+                        dk + (kk >> 2) * (kTileN * 128 >> 4) + col, kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// O += P V of one key tile (issued and committed): P's bf16 pairs as the
+// register A operand, V MN-major (16 keys = 16 rows of 128 bytes a k-step;
+// LBO steps to V's second 64 columns).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kTileN / 4],
+                                         uint32_t v_st) {
+  const uint64_t dv = sm90::desc_b128(v_st, kTileN * 128);
+#pragma unroll
+  for (int kk = 0; kk < kTileN / 16; ++kk) {
+    if constexpr (D == 64) {
+      sm90::wgmma_rs_n64(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
+    } else {
+      sm90::wgmma_rs_n128(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
+    }
+  }
+  sm90::wgmma_commit();
+}
+
+// The online softmax of one tile's scores s (columns n0 .. n0 + kTileN - 1;
+// this thread's rows row0 and row0 + 8), in place: softcap, with MASK the
+// elementwise causal / sk test, the running max m_i, s = P in fp32, this
+// thread's share of the row sums l_i (the quad is summed at the end) and
+// alpha, the factor that takes the running O to the new max.
+template <bool MASK>
+__device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2], float (&m_i)[2],
+                                               float (&l_i)[2], float (&alpha)[2], int n0,
+                                               int row0, const DenseParams& p, int t) {
+  if (p.softcap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < kTileN / 2; ++i) s[i] = tanhf(s[i] / p.softcap) * p.softcap;
+  }
+  if (MASK) {
+    const int last = p.causal ? row0 + p.sk - p.sq : p.sk;  // row0's last visible key
+#pragma unroll
+    for (int i = 0; i < kTileN / 2; ++i) {
+      const int col = n0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      const int lim = last + ((i >> 1) & 1) * 8;
+      if (col >= p.sk || col > lim) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float shift[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_i[r], mx[r]);
+    // a row with nothing visible yet keeps a zero shift so exp() gives 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2((m_i[r] - m_use) * kLog2e);
+    shift[r] = m_use * kLog2e;
+    m_i[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], kLog2e, -shift[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+  l_i[0] = l_i[0] * alpha[0] + rs[0];
+  l_i[1] = l_i[1] * alpha[1] + rs[1];
+}
+
+// P in bf16 pairs: pa[4kk .. 4kk + 3] is the A fragment of k-step kk
+__device__ __forceinline__ void pack_p(const float (&s)[kTileN / 2], uint32_t (&pa)[kTileN / 4]) {
+#pragma unroll
+  for (int i = 0; i < kTileN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDenseThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                     const DenseParams p) {
+  using S = DenseSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t bar_q = base + S::kBar, bar_qe = bar_q + 16;  // [2] each
+  const uint32_t bar_k = bar_qe + 16, bar_v = bar_k + 8 * S::kStages, bar_e = bar_v + 8 * S::kStages;
+  const int n_mb = (p.sq + kTileM - 1) / kTileM;
+  const int n_pairs = dense_pairs(n_mb, p.h, p.b);
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      sm90::mbar_init(bar_q + 8 * qb, 1);
+      sm90::mbar_init(bar_qe + 8 * qb, 8);  // the eight consumer warps
+    }
+    for (int st = 0; st < S::kStages; ++st) {
+      sm90::mbar_init(bar_k + 8 * st, 1);
+      sm90::mbar_init(bar_v + 8 * st, 1);
+      sm90::mbar_init(bar_e + 8 * st, 8);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The warpgroup index, warp-uniform for the compiler: the two roles are
+  // one if-else that never reconverges, so each keeps its own register
+  // budget. Both roles walk the same blocks and count the same K/V tiles
+  // (it, the ring position) and Q loads (qk, a ring of two buffers), so
+  // stages and parities agree without any other exchange.
+  const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (warpgroup == 0) {
+    // ---- producer warpgroup: one thread keeps the TMA copies in flight
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0, qk = 0;
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          int m_block, head, batch, n_tiles, n_free;
+          if (!pair_block(pair, half, n_mb, p.h, m_block, head, batch)) continue;
+          dense_tiles(m_block, p.sq, p.sk, p.causal, n_tiles, n_free);
+          if (n_tiles == 0) continue;
+          const int q0 = m_block * kTileM, kv_head = head / (p.h / p.hk);
+          // Q goes to the buffer the consumers released two blocks ago; the
+          // second consumer's rows may lie wholly past sq: not loaded (it
+          // computes on stale rows that the store drops)
+          const int qb = qk & 1;
+          sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);  // the first pass is free
+          const int wgs = q0 + 64 < p.sq ? 2 : 1;
+          sm90::mbar_expect_tx(bar_q + 8 * qb, wgs * S::kQWarpgroup);
+          for (int w = 0; w < wgs; ++w)
+            for (int hf = 0; hf < S::kHalves; ++hf)
+              sm90::tma_load_4d(base + S::kQ + qb * S::kQBuffer + w * S::kQWarpgroup + hf * kBox,
+                                &tq, bar_q + 8 * qb, hf * 64, q0 + w * 64, head, batch);
+          ++qk;
+          for (int i = 0; i < n_tiles; ++i, ++it) {
+            const int st = it % S::kStages, n0 = (n_tiles - 1 - i) * kTileN;
+            const uint32_t k_st = base + S::kK + st * S::kStage;
+            const uint32_t v_st = base + S::kV + st * S::kStage;
+            // the first pass over the ring is free
+            sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
+            sm90::mbar_expect_tx(bar_k + 8 * st, S::kStage);
+            for (int hf = 0; hf < S::kHalves; ++hf)
+              sm90::tma_load_4d(k_st + hf * kTileN * 128, &tk, bar_k + 8 * st, hf * 64, n0,
+                                kv_head, batch);
+            sm90::mbar_expect_tx(bar_v + 8 * st, S::kStage);
+            for (int hf = 0; hf < S::kHalves; ++hf)
+              sm90::tma_load_4d(v_st + hf * kTileN * 128, &tv, bar_v + 8 * st, hf * 64, n0,
+                                kv_head, batch);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int cw = warpgroup - 1;
+    const int wt = threadIdx.x & 127;
+    const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+    const uint32_t o_wg = base + S::kO + cw * S::kQWarpgroup;
+    uint8_t* o_wg_ptr = smem + S::kO + cw * S::kQWarpgroup;
+    auto stage = [&](int i) { return i % S::kStages; };
+    auto parity = [&](int i) { return static_cast<uint32_t>((i / S::kStages) & 1); };
+    int it = 0, qk = 0;
+    bool stored = false;  // this thread has a TMA store in flight
+
+    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+      for (int half = 0; half < 2; ++half) {
+        int m_block, head, batch, n_tiles, n_free;
+        if (!pair_block(pair, half, n_mb, p.h, m_block, head, batch)) continue;
+        dense_tiles(m_block, p.sq, p.sk, p.causal, n_tiles, n_free);
+        const int q0 = m_block * kTileM;
+        const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+        const int n_masked = n_tiles - n_free;           // the first tiles visited
+        auto col0 = [&](int i) { return (n_tiles - 1 - i) * kTileN; };
+
+        float o[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+        float m_i[2] = {-INFINITY, -INFINITY};
+        float l_i[2] = {0.f, 0.f};
+
+        const int qb = qk & 1;
+        const uint32_t q_wg = base + S::kQ + qb * S::kQBuffer + cw * S::kQWarpgroup;
+        uint8_t* q_wg_ptr = smem + S::kQ + qb * S::kQBuffer + cw * S::kQWarpgroup;
+        if (n_tiles > 0) {
+          sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
+          // q * sm_scale in fp32, rounded to bf16, in place: every element
+          // alike, so the swizzle does not matter
+          uint4* qv = reinterpret_cast<uint4*>(q_wg_ptr);
+          for (int c = wt; c < S::kQWarpgroup / 16; c += 128) {
+            uint4 x = qv[c];
+            uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[j]));
+              w[j] = pack_bf16(f.x * p.sm_scale, f.y * p.sm_scale);
+            }
+            qv[c] = x;
+          }
+          sm90::fence_proxy_async();  // the writes above, before wgmma reads them
+          sm90::named_barrier(1 + cw, 128);
+          ++qk;
+        }
+        // after the block's last QK^T: its Q buffer may be loaded again
+        auto q_done = [&]() {
+          if (lane == 0) sm90::mbar_arrive(bar_qe + 8 * qb);
+        };
+
+        float s[kTileN / 2];
+        uint32_t pa[kTileN / 4];
+        float alpha[2];
+        if constexpr (D == 64) {
+          // Tile i's softmax runs while tile i - 1's P.V is on the tensor
+          // cores: QK^T(i) and PV(i - 1) are issued together, QK^T(i) is
+          // waited for (wgmma groups complete in order), then PV(i - 1);
+          // then O is rescaled and P(i) packed into the registers PV(i - 1)
+          // read. (At d 128, S, O and P in flight together are more than
+          // ptxas keeps in flight: it serialises the wgmmas, and the tiles
+          // run one by one.)
+          if (n_tiles > 0) {
+            sm90::mbar_wait(bar_k + 8 * stage(it), parity(it));
+            sm90::wgmma_fence();
+            issue_qk<D>(s, q_wg, base + S::kK + stage(it) * S::kStage);
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(s);
+            if (n_tiles == 1) q_done();
+            if (n_masked > 0) {
+              online_softmax<true>(s, m_i, l_i, alpha, col0(0), row0, p, t);
+            } else {
+              online_softmax<false>(s, m_i, l_i, alpha, col0(0), row0, p, t);
+            }
+            pack_p(s, pa);
+          }
+          for (int i = 1; i < n_tiles; ++i) {
+            const int cur = it + i, st = stage(cur), prev = stage(cur - 1);
+            sm90::mbar_wait(bar_k + 8 * st, parity(cur));
+            sm90::mbar_wait(bar_v + 8 * prev, parity(cur - 1));
+            sm90::fence_regs(o);
+            sm90::fence_regs(pa);
+            sm90::wgmma_fence();
+            issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
+            issue_pv<D>(o, pa, base + S::kV + prev * S::kStage);
+            sm90::wgmma_wait<1>();
+            sm90::fence_regs(s);
+            if (i == n_tiles - 1) q_done();
+            if (i < n_masked) {
+              online_softmax<true>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+            } else {
+              online_softmax<false>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+            }
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(o);
+            sm90::fence_regs(pa);
+            if (lane == 0) sm90::mbar_arrive(bar_e + 8 * prev);  // one arrival per consumer warp
+#pragma unroll
+            for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+            pack_p(s, pa);
+          }
+          if (n_tiles > 0) {
+            const int last = stage(it + n_tiles - 1);
+            sm90::mbar_wait(bar_v + 8 * last, parity(it + n_tiles - 1));
+            sm90::fence_regs(o);
+            sm90::fence_regs(pa);
+            sm90::wgmma_fence();
+            issue_pv<D>(o, pa, base + S::kV + last * S::kStage);
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(o);
+            if (lane == 0) sm90::mbar_arrive(bar_e + 8 * last);
+          }
+        } else {
+          // one tile after the other: QK^T, softmax, P.V
+          for (int i = 0; i < n_tiles; ++i) {
+            const int st = stage(it + i);
+            sm90::mbar_wait(bar_k + 8 * st, parity(it + i));
+            sm90::wgmma_fence();
+            issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(s);
+            if (i == n_tiles - 1) q_done();
+            if (i < n_masked) {
+              online_softmax<true>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+            } else {
+              online_softmax<false>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+            }
+            pack_p(s, pa);
+#pragma unroll
+            for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+            sm90::mbar_wait(bar_v + 8 * st, parity(it + i));
+            sm90::fence_regs(o);
+            sm90::fence_regs(pa);
+            sm90::wgmma_fence();
+            issue_pv<D>(o, pa, base + S::kV + st * S::kStage);
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(o);
+            if (lane == 0) sm90::mbar_arrive(bar_e + 8 * st);  // one arrival per consumer warp
+          }
+        }
+        it += n_tiles;
+
+        float inv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+          l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+          inv[r] = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
+        }
+        // O into this consumer's staging rows, in the swizzled layout the TMA
+        // store reads, once the previous block's store has read them
+        if (stored) sm90::tma_store_wait_read();
+        sm90::named_barrier(1 + cw, 128);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int r = warp * 16 + g + 8 * rr;
+            const int off = (j >> 3) * kBox + r * 128 + (((j & 7) ^ (r & 7)) << 4) + t * 4;
+            *reinterpret_cast<uint32_t*>(o_wg_ptr + off) =
+                pack_bf16(o[4 * j + 2 * rr] * inv[rr], o[4 * j + 2 * rr + 1] * inv[rr]);
+          }
+        }
+        sm90::fence_proxy_async();
+        sm90::named_barrier(1 + cw, 128);
+        stored = wt == 0 && q0 + cw * 64 < p.sq;
+        if (stored) {
+          for (int hf = 0; hf < S::kHalves; ++hf)
+            sm90::tma_store_4d(&to, o_wg + hf * kBox, hf * 64, q0 + cw * 64, head, batch);
+          sm90::tma_store_commit();
+        }
+        if (p.lse != nullptr && t == 0) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int row = row0 + 8 * rr;
+            if (row < p.sq)
+              p.lse[(static_cast<int64_t>(batch) * p.h + head) * p.sq + row] =
+                  l_i[rr] > 0.f ? m_i[rr] + logf(l_i[rr]) : INFINITY;
+          }
+        }
+      }
+    }
+    if (stored) sm90::tma_store_wait_read();  // shared memory stays until read
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver-API call, found through the runtime so
+// that the library links against nothing but the CUDA runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (b, h, s, d) bf16 view with element strides (sb, sh, ss) and a
+// contiguous head dim as a 4-D map (d, s, h, b) with boxes of 64 columns x
+// `rows` rows, 128-byte swizzled. A box past s (or d) is filled with zeros
+// on loads and clipped on stores, inside its own batch row and head.
+bool encode_bhsd(CUtensorMap* map, const void* ptr, int b, int h, int s, int d, int64_t sb,
+                 int64_t sh, int64_t ss, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  // an axis of extent 1 is never stepped: any aligned stride will do
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {s > 1 ? static_cast<cuuint64_t>(ss) * 2 : 16,
+                                 h > 1 ? static_cast<cuuint64_t>(sh) * 2 : 16,
+                                 b > 1 ? static_cast<cuuint64_t>(sb) * 2 : 16};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared-memory limit of an instance, raised once per device:
+// per-launch host calls would set the time of short calls.
+template <int D>
+cudaError_t dense_smem_attribute() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DenseSmem<D>::kBytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// The device's SM count, read once per device.
+cudaError_t sm_count(int& count) {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  count = counts[dev & 63].load(std::memory_order_relaxed);
+  if (count > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) counts[dev & 63].store(count, std::memory_order_relaxed);
+  return err;
+}
+
+// One persistent CTA per SM (shared memory allows no second), or one per
+// pair of query blocks when there are fewer.
+template <int D>
+cudaError_t launch_dense(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         const CUtensorMap& to, const DenseParams& p, cudaStream_t s) {
+  cudaError_t err = dense_smem_attribute<D>();
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  const int pairs = dense_pairs((p.sq + kTileM - 1) / kTileM, p.h, p.b);
+  flash_fwd_kernel<D><<<pairs < sms ? pairs : sms, kDenseThreads, DenseSmem<D>::kBytes, s>>>(
+      tq, tk, tv, to, p);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- masked route
 
 constexpr int kBlockM = 64;  // query rows per block (16 per warp)
-constexpr int kBlockN = 64;  // keys per tile
+constexpr int kBlockN = 64;  // keys per tile (common.py FWD_KEY_TILE)
 constexpr int kThreads = 128;
 
 struct FwdParams {
@@ -72,8 +640,8 @@ struct FwdParams {
   xfa::MaskParams mask;
 };
 
-template <int D, bool MASKED>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) masked_flash_fwd_kernel(const FwdParams p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + 8;  // padded smem row (bf16): conflict-free fragment reads
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -132,7 +700,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
   for (int nt = 0; nt < n_tiles; ++nt) {
     const int n0 = nt * kBlockN;
     bool band = false;  // the same for every thread: skips keep barriers uniform
-    if (MASKED && !xfa::mask_tile(mk, batch, head, p.h, q0, q1, n0, kBlockN, band)) continue;
+    if (!xfa::mask_tile(mk, batch, head, p.h, q0, q1, n0, kBlockN, band)) continue;
     __syncthreads();  // the previous tile is fully consumed
     if (band && threadIdx.x < kBlockN) {
       const int fh = xfa::fm_head(mk, head, p.h);
@@ -258,14 +826,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdParams p) 
 }  // namespace
 
 // q/k/v/o strides are in elements for the (batch, head, seq) axes; the
-// head-dim axis is contiguous. lse may be null. The mask arguments
-// (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per 64-key tile.
+// head-dim axis is contiguous; pointers and strides are multiples of 16
+// bytes (the tensor maps' rule). lse may be null. The mask arguments
+// (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per 64-key tile; with
+// none given the dense route runs.
 XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                              int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                              int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int b,
                              int h, int hk, int sq, int sk, int d, float sm_scale,
                              float softcap, int causal, XFA_MASK_ARGS, void* stream) {
+  if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
+  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const xfa::MaskParams mask = XFA_MASK_VALUES;
+  if (mask.fm_vecs == nullptr && mask.bm == nullptr) {
+    CUtensorMap tq, tk, tv, to;
+    const int skm = sk > 0 ? sk : 1;  // no key tile is visited when sk == 0
+    if (!encode_bhsd(&tq, q, b, h, sq, d, q_sb, q_sh, q_ss, 64) ||
+        !encode_bhsd(&tk, k, b, hk, skm, d, k_sb, k_sh, k_ss, kTileN) ||
+        !encode_bhsd(&tv, v, b, hk, skm, d, v_sb, v_sh, v_ss, kTileN) ||
+        !encode_bhsd(&to, o, b, h, sq, d, o_sb, o_sh, o_ss, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const DenseParams p{static_cast<float*>(lse), b, h, hk, sq, sk, sm_scale, softcap, causal};
+    const cudaError_t err = d == 64 ? launch_dense<64>(tq, tk, tv, to, p, s)
+                                    : launch_dense<128>(tq, tk, tv, to, p, s);
+    return static_cast<int>(err);
+  }
   FwdParams p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -280,19 +867,9 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.causal = causal;
-  p.mask = XFA_MASK_VALUES;
-  if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
+  p.mask = mask;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, h, b);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool masked = p.mask.fm_vecs != nullptr || p.mask.bm != nullptr;
-  if (d == 64) {
-    if (masked) flash_fwd_kernel<64, true><<<grid, kThreads, 0, s>>>(p);
-    else flash_fwd_kernel<64, false><<<grid, kThreads, 0, s>>>(p);
-  } else if (d == 128) {
-    if (masked) flash_fwd_kernel<128, true><<<grid, kThreads, 0, s>>>(p);
-    else flash_fwd_kernel<128, false><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d == 64) masked_flash_fwd_kernel<64><<<grid, kThreads, 0, s>>>(p);
+  else masked_flash_fwd_kernel<128><<<grid, kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

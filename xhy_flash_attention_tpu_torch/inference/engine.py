@@ -171,6 +171,21 @@ class InferenceEngine:
 
     # ---- paging -----------------------------------------------------------
 
+    def _capacity(self) -> int:
+        return self.max_pages_per_seq * self.page_size
+
+    def _cover(self, req: Request, n_tokens: int, what: str):
+        """Allocate pages until ``req`` covers positions [0, n_tokens).
+        Raises ValueError past the page table: append_paged_kv would clamp
+        such rows onto the sequence's last page, over committed ones."""
+        if n_tokens > self._capacity():
+            raise ValueError(
+                f"request {req.rid}: {what} writes {n_tokens} positions, "
+                f"more than max_pages_per_seq * page_size = "
+                f"{self._capacity()}")
+        while len(req.pages) < -(-n_tokens // self.page_size):
+            self._alloc_page(req)
+
     def _alloc_page(self, req: Request) -> int:
         if not self.free_pages:
             raise RuntimeError("out of KV pages")
@@ -212,6 +227,18 @@ class InferenceEngine:
     # ---- scheduling -------------------------------------------------------
 
     def add_request(self, req: Request):
+        """Queue ``req``. Raises ValueError when its prompt, new tokens and
+        speculated drafts would run past the page table
+        (``max_pages_per_seq * page_size`` positions)."""
+        need = len(req.prompt) + req.max_new_tokens + self.speculate_len
+        if need > self._capacity():
+            raise ValueError(
+                f"request {req.rid}: prompt {len(req.prompt)} + "
+                f"max_new_tokens {req.max_new_tokens}"
+                + (f" + speculate_len {self.speculate_len}"
+                   if self.speculate_len else "")
+                + f" = {need} positions, more than max_pages_per_seq * "
+                f"page_size = {self._capacity()}")
         self.waiting.append(req)
 
     def _admit(self):
@@ -253,13 +280,21 @@ class InferenceEngine:
         ids = np.zeros((self.max_batch, chunk), np.int32)
         active = self._lengths > 0
         for r in self._prefilling:
+            active[r.slot] = True
+        # every active slot takes all `chunk` rows (past a slot's committed
+        # length they are garbage that later appends overwrite): they must
+        # stay inside the page table
+        for slot in np.flatnonzero(active):
+            if self._lengths[slot] + chunk > self._capacity():
+                raise ValueError(
+                    f"request {self.slots[slot].rid}: a prefill chunk of "
+                    f"{chunk} at length {self._lengths[slot]} runs past "
+                    f"max_pages_per_seq * page_size = {self._capacity()}")
+        for r in self._prefilling:
             n = min(chunk, len(r.prompt) - r.prefill_pos)
             ids[r.slot, :n] = np.asarray(
                 r.prompt[r.prefill_pos:r.prefill_pos + n], np.int32)
-            active[r.slot] = True
-            need_pages = -(-(r.prefill_pos + n) // self.page_size)
-            while len(r.pages) < min(need_pages, self.max_pages_per_seq):
-                self._alloc_page(r)
+            self._cover(r, r.prefill_pos + n, "a prefill chunk")
         self._sync_caches(active)
         logits = self._run(ids, self.caches[0].lengths)
         self.stats["chunk"] += 1
@@ -338,9 +373,7 @@ class InferenceEngine:
 
     def _decode_step(self, active: List[Request]):
         for r in active:  # a page for the next token of each active slot
-            need = (len(r.prompt) + len(r.output)) // self.page_size + 1
-            while len(r.pages) < min(need, self.max_pages_per_seq):
-                self._alloc_page(r)
+            self._cover(r, len(r.prompt) + len(r.output), "a decode step")
         self._sync_caches()
         logits = self._run(self._last_tokens[:, None],
                            self.caches[0].lengths)[:, 0]
@@ -400,9 +433,8 @@ class InferenceEngine:
             ids[r.slot, 0] = self._last_tokens[r.slot]
             ids[r.slot, 1:1 + len(d)] = d
             # pages must cover the whole appended width
-            need = -(-(self._lengths[r.slot] + width) // self.page_size)
-            while len(r.pages) < min(need, self.max_pages_per_seq):
-                self._alloc_page(r)
+            self._cover(r, int(self._lengths[r.slot]) + width,
+                        "a speculative step")
         self._sync_caches()
         logits = self._run(ids, self.caches[0].lengths)
         self.stats["verify"] += 1

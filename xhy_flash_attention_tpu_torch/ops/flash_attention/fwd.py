@@ -3,10 +3,14 @@ ops/flash_attention/fwd.py `flash_attention_fwd`).
 
 On a CUDA tensor the work runs in csrc/flash_fwd.cu, the counterpart of the
 TPU kernel `_fwd_kernel` (fwd.py:78); on a CPU tensor in its plain version
-:func:`attention_fwd_ref`. This slice covers causal and full attention,
-GQA, softcap, the LSE output, FlashMask (slice 4: column-wise row bands,
-four modes, mask heads dividing the query heads) and block-sparse masks
-(a 0/1 mask at a granularity the kernel's tiles divide); the backward is
+:func:`attention_fwd_ref`. Without a sparse mask the kernel is the Hopper
+one (TMA ring, wgmma, a producer warpgroup; :func:`fwd_tile_plan` mirrors
+the key tiles it visits, :func:`fwd_schedule` the blocks each of its
+persistent CTAs runs); with one it is the mma.sync kernel of slice 4, on
+64-key tiles. This slice covers causal and full attention, GQA, softcap,
+the LSE output, FlashMask (slice 4: column-wise row bands, four modes,
+mask heads dividing the query heads) and block-sparse masks (a 0/1 mask
+at a granularity the kernel's tiles divide); the backward is
 bwd.py, joined to this forward by interface.py's autograd function. Bias,
 segment ids, positions and sliding windows raise NotImplementedError until
 slice 5, dropout until slice 6, fp8 until slice 7.
@@ -21,10 +25,56 @@ import torch
 
 from .. import _cuda
 from .common import (CUDA_DTYPE_NOT_PORTED, FWD_KEY_TILE, SLICE_DROPOUT,
-                     SLICE_DTYPES, SLICE_VARLEN, KernelMasks, dense_keep_mask,
-                     expand_heads)
+                     SLICE_DTYPES, SLICE_VARLEN, KernelMasks, cdiv,
+                     dense_keep_mask, expand_heads)
 
-__all__ = ["attention_fwd_ref", "flash_attention_fwd"]
+__all__ = ["attention_fwd_ref", "flash_attention_fwd", "fwd_schedule",
+           "fwd_tile_plan"]
+
+# Tiles of the dense (unmasked) kernel, csrc/flash_fwd.cu kTileM / kTileN:
+# query rows per block and keys per tile.
+FWD_DENSE_TILE_M = 128
+FWD_DENSE_TILE_N = 128
+
+
+def fwd_tile_plan(sq: int, sk: int, causal: bool):
+    """The key tiles the dense kernel visits (csrc/flash_fwd.cu
+    `dense_tiles`): for each block of FWD_DENSE_TILE_M query rows, a list
+    of (tile index, masked) in visit order, last tile first. Tile t holds
+    keys [t * FWD_DENSE_TILE_N, (t + 1) * FWD_DENSE_TILE_N); ``masked``
+    tiles run the elementwise causal / sk test, the others none."""
+    m, n = FWD_DENSE_TILE_M, FWD_DENSE_TILE_N
+    plan = []
+    for q0 in range(0, sq, m):
+        n_tiles, n_free = cdiv(sk, n), sk // n
+        if causal:
+            max_col = min(q0 + m, sq) - 1 + sk - sq
+            n_tiles = 0 if max_col < 0 else min(n_tiles, max_col // n + 1)
+            seen = q0 + sk - sq + 1  # keys visible to the block's first row
+            n_free = min(n_free, 0 if seen <= 0 else seen // n)
+        n_free = min(n_free, n_tiles)
+        plan.append([(t, t >= n_free) for t in reversed(range(n_tiles))])
+    return plan
+
+
+def fwd_schedule(sq: int, h: int, b: int, ctas: int):
+    """The dense kernel's persistent schedule (csrc/flash_fwd.cu
+    `dense_pairs`, `pair_block`): for each of ``ctas`` CTAs, the (batch,
+    head, query block) it runs, in order. Pair j of a (batch, head) is
+    block n_mb - 1 - j, then block j (the middle block of an odd count
+    alone); CTA c takes pairs c, c + ctas, ... The kernel launches
+    min(pairs, SMs) CTAs."""
+    n_mb = cdiv(sq, FWD_DENSE_TILE_M)
+    per_head = (n_mb + 1) // 2
+    out = [[] for _ in range(ctas)]
+    for c in range(ctas):
+        for pair in range(c, per_head * h * b, ctas):
+            j, bh = pair % per_head, pair // per_head
+            head, batch = bh % h, bh // h
+            out[c].append((batch, head, n_mb - 1 - j))
+            if j != n_mb - 1 - j:
+                out[c].append((batch, head, j))
+    return out
 
 
 def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
@@ -71,7 +121,9 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     """Launch csrc/flash_fwd.cu on (b, h, s, d)-shaped views of any strides
     (head dim contiguous): q, out (b, h, sq, d); k, v (b, hk, sk, d); lse
     (b, h, sq) fp32 contiguous or None; ``masks`` the FlashMask and block
-    mask flags, or None. The callers count the launch."""
+    mask flags, or None. The dense kernel reads and writes through TMA
+    tensor maps, so pointers and strides must be multiples of 16 bytes (8
+    elements): ``ValueError`` otherwise. The callers count the launch."""
     tensors = [t for t in (q, k, v, out, lse) if t is not None]
     if masks is not None:
         tensors += masks.tensors()
