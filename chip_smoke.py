@@ -51,11 +51,14 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      block mask at granularity 256); launches exact, the error against the
      fp32 plain version at most twice the bf16 plain version's, a second
      pass bitwise equal.
-Phase 3 also holds the backward kernels (attention dK/dV and dQ, the
-packed dqkv entry, the norm backward) and the sparse-mask kernels (the
-forward and both backward kernels under FM-doc's and BS's masks, the
-reduced-scores kernel at FM-swg's shape) against their plain versions and
-checks that three attention backward passes are bitwise equal.
+Phase 3 also holds the backward kernels (the attention backward's
+pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
+the packed dqkv entry at T-packed's, the norm backward) and the
+sparse-mask kernels (the forward and both backward kernels under FM-doc's
+and BS's masks, the reduced-scores kernel at FM-swg's shape) against their
+plain versions, prints each whole attention backward against SDPA's
+backward, and checks that three attention backward passes are bitwise
+equal at each of the three shapes.
 The last lines: the card, one JSON object with a row per kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -613,8 +616,8 @@ SERVING_KERNELS = ("rms_norm_add", "flash_fwd (flash_attention_fwd)",
                    "flash_fwd (fused_heads)", "flash_decode",
                    "flash_decode_splitkv", "paged_decode (chunked)",
                    "paged_decode (page)")
-TRAINING_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq", "fused_heads_bwd",
-                    "ln_bwd")
+TRAINING_KERNELS = ("flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq",
+                    "fused_heads_bwd", "ln_bwd")
 
 
 def counters():
@@ -629,6 +632,7 @@ def counters():
             "flash_decode_splitkv": combine.flash_decode_splitkv,
             "paged_decode (chunked)": paged.paged_decode_chunked,
             "paged_decode (page)": paged.paged_decode_page,
+            "flash_bwd_prep": bwd.flash_bwd_prep,
             "flash_bwd_dkv": bwd.flash_bwd_dkv,
             "flash_bwd_dq": bwd.flash_bwd_dq,
             "fused_heads_bwd": fused_heads.fused_heads_bwd,
@@ -852,6 +856,7 @@ TPU_OF = {
     "flash_decode_splitkv": "inference/combine.py:75 _splitkv_kernel",
     "paged_decode (chunked)": "inference/paged.py:219 _paged_decode_chunked_kernel",
     "paged_decode (page)": "inference/paged.py:149 _paged_decode_kernel",
+    "flash_bwd_prep": "ops/flash_attention/bwd.py:737 delta (XLA)",
     "flash_bwd_dkv": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel",
     "flash_bwd_dq": "ops/flash_attention/bwd.py:511 _bwd_dq_kernel",
     "fused_heads_bwd": "ops/flash_attention/fused_heads.py:105 _bwd_kernel",
@@ -866,6 +871,7 @@ KERNEL_GROUPS = (  # device kernel name fragment -> group
     ("paged_decode_kernel", "paged_decode"),
     ("flash_decode_kernel", "flash_decode"),
     ("flash_fwd_kernel", "flash_fwd"),
+    ("flash_bwd_prep_kernel", "attention bwd"),
     ("flash_bwd_dkv_kernel", "attention bwd"),
     ("flash_bwd_dq_kernel", "attention bwd"),
     ("ln_fwd_kernel", "rms_norm_add"),
@@ -1360,18 +1366,62 @@ def _bwd_inputs(gen, shape):
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
     out, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
-    delta = bwd.attention_delta(out, dot)
-    return (q, k, v, do), (qt, kt, vt, dot, out, lse, delta), kw
+    return (q, k, v, do), (qt, kt, vt, dot, out, lse), kw
+
+
+def check_bwd_prep(qt, out, dot, sm_scale, label):
+    """The backward's pre-pass (delta = rowsum(dO O) and q_s) at ``label``'s
+    shape against its plain version: q_s bit for bit, delta within 1e-5 of
+    its largest entry (fp32 sums in another order). Bound: its bytes (q, dO
+    and O read, q_s and delta written). No single PyTorch call computes
+    the pair: library_ms is null."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h, s, d = qt.shape
+    qs, delta = bwd.flash_bwd_prep(qt, out, dot, sm_scale=sm_scale)
+    want_qs, want = bwd.bwd_prep_ref(qt, out, dot, sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    err, tol = max_err(delta, want), 1e-5 * want.abs().max().item()
+    check(torch.equal(qs, want_qs) and err <= tol,
+          f"flash_bwd_prep ({label}): q_s differs or delta err {err} > {tol}")
+    del want_qs, want
+    nbytes = 2.0 * b * h * s * d * 4 + 4.0 * b * h * s
+    bms, by = bound(3.0 * b * h * s * d, PEAK_FP32_FLOPS, nbytes)
+    row = dict(
+        name=f"flash_bwd_prep ({label})", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+        replaces="xhy_flash_attention_tpu/ops/flash_attention/bwd.py:737",
+        kernel="flash_bwd_prep", max_abs_err=err,
+        ms=time_ms([lambda: bwd.flash_bwd_prep(qt, out, dot,
+                                               sm_scale=sm_scale)]),
+        plain_ms=time_ms([lambda: bwd.bwd_prep_ref(qt, out, dot,
+                                                   sm_scale=sm_scale)],
+                         iters=5, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    report(row, f"q_s bitwise equal; delta tol {tol:.3g} = 1e-5 of "
+                f"max|delta|; b{b} h{h} s{s} d{d}, bytes {nbytes:.4g} (q, "
+                "dO, O read, q_s, delta written); no single library call")
+    print(f"  delta pre-pass ({label}): {row['ms']:.4f} ms against its byte "
+          f"bound {bms:.4f} ms ({nbytes / row['ms'] / 1e9:.1f} GB/s, share "
+          f"{bms / row['ms']:.3f})", flush=True)
+    return row, qs, delta
+
+
+def _bitwise_three_passes(run, what):
+    first = run()
+    for _ in range(2):
+        check(all(torch.equal(a, c) for a, c in zip(first, run())),
+              f"{what} is not bitwise deterministic")
+    print(f"  {what}: three passes bitwise equal (dq, dk, dv)", flush=True)
 
 
 def check_flash_bwd(gen, shape, label):
-    """Rows for the dK/dV kernel (#2) and the dQ kernel (#3) at ``shape``,
-    a line for the pair against the 5-matmul bound of the whole backward,
-    and (at T-long) the bitwise determinism of three backward passes."""
+    """Rows for the pre-pass, the dK/dV kernel (#2) and the dQ kernel (#3)
+    at ``shape``, a line for the whole backward (pre-pass and both kernels)
+    against SDPA's backward and the 5-product bound, and the bitwise
+    determinism of three backward passes."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
     b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
-    (q, k, v, do), (qt, kt, vt, dot, out, lse, delta), kw = \
-        _bwd_inputs(gen, shape)
+    (q, k, v, do), (qt, kt, vt, dot, out, lse), kw = _bwd_inputs(gen, shape)
     grads = bwd.flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
     want = bwd.attention_bwd_ref(qt, kt, vt, out, lse, dot, **kw)
     torch.cuda.synchronize()
@@ -1383,23 +1433,19 @@ def check_flash_bwd(gen, shape, label):
     del want
     e, e_lp = _attn_grad_contract([g.transpose(1, 2) for g in grads],
                                   q, k, v, do)
-    if label == "T-long":
-        for _ in range(2):
-            again = bwd.flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
-            check(all(torch.equal(a, c) for a, c in zip(grads, again)),
-                  "attention backward is not bitwise deterministic")
-        print("  attention backward at T-long: three passes bitwise equal "
-              "(dq, dk, dv)", flush=True)
+    _bitwise_three_passes(lambda: bwd.flash_attention_bwd(
+        qt, kt, vt, out, lse, dot, **kw), f"attention backward at {label}")
+    prep, qs, delta = check_bwd_prep(qt, out, dot, kw["sm_scale"], label)
     dq, dk, dv = (torch.empty_like(t) for t in grads)
-    outs = (dq, dk, dv)
-    args = (qt, kt, vt, dot, lse, delta) + outs
+    del grads
+    args = (qs, kt, vt, dot, lse, delta, dq, dk, dv)
     pair = 2.0 * b * h * s * s * d / 2  # one causal s x s x d product
     io = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, do, k, v (bf16)
     stats = 2 * 4.0 * b * h * s  # lse, delta (fp32)
     plain_ms = time_ms([lambda: bwd.attention_bwd_ref(
         qt, kt, vt, out, lse, dot, **kw)], iters=3, warmup=1)
     library = _sdpa_bwd_ms(qt, kt, vt, dot)
-    rows = []
+    rows = [prep]
     for name, fn, n_mm, out_bytes, err in (
             ("flash_bwd_dkv", bwd.flash_bwd_dkv, 4, 2 * 2.0 * b * s * hk * d,
              err_dkv),
@@ -1418,7 +1464,8 @@ def check_flash_bwd(gen, shape, label):
         report(row, f"tol {tol:.3g} = 4 bf16 ulp of max|grad| vs the plain "
                     f"backward; vs fp32 attention_ref grads {e:.3g} <= 2 x "
                     f"bf16 baseline {e_lp:.3g}; b{b} h{h} hk{hk} s{s} d{d} "
-                    f"causal, {n_mm} products, flops {n_mm * pair:.4g}; "
+                    f"causal, {n_mm} products, flops {n_mm * pair:.4g} "
+                    f"({n_mm * pair / row['ms'] / 1e9:.1f} TFLOP/s); "
                     "plain_ms and library_ms are of the whole backward "
                     "(library: SDPA fwd + bwd minus fwd)")
         rows.append(row)
@@ -1426,18 +1473,21 @@ def check_flash_bwd(gen, shape, label):
         qt, kt, vt, out, lse, dot, **kw)], iters=10)
     bms, by = bound(5 * pair, PEAK_BF16_FLOPS,
                     io + stats + 2.0 * b * s * d * (h + 2 * hk))
-    summed = rows[0]["ms"] + rows[1]["ms"]
-    print(f"  attention backward ({label}): dK/dV + dQ {summed:.4f} ms "
-          f"(flash_attention_bwd with delta: {whole_ms:.4f} ms) against "
-          f"the 5-product bound of the function {bms:.4f} ms by {by} "
-          f"(share {bms / summed:.3f}); SDPA backward {library:.4f} ms",
+    summed = rows[1]["ms"] + rows[2]["ms"]
+    print(f"  attention backward ({label}): pre-pass {prep['ms']:.4f} + "
+          f"dK/dV {rows[1]['ms']:.4f} + dQ {rows[2]['ms']:.4f} = "
+          f"{prep['ms'] + summed:.4f} ms; flash_attention_bwd whole "
+          f"{whole_ms:.4f} ms against SDPA's backward {library:.4f} ms "
+          f"(x{whole_ms / library:.3f}) and the 5-product bound of the "
+          f"function {bms:.4f} ms by {by} (share {bms / whole_ms:.3f})",
           flush=True)
     return rows
 
 
 def check_fused_heads_bwd(gen):
     """The packed entry (#6) at T-packed's shape: one dqkv written through
-    strides, against its plain version and the contract."""
+    strides, against its plain version and the contract, three passes
+    bitwise equal."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads as fh
     c = T_PACKED
     b, h, hk, s, d = (c[k] for k in ("b", "h", "hk", "s", "d"))
@@ -1457,6 +1507,8 @@ def check_fused_heads_bwd(gen):
     check(err <= tol, f"fused_heads_bwd err {err} > {tol}")
     del want
     e, e_lp = _attn_grad_contract(grads, q, k, v, do)
+    _bitwise_three_passes(lambda: [t.clone() for t in fh.fused_heads_bwd(
+        q, k, v, out, lse, do, **kw, **dst)], "packed backward at T-packed")
     pair = 2.0 * b * h * s * s * d / 2
     nbytes = (2.0 * b * s * d * (2 * h + 2 * hk) + 2 * 4.0 * b * h * s
               + 2.0 * b * s * d * (h + 2 * hk))
@@ -1475,8 +1527,13 @@ def check_fused_heads_bwd(gen):
     report(row, f"tol {tol:.3g} = 4 bf16 ulp of max|grad|; vs fp32 "
                 f"attention_ref grads {e:.3g} <= 2 x bf16 baseline "
                 f"{e_lp:.3g}; packed dqkv b{b} s{s} h{h} hk{hk} d{d} causal, "
-                f"5-product bound (flops {5 * pair:.4g}); ms includes delta "
-                "and both kernels; library: SDPA fwd + bwd minus fwd")
+                f"5-product bound (flops {5 * pair:.4g}); ms includes the "
+                "pre-pass and both kernels; library: SDPA fwd + bwd minus "
+                "fwd")
+    print(f"  attention backward (T-packed, packed dqkv): whole "
+          f"{row['ms']:.4f} ms against SDPA's backward "
+          f"{row['library_ms']:.4f} ms (x{row['ms'] / row['library_ms']:.3f})",
+          flush=True)
     return row
 
 
@@ -1683,7 +1740,8 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
     check(err <= tol and err_lse <= 1e-3,
           f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
     del ref, ref_lse
-    delta = bwd.attention_delta(out, do)
+    _, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"],
+                                  scale_q=False)
     grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **flags)
     want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=dense, **kw)
     torch.cuda.synchronize()
@@ -1857,8 +1915,9 @@ def sparse_case(gen, name, shape, causal, indices=None, block_mask=None,
     torch.cuda.synchronize()
     counts = read_counts()
     want = {**{key: 0 for key in counters()},
-            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_dkv": 1,
-            "flash_bwd_dq": 1, "reduced_scores": int(reduced)}
+            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_prep": 1,
+            "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
+            "reduced_scores": int(reduced)}
     check(counts == want, f"{name}: launches {counts} != {want}")
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
           f"{name}: non-finite output or gradient")
@@ -1952,10 +2011,11 @@ def sparse_masks(gen):
 CONFIGS = "xhy_flash_attention_tpu/training/configs/experiment"
 RECIPES = {  # name -> (config, the attention kernels on its path)
     "T-long": (f"{CONFIGS}/pile/gpt3m-flash.yaml",
-               ("flash_fwd (flash_attention_fwd)", "flash_bwd_dkv",
-                "flash_bwd_dq")),
+               ("flash_fwd (flash_attention_fwd)", "flash_bwd_prep",
+                "flash_bwd_dkv", "flash_bwd_dq")),
     "T-packed": (f"{CONFIGS}/owt/gpt2m-flash.yaml",
-                 ("flash_fwd (fused_heads)", "fused_heads_bwd")),
+                 ("flash_fwd (fused_heads)", "flash_bwd_prep",
+                  "fused_heads_bwd")),
 }
 TRAIN_STEPS = 6
 # Batch halvings a recipe needs to fit the card's 80 GB with the simple
@@ -1977,7 +2037,7 @@ def count_plain_calls():
         "layer_norm", "flash_attention.fwd", "flash_attention.bwd",
         "flash_attention.fused_heads")}
     names = ("ln_fwd_ref", "ln_bwd_ref", "attention_fwd_ref",
-             "attention_bwd_ref", "fused_heads_fwd_ref",
+             "attention_bwd_ref", "bwd_prep_ref", "fused_heads_fwd_ref",
              "fused_heads_bwd_ref")
     calls, saved = {}, []
     for mod in mods.values():
@@ -1997,12 +2057,16 @@ def count_plain_calls():
             setattr(mod, name, fn)
 
 
-# Readings on one H100 at 700 W while the dense forward was the earlier
-# mma.sync kernel (PERF.md section 5), printed beside this run's: the median
-# step of phase 8, its MFU, and phase 10's "attention fwd" group
+# Readings on one H100 at 700 W (PERF.md section 5), printed beside this
+# run's: the median step of phase 8, its MFU, and phase 10's "attention
+# fwd" group while the dense forward was the earlier mma.sync kernel, and
+# the step, MFU and "attention bwd" group while the dense backward was
 MMA_SYNC_TRAINING = {
     "T-long": dict(step_ms=451.0, mfu=0.178, attention_fwd_ms=35.4),
     "T-packed": dict(step_ms=303.4, mfu=0.248, attention_fwd_ms=19.6)}
+MMA_SYNC_BWD_TRAINING = {
+    "T-long": dict(step_ms=421.4, mfu=0.1905, attention_bwd_ms=126.0),
+    "T-packed": dict(step_ms=287.7, mfu=0.2617, attention_bwd_ms=68.8)}
 
 
 def train_recipe(name, seed, tmp):
@@ -2087,10 +2151,12 @@ def train_recipe(name, seed, tmp):
         flops_per_token=flops_tok, peak_memory_gib=peak / 2 ** 30,
         losses=losses, launches={k: v for k, v in launches.items() if v})
     print(f"  {name} summary: {json.dumps(summary)}", flush=True)
-    before = MMA_SYNC_TRAINING[name]
+    before, bwd_before = MMA_SYNC_TRAINING[name], MMA_SYNC_BWD_TRAINING[name]
     print(f"  {name}: step ms {steady:.1f} (mma.sync forward: "
-          f"{before['step_ms']}), MFU {summary['mfu']:.4f} (mma.sync "
-          f"forward: {before['mfu']})", flush=True)
+          f"{before['step_ms']}; mma.sync backward: "
+          f"{bwd_before['step_ms']}), MFU {summary['mfu']:.4f} (mma.sync "
+          f"forward: {before['mfu']}; mma.sync backward: "
+          f"{bwd_before['mfu']})", flush=True)
     return trainer, summary
 
 
@@ -2210,7 +2276,9 @@ def train_breakdown(trainer, name):
     print(f"  training step breakdown: {json.dumps(out)}", flush=True)
     print(f"  {name}: attention fwd {groups.get('attention fwd', 0.0):.1f} "
           f"ms of the step (mma.sync forward: "
-          f"{MMA_SYNC_TRAINING[name]['attention_fwd_ms']})", flush=True)
+          f"{MMA_SYNC_TRAINING[name]['attention_fwd_ms']}), attention bwd "
+          f"{groups.get('attention bwd', 0.0):.1f} ms (mma.sync backward: "
+          f"{MMA_SYNC_BWD_TRAINING[name]['attention_bwd_ms']})", flush=True)
     check(busy > 0, f"{name}: the profiler saw no device time")
     return out
 

@@ -15,6 +15,13 @@ fp32:
     losses and dlogits within 1e-5 relative.
 Two fp32 computations of the same formulas differ only in the order of
 their sums, hence the relative tolerances.
+
+Also, in pure Python, the mirrors of what the dense backward kernels visit
+(csrc/flash_bwd.cu): the query tiles of each dK/dV key block and the key
+tiles of each dQ query block cover every visible (row, key) pair once and
+mark as masked exactly the tiles that hold an invisible pair; the
+persistent schedules run every block once, in equal-work pairs; and the
+pre-pass's plain version gives the plain backward's q_s and delta.
 """
 
 import jax
@@ -33,6 +40,7 @@ from xhy_flash_attention_tpu.ops.flash_attention.interface import (
 )
 from xhy_flash_attention_tpu_torch.losses import cross_entropy_loss
 from xhy_flash_attention_tpu_torch.ops import layer_norm as tln
+from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd as tbwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads as tfh
 from xhy_flash_attention_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -199,3 +207,134 @@ def test_cross_entropy_matches_jax(smoothing, lse_square_scale):
     _close(got, want, 1e-5)
     _close(tg, wg, 1e-5)
     assert not tg[[3, 17]].any() and not got[[3, 17]].any()
+
+
+# ---- the dense backward kernels' plans and schedules (pure Python)
+
+PLAN_SHAPES = [(128, 128), (2048, 2048), (1100, 1100), (77, 300), (300, 77),
+               (1, 1), (129, 2049), (2049, 129), (960, 960), (64, 200)]
+
+
+def _visible(sq, sk, causal):
+    rows = torch.arange(sq)[:, None]
+    cols = torch.arange(sk)[None, :]
+    return (cols <= rows + (sk - sq)) if causal else \
+        torch.ones(sq, sk, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_bwd_dkv_tile_plan_covers_the_visible_pairs(sq, sk, causal, g):
+    """Each key block visits, for every head of its group in turn, query
+    tiles that cover each visible (head, row, key) pair of its keys exactly
+    once; every visited tile holds a visible pair; a tile is masked exactly
+    when it holds an invisible pair of the block's keys below sk (rows past
+    sq count as invisible); the masked tiles come first."""
+    m, n = tbwd.BWD_DKV_TILE_M, tbwd.BWD_DKV_TILE_N
+    vis = _visible(sq, sk, causal)
+    plan = tbwd.bwd_dkv_tile_plan(sq, sk, causal)
+    assert len(plan) == -(-sk // n)
+    for nb, tiles in enumerate(plan):
+        keys = slice(nb * n, min((nb + 1) * n, sk))
+        masked = [flag for _, flag in tiles]
+        assert masked == sorted(masked, reverse=True)
+        covered = torch.zeros(g, sq, keys.stop - keys.start, dtype=torch.int)
+        for head in range(g):
+            for t, flag in tiles:
+                rows = torch.arange(t * m, (t + 1) * m)
+                inside = rows < sq
+                block = torch.zeros(m, keys.stop - keys.start,
+                                    dtype=torch.bool)
+                block[inside] = vis[rows[inside], keys]
+                assert block.any()
+                assert flag == bool((~block).any())
+                covered[head, t * m:(t + 1) * m] += 1
+        assert torch.equal(covered.clamp(max=1).bool() & vis[:, keys],
+                           vis[:, keys].expand(g, -1, -1))
+        assert covered.max() <= 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_bwd_dq_tile_plan_covers_the_visible_pairs(sq, sk, causal, d):
+    """Each query block visits key tiles that cover each visible pair of
+    its rows exactly once, last tile first; every visited tile holds a
+    visible pair; a tile is masked exactly when it holds an invisible pair
+    of the block's rows below sq (keys past sk count as invisible); the
+    masked tiles come first."""
+    m, n = tbwd.BWD_DQ_TILE_M, tbwd.bwd_dq_tile_n(d)
+    vis = _visible(sq, sk, causal)
+    plan = tbwd.bwd_dq_tile_plan(sq, sk, causal, d)
+    assert len(plan) == -(-sq // m)
+    for mb, tiles in enumerate(plan):
+        rows = vis[mb * m:(mb + 1) * m]
+        order = [t for t, _ in tiles]
+        assert order == sorted(set(order), reverse=True)
+        masked = [flag for _, flag in tiles]
+        assert masked == sorted(masked, reverse=True)
+        covered = torch.zeros(sk, dtype=torch.int)
+        for t, flag in tiles:
+            cols = torch.arange(t * n, (t + 1) * n)
+            inside = cols < sk
+            block = torch.zeros(rows.shape[0], n, dtype=torch.bool)
+            block[:, inside] = rows[:, cols[inside]]
+            assert block.any()
+            assert flag == bool((~block).any())
+            covered[t * n:(t + 1) * n] += 1
+        assert not (rows & (covered == 0)).any()
+
+
+@pytest.mark.parametrize("which,d", [("dkv", 64), ("dq", 64), ("dq", 128)])
+@pytest.mark.parametrize("s,h,hk,b", [(2048, 16, 16, 16), (2048, 32, 8, 2),
+                                      (1024, 16, 16, 32), (1100, 8, 2, 2),
+                                      (300, 4, 1, 3), (1, 2, 2, 1)])
+def test_bwd_schedule_runs_every_block_once(which, s, h, hk, b, d):
+    """The persistent CTAs (132, an H100's SMs, or fewer when there are
+    fewer pairs) run every (batch, head, block) exactly once; the blocks of
+    a pair hold equal causal work when the length is a multiple of the
+    blocks (the middle one of an odd count alone), and the CTAs' loads
+    differ by at most one pair's."""
+    if which == "dkv":
+        heads, size = hk, tbwd.BWD_DKV_TILE_N
+        tiles = [len(t) * (h // hk)
+                 for t in tbwd.bwd_dkv_tile_plan(s, s, True)]
+    else:
+        heads, size = h, tbwd.BWD_DQ_TILE_M
+        tiles = [len(t) for t in tbwd.bwd_dq_tile_plan(s, s, True, d)]
+    n_blocks = -(-s // size)
+    ctas = min(132, (n_blocks + 1) // 2 * heads * b)
+    sched = tbwd.bwd_schedule(which, s, s, h, hk, b, ctas)
+    assert len(sched) == ctas and all(sched)
+    runs = [blk for cta in sched for blk in cta]
+    assert sorted(runs) == [(bb, hh, j) for bb in range(b)
+                            for hh in range(heads) for j in range(n_blocks)]
+    pairs = [tiles[j] + tiles[n_blocks - 1 - j] for j in range(n_blocks // 2)]
+    if s % size == 0:
+        assert len(set(pairs)) <= 1
+    for cta in sched:  # a pair's partners run heavier first
+        for (b0, h0, j0), (b1, h1, j1) in zip(cta, cta[1:]):
+            if (b0, h0) == (b1, h1) and j0 + j1 == n_blocks - 1:
+                assert tiles[j0] >= tiles[j1]
+    load = [sum(tiles[j] for _, _, j in cta) for cta in sched]
+    assert max(load) - min(load) <= max(tiles) + min(tiles)
+
+
+@pytest.mark.parametrize("scale_q", [False, True])
+def test_bwd_prep_ref_gives_the_plain_backward_inputs(scale_q):
+    """The pre-pass's plain version: q_s bit for bit the plain backward's
+    q * sm_scale rounded to bf16, delta its fp32 rowsum(dO * O)."""
+    rng = np.random.default_rng(3)
+    q, out, do = (torch.from_numpy(_randn(rng, (2, 3, 37, 64))).bfloat16()
+                  .transpose(1, 2).contiguous().transpose(1, 2)
+                  for _ in range(3))
+    qs, delta = tbwd.bwd_prep_ref(q, out, do, sm_scale=0.125 ** 0.5,
+                                  scale_q=scale_q)
+    assert delta.dtype == torch.float32 and delta.is_contiguous()
+    assert torch.equal(delta, (do.float() * out.float()).sum(-1))
+    if scale_q:
+        assert qs.is_contiguous() and qs.dtype == torch.bfloat16
+        assert torch.equal(qs, (q.float() * 0.125 ** 0.5).to(torch.bfloat16))
+    else:
+        assert qs is None

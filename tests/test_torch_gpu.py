@@ -581,6 +581,135 @@ def test_flash_bwd_is_deterministic(cuda):
         assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
 
 
+def _bwd_case(cuda, b, h, hk, sq, sk, d, causal, softcap):
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    k = torch.randn(b, sk, hk, d, generator=cuda, device="cuda").bfloat16()
+    v = torch.randn(b, sk, hk, d, generator=cuda, device="cuda").bfloat16()
+    do = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=softcap)
+    out, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
+    return (q, k, v, do), (qt, kt, vt, out, lse, dot), kw
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 0.0),
+                                            (True, 20.0)])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sq,sk", [(100, 1000), (1000, 100), (256, 256),
+                                   (2048, 2048), (200, 333), (64, 64)])
+def test_flash_bwd_dense_kernels_match_plain(cuda, sq, sk, g, causal, softcap,
+                                             d):
+    """The dense (wgmma) dK/dV and dQ kernels and the pre-pass, one launch
+    each, against the plain backward: GQA groups 1 and 4, sq != sk, sq
+    below one block, sk off the 128-key grid, ragged query tiles, softcap;
+    four bf16 units of each gradient's largest entry (both round P and dS
+    to bf16, in sums of another order)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, hk = 2, 2
+    _, (qt, kt, vt, out, lse, dot), kw = _bwd_case(
+        cuda, b, g * hk, hk, sq, sk, d, causal, softcap)
+    count = lambda: (bwd.flash_bwd_prep.launches, bwd.flash_bwd_dkv.launches,
+                     bwd.flash_bwd_dq.launches)
+    before = count()
+    got = bwd.flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
+    want = bwd.attention_bwd_ref(qt, kt, vt, out, lse, dot, **kw)
+    torch.cuda.synchronize()
+    assert count() == tuple(n + 1 for n in before)
+    for gr, w in zip(got, want):
+        assert gr.shape == w.shape and bool(torch.isfinite(gr).all())
+        assert _err(gr, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("scale_q", [False, True])
+def test_flash_bwd_prep_matches_plain(cuda, scale_q, d):
+    """The pre-pass on strided (b, s, h, d) views: q_s bit for bit the
+    plain version's, delta within 1e-5 of the largest |delta| (fp32 sums in
+    another order)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, s, h = 3, 333, 4
+    q, out, do = (torch.randn(b, s, h, d, generator=cuda, device="cuda")
+                  .bfloat16().transpose(1, 2) for _ in range(3))
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=d ** -0.5,
+                                   scale_q=scale_q)
+    want_qs, want = bwd.bwd_prep_ref(q, out, do, sm_scale=d ** -0.5,
+                                     scale_q=scale_q)
+    torch.cuda.synchronize()
+    assert delta.shape == (b, h, s) and delta.is_contiguous()
+    assert _err(delta, want) <= 1e-5 * want.abs().max().item()
+    assert (qs is None) == (not scale_q)
+    if scale_q:
+        assert torch.equal(qs, want_qs)
+
+
+@pytest.mark.parametrize("layout", ["d64", "d128", "packed"])
+def test_flash_bwd_dense_is_bitwise_deterministic(cuda, layout):
+    """Three backward passes of the dense kernels give bitwise equal dq, dk
+    and dv: at d 64 and d 128 through flash_attention (GQA 4), and through
+    the packed dqkv of packed_qkv_attention (#6)."""
+    b, s, h, hk = 2, 1000, 8, 2
+    if layout == "packed":
+        d = 64
+        qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=cuda,
+                          device="cuda").bfloat16()
+        do = torch.randn(b, s, h * d, generator=cuda, device="cuda").bfloat16()
+
+        def grads():
+            x = qkv.detach().clone().requires_grad_()
+            out = fh.packed_qkv_attention(x, num_heads=h, num_heads_kv=hk,
+                                          head_dim=d, causal=True)
+            return torch.autograd.grad(out, x, do)
+    else:
+        from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+            flash_attn_func
+        d = int(layout[1:])
+        (q, k, v, do), _, _ = _bwd_case(cuda, b, h, hk, s, s, d, True, 0.0)
+
+        def grads():
+            ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(flash_attn_func(*ins, causal=True),
+                                       ins, do)
+    runs = [grads() for _ in range(3)]
+    for other in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("causal,softcap", [(False, 0.0), (True, 30.0)])
+def test_fused_heads_bwd_full_and_softcap(cuda, causal, softcap):
+    """The packed entry (#6) without the causal mask and with softcap,
+    through strides into one dqkv, against the plain version."""
+    b, s, h, hk, d = 2, 700, 8, 2, 128
+    qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=cuda,
+                      device="cuda").bfloat16()
+    do = torch.randn(b, s, h, d, generator=cuda, device="cuda").bfloat16()
+    q, k, v = fh._split(qkv, h, hk, d)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=softcap)
+    out, lse = fh.fused_heads_fwd(q, k, v, need_lse=True, **kw)
+    dqkv = torch.empty_like(qkv)
+    got = fh.fused_heads_bwd(q, k, v, out, lse, do, **kw, **dict(zip(
+        ("dq", "dk", "dv"), fh._split(dqkv, h, hk, d))))
+    want = fh.fused_heads_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for gr, w in zip(got, want):
+        assert _err(gr, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+
+
+def test_flash_bwd_misaligned_stride_raises(cuda):
+    """The dense kernels read through TMA: a stride that is not a multiple
+    of 16 bytes is a ValueError, not a fault."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, s, h, d = 1, 128, 2, 64
+    base = torch.randn(b, h, s, d + 4, device="cuda").bfloat16()
+    q = base[..., :d]  # row stride d + 4 elements
+    k = v = do = torch.randn(b, h, s, d, device="cuda").bfloat16()
+    lse = torch.zeros(b, h, s, device="cuda")
+    dq, dk, dv = (torch.empty_like(k) for _ in range(3))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        bwd.launch_flash_bwd("dkv", q, k, v, do, lse, lse, dq, dk, dv,
+                             sm_scale=0.125, causal=True, softcap=0.0)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("h,hk", [(8, 8), (8, 2)])
 def test_fused_heads_bwd_matches_plain(cuda, h, hk, d):

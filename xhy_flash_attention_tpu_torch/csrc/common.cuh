@@ -282,4 +282,52 @@ __device__ __forceinline__ bool mask_tile(const MaskParams& m, int batch, int he
   return !skip;
 }
 
+// ---- persistent schedules of the dense attention kernels (flash_fwd.cu,
+// flash_bwd.cu)
+
+// The key tiles of N keys that a block of M query rows at q0 visits, [0,
+// n_tiles), and how many of them from tile 0 on need no elementwise mask,
+// n_free (every key of such a tile is below sk and visible to every row of
+// the block; rows past sq are not written, so they do not count); the
+// others are the last n_tiles - n_free. Mirrored by fwd.py _key_tile_plan.
+template <int M, int N>
+__device__ __forceinline__ void key_tiles(int q0, int sq, int sk, int causal, int& n_tiles,
+                                          int& n_free) {
+  n_tiles = (sk + N - 1) / N;
+  n_free = sk / N;
+  if (causal) {
+    const int offset = sk - sq;
+    const int max_col = min(q0 + M, sq) - 1 + offset;  // the block's last row sees up to here
+    n_tiles = max_col < 0 ? 0 : min(n_tiles, max_col / N + 1);
+    const int seen = q0 + offset + 1;  // keys [0, seen) are visible to the block's first row
+    n_free = min(n_free, seen <= 0 ? 0 : seen / N);
+  }
+  n_free = min(n_free, n_tiles);
+}
+
+// The persistent CTAs take pairs c, c + gridDim.x, ... of the n_blocks
+// blocks of each (batch, head): pair j is the heavier block first, then its
+// partner, so that every pair of a causal row of blocks holds the same
+// work; the middle block of an odd count is a pair alone. With heavy_last
+// block n_blocks - 1 - j is the heavier (query blocks: the last rows see
+// the most keys), else block j (key blocks: the first keys are seen by the
+// most rows). Pairs are numbered head by head, so the CTAs at work at one
+// time share a few heads' tensors in L2. Mirrored by fwd.py _pair_schedule.
+__host__ __device__ __forceinline__ int block_pairs(int n_blocks, int heads, int b) {
+  return (n_blocks + 1) / 2 * heads * b;
+}
+
+// Block `half` (0: the heavier, 1: the lighter) of pair `pair`; false when
+// the pair has no second block.
+__device__ __forceinline__ bool pair_block(int pair, int half, int n_blocks, int heads,
+                                           bool heavy_last, int& block, int& head, int& batch) {
+  const int per_head = (n_blocks + 1) / 2;
+  const int j = pair % per_head, bh = pair / per_head;
+  head = bh % heads;
+  batch = bh / heads;
+  const int heavy = heavy_last ? n_blocks - 1 - j : j;
+  block = half == 0 ? heavy : n_blocks - 1 - heavy;
+  return half == 0 || j != n_blocks - 1 - j;
+}
+
 }  // namespace xfa

@@ -55,7 +55,8 @@
 //   - The key tiles are visited from the last to the first, so the tiles
 //     that need the elementwise mask (a causal diagonal tile, the ragged
 //     last tile) come first and the interior ones run with no mask test
-//     (fwd.py fwd_tile_plan mirrors the plan, fwd_schedule the pairs).
+//     (fwd.py fwd_tile_plan mirrors the plan, fwd_schedule the pairs; both
+//     from common.cuh key_tiles and pair_block, shared with flash_bwd.cu).
 //   - Epilogue: O is normalised, written to the consumer's staging rows in
 //     shared memory (swizzled) and stored by TMA, which drops rows past sq,
 //     while the next block's loads are under way; the LSE by one thread per
@@ -78,8 +79,6 @@
 //   O accumulator in registers; K and V tiles of 64 keys (common.py
 //   FWD_KEY_TILE, the FlashMask stats' tile) are staged in padded shared
 //   memory (V fragments through ldmatrix.trans).
-#include <atomic>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -91,6 +90,8 @@ using xfa::mma_16816;
 using xfa::pack_a;
 using xfa::pack_bf16;
 namespace sm90 = xfa::sm90;
+using sm90::ex2;
+using sm90::kLog2e;
 
 // ------------------------------------------------------------ dense route
 
@@ -99,7 +100,6 @@ constexpr int kTileN = 128;  // keys per tile (fwd.py FWD_DENSE_TILE_N)
 constexpr int kDenseThreads = 384;  // producer warpgroup + two consumers
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kBox = 8192;  // one 64-row x 128-byte swizzled box
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct DenseSmem {
@@ -126,53 +126,6 @@ struct DenseParams {
   float sm_scale, softcap;
   int causal;
 };
-
-// The key tiles query block m_block visits, [0, n_tiles), and how many of
-// them from tile 0 on need no elementwise mask, n_free (every key of such a
-// tile is below sk and visible to every row of the block); the others are
-// the last n_tiles - n_free. Mirrored by fwd.py fwd_tile_plan.
-__device__ __forceinline__ void dense_tiles(int m_block, int sq, int sk, int causal,
-                                            int& n_tiles, int& n_free) {
-  const int q0 = m_block * kTileM;
-  n_tiles = (sk + kTileN - 1) / kTileN;
-  n_free = sk / kTileN;
-  if (causal) {
-    const int offset = sk - sq;
-    const int max_col = min(q0 + kTileM, sq) - 1 + offset;  // the block's last row sees up to here
-    n_tiles = max_col < 0 ? 0 : min(n_tiles, max_col / kTileN + 1);
-    const int seen = q0 + offset + 1;  // keys [0, seen) are visible to the block's first row
-    n_free = min(n_free, seen <= 0 ? 0 : seen / kTileN);
-  }
-  n_free = min(n_free, n_tiles);
-}
-
-// The CTAs are persistent: CTA c takes pairs c, c + gridDim.x, ... of
-// query blocks. Pair j of a (batch, head) is block n_mb - 1 - j, then block
-// j, so that every pair of a causal row of blocks holds the same number of
-// key tiles; the middle block of an odd count is a pair alone. Pairs are
-// numbered head by head, so the CTAs at work at one time share the K/V of
-// a few heads in L2. Mirrored by fwd.py fwd_schedule.
-__host__ __device__ __forceinline__ int dense_pairs(int n_mb, int h, int b) {
-  return (n_mb + 1) / 2 * h * b;
-}
-
-// Block `half` (0: the heavier, 1: the lighter) of pair `pair`; false when
-// the pair has no second block.
-__device__ __forceinline__ bool pair_block(int pair, int half, int n_mb, int h, int& m_block,
-                                           int& head, int& batch) {
-  const int per_head = (n_mb + 1) / 2;
-  const int j = pair % per_head, bh = pair / per_head;
-  head = bh % h;
-  batch = bh / h;
-  m_block = half == 0 ? n_mb - 1 - j : j;
-  return half == 0 || j != n_mb - 1 - j;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // S = Q K^T of one key tile into s (issued and committed, not waited for):
 // wgmma m64n128k16, Q and K K-major from the swizzled tiles.
@@ -273,7 +226,7 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
   const uint32_t bar_q = base + S::kBar, bar_qe = bar_q + 16;  // [2] each
   const uint32_t bar_k = bar_qe + 16, bar_v = bar_k + 8 * S::kStages, bar_e = bar_v + 8 * S::kStages;
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
-  const int n_pairs = dense_pairs(n_mb, p.h, p.b);
+  const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
 
   if (threadIdx.x == 0) {
     for (int qb = 0; qb < 2; ++qb) {
@@ -303,8 +256,8 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int m_block, head, batch, n_tiles, n_free;
-          if (!pair_block(pair, half, n_mb, p.h, m_block, head, batch)) continue;
-          dense_tiles(m_block, p.sq, p.sk, p.causal, n_tiles, n_free);
+          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+          xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles, n_free);
           if (n_tiles == 0) continue;
           const int q0 = m_block * kTileM, kv_head = head / (p.h / p.hk);
           // Q goes to the buffer the consumers released two blocks ago; the
@@ -353,8 +306,8 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
     for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
       for (int half = 0; half < 2; ++half) {
         int m_block, head, batch, n_tiles, n_free;
-        if (!pair_block(pair, half, n_mb, p.h, m_block, head, batch)) continue;
-        dense_tiles(m_block, p.sq, p.sk, p.causal, n_tiles, n_free);
+        if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+        xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles, n_free);
         const int q0 = m_block * kTileM;
         const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
         const int n_masked = n_tiles - n_free;           // the first tiles visited
@@ -528,79 +481,11 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, a driver-API call, found through the runtime so
-// that the library links against nothing but the CUDA runtime
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (b, h, s, d) bf16 view with element strides (sb, sh, ss) and a
-// contiguous head dim as a 4-D map (d, s, h, b) with boxes of 64 columns x
-// `rows` rows, 128-byte swizzled. A box past s (or d) is filled with zeros
-// on loads and clipped on stores, inside its own batch row and head.
-bool encode_bhsd(CUtensorMap* map, const void* ptr, int b, int h, int s, int d, int64_t sb,
-                 int64_t sh, int64_t ss, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  // an axis of extent 1 is never stepped: any aligned stride will do
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {s > 1 ? static_cast<cuuint64_t>(ss) * 2 : 16,
-                                 h > 1 ? static_cast<cuuint64_t>(sh) * 2 : 16,
-                                 b > 1 ? static_cast<cuuint64_t>(sb) * 2 : 16};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The dynamic shared-memory limit of an instance, raised once per device:
-// per-launch host calls would set the time of short calls.
+// The dynamic shared-memory limit of an instance, raised once per device.
 template <int D>
 cudaError_t dense_smem_attribute() {
   static std::atomic<uint64_t> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DenseSmem<D>::kBytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
-// The device's SM count, read once per device.
-cudaError_t sm_count(int& count) {
-  static std::atomic<int> counts[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  count = counts[dev & 63].load(std::memory_order_relaxed);
-  if (count > 0) return cudaSuccess;
-  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) counts[dev & 63].store(count, std::memory_order_relaxed);
-  return err;
+  return sm90::smem_limit_once(flash_fwd_kernel<D>, DenseSmem<D>::kBytes, done);
 }
 
 // One persistent CTA per SM (shared memory allows no second), or one per
@@ -610,9 +495,9 @@ cudaError_t launch_dense(const CUtensorMap& tq, const CUtensorMap& tk, const CUt
                          const CUtensorMap& to, const DenseParams& p, cudaStream_t s) {
   cudaError_t err = dense_smem_attribute<D>();
   int sms = 0;
-  if (err == cudaSuccess) err = sm_count(sms);
+  if (err == cudaSuccess) err = sm90::sm_count(sms);
   if (err != cudaSuccess) return err;
-  const int pairs = dense_pairs((p.sq + kTileM - 1) / kTileM, p.h, p.b);
+  const int pairs = xfa::block_pairs((p.sq + kTileM - 1) / kTileM, p.h, p.b);
   flash_fwd_kernel<D><<<pairs < sms ? pairs : sms, kDenseThreads, DenseSmem<D>::kBytes, s>>>(
       tq, tk, tv, to, p);
   return cudaGetLastError();
@@ -843,10 +728,10 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (mask.fm_vecs == nullptr && mask.bm == nullptr) {
     CUtensorMap tq, tk, tv, to;
     const int skm = sk > 0 ? sk : 1;  // no key tile is visited when sk == 0
-    if (!encode_bhsd(&tq, q, b, h, sq, d, q_sb, q_sh, q_ss, 64) ||
-        !encode_bhsd(&tk, k, b, hk, skm, d, k_sb, k_sh, k_ss, kTileN) ||
-        !encode_bhsd(&tv, v, b, hk, skm, d, v_sb, v_sh, v_ss, kTileN) ||
-        !encode_bhsd(&to, o, b, h, sq, d, o_sb, o_sh, o_ss, 64))
+    if (!sm90::encode_bhsd(&tq, q, b, h, sq, d, q_sb, q_sh, q_ss, 64) ||
+        !sm90::encode_bhsd(&tk, k, b, hk, skm, d, k_sb, k_sh, k_ss, kTileN) ||
+        !sm90::encode_bhsd(&tv, v, b, hk, skm, d, v_sb, v_sh, v_ss, kTileN) ||
+        !sm90::encode_bhsd(&to, o, b, h, sq, d, o_sb, o_sh, o_ss, 64))
       return static_cast<int>(cudaErrorInvalidValue);
     const DenseParams p{static_cast<float*>(lse), b, h, hk, sq, sk, sm_scale, softcap, causal};
     const cudaError_t err = d == 64 ? launch_dense<64>(tq, tk, tv, to, p, s)

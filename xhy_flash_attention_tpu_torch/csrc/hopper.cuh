@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written in PTX: mbarriers, TMA tile
 // copies through tensor maps, warpgroup matrix multiplies (wgmma) and
-// register reallocation (setmaxnreg). The dense attention forward
-// (flash_fwd.cu) is built from them.
+// register reallocation (setmaxnreg), and the host side they need: tensor
+// maps, the SM count, the dynamic shared-memory limit. The dense attention
+// forward (flash_fwd.cu) and backward (flash_bwd.cu) are built from them.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile is a stack of 128-byte rows (64 bf16), the 16-byte chunk c
@@ -10,7 +11,10 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver call is linked)
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace xfa {
 namespace sm90 {
@@ -68,6 +72,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// copy the box of a 1-D tensor map at element c0 into shared memory; c0
+// times the element size must be a multiple of 16 bytes (an unaligned start
+// faults as an illegal instruction); past the end the box arrives as zeros
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
 // store a shared-memory box to (c0, c1, c2, c3); the parts outside the
 // tensor are not written
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
@@ -109,6 +125,14 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 2^x on the SFU (exp taken as exp2 with log2(e) folded into its argument)
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- wgmma
@@ -178,6 +202,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D(64 x 64) = A B (+ D when scale_d): A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D(64 x 64) += A B: A (bf16 pairs) in registers, B MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
                                                   uint64_t desc_b) {
@@ -214,6 +254,96 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- host side
+
+// cuTensorMapEncodeTiled, a driver-API call, found through the runtime so
+// that the library links against nothing but the CUDA runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (b, h, s, d) bf16 view with element strides (sb, sh, ss) and a
+// contiguous head dim as a 4-D map (d, s, h, b) with boxes of 64 columns x
+// `rows` rows, 128-byte swizzled. A box past s (or d) is filled with zeros
+// on loads and clipped on stores, inside its own batch row and head.
+inline bool encode_bhsd(CUtensorMap* map, const void* ptr, int b, int h, int s, int d, int64_t sb,
+                        int64_t sh, int64_t ss, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  // an axis of extent 1 is never stepped: any aligned stride will do
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {s > 1 ? static_cast<cuuint64_t>(ss) * 2 : 16,
+                                 h > 1 ? static_cast<cuuint64_t>(sh) * 2 : 16,
+                                 b > 1 ? static_cast<cuuint64_t>(sb) * 2 : 16};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `n` contiguous fp32 values as a 1-D map with boxes of `box` values (a
+// multiple of 4), not swizzled; a box past n is filled with zeros.
+inline bool encode_flat_f32(CUtensorMap* map, const void* ptr, int64_t n, int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {16};  // rank 1: no stride is read
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t step[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, boxes,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The device's SM count, read once per device.
+inline cudaError_t sm_count(int& count) {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  count = counts[dev & 63].load(std::memory_order_relaxed);
+  if (count > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) counts[dev & 63].store(count, std::memory_order_relaxed);
+  return err;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device
+// (per-launch host calls would set the time of short calls); `done` is the
+// kernel's own set of devices already raised.
+template <typename Kernel>
+cudaError_t smem_limit_once(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace sm90

@@ -4,11 +4,16 @@ ops/flash_attention/bwd.py `flash_attention_bwd`).
 On CUDA tensors the work runs in csrc/flash_bwd.cu as JAX's deterministic
 split pair: the dK/dV kernel (the counterpart of the TPU kernel
 `_bwd_dkv_kernel`, bwd.py:180) and the dQ kernel (`_bwd_dq_kernel`,
-bwd.py:511), each with its own launch count. delta = rowsum(dO * O) is a
-plain PyTorch reduction, as JAX leaves it to XLA (bwd.py:736-737). On CPU
-tensors the plain version :func:`attention_bwd_ref` runs. Covered: causal
-and full attention, GQA, softcap, FlashMask and block-sparse masks (both
-kernels skip the tiles the forward skips); windows raise until slice 5.
+bwd.py:511), each with its own launch count, after a pre-pass kernel
+(:func:`flash_bwd_prep`) that writes delta = rowsum(dO * O), which JAX
+leaves to XLA (bwd.py:736-737), and q_s = q * sm_scale in bf16. Without a
+sparse mask the kernels are the Hopper ones (persistent CTAs, TMA rings,
+wgmma; :func:`bwd_dkv_tile_plan`, :func:`bwd_dq_tile_plan` and
+:func:`bwd_schedule` mirror what they visit); with one they are the
+mma.sync kernels of slice 4. On CPU tensors the plain version
+:func:`attention_bwd_ref` runs. Covered: causal and full attention, GQA,
+softcap, FlashMask and block-sparse masks (both kernels skip the tiles the
+forward skips); windows raise until slice 5.
 """
 
 from __future__ import annotations
@@ -20,11 +25,74 @@ import torch
 
 from .. import _cuda
 from .common import (BWD_DKV_KEY_TILE, CUDA_DTYPE_NOT_PORTED, SLICE_VARLEN,
-                     KernelMasks, bwd_dq_key_tile, dense_keep_mask,
+                     KernelMasks, bwd_dq_key_tile, cdiv, dense_keep_mask,
                      expand_heads)
+from .fwd import key_tile_plan, pair_schedule
 
-__all__ = ["attention_bwd_ref", "flash_attention_bwd", "flash_bwd_dkv",
-           "flash_bwd_dq", "launch_flash_bwd"]
+__all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
+           "bwd_prep_ref", "bwd_schedule", "flash_attention_bwd",
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep",
+           "launch_flash_bwd"]
+
+# Tiles of the dense (unmasked) kernels, csrc/flash_bwd.cu: a dK/dV block
+# of BWD_DKV_TILE_N keys streams query tiles of BWD_DKV_TILE_M rows
+# (kDkvKeys, kDkvRows); a dQ block of BWD_DQ_TILE_M rows streams key tiles
+# of bwd_dq_tile_n(d) keys (kDqRows, dq_keys).
+BWD_DKV_TILE_N = 128
+BWD_DKV_TILE_M = 64
+BWD_DQ_TILE_M = 128
+
+
+def bwd_dq_tile_n(d: int) -> int:
+    return 128 if d == 64 else 64
+
+
+def bwd_dkv_tile_plan(sq: int, sk: int, causal: bool):
+    """The query tiles the dense dK/dV kernel visits (csrc/flash_bwd.cu
+    `dkv_plan`), the same for every head of a group: for each block of
+    BWD_DKV_TILE_N keys, a list of (tile index, masked) in visit order.
+    Tile t holds rows [t * BWD_DKV_TILE_M, (t + 1) * BWD_DKV_TILE_M). The
+    masked ones come first: the causal diagonal tiles, ascending, then the
+    ragged last tile; then the others, ascending, which run no elementwise
+    test: every row is below sq and sees every key of the block below sk
+    (keys past sk are not written, so they do not count)."""
+    m, n = BWD_DKV_TILE_M, BWD_DKV_TILE_N
+    n_qt = cdiv(sq, m)
+    plan = []
+    for n0 in range(0, sk, n):
+        first, free_from = 0, 0
+        if causal:
+            offset = sk - sq
+            first = max(0, n0 - offset) // m
+            last_key = min(n0 + n, sk) - 1
+            free_from = cdiv(max(0, last_key - offset), m)
+        f0 = min(max(free_from, first), n_qt)
+        f1 = min(max(sq // m, f0), n_qt)
+        plan.append([(t, True) for t in range(first, f0)]
+                    + [(t, True) for t in range(f1, n_qt)]
+                    + [(t, False) for t in range(f0, f1)])
+    return plan
+
+
+def bwd_dq_tile_plan(sq: int, sk: int, causal: bool, d: int):
+    """The key tiles the dense dQ kernel visits at head dim ``d``: for each
+    block of BWD_DQ_TILE_M rows, (tile index, masked) of bwd_dq_tile_n(d)
+    keys, last tile first, the masked ones first (fwd.py
+    :func:`key_tile_plan`)."""
+    return key_tile_plan(sq, sk, causal, BWD_DQ_TILE_M, bwd_dq_tile_n(d))
+
+
+def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,
+                 ctas: int):
+    """The dense kernels' persistent schedules (fwd.py
+    :func:`pair_schedule`): for each of ``ctas`` CTAs, in order, the
+    (batch, kv head, key block) blocks of the dK/dV kernel (``which`` "dkv";
+    block j, the heavier under a causal mask, then block n - 1 - j) or the
+    (batch, head, query block) blocks of the dQ kernel ("dq"; block
+    n - 1 - j first)."""
+    if which == "dkv":
+        return pair_schedule(cdiv(sk, BWD_DKV_TILE_N), hk, b, ctas, False)
+    return pair_schedule(cdiv(sq, BWD_DQ_TILE_M), h, b, ctas, True)
 
 
 def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
@@ -98,15 +166,21 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
                      masks: KernelMasks = None) -> None:
     """Launch one kernel of csrc/flash_bwd.cu (``which``: "dkv" writes dk
     and dv, "dq" writes dq) on (b, h, s, d)-shaped views of any strides
-    (head dim contiguous): q, do, dq (b, h, sq, d); k, v, dk, dv (b, hk, sk,
-    d); lse and delta (b, h, sq) fp32 contiguous; ``masks`` the forward's
-    FlashMask and block-mask flags, or None. The callers count the
-    launch."""
+    (head dim contiguous, pointers and strides multiples of 16 bytes): q,
+    do, dq (b, h, sq, d); k, v, dk, dv (b, hk, sk, d); lse and delta (b, h,
+    sq) fp32 contiguous; ``masks`` the forward's FlashMask and block-mask
+    flags, or None. Without a mask the dense kernels run and ``q`` is q_s,
+    the pre-pass's bf16(q * sm_scale) (:func:`flash_bwd_prep`); with one the
+    masked kernels run on q itself. The callers count the launch."""
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
                        *(masks.tensors() if masks is not None else ()))
     _check_shapes(q, k, v, do, lse, dq, dk, dv)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    if _dense(masks) and min(sq, sk) == 0:  # no pair: zero gradients
+        for t in ((dk, dv) if which == "dkv" else (dq,)):
+            t.zero_()
+        return
     fn = {"dkv": _cuda.lib().xfa_flash_bwd_dkv,
           "dq": _cuda.lib().xfa_flash_bwd_dq}[which]
     key_tile = BWD_DKV_KEY_TILE if which == "dkv" else bwd_dq_key_tile(d)
@@ -120,9 +194,51 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     _cuda.check(code, f"flash_bwd_{which}")
 
 
-def attention_delta(out, do):
-    """delta = rowsum(dO * O) in fp32, (b, h, sq) contiguous."""
-    return (do.float() * out.float()).sum(-1).contiguous()
+def _dense(masks) -> bool:
+    return masks is None or not masks.tensors()
+
+
+def bwd_prep_ref(q, out, do, *, sm_scale: float, scale_q: bool = True):
+    """Plain version of the pre-pass: (q_s, delta), q_s = q * sm_scale in
+    fp32 rounded to q's dtype, (b, h, sq, d) contiguous (None without
+    ``scale_q``), and delta = rowsum(dO * O) in fp32, (b, h, sq)
+    contiguous."""
+    qs = ((q.float() * sm_scale).to(q.dtype).contiguous() if scale_q
+          else None)
+    return qs, (do.float() * out.float()).sum(-1).contiguous()
+
+
+def flash_bwd_prep(q, out, do, *, sm_scale: float, scale_q: bool = True):
+    """The pre-pass kernel of the backward on (b, h, sq, d) views of any
+    strides (head dim contiguous, 16-byte aligned rows): returns (q_s,
+    delta) as :func:`bwd_prep_ref` does. ``flash_bwd_prep.launches`` counts
+    its launches."""
+    if q.device.type == "cpu":
+        return bwd_prep_ref(q, out, do, sm_scale=sm_scale, scale_q=scale_q)
+    _cuda.require_cuda(q, out, do)
+    b, h, sq, d = q.shape
+    if any(t.dtype != torch.bfloat16 for t in (q, out, do)):
+        raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
+    if d not in (64, 128):
+        raise NotImplementedError(f"head dim {d}: the kernels take 64 or 128")
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} out {tuple(out.shape)} "
+                         f"do {tuple(do.shape)}")
+    for t, name in ((q, "q"), (out, "out"), (do, "do")):
+        _cuda.require_aligned(t, 8, name)
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    qs = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device) \
+        if scale_q else None
+    code = _cuda.lib().xfa_flash_bwd_prep(
+        q.data_ptr(), do.data_ptr(), out.data_ptr(), _cuda.ptr(qs),
+        delta.data_ptr(), *q.stride()[:3], *do.stride()[:3],
+        *out.stride()[:3], b, h, sq, d, float(sm_scale), _cuda.stream())
+    _cuda.check(code, "flash_bwd_prep")
+    flash_bwd_prep.launches += 1
+    return qs, delta
+
+
+flash_bwd_prep.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, dq, dk, dv, **kw) -> None:
@@ -179,8 +295,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
 
     dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
     do = _cuda.aligned(do, 8)
-    delta = attention_delta(out, do)
+    dense = _dense(masks)
+    qs, delta = flash_bwd_prep(q, out, do, sm_scale=sm_scale, scale_q=dense)
     kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap, masks=masks)
-    flash_bwd_dkv(q, k, v, do, lse, delta, dq, dk, dv, **kw)
-    flash_bwd_dq(q, k, v, do, lse, delta, dq, dk, dv, **kw)
+    q_in = qs if dense else q
+    flash_bwd_dkv(q_in, k, v, do, lse, delta, dq, dk, dv, **kw)
+    flash_bwd_dq(q_in, k, v, do, lse, delta, dq, dk, dv, **kw)
     return dq, dk, dv

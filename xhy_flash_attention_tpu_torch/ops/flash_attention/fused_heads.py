@@ -6,11 +6,12 @@ as column ranges of one packed (b, s, (h + 2hk)*d) Wqkv output — and the
 kernels read them through strides, with no slice or transpose copy. The
 forward runs csrc/flash_fwd.cu (the counterpart of the TPU kernel
 `_fwd_kernel`, fused_heads.py:59); the backward (≙ `_bwd_kernel`,
-fused_heads.py:105) runs the dK/dV and dQ kernels of csrc/flash_bwd.cu, which
-write dq/dk/dv through strides: `packed_qkv_attention`'s gradient is one
-packed dqkv in [dq | dk | dv] column order, as `_bwd_call_qkv` emits it
-(fused_heads.py:400-429), with no concatenation. Launches are counted here,
-apart from flash_attention_fwd's and the dK/dV and dQ entries'. On CPU
+fused_heads.py:105) runs the pre-pass and the dK/dV and dQ kernels of
+csrc/flash_bwd.cu, which write dq/dk/dv through strides:
+`packed_qkv_attention`'s gradient is one packed dqkv in [dq | dk | dv]
+column order, as `_bwd_call_qkv` emits it (fused_heads.py:400-429), with no
+concatenation. Launches are counted here, apart from flash_attention_fwd's,
+the pre-pass's and the dK/dV and dQ entries'. On CPU
 tensors the plain versions :func:`fused_heads_fwd_ref` and
 :func:`fused_heads_bwd_ref` run.
 
@@ -25,7 +26,7 @@ from typing import Optional
 import torch
 
 from .. import _cuda
-from .bwd import attention_bwd_ref, attention_delta, launch_flash_bwd
+from .bwd import attention_bwd_ref, flash_bwd_prep, launch_flash_bwd
 from .common import SLICE_DROPOUT
 from .fwd import attention_fwd_ref, launch_flash_fwd
 
@@ -128,7 +129,8 @@ def fused_heads_bwd(q, k, v, out, lse, do, *, sm_scale: float, causal: bool,
     Returns (dq, dk, dv).
 
     ``fused_heads_bwd.launches`` counts its entries on CUDA (each runs the
-    dK/dV and the dQ kernel).
+    pre-pass, counted by ``bwd.flash_bwd_prep.launches``, then the dK/dV
+    and the dQ kernel).
     """
     kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
     if q.device.type == "cpu":
@@ -141,9 +143,9 @@ def fused_heads_bwd(q, k, v, out, lse, do, *, sm_scale: float, causal: bool,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device) \
         if dv is None else dv
     do = _cuda.aligned(do, 8)
-    qt, kt, vt, dot = _bhsd(q, k, v, do)
-    args = (qt, kt, vt, dot, lse, attention_delta(*_bhsd(out, do)),
-            *_bhsd(dq, dk, dv))
+    qt, kt, vt, dot, ot = _bhsd(q, k, v, do, out)
+    qs, delta = flash_bwd_prep(qt, ot, dot, sm_scale=sm_scale)
+    args = (qs, kt, vt, dot, lse, delta, *_bhsd(dq, dk, dv))
     launch_flash_bwd("dkv", *args, **kw)
     launch_flash_bwd("dq", *args, **kw)
     fused_heads_bwd.launches += 1

@@ -37,13 +37,13 @@ FWD_DENSE_TILE_M = 128
 FWD_DENSE_TILE_N = 128
 
 
-def fwd_tile_plan(sq: int, sk: int, causal: bool):
-    """The key tiles the dense kernel visits (csrc/flash_fwd.cu
-    `dense_tiles`): for each block of FWD_DENSE_TILE_M query rows, a list
+def key_tile_plan(sq: int, sk: int, causal: bool, m: int, n: int):
+    """The key tiles of ``n`` keys that a kernel visits for each block of
+    ``m`` query rows (csrc/common.cuh `key_tiles`): for each block, a list
     of (tile index, masked) in visit order, last tile first. Tile t holds
-    keys [t * FWD_DENSE_TILE_N, (t + 1) * FWD_DENSE_TILE_N); ``masked``
-    tiles run the elementwise causal / sk test, the others none."""
-    m, n = FWD_DENSE_TILE_M, FWD_DENSE_TILE_N
+    keys [t * n, (t + 1) * n); ``masked`` tiles run the elementwise causal /
+    sk test, the others none (rows past sq are not written, so they do not
+    count)."""
     plan = []
     for q0 in range(0, sq, m):
         n_tiles, n_free = cdiv(sk, n), sk // n
@@ -57,24 +57,40 @@ def fwd_tile_plan(sq: int, sk: int, causal: bool):
     return plan
 
 
-def fwd_schedule(sq: int, h: int, b: int, ctas: int):
-    """The dense kernel's persistent schedule (csrc/flash_fwd.cu
-    `dense_pairs`, `pair_block`): for each of ``ctas`` CTAs, the (batch,
-    head, query block) it runs, in order. Pair j of a (batch, head) is
-    block n_mb - 1 - j, then block j (the middle block of an odd count
-    alone); CTA c takes pairs c, c + ctas, ... The kernel launches
-    min(pairs, SMs) CTAs."""
-    n_mb = cdiv(sq, FWD_DENSE_TILE_M)
-    per_head = (n_mb + 1) // 2
+def pair_schedule(n_blocks: int, heads: int, b: int, ctas: int,
+                  heavy_last: bool):
+    """A persistent kernel's schedule (csrc/common.cuh `block_pairs`,
+    `pair_block`): for each of ``ctas`` CTAs, the (batch, head, block) it
+    runs, in order. Pair j of a (batch, head) is the heavier block, then
+    its partner: block n_blocks - 1 - j, then block j with ``heavy_last``
+    (query blocks), else the other way round (key blocks); the middle
+    block of an odd count alone. CTA c takes pairs c, c + ctas, ...; the
+    kernels launch min(pairs, SMs) CTAs."""
+    per_head = (n_blocks + 1) // 2
     out = [[] for _ in range(ctas)]
     for c in range(ctas):
-        for pair in range(c, per_head * h * b, ctas):
+        for pair in range(c, per_head * heads * b, ctas):
             j, bh = pair % per_head, pair // per_head
-            head, batch = bh % h, bh // h
-            out[c].append((batch, head, n_mb - 1 - j))
-            if j != n_mb - 1 - j:
-                out[c].append((batch, head, j))
+            head, batch = bh % heads, bh // heads
+            heavy = n_blocks - 1 - j if heavy_last else j
+            out[c].append((batch, head, heavy))
+            if j != n_blocks - 1 - j:
+                out[c].append((batch, head, n_blocks - 1 - heavy))
     return out
+
+
+def fwd_tile_plan(sq: int, sk: int, causal: bool):
+    """The key tiles the dense kernel visits (csrc/flash_fwd.cu): for each
+    block of FWD_DENSE_TILE_M query rows, a list of (tile index, masked) of
+    FWD_DENSE_TILE_N keys, in visit order (:func:`key_tile_plan`)."""
+    return key_tile_plan(sq, sk, causal, FWD_DENSE_TILE_M, FWD_DENSE_TILE_N)
+
+
+def fwd_schedule(sq: int, h: int, b: int, ctas: int):
+    """The dense kernel's persistent schedule: for each of ``ctas`` CTAs,
+    the (batch, head, query block) it runs, in order, the heavier block of
+    each pair first (:func:`pair_schedule`)."""
+    return pair_schedule(cdiv(sq, FWD_DENSE_TILE_M), h, b, ctas, True)
 
 
 def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
