@@ -495,6 +495,138 @@ def test_paged_decode_matches_plain(cuda, sq, window, softcap, d, npp, ps,
     assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-3
 
 
+def _paged_case(cuda, pages, *, b=4, sq=1, h=32, hk=8, d=128, ps=64, npp=8,
+                lengths=None):
+    """A paged cache over shuffled pages (one spare) with ragged lengths
+    (a full sequence, an empty slot, a partial one, a short one) and its
+    bf16 query; int8 / e4m3 pages carry random linear scales."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_kv
+    cap = npp * ps
+    P = b * npp + 1
+    kv = torch.randn(P, hk, 2, ps, d, generator=cuda, device="cuda")
+    scales = None
+    if pages in QDTYPES:
+        kv = quantize_kv(kv, pages).values
+        scales = 0.5 + torch.rand(b, hk, 2, cap, generator=cuda, device="cuda")
+    else:
+        kv = kv.to(pages)
+    table = torch.randperm(b * npp, generator=cuda, device="cuda").reshape(
+        b, npp).to(torch.int32)
+    if lengths is None:
+        lengths = [cap, 0, cap // 2 + 5, max(sq, 3)][:b]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn(b, sq, h, d, generator=cuda, device="cuda").bfloat16()
+    return q, paged.PagedKVCache(kv, table, lengths, scales)
+
+
+def _paged_close(out, q, cache, window=-1, softcap=0.0):
+    from xhy_flash_attention_tpu_torch.inference import paged
+    ref = paged.paged_flash_decode_ref(q, cache, q.shape[-1] ** -0.5,
+                                       (window, -1), softcap)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert not out[cache.lengths == 0].any()
+    # each row (b, si, head) within two bf16 units of its own largest
+    # output plus 1e-4 (the outputs' rounding, and P rounded to bf16 at the
+    # running max here and at the row's max in the plain version), never
+    # more than one unit of the whole output's largest plus 1e-3: rows over
+    # thousands of keys have small outputs, and one tolerance from the
+    # largest output of the tensor would not see an error in them
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    tol = (2 * BF16_ULP * r.abs().amax(-1) + 1e-4).clamp_max(
+        BF16_ULP * r.abs().max() + 1e-3)
+    assert ((o - r).abs().amax(-1) <= tol).all(), \
+        ((o - r).abs().amax(-1) / tol).max().item()
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16] + QDTYPES)
+@pytest.mark.parametrize("sq,ps", [(1, 64), (1, 512), (37, 64), (37, 512)])
+def test_paged_decode_is_bitwise_repeatable(cuda, sq, ps, pages):
+    """Two calls give the same bits in each regime (decode: sq 1; prefill:
+    sq 37) and page type, over pages the TMA takes (512) and not (64)."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    q, cache = _paged_case(cuda, pages, sq=sq, ps=ps, npp=4096 // ps)
+    outs = [paged.paged_flash_decode(q, cache, window_size=(300, -1))
+            for _ in range(2)]
+    assert torch.equal(*outs)
+    _paged_close(outs[0], q, cache, window=300)
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16] + QDTYPES)
+@pytest.mark.parametrize("d,ps,npp", [(128, 512, 8), (128, 64, 64),
+                                      (64, 64, 64)])
+def test_paged_prefill_long_sequences(cuda, d, ps, npp, pages):
+    """The prefill regime as chunked prefill runs it: no window, sequences
+    of up to 4096 keys (32 tiles through the ring), two row blocks of 128
+    rows, pages the TMA takes (512, bf16) and not."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    q, cache = _paged_case(cuda, pages, sq=64, d=d, ps=ps, npp=npp,
+                           lengths=[4096, 0, 2053, 64])
+    out = paged.paged_flash_decode(q, cache)
+    _paged_close(out, q, cache)
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("d,window", [(128, -1), (64, 100)])
+def test_paged_decode_cluster_sizes(cuda, d, window, cluster, pages):
+    """Every cluster size of the decode regime, forced, against the plain
+    version (ragged lengths, an empty slot, a window)."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    q, cache = _paged_case(cuda, pages, d=d, ps=64, npp=16)
+    out = paged.launch_paged(q, cache, softmax_scale=d ** -0.5,
+                             window_size=(window, -1), cluster=cluster)
+    _paged_close(out, q, cache, window=window)
+    with pytest.raises(ValueError, match="cluster"):
+        paged.launch_paged(q, cache, softmax_scale=0.1, cluster=3)
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ps", [16, 40])
+@pytest.mark.parametrize("sq,h,hk", [(16, 8, 8), (17, 8, 8), (4, 32, 8),
+                                     (5, 32, 8)])
+def test_paged_decode_page_sizes_and_regime_boundary(cuda, sq, h, hk, ps,
+                                                     pages):
+    """Pages of 16 and 40 keys (a 64- or 128-key tile spans pages, and 40
+    does not divide it), on both sides of the regime boundary: 16 rows per
+    KV head (decode) and 17 (prefill), 16 (g 4) and 20; softcap and a
+    window on the prefill side."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    q, cache = _paged_case(cuda, pages, sq=sq, h=h, hk=hk, ps=ps, npp=7)
+    plan = paged.paged_launch_plan(4, sq, h, hk, ps, 7, 132)
+    assert plan["regime"] == ("decode" if sq * h // hk <= 16 else "prefill")
+    window, softcap = (-1, 0.0) if plan["regime"] == "decode" else (150, 30.0)
+    out = paged.paged_flash_decode(q, cache, window_size=(window, -1),
+                                   softcap=softcap)
+    _paged_close(out, q, cache, window, softcap)
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("sq", [1, 37])
+def test_paged_decode_in_a_cuda_graph(cuda, sq, pages):
+    """paged_flash_decode captured in a CUDA graph, replayed after lengths
+    and page_table were changed in place: equal to an eager call on the new
+    values (the launch reads no device value on the host)."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    q, cache = _paged_case(cuda, pages, sq=sq, ps=64, npp=16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged.paged_flash_decode(q, cache)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged.paged_flash_decode(q, cache)
+    cache.lengths.copy_(torch.tensor([700, 1024, 0, 64], dtype=torch.int32))
+    cache.page_table.copy_(cache.page_table.flip(0).roll(5, 1))
+    graph.replay()
+    eager = paged.paged_flash_decode(q, cache)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    _paged_close(out, q, cache)
+
+
 def test_paged_append_on_the_card(cuda):
     """append_paged_kv through CUDA index_put equals the same append on
     the CPU, bit for bit (e4m3 pages and scales)."""

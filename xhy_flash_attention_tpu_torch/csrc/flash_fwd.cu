@@ -90,8 +90,8 @@ using xfa::mma_16816;
 using xfa::pack_a;
 using xfa::pack_bf16;
 namespace sm90 = xfa::sm90;
-using sm90::ex2;
-using sm90::kLog2e;
+using sm90::issue_pv;
+using sm90::issue_qk;
 
 // ------------------------------------------------------------ dense route
 
@@ -100,6 +100,8 @@ constexpr int kTileN = 128;  // keys per tile (fwd.py FWD_DENSE_TILE_N)
 constexpr int kDenseThreads = 384;  // producer warpgroup + two consumers
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kBox = 8192;  // one 64-row x 128-byte swizzled box
+static_assert(kTileN == sm90::kKeyTile && kBox == sm90::kBox64,
+              "the tiles of hopper.cuh's issue_qk and issue_pv");
 
 template <int D>
 struct DenseSmem {
@@ -127,43 +129,10 @@ struct DenseParams {
   int causal;
 };
 
-// S = Q K^T of one key tile into s (issued and committed, not waited for):
-// wgmma m64n128k16, Q and K K-major from the swizzled tiles.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kTileN / 2], uint32_t q_wg, uint32_t k_st) {
-  const uint64_t dq = sm90::desc_b128(q_wg, 16), dk = sm90::desc_b128(k_st, 16);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // 16 columns = 32 bytes inside the swizzled row; past 64 columns, the
-    // next 64-column tile (offsets in the descriptor's 16-byte units)
-    const uint32_t col = (kk & 3) * 2;
-    sm90::wgmma_ss_n128(s, dq + (kk >> 2) * (kBox >> 4) + col,
-                        dk + (kk >> 2) * (kTileN * 128 >> 4) + col, kk > 0);
-  }
-  sm90::wgmma_commit();
-}
-
-// O += P V of one key tile (issued and committed): P's bf16 pairs as the
-// register A operand, V MN-major (16 keys = 16 rows of 128 bytes a k-step;
-// LBO steps to V's second 64 columns).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kTileN / 4],
-                                         uint32_t v_st) {
-  const uint64_t dv = sm90::desc_b128(v_st, kTileN * 128);
-#pragma unroll
-  for (int kk = 0; kk < kTileN / 16; ++kk) {
-    if constexpr (D == 64) {
-      sm90::wgmma_rs_n64(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
-    } else {
-      sm90::wgmma_rs_n128(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
-    }
-  }
-  sm90::wgmma_commit();
-}
-
 // The online softmax of one tile's scores s (columns n0 .. n0 + kTileN - 1;
-// this thread's rows row0 and row0 + 8), in place: softcap, with MASK the
-// elementwise causal / sk test, the running max m_i, s = P in fp32, this
+// this thread's rows row0 and row0 + 8), in place: softcap and, with MASK,
+// the elementwise causal / sk test, then hopper.cuh's softmax_step (the
+// paged prefill shares it): the running max m_i, s = P in fp32, this
 // thread's share of the row sums l_i (the quad is summed at the end) and
 // alpha, the factor that takes the running O to the new max.
 template <bool MASK>
@@ -183,29 +152,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2], float (&m
       if (col >= p.sk || col > lim) s[i] = -INFINITY;
     }
   }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < kTileN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  float shift[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m_i[r], mx[r]);
-    // a row with nothing visible yet keeps a zero shift so exp() gives 0
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = ex2((m_i[r] - m_use) * kLog2e);
-    shift[r] = m_use * kLog2e;
-    m_i[r] = m_new;
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < kTileN / 2; ++i) {
-    s[i] = ex2(fmaf(s[i], kLog2e, -shift[(i >> 1) & 1]));
-    rs[(i >> 1) & 1] += s[i];
-  }
-  l_i[0] = l_i[0] * alpha[0] + rs[0];
-  l_i[1] = l_i[1] * alpha[1] + rs[1];
+  sm90::softmax_step(s, m_i, l_i, alpha);
 }
 
 // P in bf16 pairs: pa[4kk .. 4kk + 3] is the A fragment of k-step kk

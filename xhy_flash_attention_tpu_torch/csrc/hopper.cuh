@@ -2,7 +2,8 @@
 // copies through tensor maps, warpgroup matrix multiplies (wgmma) and
 // register reallocation (setmaxnreg), and the host side they need: tensor
 // maps, the SM count, the dynamic shared-memory limit. The dense attention
-// forward (flash_fwd.cu) and backward (flash_bwd.cu) are built from them.
+// forward (flash_fwd.cu) and backward (flash_bwd.cu) and the paged prefill
+// (paged_decode.cu) are built from them.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile is a stack of 128-byte rows (64 bf16), the 16-byte chunk c
@@ -12,6 +13,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver call is linked)
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -69,6 +71,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same through a 5-D tensor map
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 
@@ -256,6 +269,81 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// ---- attention tiles (flash_fwd.cu, paged_decode.cu): a consumer
+// warpgroup's 64 query rows against a tile of kKeyTile keys. Q sits in
+// 128-byte-swizzled boxes of 64 rows x 64 columns (kBox64 bytes apart), K and
+// V in boxes of kKeyTile keys x 64 columns (kKeyTile * 128 bytes apart).
+constexpr int kKeyTile = 128;
+constexpr int kBox64 = 8192;
+
+// S = Q K^T of one key tile into s (issued and committed, not waited for):
+// wgmma m64n128k16, Q and K K-major from the swizzled tiles.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kKeyTile / 2], uint32_t q_wg, uint32_t k_st) {
+  const uint64_t dq = desc_b128(q_wg, 16), dk = desc_b128(k_st, 16);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns = 32 bytes inside the swizzled row; past 64 columns, the
+    // next 64-column tile (offsets in the descriptor's 16-byte units)
+    const uint32_t col = (kk & 3) * 2;
+    wgmma_ss_n128(s, dq + (kk >> 2) * (kBox64 >> 4) + col,
+                  dk + (kk >> 2) * (kKeyTile * 128 >> 4) + col, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one key tile (issued and committed): P's bf16 pairs as the
+// register A operand, V MN-major (16 keys = 16 rows of 128 bytes a k-step;
+// LBO steps to V's second 64 columns).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kKeyTile / 4],
+                                         uint32_t v_st) {
+  const uint64_t dv = desc_b128(v_st, kKeyTile * 128);
+#pragma unroll
+  for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+    if constexpr (D == 64) {
+      wgmma_rs_n64(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
+    } else {
+      wgmma_rs_n128(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
+    }
+  }
+  wgmma_commit();
+}
+
+// The online softmax step of one key tile, after the caller's scale, softcap
+// and mask: s holds the scores of this thread's rows (register i: row
+// ((i / 2) % 2) * 8 past the thread's first, as wgmma lays out m64n128).
+// Updates the running max m_i, turns s into P in fp32 (exp2 with the max
+// folded in), adds this thread's share of the row sums to l_i (the quad is
+// summed at the end) and returns in alpha the factor that takes the running
+// O to the new max.
+__device__ __forceinline__ void softmax_step(float (&s)[kKeyTile / 2], float (&m_i)[2],
+                                             float (&l_i)[2], float (&alpha)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kKeyTile / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float shift[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_i[r], mx[r]);
+    // a row with nothing visible yet keeps a zero shift so exp() gives 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2((m_i[r] - m_use) * kLog2e);
+    shift[r] = m_use * kLog2e;
+    m_i[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kKeyTile / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], kLog2e, -shift[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+  l_i[0] = l_i[0] * alpha[0] + rs[0];
+  l_i[1] = l_i[1] * alpha[1] + rs[1];
+}
+
 // ---- host side
 
 // cuTensorMapEncodeTiled, a driver-API call, found through the runtime so
@@ -300,6 +388,24 @@ inline bool encode_bhsd(CUtensorMap* map, const void* ptr, int b, int h, int s, 
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 KV pages (num_pages, hk, 2, ps, d), contiguous, as a 5-D map (d, ps,
+// 2, hk, num_pages) with boxes of 64 columns x `rows` rows of one page, K or
+// V and head, 128-byte swizzled (rows <= ps).
+inline bool encode_pages(CUtensorMap* map, const void* ptr, int num_pages, int hk, int ps, int d,
+                         int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(ps), 2,
+                              static_cast<cuuint64_t>(hk), static_cast<cuuint64_t>(num_pages)};
+  const cuuint64_t strides[4] = {row, row * ps, 2 * row * ps, 2 * row * ps * hk};
+  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(rows), 1, 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

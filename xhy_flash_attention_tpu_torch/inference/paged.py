@@ -7,13 +7,23 @@ its pages through page_table (batch, max_pages_per_seq). Quantization scales
 are not paged: they live in a per-sequence linear buffer kv_scales (batch,
 kv_heads, 2, max_pages_per_seq * page_size) fp32.
 
-On CUDA tensors the attention runs in csrc/paged_decode.cu, one kernel behind
+On CUDA tensors the attention runs in csrc/paged_decode.cu, one C entry behind
 two entries with their own launch counts, routed as the TPU package routes
 its two kernels: `paged_decode_chunked` (≙ `_paged_decode_chunked_kernel`,
 paged.py:219) when page_size < 8192, more than one page per sequence and
 head_dim % 128 == 0, else `paged_decode_page` (≙ `_paged_decode_kernel`,
 paged.py:149). On CPU tensors both take the plain version
 :func:`paged_flash_decode_ref`.
+
+The C entry has two regimes, chosen from sq * h / hk (a shape, so that a
+call can be captured in a CUDA graph): up to 16 rows per KV head the decode
+regime (csrc/flash_decode.cu's kernel with keys reached through the page
+table: each (batch, kv head) on a cluster of 1-8 CTAs, each CTA a
+tile-aligned run of the visible keys), else the prefill regime (wgmma over
+blocks of 128 rows and tiles of 128 keys). :func:`paged_launch_plan`,
+:func:`decode_cta_runs` and :func:`prefill_tile_plan` mirror the kernel's
+launch plan in plain Python; ``launch_paged(..., cluster=c)`` forces the
+cluster size of the decode regime.
 
 The TPU package is functional; here `append_paged_kv` writes the pages and
 scales in place and returns a new PagedKVCache whose lengths tensor is new:
@@ -23,18 +33,27 @@ the lengths that every layer of one model call starts from stay untouched.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from ..ops import _cuda
-from ..ops.flash_attention.common import NEG_INF, SLICE_DTYPES, require_inference
+from ..ops.flash_attention.common import (NEG_INF, SLICE_DTYPES, cdiv,
+                                          require_inference)
+from ..ops.flash_attention.decode_kernel import (CLUSTER_SIZES, MAX_ROWS,
+                                                 TILE, contiguous_q,
+                                                 cta_chunk, decode_launch_plan)
 from ..ops.quant import QUANT_DTYPES, bits, quantize_kv
 
-__all__ = ["PagedKVCache", "append_paged_kv", "hk_of", "paged_decode_chunked",
-           "paged_decode_page", "paged_flash_decode", "paged_flash_decode_ref"]
+__all__ = ["PagedKVCache", "append_paged_kv", "decode_cta_runs", "hk_of",
+           "launch_paged", "paged_decode_chunked", "paged_decode_page",
+           "paged_flash_decode", "paged_flash_decode_ref", "paged_launch_plan",
+           "prefill_tile_plan"]
 
 _CHUNK_TOKENS = 8192  # the TPU package's routing threshold (paged.py:518)
+PREFILL_TILE_M = 128  # PackGQA rows per CTA of the prefill regime
+PREFILL_TILE_N = 128  # keys per tile of the prefill regime
 
 
 @dataclasses.dataclass
@@ -172,8 +191,89 @@ def paged_flash_decode_ref(q, cache: PagedKVCache, softmax_scale: float,
         b, sq, h, d).to(q.dtype)
 
 
-def _launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
-                  window_size, softcap: float) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def paged_launch_plan(b: int, sq: int, h: int, hk: int, page_size: int,
+                      pages_per_seq: int, sm_count: int,
+                      cluster: Optional[int] = None) -> dict:
+    """The launch of csrc/paged_decode.cu for these shapes, from shapes
+    alone (never from lengths, so that a call can be captured in a CUDA
+    graph).
+
+    Up to 16 rows per KV head (sq * h / hk), ``regime`` "decode": ``cluster``
+    CTAs per (batch, kv head) and ``chunk`` keys per CTA of a fully visible
+    sequence. Unless forced, the cluster doubles from 1 while the grid stays
+    within two waves of the two CTAs an SM holds and each CTA keeps a tile,
+    up to 8 (decode_launch_plan over the capacity with four times the SM
+    count): a paged batch is ragged, its longest sequence sets the time and
+    the CTAs of short or empty ones end at once, so the longest one's keys
+    are spread wide (8 at the engine's b8 hk8). More rows, "prefill": one
+    CTA per block of 128 rows per (batch, kv head), and ``tma_pages`` when
+    the page size lets bf16 K/V tiles come by TMA (1-byte pages come by
+    cp.async, to be converted)."""
+    rows = sq * (h // hk)
+    cap = page_size * pages_per_seq
+    if rows <= MAX_ROWS:
+        if cluster is None:
+            # two CTAs fit on an SM, and two waves of them are allowed
+            cluster, _ = decode_launch_plan(b, hk, cap, 1, 0, 4 * sm_count)
+        return dict(regime="decode", cluster=cluster, ctas=cluster * b * hk,
+                    chunk=cdiv(cdiv(cap, TILE), cluster) * TILE)
+    n_mb = cdiv(rows, PREFILL_TILE_M)
+    return dict(regime="prefill", cluster=1, ctas=n_mb * hk * b,
+                tma_pages=page_size % PREFILL_TILE_N == 0)
+
+
+def decode_cta_runs(length: int, sq: int, window_left: int, cap: int,
+                    cluster: int):
+    """Keys [lo, hi) that each CTA of a cluster reads in the decode regime
+    for a sequence of ``length`` (the sq new tokens included): the run of
+    visible keys [start, stop), start = max(0, length - sq - window_left)
+    with a window, stop = min(length, cap), cut as flash_decode.cu cuts it
+    (:func:`cta_chunk`). Keys in [lo, start) are read as zeros."""
+    start = max(0, length - sq - window_left) if window_left >= 0 else 0
+    stop = min(length, cap)
+    return [cta_chunk(start, stop, 0, rank, cluster)
+            for rank in range(cluster)]
+
+
+def prefill_tile_plan(length: int, sq: int, g: int, cap: int,
+                      window_left: int, m_block: int):
+    """The key tiles that CTA ``m_block`` of the prefill regime visits, in
+    its order, as (n0, masked): rows r0 .. r1 of the block see keys from
+    max(0, pos(r0) - window_left) to min(pos(r1), cap - 1), pos(r) = length
+    - sq + r // g; tiles of 128 keys from the last to the first; a tile is
+    masked unless every row of the block sees all of it. The kernel's
+    block_plan and tile_masked compute the same."""
+    rows = sq * g
+    r0 = m_block * PREFILL_TILE_M
+    r1 = min(r0 + PREFILL_TILE_M, rows) - 1
+    pos_first = length - sq + r0 // g
+    pos_last = length - sq + r1 // g
+    hi = min(pos_last, cap - 1)
+    lo = max(0, pos_first - window_left) if window_left >= 0 else 0
+    if hi < lo:
+        return []
+    n = PREFILL_TILE_N
+    plan = []
+    for t in range(hi // n, lo // n - 1, -1):
+        n0 = t * n
+        full = (n0 + n - 1 <= min(pos_first, cap - 1)
+                and (window_left < 0 or n0 >= pos_last - window_left))
+        plan.append((n0, not full))
+    return plan
+
+
+def launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
+                 window_size=(-1, -1), softcap: float = 0.0,
+                 cluster: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/paged_decode.cu and return the output (b, sq, h, d).
+    ``cluster`` forces the CTAs per cluster of the decode regime (1, 2, 4 or
+    8; the tests and chip_smoke.py set it), else :func:`paged_launch_plan`
+    picks it. The callers count the launch."""
     pages = cache.kv_pages
     tensors = [q, pages, cache.page_table, cache.lengths]
     if cache.kv_scales is not None:
@@ -203,15 +303,19 @@ def _launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
     if not pages.is_contiguous() or (
             cache.quantized and not cache.kv_scales.is_contiguous()):
         raise ValueError("pages and scales must be contiguous")
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster {cluster}: the kernel takes {CLUSTER_SIZES}")
     _cuda.require_aligned(pages, 16, "kv_pages")
-    q = q.contiguous()
+    plan = paged_launch_plan(b, sq, h, hk, ps, npp, _sm_count(q.device.index),
+                             cluster)
+    q = contiguous_q(q)
     out = torch.empty_like(q)
     code = _cuda.lib().xfa_paged_decode(
         q.data_ptr(), pages.data_ptr(), _cuda.ptr(cache.kv_scales),
         cache.page_table.data_ptr(), cache.lengths.data_ptr(), out.data_ptr(),
         b, sq, h, hk, ps, npp, P, d, _cuda.cache_dtype_code(pages),
         float(softmax_scale), float(softcap), int(window_size[0]),
-        _cuda.stream())
+        plan["cluster"], _cuda.stream())
     _cuda.check(code, "paged_decode")
     return out
 
@@ -223,8 +327,8 @@ def paged_decode_page(q, cache: PagedKVCache, *, softmax_scale: float,
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, cache, softmax_scale, window_size,
                                       softcap)
-    out = _launch_paged(q, cache, softmax_scale=softmax_scale,
-                        window_size=window_size, softcap=softcap)
+    out = launch_paged(q, cache, softmax_scale=softmax_scale,
+                       window_size=window_size, softcap=softcap)
     paged_decode_page.launches += 1
     return out
 
@@ -237,8 +341,8 @@ def paged_decode_chunked(q, cache: PagedKVCache, *, softmax_scale: float,
     if q.device.type == "cpu":
         return paged_flash_decode_ref(q, cache, softmax_scale, window_size,
                                       softcap)
-    out = _launch_paged(q, cache, softmax_scale=softmax_scale,
-                        window_size=window_size, softcap=softcap)
+    out = launch_paged(q, cache, softmax_scale=softmax_scale,
+                       window_size=window_size, softcap=softcap)
     paged_decode_chunked.launches += 1
     return out
 

@@ -67,7 +67,7 @@ _SIGNATURES = {
     "xfa_flash_decode_max_clusters": [_c_int] * 6
     + [ctypes.POINTER(ctypes.c_int)],
     "xfa_paged_decode": [_c_void_p] * 6 + [_c_int] * 9
-    + [_c_float, _c_float, _c_int, _c_void_p],
+    + [_c_float, _c_float, _c_int, _c_int, _c_void_p],
     "xfa_reduced_scores": [_c_void_p] * 4 + [_c_int64] * 6 + [_c_int] * 6
     + [_c_float, _c_int, _c_void_p],
 }
