@@ -59,10 +59,12 @@ Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
 sparse-mask kernels (the forward and both backward kernels under FM-doc's
-and BS's masks, the reduced-scores kernel at FM-swg's shape) against their
-plain versions, prints each whole attention backward against SDPA's
-backward, and checks that three attention backward passes are bitwise
-equal at each of the three shapes.
+and BS's masks, both backward kernels under FM-swg's, the reduced-scores
+kernel at FM-swg's shape) against their plain versions, prints each whole
+attention backward against SDPA's backward, checks that three attention
+backward passes are bitwise equal at each of the three dense shapes, and
+prints for each mask the tiles the masked backward kernels visit, as
+their producers count them, checked against bwd.py's mirrors.
 The last lines: the card, one JSON object with a row per kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -1766,13 +1768,15 @@ def visible_pairs(keep, b, h):
 
 def _sdpa_masked_ms(q, k, v, do, keep):
     """SDPA with the dense boolean mask: (forward ms, backward ms as fwd +
-    bwd minus fwd), the library yardstick of the sparse rows."""
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    gqa = q.shape[1] != k.shape[1]
+    bwd minus fwd), the library yardstick of the sparse rows. Under GQA k
+    and v are repeated to every query head first (outside the timing): SDPA
+    takes a mask with GQA only on its math path."""
+    g = q.shape[1] // k.shape[1]
+    qg, kg, vg = (t.detach().repeat_interleave(n, 1).requires_grad_()
+                  for t, n in ((q, 1), (k, g), (v, g)))
 
     def fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep,
-                                              enable_gqa=gqa)
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
     with torch.no_grad():
         only = time_ms([fwd], iters=10)
     both = time_ms([lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do)],
@@ -1780,12 +1784,51 @@ def _sdpa_masked_ms(q, k, v, do, keep):
     return only, both - only
 
 
-def check_sparse_kernels(gen, label, shape, causal, make_flags):
-    """Phase 3 rows of the forward (#1) and of the dK/dV (#2) and dQ (#3)
-    kernels under a sparse mask at ``shape``: each against its plain
-    version with the dense mask on the same inputs, timed (CUDA events,
-    warmed), with bounds from the visible pairs and SDPA with the dense
-    mask as the library call."""
+def plain_bwd_groups(q, k, v, out, lse, do, keep, **kw):
+    """The plain backward with the dense keep mask, a group of kv heads at
+    a time (PLAIN_CHUNK_BYTES): dq, dk, dv."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+    b, h, sq, _ = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    keep = common.expand_heads(keep, h)
+    step = max(1, int(PLAIN_CHUNK_BYTES // (b * g * sq * sk * 4)))
+    parts = []
+    for j in range(0, hk, step):
+        hs, ks = slice(j * g, (j + step) * g), slice(j, j + step)
+        parts.append(bwd.attention_bwd_ref(
+            q[:, hs], k[:, ks], v[:, ks], out[:, hs], lse[:, hs], do[:, hs],
+            mask=keep if keep.shape[1] == 1 else keep[:, hs], **kw))
+    return [torch.cat(t, 1) for t in zip(*parts)]
+
+
+def mirror_tile_counts(masks, b, h, hk, s, causal, d):
+    """[visited, elementwise, candidates] of the masked dK/dV and dQ
+    kernels by bwd.py's mirrors of their producers: the tiles visited,
+    those of them with the elementwise test, and the unmasked plan's
+    tiles."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    counts = []
+    for plan, cands in (
+            (bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, s, s, causal),
+             b * h * sum(map(len, bwd.bwd_dkv_tile_plan(s, s, causal)))),
+            (bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, s, s, causal, d),
+             b * h * sum(map(len, bwd.bwd_dq_tile_plan(s, s, causal, d))))):
+        tiles = [e for es in plan.values() for e in es]
+        counts.append([len(tiles), sum(1 for e in tiles if e[-2]), cands])
+    return counts
+
+
+def check_sparse_kernels(gen, label, shape, causal, make_flags,
+                         fwd_row=True):
+    """Phase 3 rows of the forward (#1, with ``fwd_row``) and of the dK/dV
+    (#2) and dQ (#3) kernels under a sparse mask at ``shape``: each against
+    its plain version with the dense mask on the same inputs (the backward
+    by kv-head groups), timed (CUDA events, warmed), with bounds from the
+    visible pairs and SDPA with the dense mask as the library call. The
+    timed launches write into buffers filled with NaN first and must give
+    the checked gradients bit for bit; the tiles they visit, as the
+    kernels count them, must equal bwd.py's mirrors."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         bwd, common, fwd)
     b, h, hk, s, d = _dims(shape)
@@ -1795,22 +1838,22 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
     masks = common.KernelMasks(b, h, s, s, **flags)
     kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
     out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw, **flags)
-    ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=dense,
-                                         **kw)
-    torch.cuda.synchronize()
-    err = max_err(out, ref)
-    tol = BF16_ULP * ref.float().abs().max().item() + 1e-3
-    fin = torch.isfinite(ref_lse)
-    check(torch.equal(fin, torch.isfinite(lse)),
-          f"flash_fwd ({label}): rows with no key differ")
-    err_lse = max_err(lse[fin], ref_lse[fin])
-    check(err <= tol and err_lse <= 1e-3,
-          f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
-    del ref, ref_lse
-    _, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"],
-                                  scale_q=False)
+    if fwd_row:
+        ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True,
+                                             mask=dense, **kw)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        tol = BF16_ULP * ref.float().abs().max().item() + 1e-3
+        fin = torch.isfinite(ref_lse)
+        check(torch.equal(fin, torch.isfinite(lse)),
+              f"flash_fwd ({label}): rows with no key differ")
+        err_lse = max_err(lse[fin], ref_lse[fin])
+        check(err <= tol and err_lse <= 1e-3,
+              f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
+        del ref, ref_lse
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
     grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **flags)
-    want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=dense, **kw)
+    want = plain_bwd_groups(q, k, v, out, lse, do, dense, **kw)
     torch.cuda.synchronize()
     err_dq = max_err(grads[0], want[0])
     err_dkv = max(max_err(grads[1], want[1]), max_err(grads[2], want[2]))
@@ -1824,27 +1867,46 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
     lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, do, keep)
     del keep
     io = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, o | do and k, v (bf16)
-    bms, by = bound(2 * 2 * d * n_vis, PEAK_BF16_FLOPS, io)
     shape_txt = f"b{b} h{h} hk{hk} s{s} d{d} {'causal' if causal else 'full'}"
-    rows = [dict(
-        name=f"flash_fwd ({label})", route="cuda",
-        source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
-        replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
-        max_abs_err=err,
-        ms=time_ms([lambda: fwd.flash_attention_fwd(
-            q, k, v, need_lse=False, **kw, **flags)]),
-        plain_ms=time_ms([lambda: fwd.attention_fwd_ref(
-            q, k, v, need_lse=False, mask=dense, **kw)], iters=3, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=lib_fwd)]
-    report(rows[0], f"tol {tol:.3g} = 1 bf16 ulp of max|out| + 1e-3; lse err "
-                    f"{err_lse:.3g}; {shape_txt}, visible share {share:.4f}, "
-                    f"flops {4 * d * n_vis:.4g}; ms includes the stats "
-                    "prepass; library: SDPA with the dense boolean mask")
-    dq, dk, dv = (torch.empty_like(t) for t in grads)
-    args = (q, k, v, do, lse, delta, dq, dk, dv)
+    rows = []
+    if fwd_row:
+        bms, by = bound(2 * 2 * d * n_vis, PEAK_BF16_FLOPS, io)
+        rows.append(dict(
+            name=f"flash_fwd ({label})", route="cuda",
+            source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+            replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
+            max_abs_err=err,
+            ms=time_ms([lambda: fwd.flash_attention_fwd(
+                q, k, v, need_lse=False, **kw, **flags)]),
+            plain_ms=time_ms([lambda: fwd.attention_fwd_ref(
+                q, k, v, need_lse=False, mask=dense, **kw)], iters=3,
+                warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=lib_fwd))
+        report(rows[0], f"tol {tol:.3g} = 1 bf16 ulp of max|out| + 1e-3; lse "
+                        f"err {err_lse:.3g}; {shape_txt}, visible share "
+                        f"{share:.4f}, flops {4 * d * n_vis:.4g}; ms includes "
+                        "the stats prepass; library: SDPA with the dense "
+                        "boolean mask")
+    dq, dk, dv = (torch.full_like(t, float("nan")) for t in grads)
+    args = (qs, k, v, do, lse, delta, dq, dk, dv)
+    counted = []
+    for fn in (bwd.flash_bwd_dkv, bwd.flash_bwd_dq):
+        counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+        fn(*args, masks=masks, tile_counts=counts, **kw)
+        counted.append(counts[1:].tolist())
+    mirror = mirror_tile_counts(masks, b, h, hk, s, causal, d)
+    check(counted == [m[:2] for m in mirror],
+          f"flash_bwd ({label}): the kernels visited {counted} tiles "
+          f"(visited, elementwise), bwd.py's mirrors {mirror}")
+    print(f"  tile plan ({label}, counted by the kernels, equal to bwd.py's "
+          "mirrors): " + "; ".join(
+              f"{name} {n} visited ({e} elementwise), {c - n} of {c} skipped"
+              for name, (n, e, c) in zip(("dK/dV", "dQ"), mirror)),
+          flush=True)
     stats = 2 * 4.0 * b * h * s  # lse, delta (fp32)
-    plain_ms = time_ms([lambda: bwd.attention_bwd_ref(
-        q, k, v, out, lse, do, mask=dense, **kw)], iters=3, warmup=1)
+    plain_ms = time_ms([lambda: plain_bwd_groups(
+        q, k, v, out, lse, do, dense, **kw)], iters=2, warmup=1)
+    bwd_rows = []
     for name, fn, n_mm, out_bytes, e in (
             ("flash_bwd_dkv", bwd.flash_bwd_dkv, 4, 2 * 2.0 * b * s * hk * d,
              err_dkv),
@@ -1861,19 +1923,23 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
             ms=time_ms([lambda fn=fn: fn(*args, masks=masks, **kw)], iters=10),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_bwd)
         report(row, f"tol {gtol:.3g} = 4 bf16 ulp of max|grad| vs the plain "
-                    f"backward; {shape_txt}, {n_mm} products over the visible "
-                    f"pairs (flops {n_mm * 2 * d * n_vis:.4g}); plain_ms and "
-                    "library_ms are of the whole backward (library: SDPA with "
-                    "the dense mask, fwd + bwd minus fwd)")
-        rows.append(row)
-    summed = rows[1]["ms"] + rows[2]["ms"]
+                    f"backward; {shape_txt}, visible share {share:.4f}, "
+                    f"{n_mm} products over the visible pairs (flops "
+                    f"{n_mm * 2 * d * n_vis:.4g}); plain_ms and library_ms "
+                    "are of the whole backward (library: SDPA with the dense mask, "
+                    "fwd + bwd minus fwd)")
+        bwd_rows.append(row)
+    check(all(torch.equal(a, c) for a, c in zip((dq, dk, dv), grads)),
+          f"flash_bwd ({label}): the timed launches differ from the checked "
+          "gradients")
+    summed = bwd_rows[0]["ms"] + bwd_rows[1]["ms"]
     bms, by = bound(5 * 2 * d * n_vis, PEAK_BF16_FLOPS,
                     io + stats + 2.0 * b * s * d * (h + 2 * hk))
     print(f"  attention backward ({label}): dK/dV + dQ {summed:.4f} ms against "
           f"the 5-product bound of the visible pairs {bms:.4f} ms by {by} "
           f"(share {bms / summed:.3f}); SDPA backward with the mask "
           f"{lib_bwd:.4f} ms", flush=True)
-    return rows
+    return rows + bwd_rows
 
 
 def check_reduced(gen):
@@ -2050,9 +2116,10 @@ def sparse_masks(gen):
                         indices=doc_indices(gen, b, s)))
     torch.cuda.empty_cache()
     b, _, _, s, _ = _dims(FM_SWG)
-    add(fm, sparse_case(gen, "FM-swg", FM_SWG, True,
-                        indices=global_sliding_window_mask(
-                            b, s, SWG_WINDOW, SWG_GLOBAL), reduced=True))
+    swg = sparse_case(gen, "FM-swg", FM_SWG, True,
+                      indices=global_sliding_window_mask(
+                          b, s, SWG_WINDOW, SWG_GLOBAL), reduced=True)
+    add(fm, swg)
     torch.cuda.empty_cache()
     b, _, _, s, _ = _dims(FM_FULL)
     for nv in (2, 4):
@@ -2069,6 +2136,8 @@ def sparse_masks(gen):
         rows[f"flash_fwd ({label})"] = c["flash_fwd (flash_attention_fwd)"]
         rows[f"flash_bwd_dkv ({label})"] = c["flash_bwd_dkv"]
         rows[f"flash_bwd_dq ({label})"] = c["flash_bwd_dq"]
+    rows["flash_bwd_dkv (FM-swg)"] = swg["flash_bwd_dkv"]
+    rows["flash_bwd_dq (FM-swg)"] = swg["flash_bwd_dq"]
     rows["reduced_scores"] = fm["reduced_scores"]
     return rows
 
@@ -2357,7 +2426,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     from xhy_flash_attention_tpu_torch import (
-        GPTLMHeadModel, llama_config_to_gpt_config)
+        GPTLMHeadModel, global_sliding_window_mask, llama_config_to_gpt_config)
     from xhy_flash_attention_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2412,6 +2481,12 @@ def main():
     rows += check_sparse_kernels(
         gen, "block-sparse", BS, False,
         lambda g: _flags(block_mask=bigbird_mask(g, b, s // BS_BLOCK)))
+    torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(FM_SWG)
+    rows += check_sparse_kernels(
+        gen, "FM-swg", FM_SWG, True,
+        lambda g: _flags(global_sliding_window_mask(
+            b, s, SWG_WINDOW, SWG_GLOBAL), causal=True), fwd_row=False)
     torch.cuda.empty_cache()
     rows.append(check_reduced(gen))
     torch.cuda.empty_cache()

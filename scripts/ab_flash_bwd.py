@@ -3,6 +3,7 @@
 
     python3 scripts/ab_flash_bwd.py                      # every variant
     python3 scripts/ab_flash_bwd.py base pingpong       # some of them
+    python3 scripts/ab_flash_bwd.py --masked base masked_noband
 
 Each variant is the kernel sources of ``xhy_flash_attention_tpu_torch/csrc``
 with a few text edits (``VARIANTS``), copied into
@@ -13,9 +14,11 @@ attention (b16 h16 s2048 d64 causal) and at Llama-3-8B width's (b2 h32 hk8
 s2048 d128 causal), and the packed entry (#6) at T-packed's (b32 s1024 h16
 d64 causal), with CUDA events after a warm-up. Each variant's gradients
 are held against the plain backward at T-long (largest error over the
-largest entry, printed). The variants run in turns, first to last and
-then last to first, so that each is timed twice on the same card.
-Prints the card's name and power limit first.
+largest entry, printed). With ``--masked`` each variant also times the
+masked kernels (dK/dV and dQ) at chip_smoke.py's FM-doc, BS and FM-swg
+masks. The variants run in turns, first to last and then last to first,
+so that each is timed twice on the same card. Prints the card's name and
+power limit first.
 """
 
 from __future__ import annotations
@@ -62,19 +65,54 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
         ("flash_bwd.cu", "    const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;\n",
          "    const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;\n"
          "    if (cw == 1) turn_pass(1);\n"),
-        ("flash_bwd.cu", "          sm90::wgmma_fence();\n          issue_",
-         "          turn_wait(cw);\n          sm90::wgmma_fence();\n          issue_"),
-        ("flash_bwd.cu", "          sm90::wgmma_fence();\n          // S^T",
-         "          turn_wait(cw);\n          sm90::wgmma_fence();\n          // S^T"),
-        ("flash_bwd.cu", "          sm90::wgmma_commit();\n          sm90::wgmma_wait<0>();",
-         "          sm90::wgmma_commit();\n          turn_pass(cw);\n"
-         "          sm90::wgmma_wait<0>();"),
-        ("flash_bwd.cu", "      }\n    }\n  }\n}\n\ntemplate <int D, bool SOFTCAP>\n__global__",
-         "      }\n    }\n    if (cw == 0) turn_wait(0);\n  }\n}\n\n"
-         "template <int D, bool SOFTCAP>\n__global__"),
-        ("flash_bwd.cu", "                      t);\n      }\n    }\n  }\n}",
-         "                      t);\n      }\n    }\n    if (cw == 0) turn_wait(0);\n  }\n}"),
+        ("flash_bwd.cu", "        sm90::wgmma_fence();\n        issue_",
+         "        turn_wait(cw);\n        sm90::wgmma_fence();\n        issue_"),
+        ("flash_bwd.cu", "        sm90::wgmma_fence();\n        // S^T",
+         "        turn_wait(cw);\n        sm90::wgmma_fence();\n        // S^T"),
+        ("flash_bwd.cu", "        sm90::wgmma_commit();\n        sm90::wgmma_wait<0>();",
+         "        sm90::wgmma_commit();\n        turn_pass(cw);\n"
+         "        sm90::wgmma_wait<0>();"),
+        ("flash_bwd.cu", "    }\n  }\n}\n\n// ---- dQ\n",
+         "    }\n    if (cw == 0) turn_wait(0);\n  }\n}\n\n// ---- dQ\n"),
+        ("flash_bwd.cu", "                    t);\n    }\n  }\n}",
+         "                    t);\n    }\n    if (cw == 0) turn_wait(0);\n  }\n}"),
     ],
+    # Timing probes of the masked route (their results are wrong): no
+    # FlashMask band test (dQ: the bands still loaded), ...
+    "masked_noband": [
+        ("flash_bwd.cu", "if (fh != bh) {  // this thread's keys' bands, read under the "
+         "products", "if (false) {"),
+        ("flash_bwd.cu", "} else if (!MASKED || !(flags & kBand)) {",
+         "} else if (true) {")],
+    # ... and every tile on the unmasked code (no elementwise test at all)
+    "masked_noelem": [
+        ("flash_bwd.cu", "if (fh != bh) {  // this thread's keys' bands, read under the "
+         "products", "if (false) {"),
+        ("flash_bwd.cu", "const int band = flags & kBand;", "const int band = 0;"),
+        ("flash_bwd.cu", "        if (!(flags & kElem)) {", "        if (true) {")],
+    # dK/dV's elementwise branch first, as the unmasked kernel had it
+    # before the masked instantiation joined it
+    "dkv_elem_first": [
+        ("flash_bwd.cu", """        if (!(flags & kElem)) {
+          dkv_p_ds<false, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
+        } else if (!MASKED || !(flags & kBand)) {
+          dkv_p_ds<true, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);""",
+         """        if ((flags & kElem) && (!MASKED || !(flags & kBand))) {
+          dkv_p_ds<true, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
+        } else if (!(flags & kElem)) {
+          dkv_p_ds<false, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);""")],
+    # the unmasked dK/dV tile loop with its bound in the loop condition, as
+    # before the masked instantiation joined the kernel
+    "dkv_loop_cond": [
+        ("flash_bwd.cu", "      for (int idx = 0;; ++idx, ++it) {",
+         "      for (int idx = 0; MASKED || idx < group * n_tiles; ++idx, ++it) {"),
+        ("flash_bwd.cu", "          if (idx == group * n_tiles) break;\n", "")],
+    # the producer emits each head's tiles in one pass, in candidate order
+    # (the elementwise ones not first)
+    "masked_onepass": [
+        ("flash_bwd.cu", "for (int pass = 0; pass < 2; ++pass) {",
+         "for (int pass = 0; pass < 1; ++pass) {"),
+        ("flash_bwd.cu", "f >= 0 && ((f & kElem) != 0) == (pass == 0)", "f >= 0")],
 }
 
 
@@ -107,7 +145,46 @@ def time_ms(fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
-def child(csrc: Path, label: str) -> None:
+def masked_child(label: str) -> list:
+    """Time the masked kernels at chip_smoke.py's FM-doc, BS and FM-swg."""
+    import torch
+    import chip_smoke as cs
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, common, fwd)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lines = []
+    for name, shape, causal in (("FM-doc", cs.FM_DOC, True),
+                                ("BS", cs.BS, False),
+                                ("FM-swg", cs.FM_SWG, True)):
+        b, h, hk, s, d = cs._dims(shape)
+        q, k, v, do = cs._sparse_inputs(gen, shape)
+        if name == "FM-doc":
+            flags = cs._flags(cs.doc_indices(gen, b, s), causal=True)
+        elif name == "BS":
+            flags = cs._flags(block_mask=cs.bigbird_mask(gen, b,
+                                                         s // cs.BS_BLOCK))
+        else:
+            flags = cs._flags(global_sliding_window_mask(
+                b, s, cs.SWG_WINDOW, cs.SWG_GLOBAL), causal=True)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
+        out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw,
+                                           **flags)
+        qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        args = (qs, k, v, do, lse, delta, *grads)
+        masks = common.KernelMasks(b, h, s, s, **flags)
+        times = [time_ms(lambda fn=fn: fn(*args, masks=masks, **kw),
+                         iters=10)
+                 for fn in (bwd.flash_bwd_dkv, bwd.flash_bwd_dq)]
+        lines.append(f"  [{label}] {name}: dK/dV {times[0]:.4f} dQ "
+                     f"{times[1]:.4f} ms")
+        del q, k, v, do, out, lse, qs, delta, grads, args, masks
+        torch.cuda.empty_cache()
+    return lines
+
+
+def child(csrc: Path, label: str, masked: bool) -> None:
     """Build the kernels from ``csrc`` and time the backward."""
     import torch
     sys.path.insert(0, str(ROOT))
@@ -160,17 +237,21 @@ def child(csrc: Path, label: str) -> None:
     packed = time_ms(lambda: fh.fused_heads_bwd(q, k, v, out, lse, do, **kw,
                                                 **dst))
     out_lines.append(f"  [{label}] T-packed: fused_heads_bwd {packed:.4f} ms")
+    if masked:
+        out_lines += masked_child(label)
     print("\n".join(out_lines), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--masked", action="store_true",
+                    help="also time the masked kernels")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--label", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(Path(args.child), args.label)
+        child(Path(args.child), args.label, args.masked)
         return
     import torch
     if not torch.cuda.is_available():
@@ -186,7 +267,8 @@ def main():
     failed = []
     for name in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child", str(dirs[name]), "--label", name])
+                               "--child", str(dirs[name]), "--label", name]
+                              + ["--masked"] * args.masked)
         if proc.returncode != 0:
             failed.append(name)
     if failed:

@@ -190,9 +190,11 @@ def test_flashmask_rejects_bad_encodings():
                                        (False, 4)])
 def test_tile_stats_are_conservative(causal, nv):
     """The tile decisions the kernels take from the per-tile stats (here
-    through the plain fm_skip_bypass, at the kernels' 64- and 32-key tiles):
-    a skipped tile is masked everywhere and a bypassed one nowhere, the
-    padded tail tile included (sk 200 is no multiple of 64)."""
+    through the plain fm_skip_bypass, at the forward's 64-key tiles of 64
+    rows, the backward's 128-key dK/dV blocks against 64-row query tiles
+    and its 128- or 64-key dQ tiles against 128-row blocks, and 32-key
+    tiles): a skipped tile is masked everywhere and a bypassed one nowhere,
+    the padded tail tile included (sk 200 is no multiple of 64)."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import common
     sq = sk = 200
     rng = np.random.default_rng(11 + nv)
@@ -203,7 +205,8 @@ def test_tile_stats_are_conservative(causal, nv):
     masks = common.KernelMasks(2, 4, sq, sk, flashmask_vecs=vecs,
                                flashmask_mode=mode)
     skipped = bypassed = 0
-    for tk, tq in ((64, 64), (32, 64), (64, 32)):
+    for tk, tq in ((64, 64), (32, 64), (64, 32), (128, 64), (128, 128),
+                   (64, 128)):
         st = masks.stats(tk)  # (b, hm, tiles, nv, 2)
         assert st.shape[2] == masks.fm_vecs.shape[-1] // tk
         for q0 in range(0, sq, tq):

@@ -987,14 +987,17 @@ def _random_bands(cuda, causal, nv, b, hm, sk):
     return torch.stack(vecs, 2).to(torch.int32)
 
 
-def _sparse_kernels_vs_plain(q, k, v, do, causal, masks):
+def _sparse_kernels_vs_plain(q, k, v, do, causal, masks, softcap=0.0):
     """Forward and both backward kernels against the plain versions with
     the dense mask, on the same inputs: out to one bf16 unit of its largest
     entry (+1e-3), the finite LSE to 1e-3 and the same rows +inf, gradients
-    to four bf16 units; each kernel launched once."""
+    to four bf16 units; each kernel launched once. Then both backward
+    kernels launched directly into buffers filled with NaN: the same
+    gradients bit for bit, and the tiles each kernel counts (visited, of
+    them elementwise) those of bwd.py's mirrors."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
     b, h, sq, d = q.shape
-    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=softcap)
     mask = common.dense_keep_mask(sq, k.shape[2], h, **masks)
     before = (fwd.flash_attention_fwd.launches, bwd.flash_bwd_dkv.launches,
               bwd.flash_bwd_dq.launches)
@@ -1013,6 +1016,24 @@ def _sparse_kernels_vs_plain(q, k, v, do, causal, masks):
     assert not out[~finite].float().abs().any()
     for g, w in zip(got, want):
         assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    sk, hk = k.shape[2], k.shape[1]
+    kmasks = common.KernelMasks(b, h, sq, sk, **masks)
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    direct = [torch.full_like(t, float("nan")) for t in got]
+    counted = []
+    for fn in (bwd.flash_bwd_dkv, bwd.flash_bwd_dq):
+        counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+        fn(qs, k, v, do, lse, delta, *direct, masks=kmasks,
+           tile_counts=counts, **kw)
+        counted.append(counts[1:].tolist())
+    assert all(torch.equal(a, c) for a, c in zip(direct, got))
+    mirrors = (bwd.bwd_masked_dkv_tile_plan(kmasks, b, h, hk, sq, sk, causal),
+               bwd.bwd_masked_dq_tile_plan(kmasks, b, h, hk, sq, sk, causal,
+                                           d))
+    assert counted == [
+        [len(tiles), sum(1 for e in tiles if e[-2])]
+        for tiles in ([e for es in plan.values() for e in es]
+                      for plan in mirrors)]
     return got
 
 
@@ -1081,6 +1102,156 @@ def test_blocksparse_kernels_match_plain(cuda, causal, hm, d):
     bm[:, :, 1] = 0
     _sparse_kernels_vs_plain(q, k, v, do, causal,
                              dict(block_mask=(bm, gq, gk)))
+
+
+def _bigbird(cuda, b, s, g):
+    """BS's pattern at granularity g: a band of +-1 block, block column 0
+    and one random block per block row; (b, 1, nb, nb) int32."""
+    nb = -(-s // g)
+    i = torch.arange(nb, device="cuda")
+    m = ((i[:, None] - i[None, :]).abs() <= 1) | (i[None, :] == 0)
+    m = m[None].repeat(b, 1, 1)
+    m.scatter_(2, torch.randint(0, nb, (b, nb, 1), generator=cuda,
+                                device="cuda"), True)
+    return m[:, None].to(torch.int32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_mask_at_granularity_64(cuda, causal, d):
+    """A block mask at granularity (64, 64) through attention(masks=...):
+    the backward's 128-key and 128-row blocks straddle two entries (a dK/dV
+    consumer's 64 keys on, the other's off; a dQ tile's two 64-key parts
+    differing), s 200 (ragged), GQA; gradients through autograd against
+    the plain backward."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.interface import \
+        attention
+    b, h, hk, s = 2, 4, 2, 200
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    bm = (torch.rand(b, h, 4, 4, generator=cuda, device="cuda") < 0.5
+          ).to(torch.int32)
+    masks = dict(block_mask=(bm, 64, 64))
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, lse = attention(*ins, softmax_scale=None, causal=causal,
+                         return_lse=True, masks=masks)
+    got = torch.autograd.grad(out, ins, do)
+    want = bwd.attention_bwd_ref(
+        q, k, v, out.detach(), lse, do, sm_scale=d ** -0.5, causal=causal,
+        softcap=0.0, mask=common.dense_keep_mask(s, s, h, **masks))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    _sparse_kernels_vs_plain(q, k, v, do, causal, masks)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_masked_bwd_with_softcap(cuda, d):
+    """Softcap under a FlashMask (causal_2, per-head mask heads, GQA) and
+    under a block mask, s 200."""
+    b, h, hk, s = 2, 4, 2, 200
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    vecs = _random_bands(cuda, True, 2, b, h, s)
+    _sparse_kernels_vs_plain(q, k, v, do, True, dict(
+        flashmask_vecs=vecs, flashmask_mode="causal_2"), softcap=30.0)
+    bm = (torch.rand(1, 1, 2, 2, generator=cuda, device="cuda") < 0.7
+          ).to(torch.int32)
+    bm[0, 0, 0, 0] = 1
+    _sparse_kernels_vs_plain(q, k, v, do, False,
+                             dict(block_mask=(bm, 128, 128)), softcap=30.0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(200, 456), (456, 200)])
+def test_masked_bwd_causal_sq_ne_sk(cuda, sq, sk, d):
+    """Causal with sq != sk (the diagonal aligned bottom right; with sq >
+    sk the first rows see no key) under a FlashMask and a block mask."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+    b, h, hk = 2, 4, 2
+    q, do = (torch.randn(b, h, sq, d, generator=cuda, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=cuda, device="cuda")
+            .bfloat16() for _ in range(2))
+    bm = (torch.rand(b, 1, -(-sq // 64), -(-sk // 128), generator=cuda,
+                     device="cuda") < 0.7).to(torch.int32)
+    for masks in (dict(flashmask_vecs=_random_bands(cuda, True, 1, b, h, sk),
+                       flashmask_mode="causal_1"),
+                  dict(block_mask=(bm, 64, 128))):
+        kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+        mask = common.dense_keep_mask(sq, sk, h, **masks)
+        out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw,
+                                           **masks)
+        got = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **masks)
+        want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=mask, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() \
+                + 1e-4
+
+
+def test_blocksparse_bwd_is_deterministic(cuda):
+    """Two backward passes through BS's BigBird-like pattern (granularity
+    256) give bitwise equal dq, dk and dv."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        blocksparse_attention
+    b, h, s, d = 2, 4, 1024, 64
+    q, k, v, do = _sparse_case(cuda, b, h, h, s, d)
+    bm = _bigbird(cuda, b, s, 256)
+    runs = []
+    for _ in range(2):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = blocksparse_attention(*ins, bm, block_size=256)
+        runs.append(torch.autograd.grad(out, ins, do))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+def _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, grads):
+    """The pre-pass and both masked kernels into ``grads`` (dq, dk, dv)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+    b, h, s, d = q.shape
+    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0,
+              masks=common.KernelMasks(b, h, s, s, **masks))
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    bwd.flash_bwd_dkv(qs, k, v, do, lse, delta, *grads, **kw)
+    bwd.flash_bwd_dq(qs, k, v, do, lse, delta, *grads, **kw)
+
+
+@pytest.mark.parametrize("mask", ["document", "bigbird"])
+def test_masked_bwd_in_a_cuda_graph(cuda, mask):
+    """The masked backward (a causal document mask at d 128 with GQA, or
+    BS's pattern at granularity 256 and d 64) captured in a CUDA graph and
+    replayed after dO was changed in place: bitwise equal to the eager
+    launches on the new dO (the scheduler's counter is cleared by a memset
+    inside the graph)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        causal_document_mask)
+    if mask == "document":
+        b, h, hk, s, d, causal = 2, 8, 2, 1024, 128, True
+        doc = (torch.arange(s, device="cuda") // 200)[None].expand(b, s)
+        masks = dict(flashmask_vecs=causal_document_mask(doc).movedim(-1, 2),
+                     flashmask_mode="causal_1")
+    else:
+        b, h, hk, s, d, causal = 2, 4, 4, 1024, 64, False
+        masks = dict(block_mask=(_bigbird(cuda, b, s, 256), 256, 256))
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    out, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5,
+                                       causal=causal, need_lse=True, **masks)
+    do = do.contiguous()
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, grads)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, grads)
+    do.copy_(torch.randn(do.shape, generator=cuda, device="cuda"))
+    graph.replay()
+    eager = [torch.full_like(t, float("nan")) for t in grads]
+    _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, eager)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(grads, eager))
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -1,0 +1,268 @@
+"""What the masked backward kernels visit, in pure Python.
+
+``bwd_masked_dkv_tile_plan`` and ``bwd_masked_dq_tile_plan`` mirror the
+producer of the masked instantiations of csrc/flash_bwd.cu: from the
+FlashMask stats at the kernels' tiles (128 keys for dK/dV, 128 or 64 for
+dQ) and the block-mask entries, the tiles each block visits, in order, with
+their elementwise flag and the parts each consumer computes. Held against
+the dense keep mask (the causal part included): every visible (row, key)
+pair lies in a visited part of a tile, a tile without the flag holds no
+masked in-range pair in the parts it computes, and a skipped tile or part
+holds no visible pair; tiles that need the elementwise test come first
+within a head. Cases: the four FlashMask modes with one mask head and one
+per head, GQA, a causal document mask (causal_1: the dK/dV query loop ends
+at the block's largest LTStart), block masks at granularities 64
+(straddling the 128-key and 128-row blocks), 128 and 256, s 200 (ragged),
+causal with sq != sk. Also the stats and the skip/bypass decisions against
+the JAX package's ``fm_block_stats`` and ``fm_skip_bypass`` on the same
+seeded vectors, exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xhy_flash_attention_tpu.ops.flash_attention import common as jcommon
+from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+    causal_document_mask,
+)
+
+MODES = [(True, 1), (True, 2), (False, 2), (False, 4)]
+
+
+def _bands(rng, causal, nv, b, hm, sk):
+    """Random valid FlashMask vectors (b, hm, NV, sk), as
+    tests/test_flashmask.py draws them."""
+    lts = rng.integers(0, sk + 1, (b, hm, 1, sk))
+    if causal and nv == 1:
+        vecs = [lts]
+    elif causal:
+        vecs = [lts, np.minimum(lts + rng.integers(0, sk, lts.shape), sk)]
+    elif nv == 2:
+        vecs = [lts, rng.integers(0, lts + 1)]
+    else:
+        uts = rng.integers(0, sk + 1, lts.shape)
+        vecs = [lts, np.minimum(lts + rng.integers(0, sk // 2, lts.shape), sk),
+                uts, np.minimum(uts + rng.integers(0, sk // 2, lts.shape), sk)]
+    return np.concatenate(vecs, 2).astype(np.int32)
+
+
+def _visible(flags, b, h, sq, sk, causal):
+    """(b, h, sq, sk) bool: the pairs attended, the causal part included."""
+    keep = common.dense_keep_mask(sq, sk, h, **flags)
+    keep = common.expand_heads(keep, h).expand(b, h, sq, sk)
+    if causal:
+        rows, cols = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+        keep = keep & (cols <= rows + (sk - sq))
+    return keep
+
+
+def _check_part(vis, rows, keys, visited, elementwise):
+    """One part of a tile: rows x keys (in range) of one head."""
+    block = vis[rows[0]:rows[1], keys[0]:keys[1]]
+    if block.numel() == 0:
+        return 0
+    if not visited:
+        assert not block.any(), "a skipped part holds a visible pair"
+    elif not elementwise:
+        assert block.all(), "a part without the elementwise test is masked"
+    return int(visited)
+
+
+def check_dkv_plan(flags, b, h, hk, sq, sk, causal):
+    masks = common.KernelMasks(b, h, sq, sk, **flags)
+    plan = bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, sq, sk, causal)
+    vis = _visible(flags, b, h, sq, sk, causal)
+    m, n, g = bwd.BWD_DKV_TILE_M, bwd.BWD_DKV_TILE_N, h // hk
+    n_qt, visited = -(-sq // m), 0
+    for (batch, kv_head, nb), tiles in plan.items():
+        n0 = nb * n
+        seen = {(gi, t): (e, parts) for gi, t, e, parts in tiles}
+        assert len(seen) == len(tiles), "a tile visited twice"
+        heads = [gi for gi, *_ in tiles]
+        assert heads == sorted(heads), "the group's heads out of order"
+        for gi in range(g):
+            flagged = [e for hi, _, e, _ in tiles if hi == gi]
+            assert flagged == sorted(flagged, reverse=True), \
+                "an elementwise tile after a free one"
+            for t in range(n_qt):
+                e, parts = seen.get((gi, t), (False, (False, False)))
+                for c in (0, 1):
+                    visited += _check_part(
+                        vis[batch, kv_head * g + gi],
+                        (t * m, min(t * m + m, sq)),
+                        (n0 + 64 * c, min(n0 + 64 * c + 64, sk)),
+                        parts[c], e)
+    return plan, visited
+
+
+def check_dq_plan(flags, b, h, hk, sq, sk, causal, d):
+    masks = common.KernelMasks(b, h, sq, sk, **flags)
+    plan = bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, sq, sk, causal, d)
+    vis = _visible(flags, b, h, sq, sk, causal)
+    m, n = bwd.BWD_DQ_TILE_M, bwd.bwd_dq_tile_n(d)
+    visited = 0
+    for (batch, head, mb), tiles in plan.items():
+        q0 = mb * m
+        seen = {t: (e, parts) for t, e, parts in tiles}
+        assert len(seen) == len(tiles), "a tile visited twice"
+        flagged = [e for _, e, _ in tiles]
+        assert flagged == sorted(flagged, reverse=True), \
+            "an elementwise tile after a free one"
+        for t in range(-(-sk // n)):
+            e, parts = seen.get(t, (False, ((False,) * 2,) * 2))
+            if not e:
+                assert all(a == c for a, c in parts), \
+                    "straddling parts without the elementwise test"
+            for c in (0, 1):
+                for j in range(n // 64):
+                    visited += _check_part(
+                        vis[batch, head], (q0 + 64 * c, min(q0 + 64 * c + 64, sq)),
+                        (t * n + 64 * j, min(t * n + 64 * j + 64, sk)),
+                        parts[c][j], e)
+                if n == 64:
+                    assert parts[c][0] == parts[c][1]
+    return plan, visited
+
+
+def _fm_flags(seed, causal, nv, b, hm, sk):
+    vecs = torch.from_numpy(_bands(np.random.default_rng(seed), causal, nv, b,
+                                   hm, sk))
+    return dict(flashmask_vecs=vecs, flashmask_mode=common.fm_mode_for(causal,
+                                                                       nv))
+
+
+@pytest.mark.parametrize("hm", [1, 4])
+@pytest.mark.parametrize("causal,nv", MODES)
+@pytest.mark.parametrize("s", [200, 256])
+def test_masked_plans_cover_flashmask(causal, nv, hm, s):
+    """Every mode, one mask head or one per head, GQA (h 4 over hk 2), a
+    ragged and a whole length, both head dims' dQ tiles."""
+    b, h, hk = 2, 4, 2
+    flags = _fm_flags(s + 7 * nv + hm + int(causal), causal, nv, b, hm, s)
+    _, vis_kv = check_dkv_plan(flags, b, h, hk, s, s, causal)
+    assert vis_kv > 0
+    for d in (64, 128):
+        check_dq_plan(flags, b, h, hk, s, s, causal, d)
+
+
+def test_causal_1_ends_at_the_largest_ltstart():
+    """A causal document mask (causal_1): each key block's query tiles end
+    at the largest LTStart of its keys, and the plans skip work."""
+    b, h, hk, s = 2, 2, 1, 512
+    doc = torch.tensor([[0] * 100 + [1] * 150 + [2] * 262,
+                        [0] * 300 + [1] * 212])
+    idx = causal_document_mask(doc)
+    flags = dict(flashmask_vecs=idx.movedim(-1, 2),
+                 flashmask_mode="causal_1")
+    plan, _ = check_dkv_plan(flags, b, h, hk, s, s, True)
+    lts = flags["flashmask_vecs"][:, 0, 0]
+    for (batch, _, nb), tiles in plan.items():
+        end = int(lts[batch, nb * 128:(nb + 1) * 128].max())
+        assert tiles and max(t for _, t, _, _ in tiles) < -(-end // 64)
+    dense = sum(len(c) for c in bwd.bwd_dkv_tile_plan(s, s, True)) * b * h
+    assert sum(map(len, plan.values())) < dense
+    check_dq_plan(flags, b, h, hk, s, s, True, 64)
+
+
+@pytest.mark.parametrize("gq,gk", [(64, 64), (64, 128), (128, 64),
+                                   (128, 128), (256, 256)])
+@pytest.mark.parametrize("hm", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_masked_plans_cover_block_masks(gq, gk, hm, causal):
+    """Block masks at granularities that the 128-key and 128-row blocks
+    straddle (64) or that cover them, broadcast over batch (b 1 in the
+    mask) or per batch element, s 300 (ragged)."""
+    b, h, hk, s = 2, 4, 2, 300
+    rng = np.random.default_rng(gq + gk + hm + int(causal))
+    mb = 1 if hm == 1 else b
+    mask = torch.from_numpy(
+        (rng.random((mb, hm, -(-s // gq), -(-s // gk))) < 0.5).astype(np.int32))
+    flags = dict(block_mask=(mask, gq, gk))
+    plan, vis_kv = check_dkv_plan(flags, b, h, hk, s, s, causal)
+    assert vis_kv > 0
+    halves = [parts for tiles in plan.values() for *_, parts in tiles]
+    if gk == 64:  # some block has one consumer's keys off, the other's on
+        assert any(a != c for a, c in halves)
+    for d in (64, 128):
+        dq_plan, _ = check_dq_plan(flags, b, h, hk, s, s, causal, d)
+        if gk == 64 and d == 64:
+            assert any(a != c for tiles in dq_plan.values()
+                       for _, _, parts in tiles for a, c in parts)
+
+
+@pytest.mark.parametrize("sq,sk", [(150, 300), (300, 150), (200, 200)])
+def test_masked_plans_cover_causal_sq_ne_sk(sq, sk):
+    """Causal with sq != sk (the diagonal aligned bottom right) under a
+    FlashMask and a block mask together."""
+    b, h, hk = 1, 2, 1
+    flags = _fm_flags(sq + sk, True, 2, b, 1, sk)
+    rng = np.random.default_rng(sq)
+    flags["block_mask"] = (torch.from_numpy(
+        (rng.random((1, 1, -(-sq // 64), -(-sk // 128))) < 0.7)
+        .astype(np.int32)), 64, 128)
+    check_dkv_plan(flags, b, h, hk, sq, sk, True)
+    for d in (64, 128):
+        check_dq_plan(flags, b, h, hk, sq, sk, True, d)
+
+
+def test_plans_without_a_mask_are_the_dense_plans():
+    """No mask: every candidate is visited, in the dense kernels' order."""
+    masks = common.KernelMasks(1, 2, 300, 300)
+    plan = bwd.bwd_masked_dkv_tile_plan(masks, 1, 2, 1, 300, 300, True)
+    dense = bwd.bwd_dkv_tile_plan(300, 300, True)
+    for (_, _, nb), tiles in plan.items():
+        assert [(t, e) for gi, t, e, _ in tiles] == dense[nb] * 2
+    plan = bwd.bwd_masked_dq_tile_plan(masks, 1, 2, 1, 300, 300, True, 64)
+    dense = bwd.bwd_dq_tile_plan(300, 300, True, 64)
+    for (_, _, mb), tiles in plan.items():
+        assert [(t, e) for t, e, _ in tiles] == dense[mb]
+
+
+@pytest.mark.parametrize("causal,nv", MODES)
+@pytest.mark.parametrize("tile", [64, 128])
+def test_stats_and_decisions_match_jax(causal, nv, tile):
+    """KernelMasks' stats at the kernels' tiles equal the JAX package's
+    fm_block_stats of the same vectors padded the same way, and the
+    skip/bypass decisions equal its fm_skip_bypass for 64- and 128-row
+    query tiles."""
+    b, hm, sk = 2, 2, 330
+    vecs = _bands(np.random.default_rng(tile + nv), causal, nv, b, hm, sk)
+    mode = common.fm_mode_for(causal, nv)
+    masks = common.KernelMasks(b, 2 * hm, sk, sk,
+                               flashmask_vecs=torch.from_numpy(vecs),
+                               flashmask_mode=mode)
+    jpad = jcommon.fm_pad_vecs(jnp.asarray(vecs), mode, common.FM_PAD_KEYS)
+    np.testing.assert_array_equal(masks.fm_vecs.numpy(), np.asarray(jpad))
+    st = masks.stats(tile)
+    jst = np.asarray(jcommon.fm_block_stats(jpad, tile)).reshape(st.shape)
+    np.testing.assert_array_equal(st.numpy(), jst)
+    for rows in (64, 128):
+        for q0 in range(0, sk, rows):
+            q1 = min(q0 + rows, sk)
+            got = common.fm_skip_bypass(mode, lambda v, w: st[..., v, w],
+                                        q0, q1)
+            want = jcommon.fm_skip_bypass(
+                mode, lambda v, w: jnp.asarray(jst)[..., v, w], q0, q1)
+            for a, c in zip(got, want):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+
+
+@pytest.mark.parametrize("causal,nv", MODES)
+def test_fm_bands_rewrite_every_mode(causal, nv):
+    """The two bands each column carries to the backward kernels mask
+    exactly the rows the mode's vectors mask, padded columns included."""
+    b, hm, sk, sq = 1, 2, 150, 160
+    vecs = torch.from_numpy(_bands(np.random.default_rng(nv), causal, nv, b,
+                                   hm, sk))
+    mode = common.fm_mode_for(causal, nv)
+    padded = common.fm_pad_vecs(vecs, mode, common.FM_PAD_KEYS)
+    bands = common.fm_bands(padded, mode)
+    assert bands.shape == (b, hm, padded.shape[-1], 4)
+    rows = torch.arange(sq)[:, None]
+    lo1, hi1, lo2, hi2 = (bands[..., None, :, i] for i in range(4))
+    masked = ((rows >= lo1) & (rows < hi1)) | ((rows >= lo2) & (rows < hi2))
+    assert torch.equal(masked, common.fm_banned(mode, padded, rows))
+    assert masked[..., sk:].all()

@@ -188,7 +188,9 @@ __device__ __forceinline__ void mma_abt_smem_a(float (&acc)[N / 8][4],
 // everywhere (skip: never loaded) or nowhere (bypass: no elementwise band
 // test). The causal part of the causal modes is the kernels' causal flag.
 // Block mask: a 0/1 entry per (gq rows, gk keys) block at the user's
-// granularity, which every tile of the kernels (32 or 64) divides.
+// granularity, a multiple of 64: the forward's tiles of 64 lie inside one
+// entry; the backward's 128-key and 128-row blocks may straddle two
+// (flash_bwd.cu decides per 64-row or 64-key part).
 enum FmMode : int { kFmNone = 0, kFmCausal1 = 1, kFmCausal2 = 2, kFmFull2 = 3, kFmFull4 = 4 };
 
 struct MaskParams {
@@ -245,23 +247,12 @@ __device__ __forceinline__ bool fm_banned(int mode, int row, int a, int b, int c
   }
 }
 
-// The tile decision for query rows [q0, q1) of (batch, head) against the
-// key tile of tile_keys keys at col0: false when the tile is skipped;
-// `band` set when the elementwise FlashMask test is needed (the tile is
-// neither skipped nor bypassed). The same for every thread of a block.
-__device__ __forceinline__ bool mask_tile(const MaskParams& m, int batch, int head, int h, int q0,
-                                          int q1, int col0, int tile_keys, bool& band) {
-  band = false;
-  if (m.bm != nullptr) {
-    const int bh = head / (h / m.bm_heads);
-    if (m.bm[batch * m.bm_sb + bh * m.bm_sh + static_cast<int64_t>(q0 / m.gq) * m.bm_nk +
-             col0 / m.gk] == 0)
-      return false;
-  }
-  if (m.fm_vecs == nullptr) return true;
-  const int* st = fm_tile_stats(m, batch, fm_head(m, head, h), col0, tile_keys);
-  bool skip, bypass;
-  switch (m.fm_mode) {
+// Skip (every element masked) and bypass (none masked) of query rows [q0,
+// q1) against a key tile with FlashMask stats `st` (fm_tile_stats); both
+// conservative across the tile's columns (common.py fm_skip_bypass).
+__device__ __forceinline__ void fm_decide(int mode, const int* st, int q0, int q1, bool& skip,
+                                          bool& bypass) {
+  switch (mode) {
     case kFmCausal1:
       skip = q0 >= st[0];
       bypass = q1 <= st[1];
@@ -278,6 +269,31 @@ __device__ __forceinline__ bool mask_tile(const MaskParams& m, int batch, int he
       skip = (q0 >= st[0] && q1 <= st[3]) || (q0 >= st[4] && q1 <= st[7]);
       bypass = (q1 <= st[1] || q0 >= st[2]) && (q1 <= st[5] || q0 >= st[6]);
   }
+}
+
+// The block-mask entry of (row, col) for query head `head` of `h`: true
+// when it is on or there is no block mask.
+__device__ __forceinline__ bool bm_on(const MaskParams& m, int batch, int head, int h, int row,
+                                      int col) {
+  if (m.bm == nullptr) return true;
+  const int bh = head / (h / m.bm_heads);
+  return m.bm[batch * m.bm_sb + bh * m.bm_sh + static_cast<int64_t>(row / m.gq) * m.bm_nk +
+              col / m.gk] != 0;
+}
+
+// The tile decision for query rows [q0, q1) of (batch, head) against the
+// key tile of tile_keys keys at col0, a tile inside one block-mask entry:
+// false when the tile is skipped; `band` set when the elementwise FlashMask
+// test is needed (the tile is neither skipped nor bypassed). The same for
+// every thread of a block.
+__device__ __forceinline__ bool mask_tile(const MaskParams& m, int batch, int head, int h, int q0,
+                                          int q1, int col0, int tile_keys, bool& band) {
+  band = false;
+  if (!bm_on(m, batch, head, h, q0, col0)) return false;
+  if (m.fm_vecs == nullptr) return true;
+  bool skip, bypass;
+  fm_decide(m.fm_mode, fm_tile_stats(m, batch, fm_head(m, head, h), col0, tile_keys), q0, q1,
+            skip, bypass);
   band = !bypass;
   return !skip;
 }

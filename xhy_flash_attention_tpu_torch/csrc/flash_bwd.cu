@@ -9,7 +9,9 @@
 //     the same two kernels, reached through element strides, so dq/dk/dv are
 //     written straight into the column ranges of one packed dqkv.
 // and the `dot_do_o` preprocess that the TPU package leaves to XLA (bwd.py:737)
-// -> flash_bwd_prep_kernel.
+// -> flash_bwd_prep_kernel. The FlashMask and block-mask flags of the TPU
+// kernels (bwd.py:332-350, 582-600) are a template flag of the same two
+// kernels (MASKED).
 //
 // What they compute, as the TPU kernels do (bwd.py:106-177): q is scaled by
 // sm_scale in fp32 and rounded to bf16 (q_s); S = q_s K^T in fp32, optional
@@ -31,20 +33,21 @@
 // in one fixed order inside the CTA that owns the keys).
 //
 // Bound on the H100: operations (b16 h16 s2048 d64 causal: 3.8e11 FLOPs in
-// the pair against ~0.3 GB of traffic), and on Hopper only wgmma reaches
-// the tensor cores' rate. Three routes:
+// the pair against ~0.3 GB of traffic; a sparse mask keeps the products of
+// the visible pairs), and on Hopper only wgmma reaches the tensor cores'
+// rate. The design:
 //
 // * Pre-pass (flash_bwd_prep_kernel): delta = rowsum(dO * O) in fp32 (each
 //   product rounded, summed in a fixed order) in one read of dO and O, and
-//   on the dense route q_s = bf16(q * sm_scale) once into a contiguous
-//   (b, h, sq, d) buffer that both dense kernels read through TMA (the
-//   plain version's bits; no kernel scales Q in shared memory).
+//   q_s = bf16(q * sm_scale) once into a contiguous (b, h, sq, d) buffer
+//   that both kernels read through TMA (the plain version's bits; no kernel
+//   scales Q in shared memory).
 //
-// * Dense (no mask), the forward's design (flash_fwd.cu) turned to the
+// * The kernels, the forward's design (flash_fwd.cu) turned to the
 //   backward: persistent CTAs, one per SM, of three warpgroups; warpgroup 0
-//   the producer (setmaxnreg.dec; one thread issues TMA through 4-D tensor
-//   maps (d, s, h, b) built from the strides, 128-byte swizzled), warpgroups
-//   1 and 2 consumers of 64 rows each (setmaxnreg.inc). Blocks are dealt in
+//   the producer (setmaxnreg.dec; TMA through 4-D tensor maps (d, s, h, b)
+//   built from the strides, 128-byte swizzled), warpgroups 1 and 2
+//   consumers of 64 rows each (setmaxnreg.inc). Blocks are dealt in
 //   equal-work pairs (common.cuh pair_block; bwd.py bwd_schedule mirrors).
 //   - dK/dV (flash_bwd_dkv_kernel): a block is 128 keys of one (batch, kv
 //     head), each consumer owning 64 (wgmma's M). K and V arrive once by TMA
@@ -62,11 +65,11 @@
 //     bwd_dkv_tile_plan).
 //   - dQ (flash_bwd_dq_kernel): a block is 128 query rows of one (batch,
 //     head) with q_s and dO resident (two buffers); K/V tiles (128 keys at
-//     d 64, 64 at d 128) stream through a ring, last to first, the masked ones first
-//     (common.cuh key_tiles; bwd.py bwd_dq_tile_plan). Per tile: S = q_s
-//     K^T and dP = dO V^T by SS wgmma, P and dS in registers with the row's
-//     LSE and delta, dQ += dS K by RS wgmma with K MN-major; sm_scale in
-//     the epilogue.
+//     d 64, 64 at d 128) stream through a ring, last to first, the masked
+//     ones first (common.cuh key_tiles; bwd.py bwd_dq_tile_plan). Per tile:
+//     S = q_s K^T and dP = dO V^T by SS wgmma, P and dS in registers with
+//     the row's LSE and delta, dQ += dS K by RS wgmma with K MN-major;
+//     sm_scale in the epilogue.
 //   Each consumer runs its tiles one by one (products, then the elementwise
 //   work, then products); the two consumers interleave on the tensor cores.
 //   Softcap and the elementwise mask are template flags, so that the
@@ -75,8 +78,8 @@
 //   packed layout of #6 included).
 //   Shared memory: dK/dV d 128: 2 x (K 32 + V 32) KB + 2 x (q_s 16 + dO 16
 //   + stats 1) KB; d 64: 2 x (16 + 16) KB + 4 x (8 + 8 + 1) KB. dQ d 128:
-//   2 x (q_s 32 + dO 32) KB + 2 x (K 16 + V 16) KB; d 64: 2 x (16 + 16) KB
-//   + 4 x (K 16 + V 16) KB.
+//   2 x (q_s 32 + dO 32) KB + 2 x (K 16 + V 16 [+ bands 2]) KB; d 64:
+//   2 x (16 + 16) KB + 4 x (K 16 + V 16 [+ bands 3]) KB.
 //   Tried and dropped (PERF.md §6): a tile's P and dS under the previous
 //   tile's RS products inside a consumer; the two consumers taking turns
 //   (ping-pong) to issue; K/V (dK/dV) or q_s/dO (dQ) held as register A
@@ -84,43 +87,42 @@
 //   tile, and reloading them per tile reads as many shared-memory bytes as
 //   SS).
 //
-// * Masked (slice 4, the TPU kernels' FlashMask and block-mask flags,
-//   bwd.py:332-350, 582-600): masked_flash_bwd_dkv_kernel and
-//   masked_flash_bwd_dq_kernel, mma.sync tiles, delta from the pre-pass and
-//   q scaled in the kernels.
-//   - dKV: grid (key tiles of 64, kv head, batch); four warps own 16 keys
-//     each. K and V tiles stay in shared memory; the block walks the group's
-//     query heads and the query tiles that see its keys (kQT rows: 64 at
-//     d 64, 32 at d 128 to bound registers), staging q_s, dO, LSE and delta
-//     per tile. Each warp computes S^T = K q_s^T and dP^T = V dO^T with its
-//     keys as rows, so dV += P^T dO and dK += dS^T q_s take P^T and dS^T
-//     straight from the accumulators as A fragments; dO and q_s come through
-//     ldmatrix.trans.
-//   - dQ: grid (query tiles of 64, head, batch); four warps own 16 rows,
-//     holding q_s and dO fragments in registers; key tiles (64 at d 64, 32 at
-//     d 128) up to the causal edge are staged in shared memory; dQ += dS K
-//     through ldmatrix.trans of the K tile.
-//   Both kernels skip, unread, the tiles the forward skips, and run the
-//   elementwise band test only on tiles the FlashMask stats do not bypass;
-//   stats come per each kernel's own key tile (64 keys in dK/dV, kKT in dQ).
-//   In dK/dV a key tile serves the g query heads of its group, and each
-//   reads its own mask head, head / (h / hm): the block reloads its keys'
-//   vectors per head, and skips every query tile whose rows are all masked.
-//   In causal_1 (a causal document mask) that ends the query loop at the
-//   tile's largest LTStart, the end of the last document its keys belong
-//   to: the work a packed batch saves.
+// * The masked instantiations (MASKED: FlashMask and block masks). Which
+//   tiles a block visits depends on the data, so the producer decides and
+//   the consumers follow: warp 0 of the producer warpgroup evaluates 32
+//   candidate tiles at a time (a lane each, from the FlashMask stats per
+//   kernel tile and the block-mask entries), and its lane 0 loads each
+//   visited tile with a word in the tile's ring stage: its first row (dK/dV)
+//   or key (dQ), its head in the group and its flags (the elementwise test,
+//   the FlashMask band test, and per consumer the 64-key or 64-row parts
+//   that it computes; a consumer with no part passes the tile by). A word
+//   kEnd ends a block; the block itself reaches the consumers in a slot of
+//   its K/V (dK/dV) or q_s/dO (dQ) buffer, from a dynamic scheduler (the
+//   next block from an atomicAdd on a counter that the entry clears on the
+//   same stream; under the static pairs the two kernels took 4-20% longer
+//   at FM-doc, BS and FM-swg, PERF.md §6). Each producer also adds the
+//   tiles it emitted to two counters beside it. Within a head the tiles
+//   that need the elementwise test come first (causal diagonal and ragged
+//   tiles, FlashMask band tiles, dQ tiles whose keys straddle two
+//   block-mask entries); the others run the unmasked code. The FlashMask band test
+//   reads each column's bands [lo1, hi1) and [lo2, hi2) (every mode
+//   rewritten to two bands by ops common.py fm_bands): dK/dV from global
+//   memory for the thread's two keys, dQ from the stage, where they arrive
+//   by TMA with the key tile. Mirrored by bwd.py bwd_masked_dkv_tile_plan
+//   and bwd_masked_dq_tile_plan. A block-mask entry covers 64 or more rows
+//   and keys, so each consumer's 64 keys (dK/dV) or 64 rows (dQ) lie in one
+//   entry: a dK/dV tile never needs the block-mask test per element, and a
+//   dQ tile of 128 keys does only when its two 64-key parts differ. In
+//   causal_1 (a causal document mask) the stats skip every query tile at or
+//   past the block's largest LTStart, the end of the last document its keys
+//   belong to: the work a packed batch saves.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using xfa::ldmatrix_x2_trans;
-using xfa::mma_16816;
-using xfa::mma_abt_smem_a;
-using xfa::pack_a;
 using xfa::pack_bf16;
-using xfa::stage_rows;
 namespace sm90 = xfa::sm90;
 using sm90::ex2;
 using sm90::kLog2e;
@@ -182,9 +184,10 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const Prep
   if (r < p.rows && threadIdx.x % kLanes == 0) p.delta[r] = acc;
 }
 
-// ------------------------------------------------------------ dense route
 
-constexpr int kDenseThreads = 384;  // producer warpgroup + two consumers
+// ------------------------------------------------------------ the kernels
+
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kRow = 128;  // bytes of a swizzled row: 64 bf16
 // dK/dV: keys per block (64 per consumer) and query rows per streamed tile
@@ -200,6 +203,16 @@ constexpr int kStatBox = kDkvRows + 4;
 constexpr int kDqRows = 128;
 __host__ __device__ constexpr int dq_keys(int d) { return d == 64 ? 128 : 64; }
 
+// The masked instantiations' tile word: (first row or key, or kEnd after a
+// block's last tile; head in the group; flags). A consumer computes the
+// tile only when one of its parts is on: dK/dV part c (its 64 keys) at bit
+// kOnShift + c, dQ consumer c's 64 rows against the tile's keys [0, 64) and
+// [64, 128) at bits kOnShift + 2c and kOnShift + 2c + 1 (both the same for
+// a 64-key tile).
+constexpr int kEnd = -1;
+constexpr int kElem = 1;  // the elementwise test
+constexpr int kBand = 2;  // the FlashMask band test (dQ: the bands in the stage)
+constexpr int kOnShift = 2;
 
 template <int D>
 struct DkvSmem {
@@ -210,18 +223,22 @@ struct DkvSmem {
   static constexpr int kKV = kDkvKeys * D * 2;
   static constexpr int kK = 0;
   // a stage of the query ring: q_s and dO [half][64 rows][128 B], then the
-  // tile's LSE and delta boxes (kStatBox floats each, kStatStride apart)
+  // tile's LSE and delta boxes (kStatBox floats each, kStatStride apart);
+  // the masked instantiations' tile word after the LSE box
   static constexpr int kTile = kDkvRows * D * 2;
   static constexpr int kStatStride = 512;
+  static constexpr int kWord = 2 * kTile + kStatBox * 4;
   static constexpr int kStage = 2 * kTile + 2 * kStatStride;
   static constexpr int kRing = kK + 4 * kKV;
-  // barriers: K/V full[2], K/V empty[2], tile full[], tile empty[]
+  // barriers: K/V full[2], K/V empty[2], tile full[], tile empty[]; then
+  // the block of each K/V buffer (masked)
   static constexpr int kBar = kRing + kStages * kStage;
-  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages) + 1024;  // + alignment slack
+  static constexpr int kBlk = kBar + 8 * (4 + 2 * kStages);
+  static constexpr int kBytes = kBlk + 32 + 1024;  // + alignment slack
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D>
+template <int D, bool MASKED>
 struct DqSmem {
   static constexpr int kN = dq_keys(D);
   static constexpr int kStages = D == 64 ? 4 : 2;
@@ -230,17 +247,23 @@ struct DqSmem {
   // kQ0 + 2 qb kQ and dO after it
   static constexpr int kQ = kDqRows * D * 2;
   static constexpr int kQ0 = 0;
-  // a stage of the key ring: K then V, [half][kN keys][128 B]
+  // a stage of the key ring: K then V, [half][kN keys][128 B]; masked: the
+  // tile's FlashMask bands (kN x 16 B) and its word
   static constexpr int kKV = kN * D * 2;
   static constexpr int kRing = kQ0 + 4 * kQ;
-  static constexpr int kStage = 2 * kKV;
-  // barriers: Q full[2], Q empty[2], K/V full[], K/V empty[]
+  static constexpr int kBands = 2 * kKV;
+  static constexpr int kWord = kBands + kN * 16;
+  static constexpr int kStage = 2 * kKV + (MASKED ? (kN * 16 + 16 + 1023) / 1024 * 1024 : 0);
+  static_assert(!MASKED || kWord + 16 <= kStage, "the bands and the word fit the stage");
+  // barriers: Q full[2], Q empty[2], K/V full[], K/V empty[]; then the
+  // block of each Q buffer (masked)
   static constexpr int kBar = kRing + kStages * kStage;
-  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages) + 1024;
+  static constexpr int kBlk = kBar + 8 * (4 + 2 * kStages);
+  static constexpr int kBytes = kBlk + 32 + 1024;
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-struct DenseBwdParams {
+struct BwdParams {
   const float* lse;    // (b, h, sq) contiguous
   const float* delta;  // (b, h, sq) contiguous
   bf16* dq;
@@ -250,6 +273,13 @@ struct DenseBwdParams {
   int b, h, hk, sq, sk;
   float sm_scale, softcap;
   int causal;
+  // the masked instantiations: the flags (FlashMask stats per kernel
+  // tile), the FlashMask bands (b, fm_heads, fm_skp) as [lo1, hi1, lo2,
+  // hi2) or null, and three counters: the dynamic scheduler's next item,
+  // the tiles the producers emit and those of them with the elementwise test
+  xfa::MaskParams mask;
+  const int4* bands;
+  int* next;
 };
 
 // The query tiles of kDkvRows rows that the key block at n0 visits for each
@@ -284,6 +314,105 @@ __device__ __forceinline__ DkvPlan dkv_plan(int n0, int sq, int sk, int causal) 
   pl.f1 = min(max(sq / kDkvRows, pl.f0), pl.n_qt);
   return pl;
 }
+
+// ---- the masked producer's decisions
+
+// The flags of the dK/dV tile of rows [m0, m0 + 64) against the keys of the
+// block at n0 for query head `head`, or -1 when it is skipped; `st` the
+// FlashMask stats of the block's keys (or null), `elem` the causal /
+// ragged test of the plan. Mirrored by bwd.py bwd_masked_dkv_tile_plan.
+__device__ __forceinline__ int dkv_tile_flags(const BwdParams& p, const int* st, int batch,
+                                              int head, int n0, int m0, bool elem) {
+  int flags = elem ? kElem : 0;
+  if (st != nullptr) {
+    bool skip, bypass;
+    xfa::fm_decide(p.mask.fm_mode, st, m0, min(m0 + kDkvRows, p.sq), skip, bypass);
+    if (skip) return -1;
+    if (!bypass) flags |= kElem | kBand;
+  }
+  int on = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int key = n0 + 64 * c;
+    if (key < p.sk && xfa::bm_on(p.mask, batch, head, p.h, m0, key)) on |= 1 << c;
+  }
+  return on == 0 ? -1 : flags | on << kOnShift;
+}
+
+// The flags of the dQ tile of N keys at n0 against the rows of the block at
+// q0 for query head `head`, or -1 when it is skipped. Mirrored by bwd.py
+// bwd_masked_dq_tile_plan.
+template <int N>
+__device__ __forceinline__ int dq_tile_flags(const BwdParams& p, int batch, int head, int q0,
+                                             int n0, bool elem) {
+  const xfa::MaskParams& m = p.mask;
+  int flags = elem ? kElem : 0;
+  if (m.fm_vecs != nullptr) {
+    bool skip, bypass;
+    xfa::fm_decide(m.fm_mode, xfa::fm_tile_stats(m, batch, xfa::fm_head(m, head, p.h), n0, N),
+                   q0, min(q0 + kDqRows, p.sq), skip, bypass);
+    if (skip) return -1;
+    if (!bypass) flags |= kElem | kBand;
+  }
+  int on = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+      const int row = q0 + 64 * c, key = n0 + (N == 128 ? 64 * kh : 0);
+      if (row < p.sq && key < p.sk && xfa::bm_on(m, batch, head, p.h, row, key))
+        on |= 1 << (2 * c + kh);
+    }
+    const int parts = (on >> (2 * c)) & 3;
+    if (parts == 1 || parts == 2) flags |= kElem;  // the keys straddle two entries
+  }
+  return on == 0 ? -1 : flags | on << kOnShift;
+}
+
+// The next block of the masked kernels' dynamic scheduler: each item (pair
+// * 2 + half of common.cuh pair_block) taken once from the counter p.next[0]
+// (lane 0 of the calling warp, all 32 lanes calling), the heavier pairs of
+// every (batch, head) first (pair j of each before pair j + 1 of any).
+// False after the last block.
+__device__ __forceinline__ bool next_block(const BwdParams& p, int n_blocks, int heads,
+                                           bool heavy_last, int& block, int& head, int& batch) {
+  const int per_head = (n_blocks + 1) / 2, n_bh = heads * p.b;
+  for (;;) {
+    int item = 0;
+    if ((threadIdx.x & 31) == 0) item = atomicAdd(p.next, 1);
+    item = __shfl_sync(0xffffffffu, item, 0);
+    const int j = (item >> 1) / n_bh;
+    if (j >= per_head) return false;
+    const int pair = ((item >> 1) - j * n_bh) * per_head + j;
+    if (xfa::pair_block(pair, item & 1, n_blocks, heads, heavy_last, block, head, batch))
+      return true;
+  }
+}
+
+// Emit, with the producer's whole warp, the tiles a block visits for one
+// head: candidates i in [0, n) evaluated 32 at a time by `flags(i, first)`
+// (-1: skipped; `first` its row or key), the ones with kElem first, then
+// the others, each in candidate order, through `emit(first, flags)` on
+// lane 0. Up to 32 candidates are evaluated once, more once per pass.
+template <typename Flags, typename Emit>
+__device__ __forceinline__ void emit_tiles(int n, Flags flags, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  int f = -1, first = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int c = 0; c < n; c += 32) {
+      if (pass == 0 || n > 32) f = c + lane < n ? flags(c + lane, first) : -1;
+      uint32_t sel = __ballot_sync(0xffffffffu, f >= 0 && ((f & kElem) != 0) == (pass == 0));
+      while (sel != 0) {
+        const int j = __ffs(sel) - 1;
+        sel &= sel - 1;
+        const int fj = __shfl_sync(0xffffffffu, f, j), first_j = __shfl_sync(0xffffffffu, first, j);
+        if (lane == 0) emit(first_j, fj);
+      }
+    }
+  }
+}
+
+// ---- products and the elementwise work
 
 // C(64 x N) = A B^T over k = D (issued, not committed): A (64 rows) and B
 // (N rows) K-major in 128-byte-swizzled shared memory, their 64-column
@@ -340,14 +469,25 @@ __device__ __forceinline__ void p_ds(float x, float dp, float lse2, float delta,
   ds = pr * (dp - delta) * fac;
 }
 
+// True when `row` falls in one of a column's first NB FlashMask bands (the
+// causal modes have one, the full modes two); bitwise operators, since
+// short-circuit ones become a branch per element.
+template <int NB>
+__device__ __forceinline__ bool banned(const int4 b, int row) {
+  const bool first = (row >= b.x) & (row < b.y);
+  return NB == 1 ? first : first | ((row >= b.z) & (row < b.w));
+}
+
 // dK/dV: P^T and dS^T of one query tile, in place in fp32 (s: S^T -> P^T,
 // dp: dP^T -> dS^T), this thread's keys key0 and key0 + 8 as rows and the
 // tile's rows m0 + c as columns; LSE and delta per column from shared
-// memory; with MASK the elementwise causal / sq test.
-template <bool MASK, bool SOFTCAP>
+// memory; with MASK the elementwise causal / sq test, with NB > 0 also the
+// first NB FlashMask bands of the two keys (b0, b1).
+template <bool MASK, bool SOFTCAP, int NB = 0>
 __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[kDkvRows / 2],
                                          const float* lse, const float* delta, int key0, int m0,
-                                         const DenseBwdParams& p, int t) {
+                                         const BwdParams& p, int t, int4 b0 = int4{},
+                                         int4 b1 = int4{}) {
 #pragma unroll
   for (int i = 0; i < kDkvRows / 2; ++i) {
     const int c = (i >> 2) * 8 + 2 * t + (i & 1);  // the query row in the tile
@@ -355,6 +495,7 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
     if (MASK) {
       const int key = key0 + ((i >> 1) & 1) * 8, row = m0 + c;
       visible = row < p.sq && (!p.causal || key <= row + p.sk - p.sq);
+      if (NB > 0) visible = visible & !banned<NB>((i >> 1) & 1 ? b1 : b0, row);
     }
     p_ds<SOFTCAP>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i]);
   }
@@ -362,18 +503,24 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
 
 // dQ: dS of one key tile, in place in fp32 (dp: dP -> dS), from S (s), this
 // thread's rows row0 and row0 + 8 (lse2, delta per row) and the tile's keys
-// n0 + c as columns; with MASK the elementwise causal / sk test.
-template <bool MASK, bool SOFTCAP, int N>
+// n0 + c as columns; with MASK the elementwise causal / sk test and the
+// parts of the tile's keys that are on (`parts`: bit 0 keys [0, 64), bit
+// 1 [64, 128)); with NB > 0 also each column's first NB FlashMask bands
+// (`bands`, in shared memory).
+template <bool MASK, bool SOFTCAP, int N, int NB = 0>
 __device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2],
                                       const float (&lse2)[2], const float (&delta)[2], int row0,
-                                      int n0, const DenseBwdParams& p, int t) {
+                                      int n0, const BwdParams& p, int t, int parts = 3,
+                                      const int4* bands = nullptr) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
     bool visible = true;
     if (MASK) {
-      const int col = n0 + (i >> 2) * 8 + 2 * t + (i & 1), row = row0 + 8 * r;
-      visible = col < p.sk && (!p.causal || col <= row + p.sk - p.sq);
+      const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = n0 + c, row = row0 + 8 * r;
+      visible = col < p.sk && (!p.causal || col <= row + p.sk - p.sq) &&
+                ((parts >> ((i >> 2) >= 8 ? 1 : 0)) & 1);
+      if (NB > 0) visible = visible & !banned<NB>(bands[c], row);  // the load unconditional
     }
     float pr;
     p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i]);
@@ -405,14 +552,38 @@ __device__ __forceinline__ void store_rows(bf16* dst, int64_t ss, const float (&
   }
 }
 
-template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(kDenseThreads, 1)
+// ---- dK/dV
+
+// The producer's loads of one query tile (q_s, dO, LSE and delta of `head`
+// at rows m0) into ring stage `st`, after its previous use is consumed.
+template <int D>
+__device__ __forceinline__ void dkv_load_tile(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                              const CUtensorMap* tlse, const CUtensorMap* tdelta,
+                                              uint32_t base, int it, int m0, int head, int batch,
+                                              int stat0) {
+  using S = DkvSmem<D>;
+  const uint32_t bar_t = base + S::kBar + 32;  // after K/V full[2] and empty[2]
+  const int st = it % S::kStages;
+  const uint32_t t_st = base + S::kRing + st * S::kStage;
+  sm90::mbar_expect_tx(bar_t + 8 * st, 2 * S::kTile + 2 * kStatBox * 4);
+  for (int hf = 0; hf < S::kHalves; ++hf) {
+    sm90::tma_load_4d(t_st + hf * kDkvRows * kRow, tq, bar_t + 8 * st, hf * 64, m0, head, batch);
+    sm90::tma_load_4d(t_st + S::kTile + hf * kDkvRows * kRow, tdo, bar_t + 8 * st, hf * 64, m0,
+                      head, batch);
+  }
+  const int c0 = (stat0 + m0) & ~3;
+  sm90::tma_load_1d(t_st + 2 * S::kTile, tlse, bar_t + 8 * st, c0);
+  sm90::tma_load_1d(t_st + 2 * S::kTile + S::kStatStride, tdelta, bar_t + 8 * st, c0);
+}
+
+template <int D, bool SOFTCAP, bool MASKED>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tlse,
-                         const __grid_constant__ CUtensorMap tdelta, const DenseBwdParams p) {
+                         const __grid_constant__ CUtensorMap tdelta, const BwdParams p) {
   using S = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -436,51 +607,116 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
   }
   __syncthreads();
 
-  // Both roles walk the same blocks and count the same K/V loads (kv, two
-  // buffers) and query tiles (it, the ring position), so buffers, stages
-  // and parities agree without any other exchange.
+  // Unmasked, both roles walk the same blocks and count the same K/V loads
+  // (kv, two buffers) and query tiles (it, the ring position), so buffers,
+  // stages and parities agree without any other exchange. Masked, the
+  // consumers take each block from its K/V buffer's slot and each tile
+  // from its stage's word.
   const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (warpgroup == 0) {
     sm90::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      int it = 0, kv = 0;
-      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-        for (int half = 0; half < 2; ++half) {
-          int n_block, kv_head, batch;
-          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
-          const int n0 = n_block * kDkvKeys;
-          const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
-          const int kb = kv & 1;
-          sm90::mbar_wait(bar_kve + 8 * kb, ((kv >> 1) & 1) ^ 1);  // the first pass is free
-          sm90::mbar_expect_tx(bar_kv + 8 * kb, 2 * S::kKV);
-          const uint32_t k_buf = base + S::kK + kb * 2 * S::kKV, v_buf = k_buf + S::kKV;
-          for (int hf = 0; hf < S::kHalves; ++hf) {
-            sm90::tma_load_4d(k_buf + hf * kDkvKeys * kRow, &tk, bar_kv + 8 * kb, hf * 64, n0,
-                              kv_head, batch);
-            sm90::tma_load_4d(v_buf + hf * kDkvKeys * kRow, &tv, bar_kv + 8 * kb, hf * 64, n0,
-                              kv_head, batch);
-          }
-          ++kv;
-          for (int gi = 0; gi < group; ++gi) {
-            const int head = kv_head * group + gi;
-            const int stat0 = (batch * p.h + head) * p.sq;
-            for (int i = 0; i < pl.n_tiles(); ++i, ++it) {
-              const int m0 = pl.tile(i) * kDkvRows, st = it % S::kStages;
-              const uint32_t t_st = base + S::kRing + st * S::kStage;
-              sm90::mbar_wait(bar_te + 8 * st, ((it / S::kStages) & 1) ^ 1);
-              sm90::mbar_expect_tx(bar_t + 8 * st, 2 * S::kTile + 2 * kStatBox * 4);
-              for (int hf = 0; hf < S::kHalves; ++hf) {
-                sm90::tma_load_4d(t_st + hf * kDkvRows * kRow, &tq, bar_t + 8 * st, hf * 64, m0,
-                                  head, batch);
-                sm90::tma_load_4d(t_st + S::kTile + hf * kDkvRows * kRow, &tdo, bar_t + 8 * st,
-                                  hf * 64, m0, head, batch);
+    int it = 0, kv = 0;
+    if constexpr (!MASKED) {
+      if (threadIdx.x == 0) {
+        for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+          for (int half = 0; half < 2; ++half) {
+            int n_block, kv_head, batch;
+            if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+            const int n0 = n_block * kDkvKeys;
+            const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+            const int kb = kv & 1;
+            sm90::mbar_wait(bar_kve + 8 * kb, ((kv >> 1) & 1) ^ 1);  // the first pass is free
+            sm90::mbar_expect_tx(bar_kv + 8 * kb, 2 * S::kKV);
+            const uint32_t k_buf = base + S::kK + kb * 2 * S::kKV, v_buf = k_buf + S::kKV;
+            for (int hf = 0; hf < S::kHalves; ++hf) {
+              sm90::tma_load_4d(k_buf + hf * kDkvKeys * kRow, &tk, bar_kv + 8 * kb, hf * 64, n0,
+                                kv_head, batch);
+              sm90::tma_load_4d(v_buf + hf * kDkvKeys * kRow, &tv, bar_kv + 8 * kb, hf * 64, n0,
+                                kv_head, batch);
+            }
+            ++kv;
+            for (int gi = 0; gi < group; ++gi) {
+              const int head = kv_head * group + gi;
+              const int stat0 = (batch * p.h + head) * p.sq;
+              for (int i = 0; i < pl.n_tiles(); ++i, ++it) {
+                const int st = it % S::kStages;
+                sm90::mbar_wait(bar_te + 8 * st, ((it / S::kStages) & 1) ^ 1);
+                dkv_load_tile<D>(&tq, &tdo, &tlse, &tdelta, base, it, pl.tile(i) * kDkvRows, head,
+                                 batch, stat0);
               }
-              const int c0 = (stat0 + m0) & ~3;
-              sm90::tma_load_1d(t_st + 2 * S::kTile, &tlse, bar_t + 8 * st, c0);
-              sm90::tma_load_1d(t_st + 2 * S::kTile + S::kStatStride, &tdelta, bar_t + 8 * st, c0);
             }
           }
         }
+      }
+    } else if (threadIdx.x < 32) {
+      // ---- the masked producer: its whole warp decides, lane 0 issues (and
+      // keeps the counts it and kv, and the tiles it emits and those of them
+      // with the elementwise test)
+      const xfa::MaskParams& m = p.mask;
+      const bool lead = threadIdx.x == 0;
+      int tiles = 0, elem = 0;
+      for (;;) {
+        int n_block = 0, kv_head = 0, batch = 0;
+        const bool more = next_block(p, n_nb, p.hk, false, n_block, kv_head, batch);
+        const int kb = kv & 1;
+        if (lead) {
+          sm90::mbar_wait(bar_kve + 8 * kb, ((kv >> 1) & 1) ^ 1);
+          *reinterpret_cast<int4*>(smem + S::kBlk + 16 * kb) =
+              make_int4(more ? n_block : kEnd, kv_head, batch, 0);
+          if (more) {
+            sm90::mbar_expect_tx(bar_kv + 8 * kb, 2 * S::kKV);
+            const uint32_t k_buf = base + S::kK + kb * 2 * S::kKV, v_buf = k_buf + S::kKV;
+            for (int hf = 0; hf < S::kHalves; ++hf) {
+              sm90::tma_load_4d(k_buf + hf * kDkvKeys * kRow, &tk, bar_kv + 8 * kb, hf * 64,
+                                n_block * kDkvKeys, kv_head, batch);
+              sm90::tma_load_4d(v_buf + hf * kDkvKeys * kRow, &tv, bar_kv + 8 * kb, hf * 64,
+                                n_block * kDkvKeys, kv_head, batch);
+            }
+          } else {
+            sm90::mbar_arrive(bar_kv + 8 * kb);
+          }
+        }
+        ++kv;
+        if (!more) break;
+        const int n0 = n_block * kDkvKeys;
+        const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+        const int n_masked = pl.n_masked();
+        for (int gi = 0; gi < group; ++gi) {
+          const int head = kv_head * group + gi;
+          const int stat0 = (batch * p.h + head) * p.sq;
+          const int* st = m.fm_vecs != nullptr
+                              ? xfa::fm_tile_stats(m, batch, xfa::fm_head(m, head, p.h), n0,
+                                                   kDkvKeys)
+                              : nullptr;
+          emit_tiles(
+              pl.n_tiles(),
+              [&](int i, int& m0) {
+                m0 = pl.tile(i) * kDkvRows;
+                return dkv_tile_flags(p, st, batch, head, n0, m0, i < n_masked);
+              },
+              [&](int m0, int flags) {
+                const int s_ = it % S::kStages;
+                sm90::mbar_wait(bar_te + 8 * s_, ((it / S::kStages) & 1) ^ 1);
+                *reinterpret_cast<int4*>(smem + S::kRing + s_ * S::kStage + S::kWord) =
+                    make_int4(m0, gi, flags, 0);
+                dkv_load_tile<D>(&tq, &tdo, &tlse, &tdelta, base, it, m0, head, batch, stat0);
+                ++it;
+                ++tiles;
+                elem += flags & kElem;
+              });
+        }
+        if (lead) {  // the block's end
+          const int s_ = it % S::kStages;
+          sm90::mbar_wait(bar_te + 8 * s_, ((it / S::kStages) & 1) ^ 1);
+          *reinterpret_cast<int4*>(smem + S::kRing + s_ * S::kStage + S::kWord) =
+              make_int4(kEnd, 0, 0, 0);
+          sm90::mbar_arrive(bar_t + 8 * s_);
+        }
+        ++it;
+      }
+      if (lead) {
+        atomicAdd(p.next + 1, tiles);
+        atomicAdd(p.next + 2, elem);
       }
     }
   } else {
@@ -490,77 +726,128 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
     const int wt = threadIdx.x & 127;
     const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     int it = 0, kv = 0;
-    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-      for (int half = 0; half < 2; ++half) {
-        int n_block, kv_head, batch;
-        if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
-        const int n0 = n_block * kDkvKeys;
-        const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
-        const int n_tiles = pl.n_tiles(), n_masked = pl.n_masked();
-        const int kb = kv & 1;
-        const uint32_t k_wg = base + S::kK + kb * 2 * S::kKV + cw * 64 * kRow;
-        const uint32_t v_wg = k_wg + S::kKV;
-        const int key0 = n0 + cw * 64 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-        float dk[D / 2], dv[D / 2];
-#pragma unroll
-        for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+    int pair = blockIdx.x, half = 0;
+    for (;;) {
+      int n_block, kv_head, batch;
+      const int kb = kv & 1;
+      if constexpr (MASKED) {
         sm90::mbar_wait(bar_kv + 8 * kb, (kv >> 1) & 1);
-        // the group's heads one after the other, each over the plan's tiles
-        for (int idx = 0; idx < group * n_tiles; ++idx, ++it) {
-          const int st = it % S::kStages;
-          const int gi = idx / n_tiles, i = idx - gi * n_tiles, m0 = pl.tile(i) * kDkvRows;
-          const uint32_t t_st = base + S::kRing + st * S::kStage;
-          sm90::mbar_wait(bar_t + 8 * st, (it / S::kStages) & 1);
-          float s[kDkvRows / 2], dp[kDkvRows / 2];
-          sm90::wgmma_fence();
-          // S^T = K q_s^T, dP^T = V dO^T
-          issue_ss<D, kDkvRows>(s, k_wg, kDkvKeys * kRow, t_st, kDkvRows * kRow);
-          issue_ss<D, kDkvRows>(dp, v_wg, kDkvKeys * kRow, t_st + S::kTile, kDkvRows * kRow);
-          sm90::wgmma_commit();
-          sm90::wgmma_wait<0>();
-          sm90::fence_regs(s);
-          sm90::fence_regs(dp);
-          const int stat0 = (batch * p.h + kv_head * group + gi) * p.sq;
-          const float* lse = reinterpret_cast<const float*>(smem + S::kRing + st * S::kStage +
-                                                            2 * S::kTile) +
-                             ((stat0 + m0) & 3);
-          if (i < n_masked) {
-            dkv_p_ds<true, SOFTCAP>(s, dp, lse, lse + S::kStatStride / 4, key0, m0, p, t);
-          } else {
-            dkv_p_ds<false, SOFTCAP>(s, dp, lse, lse + S::kStatStride / 4, key0, m0, p, t);
-          }
-          uint32_t pa[kDkvRows / 4], da[kDkvRows / 4];
-          pack_pairs(s, pa);
-          pack_pairs(dp, da);
-          sm90::fence_regs(dv);
-          sm90::fence_regs(dk);
-          sm90::fence_regs(pa);
-          sm90::fence_regs(da);
-          sm90::wgmma_fence();
-          issue_rs<D, kDkvRows>(dv, pa, t_st + S::kTile, kDkvRows * kRow);  // dV += P^T dO
-          issue_rs<D, kDkvRows>(dk, da, t_st, kDkvRows * kRow);             // dK += dS^T q_s
-          sm90::wgmma_commit();
-          sm90::wgmma_wait<0>();
-          sm90::fence_regs(dv);
-          sm90::fence_regs(dk);
-          if (lane == 0) sm90::mbar_arrive(bar_te + 8 * st);  // one arrival per consumer warp
-        }
-        if (lane == 0) sm90::mbar_arrive(bar_kve + 8 * kb);
-        ++kv;
-        store_rows<D>(p.dk + batch * p.dk_sb + kv_head * p.dk_sh, p.dk_ss, dk, key0, p.sk, 1.f, t);
-        store_rows<D>(p.dv + batch * p.dv_sb + kv_head * p.dv_sh, p.dv_ss, dv, key0, p.sk, 1.f, t);
+        const int4 blk = *reinterpret_cast<const int4*>(smem + S::kBlk + 16 * kb);
+        if (blk.x == kEnd) break;
+        n_block = blk.x;
+        kv_head = blk.y;
+        batch = blk.z;
+      } else {
+        if (pair >= n_pairs) break;
+        const bool ok = xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch);
+        if (half == 1) pair += gridDim.x;
+        half ^= 1;
+        if (!ok) continue;
       }
+      const int n0 = n_block * kDkvKeys;
+      const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+      const int n_tiles = pl.n_tiles(), n_masked = pl.n_masked();
+      const uint32_t k_wg = base + S::kK + kb * 2 * S::kKV + cw * 64 * kRow;
+      const uint32_t v_wg = k_wg + S::kKV;
+      const int key0 = n0 + cw * 64 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+      float dk[D / 2], dv[D / 2];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+      if constexpr (!MASKED) sm90::mbar_wait(bar_kv + 8 * kb, (kv >> 1) & 1);
+      // masked: the FlashMask bands of this thread's keys, of mask head bh
+      int4 b0{}, b1{};
+      int bh = -1;
+      // the group's heads one after the other, each over its tiles
+      for (int idx = 0;; ++idx, ++it) {
+        const int st = it % S::kStages;
+        const uint8_t* stage = smem + S::kRing + st * S::kStage;
+        const uint32_t t_st = base + S::kRing + st * S::kStage;
+        int gi, m0, flags;
+        if constexpr (MASKED) {
+          sm90::mbar_wait(bar_t + 8 * st, (it / S::kStages) & 1);
+          const int4 w = *reinterpret_cast<const int4*>(stage + S::kWord);
+          if (w.x == kEnd || !((w.z >> (kOnShift + cw)) & 1)) {
+            if (lane == 0) sm90::mbar_arrive(bar_te + 8 * st);
+            if (w.x == kEnd) {
+              ++it;
+              break;
+            }
+            continue;
+          }
+          m0 = w.x;
+          gi = w.y;
+          flags = w.z;
+          const xfa::MaskParams& m = p.mask;
+          const int fh = flags & kBand ? xfa::fm_head(m, kv_head * group + gi, p.h) : bh;
+          if (fh != bh) {  // this thread's keys' bands, read under the products
+            const int4* kb4 = p.bands + static_cast<int64_t>(batch * m.fm_heads + fh) * m.fm_skp;
+            b0 = kb4[key0];
+            b1 = kb4[key0 + 8];
+            bh = fh;
+          }
+        } else {
+          if (idx == group * n_tiles) break;
+          gi = idx / n_tiles;
+          const int i = idx - gi * n_tiles;
+          m0 = pl.tile(i) * kDkvRows;
+          flags = i < n_masked ? kElem : 0;
+          sm90::mbar_wait(bar_t + 8 * st, (it / S::kStages) & 1);
+        }
+        float s[kDkvRows / 2], dp[kDkvRows / 2];
+        sm90::wgmma_fence();
+        // S^T = K q_s^T, dP^T = V dO^T
+        issue_ss<D, kDkvRows>(s, k_wg, kDkvKeys * kRow, t_st, kDkvRows * kRow);
+        issue_ss<D, kDkvRows>(dp, v_wg, kDkvKeys * kRow, t_st + S::kTile, kDkvRows * kRow);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        const int stat0 = (batch * p.h + kv_head * group + gi) * p.sq;
+        const float* lse = reinterpret_cast<const float*>(stage + 2 * S::kTile) + ((stat0 + m0) & 3);
+        const float* delta = lse + S::kStatStride / 4;
+        if (!(flags & kElem)) {
+          dkv_p_ds<false, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
+        } else if (!MASKED || !(flags & kBand)) {
+          dkv_p_ds<true, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
+        } else if (p.mask.fm_mode <= xfa::kFmCausal2) {
+          dkv_p_ds<true, SOFTCAP, 1>(s, dp, lse, delta, key0, m0, p, t, b0, b1);
+        } else {
+          dkv_p_ds<true, SOFTCAP, 2>(s, dp, lse, delta, key0, m0, p, t, b0, b1);
+        }
+        uint32_t pa[kDkvRows / 4], da[kDkvRows / 4];
+        pack_pairs(s, pa);
+        pack_pairs(dp, da);
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(da);
+        sm90::wgmma_fence();
+        issue_rs<D, kDkvRows>(dv, pa, t_st + S::kTile, kDkvRows * kRow);  // dV += P^T dO
+        issue_rs<D, kDkvRows>(dk, da, t_st, kDkvRows * kRow);             // dK += dS^T q_s
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        if (lane == 0) sm90::mbar_arrive(bar_te + 8 * st);  // one arrival per consumer warp
+      }
+      if (lane == 0) sm90::mbar_arrive(bar_kve + 8 * kb);
+      ++kv;
+      store_rows<D>(p.dk + batch * p.dk_sb + kv_head * p.dk_sh, p.dk_ss, dk, key0, p.sk, 1.f, t);
+      store_rows<D>(p.dv + batch * p.dv_sb + kv_head * p.dv_sh, p.dv_ss, dv, key0, p.sk, 1.f, t);
     }
   }
 }
 
-template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(kDenseThreads, 1)
+// ---- dQ
+
+template <int D, bool SOFTCAP, bool MASKED>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tdo,
                         const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv, const DenseBwdParams p) {
-  using S = DqSmem<D>;
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tbands, const BwdParams p) {
+  using S = DqSmem<D, MASKED>;
   constexpr int kN = S::kN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -583,45 +870,117 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
   }
   __syncthreads();
 
-  // As in flash_fwd_kernel: both roles count the same Q loads (qk) and K/V
-  // tiles (it).
+  // As in flash_fwd_kernel: unmasked, both roles count the same Q loads
+  // (qk) and K/V tiles (it); masked, the consumers take each block from its
+  // Q buffer's slot (every block takes a buffer, loaded or not) and each
+  // tile from its stage's word.
   const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (warpgroup == 0) {
     sm90::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      int it = 0, qk = 0;
-      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-        for (int half = 0; half < 2; ++half) {
-          int m_block, head, batch, n_tiles, n_free;
-          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
-          const int q0 = m_block * kDqRows;
-          xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
-          if (n_tiles == 0) continue;
-          const int kv_head = head / (p.h / p.hk);
-          const int qb = qk & 1;
-          sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);
-          sm90::mbar_expect_tx(bar_q + 8 * qb, 2 * S::kQ);
-          const uint32_t q_buf = base + S::kQ0 + qb * 2 * S::kQ;
-          for (int hf = 0; hf < S::kHalves; ++hf) {
-            sm90::tma_load_4d(q_buf + hf * kDqRows * kRow, &tq, bar_q + 8 * qb, hf * 64, q0, head,
-                              batch);
-            sm90::tma_load_4d(q_buf + S::kQ + hf * kDqRows * kRow, &tdo, bar_q + 8 * qb, hf * 64,
-                              q0, head, batch);
-          }
-          ++qk;
-          for (int i = 0; i < n_tiles; ++i, ++it) {
-            const int st = it % S::kStages, n0 = (n_tiles - 1 - i) * kN;
-            const uint32_t k_st = base + S::kRing + st * S::kStage, v_st = k_st + S::kKV;
-            sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
-            sm90::mbar_expect_tx(bar_kv + 8 * st, 2 * S::kKV);
-            for (int hf = 0; hf < S::kHalves; ++hf) {
-              sm90::tma_load_4d(k_st + hf * kN * kRow, &tk, bar_kv + 8 * st, hf * 64, n0, kv_head,
-                                batch);
-              sm90::tma_load_4d(v_st + hf * kN * kRow, &tv, bar_kv + 8 * st, hf * 64, n0, kv_head,
-                                batch);
+    int it = 0, qk = 0;
+    auto load_kv = [&](int n0, int kv_head, int batch, uint32_t extra) {
+      const int st = it % S::kStages;
+      const uint32_t k_st = base + S::kRing + st * S::kStage, v_st = k_st + S::kKV;
+      sm90::mbar_expect_tx(bar_kv + 8 * st, 2 * S::kKV + extra);
+      for (int hf = 0; hf < S::kHalves; ++hf) {
+        sm90::tma_load_4d(k_st + hf * kN * kRow, &tk, bar_kv + 8 * st, hf * 64, n0, kv_head, batch);
+        sm90::tma_load_4d(v_st + hf * kN * kRow, &tv, bar_kv + 8 * st, hf * 64, n0, kv_head, batch);
+      }
+    };
+    auto load_q = [&](int q0, int head, int batch) {
+      const int qb = qk & 1;
+      const uint32_t q_buf = base + S::kQ0 + qb * 2 * S::kQ;
+      sm90::mbar_expect_tx(bar_q + 8 * qb, 2 * S::kQ);
+      for (int hf = 0; hf < S::kHalves; ++hf) {
+        sm90::tma_load_4d(q_buf + hf * kDqRows * kRow, &tq, bar_q + 8 * qb, hf * 64, q0, head,
+                          batch);
+        sm90::tma_load_4d(q_buf + S::kQ + hf * kDqRows * kRow, &tdo, bar_q + 8 * qb, hf * 64, q0,
+                          head, batch);
+      }
+    };
+    if constexpr (!MASKED) {
+      if (threadIdx.x == 0) {
+        for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+          for (int half = 0; half < 2; ++half) {
+            int m_block, head, batch, n_tiles, n_free;
+            if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+            const int q0 = m_block * kDqRows;
+            xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
+            if (n_tiles == 0) continue;
+            const int kv_head = head / (p.h / p.hk);
+            sm90::mbar_wait(bar_qe + 8 * (qk & 1), ((qk >> 1) & 1) ^ 1);
+            load_q(q0, head, batch);
+            ++qk;
+            for (int i = 0; i < n_tiles; ++i, ++it) {
+              const int st = it % S::kStages;
+              sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
+              load_kv((n_tiles - 1 - i) * kN, kv_head, batch, 0);
             }
           }
         }
+      }
+    } else if (threadIdx.x < 32) {
+      // ---- the masked producer: its whole warp decides, lane 0 issues (and
+      // counts the tiles it emits, as in dK/dV)
+      const xfa::MaskParams& m = p.mask;
+      const bool lead = threadIdx.x == 0;
+      int tiles = 0, elem = 0;
+      for (;;) {
+        int m_block = 0, head = 0, batch = 0, n_tiles = 0, n_free = 0;
+        const bool more = next_block(p, n_mb, p.h, true, m_block, head, batch);
+        const int q0 = m_block * kDqRows;
+        if (more) xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
+        const int qb = qk & 1;
+        if (lead) {
+          sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);
+          *reinterpret_cast<int4*>(smem + S::kBlk + 16 * qb) =
+              make_int4(more ? m_block : kEnd, head, batch, 0);
+          if (n_tiles > 0) {
+            load_q(q0, head, batch);
+          } else {
+            sm90::mbar_arrive(bar_q + 8 * qb);
+          }
+        }
+        ++qk;
+        if (!more) break;
+        const int kv_head = head / (p.h / p.hk);
+        const int n_masked = n_tiles - n_free;
+        const int64_t band_row =
+            m.fm_vecs != nullptr
+                ? static_cast<int64_t>(batch * m.fm_heads + xfa::fm_head(m, head, p.h)) * m.fm_skp
+                : 0;
+        emit_tiles(
+            n_tiles,
+            [&](int i, int& n0) {
+              n0 = (n_tiles - 1 - i) * kN;
+              return dq_tile_flags<kN>(p, batch, head, q0, n0, i < n_masked);
+            },
+            [&](int n0, int flags) {
+              const int st = it % S::kStages;
+              sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
+              const int band = flags & kBand;
+              *reinterpret_cast<int4*>(smem + S::kRing + st * S::kStage + S::kWord) =
+                  make_int4(n0, flags, 0, 0);
+              load_kv(n0, kv_head, batch, band ? kN * 16 : 0);
+              if (band)
+                sm90::tma_load_2d(base + S::kRing + st * S::kStage + S::kBands, &tbands,
+                                  bar_kv + 8 * st, 0, static_cast<int>(band_row + n0));
+              ++it;
+              ++tiles;
+              elem += flags & kElem;
+            });
+        if (lead) {  // the block's end
+          const int st = it % S::kStages;
+          sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
+          *reinterpret_cast<int4*>(smem + S::kRing + st * S::kStage + S::kWord) =
+              make_int4(kEnd, 0, 0, 0);
+          sm90::mbar_arrive(bar_kv + 8 * st);
+        }
+        ++it;
+      }
+      if (lead) {
+        atomicAdd(p.next + 1, tiles);
+        atomicAdd(p.next + 2, elem);
       }
     }
   } else {
@@ -631,486 +990,163 @@ __global__ void __launch_bounds__(kDenseThreads, 1)
     const int wt = threadIdx.x & 127;
     const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     int it = 0, qk = 0;
-    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-      for (int half = 0; half < 2; ++half) {
-        int m_block, head, batch, n_tiles, n_free;
-        if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
-        const int q0 = m_block * kDqRows;
-        xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
-        const int n_masked = n_tiles - n_free;  // the first tiles visited
-        const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-        const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
-        float lse2[2], delta[2];
+    int pair = blockIdx.x, half = 0;
+    for (;;) {
+      int m_block, head, batch, n_tiles = 0, n_free = 0;
+      const int qb = qk & 1;
+      if constexpr (MASKED) {
+        sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
+        const int4 blk = *reinterpret_cast<const int4*>(smem + S::kBlk + 16 * qb);
+        if (blk.x == kEnd) break;
+        ++qk;
+        m_block = blk.x;
+        head = blk.y;
+        batch = blk.z;
+      } else {
+        if (pair >= n_pairs) break;
+        const bool ok = xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch);
+        if (half == 1) pair += gridDim.x;
+        half ^= 1;
+        if (!ok) continue;
+      }
+      const int q0 = m_block * kDqRows;
+      xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
+      const int n_masked = n_tiles - n_free;  // the first tiles visited
+      const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+      const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
+      float lse2[2], delta[2];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = row0 + 8 * r;
-          lse2[r] = row < p.sq ? p.lse[stat + row] * kLog2e : INFINITY;
-          delta[r] = row < p.sq ? p.delta[stat + row] : 0.f;
-        }
-        float dq[D / 2];
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        lse2[r] = row < p.sq ? p.lse[stat + row] * kLog2e : INFINITY;
+        delta[r] = row < p.sq ? p.delta[stat + row] : 0.f;
+      }
+      float dq[D / 2];
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
-        const int qb = qk & 1;
-        const uint32_t q_wg = base + S::kQ0 + qb * 2 * S::kQ + cw * 64 * kRow;
-        const uint32_t do_wg = q_wg + S::kQ;
-        if (n_tiles > 0) {
-          sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
-          ++qk;
-        }
-        for (int i = 0; i < n_tiles; ++i) {
-          const int cur = it + i, st = cur % S::kStages;
-          const uint32_t k_st = base + S::kRing + st * S::kStage, v_st = k_st + S::kKV;
-          sm90::mbar_wait(bar_kv + 8 * st, (cur / S::kStages) & 1);
-          float s[kN / 2], dp[kN / 2];
-          sm90::wgmma_fence();
-          issue_ss<D, kN>(s, q_wg, kDqRows * kRow, k_st, kN * kRow);  // S = q_s K^T
-          issue_ss<D, kN>(dp, do_wg, kDqRows * kRow, v_st, kN * kRow);  // dP = dO V^T
-          sm90::wgmma_commit();
-          sm90::wgmma_wait<0>();
-          sm90::fence_regs(s);
-          sm90::fence_regs(dp);
-          // after the block's last products on q_s and dO in shared memory
-          if (i == n_tiles - 1 && lane == 0) sm90::mbar_arrive(bar_qe + 8 * qb);
-          const int n0 = (n_tiles - 1 - i) * kN;
-          if (i < n_masked) {
-            dq_ds<true, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t);
-          } else {
-            dq_ds<false, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t);
+      for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+      const uint32_t q_wg = base + S::kQ0 + qb * 2 * S::kQ + cw * 64 * kRow;
+      const uint32_t do_wg = q_wg + S::kQ;
+      if (!MASKED && n_tiles > 0) {
+        sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
+        ++qk;
+      }
+      for (int i = 0;; ++i, ++it) {
+        const int st = it % S::kStages;
+        const uint8_t* stage = smem + S::kRing + st * S::kStage;
+        const uint32_t k_st = base + S::kRing + st * S::kStage, v_st = k_st + S::kKV;
+        int n0, flags, parts = 3;
+        if constexpr (MASKED) {
+          sm90::mbar_wait(bar_kv + 8 * st, (it / S::kStages) & 1);
+          const int4 w = *reinterpret_cast<const int4*>(stage + S::kWord);
+          parts = (w.y >> (kOnShift + 2 * cw)) & 3;
+          if (w.x == kEnd || parts == 0) {
+            if (lane == 0) {
+              sm90::mbar_arrive(bar_e + 8 * st);
+              // after the block's last products on q_s and dO in shared memory
+              if (w.x == kEnd) sm90::mbar_arrive(bar_qe + 8 * qb);
+            }
+            if (w.x == kEnd) {
+              ++it;
+              break;
+            }
+            continue;
           }
-          uint32_t da[kN / 4];
-          pack_pairs(dp, da);
-          sm90::fence_regs(dq);
-          sm90::fence_regs(da);
-          sm90::wgmma_fence();
-          issue_rs<D, kN>(dq, da, k_st, kN * kRow);  // dQ += dS K
-          sm90::wgmma_commit();
-          sm90::wgmma_wait<0>();
-          sm90::fence_regs(dq);
-          if (lane == 0) sm90::mbar_arrive(bar_e + 8 * st);  // one arrival per consumer warp
+          n0 = w.x;
+          flags = w.y;
+        } else {
+          if (i == n_tiles) break;
+          n0 = (n_tiles - 1 - i) * kN;
+          flags = i < n_masked ? kElem : 0;
+          sm90::mbar_wait(bar_kv + 8 * st, (it / S::kStages) & 1);
         }
-        it += n_tiles;
-        store_rows<D>(p.dq + batch * p.dq_sb + head * p.dq_sh, p.dq_ss, dq, row0, p.sq, p.sm_scale,
-                      t);
+        float s[kN / 2], dp[kN / 2];
+        sm90::wgmma_fence();
+        issue_ss<D, kN>(s, q_wg, kDqRows * kRow, k_st, kN * kRow);  // S = q_s K^T
+        issue_ss<D, kN>(dp, do_wg, kDqRows * kRow, v_st, kN * kRow);  // dP = dO V^T
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        // after the block's last products on q_s and dO in shared memory
+        if (!MASKED && i == n_tiles - 1 && lane == 0) sm90::mbar_arrive(bar_qe + 8 * qb);
+        if (!(flags & kElem)) {
+          dq_ds<false, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t);
+        } else if (!MASKED || !(flags & kBand)) {
+          dq_ds<true, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t, parts);
+        } else if (p.mask.fm_mode <= xfa::kFmCausal2) {
+          dq_ds<true, SOFTCAP, kN, 1>(s, dp, lse2, delta, row0, n0, p, t, parts,
+                                      reinterpret_cast<const int4*>(stage + S::kBands));
+        } else {
+          dq_ds<true, SOFTCAP, kN, 2>(s, dp, lse2, delta, row0, n0, p, t, parts,
+                                      reinterpret_cast<const int4*>(stage + S::kBands));
+        }
+        uint32_t da[kN / 4];
+        pack_pairs(dp, da);
+        sm90::fence_regs(dq);
+        sm90::fence_regs(da);
+        sm90::wgmma_fence();
+        issue_rs<D, kN>(dq, da, k_st, kN * kRow);  // dQ += dS K
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dq);
+        if (lane == 0) sm90::mbar_arrive(bar_e + 8 * st);  // one arrival per consumer warp
       }
+      store_rows<D>(p.dq + batch * p.dq_sb + head * p.dq_sh, p.dq_ss, dq, row0, p.sq, p.sm_scale,
+                    t);
     }
   }
 }
 
-template <int D, bool SOFTCAP>
-cudaError_t launch_dkv_kernel(const CUtensorMap* maps, const DenseBwdParams& p, cudaStream_t s) {
+// ---- launches
+
+// One persistent CTA per SM (shared memory allows no second), or one per
+// pair of blocks (per block under the masked kernels' dynamic scheduler)
+// when there are fewer.
+inline cudaError_t grid_size(int n_blocks, int heads, const BwdParams& p, bool masked, int& grid) {
+  int sms = 0;
+  const cudaError_t err = sm90::sm_count(sms);
+  const int units = masked ? n_blocks * heads * p.b : xfa::block_pairs(n_blocks, heads, p.b);
+  grid = units < sms ? units : sms;
+  return err;
+}
+
+template <int D, bool SOFTCAP, bool MASKED>
+cudaError_t launch_dkv_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP, MASKED>,
+                                          DkvSmem<D>::kBytes, done);
+  int grid = 0;
+  if (err == cudaSuccess) err = grid_size((p.sk + kDkvKeys - 1) / kDkvKeys, p.hk, p, MASKED, grid);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DkvSmem<D>::kBytes, s>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  return cudaGetLastError();
+}
+
+template <int D, bool SOFTCAP, bool MASKED>
+cudaError_t launch_dq_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
+  using S = DqSmem<D, MASKED>;
   static std::atomic<uint64_t> done{0};
   cudaError_t err =
-      sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP>, DkvSmem<D>::kBytes, done);
-  int sms = 0;
-  if (err == cudaSuccess) err = sm90::sm_count(sms);
+      sm90::smem_limit_once(flash_bwd_dq_kernel<D, SOFTCAP, MASKED>, S::kBytes, done);
+  int grid = 0;
+  if (err == cudaSuccess) err = grid_size((p.sq + kDqRows - 1) / kDqRows, p.h, p, MASKED, grid);
   if (err != cudaSuccess) return err;
-  // one persistent CTA per SM (shared memory allows no second), or one per
-  // pair of blocks when there are fewer
-  const int pairs = xfa::block_pairs((p.sk + kDkvKeys - 1) / kDkvKeys, p.hk, p.b);
-  flash_bwd_dkv_kernel<D, SOFTCAP>
-      <<<pairs < sms ? pairs : sms, kDenseThreads, DkvSmem<D>::kBytes, s>>>(
-          maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  flash_bwd_dq_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, S::kBytes, s>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], p);
   return cudaGetLastError();
 }
 
-template <int D, bool SOFTCAP>
-cudaError_t launch_dq_kernel(const CUtensorMap* maps, const DenseBwdParams& p, cudaStream_t s) {
-  static std::atomic<uint64_t> done{0};
-  cudaError_t err =
-      sm90::smem_limit_once(flash_bwd_dq_kernel<D, SOFTCAP>, DqSmem<D>::kBytes, done);
-  int sms = 0;
-  if (err == cudaSuccess) err = sm90::sm_count(sms);
-  if (err != cudaSuccess) return err;
-  const int pairs = xfa::block_pairs((p.sq + kDqRows - 1) / kDqRows, p.h, p.b);
-  flash_bwd_dq_kernel<D, SOFTCAP><<<pairs < sms ? pairs : sms, kDenseThreads, DqSmem<D>::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], p);
-  return cudaGetLastError();
+template <int D, bool MASKED>
+cudaError_t launch_dkv(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
+  return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED>(maps, p, s)
+                         : launch_dkv_kernel<D, false, MASKED>(maps, p, s);
 }
 
-template <int D>
-cudaError_t launch_dense_dkv(const CUtensorMap* maps, const DenseBwdParams& p, cudaStream_t s) {
-  return p.softcap > 0.f ? launch_dkv_kernel<D, true>(maps, p, s)
-                         : launch_dkv_kernel<D, false>(maps, p, s);
-}
-
-template <int D>
-cudaError_t launch_dense_dq(const CUtensorMap* maps, const DenseBwdParams& p, cudaStream_t s) {
-  return p.softcap > 0.f ? launch_dq_kernel<D, true>(maps, p, s)
-                         : launch_dq_kernel<D, false>(maps, p, s);
-}
-
-// ----------------------------------------------------------- masked route
-
-constexpr int kThreads = 128;     // four warps
-constexpr int kKeysPerBlock = 64;  // dKV: 16 keys per warp
-constexpr int kRowsPerBlock = 64;  // dQ: 16 query rows per warp
-
-struct BwdParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  const float* lse;    // (b, h, sq) contiguous
-  const float* delta;  // (b, h, sq) contiguous
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int64_t q_sb, q_sh, q_ss;
-  int64_t k_sb, k_sh, k_ss;
-  int64_t v_sb, v_sh, v_ss;
-  int64_t do_sb, do_sh, do_ss;
-  int64_t dq_sb, dq_sh, dq_ss;
-  int64_t dk_sb, dk_sh, dk_ss;
-  int64_t dv_sb, dv_sh, dv_ss;
-  int h, hk, sq, sk;
-  float sm_scale, softcap;
-  int causal;
-  xfa::MaskParams mask;
-};
-
-// As xfa::mma_abt_smem_a, with the A operand already in registers (D / 16
-// k-steps).
-template <int D, int N>
-__device__ __forceinline__ void mma_abt_reg_a(float (&acc)[N / 8][4], const uint32_t (&a)[D / 16][4],
-                                              const bf16* b_tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const bf16* br = &b_tile[(j * 8 + g) * (D + 8) + kk * 16 + 2 * t];
-      mma_16816(acc[j], a[kk], *reinterpret_cast<const uint32_t*>(br),
-                *reinterpret_cast<const uint32_t*>(br + 8));
-    }
-  }
-}
-
-// acc (16 x D) += A(16 x K, the fp32 fragments `src`, rounded to bf16) times
-// the staged (K rows x D) tile, read through ldmatrix.trans.
-template <int D, int K>
-__device__ __forceinline__ void mma_ab_trans(float (&acc)[D / 8][4], const float (&src)[K / 8][4],
-                                             const bf16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    pack_a(a, src, kk);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, &tile[(kk * 16 + (lane & 15)) * (D + 8) + j * 8]);
-      mma_16816(acc[j], a, b0, b1);
-    }
-  }
-}
-
-// P and dS of one score element s (fp32, before softcap) with its dP:
-// returns P and turns dp into dS. Invisible elements give 0 for both.
-__device__ __forceinline__ float p_and_ds(float s, float& dp, float lse, float delta, bool visible,
-                                          float softcap) {
-  float fac = 1.f;
-  if (softcap > 0.f) {
-    const float th = tanhf(s / softcap);
-    s = th * softcap;
-    fac = 1.f - th * th;
-  }
-  const float pr = visible ? expf(s - lse) : 0.f;
-  float ds = pr * (dp - delta);
-  dp = ds * fac;
-  return pr;
-}
-
-template <int D>
-__host__ __device__ constexpr int dkv_query_tile() { return D == 128 ? 32 : 64; }
-
-template <int D>
-__host__ __device__ constexpr size_t dkv_smem_bytes() {
-  return (2 * kKeysPerBlock + 2 * dkv_query_tile<D>()) * (D + 8) * sizeof(bf16) +
-         2 * dkv_query_tile<D>() * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) masked_flash_bwd_dkv_kernel(const BwdParams p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kQT = dkv_query_tile<D>();
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kKeysPerBlock * kStride;
-  bf16* qs = vs + kKeysPerBlock * kStride;
-  bf16* dos = qs + kQT * kStride;
-  float* lse_s = reinterpret_cast<float*>(dos + kQT * kStride);
-  float* delta_s = lse_s + kQT;
-  __shared__ int fm_s[4][kKeysPerBlock];  // the block's keys' FlashMask vectors
-
-  const int n0 = blockIdx.x * kKeysPerBlock;  // low key tiles see most rows: first
-  const int kv_head = blockIdx.y, batch = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int key0 = n0 + warp * 16;  // this warp's first key
-  const int offset = p.sk - p.sq;
-  const int group = p.h / p.hk;
-  const xfa::MaskParams& mk = p.mask;
-
-  stage_rows<D, kKeysPerBlock, false>(ks, p.k + batch * p.k_sb + kv_head * p.k_sh, p.k_ss, n0,
-                                      p.sk, 1.f);
-  stage_rows<D, kKeysPerBlock, false>(vs, p.v + batch * p.v_sb + kv_head * p.v_sh, p.v_ss, n0,
-                                      p.sk, 1.f);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  }
-
-  // causal: the first query row that sees key n0 is n0 - offset
-  int m_begin = 0;
-  if (p.causal && n0 - offset > 0) m_begin = (n0 - offset) / kQT;
-  const int n_qtiles = (p.sq + kQT - 1) / kQT;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int head = kv_head * group + gi;
-    const bf16* qb = p.q + batch * p.q_sb + head * p.q_sh;
-    const bf16* dob = p.dout + batch * p.do_sb + head * p.do_sh;
-    const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
-    int m_end = n_qtiles;
-    if (mk.fm_vecs != nullptr) {  // this head's mask head: its vectors
-      const int fh = xfa::fm_head(mk, head, p.h);
-      __syncthreads();  // the previous head's last tile is consumed
-      if (threadIdx.x < kKeysPerBlock) {
-        for (int vi = 0; vi < xfa::fm_nv(mk.fm_mode); ++vi)
-          fm_s[vi][threadIdx.x] = xfa::fm_vec(mk, batch, fh, vi, n0 + threadIdx.x);
-      }
-      if (mk.fm_mode == xfa::kFmCausal1) {  // rows >= max LTStart: all masked
-        const int lts_max = xfa::fm_tile_stats(mk, batch, fh, n0, kKeysPerBlock)[0];
-        m_end = min(m_end, (lts_max + kQT - 1) / kQT);
-      }
-    }
-    for (int mt = m_begin; mt < m_end; ++mt) {
-      const int m0 = mt * kQT;
-      bool band = false;  // uniform over the block
-      if (!xfa::mask_tile(mk, batch, head, p.h, m0, min(m0 + kQT, p.sq), n0, kKeysPerBlock,
-                           band))
-        continue;
-      __syncthreads();  // the previous tile is consumed (and K/V staged)
-      stage_rows<D, kQT, true>(qs, qb, p.q_ss, m0, p.sq, p.sm_scale);
-      stage_rows<D, kQT, false>(dos, dob, p.do_ss, m0, p.sq, 1.f);
-      for (int i = threadIdx.x; i < kQT; i += kThreads) {
-        const int row = m0 + i;
-        lse_s[i] = row < p.sq ? p.lse[stat + row] : INFINITY;
-        delta_s[i] = row < p.sq ? p.delta[stat + row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K q_s^T and dP^T = V dO^T: this warp's 16 keys x kQT rows
-      float s[kQT / 8][4], dp[kQT / 8][4];
-#pragma unroll
-      for (int j = 0; j < kQT / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-      mma_abt_smem_a<D, kQT>(s, ks, warp * 16, qs, g, t);
-      mma_abt_smem_a<D, kQT>(dp, vs, warp * 16, dos, g, t);
-
-      // element e of n-tile j: key g + (e >> 1) * 8 of the warp, query
-      // j * 8 + 2t + (e & 1) of the tile
-#pragma unroll
-      for (int j = 0; j < kQT / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + g + (e >> 1) * 8;
-          const int qi = j * 8 + 2 * t + (e & 1);
-          const int row = m0 + qi;
-          const int c = key - n0;
-          const bool visible =
-              key < p.sk && row < p.sq && (!p.causal || key <= row + offset) &&
-              !(band && xfa::fm_banned(mk.fm_mode, row, fm_s[0][c], fm_s[1][c], fm_s[2][c],
-                                       fm_s[3][c]));
-          s[j][e] = p_and_ds(s[j][e], dp[j][e], lse_s[qi], delta_s[qi], visible, p.softcap);
-        }
-      }
-      mma_ab_trans<D, kQT>(dv_acc, s, dos, lane);   // dV += P^T dO
-      mma_ab_trans<D, kQT>(dk_acc, dp, qs, lane);   // dK += dS^T q_s
-    }
-  }
-
-  bf16* dkb = p.dk + batch * p.dk_sb + kv_head * p.dk_sh;
-  bf16* dvb = p.dv + batch * p.dv_sb + kv_head * p.dv_sh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + g + i * 8;
-    if (key >= p.sk) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key * p.dk_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key * p.dv_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) masked_flash_bwd_dq_kernel(const BwdParams p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kKT = D == 128 ? 32 : 64;  // keys per tile
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) bf16 ks[kKT * kStride];
-  __shared__ __align__(16) bf16 vs[kKT * kStride];
-  __shared__ int fm_s[4][kKT];  // the tile's FlashMask vectors
-
-  // heaviest causal query tiles first
-  const int m_block = gridDim.x - 1 - blockIdx.x;
-  const int head = blockIdx.y, batch = blockIdx.z;
-  const int kv_head = head / (p.h / p.hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = m_block * kRowsPerBlock + warp * 16;
-  const int offset = p.sk - p.sq;
-  const xfa::MaskParams& mk = p.mask;
-  const int q0 = m_block * kRowsPerBlock, q1 = min(q0 + kRowsPerBlock, p.sq);
-
-  const bf16* qb = p.q + batch * p.q_sb + head * p.q_sh;
-  const bf16* dob = p.dout + batch * p.do_sb + head * p.do_sh;
-  const bf16* kb = p.k + batch * p.k_sb + kv_head * p.k_sh;
-  const bf16* vb = p.v + batch * p.v_sb + kv_head * p.v_sh;
-  const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
-
-  // q_s and dO fragments (A operands) of this warp's 16 rows
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + g + (r & 1) * 8;
-      const int col = kk * 16 + (r >> 1) * 8 + 2 * t;
-      uint32_t qv = 0, dv = 0;
-      if (row < p.sq) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(qb + row * p.q_ss + col));
-        qv = pack_bf16(f.x * p.sm_scale, f.y * p.sm_scale);
-        dv = *reinterpret_cast<const uint32_t*>(dob + row * p.do_ss + col);
-      }
-      qf[kk][r] = qv;
-      df[kk][r] = dv;
-    }
-  }
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + i * 8;
-    lse_r[i] = row < p.sq ? p.lse[stat + row] : INFINITY;
-    delta_r[i] = row < p.sq ? p.delta[stat + row] : 0.f;
-  }
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
-
-  int n_tiles = (p.sk + kKT - 1) / kKT;
-  if (p.causal) {
-    const int last_row = min((m_block + 1) * kRowsPerBlock, p.sq) - 1;
-    const int max_col = last_row + offset;
-    n_tiles = max_col < 0 ? 0 : min(n_tiles, max_col / kKT + 1);
-  }
-
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    const int n0 = nt * kKT;
-    bool band = false;  // uniform over the block
-    if (!xfa::mask_tile(mk, batch, head, p.h, q0, q1, n0, kKT, band)) continue;
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<D, kKT, false>(ks, kb, p.k_ss, n0, p.sk, 1.f);
-    stage_rows<D, kKT, false>(vs, vb, p.v_ss, n0, p.sk, 1.f);
-    if (band && threadIdx.x < kKT) {
-      const int fh = xfa::fm_head(mk, head, p.h);
-      for (int vi = 0; vi < xfa::fm_nv(mk.fm_mode); ++vi)
-        fm_s[vi][threadIdx.x] = xfa::fm_vec(mk, batch, fh, vi, n0 + threadIdx.x);
-    }
-    __syncthreads();
-
-    float s[kKT / 8][4], dp[kKT / 8][4];
-#pragma unroll
-    for (int j = 0; j < kKT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    }
-    mma_abt_reg_a<D, kKT>(s, qf, ks, g, t);   // S = q_s K^T
-    mma_abt_reg_a<D, kKT>(dp, df, vs, g, t);  // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < kKT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + g + (e >> 1) * 8;
-        const int col = n0 + j * 8 + 2 * t + (e & 1);
-        const int c = col - n0;
-        const bool visible =
-            col < p.sk && row < p.sq && (!p.causal || col <= row + offset) &&
-            !(band && xfa::fm_banned(mk.fm_mode, row, fm_s[0][c], fm_s[1][c], fm_s[2][c],
-                                     fm_s[3][c]));
-        p_and_ds(s[j][e], dp[j][e], lse_r[e >> 1], delta_r[e >> 1], visible, p.softcap);
-      }
-    }
-    mma_ab_trans<D, kKT>(dq_acc, dp, ks, lane);  // dQ += dS K
-  }
-
-  bf16* dqb = p.dq + batch * p.dq_sb + head * p.dq_sh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + i * 8;
-    if (row >= p.sq) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row * p.dq_ss + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(dq_acc[j][2 * i] * p.sm_scale,
-                                dq_acc[j][2 * i + 1] * p.sm_scale);
-    }
-  }
-}
-
-BwdParams make_params(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                      const int64_t* st, int h, int hk, int sq, int sk, float sm_scale,
-                      float softcap, int causal, const xfa::MaskParams& mask) {
-  BwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  int64_t* fields[] = {&p.q_sb,  &p.q_sh,  &p.q_ss,  &p.k_sb,  &p.k_sh,  &p.k_ss,  &p.v_sb,
-                       &p.v_sh,  &p.v_ss,  &p.do_sb, &p.do_sh, &p.do_ss, &p.dq_sb, &p.dq_sh,
-                       &p.dq_ss, &p.dk_sb, &p.dk_sh, &p.dk_ss, &p.dv_sb, &p.dv_sh, &p.dv_ss};
-  for (int i = 0; i < 21; ++i) *fields[i] = st[i];
-  p.h = h; p.hk = hk; p.sq = sq; p.sk = sk;
-  p.sm_scale = sm_scale;
-  p.softcap = softcap;
-  p.causal = causal;
-  p.mask = mask;
-  return p;
-}
-
-bool has_masks(const BwdParams& p) { return p.mask.fm_vecs != nullptr || p.mask.bm != nullptr; }
-
-template <int D>
-cudaError_t launch_masked_dkv(const BwdParams& p, int b, cudaStream_t s) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(masked_flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.sk + kKeysPerBlock - 1) / kKeysPerBlock, p.hk, b);
-  masked_flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, s>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_masked_dq(const BwdParams& p, int b, cudaStream_t s) {
-  const dim3 grid((p.sq + kRowsPerBlock - 1) / kRowsPerBlock, p.h, b);
-  masked_flash_bwd_dq_kernel<D><<<grid, kThreads, 0, s>>>(p);
-  return cudaGetLastError();
+template <int D, bool MASKED>
+cudaError_t launch_dq(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
+  return p.softcap > 0.f ? launch_dq_kernel<D, true, MASKED>(maps, p, s)
+                         : launch_dq_kernel<D, false, MASKED>(maps, p, s);
 }
 
 }  // namespace
@@ -1140,13 +1176,18 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
 }
 
 // The 21 strides, in elements, are (batch, head, seq) of q, k, v, dout, dq,
-// dk and dv in that order; the head-dim axis of every tensor is contiguous.
+// dk and dv in that order; the head-dim axis of every tensor is contiguous;
+// `q` is q_s, the pre-pass's bf16(q * sm_scale), and q_s, k, v and dout are
+// read through TMA tensor maps: pointers and strides multiples of 16 bytes.
 // lse and delta are (b, h, sq) fp32 contiguous. The mask arguments
 // (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per key tile of the
-// kernel launched: 64 keys for dK/dV, kKT (64 at d 64, 32 at d 128) for dQ.
-// With no mask the dense kernels run, and `q` is q_s, the pre-pass's
-// bf16(q * sm_scale), read through TMA tensor maps: pointers and strides
-// multiples of 16 bytes; with a mask the masked kernels run on q itself.
+// kernel launched: 128 keys for dK/dV, dq_keys(d) (128 at d 64, 64 at
+// d 128) for dQ; with a FlashMask, `fm_bands` is (b, fm_heads, fm_skp, 4)
+// int32 contiguous, each column's two bands [lo1, hi1) and [lo2, hi2).
+// With a mask, `counters` is three int32 in device memory, cleared here on
+// the stream: the dynamic scheduler's next block, then the tiles the
+// kernel visits and those of them with the elementwise test (bwd.py
+// bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan count the same).
 // dk/dv are written by xfa_flash_bwd_dkv, dq by xfa_flash_bwd_dq; each
 // launch overwrites its outputs (no zero fill needed) for sq, sk > 0.
 #define XFA_BWD_ARGS                                                                           \
@@ -1156,27 +1197,27 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
       int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, \
       int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, \
       int b, int h, int hk, int sq, int sk, int d, float sm_scale, float softcap, int causal,    \
-      XFA_MASK_ARGS, void *stream
-#define XFA_BWD_PARAMS                                                                        \
-  const int64_t st[21] = {q_sb,  q_sh,  q_ss,  k_sb,  k_sh,  k_ss,  v_sb,  v_sh,  v_ss,  do_sb, \
-                          do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, \
-                          dv_ss};                                                              \
-  const BwdParams p = make_params(q, k, v, dout, lse, delta, dq, dk, dv, st, h, hk, sq, sk,    \
-                                  sm_scale, softcap, causal, XFA_MASK_VALUES);                 \
-  const DenseBwdParams dp{static_cast<const float*>(lse), static_cast<const float*>(delta),    \
-                          static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), \
-                          dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h,   \
-                          hk, sq, sk, sm_scale, softcap, causal};                              \
-  cudaStream_t s = static_cast<cudaStream_t>(stream)
+      XFA_MASK_ARGS, const void *fm_bands, void *counters, void *stream
+#define XFA_BWD_PARAMS                                                                         \
+  const xfa::MaskParams mask = XFA_MASK_VALUES;                                                \
+  const bool masked = mask.fm_vecs != nullptr || mask.bm != nullptr;                           \
+  const BwdParams p{static_cast<const float*>(lse), static_cast<const float*>(delta),          \
+                    static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),    \
+                    dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h, hk,   \
+                    sq, sk, sm_scale, softcap, causal, mask,                                   \
+                    static_cast<const int4*>(fm_bands),                                        \
+                    static_cast<int*>(counters)};                                              \
+  cudaStream_t s = static_cast<cudaStream_t>(stream);                                          \
+  if (masked) {                                                                                \
+    if (counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);                   \
+    const cudaError_t err = cudaMemsetAsync(counters, 0, 3 * sizeof(int), s);                  \
+    if (err != cudaSuccess) return static_cast<int>(err);                                      \
+  }
 
 XFA_EXPORT int xfa_flash_bwd_dkv(XFA_BWD_ARGS) {
-  XFA_BWD_PARAMS;
   if (b <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (has_masks(p))
-    return static_cast<int>(d == 64 ? launch_masked_dkv<64>(p, b, s)
-                                    : launch_masked_dkv<128>(p, b, s));
-  if (sq <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((d != 64 && d != 128) || sq <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  XFA_BWD_PARAMS;
   CUtensorMap maps[6];
   if (!sm90::encode_bhsd(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kDkvRows) ||
       !sm90::encode_bhsd(&maps[1], dout, b, h, sq, d, do_sb, do_sh, do_ss, kDkvRows) ||
@@ -1185,24 +1226,27 @@ XFA_EXPORT int xfa_flash_bwd_dkv(XFA_BWD_ARGS) {
       !sm90::encode_flat_f32(&maps[4], lse, static_cast<int64_t>(b) * h * sq, kStatBox) ||
       !sm90::encode_flat_f32(&maps[5], delta, static_cast<int64_t>(b) * h * sq, kStatBox))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(d == 64 ? launch_dense_dkv<64>(maps, dp, s)
-                                  : launch_dense_dkv<128>(maps, dp, s));
+  cudaError_t err;
+  if (d == 64) err = masked ? launch_dkv<64, true>(maps, p, s) : launch_dkv<64, false>(maps, p, s);
+  else err = masked ? launch_dkv<128, true>(maps, p, s) : launch_dkv<128, false>(maps, p, s);
+  return static_cast<int>(err);
 }
 
 XFA_EXPORT int xfa_flash_bwd_dq(XFA_BWD_ARGS) {
-  XFA_BWD_PARAMS;
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (has_masks(p))
-    return static_cast<int>(d == 64 ? launch_masked_dq<64>(p, b, s)
-                                    : launch_masked_dq<128>(p, b, s));
-  if (sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap maps[4];
+  if ((d != 64 && d != 128) || sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  XFA_BWD_PARAMS;
+  CUtensorMap maps[5] = {};
   if (!sm90::encode_bhsd(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kDqRows) ||
       !sm90::encode_bhsd(&maps[1], dout, b, h, sq, d, do_sb, do_sh, do_ss, kDqRows) ||
       !sm90::encode_bhsd(&maps[2], k, b, hk, sk, d, k_sb, k_sh, k_ss, dq_keys(d)) ||
-      !sm90::encode_bhsd(&maps[3], v, b, hk, sk, d, v_sb, v_sh, v_ss, dq_keys(d)))
+      !sm90::encode_bhsd(&maps[3], v, b, hk, sk, d, v_sb, v_sh, v_ss, dq_keys(d)) ||
+      (fm_bands != nullptr &&
+       !sm90::encode_rows_i32x4(&maps[4], fm_bands,
+                                static_cast<int64_t>(b) * fm_heads * fm_skp, dq_keys(d))))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(d == 64 ? launch_dense_dq<64>(maps, dp, s)
-                                  : launch_dense_dq<128>(maps, dp, s));
+  cudaError_t err;
+  if (d == 64) err = masked ? launch_dq<64, true>(maps, p, s) : launch_dq<64, false>(maps, p, s);
+  else err = masked ? launch_dq<128, true>(maps, p, s) : launch_dq<128, false>(maps, p, s);
+  return static_cast<int>(err);
 }

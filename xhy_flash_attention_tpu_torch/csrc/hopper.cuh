@@ -74,6 +74,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// the same through a 2-D tensor map
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // the same through a 5-D tensor map
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3, int c4) {
@@ -420,6 +430,20 @@ inline bool encode_flat_f32(CUtensorMap* map, const void* ptr, int64_t n, int bo
   const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
   const cuuint32_t step[1] = {1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, boxes,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `rows` contiguous rows of 4 int32 (16 bytes) as a 2-D map with boxes of
+// `box` rows (at most 256), not swizzled; rows past the end arrive as zeros.
+inline bool encode_rows_i32x4(CUtensorMap* map, const void* ptr, int64_t rows, int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {4, static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {16};
+  const cuuint32_t boxes[2] = {4, static_cast<cuuint32_t>(box)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(ptr), dims, strides, boxes,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

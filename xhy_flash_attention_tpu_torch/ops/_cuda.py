@@ -45,8 +45,10 @@ _c_void_p, _c_int, _c_int64, _c_float = (
 # padded length; block mask, batch and head strides, heads, columns, gq, gk
 _MASK_ARGS = ([_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
                _c_int64, _c_int64] + [_c_int] * 4)
+# the backward's: the mask arguments, then the FlashMask bands, the masked
+# kernels' three counters and the stream
 _BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
-             + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p])
+             + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 3)
 _SIGNATURES = {
     "xfa_ln_fwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p,
                    _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,

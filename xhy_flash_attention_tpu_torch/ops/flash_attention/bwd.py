@@ -6,14 +6,15 @@ split pair: the dK/dV kernel (the counterpart of the TPU kernel
 `_bwd_dkv_kernel`, bwd.py:180) and the dQ kernel (`_bwd_dq_kernel`,
 bwd.py:511), each with its own launch count, after a pre-pass kernel
 (:func:`flash_bwd_prep`) that writes delta = rowsum(dO * O), which JAX
-leaves to XLA (bwd.py:736-737), and q_s = q * sm_scale in bf16. Without a
-sparse mask the kernels are the Hopper ones (persistent CTAs, TMA rings,
-wgmma; :func:`bwd_dkv_tile_plan`, :func:`bwd_dq_tile_plan` and
-:func:`bwd_schedule` mirror what they visit); with one they are the
-mma.sync kernels of slice 4. On CPU tensors the plain version
-:func:`attention_bwd_ref` runs. Covered: causal and full attention, GQA,
-softcap, FlashMask and block-sparse masks (both kernels skip the tiles the
-forward skips); windows raise until slice 5.
+leaves to XLA (bwd.py:736-737), and q_s = q * sm_scale in bf16. The kernels
+are persistent CTAs fed by TMA rings, on wgmma; :func:`bwd_dkv_tile_plan`,
+:func:`bwd_dq_tile_plan` and :func:`bwd_schedule` mirror what they visit.
+A FlashMask or block mask runs their masked instantiations, whose producer
+decides from the mask which tiles each block visits
+(:func:`bwd_masked_dkv_tile_plan`, :func:`bwd_masked_dq_tile_plan`). On
+CPU tensors the plain version :func:`attention_bwd_ref` runs. Covered:
+causal and full attention, GQA, softcap, FlashMask and block-sparse masks;
+windows raise until slice 5.
 """
 
 from __future__ import annotations
@@ -24,23 +25,25 @@ from typing import Tuple
 import torch
 
 from .. import _cuda
-from .common import (BWD_DKV_KEY_TILE, CUDA_DTYPE_NOT_PORTED, SLICE_VARLEN,
-                     KernelMasks, bwd_dq_key_tile, cdiv, dense_keep_mask,
-                     expand_heads)
+from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_VARLEN, KernelMasks, cdiv,
+                     dense_keep_mask, expand_heads, fm_skip_bypass)
 from .fwd import key_tile_plan, pair_schedule
 
 __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
+           "bwd_masked_dkv_tile_plan", "bwd_masked_dq_tile_plan",
            "bwd_prep_ref", "bwd_schedule", "flash_attention_bwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep",
            "launch_flash_bwd"]
 
-# Tiles of the dense (unmasked) kernels, csrc/flash_bwd.cu: a dK/dV block
-# of BWD_DKV_TILE_N keys streams query tiles of BWD_DKV_TILE_M rows
-# (kDkvKeys, kDkvRows); a dQ block of BWD_DQ_TILE_M rows streams key tiles
-# of bwd_dq_tile_n(d) keys (kDqRows, dq_keys).
+# Tiles of the kernels, csrc/flash_bwd.cu: a dK/dV block of BWD_DKV_TILE_N
+# keys streams query tiles of BWD_DKV_TILE_M rows (kDkvKeys, kDkvRows); a dQ
+# block of BWD_DQ_TILE_M rows streams key tiles of bwd_dq_tile_n(d) keys
+# (kDqRows, dq_keys). Under a mask each consumer computes a part of 64 keys
+# (dK/dV) or 64 rows (dQ), and a dQ tile of 128 keys has two parts of 64.
 BWD_DKV_TILE_N = 128
 BWD_DKV_TILE_M = 64
 BWD_DQ_TILE_M = 128
+BWD_PART = 64
 
 
 def bwd_dq_tile_n(d: int) -> int:
@@ -80,6 +83,120 @@ def bwd_dq_tile_plan(sq: int, sk: int, causal: bool, d: int):
     keys, last tile first, the masked ones first (fwd.py
     :func:`key_tile_plan`)."""
     return key_tile_plan(sq, sk, causal, BWD_DQ_TILE_M, bwd_dq_tile_n(d))
+
+
+class _MaskTiles:
+    """The masked kernels' producer's view of a :class:`KernelMasks` for
+    key tiles of ``tile_keys`` keys (csrc/common.cuh ``fm_decide``,
+    ``bm_on``), on Python ints."""
+
+    def __init__(self, masks: KernelMasks, h: int, tile_keys: int):
+        self.h, self.tile = h, tile_keys
+        self.fm = self.bm = None
+        if masks.fm_vecs is not None:
+            self.mode = masks.fm_mode
+            self.fm = masks.stats(tile_keys).cpu().tolist()
+        if masks.bm is not None:
+            self.bm, self.gq, self.gk = masks.bm.cpu().tolist(), masks.gq, \
+                masks.gk
+
+    def decide(self, batch: int, head: int, q0: int, q1: int, col0: int):
+        """(skip, bypass) of rows [q0, q1) against the tile at col0."""
+        if self.fm is None:
+            return False, True
+        per_batch = self.fm[batch]
+        st = per_batch[head // (self.h // len(per_batch))][col0 // self.tile]
+        return fm_skip_bypass(self.mode, lambda v, w: st[v][w], q0, q1)
+
+    def on(self, batch: int, head: int, row: int, col: int) -> bool:
+        """The block-mask entry of (row, col) (True without a block
+        mask)."""
+        if self.bm is None:
+            return True
+        per_batch = self.bm[batch if len(self.bm) > 1 else 0]
+        entry = per_batch[head // (self.h // len(per_batch))]
+        return entry[row // self.gq][col // self.gk] != 0
+
+
+def _elementwise_first(tiles, flag):
+    return [t for t in tiles if t[flag]] + [t for t in tiles if not t[flag]]
+
+
+def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
+                             sq: int, sk: int, causal: bool):
+    """The query tiles the masked dK/dV kernel visits (csrc/flash_bwd.cu
+    ``dkv_tile_flags`` and its producer): for each block (batch, kv head,
+    key block of BWD_DKV_TILE_N keys), a list of (head in the group, tile,
+    elementwise, parts) in visit order. The candidates of each head are
+    :func:`bwd_dkv_tile_plan`'s; a tile is skipped when the FlashMask stats
+    of the block's keys mask its rows everywhere or when neither part
+    (the block's keys [0, 64) and [64, 128), a consumer's each; a part past
+    sk is off) has its block-mask entry on. ``elementwise``: the plan's
+    causal / ragged test or the FlashMask band test (not bypassed); those
+    tiles come first within a head, then the others, each in candidate
+    order."""
+    mt = _MaskTiles(masks, h, BWD_DKV_TILE_N)
+    m, g = BWD_DKV_TILE_M, h // hk
+    plan = {}
+    for nb, cands in enumerate(bwd_dkv_tile_plan(sq, sk, causal)):
+        n0 = nb * BWD_DKV_TILE_N
+        for batch in range(b):
+            for kv_head in range(hk):
+                tiles = []
+                for gi in range(g):
+                    head = kv_head * g + gi
+                    found = []
+                    for t, masked in cands:
+                        skip, bypass = mt.decide(batch, head, t * m,
+                                                 min(t * m + m, sq), n0)
+                        parts = tuple(
+                            n0 + c * BWD_PART < sk
+                            and mt.on(batch, head, t * m, n0 + c * BWD_PART)
+                            for c in (0, 1))
+                        if not skip and any(parts):
+                            found.append((gi, t, masked or not bypass,
+                                          parts))
+                    tiles += _elementwise_first(found, 2)
+                plan[(batch, kv_head, nb)] = tiles
+    return plan
+
+
+def bwd_masked_dq_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
+                            sq: int, sk: int, causal: bool, d: int):
+    """The key tiles the masked dQ kernel visits at head dim ``d``
+    (csrc/flash_bwd.cu ``dq_tile_flags`` and its producer): for each block
+    (batch, head, query block of BWD_DQ_TILE_M rows), a list of (tile,
+    elementwise, parts) in visit order, ``parts[c][j]`` whether consumer c
+    (rows [64c, 64c + 64) of the block) computes the tile's keys [64j, 64j +
+    64) (both the same for a tile of 64 keys): on when those rows and keys
+    start below sq and sk and their block-mask entry is on. The candidates
+    are :func:`bwd_dq_tile_plan`'s; a tile is skipped when the FlashMask
+    stats mask the block's rows everywhere or no part is on.
+    ``elementwise``: the plan's causal / ragged test, the FlashMask band
+    test, or a consumer whose two key parts differ; those come first."""
+    n, m = bwd_dq_tile_n(d), BWD_DQ_TILE_M
+    mt = _MaskTiles(masks, h, n)
+    plan = {}
+    for mb, cands in enumerate(bwd_dq_tile_plan(sq, sk, causal, d)):
+        q0 = mb * m
+        for batch in range(b):
+            for head in range(h):
+                found = []
+                for t, masked in cands:
+                    n0 = t * n
+                    skip, bypass = mt.decide(batch, head, q0, min(q0 + m, sq),
+                                             n0)
+                    keys = (n0, n0 + BWD_PART if n == 2 * BWD_PART else n0)
+                    parts = tuple(
+                        tuple(row < sq and key < sk
+                              and mt.on(batch, head, row, key) for key in keys)
+                        for row in (q0, q0 + BWD_PART))
+                    if skip or not any(map(any, parts)):
+                        continue
+                    straddle = any(a != c for a, c in parts)
+                    found.append((t, masked or not bypass or straddle, parts))
+                plan[(batch, head, mb)] = _elementwise_first(found, 1)
+    return plan
 
 
 def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,
@@ -163,34 +280,51 @@ def _check_shapes(q, k, v, do, lse, dq, dk, dv):
 
 def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
                      sm_scale: float, causal: bool, softcap: float,
-                     masks: KernelMasks = None) -> None:
+                     masks: KernelMasks = None, tile_counts=None) -> None:
     """Launch one kernel of csrc/flash_bwd.cu (``which``: "dkv" writes dk
     and dv, "dq" writes dq) on (b, h, s, d)-shaped views of any strides
     (head dim contiguous, pointers and strides multiples of 16 bytes): q,
     do, dq (b, h, sq, d); k, v, dk, dv (b, hk, sk, d); lse and delta (b, h,
     sq) fp32 contiguous; ``masks`` the forward's FlashMask and block-mask
-    flags, or None. Without a mask the dense kernels run and ``q`` is q_s,
-    the pre-pass's bf16(q * sm_scale) (:func:`flash_bwd_prep`); with one the
-    masked kernels run on q itself. The callers count the launch."""
+    flags, or None. ``q`` is q_s, the pre-pass's bf16(q * sm_scale)
+    (:func:`flash_bwd_prep`). A mask runs the masked instantiation, whose
+    blocks come from a counter in device memory (the heavier first); its
+    three int32 counters are written to ``tile_counts`` when it is given
+    (a contiguous int32 tensor of 3 on the card): the scheduler's, then
+    the tiles the kernel visited and those of them with the elementwise
+    test, as :func:`bwd_masked_dkv_tile_plan` / :func:`bwd_masked_dq_tile_plan`
+    count them. The callers count the launch."""
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
                        *(masks.tensors() if masks is not None else ()))
     _check_shapes(q, k, v, do, lse, dq, dk, dv)
+    if tile_counts is not None and (
+            tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
+            or tile_counts.device != q.device
+            or not tile_counts.is_contiguous()):
+        raise ValueError("tile_counts must be a contiguous int32 tensor of "
+                         "3 on q's device")
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    if _dense(masks) and min(sq, sk) == 0:  # no pair: zero gradients
+    if min(sq, sk) == 0:  # no pair: zero gradients
         for t in ((dk, dv) if which == "dkv" else (dq,)):
             t.zero_()
         return
     fn = {"dkv": _cuda.lib().xfa_flash_bwd_dkv,
           "dq": _cuda.lib().xfa_flash_bwd_dq}[which]
-    key_tile = BWD_DKV_KEY_TILE if which == "dkv" else bwd_dq_key_tile(d)
+    key_tile = BWD_DKV_TILE_N if which == "dkv" else bwd_dq_tile_n(d)
+    masked = not _dense(masks)
+    counters = None
+    if masked:
+        counters = (tile_counts if tile_counts is not None else
+                    torch.empty(3, dtype=torch.int32, device=q.device))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
               dv.data_ptr(),
               *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]),
               b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
               int(causal), *KernelMasks.c_args(masks, key_tile),
-              _cuda.stream())
+              _cuda.ptr(masks.bands() if masked else None),
+              _cuda.ptr(counters), _cuda.stream())
     _cuda.check(code, f"flash_bwd_{which}")
 
 
@@ -294,11 +428,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
                            device=q.device).transpose(1, 2)
 
     dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
-    do = _cuda.aligned(do, 8)
-    dense = _dense(masks)
-    qs, delta = flash_bwd_prep(q, out, do, sm_scale=sm_scale, scale_q=dense)
+    # TMA reads 16-byte aligned bases and strides; autograd may hand over
+    # expanded or transposed tensors
+    q, k, v, out, do = (_cuda.aligned(t, 8) for t in (q, k, v, out, do))
+    qs, delta = flash_bwd_prep(q, out, do, sm_scale=sm_scale)
     kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap, masks=masks)
-    q_in = qs if dense else q
-    flash_bwd_dkv(q_in, k, v, do, lse, delta, dq, dk, dv, **kw)
-    flash_bwd_dq(q_in, k, v, do, lse, delta, dq, dk, dv, **kw)
+    flash_bwd_dkv(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
+    flash_bwd_dq(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
     return dq, dk, dv

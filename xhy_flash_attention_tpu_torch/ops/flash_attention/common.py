@@ -46,15 +46,13 @@ CUDA_DTYPE_NOT_PORTED = (
     f"q/k/v; fp16 and fp32 come with {SLICE_DTYPES}"
 )
 
-# Key tiles of the CUDA kernels (csrc/flash_fwd.cu kBlockN, csrc/flash_bwd.cu
-# kKeysPerBlock and the dQ kernel's kKT): the FlashMask block stats are taken
-# per tile of these sizes.
+# Key tiles of the masked forward (csrc/flash_fwd.cu kBlockN): its FlashMask
+# block stats are taken per tile of this size; the backward's per its own
+# tiles (bwd.py BWD_DKV_TILE_N, bwd_dq_tile_n). FlashMask vectors are padded
+# to a multiple of FM_PAD_KEYS, which every one of those tiles divides (and
+# which keeps the backward's TMA starts 16-byte aligned).
 FWD_KEY_TILE = 64
-BWD_DKV_KEY_TILE = 64
-
-
-def bwd_dq_key_tile(d: int) -> int:
-    return 32 if d == 128 else 64
+FM_PAD_KEYS = 128
 
 
 def cdiv(a: int, b: int) -> int:
@@ -179,6 +177,25 @@ def fm_banned(mode: str, vecs: torch.Tensor, rows: torch.Tensor):
     raise ValueError(mode)
 
 
+def fm_bands(vecs_padded: torch.Tensor, mode: str) -> torch.Tensor:
+    """Each column's masked rows as two half-open bands: (b, hm, NV, skp)
+    vectors -> (b, hm, skp, 4) int32 [lo1, hi1, lo2, hi2], a row masked when
+    it lies in either band (rows are >= 0 and < FM_BIG), the form the
+    backward kernels test elementwise."""
+    v = vecs_padded.to(torch.int32)
+    zero = torch.zeros_like(v[:, :, 0])
+    big = torch.full_like(zero, FM_BIG)
+    if mode == "causal_1":
+        cols = (v[:, :, 0], big, zero, zero)
+    elif mode == "causal_2":
+        cols = (v[:, :, 0], v[:, :, 1], zero, zero)
+    elif mode == "full_2":
+        cols = (v[:, :, 0], big, zero, v[:, :, 1])
+    else:
+        cols = tuple(v[:, :, i] for i in range(4))
+    return torch.stack(cols, -1).contiguous()
+
+
 def fm_keep_mask(vecs: torch.Tensor, mode: str, sq: int) -> torch.Tensor:
     """Dense keep mask (True = attend) of (b, hm, NV, sk) vectors: (b, hm,
     sq, sk). The causal part of a causal mode is not in it: the attention
@@ -203,7 +220,9 @@ def check_block_mask(block_mask, b: int, h: int, sq: int, sk: int,
                      tile: int = 64):
     """Validate ``block_mask = (mask, gq, gk)``: mask (b|1, hm|1,
     ceil(sq/gq), ceil(sk/gk)) 0/1 with hm dividing h, and granularities that
-    the kernels' tiles (at most ``tile`` rows or keys) divide."""
+    are multiples of ``tile``: the forward's 64-row and 64-key tiles lie
+    inside one entry, and the backward decides per 64-row or 64-key part of
+    its 128-row and 128-key blocks."""
     mask, gq, gk = block_mask
     if gq % tile or gk % tile or gq <= 0 or gk <= 0:
         raise ValueError(f"block mask granularity ({gq}, {gk}) must be a "
@@ -251,19 +270,20 @@ def dense_keep_mask(sq: int, sk: int, h: int, *, flashmask_vecs=None,
 class KernelMasks:
     """The FlashMask and block-mask flags as the CUDA kernels take them
     (the ``MaskParams`` of csrc/common.cuh): int32 vectors padded to a
-    multiple of 64 keys, per key tile stats made once per tile size, and the
-    int32 block mask at its own granularity with its batch and head
-    strides (0 where it broadcasts)."""
+    multiple of FM_PAD_KEYS keys, per key tile stats made once per tile
+    size, the backward's bands (:func:`fm_bands`) made once, and the int32
+    block mask at its own granularity with its batch and head strides (0
+    where it broadcasts)."""
 
     def __init__(self, b: int, h: int, sq: int, sk: int, *,
                  flashmask_vecs=None, flashmask_mode=None, block_mask=None):
-        self.fm_vecs = self.bm = None
+        self.fm_vecs = self.bm = self._bands = None
         self._stats = {}
         if flashmask_vecs is not None:
             check_flashmask(flashmask_vecs, flashmask_mode, b, h, sk)
             self.fm_mode = flashmask_mode
             self.fm_vecs = fm_pad_vecs(flashmask_vecs, flashmask_mode,
-                                       FWD_KEY_TILE)
+                                       FM_PAD_KEYS)
         if block_mask is not None:
             check_block_mask(block_mask, b, h, sq, sk)
             mask, self.gq, self.gk = block_mask
@@ -279,6 +299,13 @@ class KernelMasks:
         if block_k not in self._stats:
             self._stats[block_k] = fm_block_stats(self.fm_vecs, block_k)
         return self._stats[block_k]
+
+    def bands(self):
+        """The FlashMask bands (b, hm, skp, 4), or None without a
+        FlashMask."""
+        if self.fm_vecs is not None and self._bands is None:
+            self._bands = fm_bands(self.fm_vecs, self.fm_mode)
+        return self._bands
 
     @staticmethod
     def c_args(masks, block_k: int) -> tuple:
