@@ -58,13 +58,14 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
 Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
-sparse-mask kernels (the forward and both backward kernels under FM-doc's
-and BS's masks, both backward kernels under FM-swg's, the reduced-scores
-kernel at FM-swg's shape) against their plain versions, prints each whole
-attention backward against SDPA's backward, checks that three attention
-backward passes are bitwise equal at each of the three dense shapes, and
-prints for each mask the tiles the masked backward kernels visit, as
-their producers count them, checked against bwd.py's mirrors.
+sparse-mask kernels (the forward and both backward kernels under FM-doc's,
+BS's and FM-swg's masks, the reduced-scores kernel at FM-swg's shape, with
+the exponent units' floor beside the bound) against their plain versions,
+prints each whole attention backward against SDPA's backward, checks that
+three attention backward passes are bitwise equal at each of the three
+dense shapes, and prints for each mask the tiles the masked forward and
+backward kernels visit, as their producers count them, checked against
+fwd.py's and bwd.py's mirrors.
 The last lines: the card, one JSON object with a row per kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -89,6 +90,8 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+TENSOR_CLOCK_HZ = 1.83e9   # the clock of the bf16 peak: 4096 FLOP a clock an SM
+SFU_EX2_PER_CLOCK = 16     # ex2 results a clock per SM (compute capability 9.0)
 BF16_ULP = 2.0 ** -7       # one bf16 unit in the last place, relative
 
 LLAMA3_8B = dict(  # meta-llama/Meta-Llama-3-8B config.json
@@ -1802,14 +1805,41 @@ def plain_bwd_groups(q, k, v, out, lse, do, keep, **kw):
     return [torch.cat(t, 1) for t in zip(*parts)]
 
 
+def plain_fwd_groups(q, k, v, keep, **kw):
+    """The plain forward with the dense keep mask, a group of kv heads at a
+    time (PLAIN_CHUNK_BYTES): out, lse."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import common, fwd
+    b, h, sq, _ = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    keep = common.expand_heads(keep, h)
+    step = max(1, int(PLAIN_CHUNK_BYTES // (b * g * sq * sk * 4)))
+    parts = []
+    for j in range(0, hk, step):
+        hs, ks = slice(j * g, (j + step) * g), slice(j, j + step)
+        parts.append(fwd.attention_fwd_ref(
+            q[:, hs], k[:, ks], v[:, ks], need_lse=True,
+            mask=keep if keep.shape[1] == 1 else keep[:, hs], **kw))
+    return [torch.cat(t, 1) for t in zip(*parts)]
+
+
+def exp_floor_ms(pairs: float) -> float:
+    """The least time the card's exponent units take for one exp per pair:
+    16 ex2 a clock per SM at the clock of the bf16 peak (1.83 GHz)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs / (SFU_EX2_PER_CLOCK * sms * TENSOR_CLOCK_HZ) * 1e3
+
+
 def mirror_tile_counts(masks, b, h, hk, s, causal, d):
-    """[visited, elementwise, candidates] of the masked dK/dV and dQ
-    kernels by bwd.py's mirrors of their producers: the tiles visited,
-    those of them with the elementwise test, and the unmasked plan's
-    tiles."""
-    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    """[visited, elementwise, candidates] of the masked forward, dK/dV and
+    dQ kernels by fwd.py's and bwd.py's mirrors of their producers: the
+    tiles visited, those of them with the elementwise test, and the
+    unmasked plan's tiles."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
     counts = []
     for plan, cands in (
+            (fwd.fwd_masked_tile_plan(masks, b, h, s, s, causal),
+             b * h * sum(map(len, fwd.fwd_tile_plan(s, s, causal)))),
             (bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, s, s, causal),
              b * h * sum(map(len, bwd.bwd_dkv_tile_plan(s, s, causal)))),
             (bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, s, s, causal, d),
@@ -1819,16 +1849,16 @@ def mirror_tile_counts(masks, b, h, hk, s, causal, d):
     return counts
 
 
-def check_sparse_kernels(gen, label, shape, causal, make_flags,
-                         fwd_row=True):
-    """Phase 3 rows of the forward (#1, with ``fwd_row``) and of the dK/dV
-    (#2) and dQ (#3) kernels under a sparse mask at ``shape``: each against
-    its plain version with the dense mask on the same inputs (the backward
-    by kv-head groups), timed (CUDA events, warmed), with bounds from the
-    visible pairs and SDPA with the dense mask as the library call. The
-    timed launches write into buffers filled with NaN first and must give
-    the checked gradients bit for bit; the tiles they visit, as the
-    kernels count them, must equal bwd.py's mirrors."""
+def check_sparse_kernels(gen, label, shape, causal, make_flags):
+    """Phase 3 rows of the forward (#1) and of the dK/dV (#2) and dQ (#3)
+    kernels under a sparse mask at ``shape``: each against its plain
+    version with the dense mask on the same inputs (by kv-head groups),
+    timed (CUDA events, warmed, the mask's kernel arguments made once, as
+    the backward rows always did), with bounds from the visible pairs and
+    SDPA with the dense mask as the library call. The timed launches write
+    into buffers filled with NaN first and must give the checked outputs
+    bit for bit; the tiles they visit, as the kernels count them, must
+    equal fwd.py's and bwd.py's mirrors."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         bwd, common, fwd)
     b, h, hk, s, d = _dims(shape)
@@ -1838,19 +1868,19 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags,
     masks = common.KernelMasks(b, h, s, s, **flags)
     kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
     out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw, **flags)
-    if fwd_row:
-        ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True,
-                                             mask=dense, **kw)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        tol = BF16_ULP * ref.float().abs().max().item() + 1e-3
-        fin = torch.isfinite(ref_lse)
-        check(torch.equal(fin, torch.isfinite(lse)),
-              f"flash_fwd ({label}): rows with no key differ")
-        err_lse = max_err(lse[fin], ref_lse[fin])
-        check(err <= tol and err_lse <= 1e-3,
-              f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
-        del ref, ref_lse
+    ref, ref_lse = plain_fwd_groups(q, k, v, dense, **kw)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    tol = BF16_ULP * ref.float().abs().max().item() + 1e-3
+    fin = torch.isfinite(ref_lse)
+    check(torch.equal(fin, torch.isfinite(lse)),
+          f"flash_fwd ({label}): rows with no key differ")
+    check(not out[~fin].float().abs().any(),
+          f"flash_fwd ({label}): a row with no key is not 0")
+    err_lse = max_err(lse[fin], ref_lse[fin])
+    check(err <= tol and err_lse <= 1e-3,
+          f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
+    del ref, ref_lse
     qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
     grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **flags)
     want = plain_bwd_groups(q, k, v, out, lse, do, dense, **kw)
@@ -1868,25 +1898,35 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags,
     del keep
     io = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, o | do and k, v (bf16)
     shape_txt = f"b{b} h{h} hk{hk} s{s} d{d} {'causal' if causal else 'full'}"
-    rows = []
-    if fwd_row:
-        bms, by = bound(2 * 2 * d * n_vis, PEAK_BF16_FLOPS, io)
-        rows.append(dict(
-            name=f"flash_fwd ({label})", route="cuda",
-            source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
-            replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
-            max_abs_err=err,
-            ms=time_ms([lambda: fwd.flash_attention_fwd(
-                q, k, v, need_lse=False, **kw, **flags)]),
-            plain_ms=time_ms([lambda: fwd.attention_fwd_ref(
-                q, k, v, need_lse=False, mask=dense, **kw)], iters=3,
-                warmup=1),
-            bound_ms=bms, bound_by=by, library_ms=lib_fwd))
-        report(rows[0], f"tol {tol:.3g} = 1 bf16 ulp of max|out| + 1e-3; lse "
-                        f"err {err_lse:.3g}; {shape_txt}, visible share "
-                        f"{share:.4f}, flops {4 * d * n_vis:.4g}; ms includes "
-                        "the stats prepass; library: SDPA with the dense "
-                        "boolean mask")
+    masks.bands()  # made once, as the stats
+    fwd_out = torch.full_like(out, float("nan"))
+    fwd_counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fwd.launch_flash_fwd(q, k, v, fwd_out, None, masks=masks,
+                         tile_counts=fwd_counts, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(fwd_out, out),
+          f"flash_fwd ({label}): the timed launch differs from the checked "
+          "output")
+    bms, by = bound(2 * 2 * d * n_vis, PEAK_BF16_FLOPS, io)
+    entry_ms = time_ms([lambda: fwd.flash_attention_fwd(
+        q, k, v, need_lse=False, **kw, **flags)])
+    rows = [dict(
+        name=f"flash_fwd ({label})", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+        replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
+        max_abs_err=err,
+        ms=time_ms([lambda: fwd.launch_flash_fwd(
+            q, k, v, fwd_out, None, masks=masks, **kw)]),
+        plain_ms=time_ms([lambda: plain_fwd_groups(q, k, v, dense, **kw)],
+                         iters=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=lib_fwd)]
+    report(rows[0], f"tol {tol:.3g} = 1 bf16 ulp of max|out| + 1e-3; lse "
+                    f"err {err_lse:.3g}; {shape_txt}, visible share "
+                    f"{share:.4f}, flops {4 * d * n_vis:.4g}; exponent floor "
+                    f"{exp_floor_ms(n_vis):.4f} ms; the kernel alone (through "
+                    f"flash_attention_fwd, the stats and bands made per call: "
+                    f"{entry_ms:.4f} ms); library: SDPA with the dense boolean "
+                    "mask")
     dq, dk, dv = (torch.full_like(t, float("nan")) for t in grads)
     args = (qs, k, v, do, lse, delta, dq, dk, dv)
     counted = []
@@ -1894,14 +1934,15 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags,
         counts = torch.zeros(3, dtype=torch.int32, device="cuda")
         fn(*args, masks=masks, tile_counts=counts, **kw)
         counted.append(counts[1:].tolist())
+    counted.insert(0, fwd_counts[1:].tolist())
     mirror = mirror_tile_counts(masks, b, h, hk, s, causal, d)
     check(counted == [m[:2] for m in mirror],
-          f"flash_bwd ({label}): the kernels visited {counted} tiles "
-          f"(visited, elementwise), bwd.py's mirrors {mirror}")
-    print(f"  tile plan ({label}, counted by the kernels, equal to bwd.py's "
-          "mirrors): " + "; ".join(
+          f"flash_fwd / flash_bwd ({label}): the kernels visited {counted} "
+          f"tiles (visited, elementwise), the mirrors {mirror}")
+    print(f"  tile plan ({label}, counted by the kernels, equal to fwd.py's "
+          "and bwd.py's mirrors): " + "; ".join(
               f"{name} {n} visited ({e} elementwise), {c - n} of {c} skipped"
-              for name, (n, e, c) in zip(("dK/dV", "dQ"), mirror)),
+              for name, (n, e, c) in zip(("forward", "dK/dV", "dQ"), mirror)),
           flush=True)
     stats = 2 * 4.0 * b * h * s  # lse, delta (fp32)
     plain_ms = time_ms([lambda: plain_bwd_groups(
@@ -1982,8 +2023,9 @@ def check_reduced(gen):
         bound_ms=bms, bound_by=by, library_ms=None)
     report(row, f"tol {tol:.3g} = 1e-4 of max|score|; two launches bitwise "
                 f"equal; b{b} h{h} hk{hk} s{s} d{d} causal, flops "
-                f"{2 * d * n_vis:.4g}; library: none (no single PyTorch call "
-                "computes it)")
+                f"{2 * d * n_vis:.4g}; exponent floor "
+                f"{exp_floor_ms(n_vis):.4f} ms beside the ops bound; library: "
+                "none (no single PyTorch call computes it)")
     return row
 
 
@@ -2136,6 +2178,7 @@ def sparse_masks(gen):
         rows[f"flash_fwd ({label})"] = c["flash_fwd (flash_attention_fwd)"]
         rows[f"flash_bwd_dkv ({label})"] = c["flash_bwd_dkv"]
         rows[f"flash_bwd_dq ({label})"] = c["flash_bwd_dq"]
+    rows["flash_fwd (FM-swg)"] = swg["flash_fwd (flash_attention_fwd)"]
     rows["flash_bwd_dkv (FM-swg)"] = swg["flash_bwd_dkv"]
     rows["flash_bwd_dq (FM-swg)"] = swg["flash_bwd_dq"]
     rows["reduced_scores"] = fm["reduced_scores"]
@@ -2486,7 +2529,7 @@ def main():
     rows += check_sparse_kernels(
         gen, "FM-swg", FM_SWG, True,
         lambda g: _flags(global_sliding_window_mask(
-            b, s, SWG_WINDOW, SWG_GLOBAL), causal=True), fwd_row=False)
+            b, s, SWG_WINDOW, SWG_GLOBAL), causal=True))
     torch.cuda.empty_cache()
     rows.append(check_reduced(gen))
     torch.cuda.empty_cache()

@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time the same attention calls in two or more checkouts of the
+repository, in turns, on one card.
+
+    git archive HEAD~1 | tar -x -C archive_check/parent   # a directory git ignores
+    python3 scripts/ab_trees.py archive_check/parent .     # parent, change, change, parent
+
+Each tree runs in a child process of its own with that tree's package and
+its ``chip_smoke.py`` helpers (its kernels built into its own build
+directory), on the same seeded data: the dense forward at request A's
+shape (b2 h32 hk8 s2048 d128 causal) and at T-long's (b16 h16 s2048 d64
+causal); the dense backward at both shapes, whole (``flash_attention_bwd``)
+and by kernel (pre-pass, dK/dV, dQ); the packed backward (#6) at
+T-packed's shape (b32 s1024 h16 d64 causal); under chip_smoke.py's FM-doc,
+BS and FM-swg masks the forward through ``flash_attention_fwd`` and the
+masked dK/dV and dQ kernels; the reduced scores at FM-swg's shape. CUDA
+events after a warm-up. The trees run first to last, then last to first.
+Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+
+def child(root: Path) -> None:
+    sys.path.insert(0, str(root))
+    import torch
+    import chip_smoke as cs
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    from xhy_flash_attention_tpu_torch.ops import _cuda
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, common, fused_heads as fh, fwd, reduced_scores as rs)
+    assert Path(_cuda.__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.lib()
+    out = []
+
+    def timed(label, fn, iters=20):
+        out.append(f"{label} {cs.time_ms([fn], iters=iters):.4f}")
+
+    for name, (b, h, hk, s, d) in (("A", (2, 32, 8, 2048, 128)),
+                                   ("T-long", (16, 16, 16, 2048, 64))):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = cs._sparse_inputs(gen, dict(b=b, h=h, hk=hk, s=s, d=d))
+        kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+        timed(f"fwd {name}", lambda: fwd.flash_attention_fwd(
+            q, k, v, need_lse=False, **kw))
+        o, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw)
+        timed(f"bwd whole {name}", lambda: bwd.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), iters=10)
+        qs, delta = bwd.flash_bwd_prep(q, o, do, sm_scale=kw["sm_scale"])
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        timed(f"prep {name}", lambda: bwd.flash_bwd_prep(
+            q, o, do, sm_scale=kw["sm_scale"]))
+        for which, fn in (("dkv", bwd.flash_bwd_dkv), ("dq", bwd.flash_bwd_dq)):
+            timed(f"{which} {name}", lambda fn=fn: fn(
+                qs, k, v, do, lse, delta, *grads, **kw), iters=10)
+        del q, k, v, do, o, lse, qs, delta, grads
+        torch.cuda.empty_cache()
+    b, s, h, d = 32, 1024, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    q, k, v = fh._split(qkv, h, h, d)
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    o, lse = fh.fused_heads_fwd(q, k, v, need_lse=True, **kw)
+    dst = dict(zip(("dq", "dk", "dv"),
+                   fh._split(torch.empty_like(qkv), h, h, d)))
+    timed("bwd packed T-packed", lambda: fh.fused_heads_bwd(
+        q, k, v, o, lse, do, **kw, **dst), iters=10)
+    del qkv, do, q, k, v, o, lse, dst
+    torch.cuda.empty_cache()
+    cases = (
+        ("FM-doc", cs.FM_DOC, True,
+         lambda g, b, s: cs._flags(cs.doc_indices(g, b, s), causal=True)),
+        ("BS", cs.BS, False,
+         lambda g, b, s: cs._flags(block_mask=cs.bigbird_mask(
+             g, b, s // cs.BS_BLOCK))),
+        ("FM-swg", cs.FM_SWG, True,
+         lambda g, b, s: cs._flags(global_sliding_window_mask(
+             b, s, cs.SWG_WINDOW, cs.SWG_GLOBAL), causal=True)))
+    for name, shape, causal, make in cases:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b, h, hk, s, d = cs._dims(shape)
+        q, k, v, do = cs._sparse_inputs(gen, shape)
+        flags = make(gen, b, s)
+        kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
+        timed(f"masked fwd {name}", lambda: fwd.flash_attention_fwd(
+            q, k, v, need_lse=False, **kw, **flags))
+        o, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw, **flags)
+        masks = common.KernelMasks(b, h, s, s, **flags)
+        qs, delta = bwd.flash_bwd_prep(q, o, do, sm_scale=kw["sm_scale"])
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        for which, fn in (("dkv", bwd.flash_bwd_dkv), ("dq", bwd.flash_bwd_dq)):
+            timed(f"masked {which} {name}", lambda fn=fn: fn(
+                qs, k, v, do, lse, delta, *grads, masks=masks, **kw), iters=10)
+        if name == "FM-swg":
+            timed("reduced FM-swg", lambda: rs.calc_reduced_attn_scores(
+                q, k, lse, causal=True))
+        del q, k, v, do, o, lse, qs, delta, grads, masks
+        torch.cuda.empty_cache()
+    print(f"{root}: " + "; ".join(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child(Path(args.child))
+        return
+    if len(args.roots) < 2:
+        raise SystemExit("give two or more tree roots")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    roots = [str(Path(r).resolve()) for r in args.roots]
+    for root in roots + roots[::-1]:
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
+                        root], check=True, cwd=root,
+                       env={**os.environ, "PYTHONUNBUFFERED": "1"})
+
+
+if __name__ == "__main__":
+    main()

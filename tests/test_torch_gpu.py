@@ -991,10 +991,11 @@ def _sparse_kernels_vs_plain(q, k, v, do, causal, masks, softcap=0.0):
     """Forward and both backward kernels against the plain versions with
     the dense mask, on the same inputs: out to one bf16 unit of its largest
     entry (+1e-3), the finite LSE to 1e-3 and the same rows +inf, gradients
-    to four bf16 units; each kernel launched once. Then both backward
-    kernels launched directly into buffers filled with NaN: the same
-    gradients bit for bit, and the tiles each kernel counts (visited, of
-    them elementwise) those of bwd.py's mirrors."""
+    to four bf16 units; each kernel launched once. Then the forward and
+    both backward kernels launched directly into buffers filled with NaN:
+    the same outputs bit for bit, and the tiles each kernel counts
+    (visited, of them elementwise) those of fwd.py's and bwd.py's
+    mirrors."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
     b, h, sq, d = q.shape
     kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=softcap)
@@ -1018,6 +1019,15 @@ def _sparse_kernels_vs_plain(q, k, v, do, causal, masks, softcap=0.0):
         assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
     sk, hk = k.shape[2], k.shape[1]
     kmasks = common.KernelMasks(b, h, sq, sk, **masks)
+    out2, lse2 = (torch.full_like(t, float("nan")) for t in (out, lse))
+    fwd_counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fwd.launch_flash_fwd(q, k, v, out2, lse2, masks=kmasks,
+                         tile_counts=fwd_counts, **kw)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    plan = fwd.fwd_masked_tile_plan(kmasks, b, h, sq, sk, causal)
+    tiles = [e for es in plan.values() for e in es]
+    assert fwd_counts[1:].tolist() == [len(tiles),
+                                       sum(1 for e in tiles if e[1])]
     qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
     direct = [torch.full_like(t, float("nan")) for t in got]
     counted = []
@@ -1069,6 +1079,25 @@ def test_flashmask_fully_masked_rows_on_the_card(cuda):
     vecs = torch.stack([torch.zeros_like(lte), lte])[None, None]
     _sparse_kernels_vs_plain(q, k, v, do, True, dict(
         flashmask_vecs=vecs, flashmask_mode="causal_2"))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_block_mask_fully_masked_rows_on_the_card(cuda, d):
+    """Rows whose block-mask row is all off give out 0 and LSE +inf: the
+    second 64 rows of a 128-row block (granularity 64) and a whole block
+    of 128 rows, which the producer hands over with no tile."""
+    b, h, s = 2, 4, 384
+    q, k, v, do = _sparse_case(cuda, b, h, h, s, d)
+    bm = torch.ones(b, 1, s // 64, s // 64, dtype=torch.int32, device="cuda")
+    bm[:, :, 1] = 0
+    bm[:, :, 4:6] = 0
+    out, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5,
+                                       block_mask=(bm, 64, 64))
+    torch.cuda.synchronize()
+    for rows in (slice(64, 128), slice(256, 384)):
+        assert not out[:, :, rows].float().abs().any()
+        assert torch.isinf(lse[:, :, rows]).all()
+    _sparse_kernels_vs_plain(q, k, v, do, False, dict(block_mask=(bm, 64, 64)))
 
 
 def test_flashmask_bwd_is_deterministic(cuda):
@@ -1165,7 +1194,8 @@ def test_masked_bwd_with_softcap(cuda, d):
 @pytest.mark.parametrize("sq,sk", [(200, 456), (456, 200)])
 def test_masked_bwd_causal_sq_ne_sk(cuda, sq, sk, d):
     """Causal with sq != sk (the diagonal aligned bottom right; with sq >
-    sk the first rows see no key) under a FlashMask and a block mask."""
+    sk the first rows see no key) under a FlashMask and a block mask: the
+    forward and the backward against their plain versions."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
     b, h, hk = 2, 4, 2
     q, do = (torch.randn(b, h, sq, d, generator=cuda, device="cuda")
@@ -1181,9 +1211,17 @@ def test_masked_bwd_causal_sq_ne_sk(cuda, sq, sk, d):
         mask = common.dense_keep_mask(sq, sk, h, **masks)
         out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw,
                                            **masks)
+        ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True,
+                                             mask=mask, **kw)
         got = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **masks)
         want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=mask, **kw)
         torch.cuda.synchronize()
+        assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() \
+            + 1e-3
+        finite = torch.isfinite(ref_lse)
+        assert torch.equal(finite, torch.isfinite(lse))
+        if finite.any():  # with sq > sk a FlashMask may leave no row a key
+            assert _err(lse[finite], ref_lse[finite]) <= 1e-3
         for g, w in zip(got, want):
             assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() \
                 + 1e-4
@@ -1216,13 +1254,24 @@ def _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, grads):
     bwd.flash_bwd_dq(qs, k, v, do, lse, delta, *grads, **kw)
 
 
+def _masked_fwd_launches(q, k, v, causal, masks, outs):
+    """The masked forward into ``outs`` (out, lse)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import common
+    b, h, s, d = q.shape
+    fwd.launch_flash_fwd(q, k, v, *outs, sm_scale=d ** -0.5, causal=causal,
+                         softcap=0.0,
+                         masks=common.KernelMasks(b, h, s, s, **masks))
+
+
+@pytest.mark.parametrize("kernel", ["bwd", "fwd"])
 @pytest.mark.parametrize("mask", ["document", "bigbird"])
-def test_masked_bwd_in_a_cuda_graph(cuda, mask):
-    """The masked backward (a causal document mask at d 128 with GQA, or
-    BS's pattern at granularity 256 and d 64) captured in a CUDA graph and
-    replayed after dO was changed in place: bitwise equal to the eager
-    launches on the new dO (the scheduler's counter is cleared by a memset
-    inside the graph)."""
+def test_masked_bwd_in_a_cuda_graph(cuda, mask, kernel):
+    """The masked backward, or the masked forward (a causal document mask
+    at d 128 with GQA, or BS's pattern at granularity 256 and d 64),
+    captured in a CUDA graph and replayed after dO (backward) or q
+    (forward) was changed in place: bitwise equal to the eager launches on
+    the new input (the scheduler's counter is cleared by a memset inside
+    the graph)."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         causal_document_mask)
     if mask == "document":
@@ -1236,31 +1285,46 @@ def test_masked_bwd_in_a_cuda_graph(cuda, mask):
     q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
     out, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5,
                                        causal=causal, need_lse=True, **masks)
-    do = do.contiguous()
-    grads = [torch.empty_like(t) for t in (q, k, v)]
+    if kernel == "bwd":
+        changed = do = do.contiguous()
+        got = [torch.empty_like(t) for t in (q, k, v)]
+        eager = [torch.full_like(t, float("nan")) for t in got]
+
+        def launch(into):
+            _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, into)
+    else:
+        changed = q = q.contiguous()
+        got = [torch.empty_like(out), torch.empty_like(lse)]
+        eager = [torch.full_like(t, float("nan")) for t in got]
+
+        def launch(into):
+            _masked_fwd_launches(q, k, v, causal, masks, into)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, grads)
+        launch(got)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, grads)
-    do.copy_(torch.randn(do.shape, generator=cuda, device="cuda"))
+        launch(got)
+    changed.copy_(torch.randn(changed.shape, generator=cuda, device="cuda"))
     graph.replay()
-    eager = [torch.full_like(t, float("nan")) for t in grads]
-    _masked_bwd_launches(q, k, v, out, lse, do, causal, masks, eager)
+    launch(eager)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, c) for a, c in zip(grads, eager))
+    assert all(torch.equal(a, c) for a, c in zip(got, eager))
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk,h,hk,d", [(1000, 1000, 8, 2, 128),
-                                          (300, 700, 4, 4, 64)])
+                                          (300, 700, 4, 4, 64),
+                                          (700, 300, 8, 2, 64),
+                                          (257, 1100, 8, 1, 128)])
 def test_reduced_scores_match_plain(cuda, sq, sk, h, hk, d, causal):
     """The kernel against its plain version, whose q . k is an fp32 product
     of the same bf16 values summed in another order: 1e-4 of the largest
-    score; and bitwise equal across two launches."""
+    score; and bitwise equal across two launches. GQA groups 1, 4 and 8,
+    d 64 and 128, sq != sk both ways (causal with sq < sk: keys no row sees
+    get 0), ragged tiles of rows and keys."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         reduced_scores as rs)
     b = 2
@@ -1278,3 +1342,28 @@ def test_reduced_scores_match_plain(cuda, sq, sk, h, hk, d, causal):
     assert rs.calc_reduced_attn_scores.launches == before + 2
     assert torch.equal(got, again)
     assert _err(got, want) <= 1e-4 * want.abs().max().item()
+
+
+def test_reduced_scores_in_a_cuda_graph(cuda):
+    """The reduced scores (GQA, d 128, causal) captured in a CUDA graph and
+    replayed after q was changed in place: bitwise equal to an eager launch
+    on the new q."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        reduced_scores as rs)
+    b, h, hk, s, d = 1, 8, 2, 1024, 128
+    q, k, v, _ = _sparse_case(cuda, b, h, hk, s, d)
+    q = q.contiguous()
+    _, lse = fwd.flash_attention_fwd(q, k, v, sm_scale=d ** -0.5, causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    q.copy_(torch.randn(q.shape, generator=cuda, device="cuda"))
+    graph.replay()
+    eager = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)

@@ -1,21 +1,22 @@
-"""What the masked backward kernels visit, in pure Python.
+"""What the masked attention kernels visit, in pure Python.
 
-``bwd_masked_dkv_tile_plan`` and ``bwd_masked_dq_tile_plan`` mirror the
-producer of the masked instantiations of csrc/flash_bwd.cu: from the
-FlashMask stats at the kernels' tiles (128 keys for dK/dV, 128 or 64 for
-dQ) and the block-mask entries, the tiles each block visits, in order, with
-their elementwise flag and the parts each consumer computes. Held against
-the dense keep mask (the causal part included): every visible (row, key)
-pair lies in a visited part of a tile, a tile without the flag holds no
-masked in-range pair in the parts it computes, and a skipped tile or part
-holds no visible pair; tiles that need the elementwise test come first
-within a head. Cases: the four FlashMask modes with one mask head and one
-per head, GQA, a causal document mask (causal_1: the dK/dV query loop ends
-at the block's largest LTStart), block masks at granularities 64
-(straddling the 128-key and 128-row blocks), 128 and 256, s 200 (ragged),
-causal with sq != sk. Also the stats and the skip/bypass decisions against
-the JAX package's ``fm_block_stats`` and ``fm_skip_bypass`` on the same
-seeded vectors, exactly.
+``bwd_masked_dkv_tile_plan``, ``bwd_masked_dq_tile_plan`` and
+``fwd_masked_tile_plan`` mirror the producers of the masked instantiations
+of csrc/flash_bwd.cu and csrc/flash_fwd.cu: from the FlashMask stats at the
+kernels' tiles (128 keys for the forward and dK/dV, 128 or 64 for dQ) and
+the block-mask entries, the tiles each block visits, in order, with their
+elementwise flag and the parts each consumer computes. Held against the
+dense keep mask (the causal part included): every visible (row, key) pair
+lies in a visited part of a tile, a tile without the flag holds no masked
+in-range pair in the parts it computes, and a skipped tile or part holds no
+visible pair; tiles that need the elementwise test come first within a
+head. Cases: the four FlashMask modes with one mask head and one per head,
+GQA, a causal document mask (causal_1: the dK/dV query loop ends at the
+block's largest LTStart), block masks at granularities 64 (straddling the
+128-key and 128-row blocks and tiles), 128 and 256, s 200 (ragged), causal
+with sq != sk. Also the stats and the skip/bypass decisions against the JAX
+package's ``fm_block_stats`` and ``fm_skip_bypass`` on the same seeded
+vectors, exactly.
 """
 
 import jax.numpy as jnp
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from xhy_flash_attention_tpu.ops.flash_attention import common as jcommon
-from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common
+from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, common, fwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention import (
     causal_document_mask,
 )
@@ -98,12 +99,11 @@ def check_dkv_plan(flags, b, h, hk, sq, sk, causal):
     return plan, visited
 
 
-def check_dq_plan(flags, b, h, hk, sq, sk, causal, d):
-    masks = common.KernelMasks(b, h, sq, sk, **flags)
-    plan = bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, sq, sk, causal, d)
-    vis = _visible(flags, b, h, sq, sk, causal)
-    m, n = bwd.BWD_DQ_TILE_M, bwd.bwd_dq_tile_n(d)
-    visited = 0
+def _check_row_block_plan(plan, vis, sq, sk, n):
+    """A plan over blocks of 128 query rows and key tiles of ``n`` keys
+    (the forward's, or dQ's): each consumer's 64 rows against the tile's
+    64-key parts."""
+    m, visited = 128, 0
     for (batch, head, mb), tiles in plan.items():
         q0 = mb * m
         seen = {t: (e, parts) for t, e, parts in tiles}
@@ -124,7 +124,29 @@ def check_dq_plan(flags, b, h, hk, sq, sk, causal, d):
                         parts[c][j], e)
                 if n == 64:
                     assert parts[c][0] == parts[c][1]
-    return plan, visited
+    return visited
+
+
+def check_dq_plan(flags, b, h, hk, sq, sk, causal, d):
+    masks = common.KernelMasks(b, h, sq, sk, **flags)
+    plan = bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, sq, sk, causal, d)
+    assert bwd.BWD_DQ_TILE_M == 128
+    vis = _visible(flags, b, h, sq, sk, causal)
+    return plan, _check_row_block_plan(plan, vis, sq, sk,
+                                       bwd.bwd_dq_tile_n(d))
+
+
+def check_fwd_plan(flags, b, h, sq, sk, causal):
+    """The masked forward's plan: blocks of 128 rows over 128-key tiles,
+    the candidates those of the dense forward's plan."""
+    masks = common.KernelMasks(b, h, sq, sk, **flags)
+    plan = fwd.fwd_masked_tile_plan(masks, b, h, sq, sk, causal)
+    assert (fwd.FWD_DENSE_TILE_M, fwd.FWD_DENSE_TILE_N) == (128, 128)
+    cands = fwd.fwd_tile_plan(sq, sk, causal)
+    for (_, _, mb), tiles in plan.items():
+        assert {t for t, _, _ in tiles} <= {t for t, _ in cands[mb]}
+    vis = _visible(flags, b, h, sq, sk, causal)
+    return plan, _check_row_block_plan(plan, vis, sq, sk, 128)
 
 
 def _fm_flags(seed, causal, nv, b, hm, sk):
@@ -146,6 +168,8 @@ def test_masked_plans_cover_flashmask(causal, nv, hm, s):
     assert vis_kv > 0
     for d in (64, 128):
         check_dq_plan(flags, b, h, hk, s, s, causal, d)
+    _, vis_fwd = check_fwd_plan(flags, b, h, s, s, causal)
+    assert vis_fwd > 0
 
 
 def test_causal_1_ends_at_the_largest_ltstart():
@@ -165,6 +189,9 @@ def test_causal_1_ends_at_the_largest_ltstart():
     dense = sum(len(c) for c in bwd.bwd_dkv_tile_plan(s, s, True)) * b * h
     assert sum(map(len, plan.values())) < dense
     check_dq_plan(flags, b, h, hk, s, s, True, 64)
+    fwd_plan, _ = check_fwd_plan(flags, b, h, s, s, True)
+    dense = sum(len(c) for c in fwd.fwd_tile_plan(s, s, True)) * b * h
+    assert sum(map(len, fwd_plan.values())) < dense
 
 
 @pytest.mark.parametrize("gq,gk", [(64, 64), (64, 128), (128, 64),
@@ -191,6 +218,10 @@ def test_masked_plans_cover_block_masks(gq, gk, hm, causal):
         if gk == 64 and d == 64:
             assert any(a != c for tiles in dq_plan.values()
                        for _, _, parts in tiles for a, c in parts)
+    fwd_plan, _ = check_fwd_plan(flags, b, h, s, s, causal)
+    if gk == 64:  # a 128-key tile whose two 64-key parts differ
+        assert any(a != c for tiles in fwd_plan.values()
+                   for _, _, parts in tiles for a, c in parts)
 
 
 @pytest.mark.parametrize("sq,sk", [(150, 300), (300, 150), (200, 200)])
@@ -206,6 +237,7 @@ def test_masked_plans_cover_causal_sq_ne_sk(sq, sk):
     check_dkv_plan(flags, b, h, hk, sq, sk, True)
     for d in (64, 128):
         check_dq_plan(flags, b, h, hk, sq, sk, True, d)
+    check_fwd_plan(flags, b, h, sq, sk, True)
 
 
 def test_plans_without_a_mask_are_the_dense_plans():
@@ -219,6 +251,40 @@ def test_plans_without_a_mask_are_the_dense_plans():
     dense = bwd.bwd_dq_tile_plan(300, 300, True, 64)
     for (_, _, mb), tiles in plan.items():
         assert [(t, e) for t, e, _ in tiles] == dense[mb]
+    for causal in (False, True):
+        plan = fwd.fwd_masked_tile_plan(masks, 1, 2, 300, 300, causal)
+        dense = fwd.fwd_tile_plan(300, 300, causal)
+        assert len(plan) == 2 * len(dense)
+        for (_, _, mb), tiles in plan.items():
+            assert [(t, e) for t, e, _ in tiles] == dense[mb]
+
+
+@pytest.mark.parametrize("mask", ["flashmask", "block"])
+def test_fwd_plan_is_the_dq_plan_at_d64(mask):
+    """The masked forward and the masked dQ kernel at d 64 share their
+    geometry (blocks of 128 rows, tiles of 128 keys, 128-key stats), so one
+    mirror gives both the same tiles; a block row that a block mask turns
+    off has no tile (its rows give O = 0 and LSE +inf)."""
+    b, h, hk, s = 2, 4, 2, 330
+    if mask == "flashmask":
+        flags = _fm_flags(5, False, 4, b, 2, s)
+        causal = False
+    else:
+        rng = np.random.default_rng(11)
+        bm = (rng.random((b, 1, -(-s // 64), -(-s // 128))) < 0.6)
+        bm[:, :, 2] = False  # rows 128-191: consumer 0 of block 1 sees nothing
+        flags = dict(block_mask=(torch.from_numpy(bm.astype(np.int32)), 64,
+                                 128))
+        causal = True
+    masks = common.KernelMasks(b, h, s, s, **flags)
+    plan = fwd.fwd_masked_tile_plan(masks, b, h, s, s, causal)
+    assert plan == bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, s, s, causal,
+                                               64)
+    check_fwd_plan(flags, b, h, s, s, causal)
+    if mask == "block":
+        assert all(not parts[0][0] and not parts[0][1]
+                   for (_, _, mb), tiles in plan.items() if mb == 1
+                   for _, _, parts in tiles)
 
 
 @pytest.mark.parametrize("causal,nv", MODES)

@@ -77,15 +77,15 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(v);
 }
 
-// ---- mma.sync m16n8k16 (bf16 in, fp32 accumulate), shared by the attention
-// kernels. Fragment layouts (PTX ISA, "mma.m16n8k16"), g = lane / 4,
+// ---- mma.sync m16n8k16 (bf16 in, fp32 accumulate), used by the decode
+// body (decode_core.cuh). Fragment layouts (PTX ISA, "mma.m16n8k16"), g = lane / 4,
 // t = lane % 4:
 //   A (16x16, row-major): a[r] holds row g + (r & 1) * 8, columns
 //     (r >> 1) * 8 + 2t and 2t + 1;
 //   B (16x8, "col"): b0 holds k = 2t, 2t + 1 of column n = g; b1 k + 8;
 //   C (16x8, fp32): c[e] sits at row g + (e >> 1) * 8, column 2t + (e & 1).
 // The C fragments of n-tiles 2kk and 2kk + 1 are, packed to bf16, the A
-// fragment of k-step kk of a following product (see pack_a).
+// fragment of k-step kk of a following product.
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -102,53 +102,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two transposed 8x8 bf16 matrices: lanes 0-7 address the rows of the first,
-// lanes 8-15 the rows of the second.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-// The A fragment of k-step kk from fp32 C fragments c[2kk], c[2kk + 1],
-// rounded to bf16.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Stage rows [row0, row0 + ROWS) of a (seq, D) bf16 slice with row stride
-// `stride` into shared memory with padded rows of D + 8 (conflict-free
-// fragment reads), THREADS threads cooperating. Rows at or past `limit` are
-// zero. With SCALE the values are multiplied by `scale` in fp32 and rounded
-// to bf16 (q_s).
-template <int D, int ROWS, bool SCALE, int THREADS = 128>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int64_t stride, int row0, int limit, float scale) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += THREADS) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit) {
-      val = *reinterpret_cast<const uint4*>(src + row * stride + c);
-      if (SCALE) {
-        uint32_t* w = reinterpret_cast<uint32_t*>(&val);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[i]));
-          w[i] = pack_bf16(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(&dst[r * (D + 8) + c]) = val;
-  }
-}
-
 // A fragment of k-step kk for the 16 rows starting at `row` of a staged tile.
 template <int D>
 __device__ __forceinline__ void smem_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int row,
@@ -160,26 +113,6 @@ __device__ __forceinline__ void smem_a(uint32_t (&a)[4], const __nv_bfloat16* ti
   }
 }
 
-// acc[j] (16 x 8 n-tiles, N columns) += A(16 x D) B^T where A's 16 rows
-// start at `a_row` of the staged `a_tile` and B's N rows are staged in
-// `b_tile` (rows = columns of the product, D = the contraction).
-template <int D, int N>
-__device__ __forceinline__ void mma_abt_smem_a(float (&acc)[N / 8][4],
-                                               const __nv_bfloat16* a_tile, int a_row,
-                                               const __nv_bfloat16* b_tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    smem_a<D>(a, a_tile, a_row, kk, g, t);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const __nv_bfloat16* br = &b_tile[(j * 8 + g) * (D + 8) + kk * 16 + 2 * t];
-      mma_16816(acc[j], a, *reinterpret_cast<const uint32_t*>(br),
-                *reinterpret_cast<const uint32_t*>(br + 8));
-    }
-  }
-}
-
 // ---- FlashMask and block-sparse masks (ops/flash_attention/common.py
 // KernelMasks). FlashMask: each key column carries NV row indices; the
 // bands [LTStart, LTEnd) and [UTStart, UTEnd) are masked (half-open, as
@@ -188,9 +121,8 @@ __device__ __forceinline__ void mma_abt_smem_a(float (&acc)[N / 8][4],
 // everywhere (skip: never loaded) or nowhere (bypass: no elementwise band
 // test). The causal part of the causal modes is the kernels' causal flag.
 // Block mask: a 0/1 entry per (gq rows, gk keys) block at the user's
-// granularity, a multiple of 64: the forward's tiles of 64 lie inside one
-// entry; the backward's 128-key and 128-row blocks may straddle two
-// (flash_bwd.cu decides per 64-row or 64-key part).
+// granularity, a multiple of 64: the kernels' 128-key and 128-row blocks
+// may straddle two, so they decide per 64-row or 64-key part.
 enum FmMode : int { kFmNone = 0, kFmCausal1 = 1, kFmCausal2 = 2, kFmFull2 = 3, kFmFull4 = 4 };
 
 struct MaskParams {
@@ -221,12 +153,6 @@ __device__ __forceinline__ int fm_head(const MaskParams& m, int head, int h) {
   return head / (h / m.fm_heads);
 }
 
-// Vector v of key column `col` for (batch, mask head fh).
-__device__ __forceinline__ int fm_vec(const MaskParams& m, int batch, int fh, int v, int col) {
-  return m.fm_vecs[(static_cast<int64_t>(batch * m.fm_heads + fh) * fm_nv(m.fm_mode) + v) *
-                       m.fm_skp + col];
-}
-
 // Stats of the key tile starting at col0 (tiles of tile_keys keys):
 // st[v * 2] = max, st[v * 2 + 1] = min of vector v.
 __device__ __forceinline__ const int* fm_tile_stats(const MaskParams& m, int batch, int fh,
@@ -234,17 +160,6 @@ __device__ __forceinline__ const int* fm_tile_stats(const MaskParams& m, int bat
   const int nv = fm_nv(m.fm_mode);
   return m.fm_stats + (static_cast<int64_t>(batch * m.fm_heads + fh) * (m.fm_skp / tile_keys) +
                        col0 / tile_keys) * nv * 2;
-}
-
-// True when an element at `row` of a column with vectors a, b, c, d is
-// masked out (the vectors past the mode's NV are not read).
-__device__ __forceinline__ bool fm_banned(int mode, int row, int a, int b, int c, int d) {
-  switch (mode) {
-    case kFmCausal1: return row >= a;
-    case kFmCausal2: return row >= a && row < b;
-    case kFmFull2: return row >= a || row < b;
-    default: return (row >= a && row < b) || (row >= c && row < d);
-  }
 }
 
 // Skip (every element masked) and bypass (none masked) of query rows [q0,
@@ -281,31 +196,14 @@ __device__ __forceinline__ bool bm_on(const MaskParams& m, int batch, int head, 
               col / m.gk] != 0;
 }
 
-// The tile decision for query rows [q0, q1) of (batch, head) against the
-// key tile of tile_keys keys at col0, a tile inside one block-mask entry:
-// false when the tile is skipped; `band` set when the elementwise FlashMask
-// test is needed (the tile is neither skipped nor bypassed). The same for
-// every thread of a block.
-__device__ __forceinline__ bool mask_tile(const MaskParams& m, int batch, int head, int h, int q0,
-                                          int q1, int col0, int tile_keys, bool& band) {
-  band = false;
-  if (!bm_on(m, batch, head, h, q0, col0)) return false;
-  if (m.fm_vecs == nullptr) return true;
-  bool skip, bypass;
-  fm_decide(m.fm_mode, fm_tile_stats(m, batch, fm_head(m, head, h), col0, tile_keys), q0, q1,
-            skip, bypass);
-  band = !bypass;
-  return !skip;
-}
-
-// ---- persistent schedules of the dense attention kernels (flash_fwd.cu,
-// flash_bwd.cu)
+// ---- persistent schedules of the attention kernels (flash_fwd.cu,
+// flash_bwd.cu, reduced_scores.cu)
 
 // The key tiles of N keys that a block of M query rows at q0 visits, [0,
 // n_tiles), and how many of them from tile 0 on need no elementwise mask,
 // n_free (every key of such a tile is below sk and visible to every row of
 // the block; rows past sq are not written, so they do not count); the
-// others are the last n_tiles - n_free. Mirrored by fwd.py _key_tile_plan.
+// others are the last n_tiles - n_free. Mirrored by fwd.py key_tile_plan.
 template <int M, int N>
 __device__ __forceinline__ void key_tiles(int q0, int sq, int sk, int causal, int& n_tiles,
                                           int& n_free) {
@@ -328,7 +226,7 @@ __device__ __forceinline__ void key_tiles(int q0, int sq, int sk, int causal, in
 // block n_blocks - 1 - j is the heavier (query blocks: the last rows see
 // the most keys), else block j (key blocks: the first keys are seen by the
 // most rows). Pairs are numbered head by head, so the CTAs at work at one
-// time share a few heads' tensors in L2. Mirrored by fwd.py _pair_schedule.
+// time share a few heads' tensors in L2. Mirrored by fwd.py pair_schedule.
 __host__ __device__ __forceinline__ int block_pairs(int n_blocks, int heads, int b) {
   return (n_blocks + 1) / 2 * heads * b;
 }
@@ -344,6 +242,163 @@ __device__ __forceinline__ bool pair_block(int pair, int half, int n_blocks, int
   const int heavy = heavy_last ? n_blocks - 1 - j : j;
   block = half == 0 ? heavy : n_blocks - 1 - heavy;
   return half == 0 || j != n_blocks - 1 - j;
+}
+
+// The query tiles of M rows that the key block of N keys at n0 visits for
+// each head of its group: tiles [first, n_qt), the masked ones first (the
+// causal diagonal tiles [first, f0), then the ragged tail [f1, n_qt)), then
+// the free ones [f0, f1), whose rows are all below sq and see every key of
+// the block below sk (keys past sk are not written, so they do not count).
+// Mirrored by bwd.py bwd_dkv_tile_plan.
+struct QueryTilePlan {
+  int first, f0, f1, n_qt;
+  __device__ __forceinline__ int n_tiles() const { return n_qt - first; }
+  __device__ __forceinline__ int n_masked() const { return (f0 - first) + (n_qt - f1); }
+  __device__ __forceinline__ int tile(int i) const {
+    const int diag = f0 - first, masked = n_masked();
+    return i < diag ? first + i : (i < masked ? f1 + i - diag : f0 + i - masked);
+  }
+};
+
+template <int M, int N>
+__device__ __forceinline__ QueryTilePlan query_tiles(int n0, int sq, int sk, int causal) {
+  QueryTilePlan pl;
+  pl.n_qt = (sq + M - 1) / M;
+  pl.first = 0;
+  int free_from = 0;
+  if (causal) {
+    const int offset = sk - sq;
+    pl.first = max(0, n0 - offset) / M;  // the tile of the first row that sees key n0
+    // the first row that sees the block's last key, rounded up to a tile
+    const int last_key = min(n0 + N, sk) - 1;
+    free_from = (max(0, last_key - offset) + M - 1) / M;
+  }
+  pl.f0 = min(max(free_from, pl.first), pl.n_qt);
+  pl.f1 = min(max(sq / M, pl.f0), pl.n_qt);
+  return pl;
+}
+
+// ---- the masked attention kernels' producer (flash_fwd.cu, flash_bwd.cu)
+//
+// Which tiles a block visits depends on the mask, so warp 0 of the
+// producer warpgroup decides and the consumers follow: it evaluates 32
+// candidate tiles at a time (a lane each) and its lane 0 hands each visited
+// tile over with a word in the tile's ring stage: (first row or key, or kEnd
+// after a block's last tile; flags; ...). A consumer computes the tile only
+// when one of its parts is on: dK/dV part c (its 64 keys) at bit
+// kOnShift + c; in a block of 128 query rows (the forward, dQ), consumer
+// c's 64 rows against the tile's keys [0, 64) and [64, 128) at bits
+// kOnShift + 2c and kOnShift + 2c + 1 (both the same for a 64-key tile).
+constexpr int kEnd = -1;
+constexpr int kElem = 1;  // the elementwise test
+constexpr int kBand = 2;  // the FlashMask band test (the bands in the stage, or per thread)
+constexpr int kOnShift = 2;
+constexpr int kRowBlock = 128;  // query rows of a forward or dQ block, 64 per consumer
+
+// The flags of the key tile of N keys at n0 against the block of kRowBlock
+// query rows at q0 of (batch, head), or -1 when it is skipped: skipped when
+// the FlashMask stats (per tile of N keys) mask the block's rows everywhere
+// or no part is on (a part starting at or past sq or sk is off); kElem with
+// `elem` (the causal / ragged test of the plan), with the band test (not
+// bypassed) and when one consumer's two key parts differ (the keys straddle
+// two block-mask entries). Mirrored by fwd.py masked_row_block_plan.
+template <int N>
+__device__ __forceinline__ int row_block_tile_flags(const MaskParams& m, int batch, int head,
+                                                    int h, int sq, int sk, int q0, int n0,
+                                                    bool elem) {
+  int flags = elem ? kElem : 0;
+  if (m.fm_vecs != nullptr) {
+    bool skip, bypass;
+    fm_decide(m.fm_mode, fm_tile_stats(m, batch, fm_head(m, head, h), n0, N), q0,
+              min(q0 + kRowBlock, sq), skip, bypass);
+    if (skip) return -1;
+    if (!bypass) flags |= kElem | kBand;
+  }
+  int on = 0;  // the parts that start below sq and sk
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh)
+      if ((q0 + 64 * c < sq) & (n0 + (N == 128 ? 64 * kh : 0) < sk)) on |= 1 << (2 * c + kh);
+  if (m.bm != nullptr && on != 0) {
+    // the four entries loaded unconditionally (indices clamped into range),
+    // so that their latencies overlap: the producer decides faster
+    const int* bm = m.bm + batch * m.bm_sb + (head / (h / m.bm_heads)) * m.bm_sh;
+    int e[4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        const int row = min(q0 + 64 * c, sq - 1), key = min(n0 + (N == 128 ? 64 * kh : 0), sk - 1);
+        e[2 * c + kh] = bm[static_cast<int64_t>(row / m.gq) * m.bm_nk + key / m.gk];
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) on &= ~((e[i] == 0 ? 1 : 0) << i);
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int parts = (on >> (2 * c)) & 3;
+    if (parts == 1 || parts == 2) flags |= kElem;  // the keys straddle two entries
+  }
+  return on == 0 ? -1 : flags | on << kOnShift;
+}
+
+// True when `row` falls in one of a column's first NB FlashMask bands b =
+// [lo1, hi1), [lo2, hi2) (ops common.py fm_bands; the causal modes have
+// one, the full modes two); bitwise operators, since short-circuit ones
+// become a branch per element.
+template <int NB>
+__device__ __forceinline__ bool banned(const int4 b, int row) {
+  const bool first = (row >= b.x) & (row < b.y);
+  return NB == 1 ? first : first | ((row >= b.z) & (row < b.w));
+}
+
+// The next block of a masked kernel's dynamic scheduler: each item (pair
+// * 2 + half of pair_block) taken once from the counter next[0] (lane 0 of
+// the calling warp, all 32 lanes calling; the entry clears it on the
+// stream), the heavier pairs of every (batch, head) first (pair j of each
+// before pair j + 1 of any). False after the last block.
+__device__ __forceinline__ bool next_block(int* next, int b, int n_blocks, int heads,
+                                           bool heavy_last, int& block, int& head, int& batch) {
+  const int per_head = (n_blocks + 1) / 2, n_bh = heads * b;
+  for (;;) {
+    int item = 0;
+    if ((threadIdx.x & 31) == 0) item = atomicAdd(next, 1);
+    item = __shfl_sync(0xffffffffu, item, 0);
+    const int j = (item >> 1) / n_bh;
+    if (j >= per_head) return false;
+    const int pair = ((item >> 1) - j * n_bh) * per_head + j;
+    if (pair_block(pair, item & 1, n_blocks, heads, heavy_last, block, head, batch)) return true;
+  }
+}
+
+// Emit, with the producer's whole warp, the tiles a block visits for one
+// head: candidates i in [0, n) evaluated 32 at a time by `flags(i, first)`
+// (-1: skipped; `first` its row or key), the ones with kElem first, then
+// the others, each in candidate order, through `emit(first, flags)` on
+// lane 0. Up to 32 candidates are evaluated once, more once per pass.
+// `before()` runs on the whole warp before each emit (the masked forward
+// decides its next block there while the ring is full).
+struct NoOp {
+  __device__ __forceinline__ void operator()() const {}
+};
+template <typename Flags, typename Emit, typename Before = NoOp>
+__device__ __forceinline__ void emit_tiles(int n, Flags flags, Emit emit, Before before = {}) {
+  const int lane = threadIdx.x & 31;
+  int f = -1, first = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int c = 0; c < n; c += 32) {
+      if (pass == 0 || n > 32) f = c + lane < n ? flags(c + lane, first) : -1;
+      uint32_t sel = __ballot_sync(0xffffffffu, f >= 0 && ((f & kElem) != 0) == (pass == 0));
+      while (sel != 0) {
+        const int j = __ffs(sel) - 1;
+        sel &= sel - 1;
+        const int fj = __shfl_sync(0xffffffffu, f, j), first_j = __shfl_sync(0xffffffffu, first, j);
+        before();
+        if (lane == 0) emit(first_j, fj);
+      }
+    }
+  }
 }
 
 }  // namespace xfa

@@ -89,9 +89,12 @@
 //
 // * The masked instantiations (MASKED: FlashMask and block masks). Which
 //   tiles a block visits depends on the data, so the producer decides and
-//   the consumers follow: warp 0 of the producer warpgroup evaluates 32
-//   candidate tiles at a time (a lane each, from the FlashMask stats per
-//   kernel tile and the block-mask entries), and its lane 0 loads each
+//   the consumers follow (the candidate evaluation, the tile word, the
+//   per-tile decision of a 128-row block and the dynamic scheduler are
+//   common.cuh's, shared with the masked forward in flash_fwd.cu): warp 0
+//   of the producer warpgroup evaluates 32 candidate tiles at a time (a
+//   lane each, from the FlashMask stats per kernel tile and the
+//   block-mask entries), and its lane 0 loads each
 //   visited tile with a word in the tile's ring stage: its first row (dK/dV)
 //   or key (dQ), its head in the group and its flags (the elementwise test,
 //   the FlashMask band test, and per consumer the 64-key or 64-row parts
@@ -104,8 +107,8 @@
 //   tiles it emitted to two counters beside it. Within a head the tiles
 //   that need the elementwise test come first (causal diagonal and ragged
 //   tiles, FlashMask band tiles, dQ tiles whose keys straddle two
-//   block-mask entries); the others run the unmasked code. The FlashMask band test
-//   reads each column's bands [lo1, hi1) and [lo2, hi2) (every mode
+//   block-mask entries); the others run the unmasked code. The FlashMask
+//   band test reads each column's bands [lo1, hi1) and [lo2, hi2) (every mode
 //   rewritten to two bands by ops common.py fm_bands): dK/dV from global
 //   memory for the thread's two keys, dQ from the stage, where they arrive
 //   by TMA with the key tile. Mirrored by bwd.py bwd_masked_dkv_tile_plan
@@ -125,6 +128,7 @@ using bf16 = __nv_bfloat16;
 using xfa::pack_bf16;
 namespace sm90 = xfa::sm90;
 using sm90::ex2;
+using sm90::issue_ss;
 using sm90::kLog2e;
 
 // ------------------------------------------------------------- pre-pass
@@ -203,16 +207,13 @@ constexpr int kStatBox = kDkvRows + 4;
 constexpr int kDqRows = 128;
 __host__ __device__ constexpr int dq_keys(int d) { return d == 64 ? 128 : 64; }
 
-// The masked instantiations' tile word: (first row or key, or kEnd after a
-// block's last tile; head in the group; flags). A consumer computes the
-// tile only when one of its parts is on: dK/dV part c (its 64 keys) at bit
-// kOnShift + c, dQ consumer c's 64 rows against the tile's keys [0, 64) and
-// [64, 128) at bits kOnShift + 2c and kOnShift + 2c + 1 (both the same for
-// a 64-key tile).
-constexpr int kEnd = -1;
-constexpr int kElem = 1;  // the elementwise test
-constexpr int kBand = 2;  // the FlashMask band test (dQ: the bands in the stage)
-constexpr int kOnShift = 2;
+// The masked instantiations' tile word and flags: common.cuh (kEnd,
+// kElem, kBand, kOnShift); dQ's row block is common.cuh kRowBlock.
+using xfa::kBand;
+using xfa::kElem;
+using xfa::kEnd;
+using xfa::kOnShift;
+static_assert(kDqRows == xfa::kRowBlock, "the dQ block is the masked producer's row block");
 
 template <int D>
 struct DkvSmem {
@@ -282,37 +283,10 @@ struct BwdParams {
   int* next;
 };
 
-// The query tiles of kDkvRows rows that the key block at n0 visits for each
-// head of its group: tiles [first, n_qt), the masked ones first (the causal
-// diagonal tiles [first, f0), then the ragged tail [f1, n_qt)), then the
-// free ones [f0, f1), whose rows are all below sq and see every key of the
-// block below sk (keys past sk are not written, so they do not count).
-// Mirrored by bwd.py bwd_dkv_tile_plan.
-struct DkvPlan {
-  int first, f0, f1, n_qt;
-  __device__ __forceinline__ int n_tiles() const { return n_qt - first; }
-  __device__ __forceinline__ int n_masked() const { return (f0 - first) + (n_qt - f1); }
-  __device__ __forceinline__ int tile(int i) const {
-    const int diag = f0 - first, masked = n_masked();
-    return i < diag ? first + i : (i < masked ? f1 + i - diag : f0 + i - masked);
-  }
-};
-
-__device__ __forceinline__ DkvPlan dkv_plan(int n0, int sq, int sk, int causal) {
-  DkvPlan pl;
-  pl.n_qt = (sq + kDkvRows - 1) / kDkvRows;
-  pl.first = 0;
-  int free_from = 0;
-  if (causal) {
-    const int offset = sk - sq;
-    pl.first = max(0, n0 - offset) / kDkvRows;  // the tile of the first row that sees key n0
-    // the first row that sees the block's last key, rounded up to a tile
-    const int last_key = min(n0 + kDkvKeys, sk) - 1;
-    free_from = (max(0, last_key - offset) + kDkvRows - 1) / kDkvRows;
-  }
-  pl.f0 = min(max(free_from, pl.first), pl.n_qt);
-  pl.f1 = min(max(sq / kDkvRows, pl.f0), pl.n_qt);
-  return pl;
+// The query tiles of a dK/dV block (common.cuh query_tiles; bwd.py
+// bwd_dkv_tile_plan).
+__device__ __forceinline__ xfa::QueryTilePlan dkv_plan(int n0, int sq, int sk, int causal) {
+  return xfa::query_tiles<kDkvRows, kDkvKeys>(n0, sq, sk, causal);
 }
 
 // ---- the masked producer's decisions
@@ -339,102 +313,7 @@ __device__ __forceinline__ int dkv_tile_flags(const BwdParams& p, const int* st,
   return on == 0 ? -1 : flags | on << kOnShift;
 }
 
-// The flags of the dQ tile of N keys at n0 against the rows of the block at
-// q0 for query head `head`, or -1 when it is skipped. Mirrored by bwd.py
-// bwd_masked_dq_tile_plan.
-template <int N>
-__device__ __forceinline__ int dq_tile_flags(const BwdParams& p, int batch, int head, int q0,
-                                             int n0, bool elem) {
-  const xfa::MaskParams& m = p.mask;
-  int flags = elem ? kElem : 0;
-  if (m.fm_vecs != nullptr) {
-    bool skip, bypass;
-    xfa::fm_decide(m.fm_mode, xfa::fm_tile_stats(m, batch, xfa::fm_head(m, head, p.h), n0, N),
-                   q0, min(q0 + kDqRows, p.sq), skip, bypass);
-    if (skip) return -1;
-    if (!bypass) flags |= kElem | kBand;
-  }
-  int on = 0;
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-#pragma unroll
-    for (int kh = 0; kh < 2; ++kh) {
-      const int row = q0 + 64 * c, key = n0 + (N == 128 ? 64 * kh : 0);
-      if (row < p.sq && key < p.sk && xfa::bm_on(m, batch, head, p.h, row, key))
-        on |= 1 << (2 * c + kh);
-    }
-    const int parts = (on >> (2 * c)) & 3;
-    if (parts == 1 || parts == 2) flags |= kElem;  // the keys straddle two entries
-  }
-  return on == 0 ? -1 : flags | on << kOnShift;
-}
-
-// The next block of the masked kernels' dynamic scheduler: each item (pair
-// * 2 + half of common.cuh pair_block) taken once from the counter p.next[0]
-// (lane 0 of the calling warp, all 32 lanes calling), the heavier pairs of
-// every (batch, head) first (pair j of each before pair j + 1 of any).
-// False after the last block.
-__device__ __forceinline__ bool next_block(const BwdParams& p, int n_blocks, int heads,
-                                           bool heavy_last, int& block, int& head, int& batch) {
-  const int per_head = (n_blocks + 1) / 2, n_bh = heads * p.b;
-  for (;;) {
-    int item = 0;
-    if ((threadIdx.x & 31) == 0) item = atomicAdd(p.next, 1);
-    item = __shfl_sync(0xffffffffu, item, 0);
-    const int j = (item >> 1) / n_bh;
-    if (j >= per_head) return false;
-    const int pair = ((item >> 1) - j * n_bh) * per_head + j;
-    if (xfa::pair_block(pair, item & 1, n_blocks, heads, heavy_last, block, head, batch))
-      return true;
-  }
-}
-
-// Emit, with the producer's whole warp, the tiles a block visits for one
-// head: candidates i in [0, n) evaluated 32 at a time by `flags(i, first)`
-// (-1: skipped; `first` its row or key), the ones with kElem first, then
-// the others, each in candidate order, through `emit(first, flags)` on
-// lane 0. Up to 32 candidates are evaluated once, more once per pass.
-template <typename Flags, typename Emit>
-__device__ __forceinline__ void emit_tiles(int n, Flags flags, Emit emit) {
-  const int lane = threadIdx.x & 31;
-  int f = -1, first = 0;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int c = 0; c < n; c += 32) {
-      if (pass == 0 || n > 32) f = c + lane < n ? flags(c + lane, first) : -1;
-      uint32_t sel = __ballot_sync(0xffffffffu, f >= 0 && ((f & kElem) != 0) == (pass == 0));
-      while (sel != 0) {
-        const int j = __ffs(sel) - 1;
-        sel &= sel - 1;
-        const int fj = __shfl_sync(0xffffffffu, f, j), first_j = __shfl_sync(0xffffffffu, first, j);
-        if (lane == 0) emit(first_j, fj);
-      }
-    }
-  }
-}
-
 // ---- products and the elementwise work
-
-// C(64 x N) = A B^T over k = D (issued, not committed): A (64 rows) and B
-// (N rows) K-major in 128-byte-swizzled shared memory, their 64-column
-// halves a_half and b_half bytes apart.
-template <int D, int N>
-__device__ __forceinline__ void issue_ss(float (&c)[N / 2], uint32_t a, uint32_t a_half, uint32_t b,
-                                         uint32_t b_half) {
-  const uint64_t da = sm90::desc_b128(a, 16), db = sm90::desc_b128(b, 16);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    // 16 columns = 32 bytes inside the swizzled row; past 64 columns, the
-    // next half (offsets in the descriptor's 16-byte units)
-    const uint32_t col = (kk & 3) * 2;
-    const uint64_t ak = da + (kk >> 2) * (a_half >> 4) + col;
-    const uint64_t bk = db + (kk >> 2) * (b_half >> 4) + col;
-    if constexpr (N == 64) {
-      sm90::wgmma_ss_n64(c, ak, bk, kk > 0);
-    } else {
-      sm90::wgmma_ss_n128(c, ak, bk, kk > 0);
-    }
-  }
-}
 
 // C(64 x D) += A B over k = K (issued, not committed): A's bf16 pairs in
 // registers (4 a k-step), B (K rows x D) MN-major, 16 rows of 128 B a
@@ -469,15 +348,6 @@ __device__ __forceinline__ void p_ds(float x, float dp, float lse2, float delta,
   ds = pr * (dp - delta) * fac;
 }
 
-// True when `row` falls in one of a column's first NB FlashMask bands (the
-// causal modes have one, the full modes two); bitwise operators, since
-// short-circuit ones become a branch per element.
-template <int NB>
-__device__ __forceinline__ bool banned(const int4 b, int row) {
-  const bool first = (row >= b.x) & (row < b.y);
-  return NB == 1 ? first : first | ((row >= b.z) & (row < b.w));
-}
-
 // dK/dV: P^T and dS^T of one query tile, in place in fp32 (s: S^T -> P^T,
 // dp: dP^T -> dS^T), this thread's keys key0 and key0 + 8 as rows and the
 // tile's rows m0 + c as columns; LSE and delta per column from shared
@@ -495,7 +365,7 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
     if (MASK) {
       const int key = key0 + ((i >> 1) & 1) * 8, row = m0 + c;
       visible = row < p.sq && (!p.causal || key <= row + p.sk - p.sq);
-      if (NB > 0) visible = visible & !banned<NB>((i >> 1) & 1 ? b1 : b0, row);
+      if (NB > 0) visible = visible & !xfa::banned<NB>((i >> 1) & 1 ? b1 : b0, row);
     }
     p_ds<SOFTCAP>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i]);
   }
@@ -520,7 +390,7 @@ __device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2
       const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = n0 + c, row = row0 + 8 * r;
       visible = col < p.sk && (!p.causal || col <= row + p.sk - p.sq) &&
                 ((parts >> ((i >> 2) >= 8 ? 1 : 0)) & 1);
-      if (NB > 0) visible = visible & !banned<NB>(bands[c], row);  // the load unconditional
+      if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
     }
     float pr;
     p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i]);
@@ -623,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             int n_block, kv_head, batch;
             if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
             const int n0 = n_block * kDkvKeys;
-            const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+            const xfa::QueryTilePlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
             const int kb = kv & 1;
             sm90::mbar_wait(bar_kve + 8 * kb, ((kv >> 1) & 1) ^ 1);  // the first pass is free
             sm90::mbar_expect_tx(bar_kv + 8 * kb, 2 * S::kKV);
@@ -657,7 +527,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       int tiles = 0, elem = 0;
       for (;;) {
         int n_block = 0, kv_head = 0, batch = 0;
-        const bool more = next_block(p, n_nb, p.hk, false, n_block, kv_head, batch);
+        const bool more =
+            xfa::next_block(p.next, p.b, n_nb, p.hk, false, n_block, kv_head, batch);
         const int kb = kv & 1;
         if (lead) {
           sm90::mbar_wait(bar_kve + 8 * kb, ((kv >> 1) & 1) ^ 1);
@@ -679,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         ++kv;
         if (!more) break;
         const int n0 = n_block * kDkvKeys;
-        const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+        const xfa::QueryTilePlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
         const int n_masked = pl.n_masked();
         for (int gi = 0; gi < group; ++gi) {
           const int head = kv_head * group + gi;
@@ -688,7 +559,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                               ? xfa::fm_tile_stats(m, batch, xfa::fm_head(m, head, p.h), n0,
                                                    kDkvKeys)
                               : nullptr;
-          emit_tiles(
+          xfa::emit_tiles(
               pl.n_tiles(),
               [&](int i, int& m0) {
                 m0 = pl.tile(i) * kDkvRows;
@@ -745,7 +616,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (!ok) continue;
       }
       const int n0 = n_block * kDkvKeys;
-      const DkvPlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+      const xfa::QueryTilePlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
       const int n_tiles = pl.n_tiles(), n_masked = pl.n_masked();
       const uint32_t k_wg = base + S::kK + kb * 2 * S::kKV + cw * 64 * kRow;
       const uint32_t v_wg = k_wg + S::kKV;
@@ -927,7 +798,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       int tiles = 0, elem = 0;
       for (;;) {
         int m_block = 0, head = 0, batch = 0, n_tiles = 0, n_free = 0;
-        const bool more = next_block(p, n_mb, p.h, true, m_block, head, batch);
+        const bool more =
+            xfa::next_block(p.next, p.b, n_mb, p.h, true, m_block, head, batch);
         const int q0 = m_block * kDqRows;
         if (more) xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
         const int qb = qk & 1;
@@ -949,11 +821,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             m.fm_vecs != nullptr
                 ? static_cast<int64_t>(batch * m.fm_heads + xfa::fm_head(m, head, p.h)) * m.fm_skp
                 : 0;
-        emit_tiles(
+        xfa::emit_tiles(
             n_tiles,
             [&](int i, int& n0) {
               n0 = (n_tiles - 1 - i) * kN;
-              return dq_tile_flags<kN>(p, batch, head, q0, n0, i < n_masked);
+              return xfa::row_block_tile_flags<kN>(p.mask, batch, head, p.h, p.sq, p.sk, q0,
+                                                    n0, i < n_masked);
             },
             [&](int n0, int flags) {
               const int st = it % S::kStages;

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks written in PTX: mbarriers, TMA tile
 // copies through tensor maps, warpgroup matrix multiplies (wgmma) and
 // register reallocation (setmaxnreg), and the host side they need: tensor
-// maps, the SM count, the dynamic shared-memory limit. The dense attention
-// forward (flash_fwd.cu) and backward (flash_bwd.cu) and the paged prefill
-// (paged_decode.cu) are built from them.
+// maps, the SM count, the dynamic shared-memory limit. The attention
+// forward (flash_fwd.cu) and backward (flash_bwd.cu), the paged prefill
+// (paged_decode.cu) and the reduced scores (reduced_scores.cu) are built
+// from them.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile is a stack of 128-byte rows (64 bf16), the 16-byte chunk c
@@ -59,6 +60,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // ---- TMA
@@ -277,6 +291,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// C(64 x N) = A B^T over k = D (issued, not committed; flash_bwd.cu,
+// reduced_scores.cu): A (64 rows) and B (N rows) K-major in
+// 128-byte-swizzled shared memory, their 64-column halves a_half and b_half
+// bytes apart.
+template <int D, int N>
+__device__ __forceinline__ void issue_ss(float (&c)[N / 2], uint32_t a, uint32_t a_half,
+                                         uint32_t b, uint32_t b_half) {
+  const uint64_t da = desc_b128(a, 16), db = desc_b128(b, 16);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns = 32 bytes inside the swizzled row; past 64 columns, the
+    // next half (offsets in the descriptor's 16-byte units)
+    const uint32_t col = (kk & 3) * 2;
+    const uint64_t ak = da + (kk >> 2) * (a_half >> 4) + col;
+    const uint64_t bk = db + (kk >> 2) * (b_half >> 4) + col;
+    if constexpr (N == 64) {
+      wgmma_ss_n64(c, ak, bk, kk > 0);
+    } else {
+      wgmma_ss_n128(c, ak, bk, kk > 0);
+    }
+  }
 }
 
 // ---- attention tiles (flash_fwd.cu, paged_decode.cu): a consumer

@@ -45,8 +45,9 @@ _c_void_p, _c_int, _c_int64, _c_float = (
 # padded length; block mask, batch and head strides, heads, columns, gq, gk
 _MASK_ARGS = ([_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
                _c_int64, _c_int64] + [_c_int] * 4)
-# the backward's: the mask arguments, then the FlashMask bands, the masked
-# kernels' three counters and the stream
+# the backward's (and the forward's, after its own arguments): the mask
+# arguments, then the FlashMask bands, the masked kernels' three counters
+# and the stream
 _BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
              + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 3)
 _SIGNATURES = {
@@ -58,7 +59,7 @@ _SIGNATURES = {
                    _c_void_p, _c_int, _c_void_p, _c_void_p, _c_int64, _c_int,
                    _c_int, _c_int, _c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
-    + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p],
+    + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 3,
     "xfa_flash_bwd_prep": [_c_void_p] * 5 + [_c_int64] * 9 + [_c_int] * 4
     + [_c_float, _c_void_p],
     "xfa_flash_bwd_dkv": _BWD_ARGS,

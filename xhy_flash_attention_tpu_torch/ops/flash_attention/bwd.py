@@ -26,8 +26,9 @@ import torch
 
 from .. import _cuda
 from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_VARLEN, KernelMasks, cdiv,
-                     dense_keep_mask, expand_heads, fm_skip_bypass)
-from .fwd import key_tile_plan, pair_schedule
+                     dense_keep_mask, expand_heads)
+from .fwd import (MASK_PART, MaskTiles, elementwise_first, key_tile_plan,
+                  masked_row_block_plan, pair_schedule)
 
 __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
            "bwd_masked_dkv_tile_plan", "bwd_masked_dq_tile_plan",
@@ -38,12 +39,12 @@ __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
 # Tiles of the kernels, csrc/flash_bwd.cu: a dK/dV block of BWD_DKV_TILE_N
 # keys streams query tiles of BWD_DKV_TILE_M rows (kDkvKeys, kDkvRows); a dQ
 # block of BWD_DQ_TILE_M rows streams key tiles of bwd_dq_tile_n(d) keys
-# (kDqRows, dq_keys). Under a mask each consumer computes a part of 64 keys
-# (dK/dV) or 64 rows (dQ), and a dQ tile of 128 keys has two parts of 64.
+# (kDqRows, dq_keys). Under a mask each consumer computes a part of
+# fwd.MASK_PART keys (dK/dV) or rows (dQ), and a dQ tile of 128 keys has two
+# parts.
 BWD_DKV_TILE_N = 128
 BWD_DKV_TILE_M = 64
 BWD_DQ_TILE_M = 128
-BWD_PART = 64
 
 
 def bwd_dq_tile_n(d: int) -> int:
@@ -85,43 +86,6 @@ def bwd_dq_tile_plan(sq: int, sk: int, causal: bool, d: int):
     return key_tile_plan(sq, sk, causal, BWD_DQ_TILE_M, bwd_dq_tile_n(d))
 
 
-class _MaskTiles:
-    """The masked kernels' producer's view of a :class:`KernelMasks` for
-    key tiles of ``tile_keys`` keys (csrc/common.cuh ``fm_decide``,
-    ``bm_on``), on Python ints."""
-
-    def __init__(self, masks: KernelMasks, h: int, tile_keys: int):
-        self.h, self.tile = h, tile_keys
-        self.fm = self.bm = None
-        if masks.fm_vecs is not None:
-            self.mode = masks.fm_mode
-            self.fm = masks.stats(tile_keys).cpu().tolist()
-        if masks.bm is not None:
-            self.bm, self.gq, self.gk = masks.bm.cpu().tolist(), masks.gq, \
-                masks.gk
-
-    def decide(self, batch: int, head: int, q0: int, q1: int, col0: int):
-        """(skip, bypass) of rows [q0, q1) against the tile at col0."""
-        if self.fm is None:
-            return False, True
-        per_batch = self.fm[batch]
-        st = per_batch[head // (self.h // len(per_batch))][col0 // self.tile]
-        return fm_skip_bypass(self.mode, lambda v, w: st[v][w], q0, q1)
-
-    def on(self, batch: int, head: int, row: int, col: int) -> bool:
-        """The block-mask entry of (row, col) (True without a block
-        mask)."""
-        if self.bm is None:
-            return True
-        per_batch = self.bm[batch if len(self.bm) > 1 else 0]
-        entry = per_batch[head // (self.h // len(per_batch))]
-        return entry[row // self.gq][col // self.gk] != 0
-
-
-def _elementwise_first(tiles, flag):
-    return [t for t in tiles if t[flag]] + [t for t in tiles if not t[flag]]
-
-
 def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
                              sq: int, sk: int, causal: bool):
     """The query tiles the masked dK/dV kernel visits (csrc/flash_bwd.cu
@@ -135,7 +99,7 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
     causal / ragged test or the FlashMask band test (not bypassed); those
     tiles come first within a head, then the others, each in candidate
     order."""
-    mt = _MaskTiles(masks, h, BWD_DKV_TILE_N)
+    mt = MaskTiles(masks, h, BWD_DKV_TILE_N)
     m, g = BWD_DKV_TILE_M, h // hk
     plan = {}
     for nb, cands in enumerate(bwd_dkv_tile_plan(sq, sk, causal)):
@@ -150,13 +114,13 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
                         skip, bypass = mt.decide(batch, head, t * m,
                                                  min(t * m + m, sq), n0)
                         parts = tuple(
-                            n0 + c * BWD_PART < sk
-                            and mt.on(batch, head, t * m, n0 + c * BWD_PART)
+                            n0 + c * MASK_PART < sk
+                            and mt.on(batch, head, t * m, n0 + c * MASK_PART)
                             for c in (0, 1))
                         if not skip and any(parts):
                             found.append((gi, t, masked or not bypass,
                                           parts))
-                    tiles += _elementwise_first(found, 2)
+                    tiles += elementwise_first(found, 2)
                 plan[(batch, kv_head, nb)] = tiles
     return plan
 
@@ -164,39 +128,13 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
 def bwd_masked_dq_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
                             sq: int, sk: int, causal: bool, d: int):
     """The key tiles the masked dQ kernel visits at head dim ``d``
-    (csrc/flash_bwd.cu ``dq_tile_flags`` and its producer): for each block
-    (batch, head, query block of BWD_DQ_TILE_M rows), a list of (tile,
-    elementwise, parts) in visit order, ``parts[c][j]`` whether consumer c
-    (rows [64c, 64c + 64) of the block) computes the tile's keys [64j, 64j +
-    64) (both the same for a tile of 64 keys): on when those rows and keys
-    start below sq and sk and their block-mask entry is on. The candidates
-    are :func:`bwd_dq_tile_plan`'s; a tile is skipped when the FlashMask
-    stats mask the block's rows everywhere or no part is on.
-    ``elementwise``: the plan's causal / ragged test, the FlashMask band
-    test, or a consumer whose two key parts differ; those come first."""
-    n, m = bwd_dq_tile_n(d), BWD_DQ_TILE_M
-    mt = _MaskTiles(masks, h, n)
-    plan = {}
-    for mb, cands in enumerate(bwd_dq_tile_plan(sq, sk, causal, d)):
-        q0 = mb * m
-        for batch in range(b):
-            for head in range(h):
-                found = []
-                for t, masked in cands:
-                    n0 = t * n
-                    skip, bypass = mt.decide(batch, head, q0, min(q0 + m, sq),
-                                             n0)
-                    keys = (n0, n0 + BWD_PART if n == 2 * BWD_PART else n0)
-                    parts = tuple(
-                        tuple(row < sq and key < sk
-                              and mt.on(batch, head, row, key) for key in keys)
-                        for row in (q0, q0 + BWD_PART))
-                    if skip or not any(map(any, parts)):
-                        continue
-                    straddle = any(a != c for a, c in parts)
-                    found.append((t, masked or not bypass or straddle, parts))
-                plan[(batch, head, mb)] = _elementwise_first(found, 1)
-    return plan
+    (csrc/flash_bwd.cu, common.cuh ``row_block_tile_flags`` and the
+    producer): fwd.py :func:`masked_row_block_plan` over key tiles of
+    bwd_dq_tile_n(d) keys (``hk`` is not needed: each query head is its own
+    block)."""
+    del hk
+    return masked_row_block_plan(masks, b, h, sq, sk, causal,
+                                 bwd_dq_tile_n(d))
 
 
 def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,

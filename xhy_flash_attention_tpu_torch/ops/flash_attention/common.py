@@ -46,12 +46,11 @@ CUDA_DTYPE_NOT_PORTED = (
     f"q/k/v; fp16 and fp32 come with {SLICE_DTYPES}"
 )
 
-# Key tiles of the masked forward (csrc/flash_fwd.cu kBlockN): its FlashMask
-# block stats are taken per tile of this size; the backward's per its own
-# tiles (bwd.py BWD_DKV_TILE_N, bwd_dq_tile_n). FlashMask vectors are padded
-# to a multiple of FM_PAD_KEYS, which every one of those tiles divides (and
-# which keeps the backward's TMA starts 16-byte aligned).
-FWD_KEY_TILE = 64
+# FlashMask block stats are taken per key tile of each kernel (128 keys for
+# the forward and dK/dV, bwd.py bwd_dq_tile_n for dQ). FlashMask vectors are
+# padded to a multiple of FM_PAD_KEYS, which every one of those tiles
+# divides (and which keeps the kernels' TMA starts of the bands 16-byte
+# aligned).
 FM_PAD_KEYS = 128
 
 
@@ -181,7 +180,7 @@ def fm_bands(vecs_padded: torch.Tensor, mode: str) -> torch.Tensor:
     """Each column's masked rows as two half-open bands: (b, hm, NV, skp)
     vectors -> (b, hm, skp, 4) int32 [lo1, hi1, lo2, hi2], a row masked when
     it lies in either band (rows are >= 0 and < FM_BIG), the form the
-    backward kernels test elementwise."""
+    masked kernels test elementwise."""
     v = vecs_padded.to(torch.int32)
     zero = torch.zeros_like(v[:, :, 0])
     big = torch.full_like(zero, FM_BIG)
@@ -220,9 +219,8 @@ def check_block_mask(block_mask, b: int, h: int, sq: int, sk: int,
                      tile: int = 64):
     """Validate ``block_mask = (mask, gq, gk)``: mask (b|1, hm|1,
     ceil(sq/gq), ceil(sk/gk)) 0/1 with hm dividing h, and granularities that
-    are multiples of ``tile``: the forward's 64-row and 64-key tiles lie
-    inside one entry, and the backward decides per 64-row or 64-key part of
-    its 128-row and 128-key blocks."""
+    are multiples of ``tile``: the kernels decide per 64-row or 64-key part
+    of their 128-row and 128-key blocks and tiles."""
     mask, gq, gk = block_mask
     if gq % tile or gk % tile or gq <= 0 or gk <= 0:
         raise ValueError(f"block mask granularity ({gq}, {gk}) must be a "
@@ -271,7 +269,8 @@ class KernelMasks:
     """The FlashMask and block-mask flags as the CUDA kernels take them
     (the ``MaskParams`` of csrc/common.cuh): int32 vectors padded to a
     multiple of FM_PAD_KEYS keys, per key tile stats made once per tile
-    size, the backward's bands (:func:`fm_bands`) made once, and the int32
+    size (the forward and dK/dV share those of 128 keys), the bands the
+    kernels test elementwise (:func:`fm_bands`) made once, and the int32
     block mask at its own granularity with its batch and head strides (0
     where it broadcasts)."""
 

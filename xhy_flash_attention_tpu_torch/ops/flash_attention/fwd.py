@@ -3,17 +3,19 @@ ops/flash_attention/fwd.py `flash_attention_fwd`).
 
 On a CUDA tensor the work runs in csrc/flash_fwd.cu, the counterpart of the
 TPU kernel `_fwd_kernel` (fwd.py:78); on a CPU tensor in its plain version
-:func:`attention_fwd_ref`. Without a sparse mask the kernel is the Hopper
-one (TMA ring, wgmma, a producer warpgroup; :func:`fwd_tile_plan` mirrors
-the key tiles it visits, :func:`fwd_schedule` the blocks each of its
-persistent CTAs runs); with one it is the mma.sync kernel of slice 4, on
-64-key tiles. This slice covers causal and full attention, GQA, softcap,
-the LSE output, FlashMask (slice 4: column-wise row bands, four modes,
-mask heads dividing the query heads) and block-sparse masks (a 0/1 mask
-at a granularity the kernel's tiles divide); the backward is
-bwd.py, joined to this forward by interface.py's autograd function. Bias,
-segment ids, positions and sliding windows raise NotImplementedError until
-slice 5, dropout until slice 6, fp8 until slice 7.
+:func:`attention_fwd_ref`. The kernel is one Hopper kernel (TMA ring,
+wgmma, a producer warpgroup) in two instantiations. Without a sparse mask
+:func:`fwd_tile_plan` mirrors the key tiles it visits and
+:func:`fwd_schedule` the blocks each of its persistent CTAs runs; with a
+FlashMask or block mask its producer decides from the mask which tiles each
+block visits (:func:`fwd_masked_tile_plan`) and the blocks come from a
+counter on the card. This slice covers causal and full attention, GQA,
+softcap, the LSE output, FlashMask (slice 4: column-wise row bands, four
+modes, mask heads dividing the query heads) and block-sparse masks (a 0/1
+mask at a granularity of a multiple of 64); the backward is bwd.py, joined
+to this forward by interface.py's autograd function. Bias, segment ids,
+positions and sliding windows raise NotImplementedError until slice 5,
+dropout until slice 6, fp8 until slice 7.
 """
 
 from __future__ import annotations
@@ -24,17 +26,21 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _cuda
-from .common import (CUDA_DTYPE_NOT_PORTED, FWD_KEY_TILE, SLICE_DROPOUT,
-                     SLICE_DTYPES, SLICE_VARLEN, KernelMasks, cdiv,
-                     dense_keep_mask, expand_heads)
+from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, SLICE_DTYPES,
+                     SLICE_VARLEN, KernelMasks, cdiv, dense_keep_mask,
+                     expand_heads, fm_skip_bypass)
 
-__all__ = ["attention_fwd_ref", "flash_attention_fwd", "fwd_schedule",
-           "fwd_tile_plan"]
+__all__ = ["attention_fwd_ref", "flash_attention_fwd", "fwd_masked_tile_plan",
+           "fwd_schedule", "fwd_tile_plan", "masked_row_block_plan"]
 
 # Tiles of the dense (unmasked) kernel, csrc/flash_fwd.cu kTileM / kTileN:
 # query rows per block and keys per tile.
 FWD_DENSE_TILE_M = 128
 FWD_DENSE_TILE_N = 128
+# Under a mask each consumer of a masked kernel computes a part of 64 rows
+# (the forward, dQ) or 64 keys (dK/dV) of its block against the 64-key parts
+# of a tile, each part inside one block-mask entry.
+MASK_PART = 64
 
 
 def key_tile_plan(sq: int, sk: int, causal: bool, m: int, n: int):
@@ -93,6 +99,94 @@ def fwd_schedule(sq: int, h: int, b: int, ctas: int):
     return pair_schedule(cdiv(sq, FWD_DENSE_TILE_M), h, b, ctas, True)
 
 
+class MaskTiles:
+    """The masked kernels' producer's view of a :class:`KernelMasks` for
+    key tiles of ``tile_keys`` keys (csrc/common.cuh ``fm_decide``,
+    ``bm_on``), on Python ints."""
+
+    def __init__(self, masks: KernelMasks, h: int, tile_keys: int):
+        self.h, self.tile = h, tile_keys
+        self.fm = self.bm = None
+        if masks.fm_vecs is not None:
+            self.mode = masks.fm_mode
+            self.fm = masks.stats(tile_keys).cpu().tolist()
+        if masks.bm is not None:
+            self.bm, self.gq, self.gk = masks.bm.cpu().tolist(), masks.gq, \
+                masks.gk
+
+    def decide(self, batch: int, head: int, q0: int, q1: int, col0: int):
+        """(skip, bypass) of rows [q0, q1) against the tile at col0."""
+        if self.fm is None:
+            return False, True
+        per_batch = self.fm[batch]
+        st = per_batch[head // (self.h // len(per_batch))][col0 // self.tile]
+        return fm_skip_bypass(self.mode, lambda v, w: st[v][w], q0, q1)
+
+    def on(self, batch: int, head: int, row: int, col: int) -> bool:
+        """The block-mask entry of (row, col) (True without a block
+        mask)."""
+        if self.bm is None:
+            return True
+        per_batch = self.bm[batch if len(self.bm) > 1 else 0]
+        entry = per_batch[head // (self.h // len(per_batch))]
+        return entry[row // self.gq][col // self.gk] != 0
+
+
+def elementwise_first(tiles, flag):
+    """Tiles with the elementwise test (``tile[flag]``) first, then the
+    others, each in their order (common.cuh ``emit_tiles``)."""
+    return [t for t in tiles if t[flag]] + [t for t in tiles if not t[flag]]
+
+
+def masked_row_block_plan(masks: KernelMasks, b: int, h: int, sq: int,
+                          sk: int, causal: bool, n: int):
+    """The key tiles a masked kernel with blocks of 128 query rows visits
+    over key tiles of ``n`` keys (csrc/common.cuh ``row_block_tile_flags``
+    and the producer of flash_fwd.cu and of flash_bwd.cu's dQ kernel): for
+    each block (batch, head, query block), a list of (tile, elementwise,
+    parts) in visit order, ``parts[c][j]`` whether consumer c (rows [64c,
+    64c + 64) of the block) computes the tile's keys [64j, 64j + 64) (both
+    the same for a tile of 64 keys): on when those rows and keys start
+    below sq and sk and their block-mask entry is on. The candidates are
+    :func:`key_tile_plan`'s; a tile is skipped when the FlashMask stats (per
+    tile of ``n`` keys) mask the block's rows everywhere or no part is on.
+    ``elementwise``: the plan's causal / ragged test, the FlashMask band
+    test, or a consumer whose two key parts differ; those come first."""
+    m = FWD_DENSE_TILE_M
+    mt = MaskTiles(masks, h, n)
+    plan = {}
+    for mb, cands in enumerate(key_tile_plan(sq, sk, causal, m, n)):
+        q0 = mb * m
+        for batch in range(b):
+            for head in range(h):
+                found = []
+                for t, masked in cands:
+                    n0 = t * n
+                    skip, bypass = mt.decide(batch, head, q0, min(q0 + m, sq),
+                                             n0)
+                    keys = (n0, n0 + MASK_PART if n == 2 * MASK_PART else n0)
+                    parts = tuple(
+                        tuple(row < sq and key < sk
+                              and mt.on(batch, head, row, key) for key in keys)
+                        for row in (q0, q0 + MASK_PART))
+                    if skip or not any(map(any, parts)):
+                        continue
+                    straddle = any(a != c for a, c in parts)
+                    found.append((t, masked or not bypass or straddle, parts))
+                plan[(batch, head, mb)] = elementwise_first(found, 1)
+    return plan
+
+
+def fwd_masked_tile_plan(masks: KernelMasks, b: int, h: int, sq: int,
+                         sk: int, causal: bool):
+    """The key tiles the masked forward kernel visits: for each block
+    (batch, head, query block of FWD_DENSE_TILE_M rows), (tile,
+    elementwise, parts) of FWD_DENSE_TILE_N keys in visit order
+    (:func:`masked_row_block_plan`)."""
+    return masked_row_block_plan(masks, b, h, sq, sk, causal,
+                                 FWD_DENSE_TILE_N)
+
+
 def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
                       softcap: float, need_lse: bool, mask=None):
     """Plain version of the kernel on (b, h, s, d) tensors of any strides.
@@ -133,13 +227,20 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
 
 
 def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
-                     softcap: float, masks: KernelMasks = None) -> None:
+                     softcap: float, masks: KernelMasks = None,
+                     tile_counts=None) -> None:
     """Launch csrc/flash_fwd.cu on (b, h, s, d)-shaped views of any strides
     (head dim contiguous): q, out (b, h, sq, d); k, v (b, hk, sk, d); lse
     (b, h, sq) fp32 contiguous or None; ``masks`` the FlashMask and block
-    mask flags, or None. The dense kernel reads and writes through TMA
-    tensor maps, so pointers and strides must be multiples of 16 bytes (8
-    elements): ``ValueError`` otherwise. The callers count the launch."""
+    mask flags, or None. The kernel reads and writes through TMA tensor
+    maps, so pointers and strides must be multiples of 16 bytes (8
+    elements): ``ValueError`` otherwise. A mask runs the masked
+    instantiation, whose blocks come from a counter in device memory (the
+    heavier first); its three int32 counters are written to
+    ``tile_counts`` when it is given (a contiguous int32 tensor of 3 on the
+    card): the scheduler's, then the tiles the kernel visited and those of
+    them with the elementwise test, as :func:`fwd_masked_tile_plan` counts
+    them. The callers count the launch."""
     tensors = [t for t in (q, k, v, out, lse) if t is not None]
     if masks is not None:
         tensors += masks.tensors()
@@ -156,14 +257,27 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     if lse is not None and (lse.shape != (b, h, sq) or not lse.is_contiguous()
                             or lse.dtype != torch.float32):
         raise ValueError("lse must be a contiguous fp32 (b, h, sq) tensor")
+    if tile_counts is not None and (
+            tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
+            or tile_counts.device != q.device
+            or not tile_counts.is_contiguous()):
+        raise ValueError("tile_counts must be a contiguous int32 tensor of "
+                         "3 on q's device")
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         _cuda.require_aligned(t, 8, name)
+    masked = masks is not None and bool(masks.tensors())
+    counters = None
+    if masked:
+        counters = (tile_counts if tile_counts is not None else
+                    torch.empty(3, dtype=torch.int32, device=q.device))
     code = _cuda.lib().xfa_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
+        _cuda.ptr(lse),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap), int(causal),
-        *KernelMasks.c_args(masks, FWD_KEY_TILE), _cuda.stream())
+        *KernelMasks.c_args(masks, FWD_DENSE_TILE_N),
+        _cuda.ptr(masks.bands() if masked else None), _cuda.ptr(counters),
+        _cuda.stream())
     _cuda.check(code, "flash_fwd")
 
 
