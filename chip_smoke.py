@@ -24,15 +24,24 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      each cluster size;
   4. the slice: random bf16 weights at Llama-3-8B width serve request A
      (batch 2, prompt 2048, max_length 2080) and request B (batch 2,
-     prompt 960, max_length 1024) through `decode`; launch counts of every
-     kernel are checked exactly, and a second prefill over prompt +
-     generated tokens is checked against the decode-step logits;
+     prompt 960, max_length 1024) through `decode`, its step replayed as a
+     CUDA graph (the main path) and, for comparison, uncaptured
+     (cuda_graph=False): ms/step and tok/s of both, graph tokens equal to
+     eager tokens, launch counts of every kernel checked exactly (the
+     wrappers count a captured launch once: captured launches times
+     replays are added), and a second prefill over prompt + generated
+     tokens checked against the graph's decode-step logits; then (4b) 12
+     requests through `InferenceEngine` (bf16 and INT8 pages, chunked
+     prefill), its decode step a graph and uncaptured, the same way;
   5. the kernel path against the plain path at full width and depth: the
      prefill and one decode step of each request, once through the
      kernels and once through their plain versions on the same tensors
      and caches;
-  6. where the time goes: a few decode steps of each request under
-     torch.profiler, device time by kernel group and the idle share;
+  6. where the time goes: decode steps of each request and of the engine
+     at batch 8, uncaptured and as a CUDA graph, under torch.profiler
+     (device time and kernels by group, the idle share) and between CUDA
+     events (the graph's span per step); and two chunked-prefill steps of
+     the engine (eager);
   7. a tiny model on the card against the fp32 plain path on the CPU;
   8. training (slice 3): the repository's recipes T-long
      (experiment/pile/gpt3m-flash.yaml: seqlen 2048, rotary) and T-packed
@@ -701,12 +710,57 @@ def counters():
 
 
 def reset_counts():
+    from xhy_flash_attention_tpu_torch.utils.generation import CUDAGraphStep
     for fn in counters().values():
         fn.launches = 0
+    CUDAGraphStep.captures = CUDAGraphStep.replays = 0
 
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def read_graph_counts():
+    """(graphs captured, replays) since the last reset_counts()."""
+    from xhy_flash_attention_tpu_torch.utils.generation import CUDAGraphStep
+    return CUDAGraphStep.captures, CUDAGraphStep.replays
+
+
+def decode_launches(what, prompt: int, max_length: int):
+    """The launches of the decode() run just made through its graph,
+    checked against the eager count, expected_counts(prompt,
+    max_length)."""
+    want = expected_counts(prompt, max_length)
+    counts, replays = replayed_launches(
+        what, read_counts(), read_graph_counts(),
+        expected_counts(prompt, prompt + 1),
+        {k: want[k] - expected_counts(prompt, max_length - 1)[k]
+         for k in want})
+    check(counts == want, f"{what}: launches {counts} != {want}")
+    check(replays == max_length - prompt - 1,
+          f"{what}: {replays} replays for {max_length - prompt} steps")
+    return counts
+
+
+def replayed_launches(what, counts, graphs, before_capture, one_step):
+    """The launches that a run made on the card when its steps replayed one
+    CUDA graph. A wrapper counts a launch where it issues it, so the
+    captured step moved ``counts`` once, by ``counts`` less
+    ``before_capture`` (what the run counts without the capture: its eager
+    calls and the step's one run before the capture), and the card ran it
+    at every replay. Checks that one graph was captured and that it holds
+    what one eager step launches (``one_step``); returns counts + captured
+    x (replays - 1) and the replays."""
+    captures, replays = graphs
+    check(captures == 1, f"{what}: {captures} graphs captured, not 1")
+    captured = {k: counts[k] - before_capture[k] for k in counts}
+    check(captured == one_step, f"{what}: one replay launches {captured}, "
+                                f"one eager step {one_step}")
+    print(f"  {what}: one graph captured, {replays} replays, each launching "
+          f"{json.dumps({k: v for k, v in captured.items() if v})} (as an "
+          "eager step)", flush=True)
+    made = {k: counts[k] + captured[k] * (replays - 1) for k in counts}
+    return made, replays
 
 
 def expected_counts(prompt: int, max_length: int):
@@ -765,23 +819,40 @@ def compare_logits(what, got, want, tokens=None):
 
 
 def serve(model, gen, name):
+    """Phase 4, request ``name``: decode() with its step replayed as a CUDA
+    graph (the main path) and uncaptured (``cuda_graph=False``), one after
+    the other on the same prompt. Exact launches of both; graph tokens equal
+    to eager tokens; the graph's logits against a second prefill. Returns
+    the graph run's launches, sequences and logits."""
     from xhy_flash_attention_tpu_torch import decode
     b, prompt, max_length = REQUESTS[name]
+    steps = max_length - prompt
     vocab = model.config.vocab_size
     ids = torch.randint(0, vocab, (b, prompt), generator=gen, device="cuda")
-    decode(model, ids, prompt + 2)  # warm-up: library handles and plans
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    seq, scores = decode(model, ids, max_length, return_scores=True)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    want = expected_counts(prompt, max_length)
-    check(counts == want, f"request {name}: launches {counts} != {want}")
-    steps = max_length - prompt
+    for graph in (False, True):  # warm-up: library handles and plans
+        decode(model, ids, prompt + 2, cuda_graph=graph)
+    runs = {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        seq, scores = decode(model, ids, max_length, return_scores=True,
+                             cuda_graph=graph)
+        torch.cuda.synchronize()
+        runs[graph] = dict(seq=seq, scores=scores,
+                           total_s=time.perf_counter() - t0,
+                           peak=torch.cuda.max_memory_allocated())
+        if graph:
+            counts = decode_launches(f"request {name}, graph", prompt,
+                                     max_length)
+        else:
+            want = expected_counts(prompt, max_length)
+            check(read_counts() == want and read_graph_counts() == (0, 0),
+                  f"request {name}, eager: launches {read_counts()} "
+                  f"{read_graph_counts()} != {want}")
+    eager, main = runs[False], runs[True]
+    seq, scores = main["seq"], main["scores"]
     check(seq.shape == (b, max_length) and scores.shape == (b, steps, model.config.padded_vocab_size),
           f"request {name}: shapes {tuple(seq.shape)} {tuple(scores.shape)}")
     check(bool(torch.equal(seq[:, :prompt], ids)), "prompt not kept")
@@ -799,13 +870,23 @@ def serve(model, gen, name):
         prefill_s = sorted(prefill_times)[1]
         # consistency: one prefill over prompt + generated tokens
         logits, _ = model(seq)
-    decode_s = total_s - prefill_s
-    print(f"  request {name}: b{b} prompt {prompt} max_length {max_length}: "
-          f"total {total_s:.4f} s, prefill {prefill_s:.4f} s "
-          f"({b * prompt / prefill_s:.1f} tok/s), decode {decode_s:.4f} s "
-          f"({b * steps / decode_s:.1f} tok/s, {decode_s / steps * 1e3:.3f} "
-          f"ms/step), max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
-    compare_logits(f"request {name} decode logits vs a second prefill",
+    for graph, what in ((False, "eager"), (True, "graph")):
+        r = runs[graph]
+        decode_s = r["total_s"] - prefill_s
+        print(f"  request {name}, {what}: b{b} prompt {prompt} max_length "
+              f"{max_length}: total {r['total_s']:.4f} s, prefill "
+              f"{prefill_s:.4f} s ({b * prompt / prefill_s:.1f} tok/s), "
+              f"decode {decode_s:.4f} s ({b * steps / decode_s:.1f} tok/s, "
+              f"{decode_s / steps * 1e3:.3f} ms/step"
+              + (", the capture included" if graph else "")
+              + f"), max_memory_allocated {r['peak'] / 2**30:.3f} GiB",
+              flush=True)
+    same = bool(torch.equal(seq, eager["seq"]))
+    gap = (scores - eager["scores"]).abs().max().item()
+    print(f"  request {name}: graph tokens equal eager tokens: {same}; "
+          f"logits max |graph - eager| {gap:.4g}", flush=True)
+    check(same, f"request {name}: the graph's tokens differ from eager")
+    compare_logits(f"request {name} graph decode logits vs a second prefill",
                    scores, logits[:, prompt - 1: max_length - 1],
                    seq[:, prompt:])
     print(f"  request {name} kernels: " + json.dumps(
@@ -962,19 +1043,21 @@ def profile_steps(step, steps: int, label: dict):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels = {}, []
+    groups, calls, kernels = {}, {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         ms = e.self_device_time_total / 1e3
         g = _group(e.key)
         groups[g] = groups.get(g, 0.0) + ms
+        calls[g] = calls.get(g, 0) + e.count
         kernels.append((ms, e.key))
     busy = sum(groups.values())
     out = {**label, "steps": steps,
            "wall_ms_per_step_profiled": wall_ms / steps,
            "device_ms_per_step": {g: v / steps for g, v in sorted(
                groups.items(), key=lambda kv: -kv[1])},
+           "kernels_per_step": {g: calls[g] / steps for g in sorted(calls)},
            "device_idle_share": (1 - busy / wall_ms) if busy else None,
            "top_kernels_ms_per_step": [
                [k[:80], ms / steps] for ms, k in sorted(kernels)[::-1][:6]]}
@@ -985,27 +1068,93 @@ def profile_steps(step, steps: int, label: dict):
     return out
 
 
+class SpanTimer:
+    """A step wrapped in CUDA events recorded before and after each call.
+    Around a graph replay they time the graph on the device; around an
+    eager step they also take in the device's waits for the host."""
+
+    def __init__(self, step):
+        self.step, self.events = step, []
+
+    def __call__(self):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = self.step()
+        e1.record()
+        self.events.append((e0, e1))
+        return out
+
+    def ms_per_call(self) -> float:
+        torch.cuda.synchronize()
+        spans = [a.elapsed_time(b) for a, b in self.events]
+        self.events = []
+        return sum(spans) / max(len(spans), 1)
+
+
+def time_steps(step, timer, n: int = 16):
+    """Host ms per call of ``step`` over ``n`` calls ended by a synchronize,
+    and the span ms per call of ``timer`` (a SpanTimer that ``step``
+    calls)."""
+    timer.ms_per_call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, timer.ms_per_call()
+
+
+def compare_breakdowns(what, eager, graph, wall, span):
+    """Print a graph step's device ms and kernels by group beside the eager
+    step's, host ms per step, and the busy share that the graph's own
+    events give (span / host ms)."""
+    groups = sorted(set(eager["device_ms_per_step"])
+                    | set(graph["device_ms_per_step"]))
+    rows = {g: [round(eager["device_ms_per_step"].get(g, 0.0), 4),
+                round(graph["device_ms_per_step"].get(g, 0.0), 4),
+                eager["kernels_per_step"].get(g, 0),
+                graph["kernels_per_step"].get(g, 0)] for g in groups}
+    print(f"  {what}: ms/step (host clock, 16 steps) eager {wall[False]:.3f}, "
+          f"graph {wall[True]:.3f}; CUDA-event span per step eager "
+          f"{span[False]:.3f}, graph {span[True]:.3f} ms (graph busy share "
+          f"{span[True] / wall[True]:.3f}); idle share under the profiler "
+          f"eager {eager['device_idle_share']}, graph "
+          f"{graph['device_idle_share']}; by group [eager ms, graph ms, "
+          f"eager kernels, graph kernels] per step: {json.dumps(rows)}",
+          flush=True)
+
+
 def decode_breakdown(model, gen, name, steps: int = 8):
-    """Where a decode step's time goes: ``steps`` greedy decode steps of
-    request ``name`` under torch.profiler, after one unprofiled step."""
+    """Where a decode step's time goes: request ``name``'s DecodeStep, the
+    next token chosen on the device, uncaptured and as a CUDA graph: host
+    ms per step and CUDA-event spans over 16 steps, then ``steps`` steps
+    under torch.profiler, after one step (the capture)."""
+    from xhy_flash_attention_tpu_torch.utils.generation import DecodeStep
     b, prompt, max_length = REQUESTS[name]
     ids = torch.randint(0, model.config.vocab_size, (b, prompt),
                         generator=gen, device="cuda")
-    state = {}
-    with torch.inference_mode():
-        caches = model.allocate_kv_caches(b, max_length)
-        logits, _ = model(ids, kv_caches=caches)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        logits, _ = model(tok, kv_caches=caches, seqlen_offset=prompt)
-        state.update(tok=logits[:, -1].argmax(-1, keepdim=True), pos=prompt)
+    out, wall, span = {}, {}, {}
+    for graph in (False, True):
+        step = DecodeStep(model, b, max_length, cuda_graph=graph)
+        with torch.inference_mode():
+            logits, _ = model(ids, kv_caches=list(step.caches),
+                              seqlen_offset=0)
+        step.offset.fill_(prompt)
+        step.tokens.copy_(logits[:, -1].argmax(-1, keepdim=True))
+        timer = SpanTimer(step)
 
-        def step():
-            state["pos"] += 1
-            logits, _ = model(state["tok"], kv_caches=caches,
-                              seqlen_offset=state["pos"])
-            state["tok"] = logits[:, -1].argmax(-1, keepdim=True)
+        def one():
+            step.tokens.copy_(timer().argmax(-1, keepdim=True))
 
-        return profile_steps(step, steps, {"request": name})
+        one()
+        wall[graph], span[graph] = time_steps(one, timer)
+        out[graph] = profile_steps(one, steps, {
+            "request": name, "path": "graph" if graph else "eager"})
+        del step
+    compare_breakdowns(f"request {name} decode step", out[False], out[True],
+                       wall, span)
+    return out
 
 
 # --------------------------------------------------- phases 4b, 4c, 5, 6
@@ -1062,7 +1211,9 @@ def _timed_engine(model, dtype, **kw):
                 self._timed("chunk", super()._prefill_chunk_step)
 
         def _decode_step(self, active):
-            self._timed(len(active), super()._decode_step, active)
+            # the first step captures the graph: timed on its own
+            key = len(active) if self.stats["decode"] else "first"
+            self._timed(key, super()._decode_step, active)
 
     layers, hk, d = _model_dims(model)
     eng = TimedEngine(model, num_layers=layers, num_kv_heads=hk, head_dim=d,
@@ -1096,50 +1247,89 @@ def check_engine_tokens(model, what, reqs, bound):
 
 def serve_engine(model, dtype, seed):
     """Phase 4b: 12 greedy requests through InferenceEngine at full width
-    and depth; exact launch counts, tokens against a dense prefill."""
+    and depth, its decode step replayed as a CUDA graph (the main path) and
+    uncaptured (``cuda_graph=False``): exact launches of both, equal
+    tokens, the graph's tokens against a dense prefill. Returns the graph
+    run's launches and model calls."""
     layers = model.config.num_hidden_layers
-    reqs = _engine_requests(seed, model.config.vocab_size)
-    eng = _timed_engine(model, dtype, **ENGINE_RUN)
-    for r in reqs:
-        eng.add_request(r)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    st = eng.stats
-    calls = st["prefill"] + st["chunk"] + st["decode"]
-    want = {**{k: 0 for k in counters()},
-            "rms_norm_add": (2 * layers + 1) * calls,
-            "flash_fwd (fused_heads)": layers * st["prefill"],
-            "paged_decode (chunked)": layers * (st["chunk"] + st["decode"])}
-    check(counts == want, f"engine {SHORT[dtype]}: launches {counts} != {want}")
-    check(sorted(results) == list(range(N_REQUESTS)) and all(
-        len(results[r.rid]) == r.max_new_tokens for r in reqs),
+    runs = {}
+    for graph in (False, True):
+        reqs = _engine_requests(seed, model.config.vocab_size)
+        eng = _timed_engine(model, dtype, cuda_graph=graph, **ENGINE_RUN)
+        for r in reqs:
+            eng.add_request(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = eng.run()
+        torch.cuda.synchronize()
+        runs[graph] = dict(reqs=reqs, eng=eng, results=results,
+                           total_s=time.perf_counter() - t0,
+                           counts=read_counts(), graphs=read_graph_counts(),
+                           peak=torch.cuda.max_memory_allocated())
+    st = runs[True]["eng"].stats
+    check(runs[False]["eng"].stats == st,
+          f"engine {SHORT[dtype]}: model calls {dict(st)} (graph) != "
+          f"{dict(runs[False]['eng'].stats)} (eager)")
+
+    def launches(decode_calls):
+        calls = st["prefill"] + st["chunk"] + decode_calls
+        return {**{k: 0 for k in counters()},
+                "rms_norm_add": (2 * layers + 1) * calls,
+                "flash_fwd (fused_heads)": layers * st["prefill"],
+                "paged_decode (chunked)": layers * (st["chunk"]
+                                                    + decode_calls)}
+
+    want = launches(st["decode"])
+    eager = runs[False]
+    check(eager["counts"] == want and eager["graphs"] == (0, 0),
+          f"engine {SHORT[dtype]}, eager: launches {eager['counts']} "
+          f"{eager['graphs']} != {want}")
+    counts, replays = replayed_launches(
+        f"engine {SHORT[dtype]}, graph", runs[True]["counts"],
+        runs[True]["graphs"], launches(1),
+        {k: want[k] - launches(st["decode"] - 1)[k] for k in want})
+    check(counts == want, f"engine {SHORT[dtype]}, graph: launches {counts} "
+                          f"!= {want}")
+    check(replays == st["decode"] - 1,
+          f"engine: {replays} replays for {st['decode']} decode steps")
+    reqs = runs[True]["reqs"]
+    check(sorted(runs[True]["results"]) == list(range(N_REQUESTS)) and all(
+        len(runs[True]["results"][r.rid]) == r.max_new_tokens for r in reqs),
         "engine: a request did not finish with its tokens")
     gen_tokens = sum(r.max_new_tokens for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
-    prefill_s = sum(eng.times.get("prefill", [])) + sum(
-        eng.times.get("chunk", []))
-    per_batch = {n: (1e3 * sum(t) / len(t), len(t))
-                 for n, t in sorted((n, t) for n, t in eng.times.items()
-                                    if isinstance(n, int))}
     print(f"  engine, {SHORT[dtype]} pages: {N_REQUESTS} requests, prompts "
           f"{[len(r.prompt) for r in reqs]}, new tokens "
-          f"{[r.max_new_tokens for r in reqs]}; model calls {dict(st)}; "
-          f"total {total_s:.4f} s, generated {gen_tokens / total_s:.1f} "
-          f"tok/s, prefill {prompt_tokens / prefill_s:.1f} tok/s "
-          f"({prefill_s:.4f} s in prefill and chunk steps), decode ms/step "
-          f"by batch {{batch: (ms, steps)}} "
-          + json.dumps({str(k): [round(v[0], 3), v[1]]
-                        for k, v in per_batch.items()})
-          + f", max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
+          f"{[r.max_new_tokens for r in reqs]}; model calls {dict(st)}",
+          flush=True)
+    for graph, what in ((False, "eager"), (True, "graph")):
+        r = runs[graph]
+        times = r["eng"].times
+        prefill_s = sum(times.get("prefill", [])) + sum(times.get("chunk", []))
+        per_batch = {n: (1e3 * sum(t) / len(t), len(t))
+                     for n, t in sorted((n, t) for n, t in times.items()
+                                        if isinstance(n, int))}
+        print(f"  engine {SHORT[dtype]}, {what}: total {r['total_s']:.4f} s, "
+              f"generated {gen_tokens / r['total_s']:.1f} tok/s, prefill "
+              f"{prompt_tokens / prefill_s:.1f} tok/s ({prefill_s:.4f} s in "
+              f"prefill and chunk steps), first decode step "
+              f"{1e3 * times['first'][0]:.3f} ms"
+              + (" (the capture)" if graph else "")
+              + ", decode ms/step by batch {batch: (ms, steps)} "
+              + json.dumps({str(k): [round(v[0], 3), v[1]]
+                            for k, v in per_batch.items()})
+              + f", max_memory_allocated {r['peak'] / 2**30:.3f} GiB",
+              flush=True)
+    same = runs[True]["results"] == runs[False]["results"]
+    print(f"  engine {SHORT[dtype]}: graph tokens equal eager tokens: {same}",
+          flush=True)
+    check(same, f"engine {SHORT[dtype]}: the graph's tokens differ from "
+                "eager")
     bound_ = NEAR_TIE if dtype == torch.bfloat16 else INT8_NEAR_TIE
-    check_engine_tokens(model, f"engine {SHORT[dtype]} pages", reqs, bound_)
+    check_engine_tokens(model, f"engine {SHORT[dtype]} pages, graph", reqs,
+                        bound_)
     print(f"  engine {SHORT[dtype]} kernels: " + json.dumps(
         [{"tpu_kernel": TPU_OF[k], "cuda": k, "launches": v}
          for k, v in counts.items() if v]), flush=True)
@@ -1339,19 +1529,55 @@ PAGED_EARLIER_STEP_MS = 7.98
 
 
 def engine_breakdown(eng, steps: int = 6):
-    """Phase 6 (engine): decode steps of eight sequences over bf16 pages
-    under torch.profiler."""
+    """Phase 6 (engine): decode steps of eight sequences over bf16 pages,
+    uncaptured and then as a CUDA graph: host ms per step and CUDA-event
+    spans of the step over 16 steps, then ``steps`` steps under
+    torch.profiler."""
     active = [r for r in eng.slots if r is not None]
-    eng._decode_step(active)
-    out = profile_steps(lambda: eng._decode_step(active), steps,
-                        {"engine": f"{len(active)} sequences, lengths "
-                                   f"{eng._lengths.tolist()}"})
-    print(f"  engine step: paged_decode "
-          f"{out['device_ms_per_step'].get('paged_decode', 0.0):.4f} ms of "
-          f"{out['wall_ms_per_step_profiled']:.4f} ms profiled, idle share "
-          f"{out['device_idle_share']} (the earlier kernel: paged_decode "
-          f"{PAGED_EARLIER_STEP_MS} ms of 87.0)", flush=True)
+    out, wall, span = {}, {}, {}
+    for graph in (False, True):
+        eng.cuda_graph = graph
+        eng._steps.clear()
+        timer = SpanTimer(eng._step(1))
+        eng._steps[1] = timer
+        eng._decode_step(active)  # the capture
+        wall[graph], span[graph] = time_steps(
+            lambda: eng._decode_step(active), timer)
+        out[graph] = profile_steps(
+            lambda: eng._decode_step(active), steps,
+            {"engine": f"{len(active)} sequences, lengths "
+                       f"{eng._lengths.tolist()}",
+             "path": "graph" if graph else "eager"})
+        o = out[graph]
+        print(f"  engine step, {o['path']}: paged_decode "
+              f"{o['device_ms_per_step'].get('paged_decode', 0.0):.4f} ms of "
+              f"{o['wall_ms_per_step_profiled']:.4f} ms profiled, idle share "
+              f"{o['device_idle_share']} (the "
+              f"earlier kernel: paged_decode {PAGED_EARLIER_STEP_MS} ms of "
+              "87.0)", flush=True)
+    compare_breakdowns("engine decode step, batch 8", out[False], out[True],
+                       wall, span)
     return out
+
+
+def chunk_breakdown(model, seed, steps: int = 2):
+    """Phase 6 (engine): chunked-prefill steps, which run eagerly: eight
+    prompts of 1600-2000 tokens in chunks of 512 (b8, sq 512 through the
+    paged prefill regime) under torch.profiler, after one unprofiled
+    chunk."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch.inference import Request
+    rng = np.random.default_rng(seed + 2)
+    eng = _timed_engine(model, torch.bfloat16, **ENGINE_RUN)
+    for i, n in enumerate(rng.integers(1600, 2001, ENGINE_RUN["max_batch"])):
+        eng.add_request(Request(
+            rid=i, prompt=rng.integers(0, model.config.vocab_size, n).astype(
+                np.int32), max_new_tokens=1))
+    eng._admit()
+    eng._prefill_chunk_step()
+    return profile_steps(eng._prefill_chunk_step, steps, {
+        "engine": "chunked-prefill step, 8 prompts in chunks of 512",
+        "path": "eager"})
 
 
 def tiny_parity():
@@ -2588,10 +2814,8 @@ def main():
     for dt in QUANT:
         reset_counts()
         quantized_decode(model, "A", seq_a, scores_a, dt)
-        counts = add(read_counts())
-        check(counts["flash_decode"] == LAYERS * (REQUESTS["A"][2]
-                                                  - REQUESTS["A"][1]),
-              f"quantized decode launches {counts}")
+        counts = add(decode_launches(f"decode(cache_dtype={SHORT[dt]})",
+                                     *REQUESTS["A"][1:]))
         key = f"flash_decode ({SHORT[dt]})"
         launches[key] = launches.get(key, 0) + counts["flash_decode"]
     del seq_a, scores_a
@@ -2612,6 +2836,8 @@ def main():
     for name in REQUESTS:
         decode_breakdown(model, gen, name)
     engine_breakdown(engines.pop(torch.bfloat16))
+    torch.cuda.empty_cache()
+    chunk_breakdown(model, args.seed)
     del model
     torch.cuda.empty_cache()
     print("[7] tiny model: the card (bf16) against the CPU (fp32)",

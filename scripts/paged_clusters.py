@@ -53,9 +53,10 @@ def kernel_rows(gen):
 
     import chip_smoke as cs
     from xhy_flash_attention_tpu_torch.inference import paged
+    from xhy_flash_attention_tpu_torch.ops import _cuda
     c = cs.ENGINE_DECODE
     b, h, hk, d = c["b"], c["h"], c["hk"], c["d"]
-    plan = paged.paged_launch_plan(b, 1, h, hk, 512, 8, paged._sm_count(0))
+    plan = paged.paged_launch_plan(b, 1, h, hk, 512, 8, _cuda.sm_count(0))
     print(f"  plan: {json.dumps(plan)}", flush=True)
     for dtype in (torch.bfloat16, torch.int8):
         sets = cs._paged_sets(gen, dtype, 512, 8)

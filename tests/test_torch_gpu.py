@@ -1367,3 +1367,125 @@ def test_reduced_scores_in_a_cuda_graph(cuda):
     eager = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
     torch.cuda.synchronize()
     assert torch.equal(got, eager)
+
+
+# ------------------------------------------------ the decode steps as graphs
+
+
+def _tiny_llama():
+    """A 2-layer bf16 Llama on the card (hidden 256, 4/2 heads of 64)."""
+    from xhy_flash_attention_tpu_torch import (GPTLMHeadModel,
+                                               llama_config_to_gpt_config)
+    hf = types.SimpleNamespace(
+        vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        rope_theta=10000.0, rms_norm_eps=1e-5)
+    return GPTLMHeadModel(
+        llama_config_to_gpt_config(hf, torch.bfloat16), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+
+
+@pytest.mark.parametrize("cache", [None, torch.int8], ids=["bf16", "int8"])
+def test_decode_cuda_graph_matches_uncaptured(cuda, cache):
+    """decode() replaying its step as a CUDA graph against the same step
+    run uncaptured: a replay runs the kernels an eager step launches, in its
+    order, so the tokens are equal and the logits bitwise equal."""
+    from xhy_flash_attention_tpu_torch import decode
+    from xhy_flash_attention_tpu_torch.utils.generation import CUDAGraphStep
+    model = _tiny_llama()
+    ids = torch.randint(0, 512, (2, 40), generator=cuda, device="cuda")
+    replays = CUDAGraphStep.replays
+    seq, scores = decode(model, ids, 56, return_scores=True, cache_dtype=cache)
+    assert CUDAGraphStep.replays == replays + 15
+    want_seq, want = decode(model, ids, 56, return_scores=True,
+                            cache_dtype=cache, cuda_graph=False)
+    assert CUDAGraphStep.replays == replays + 15
+    assert torch.equal(seq, want_seq)
+    assert torch.equal(scores, want)
+
+
+@pytest.mark.parametrize("spec", [0, 3])
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_engine_cuda_graph_matches_uncaptured(cuda, pages, spec):
+    """The engine with its decode (or verify) step as a CUDA graph against
+    the same engine uncaptured: 8 requests on 4 slots, equal tokens."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch.inference import (InferenceEngine,
+                                                         Request)
+    model = _tiny_llama()
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, 512, int(rng.integers(5, 150))).astype(np.int32),
+             int(rng.integers(4, 20))) for _ in range(8)]
+
+    def run(graph):
+        eng = InferenceEngine(model, num_layers=2, num_kv_heads=2,
+                              head_dim=64, num_pages=40, page_size=64,
+                              max_batch=4, max_pages_per_seq=4, dtype=pages,
+                              speculate_len=spec, cuda_graph=graph)
+        for i, (p, n) in enumerate(reqs):
+            eng.add_request(Request(rid=i, prompt=p, max_new_tokens=n))
+        return eng.run(), eng
+
+    got, eng = run(True)
+    want, ref = run(False)
+    assert got == want and eng.stats == ref.stats
+    assert list(eng._steps) == [1 + spec]
+    assert eng._steps[1 + spec].graph is not None
+    assert ref._steps[1 + spec].graph is None
+
+
+def test_decode_step_replay_launches_what_an_eager_step_does(cuda):
+    """The kernel wrappers count a launch while the step is captured, once
+    for every replay: capturing a step counts what an eager step counts
+    (2 layers: 5 norms, 2 decode launches), and replays count nothing."""
+    from xhy_flash_attention_tpu_torch.utils.generation import (CUDAGraphStep,
+                                                                DecodeStep)
+    model = _tiny_llama()
+    ids = torch.randint(0, 512, (2, 40), generator=cuda, device="cuda")
+    steps = []
+    for graph in (False, True):
+        step = DecodeStep(model, 2, 64, cuda_graph=graph)
+        with torch.inference_mode():
+            model(ids, kv_caches=list(step.caches), seqlen_offset=0)
+        step.offset.fill_(40)
+        step.tokens.fill_(3)
+        steps.append(step)
+    eager, graphed = steps
+
+    def launches():
+        return (ln.ln_fwd.launches, dk.flash_decode.launches)
+
+    before = launches()
+    want = eager()
+    per_step = tuple(a - b for a, b in zip(launches(), before))
+    assert per_step == (5, 2)
+    before = launches()
+    got = graphed()  # run once on a side stream, then captured
+    assert tuple(a - b for a, b in zip(launches(), before)) == tuple(
+        2 * n for n in per_step)
+    assert torch.equal(got, want)
+    before, replays = launches(), CUDAGraphStep.replays
+    for _ in range(3):
+        eager()
+        graphed()
+    assert launches() == tuple(a + 3 * n for a, n in zip(before, per_step))
+    assert CUDAGraphStep.replays == replays + 3
+    torch.cuda.synchronize()
+    assert torch.equal(graphed.offset, eager.offset)
+    assert torch.equal(graphed(), eager())
+    for (gk, gv), (ek, ev) in zip(graphed.caches, eager.caches):
+        assert torch.equal(gk, ek) and torch.equal(gv, ev)
+
+
+def test_cuda_graph_step_raises_when_capture_fails(cuda):
+    """A step that reads a device value on the host cannot be captured:
+    the error is raised, and no eager call stands in for the graph."""
+    from xhy_flash_attention_tpu_torch.utils.generation import CUDAGraphStep
+    x = torch.ones(4, device="cuda")
+    step = CUDAGraphStep(lambda: x * x.sum().item(), graph=True)
+    with pytest.raises(RuntimeError):
+        step()
+    assert step.out is None
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, torch.full((4,), 2.0, device="cuda"))

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops import _cuda
 from ..ops.flash_attention.common import NEG_INF, cdiv, require_inference
 from ..ops.flash_attention.decode_kernel import (
     _payload,
@@ -95,8 +96,8 @@ def _split_plan(q, k_cache, num_splits: int, block_k: int) -> Tuple[int, int]:
         block_k = 1024  # the TPU package's block for 1-byte payloads
     nkv = cdiv(S, block_k)
     if num_splits <= 0:
-        cores = (torch.cuda.get_device_properties(q.device).multi_processor_count
-                 if q.device.type == "cuda" else 2)
+        cores = (_cuda.sm_count(q.device.index) if q.device.type == "cuda"
+                 else 2)
         num_splits = num_splits_heuristic(b, hk, S, block_k, num_cores=cores)
     num_splits = min(num_splits, nkv)
     return num_splits, cdiv(nkv, num_splits) * block_k

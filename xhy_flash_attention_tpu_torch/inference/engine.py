@@ -14,9 +14,18 @@ Design, as in the TPU package:
     ``speculate_len`` with prompt-lookup speculation) through the model with
     per-layer PagedKVCaches and per-sample lengths; empty slots keep length
     0 and their tokens are discarded.
-The page table and lengths live on the host and are pushed to the device
-before every model call. PyTorch runs eagerly, so each step is a Python
-loop of kernel launches; CUDA graphs to cut that overhead are later work.
+The page table and lengths live on the host, where the scheduler keeps
+them. Before every model call they are copied in place into one page table,
+one lengths tensor and one active-slot tensor on the device, which every
+layer cache shares, and the token ids into a fixed (max_batch, width)
+buffer (on CUDA through pinned buffers, without waiting). The decode step
+(width 1) and the speculative verify step (width 1 + speculate_len) read
+only those tensors and the caches, and nothing in them is read on the host,
+so on CUDA each width runs as a CUDA graph, captured at its first step and
+replayed after (≙ the TPU package's `_build_decode` and `_build_verify`,
+compiled once per width; `cuda_graph=False` runs the same steps
+uncaptured). The bucketed prefill and the chunked-prefill steps run
+eagerly.
 
 One difference from the TPU package: there the first chunk of a chunked
 prefill is appended to an empty slot (length 0), which the append treats as
@@ -29,12 +38,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Dict, List, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..ops.quant import QUANT_DTYPES, bits, quantize_kv
+from ..utils.generation import CUDAGraphStep
 from .paged import PagedKVCache
 
 __all__ = ["InferenceEngine", "Request"]
@@ -116,6 +127,9 @@ class InferenceEngine:
     bucket of admitted prompts, with "prefill_tokens" the prompts' tokens),
     "chunk" (chunked-prefill steps), "decode" and "verify" (speculative
     steps).
+
+    cuda_graph: run the decode and verify steps as CUDA graphs on a CUDA
+    device (the default); False runs them uncaptured. Ignored on the CPU.
     """
 
     def __init__(
@@ -135,6 +149,7 @@ class InferenceEngine:
         speculate_ngram: int = 2,
         device=None,
         rng: Optional[np.random.Generator] = None,
+        cuda_graph: bool = True,
     ):
         if any(not m.causal for m in getattr(model, "modules", list)()
                if hasattr(m, "causal")):
@@ -151,13 +166,27 @@ class InferenceEngine:
         self.speculate_len = speculate_len
         self.speculate_ngram = speculate_ngram
         self.trash_page = num_pages - 1  # sink for inactive-slot appends
-        self.caches = []
-        for _ in range(num_layers):
-            c = PagedKVCache.create(num_pages, num_kv_heads, page_size,
+        dev = self.device
+        # the device tensors that the model calls read, updated in place
+        self._dev: Dict[Any, torch.Tensor] = {
+            "table": torch.full((max_batch, max_pages_per_seq),
+                                self.trash_page, dtype=torch.int32,
+                                device=dev),
+            "lengths": torch.zeros(max_batch, dtype=torch.int32, device=dev),
+            "active": torch.zeros(max_batch, dtype=torch.bool, device=dev)}
+        self.caches = [
+            dataclasses.replace(
+                PagedKVCache.create(num_pages, num_kv_heads, page_size,
                                     head_dim, max_batch, max_pages_per_seq,
-                                    dtype, device=self.device)
-            c.page_table.fill_(self.trash_page)
-            self.caches.append(c)
+                                    dtype, device=dev),
+                page_table=self._dev["table"], lengths=self._dev["lengths"],
+                active=self._dev["active"])
+            for _ in range(num_layers)]
+        self.cuda_graph = cuda_graph and dev.type == "cuda"
+        self._steps: Dict[int, CUDAGraphStep] = {}
+        self._pinned: Dict[Any, torch.Tensor] = {}
+        # recorded after the copies out of the pinned buffers
+        self._pushed = torch.cuda.Event() if dev.type == "cuda" else None
         self._table = np.full((max_batch, max_pages_per_seq), self.trash_page,
                               np.int32)
         self._lengths = np.zeros((max_batch,), np.int32)
@@ -202,27 +231,66 @@ class InferenceEngine:
         self.slots[req.slot] = None
         req.slot = -1
 
-    def _sync_caches(self, active: Optional[np.ndarray] = None):
-        """Push the host page table and lengths into every layer cache (one
-        shared device tensor each). Appends return new lengths tensors, so
-        the layers of one model call all start from these."""
-        table = torch.from_numpy(self._table).to(self.device)
-        lengths = torch.from_numpy(self._lengths).to(self.device)
-        act = None if active is None else torch.from_numpy(active).to(
-            self.device)
-        self.caches = [
-            dataclasses.replace(c, page_table=table, lengths=lengths,
-                                active=act)
-            for c in self.caches
-        ]
+    def _push(self, arrays: Dict[Any, np.ndarray]):
+        """Copy host arrays into the device tensors of the same keys, in
+        place. On CUDA through pinned buffers by non-blocking copies: the
+        host waits only before it refills a pinned buffer that the last
+        push's copies may still be reading."""
+        if self._pushed is not None:
+            self._pushed.synchronize()
+        for key, src in arrays.items():
+            dst, src = self._dev[key], torch.from_numpy(src)
+            if self._pushed is None:
+                dst.copy_(src)
+                continue
+            if key not in self._pinned:
+                self._pinned[key] = torch.empty(dst.shape, dtype=dst.dtype,
+                                                pin_memory=True)
+            self._pinned[key].copy_(src)
+            dst.copy_(self._pinned[key], non_blocking=True)
+        if self._pushed is not None:
+            self._pushed.record()
 
-    def _run(self, ids: np.ndarray, offset):
-        """One model call over the paged caches (mutated in place)."""
-        with torch.inference_mode():
-            logits, self.caches = self.model(
-                torch.from_numpy(ids).to(self.device, torch.int64),
-                kv_caches=self.caches, seqlen_offset=offset)
+    def _sync_caches(self, active: Optional[np.ndarray] = None,
+                     ids: Optional[np.ndarray] = None):
+        """Push the host page table, lengths and active slots (default: the
+        slots holding tokens, lengths > 0) into the tensors that every layer
+        cache shares, and ``ids`` (max_batch, width), when given, into the
+        token buffer of its width."""
+        arrays = {"table": self._table, "lengths": self._lengths,
+                  "active": self._lengths > 0 if active is None else active}
+        if ids is not None:
+            key = ("ids", ids.shape[1])
+            if key not in self._dev:
+                self._dev[key] = torch.zeros(ids.shape, dtype=torch.int64,
+                                             device=self.device)
+            arrays[key] = ids
+        self._push(arrays)
+
+    @torch.inference_mode()
+    def _forward(self, width: int) -> torch.Tensor:
+        """The model over the token buffer of ``width`` at the slots'
+        lengths; the pages are written in place, the caches stay as they
+        are (the host advances the lengths)."""
+        logits, _ = self.model(self._dev[("ids", width)],
+                               kv_caches=list(self.caches),
+                               seqlen_offset=self._dev["lengths"])
         return logits
+
+    def _step(self, width: int) -> CUDAGraphStep:
+        """The step of ``width`` (decode 1, verify 1 + speculate_len): a
+        CUDA graph on CUDA, captured at its first call."""
+        if width not in self._steps:
+            self._steps[width] = CUDAGraphStep(
+                functools.partial(self._forward, width), self.cuda_graph)
+        return self._steps[width]
+
+    def _run(self, ids: np.ndarray) -> torch.Tensor:
+        """A decode or verify step over the paged caches: ``ids``
+        (max_batch, width) at the slots' lengths. Returns the step's fixed
+        logits, which its next call overwrites."""
+        self._sync_caches(ids=ids)
+        return self._step(ids.shape[1])()
 
     # ---- scheduling -------------------------------------------------------
 
@@ -295,8 +363,8 @@ class InferenceEngine:
             ids[r.slot, :n] = np.asarray(
                 r.prompt[r.prefill_pos:r.prefill_pos + n], np.int32)
             self._cover(r, r.prefill_pos + n, "a prefill chunk")
-        self._sync_caches(active)
-        logits = self._run(ids, self.caches[0].lengths)
+        self._sync_caches(active, ids)
+        logits = self._forward(chunk)  # eager: one shape, device-bound
         self.stats["chunk"] += 1
         still = []
         for r in self._prefilling:
@@ -353,7 +421,6 @@ class InferenceEngine:
         _scatter_prefill(
             self.caches, new_caches, torch.from_numpy(page_map).to(self.device),
             torch.tensor([r.slot for r in reqs], device=self.device))
-        self._sync_caches()
         for j, req in enumerate(reqs):
             tok = self._sample(logits[j, lens[j] - 1], req)
             req.output.append(tok)
@@ -374,9 +441,7 @@ class InferenceEngine:
     def _decode_step(self, active: List[Request]):
         for r in active:  # a page for the next token of each active slot
             self._cover(r, len(r.prompt) + len(r.output), "a decode step")
-        self._sync_caches()
-        logits = self._run(self._last_tokens[:, None],
-                           self.caches[0].lengths)[:, 0]
+        logits = self._run(self._last_tokens[:, None])[:, 0]
         self.stats["decode"] += 1
         greedy = logits.argmax(-1).cpu().numpy()
         for r in active:
@@ -435,8 +500,7 @@ class InferenceEngine:
             # pages must cover the whole appended width
             self._cover(r, int(self._lengths[r.slot]) + width,
                         "a speculative step")
-        self._sync_caches()
-        logits = self._run(ids, self.caches[0].lengths)
+        logits = self._run(ids)
         self.stats["verify"] += 1
         greedy = logits.argmax(-1).cpu().numpy()
         for r in active:

@@ -2,11 +2,14 @@
 inference/fused_step.py `fused_decode_step`).
 
 The TPU package fuses the three into one jitted dispatch with the cache
-donated. Here the step runs eagerly: rotary in plain PyTorch, the append
-written in place into the caller's cache (no copy of the cache), then the
-attention kernel (flash_decode for dense and quantized caches,
-paged_flash_decode for a PagedKVCache). Capturing the step in a CUDA graph
-is later work.
+donated. Here the step is rotary in plain PyTorch, the append written in
+place into the caller's cache (no copy of the cache), then the attention
+kernel (flash_decode for dense and quantized caches, paged_flash_decode for
+a PagedKVCache). A tensor ``lengths`` is read on the device only and
+nothing else of the step is read on the host, so the caller can capture it
+in a CUDA graph (utils/generation.py `CUDAGraphStep`) with its q, new keys
+and values, lengths and caches as fixed tensors updated in place between
+replays, as the engine's decode step is captured.
 
 Supports the three cache kinds of modules/mha.py:
   * dense (k_cache, v_cache) tensors (b, hk, S, d);
@@ -53,20 +56,22 @@ def fused_decode_step(
     softcap: float = 0.0,
     interleaved: bool = False,
 ):
-    """One decode step (rotary -> append -> attend), eagerly, appending in
-    place.
+    """One decode step (rotary -> append -> attend), appending in place.
 
     q: (b, sq, h, d) new queries (pre-rotary when inv_freq is given);
     k_new/v_new: (b, hk, sq, d) new keys/values (pre-rotary);
     cache: (k_cache, v_cache) dense tensors or QuantizedKV pair, written in
         place; or a PagedKVCache, whose pages are written in place;
-    lengths: (b,) int32 tokens already in the cache per sample (omit for a
-        PagedKVCache: it carries its own);
+    lengths: (b,) int32 tokens already in the cache per sample, a tensor on
+        q's device for a captured step (omit for a PagedKVCache: it carries
+        its own);
     inv_freq: optional (rot_dim/2,) rotary inverse frequencies; None skips
         rotary.
 
     Returns (out (b, sq, h, d), cache): the same dense caches, or a new
-    PagedKVCache over the same pages with advanced lengths.
+    PagedKVCache over the same pages with advanced lengths (a new tensor:
+    the cache's own lengths are not changed, so a captured step replays
+    from the lengths the caller writes into it).
     """
     if lengths is None:
         if not isinstance(cache, PagedKVCache):

@@ -33,7 +33,6 @@ the lengths that every layer of one model call starts from stay untouched.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -191,11 +190,6 @@ def paged_flash_decode_ref(q, cache: PagedKVCache, softmax_scale: float,
         b, sq, h, d).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def paged_launch_plan(b: int, sq: int, h: int, hk: int, page_size: int,
                       pages_per_seq: int, sm_count: int,
                       cluster: Optional[int] = None) -> dict:
@@ -306,8 +300,8 @@ def launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
     if cluster is not None and cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster {cluster}: the kernel takes {CLUSTER_SIZES}")
     _cuda.require_aligned(pages, 16, "kv_pages")
-    plan = paged_launch_plan(b, sq, h, hk, ps, npp, _sm_count(q.device.index),
-                             cluster)
+    plan = paged_launch_plan(b, sq, h, hk, ps, npp,
+                             _cuda.sm_count(q.device.index), cluster)
     q = contiguous_q(q)
     out = torch.empty_like(q)
     code = _cuda.lib().xfa_paged_decode(

@@ -13,7 +13,10 @@ Routing follows the TPU package (mha.py:268-377):
     runs decode_attention against the cache at lengths offset + sq;
   * no cache: `_attend`.
 seqlen_offset is an int, or a (b,) tensor of per-sample offsets (rotary
-then rotates each sample at its own positions).
+then rotates each sample at its own positions). A tensor offset is read on
+the device only (rotary, the cache write, the decode lengths), so a step
+captured in a CUDA graph replays the offset the tensor holds at each replay;
+an int would be baked into the graph.
 
 The TPU package returns new caches; here dense caches and pages are written
 in place and the same tensors are returned. A paged cache comes back as a
@@ -127,8 +130,12 @@ class MHA(nn.Module):
             if isinstance(seqlen_offset, int) and seqlen_offset == 0:
                 out = self._attend(q, k, v)
             else:
-                lengths = (torch.as_tensor(seqlen_offset, device=x.device)
-                           + sq).to(torch.int32).expand(b).contiguous()
+                if isinstance(seqlen_offset, torch.Tensor):
+                    lengths = (seqlen_offset.to(torch.int32) + sq).expand(
+                        b).contiguous()
+                else:
+                    lengths = torch.full((b,), seqlen_offset + sq,
+                                         dtype=torch.int32, device=x.device)
                 out = decode_attention(
                     q, k_cache, v_cache, lengths, softmax_scale=scale,
                     window_size=self.window_size, softcap=self.softcap)

@@ -182,6 +182,14 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once: the launch plans
+    ask for it on every call, and a step being captured in a CUDA graph
+    should make no device query."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def dtype_code(t: torch.Tensor) -> int:
     try:
         return DTYPE_CODES[t.dtype]

@@ -36,7 +36,9 @@ def decode_attention(q, k_cache, v_cache, lengths, softmax_scale,
 def write_kv(cache, new: torch.Tensor, offset) -> None:
     """Write new (b, sq, hk, d) keys or values into a dense (b, hk, S, d)
     cache (a tensor or QuantizedKV, quantized per token) in place, at
-    ``offset``: an int, or a (b,) tensor of per-sample positions."""
+    ``offset``: an int (a slice write), or a (b,) tensor of per-sample
+    positions (an indexed write that reads the positions on the device only,
+    as a step captured in a CUDA graph needs)."""
     new = new.transpose(1, 2)
     if isinstance(cache, QuantizedKV):
         q = quantize_kv(new, cache.values.dtype)

@@ -222,9 +222,8 @@ def launch_decode(q, k_cache, v_cache, lengths, *, softmax_scale: float,
     outs, ms, ls = partials if partials is not None else (None, None, None)
     splits = outs.shape[2] if outs is not None else 1
     if cluster is None:
-        cluster, _ = decode_launch_plan(
-            b, hk, S, splits, split_len,
-            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        cluster, _ = decode_launch_plan(b, hk, S, splits, split_len,
+                                        _cuda.sm_count(q.device.index))
     elif cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster {cluster}: the kernel takes {CLUSTER_SIZES}")
     code = _cuda.lib().xfa_flash_decode(
