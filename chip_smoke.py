@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py    # Llama-3-8B serving and GPT-3/GPT-2-medium
-                             # training, full width and depth, one card
+    python3 chip_smoke.py    # Llama-3-8B and Mistral-7B serving,
+                             # GPT-3/GPT-2-medium training, full width and
+                             # depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
@@ -63,12 +64,30 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      random bands, 4 mask heads), BS (b16 h16 s2048 d64, a BigBird-like
      block mask at granularity 256); launches exact, the error against the
      fp32 plain version at most twice the bf16 plain version's, a second
-     pass bitwise equal.
+     pass bitwise equal;
+ 12. Mistral-7B width (hidden 4096, 32 layers, 32/8 heads, d 128, vocab
+     32000, sliding window 4096; random bf16 weights from --seed) serves
+     request W (batch 2, prompt 8192, 32 decode steps) through `decode`,
+     graph and uncaptured: the prefill through the windowed forward (32
+     launches), graph tokens equal to eager tokens, the kernel path
+     against the plain path (attention by kv-head groups) on the prefill
+     and one decode step, and the window binding the last position's
+     logits (the same weights without it differ by more than the gate);
+ 13. varlen and windowed attention, forward and backward through the
+     public entries: VL-doc (`flash_attn_varlen_func`, h16 d64, 32768
+     tokens of documents of 128-2048), VL-gqa
+     (`flash_attn_varlen_kvpacked_func`, h32 hk8 d128, 16384 tokens of
+     documents of 512-4096), SW (`flash_attn_func`, b1 h32 hk8 s8192 d128,
+     window (4095, 0)); launches exact, the 2x contract against the fp32
+     and bf16 plain versions, a second pass bitwise equal; times beside
+     SDPA with the dense mask and, for VL-doc, the FlashMask route on the
+     same documents.
 Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
 sparse-mask kernels (the forward and both backward kernels under FM-doc's,
-BS's and FM-swg's masks, the reduced-scores kernel at FM-swg's shape, with
+BS's and FM-swg's masks, under SW's window and VL-doc's segment ids and
+positions, the reduced-scores kernel at FM-swg's shape, with
 the exponent units' floor beside the bound) against their plain versions,
 prints each whole attention backward against SDPA's backward, checks that
 three attention backward passes are bitwise equal at each of the three
@@ -107,8 +126,17 @@ LLAMA3_8B = dict(  # meta-llama/Meta-Llama-3-8B config.json
     vocab_size=128256, hidden_size=4096, intermediate_size=14336,
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
     rope_theta=500000.0, rms_norm_eps=1e-5, tie_word_embeddings=False)
+MISTRAL_7B = dict(  # mistralai/Mistral-7B-v0.1 config.json
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    sliding_window=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
+    tie_word_embeddings=False)
 LAYERS = LLAMA3_8B["num_hidden_layers"]
+assert MISTRAL_7B["num_hidden_layers"] == LAYERS
 REQUESTS = {"A": (2, 2048, 2080), "B": (2, 960, 1024)}  # batch, prompt, max_length
+# request W of the Mistral-7B model (phase 12): a prompt of twice the window
+MISTRAL_REQUESTS = {"W": (2, 8192, 8224)}
+ALL_REQUESTS = {**REQUESTS, **MISTRAL_REQUESTS}
 
 
 def card_line() -> str:
@@ -825,7 +853,7 @@ def serve(model, gen, name):
     to eager tokens; the graph's logits against a second prefill. Returns
     the graph run's launches, sequences and logits."""
     from xhy_flash_attention_tpu_torch import decode
-    b, prompt, max_length = REQUESTS[name]
+    b, prompt, max_length = ALL_REQUESTS[name]
     steps = max_length - prompt
     vocab = model.config.vocab_size
     ids = torch.randint(0, vocab, (b, prompt), generator=gen, device="cuda")
@@ -914,10 +942,15 @@ def plain_versions():
     paged = importlib.import_module("xhy_flash_attention_tpu_torch.inference.paged")
 
     def attention(q, k, v, *unused, sm_scale, causal, softcap, need_lse,
-                  **flags):
-        return fwd.attention_fwd_ref(q, k, v, sm_scale=sm_scale,
-                                     causal=causal, softcap=softcap,
-                                     need_lse=need_lse)
+                  masks=None, **flags):
+        keep = masks.keep(q.shape[1], q.device) if masks is not None else None
+        if keep is None:
+            return fwd.attention_fwd_ref(q, k, v, sm_scale=sm_scale,
+                                         causal=causal, softcap=softcap,
+                                         need_lse=need_lse)
+        out, lse = plain_fwd_groups(q, k, v, keep, sm_scale=sm_scale,
+                                    causal=causal, softcap=softcap)
+        return out, (lse if need_lse else None)
 
     def decode(q, k_cache, v_cache, lengths, *, softmax_scale, window_size,
                softcap, kv_batch_idx=None, leftpad_k=None):
@@ -930,9 +963,15 @@ def plain_versions():
                                             window_size, softcap)
 
     def attention_bwd(q, k, v, out, lse, do, *, sm_scale, causal, softcap,
-                      **flags):
-        return bwd.attention_bwd_ref(q, k, v, out, lse, do, sm_scale=sm_scale,
-                                     causal=causal, softcap=softcap)
+                      masks=None, **flags):
+        keep = masks.keep(q.shape[1], q.device) if masks is not None else None
+        if keep is None:
+            return bwd.attention_bwd_ref(q, k, v, out, lse, do,
+                                         sm_scale=sm_scale, causal=causal,
+                                         softcap=softcap)
+        return plain_bwd_groups(q, k, v, out, lse, do, keep,
+                                sm_scale=sm_scale, causal=causal,
+                                softcap=softcap)
 
     patches = [(ln, "ln_fwd", ln.ln_fwd_ref),
                (ln, "ln_bwd", ln.ln_bwd_ref),
@@ -958,7 +997,7 @@ def kernel_vs_plain(model, gen, name):
     depth, through the kernels and through their plain versions: the
     prefill on the same prompt, the decode step on copies of the same
     caches (filled by the kernels' prefill) with the same token."""
-    b, prompt, max_length = REQUESTS[name]
+    b, prompt, max_length = ALL_REQUESTS[name]
     ids = torch.randint(0, model.config.vocab_size, (b, prompt),
                         generator=gen, device="cuda")
     with torch.inference_mode():
@@ -1427,7 +1466,7 @@ def quantized_decode(model, name, seq, scores, dtype):
     """Phase 4c: request ``name`` through decode(cache_dtype=int8 | e4m3),
     teacher-forced on the bf16 run's tokens, against that run's logits."""
     from xhy_flash_attention_tpu_torch import decode
-    b, prompt, max_length = REQUESTS[name]
+    b, prompt, max_length = ALL_REQUESTS[name]
     t0 = time.perf_counter()
     _, got = decode(model, seq[:, :prompt], max_length, teacher_outputs=seq,
                     return_scores=True, cache_dtype=dtype)
@@ -1909,6 +1948,12 @@ BS = dict(b=16, h=16, hk=16, s=2048, d=64)
 BS_BLOCK = 256                                  # block-sparse granularity
 SWG_WINDOW, SWG_GLOBAL = 1024, 64
 DOC_LENGTHS = (128, 1024)                       # FM-doc document lengths
+SW = dict(b=1, h=32, hk=8, s=8192, d=128)       # Mistral-7B width prefill
+SW_WINDOW = (4095, 0)                           # sliding_window 4096
+VL_DOC = dict(b=1, h=16, hk=16, s=32768, d=64)  # T-long's attention, packed
+VL_DOC_LENGTHS = (128, 2048)
+VL_GQA = dict(b=1, h=32, hk=8, s=16384, d=128)  # Llama-3-8B width, packed
+VL_GQA_LENGTHS = (512, 4096)
 # the plain versions run a group of kv heads at a time, so that one fp32
 # score tensor stays under this size (8.6 GB at FM-swg's whole width)
 PLAIN_CHUNK_BYTES = 1.2e9
@@ -1981,7 +2026,12 @@ def _keep(flags, causal, h, sq, sk):
     """The dense keep mask of ``flags`` (b|1, hm|1, sq, sk), the causal
     part included (for the visible-pair count and SDPA's mask)."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import common
-    keep = common.dense_keep_mask(sq, sk, h, **flags)
+    return _causal_part(common.dense_keep_mask(sq, sk, h, **flags), causal,
+                        sq, sk)
+
+
+def _causal_part(keep, causal, sq, sk):
+    """``keep`` with the plain causal flag's part ANDed in."""
     if causal:
         rows = torch.arange(sq, device="cuda")[:, None]
         cols = torch.arange(sk, device="cuda")[None, :]
@@ -2075,9 +2125,12 @@ def mirror_tile_counts(masks, b, h, hk, s, causal, d):
     return counts
 
 
-def check_sparse_kernels(gen, label, shape, causal, make_flags):
+def check_sparse_kernels(gen, label, shape, causal, make_flags,
+                         window=(-1, -1)):
     """Phase 3 rows of the forward (#1) and of the dK/dV (#2) and dQ (#3)
-    kernels under a sparse mask at ``shape``: each against its plain
+    kernels under a sparse mask, a window, segment ids or positions at
+    ``shape`` (the flags resolved as the entry resolves them,
+    fwd.build_masks): each against its plain
     version with the dense mask on the same inputs (by kv-head groups),
     timed (CUDA events, warmed, the mask's kernel arguments made once, as
     the backward rows always did), with bounds from the visible pairs and
@@ -2090,10 +2143,11 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
     b, h, hk, s, d = _dims(shape)
     q, k, v, do = _sparse_inputs(gen, shape)
     flags = make_flags(gen)
-    dense = common.dense_keep_mask(s, s, h, **flags)
-    masks = common.KernelMasks(b, h, s, s, **flags)
-    kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0)
-    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw, **flags)
+    eff, masks = fwd.build_masks(b, h, s, s, causal, window, **flags)
+    dense = masks.keep(h, "cuda")
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw,
+                                       masks=masks)
     ref, ref_lse = plain_fwd_groups(q, k, v, dense, **kw)
     torch.cuda.synchronize()
     err = max_err(out, ref)
@@ -2108,7 +2162,7 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
           f"flash_fwd ({label}): err {err} > {tol} or lse err {err_lse}")
     del ref, ref_lse
     qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
-    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, **flags)
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, masks=masks)
     want = plain_bwd_groups(q, k, v, out, lse, do, dense, **kw)
     torch.cuda.synchronize()
     err_dq = max_err(grads[0], want[0])
@@ -2117,13 +2171,15 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
     check(max(err_dq, err_dkv) <= gtol,
           f"flash_bwd ({label}): err vs plain {err_dq}, {err_dkv} > {gtol}")
     del want
-    keep = _keep(flags, causal, h, s, s)
+    keep = _causal_part(dense, eff, s, s)
     n_vis = visible_pairs(keep, b, h)
     share = n_vis / (b * h * s * s)
     lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, do, keep)
     del keep
     io = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, o | do and k, v (bf16)
-    shape_txt = f"b{b} h{h} hk{hk} s{s} d{d} {'causal' if causal else 'full'}"
+    shape_txt = (f"b{b} h{h} hk{hk} s{s} d{d} "
+                 f"{'causal' if causal else 'full'}"
+                 + (f", window {window}" if window != (-1, -1) else ""))
     masks.bands()  # made once, as the stats
     fwd_out = torch.full_like(out, float("nan"))
     fwd_counts = torch.zeros(3, dtype=torch.int32, device="cuda")
@@ -2135,7 +2191,8 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
           "output")
     bms, by = bound(2 * 2 * d * n_vis, PEAK_BF16_FLOPS, io)
     entry_ms = time_ms([lambda: fwd.flash_attention_fwd(
-        q, k, v, need_lse=False, **kw, **flags)])
+        q, k, v, need_lse=False, sm_scale=kw["sm_scale"], causal=causal,
+        window_size=window, **flags)])
     rows = [dict(
         name=f"flash_fwd ({label})", route="cuda",
         source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
@@ -2150,7 +2207,7 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
                     f"err {err_lse:.3g}; {shape_txt}, visible share "
                     f"{share:.4f}, flops {4 * d * n_vis:.4g}; exponent floor "
                     f"{exp_floor_ms(n_vis):.4f} ms; the kernel alone (through "
-                    f"flash_attention_fwd, the stats and bands made per call: "
+                    f"flash_attention_fwd, the mask arguments made per call: "
                     f"{entry_ms:.4f} ms); library: SDPA with the dense boolean "
                     "mask")
     dq, dk, dv = (torch.full_like(t, float("nan")) for t in grads)
@@ -2161,7 +2218,7 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
         fn(*args, masks=masks, tile_counts=counts, **kw)
         counted.append(counts[1:].tolist())
     counted.insert(0, fwd_counts[1:].tolist())
-    mirror = mirror_tile_counts(masks, b, h, hk, s, causal, d)
+    mirror = mirror_tile_counts(masks, b, h, hk, s, eff, d)
     check(counted == [m[:2] for m in mirror],
           f"flash_fwd / flash_bwd ({label}): the kernels visited {counted} "
           f"tiles (visited, elementwise), the mirrors {mirror}")
@@ -2207,6 +2264,77 @@ def check_sparse_kernels(gen, label, shape, causal, make_flags):
           f"(share {bms / summed:.3f}); SDPA backward with the mask "
           f"{lib_bwd:.4f} ms", flush=True)
     return rows + bwd_rows
+
+
+def doc_cu_seqlens(gen, total, lo, hi):
+    """cu_seqlens (n + 1,) int32 on the card of documents whose lengths are
+    drawn uniformly in [lo, hi] from ``gen``, the last one cut at
+    ``total`` (set-up: the count of documents is read on the host)."""
+    lens = torch.randint(lo, hi + 1, (total // lo + 1,), generator=gen,
+                         device="cuda")
+    cu = torch.cumsum(lens, 0)
+    n = int((cu < total).sum().item()) + 1
+    zero = torch.zeros(1, dtype=cu.dtype, device="cuda")
+    return torch.cat([zero, cu[:n].clamp(max=total)]).to(torch.int32)
+
+
+def vl_flags(cu_q, cu_k, tq, tk):
+    """The segment ids and bottom-right aligned positions that
+    `flash_attn_varlen_func` makes from cu_seqlens under a causal mask (its
+    own helpers), as kernel flags over a batch of 1."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import interface
+    lq, seq = interface._local_positions(cu_q, tq)
+    lk, _ = interface._local_positions(cu_k, tk)
+    off = ((cu_k[1:] - cu_k[:-1]) - (cu_q[1:] - cu_q[:-1]))[seq]
+    return dict(
+        q_segment_ids=interface._segment_ids_from_cu_seqlens(cu_q, tq)[None],
+        kv_segment_ids=interface._segment_ids_from_cu_seqlens(cu_k, tk)[None],
+        q_positions=(lq + off)[None], kv_positions=lk[None])
+
+
+def doc_ids(cu, total):
+    """(1, total) document index of each packed token."""
+    t = torch.arange(total, dtype=torch.int32, device="cuda")
+    return (torch.searchsorted(cu, t, right=True) - 1)[None]
+
+
+def check_sw_vs_flashmask(gen):
+    """SW's window (4095, 0) and the FlashMask route of
+    `sliding_window_mask(b, s, 4096)` compute the same function: their
+    outputs and LSE on the same inputs agree to one bf16 unit of the
+    largest output (+1e-3; the two kernels visit the tiles in another
+    order), and both kernels are timed (mask arguments made once), beside
+    the dense causal kernel at the same shape (PERF.md's prediction: the
+    window keeps 0.75 of the causal pairs)."""
+    from xhy_flash_attention_tpu_torch import sliding_window_mask
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd
+    b, h, hk, s, d = _dims(SW)
+    q, k, v, _ = _sparse_inputs(gen, SW)
+    kw = dict(sm_scale=d ** -0.5, softcap=0.0)
+    eff, win = fwd.build_masks(b, h, s, s, True, SW_WINDOW)
+    eff_fm, fm = fwd.build_masks(**dict(b=b, h=h, sq=s, sk=s, causal=True),
+                                 **_flags(sliding_window_mask(
+                                     b, s, SW_WINDOW[0] + 1), causal=True))
+    outs = []
+    for c, m in ((eff, win), (eff_fm, fm)):
+        outs.append(fwd.flash_attention_fwd(q, k, v, causal=c, masks=m, **kw))
+    torch.cuda.synchronize()
+    err = max_err(outs[0][0], outs[1][0])
+    err_lse = max_err(outs[0][1], outs[1][1])
+    tol = BF16_ULP * outs[1][0].float().abs().max().item() + 1e-3
+    check(err <= tol and err_lse <= 1e-3,
+          f"SW window vs FlashMask sliding window: err {err} > {tol} or lse "
+          f"err {err_lse}")
+    o = torch.empty_like(outs[0][0])
+    ms = [time_ms([lambda c=c, m=m: fwd.launch_flash_fwd(
+        q, k, v, o, None, causal=c, masks=m, **kw)]) for c, m in
+        ((eff, win), (eff_fm, fm), (True, None))]
+    print(f"  SW (window {SW_WINDOW}) vs FlashMask sliding_window_mask("
+          f"{SW_WINDOW[0] + 1}) on the same inputs: max |difference| "
+          f"{err:.4g} (tol {tol:.3g}), lse {err_lse:.3g}; window route "
+          f"{ms[0]:.4f} ms, FlashMask route {ms[1]:.4f} ms; the dense causal "
+          f"kernel at this shape {ms[2]:.4f} ms (window / dense "
+          f"{ms[0] / ms[2]:.3f})", flush=True)
 
 
 def check_reduced(gen):
@@ -2408,6 +2536,229 @@ def sparse_masks(gen):
     rows["flash_bwd_dkv (FM-swg)"] = swg["flash_bwd_dkv"]
     rows["flash_bwd_dq (FM-swg)"] = swg["flash_bwd_dq"]
     rows["reduced_scores"] = fm["reduced_scores"]
+    return rows
+
+
+# ------------------------------------- phase 12: a Mistral-7B-width model
+
+def window_binds(model, gen):
+    """The last position's logits of request W's prompt length through the
+    windowed model and through the same weights with no window differ by
+    more than the kernel-vs-plain gate (LOGIT_TOL): a window that were
+    silently ignored would give the same logits. The prompt's first half
+    repeats one token, its second half is random: under a window of 4096
+    the last position no longer sees the first half."""
+    _, prompt, _ = MISTRAL_REQUESTS["W"]
+    half = prompt // 2
+    vocab = model.config.vocab_size
+    ids = torch.cat([torch.full((1, half), 7, device="cuda"),
+                     torch.randint(0, vocab, (1, prompt - half),
+                                   generator=gen, device="cuda")], 1)
+    mixers = [layer.mixer for layer in model.transformer.layers]
+    saved = [m.window_size for m in mixers]
+    with torch.inference_mode():
+        win = model(ids)[0][:, -1].float()
+        try:
+            for m in mixers:
+                m.window_size = (-1, -1)
+            full = model(ids)[0][:, -1].float()
+        finally:
+            for m, w in zip(mixers, saved):
+                m.window_size = w
+    diff = (win - full).abs().max().item()
+    print(f"  request W's window binds: last-position logits with window "
+          f"{saved[0]} vs none differ by {diff:.4g} (must exceed the gate "
+          f"{LOGIT_TOL}); the window keeps "
+          f"{1 - (prompt - 4096) * (prompt - 4096 + 1) / (prompt * (prompt + 1)):.4f} "
+          "of the causal pairs at this length", flush=True)
+    check(diff > LOGIT_TOL, f"the window does not bind: {diff} <= {LOGIT_TOL}")
+    return diff
+
+
+def mistral_serving(seed, gen):
+    """Phase 12: the Mistral-7B-width model (MISTRAL_7B through
+    llama_config_to_gpt_config; random bf16 weights from the seed) serves
+    request W (serve: eager and graph, exact launches, no plain version
+    called, graph tokens equal to eager tokens), its kernel path is held to the plain path
+    (kernel_vs_plain; the plain attention by kv-head groups), and the
+    window must bind (window_binds). Returns the graph run's launches."""
+    from xhy_flash_attention_tpu_torch import (GPTLMHeadModel,
+                                               llama_config_to_gpt_config)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import \
+        resolve_window
+    cfg = llama_config_to_gpt_config(types.SimpleNamespace(**MISTRAL_7B),
+                                     torch.bfloat16)
+    _, prompt, _ = MISTRAL_REQUESTS["W"]
+    check(cfg.window_size == SW_WINDOW,
+          f"Mistral's window maps to {cfg.window_size}")
+    plain_causal, window, _ = resolve_window(True, cfg.window_size, prompt,
+                                             prompt, False)
+    check(window == SW_WINDOW and not plain_causal,
+          "request W's prefill must take the windowed forward")
+    t0 = time.perf_counter()
+    model = GPTLMHeadModel(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params / 1e9:.3f} B parameters built in "
+          f"{time.perf_counter() - t0:.1f} s; window_size {cfg.window_size}",
+          flush=True)
+    with count_plain_calls() as plain:
+        counts, _, _ = serve(model, gen, "W")
+    check(not plain, f"request W: plain versions ran on the main path: "
+                     f"{plain}")
+    check(counts["flash_fwd (flash_attention_fwd)"] == LAYERS,
+          f"request W's prefill launched the windowed forward "
+          f"{counts['flash_fwd (flash_attention_fwd)']} times, not {LAYERS}")
+    torch.cuda.empty_cache()
+    kernel_vs_plain(model, gen, "W")
+    torch.cuda.empty_cache()
+    window_binds(model, gen)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------- phase 13: varlen and windowed entries
+
+def varlen_case(gen, name, shape, lengths=None, window=(-1, -1),
+                kvpacked=False):
+    """Phase 13, one case: forward and backward through a public entry,
+    causal: `flash_attn_varlen_func` (or, with ``kvpacked``,
+    `flash_attn_varlen_kvpacked_func` on one (total, 2, hk, d) kv tensor)
+    over documents with lengths drawn in ``lengths``, or
+    `flash_attention` under ``window``; launches exact and no plain
+    version called; the contract of
+    the fp32 plain version against the bf16 plain version (the same dense
+    mask, by kv-head groups) on out, the finite LSE and every gradient; a
+    second pass bitwise equal; fwd + bwd ms beside SDPA with the dense
+    mask and, for a varlen case without kv packing, the FlashMask route
+    (causal_document_mask) on the same documents. Returns its launches."""
+    from xhy_flash_attention_tpu_torch import (
+        causal_document_mask, flash_attention, flash_attn_varlen_func,
+        flash_attn_varlen_kvpacked_func, flashmask_attention)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd
+    b, h, hk, s, d = _dims(shape)
+    q, k, v, do = _sparse_inputs(gen, shape)
+    flags, cu = {}, None
+    if lengths is not None:
+        cu = doc_cu_seqlens(gen, s, *lengths)
+        flags = vl_flags(cu, cu, s, s)
+    eff, masks = fwd.build_masks(b, h, s, s, True, window, **flags)
+    keep = _causal_part(masks.keep(h, "cuda"), eff, s, s)
+    # the entries' layouts: varlen (total, heads, d) views of the same
+    # memory; kv packed into one tensor (a copy made once)
+    lay = (lambda t: t[0].transpose(0, 1)) if cu is not None else \
+        (lambda t: t)
+    kv = torch.stack([lay(k), lay(v)], 1) if kvpacked else None
+
+    def run():
+        if kvpacked:
+            ins = [lay(q).detach().requires_grad_(),
+                   kv.detach().requires_grad_()]
+            out = flash_attn_varlen_kvpacked_func(ins[0], ins[1], cu, cu, s,
+                                                  s, causal=True)
+            lse = None
+        elif cu is not None:
+            ins = [lay(t).detach().requires_grad_() for t in (q, k, v)]
+            out, lse = flash_attn_varlen_func(*ins, cu, cu, s, s, causal=True,
+                                              return_lse=True)
+            lse = lse[None]
+        else:
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out, lse = flash_attention(*ins, causal=True, window_size=window,
+                                       return_lse=True)
+        grads = torch.autograd.grad(out, ins, lay(do))
+        if kvpacked:
+            grads = (grads[0], grads[1][:, 0], grads[1][:, 1])
+        back = (lambda t: t.transpose(0, 1)[None]) if cu is not None else \
+            (lambda t: t)
+        return back(out.detach()), lse, [back(g) for g in grads]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with count_plain_calls() as plain:
+        out, lse, grads = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()},
+            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_prep": 1,
+            "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    check(counts == want, f"{name}: launches {counts} != {want}")
+    check(not plain, f"{name}: plain versions ran: {plain}")
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
+          f"{name}: non-finite output or gradient")
+    share = visible_pairs(keep, b, h) / (b * h * s * s)
+    ref = plain_attention(q, k, v, do, eff, keep, upcast=True)
+    low = plain_attention(q, k, v, do, eff, keep, upcast=False)
+    errs = {}
+    for what, got, w, lo in zip(("out", "lse", "dq", "dk", "dv"),
+                                (out, lse, *grads), ref, low):
+        if got is None:
+            continue
+        if what == "lse":
+            fin = torch.isfinite(w)
+            check(torch.equal(fin, torch.isfinite(got)),
+                  f"{name}: rows with no key differ")
+            got, w, lo = got[fin], w[fin], lo[fin]
+        e, e_lp = max_err(got, w), max_err(lo, w)
+        errs[what] = (e, e_lp)
+        check(e <= 2 * e_lp + (1e-4 if what in ("out", "lse") else 1e-3),
+              f"{name} {what}: err vs fp32 plain {e} > 2 x bf16 plain {e_lp}")
+    del ref, low
+    out2, _, grads2 = run()
+    check(torch.equal(out, out2) and all(torch.equal(a, c) for a, c in
+                                         zip(grads, grads2)),
+          f"{name}: a second pass is not bitwise equal")
+    ms = time_ms([run], iters=3, warmup=1)
+    lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, do, keep)
+    line = (f"  {name}: b{b} h{h} hk{hk} s{s} d{d} causal"
+            + (f", {cu.numel() - 1} documents of {lengths[0]}-{lengths[1]}"
+               if cu is not None else f", window {window}")
+            + f", visible share {share:.4f}; "
+            + ", ".join(f"{w_} err {e:.3g} (bf16 plain {e_lp:.3g})"
+                        for w_, (e, e_lp) in errs.items())
+            + f"; second pass bitwise equal; fwd + bwd {ms:.4f} ms; SDPA "
+            f"with the dense mask fwd + bwd {lib_fwd + lib_bwd:.4f} ms")
+    if cu is not None and not kvpacked:
+        idx = causal_document_mask(doc_ids(cu, s))
+
+        def run_fm():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = flashmask_attention(*ins, idx, causal=True)
+            return o, torch.autograd.grad(o, ins, do)
+        fm_out, _ = run_fm()
+        torch.cuda.synchronize()
+        fm_err = max_err(fm_out, out)
+        tol = BF16_ULP * out.float().abs().max().item() + 1e-3
+        check(fm_err <= tol, f"{name}: the FlashMask route differs by "
+                             f"{fm_err} > {tol}")
+        line += (f"; the FlashMask route on the same documents (FM-doc's "
+                 f"causal_document_mask) fwd + bwd "
+                 f"{time_ms([run_fm], iters=3, warmup=1):.4f} ms, its output "
+                 f"within {fm_err:.3g} (tol {tol:.3g})")
+    print(line + f"; launches "
+          f"{json.dumps({k_: v_ for k_, v_ in counts.items() if v_})}",
+          flush=True)
+    return counts
+
+
+def varlen_entries(gen):
+    """Phase 13: VL-doc, VL-gqa and SW. Returns the launches of each phase
+    3 row of the window and segment / position routes on this path."""
+    rows = {}
+    for name, shape, kw in (
+            ("VL-doc", VL_DOC, dict(lengths=VL_DOC_LENGTHS)),
+            ("VL-gqa", VL_GQA, dict(lengths=VL_GQA_LENGTHS, kvpacked=True)),
+            ("SW", SW, dict(window=SW_WINDOW))):
+        counts = varlen_case(gen, name, shape, **kw)
+        label = "SW" if name == "SW" else "VL-doc"
+        for key, row in (("flash_fwd (flash_attention_fwd)", "flash_fwd"),
+                         ("flash_bwd_dkv", "flash_bwd_dkv"),
+                         ("flash_bwd_dq", "flash_bwd_dq")):
+            rows[f"{row} ({label})"] = rows.get(f"{row} ({label})", 0) + \
+                counts[key]
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2757,6 +3108,15 @@ def main():
         lambda g: _flags(global_sliding_window_mask(
             b, s, SWG_WINDOW, SWG_GLOBAL), causal=True))
     torch.cuda.empty_cache()
+    rows += check_sparse_kernels(gen, "SW", SW, True, lambda g: {},
+                                 window=SW_WINDOW)
+    check_sw_vs_flashmask(gen)
+    torch.cuda.empty_cache()
+    s = VL_DOC["s"]
+    rows += check_sparse_kernels(
+        gen, "VL-doc", VL_DOC, True,
+        lambda g: vl_flags(*(doc_cu_seqlens(g, s, *VL_DOC_LENGTHS),) * 2, s, s))
+    torch.cuda.empty_cache()
     rows.append(check_reduced(gen))
     torch.cuda.empty_cache()
 
@@ -2869,6 +3229,15 @@ def main():
     print("[11] sparse masks: FM-doc, FM-swg and its reduced scores, FM-full, "
           "BS", flush=True)
     launches.update(sparse_masks(gen))
+    torch.cuda.empty_cache()
+    print("[12] Mistral-7B width, 32 layers, random bf16 weights: request W "
+          "(batch 2, prompt 8192, 32 decode steps)", flush=True)
+    w_counts = mistral_serving(args.seed, gen)
+    launches["flash_fwd (SW)"] = w_counts["flash_fwd (flash_attention_fwd)"]
+    print("[13] varlen and windowed entries, forward and backward: VL-doc, "
+          "VL-gqa, SW", flush=True)
+    for key, n in varlen_entries(gen).items():
+        launches[key] = launches.get(key, 0) + n
 
     for row in rows:
         row["launches"] = launches.get(

@@ -13,9 +13,11 @@ causal); the dense backward at both shapes, whole (``flash_attention_bwd``)
 and by kernel (pre-pass, dK/dV, dQ); the packed backward (#6) at
 T-packed's shape (b32 s1024 h16 d64 causal); under chip_smoke.py's FM-doc,
 BS and FM-swg masks the forward through ``flash_attention_fwd`` and the
-masked dK/dV and dQ kernels; the reduced scores at FM-swg's shape. CUDA
-events after a warm-up. The trees run first to last, then last to first.
-Prints the card's name and power limit first.
+masked dK/dV and dQ kernels; the reduced scores at FM-swg's shape; in
+trees whose chip_smoke.py has them, the forward, dK/dV and dQ kernels
+under SW's window and VL-doc's segment ids and positions (the mask
+arguments made once). CUDA events after a warm-up. The trees run first to
+last, then last to first. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -104,6 +106,32 @@ def child(root: Path) -> None:
                 q, k, lse, causal=True))
         del q, k, v, do, o, lse, qs, delta, grads, masks
         torch.cuda.empty_cache()
+    if hasattr(cs, "SW"):
+        s = cs.VL_DOC["s"]
+        for name, shape, window, make in (
+                ("SW", cs.SW, cs.SW_WINDOW, lambda g: {}),
+                ("VL-doc", cs.VL_DOC, (-1, -1), lambda g: cs.vl_flags(
+                    *(cs.doc_cu_seqlens(g, s, *cs.VL_DOC_LENGTHS),) * 2, s,
+                    s))):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            b, h, hk, s_, d = cs._dims(shape)
+            q, k, v, do = cs._sparse_inputs(gen, shape)
+            eff, masks = fwd.build_masks(b, h, s_, s_, True, window,
+                                         **make(gen))
+            kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+            o, lse = fwd.flash_attention_fwd(q, k, v, masks=masks, **kw)
+            dst = torch.empty_like(o)
+            timed(f"masked fwd {name}", lambda: fwd.launch_flash_fwd(
+                q, k, v, dst, None, masks=masks, **kw))
+            qs, delta = bwd.flash_bwd_prep(q, o, do, sm_scale=kw["sm_scale"])
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            for which, fn in (("dkv", bwd.flash_bwd_dkv),
+                              ("dq", bwd.flash_bwd_dq)):
+                timed(f"masked {which} {name}", lambda fn=fn: fn(
+                    qs, k, v, do, lse, delta, *grads, masks=masks, **kw),
+                    iters=10)
+            del q, k, v, do, o, lse, qs, delta, grads, masks, dst
+            torch.cuda.empty_cache()
     print(f"{root}: " + "; ".join(out), flush=True)
 
 

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Compare the attention kernels' machine code of two checkouts.
+
+    git archive HEAD~1 | tar -x -C archive_check/parent   # a directory git ignores
+    python3 scripts/sass_diff.py archive_check/parent .
+
+Builds each tree's kernels (its own build directory, in a child process
+with that tree's package) unless built, then for every instantiation of
+`flash_fwd_kernel`, `flash_bwd_dkv_kernel` and `flash_bwd_dq_kernel`
+prints, per tree, the ptxas report's registers and spills and the SASS
+instruction count (`cuobjdump -sass`), and whether the opcode streams of
+the two trees are the same (operands, addresses and constants ignored),
+else how many opcodes a diff of the two streams changes.
+Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
+"""
+
+from __future__ import annotations
+
+import difflib
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+KERNELS = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_kernel<[^>]*>")
+
+
+def build(root: Path) -> Path:
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from xhy_flash_attention_tpu_torch.ops import _cuda; "
+            "print(_cuda.build())")
+    out = subprocess.run([sys.executable, "-c", code, str(root)], check=True,
+                         capture_output=True, text=True, cwd=root)
+    return Path(out.stdout.strip().splitlines()[-1])
+
+
+def demangle(names):
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, check=True)
+    return out.stdout.splitlines()
+
+
+def ptxas(lib: Path):
+    """{kernel: "registers, spills"} from the build's ptxas report."""
+    log = (lib.parent / "build.log").read_text()
+    cur, regs, out = None, None, {}
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur] = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = out.get(cur, "") + f", {m.group(1)} registers"
+    names = list(out)
+    return {KERNELS.search(d).group(0): out[n]
+            for n, d in zip(names, demangle(names)) if KERNELS.search(d)}
+
+
+def sass(lib: Path):
+    """{kernel: [opcodes]} of the library's SASS."""
+    txt = subprocess.run(["cuobjdump", "-sass", str(lib)], check=True,
+                         capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in txt.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur and m:
+            funcs[cur].append(m.group(2))
+    names = list(funcs)
+    return {KERNELS.search(d).group(0): funcs[n]
+            for n, d in zip(names, demangle(names)) if KERNELS.search(d)}
+
+
+def main():
+    roots = [Path(r).resolve() for r in sys.argv[1:]]
+    if len(roots) != 2:
+        raise SystemExit("give two tree roots")
+    libs = [build(r) for r in roots]
+    reports, codes = [ptxas(lib) for lib in libs], [sass(lib) for lib in libs]
+    for name in sorted(set(codes[0]) | set(codes[1])):
+        a, b = codes[0].get(name), codes[1].get(name)
+        same = "same opcodes"
+        if a != b:
+            ops = difflib.SequenceMatcher(None, a or [], b or [],
+                                          autojunk=False).get_opcodes()
+            changed = sum(max(i2 - i1, j2 - j1)
+                          for tag, i1, i2, j1, j2 in ops if tag != "equal")
+            same = f"{changed} opcodes differ"
+        print(f"{name}: {len(a) if a else None} / {len(b) if b else None} "
+              f"instructions, {same}; {reports[0].get(name)} | "
+              f"{reports[1].get(name)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

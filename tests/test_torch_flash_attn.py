@@ -159,7 +159,7 @@ def test_attention_inputs_needing_grad_raise():
     assert "no backward" in NO_BACKWARD
 
 
-@pytest.mark.parametrize("kw", [dict(window_size=(16, 0)),
+@pytest.mark.parametrize("kw", [dict(bias=torch.zeros(1, 2, 8, 8)),
                                 dict(dropout_p=0.1, dropout_seed=0)])
 def test_unported_flags_raise(kw):
     q = torch.randn(1, 2, 8, 64)

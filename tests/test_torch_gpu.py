@@ -1489,3 +1489,247 @@ def test_cuda_graph_step_raises_when_capture_fails(cuda):
     assert step.out is None
     torch.cuda.synchronize()
     assert torch.equal(x * 2, torch.full((4,), 2.0, device="cuda"))
+
+
+# ---- sliding windows, segment ids and positions (the masked kernels)
+
+def _flag_kernels_vs_plain(q, k, v, do, causal, window=(-1, -1), **flags):
+    """The forward and both backward kernels under a window and any of the
+    segment, position, FlashMask and block-mask flags, against the plain
+    versions with the dense mask (fwd.build_masks, the entry's own
+    resolution of the flags), as `_sparse_kernels_vs_plain`: tolerances,
+    launches, a direct launch into NaN-filled buffers bit for bit, and the
+    tiles each kernel counts against fwd.py's and bwd.py's mirrors."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    eff, kmasks = fwd.build_masks(b, h, sq, sk, causal, window, **flags)
+    assert kmasks.active
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+    mask = kmasks.keep(h, q.device)
+    before = (fwd.flash_attention_fwd.launches, bwd.flash_bwd_dkv.launches,
+              bwd.flash_bwd_dq.launches)
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw,
+                                       masks=kmasks)
+    ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=mask,
+                                         **kw)
+    got = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, masks=kmasks)
+    want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert (fwd.flash_attention_fwd.launches, bwd.flash_bwd_dkv.launches,
+            bwd.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-3
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert _err(lse[finite], ref_lse[finite]) <= 1e-3
+    assert not out[~finite].float().abs().any()
+    for g, w in zip(got, want):
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    out2, lse2 = (torch.full_like(t, float("nan")) for t in (out, lse))
+    fwd_counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fwd.launch_flash_fwd(q, k, v, out2, lse2, masks=kmasks,
+                         tile_counts=fwd_counts, **kw)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    plans = (fwd.fwd_masked_tile_plan(kmasks, b, h, sq, sk, eff),
+             bwd.bwd_masked_dkv_tile_plan(kmasks, b, h, hk, sq, sk, eff),
+             bwd.bwd_masked_dq_tile_plan(kmasks, b, h, hk, sq, sk, eff, d))
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    direct = [torch.full_like(t, float("nan")) for t in got]
+    counted = [fwd_counts[1:].tolist()]
+    for fn in (bwd.flash_bwd_dkv, bwd.flash_bwd_dq):
+        counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+        fn(qs, k, v, do, lse, delta, *direct, masks=kmasks,
+           tile_counts=counts, **kw)
+        counted.append(counts[1:].tolist())
+    assert all(torch.equal(a, c) for a, c in zip(direct, got))
+    assert counted == [
+        [len(tiles), sum(1 for e in tiles if e[-2])]
+        for tiles in ([e for es in plan.values() for e in es]
+                      for plan in plans)]
+    return out, got
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, (100, -1)),
+                                           (False, (100, -1)),
+                                           (False, (-1, 70)),
+                                           (False, (130, 30)),
+                                           (True, (0, 0))])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (200, 500), (500, 200)])
+def test_window_kernels_match_plain(cuda, sq, sk, causal, window, d):
+    """Sliding windows through the masked kernels: causal with a left
+    bound, left only, right only, both, the diagonal alone (0, 0); sq ==
+    sk, sq < sk and sq > sk (rows with no key: out 0, LSE +inf); GQA (h 8
+    over hk 2); ragged lengths."""
+    b, h, hk = 2, 8, 2
+    q, do = (torch.randn(b, sq, h, d, generator=cuda, device="cuda")
+             .bfloat16().transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, sk, hk, d, generator=cuda, device="cuda")
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    _flag_kernels_vs_plain(q, k, v, do, causal, window)
+
+
+def _ids(cuda, b, s, n, monotone, pad=0):
+    """(b, s) int32 segment ids in [1, n]: sorted (packed documents) or
+    drawn independently per token; the last ``pad`` tokens 0 (padding)."""
+    ids = torch.randint(1, n + 1, (b, s), generator=cuda, device="cuda")
+    if monotone:
+        ids = ids.sort(-1).values
+    if pad:
+        ids[:, s - pad:] = 0
+    return ids.to(torch.int32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("monotone", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+def test_segment_kernels_match_plain(cuda, causal, monotone, d):
+    """Segment ids, sorted (packed documents) and arbitrary (the stats are
+    only conservative then), with a padded tail of id 0 on the queries and
+    another on the keys; s 333."""
+    b, h, hk, s = 2, 4, 2, 333
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    _flag_kernels_vs_plain(
+        q, k, v, do, causal,
+        q_segment_ids=_ids(cuda, b, s, 5, monotone, pad=40),
+        kv_segment_ids=_ids(cuda, b, s, 5, monotone, pad=17))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [(-1, -1), (47, -1)])
+def test_varlen_kernels_with_decoupled_packings(cuda, window, d):
+    """Varlen with cu_seqlens_q != cu_seqlens_k through the public entry:
+    each sequence aligned to the bottom right by positions (queries of a
+    sequence with fewer keys than queries see none), causal, with and
+    without a left window; forward and gradients against the plain
+    versions through autograd; the tile counts of the direct launches."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import interface
+    h, hk = 4, 2
+    cu_q = torch.tensor([0, 100, 130, 400, 410], dtype=torch.int32,
+                        device="cuda")
+    cu_k = torch.tensor([0, 60, 250, 500, 530], dtype=torch.int32,
+                        device="cuda")
+    tq, tk = 420, 530  # 10 query tokens past cu_q[-1]
+    q, do = (torch.randn(tq, h, d, generator=cuda, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(tk, hk, d, generator=cuda, device="cuda").bfloat16()
+            for _ in range(2))
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, lse = interface.flash_attn_varlen_func(
+        *ins, cu_q, cu_k, 300, 250, causal=True, window_size=window,
+        return_lse=True)
+    grads = torch.autograd.grad(out, ins, do)
+    seg_q = interface._segment_ids_from_cu_seqlens(cu_q, tq)[None]
+    seg_k = interface._segment_ids_from_cu_seqlens(cu_k, tk)[None]
+    lq, sq_ = interface._local_positions(cu_q, tq)
+    lk, _ = interface._local_positions(cu_k, tk)
+    off = ((cu_k[1:] - cu_k[:-1]) - (cu_q[1:] - cu_q[:-1]))[sq_]
+    flags = dict(q_segment_ids=seg_q, kv_segment_ids=seg_k,
+                 q_positions=(lq + off)[None], kv_positions=lk[None])
+    bhsd = [t[None].transpose(1, 2) for t in (q, k, v, do)]
+    o2, g2 = _flag_kernels_vs_plain(*bhsd, True, window, **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o2.transpose(1, 2)[0])
+    # the first 20 queries of sequence 2 (270 queries, 250 keys) and the 10
+    # tokens past cu_seqlens_q[-1] see no key
+    assert torch.isinf(lse[:, 130:150]).all() and torch.isinf(lse[:, 410:]).all()
+    for g, w in zip(grads, g2):
+        assert torch.equal(g, w.transpose(1, 2)[0])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_varlen_kvpacked_strided_views(cuda, d):
+    """flash_attn_varlen_kvpacked_func reads kv (total, 2, hk, d) through
+    the strided k and v views (a row stride of 2 hk d elements, TMA's
+    16-byte alignment), forward and backward, against the same call on
+    contiguous copies: bitwise equal; a second pass bitwise equal."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import interface
+    h, hk, total = 8, 2, 700
+    cu = torch.tensor([0, 128, 129, 400, 700], dtype=torch.int32,
+                      device="cuda")
+    q, do = (torch.randn(total, h, d, generator=cuda, device="cuda")
+             .bfloat16() for _ in range(2))
+    kv = torch.randn(total, 2, hk, d, generator=cuda, device="cuda").bfloat16()
+
+    def run(packed):
+        qi = q.detach().requires_grad_()
+        kvi = kv.detach().clone().requires_grad_()
+        if packed:
+            out = interface.flash_attn_varlen_kvpacked_func(
+                qi, kvi, cu, cu, 300, 300, causal=True)
+            return out, torch.autograd.grad(out, (qi, kvi), do)
+        ki, vi = kvi[:, 0].contiguous(), kvi[:, 1].contiguous()
+        out = interface.flash_attn_varlen_func(qi, ki, vi, cu, cu, 300, 300,
+                                               causal=True)
+        return out, torch.autograd.grad(out, (qi, kvi), do)
+
+    a, b_, c = run(True), run(True), run(False)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b_[0]) and torch.equal(a[0], c[0])
+    for x, y, z in zip(a[1], b_[1], c[1]):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("combo", ["window+flashmask", "window+block",
+                                   "segments+flashmask", "segments+block",
+                                   "positions+flashmask", "positions+block",
+                                   "window+segments+block"])
+def test_flags_combine_with_sparse_masks(cuda, combo, d):
+    """Every flag pair the JAX entry accepts, ANDed: a window, segment ids
+    or positions (a causal window on positions shifted per batch) with a
+    FlashMask (causal_2, one mask head per query head) or a block mask
+    (granularity 64, straddling the 128-row and 128-key blocks)."""
+    b, h, hk, s = 2, 4, 2, 320
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    flags, window = {}, (-1, -1)
+    if "window" in combo:
+        window = (90, 0)
+    if "segments" in combo:
+        flags.update(q_segment_ids=_ids(cuda, b, s, 3, True),
+                     kv_segment_ids=_ids(cuda, b, s, 3, True))
+    if "positions" in combo:
+        pos = (torch.arange(s, device="cuda")[None] * 2
+               + torch.tensor([[0], [7]], device="cuda")).to(torch.int32)
+        flags.update(q_positions=pos, kv_positions=pos)
+        window = (150, 0)
+    if "flashmask" in combo:
+        flags.update(flashmask_vecs=_random_bands(cuda, True, 2, b, h, s),
+                     flashmask_mode="causal_2")
+    if "block" in combo:
+        bm = (torch.rand(b, 1, -(-s // 64), -(-s // 64), generator=cuda,
+                         device="cuda") < 0.7).to(torch.int32)
+        flags.update(block_mask=(bm, 64, 64))
+    _flag_kernels_vs_plain(q, k, v, do, True, window, **flags)
+
+
+def test_window_bwd_is_deterministic_and_graphable(cuda):
+    """Two passes of a windowed GQA attention through the autograd entry
+    give bitwise equal outputs and gradients; the forward replays in a CUDA
+    graph bitwise equal to an eager call."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import interface
+    b, h, hk, s, d = 1, 8, 2, 1100, 128
+    q, k, v, do = _sparse_case(cuda, b, h, hk, s, d)
+    runs = []
+    for _ in range(2):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = interface.flash_attention(*ins, causal=True,
+                                        window_size=(255, 0))
+        runs.append((out,) + torch.autograd.grad(out, ins, do))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    with torch.no_grad():
+        eager = interface.flash_attention(q, k, v, causal=True,
+                                          window_size=(255, 0))
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            interface.flash_attention(q, k, v, causal=True,
+                                      window_size=(255, 0))
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            captured = interface.flash_attention(q, k, v, causal=True,
+                                                 window_size=(255, 0))
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)

@@ -16,7 +16,14 @@ block's largest LTStart), block masks at granularities 64 (straddling the
 128-key and 128-row blocks and tiles), 128 and 256, s 200 (ragged), causal
 with sq != sk. Also the stats and the skip/bypass decisions against the JAX
 package's ``fm_block_stats`` and ``fm_skip_bypass`` on the same seeded
-vectors, exactly.
+vectors, exactly. The same checks under sliding windows (causal with a
+left bound, left only, right only, both, sq != sk), segment ids (sorted
+and arbitrary, padded tails), q/kv positions (varlen packings with
+cu_seqlens_q != cu_seqlens_k) and their combinations with FlashMask and
+block masks; the producers consider only the window's key tiles and the
+tiles the segment and position stats allow; the segment and position
+stats against the JAX package's ``seg_block_stats`` and
+``pos_pad_and_stats``.
 """
 
 import jax.numpy as jnp
@@ -76,6 +83,10 @@ def check_dkv_plan(flags, b, h, hk, sq, sk, causal):
     masks = common.KernelMasks(b, h, sq, sk, **flags)
     plan = bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, sq, sk, causal)
     vis = _visible(flags, b, h, sq, sk, causal)
+    return plan, _check_dkv(plan, vis, h, hk, sq, sk)
+
+
+def _check_dkv(plan, vis, h, hk, sq, sk):
     m, n, g = bwd.BWD_DKV_TILE_M, bwd.BWD_DKV_TILE_N, h // hk
     n_qt, visited = -(-sq // m), 0
     for (batch, kv_head, nb), tiles in plan.items():
@@ -96,7 +107,7 @@ def check_dkv_plan(flags, b, h, hk, sq, sk, causal):
                         (t * m, min(t * m + m, sq)),
                         (n0 + 64 * c, min(n0 + 64 * c + 64, sk)),
                         parts[c], e)
-    return plan, visited
+    return visited
 
 
 def _check_row_block_plan(plan, vis, sq, sk, n):
@@ -332,3 +343,163 @@ def test_fm_bands_rewrite_every_mode(causal, nv):
     masked = ((rows >= lo1) & (rows < hi1)) | ((rows >= lo2) & (rows < hi2))
     assert torch.equal(masked, common.fm_banned(mode, padded, rows))
     assert masked[..., sk:].all()
+
+
+# ---- sliding windows, segment ids and positions
+
+def check_flag_plans(b, h, hk, sq, sk, causal, window=(-1, -1), **flags):
+    """Every masked kernel's mirror under the flags as the entry resolves
+    them (fwd.build_masks), held to the dense keep mask of every flag:
+    returns the (forward, dK/dV) plans."""
+    eff, masks = fwd.build_masks(b, h, sq, sk, causal, window, **flags)
+    keep = masks.keep(h)
+    keep = (torch.ones(1, 1, sq, sk, dtype=torch.bool) if keep is None
+            else common.expand_heads(keep, h))
+    vis = keep.expand(b, h, sq, sk)
+    if eff:
+        rows, cols = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+        vis = vis & (cols <= rows + (sk - sq))
+    dkv = bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, sq, sk, eff)
+    _check_dkv(dkv, vis, h, hk, sq, sk)
+    for d in (64, 128):
+        _check_row_block_plan(
+            bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, sq, sk, eff, d),
+            vis, sq, sk, bwd.bwd_dq_tile_n(d))
+    plan = fwd.fwd_masked_tile_plan(masks, b, h, sq, sk, eff)
+    _check_row_block_plan(plan, vis, sq, sk, 128)
+    return plan, dkv
+
+
+WINDOWS = [(True, (100, -1)), (False, (100, -1)), (False, (-1, 70)),
+           (False, (130, 30)), (True, (0, 0))]
+
+
+@pytest.mark.parametrize("causal,window", WINDOWS)
+@pytest.mark.parametrize("sq,sk", [(300, 300), (200, 500), (500, 200)])
+def test_masked_plans_cover_windows(sq, sk, causal, window):
+    """Windows, with sq == sk, sq < sk and sq > sk (the card tests' cases):
+    the visited tiles cover every visible pair, and the forward considers
+    only the key tiles its rows' windows reach."""
+    b, h, hk = 1, 2, 1
+    plan, _ = check_flag_plans(b, h, hk, sq, sk, causal, window)
+    eff, (left, right), _ = common.resolve_window(causal, window, sq, sk,
+                                                  False)
+    if left >= 0 and right >= 0:  # a window spans at most this many tiles
+        most = -(-(left + right + 128) // 128) + 1
+        assert max(map(len, plan.values())) <= most
+
+
+def test_window_walks_only_its_tiles():
+    """At s 8192 and window (4095, 0) (the Mistral-7B prefill) each block
+    of 128 rows considers at most 33 key tiles, not the row's 64; the
+    dK/dV blocks likewise at most 66 query tiles of 64 rows."""
+    plans = fwd.key_window_plan(8192, 8192, 128, 128, (4095, 0))
+    assert max(map(len, plans)) == 33
+    assert sum(map(len, plans)) < 0.8 * sum(
+        map(len, fwd.key_tile_plan(8192, 8192, True, 128, 128)))
+    dkv = bwd.bwd_dkv_window_plan(8192, 8192, (4095, 0))
+    assert max(map(len, dkv)) <= 66
+
+
+def _segments(rng, b, s, n, monotone, pad):
+    ids = rng.integers(1, n + 1, (b, s))
+    if monotone:
+        ids = np.sort(ids, -1)
+    ids[:, s - pad:] = 0
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+@pytest.mark.parametrize("monotone", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+def test_masked_plans_cover_segments(causal, monotone):
+    """Segment ids, sorted (packed documents) or arbitrary (the stats are
+    conservative), with padded tails of id 0; s 333."""
+    rng = np.random.default_rng(int(causal) + 2 * int(monotone))
+    b, h, hk, s = 2, 4, 2, 333
+    check_flag_plans(
+        b, h, hk, s, s, causal,
+        q_segment_ids=_segments(rng, b, s, 5, monotone, 40),
+        kv_segment_ids=_segments(rng, b, s, 5, monotone, 17))
+
+
+def _varlen_flags(cu_q, cu_k, tq, tk):
+    """The segment ids and bottom-right aligned positions of a varlen call
+    (interface.flash_attn_varlen_func's own)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import interface
+    cu_q, cu_k = (torch.tensor(c, dtype=torch.int32) for c in (cu_q, cu_k))
+    lq, seq = interface._local_positions(cu_q, tq)
+    lk, _ = interface._local_positions(cu_k, tk)
+    off = ((cu_k[1:] - cu_k[:-1]) - (cu_q[1:] - cu_q[:-1]))[seq]
+    return dict(
+        q_segment_ids=interface._segment_ids_from_cu_seqlens(cu_q, tq)[None],
+        kv_segment_ids=interface._segment_ids_from_cu_seqlens(cu_k, tk)[None],
+        q_positions=(lq + off)[None], kv_positions=lk[None])
+
+
+@pytest.mark.parametrize("window", [(-1, -1), (47, -1)])
+def test_masked_plans_cover_varlen_positions(window):
+    """Varlen with cu_seqlens_q != cu_seqlens_k (the card test's packing):
+    segment ids and per-sequence positions, causal on the positions, with
+    and without a left window; the tile ranges cut the candidates."""
+    flags = _varlen_flags([0, 100, 130, 400, 410], [0, 60, 250, 500, 530],
+                          420, 530)
+    plan, dkv = check_flag_plans(1, 4, 2, 420, 530, True, window, **flags)
+    dense = sum(len(c) for c in fwd.fwd_tile_plan(420, 530, False)) * 4
+    assert sum(map(len, plan.values())) < dense
+
+
+@pytest.mark.parametrize("combo", ["window+flashmask", "segments+block",
+                                   "positions+flashmask", "positions+block"])
+def test_masked_plans_cover_flag_combinations(combo):
+    """Windows, segments and positions ANDed with a FlashMask (causal_2,
+    one mask head per query head) or a block mask at granularity 64."""
+    rng = np.random.default_rng(len(combo))
+    b, h, hk, s = 2, 4, 2, 320
+    flags, window = {}, (-1, -1)
+    if "window" in combo:
+        window = (90, 0)
+    if "segments" in combo:
+        flags.update(q_segment_ids=_segments(rng, b, s, 3, True, 0),
+                     kv_segment_ids=_segments(rng, b, s, 3, True, 0))
+    if "positions" in combo:
+        pos = torch.from_numpy((np.arange(s)[None] * 2
+                                + np.array([[0], [7]])).astype(np.int32))
+        flags.update(q_positions=pos, kv_positions=pos)
+        window = (150, 0)
+    if "flashmask" in combo:
+        flags.update(_fm_flags(len(combo), True, 2, b, h, s))
+    if "block" in combo:
+        flags["block_mask"] = (torch.from_numpy(
+            (rng.random((b, 1, 5, 5)) < 0.7).astype(np.int32)), 64, 64)
+    check_flag_plans(b, h, hk, s, s, True, window, **flags)
+
+
+@pytest.mark.parametrize("block", [64, 128])
+def test_token_stats_match_jax(block):
+    """Segment stats (the last id repeated into the padding) and position
+    stats (padding POS_PAD) per kernel tile equal the JAX package's
+    seg_block_stats and pos_pad_and_stats, exactly."""
+    rng = np.random.default_rng(block)
+    b, s = 2, 300
+    seg = rng.integers(0, 6, (b, s)).astype(np.int32)
+    pos = rng.integers(-50, 500, (b, s)).astype(np.int32)
+    _, src = common.token_pairs(torch.from_numpy(seg), torch.from_numpy(pos),
+                                b, s, "cpu")
+    st = common.token_stats(src, s, block).numpy()
+    jseg = np.asarray(jcommon.seg_block_stats(jnp.asarray(seg), block))
+    _, jpos = jcommon.pos_pad_and_stats(jnp.asarray(pos), block)
+    np.testing.assert_array_equal(st[..., :2].reshape(-1), jseg)
+    np.testing.assert_array_equal(st[..., 2:].reshape(-1), np.asarray(jpos))
+    assert common.POS_PAD == jcommon.POS_PAD
+
+
+def test_resolve_window():
+    """causal sets the right bound to 0; positions move both bounds onto
+    the positions; bounds that cut no pair are dropped."""
+    rw = common.resolve_window
+    assert rw(True, (-1, -1), 100, 100, False) == (True, (-1, -1), (-1, -1))
+    assert rw(True, (10, 5), 100, 100, False) == (False, (10, 0), (-1, -1))
+    assert rw(False, (-1, 0), 100, 100, False) == (True, (-1, -1), (-1, -1))
+    assert rw(True, (99, 0), 100, 100, False) == (True, (-1, -1), (-1, -1))
+    assert rw(False, (5, 99), 100, 100, False) == (False, (5, -1), (-1, -1))
+    assert rw(True, (7, -1), 100, 100, True) == (False, (-1, -1), (7, 0))

@@ -11,16 +11,26 @@ model with a dense bf16, fp32, int8 or e4m3 KV cache,
 (``inference``: InferenceEngine, PagedKVCache, split-KV decode), and
 training on one device (``training``: Trainer, train, AdamW, the
 cross-entropy loss), with backward kernels for attention and the fused
-norm, and sparse-mask attention (``flashmask_attention``,
+norm, sparse-mask attention (``flashmask_attention``,
 ``blocksparse_attention``, forward and backward) with
-``calc_reduced_attn_scores``.
+``calc_reduced_attn_scores``, and sliding windows, segment ids and q/kv
+positions with the varlen and kv-packed entry points and ``bert_padding``.
 """
 
+from .bert_padding import (
+    index_first_axis,
+    index_first_axis_residual,
+    index_put_first_axis,
+    pad_input,
+    unpad_input,
+)
 from .losses import CrossEntropyLoss, cross_entropy_loss
 from .models.gpt import GPTConfig, GPTLMHeadModel, state_dict_from_jax
-from .models.llama import llama_config_to_gpt_config
+from .models.llama import (llama_config_to_gpt_config,
+                           remap_state_dict_hf_llama)
 from .ops.decode import decode_attention
 from .ops.flash_attention import (
+    BlockSizes,
     attention_ref,
     blockmask_to_dense,
     blocksparse_attention,
@@ -28,7 +38,11 @@ from .ops.flash_attention import (
     causal_document_mask,
     flash_attention,
     flash_attn_func,
+    flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
+    flash_attn_varlen_func,
+    flash_attn_varlen_kvpacked_func,
+    flash_attn_varlen_qkvpacked_func,
     flash_attn_with_kvcache,
     flash_blocksparse_attn_func,
     flashmask_attention,
@@ -51,6 +65,7 @@ from .training import Trainer, train
 from .utils.generation import decode, sample_logits
 
 __all__ = [
+    "BlockSizes",
     "CrossEntropyLoss",
     "GPTConfig",
     "GPTLMHeadModel",
@@ -67,20 +82,30 @@ __all__ = [
     "dropout_add_rms_norm",
     "flash_attention",
     "flash_attn_func",
+    "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_kvpacked_func",
+    "flash_attn_varlen_qkvpacked_func",
     "flash_attn_with_kvcache",
     "flash_blocksparse_attn_func",
     "flash_decode",
     "flashmask_attention",
     "flashmask_to_dense",
     "global_sliding_window_mask",
+    "index_first_axis",
+    "index_first_axis_residual",
+    "index_put_first_axis",
     "layer_norm",
     "llama_config_to_gpt_config",
     "packed_heads_attention",
     "packed_qkv_attention",
+    "pad_input",
+    "remap_state_dict_hf_llama",
     "rms_norm",
     "sample_logits",
     "sliding_window_mask",
     "state_dict_from_jax",
     "train",
+    "unpad_input",
 ]

@@ -9,6 +9,7 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -125,6 +126,19 @@ __device__ __forceinline__ void smem_a(uint32_t (&a)[4], const __nv_bfloat16* ti
 // may straddle two, so they decide per 64-row or 64-key part.
 enum FmMode : int { kFmNone = 0, kFmCausal1 = 1, kFmCausal2 = 2, kFmFull2 = 3, kFmFull4 = 4 };
 
+//
+// Windows, segment ids and positions (ops common.py resolve_window,
+// token_info, token_stats, tile_ranges). The row/key window (left, right)
+// makes key c visible to row r when r + off - left <= c <= r + off + right
+// (off = sk - sq; -1: no bound; the causal flag is right 0 here); with
+// positions the position window applies to the position values instead
+// (kpos <= qpos + pright, kpos >= qpos - pleft) and the row/key window is
+// off; segment ids make a pair visible only when they are equal. Each token
+// carries (segment id, position, 0, 0); per kernel tile [segment min, max,
+// position min, max] decide skip and bypass of a tile pair, and per block a
+// range [lo, hi) of tiles that may hold a visible pair bounds the
+// candidates the producer evaluates (a packed batch's block sees its own
+// documents' tiles only).
 struct MaskParams {
   const int* fm_vecs;   // (b, fm_heads, nv, fm_skp) int32 (padding masked), or null
   const int* fm_stats;  // (b, fm_heads, fm_skp / tile, nv, 2): max, min per key tile
@@ -132,17 +146,37 @@ struct MaskParams {
   const int* bm;        // (b|1, hm|1, ceil(sq/gq), bm_nk) int32, or null
   int64_t bm_sb, bm_sh;  // 0 on a broadcast axis
   int bm_heads, bm_nk, gq, gk;
+  int left, right, pleft, pright;  // the row/key and the position windows
+  const int4* q_info;  // (b, q_pad) per query (segment, position, 0, 0), or null
+  const int4* k_info;  // (b, k_pad) per key
+  const int4* q_st;    // (b, n_qst) per query tile of the kernel
+  const int4* k_st;    // (b, n_kst) per key tile
+  const int2* range;   // (b, n_rng) candidate tiles [lo, hi) per block
+  int q_pad, k_pad, n_qst, n_kst, n_rng;
 };
 
 // The trailing arguments of every attention entry point that takes masks.
 #define XFA_MASK_ARGS                                                                        \
   const void *fm_vecs, const void *fm_stats, int fm_mode, int fm_heads, int fm_skp,          \
-      const void *bm, int64_t bm_sb, int64_t bm_sh, int bm_heads, int bm_nk, int gq, int gk
-#define XFA_MASK_VALUES                                                                    \
-  xfa::MaskParams {                                                                        \
-    static_cast<const int*>(fm_vecs), static_cast<const int*>(fm_stats), fm_mode, fm_heads, \
-        fm_skp, static_cast<const int*>(bm), bm_sb, bm_sh, bm_heads, bm_nk, gq, gk         \
+      const void *bm, int64_t bm_sb, int64_t bm_sh, int bm_heads, int bm_nk, int gq, int gk, \
+      int win_left, int win_right, int pos_left, int pos_right, const void *q_info,          \
+      const void *k_info, const void *q_st, const void *k_st, const void *tile_range,        \
+      int q_pad, int k_pad, int n_qst, int n_kst, int n_rng
+#define XFA_MASK_VALUES                                                                     \
+  xfa::MaskParams {                                                                         \
+    static_cast<const int*>(fm_vecs), static_cast<const int*>(fm_stats), fm_mode, fm_heads,  \
+        fm_skp, static_cast<const int*>(bm), bm_sb, bm_sh, bm_heads, bm_nk, gq, gk, win_left, \
+        win_right, pos_left, pos_right, static_cast<const int4*>(q_info),                    \
+        static_cast<const int4*>(k_info), static_cast<const int4*>(q_st),                    \
+        static_cast<const int4*>(k_st), static_cast<const int2*>(tile_range), q_pad, k_pad,   \
+        n_qst, n_kst, n_rng                                                                  \
   }
+
+// True when a kernel must run its masked instantiation.
+__host__ __device__ __forceinline__ bool mask_active(const MaskParams& m) {
+  return m.fm_vecs != nullptr || m.bm != nullptr || m.q_info != nullptr || m.left >= 0 ||
+         m.right >= 0;
+}
 
 __host__ __device__ __forceinline__ int fm_nv(int mode) {
   return mode == kFmCausal1 ? 1 : (mode == kFmFull4 ? 4 : 2);
@@ -278,6 +312,64 @@ __device__ __forceinline__ QueryTilePlan query_tiles(int n0, int sq, int sk, int
   return pl;
 }
 
+// The key tiles of N keys [lo, hi) that rows [q0, q0 + M) below sq may see
+// under the row/key window of `m`, and [f_lo, f_hi) among them the free
+// ones (every key below sk and visible to every row below sq); considered
+// last to first. Cut to the block's tile range when there are segments or
+// positions (block = q0 / M). Mirrored by fwd.py key_window_plan and
+// masked_row_block_plan.
+template <int M, int N>
+__device__ __forceinline__ void key_window(const MaskParams& m, int batch, int q0, int sq, int sk,
+                                           int& lo, int& hi, int& f_lo, int& f_hi) {
+  const int off = sk - sq, r1 = min(q0 + M, sq) - 1;
+  const int kmax = m.right < 0 ? sk - 1 : min(sk - 1, r1 + off + m.right);
+  const int kmin = m.left < 0 ? 0 : max(0, q0 + off - m.left);
+  lo = hi = f_lo = f_hi = 0;
+  if (kmax < kmin) return;
+  lo = kmin / N;
+  hi = kmax / N + 1;
+  const int fmax = m.right < 0 ? sk : min(sk, q0 + off + m.right + 1);
+  const int fmin = m.left < 0 ? 0 : max(0, r1 + off - m.left);
+  f_lo = max(lo, (fmin + N - 1) / N);
+  f_hi = min(hi, max(fmax, 0) / N);
+  if (m.range != nullptr) {
+    const int2 r = m.range[static_cast<int64_t>(batch) * m.n_rng + q0 / M];
+    lo = max(lo, r.x);
+    hi = max(lo, min(hi, r.y));
+  }
+}
+
+// The query tiles of M rows that the key block of N keys at n0 visits
+// under the row/key window of `m` (query_tiles for any window), cut to the
+// block's tile range with segments or positions (block = n0 / N). Mirrored
+// by bwd.py query_window and bwd_masked_dkv_tile_plan.
+template <int M, int N>
+__device__ __forceinline__ QueryTilePlan query_window(const MaskParams& m, int batch, int n0,
+                                                      int sq, int sk) {
+  QueryTilePlan pl{0, 0, 0, 0};
+  const int off = sk - sq, k1 = min(n0 + N, sk) - 1;
+  const int rmin = m.right < 0 ? 0 : max(0, n0 - off - m.right);
+  const int rmax = m.left < 0 ? sq - 1 : min(sq - 1, k1 - off + m.left);
+  if (rmax < rmin) return pl;
+  int first = rmin / M, end = rmax / M + 1;
+  const int free_from = m.right < 0 ? 0 : max(0, k1 - off - m.right);
+  int t_end = sq / M;
+  if (m.left >= 0) {
+    const int x = n0 - off + m.left + 1;
+    t_end = min(t_end, x > 0 ? x / M : 0);
+  }
+  if (m.range != nullptr) {
+    const int2 r = m.range[static_cast<int64_t>(batch) * m.n_rng + n0 / N];
+    first = max(first, r.x);
+    end = max(first, min(end, r.y));
+  }
+  pl.first = first;
+  pl.n_qt = end;
+  pl.f0 = min(max((free_from + M - 1) / M, first), end);
+  pl.f1 = min(max(t_end, pl.f0), end);
+  return pl;
+}
+
 // ---- the masked attention kernels' producer (flash_fwd.cu, flash_bwd.cu)
 //
 // Which tiles a block visits depends on the mask, so warp 0 of the
@@ -292,16 +384,38 @@ __device__ __forceinline__ QueryTilePlan query_tiles(int n0, int sq, int sk, int
 constexpr int kEnd = -1;
 constexpr int kElem = 1;  // the elementwise test
 constexpr int kBand = 2;  // the FlashMask band test (the bands in the stage, or per thread)
-constexpr int kOnShift = 2;
+constexpr int kInfo = 4;  // the segment / position test (the tokens' info in the stage)
+constexpr int kOnShift = 3;
 constexpr int kRowBlock = 128;  // query rows of a forward or dQ block, 64 per consumer
+
+// The segment / position decision of a query tile with stats qs against a
+// key tile with ks ([segment min, max, position min, max]): -1 skipped (the
+// segment ranges do not meet, or the positions lie outside the window
+// everywhere), 0 bypassed (one segment on both sides, the window met
+// everywhere), else kElem | kInfo. Mirrored by fwd.py token_flags.
+__device__ __forceinline__ int token_flags(const MaskParams& m, int4 qs, int4 ks) {
+  bool skip = (qs.x > ks.y) | (ks.x > qs.y);
+  bool bypass = (qs.x == qs.y) & (ks.x == ks.y) & (qs.x == ks.x);
+  if (m.pright >= 0) {
+    skip |= ks.z > qs.w + m.pright;
+    bypass &= ks.w <= qs.z + m.pright;
+  }
+  if (m.pleft >= 0) {
+    skip |= ks.w < qs.z - m.pleft;
+    bypass &= ks.z >= qs.w - m.pleft;
+  }
+  return skip ? -1 : (bypass ? 0 : kElem | kInfo);
+}
 
 // The flags of the key tile of N keys at n0 against the block of kRowBlock
 // query rows at q0 of (batch, head), or -1 when it is skipped: skipped when
 // the FlashMask stats (per tile of N keys) mask the block's rows everywhere
-// or no part is on (a part starting at or past sq or sk is off); kElem with
-// `elem` (the causal / ragged test of the plan), with the band test (not
-// bypassed) and when one consumer's two key parts differ (the keys straddle
-// two block-mask entries). Mirrored by fwd.py masked_row_block_plan.
+// or no part is on (a part starting at or past sq or sk is off), or the
+// segment / position stats (token_flags) skip it; kElem with `elem` (the
+// window / ragged test of the plan), with the band test (not bypassed), the
+// segment / position test and when one consumer's two key parts differ (the
+// keys straddle two block-mask entries). Mirrored by fwd.py
+// masked_row_block_plan.
 template <int N>
 __device__ __forceinline__ int row_block_tile_flags(const MaskParams& m, int batch, int head,
                                                     int h, int sq, int sk, int q0, int n0,
@@ -313,6 +427,12 @@ __device__ __forceinline__ int row_block_tile_flags(const MaskParams& m, int bat
               min(q0 + kRowBlock, sq), skip, bypass);
     if (skip) return -1;
     if (!bypass) flags |= kElem | kBand;
+  }
+  if (m.q_info != nullptr) {
+    const int tf = token_flags(m, m.q_st[static_cast<int64_t>(batch) * m.n_qst + q0 / kRowBlock],
+                               m.k_st[static_cast<int64_t>(batch) * m.n_kst + n0 / N]);
+    if (tf < 0) return -1;
+    flags |= tf;
   }
   int on = 0;  // the parts that start below sq and sk
 #pragma unroll
@@ -342,6 +462,55 @@ __device__ __forceinline__ int row_block_tile_flags(const MaskParams& m, int bat
   }
   return on == 0 ? -1 : flags | on << kOnShift;
 }
+
+// The limits of the masked kernels' elementwise test, made per tile at the
+// top of the test from the parameters and the tile's staged tokens (a few
+// operations), so that nothing stays in registers across the tile loop
+// (held there, they spilled: 13-37% on the masked rows,
+// scripts/ab_trees.py). A query row sees the keys [lo, hi] (the row/key
+// window, and hi below sk); with segments or positions, a query's (segment
+// id, position) q gives (segment, lowest, highest key position it sees).
+__device__ __forceinline__ void row_limit(const MaskParams& m, int row, int sq, int sk, int& lo,
+                                          int& hi) {
+  const int c = row + sk - sq;
+  hi = m.right < 0 ? sk - 1 : min(sk - 1, c + m.right);
+  lo = m.left < 0 ? INT_MIN : c - m.left;
+}
+
+__device__ __forceinline__ int4 query_tokens(const MaskParams& m, int2 q) {
+  return make_int4(q.x, m.pleft < 0 ? INT_MIN : q.y - m.pleft,
+                   m.pright < 0 ? INT_MAX : q.y + m.pright, 0);
+}
+
+// A key (dK/dV) is seen by the rows [rmin, rmax] (the window, rmax below
+// sq); with segments or positions its (segment id, position) k gives
+// (segment, lowest, highest query position that sees it).
+__device__ __forceinline__ void key_limit(const MaskParams& m, int key, int sq, int sk, int& rmin,
+                                          int& rmax) {
+  const int c = key - (sk - sq);
+  rmin = m.right < 0 ? INT_MIN : c - m.right;
+  rmax = m.left < 0 ? sq - 1 : min(sq - 1, c + m.left);
+}
+
+__device__ __forceinline__ int4 key_tokens(const MaskParams& m, int2 k) {
+  return make_int4(k.x, m.pright < 0 ? INT_MIN : k.y - m.pright,
+                   m.pleft < 0 ? INT_MAX : k.y + m.pleft, 0);
+}
+
+// A token's (segment id, position) from staged info rows (padding holds 0).
+__device__ __forceinline__ int2 token_at(const int4* info, int i) {
+  return *reinterpret_cast<const int2*>(info + i);
+}
+
+// The segment / position test: a token t = (segment id, position) against
+// the other side's limits L = (segment, lowest, highest position).
+__device__ __forceinline__ bool tokens_meet(int4 L, int2 t) {
+  return (t.x == L.x) & (t.y >= L.y) & (t.y <= L.z);
+}
+
+// Bytes of a block's 128 tokens' info, staged with its Q (the forward, dQ)
+// or its K/V (dK/dV).
+constexpr int kBlockInfoBytes = 128 * 16;
 
 // True when `row` falls in one of a column's first NB FlashMask bands b =
 // [lo1, hi1), [lo2, hi2) (ops common.py fm_bands; the causal modes have

@@ -10,8 +10,8 @@
 //     written straight into the column ranges of one packed dqkv.
 // and the `dot_do_o` preprocess that the TPU package leaves to XLA (bwd.py:737)
 // -> flash_bwd_prep_kernel. The FlashMask and block-mask flags of the TPU
-// kernels (bwd.py:332-350, 582-600) are a template flag of the same two
-// kernels (MASKED).
+// kernels (bwd.py:332-350, 582-600), the sliding window, segment ids and
+// q/kv positions are a template flag of the same two kernels (MASKED).
 //
 // What they compute, as the TPU kernels do (bwd.py:106-177): q is scaled by
 // sm_scale in fp32 and rounded to bf16 (q_s); S = q_s K^T in fp32, optional
@@ -87,14 +87,18 @@
 //   tile, and reloading them per tile reads as many shared-memory bytes as
 //   SS).
 //
-// * The masked instantiations (MASKED: FlashMask and block masks). Which
+// * The masked instantiations (MASKED: FlashMask, block masks, sliding
+//   windows, segment ids and positions). Which
 //   tiles a block visits depends on the data, so the producer decides and
 //   the consumers follow (the candidate evaluation, the tile word, the
+//   candidates of the row/key window cut to the block's tile range from the
+//   segment and position stats (common.cuh key_window, query_window), the
 //   per-tile decision of a 128-row block and the dynamic scheduler are
 //   common.cuh's, shared with the masked forward in flash_fwd.cu): warp 0
 //   of the producer warpgroup evaluates 32 candidate tiles at a time (a
 //   lane each, from the FlashMask stats per kernel tile and the
-//   block-mask entries), and its lane 0 loads each
+//   block-mask entries, and the segment / position stats per kernel tile:
+//   common.cuh token_flags), and its lane 0 loads each
 //   visited tile with a word in the tile's ring stage: its first row (dK/dV)
 //   or key (dQ), its head in the group and its flags (the elementwise test,
 //   the FlashMask band test, and per consumer the 64-key or 64-row parts
@@ -118,7 +122,12 @@
 //   dQ tile of 128 keys does only when its two 64-key parts differ. In
 //   causal_1 (a causal document mask) the stats skip every query tile at or
 //   past the block's largest LTStart, the end of the last document its keys
-//   belong to: the work a packed batch saves.
+//   belong to: the work a packed batch saves. With segment ids or positions
+//   a tile that needs their test arrives with its queries' (dK/dV) or keys'
+//   (dQ) (segment id, position) by a 2-D TMA box, the other side's with the
+//   block's K/V (dK/dV) or q_s (dQ); the consumers make their keys' or
+//   rows' limits per tile (common.cuh key_limit, row_limit): two compares
+//   per element for the window, three for segments and positions.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -212,10 +221,12 @@ __host__ __device__ constexpr int dq_keys(int d) { return d == 64 ? 128 : 64; }
 using xfa::kBand;
 using xfa::kElem;
 using xfa::kEnd;
+using xfa::kBlockInfoBytes;
+using xfa::kInfo;
 using xfa::kOnShift;
 static_assert(kDqRows == xfa::kRowBlock, "the dQ block is the masked producer's row block");
 
-template <int D>
+template <int D, bool MASKED = false>
 struct DkvSmem {
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kHalves = D / 64;  // 64-column (128-byte) tiles of a row
@@ -225,15 +236,20 @@ struct DkvSmem {
   static constexpr int kK = 0;
   // a stage of the query ring: q_s and dO [half][64 rows][128 B], then the
   // tile's LSE and delta boxes (kStatBox floats each, kStatStride apart);
-  // the masked instantiations' tile word after the LSE box
+  // the masked instantiations' tile word after the LSE box, and the tile's
+  // queries' (segment, position) info after the delta box
   static constexpr int kTile = kDkvRows * D * 2;
   static constexpr int kStatStride = 512;
   static constexpr int kWord = 2 * kTile + kStatBox * 4;
-  static constexpr int kStage = 2 * kTile + 2 * kStatStride;
+  static constexpr int kQInfo = 2 * kTile + 2 * kStatStride;
+  static constexpr int kQInfoBytes = kDkvRows * 16;
+  static constexpr int kStage = kQInfo + (MASKED ? 1024 : 0);
   static constexpr int kRing = kK + 4 * kKV;
-  // barriers: K/V full[2], K/V empty[2], tile full[], tile empty[]; then
-  // the block of each K/V buffer (masked)
-  static constexpr int kBar = kRing + kStages * kStage;
+  // masked: each K/V buffer's keys' (segment, position) info; barriers:
+  // K/V full[2], K/V empty[2], tile full[], tile empty[]; then the block of
+  // each K/V buffer (masked)
+  static constexpr int kKInfo = kRing + kStages * kStage;
+  static constexpr int kBar = kKInfo + (MASKED ? 2 * kBlockInfoBytes : 0);
   static constexpr int kBlk = kBar + 8 * (4 + 2 * kStages);
   static constexpr int kBytes = kBlk + 32 + 1024;  // + alignment slack
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
@@ -249,16 +265,21 @@ struct DqSmem {
   static constexpr int kQ = kDqRows * D * 2;
   static constexpr int kQ0 = 0;
   // a stage of the key ring: K then V, [half][kN keys][128 B]; masked: the
-  // tile's FlashMask bands (kN x 16 B) and its word
+  // tile's FlashMask bands (kN x 16 B), its keys' (segment, position) info
+  // (kN x 16 B) and its word
   static constexpr int kKV = kN * D * 2;
   static constexpr int kRing = kQ0 + 4 * kQ;
   static constexpr int kBands = 2 * kKV;
-  static constexpr int kWord = kBands + kN * 16;
-  static constexpr int kStage = 2 * kKV + (MASKED ? (kN * 16 + 16 + 1023) / 1024 * 1024 : 0);
+  static constexpr int kKInfo = kBands + kN * 16;
+  static constexpr int kWord = kKInfo + kN * 16;
+  static constexpr int kStage =
+      2 * kKV + (MASKED ? (2 * kN * 16 + 16 + 1023) / 1024 * 1024 : 0);
   static_assert(!MASKED || kWord + 16 <= kStage, "the bands and the word fit the stage");
-  // barriers: Q full[2], Q empty[2], K/V full[], K/V empty[]; then the
-  // block of each Q buffer (masked)
-  static constexpr int kBar = kRing + kStages * kStage;
+  // masked: each Q buffer's queries' (segment, position) info; barriers: Q
+  // full[2], Q empty[2], K/V full[], K/V empty[]; then the block of each Q
+  // buffer (masked)
+  static constexpr int kQInfo = kRing + kStages * kStage;
+  static constexpr int kBar = kQInfo + (MASKED ? 2 * kBlockInfoBytes : 0);
   static constexpr int kBlk = kBar + 8 * (4 + 2 * kStages);
   static constexpr int kBytes = kBlk + 32 + 1024;
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
@@ -293,8 +314,10 @@ __device__ __forceinline__ xfa::QueryTilePlan dkv_plan(int n0, int sq, int sk, i
 
 // The flags of the dK/dV tile of rows [m0, m0 + 64) against the keys of the
 // block at n0 for query head `head`, or -1 when it is skipped; `st` the
-// FlashMask stats of the block's keys (or null), `elem` the causal /
-// ragged test of the plan. Mirrored by bwd.py bwd_masked_dkv_tile_plan.
+// FlashMask stats of the block's keys (or null), `elem` the window /
+// ragged test of the plan; with segments or positions their decision from
+// the stats per 64-row tile and 128-key block. Mirrored by bwd.py
+// bwd_masked_dkv_tile_plan.
 __device__ __forceinline__ int dkv_tile_flags(const BwdParams& p, const int* st, int batch,
                                               int head, int n0, int m0, bool elem) {
   int flags = elem ? kElem : 0;
@@ -303,6 +326,13 @@ __device__ __forceinline__ int dkv_tile_flags(const BwdParams& p, const int* st,
     xfa::fm_decide(p.mask.fm_mode, st, m0, min(m0 + kDkvRows, p.sq), skip, bypass);
     if (skip) return -1;
     if (!bypass) flags |= kElem | kBand;
+  }
+  const xfa::MaskParams& m = p.mask;
+  if (m.q_info != nullptr) {
+    const int tf = xfa::token_flags(m, m.q_st[static_cast<int64_t>(batch) * m.n_qst + m0 / kDkvRows],
+                                    m.k_st[static_cast<int64_t>(batch) * m.n_kst + n0 / kDkvKeys]);
+    if (tf < 0) return -1;
+    flags |= tf;
   }
   int on = 0;
 #pragma unroll
@@ -371,6 +401,36 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
   }
 }
 
+// dK/dV's elementwise test in the masked instantiations, all bitwise: the
+// rows that see this thread's keys key0 and key0 + 8 by the row/key window
+// and below sq (common.cuh key_limit), with NB > 0 the keys' first NB
+// FlashMask bands (b0, b1) and with INFO each row's segment id and position
+// (`qinfo`, in the stage) against the key's (`kinfo`: key0's, staged with
+// K/V; key0 + 8's 8 further); P and dS as dkv_p_ds.
+template <bool SOFTCAP, int NB, bool INFO>
+__device__ __forceinline__ void dkv_p_ds_masked(float (&s)[kDkvRows / 2],
+                                                float (&dp)[kDkvRows / 2], const float* lse,
+                                                const float* delta, int key0, int m0,
+                                                const int4* qinfo, const int4* kinfo,
+                                                const BwdParams& p, int t, int4 b0, int4 b1) {
+  int rmin[2], rmax[2];
+  int4 kt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    xfa::key_limit(p.mask, key0 + 8 * r, p.sq, p.sk, rmin[r], rmax[r]);
+    if (INFO) kt[r] = xfa::key_tokens(p.mask, xfa::token_at(kinfo, 8 * r));
+  }
+#pragma unroll
+  for (int i = 0; i < kDkvRows / 2; ++i) {
+    const int c = (i >> 2) * 8 + 2 * t + (i & 1);  // the query row in the tile
+    const int r = (i >> 1) & 1, row = m0 + c;
+    bool visible = (row >= rmin[r]) & (row <= rmax[r]);
+    if (NB > 0) visible = visible & !xfa::banned<NB>(r ? b1 : b0, row);
+    if (INFO) visible = visible & xfa::tokens_meet(kt[r], xfa::token_at(qinfo, c));
+    p_ds<SOFTCAP>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i]);
+  }
+}
+
 // dQ: dS of one key tile, in place in fp32 (dp: dP -> dS), from S (s), this
 // thread's rows row0 and row0 + 8 (lse2, delta per row) and the tile's keys
 // n0 + c as columns; with MASK the elementwise causal / sk test and the
@@ -392,6 +452,38 @@ __device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2
                 ((parts >> ((i >> 2) >= 8 ? 1 : 0)) & 1);
       if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
     }
+    float pr;
+    p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i]);
+  }
+}
+
+// dQ's elementwise test in the masked instantiations, all bitwise: the key
+// below sk, the row/key window, the parts of the tile's keys that are on,
+// with NB > 0 each column's first NB FlashMask bands (`bands`) and with
+// INFO each key's segment id and position (`kinfo`), both in the stage,
+// against the row's (`qinfo`: row0's, staged with q_s; row0 + 8's 8
+// further); dS as dq_ds.
+template <bool SOFTCAP, int N, int NB, bool INFO>
+__device__ __forceinline__ void dq_ds_masked(const float (&s)[N / 2], float (&dp)[N / 2],
+                                             const float (&lse2)[2], const float (&delta)[2],
+                                             int row0, int n0, const BwdParams& p, int t,
+                                             int parts, const int4* bands, const int4* kinfo,
+                                             const int4* qinfo) {
+  int lo[2], hi[2];
+  int4 qt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    xfa::row_limit(p.mask, row0 + 8 * r, p.sq, p.sk, lo[r], hi[r]);
+    if (INFO) qt[r] = xfa::query_tokens(p.mask, xfa::token_at(qinfo, 8 * r));
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = n0 + c, row = row0 + 8 * r;
+    bool visible = (col <= hi[r]) & (col >= lo[r]) &
+                   (((parts >> ((i >> 2) >= 8 ? 1 : 0)) & 1) != 0);
+    if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
+    if (INFO) visible = visible & xfa::tokens_meet(qt[r], xfa::token_at(kinfo, c));
     float pr;
     p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i]);
   }
@@ -425,17 +517,19 @@ __device__ __forceinline__ void store_rows(bf16* dst, int64_t ss, const float (&
 // ---- dK/dV
 
 // The producer's loads of one query tile (q_s, dO, LSE and delta of `head`
-// at rows m0) into ring stage `st`, after its previous use is consumed.
-template <int D>
+// at rows m0) into ring stage `st`, after its previous use is consumed; the
+// tile-full barrier also waits for `extra` bytes (the masked tile's
+// queries' info).
+template <int D, bool MASKED = false>
 __device__ __forceinline__ void dkv_load_tile(const CUtensorMap* tq, const CUtensorMap* tdo,
                                               const CUtensorMap* tlse, const CUtensorMap* tdelta,
                                               uint32_t base, int it, int m0, int head, int batch,
-                                              int stat0) {
-  using S = DkvSmem<D>;
+                                              int stat0, uint32_t extra = 0) {
+  using S = DkvSmem<D, MASKED>;
   const uint32_t bar_t = base + S::kBar + 32;  // after K/V full[2] and empty[2]
   const int st = it % S::kStages;
   const uint32_t t_st = base + S::kRing + st * S::kStage;
-  sm90::mbar_expect_tx(bar_t + 8 * st, 2 * S::kTile + 2 * kStatBox * 4);
+  sm90::mbar_expect_tx(bar_t + 8 * st, 2 * S::kTile + 2 * kStatBox * 4 + extra);
   for (int hf = 0; hf < S::kHalves; ++hf) {
     sm90::tma_load_4d(t_st + hf * kDkvRows * kRow, tq, bar_t + 8 * st, hf * 64, m0, head, batch);
     sm90::tma_load_4d(t_st + S::kTile + hf * kDkvRows * kRow, tdo, bar_t + 8 * st, hf * 64, m0,
@@ -453,8 +547,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tlse,
-                         const __grid_constant__ CUtensorMap tdelta, const BwdParams p) {
-  using S = DkvSmem<D>;
+                         const __grid_constant__ CUtensorMap tdelta,
+                         const __grid_constant__ CUtensorMap tqinfo,
+                         const __grid_constant__ CUtensorMap tkinfo, const BwdParams p) {
+  using S = DkvSmem<D, MASKED>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t base = sm90::smem_addr(smem);
@@ -535,7 +631,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<int4*>(smem + S::kBlk + 16 * kb) =
               make_int4(more ? n_block : kEnd, kv_head, batch, 0);
           if (more) {
-            sm90::mbar_expect_tx(bar_kv + 8 * kb, 2 * S::kKV);
+            // with segments or positions, the block's keys' info too
+            const bool info = m.k_info != nullptr;
+            sm90::mbar_expect_tx(bar_kv + 8 * kb, 2 * S::kKV + (info ? kBlockInfoBytes : 0));
             const uint32_t k_buf = base + S::kK + kb * 2 * S::kKV, v_buf = k_buf + S::kKV;
             for (int hf = 0; hf < S::kHalves; ++hf) {
               sm90::tma_load_4d(k_buf + hf * kDkvKeys * kRow, &tk, bar_kv + 8 * kb, hf * 64,
@@ -543,6 +641,9 @@ __global__ void __launch_bounds__(kThreads, 1)
               sm90::tma_load_4d(v_buf + hf * kDkvKeys * kRow, &tv, bar_kv + 8 * kb, hf * 64,
                                 n_block * kDkvKeys, kv_head, batch);
             }
+            if (info)
+              sm90::tma_load_2d(base + S::kKInfo + kb * kBlockInfoBytes, &tkinfo, bar_kv + 8 * kb,
+                                0, batch * m.k_pad + n_block * kDkvKeys);
           } else {
             sm90::mbar_arrive(bar_kv + 8 * kb);
           }
@@ -550,8 +651,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         ++kv;
         if (!more) break;
         const int n0 = n_block * kDkvKeys;
-        const xfa::QueryTilePlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
+        const xfa::QueryTilePlan pl =
+            xfa::query_window<kDkvRows, kDkvKeys>(m, batch, n0, p.sq, p.sk);
         const int n_masked = pl.n_masked();
+        const int info_row = batch * m.q_pad;
         for (int gi = 0; gi < group; ++gi) {
           const int head = kv_head * group + gi;
           const int stat0 = (batch * p.h + head) * p.sq;
@@ -570,7 +673,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                 sm90::mbar_wait(bar_te + 8 * s_, ((it / S::kStages) & 1) ^ 1);
                 *reinterpret_cast<int4*>(smem + S::kRing + s_ * S::kStage + S::kWord) =
                     make_int4(m0, gi, flags, 0);
-                dkv_load_tile<D>(&tq, &tdo, &tlse, &tdelta, base, it, m0, head, batch, stat0);
+                const bool info = flags & kInfo;
+                dkv_load_tile<D, true>(&tq, &tdo, &tlse, &tdelta, base, it, m0, head, batch, stat0,
+                                       info ? S::kQInfoBytes : 0);
+                if (info)
+                  sm90::tma_load_2d(base + S::kRing + s_ * S::kStage + S::kQInfo, &tqinfo,
+                                    base + S::kBar + 32 + 8 * s_, 0, info_row + m0);
                 ++it;
                 ++tiles;
                 elem += flags & kElem;
@@ -678,12 +786,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* delta = lse + S::kStatStride / 4;
         if (!(flags & kElem)) {
           dkv_p_ds<false, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
-        } else if (!MASKED || !(flags & kBand)) {
+        } else if constexpr (!MASKED) {
           dkv_p_ds<true, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
-        } else if (p.mask.fm_mode <= xfa::kFmCausal2) {
-          dkv_p_ds<true, SOFTCAP, 1>(s, dp, lse, delta, key0, m0, p, t, b0, b1);
         } else {
-          dkv_p_ds<true, SOFTCAP, 2>(s, dp, lse, delta, key0, m0, p, t, b0, b1);
+          const int4* qinfo = reinterpret_cast<const int4*>(stage + S::kQInfo);
+          const int4* kinfo = reinterpret_cast<const int4*>(smem + S::kKInfo +
+                                                            kb * kBlockInfoBytes) +
+                              (key0 - n0);
+#define XFA_DKV(NB, I) \
+  dkv_p_ds_masked<SOFTCAP, NB, I>(s, dp, lse, delta, key0, m0, qinfo, kinfo, p, t, b0, b1)
+          const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
+          if (!(flags & kBand)) {
+            if (flags & kInfo) XFA_DKV(0, true);
+            else XFA_DKV(0, false);
+          } else if (!(flags & kInfo)) {
+            if (one_band) XFA_DKV(1, false);
+            else XFA_DKV(2, false);
+          } else {  // both tests, rare: the one-band modes' second band is empty
+            XFA_DKV(2, true);
+          }
+#undef XFA_DKV
         }
         uint32_t pa[kDkvRows / 4], da[kDkvRows / 4];
         pack_pairs(s, pa);
@@ -717,7 +839,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const __grid_constant__ CUtensorMap tdo,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tbands, const BwdParams p) {
+                        const __grid_constant__ CUtensorMap tbands,
+                        const __grid_constant__ CUtensorMap tkinfo,
+                        const __grid_constant__ CUtensorMap tqinfo, const BwdParams p) {
   using S = DqSmem<D, MASKED>;
   constexpr int kN = S::kN;
   extern __shared__ uint8_t smem_raw[];
@@ -758,10 +882,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::tma_load_4d(v_st + hf * kN * kRow, &tv, bar_kv + 8 * st, hf * 64, n0, kv_head, batch);
       }
     };
-    auto load_q = [&](int q0, int head, int batch) {
+    auto load_q = [&](int q0, int head, int batch, uint32_t extra = 0) {
       const int qb = qk & 1;
       const uint32_t q_buf = base + S::kQ0 + qb * 2 * S::kQ;
-      sm90::mbar_expect_tx(bar_q + 8 * qb, 2 * S::kQ);
+      sm90::mbar_expect_tx(bar_q + 8 * qb, 2 * S::kQ + extra);
       for (int hf = 0; hf < S::kHalves; ++hf) {
         sm90::tma_load_4d(q_buf + hf * kDqRows * kRow, &tq, bar_q + 8 * qb, hf * 64, q0, head,
                           batch);
@@ -797,18 +921,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool lead = threadIdx.x == 0;
       int tiles = 0, elem = 0;
       for (;;) {
-        int m_block = 0, head = 0, batch = 0, n_tiles = 0, n_free = 0;
+        int m_block = 0, head = 0, batch = 0, lo = 0, hi = 0, f_lo = 0, f_hi = 0;
         const bool more =
             xfa::next_block(p.next, p.b, n_mb, p.h, true, m_block, head, batch);
         const int q0 = m_block * kDqRows;
-        if (more) xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
+        if (more) xfa::key_window<kDqRows, kN>(m, batch, q0, p.sq, p.sk, lo, hi, f_lo, f_hi);
+        const int n_tiles = hi - lo;
         const int qb = qk & 1;
         if (lead) {
           sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);
           *reinterpret_cast<int4*>(smem + S::kBlk + 16 * qb) =
               make_int4(more ? m_block : kEnd, head, batch, 0);
           if (n_tiles > 0) {
-            load_q(q0, head, batch);
+            // with segments or positions, the block's queries' info too
+            const bool info = m.q_info != nullptr;
+            load_q(q0, head, batch, info ? kBlockInfoBytes : 0);
+            if (info)
+              sm90::tma_load_2d(base + S::kQInfo + qb * kBlockInfoBytes, &tqinfo, bar_q + 8 * qb,
+                                0, batch * m.q_pad + q0);
           } else {
             sm90::mbar_arrive(bar_q + 8 * qb);
           }
@@ -816,28 +946,32 @@ __global__ void __launch_bounds__(kThreads, 1)
         ++qk;
         if (!more) break;
         const int kv_head = head / (p.h / p.hk);
-        const int n_masked = n_tiles - n_free;
         const int64_t band_row =
             m.fm_vecs != nullptr
                 ? static_cast<int64_t>(batch * m.fm_heads + xfa::fm_head(m, head, p.h)) * m.fm_skp
                 : 0;
+        const int info_row = batch * m.k_pad;
         xfa::emit_tiles(
             n_tiles,
             [&](int i, int& n0) {
-              n0 = (n_tiles - 1 - i) * kN;
+              const int tile = hi - 1 - i;
+              n0 = tile * kN;
               return xfa::row_block_tile_flags<kN>(p.mask, batch, head, p.h, p.sq, p.sk, q0,
-                                                    n0, i < n_masked);
+                                                    n0, (tile < f_lo) | (tile >= f_hi));
             },
             [&](int n0, int flags) {
               const int st = it % S::kStages;
               sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
-              const int band = flags & kBand;
+              const int band = flags & kBand, info = flags & kInfo;
               *reinterpret_cast<int4*>(smem + S::kRing + st * S::kStage + S::kWord) =
                   make_int4(n0, flags, 0, 0);
-              load_kv(n0, kv_head, batch, band ? kN * 16 : 0);
+              load_kv(n0, kv_head, batch, (band ? kN * 16 : 0) + (info ? kN * 16 : 0));
               if (band)
                 sm90::tma_load_2d(base + S::kRing + st * S::kStage + S::kBands, &tbands,
                                   bar_kv + 8 * st, 0, static_cast<int>(band_row + n0));
+              if (info)
+                sm90::tma_load_2d(base + S::kRing + st * S::kStage + S::kKInfo, &tkinfo,
+                                  bar_kv + 8 * st, 0, info_row + n0);
               ++it;
               ++tiles;
               elem += flags & kElem;
@@ -944,14 +1078,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (!MASKED && i == n_tiles - 1 && lane == 0) sm90::mbar_arrive(bar_qe + 8 * qb);
         if (!(flags & kElem)) {
           dq_ds<false, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t);
-        } else if (!MASKED || !(flags & kBand)) {
+        } else if constexpr (!MASKED) {
           dq_ds<true, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t, parts);
-        } else if (p.mask.fm_mode <= xfa::kFmCausal2) {
-          dq_ds<true, SOFTCAP, kN, 1>(s, dp, lse2, delta, row0, n0, p, t, parts,
-                                      reinterpret_cast<const int4*>(stage + S::kBands));
         } else {
-          dq_ds<true, SOFTCAP, kN, 2>(s, dp, lse2, delta, row0, n0, p, t, parts,
-                                      reinterpret_cast<const int4*>(stage + S::kBands));
+          const int4* bands = reinterpret_cast<const int4*>(stage + S::kBands);
+          const int4* kinfo = reinterpret_cast<const int4*>(stage + S::kKInfo);
+          const int4* qinfo = reinterpret_cast<const int4*>(smem + S::kQInfo +
+                                                            qb * kBlockInfoBytes) +
+                              (row0 - q0);
+#define XFA_DQ(NB, I) \
+  dq_ds_masked<SOFTCAP, kN, NB, I>(s, dp, lse2, delta, row0, n0, p, t, parts, bands, kinfo, \
+                                   qinfo)
+          const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
+          if (!(flags & kBand)) {
+            if (flags & kInfo) XFA_DQ(0, true);
+            else XFA_DQ(0, false);
+          } else if (!(flags & kInfo)) {
+            if (one_band) XFA_DQ(1, false);
+            else XFA_DQ(2, false);
+          } else {  // both tests, rare: the one-band modes' second band is empty
+            XFA_DQ(2, true);
+          }
+#undef XFA_DQ
         }
         uint32_t da[kN / 4];
         pack_pairs(dp, da);
@@ -987,12 +1135,12 @@ template <int D, bool SOFTCAP, bool MASKED>
 cudaError_t launch_dkv_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
   cudaError_t err = sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP, MASKED>,
-                                          DkvSmem<D>::kBytes, done);
+                                          DkvSmem<D, MASKED>::kBytes, done);
   int grid = 0;
   if (err == cudaSuccess) err = grid_size((p.sk + kDkvKeys - 1) / kDkvKeys, p.hk, p, MASKED, grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DkvSmem<D>::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], p);
   return cudaGetLastError();
 }
 
@@ -1006,7 +1154,7 @@ cudaError_t launch_dq_kernel(const CUtensorMap* maps, const BwdParams& p, cudaSt
   if (err == cudaSuccess) err = grid_size((p.sq + kDqRows - 1) / kDqRows, p.h, p, MASKED, grid);
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, S::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], p);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
 
@@ -1056,8 +1204,12 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
 // (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per key tile of the
 // kernel launched: 128 keys for dK/dV, dq_keys(d) (128 at d 64, 64 at
 // d 128) for dQ; with a FlashMask, `fm_bands` is (b, fm_heads, fm_skp, 4)
-// int32 contiguous, each column's two bands [lo1, hi1) and [lo2, hi2).
-// With a mask, `counters` is three int32 in device memory, cleared here on
+// int32 contiguous, each column's two bands [lo1, hi1) and [lo2, hi2); with
+// segment ids or positions, their stats per query tile (64 rows for dK/dV,
+// 128 for dQ) and key tile of the kernel launched, and the tile range per
+// block (dK/dV: per 128-key block over query tiles; dQ: per 128-row block
+// over key tiles). With a mask, `counters` is three int32 in device memory,
+// cleared here on
 // the stream: the dynamic scheduler's next block, then the tiles the
 // kernel visits and those of them with the elementwise test (bwd.py
 // bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan count the same).
@@ -1073,7 +1225,7 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
       XFA_MASK_ARGS, const void *fm_bands, void *counters, void *stream
 #define XFA_BWD_PARAMS                                                                         \
   const xfa::MaskParams mask = XFA_MASK_VALUES;                                                \
-  const bool masked = mask.fm_vecs != nullptr || mask.bm != nullptr;                           \
+  const bool masked = xfa::mask_active(mask);                                                  \
   const BwdParams p{static_cast<const float*>(lse), static_cast<const float*>(delta),          \
                     static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),    \
                     dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h, hk,   \
@@ -1091,13 +1243,16 @@ XFA_EXPORT int xfa_flash_bwd_dkv(XFA_BWD_ARGS) {
   if (b <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
   if ((d != 64 && d != 128) || sq <= 0) return static_cast<int>(cudaErrorInvalidValue);
   XFA_BWD_PARAMS;
-  CUtensorMap maps[6];
+  CUtensorMap maps[8] = {};
   if (!sm90::encode_bhsd(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kDkvRows) ||
       !sm90::encode_bhsd(&maps[1], dout, b, h, sq, d, do_sb, do_sh, do_ss, kDkvRows) ||
       !sm90::encode_bhsd(&maps[2], k, b, hk, sk, d, k_sb, k_sh, k_ss, kDkvKeys) ||
       !sm90::encode_bhsd(&maps[3], v, b, hk, sk, d, v_sb, v_sh, v_ss, kDkvKeys) ||
       !sm90::encode_flat_f32(&maps[4], lse, static_cast<int64_t>(b) * h * sq, kStatBox) ||
-      !sm90::encode_flat_f32(&maps[5], delta, static_cast<int64_t>(b) * h * sq, kStatBox))
+      !sm90::encode_flat_f32(&maps[5], delta, static_cast<int64_t>(b) * h * sq, kStatBox) ||
+      (masked && q_info != nullptr &&
+       (!sm90::encode_rows_i32x4(&maps[6], q_info, static_cast<int64_t>(b) * q_pad, kDkvRows) ||
+        !sm90::encode_rows_i32x4(&maps[7], k_info, static_cast<int64_t>(b) * k_pad, kDkvKeys))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (d == 64) err = masked ? launch_dkv<64, true>(maps, p, s) : launch_dkv<64, false>(maps, p, s);
@@ -1109,14 +1264,17 @@ XFA_EXPORT int xfa_flash_bwd_dq(XFA_BWD_ARGS) {
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   if ((d != 64 && d != 128) || sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   XFA_BWD_PARAMS;
-  CUtensorMap maps[5] = {};
+  CUtensorMap maps[7] = {};
   if (!sm90::encode_bhsd(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kDqRows) ||
       !sm90::encode_bhsd(&maps[1], dout, b, h, sq, d, do_sb, do_sh, do_ss, kDqRows) ||
       !sm90::encode_bhsd(&maps[2], k, b, hk, sk, d, k_sb, k_sh, k_ss, dq_keys(d)) ||
       !sm90::encode_bhsd(&maps[3], v, b, hk, sk, d, v_sb, v_sh, v_ss, dq_keys(d)) ||
       (fm_bands != nullptr &&
        !sm90::encode_rows_i32x4(&maps[4], fm_bands,
-                                static_cast<int64_t>(b) * fm_heads * fm_skp, dq_keys(d))))
+                                static_cast<int64_t>(b) * fm_heads * fm_skp, dq_keys(d))) ||
+      (masked && k_info != nullptr &&
+       (!sm90::encode_rows_i32x4(&maps[5], k_info, static_cast<int64_t>(b) * k_pad, dq_keys(d)) ||
+        !sm90::encode_rows_i32x4(&maps[6], q_info, static_cast<int64_t>(b) * q_pad, kDqRows))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (d == 64) err = masked ? launch_dq<64, true>(maps, p, s) : launch_dq<64, false>(maps, p, s);

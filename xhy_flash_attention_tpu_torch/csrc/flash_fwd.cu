@@ -3,7 +3,8 @@
 // Replaces two TPU kernels:
 //   * xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78 `_fwd_kernel`
 //     (kernel #1, driven by flash_attention_fwd, (b, h, s, d) layout), with
-//     its FlashMask and block-mask flags (fwd.py:244-264);
+//     its FlashMask and block-mask flags (fwd.py:244-264), sliding window,
+//     segment ids and q/kv positions (fwd.py:267-296, 353-390);
 //   * xhy_flash_attention_tpu/ops/flash_attention/fused_heads.py:59
 //     `_fwd_kernel` (kernel #5, the packed projection layout (b, s, h*d)).
 // Both layouts reach one C entry with element strides for the batch, head
@@ -71,7 +72,8 @@
 //   shared with flash_bwd.cu). O is staged in a buffer of its own, and its
 //   store overlaps the next block's loads.
 //
-// * Masked (MASKED true: FlashMask and block masks). Which tiles a block
+// * Masked (MASKED true: FlashMask, block masks, sliding windows, segment
+//   ids and positions). Which tiles a block
 //   visits depends on the data, so the producer decides and the consumers
 //   follow, as in the masked backward (flash_bwd.cu), with common.cuh's
 //   producer code: warp 0 of the producer warpgroup evaluates the block's
@@ -82,7 +84,16 @@
 //   lane 0 loads each visited tile, with the tile's FlashMask bands [lo1,
 //   hi1), [lo2, hi2) per key (ops common.py fm_bands, by a 2-D TMA box), and a
 //   word in the stage: the first key and the flags (the elementwise test, the
-//   band test, each consumer's two 64-key parts). A consumer with no part on a
+//   band test, the segment / position test, each consumer's two 64-key
+//   parts). The candidates are the key tiles of the row/key window
+//   (common.cuh key_window: a window's tiles [lo, hi), not every tile of the
+//   row; causal is right 0), cut to the block's tile range from the segment
+//   and position stats, each decided from the stats per 128-row block and
+//   128-key tile (token_flags). A tile with the segment / position test
+//   arrives with its keys' (segment id, position) by a 2-D TMA box, and a
+//   block with them its queries' with its Q; the consumers make their rows'
+//   limits per tile (common.cuh row_limit): two compares per element for
+//   the window and sk, three for segments and positions. A consumer with no part on a
 //   tile passes it by and still arrives on the stage's empty barrier. Tiles
 //   that need the elementwise test come first; it is branch-free (bitwise &/|
 //   on the causal and sk limits, the part and the bands). Blocks come from a
@@ -103,8 +114,8 @@
 //   store has read it.
 //
 // Shared memory: d 128: 2 x Q 32 KB + 2 x (K 32 + V 32) KB + O 32 KB
-// (dense) or bands 2 x 2 KB (masked); d 64: 2 x Q 16 KB + 4 x (K 16 + V 16)
-// KB + O 16 KB (dense) or bands 4 x 2 KB (masked). Not yet used: ping-pong
+// (dense) or bands and keys' info 2 x (2 + 2) KB (masked); d 64: 2 x Q 16 KB
+// + 4 x (K 16 + V 16) KB + O 16 KB (dense) or 4 x (2 + 2) KB (masked). Not yet used: ping-pong
 // ordering of the two consumers, TMA multicast of K/V across a cluster.
 #include "common.cuh"
 #include "hopper.cuh"
@@ -115,6 +126,8 @@ using bf16 = __nv_bfloat16;
 using xfa::kBand;
 using xfa::kElem;
 using xfa::kEnd;
+using xfa::kBlockInfoBytes;
+using xfa::kInfo;
 using xfa::kOnShift;
 using xfa::pack_bf16;
 namespace sm90 = xfa::sm90;
@@ -145,9 +158,12 @@ struct FwdSmem {
   static constexpr int kO = kQ + 2 * kQBuffer;
   static constexpr int kK = kO + (MASKED ? 0 : 2 * kQWarpgroup);
   static constexpr int kV = kK + kStages * kStage;
-  // masked: each stage's FlashMask bands and word, the block of each Q buffer
+  // masked: each stage's FlashMask bands, its keys' (segment, position)
+  // info and word, each Q buffer's queries' info and block
   static constexpr int kBands = kV + kStages * kStage;
-  static constexpr int kWord = kBands + (MASKED ? kStages * kBandBytes : 0);
+  static constexpr int kKInfo = kBands + (MASKED ? kStages * kBandBytes : 0);
+  static constexpr int kQInfo = kKInfo + (MASKED ? kStages * kBandBytes : 0);
+  static constexpr int kWord = kQInfo + (MASKED ? 2 * kBlockInfoBytes : 0);
   static constexpr int kBlk = kWord + (MASKED ? kStages * 16 : 0);
   // barriers: Q full[2], Q empty[2], K full[], V full[], K/V empty[]
   static constexpr int kBar = kBlk + (MASKED ? 32 : 0);
@@ -194,27 +210,39 @@ __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2], float (&m
 }
 
 // The masked instantiation's online softmax of one tile: softcap and, with
-// ELEM, the elementwise test, all bitwise: the key below sk, the causal
-// limit, the consumer's part of the tile's keys (`parts`: bit 0 keys [0,
-// 64), bit 1 [64, 128)) and, with NB > 0, each column's first NB FlashMask
-// bands (`bands`, in the stage); then softmax_step.
-template <bool ELEM, int NB>
+// ELEM, the elementwise test, all bitwise: the key below sk, the row/key
+// window (causal is its right bound 0), the consumer's part of the tile's
+// keys (`parts`: bit 0 keys [0, 64), bit 1 [64, 128)), with NB > 0 each
+// column's first NB FlashMask bands (`bands`, in the stage) and with INFO
+// each key's segment id and position (`kinfo`, in the stage) against the
+// row's (`qinfo`: row0's, staged with Q; row0 + 8's 8 further); then
+// softmax_step.
+template <bool ELEM, int NB, bool INFO>
 __device__ __forceinline__ void masked_softmax(float (&s)[kTileN / 2], float (&m_i)[2],
                                                float (&l_i)[2], float (&alpha)[2], int n0,
                                                int row0, int parts, const int4* bands,
+                                               const int4* kinfo, const int4* qinfo,
                                                const FwdParams& p, int t) {
   if (p.softcap > 0.f) {
 #pragma unroll
     for (int i = 0; i < kTileN / 2; ++i) s[i] = tanhf(s[i] / p.softcap) * p.softcap;
   }
   if (ELEM) {
+    int lo[2], hi[2];
+    int4 qt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xfa::row_limit(p.mask, row0 + 8 * r, p.sq, p.sk, lo[r], hi[r]);
+      if (INFO) qt[r] = xfa::query_tokens(p.mask, xfa::token_at(qinfo, 8 * r));
+    }
 #pragma unroll
     for (int i = 0; i < kTileN / 2; ++i) {
       const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = n0 + c;
-      const int row = row0 + ((i >> 1) & 1) * 8;
-      bool visible = (col < p.sk) & ((p.causal == 0) | (col <= row + p.sk - p.sq)) &
+      const int r = (i >> 1) & 1, row = row0 + r * 8;
+      bool visible = (col <= hi[r]) & (col >= lo[r]) &
                      (((parts >> (i >= kTileN / 4 ? 1 : 0)) & 1) != 0);
       if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
+      if (INFO) visible = visible & xfa::tokens_meet(qt[r], xfa::token_at(kinfo, c));
       s[i] = visible ? s[i] : -INFINITY;
     }
   }
@@ -291,7 +319,9 @@ template <int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                     const __grid_constant__ CUtensorMap tbands, const FwdParams p) {
+                     const __grid_constant__ CUtensorMap tbands,
+                     const __grid_constant__ CUtensorMap tkinfo,
+                     const __grid_constant__ CUtensorMap tqinfo, const FwdParams p) {
   using S = FwdSmem<D, MASKED>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -332,9 +362,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Q of the block at q0 into buffer qb; the second consumer's rows may
     // lie wholly past sq: not loaded (it computes on stale rows that the
     // store drops)
-    auto load_q = [&](int qb, int q0, int head, int batch) {
+    auto load_q = [&](int qb, int q0, int head, int batch, uint32_t extra = 0) {
       const int wgs = q0 + 64 < p.sq ? 2 : 1;
-      sm90::mbar_expect_tx(bar_q + 8 * qb, wgs * S::kQWarpgroup);
+      sm90::mbar_expect_tx(bar_q + 8 * qb, wgs * S::kQWarpgroup + extra);
       for (int w = 0; w < wgs; ++w)
         for (int hf = 0; hf < S::kHalves; ++hf)
           sm90::tma_load_4d(base + S::kQ + qb * S::kQBuffer + w * S::kQWarpgroup + hf * kBox, &tq,
@@ -391,23 +421,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       int tiles = 0, elem = 0;
       struct Block {
         bool more;
-        int m_block, head, batch, n_tiles, n_free;
+        int m_block, head, batch;
+        int lo, hi, f_lo, f_hi;  // the candidate key tiles [lo, hi), the free [f_lo, f_hi)
         int f;  // this lane's flags of candidate `lane` (-1: skipped or none)
+        __device__ __forceinline__ int n_tiles() const { return hi - lo; }
       };
       auto flags_of = [&](const Block& k, int i) {
-        const int n0 = (k.n_tiles - 1 - i) * kTileN;
+        const int tile = k.hi - 1 - i;
         return xfa::row_block_tile_flags<kTileN>(m, k.batch, k.head, p.h, p.sq, p.sk,
-                                                 k.m_block * kTileM, n0, i < k.n_tiles - k.n_free);
+                                                 k.m_block * kTileM, tile * kTileN,
+                                                 (tile < k.f_lo) | (tile >= k.f_hi));
       };
       auto take = [&](Block& k) {
-        k.m_block = k.head = k.batch = k.n_tiles = k.n_free = 0;
+        k.m_block = k.head = k.batch = k.lo = k.hi = k.f_lo = k.f_hi = 0;
         k.more =
             xfa::next_block(p.next, p.b, n_mb, p.h, true, k.m_block, k.head, k.batch);
         if (k.more)
-          xfa::key_tiles<kTileM, kTileN>(k.m_block * kTileM, p.sq, p.sk, p.causal, k.n_tiles,
-                                         k.n_free);
+          xfa::key_window<kTileM, kTileN>(m, k.batch, k.m_block * kTileM, p.sq, p.sk, k.lo, k.hi,
+                                          k.f_lo, k.f_hi);
       };
-      auto decide = [&](Block& k) { k.f = lane < k.n_tiles ? flags_of(k, lane) : -1; };
+      auto decide = [&](Block& k) { k.f = lane < k.n_tiles() ? flags_of(k, lane) : -1; };
       Block cur, nxt;
       take(cur);
       bool decided = false;  // cur's first candidates decided ahead
@@ -417,9 +450,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lead) {
           sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);
           *reinterpret_cast<int4*>(smem + S::kBlk + 16 * qb) =
-              make_int4(cur.more ? cur.m_block : kEnd, head, batch, 0);
-          if (cur.n_tiles > 0) {
-            load_q(qb, q0, head, batch);
+              make_int4(cur.more ? cur.m_block : kEnd, head, batch, cur.n_tiles() > 0);
+          if (cur.n_tiles() > 0) {
+            // with segments or positions, the block's queries' info too
+            const bool info = m.q_info != nullptr;
+            load_q(qb, q0, head, batch, info ? kBlockInfoBytes : 0);
+            if (info)
+              sm90::tma_load_2d(base + S::kQInfo + qb * kBlockInfoBytes, &tqinfo, bar_q + 8 * qb,
+                                0, batch * m.q_pad + q0);
           } else {
             sm90::mbar_arrive(bar_q + 8 * qb);
           }
@@ -433,21 +471,25 @@ __global__ void __launch_bounds__(kThreads, 1)
                 ? static_cast<int64_t>(batch * m.fm_heads + xfa::fm_head(m, head, p.h)) * m.fm_skp
                 : 0;
         bool ahead = false;  // nxt taken and decided
+        const int info_row = batch * m.k_pad;
         xfa::emit_tiles(
-            cur.n_tiles,
+            cur.n_tiles(),
             [&](int i, int& n0) {
-              n0 = (cur.n_tiles - 1 - i) * kTileN;
+              n0 = (cur.hi - 1 - i) * kTileN;
               return i < 32 ? cur.f : flags_of(cur, i);  // i == lane below 32
             },
             [&](int n0, int flags) {
               const int st = it % S::kStages;
               sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
               *reinterpret_cast<int4*>(smem + S::kWord + 16 * st) = make_int4(n0, flags, 0, 0);
-              const bool band = flags & kBand;
-              load_kv(st, n0, kv_head, batch, band ? kBandBytes : 0);
+              const bool band = flags & kBand, info = flags & kInfo;
+              load_kv(st, n0, kv_head, batch, (band ? kBandBytes : 0) + (info ? kBandBytes : 0));
               if (band)
                 sm90::tma_load_2d(base + S::kBands + st * kBandBytes, &tbands, bar_k + 8 * st, 0,
                                   static_cast<int>(band_row + n0));
+              if (info)
+                sm90::tma_load_2d(base + S::kKInfo + st * kBandBytes, &tkinfo, bar_k + 8 * st, 0,
+                                  info_row + n0);
               ++it;
               ++tiles;
               elem += flags & kElem;
@@ -648,12 +690,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         ++qk;
         const int q0 = m_block * kTileM, head = __shfl_sync(0xffffffffu, blk.y, 0);
         const int batch = __shfl_sync(0xffffffffu, blk.z, 0);
-        int n_tiles, n_free;
-        xfa::key_tiles<kTileM, kTileN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
         const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
         const uint32_t q_wg = base + S::kQ + qb * S::kQBuffer + cw * S::kQWarpgroup;
         uint8_t* q_wg_ptr = smem + S::kQ + qb * S::kQBuffer + cw * S::kQWarpgroup;
-        if (n_tiles > 0) {  // Q was loaded
+        if (__shfl_sync(0xffffffffu, blk.w, 0)) {  // Q was loaded
           scale_q<S::kQWarpgroup>(q_wg_ptr, wt, p.sm_scale);
           sm90::named_barrier(1 + cw, 128);
         }
@@ -686,15 +726,26 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int parts = (w.y >> (kOnShift + 2 * cw)) & 3;
           const int4* bands = reinterpret_cast<const int4*>(smem + S::kBands +
                                                             stage(it) * kBandBytes);
+          const int4* kinfo = reinterpret_cast<const int4*>(smem + S::kKInfo +
+                                                            stage(it) * kBandBytes);
+          const int4* qinfo = reinterpret_cast<const int4*>(smem + S::kQInfo +
+                                                            qb * kBlockInfoBytes) +
+                              (row0 - q0);
+#define XFA_SOFTMAX(E, NB, I) \
+  masked_softmax<E, NB, I>(s, m_i, l_i, alpha, w.x, row0, parts, bands, kinfo, qinfo, p, t)
+          const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
           if (!(w.y & kElem)) {
-            masked_softmax<false, 0>(s, m_i, l_i, alpha, w.x, row0, parts, bands, p, t);
+            XFA_SOFTMAX(false, 0, false);
           } else if (!(w.y & kBand)) {
-            masked_softmax<true, 0>(s, m_i, l_i, alpha, w.x, row0, parts, bands, p, t);
-          } else if (p.mask.fm_mode <= xfa::kFmCausal2) {
-            masked_softmax<true, 1>(s, m_i, l_i, alpha, w.x, row0, parts, bands, p, t);
-          } else {
-            masked_softmax<true, 2>(s, m_i, l_i, alpha, w.x, row0, parts, bands, p, t);
+            if (w.y & kInfo) XFA_SOFTMAX(true, 0, true);
+            else XFA_SOFTMAX(true, 0, false);
+          } else if (!(w.y & kInfo)) {
+            if (one_band) XFA_SOFTMAX(true, 1, false);
+            else XFA_SOFTMAX(true, 2, false);
+          } else {  // both tests, rare: the one-band modes' second band is empty
+            XFA_SOFTMAX(true, 2, true);
           }
+#undef XFA_SOFTMAX
         };
         // one tile after the other at both head dims (at d 64, tile i's
         // softmax under tile i - 1's P.V, as the dense route runs it, took
@@ -757,7 +808,7 @@ cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
   const int units = MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b);
   flash_fwd_kernel<D, MASKED><<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], p);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
 
@@ -768,7 +819,9 @@ cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t
 // bytes (the tensor maps' rule). lse may be null. The mask arguments
 // (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per 128-key tile; with
 // a FlashMask, `fm_bands` is (b, fm_heads, fm_skp, 4) int32 contiguous, each
-// column's two bands [lo1, hi1) and [lo2, hi2). With a mask, `counters` is
+// column's two bands [lo1, hi1) and [lo2, hi2); with segment ids or
+// positions, their stats per 128-row block and 128-key tile and the key
+// tile range of each 128-row block. With a mask, `counters` is
 // three int32 in device memory, cleared here on the stream: the dynamic
 // scheduler's next block, then the tiles the kernel visits and those of
 // them with the elementwise test (fwd.py fwd_masked_tile_plan counts the
@@ -784,8 +837,8 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const xfa::MaskParams mask = XFA_MASK_VALUES;
-  const bool masked = mask.fm_vecs != nullptr || mask.bm != nullptr;
-  CUtensorMap maps[5] = {};
+  const bool masked = xfa::mask_active(mask);
+  CUtensorMap maps[7] = {};
   const int skm = sk > 0 ? sk : 1;  // no key tile is visited when sk == 0
   if (!sm90::encode_bhsd(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, 64) ||
       !sm90::encode_bhsd(&maps[1], k, b, hk, skm, d, k_sb, k_sh, k_ss, kTileN) ||
@@ -793,7 +846,10 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
       !sm90::encode_bhsd(&maps[3], o, b, h, sq, d, o_sb, o_sh, o_ss, 64) ||
       (masked && fm_bands != nullptr &&
        !sm90::encode_rows_i32x4(&maps[4], fm_bands, static_cast<int64_t>(b) * fm_heads * fm_skp,
-                                kTileN)))
+                                kTileN)) ||
+      (masked && k_info != nullptr &&
+       (!sm90::encode_rows_i32x4(&maps[5], k_info, static_cast<int64_t>(b) * k_pad, kTileN) ||
+        !sm90::encode_rows_i32x4(&maps[6], q_info, static_cast<int64_t>(b) * q_pad, kTileM))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (masked) {
     if (counters == nullptr || (mask.fm_vecs != nullptr && fm_bands == nullptr))

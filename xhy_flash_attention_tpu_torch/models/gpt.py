@@ -122,18 +122,21 @@ class GPTModel(nn.Module):
                              device=device) if c.prenorm else None)
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset=0):
+                seqlen_offset=0, segment_ids=None):
         """Returns (hidden_states, kv_caches). seqlen_offset: int or (b,)
         tensor. Dense caches are written in place; a layer's PagedKVCache
         comes back with advanced lengths and replaces its entry of the
-        ``kv_caches`` list, which is returned."""
+        ``kv_caches`` list, which is returned. segment_ids: (b, s) ids of
+        packed sequences, the queries' and the keys' of every layer's
+        attention (JAX gpt.py:270)."""
         hidden = self.embeddings(input_ids, position_ids,
                                  seqlen_offset=seqlen_offset)
         residual = None
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
             hidden, residual, cache = layer(hidden, residual, cache,
-                                            seqlen_offset)
+                                            seqlen_offset, segment_ids,
+                                            segment_ids)
             if kv_caches is not None:
                 kv_caches[i] = cache
         if self.norm_f is not None:
@@ -175,11 +178,11 @@ class GPTLMHeadModel(GenerationMixin, nn.Module):
         return self.transformer.embeddings.word_embeddings.weight.device
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset=0):
+                seqlen_offset=0, segment_ids=None):
         """Returns (logits (b, s, padded_vocab), kv_caches)."""
         hidden, kv_caches = self.transformer(
             input_ids, position_ids, kv_caches=kv_caches,
-            seqlen_offset=seqlen_offset)
+            seqlen_offset=seqlen_offset, segment_ids=segment_ids)
         if self.lm_head is None:
             logits = nn.functional.linear(
                 hidden, self.transformer.embeddings.word_embeddings.weight)

@@ -53,20 +53,23 @@ class Block(nn.Module):
         self.norm2 = _Norm(dim, rms_norm, norm_eps, device=device)
 
     def forward(self, hidden_states, residual=None, kv_cache=None,
-                seqlen_offset=0):
+                seqlen_offset=0, q_segment_ids=None, kv_segment_ids=None):
         """Returns (hidden_states, residual, kv_cache). residual is the
         running residual stream (None into the first block; None out of a
-        postnorm block)."""
+        postnorm block). The segment ids go to the mixer's attention."""
+        segs = dict(q_segment_ids=q_segment_ids,
+                    kv_segment_ids=kv_segment_ids)
         if not self.prenorm:
             attn_out, kv_cache = self.mixer(hidden_states, kv_cache,
-                                            seqlen_offset)
+                                            seqlen_offset, **segs)
             hidden_states = self.norm1(attn_out, hidden_states, False, False)
             hidden_states = self.norm2(self.mlp(hidden_states), hidden_states,
                                        False, False)
             return hidden_states, None, kv_cache
         normed, residual = self.norm1(hidden_states, residual, True,
                                       self.residual_in_fp32)
-        attn_out, kv_cache = self.mixer(normed, kv_cache, seqlen_offset)
+        attn_out, kv_cache = self.mixer(normed, kv_cache, seqlen_offset,
+                                        **segs)
         normed2, residual = self.norm2(attn_out, residual, True,
                                        self.residual_in_fp32)
         return self.mlp(normed2), residual, kv_cache

@@ -1,15 +1,17 @@
 """Multi-head attention with a KV cache (≙ xhy_flash_attention_tpu
 modules/mha.py `MHA`).
 
-Routing follows the TPU package (mha.py:268-377):
-  * no cache, no rotary, h == hk: attention straight on the packed Wqkv
-    output (packed_qkv_attention) when the packed gate allows;
+Routing follows the TPU package (mha.py:168-377):
+  * no cache, no rotary, no segment ids, h == hk: attention straight on the
+    packed Wqkv output (packed_qkv_attention) when the packed gate allows
+    (no window);
   * a PagedKVCache (continuous batching: decode, chunked prefill,
     speculative verify): append_paged_kv, then paged_flash_decode;
   * a dense cache, bf16 / fp32 tensors or QuantizedKV (int8 / e4m3 with
     per-token scales): the new keys and values are written at
     seqlen_offset; prefill (seqlen_offset == 0) runs `_attend`, which takes
-    the packed-heads kernel when supported, else flash_attention; decode
+    the packed-heads kernel when supported (no segment ids, no window),
+    else flash_attention; decode
     runs decode_attention against the cache at lengths offset + sq;
   * no cache: `_attend`.
 seqlen_offset is an int, or a (b,) tensor of per-sample offsets (rotary
@@ -85,18 +87,23 @@ class MHA(nn.Module):
         self.rotary = (RotaryEmbedding(rotary_emb_dim, base=rotary_emb_base)
                        if rotary_emb_dim > 0 else None)
 
-    def forward(self, x, kv_cache=None, seqlen_offset=0):
+    def forward(self, x, kv_cache=None, seqlen_offset=0, *,
+                q_segment_ids=None, kv_segment_ids=None):
         """x: (batch, seqlen, embed_dim). Returns (out, kv_cache).
 
         kv_cache: (k_cache, v_cache), each a (batch, hk, max_seqlen, d)
         tensor or QuantizedKV, whose new keys and values are written in
         place at seqlen_offset; or a PagedKVCache. seqlen_offset: int or
-        (batch,) tensor.
+        (batch,) tensor. q_segment_ids / kv_segment_ids: (batch, seqlen)
+        ids for packed sequences (only equal ids attend), read by the
+        attention of a prefill or a call without a cache.
         """
         b, sq, _ = x.shape
         h, hk, d = self.h, self.hk, self.d
         qkv = self.Wqkv(x)
+        segs = (q_segment_ids, kv_segment_ids)
         if (kv_cache is None and self.rotary is None and h == hk
+                and q_segment_ids is None and kv_segment_ids is None
                 and packed_heads_supported(
                     (b, sq, h, d), (b, sq, hk, d), causal=self.causal,
                     window_size=self.window_size, softcap=self.softcap)):
@@ -122,13 +129,13 @@ class MHA(nn.Module):
                                      window_size=self.window_size,
                                      softcap=self.softcap)
         elif kv_cache is None:
-            out = self._attend(q, k, v)
+            out = self._attend(q, k, v, *segs)
         else:
             k_cache, v_cache = kv_cache
             write_kv(k_cache, k, seqlen_offset)
             write_kv(v_cache, v, seqlen_offset)
             if isinstance(seqlen_offset, int) and seqlen_offset == 0:
-                out = self._attend(q, k, v)
+                out = self._attend(q, k, v, *segs)
             else:
                 if isinstance(seqlen_offset, torch.Tensor):
                     lengths = (seqlen_offset.to(torch.int32) + sq).expand(
@@ -141,15 +148,17 @@ class MHA(nn.Module):
                     window_size=self.window_size, softcap=self.softcap)
         return self.out_proj(out.reshape(b, sq, h * d)), kv_cache
 
-    def _attend(self, q, k, v):
-        if packed_heads_supported(q.shape, k.shape, causal=self.causal,
-                                  window_size=self.window_size,
-                                  softcap=self.softcap):
+    def _attend(self, q, k, v, q_seg=None, kv_seg=None):
+        if (q_seg is None and kv_seg is None
+                and packed_heads_supported(
+                    q.shape, k.shape, causal=self.causal,
+                    window_size=self.window_size, softcap=self.softcap)):
             return packed_heads_attention(
                 q, k, v, softmax_scale=self.softmax_scale, causal=self.causal,
                 softcap=self.softcap)
         out = flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            softmax_scale=self.softmax_scale, causal=self.causal,
-            window_size=self.window_size, softcap=self.softcap)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None,
+            q_seg, kv_seg, softmax_scale=self.softmax_scale,
+            causal=self.causal, window_size=self.window_size,
+            softcap=self.softcap)
         return out.transpose(1, 2)

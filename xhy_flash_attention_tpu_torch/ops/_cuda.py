@@ -42,9 +42,13 @@ CACHE_CODES = {**DTYPE_CODES, torch.int8: 2, torch.float8_e4m3fn: 3}
 _c_void_p, _c_int, _c_int64, _c_float = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float)
 # XFA_MASK_ARGS of csrc/common.cuh: FlashMask vectors, stats, mode, heads,
-# padded length; block mask, batch and head strides, heads, columns, gq, gk
+# padded length; block mask, batch and head strides, heads, columns, gq, gk;
+# the row/key and position windows; the tokens' info (q, k), their stats
+# (q, k) and the tile ranges, the info's padded lengths, the stats' tiles
+# and the ranges' blocks per batch row
 _MASK_ARGS = ([_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
-               _c_int64, _c_int64] + [_c_int] * 4)
+               _c_int64, _c_int64] + [_c_int] * 4 + [_c_int] * 4
+              + [_c_void_p] * 5 + [_c_int] * 5)
 # the backward's (and the forward's, after its own arguments): the mask
 # arguments, then the FlashMask bands, the masked kernels' three counters
 # and the stream

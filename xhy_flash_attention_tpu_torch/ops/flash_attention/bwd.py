@@ -13,8 +13,9 @@ A FlashMask or block mask runs their masked instantiations, whose producer
 decides from the mask which tiles each block visits
 (:func:`bwd_masked_dkv_tile_plan`, :func:`bwd_masked_dq_tile_plan`). On
 CPU tensors the plain version :func:`attention_bwd_ref` runs. Covered:
-causal and full attention, GQA, softcap, FlashMask and block-sparse masks;
-windows raise until slice 5.
+causal and full attention, GQA, softcap, FlashMask and block-sparse masks,
+sliding windows, segment ids and q/kv positions (the masked
+instantiations); attention bias raises until slice 5's last part.
 """
 
 from __future__ import annotations
@@ -25,13 +26,14 @@ from typing import Tuple
 import torch
 
 from .. import _cuda
-from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_VARLEN, KernelMasks, cdiv,
-                     dense_keep_mask, expand_heads)
-from .fwd import (MASK_PART, MaskTiles, elementwise_first, key_tile_plan,
-                  masked_row_block_plan, pair_schedule)
+from .common import CUDA_DTYPE_NOT_PORTED, KernelMasks, cdiv, expand_heads
+from .fwd import (MASK_PART, MaskTiles, build_masks, check_supported,
+                  cut_to_range, elementwise_first, key_tile_plan,
+                  masked_row_block_plan, masked_window, pair_schedule)
 
 __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
-           "bwd_masked_dkv_tile_plan", "bwd_masked_dq_tile_plan",
+           "bwd_dkv_window_plan", "bwd_masked_dkv_tile_plan",
+           "bwd_masked_dq_tile_plan",
            "bwd_prep_ref", "bwd_schedule", "flash_attention_bwd",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep",
            "launch_flash_bwd"]
@@ -51,6 +53,48 @@ def bwd_dq_tile_n(d: int) -> int:
     return 128 if d == 64 else 64
 
 
+def query_window(n0: int, sq: int, sk: int, window, m: int = BWD_DKV_TILE_M,
+                 n: int = BWD_DKV_TILE_N, rng=None):
+    """(first, f0, f1, end) of the key block of ``n`` keys at n0 under the
+    row/key window (left, right) (csrc/common.cuh `query_window`; for
+    causal `query_tiles`): the query tiles of ``m`` rows [first, end) hold
+    a row that may see a key of the block below sk, cut to the tile range
+    ``rng`` (lo, hi) when given; [f0, f1) among them are free: every row
+    below sq sees every such key."""
+    left, right = window
+    off = sk - sq
+    k0, k1 = n0, min(n0 + n, sk) - 1
+    rmin = 0 if right < 0 else max(0, k0 - off - right)
+    rmax = sq - 1 if left < 0 else min(sq - 1, k1 - off + left)
+    if rmax < rmin:
+        return 0, 0, 0, 0
+    first, end = cut_to_range(rmin // m, rmax // m + 1, rng)
+    free_from = 0 if right < 0 else max(0, k1 - off - right)
+    f0 = min(max(cdiv(free_from, m), first), end)
+    t_end = sq // m
+    if left >= 0:
+        t_end = min(t_end, max(0, (k0 - off + left + 1) // m))
+    return first, f0, min(max(t_end, f0), end), end
+
+
+def query_tile_order(first: int, f0: int, f1: int, end: int):
+    """Candidates of a dK/dV block in the kernel's order (common.cuh
+    QueryTilePlan::tile): (tile, masked), the masked ones [first, f0) and
+    [f1, end) first, then the free ones [f0, f1)."""
+    return ([(t, True) for t in range(first, f0)]
+            + [(t, True) for t in range(f1, end)]
+            + [(t, False) for t in range(f0, f1)])
+
+
+def bwd_dkv_window_plan(sq: int, sk: int, window):
+    """The query tiles the dK/dV kernel considers for each block of
+    BWD_DKV_TILE_N keys under a row/key window (:func:`query_window`), the
+    same for every head of a group: (tile index, masked) in visit order.
+    Tile t holds rows [t * BWD_DKV_TILE_M, (t + 1) * BWD_DKV_TILE_M)."""
+    return [query_tile_order(*query_window(n0, sq, sk, window))
+            for n0 in range(0, sk, BWD_DKV_TILE_N)]
+
+
 def bwd_dkv_tile_plan(sq: int, sk: int, causal: bool):
     """The query tiles the dense dK/dV kernel visits (csrc/flash_bwd.cu
     `dkv_plan`), the same for every head of a group: for each block of
@@ -60,22 +104,7 @@ def bwd_dkv_tile_plan(sq: int, sk: int, causal: bool):
     ragged last tile; then the others, ascending, which run no elementwise
     test: every row is below sq and sees every key of the block below sk
     (keys past sk are not written, so they do not count)."""
-    m, n = BWD_DKV_TILE_M, BWD_DKV_TILE_N
-    n_qt = cdiv(sq, m)
-    plan = []
-    for n0 in range(0, sk, n):
-        first, free_from = 0, 0
-        if causal:
-            offset = sk - sq
-            first = max(0, n0 - offset) // m
-            last_key = min(n0 + n, sk) - 1
-            free_from = cdiv(max(0, last_key - offset), m)
-        f0 = min(max(free_from, first), n_qt)
-        f1 = min(max(sq // m, f0), n_qt)
-        plan.append([(t, True) for t in range(first, f0)]
-                    + [(t, True) for t in range(f1, n_qt)]
-                    + [(t, False) for t in range(f0, f1)])
-    return plan
+    return bwd_dkv_window_plan(sq, sk, (-1, 0 if causal else -1))
 
 
 def bwd_dq_tile_plan(sq: int, sk: int, causal: bool, d: int):
@@ -92,19 +121,23 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
     ``dkv_tile_flags`` and its producer): for each block (batch, kv head,
     key block of BWD_DKV_TILE_N keys), a list of (head in the group, tile,
     elementwise, parts) in visit order. The candidates of each head are
-    :func:`bwd_dkv_tile_plan`'s; a tile is skipped when the FlashMask stats
-    of the block's keys mask its rows everywhere or when neither part
-    (the block's keys [0, 64) and [64, 128), a consumer's each; a part past
-    sk is off) has its block-mask entry on. ``elementwise``: the plan's
-    causal / ragged test or the FlashMask band test (not bypassed); those
-    tiles come first within a head, then the others, each in candidate
-    order."""
-    mt = MaskTiles(masks, h, BWD_DKV_TILE_N)
+    :func:`bwd_dkv_window_plan`'s under the masked window, cut to the
+    block's range of query tiles from the segment and position stats; a
+    tile is skipped when the FlashMask stats of the block's keys or the
+    segment / position stats mask its rows everywhere, or when neither
+    part (the block's keys [0, 64) and [64, 128), a consumer's each; a part
+    past sk is off) has its block-mask entry on. ``elementwise``: the
+    plan's window / ragged test, the FlashMask band test (not bypassed) or
+    the segment / position test; those tiles come first within a head,
+    then the others, each in candidate order."""
+    mt = MaskTiles(masks, h, BWD_DKV_TILE_N, BWD_DKV_TILE_M, "dkv")
     m, g = BWD_DKV_TILE_M, h // hk
+    window = masked_window(masks, causal)
     plan = {}
-    for nb, cands in enumerate(bwd_dkv_tile_plan(sq, sk, causal)):
-        n0 = nb * BWD_DKV_TILE_N
+    for nb, n0 in enumerate(range(0, sk, BWD_DKV_TILE_N)):
         for batch in range(b):
+            cands = query_tile_order(*query_window(
+                n0, sq, sk, window, rng=mt.range(batch, nb)))
             for kv_head in range(hk):
                 tiles = []
                 for gi in range(g):
@@ -113,13 +146,14 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
                     for t, masked in cands:
                         skip, bypass = mt.decide(batch, head, t * m,
                                                  min(t * m + m, sq), n0)
+                        tok = mt.tokens(batch, t * m, n0)
                         parts = tuple(
                             n0 + c * MASK_PART < sk
                             and mt.on(batch, head, t * m, n0 + c * MASK_PART)
                             for c in (0, 1))
-                        if not skip and any(parts):
-                            found.append((gi, t, masked or not bypass,
-                                          parts))
+                        if not skip and tok >= 0 and any(parts):
+                            found.append((gi, t, masked or not bypass
+                                          or tok > 0, parts))
                     tiles += elementwise_first(found, 2)
                 plan[(batch, kv_head, nb)] = tiles
     return plan
@@ -134,7 +168,7 @@ def bwd_masked_dq_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
     block)."""
     del hk
     return masked_row_block_plan(masks, b, h, sq, sk, causal,
-                                 bwd_dq_tile_n(d))
+                                 bwd_dq_tile_n(d), "dq", d)
 
 
 def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,
@@ -249,8 +283,7 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
         return
     fn = {"dkv": _cuda.lib().xfa_flash_bwd_dkv,
           "dq": _cuda.lib().xfa_flash_bwd_dq}[which]
-    key_tile = BWD_DKV_TILE_N if which == "dkv" else bwd_dq_tile_n(d)
-    masked = not _dense(masks)
+    masked = masks is not None and masks.active
     counters = None
     if masked:
         counters = (tile_counts if tile_counts is not None else
@@ -260,14 +293,10 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
               dv.data_ptr(),
               *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]),
               b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
-              int(causal), *KernelMasks.c_args(masks, key_tile),
+              int(causal), *KernelMasks.c_args(masks, causal, which, d),
               _cuda.ptr(masks.bands() if masked else None),
               _cuda.ptr(counters), _cuda.stream())
     _cuda.check(code, f"flash_bwd_{which}")
-
-
-def _dense(masks) -> bool:
-    return masks is None or not masks.tensors()
 
 
 def bwd_prep_ref(q, out, do, *, sm_scale: float, scale_q: bool = True):
@@ -331,35 +360,36 @@ flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale: float,
+def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
+                        kv_segment_ids=None, *, sm_scale: float,
                         causal: bool = False,
                         window_size: Tuple[int, int] = (-1, -1),
-                        softcap: float = 0.0, flashmask_vecs=None,
-                        flashmask_mode=None, block_mask=None):
+                        softcap: float = 0.0, dropout_p: float = 0.0,
+                        flashmask_vecs=None, flashmask_mode=None,
+                        block_mask=None, q_positions=None, kv_positions=None,
+                        masks: KernelMasks = None):
     """Backward attention on (batch, heads, seq, head_dim) tensors.
 
     Returns (dq, dk, dv) with dk/dv reduced over the GQA group (the shape of
     k/v). On CUDA the gradients are allocated in (b, s, h, d) memory order
     and returned as (b, h, s, d) views, like the forward's output. The mask
-    flags are the forward's (fwd.py `flash_attention_fwd`).
+    flags are the forward's (fwd.py `flash_attention_fwd`), or ``masks``
+    as :func:`fwd.build_masks` made them (then ``causal`` must be the flag
+    it returned).
     """
-    left, right = window_size
-    if causal:
-        right = 0
-    if left >= 0 or right > 0:
-        raise NotImplementedError(
-            f"flash_attention_bwd: sliding window not ported yet: "
-            f"{SLICE_VARLEN}")
-    causal = right == 0
+    check_supported(bias, dropout_p, "flash_attention_bwd")
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    mask_kw = dict(flashmask_vecs=flashmask_vecs,
-                   flashmask_mode=flashmask_mode, block_mask=block_mask)
-    masks = KernelMasks(b, h, sq, sk, **mask_kw)
+    if masks is None:
+        causal, masks = build_masks(
+            b, h, sq, sk, causal, window_size, flashmask_vecs=flashmask_vecs,
+            flashmask_mode=flashmask_mode, block_mask=block_mask,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            q_positions=q_positions, kv_positions=kv_positions)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, out, lse, do, sm_scale=sm_scale,
                                  causal=causal, softcap=softcap,
-                                 mask=dense_keep_mask(sq, sk, h, **mask_kw))
+                                 mask=masks.keep(h))
 
     def grad_like(n, s):
         return torch.empty(b, s, n, d, dtype=q.dtype,

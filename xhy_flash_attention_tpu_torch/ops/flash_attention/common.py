@@ -1,10 +1,10 @@
 """Shared helpers of the attention ops (≙ xhy_flash_attention_tpu
 ops/flash_attention/common.py).
 
-The TPU package's `BlockSizes` table is not carried over: it was tuned for
-the TPU's vector memory. Tile sizes of the port belong to its kernels
-(csrc/*.cu); the key tiles that the FlashMask block stats follow are
-mirrored here.
+The TPU package's `BlockSizes` table was tuned for the TPU's vector
+memory; :class:`BlockSizes` here is a stand-in with its field names that
+reports the port's fixed H100 tiles (csrc/*.cu). The key tiles that the
+FlashMask block stats follow are mirrored here.
 
 FlashMask (`common.py:147-280` in the JAX package): each key column carries
 up to four row indices describing half-open masked row bands, and per key
@@ -13,9 +13,22 @@ everywhere and bypass the elementwise band test on tiles masked nowhere.
 `expand_block_mask` and `effective_kv_table` are not ported: they build TPU
 DMA descriptors, while the CUDA kernels read the block mask at its own
 granularity.
+
+Sliding windows, segment ids and q/kv positions (`common.py:286-330` in
+the JAX package, its forward `fwd.py:602-635`): a window bounds the keys of
+each row, bottom-right aligned (key c visible to row r when r + offset -
+left <= c <= r + offset + right, offset = sk - sq), or with positions the
+same bounds on the position values (the row/key window is then off);
+segment ids make a pair visible only when the ids are equal. Per kernel
+tile min/max of the ids and positions (:func:`token_stats`) let a kernel
+skip a tile pair or bypass its elementwise test, and per block the range
+of tiles that may hold a visible pair (:func:`tile_ranges`) bounds the
+tiles its producer considers.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -28,8 +41,7 @@ NEG_INF = DEFAULT_MASK_VALUE
 # ROADMAP.md queue B). What is not ported yet names the slice that brings
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
-SLICE_VARLEN = ("slice 5 (varlen/BERT: segments, positions, window, bias) "
-                + NEXT_SLICES)
+SLICE_VARLEN = "slice 5 (varlen/BERT: attention bias and dbias) " + NEXT_SLICES
 SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
 SLICE_DTYPES = ("slice 7 (fp16/fp32 and fp8 inputs, weight-only "
                 "quantization, remat) " + NEXT_SLICES)
@@ -52,6 +64,34 @@ CUDA_DTYPE_NOT_PORTED = (
 # divides (and which keeps the kernels' TMA starts of the bands 16-byte
 # aligned).
 FM_PAD_KEYS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """Tile sizes of the attention kernels, under the JAX package's field
+    names (its `common.py:80`).
+
+    A stand-in: the TPU package picks its tiles per call, while the CUDA
+    kernels' tiles are fixed per head dim (query rows and keys of the
+    forward; keys and query rows of dK/dV; rows and keys of dQ), so
+    :meth:`for_shape` reports them and ``block_sizes=`` is accepted by the
+    entry points and ignored, as ``deterministic`` is.
+    """
+
+    block_q: int = 128
+    block_k: int = 128
+    block_q_dkv: int = 64
+    block_k_dkv: int = 128
+    block_q_dq: int = 128
+    block_k_dq: int = 128
+
+    @staticmethod
+    def for_shape(seqlen_q: int, seqlen_k: int, head_dim: int,
+                  dtype=None) -> "BlockSizes":
+        """The kernels' tiles at ``head_dim`` (the lengths and dtype do not
+        change them)."""
+        del seqlen_q, seqlen_k, dtype
+        return BlockSizes(block_k_dq=128 if head_dim == 64 else 64)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -250,34 +290,231 @@ def expand_heads(mask: torch.Tensor, h: int) -> torch.Tensor:
     return mask.repeat_interleave(h // hm, dim=1)
 
 
+# ------------------------------------ windows, segment ids and positions
+
+# Positions past a sequence's end (JAX common.py:286 POS_PAD): their stats
+# read as "never attended / attends nothing real".
+POS_PAD = 2 ** 30
+# Window bounds are capped here so that position +- window stays inside
+# int32 in the kernels (positions are expected within +-2**29).
+WINDOW_CAP = 2 ** 29
+# Segment ids, positions and their stats are padded to a multiple of this
+# many tokens per batch row, so that no kernel tile's TMA box crosses into
+# the next batch row.
+TOKEN_PAD = 128
+
+
+def resolve_window(causal: bool, window_size, sq: int, sk: int,
+                   positions: bool):
+    """(causal, window, pos_window) as the kernels take them.
+
+    ``causal`` sets the right bound to 0 (JAX fwd.py:596). With
+    ``positions`` the bounds apply to the position values and the row/key
+    window is off (JAX fwd.py:602-610). Without, bounds that cut no pair
+    are dropped (a left bound >= sk - 1, a right bound >= sq - 1 of a
+    non-causal window), and a window of right bound 0 alone is causal.
+    Returns the plain causal flag, the row/key window (left, right) and
+    the position window, each bound -1 when absent.
+    """
+    left, right = (min(int(w), WINDOW_CAP) if w >= 0 else -1
+                   for w in window_size)
+    if causal:
+        right = 0
+    if positions:
+        return False, (-1, -1), (left, right)
+    if left >= max(sk - 1, 0):
+        left = -1
+    if right > 0 and right >= sq - 1:
+        right = -1
+    if left < 0 and right in (-1, 0):
+        return right == 0, (-1, -1), (-1, -1)
+    return False, (left, right), (-1, -1)
+
+
+def check_tokens(name: str, ids, b: int, s: int) -> None:
+    if ids is not None and (ids.dim() != 2 or tuple(ids.shape) != (b, s)):
+        raise ValueError(f"{name} must be ({b}, {s}), got {tuple(ids.shape)}")
+
+
+def window_keep(sq: int, sk: int, window, device=None) -> torch.Tensor:
+    """Dense keep mask (1, 1, sq, sk) of a row/key window (left, right),
+    bottom-right aligned; -1: no bound."""
+    left, right = window
+    rows = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    cols = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if right >= 0:
+        keep &= cols <= rows + right
+    if left >= 0:
+        keep &= cols >= rows - left
+    return keep[None, None]
+
+
+def token_keep(q_segment_ids=None, kv_segment_ids=None, q_positions=None,
+               kv_positions=None, pos_window=(-1, -1)):
+    """Dense keep mask (b, 1, sq, sk) of segment ids (equal ids attend) and
+    of a window on positions (kpos <= qpos + right, kpos >= qpos - left),
+    or None when neither is given."""
+    keep = None
+    if q_segment_ids is not None:
+        keep = (q_segment_ids[:, None, :, None]
+                == kv_segment_ids[:, None, None, :])
+    if q_positions is not None and pos_window != (-1, -1):
+        qp = q_positions[:, None, :, None].to(torch.int64)
+        kp = kv_positions[:, None, None, :].to(torch.int64)
+        pk = torch.ones_like(qp == kp)
+        if pos_window[1] >= 0:
+            pk = pk & (kp <= qp + pos_window[1])
+        if pos_window[0] >= 0:
+            pk = pk & (kp >= qp - pos_window[0])
+        keep = pk if keep is None else keep & pk
+    return keep
+
+
+def _and_masks(keep, other, h: int):
+    if other is None:
+        return keep
+    if keep is None:
+        return other
+    if 1 not in (keep.shape[1], other.shape[1]):
+        keep, other = expand_heads(keep, h), expand_heads(other, h)
+    return keep & other
+
+
 def dense_keep_mask(sq: int, sk: int, h: int, *, flashmask_vecs=None,
-                    flashmask_mode=None, block_mask=None):
-    """The keep mask (b|1, hm|1, sq, sk) of the FlashMask and block-mask
-    flags together, or None when neither is given."""
+                    flashmask_mode=None, block_mask=None, window=(-1, -1),
+                    q_segment_ids=None, kv_segment_ids=None,
+                    q_positions=None, kv_positions=None,
+                    pos_window=(-1, -1), device=None):
+    """The keep mask (b|1, hm|1, sq, sk) of the FlashMask, block-mask,
+    row/key window, segment and position flags together (the plain causal
+    flag apart), or None when none is given; on the flags' device, or
+    ``device`` for a window alone."""
     keep = None
     if flashmask_vecs is not None:
         keep = fm_keep_mask(flashmask_vecs, flashmask_mode, sq)
     if block_mask is not None:
-        bm = block_keep_mask(*block_mask, sq, sk)
-        if keep is not None and 1 not in (keep.shape[1], bm.shape[1]):
-            keep, bm = expand_heads(keep, h), expand_heads(bm, h)
-        keep = bm if keep is None else keep & bm
-    return keep
+        keep = _and_masks(keep, block_keep_mask(*block_mask, sq, sk), h)
+    device = next((t.device for t in (flashmask_vecs, q_segment_ids,
+                                      q_positions) if t is not None), device)
+    if device is None and block_mask is not None:
+        device = block_mask[0].device
+    if tuple(window) != (-1, -1):
+        keep = _and_masks(keep, window_keep(sq, sk, window, device), h)
+    return _and_masks(keep, token_keep(q_segment_ids, kv_segment_ids,
+                                       q_positions, kv_positions,
+                                       tuple(pos_window)), h)
+
+
+def token_pairs(segment_ids, positions, b: int, s: int, device):
+    """(info, src): per token (segment id, position, 0, 0) int32, (b,
+    round_up(s, TOKEN_PAD), 4) contiguous, 0 where absent and in the
+    padding (the rows the kernels load by TMA with a tile or a block); and
+    (b, round_up(s, TOKEN_PAD), 2), the pairs padded as the JAX package
+    pads them for its stats (the last segment id, positions POS_PAD),
+    the source of :func:`token_stats`."""
+    sp = round_up(max(s, 1), TOKEN_PAD)
+    zero = torch.zeros(b, s, dtype=torch.int32, device=device)
+    pair = torch.stack([zero if x is None else x.to(torch.int32)
+                        for x in (segment_ids, positions)], -1)
+    info = torch.nn.functional.pad(pair, (0, 2, 0, sp - s)).contiguous()
+    if sp == s:
+        return info, pair
+    tail = pair[:, -1:].clone()
+    if positions is not None:
+        tail[..., 1] = POS_PAD
+    return info, torch.cat([pair, tail.expand(b, sp - s, 2)], 1)
+
+
+def token_stats(src: torch.Tensor, s: int, block: int) -> torch.Tensor:
+    """Per tile of ``block`` tokens [segment min, max, position min, max],
+    (b, ceil(s / block), 4) int32 contiguous, from :func:`token_pairs`'
+    ``src`` (JAX common.py:286 pos_pad_and_stats, :306 seg_block_stats)."""
+    b, sp, _ = src.shape
+    r = src.reshape(b, sp // block, block, 2)
+    lo, hi = r.amin(2), r.amax(2)
+    st = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+    return st[:, :cdiv(max(s, 1), block)].contiguous()
+
+
+def pair_visible(qst, kst, pos_window):
+    """(b, nq, nk) bool: the query tiles with stats ``qst`` (b, nq, 4) and
+    the key tiles with ``kst`` (b, nk, 4) that may hold a visible pair:
+    overlapping segment ranges and position ranges that meet the position
+    window (the kernels' skip test, csrc/common.cuh token_flags)."""
+    q, k = qst[:, :, None, :], kst[:, None, :, :]  # int32: no sum overflows
+    vis = (q[..., 0] <= k[..., 1]) & (k[..., 0] <= q[..., 1])
+    if pos_window[1] >= 0:
+        vis &= k[..., 2] <= q[..., 3] + pos_window[1]
+    if pos_window[0] >= 0:
+        vis &= k[..., 3] >= q[..., 2] - pos_window[0]
+    return vis
+
+
+def tile_ranges(vis: torch.Tensor) -> torch.Tensor:
+    """For (b, n, m) bool ``vis``: per (batch, block) the tiles [lo, hi)
+    from the first to the last visible one, (0, 0) when none, (b, n, 2)
+    int32 contiguous; computed on the device, nothing read back."""
+    m = vis.shape[-1]
+    idx = torch.arange(m, device=vis.device)
+    lo = torch.where(vis, idx, m).amin(-1)
+    hi = torch.where(vis, idx + 1, 0).amax(-1)
+    lo = torch.where(hi > 0, lo, 0)
+    return torch.stack([lo, hi], -1).to(torch.int32).contiguous()
+
+
+def kernel_tiles(kind: str, d: int):
+    """(query rows, keys) of the tiles of masked kernel ``kind`` ("fwd",
+    "dkv", "dq") at head dim ``d``, at which it reads the stats (dQ's keys
+    depend on the head dim, bwd.py bwd_dq_tile_n)."""
+    if kind == "fwd":
+        return 128, 128
+    if kind == "dkv":
+        return 64, 128
+    return 128, 128 if d == 64 else 64
 
 
 class KernelMasks:
-    """The FlashMask and block-mask flags as the CUDA kernels take them
-    (the ``MaskParams`` of csrc/common.cuh): int32 vectors padded to a
-    multiple of FM_PAD_KEYS keys, per key tile stats made once per tile
-    size (the forward and dK/dV share those of 128 keys), the bands the
-    kernels test elementwise (:func:`fm_bands`) made once, and the int32
-    block mask at its own granularity with its batch and head strides (0
-    where it broadcasts)."""
+    """The mask flags as the CUDA kernels take them (the ``MaskParams`` of
+    csrc/common.cuh): FlashMask int32 vectors padded to a multiple of
+    FM_PAD_KEYS keys, per key tile stats made once per tile size (the
+    forward and dK/dV share those of 128 keys), the bands the kernels test
+    elementwise (:func:`fm_bands`) made once, the int32 block mask at its
+    own granularity with its batch and head strides (0 where it
+    broadcasts); the row/key window and the position window (from
+    :func:`resolve_window`); the segment ids and positions per token
+    (:func:`token_pairs`), their stats per kernel tile and the tile ranges
+    per block, made once per kernel tile size. ``active`` is False when no
+    flag is set: the dense kernels run."""
 
     def __init__(self, b: int, h: int, sq: int, sk: int, *,
-                 flashmask_vecs=None, flashmask_mode=None, block_mask=None):
-        self.fm_vecs = self.bm = self._bands = None
+                 flashmask_vecs=None, flashmask_mode=None, block_mask=None,
+                 window=(-1, -1), q_segment_ids=None, kv_segment_ids=None,
+                 q_positions=None, kv_positions=None, pos_window=(-1, -1)):
+        self.fm_vecs = self.bm = self._bands = self._token_pairs = None
         self._stats = {}
+        self._tok = {}
+        self.b, self.sq, self.sk = b, sq, sk
+        self.window, self.pos_window = tuple(window), tuple(pos_window)
+        self._keep_kw = dict(
+            flashmask_vecs=flashmask_vecs, flashmask_mode=flashmask_mode,
+            block_mask=block_mask, window=self.window,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            q_positions=q_positions, kv_positions=kv_positions,
+            pos_window=self.pos_window)
+        if (q_segment_ids is None) != (kv_segment_ids is None):
+            raise ValueError("pass q_segment_ids and kv_segment_ids together")
+        if (q_positions is None) != (kv_positions is None):
+            raise ValueError("pass q_positions and kv_positions together")
+        for name, ids, s in (("q_segment_ids", q_segment_ids, sq),
+                             ("kv_segment_ids", kv_segment_ids, sk),
+                             ("q_positions", q_positions, sq),
+                             ("kv_positions", kv_positions, sk)):
+            check_tokens(name, ids, b, s)
+        self.seg = (None if q_segment_ids is None else
+                    (q_segment_ids, kv_segment_ids))
+        self.pos = (None if q_positions is None else
+                    (q_positions, kv_positions))
         if flashmask_vecs is not None:
             check_flashmask(flashmask_vecs, flashmask_mode, b, h, sk)
             self.fm_mode = flashmask_mode
@@ -291,8 +528,26 @@ class KernelMasks:
             self.bm_sb = 0 if bb == 1 else hb * nq * nk
             self.bm_sh = 0 if hb == 1 else nq * nk
 
+    def keep(self, h: int, device=None):
+        """The dense keep mask of every flag (:func:`dense_keep_mask`), the
+        plain versions' mask, or None; a window alone on ``device``."""
+        return dense_keep_mask(self.sq, self.sk, h, **self._keep_kw,
+                               device=device)
+
+    @property
+    def has_tokens(self) -> bool:
+        return self.seg is not None or self.pos is not None
+
+    @property
+    def active(self) -> bool:
+        return bool(self.tensors()) or self.window != (-1, -1)
+
     def tensors(self):
-        return [t for t in (self.fm_vecs, self.bm) if t is not None]
+        ts = [t for t in (self.fm_vecs, self.bm) if t is not None]
+        for pair in (self.seg, self.pos):
+            if pair is not None:
+                ts += list(pair)
+        return ts
 
     def stats(self, block_k: int) -> torch.Tensor:
         if block_k not in self._stats:
@@ -306,18 +561,83 @@ class KernelMasks:
             self._bands = fm_bands(self.fm_vecs, self.fm_mode)
         return self._bands
 
+    def _side(self, i: int):
+        seg = self.seg[i] if self.seg is not None else None
+        pos = self.pos[i] if self.pos is not None else None
+        return seg, pos, (self.sq, self.sk)[i]
+
+    def _same_sides(self) -> bool:
+        """The queries' segment ids and positions are the keys' (one
+        packing, self-attention): each is made once for both."""
+        return self.sq == self.sk and all(
+            pair is None or pair[0] is pair[1] for pair in (self.seg, self.pos))
+
+    def _pairs(self):
+        """:func:`token_pairs` of the queries and of the keys, made once."""
+        if self._token_pairs is None:
+            dev = self.tensors()[-1].device
+            q = token_pairs(*self._side(0)[:2], self.b, self.sq, dev)
+            self._token_pairs = [q, q if self._same_sides() else token_pairs(
+                *self._side(1)[:2], self.b, self.sk, dev)]
+        return self._token_pairs
+
+    def info(self):
+        """(q_info, kv_info), each (b, round_up(s, TOKEN_PAD), 4), or None
+        without segment ids and positions."""
+        if not self.has_tokens:
+            return None
+        return tuple(info for info, _ in self._pairs())
+
+    def tok_stats(self, side: int, block: int) -> torch.Tensor:
+        """Stats per tile of ``block`` queries (side 0) or keys (1)."""
+        key = (0 if self._same_sides() else side, block)
+        if key not in self._tok:
+            self._tok[key] = token_stats(self._pairs()[side][1],
+                                         self._side(side)[2], block)
+        return self._tok[key]
+
+    def ranges(self, kind: str, d: int) -> torch.Tensor:
+        """The tile ranges [lo, hi) per block of kernel ``kind`` ("fwd",
+        "dkv", "dq"): per query block over key tiles, or for "dkv" per key
+        block over query tiles (:func:`tile_ranges`); kernels with the same
+        tiles share them."""
+        rows, keys = kernel_tiles(kind, d)
+        key = ("range", rows, keys)
+        if key not in self._tok:
+            vis = pair_visible(self.tok_stats(0, rows),
+                               self.tok_stats(1, keys), self.pos_window)
+            self._tok[key] = tile_ranges(vis.transpose(1, 2) if kind == "dkv"
+                                         else vis)
+        return self._tok[key]
+
     @staticmethod
-    def c_args(masks, block_k: int) -> tuple:
-        """The 12 trailing mask arguments of the kernels' C entry points,
-        with FlashMask stats taken per ``block_k`` keys."""
+    def c_args(masks, causal: bool, kind: str, d: int) -> tuple:
+        """The trailing mask arguments of the C entry point of kernel
+        ``kind`` ("fwd", "dkv", "dq") at head dim ``d`` (XFA_MASK_ARGS):
+        the FlashMask stats, segment / position stats and tile ranges at
+        its tiles (:func:`kernel_tiles`). ``causal`` sets the right bound
+        of the masked kernels' window to 0."""
+        rows, keys = kernel_tiles(kind, d)
         fm = (None, None, 0, 1, 0)
         bm = (None, 0, 0, 1, 0, 1, 1)
+        win = (-1, -1, -1, -1)
+        tok = (None,) * 5 + (0,) * 5
         if masks is not None and masks.fm_vecs is not None:
             v = masks.fm_vecs
-            fm = (v.data_ptr(), masks.stats(block_k).data_ptr(),
+            fm = (v.data_ptr(), masks.stats(keys).data_ptr(),
                   FM_CODES[masks.fm_mode], v.shape[1], v.shape[3])
         if masks is not None and masks.bm is not None:
             m = masks.bm
             bm = (m.data_ptr(), masks.bm_sb, masks.bm_sh, m.shape[1],
                   m.shape[3], masks.gq, masks.gk)
-        return fm + bm
+        if masks is not None and masks.active:
+            left, right = masks.window
+            win = (left, 0 if causal else right) + masks.pos_window
+        if masks is not None and masks.has_tokens:
+            qi, ki = masks.info()
+            qst, kst = masks.tok_stats(0, rows), masks.tok_stats(1, keys)
+            rng = masks.ranges(kind, d)
+            tok = (qi.data_ptr(), ki.data_ptr(), qst.data_ptr(),
+                   kst.data_ptr(), rng.data_ptr(), qi.shape[1], ki.shape[1],
+                   qst.shape[1], kst.shape[1], rng.shape[1])
+        return fm + bm + win + tok

@@ -9,12 +9,14 @@ wgmma, a producer warpgroup) in two instantiations. Without a sparse mask
 :func:`fwd_schedule` the blocks each of its persistent CTAs runs; with a
 FlashMask or block mask its producer decides from the mask which tiles each
 block visits (:func:`fwd_masked_tile_plan`) and the blocks come from a
-counter on the card. This slice covers causal and full attention, GQA,
-softcap, the LSE output, FlashMask (slice 4: column-wise row bands, four
-modes, mask heads dividing the query heads) and block-sparse masks (a 0/1
-mask at a granularity of a multiple of 64); the backward is bwd.py, joined
-to this forward by interface.py's autograd function. Bias, segment ids,
-positions and sliding windows raise NotImplementedError until slice 5,
+counter on the card. Covered: causal and full attention, GQA, softcap,
+the LSE output, FlashMask (column-wise row bands, four modes, mask heads
+dividing the query heads), block-sparse masks (a 0/1 mask at a granularity
+of a multiple of 64), sliding windows, segment ids and q/kv positions (the
+masked instantiation: the producer walks the window's key tiles, within
+the range of tiles the segment and position stats allow); the backward is
+bwd.py, joined to this forward by interface.py's autograd function.
+Attention bias raises NotImplementedError until slice 5's last part,
 dropout until slice 6, fp8 until slice 7.
 """
 
@@ -27,11 +29,12 @@ import torch
 
 from .. import _cuda
 from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, SLICE_DTYPES,
-                     SLICE_VARLEN, KernelMasks, cdiv, dense_keep_mask,
-                     expand_heads, fm_skip_bypass)
+                     SLICE_VARLEN, KernelMasks, cdiv, expand_heads,
+                     fm_skip_bypass, resolve_window)
 
-__all__ = ["attention_fwd_ref", "flash_attention_fwd", "fwd_masked_tile_plan",
-           "fwd_schedule", "fwd_tile_plan", "masked_row_block_plan"]
+__all__ = ["attention_fwd_ref", "build_masks", "flash_attention_fwd",
+           "fwd_masked_tile_plan", "fwd_schedule", "fwd_tile_plan",
+           "key_window_plan", "masked_row_block_plan"]
 
 # Tiles of the dense (unmasked) kernel, csrc/flash_fwd.cu kTileM / kTileN:
 # query rows per block and keys per tile.
@@ -43,24 +46,36 @@ FWD_DENSE_TILE_N = 128
 MASK_PART = 64
 
 
-def key_tile_plan(sq: int, sk: int, causal: bool, m: int, n: int):
-    """The key tiles of ``n`` keys that a kernel visits for each block of
-    ``m`` query rows (csrc/common.cuh `key_tiles`): for each block, a list
-    of (tile index, masked) in visit order, last tile first. Tile t holds
-    keys [t * n, (t + 1) * n); ``masked`` tiles run the elementwise causal /
-    sk test, the others none (rows past sq are not written, so they do not
-    count)."""
-    plan = []
+def key_window_plan(sq: int, sk: int, m: int, n: int, window=(-1, -1)):
+    """The key tiles of ``n`` keys that a kernel considers for each block of
+    ``m`` query rows under a row/key window (left, right), bottom-right
+    aligned, -1 no bound (csrc/common.cuh `key_window`, and `key_tiles`
+    for causal, right 0): for each block, a list of (tile index, masked)
+    in visit order, last tile first. Tile t holds keys [t * n, (t + 1) *
+    n); ``masked`` tiles run the elementwise window / sk test, the others
+    none (rows past sq are not written, so they do not count)."""
+    left, right = window
+    off, plan = sk - sq, []
     for q0 in range(0, sq, m):
-        n_tiles, n_free = cdiv(sk, n), sk // n
-        if causal:
-            max_col = min(q0 + m, sq) - 1 + sk - sq
-            n_tiles = 0 if max_col < 0 else min(n_tiles, max_col // n + 1)
-            seen = q0 + sk - sq + 1  # keys visible to the block's first row
-            n_free = min(n_free, 0 if seen <= 0 else seen // n)
-        n_free = min(n_free, n_tiles)
-        plan.append([(t, t >= n_free) for t in reversed(range(n_tiles))])
+        r0, r1 = q0, min(q0 + m, sq) - 1
+        kmax = sk - 1 if right < 0 else min(sk - 1, r1 + off + right)
+        kmin = 0 if left < 0 else max(0, r0 + off - left)
+        if kmax < kmin:
+            plan.append([])
+            continue
+        lo, hi = kmin // n, kmax // n + 1
+        fmax = sk if right < 0 else min(sk, r0 + off + right + 1)
+        fmin = 0 if left < 0 else max(0, r1 + off - left)
+        f_lo, f_hi = max(lo, cdiv(fmin, n)), min(hi, max(fmax, 0) // n)
+        plan.append([(t, not f_lo <= t < f_hi)
+                     for t in reversed(range(lo, hi))])
     return plan
+
+
+def key_tile_plan(sq: int, sk: int, causal: bool, m: int, n: int):
+    """:func:`key_window_plan` of the dense kernels: causal (right bound
+    0) or no window."""
+    return key_window_plan(sq, sk, m, n, (-1, 0 if causal else -1))
 
 
 def pair_schedule(n_blocks: int, heads: int, b: int, ctas: int,
@@ -99,28 +114,74 @@ def fwd_schedule(sq: int, h: int, b: int, ctas: int):
     return pair_schedule(cdiv(sq, FWD_DENSE_TILE_M), h, b, ctas, True)
 
 
+def masked_window(masks: KernelMasks, causal: bool):
+    """The row/key window the masked kernels apply: the flags' window with
+    the right bound 0 under ``causal`` (KernelMasks.c_args)."""
+    left, right = masks.window
+    return left, 0 if causal else right
+
+
+def token_flags(qs, ks, pos_window):
+    """The segment / position decision of a query tile with stats ``qs``
+    against a key tile with ``ks`` ([segment min, max, position min, max]):
+    -1 skipped, 0 bypassed, 1 the elementwise test (csrc/common.cuh
+    ``token_flags``)."""
+    skip = qs[0] > ks[1] or ks[0] > qs[1]
+    bypass = qs[0] == qs[1] == ks[0] == ks[1]
+    left, right = pos_window
+    if right >= 0:
+        skip |= ks[2] > qs[3] + right
+        bypass &= ks[3] <= qs[2] + right
+    if left >= 0:
+        skip |= ks[3] < qs[2] - left
+        bypass &= ks[2] >= qs[3] - left
+    return -1 if skip else (0 if bypass else 1)
+
+
 class MaskTiles:
     """The masked kernels' producer's view of a :class:`KernelMasks` for
-    key tiles of ``tile_keys`` keys (csrc/common.cuh ``fm_decide``,
-    ``bm_on``), on Python ints."""
+    key tiles of ``tile_keys`` keys and query tiles of ``tile_rows`` rows
+    (csrc/common.cuh ``fm_decide``, ``bm_on``, ``token_flags``), on Python
+    ints; ``kind`` names the kernel whose tile ranges it reads."""
 
-    def __init__(self, masks: KernelMasks, h: int, tile_keys: int):
-        self.h, self.tile = h, tile_keys
-        self.fm = self.bm = None
+    def __init__(self, masks: KernelMasks, h: int, tile_keys: int,
+                 tile_rows: int = 128, kind: str = "fwd", d: int = 64):
+        self.h, self.tile, self.rows = h, tile_keys, tile_rows
+        self.fm = self.bm = self.tok = None
         if masks.fm_vecs is not None:
             self.mode = masks.fm_mode
             self.fm = masks.stats(tile_keys).cpu().tolist()
         if masks.bm is not None:
             self.bm, self.gq, self.gk = masks.bm.cpu().tolist(), masks.gq, \
                 masks.gk
+        if masks.has_tokens:
+            self.tok = (masks.tok_stats(0, tile_rows).cpu().tolist(),
+                        masks.tok_stats(1, tile_keys).cpu().tolist())
+            self.rng = masks.ranges(kind, d).cpu().tolist()
+            self.pos_window = masks.pos_window
 
     def decide(self, batch: int, head: int, q0: int, q1: int, col0: int):
-        """(skip, bypass) of rows [q0, q1) against the tile at col0."""
+        """(skip, bypass) of rows [q0, q1) against the tile at col0 by the
+        FlashMask stats."""
         if self.fm is None:
             return False, True
         per_batch = self.fm[batch]
         st = per_batch[head // (self.h // len(per_batch))][col0 // self.tile]
         return fm_skip_bypass(self.mode, lambda v, w: st[v][w], q0, q1)
+
+    def tokens(self, batch: int, q0: int, col0: int) -> int:
+        """The segment / position decision of the query tile at q0 against
+        the key tile at col0 (:func:`token_flags`; 0 without them)."""
+        if self.tok is None:
+            return 0
+        return token_flags(self.tok[0][batch][q0 // self.rows],
+                           self.tok[1][batch][col0 // self.tile],
+                           self.pos_window)
+
+    def range(self, batch: int, block: int):
+        """Block ``block``'s tile range [lo, hi) from the segment and
+        position stats, or None without them."""
+        return None if self.tok is None else self.rng[batch][block]
 
     def on(self, batch: int, head: int, row: int, col: int) -> bool:
         """The block-mask entry of (row, col) (True without a block
@@ -132,6 +193,15 @@ class MaskTiles:
         return entry[row // self.gq][col // self.gk] != 0
 
 
+def cut_to_range(lo: int, hi: int, rng):
+    """Candidate tiles [lo, hi) cut to a block's tile range ``rng`` (None:
+    unchanged), as csrc/common.cuh key_window and query_window cut them."""
+    if rng is None:
+        return lo, hi
+    lo = max(lo, rng[0])
+    return lo, max(lo, min(hi, rng[1]))
+
+
 def elementwise_first(tiles, flag):
     """Tiles with the elementwise test (``tile[flag]``) first, then the
     others, each in their order (common.cuh ``emit_tiles``)."""
@@ -139,7 +209,8 @@ def elementwise_first(tiles, flag):
 
 
 def masked_row_block_plan(masks: KernelMasks, b: int, h: int, sq: int,
-                          sk: int, causal: bool, n: int):
+                          sk: int, causal: bool, n: int, kind: str = "fwd",
+                          d: int = 64):
     """The key tiles a masked kernel with blocks of 128 query rows visits
     over key tiles of ``n`` keys (csrc/common.cuh ``row_block_tile_flags``
     and the producer of flash_fwd.cu and of flash_bwd.cu's dQ kernel): for
@@ -148,31 +219,41 @@ def masked_row_block_plan(masks: KernelMasks, b: int, h: int, sq: int,
     64c + 64) of the block) computes the tile's keys [64j, 64j + 64) (both
     the same for a tile of 64 keys): on when those rows and keys start
     below sq and sk and their block-mask entry is on. The candidates are
-    :func:`key_tile_plan`'s; a tile is skipped when the FlashMask stats (per
-    tile of ``n`` keys) mask the block's rows everywhere or no part is on.
-    ``elementwise``: the plan's causal / ragged test, the FlashMask band
-    test, or a consumer whose two key parts differ; those come first."""
+    :func:`key_window_plan`'s under the masked window, cut to the block's
+    range of tiles from the segment and position stats (``kind``'s); a
+    tile is skipped when the FlashMask stats (per tile of ``n`` keys) or
+    the segment / position stats mask the block's rows everywhere or no
+    part is on. ``elementwise``: the plan's window / ragged test, the
+    FlashMask band test, the segment / position test, or a consumer whose
+    two key parts differ; those come first."""
     m = FWD_DENSE_TILE_M
-    mt = MaskTiles(masks, h, n)
+    mt = MaskTiles(masks, h, n, m, kind, d)
     plan = {}
-    for mb, cands in enumerate(key_tile_plan(sq, sk, causal, m, n)):
+    for mb, cands in enumerate(key_window_plan(sq, sk, m, n,
+                                               masked_window(masks, causal))):
         q0 = mb * m
+        free = {t for t, masked in cands if not masked}
+        hi = cands[0][0] + 1 if cands else 0
+        lo = cands[-1][0] if cands else 0
         for batch in range(b):
+            c_lo, c_hi = cut_to_range(lo, hi, mt.range(batch, mb))
             for head in range(h):
                 found = []
-                for t, masked in cands:
+                for t in reversed(range(c_lo, c_hi)):
                     n0 = t * n
                     skip, bypass = mt.decide(batch, head, q0, min(q0 + m, sq),
                                              n0)
+                    tok = mt.tokens(batch, q0, n0)
                     keys = (n0, n0 + MASK_PART if n == 2 * MASK_PART else n0)
                     parts = tuple(
                         tuple(row < sq and key < sk
                               and mt.on(batch, head, row, key) for key in keys)
                         for row in (q0, q0 + MASK_PART))
-                    if skip or not any(map(any, parts)):
+                    if skip or tok < 0 or not any(map(any, parts)):
                         continue
                     straddle = any(a != c for a, c in parts)
-                    found.append((t, masked or not bypass or straddle, parts))
+                    found.append((t, t not in free or not bypass or tok > 0
+                                  or straddle, parts))
                 plan[(batch, head, mb)] = elementwise_first(found, 1)
     return plan
 
@@ -265,7 +346,7 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
                          "3 on q's device")
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         _cuda.require_aligned(t, 8, name)
-    masked = masks is not None and bool(masks.tensors())
+    masked = masks is not None and masks.active
     counters = None
     if masked:
         counters = (tile_counts if tile_counts is not None else
@@ -275,29 +356,38 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
         _cuda.ptr(lse),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap), int(causal),
-        *KernelMasks.c_args(masks, FWD_DENSE_TILE_N),
+        *KernelMasks.c_args(masks, causal, "fwd", d),
         _cuda.ptr(masks.bands() if masked else None), _cuda.ptr(counters),
         _cuda.stream())
     _cuda.check(code, "flash_fwd")
 
 
-def _check_supported(causal, window_size, dropout_p, optional) -> bool:
-    """Return the effective causal flag; raise on what this slice lacks."""
-    left, right = window_size
-    if causal:
-        right = 0
-    unsupported = [name for name, value in optional.items()
-                   if value is not None]
-    if left >= 0 or right > 0:
-        unsupported.append("sliding window")
-    if unsupported:
+def check_supported(bias, dropout_p, where: str) -> None:
+    """Raise on what the port lacks: attention bias (slice 5's last part)
+    and dropout (slice 6)."""
+    if bias is not None:
         raise NotImplementedError(
-            f"flash_attention_fwd: {', '.join(unsupported)} not ported yet: "
-            f"{SLICE_VARLEN}")
+            f"{where}: attention bias not ported yet: {SLICE_VARLEN}")
     if dropout_p > 0.0:
         raise NotImplementedError(
-            f"flash_attention_fwd: dropout not ported yet: {SLICE_DROPOUT}")
-    return right == 0
+            f"{where}: dropout not ported yet: {SLICE_DROPOUT}")
+
+
+def build_masks(b: int, h: int, sq: int, sk: int, causal: bool,
+                window_size=(-1, -1), *, flashmask_vecs=None,
+                flashmask_mode=None, block_mask=None, q_segment_ids=None,
+                kv_segment_ids=None, q_positions=None, kv_positions=None):
+    """(causal, masks): the plain causal flag and the :class:`KernelMasks`
+    of every flag (:func:`common.resolve_window`); made once per call of
+    the autograd function and shared by its forward and backward."""
+    causal, window, pos_window = resolve_window(
+        causal, window_size, sq, sk, q_positions is not None)
+    return causal, KernelMasks(
+        b, h, sq, sk, flashmask_vecs=flashmask_vecs,
+        flashmask_mode=flashmask_mode, block_mask=block_mask, window=window,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        q_positions=q_positions, kv_positions=kv_positions,
+        pos_window=pos_window)
 
 
 def flash_attention_fwd(
@@ -320,6 +410,7 @@ def flash_attention_fwd(
     block_mask=None,
     q_positions=None,
     kv_positions=None,
+    masks: Optional[KernelMasks] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Forward attention on (batch, heads, seq, head_dim) inputs.
 
@@ -332,27 +423,34 @@ def flash_attention_fwd(
     flashmask_vecs: optional (b, hm, NV, sk) int32 FlashMask row-index
     vectors with ``flashmask_mode`` one of common.FM_NV's keys; hm divides
     h. block_mask: optional (mask, gq, gk), mask (b|1, hm|1, ceil(sq/gq),
-    ceil(sk/gk)) 0/1, granularities multiples of 64. Tiles that a mask
-    turns off everywhere are skipped unread; rows that see no key give 0
-    and lse +inf.
+    ceil(sk/gk)) 0/1, granularities multiples of 64. window_size: (left,
+    right), -1 no bound, bottom-right aligned; causal sets right to 0.
+    q_segment_ids / kv_segment_ids: (b, sq) / (b, sk) int, pairs with
+    equal ids attend. q_positions / kv_positions: (b, sq) / (b, sk) int;
+    the causal and window bounds then apply to the positions (kpos <= qpos
+    + right, kpos >= qpos - left) instead of the row and key indices. All
+    flags combine. Tiles that the flags turn off everywhere are skipped
+    unread; rows that see no key give 0 and lse +inf. ``masks``: the
+    flags already made by :func:`build_masks` (then ``causal`` must be
+    the flag it returned and the other flags are not read).
 
     ``flash_attention_fwd.launches`` counts kernel launches.
     """
-    causal = _check_supported(causal, window_size, dropout_p, {
-        "bias": bias, "segment ids": q_segment_ids,
-        "kv segment ids": kv_segment_ids, "q positions": q_positions,
-        "kv positions": kv_positions})
+    check_supported(bias, dropout_p, "flash_attention_fwd")
     if q.dtype == torch.float8_e4m3fn:
         raise NotImplementedError(f"fp8 attention comes with {SLICE_DTYPES}")
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    mask_kw = dict(flashmask_vecs=flashmask_vecs,
-                   flashmask_mode=flashmask_mode, block_mask=block_mask)
-    masks = KernelMasks(b, h, sq, sk, **mask_kw)
+    if masks is None:
+        causal, masks = build_masks(
+            b, h, sq, sk, causal, window_size, flashmask_vecs=flashmask_vecs,
+            flashmask_mode=flashmask_mode, block_mask=block_mask,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            q_positions=q_positions, kv_positions=kv_positions)
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
                                  softcap=softcap, need_lse=need_lse,
-                                 mask=dense_keep_mask(sq, sk, h, **mask_kw))
+                                 mask=masks.keep(h))
     out = torch.empty(b, sq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

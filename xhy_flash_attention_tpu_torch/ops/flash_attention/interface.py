@@ -4,11 +4,16 @@ ops/flash_attention/interface.py), and decode against a growing KV cache
 
 `flash_attention` is differentiable in q, k and v: when an input needs a
 gradient it runs as an autograd function, as the TPU package's custom VJP
-(interface.py:96-131): the forward saves (q, k, v, out, lse) and the
-backward calls `flash_attention_bwd` (the dK/dV and dQ kernels). The same
-function carries the FlashMask and block-sparse entries (flashmask.py,
-blocksparse.py) with their mask flags. Decode against a cache has no
-backward, as in the TPU package.
+(interface.py:96-131): the forward makes the kernels' mask arguments once
+(fwd.build_masks), saves (q, k, v, out, lse) and hands the same arguments
+to the backward, which calls `flash_attention_bwd` (the dK/dV and dQ
+kernels). The same function carries the FlashMask and block-sparse entries
+(flashmask.py, blocksparse.py), sliding windows, segment ids and q/kv
+positions. Varlen is packed attention over a batch of 1, as in the TPU
+package (interface.py:365-433): segment ids from ``cu_seqlens``, and under
+a causal or windowed mask per-sequence positions aligned to the bottom
+right, all made on the device. Decode against a cache has no backward, as
+in the TPU package.
 """
 
 from __future__ import annotations
@@ -21,21 +26,25 @@ import torch
 from ..decode import write_kv
 from ..quant import QuantizedKV
 from .bwd import flash_attention_bwd
+from .common import BlockSizes
 from .decode_kernel import flash_decode
-from .fwd import _check_supported, flash_attention_fwd
+from .fwd import build_masks, check_supported, flash_attention_fwd
 
-__all__ = ["flash_attention", "flash_attn_func", "flash_attn_qkvpacked_func",
-           "flash_attn_with_kvcache"]
+__all__ = ["flash_attention", "flash_attn_func", "flash_attn_kvpacked_func",
+           "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
+           "flash_attn_varlen_kvpacked_func",
+           "flash_attn_varlen_qkvpacked_func", "flash_attn_with_kvcache"]
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``masks``: the forward's mask flags (``flashmask_vecs``,
-    ``flashmask_mode``, ``block_mask``) as a dict, or None."""
+    """``masks``: the kernels' mask arguments (fwd.build_masks), made once
+    for both passes; ``causal`` the plain causal flag build_masks
+    returned."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal, softcap, masks):
         ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
-                      **(masks or {}))
+                      masks=masks)
         out, lse = flash_attention_fwd(q, k, v, need_lse=True, **ctx.kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
@@ -49,19 +58,25 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def attention(q, k, v, *, softmax_scale: Optional[float], causal: bool,
-              softcap: float = 0.0, return_lse: bool = False, masks=None):
+              softcap: float = 0.0, return_lse: bool = False, masks=None,
+              window_size: Tuple[int, int] = (-1, -1)):
     """(b, h, s, d) attention through the autograd function when an input
-    needs a gradient, else the forward alone; ``masks`` as
-    `_FlashAttention`'s. Returns out, or (out, lse) with ``return_lse``."""
+    needs a gradient, else the forward alone. ``masks``: a dict of the
+    forward's mask flags (``flashmask_vecs``/``flashmask_mode``,
+    ``block_mask``, ``q_segment_ids``/``kv_segment_ids``,
+    ``q_positions``/``kv_positions``) or None. Returns out, or (out, lse)
+    with ``return_lse``."""
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, h, sq, _ = q.shape
+    causal, kmasks = build_masks(b, h, sq, k.shape[2], causal, window_size,
+                                 **(masks or {}))
+    kw = dict(sm_scale=float(softmax_scale), causal=causal,
+              softcap=float(softcap), masks=kmasks)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashAttention.apply(q, k, v, float(softmax_scale),
-                                         causal, float(softcap), masks)
+        out, lse = _FlashAttention.apply(q, k, v, *kw.values())
     else:
-        out, lse = flash_attention_fwd(
-            q, k, v, sm_scale=softmax_scale, causal=causal, softcap=softcap,
-            need_lse=return_lse, **(masks or {}))
+        out, lse = flash_attention_fwd(q, k, v, need_lse=return_lse, **kw)
     return (out, lse) if return_lse else out
 
 
@@ -73,6 +88,7 @@ def flash_attention(
     softcap: float = 0.0,
     dropout_p: float = 0.0,
     dropout_seed=None,
+    block_sizes: Optional[BlockSizes] = None,
     return_lse: bool = False,
     q_positions=None,
     kv_positions=None,
@@ -81,13 +97,62 @@ def flash_attention(
 
     Returns out (b, h, sq, d) and, with ``return_lse``, the fp32 logsumexp
     (b, h, sq). Differentiable in q, k and v (not through the LSE).
+    window_size (left, right): key c visible to row r when r + offset -
+    left <= c <= r + offset + right (offset sk - sq, -1 no bound; causal
+    sets right to 0). q_segment_ids / kv_segment_ids ((b, sq) / (b, sk)
+    int): only equal ids attend. q_positions / kv_positions ((b, sq) / (b,
+    sk) int): the causal and window bounds apply to the positions instead
+    (kpos <= qpos + right, kpos >= qpos - left), as ring attention and
+    varlen with different q/k packings use them. The CUDA tiles are fixed
+    per head dim, so ``block_sizes`` is accepted and ignored.
     """
-    causal = _check_supported(causal, window_size, dropout_p, {
-        "bias": bias, "segment ids": q_segment_ids,
-        "kv segment ids": kv_segment_ids, "q positions": q_positions,
-        "kv positions": kv_positions})
+    del block_sizes
+    check_supported(bias, dropout_p, "flash_attention")
+    flags = {name: t for name, t in (
+        ("q_segment_ids", q_segment_ids), ("kv_segment_ids", kv_segment_ids),
+        ("q_positions", q_positions), ("kv_positions", kv_positions))
+        if t is not None}
     return attention(q, k, v, softmax_scale=softmax_scale, causal=causal,
-                     softcap=softcap, return_lse=return_lse)
+                     softcap=softcap, return_lse=return_lse, masks=flags,
+                     window_size=window_size)
+
+
+def _attn_probs_debug(qt, kt, lse, *, softmax_scale, causal, window_size,
+                      softcap, q_seg=None, k_seg=None, qpos=None,
+                      kpos=None):
+    """The S_dmask debug tensor (b, h, sq, sk) of the TPU package
+    (interface.py:187-241): the softmax probabilities recomputed from the
+    LSE in plain PyTorch (an O(sq * sk) tensor; the kernels never make
+    it); masked pairs and rows with no key give 0. Without dropout no
+    entry is negated."""
+    b, h, sq, _ = qt.shape
+    hk, sk = kt.shape[1], kt.shape[2]
+    kf = kt.float().repeat_interleave(h // hk, dim=1)
+    s = (qt.float() @ kf.transpose(-1, -2)) * softmax_scale
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    left, right = window_size
+    if causal:
+        right = 0
+    if qpos is not None:
+        qp = qpos[:, None, :, None].long()
+        kp = kpos[:, None, None, :].long()
+    else:
+        qp = (torch.arange(sq, device=qt.device)[:, None] + (sk - sq))
+        kp = torch.arange(sk, device=qt.device)[None, :]
+    if right >= 0:
+        s = s.masked_fill(~(kp <= qp + right), -math.inf)
+    if left >= 0:
+        s = s.masked_fill(~(kp >= qp - left), -math.inf)
+    if q_seg is not None:
+        s = s.masked_fill(q_seg[:, None, :, None] != k_seg[:, None, None, :],
+                          -math.inf)
+    return torch.exp(s - lse[..., None])
+
+
+def _check_probs(return_attn_probs: bool, dropout_p: float) -> None:
+    if return_attn_probs and dropout_p > 0.0:
+        check_supported(None, dropout_p, "return_attn_probs")
 
 
 def flash_attn_func(q, k, v, dropout_p: float = 0.0,
@@ -95,21 +160,36 @@ def flash_attn_func(q, k, v, dropout_p: float = 0.0,
                     causal: bool = False,
                     window_size: Tuple[int, int] = (-1, -1),
                     softcap: float = 0.0,
+                    return_attn_probs: bool = False,
                     deterministic: bool = True,
-                    dropout_seed=None):
+                    dropout_seed=None,
+                    block_sizes: Optional[BlockSizes] = None):
     """q: (batch, seqlen_q, nheads, head_dim); k/v: (batch, seqlen_k,
-    nheads_k, head_dim). Returns out in the same layout.
+    nheads_k, head_dim). Returns out in the same layout; with
+    ``return_attn_probs`` (out, softmax_lse (b, h, sq), S_dmask (b, h, sq,
+    sk)), S_dmask the debug probabilities (:func:`_attn_probs_debug`).
 
     The layout swaps are views: the kernels read strided inputs, and the
     output and the gradients come back in (b, s, h, d) memory order. The
-    kernels are deterministic, so ``deterministic`` is accepted and ignored.
+    kernels are deterministic, so ``deterministic`` is accepted and
+    ignored; so is ``block_sizes`` (the CUDA tiles are fixed per head dim).
     """
     del deterministic
-    out = flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, dropout_p=dropout_p, dropout_seed=dropout_seed)
-    return out.transpose(1, 2)
+    _check_probs(return_attn_probs, dropout_p)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    res = flash_attention(
+        qt, kt, vt, softmax_scale=softmax_scale, causal=causal,
+        window_size=window_size, softcap=softcap, dropout_p=dropout_p,
+        dropout_seed=dropout_seed, block_sizes=block_sizes,
+        return_lse=return_attn_probs)
+    if not return_attn_probs:
+        return res.transpose(1, 2)
+    out, lse = res
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    probs = _attn_probs_debug(qt, kt, lse, softmax_scale=scale, causal=causal,
+                              window_size=window_size, softcap=softcap)
+    return out.transpose(1, 2), lse, probs
 
 
 def flash_attn_qkvpacked_func(qkv, dropout_p: float = 0.0,
@@ -117,6 +197,7 @@ def flash_attn_qkvpacked_func(qkv, dropout_p: float = 0.0,
                               causal: bool = False,
                               window_size: Tuple[int, int] = (-1, -1),
                               softcap: float = 0.0,
+                              return_attn_probs: bool = False,
                               deterministic: bool = True,
                               dropout_seed=None):
     """qkv: (batch, seqlen, 3, nheads, head_dim). Returns (batch, seqlen,
@@ -126,7 +207,154 @@ def flash_attn_qkvpacked_func(qkv, dropout_p: float = 0.0,
     return flash_attn_func(
         qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dropout_p=dropout_p,
         softmax_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, deterministic=deterministic,
+        softcap=softcap, return_attn_probs=return_attn_probs,
+        deterministic=deterministic, dropout_seed=dropout_seed)
+
+
+def flash_attn_kvpacked_func(q, kv, dropout_p: float = 0.0,
+                             softmax_scale: Optional[float] = None,
+                             causal: bool = False,
+                             window_size: Tuple[int, int] = (-1, -1),
+                             softcap: float = 0.0,
+                             return_attn_probs: bool = False,
+                             deterministic: bool = True,
+                             dropout_seed=None):
+    """q: (batch, seqlen_q, nheads, head_dim); kv: (batch, seqlen_k, 2,
+    nheads_k, head_dim), read in place through strides (the kernels take
+    the k and v views). Returns out as :func:`flash_attn_func`."""
+    if kv.dim() != 5 or kv.shape[2] != 2:
+        raise ValueError(f"kv must be (b, s, 2, hk, d), got {tuple(kv.shape)}")
+    return flash_attn_func(
+        q, kv[:, :, 0], kv[:, :, 1], dropout_p=dropout_p,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, return_attn_probs=return_attn_probs,
+        deterministic=deterministic, dropout_seed=dropout_seed)
+
+
+def _segment_ids_from_cu_seqlens(cu_seqlens, total: int):
+    """seg[t] = the number of boundaries of ``cu_seqlens`` at or below t
+    (``searchsorted(side="right")``, as the TPU package): token t of
+    sequence i gets i + 1, and tokens past ``cu_seqlens[-1]`` get the
+    sequence count + 1 on both sides. int32, on cu_seqlens' device."""
+    cu = cu_seqlens.to(torch.int32)
+    t = torch.arange(total, dtype=torch.int32, device=cu.device)
+    return torch.searchsorted(cu, t, right=True).to(torch.int32)
+
+
+def _local_positions(cu, total: int):
+    """(position within its sequence, sequence index) of each packed token,
+    the index clipped to the sequences (JAX interface.py:422-426)."""
+    t = torch.arange(total, dtype=torch.int32, device=cu.device)
+    seq = (torch.searchsorted(cu, t, right=True) - 1).clamp(0, cu.shape[0] - 2)
+    return t - cu[seq], seq
+
+
+def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                           max_seqlen_q: int, max_seqlen_k: int,
+                           dropout_p: float = 0.0,
+                           softmax_scale: Optional[float] = None,
+                           causal: bool = False,
+                           window_size: Tuple[int, int] = (-1, -1),
+                           softcap: float = 0.0,
+                           return_attn_probs: bool = False,
+                           deterministic: bool = True,
+                           dropout_seed=None,
+                           return_lse: bool = False):
+    """Packed variable-length attention (≙ the TPU package's
+    interface.py:377): q (total_q, nheads, head_dim), k/v (total_k,
+    nheads_k, head_dim), cu_seqlens_q / cu_seqlens_k (batch + 1,) int32 on
+    the inputs' device. Runs as attention over a batch of 1 with segment
+    ids from cu_seqlens (:func:`_segment_ids_from_cu_seqlens`) and, when
+    causal or windowed, per-sequence positions aligned to the bottom right
+    (query i of a sequence sees key j <= i + lk - lq), so cu_seqlens_q may
+    differ from cu_seqlens_k. Everything is made on the device; nothing is
+    read back. ``max_seqlen_*`` and ``deterministic`` are accepted and
+    ignored. Returns out (total_q, nheads, head_dim); with ``return_lse``
+    (out, lse (nheads, total_q)); with ``return_attn_probs`` (out, lse,
+    S_dmask (nheads, total_q, total_k)).
+    """
+    del max_seqlen_q, max_seqlen_k, deterministic
+    _check_probs(return_attn_probs, dropout_p)
+    total_q, total_k = q.shape[0], k.shape[0]
+    # one packing for both sides (the qkv-packed entry): made once
+    same = cu_seqlens_q is cu_seqlens_k and total_q == total_k
+    cu_q = cu_seqlens_q.to(device=q.device, dtype=torch.int32)
+    cu_k = cu_q if same else cu_seqlens_k.to(device=q.device,
+                                             dtype=torch.int32)
+    q_seg = _segment_ids_from_cu_seqlens(cu_q, total_q)[None]
+    k_seg = q_seg if same else \
+        _segment_ids_from_cu_seqlens(cu_k, total_k)[None]
+    qpos = kpos = None
+    if causal or window_size[0] >= 0 or window_size[1] >= 0:
+        lq_pos, q_seq = _local_positions(cu_q, total_q)
+        if same:
+            qpos = kpos = lq_pos[None]
+        else:
+            lk_pos, _ = _local_positions(cu_k, total_k)
+            off = ((cu_k[1:] - cu_k[:-1]) - (cu_q[1:] - cu_q[:-1]))[q_seq]
+            qpos, kpos = (lq_pos + off)[None], lk_pos[None]
+    qt, kt, vt = (t[None].transpose(1, 2) for t in (q, k, v))
+    want_lse = return_attn_probs or return_lse
+    res = flash_attention(
+        qt, kt, vt, None, q_seg, k_seg, softmax_scale=softmax_scale,
+        causal=causal, window_size=window_size, softcap=softcap,
+        dropout_p=dropout_p, dropout_seed=dropout_seed, return_lse=want_lse,
+        q_positions=qpos, kv_positions=kpos)
+    if not want_lse:
+        return res.transpose(1, 2)[0]
+    out, lse = res
+    out = out.transpose(1, 2)[0]
+    if not return_attn_probs:
+        return out, lse[0]
+    scale = softmax_scale if softmax_scale is not None \
+        else 1.0 / math.sqrt(q.shape[-1])
+    probs = _attn_probs_debug(qt, kt, lse, softmax_scale=scale, causal=causal,
+                              window_size=window_size, softcap=softcap,
+                              q_seg=q_seg, k_seg=k_seg, qpos=qpos, kpos=kpos)
+    return out, lse[0], probs[0]
+
+
+def flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens, max_seqlen,
+                                     dropout_p: float = 0.0,
+                                     softmax_scale: Optional[float] = None,
+                                     causal: bool = False,
+                                     window_size: Tuple[int, int] = (-1, -1),
+                                     softcap: float = 0.0,
+                                     return_attn_probs: bool = False,
+                                     deterministic: bool = True,
+                                     dropout_seed=None):
+    """qkv: (total, 3, nheads, head_dim), one cu_seqlens for q and k."""
+    if qkv.dim() != 4 or qkv.shape[1] != 3:
+        raise ValueError(f"qkv must be (total, 3, h, d), got "
+                         f"{tuple(qkv.shape)}")
+    return flash_attn_varlen_func(
+        qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens, cu_seqlens, max_seqlen,
+        max_seqlen, dropout_p=dropout_p, softmax_scale=softmax_scale,
+        causal=causal, window_size=window_size, softcap=softcap,
+        return_attn_probs=return_attn_probs, deterministic=deterministic,
+        dropout_seed=dropout_seed)
+
+
+def flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens_q, cu_seqlens_k,
+                                    max_seqlen_q: int, max_seqlen_k: int,
+                                    dropout_p: float = 0.0,
+                                    softmax_scale: Optional[float] = None,
+                                    causal: bool = False,
+                                    window_size: Tuple[int, int] = (-1, -1),
+                                    softcap: float = 0.0,
+                                    return_attn_probs: bool = False,
+                                    deterministic: bool = True,
+                                    dropout_seed=None):
+    """kv: (total_k, 2, nheads_k, head_dim), read through the strided k and
+    v views."""
+    if kv.dim() != 4 or kv.shape[1] != 2:
+        raise ValueError(f"kv must be (total, 2, hk, d), got "
+                         f"{tuple(kv.shape)}")
+    return flash_attn_varlen_func(
+        q, kv[:, 0], kv[:, 1], cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+        max_seqlen_k, dropout_p=dropout_p, softmax_scale=softmax_scale,
+        causal=causal, window_size=window_size, softcap=softcap,
+        return_attn_probs=return_attn_probs, deterministic=deterministic,
         dropout_seed=dropout_seed)
 
 

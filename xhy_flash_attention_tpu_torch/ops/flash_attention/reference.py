@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "construct_local_mask"]
+__all__ = ["attention_ref", "construct_local_mask", "generate_qkv_segment_ids"]
 
 
 def construct_local_mask(
@@ -124,3 +124,18 @@ def attention_ref(
         attention = attention.masked_fill(
             ~query_padding_mask[:, None, :, None], 0.0)
     return output.to(dtype_og), attention.to(dtype_og)
+
+
+def generate_qkv_segment_ids(query_padding_mask, key_padding_mask,
+                             batch: int, seqlen_q: int, seqlen_k: int):
+    """Padding masks (batch, seqlen) bool, True = a token, or None -> int32
+    segment ids (q (batch, seqlen_q), k (batch, seqlen_k)): 1 + the batch
+    row for tokens, 0 for padding (≙ the JAX package's reference.py:156).
+    Drives the segment-id kernel path from padded-batch tests."""
+    def ids(mask, seqlen):
+        rows = torch.arange(1, batch + 1, dtype=torch.int32)
+        if mask is None:
+            return rows[:, None].expand(batch, seqlen).contiguous()
+        rows = rows.to(mask.device)[:, None]
+        return torch.where(mask.to(torch.bool), rows, torch.zeros_like(rows))
+    return ids(query_padding_mask, seqlen_q), ids(key_padding_mask, seqlen_k)
