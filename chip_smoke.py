@@ -81,7 +81,19 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      window (4095, 0)); launches exact, the 2x contract against the fp32
      and bf16 plain versions, a second pass bitwise equal; times beside
      SDPA with the dense mask and, for VL-doc, the FlashMask route on the
-     same documents.
+     same documents;
+ 14. attention bias with dbias through `flash_attention(q, k, v, bias)`,
+     bias.requires_grad, causal: Llama-3-8B width's attention (b2 h32 hk8
+     s2048 d128) with a shared (1, 1, s, s), an attn_mask (b, 1, s, s) and
+     a per-head (b, h, s, s) fp32 bias, and T-long's (b16 h16 s2048 d64)
+     with a (1, h, s, s) one: launches exact (the bias instantiations of
+     the forward, dK/dV and dQ kernels and the dbias kernel; no plain
+     version), out and every gradient within twice the bf16 plain
+     version's error against the fp32 plain version, a second pass bitwise
+     equal, the backward's peak memory beside the bias's size, each kernel
+     timed beside the plain version and SDPA with the bias as a float mask;
+     then `capi_bridge.attn_fwd` / `attn_bwd` with an attn_mask on numpy
+     inputs, against the plain versions.
 Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
@@ -732,6 +744,7 @@ def counters():
             "flash_bwd_prep": bwd.flash_bwd_prep,
             "flash_bwd_dkv": bwd.flash_bwd_dkv,
             "flash_bwd_dq": bwd.flash_bwd_dq,
+            "flash_bwd_dbias": bwd.flash_bwd_dbias,
             "fused_heads_bwd": fused_heads.fused_heads_bwd,
             "ln_bwd": layer_norm.ln_bwd,
             "reduced_scores": reduced_scores.calc_reduced_attn_scores}
@@ -962,8 +975,8 @@ def plain_versions():
         return paged.paged_flash_decode_ref(q, cache, softmax_scale,
                                             window_size, softcap)
 
-    def attention_bwd(q, k, v, out, lse, do, *, sm_scale, causal, softcap,
-                      masks=None, **flags):
+    def attention_bwd(q, k, v, out, lse, do, *unused, sm_scale, causal,
+                      softcap, masks=None, **flags):
         keep = masks.keep(q.shape[1], q.device) if masks is not None else None
         if keep is None:
             return bwd.attention_bwd_ref(q, k, v, out, lse, do,
@@ -1039,6 +1052,7 @@ TPU_OF = {
     "flash_bwd_prep": "ops/flash_attention/bwd.py:737 delta (XLA)",
     "flash_bwd_dkv": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel",
     "flash_bwd_dq": "ops/flash_attention/bwd.py:511 _bwd_dq_kernel",
+    "flash_bwd_dbias": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel (dbias)",
     "fused_heads_bwd": "ops/flash_attention/fused_heads.py:105 _bwd_kernel",
     "ln_bwd": "ops/layer_norm.py:102 _ln_bwd_kernel",
     "reduced_scores": "ops/flash_attention/reduced_scores.py:34 _reduced_kernel",
@@ -1054,6 +1068,7 @@ KERNEL_GROUPS = (  # device kernel name fragment -> group
     ("flash_fwd_kernel", "flash_fwd"),
     ("flash_bwd_prep_kernel", "attention bwd"),
     ("flash_bwd_dkv_kernel", "attention bwd"),
+    ("flash_bwd_dbias_kernel", "attention bwd"),
     ("flash_bwd_dq_kernel", "attention bwd"),
     ("ln_fwd_kernel", "rms_norm_add"),
     ("ln_bwd_kernel", "norm bwd"),
@@ -2762,6 +2777,290 @@ def varlen_entries(gen):
     return rows
 
 
+# --------------------------------------------- phase 14: attention bias
+
+# (label, shape, bias kind): Llama-3-8B width's attention with a shared
+# (1, 1, s, s) bias (a relative-position table), the reference C API's
+# attn_mask as PaddlePaddle passes it (b, 1, s, s) and a per-head (b, h, s,
+# s) one; T-long's attention with a batch-broadcast (1, h, s, s) bias
+BIAS_CASES = (("A shared", T_GQA, "shared"), ("A attn_mask", T_GQA, "batch"),
+              ("A per-head", T_GQA, "head"), ("T-long heads", T_LONG,
+                                              "heads"))
+BIAS_ROWS = (("flash_fwd", "flash_fwd.cu", "fwd.py:78"),
+             ("flash_bwd_dkv", "flash_bwd.cu", "bwd.py:180"),
+             ("flash_bwd_dq", "flash_bwd.cu", "bwd.py:511"),
+             ("flash_bwd_dbias", "flash_bwd_dbias.cu", "bwd.py:180"))
+
+
+def bias_shape(kind, b, h, s):
+    return {"shared": (1, 1, s, s), "batch": (b, 1, s, s),
+            "head": (b, h, s, s), "heads": (1, h, s, s)}[kind]
+
+
+def plain_bias_attention(q, k, v, do, bias, upcast):
+    """The plain causal forward and backward with a (bb, bh, s, s) bias, in
+    fp32 (``upcast``) or in the inputs' bf16, a group of kv heads at a time
+    (PLAIN_CHUNK_BYTES): out, lse, dq, dk, dv and dbias summed over the
+    axes the bias broadcasts."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    step = max(1, int(PLAIN_CHUNK_BYTES // (b * g * sq * sk * 4)))
+    cast = (lambda t: t.float()) if upcast else (lambda t: t)
+    parts, dbias = [], None
+    for j in range(0, hk, step):
+        hs, ks = slice(j * g, (j + step) * g), slice(j, j + step)
+        bc = bias if bias.shape[1] == 1 else bias[:, hs]
+        kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0, bias=bc)
+        qc, kc, vc, dc = (cast(t) for t in (q[:, hs], k[:, ks], v[:, ks],
+                                             do[:, hs]))
+        o, lse = fwd.attention_fwd_ref(qc, kc, vc, need_lse=True, **kw)
+        dq, dk, dv, db = bwd.attention_bwd_ref(qc, kc, vc, o, lse, dc, **kw)
+        parts.append((o, lse, dq, dk, dv))
+        if bias.shape[1] > 1:
+            dbias = db if dbias is None else torch.cat([dbias, db], 1)
+        else:
+            db = db.sum(1, keepdim=True) if db.shape[1] > 1 else db
+            dbias = db if dbias is None else dbias + db
+    return [torch.cat(p, 1) for p in zip(*parts)] + [dbias]
+
+
+def _sdpa_bias_ms(q, k, v, do, bias):
+    """SDPA with the bias as a float attn_mask (bf16, as SDPA takes it with
+    bf16 q), enable_gqa: (forward ms, backward ms as fwd + bwd minus fwd,
+    the mask's gradient included). Its own yardstick, used nowhere in the
+    port."""
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    mask = bias.detach().to(torch.bfloat16).requires_grad_()
+    gqa = True
+
+    def fwd():
+        if gqa:
+            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qg, kr, vr, attn_mask=mask)
+    try:
+        fwd()
+    except RuntimeError as exc:  # no backend with GQA and a float mask
+        print(f"  SDPA with enable_gqa and a float mask: {exc}; k and v "
+              "repeated to every query head first", flush=True)
+        g = q.shape[1] // k.shape[1]
+        kr, vr = (t.detach().repeat_interleave(g, 1).requires_grad_()
+                  for t in (k, v))
+        kg, vg, gqa = kr, vr, False
+    with torch.no_grad():
+        only = time_ms([fwd], iters=5, warmup=1)
+    both = time_ms([lambda: torch.autograd.grad(fwd(), (qg, kg, vg, mask),
+                                                do)], iters=5, warmup=1)
+    return only, both - only
+
+
+def bias_case(gen, label, shape, kind):
+    """Phase 14, one case: `flash_attention(q, k, v, bias, causal=True)`
+    forward and backward with bias.requires_grad through the autograd
+    function (the main path: exact launches of the bias instantiations and
+    the dbias kernel, no plain version); out, dq, dk, dv and dbias within
+    twice the bf16 plain version's error against the fp32 plain version; a
+    second pass bitwise equal; the backward's peak memory beside the bias's
+    size; then each kernel timed alone against the plain version, SDPA
+    with the bias as a float mask and its bound (the bias bytes it reads
+    and the dbias it writes). Returns the kernel rows, with this run's
+    launches."""
+    from xhy_flash_attention_tpu_torch import flash_attention
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, s, d = _dims(shape)
+    q, k, v, do = _sparse_inputs(gen, shape)
+    bias = torch.randn(bias_shape(kind, b, h, s), generator=gen,
+                       device="cuda")
+    bias_bytes = bias.numel() * bias.element_size()
+
+    def run():
+        ins = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        out = flash_attention(*ins, causal=True)
+        return (out.detach(),) + torch.autograd.grad(out, ins, do)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with count_plain_calls() as plain:
+        got = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()},
+            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_prep": 1,
+            "flash_bwd_dkv": 1, "flash_bwd_dq": 1, "flash_bwd_dbias": 1}
+    check(counts == want, f"bias {label}: launches {counts} != {want}")
+    check(not plain, f"bias {label}: plain versions ran: {plain}")
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"bias {label}: non-finite output or gradient")
+    check(got[4].shape == bias.shape and got[4].dtype == bias.dtype,
+          f"bias {label}: dbias {tuple(got[4].shape)} {got[4].dtype}")
+    ref = plain_bias_attention(q, k, v, do, bias, upcast=True)
+    low = plain_bias_attention(q, k, v, do, bias, upcast=False)
+    errs = {}
+    for what, g, w, lo in zip(("out", "dq", "dk", "dv", "dbias"), got,
+                              [ref[0]] + ref[2:], [low[0]] + low[2:]):
+        e, e_lp = max_err(g, w), max_err(lo, w)
+        errs[what] = (e, e_lp, max_err(g, lo))
+        check(e <= 2 * e_lp + (1e-4 if what == "out" else 1e-3),
+              f"bias {label} {what}: err vs fp32 plain {e} > 2 x bf16 plain "
+              f"{e_lp}")
+    del ref, low
+    again = run()
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          f"bias {label}: a second pass is not bitwise equal")
+    del again
+    # the backward's peak memory above what it returns and its pre-pass
+    # keeps (q_s, delta)
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    out, lse = fwd.flash_attention_fwd(q, k, v, bias, need_lse=True, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, bias, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = sum(t.numel() * t.element_size() for t in (*grads, q, lse))
+    extra = peak - kept
+    check(extra <= 32 << 20,
+          f"bias {label}: the backward's peak {peak} leaves {extra} bytes "
+          f"beyond its outputs (dbias, of the bias's {bias_bytes}, "
+          "included) and q_s / delta")
+    del grads
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    bkw = dict(kw, bias=bias)
+    runs = {
+        "flash_fwd": lambda: fwd.flash_attention_fwd(q, k, v, bias,
+                                                     need_lse=True, **kw),
+        "flash_bwd_dkv": lambda: bwd.flash_bwd_dkv(qs, k, v, do, lse, delta,
+                                                   dq, dk, dv, **bkw),
+        "flash_bwd_dq": lambda: bwd.flash_bwd_dq(qs, k, v, do, lse, delta,
+                                                 dq, dk, dv, **bkw),
+        "flash_bwd_dbias": lambda: bwd.flash_bwd_dbias(
+            qs, k, v, do, lse, delta, bias, causal=True, softcap=0.0)}
+    ms = {name: time_ms([fn], iters=10) for name, fn in runs.items()}
+    plain_fwd = time_ms([lambda: fwd.attention_fwd_ref(
+        q, k, v, need_lse=True, bias=bias, **kw)], iters=2, warmup=1)
+    plain_bwd = time_ms([lambda: bwd.attention_bwd_ref(
+        q, k, v, out, lse, do, bias=bias, **kw)], iters=2, warmup=1)
+    lib_fwd, lib_bwd = _sdpa_bias_ms(q, k, v, do, bias)
+    pair = 2.0 * b * h * s * s * d / 2  # one causal s x s x d product
+    io = 2.0 * b * s * d * (2 * h + 2 * hk)  # q, do, k, v (bf16)
+    stats = 2 * 4.0 * b * h * s  # lse, delta (fp32)
+    seen = bias_bytes * (s + 1) / (2 * s)  # the causal part of the bias
+    work = {"flash_fwd": (2, 2.0 * b * s * d * (2 * h + 2 * hk)
+                          + 4.0 * b * h * s + seen),
+            "flash_bwd_dkv": (4, io + stats + 4.0 * b * s * hk * d + seen),
+            "flash_bwd_dq": (3, io + stats + 2.0 * b * s * h * d + seen),
+            "flash_bwd_dbias": (2, io + stats + seen + bias_bytes)}
+    errors = {"flash_fwd": errs["out"][2], "flash_bwd_dkv": max(
+        errs["dk"][2], errs["dv"][2]), "flash_bwd_dq": errs["dq"][2],
+        "flash_bwd_dbias": errs["dbias"][2]}
+    rows = []
+    for name, src, where in BIAS_ROWS:
+        n_mm, nbytes = work[name]
+        bms, by = bound(n_mm * pair, PEAK_BF16_FLOPS, nbytes)
+        row = dict(
+            name=f"{name} (bias {label})", route="cuda",
+            source=f"xhy_flash_attention_tpu_torch/csrc/{src}",
+            replaces=f"xhy_flash_attention_tpu/ops/flash_attention/{where}",
+            kernel=name, launches=counts[
+                "flash_fwd (flash_attention_fwd)" if name == "flash_fwd"
+                else name],
+            max_abs_err=errors[name], ms=ms[name],
+            plain_ms=plain_fwd if name == "flash_fwd" else plain_bwd,
+            bound_ms=bms, bound_by=by,
+            library_ms=lib_fwd if name == "flash_fwd" else lib_bwd)
+        report(row, f"max_abs_err against the bf16 plain version; b{b} h{h} "
+                    f"hk{hk} s{s} d{d} causal, bias {tuple(bias.shape)} fp32 "
+                    f"({bias_bytes / 1e9:.4g} GB, {seen / 1e9:.4g} GB of it "
+                    f"causal), {n_mm} products, bytes {nbytes:.4g}; "
+                    + ("plain_ms: the plain forward; library_ms: SDPA with "
+                       "the bias as a float mask" if name == "flash_fwd" else
+                       "plain_ms: the plain backward, library_ms: SDPA's "
+                       "backward with the mask's gradient, both whole"))
+        rows.append(row)
+    whole = ms["flash_bwd_dkv"] + ms["flash_bwd_dq"] + ms["flash_bwd_dbias"]
+    print(f"  bias {label}: b{b} h{h} hk{hk} s{s} d{d} causal, bias "
+          f"{tuple(bias.shape)}; "
+          + ", ".join(f"{w} err {e:.3g} (bf16 plain {e_lp:.3g})"
+                      for w, (e, e_lp, _) in errs.items())
+          + f"; second pass bitwise equal; forward {ms['flash_fwd']:.4f} ms "
+          f"(SDPA {lib_fwd:.4f}); backward kernels dK/dV + dQ + dbias "
+          f"{whole:.4f} ms (SDPA's backward {lib_bwd:.4f}); the backward's "
+          f"peak {peak / 1e6:.1f} MB: its outputs dq, dk, dv and dbias (the "
+          f"bias's {bias_bytes / 1e6:.1f} MB), q_s and delta, and "
+          f"{extra / 1e6:.1f} MB more", flush=True)
+    return rows
+
+
+def bridge_on_card(gen):
+    """Phase 14's end: `capi_bridge.attn_fwd` and `attn_bwd` with an
+    attn_mask (b, 1, s, s) on numpy bf16 arrays (raw uint16) on the card,
+    against the plain versions on the same inputs; launches exact."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch import capi_bridge
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, s, d = 2, 8, 2, 1024, 128
+    q, k, v, do = (t.transpose(1, 2).contiguous() for t in _sparse_inputs(
+        gen, dict(b=b, h=h, hk=hk, s=s, d=d)))  # (b, s, h, d)
+    mask = torch.randn(b, 1, s, s, generator=gen, device="cuda")
+    raw = lambda t: t.cpu().view(torch.int16).numpy().view(np.uint16)  # noqa: E731
+    back = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a).view(np.uint16).view(np.int16)).view(
+        torch.bfloat16).cuda()
+    reset_counts()
+    out, lse = capi_bridge.attn_fwd(raw(q), raw(k), raw(v), mask.cpu().numpy(),
+                                    None, 0.0, 0, 0.0, 1, -1, -1, 0.0)
+    dq, dk, dv, dbias = capi_bridge.attn_bwd(
+        raw(do), raw(q), raw(k), raw(v), out, lse, mask.cpu().numpy(), None,
+        0.0, 0, 0.0, 1, -1, -1, 0.0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()},
+            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_prep": 1,
+            "flash_bwd_dkv": 1, "flash_bwd_dq": 1, "flash_bwd_dbias": 1}
+    check(counts == want, f"capi_bridge: launches {counts} != {want}")
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0, bias=mask)
+    ref, ref_lse = fwd.attention_fwd_ref(qt, kt, vt, need_lse=True, **kw)
+    out_t = back(out).transpose(1, 2)
+    lse_t = torch.from_numpy(lse).cuda()
+    want_g = bwd.attention_bwd_ref(qt, kt, vt, out_t, lse_t, dot, **kw)
+    e_out = max_err(out_t, ref)
+    tol_out = BF16_ULP * ref.float().abs().max().item() + 1e-3
+    check(e_out <= tol_out and max_err(lse_t, ref_lse) <= 1e-3,
+          f"capi_bridge attn_fwd: out err {e_out} > {tol_out} or lse")
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want_g[:3]):
+        e, tol = max_err(back(g).transpose(1, 2), w), \
+            4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+        check(e <= tol, f"capi_bridge attn_bwd {name}: err {e} > {tol}")
+        errs.append(e)
+    e_db = max_err(torch.from_numpy(dbias).cuda(), want_g[3])
+    tol_db = 1e-3 * want_g[3].abs().max().item() + 1e-4
+    check(dbias.shape == (b, 1, s, s) and e_db <= tol_db,
+          f"capi_bridge attn_bwd dbias {dbias.shape}: err {e_db} > {tol_db}")
+    print(f"  capi_bridge on the card: attn_fwd + attn_bwd with an attn_mask "
+          f"(b{b} h{h} hk{hk} s{s} d{d} causal, mask {tuple(mask.shape)} "
+          f"fp32, numpy bf16 as raw uint16): out err {e_out:.3g} (tol "
+          f"{tol_out:.3g}), dq/dk/dv err {max(errs):.3g}, dbias err "
+          f"{e_db:.3g} (tol {tol_db:.3g}) against the plain versions; "
+          f"launches {json.dumps({k_: v_ for k_, v_ in counts.items() if v_})}",
+          flush=True)
+
+
+def bias_entries(gen):
+    """Phase 14: every bias case, then the C-API bridge. Returns the rows."""
+    rows = []
+    for label, shape, kind in BIAS_CASES:
+        rows += bias_case(gen, label, shape, kind)
+        torch.cuda.empty_cache()
+    bridge_on_card(gen)
+    return rows
+
+
 # ------------------------------------------------- phase 8: the training slice
 
 CONFIGS = "xhy_flash_attention_tpu/training/configs/experiment"
@@ -3238,6 +3537,13 @@ def main():
           "VL-gqa, SW", flush=True)
     for key, n in varlen_entries(gen).items():
         launches[key] = launches.get(key, 0) + n
+    torch.cuda.empty_cache()
+    print("[14] attention bias, forward and backward with dbias: Llama-3-8B "
+          "width (shared, attn_mask, per-head) and T-long (per-head, "
+          "batch-broadcast), then the C-API bridge", flush=True)
+    for row in bias_entries(gen):
+        launches[row["name"]] = row["launches"]
+        rows.append(row)
 
     for row in rows:
         row["launches"] = launches.get(

@@ -16,8 +16,11 @@ BS and FM-swg masks the forward through ``flash_attention_fwd`` and the
 masked dK/dV and dQ kernels; the reduced scores at FM-swg's shape; in
 trees whose chip_smoke.py has them, the forward, dK/dV and dQ kernels
 under SW's window and VL-doc's segment ids and positions (the mask
-arguments made once). CUDA events after a warm-up. The trees run first to
-last, then last to first. Prints the card's name and power limit first.
+arguments made once); in trees whose chip_smoke.py has phase 14, the
+forward, dK/dV, dQ and dbias kernels with an attention bias at its cases
+(``--bias-only``: those alone). CUDA events after a warm-up. The trees
+run first to last, then last to first. Prints the card's name and power
+limit first.
 """
 
 from __future__ import annotations
@@ -29,7 +32,33 @@ import sys
 from pathlib import Path
 
 
-def child(root: Path) -> None:
+def bias_rows(cs, bwd, fwd, timed):
+    """The bias rows of phase 14's cases: the forward with the bias, the
+    dK/dV and dQ kernels with it, the dbias kernel."""
+    import torch
+    for label, shape, kind in cs.BIAS_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b, h, hk, s, d = cs._dims(shape)
+        q, k, v, do = cs._sparse_inputs(gen, shape)
+        bias = torch.randn(cs.bias_shape(kind, b, h, s), generator=gen,
+                           device="cuda")
+        kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+        timed(f"bias fwd {label}", lambda: fwd.flash_attention_fwd(
+            q, k, v, bias, need_lse=True, **kw))
+        o, lse = fwd.flash_attention_fwd(q, k, v, bias, need_lse=True, **kw)
+        qs, delta = bwd.flash_bwd_prep(q, o, do, sm_scale=kw["sm_scale"])
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        for which, fn in (("dkv", bwd.flash_bwd_dkv), ("dq", bwd.flash_bwd_dq)):
+            timed(f"bias {which} {label}", lambda fn=fn: fn(
+                qs, k, v, do, lse, delta, *grads, bias=bias, **kw), iters=10)
+        timed(f"bias dbias {label}", lambda: bwd.flash_bwd_dbias(
+            qs, k, v, do, lse, delta, bias, causal=True, softcap=0.0),
+            iters=10)
+        del q, k, v, do, o, lse, qs, delta, grads, bias
+        torch.cuda.empty_cache()
+
+
+def child(root: Path, bias_only: bool = False) -> None:
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke as cs
@@ -45,6 +74,10 @@ def child(root: Path) -> None:
     def timed(label, fn, iters=20):
         out.append(f"{label} {cs.time_ms([fn], iters=iters):.4f}")
 
+    if bias_only:
+        bias_rows(cs, bwd, fwd, timed)
+        print(f"{root}: " + "; ".join(out), flush=True)
+        return
     for name, (b, h, hk, s, d) in (("A", (2, 32, 8, 2048, 128)),
                                    ("T-long", (16, 16, 16, 2048, 64))):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -132,16 +165,20 @@ def child(root: Path) -> None:
                     iters=10)
             del q, k, v, do, o, lse, qs, delta, grads, masks, dst
             torch.cuda.empty_cache()
+    if hasattr(cs, "BIAS_CASES"):
+        bias_rows(cs, bwd, fwd, timed)
     print(f"{root}: " + "; ".join(out), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*")
+    ap.add_argument("--bias-only", action="store_true",
+                    help="time phase 14's bias rows alone")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(Path(args.child))
+        child(Path(args.child), args.bias_only)
         return
     if len(args.roots) < 2:
         raise SystemExit("give two or more tree roots")
@@ -151,7 +188,8 @@ def main():
     roots = [str(Path(r).resolve()) for r in args.roots]
     for root in roots + roots[::-1]:
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                        root], check=True, cwd=root,
+                        root] + (["--bias-only"] if args.bias_only else []),
+                       check=True, cwd=root,
                        env={**os.environ, "PYTHONUNBUFFERED": "1"})
 
 

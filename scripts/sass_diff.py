@@ -6,11 +6,15 @@
 
 Builds each tree's kernels (its own build directory, in a child process
 with that tree's package) unless built, then for every instantiation of
-`flash_fwd_kernel`, `flash_bwd_dkv_kernel` and `flash_bwd_dq_kernel`
-prints, per tree, the ptxas report's registers and spills and the SASS
-instruction count (`cuobjdump -sass`), and whether the opcode streams of
-the two trees are the same (operands, addresses and constants ignored),
-else how many opcodes a diff of the two streams changes.
+`flash_fwd_kernel`, `flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel` and
+`flash_bwd_dbias_kernel` prints, per tree, the ptxas report's registers
+and spills and the SASS instruction count (`cuobjdump -sass`), and whether
+the opcode streams of the two trees are the same (operands, addresses and
+constants ignored), else how many opcodes a diff of the two streams
+changes. A kernel that gained a trailing template flag (the bias flag of
+the attention kernels) is matched with its `false` instantiation: an
+instantiation `<..., false>` of the second tree stands beside `<...>` of
+the first when the first has no `<..., false>`.
 Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
 """
 
@@ -22,7 +26,18 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_kernel<[^>]*>")
+KERNELS = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)_kernel<[^>]*>")
+
+
+def matched(first, second):
+    """{name in the second tree: its name in the first}: the same name, or
+    the name without a trailing ", false" flag that the first lacks."""
+    out = {}
+    for name in second:
+        base = name[:-len(", false>")] + ">" \
+            if name.endswith(", false>") else None
+        out[name] = base if name not in first and base in first else name
+    return out
 
 
 def build(root: Path) -> Path:
@@ -87,8 +102,11 @@ def main():
         raise SystemExit("give two tree roots")
     libs = [build(r) for r in roots]
     reports, codes = [ptxas(lib) for lib in libs], [sass(lib) for lib in libs]
-    for name in sorted(set(codes[0]) | set(codes[1])):
-        a, b = codes[0].get(name), codes[1].get(name)
+    pairs = matched(codes[0], codes[1])
+    pairs.update({n: n for n in codes[0] if n not in pairs.values()})
+    for name in sorted(pairs):
+        old = pairs[name]
+        a, b = codes[0].get(old), codes[1].get(name)
         same = "same opcodes"
         if a != b:
             ops = difflib.SequenceMatcher(None, a or [], b or [],
@@ -96,8 +114,9 @@ def main():
             changed = sum(max(i2 - i1, j2 - j1)
                           for tag, i1, i2, j1, j2 in ops if tag != "equal")
             same = f"{changed} opcodes differ"
-        print(f"{name}: {len(a) if a else None} / {len(b) if b else None} "
-              f"instructions, {same}; {reports[0].get(name)} | "
+        label = name if old == name else f"{old} -> {name}"
+        print(f"{label}: {len(a) if a else None} / {len(b) if b else None} "
+              f"instructions, {same}; {reports[0].get(old)} | "
               f"{reports[1].get(name)}", flush=True)
 
 

@@ -159,10 +159,11 @@ def test_attention_inputs_needing_grad_raise():
     assert "no backward" in NO_BACKWARD
 
 
-@pytest.mark.parametrize("kw", [dict(bias=torch.zeros(1, 2, 8, 8)),
+@pytest.mark.parametrize("kw", [dict(dtype=torch.float8_e4m3fn),
                                 dict(dropout_p=0.1, dropout_seed=0)])
 def test_unported_flags_raise(kw):
-    q = torch.randn(1, 2, 8, 64)
+    kw = dict(kw)
+    q = torch.randn(1, 2, 8, 64).to(kw.pop("dtype", torch.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attention(q, q, q, causal=True, **kw)
 

@@ -1733,3 +1733,143 @@ def test_window_bwd_is_deterministic_and_graphable(cuda):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+# ---- attention bias and dbias (the bias instantiations of #1, #2, #3 and
+# the dbias kernel)
+
+def _bias_shape(kind, b, h, sq, sk):
+    return {"2d": (sq, sk), "3d": (b, sq, sk), "1h": (1, h, sq, sk),
+            "b1": (b, 1, sq, sk), "bh": (b, h, sq, sk)}[kind]
+
+
+def _bias_inputs(cuda, kind, b, h, hk, sq, sk, d, dtype=torch.float32):
+    q, do = (torch.randn(b, sq, h, d, generator=cuda, device="cuda")
+             .bfloat16().transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, sk, hk, d, generator=cuda, device="cuda")
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    bias = 2 * torch.randn(_bias_shape(kind, b, h, sq, sk), generator=cuda,
+                           device="cuda")
+    return q, k, v, do, bias.to(dtype)
+
+
+def _bias_kernels_vs_plain(q, k, v, do, bias, causal, softcap=0.0,
+                           window=(-1, -1), **flags):
+    """The forward, the dK/dV and dQ kernels and the dbias kernel with a
+    bias, against the plain versions on the same inputs: one launch each;
+    out within one bf16 unit of its largest entry + 1e-3, the LSE within
+    1e-3 where finite (the same rows +inf), dq/dk/dv within four bf16
+    units of their largest entry + 1e-4 (as the kernels without a bias),
+    dbias in the bias's shape and dtype within 1e-3 (fp32; bf16: one bf16
+    unit) of its largest entry + 1e-4 (fp32 sums in another order, exp2 on
+    the SFU); a second backward bitwise equal. Returns the gradients."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    eff, kmasks = fwd.build_masks(b, h, sq, sk, causal, window, **flags)
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=softcap)
+    mask = kmasks.keep(h, q.device)
+    bias4 = fwd.bias_view(bias, b, h, sq, sk)
+    count = lambda: (fwd.flash_attention_fwd.launches,  # noqa: E731
+                     bwd.flash_bwd_prep.launches, bwd.flash_bwd_dkv.launches,
+                     bwd.flash_bwd_dq.launches, bwd.flash_bwd_dbias.launches)
+    before = count()
+    out, lse = fwd.flash_attention_fwd(q, k, v, bias, need_lse=True,
+                                       masks=kmasks, **kw)
+    got = bwd.flash_attention_bwd(q, k, v, out, lse, do, bias, masks=kmasks,
+                                  **kw)
+    torch.cuda.synchronize()
+    assert count() == tuple(n + 1 for n in before)
+    ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=mask,
+                                         bias=bias4, **kw)
+    want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=mask,
+                                 bias=bias4, **kw)
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-3
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert _err(lse[finite], ref_lse[finite]) <= 1e-3
+    for g, w in zip(got[:3], want[:3]):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    dbias, want_db = got[3], want[3].reshape(bias.shape)
+    assert dbias.shape == bias.shape and dbias.dtype == bias.dtype
+    rel = BF16_ULP if bias.dtype == torch.bfloat16 else 1e-3
+    assert _err(dbias, want_db) <= rel * want_db.float().abs().max().item() \
+        + 1e-4
+    again = bwd.flash_attention_bwd(q, k, v, out, lse, do, bias,
+                                    masks=kmasks, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["2d", "3d", "1h", "b1", "bh"])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 333)])
+def test_bias_kernels_match_plain(cuda, sq, sk, kind, causal, d):
+    """Every bias kind through the dense instantiations (causal and full),
+    GQA (h 4 over hk 2), sk even (the bias read in place) and odd (copied
+    once into rows of even length), sq != sk."""
+    q, k, v, do, bias = _bias_inputs(cuda, kind, 2, 4, 2, sq, sk, d)
+    _bias_kernels_vs_plain(q, k, v, do, bias, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["2d", "3d", "1h", "b1", "bh"])
+@pytest.mark.parametrize("flag", ["window", "segments", "positions"])
+def test_bias_masked_kernels_match_plain(cuda, flag, kind, d):
+    """A bias through the masked instantiations: a causal window (100, 0),
+    segment ids with a padded tail, q/kv positions (decoupled packings);
+    s 333."""
+    b, h, hk, s = 2, 4, 2, 333
+    q, k, v, do, bias = _bias_inputs(cuda, kind, b, h, hk, s, s, d)
+    flags, window = {}, (-1, -1)
+    if flag == "window":
+        window = (100, -1)
+    elif flag == "segments":
+        flags = dict(q_segment_ids=_ids(cuda, b, s, 4, True, pad=30),
+                     kv_segment_ids=_ids(cuda, b, s, 4, True, pad=11))
+    else:
+        pos = torch.arange(s, device="cuda", dtype=torch.int32)
+        flags = dict(q_positions=(pos // 2)[None].repeat(b, 1),
+                     kv_positions=pos[None].repeat(b, 1))
+    _bias_kernels_vs_plain(q, k, v, do, bias, True, window=window, **flags)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["2d", "1h", "bh"])
+def test_bias_softcap_gqa_bf16(cuda, kind, d):
+    """A bf16 bias with softcap (the bias after it) and a GQA group of 4:
+    dbias of a head-broadcast bias summed over the group's heads and the
+    batch."""
+    q, k, v, do, bias = _bias_inputs(cuda, kind, 2, 8, 2, 300, 300, d,
+                                     torch.bfloat16)
+    _bias_kernels_vs_plain(q, k, v, do, bias, True, softcap=20.0)
+
+
+def test_bias_only_gradient_and_guard(cuda):
+    """Through flash_attention's autograd: with only the bias needing a
+    gradient, the backward launches the pre-pass and the dbias kernel and
+    neither dK/dV nor dQ; a bias that is a view at the start of a larger
+    buffer whose tail is NaN gives the same bits as a clean copy (no
+    element past its last is read into a result)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, interface
+    b, h, hk, s, d = 2, 4, 2, 384, 128
+    q, k, v, do, bias = _bias_inputs(cuda, "b1", b, h, hk, s, s, d)
+    buf = torch.full((bias.numel() + 4096,), float("nan"), device="cuda")
+    guarded = buf[:bias.numel()].view(bias.shape)
+    guarded.copy_(bias)
+    runs = []
+    for t in (bias, guarded):
+        bg = t.detach().requires_grad_()
+        before = (bwd.flash_bwd_prep.launches, bwd.flash_bwd_dkv.launches,
+                  bwd.flash_bwd_dq.launches, bwd.flash_bwd_dbias.launches)
+        out = interface.flash_attention(q, k, v, bg, causal=True)
+        (db,) = torch.autograd.grad(out, (bg,), do)
+        torch.cuda.synchronize()
+        assert (bwd.flash_bwd_prep.launches, bwd.flash_bwd_dkv.launches,
+                bwd.flash_bwd_dq.launches, bwd.flash_bwd_dbias.launches) == (
+            before[0] + 1, before[1], before[2], before[3] + 1)
+        runs.append((out, db))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    assert bool(torch.isfinite(runs[0][1]).all())

@@ -278,6 +278,17 @@ __device__ __forceinline__ bool pair_block(int pair, int half, int n_blocks, int
   return half == 0 || j != n_blocks - 1 - j;
 }
 
+// pair_block and next_block with the batch taken fastest when
+// `batch_fast` (a bias instantiation's bias shared by every batch: the CTAs
+// at work at one time then read one head's bias from L2, where by head
+// order each batch reads the heads' bias from memory again).
+__device__ __forceinline__ bool pair_block_by(bool batch_fast, int pair, int half, int n_blocks,
+                                              int heads, int b, bool heavy_last, int& block,
+                                              int& head, int& batch) {
+  return batch_fast ? pair_block(pair, half, n_blocks, b, heavy_last, block, batch, head)
+                    : pair_block(pair, half, n_blocks, heads, heavy_last, block, head, batch);
+}
+
 // The query tiles of M rows that the key block of N keys at n0 visits for
 // each head of its group: tiles [first, n_qt), the masked ones first (the
 // causal diagonal tiles [first, f0), then the ragged tail [f1, n_qt)), then
@@ -539,6 +550,99 @@ __device__ __forceinline__ bool next_block(int* next, int b, int n_blocks, int h
     const int pair = ((item >> 1) - j * n_bh) * per_head + j;
     if (pair_block(pair, item & 1, n_blocks, heads, heavy_last, block, head, batch)) return true;
   }
+}
+
+// ---- attention bias (ops fwd.py bias_c_args): a (bb, bh, sq, sk) fp32
+// or bf16 tensor added to the scores after softcap, before the masks (the
+// TPU kernels' fwd.py:353-354, bwd.py:131-132). Broadcasting is by
+// strides: batch or head stride 0 on a broadcast axis; keys contiguous;
+// the pointer and the row stride even, so that a key pair (2t, 2t + 1) of
+// an accumulator fragment is one 8-byte (fp32) or 4-byte (bf16) load (an
+// odd sk comes padded to an even row by the wrapper).
+struct BiasParams {
+  const void* ptr;       // null: no bias
+  int64_t sb, sh, ss;    // element strides of the batch, head and row axes
+  int dtype;             // kF32 or kBF16
+};
+
+#define XFA_BIAS_ARGS \
+  const void *bias, int64_t bias_sb, int64_t bias_sh, int64_t bias_ss, int bias_dtype
+#define XFA_BIAS_VALUES \
+  xfa::BiasParams { bias, bias_sb, bias_sh, bias_ss, bias_dtype }
+
+__device__ __forceinline__ float2 bias_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* p) {
+  const unsigned int w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+__device__ __forceinline__ float bias_one(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float bias_one(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// The loads below are unconditional, their row and key clamped into the
+// tensor (no byte past it is read): an element at or past sq or sk gets a
+// neighbour's value, and every kernel masks such an element (the
+// elementwise test of a ragged tile, P 0 on rows past sq) or drops its
+// result (rows past sq, keys past sk). Loads guarded per pair took the
+// forward and dK/dV 30-40% longer on the card (PERF.md section 6).
+template <int N, typename T>
+__device__ __forceinline__ void bias_rows(float (&b)[N / 2], const T* p, int64_t ss, int row0,
+                                          int n0, int sq, int sk, int t) {
+  const int cmax = (sk - 1) & ~1;  // the last pair's first key
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v =
+          bias_pair(p + min(row0 + 8 * r, sq - 1) * ss + min(n0 + 8 * j + 2 * t, cmax));
+      b[4 * j + 2 * r] = v.x;
+      b[4 * j + 2 * r + 1] = v.y;
+    }
+  }
+}
+
+// The bias of a row-major accumulator fragment of N keys (wgmma m64nN:
+// register i at row row0 + ((i >> 1) & 1) * 8, key n0 + (i >> 2) * 8 + 2t
+// + (i & 1)) of the (batch, head) at element offset `base`. Issued before
+// the wait on the scores' wgmma, so that the loads run under the products.
+template <int N>
+__device__ __forceinline__ void load_bias_rows(float (&b)[N / 2], const BiasParams& bp,
+                                               int64_t base, int row0, int n0, int sq, int sk,
+                                               int t) {
+  if (bp.dtype == kBF16)
+    bias_rows<N>(b, static_cast<const __nv_bfloat16*>(bp.ptr) + base, bp.ss, row0, n0, sq, sk, t);
+  else
+    bias_rows<N>(b, static_cast<const float*>(bp.ptr) + base, bp.ss, row0, n0, sq, sk, t);
+}
+
+template <int M, typename T>
+__device__ __forceinline__ void bias_cols(float (&b)[M / 2], const T* p, int64_t ss, int key0,
+                                          int m0, int sq, int sk, int t) {
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i)
+    b[i] = bias_one(p + min(m0 + (i >> 2) * 8 + 2 * t + (i & 1), sq - 1) * ss +
+                    min(key0 + ((i >> 1) & 1) * 8, sk - 1));
+}
+
+// The bias of a transposed fragment (dK/dV's S^T: register i at key key0 +
+// ((i >> 1) & 1) * 8 and query row m0 + (i >> 2) * 8 + 2t + (i & 1)); one
+// element a load (the pair's two rows are a row stride apart).
+template <int M>
+__device__ __forceinline__ void load_bias_cols(float (&b)[M / 2], const BiasParams& bp,
+                                               int64_t base, int key0, int m0, int sq, int sk,
+                                               int t) {
+  if (bp.dtype == kBF16)
+    bias_cols<M>(b, static_cast<const __nv_bfloat16*>(bp.ptr) + base, bp.ss, key0, m0, sq, sk, t);
+  else
+    bias_cols<M>(b, static_cast<const float*>(bp.ptr) + base, bp.ss, key0, m0, sq, sk, t);
+}
+
+__device__ __forceinline__ bool next_block_by(bool batch_fast, int* next, int b, int n_blocks,
+                                              int heads, bool heavy_last, int& block, int& head,
+                                              int& batch) {
+  return batch_fast ? next_block(next, heads, n_blocks, b, heavy_last, block, batch, head)
+                    : next_block(next, b, n_blocks, heads, heavy_last, block, head, batch);
 }
 
 // Emit, with the producer's whole warp, the tiles a block visits for one

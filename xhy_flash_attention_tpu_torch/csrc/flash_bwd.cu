@@ -128,6 +128,16 @@
 //   block's K/V (dK/dV) or q_s (dQ); the consumers make their keys' or
 //   rows' limits per tile (common.cuh key_limit, row_limit): two compares
 //   per element for the window, three for segments and positions.
+//
+// * Attention bias (BIAS, both kernels and instantiations; bwd.py:131-132 of
+//   the TPU package): each consumer reads its fragment's bias from global
+//   memory under the tile's products, as the forward does (common.cuh
+//   load_bias_rows; dK/dV's transposed fragment load_bias_cols, an element a
+//   load), and adds it after softcap to rebuild P; blocks are taken batch
+//   first for a bias shared by the batches (common.cuh pair_block_by). dS
+//   stays the softcap-scaled gradient of the products; dbias, the gradient
+//   before the softcap derivative summed over the bias's broadcast axes, is
+//   flash_bwd_dbias.cu's.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -302,6 +312,8 @@ struct BwdParams {
   xfa::MaskParams mask;
   const int4* bands;
   int* next;
+  // the bias instantiations' bias (common.cuh BiasParams)
+  xfa::BiasParams bias;
 };
 
 // The query tiles of a dK/dV block (common.cuh query_tiles; bwd.py
@@ -363,17 +375,20 @@ __device__ __forceinline__ void issue_rs(float (&c)[D / 2], const uint32_t (&a)[
 }
 
 // P and dS of one element: the score x (fp32, before softcap), dp its dP,
-// lse2 = LSE log2(e), delta; visible false gives 0 for both. SOFTCAP is a
-// template flag so that the unrolled loops carry no test per element.
-template <bool SOFTCAP>
+// lse2 = LSE log2(e), delta; visible false gives 0 for both; with BIAS the
+// element's bias added after softcap, as the forward adds it. SOFTCAP and
+// BIAS are template flags so that the unrolled loops carry no test per
+// element.
+template <bool SOFTCAP, bool BIAS = false>
 __device__ __forceinline__ void p_ds(float x, float dp, float lse2, float delta, bool visible,
-                                     float softcap, float& pr, float& ds) {
+                                     float softcap, float& pr, float& ds, float bias = 0.f) {
   float fac = 1.f;
   if (SOFTCAP) {
     const float th = tanhf(x / softcap);
     x = th * softcap;
     fac = 1.f - th * th;
   }
+  if constexpr (BIAS) x += bias;
   pr = visible ? ex2(fmaf(x, kLog2e, -lse2)) : 0.f;
   ds = pr * (dp - delta) * fac;
 }
@@ -382,12 +397,13 @@ __device__ __forceinline__ void p_ds(float x, float dp, float lse2, float delta,
 // dp: dP^T -> dS^T), this thread's keys key0 and key0 + 8 as rows and the
 // tile's rows m0 + c as columns; LSE and delta per column from shared
 // memory; with MASK the elementwise causal / sq test, with NB > 0 also the
-// first NB FlashMask bands of the two keys (b0, b1).
-template <bool MASK, bool SOFTCAP, int NB = 0>
+// first NB FlashMask bands of the two keys (b0, b1); with BIAS the tile's
+// bias `bv` (common.cuh load_bias_cols).
+template <bool MASK, bool SOFTCAP, int NB = 0, bool BIAS = false>
 __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[kDkvRows / 2],
                                          const float* lse, const float* delta, int key0, int m0,
                                          const BwdParams& p, int t, int4 b0 = int4{},
-                                         int4 b1 = int4{}) {
+                                         int4 b1 = int4{}, const float* bv = nullptr) {
 #pragma unroll
   for (int i = 0; i < kDkvRows / 2; ++i) {
     const int c = (i >> 2) * 8 + 2 * t + (i & 1);  // the query row in the tile
@@ -397,7 +413,8 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
       visible = row < p.sq && (!p.causal || key <= row + p.sk - p.sq);
       if (NB > 0) visible = visible & !xfa::banned<NB>((i >> 1) & 1 ? b1 : b0, row);
     }
-    p_ds<SOFTCAP>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i]);
+    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i],
+                        BIAS ? bv[i] : 0.f);
   }
 }
 
@@ -407,12 +424,13 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
 // FlashMask bands (b0, b1) and with INFO each row's segment id and position
 // (`qinfo`, in the stage) against the key's (`kinfo`: key0's, staged with
 // K/V; key0 + 8's 8 further); P and dS as dkv_p_ds.
-template <bool SOFTCAP, int NB, bool INFO>
+template <bool SOFTCAP, int NB, bool INFO, bool BIAS = false>
 __device__ __forceinline__ void dkv_p_ds_masked(float (&s)[kDkvRows / 2],
                                                 float (&dp)[kDkvRows / 2], const float* lse,
                                                 const float* delta, int key0, int m0,
                                                 const int4* qinfo, const int4* kinfo,
-                                                const BwdParams& p, int t, int4 b0, int4 b1) {
+                                                const BwdParams& p, int t, int4 b0, int4 b1,
+                                                const float* bv = nullptr) {
   int rmin[2], rmax[2];
   int4 kt[2];
 #pragma unroll
@@ -427,7 +445,8 @@ __device__ __forceinline__ void dkv_p_ds_masked(float (&s)[kDkvRows / 2],
     bool visible = (row >= rmin[r]) & (row <= rmax[r]);
     if (NB > 0) visible = visible & !xfa::banned<NB>(r ? b1 : b0, row);
     if (INFO) visible = visible & xfa::tokens_meet(kt[r], xfa::token_at(qinfo, c));
-    p_ds<SOFTCAP>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i]);
+    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i],
+                        BIAS ? bv[i] : 0.f);
   }
 }
 
@@ -436,12 +455,12 @@ __device__ __forceinline__ void dkv_p_ds_masked(float (&s)[kDkvRows / 2],
 // n0 + c as columns; with MASK the elementwise causal / sk test and the
 // parts of the tile's keys that are on (`parts`: bit 0 keys [0, 64), bit
 // 1 [64, 128)); with NB > 0 also each column's first NB FlashMask bands
-// (`bands`, in shared memory).
-template <bool MASK, bool SOFTCAP, int N, int NB = 0>
+// (`bands`, in shared memory); with BIAS the tile's bias `bv`.
+template <bool MASK, bool SOFTCAP, int N, int NB = 0, bool BIAS = false>
 __device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2],
                                       const float (&lse2)[2], const float (&delta)[2], int row0,
                                       int n0, const BwdParams& p, int t, int parts = 3,
-                                      const int4* bands = nullptr) {
+                                      const int4* bands = nullptr, const float* bv = nullptr) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
@@ -453,7 +472,8 @@ __device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2
       if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
     }
     float pr;
-    p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i]);
+    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i],
+                        BIAS ? bv[i] : 0.f);
   }
 }
 
@@ -463,12 +483,12 @@ __device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2
 // INFO each key's segment id and position (`kinfo`), both in the stage,
 // against the row's (`qinfo`: row0's, staged with q_s; row0 + 8's 8
 // further); dS as dq_ds.
-template <bool SOFTCAP, int N, int NB, bool INFO>
+template <bool SOFTCAP, int N, int NB, bool INFO, bool BIAS = false>
 __device__ __forceinline__ void dq_ds_masked(const float (&s)[N / 2], float (&dp)[N / 2],
                                              const float (&lse2)[2], const float (&delta)[2],
                                              int row0, int n0, const BwdParams& p, int t,
                                              int parts, const int4* bands, const int4* kinfo,
-                                             const int4* qinfo) {
+                                             const int4* qinfo, const float* bv = nullptr) {
   int lo[2], hi[2];
   int4 qt[2];
 #pragma unroll
@@ -485,7 +505,8 @@ __device__ __forceinline__ void dq_ds_masked(const float (&s)[N / 2], float (&dp
     if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
     if (INFO) visible = visible & xfa::tokens_meet(qt[r], xfa::token_at(kinfo, c));
     float pr;
-    p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i]);
+    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i],
+                        BIAS ? bv[i] : 0.f);
   }
 }
 
@@ -540,7 +561,7 @@ __device__ __forceinline__ void dkv_load_tile(const CUtensorMap* tq, const CUten
   sm90::tma_load_1d(t_st + 2 * S::kTile + S::kStatStride, tdelta, bar_t + 8 * st, c0);
 }
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
@@ -559,6 +580,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_nb = (p.sk + kDkvKeys - 1) / kDkvKeys;
   const int n_pairs = xfa::block_pairs(n_nb, p.hk, p.b);
   const int group = p.h / p.hk;
+  // a bias shared by every batch: blocks batch first (common.cuh pair_block_by)
+  const bool batch_fast = BIAS && p.bias.sb == 0 && p.b > 1;
 
   if (threadIdx.x == 0) {
     for (int kb = 0; kb < 2; ++kb) {
@@ -587,7 +610,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
           for (int half = 0; half < 2; ++half) {
             int n_block, kv_head, batch;
-            if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+            if (!xfa::pair_block_by(batch_fast, pair, half, n_nb, p.hk, p.b, false, n_block,
+                                    kv_head, batch))
+              continue;
             const int n0 = n_block * kDkvKeys;
             const xfa::QueryTilePlan pl = dkv_plan(n0, p.sq, p.sk, p.causal);
             const int kb = kv & 1;
@@ -624,7 +649,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (;;) {
         int n_block = 0, kv_head = 0, batch = 0;
         const bool more =
-            xfa::next_block(p.next, p.b, n_nb, p.hk, false, n_block, kv_head, batch);
+            xfa::next_block_by(batch_fast, p.next, p.b, n_nb, p.hk, false, n_block, kv_head,
+                               batch);
         const int kb = kv & 1;
         if (lead) {
           sm90::mbar_wait(bar_kve + 8 * kb, ((kv >> 1) & 1) ^ 1);
@@ -718,7 +744,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         batch = blk.z;
       } else {
         if (pair >= n_pairs) break;
-        const bool ok = xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch);
+        const bool ok = xfa::pair_block_by(batch_fast, pair, half, n_nb, p.hk, p.b, false,
+                                           n_block, kv_head, batch);
         if (half == 1) pair += gridDim.x;
         half ^= 1;
         if (!ok) continue;
@@ -778,6 +805,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         issue_ss<D, kDkvRows>(s, k_wg, kDkvKeys * kRow, t_st, kDkvRows * kRow);
         issue_ss<D, kDkvRows>(dp, v_wg, kDkvKeys * kRow, t_st + S::kTile, kDkvRows * kRow);
         sm90::wgmma_commit();
+        // BIAS: the tile's bias for query head kv_head * group + gi, under the products
+        float bv[BIAS ? kDkvRows / 2 : 1];
+        if constexpr (BIAS)
+          xfa::load_bias_cols<kDkvRows>(
+              bv, p.bias, batch * p.bias.sb + (kv_head * group + gi) * p.bias.sh, key0, m0, p.sq,
+              p.sk, t);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(s);
         sm90::fence_regs(dp);
@@ -785,16 +818,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* lse = reinterpret_cast<const float*>(stage + 2 * S::kTile) + ((stat0 + m0) & 3);
         const float* delta = lse + S::kStatStride / 4;
         if (!(flags & kElem)) {
-          dkv_p_ds<false, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
+          dkv_p_ds<false, SOFTCAP, 0, BIAS>(s, dp, lse, delta, key0, m0, p, t, {}, {}, bv);
         } else if constexpr (!MASKED) {
-          dkv_p_ds<true, SOFTCAP>(s, dp, lse, delta, key0, m0, p, t);
+          dkv_p_ds<true, SOFTCAP, 0, BIAS>(s, dp, lse, delta, key0, m0, p, t, {}, {}, bv);
         } else {
           const int4* qinfo = reinterpret_cast<const int4*>(stage + S::kQInfo);
           const int4* kinfo = reinterpret_cast<const int4*>(smem + S::kKInfo +
                                                             kb * kBlockInfoBytes) +
                               (key0 - n0);
-#define XFA_DKV(NB, I) \
-  dkv_p_ds_masked<SOFTCAP, NB, I>(s, dp, lse, delta, key0, m0, qinfo, kinfo, p, t, b0, b1)
+#define XFA_DKV(NB, I)                                                                        \
+  dkv_p_ds_masked<SOFTCAP, NB, I, BIAS>(s, dp, lse, delta, key0, m0, qinfo, kinfo, p, t, b0, b1, \
+                                        bv)
           const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
           if (!(flags & kBand)) {
             if (flags & kInfo) XFA_DKV(0, true);
@@ -833,7 +867,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- dQ
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tdo,
@@ -851,6 +885,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_kv = bar_qe + 16, bar_e = bar_kv + 8 * S::kStages;
   const int n_mb = (p.sq + kDqRows - 1) / kDqRows;
   const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
+  // a bias shared by every batch: blocks batch first (common.cuh pair_block_by)
+  const bool batch_fast = BIAS && p.bias.sb == 0 && p.b > 1;
 
   if (threadIdx.x == 0) {
     for (int qb = 0; qb < 2; ++qb) {
@@ -898,7 +934,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
           for (int half = 0; half < 2; ++half) {
             int m_block, head, batch, n_tiles, n_free;
-            if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+            if (!xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true, m_block, head,
+                                    batch))
+              continue;
             const int q0 = m_block * kDqRows;
             xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
             if (n_tiles == 0) continue;
@@ -923,7 +961,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (;;) {
         int m_block = 0, head = 0, batch = 0, lo = 0, hi = 0, f_lo = 0, f_hi = 0;
         const bool more =
-            xfa::next_block(p.next, p.b, n_mb, p.h, true, m_block, head, batch);
+            xfa::next_block_by(batch_fast, p.next, p.b, n_mb, p.h, true, m_block, head, batch);
         const int q0 = m_block * kDqRows;
         if (more) xfa::key_window<kDqRows, kN>(m, batch, q0, p.sq, p.sk, lo, hi, f_lo, f_hi);
         const int n_tiles = hi - lo;
@@ -1011,7 +1049,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         batch = blk.z;
       } else {
         if (pair >= n_pairs) break;
-        const bool ok = xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch);
+        const bool ok = xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true,
+                                           m_block, head, batch);
         if (half == 1) pair += gridDim.x;
         half ^= 1;
         if (!ok) continue;
@@ -1071,24 +1110,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         issue_ss<D, kN>(s, q_wg, kDqRows * kRow, k_st, kN * kRow);  // S = q_s K^T
         issue_ss<D, kN>(dp, do_wg, kDqRows * kRow, v_st, kN * kRow);  // dP = dO V^T
         sm90::wgmma_commit();
+        float bv[BIAS ? kN / 2 : 1];  // BIAS: the tile's bias, under the products
+        if constexpr (BIAS)
+          xfa::load_bias_rows<kN>(bv, p.bias, batch * p.bias.sb + head * p.bias.sh, row0, n0,
+                                  p.sq, p.sk, t);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(s);
         sm90::fence_regs(dp);
         // after the block's last products on q_s and dO in shared memory
         if (!MASKED && i == n_tiles - 1 && lane == 0) sm90::mbar_arrive(bar_qe + 8 * qb);
         if (!(flags & kElem)) {
-          dq_ds<false, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t);
+          dq_ds<false, SOFTCAP, kN, 0, BIAS>(s, dp, lse2, delta, row0, n0, p, t, 3, nullptr, bv);
         } else if constexpr (!MASKED) {
-          dq_ds<true, SOFTCAP, kN>(s, dp, lse2, delta, row0, n0, p, t, parts);
+          dq_ds<true, SOFTCAP, kN, 0, BIAS>(s, dp, lse2, delta, row0, n0, p, t, parts, nullptr, bv);
         } else {
           const int4* bands = reinterpret_cast<const int4*>(stage + S::kBands);
           const int4* kinfo = reinterpret_cast<const int4*>(stage + S::kKInfo);
           const int4* qinfo = reinterpret_cast<const int4*>(smem + S::kQInfo +
                                                             qb * kBlockInfoBytes) +
                               (row0 - q0);
-#define XFA_DQ(NB, I) \
-  dq_ds_masked<SOFTCAP, kN, NB, I>(s, dp, lse2, delta, row0, n0, p, t, parts, bands, kinfo, \
-                                   qinfo)
+#define XFA_DQ(NB, I)                                                                       \
+  dq_ds_masked<SOFTCAP, kN, NB, I, BIAS>(s, dp, lse2, delta, row0, n0, p, t, parts, bands, kinfo, \
+                                         qinfo, bv)
           const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
           if (!(flags & kBand)) {
             if (flags & kInfo) XFA_DQ(0, true);
@@ -1131,43 +1174,49 @@ inline cudaError_t grid_size(int n_blocks, int heads, const BwdParams& p, bool m
   return err;
 }
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 cudaError_t launch_dkv_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
-  cudaError_t err = sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP, MASKED>,
+  cudaError_t err = sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP, MASKED, BIAS>,
                                           DkvSmem<D, MASKED>::kBytes, done);
   int grid = 0;
   if (err == cudaSuccess) err = grid_size((p.sk + kDkvKeys - 1) / kDkvKeys, p.hk, p, MASKED, grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(
+  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED, BIAS><<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], p);
   return cudaGetLastError();
 }
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 cudaError_t launch_dq_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
   using S = DqSmem<D, MASKED>;
   static std::atomic<uint64_t> done{0};
   cudaError_t err =
-      sm90::smem_limit_once(flash_bwd_dq_kernel<D, SOFTCAP, MASKED>, S::kBytes, done);
+      sm90::smem_limit_once(flash_bwd_dq_kernel<D, SOFTCAP, MASKED, BIAS>, S::kBytes, done);
   int grid = 0;
   if (err == cudaSuccess) err = grid_size((p.sq + kDqRows - 1) / kDqRows, p.h, p, MASKED, grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, S::kBytes, s>>>(
+  flash_bwd_dq_kernel<D, SOFTCAP, MASKED, BIAS><<<grid, kThreads, S::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
 
 template <int D, bool MASKED>
 cudaError_t launch_dkv(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
-  return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED>(maps, p, s)
-                         : launch_dkv_kernel<D, false, MASKED>(maps, p, s);
+  if (p.bias.ptr != nullptr)
+    return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED, true>(maps, p, s)
+                           : launch_dkv_kernel<D, false, MASKED, true>(maps, p, s);
+  return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED, false>(maps, p, s)
+                         : launch_dkv_kernel<D, false, MASKED, false>(maps, p, s);
 }
 
 template <int D, bool MASKED>
 cudaError_t launch_dq(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
-  return p.softcap > 0.f ? launch_dq_kernel<D, true, MASKED>(maps, p, s)
-                         : launch_dq_kernel<D, false, MASKED>(maps, p, s);
+  if (p.bias.ptr != nullptr)
+    return p.softcap > 0.f ? launch_dq_kernel<D, true, MASKED, true>(maps, p, s)
+                           : launch_dq_kernel<D, false, MASKED, true>(maps, p, s);
+  return p.softcap > 0.f ? launch_dq_kernel<D, true, MASKED, false>(maps, p, s)
+                         : launch_dq_kernel<D, false, MASKED, false>(maps, p, s);
 }
 
 }  // namespace
@@ -1214,7 +1263,9 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
 // kernel visits and those of them with the elementwise test (bwd.py
 // bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan count the same).
 // dk/dv are written by xfa_flash_bwd_dkv, dq by xfa_flash_bwd_dq; each
-// launch overwrites its outputs (no zero fill needed) for sq, sk > 0.
+// launch overwrites its outputs (no zero fill needed) for sq, sk > 0. The
+// forward's bias (XFA_BIAS_ARGS), or a null pointer, selects the bias
+// instantiations.
 #define XFA_BWD_ARGS                                                                           \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,              \
       const void *delta, void *dq, void *dk, void *dv, int64_t q_sb, int64_t q_sh, int64_t q_ss, \
@@ -1222,7 +1273,7 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
       int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, \
       int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, \
       int b, int h, int hk, int sq, int sk, int d, float sm_scale, float softcap, int causal,    \
-      XFA_MASK_ARGS, const void *fm_bands, void *counters, void *stream
+      XFA_MASK_ARGS, const void *fm_bands, void *counters, XFA_BIAS_ARGS, void *stream
 #define XFA_BWD_PARAMS                                                                         \
   const xfa::MaskParams mask = XFA_MASK_VALUES;                                                \
   const bool masked = xfa::mask_active(mask);                                                  \
@@ -1231,7 +1282,7 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
                     dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h, hk,   \
                     sq, sk, sm_scale, softcap, causal, mask,                                   \
                     static_cast<const int4*>(fm_bands),                                        \
-                    static_cast<int*>(counters)};                                              \
+                    static_cast<int*>(counters), XFA_BIAS_VALUES};                             \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                                          \
   if (masked) {                                                                                \
     if (counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);                   \

@@ -113,6 +113,24 @@
 //   buffer (the room the bands take at d 128), which is released once the TMA
 //   store has read it.
 //
+// * Attention bias (BIAS true, either instantiation; fwd.py:353-354 and
+//   853-873 of the TPU package): a (bb, bh, sq, sk) fp32 or bf16 tensor,
+//   broadcast by strides (common.cuh BiasParams), added to each score after
+//   softcap and before the masks, in the scores' own units (softmax_step
+//   folds log2(e) in after). Shared memory is full at d 128 (230 480 of 232
+//   448 bytes), so each consumer thread reads its fragment's bias straight
+//   from global memory (common.cuh load_bias_rows: a key pair per load),
+//   issued after the tile's QK^T so that the loads run under the product.
+//   Timed on the card (scripts/ab_trees.py --bias-only; PERF.md section
+//   6): loads guarded per pair took 30-40% longer than unconditional loads
+//   clamped into the tensor (every element they fetch past sq or sk is
+//   masked or dropped); a bias shared by the batches is read by blocks
+//   taken batch first (common.cuh pair_block_by), so that the CTAs at work
+//   share one head's bias in L2 (T-long's (1, h, s, s): -25%). What is left
+//   is L2 traffic: a tile's fp32 bias is 64 KB a CTA, as much as its K and
+//   V at d 128, twice them at d 64, read again by every (batch, head) that
+//   shares it.
+//
 // Shared memory: d 128: 2 x Q 32 KB + 2 x (K 32 + V 32) KB + O 32 KB
 // (dense) or bands and keys' info 2 x (2 + 2) KB (masked); d 64: 2 x Q 16 KB
 // + 4 x (K 16 + V 16) KB + O 16 KB (dense) or 4 x (2 + 2) KB (masked). Not yet used: ping-pong
@@ -181,21 +199,30 @@ struct FwdParams {
   // producers emit and those of them with the elementwise test
   xfa::MaskParams mask;
   int* next;
+  // the bias instantiations' bias (common.cuh BiasParams)
+  xfa::BiasParams bias;
 };
 
 // The online softmax of one tile's scores s (columns n0 .. n0 + kTileN - 1;
-// this thread's rows row0 and row0 + 8), in place: softcap and, with MASK,
+// this thread's rows row0 and row0 + 8), in place: softcap, with BIAS the
+// tile's bias `bv` (common.cuh load_bias_rows; added in the scores' own
+// units, before softmax_step folds log2(e) into the exponent), with MASK
 // the elementwise causal / sk test, then hopper.cuh's softmax_step (the
 // paged prefill shares it): the running max m_i, s = P in fp32, this
 // thread's share of the row sums l_i (the quad is summed at the end) and
 // alpha, the factor that takes the running O to the new max.
-template <bool MASK>
+template <bool MASK, bool BIAS = false>
 __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2], float (&m_i)[2],
                                                float (&l_i)[2], float (&alpha)[2], int n0,
-                                               int row0, const FwdParams& p, int t) {
+                                               int row0, const FwdParams& p, int t,
+                                               const float* bv = nullptr) {
   if (p.softcap > 0.f) {
 #pragma unroll
     for (int i = 0; i < kTileN / 2; ++i) s[i] = tanhf(s[i] / p.softcap) * p.softcap;
+  }
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int i = 0; i < kTileN / 2; ++i) s[i] += bv[i];
   }
   if (MASK) {
     const int last = p.causal ? row0 + p.sk - p.sq : p.sk;  // row0's last visible key
@@ -215,17 +242,22 @@ __device__ __forceinline__ void online_softmax(float (&s)[kTileN / 2], float (&m
 // keys (`parts`: bit 0 keys [0, 64), bit 1 [64, 128)), with NB > 0 each
 // column's first NB FlashMask bands (`bands`, in the stage) and with INFO
 // each key's segment id and position (`kinfo`, in the stage) against the
-// row's (`qinfo`: row0's, staged with Q; row0 + 8's 8 further); then
-// softmax_step.
-template <bool ELEM, int NB, bool INFO>
+// row's (`qinfo`: row0's, staged with Q; row0 + 8's 8 further), with
+// BIAS the bias `bv` added before the test; then softmax_step.
+template <bool ELEM, int NB, bool INFO, bool BIAS = false>
 __device__ __forceinline__ void masked_softmax(float (&s)[kTileN / 2], float (&m_i)[2],
                                                float (&l_i)[2], float (&alpha)[2], int n0,
                                                int row0, int parts, const int4* bands,
                                                const int4* kinfo, const int4* qinfo,
-                                               const FwdParams& p, int t) {
+                                               const FwdParams& p, int t,
+                                               const float* bv = nullptr) {
   if (p.softcap > 0.f) {
 #pragma unroll
     for (int i = 0; i < kTileN / 2; ++i) s[i] = tanhf(s[i] / p.softcap) * p.softcap;
+  }
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int i = 0; i < kTileN / 2; ++i) s[i] += bv[i];
   }
   if (ELEM) {
     int lo[2], hi[2];
@@ -315,7 +347,7 @@ __device__ __forceinline__ void store_lse(const FwdParams& p, int batch, int hea
   }
 }
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
@@ -330,6 +362,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_k = bar_qe + 16, bar_v = bar_k + 8 * S::kStages, bar_e = bar_v + 8 * S::kStages;
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
   const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
+  // a bias shared by every batch: blocks batch first (common.cuh pair_block_by)
+  const bool batch_fast = BIAS && p.bias.sb == 0 && p.b > 1;
 
   if (threadIdx.x == 0) {
     for (int qb = 0; qb < 2; ++qb) {
@@ -390,7 +424,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
           for (int half = 0; half < 2; ++half) {
             int m_block, head, batch, n_tiles, n_free;
-            if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+            if (!xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true, m_block, head,
+                                    batch))
+              continue;
             xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles,
                                            n_free);
             if (n_tiles == 0) continue;
@@ -435,7 +471,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       auto take = [&](Block& k) {
         k.m_block = k.head = k.batch = k.lo = k.hi = k.f_lo = k.f_hi = 0;
         k.more =
-            xfa::next_block(p.next, p.b, n_mb, p.h, true, k.m_block, k.head, k.batch);
+            xfa::next_block_by(batch_fast, p.next, p.b, n_mb, p.h, true, k.m_block, k.head,
+                               k.batch);
         if (k.more)
           xfa::key_window<kTileM, kTileN>(m, k.batch, k.m_block * kTileM, p.sq, p.sk, k.lo, k.hi,
                                           k.f_lo, k.f_hi);
@@ -540,12 +577,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int m_block, head, batch, n_tiles, n_free;
-          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+          if (!xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true, m_block, head,
+                                  batch))
+            continue;
           xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles, n_free);
           const int q0 = m_block * kTileM;
           const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
           const int n_masked = n_tiles - n_free;           // the first tiles visited
           auto col0 = [&](int i) { return (n_tiles - 1 - i) * kTileN; };
+          // BIAS: the tile's bias, loaded under its QK^T
+          const int64_t bias_base = batch * p.bias.sb + head * p.bias.sh;
+          float bv[BIAS ? kTileN / 2 : 1];
+          auto load_bias = [&](int n0) {
+            if constexpr (BIAS)
+              xfa::load_bias_rows<kTileN>(bv, p.bias, bias_base, row0, n0, p.sq, p.sk, t);
+          };
 
           float o[D / 2];
 #pragma unroll
@@ -580,13 +626,14 @@ __global__ void __launch_bounds__(kThreads, 1)
               sm90::mbar_wait(bar_k + 8 * stage(it), parity(it));
               sm90::wgmma_fence();
               issue_qk<D>(s, q_wg, base + S::kK + stage(it) * S::kStage);
+              load_bias(col0(0));
               sm90::wgmma_wait<0>();
               sm90::fence_regs(s);
               if (n_tiles == 1) q_done();
               if (n_masked > 0) {
-                online_softmax<true>(s, m_i, l_i, alpha, col0(0), row0, p, t);
+                online_softmax<true, BIAS>(s, m_i, l_i, alpha, col0(0), row0, p, t, bv);
               } else {
-                online_softmax<false>(s, m_i, l_i, alpha, col0(0), row0, p, t);
+                online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(0), row0, p, t, bv);
               }
               pack_p(s, pa);
             }
@@ -599,13 +646,14 @@ __global__ void __launch_bounds__(kThreads, 1)
               sm90::wgmma_fence();
               issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
               issue_pv<D>(o, pa, base + S::kV + prev * S::kStage);
+              load_bias(col0(i));
               sm90::wgmma_wait<1>();
               sm90::fence_regs(s);
               if (i == n_tiles - 1) q_done();
               if (i < n_masked) {
-                online_softmax<true>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+                online_softmax<true, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
               } else {
-                online_softmax<false>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+                online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
               }
               sm90::wgmma_wait<0>();
               sm90::fence_regs(o);
@@ -633,13 +681,14 @@ __global__ void __launch_bounds__(kThreads, 1)
               sm90::mbar_wait(bar_k + 8 * st, parity(it + i));
               sm90::wgmma_fence();
               issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
+              load_bias(col0(i));
               sm90::wgmma_wait<0>();
               sm90::fence_regs(s);
               if (i == n_tiles - 1) q_done();
               if (i < n_masked) {
-                online_softmax<true>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+                online_softmax<true, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
               } else {
-                online_softmax<false>(s, m_i, l_i, alpha, col0(i), row0, p, t);
+                online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
               }
               pack_p(s, pa);
 #pragma unroll
@@ -705,6 +754,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         float s[kTileN / 2];
         uint32_t pa[kTileN / 4];
         float alpha[2];
+        const int64_t bias_base = batch * p.bias.sb + head * p.bias.sh;
+        float bv[BIAS ? kTileN / 2 : 1];  // BIAS: the tile's bias, loaded under its QK^T
         int4 w;  // the word of the tile at `it`
         // Wait for the next tile this consumer computes (at `it`), passing
         // by the tiles with none of its parts; false at the block's end (it
@@ -731,8 +782,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int4* qinfo = reinterpret_cast<const int4*>(smem + S::kQInfo +
                                                             qb * kBlockInfoBytes) +
                               (row0 - q0);
-#define XFA_SOFTMAX(E, NB, I) \
-  masked_softmax<E, NB, I>(s, m_i, l_i, alpha, w.x, row0, parts, bands, kinfo, qinfo, p, t)
+#define XFA_SOFTMAX(E, NB, I)                                                               \
+  masked_softmax<E, NB, I, BIAS>(s, m_i, l_i, alpha, w.x, row0, parts, bands, kinfo, qinfo, p, \
+                                 t, bv)
           const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
           if (!(w.y & kElem)) {
             XFA_SOFTMAX(false, 0, false);
@@ -754,6 +806,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int st = stage(it);
           sm90::wgmma_fence();
           issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
+          if constexpr (BIAS)
+            xfa::load_bias_rows<kTileN>(bv, p.bias, bias_base, row0, w.x, p.sq, p.sk, t);
           sm90::wgmma_wait<0>();
           sm90::fence_regs(s);
           softmax_tile();
@@ -797,17 +851,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 // One persistent CTA per SM (shared memory allows no second), or one per
 // pair of query blocks (per block under the masked kernel's dynamic
 // scheduler) when there are fewer.
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool BIAS>
 cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t s) {
   using S = FwdSmem<D, MASKED>;
   static std::atomic<uint64_t> done{0};
-  cudaError_t err = sm90::smem_limit_once(flash_fwd_kernel<D, MASKED>, S::kBytes, done);
+  cudaError_t err = sm90::smem_limit_once(flash_fwd_kernel<D, MASKED, BIAS>, S::kBytes, done);
   int sms = 0;
   if (err == cudaSuccess) err = sm90::sm_count(sms);
   if (err != cudaSuccess) return err;
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
   const int units = MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b);
-  flash_fwd_kernel<D, MASKED><<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
+  flash_fwd_kernel<D, MASKED, BIAS><<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
@@ -825,14 +879,16 @@ cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t
 // three int32 in device memory, cleared here on the stream: the dynamic
 // scheduler's next block, then the tiles the kernel visits and those of
 // them with the elementwise test (fwd.py fwd_masked_tile_plan counts the
-// same); with none given the dense instantiation runs.
+// same); with none given the dense instantiation runs. The bias
+// (XFA_BIAS_ARGS, common.cuh BiasParams), or a null pointer, selects the
+// bias instantiation of either; it takes no FlashMask or block mask.
 XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                              int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                              int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int b,
                              int h, int hk, int sq, int sk, int d, float sm_scale,
                              float softcap, int causal, XFA_MASK_ARGS, const void* fm_bands,
-                             void* counters, void* stream) {
+                             void* counters, XFA_BIAS_ARGS, void* stream) {
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -858,9 +914,21 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const FwdParams p{static_cast<float*>(lse), b, h, hk, sq, sk, sm_scale, softcap, causal, mask,
-                    static_cast<int*>(counters)};
+                    static_cast<int*>(counters), XFA_BIAS_VALUES};
   cudaError_t err;
-  if (d == 64) err = masked ? launch_fwd<64, true>(maps, p, s) : launch_fwd<64, false>(maps, p, s);
-  else err = masked ? launch_fwd<128, true>(maps, p, s) : launch_fwd<128, false>(maps, p, s);
+  if (bias != nullptr) {
+    if (d == 64)
+      err = masked ? launch_fwd<64, true, true>(maps, p, s)
+                   : launch_fwd<64, false, true>(maps, p, s);
+    else
+      err = masked ? launch_fwd<128, true, true>(maps, p, s)
+                   : launch_fwd<128, false, true>(maps, p, s);
+  } else if (d == 64) {
+    err = masked ? launch_fwd<64, true, false>(maps, p, s)
+                 : launch_fwd<64, false, false>(maps, p, s);
+  } else {
+    err = masked ? launch_fwd<128, true, false>(maps, p, s)
+                 : launch_fwd<128, false, false>(maps, p, s);
+  }
   return static_cast<int>(err);
 }

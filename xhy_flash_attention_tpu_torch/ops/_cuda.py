@@ -49,11 +49,15 @@ _c_void_p, _c_int, _c_int64, _c_float = (
 _MASK_ARGS = ([_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
                _c_int64, _c_int64] + [_c_int] * 4 + [_c_int] * 4
               + [_c_void_p] * 5 + [_c_int] * 5)
+# XFA_BIAS_ARGS of csrc/common.cuh: the attention bias's pointer, batch,
+# head and row strides and dtype code
+_BIAS_ARGS = [_c_void_p] + [_c_int64] * 3 + [_c_int]
 # the backward's (and the forward's, after its own arguments): the mask
-# arguments, then the FlashMask bands, the masked kernels' three counters
-# and the stream
+# arguments, then the FlashMask bands, the masked kernels' three counters,
+# the bias and the stream
 _BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
-             + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 3)
+             + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
+             + _BIAS_ARGS + [_c_void_p])
 _SIGNATURES = {
     "xfa_ln_fwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p,
                    _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
@@ -63,11 +67,14 @@ _SIGNATURES = {
                    _c_void_p, _c_int, _c_void_p, _c_void_p, _c_int64, _c_int,
                    _c_int, _c_int, _c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
-    + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 3,
+    + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
+    + _BIAS_ARGS + [_c_void_p],
     "xfa_flash_bwd_prep": [_c_void_p] * 5 + [_c_int64] * 9 + [_c_int] * 4
     + [_c_float, _c_void_p],
     "xfa_flash_bwd_dkv": _BWD_ARGS,
     "xfa_flash_bwd_dq": _BWD_ARGS,
+    "xfa_flash_bwd_dbias": [_c_void_p] * 7 + [_c_int64] * 15 + [_c_int] * 8
+    + [_c_float, _c_int] + _MASK_ARGS + _BIAS_ARGS + [_c_void_p],
     "xfa_flash_decode": [_c_void_p] * 12 + [_c_int64, _c_int64, _c_int] * 2
     + [_c_int] * 11
     + [_c_float, _c_float, _c_int, _c_void_p],

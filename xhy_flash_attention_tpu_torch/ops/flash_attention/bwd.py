@@ -15,7 +15,11 @@ decides from the mask which tiles each block visits
 CPU tensors the plain version :func:`attention_bwd_ref` runs. Covered:
 causal and full attention, GQA, softcap, FlashMask and block-sparse masks,
 sliding windows, segment ids and q/kv positions (the masked
-instantiations); attention bias raises until slice 5's last part.
+instantiations), and an attention bias with its gradient: the kernels'
+bias instantiations read the bias to rebuild P, and dbias, summed over the
+batches and heads that share each bias element, comes from a kernel of its
+own (:func:`flash_bwd_dbias`, csrc/flash_bwd_dbias.cu) in a fixed order,
+with no atomics and no workspace beyond dbias itself.
 """
 
 from __future__ import annotations
@@ -27,16 +31,17 @@ import torch
 
 from .. import _cuda
 from .common import CUDA_DTYPE_NOT_PORTED, KernelMasks, cdiv, expand_heads
-from .fwd import (MASK_PART, MaskTiles, build_masks, check_supported,
-                  cut_to_range, elementwise_first, key_tile_plan,
-                  masked_row_block_plan, masked_window, pair_schedule)
+from .fwd import (MASK_PART, NO_BIAS, MaskTiles, bias_c_args, bias_view,
+                  build_masks, check_supported, cut_to_range,
+                  elementwise_first, key_tile_plan, masked_row_block_plan,
+                  masked_window, pair_schedule)
 
 __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
            "bwd_dkv_window_plan", "bwd_masked_dkv_tile_plan",
            "bwd_masked_dq_tile_plan",
            "bwd_prep_ref", "bwd_schedule", "flash_attention_bwd",
-           "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_prep",
-           "launch_flash_bwd"]
+           "flash_bwd_dbias", "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_bwd_prep", "launch_flash_bwd"]
 
 # Tiles of the kernels, csrc/flash_bwd.cu: a dK/dV block of BWD_DKV_TILE_N
 # keys streams query tiles of BWD_DKV_TILE_M rows (kDkvKeys, kDkvRows); a dQ
@@ -185,15 +190,18 @@ def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,
 
 
 def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
-                      causal: bool, softcap: float, mask=None):
+                      causal: bool, softcap: float, mask=None, bias=None):
     """Plain version of the kernels on (b, h, s, d) tensors of any strides.
 
     P = exp(S - LSE) is rebuilt from the forward's LSE with the forward's
     rounding: q scaled in fp32 and rounded to its dtype; P rounded to v's
     dtype for dV, dS to q's dtype for dK and dQ (bwd.py:106-177, 440-470).
     ``mask``: the forward's dense keep mask (b|1, hm|1, sq, sk) or None.
+    ``bias``: the forward's (bb, bh, sq, sk) bias (fwd.bias_view) or None.
     Returns (dq, dk, dv) in the inputs' dtypes, dk/dv summed over the GQA
-    group.
+    group; with a bias also dbias = P (dP - delta) (the scores' gradient
+    before the softcap derivative: the bias enters after softcap), summed
+    in fp32 over the axes it broadcasts, (bb, bh, sq, sk) in its dtype.
     """
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -207,6 +215,8 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
     if softcap > 0.0:
         th = torch.tanh(s / softcap)
         s = th * softcap
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
@@ -218,6 +228,10 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
     delta = (dof * out.float()).sum(-1, keepdim=True)
     dp = dof @ vf.transpose(-1, -2)
     ds = p * (dp - delta)
+    dbias = None
+    if bias is not None:
+        dims = tuple(i for i in (0, 1) if bias.shape[i] < ds.shape[i])
+        dbias = (ds.sum(dims, keepdim=True) if dims else ds).to(bias.dtype)
     if th is not None:
         ds = ds * (1.0 - th * th)
     p = p.to(v.dtype).float()
@@ -228,7 +242,8 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
     if g > 1:
         dk = dk.reshape(b, hk, g, sk, d).sum(2)
         dv = dv.reshape(b, hk, g, sk, d).sum(2)
-    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+    return grads if bias is None else grads + (dbias,)
 
 
 def _check_shapes(q, k, v, do, lse, dq, dk, dv):
@@ -252,7 +267,8 @@ def _check_shapes(q, k, v, do, lse, dq, dk, dv):
 
 def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
                      sm_scale: float, causal: bool, softcap: float,
-                     masks: KernelMasks = None, tile_counts=None) -> None:
+                     masks: KernelMasks = None, tile_counts=None,
+                     bias=None) -> None:
     """Launch one kernel of csrc/flash_bwd.cu (``which``: "dkv" writes dk
     and dv, "dq" writes dq) on (b, h, s, d)-shaped views of any strides
     (head dim contiguous, pointers and strides multiples of 16 bytes): q,
@@ -265,9 +281,12 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     (a contiguous int32 tensor of 3 on the card): the scheduler's, then
     the tiles the kernel visited and those of them with the elementwise
     test, as :func:`bwd_masked_dkv_tile_plan` / :func:`bwd_masked_dq_tile_plan`
-    count them. The callers count the launch."""
+    count them. ``bias``: the forward's (bb, bh, sq, sk) bias or None; it
+    runs the bias instantiations, which read it to rebuild P (dbias is
+    :func:`flash_bwd_dbias`'s). The callers count the launch."""
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
-                       *(masks.tensors() if masks is not None else ()))
+                       *(masks.tensors() if masks is not None else ()),
+                       *(() if bias is None else (bias,)))
     _check_shapes(q, k, v, do, lse, dq, dk, dv)
     if tile_counts is not None and (
             tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
@@ -284,6 +303,10 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     fn = {"dkv": _cuda.lib().xfa_flash_bwd_dkv,
           "dq": _cuda.lib().xfa_flash_bwd_dq}[which]
     masked = masks is not None and masks.active
+    bias_args = NO_BIAS
+    if bias is not None:
+        bias_view(bias, b, h, sq, sk)
+        bias, bias_args = bias_c_args(bias)
     counters = None
     if masked:
         counters = (tile_counts if tile_counts is not None else
@@ -295,8 +318,52 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
               b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
               int(causal), *KernelMasks.c_args(masks, causal, which, d),
               _cuda.ptr(masks.bands() if masked else None),
-              _cuda.ptr(counters), _cuda.stream())
+              _cuda.ptr(counters), *bias_args, _cuda.stream())
     _cuda.check(code, f"flash_bwd_{which}")
+
+
+def flash_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool,
+                    softcap: float, masks: KernelMasks = None):
+    """The bias gradient (csrc/flash_bwd_dbias.cu, the dbias output of TPU
+    kernel #2): dbias = P (dP - delta), the scores' gradient before the
+    softcap derivative, summed in fp32 over the batches and heads that
+    share each element of the (bb, bh, sq, sk) ``bias`` (fwd.bias_view), in
+    a fixed order, and returned as a (bb, bh, sq, sk) tensor of its dtype
+    (a view of a buffer whose rows are padded to an even length when sk is
+    odd; the kernel writes key pairs). ``q`` is q_s, the pre-pass's
+    bf16(q * sm_scale); k, v, do, lse and delta as
+    :func:`launch_flash_bwd`. Pairs that the masks hide and tiles the
+    row/key window skips get 0. ``flash_bwd_dbias.launches`` counts its
+    launches."""
+    _cuda.require_cuda(q, k, v, do, lse, delta, bias,
+                       *(masks.tensors() if masks is not None else ()))
+    _check_shapes(q, k, v, do, lse, q, k, v)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    bias = bias_view(bias, b, h, sq, sk)
+    if masks is not None and (masks.fm_vecs is not None
+                              or masks.bm is not None):
+        raise ValueError("an attention bias takes no FlashMask or block "
+                         "mask, as in the TPU package")
+    bb, bh = bias.shape[:2]
+    dbias = torch.zeros(bb, bh, sq, sk + sk % 2, dtype=bias.dtype,
+                        device=q.device)
+    if min(sq, sk) == 0:
+        return dbias[..., :sk]
+    bias, bias_args = bias_c_args(bias)
+    code = _cuda.lib().xfa_flash_bwd_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
+        *(s for t in (q, k, v, do, dbias) for s in t.stride()[:3]),
+        b, h, hk, sq, sk, d, bb, bh, float(softcap), int(causal),
+        *KernelMasks.c_args(masks, causal, "dq", d), *bias_args,
+        _cuda.stream())
+    _cuda.check(code, "flash_bwd_dbias")
+    flash_bwd_dbias.launches += 1
+    return dbias[..., :sk]
+
+
+flash_bwd_dbias.launches = 0
 
 
 def bwd_prep_ref(q, out, do, *, sm_scale: float, scale_q: bool = True):
@@ -367,19 +434,25 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
                         softcap: float = 0.0, dropout_p: float = 0.0,
                         flashmask_vecs=None, flashmask_mode=None,
                         block_mask=None, q_positions=None, kv_positions=None,
-                        masks: KernelMasks = None):
+                        masks: KernelMasks = None, need_dqkv: bool = True,
+                        need_dbias: bool = True):
     """Backward attention on (batch, heads, seq, head_dim) tensors.
 
     Returns (dq, dk, dv) with dk/dv reduced over the GQA group (the shape of
-    k/v). On CUDA the gradients are allocated in (b, s, h, d) memory order
-    and returned as (b, h, s, d) views, like the forward's output. The mask
-    flags are the forward's (fwd.py `flash_attention_fwd`), or ``masks``
-    as :func:`fwd.build_masks` made them (then ``causal`` must be the flag
-    it returned).
+    k/v), and with a ``bias`` (the forward's) (dq, dk, dv, dbias), dbias in
+    the bias's shape and dtype, summed over the axes it broadcasts (as the
+    TPU package's bwd.py:1302-1312). On CUDA the gradients are allocated in
+    (b, s, h, d) memory order and returned as (b, h, s, d) views, like the
+    forward's output. The mask flags are the forward's (fwd.py
+    `flash_attention_fwd`), or ``masks`` as :func:`fwd.build_masks` made
+    them (then ``causal`` must be the flag it returned). ``need_dqkv`` and
+    ``need_dbias`` False leave (dq, dk, dv) or dbias None, and their
+    kernels unlaunched.
     """
-    check_supported(bias, dropout_p, "flash_attention_bwd")
+    check_supported(dropout_p, "flash_attention_bwd")
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    bias4 = None if bias is None else bias_view(bias, b, h, sq, sk)
     if masks is None:
         causal, masks = build_masks(
             b, h, sq, sk, causal, window_size, flashmask_vecs=flashmask_vecs,
@@ -387,20 +460,36 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             q_positions=q_positions, kv_positions=kv_positions)
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, out, lse, do, sm_scale=sm_scale,
-                                 causal=causal, softcap=softcap,
-                                 mask=masks.keep(h))
+        grads = attention_bwd_ref(q, k, v, out, lse, do, sm_scale=sm_scale,
+                                  causal=causal, softcap=softcap,
+                                  mask=masks.keep(h), bias=bias4)
+        if not need_dqkv:
+            grads = (None,) * 3 + grads[3:]
+        if bias is None:
+            return grads
+        return grads[:3] + (grads[3].reshape(bias.shape)
+                            if need_dbias else None,)
 
     def grad_like(n, s):
         return torch.empty(b, s, n, d, dtype=q.dtype,
                            device=q.device).transpose(1, 2)
 
-    dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
     # TMA reads 16-byte aligned bases and strides; autograd may hand over
     # expanded or transposed tensors
     q, k, v, out, do = (_cuda.aligned(t, 8) for t in (q, k, v, out, do))
     qs, delta = flash_bwd_prep(q, out, do, sm_scale=sm_scale)
-    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap, masks=masks)
-    flash_bwd_dkv(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
-    flash_bwd_dq(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
-    return dq, dk, dv
+    dq = dk = dv = None
+    if need_dqkv:
+        dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
+        kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+                  masks=masks, bias=bias4)
+        flash_bwd_dkv(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
+        flash_bwd_dq(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
+    if bias is None:
+        return dq, dk, dv
+    dbias = None
+    if need_dbias:
+        dbias = flash_bwd_dbias(qs, k, v, do, lse, delta, bias4,
+                                causal=causal, softcap=softcap,
+                                masks=masks).reshape(bias.shape)
+    return dq, dk, dv, dbias

@@ -41,7 +41,6 @@ NEG_INF = DEFAULT_MASK_VALUE
 # ROADMAP.md queue B). What is not ported yet names the slice that brings
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
-SLICE_VARLEN = "slice 5 (varlen/BERT: attention bias and dbias) " + NEXT_SLICES
 SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
 SLICE_DTYPES = ("slice 7 (fp16/fp32 and fp8 inputs, weight-only "
                 "quantization, remat) " + NEXT_SLICES)

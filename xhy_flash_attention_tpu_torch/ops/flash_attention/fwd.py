@@ -14,10 +14,13 @@ the LSE output, FlashMask (column-wise row bands, four modes, mask heads
 dividing the query heads), block-sparse masks (a 0/1 mask at a granularity
 of a multiple of 64), sliding windows, segment ids and q/kv positions (the
 masked instantiation: the producer walks the window's key tiles, within
-the range of tiles the segment and position stats allow); the backward is
-bwd.py, joined to this forward by interface.py's autograd function.
-Attention bias raises NotImplementedError until slice 5's last part,
-dropout until slice 6, fp8 until slice 7.
+the range of tiles the segment and position stats allow), and an additive
+attention bias (bb, bh, sq, sk) in fp32 or bf16, broadcast over batches or
+heads by strides (:func:`bias_view`, :func:`bias_c_args`), with any flag
+but FlashMask and block masks (the bias instantiations, which read it in
+each thread's accumulator layout under the scores' product); the backward
+is bwd.py, joined to this forward by interface.py's autograd function.
+Dropout raises NotImplementedError until slice 6, fp8 until slice 7.
 """
 
 from __future__ import annotations
@@ -29,12 +32,12 @@ import torch
 
 from .. import _cuda
 from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, SLICE_DTYPES,
-                     SLICE_VARLEN, KernelMasks, cdiv, expand_heads,
-                     fm_skip_bypass, resolve_window)
+                     KernelMasks, cdiv, expand_heads, fm_skip_bypass,
+                     resolve_window)
 
-__all__ = ["attention_fwd_ref", "build_masks", "flash_attention_fwd",
-           "fwd_masked_tile_plan", "fwd_schedule", "fwd_tile_plan",
-           "key_window_plan", "masked_row_block_plan"]
+__all__ = ["attention_fwd_ref", "bias_c_args", "bias_view", "build_masks",
+           "flash_attention_fwd", "fwd_masked_tile_plan", "fwd_schedule",
+           "fwd_tile_plan", "key_window_plan", "masked_row_block_plan"]
 
 # Tiles of the dense (unmasked) kernel, csrc/flash_fwd.cu kTileM / kTileN:
 # query rows per block and keys per tile.
@@ -268,17 +271,66 @@ def fwd_masked_tile_plan(masks: KernelMasks, b: int, h: int, sq: int,
                                  FWD_DENSE_TILE_N)
 
 
+def bias_view(bias: torch.Tensor, b: int, h: int, sq: int,
+              sk: int) -> torch.Tensor:
+    """The attention bias as a (bb, bh, sq, sk) view, the shapes the TPU
+    package takes (its fwd.py:853-861): (sq, sk) -> (1, 1, sq, sk); (bb,
+    sq, sk) -> (bb, 1, sq, sk); (bb, bh, sq, sk) as it is; bb in {1, b}, bh
+    in {1, h}, the query heads. fp32 or bf16. ``ValueError`` otherwise."""
+    if bias.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attention bias must be float32 or bfloat16, got "
+                         f"{bias.dtype}")
+    shape = tuple(bias.shape)
+    if bias.dim() == 2:
+        bias = bias[None, None]
+    elif bias.dim() == 3:
+        bias = bias[:, None]
+    if (bias.dim() != 4 or tuple(bias.shape[2:]) != (sq, sk)
+            or bias.shape[0] not in (1, b) or bias.shape[1] not in (1, h)):
+        raise ValueError(
+            f"attention bias of shape {shape} does not broadcast as (1|{b}, "
+            f"1|{h}, {sq}, {sk}), ({sq}, {sk}) or (1|{b}, {sq}, {sk})")
+    return bias
+
+
+def bias_c_args(bias: torch.Tensor) -> tuple:
+    """(tensor, C arguments) of a (bb, bh, sq, sk) bias for the kernels'
+    XFA_BIAS_ARGS (csrc/common.cuh BiasParams): pointer, batch, head and
+    row strides (0 on a broadcast axis) and the dtype code. The kernels read
+    a key pair in one load, so the keys must be contiguous and the pointer
+    and strides even; else the bias is copied once into a contiguous tensor
+    whose rows are padded to an even length (the padding zero and never
+    used). The tensor returned keeps the memory alive."""
+    bb, bh, sq, sk = bias.shape
+    sb = bias.stride(0) if bb > 1 else 0
+    sh = bias.stride(1) if bh > 1 else 0
+    ss = bias.stride(2) if sq > 1 else 0
+    if (bias.stride(3) != 1 and sk > 1) or any(x % 2 for x in (sb, sh, ss)) \
+            or bias.data_ptr() % (2 * bias.element_size()):
+        pad = torch.zeros(bb, bh, sq, sk + sk % 2, dtype=bias.dtype,
+                          device=bias.device)
+        pad[..., :sk].copy_(bias)
+        bias = pad
+        sb, sh, ss = (bias.stride(i) if bias.shape[i] > 1 else 0
+                      for i in range(3))
+    return bias, (bias.data_ptr(), sb, sh, ss, _cuda.dtype_code(bias))
+
+
+NO_BIAS = (None, 0, 0, 0, 0)  # XFA_BIAS_ARGS without a bias
+
+
 def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
-                      softcap: float, need_lse: bool, mask=None):
+                      softcap: float, need_lse: bool, mask=None, bias=None):
     """Plain version of the kernel on (b, h, s, d) tensors of any strides.
 
     The same arithmetic as the kernel and the TPU kernels: q scaled in fp32
-    and rounded to its dtype, fp32 scores, softcap, bottom-right causal
-    mask, the optional dense keep mask ``mask`` (b|1, hm|1, sq, sk), True =
-    attend, head i reading mask head i // (h / hm), fp32 softmax with P
-    rounded to v's dtype for P.V, division by the fp32 row sum. Returns (out
-    (b, h, sq, d), lse (b, h, sq) fp32 | None); rows that see no key give 0
-    and lse +inf.
+    and rounded to its dtype, fp32 scores, softcap, the optional bias (bb,
+    bh, sq, sk) in fp32 (:func:`bias_view`), bottom-right causal mask, the
+    optional dense keep mask ``mask`` (b|1, hm|1, sq, sk), True = attend,
+    head i reading mask head i // (h / hm), fp32 softmax with P rounded to
+    v's dtype for P.V, division by the fp32 row sum. Returns (out (b, h,
+    sq, d), lse (b, h, sq) fp32 | None); rows that see no key give 0 and
+    lse +inf.
     """
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -289,6 +341,8 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
     s = qs @ kf.transpose(-1, -2)
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
@@ -309,7 +363,7 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
 
 def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
                      softcap: float, masks: KernelMasks = None,
-                     tile_counts=None) -> None:
+                     tile_counts=None, bias=None) -> None:
     """Launch csrc/flash_fwd.cu on (b, h, s, d)-shaped views of any strides
     (head dim contiguous): q, out (b, h, sq, d); k, v (b, hk, sk, d); lse
     (b, h, sq) fp32 contiguous or None; ``masks`` the FlashMask and block
@@ -321,8 +375,10 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     ``tile_counts`` when it is given (a contiguous int32 tensor of 3 on the
     card): the scheduler's, then the tiles the kernel visited and those of
     them with the elementwise test, as :func:`fwd_masked_tile_plan` counts
-    them. The callers count the launch."""
-    tensors = [t for t in (q, k, v, out, lse) if t is not None]
+    them. ``bias``: a (bb, bh, sq, sk) fp32 or bf16 bias (:func:`bias_view`)
+    or None; it runs the bias instantiation, and takes no FlashMask or
+    block mask. The callers count the launch."""
+    tensors = [t for t in (q, k, v, out, lse, bias) if t is not None]
     if masks is not None:
         tensors += masks.tensors()
     _cuda.require_cuda(*tensors)
@@ -347,6 +403,13 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         _cuda.require_aligned(t, 8, name)
     masked = masks is not None and masks.active
+    bias_args = NO_BIAS
+    if bias is not None:
+        bias_view(bias, b, h, sq, sk)
+        if masked and (masks.fm_vecs is not None or masks.bm is not None):
+            raise ValueError("an attention bias takes no FlashMask or block "
+                             "mask, as in the TPU package")
+        bias, bias_args = bias_c_args(bias)
     counters = None
     if masked:
         counters = (tile_counts if tile_counts is not None else
@@ -358,16 +421,12 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap), int(causal),
         *KernelMasks.c_args(masks, causal, "fwd", d),
         _cuda.ptr(masks.bands() if masked else None), _cuda.ptr(counters),
-        _cuda.stream())
+        *bias_args, _cuda.stream())
     _cuda.check(code, "flash_fwd")
 
 
-def check_supported(bias, dropout_p, where: str) -> None:
-    """Raise on what the port lacks: attention bias (slice 5's last part)
-    and dropout (slice 6)."""
-    if bias is not None:
-        raise NotImplementedError(
-            f"{where}: attention bias not ported yet: {SLICE_VARLEN}")
+def check_supported(dropout_p, where: str) -> None:
+    """Raise on what the port lacks: dropout (slice 6)."""
     if dropout_p > 0.0:
         raise NotImplementedError(
             f"{where}: dropout not ported yet: {SLICE_DROPOUT}")
@@ -434,13 +493,21 @@ def flash_attention_fwd(
     flags already made by :func:`build_masks` (then ``causal`` must be
     the flag it returned and the other flags are not read).
 
+    bias: an additive (sq, sk), (bb, sq, sk) or (bb, bh, sq, sk) fp32 or
+    bf16 tensor (:func:`bias_view`), added to the scores after softcap and
+    before the masks; not with a FlashMask or block mask.
+
     ``flash_attention_fwd.launches`` counts kernel launches.
     """
-    check_supported(bias, dropout_p, "flash_attention_fwd")
+    check_supported(dropout_p, "flash_attention_fwd")
     if q.dtype == torch.float8_e4m3fn:
+        if bias is not None:  # as the TPU package's fwd.py:641
+            raise ValueError("the fp8 forward takes no attention bias")
         raise NotImplementedError(f"fp8 attention comes with {SLICE_DTYPES}")
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if bias is not None:
+        bias = bias_view(bias, b, h, sq, sk)
     if masks is None:
         causal, masks = build_masks(
             b, h, sq, sk, causal, window_size, flashmask_vecs=flashmask_vecs,
@@ -450,13 +517,13 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
                                  softcap=softcap, need_lse=need_lse,
-                                 mask=masks.keep(h))
+                                 mask=masks.keep(h), bias=bias)
     out = torch.empty(b, sq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
            if need_lse else None)
     launch_flash_fwd(q, k, v, out, lse, sm_scale=sm_scale, causal=causal,
-                     softcap=softcap, masks=masks)
+                     softcap=softcap, masks=masks, bias=bias)
     flash_attention_fwd.launches += 1
     return out, lse
 

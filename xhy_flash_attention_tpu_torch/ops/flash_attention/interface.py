@@ -2,18 +2,19 @@
 ops/flash_attention/interface.py), and decode against a growing KV cache
 (`flash_attn_with_kvcache`).
 
-`flash_attention` is differentiable in q, k and v: when an input needs a
-gradient it runs as an autograd function, as the TPU package's custom VJP
-(interface.py:96-131): the forward makes the kernels' mask arguments once
-(fwd.build_masks), saves (q, k, v, out, lse) and hands the same arguments
-to the backward, which calls `flash_attention_bwd` (the dK/dV and dQ
-kernels). The same function carries the FlashMask and block-sparse entries
-(flashmask.py, blocksparse.py), sliding windows, segment ids and q/kv
-positions. Varlen is packed attention over a batch of 1, as in the TPU
-package (interface.py:365-433): segment ids from ``cu_seqlens``, and under
-a causal or windowed mask per-sequence positions aligned to the bottom
-right, all made on the device. Decode against a cache has no backward, as
-in the TPU package.
+`flash_attention` is differentiable in q, k, v and the attention bias:
+when an input needs a gradient it runs as an autograd function, as the TPU
+package's custom VJP (interface.py:96-131): the forward makes the kernels'
+mask arguments once (fwd.build_masks), saves (q, k, v, bias, out, lse) and
+hands the same arguments to the backward, which calls
+`flash_attention_bwd` (the dK/dV and dQ kernels, and the dbias kernel when
+the bias needs its gradient). The same function carries the FlashMask and
+block-sparse entries (flashmask.py, blocksparse.py), sliding windows,
+segment ids and q/kv positions. Varlen is packed attention over a batch
+of 1, as in the TPU package (interface.py:365-433): segment ids from
+``cu_seqlens``, and under a causal or windowed mask per-sequence positions
+aligned to the bottom right, all made on the device. Decode against a
+cache has no backward, as in the TPU package.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..quant import QuantizedKV
 from .bwd import flash_attention_bwd
 from .common import BlockSizes
 from .decode_kernel import flash_decode
-from .fwd import build_masks, check_supported, flash_attention_fwd
+from .fwd import bias_view, build_masks, check_supported, flash_attention_fwd
 
 __all__ = ["flash_attention", "flash_attn_func", "flash_attn_kvpacked_func",
            "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
@@ -39,33 +40,40 @@ __all__ = ["flash_attention", "flash_attn_func", "flash_attn_kvpacked_func",
 class _FlashAttention(torch.autograd.Function):
     """``masks``: the kernels' mask arguments (fwd.build_masks), made once
     for both passes; ``causal`` the plain causal flag build_masks
-    returned."""
+    returned; ``bias`` an attention bias (fwd.bias_view's shapes) or None.
+    The backward launches the dbias kernel only when the bias needs a
+    gradient, and the dK/dV and dQ kernels only when q, k or v does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, softcap, masks):
+    def forward(ctx, q, k, v, bias, sm_scale, causal, softcap, masks):
         ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
                       masks=masks)
-        out, lse = flash_attention_fwd(q, k, v, need_lse=True, **ctx.kw)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse = flash_attention_fwd(q, k, v, bias, need_lse=True,
+                                       **ctx.kw)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = flash_attention_bwd(
+            q, k, v, out, lse, dout, bias, need_dqkv=any(need[:3]),
+            need_dbias=bias is not None and need[3], **ctx.kw)
+        dbias = grads[3] if bias is not None else None
+        return (*grads[:3], dbias, None, None, None, None)
 
 
 def attention(q, k, v, *, softmax_scale: Optional[float], causal: bool,
               softcap: float = 0.0, return_lse: bool = False, masks=None,
-              window_size: Tuple[int, int] = (-1, -1)):
+              window_size: Tuple[int, int] = (-1, -1), bias=None):
     """(b, h, s, d) attention through the autograd function when an input
-    needs a gradient, else the forward alone. ``masks``: a dict of the
-    forward's mask flags (``flashmask_vecs``/``flashmask_mode``,
-    ``block_mask``, ``q_segment_ids``/``kv_segment_ids``,
-    ``q_positions``/``kv_positions``) or None. Returns out, or (out, lse)
-    with ``return_lse``."""
+    (the bias included) needs a gradient, else the forward alone.
+    ``masks``: a dict of the forward's mask flags
+    (``flashmask_vecs``/``flashmask_mode``, ``block_mask``,
+    ``q_segment_ids``/``kv_segment_ids``, ``q_positions``/``kv_positions``)
+    or None. Returns out, or (out, lse) with ``return_lse``."""
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     b, h, sq, _ = q.shape
@@ -73,10 +81,12 @@ def attention(q, k, v, *, softmax_scale: Optional[float], causal: bool,
                                  **(masks or {}))
     kw = dict(sm_scale=float(softmax_scale), causal=causal,
               softcap=float(softcap), masks=kmasks)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = _FlashAttention.apply(q, k, v, *kw.values())
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        out, lse = _FlashAttention.apply(q, k, v, bias, *kw.values())
     else:
-        out, lse = flash_attention_fwd(q, k, v, need_lse=return_lse, **kw)
+        out, lse = flash_attention_fwd(q, k, v, bias, need_lse=return_lse,
+                                       **kw)
     return (out, lse) if return_lse else out
 
 
@@ -96,7 +106,11 @@ def flash_attention(
     """Kernel-layout attention: q (b, h, sq, d), k/v (b, hk, sk, d).
 
     Returns out (b, h, sq, d) and, with ``return_lse``, the fp32 logsumexp
-    (b, h, sq). Differentiable in q, k and v (not through the LSE).
+    (b, h, sq). Differentiable in q, k, v and ``bias`` (not through the
+    LSE). bias: an additive fp32 or bf16 (sq, sk), (bb, sq, sk) or (bb,
+    bh, sq, sk) tensor, bb in {1, b}, bh in {1, h}, added to the scores
+    after softcap and before the masks; its gradient is summed over the
+    axes it broadcasts and has its shape and dtype.
     window_size (left, right): key c visible to row r when r + offset -
     left <= c <= r + offset + right (offset sk - sq, -1 no bound; causal
     sets right to 0). q_segment_ids / kv_segment_ids ((b, sq) / (b, sk)
@@ -107,14 +121,16 @@ def flash_attention(
     per head dim, so ``block_sizes`` is accepted and ignored.
     """
     del block_sizes
-    check_supported(bias, dropout_p, "flash_attention")
+    check_supported(dropout_p, "flash_attention")
+    if bias is not None:
+        bias_view(bias, q.shape[0], q.shape[1], q.shape[2], k.shape[2])
     flags = {name: t for name, t in (
         ("q_segment_ids", q_segment_ids), ("kv_segment_ids", kv_segment_ids),
         ("q_positions", q_positions), ("kv_positions", kv_positions))
         if t is not None}
     return attention(q, k, v, softmax_scale=softmax_scale, causal=causal,
                      softcap=softcap, return_lse=return_lse, masks=flags,
-                     window_size=window_size)
+                     window_size=window_size, bias=bias)
 
 
 def _attn_probs_debug(qt, kt, lse, *, softmax_scale, causal, window_size,
@@ -152,7 +168,7 @@ def _attn_probs_debug(qt, kt, lse, *, softmax_scale, causal, window_size,
 
 def _check_probs(return_attn_probs: bool, dropout_p: float) -> None:
     if return_attn_probs and dropout_p > 0.0:
-        check_supported(None, dropout_p, "return_attn_probs")
+        check_supported(dropout_p, "return_attn_probs")
 
 
 def flash_attn_func(q, k, v, dropout_p: float = 0.0,
