@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA Hopper card.
 
-    python3 chip_smoke.py    # Llama-3-8B and Mistral-7B serving,
-                             # GPT-3/GPT-2-medium training, full width and
-                             # depth, one card
+    python3 chip_smoke.py    # Llama-3-8B and Mistral-7B serving (bf16,
+                             # int8 and int4 weights), GPT-3/GPT-2-medium
+                             # training (8k with remat), fp8 prefill, full
+                             # width and depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
@@ -93,7 +94,35 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      equal, the backward's peak memory beside the bias's size, each kernel
      timed beside the plain version and SDPA with the bias as a float mask;
      then `capi_bridge.attn_fwd` / `attn_bwd` with an attn_mask on numpy
-     inputs, against the plain versions.
+     inputs, against the plain versions;
+ 15. the fp8 prefill through `flash_attn_fp8_func` (the e4m3 instantiation
+     of the forward kernel) on inputs quantized by `quantize_fp8_per_head`
+     (per-head magnitudes spread 30x): FP8-A (b2 h32 hk8 s2048 d128,
+     causal), FP8-8k (b1 h32 hk8 s8192 d128), FP8-d64 (b16 h16 s2048 d64),
+     then correctness-only a window (4095, 0) and softcap 30 at FP8-8k's
+     width and odd lengths (113/203, 257): launches exact, no plain
+     version, out and LSE within twice the bf16 plain version's error
+     against the fp32 plain version on the dequantized inputs and against
+     the kernel's own plain version within the limits on the e4m3
+     wgmma's accumulation error (`reference.fp8_ref_errors`), a second
+     call bitwise equal; the timed cases beside their bound (QK^T's FLOPs
+     at 1979e12, P.V's at 989e12, visible pairs), the plain version, SDPA
+     in bf16 on the dequantized inputs and the port's bf16 #1;
+ 16. T-8k: `train("experiment/pile/gpt3m-flash-8k.yaml")` at full width,
+     depth and batch (24 layers, hidden 1024, seqlen 8192, batch 2) for 6
+     steps under the recipe's remat (save_attn), then 2 steps each with
+     remat_policy "save_dots" and "nothing" and without remat: step ms,
+     tokens/s, MFU,
+     peak memory, exact launches (the attention forward once a layer a step
+     under save_attn, twice under "nothing"), no plain version; at depth 2
+     the loss and every gradient with remat against without;
+ 17. weight-only serving at Llama-3-8B width: phase 4's random bf16
+     weights through `quantize_gpt_params` as int8 and as int4 serve
+     request A (graph and uncaptured, as phase 4), the kernel path against
+     the plain path (phase 5's gate), a profiled decode step, the logits
+     against the bf16 model (printed); the engine's 12 requests with int8
+     weights and bf16 pages; ms/step, tok/s, peak memory and weight bytes
+     beside the bf16 model's.
 Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
@@ -114,6 +143,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import importlib
 import json
 import math
@@ -737,6 +767,7 @@ def counters():
     return {"rms_norm_add": layer_norm.ln_fwd,
             "flash_fwd (flash_attention_fwd)": fwd.flash_attention_fwd,
             "flash_fwd (fused_heads)": fused_heads.fused_heads_fwd,
+            "flash_fwd_fp8": fwd.flash_fwd_fp8,
             "flash_decode": decode_kernel.flash_decode,
             "flash_decode_splitkv": combine.flash_decode_splitkv,
             "paged_decode (chunked)": paged.paged_decode_chunked,
@@ -859,6 +890,11 @@ def compare_logits(what, got, want, tokens=None):
                 tokens=tokens.numel(), largest_gap=worst)
 
 
+# the last serve() run of each (request, "eager" | "graph"): ms/step, tok/s,
+# prefill tok/s, peak GiB (phase 17 prints its own beside phase 4's)
+SERVED = {}
+
+
 def serve(model, gen, name):
     """Phase 4, request ``name``: decode() with its step replayed as a CUDA
     graph (the main path) and uncaptured (``cuda_graph=False``), one after
@@ -914,6 +950,9 @@ def serve(model, gen, name):
     for graph, what in ((False, "eager"), (True, "graph")):
         r = runs[graph]
         decode_s = r["total_s"] - prefill_s
+        SERVED[(name, what)] = dict(
+            ms_per_step=decode_s / steps * 1e3, tok_s=b * steps / decode_s,
+            prefill_tok_s=b * prompt / prefill_s, peak_gib=r["peak"] / 2**30)
         print(f"  request {name}, {what}: b{b} prompt {prompt} max_length "
               f"{max_length}: total {r['total_s']:.4f} s, prefill "
               f"{prefill_s:.4f} s ({b * prompt / prefill_s:.1f} tok/s), "
@@ -1045,6 +1084,7 @@ TPU_OF = {
     "rms_norm_add": "ops/layer_norm.py:48 _ln_fwd_kernel",
     "flash_fwd (flash_attention_fwd)": "ops/flash_attention/fwd.py:78 _fwd_kernel",
     "flash_fwd (fused_heads)": "ops/flash_attention/fused_heads.py:59 _fwd_kernel",
+    "flash_fwd_fp8": "ops/flash_attention/fwd.py:78 _fwd_kernel (fp8)",
     "flash_decode": "ops/flash_attention/decode_kernel.py:47 _decode_kernel",
     "flash_decode_splitkv": "inference/combine.py:75 _splitkv_kernel",
     "paged_decode (chunked)": "inference/paged.py:219 _paged_decode_chunked_kernel",
@@ -1066,6 +1106,7 @@ KERNEL_GROUPS = (  # device kernel name fragment -> group
     ("paged_prefill_kernel", "paged_decode"),
     ("flash_decode_kernel", "flash_decode"),
     ("flash_fwd_kernel", "flash_fwd"),
+    ("flash_fwd_fp8_kernel", "flash_fwd"),
     ("flash_bwd_prep_kernel", "attention bwd"),
     ("flash_bwd_dkv_kernel", "attention bwd"),
     ("flash_bwd_dbias_kernel", "attention bwd"),
@@ -3093,7 +3134,7 @@ def count_plain_calls():
         "flash_attention.fused_heads")}
     names = ("ln_fwd_ref", "ln_bwd_ref", "attention_fwd_ref",
              "attention_bwd_ref", "bwd_prep_ref", "fused_heads_fwd_ref",
-             "fused_heads_bwd_ref")
+             "fused_heads_bwd_ref", "attention_fp8_ref")
     calls, saved = {}, []
     for mod in mods.values():
         for name in names:
@@ -3338,6 +3379,527 @@ def train_breakdown(trainer, name):
     return out
 
 
+# ------------------------------------------------ phase 15: the fp8 prefill
+
+PEAK_FP8_FLOPS = 1979e12   # H100 SXM dense fp8 tensor-core rate
+# label: ((b, h, hk, sq, sk, d), flash_attn_fp8_func keywords); the timed
+# cases: request A's prefill attention at Llama-3-8B width, its 8k-token
+# prompt, T-long's attention (d 64)
+FP8_CASES = {
+    "FP8-A": ((2, 32, 8, 2048, 2048, 128), dict(causal=True)),
+    "FP8-8k": ((1, 32, 8, 8192, 8192, 128), dict(causal=True)),
+    "FP8-d64": ((16, 16, 16, 2048, 2048, 64), dict(causal=True)),
+}
+# correctness only: a window and softcap at FP8-8k's width, odd lengths
+FP8_CHECKS = {
+    "FP8-8k window (4095, 0)": ((1, 32, 8, 8192, 8192, 128),
+                                dict(window_size=(4095, 0))),
+    "FP8-8k softcap 30": ((1, 32, 8, 8192, 8192, 128),
+                          dict(causal=True, softcap=30.0)),
+    "odd 113/203": ((2, 32, 8, 113, 203, 128), dict(causal=True)),
+    "odd 257": ((2, 16, 16, 257, 257, 64), dict(causal=False)),
+}
+
+
+def fp8_inputs(gen, b, h, hk, sq, sk, d):
+    """q/k/v (b, s, ·, d) drawn on the card with per-head magnitudes
+    spanning ~30x (the JAX test's: uniform scales would hide descale
+    faults), quantized by quantize_fp8_per_head: (q8, k8, v8, qd, kd,
+    vd)."""
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_fp8_per_head
+
+    def mk(s, nh):
+        x = torch.randn(b, s, nh, d, generator=gen, device="cuda")
+        mags = 0.2 * (1 + torch.arange(nh, device="cuda") * 29.0
+                      / max(nh - 1, 1))
+        return x * mags[None, None, :, None]
+    (q8, qd), (k8, kd), (v8, vd) = (quantize_fp8_per_head(mk(sq, h), hk),
+                                    quantize_fp8_per_head(mk(sk, hk)),
+                                    quantize_fp8_per_head(mk(sk, hk)))
+    return q8, k8, v8, qd, kd, vd
+
+
+def _fp8_dequant(x8, dsc):
+    """An e4m3 slice (b, s, heads of kv-head groups, d) times its
+    descales (b, groups) as fp32."""
+    b, s, h, d = x8.shape
+    g = dsc.shape[1]
+    return (x8.float().view(b, s, g, h // g, d)
+            * dsc[:, None, :, None, None]).view(b, s, h, d)
+
+
+def _window_keep(sq, sk, causal=False, window_size=(-1, -1), **unused):
+    left, right = window_size
+    if causal:
+        right = 0
+    rows = torch.arange(sq, device="cuda")[:, None] + sk - sq
+    cols = torch.arange(sk, device="cuda")[None, :]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if right >= 0:
+        keep &= cols <= rows + right
+    if left >= 0:
+        keep &= cols >= rows - left
+    return keep
+
+
+def fp8_plain(x, kw, upcast):
+    """The contract's references on the dequantized inputs, kv-head groups
+    at a time (PLAIN_CHUNK_BYTES): ``attention_ref`` in fp32 (``upcast``)
+    or the bf16 reorder-ops baseline, and the LSE of the scores in fp32 or
+    from bf16 inputs. Returns (out (b, sq, h, d), lse (b, h, sq))."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import \
+        attention_ref
+    q8, k8, v8, qd, kd, vd = x
+    b, sq, h, d = q8.shape
+    sk, hk = k8.shape[1], k8.shape[2]
+    g = h // hk
+    step = max(1, int(PLAIN_CHUNK_BYTES // (b * g * sq * sk * 4)))
+    keep = _window_keep(sq, sk, **kw)
+    outs, lses = [], []
+    for j in range(0, hk, step):
+        ks = slice(j, min(j + step, hk))
+        qf = _fp8_dequant(q8[:, :, j * g: ks.stop * g], qd[:, ks])
+        kf = _fp8_dequant(k8[:, :, ks], kd[:, ks])
+        vf = _fp8_dequant(v8[:, :, ks], vd[:, ks])
+        if not upcast:
+            qf, kf, vf = qf.bfloat16(), kf.bfloat16(), vf.bfloat16()
+        o, _ = attention_ref(qf, kf, vf, upcast=upcast,
+                             reorder_ops=not upcast, **kw)
+        sc = torch.einsum("bshd,bthd->bhst", qf.float(),
+                          kf.float().repeat_interleave(g, dim=2)) * d ** -0.5
+        if kw.get("softcap", 0.0) > 0:
+            sc = torch.tanh(sc / kw["softcap"]) * kw["softcap"]
+        lses.append(torch.logsumexp(sc.masked_fill(~keep, -math.inf), -1))
+        outs.append(o)
+        del sc
+    return torch.cat(outs, 2), torch.cat(lses, 1)
+
+
+def fp8_plain_version(x, kw):
+    """The kernel's plain version (reference.attention_fp8_ref) on the card,
+    kv-head groups at a time: (out (b, sq, h, d), lse, ms)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import \
+        attention_fp8_ref
+    q8, k8, v8, qd, kd, vd = x
+    b, sq, h, d = q8.shape
+    sk, hk = k8.shape[1], k8.shape[2]
+    g = h // hk
+    step = max(1, int(PLAIN_CHUNK_BYTES // (b * g * sq * sk * 4)))
+    outs, lses, ms = [], [], 0.0
+    for j in range(0, hk, step):
+        ks = slice(j, min(j + step, hk))
+        args = (q8[:, :, j * g: ks.stop * g].transpose(1, 2),
+                k8[:, :, ks].transpose(1, 2), v8[:, :, ks].transpose(1, 2),
+                qd[:, ks], kd[:, ks], vd[:, ks])
+        call = (lambda: attention_fp8_ref(*args, sm_scale=d ** -0.5, **kw))
+        o, lse = call()
+        ms += time_ms([call], iters=2, warmup=0)
+        outs.append(o.transpose(1, 2))
+        lses.append(lse)
+    return torch.cat(outs, 2), torch.cat(lses, 1), ms
+
+
+def visible_count(b, h, sq, sk, kw):
+    return b * h * int(_window_keep(sq, sk, **kw).sum().item())
+
+
+def fp8_case(gen, label, shape, kw, timed):
+    """Phase 15, one case through `flash_attn_fp8_func` (the main path):
+    exact launches (the e4m3 instantiation once, no plain version), out and
+    LSE within twice the bf16 plain version's error against the fp32 plain
+    version on the dequantized inputs (the JAX fp8 test's contract: atol
+    1e-4 and 1e-3), out and LSE against the kernel's own plain version
+    (attention_fp8_ref) within the limits on the e4m3 wgmma's accumulation
+    error (reference.fp8_ref_errors: the sums of e4m3 products carry fewer
+    mantissa bits than fp32, so a score is off by a fraction of its
+    products' magnitude, the LSE by as much and the output by about as
+    much times the KV head's largest |v|; reference.FP8_OUT_TOL and
+    FP8_LSE_TOL), a second call bitwise equal; ``timed``: the
+    kernel's ms beside its bound, the plain version's, SDPA's in bf16 on
+    the dequantized inputs and the port's own bf16 #1 on the same. Returns
+    a kernel row with this run's launches, or None."""
+    from xhy_flash_attention_tpu_torch import flash_attn_fp8_func
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import reference
+    b, h, hk, sq, sk, d = shape
+    x = fp8_inputs(gen, b, h, hk, sq, sk, d)
+    run = lambda: flash_attn_fp8_func(*x, return_lse=True, **kw)  # noqa: E731
+    torch.cuda.synchronize()
+    reset_counts()
+    with count_plain_calls() as plain:
+        out, lse = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()}, "flash_fwd_fp8": 1}
+    check(counts == want, f"fp8 {label}: launches {counts} != {want}")
+    check(not plain, f"fp8 {label}: plain versions ran: {plain}")
+    check(out.dtype == torch.bfloat16 and out.shape == (b, sq, h, d)
+          and lse.shape == (b, h, sq), f"fp8 {label}: out {out.dtype} "
+          f"{tuple(out.shape)}, lse {tuple(lse.shape)}")
+    ref, ref_lse = fp8_plain(x, kw, True)
+    low, low_lse = fp8_plain(x, kw, False)
+    fin = torch.isfinite(ref_lse)
+    check(torch.equal(fin, torch.isfinite(lse)), f"fp8 {label}: the rows "
+          "that see no key differ")
+    e, e_lp = max_err(out, ref), max_err(low, ref)
+    el, el_lp = (max_err(lse[fin], ref_lse[fin]),
+                 max_err(low_lse[fin], ref_lse[fin]))
+    check(e <= 2 * e_lp + 1e-4, f"fp8 {label} out: err {e} > 2 x {e_lp}")
+    check(el <= 2 * el_lp + 1e-3, f"fp8 {label} lse: err {el} > 2 x {el_lp}")
+    del ref, low, ref_lse, low_lse
+    again = run()
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"fp8 {label}: a second call is not bitwise equal")
+    del again
+    plain_out, plain_lse, plain_ms = fp8_plain_version(x, kw)
+    err_plain = max_err(out, plain_out)
+    eo, el_acc = reference.fp8_ref_errors(out, lse, plain_out, plain_lse, x[0],
+                                          x[1], x[3], x[4], x[5], d ** -0.5)
+    del plain_out, plain_lse
+    lim_out, lim_lse = reference.FP8_OUT_TOL, reference.FP8_LSE_TOL
+    check(eo <= lim_out and el_acc <= lim_lse,
+          f"fp8 {label} against its plain version: out {eo:.4g} (limit "
+          f"{lim_out}), lse {el_acc:.4g} (limit {lim_lse}) of the "
+          "accumulation scale")
+    print(f"  fp8 {label}: b{b} h{h} hk{hk} sq{sq} sk{sk} d{d} {kw}: out "
+          f"err {e:.4g} (bf16 plain {e_lp:.4g}), lse err {el:.4g} (bf16 "
+          f"plain {el_lp:.4g}) against the fp32 plain version; against the "
+          f"kernel's plain version: max |out err| {err_plain:.4g}; in units "
+          f"of the accumulation scale out {eo:.4g} (limit {lim_out}), "
+          f"lse {el_acc:.4g} (limit {lim_lse}); launches "
+          f"{counts['flash_fwd_fp8']}, no plain "
+          "version; a second call bitwise equal", flush=True)
+    if not timed:
+        return None
+    ms = time_ms([run], iters=20)
+    q8, k8, v8, qd, kd, vd = x
+    g = h // hk
+    qb = _fp8_dequant(q8, qd).bfloat16()
+    kb = _fp8_dequant(k8, kd).bfloat16()
+    vb = _fp8_dequant(v8, vd).bfloat16()
+    qt, kt, vt = (t.transpose(1, 2) for t in (qb, kb, vb))
+    bf16_ms = time_ms([lambda: fwd.flash_attention_fwd(
+        qt, kt, vt, sm_scale=d ** -0.5, causal=kw["causal"],
+        need_lse=True)], iters=20)
+    kr, vr = (t.repeat_interleave(g, 1) for t in (kt, vt))
+    sdpa_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        qt, kr, vr, is_causal=kw["causal"])], iters=20)
+    del qb, kb, vb, qt, kt, vt, kr, vr
+    pairs = visible_count(b, h, sq, sk, kw)
+    flops = 2.0 * d * pairs  # each of QK^T and P.V
+    t_ops = (flops / PEAK_FP8_FLOPS + flops / PEAK_BF16_FLOPS) * 1e3
+    nbytes = b * d * (sq * h + 2 * sk * hk) + 2.0 * b * sq * h * d \
+        + 4.0 * b * h * sq
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
+                                                              "bytes")
+    row = dict(
+        name=f"flash_fwd_fp8 ({label})", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+        replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78 "
+                 "_fwd_kernel (fp8)",
+        kernel="flash_fwd_fp8", launches=counts["flash_fwd_fp8"],
+        max_abs_err=err_plain, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=sdpa_ms)
+    report(row, f"max_abs_err against the plain version; {pairs} visible "
+                f"pairs, QK^T {flops:.4g} FLOP at 1979e12 and P.V at 989e12, "
+                f"{nbytes:.4g} bytes; library_ms: SDPA in bf16 on the "
+                "dequantized inputs (k, v repeated to the query heads); "
+                f"the port's bf16 #1 on the same {bf16_ms:.4f} ms")
+    row["bf16_ms"] = bf16_ms
+    return row
+
+
+def fp8_prefill(gen):
+    """Phase 15: the timed cases, then the correctness-only ones. Returns
+    the timed cases' kernel rows."""
+    rows = [fp8_case(gen, label, shape, kw, True)
+            for label, (shape, kw) in FP8_CASES.items()]
+    torch.cuda.empty_cache()
+    for label, (shape, kw) in FP8_CHECKS.items():
+        fp8_case(gen, label, shape, kw, False)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------- phase 16: T-8k training with remat
+
+REMAT_RECIPE = f"{CONFIGS}/pile/gpt3m-flash-8k.yaml"
+REMAT_RUNS = (  # label, overrides, steps
+    ("save_attn", {}, TRAIN_STEPS),
+    ("save_dots", {"model.remat_policy": "save_dots"}, 2),
+    ("nothing", {"model.remat_policy": "nothing"}, 2),
+    ("no remat", {"model.remat": False}, 2))
+# depth 2: remat against no remat, same parameters and batch: the same
+# kernels on the same inputs; a bound for what other choices of cuBLAS
+# algorithms between the two runs could move (read: bitwise equal)
+REMAT_LOSS_TOL = 1e-5
+REMAT_GRAD_TOL = 1e-3
+
+
+def train_remat_run(label, over, steps, seed, tmp):
+    """``train(gpt3m-flash-8k.yaml)`` at full width, depth and batch for
+    ``steps`` steps with ``over``: exact launches per step (the attention
+    forward once a layer under save_attn and without remat, twice under
+    "nothing"; the norm's forward again in every recomputed block), no
+    plain version. Returns its summary."""
+    from xhy_flash_attention_tpu_torch.training import load_config, train
+    from xhy_flash_attention_tpu_torch.training.callbacks import (
+        gpt_flops_per_token)
+    cfg = load_config(REMAT_RECIPE, over)
+    m = cfg.model
+    batch, seqlen, layers = cfg.data.batch_size, cfg.data.seqlen, \
+        m["num_hidden_layers"]
+    remat, policy = m.get("remat", False), m.get("remat_policy", "save_attn")
+    tokens = os.path.join(tmp, "t8k.bin")
+    if not os.path.exists(tokens):
+        write_tokens(tokens, seed, batch * (seqlen + 1) * (TRAIN_STEPS + 2))
+    overrides = {**over, "data.path": tokens, "max_steps": steps,
+                 "log_every": 1, "ckpt_every": 0,
+                 "ckpt_dir": os.path.join(tmp, f"ckpt-{label}")}
+    flops_tok = gpt_flops_per_token(layers, m["hidden_size"], seqlen,
+                                    (m["vocab_size"] + 127) // 128 * 128)
+    want = {k: 0 for k in counters()}
+    want.update({
+        "rms_norm_add": 2 * layers + 1 + (2 * layers if remat else 0),
+        "ln_bwd": 2 * layers + 1, "flash_bwd_prep": layers,
+        "flash_bwd_dkv": layers, "flash_bwd_dq": layers,
+        "flash_fwd (flash_attention_fwd)": layers * (
+            2 if remat and policy == "nothing" else 1)})
+    stamps = []
+
+    def log(msg):
+        counts = read_counts()
+        check(counts == want, f"T-8k {label} step {len(stamps) + 1}: "
+                              f"launches {counts} != {want}")
+        reset_counts()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    gc.collect()  # earlier phases' garbage would count in the peak
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with count_plain_calls() as plain:
+        t0 = time.perf_counter()
+        trainer = train(REMAT_RECIPE, **overrides, log=log)
+    peak = torch.cuda.max_memory_allocated()
+    check(not plain, f"T-8k {label}: plain versions ran: {plain}")
+    check(len(stamps) == steps, f"T-8k {label}: {len(stamps)} steps logged")
+    check(trainer.model_cfg.remat == remat
+          and trainer.model_cfg.remat_policy == policy,
+          f"T-8k {label}: the model took remat {trainer.model_cfg.remat} "
+          f"{trainer.model_cfg.remat_policy}")
+    losses = [h_["loss"] for h_ in trainer.history]
+    check(all(math.isfinite(x) for x in losses), f"T-8k {label}: {losses}")
+    step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip([t0] + stamps, stamps)]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tok = batch * seqlen
+    out = dict(run=label, remat=remat, policy=policy if remat else None,
+               steps=steps, batch=batch, seqlen=seqlen, layers=layers,
+               step_ms=step_ms, step_ms_median_after_first=steady,
+               tokens_per_s=tok / (steady / 1e3),
+               mfu=flops_tok * tok / (steady / 1e3) / PEAK_BF16_FLOPS,
+               peak_memory_gib=peak / 2 ** 30,
+               allocated_before_gib=base / 2 ** 30, losses=losses,
+               launches_per_step={k: v for k, v in want.items() if v})
+    print(f"  T-8k {label}: {json.dumps(out)}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_vs_plain(seed, tmp):
+    """One step at depth 2, full width, seqlen and batch, with remat
+    (save_attn) and without, same parameters (the recipe's seed) and batch:
+    the loss and every gradient."""
+    from xhy_flash_attention_tpu_torch.training import Trainer, load_config
+    tokens = os.path.join(tmp, "t8k.bin")
+    grads = {}
+    for remat in (True, False):
+        cfg = load_config(REMAT_RECIPE, {"data.path": tokens,
+                                         "model.num_hidden_layers": 2,
+                                         "model.remat": remat})
+        trainer = Trainer(cfg)
+        trainer.init_params()
+        ids, labels = trainer._batch(*next(iter(trainer.data)))
+        loss, g = trainer.compute_grads(ids, labels)
+        grads[remat] = (float(loss), {n: t.clone() for n, t in g.items()})
+        del trainer
+    (lr, gr), (lp, gp) = grads[True], grads[False]
+    bitwise = lr == lp and all(torch.equal(gr[n], gp[n]) for n in gp)
+    rel = {n: max_err(gr[n], gp[n]) / max(gp[n].abs().max().item(), 1e-30)
+           for n in gp}
+    worst = max(rel, key=rel.get)
+    print(f"  T-8k depth 2: loss with remat {lr:.6f}, without {lp:.6f}; "
+          f"gradients, max |diff| / max |no remat| over {len(rel)} "
+          f"parameters: largest {rel[worst]:.4g} ({worst}); bitwise equal: "
+          f"{bitwise} (bounds: loss {REMAT_LOSS_TOL}, gradients "
+          f"{REMAT_GRAD_TOL})", flush=True)
+    check(abs(lr - lp) <= REMAT_LOSS_TOL, f"T-8k: loss differs {lr} {lp}")
+    check(rel[worst] <= REMAT_GRAD_TOL,
+          f"T-8k: gradient of {worst} differs by {rel[worst]}")
+    return dict(bitwise=bitwise, grad_rel_max=rel[worst])
+
+
+def train_with_remat(seed):
+    """Phase 16: T-8k under its own remat (save_attn), then "save_dots",
+    "nothing", and without remat; then the depth-2 check."""
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [train_remat_run(label, over, steps, seed, tmp)
+                for label, over, steps in REMAT_RUNS]
+        remat_vs_plain(seed, tmp)
+    by = {r["run"]: r for r in runs}
+    check(by["save_attn"]["peak_memory_gib"]
+          < by["no remat"]["peak_memory_gib"],
+          "T-8k: save_attn's peak memory is not below no remat's")
+    print("  T-8k: " + "; ".join(
+        f"{r['run']}: step {r['step_ms_median_after_first']:.1f} ms, "
+        f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.4f}, peak "
+        f"{r['peak_memory_gib']:.2f} GiB" for r in runs), flush=True)
+    return runs
+
+
+# ------------------------- phase 17: weight-only int8 / int4 serving
+
+def weight_bytes(model, quantized_only=False):
+    """Bytes of the model's weights, or of its QuantDense payloads alone."""
+    from xhy_flash_attention_tpu_torch.modules.linear import QuantDense
+    if quantized_only:
+        return sum(m.weight_q.numel() * m.weight_q.element_size()
+                   for m in model.modules() if isinstance(m, QuantDense))
+    return sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def check_quantized(model_q, model_f, wq):
+    """Every QuantDense of ``model_q`` holds its float counterpart in
+    ``model_f`` to half a quantization step: |dequant - w| <= scale / 2 per
+    output channel (fp32 rounding of w / scale aside: 1e-3 of a step), its
+    values within [-qmax, qmax]."""
+    from xhy_flash_attention_tpu_torch.modules.linear import QuantDense
+    from xhy_flash_attention_tpu_torch.ops.quant import dequantize_weight
+    qmax = 127 if wq == "int8" else 7
+    floats = dict(model_f.named_modules())
+    worst, n = 0.0, 0
+    with torch.no_grad():
+        for name, mod in model_q.named_modules():
+            if not isinstance(mod, QuantDense):
+                continue
+            q = dequantize_weight(mod.weight_q, torch.float32)
+            check(int(q.abs().max().item()) <= qmax,
+                  f"W{wq[3:]} {name}: a value past {qmax}")
+            step = mod.weight_scale[:, None]
+            err = (q * step - floats[name].weight.float()).abs() / step
+            worst = max(worst, err.max().item())
+            n += 1
+            del q, err
+    print(f"  W{wq[3:]}: {n} quantized projections, each weight within "
+          f"{worst:.6f} of a step of its bf16 value (bound 0.5)", flush=True)
+    check(worst <= 0.5 + 1e-3, f"W{wq[3:]}: a weight {worst} steps off")
+
+
+def quant_vs_float(model_q, model_f, gen, wq):
+    """The quantized model's prefill logits against the bf16 model's on
+    one request-A prompt: largest and rms difference, top-1 agreement
+    (printed, not gated: random weights at this width make near-ties
+    common)."""
+    b, prompt, _ = REQUESTS["A"]
+    ids = torch.randint(0, model_f.config.vocab_size, (b, prompt),
+                        generator=gen, device="cuda")
+    with torch.inference_mode():
+        lf, _ = model_f(ids)
+        lq, _ = model_q(ids)
+        diff = (lq.float() - lf.float())
+        agree = (lq.argmax(-1) == lf.argmax(-1)).float().mean().item()
+        out = dict(max_abs=diff.abs().max().item(),
+                   rms=diff.pow(2).mean().sqrt().item(),
+                   max_abs_float_logit=lf.float().abs().max().item(),
+                   top1_agreement=agree)
+    print(f"  W{wq[3:]} logits against the bf16 model (request A's prompt "
+          f"shape, not gated): {json.dumps(out)}", flush=True)
+    return out
+
+
+def weight_quant_serving(seed, gen, bf16_matmul_ms):
+    """Phase 17: Llama-3-8B width, random bf16 weights from the seed (phase
+    4's), through quantize_gpt_params as int8 and as int4: request A served
+    through decode as a CUDA graph and uncaptured (serve: exact launches,
+    graph tokens equal to eager tokens, the graph's logits against a second
+    prefill), the kernel path against the plain path on the prefill and one
+    decode step (phase 5's gate), the logits against the bf16 model, a
+    profiled decode step; with int8 weights also the engine's 12 requests
+    (bf16 pages, graph). Every number beside phase 4's bf16 one."""
+    import dataclasses
+    from xhy_flash_attention_tpu_torch import (GPTLMHeadModel,
+                                               llama_config_to_gpt_config,
+                                               quantize_gpt_params)
+    cfg = llama_config_to_gpt_config(types.SimpleNamespace(**LLAMA3_8B),
+                                     torch.bfloat16)
+    model_f = GPTLMHeadModel(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    f_bytes = weight_bytes(model_f)
+    bf16 = {what: SERVED[("A", what)] for what in ("eager", "graph")}
+    out = {}
+    for wq in ("int8", "int4"):
+        t0 = time.perf_counter()
+        cfg_q = dataclasses.replace(cfg, weight_quant=wq)
+        model_q = GPTLMHeadModel(cfg_q, device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(seed))
+        model_q.load_state_dict(quantize_gpt_params(model_f.state_dict(),
+                                                    cfg_q))
+        torch.cuda.synchronize()
+        q_bytes = weight_bytes(model_q)
+        print(f"  W{wq[3:]}: quantized and loaded in "
+              f"{time.perf_counter() - t0:.1f} s; weights {q_bytes / 1e9:.3f}"
+              f" GB (bf16: {f_bytes / 1e9:.3f} GB)", flush=True)
+        check_quantized(model_q, model_f, wq)
+        with count_plain_calls() as plain:
+            serve(model_q, gen, "A")
+        check(not plain, f"W{wq[3:]}: plain versions ran: {plain}")
+        torch.cuda.empty_cache()
+        kernel_vs_plain(model_q, gen, "A")
+        torch.cuda.empty_cache()
+        logits = quant_vs_float(model_q, model_f, gen, wq)
+        torch.cuda.empty_cache()
+        prof = decode_breakdown(model_q, gen, "A")
+        matmul_ms = prof[True]["device_ms_per_step"].get("matmul", 0.0)
+        served = {what: SERVED[("A", what)] for what in ("eager", "graph")}
+        print(f"  W{wq[3:]} request A: graph ms/step "
+              f"{served['graph']['ms_per_step']:.3f} (bf16 "
+              f"{bf16['graph']['ms_per_step']:.3f}), eager "
+              f"{served['eager']['ms_per_step']:.3f} (bf16 "
+              f"{bf16['eager']['ms_per_step']:.3f}); decode tok/s graph "
+              f"{served['graph']['tok_s']:.1f} (bf16 "
+              f"{bf16['graph']['tok_s']:.1f}); prefill tok/s "
+              f"{served['graph']['prefill_tok_s']:.1f} (bf16 "
+              f"{bf16['graph']['prefill_tok_s']:.1f}); peak "
+              f"{served['graph']['peak_gib']:.3f} GiB (bf16 "
+              f"{bf16['graph']['peak_gib']:.3f}, both with the bf16 model "
+              f"resident in this phase: {f_bytes / 2**30:.3f} GiB); the "
+              f"graph step's matmul group {matmul_ms:.3f} ms (bf16, phase "
+              f"6: {bf16_matmul_ms:.3f}); the dequantization's elementwise "
+              "kernels fall in 'other'", flush=True)
+        out[wq] = dict(weights_gb=q_bytes / 1e9, served=served,
+                       payload=weight_bytes(model_q, True),
+                       matmul_ms=matmul_ms, logits=logits)
+        if wq == "int8":
+            serve_engine(model_q, torch.bfloat16, seed)
+            torch.cuda.empty_cache()
+        del model_q
+        torch.cuda.empty_cache()
+    check(2 * out["int4"]["payload"] == out["int8"]["payload"],
+          f"int4's projection weights ({out['int4']['payload']} bytes) do "
+          f"not take half of int8's ({out['int8']['payload']})")
+    print(f"  quantized projection weights: int8 {out['int8']['payload']} "
+          f"bytes, int4 {out['int4']['payload']} (half)", flush=True)
+    del model_f
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3493,7 +4055,10 @@ def main():
     torch.cuda.empty_cache()
     print("[6] where the time goes", flush=True)
     for name in REQUESTS:
-        decode_breakdown(model, gen, name)
+        prof = decode_breakdown(model, gen, name)
+        if name == "A":
+            bf16_matmul_ms = prof[True]["device_ms_per_step"].get("matmul",
+                                                                  0.0)
     engine_breakdown(engines.pop(torch.bfloat16))
     torch.cuda.empty_cache()
     chunk_breakdown(model, args.seed)
@@ -3521,7 +4086,7 @@ def main():
     print("[10] where a training step's time goes", flush=True)
     for name, trainer in trainers.items():
         train_breakdown(trainer, name)
-    del trainers
+    del trainers, trainer  # the loop's last one would stay on the card
     print(f"  launches on the main path, by kernel: {json.dumps(totals)}",
           flush=True)
     torch.cuda.empty_cache()
@@ -3544,6 +4109,21 @@ def main():
     for row in bias_entries(gen):
         launches[row["name"]] = row["launches"]
         rows.append(row)
+    print("[15] fp8 prefill through flash_attn_fp8_func: FP8-A, FP8-8k, "
+          "FP8-d64, then a window, softcap and odd lengths", flush=True)
+    for row in fp8_prefill(gen):
+        launches[row["name"]] = row["launches"]
+        rows.append(row)
+    torch.cuda.empty_cache()
+    print("[16] T-8k: experiment/pile/gpt3m-flash-8k.yaml under its remat "
+          "(save_attn), then remat_policy save_dots and nothing, and no "
+          "remat", flush=True)
+    train_with_remat(args.seed)
+    torch.cuda.empty_cache()
+    print("[17] weight-only int8 / int4 serving at Llama-3-8B width: "
+          "request A, the engine with int8 weights", flush=True)
+    weight_quant_serving(args.seed, gen, bf16_matmul_ms)
+    torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = launches.get(

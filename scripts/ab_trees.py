@@ -18,7 +18,9 @@ trees whose chip_smoke.py has them, the forward, dK/dV and dQ kernels
 under SW's window and VL-doc's segment ids and positions (the mask
 arguments made once); in trees whose chip_smoke.py has phase 14, the
 forward, dK/dV, dQ and dbias kernels with an attention bias at its cases
-(``--bias-only``: those alone). CUDA events after a warm-up. The trees
+(``--bias-only``: those alone); in trees whose chip_smoke.py has phase 15,
+the fp8 forward (``flash_attn_fp8_func``) at its timed cases
+(``--fp8-only``: those alone). CUDA events after a warm-up. The trees
 run first to last, then last to first. Prints the card's name and power
 limit first.
 """
@@ -58,7 +60,20 @@ def bias_rows(cs, bwd, fwd, timed):
         torch.cuda.empty_cache()
 
 
-def child(root: Path, bias_only: bool = False) -> None:
+def fp8_rows(cs, timed):
+    """The fp8 forward at phase 15's timed cases, on its quantized inputs."""
+    import torch
+    from xhy_flash_attention_tpu_torch import flash_attn_fp8_func
+    for label, (shape, kw) in cs.FP8_CASES.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = cs.fp8_inputs(gen, *shape)
+        timed(f"fp8 {label}", lambda: flash_attn_fp8_func(
+            *x, return_lse=True, **kw))
+        del x
+        torch.cuda.empty_cache()
+
+
+def child(root: Path, only: str = "") -> None:
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke as cs
@@ -74,8 +89,9 @@ def child(root: Path, bias_only: bool = False) -> None:
     def timed(label, fn, iters=20):
         out.append(f"{label} {cs.time_ms([fn], iters=iters):.4f}")
 
-    if bias_only:
-        bias_rows(cs, bwd, fwd, timed)
+    if only:
+        (bias_rows(cs, bwd, fwd, timed) if only == "bias"
+         else fp8_rows(cs, timed))
         print(f"{root}: " + "; ".join(out), flush=True)
         return
     for name, (b, h, hk, s, d) in (("A", (2, 32, 8, 2048, 128)),
@@ -167,6 +183,8 @@ def child(root: Path, bias_only: bool = False) -> None:
             torch.cuda.empty_cache()
     if hasattr(cs, "BIAS_CASES"):
         bias_rows(cs, bwd, fwd, timed)
+    if hasattr(cs, "FP8_CASES"):
+        fp8_rows(cs, timed)
     print(f"{root}: " + "; ".join(out), flush=True)
 
 
@@ -175,10 +193,13 @@ def main():
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--bias-only", action="store_true",
                     help="time phase 14's bias rows alone")
+    ap.add_argument("--fp8-only", action="store_true",
+                    help="time phase 15's fp8 rows alone")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = "bias" if args.bias_only else "fp8" if args.fp8_only else ""
     if args.child:
-        child(Path(args.child), args.bias_only)
+        child(Path(args.child), only)
         return
     if len(args.roots) < 2:
         raise SystemExit("give two or more tree roots")
@@ -188,7 +209,7 @@ def main():
     roots = [str(Path(r).resolve()) for r in args.roots]
     for root in roots + roots[::-1]:
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                        root] + (["--bias-only"] if args.bias_only else []),
+                        root] + ([f"--{only}-only"] if only else []),
                        check=True, cwd=root,
                        env={**os.environ, "PYTHONUNBUFFERED": "1"})
 

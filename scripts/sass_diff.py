@@ -12,9 +12,13 @@ and spills and the SASS instruction count (`cuobjdump -sass`), and whether
 the opcode streams of the two trees are the same (operands, addresses and
 constants ignored), else how many opcodes a diff of the two streams
 changes. A kernel that gained a trailing template flag (the bias flag of
-the attention kernels) is matched with its `false` instantiation: an
+the attention kernels, the forward's e4m3 flag) is matched with its
+`false` instantiation: an
 instantiation `<..., false>` of the second tree stands beside `<...>` of
-the first when the first has no `<..., false>`.
+the first when the first has no `<..., false>`. Last, the second tree's
+e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
+true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
+the script exits non-zero.
 Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
 """
 
@@ -27,6 +31,7 @@ import sys
 from pathlib import Path
 
 KERNELS = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)_kernel<[^>]*>")
+E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
 
 
 def matched(first, second):
@@ -118,6 +123,13 @@ def main():
         print(f"{label}: {len(a) if a else None} / {len(b) if b else None} "
               f"instructions, {same}; {reports[0].get(old)} | "
               f"{reports[1].get(name)}", flush=True)
+    for name, ops in sorted(codes[1].items()):
+        if E4M3.fullmatch(name):
+            kinds = {k: sum(op.startswith(k) for op in ops)
+                     for k in ("QGMMA", "HGMMA")}
+            print(f"{name}: {kinds}", flush=True)
+            if not kinds["QGMMA"]:
+                raise SystemExit(f"{name} has no QGMMA")
 
 
 if __name__ == "__main__":

@@ -42,6 +42,16 @@ S = 97  # odd: the TPU kernels pad to their blocks
 BF16_ULP = 2.0 ** -7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randn(rng, shape, scale=1.0):
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 

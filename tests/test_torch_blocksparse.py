@@ -29,6 +29,16 @@ B, H, HK, D, S, G = 2, 4, 2, 64, 256, 128
 CASES = [(causal, hm) for causal in (False, True) for hm in (1, H)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(case):
     causal, hm = case
     rng = np.random.default_rng(10 * hm + int(causal))

@@ -51,6 +51,16 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention import (
 B, H, HK, D = 2, 4, 2, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randn(rng, shape, scale=1.0):
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 

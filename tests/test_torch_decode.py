@@ -31,6 +31,16 @@ B, H, HK, D, S = 2, 4, 2, 64, 256
 LENGTHS = np.array([200, 77], np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(sq, seed):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, sq, H, D)).astype(np.float32)

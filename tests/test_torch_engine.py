@@ -46,6 +46,16 @@ from xhy_flash_attention_tpu_torch.inference import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _JEngine(JEngine):
     """The JAX engine with its host page table and lengths pushed as
     copies. On the CPU, jnp.asarray may alias a 64-byte-aligned numpy array

@@ -38,6 +38,16 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention.decode_kernel import (
 B, H, HK, D = 2, 4, 2, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randn(rng, shape):
     return rng.standard_normal(shape).astype(np.float32)
 
@@ -159,7 +169,8 @@ def test_attention_inputs_needing_grad_raise():
     assert "no backward" in NO_BACKWARD
 
 
-@pytest.mark.parametrize("kw", [dict(dtype=torch.float8_e4m3fn),
+@pytest.mark.parametrize("kw", [dict(dtype=torch.bfloat16, dropout_p=0.1,
+                                     dropout_seed=0),
                                 dict(dropout_p=0.1, dropout_seed=0)])
 def test_unported_flags_raise(kw):
     kw = dict(kw)

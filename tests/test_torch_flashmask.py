@@ -35,6 +35,16 @@ CASES = [(causal, nv, hm) for causal, nv in ((True, 1), (True, 2), (False, 2),
                                             (False, 4)) for hm in (1, H)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_indices(rng, causal, nv, b, hm, sk):
     """Random valid bands, as tests/test_flashmask.py draws them."""
     lts = rng.integers(0, sk + 1, (b, hm, sk, 1))

@@ -40,6 +40,16 @@ TINY_LLAMA = types.SimpleNamespace(
 REQUESTS = [(40, 46), (1030, 1034)]  # (prompt, max_length)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jmodel = JGPTLMHeadModel(jllama_config(TINY_LLAMA))

@@ -1873,3 +1873,159 @@ def test_bias_only_gradient_and_guard(cuda):
         runs.append((out, db))
     assert all(torch.equal(a, c) for a, c in zip(*runs))
     assert bool(torch.isfinite(runs[0][1]).all())
+
+
+# ---- the fp8 (e4m3) forward: the e4m3 instantiation of flash_fwd.cu
+
+FP8_SHAPES = [  # b, sq, sk, h, hk, causal
+    (2, 128, 128, 3, 3, False), (2, 257, 257, 2, 2, False),
+    (2, 113, 203, 2, 2, True), (2, 256, 256, 8, 2, True),
+    (1, 1000, 1000, 4, 1, True), (2, 300, 77, 2, 2, True)]
+
+
+def _fp8_inputs(gen, b, sq, sk, h, hk, d):
+    """Quantized q/k/v (b, s, ·, d) with per-head magnitudes spanning ~30x
+    (the JAX test's) and their (b, hk) descales."""
+    from xhy_flash_attention_tpu_torch.ops.quant import quantize_fp8_per_head
+
+    def mk(s, nh):
+        x = torch.randn(b, s, nh, d, generator=gen, device="cuda")
+        mags = 0.2 * (1 + torch.arange(nh, device="cuda") * 29.0
+                      / max(nh - 1, 1))
+        return x * mags[None, None, :, None]
+    (q8, qd), (k8, kd), (v8, vd) = (quantize_fp8_per_head(mk(sq, h), hk),
+                                    quantize_fp8_per_head(mk(sk, hk)),
+                                    quantize_fp8_per_head(mk(sk, hk)))
+    return q8, k8, v8, qd, kd, vd
+
+
+def _fp8_contract(out, lse, q8, k8, v8, qd, kd, vd, **kw):
+    """The JAX fp8 test's contract on the dequantized inputs: out and the
+    LSE within twice the bf16 reorder-ops baseline's error against fp32
+    (atol 1e-4 and 1e-3)."""
+    hk = k8.shape[2]
+
+    def deq(x8, dsc):
+        b, s, h, d = x8.shape
+        return (x8.float().view(b, s, hk, h // hk, d)
+                * dsc[:, None, :, None, None]).view(b, s, h, d)
+    qf, kf, vf = deq(q8, qd), deq(k8, kd), deq(v8, vd)
+    ref, _ = attention_ref(qf, kf, vf, **kw)
+    lp, _ = attention_ref(qf.bfloat16(), kf.bfloat16(), vf.bfloat16(),
+                          upcast=False, reorder_ops=True, **kw)
+    assert _err(out, ref) <= 2 * _err(lp, ref) + 1e-4
+    if lse is None:
+        return
+    g = q8.shape[2] // hk
+
+    def lse_of(qx, kx):
+        s = torch.einsum("bshd,bthd->bhst", qx.float(),
+                         kx.float().repeat_interleave(g, dim=2))
+        s = s * q8.shape[-1] ** -0.5
+        if kw.get("softcap", 0.0) > 0:
+            s = torch.tanh(s / kw["softcap"]) * kw["softcap"]
+        sq, sk = s.shape[-2:]
+        left, right = kw.get("window_size", (-1, -1))
+        if kw.get("causal"):
+            right = 0
+        rows = torch.arange(sq, device="cuda")[:, None] + sk - sq
+        cols = torch.arange(sk, device="cuda")[None, :]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+        if right >= 0:
+            keep &= cols <= rows + right
+        if left >= 0:
+            keep &= cols >= rows - left
+        return torch.logsumexp(s.masked_fill(~keep, -float("inf")), -1)
+    ref_l, lp_l = lse_of(qf, kf), lse_of(qf.bfloat16(), kf.bfloat16())
+    fin = torch.isfinite(ref_l)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert _err(lse[fin], ref_l[fin]) <= 2 * _err(lp_l[fin], ref_l[fin]) + 1e-3
+
+
+def _fp8_accumulation(out, lse, ref, ref_lse, x):
+    """out and each row's LSE against the plain version within the limits
+    on the e4m3 wgmma's accumulation error (reference.fp8_ref_errors)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import reference
+    eo, el = reference.fp8_ref_errors(out, lse, ref, ref_lse, x[0], x[1],
+                                      x[3], x[4], x[5], x[0].shape[-1] ** -0.5)
+    assert eo <= reference.FP8_OUT_TOL and el <= reference.FP8_LSE_TOL, \
+        (eo, el)
+
+
+def _fp8_run(q8, k8, v8, qd, kd, vd, **kw):
+    """(out, lse) of the kernel (one launch checked) and of the plain version
+    on the same card tensors."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import \
+        attention_fp8_ref
+    qt, kt, vt = (t.transpose(1, 2) for t in (q8, k8, v8))
+    before = fwd.flash_fwd_fp8.launches
+    out, lse = fwd.flash_fwd_fp8(qt, kt, vt, qd, kd, vd, sm_scale=q8.shape[-1]
+                                 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert fwd.flash_fwd_fp8.launches == before + 1
+    ref, ref_lse = attention_fp8_ref(qt, kt, vt, qd, kd, vd,
+                                     sm_scale=q8.shape[-1] ** -0.5, **kw)
+    return out.transpose(1, 2), lse, ref.transpose(1, 2), ref_lse
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", FP8_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_fp8_kernel_matches_plain(cuda, shape, d):
+    b, sq, sk, h, hk, causal = shape
+    x = _fp8_inputs(cuda, b, sq, sk, h, hk, d)
+    out, lse, ref, ref_lse = _fp8_run(*x, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, sq, h, d)
+    _fp8_contract(out, lse, *x, causal=causal)
+    # the plain version repeats the kernel's arithmetic: two bf16 units of
+    # the largest output (both round the output; P and the sums in another
+    # order); out and each row's LSE within the limits on the e4m3 wgmma's
+    # accumulation error
+    assert _err(out, ref) <= 2 * BF16_ULP * ref.float().abs().max().item()
+    _fp8_accumulation(out, lse, ref, ref_lse, x)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kw", [dict(window_size=(64, 0)),
+                                dict(window_size=(100, 30)),
+                                dict(softcap=30.0, causal=True)],
+                         ids=["window", "window-both", "softcap"])
+def test_fp8_window_softcap(cuda, kw, d):
+    x = _fp8_inputs(cuda, 1, 384, 384, 4, 2, d)
+    out, lse, ref, ref_lse = _fp8_run(*x, **kw)
+    _fp8_contract(out, lse, *x, **kw)
+    assert _err(out, ref) <= 2 * BF16_ULP * ref.float().abs().max().item()
+    _fp8_accumulation(out, lse, ref, ref_lse, x)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp8_kernel_is_bitwise_repeatable(cuda, d):
+    x = _fp8_inputs(cuda, 2, 1024, 1024, 8, 2, d)
+    first = _fp8_run(*x, causal=True)[:2]
+    second = _fp8_run(*x, causal=True)[:2]
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_fp8_default_descale_and_no_lse(cuda):
+    q8, k8, v8, _, _, _ = _fp8_inputs(cuda, 1, 256, 256, 2, 2, 128)
+    ones = torch.ones(1, 2, device="cuda")
+    from xhy_flash_attention_tpu_torch import flash_attn_fp8_func
+    a, la = flash_attn_fp8_func(q8, k8, v8, causal=True, return_lse=True)
+    c, lc = flash_attn_fp8_func(q8, k8, v8, ones, ones, ones, causal=True,
+                                return_lse=True)
+    e = flash_attn_fp8_func(q8, k8, v8, causal=True)
+    assert torch.equal(a, c) and torch.equal(la, lc) and torch.equal(a, e)
+
+
+def test_fp8_unaligned_strides_raise(cuda):
+    """The e4m3 tensor maps need 16-byte pointers and strides."""
+    q8, k8, v8, qd, kd, vd = _fp8_inputs(cuda, 1, 128, 128, 2, 2, 64)
+    wide = torch.zeros(1, 128, 2, 72, device="cuda").to(torch.float8_e4m3fn)
+    wide[..., :64] = q8
+    from xhy_flash_attention_tpu_torch import flash_attn_fp8_func
+    with pytest.raises(ValueError, match="multiples of 16"):
+        flash_attn_fp8_func(wide[..., :64], k8, v8, qd, kd, vd)
+    flat = torch.zeros(q8.numel() + 1, device="cuda").to(torch.float8_e4m3fn)
+    shifted = flat[1:].view(q8.shape)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        flash_attn_fp8_func(shifted, k8, v8, qd, kd, vd)

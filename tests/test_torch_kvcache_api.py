@@ -32,6 +32,16 @@ B, S, H, HK, D = 2, 96, 4, 2, 64
 LENS = np.array([40, 9], np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rng_arrays(seed, *shapes):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]

@@ -40,6 +40,16 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention import (
 MODES = [(True, 1), (True, 2), (False, 2), (False, 4)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bands(rng, causal, nv, b, hm, sk):
     """Random valid FlashMask vectors (b, hm, NV, sk), as
     tests/test_flashmask.py draws them."""

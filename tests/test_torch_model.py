@@ -46,6 +46,16 @@ TINY_GPT2 = dict(
     activation_function="gelu_approx", tie_word_embeddings=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_model(jax_cfg, port_cfg, ids, seed=0):
     jmodel = JGPTLMHeadModel(jax_cfg)
     params = jmodel.init(jax.random.PRNGKey(seed), jnp.asarray(ids))

@@ -41,6 +41,16 @@ JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
 QUANT = (torch.int8, torch.float8_e4m3fn)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:

@@ -32,6 +32,16 @@ KINDS = {"fp32": None, "int8": (jnp.int8, torch.int8),
          "e4m3": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, kind, sq=1):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, sq, H, D)).astype(np.float32)

@@ -49,6 +49,16 @@ CONFIGS = sorted((pathlib.Path(__file__).resolve().parents[1]
 SEQ, BATCH, STEPS = 64, 4, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when the
+    suite's workers share the cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def token_file(tmp_path_factory):
     # a learnable pattern plus noise, from a seed

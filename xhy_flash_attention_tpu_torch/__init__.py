@@ -14,7 +14,10 @@ cross-entropy loss), with backward kernels for attention and the fused
 norm, sparse-mask attention (``flashmask_attention``,
 ``blocksparse_attention``, forward and backward) with
 ``calc_reduced_attn_scores``, and sliding windows, segment ids and q/kv
-positions with the varlen and kv-packed entry points and ``bert_padding``.
+positions with the varlen and kv-packed entry points and ``bert_padding``,
+the attention bias, the fp8 prefill (``flash_attn_fp8_func``),
+rematerialised training (``GPTConfig.remat``) and weight-only int8 / int4
+serving (``GPTConfig.weight_quant``, ``quantize_gpt_params``).
 """
 
 from .bert_padding import (
@@ -25,7 +28,8 @@ from .bert_padding import (
     unpad_input,
 )
 from .losses import CrossEntropyLoss, cross_entropy_loss
-from .models.gpt import GPTConfig, GPTLMHeadModel, state_dict_from_jax
+from .models.gpt import (GPTConfig, GPTLMHeadModel, quantize_gpt_params,
+                         state_dict_from_jax)
 from .models.llama import (llama_config_to_gpt_config,
                            remap_state_dict_hf_llama)
 from .ops.decode import decode_attention
@@ -37,6 +41,7 @@ from .ops.flash_attention import (
     calc_reduced_attn_scores,
     causal_document_mask,
     flash_attention,
+    flash_attn_fp8_func,
     flash_attn_func,
     flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
@@ -81,6 +86,7 @@ __all__ = [
     "dropout_add_layer_norm",
     "dropout_add_rms_norm",
     "flash_attention",
+    "flash_attn_fp8_func",
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
@@ -101,6 +107,7 @@ __all__ = [
     "packed_heads_attention",
     "packed_qkv_attention",
     "pad_input",
+    "quantize_gpt_params",
     "remap_state_dict_hf_llama",
     "rms_norm",
     "sample_logits",

@@ -32,7 +32,7 @@
 // mask the work is that of the visible pairs, still operations-bound
 // unless the mask leaves a few percent of them.
 //
-// One kernel, flash_fwd_kernel<D, MASKED>: persistent CTAs, one per SM, of
+// One kernel, flash_fwd_kernel<D, MASKED, BIAS, FP8>: persistent CTAs, one per SM, of
 // three warpgroups; a CTA runs blocks of 128 query rows (kTileM) of one
 // (batch, head).
 //   - Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
@@ -131,9 +131,34 @@
 //   V at d 128, twice them at d 64, read again by every (batch, head) that
 //   shares it.
 //
+// * e4m3 (FP8 true, with the dense schedule; flash_attn_fp8_func, the TPU
+//   kernel's fp8 flag, fwd.py:111, 153-168, 334-344, 392, 639-652, 915): q,
+//   k and v float8_e4m3fn with per-(batch, KV head) fp32 descales (q's
+//   indexed by KV head, as FA3), bf16 out, the LSE of the descaled scores;
+//   causal, sliding windows, softcap and GQA, no mask, bias or dropout, as
+//   in the TPU package. Three changes to the dense route:
+//   - QK^T on e4m3 wgmma (m64n128k32, Q and K K-major as TMA loads them:
+//     a row is D bytes, one 128-byte swizzle row at d 128, a 64-byte
+//     swizzled row at d 64), the fp32 scores then times sm_scale * qd * kd
+//     (e4m3 products are exact in fp32, so this is at least as precise as
+//     the TPU kernel's rounding of the scaled q to bf16);
+//   - P.V in f16: FP8 wgmma takes only K-major B, and V (keys x d) is
+//     MN-major for P.V, so the producer warpgroup's three idle warps turn
+//     each e4m3 V tile (loaded unswizzled into a staging stage) into an
+//     f16 tile in the bf16 V layout (exact: every e4m3 value is an f16
+//     value), and the consumers run the RS f16 wgmma with P rounded to f16
+//     (finer than the TPU kernel's bf16 P); v_descale joins the epilogue's
+//     1 / l; the tiles run one after the other at both head dims;
+//   - a window: each block visits the key tiles [lo, hi) of its rows'
+//     window (common.cuh key_window, causal its right bound 0), the tiles
+//     outside the free range [f_lo, f_hi) with the elementwise test.
+//
 // Shared memory: d 128: 2 x Q 32 KB + 2 x (K 32 + V 32) KB + O 32 KB
 // (dense) or bands and keys' info 2 x (2 + 2) KB (masked); d 64: 2 x Q 16 KB
-// + 4 x (K 16 + V 16) KB + O 16 KB (dense) or 4 x (2 + 2) KB (masked). Not yet used: ping-pong
+// + 4 x (K 16 + V 16) KB + O 16 KB (dense) or 4 x (2 + 2) KB (masked);
+// e4m3: d 128: 2 x Q 16 KB + O 32 KB + 2 x (K 16 + V staging 16 + V f16
+// 32) KB = 192 KB; d 64: 2 x Q 8 KB + O 16 KB + 4 x (8 + 8 + 16) KB = 160
+// KB. Not yet used: ping-pong
 // ordering of the two consumers, TMA multicast of K/V across a cluster.
 #include "common.cuh"
 #include "hopper.cuh"
@@ -162,30 +187,36 @@ static_assert(kTileN == sm90::kKeyTile && kBox == sm90::kBox64,
               "the tiles of hopper.cuh's issue_qk and issue_pv");
 static_assert(kTileM == xfa::kRowBlock, "the masked producer's row block");
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool FP8 = false>
 struct FwdSmem {
   static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kHalves = D / 64;  // 64-column (128-byte) tiles of a row
   // Q (two buffers) and O: [consumer 2][half][64 rows][128 B]; a K or V
-  // stage: [half][128 keys][128 B]
-  static constexpr int kQWarpgroup = kHalves * kBox;
+  // stage: [half][128 keys][128 B]. FP8: Q and K rows of D e4m3 bytes, V
+  // staged in e4m3 ([128 keys][D B], no swizzle) and converted to f16 in
+  // the bf16 V layout
+  static constexpr int kQWarpgroup = FP8 ? 64 * D : kHalves * kBox;
   static constexpr int kQBuffer = 2 * kQWarpgroup;
+  static constexpr int kOWarpgroup = kHalves * kBox;
   static constexpr int kStage = kTileN * D * 2;
+  static constexpr int kStage8 = FP8 ? kTileN * D : 0;  // an e4m3 K or staged V tile
   static constexpr int kQ = 0;
   // dense: O's staging buffer; masked: O is staged in its block's Q buffer
   static constexpr int kO = kQ + 2 * kQBuffer;
-  static constexpr int kK = kO + (MASKED ? 0 : 2 * kQWarpgroup);
-  static constexpr int kV = kK + kStages * kStage;
+  static constexpr int kK = kO + (MASKED ? 0 : 2 * kOWarpgroup);
+  static constexpr int kV = kK + kStages * (FP8 ? kStage8 : kStage);
+  static constexpr int kV8 = kV + kStages * kStage;
   // masked: each stage's FlashMask bands, its keys' (segment, position)
   // info and word, each Q buffer's queries' info and block
-  static constexpr int kBands = kV + kStages * kStage;
+  static constexpr int kBands = kV8 + kStages * kStage8;
   static constexpr int kKInfo = kBands + (MASKED ? kStages * kBandBytes : 0);
   static constexpr int kQInfo = kKInfo + (MASKED ? kStages * kBandBytes : 0);
   static constexpr int kWord = kQInfo + (MASKED ? 2 * kBlockInfoBytes : 0);
   static constexpr int kBlk = kWord + (MASKED ? kStages * 16 : 0);
-  // barriers: Q full[2], Q empty[2], K full[], V full[], K/V empty[]
+  // barriers: Q full[2], Q empty[2], K full[], V full[], K/V empty[];
+  // FP8: V staged[]
   static constexpr int kBar = kBlk + (MASKED ? 32 : 0);
-  static constexpr int kBytes = kBar + 8 * (4 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr int kBytes = kBar + 8 * (4 + (FP8 ? 4 : 3) * kStages) + 1024;  // + slack
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
@@ -201,6 +232,9 @@ struct FwdParams {
   int* next;
   // the bias instantiations' bias (common.cuh BiasParams)
   xfa::BiasParams bias;
+  // the e4m3 instantiation's (b, hk) descales, each null for ones; its
+  // window is mask.left / mask.right (causal: right 0)
+  const float *qd, *kd, *vd;
 };
 
 // The online softmax of one tile's scores s (columns n0 .. n0 + kTileN - 1;
@@ -347,19 +381,76 @@ __device__ __forceinline__ void store_lse(const FwdParams& p, int batch, int hea
   }
 }
 
-template <int D, bool MASKED, bool BIAS>
+constexpr int kConverters = 96;  // the producer warpgroup's warps 1-3
+
+// Two e4m3 pairs (a 32-bit word) as two f16 pairs.
+__device__ __forceinline__ void e4m3x4_to_f16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const __half2_raw a =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(w & 0xFFFF), __NV_E4M3);
+  const __half2_raw b =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3);
+  lo = static_cast<uint32_t>(a.x) | (static_cast<uint32_t>(a.y) << 16);
+  hi = static_cast<uint32_t>(b.x) | (static_cast<uint32_t>(b.y) << 16);
+}
+
+// P in f16 pairs: pa[4kk .. 4kk + 3] is the A fragment of k-step kk
+__device__ __forceinline__ void pack_p_f16(const float (&s)[kTileN / 2],
+                                           uint32_t (&pa)[kTileN / 4]) {
+#pragma unroll
+  for (int i = 0; i < kTileN / 4; ++i) {
+    __half2 v = __floats2half2_rn(s[2 * i], s[2 * i + 1]);
+    pa[i] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// The e4m3 instantiation's key tiles of the block at q0: [lo, hi) under
+// the window, the free ones [f_lo, f_hi) (common.cuh key_window).
+__device__ __forceinline__ void fp8_tiles(const FwdParams& p, int q0, int& lo, int& hi, int& f_lo,
+                                          int& f_hi) {
+  xfa::key_window<kTileM, kTileN>(p.mask, 0, q0, p.sq, p.sk, lo, hi, f_lo, f_hi);
+}
+
+// The e4m3 instantiation's online softmax of one tile: the scores times
+// sm_scale * q_descale * k_descale, softcap, with ELEM the elementwise
+// window / sk test (the tiles outside the free range), then softmax_step.
+__device__ __forceinline__ void fp8_softmax(float (&s)[kTileN / 2], float (&m_i)[2],
+                                            float (&l_i)[2], float (&alpha)[2], int n0,
+                                            int row0, bool elem, float qk_scale,
+                                            const FwdParams& p, int t) {
+#pragma unroll
+  for (int j = 0; j < kTileN / 2; ++j) s[j] *= qk_scale;
+  if (p.softcap > 0.f) {
+#pragma unroll
+    for (int j = 0; j < kTileN / 2; ++j) s[j] = tanhf(s[j] / p.softcap) * p.softcap;
+  }
+  if (elem) {
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) xfa::row_limit(p.mask, row0 + 8 * r, p.sq, p.sk, lo[r], hi[r]);
+#pragma unroll
+    for (int j = 0; j < kTileN / 2; ++j) {
+      const int col = n0 + (j >> 2) * 8 + 2 * t + (j & 1), r = (j >> 1) & 1;
+      s[j] = (col >= lo[r]) & (col <= hi[r]) ? s[j] : -INFINITY;
+    }
+  }
+  sm90::softmax_step(s, m_i, l_i, alpha);
+}
+
+template <int D, bool MASKED, bool BIAS, bool FP8>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                      const __grid_constant__ CUtensorMap tbands,
                      const __grid_constant__ CUtensorMap tkinfo,
                      const __grid_constant__ CUtensorMap tqinfo, const FwdParams p) {
-  using S = FwdSmem<D, MASKED>;
+  static_assert(!FP8 || !(MASKED || BIAS), "the e4m3 instantiation is dense, with no bias");
+  using S = FwdSmem<D, MASKED, FP8>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t base = sm90::smem_addr(smem);
   const uint32_t bar_q = base + S::kBar, bar_qe = bar_q + 16;  // [2] each
   const uint32_t bar_k = bar_qe + 16, bar_v = bar_k + 8 * S::kStages, bar_e = bar_v + 8 * S::kStages;
+  const uint32_t bar_v8 = bar_e + 8 * S::kStages;  // FP8: V staged in e4m3
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
   const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
   // a bias shared by every batch: blocks batch first (common.cuh pair_block_by)
@@ -374,8 +465,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     for (int st = 0; st < S::kStages; ++st) {
       sm90::mbar_init(bar_k + 8 * st, 1);
-      sm90::mbar_init(bar_v + 8 * st, 1);
+      // FP8: V full once the converting warps have written its f16 copy
+      sm90::mbar_init(bar_v + 8 * st, FP8 ? kConverters : 1);
       sm90::mbar_init(bar_e + 8 * st, 8);
+      if constexpr (FP8) sm90::mbar_init(bar_v8 + 8 * st, 1);
     }
     sm90::fence_barrier_init();
   }
@@ -399,14 +492,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto load_q = [&](int qb, int q0, int head, int batch, uint32_t extra = 0) {
       const int wgs = q0 + 64 < p.sq ? 2 : 1;
       sm90::mbar_expect_tx(bar_q + 8 * qb, wgs * S::kQWarpgroup + extra);
-      for (int w = 0; w < wgs; ++w)
-        for (int hf = 0; hf < S::kHalves; ++hf)
-          sm90::tma_load_4d(base + S::kQ + qb * S::kQBuffer + w * S::kQWarpgroup + hf * kBox, &tq,
-                            bar_q + 8 * qb, hf * 64, q0 + w * 64, head, batch);
+      for (int w = 0; w < wgs; ++w) {
+        if constexpr (FP8) {  // a row of D e4m3 bytes: one box
+          sm90::tma_load_4d(base + S::kQ + qb * S::kQBuffer + w * S::kQWarpgroup, &tq,
+                            bar_q + 8 * qb, 0, q0 + w * 64, head, batch);
+        } else {
+          for (int hf = 0; hf < S::kHalves; ++hf)
+            sm90::tma_load_4d(base + S::kQ + qb * S::kQBuffer + w * S::kQWarpgroup + hf * kBox,
+                              &tq, bar_q + 8 * qb, hf * 64, q0 + w * 64, head, batch);
+        }
+      }
     };
     // K and V of the tile at n0 into stage st (K-full also waits for `extra`
     // bytes: the masked tile's bands)
     auto load_kv = [&](int st, int n0, int kv_head, int batch, uint32_t extra) {
+      if constexpr (FP8) {  // K, and V into its staging stage (the converters' barrier)
+        sm90::mbar_expect_tx(bar_k + 8 * st, S::kStage8);
+        sm90::tma_load_4d(base + S::kK + st * S::kStage8, &tk, bar_k + 8 * st, 0, n0, kv_head,
+                          batch);
+        sm90::mbar_expect_tx(bar_v8 + 8 * st, S::kStage8);
+        sm90::tma_load_4d(base + S::kV8 + st * S::kStage8, &tv, bar_v8 + 8 * st, 0, n0, kv_head,
+                          batch);
+        return;
+      }
       const uint32_t k_st = base + S::kK + st * S::kStage;
       const uint32_t v_st = base + S::kV + st * S::kStage;
       sm90::mbar_expect_tx(bar_k + 8 * st, S::kStage + extra);
@@ -427,8 +535,15 @@ __global__ void __launch_bounds__(kThreads, 1)
             if (!xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true, m_block, head,
                                     batch))
               continue;
-            xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles,
-                                           n_free);
+            int hi = 0;  // FP8: the window's tiles [hi - n_tiles, hi)
+            if constexpr (FP8) {
+              int lo, f_lo, f_hi;
+              fp8_tiles(p, m_block * kTileM, lo, hi, f_lo, f_hi);
+              n_tiles = hi - lo;
+            } else {
+              xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles,
+                                             n_free);
+            }
             if (n_tiles == 0) continue;
             const int qb = qk & 1;
             sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);  // the first pass is free
@@ -439,7 +554,41 @@ __global__ void __launch_bounds__(kThreads, 1)
               const int st = it % S::kStages;
               // the first pass over the ring is free
               sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
-              load_kv(st, (n_tiles - 1 - i) * kTileN, kv_head, batch, 0);
+              load_kv(st, ((FP8 ? hi : n_tiles) - 1 - i) * kTileN, kv_head, batch, 0);
+            }
+          }
+        }
+      } else if (FP8 && threadIdx.x >= 32) {
+        // ---- FP8, warps 1-3: each staged e4m3 V tile (rows of D bytes, no
+        // swizzle) into f16 in issue_pv's layout ([half][key][128 B],
+        // 128-byte swizzled; exact, every e4m3 value is an f16 value), then
+        // fenced to the async proxy
+        const int ct = threadIdx.x - 32;
+        for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+          for (int half = 0; half < 2; ++half) {
+            int m_block, head, batch, lo, hi, f_lo, f_hi;
+            if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+            fp8_tiles(p, m_block * kTileM, lo, hi, f_lo, f_hi);
+            for (int i = 0; i < hi - lo; ++i, ++it) {
+              const int st = it % S::kStages;
+              sm90::mbar_wait(bar_v8 + 8 * st, (it / S::kStages) & 1);
+              const uint4* src = reinterpret_cast<const uint4*>(smem + S::kV8 + st * S::kStage8);
+              uint8_t* dst = smem + S::kV + st * S::kStage;
+              for (int c = ct; c < S::kStage8 / 16; c += kConverters) {
+                const int r = c / (D / 16), col16 = c % (D / 16);  // 16 e4m3 values
+                const uint4 x = src[c];
+                uint4 a, b;
+                e4m3x4_to_f16(x.x, a.x, a.y);
+                e4m3x4_to_f16(x.y, a.z, a.w);
+                e4m3x4_to_f16(x.z, b.x, b.y);
+                e4m3x4_to_f16(x.w, b.z, b.w);
+                uint8_t* row = dst + (col16 >> 2) * (kTileN * 128) + r * 128;
+                const int j = 2 * (col16 & 3);  // 16-byte chunks j and j + 1 of the half
+                *reinterpret_cast<uint4*>(row + ((j ^ (r & 7)) << 4)) = a;
+                *reinterpret_cast<uint4*>(row + (((j + 1) ^ (r & 7)) << 4)) = b;
+              }
+              sm90::fence_proxy_async();
+              sm90::mbar_arrive(bar_v + 8 * st);
             }
           }
         }
@@ -570,8 +719,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     int it = 0, qk = 0;
 
     if constexpr (!MASKED) {
-      const uint32_t o_wg = base + S::kO + cw * S::kQWarpgroup;
-      uint8_t* o_wg_ptr = smem + S::kO + cw * S::kQWarpgroup;
+      const uint32_t o_wg = base + S::kO + cw * S::kOWarpgroup;
+      uint8_t* o_wg_ptr = smem + S::kO + cw * S::kOWarpgroup;
       bool stored = false;  // this thread has a TMA store in flight
 
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
@@ -580,11 +729,26 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (!xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true, m_block, head,
                                   batch))
             continue;
-          xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles, n_free);
+          // FP8: the window's tiles [lo, hi), the free ones [f_lo, f_hi), and
+          // the descales of the block's KV head
+          int lo = 0, hi = 0, f_lo = 0, f_hi = 0;
+          float qk_scale = 1.f, v_scale = 1.f;
+          if constexpr (FP8) {
+            fp8_tiles(p, m_block * kTileM, lo, hi, f_lo, f_hi);
+            n_tiles = hi - lo;
+            n_free = 0;
+            const int64_t dsc = static_cast<int64_t>(batch) * p.hk + head / (p.h / p.hk);
+            qk_scale = p.sm_scale * (p.qd != nullptr ? p.qd[dsc] : 1.f) *
+                       (p.kd != nullptr ? p.kd[dsc] : 1.f);
+            v_scale = p.vd != nullptr ? p.vd[dsc] : 1.f;
+          } else {
+            xfa::key_tiles<kTileM, kTileN>(m_block * kTileM, p.sq, p.sk, p.causal, n_tiles,
+                                           n_free);
+          }
           const int q0 = m_block * kTileM;
           const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
           const int n_masked = n_tiles - n_free;           // the first tiles visited
-          auto col0 = [&](int i) { return (n_tiles - 1 - i) * kTileN; };
+          auto col0 = [&](int i) { return ((FP8 ? hi : n_tiles) - 1 - i) * kTileN; };
           // BIAS: the tile's bias, loaded under its QK^T
           const int64_t bias_base = batch * p.bias.sb + head * p.bias.sh;
           float bv[BIAS ? kTileN / 2 : 1];
@@ -604,8 +768,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           uint8_t* q_wg_ptr = smem + S::kQ + qb * S::kQBuffer + cw * S::kQWarpgroup;
           if (n_tiles > 0) {
             sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
-            scale_q<S::kQWarpgroup>(q_wg_ptr, wt, p.sm_scale);
-            sm90::named_barrier(1 + cw, 128);
+            if constexpr (!FP8) {  // FP8: the scale goes onto the scores
+              scale_q<S::kQWarpgroup>(q_wg_ptr, wt, p.sm_scale);
+              sm90::named_barrier(1 + cw, 128);
+            }
             ++qk;
           }
           // after the block's last QK^T: its Q buffer may be loaded again
@@ -616,7 +782,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           float s[kTileN / 2];
           uint32_t pa[kTileN / 4];
           float alpha[2];
-          if constexpr (D == 64) {
+          if constexpr (D == 64 && !FP8) {
             // Tile i's softmax runs while tile i - 1's P.V is on the tensor
             // cores: QK^T(i) and PV(i - 1) are issued together, QK^T(i) is
             // waited for (wgmma groups complete in order), then PV(i - 1);
@@ -675,29 +841,43 @@ __global__ void __launch_bounds__(kThreads, 1)
               if (lane == 0) sm90::mbar_arrive(bar_e + 8 * last);
             }
           } else {
-            // one tile after the other: QK^T, softmax, P.V
+            // one tile after the other: QK^T, softmax, P.V (FP8: QK^T on
+            // e4m3 wgmma, P in f16 against V's f16 copy)
             for (int i = 0; i < n_tiles; ++i) {
               const int st = stage(it + i);
               sm90::mbar_wait(bar_k + 8 * st, parity(it + i));
               sm90::wgmma_fence();
-              issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
+              if constexpr (FP8)
+                sm90::issue_qk_e4m3<D>(s, q_wg, base + S::kK + st * S::kStage8);
+              else
+                issue_qk<D>(s, q_wg, base + S::kK + st * S::kStage);
               load_bias(col0(i));
               sm90::wgmma_wait<0>();
               sm90::fence_regs(s);
               if (i == n_tiles - 1) q_done();
-              if (i < n_masked) {
-                online_softmax<true, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
+              if constexpr (FP8) {
+                const int tile = hi - 1 - i;
+                fp8_softmax(s, m_i, l_i, alpha, col0(i), row0, tile < f_lo || tile >= f_hi,
+                            qk_scale, p, t);
+                pack_p_f16(s, pa);
               } else {
-                online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
+                if (i < n_masked) {
+                  online_softmax<true, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
+                } else {
+                  online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
+                }
+                pack_p(s, pa);
               }
-              pack_p(s, pa);
 #pragma unroll
               for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
               sm90::mbar_wait(bar_v + 8 * st, parity(it + i));
               sm90::fence_regs(o);
               sm90::fence_regs(pa);
               sm90::wgmma_fence();
-              issue_pv<D>(o, pa, base + S::kV + st * S::kStage);
+              if constexpr (FP8)
+                sm90::issue_pv_f16<D>(o, pa, base + S::kV + st * S::kStage);
+              else
+                issue_pv<D>(o, pa, base + S::kV + st * S::kStage);
               sm90::wgmma_wait<0>();
               sm90::fence_regs(o);
               if (lane == 0) sm90::mbar_arrive(bar_e + 8 * st);  // one arrival per consumer warp
@@ -707,6 +887,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
           float inv[2];
           row_sums(l_i, inv);
+          if constexpr (FP8) {
+            inv[0] *= v_scale;
+            inv[1] *= v_scale;
+          }
           // O into this consumer's staging rows once the previous block's
           // store has read them
           if (stored) sm90::tma_store_wait_read();
@@ -851,17 +1035,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 // One persistent CTA per SM (shared memory allows no second), or one per
 // pair of query blocks (per block under the masked kernel's dynamic
 // scheduler) when there are fewer.
-template <int D, bool MASKED, bool BIAS>
+template <int D, bool MASKED, bool BIAS, bool FP8 = false>
 cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t s) {
-  using S = FwdSmem<D, MASKED>;
+  using S = FwdSmem<D, MASKED, FP8>;
   static std::atomic<uint64_t> done{0};
-  cudaError_t err = sm90::smem_limit_once(flash_fwd_kernel<D, MASKED, BIAS>, S::kBytes, done);
+  cudaError_t err =
+      sm90::smem_limit_once(flash_fwd_kernel<D, MASKED, BIAS, FP8>, S::kBytes, done);
   int sms = 0;
   if (err == cudaSuccess) err = sm90::sm_count(sms);
   if (err != cudaSuccess) return err;
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
   const int units = MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b);
-  flash_fwd_kernel<D, MASKED, BIAS><<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
+  flash_fwd_kernel<D, MASKED, BIAS, FP8><<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
@@ -930,5 +1115,50 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
     err = masked ? launch_fwd<128, true, false>(maps, p, s)
                  : launch_fwd<128, false, false>(maps, p, s);
   }
+  return static_cast<int>(err);
+}
+
+// The e4m3 instantiation: q/k/v float8_e4m3fn with element strides for the
+// (batch, head, seq) axes (head dim contiguous; pointers and strides
+// multiples of 16 bytes), o bf16 (multiples of 16 bytes), lse fp32 (b, h,
+// sq) or null; q/k/v descales (b, hk) fp32 contiguous, or null for ones;
+// the window (left, right), -1 no bound, causal as right 0.
+XFA_EXPORT int xfa_flash_fwd_fp8(const void* q, const void* k, const void* v, void* o, void* lse,
+                                 const void* q_descale, const void* k_descale,
+                                 const void* v_descale, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                                 int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
+                                 int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
+                                 int64_t o_ss, int b, int h, int hk, int sq, int sk, int d,
+                                 float sm_scale, float softcap, int win_left, int win_right,
+                                 void* stream) {
+  if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
+  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CUtensorMapSwizzle sw = d == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap maps[7] = {};
+  const int skm = sk > 0 ? sk : 1;  // no key tile is visited when sk == 0
+  if (!sm90::encode_bhsd_e4m3(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, 64, sw) ||
+      !sm90::encode_bhsd_e4m3(&maps[1], k, b, hk, skm, d, k_sb, k_sh, k_ss, kTileN, sw) ||
+      !sm90::encode_bhsd_e4m3(&maps[2], v, b, hk, skm, d, v_sb, v_sh, v_ss, kTileN,
+                              CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !sm90::encode_bhsd(&maps[3], o, b, h, sq, d, o_sb, o_sh, o_ss, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p{};
+  p.lse = static_cast<float*>(lse);
+  p.qd = static_cast<const float*>(q_descale);
+  p.kd = static_cast<const float*>(k_descale);
+  p.vd = static_cast<const float*>(v_descale);
+  p.b = b;
+  p.h = h;
+  p.hk = hk;
+  p.sq = sq;
+  p.sk = sk;
+  p.sm_scale = sm_scale;
+  p.softcap = softcap;
+  p.mask.left = win_left;
+  p.mask.right = win_right;
+  p.mask.pleft = p.mask.pright = -1;
+  const cudaError_t err = d == 64 ? launch_fwd<64, false, false, true>(maps, p, s)
+                                  : launch_fwd<128, false, false, true>(maps, p, s);
   return static_cast<int>(err);
 }

@@ -9,7 +9,8 @@
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile is a stack of 128-byte rows (64 bf16), the 16-byte chunk c
 // of row r stored at chunk c ^ (r % 8), every tile starting on a 1024-byte
-// boundary. Wider rows (d 128) are split into 64-column tiles.
+// boundary. Wider rows (d 128) are split into 64-column tiles. The e4m3
+// forward's d 64 rows are 64 bytes, in the 64-byte swizzle (desc_b64).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no driver call is linked)
@@ -391,6 +392,110 @@ __device__ __forceinline__ void softmax_step(float (&s)[kKeyTile / 2], float (&m
   l_i[1] = l_i[1] * alpha[1] + rs[1];
 }
 
+// ---- the e4m3 forward's variants (flash_fwd.cu flash_fwd_kernel, FP8): QK^T
+// on e4m3 wgmma (k32, both operands K-major, as FP8 wgmma requires), P.V on
+// f16 wgmma with V converted to f16 in shared memory
+
+// Shared-memory matrix descriptor for a 64-byte-swizzled K-major operand
+// (rows of 64 bytes, the 16-byte chunk c of row r at c ^ ((r / 2) % 4),
+// 8-row groups 512 bytes apart; LBO unused), layout B64. The e4m3 rows of
+// d 64 are 64 bytes; those of d 128 are one 128-byte row (desc_b128).
+__device__ __forceinline__ uint64_t desc_b64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// D(64 x 128) = A B (+ D when scale_d): e4m3 A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128_e4m3(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64 x 64) += A B: A (f16 pairs) in registers, B (f16) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64_f16(float (&d)[32], const uint32_t* a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 128) += A B: A (f16 pairs) in registers, B (f16) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128_f16(float (&d)[64], const uint32_t* a,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// S = Q K^T of one key tile from e4m3 tiles (issued and committed): Q's 64
+// rows and K's kKeyTile rows of D bytes, 128-byte swizzled at d 128 (one
+// swizzle row a tile row), 64-byte swizzled at d 64; k32 = 32 bytes a step,
+// as bf16's k16.
+template <int D>
+__device__ __forceinline__ void issue_qk_e4m3(float (&s)[kKeyTile / 2], uint32_t q_wg,
+                                              uint32_t k_st) {
+  const uint64_t dq = D == 128 ? desc_b128(q_wg, 16) : desc_b64(q_wg);
+  const uint64_t dk = D == 128 ? desc_b128(k_st, 16) : desc_b64(k_st);
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) wgmma_ss_n128_e4m3(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+  wgmma_commit();
+}
+
+// O += P V of one key tile (issued and committed), issue_pv in f16: P's f16
+// pairs as the register A operand, V (f16, issue_pv's layout) MN-major.
+template <int D>
+__device__ __forceinline__ void issue_pv_f16(float (&o)[D / 2],
+                                             const uint32_t (&pa)[kKeyTile / 4], uint32_t v_st) {
+  const uint64_t dv = desc_b128(v_st, kKeyTile * 128);
+#pragma unroll
+  for (int kk = 0; kk < kKeyTile / 16; ++kk) {
+    if constexpr (D == 64) {
+      wgmma_rs_n64_f16(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
+    } else {
+      wgmma_rs_n128_f16(o, &pa[4 * kk], dv + kk * (16 * 128 >> 4));
+    }
+  }
+  wgmma_commit();
+}
+
 // ---- host side
 
 // cuTensorMapEncodeTiled, a driver-API call, found through the runtime so
@@ -437,6 +542,28 @@ inline bool encode_bhsd(CUtensorMap* map, const void* ptr, int b, int h, int s, 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (b, h, s, d) one-byte (e4m3) view with element strides (sb, sh, ss)
+// and a contiguous head dim as a 4-D map (d, s, h, b) with boxes of d
+// columns x `rows` rows: `swizzle` CU_TENSOR_MAP_SWIZZLE_128B (d 128) or
+// _64B (d 64) for wgmma's K-major operands, _NONE for rows read by threads.
+// Strides and the pointer must be multiples of 16 bytes.
+inline bool encode_bhsd_e4m3(CUtensorMap* map, const void* ptr, int b, int h, int s, int d,
+                             int64_t sb, int64_t sh, int64_t ss, int rows,
+                             CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {s > 1 ? static_cast<cuuint64_t>(ss) : 16,
+                                 h > 1 ? static_cast<cuuint64_t>(sh) : 16,
+                                 b > 1 ? static_cast<cuuint64_t>(sb) : 16};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // bf16 KV pages (num_pages, hk, 2, ps, d), contiguous, as a 5-D map (d, ps,

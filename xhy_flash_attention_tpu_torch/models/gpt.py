@@ -8,6 +8,17 @@ are drawn from ``normal(0, initializer_range)`` with an explicit
 parameter tree instead. The forward without caches is differentiable (the
 training path, training/train.py); decoding against caches runs under
 ``torch.inference_mode()`` (``decode`` does).
+
+``GPTConfig.remat`` runs each block under ``torch.utils.checkpoint``
+(non-reentrant) in a differentiable forward without caches, with the TPU
+package's policies (its gpt.py:68-76, 228-252; ops/flash_attention/remat.py):
+"save_attn" (default) keeps each block's input and its attention's (out,
+lse), so the backward recomputes the rest but not the attention forward;
+"save_dots" also keeps every matrix product's output; "nothing" keeps the
+block's input alone. ``GPTConfig.weight_quant`` ("int8" / "int4") builds
+the projections (Wqkv, out_proj, fc1, fc2 and an untied lm_head) as
+``QuantDense`` for serving; :func:`quantize_gpt_params` turns a float
+model's state dict into theirs, as the TPU package's does (gpt.py:380-405).
 """
 
 from __future__ import annotations
@@ -22,12 +33,17 @@ from torch import nn
 from ..modules.block import Block, _Norm
 from ..modules.embedding import GPT2Embeddings
 from ..modules.mha import MHA
+from ..modules.linear import make_linear
 from ..modules.mlp import GatedMlp, Mlp
 from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED
-from ..ops.quant import QUANT_DTYPES, QuantizedKV
+from ..ops.flash_attention.remat import REMAT_POLICIES, checkpoint_block
+from ..ops.quant import QUANT_DTYPES, QuantizedKV, pack_int4, quantize_weight
 from ..utils.generation import GenerationMixin
 
-__all__ = ["GPTConfig", "GPTLMHeadModel", "GPTModel", "state_dict_from_jax"]
+__all__ = ["GPTConfig", "GPTLMHeadModel", "GPTModel", "quantize_gpt_params",
+           "state_dict_from_jax"]
+
+WEIGHT_QUANT = (None, "int8", "int4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +74,22 @@ class GPTConfig:
     mlp_fc1_bias: bool = True
     mlp_fc2_bias: bool = True
     initializer_range: float = 0.02
+    # rematerialise each block in the backward (torch.utils.checkpoint),
+    # keeping what remat_policy names: "save_attn", "save_dots", "nothing"
+    remat: bool = False
+    remat_policy: str = "save_attn"
+    # weight-only quantized projections: None | "int8" | "int4" (serving;
+    # weights through quantize_gpt_params)
+    weight_quant: Optional[str] = None
     dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
+        if self.weight_quant not in WEIGHT_QUANT:
+            raise ValueError(f"weight_quant {self.weight_quant!r}: one of "
+                             f"{WEIGHT_QUANT}")
 
     @property
     def padded_vocab_size(self) -> int:
@@ -83,7 +114,7 @@ def _mixer(c: GPTConfig, device) -> MHA:
         window_size=c.window_size, softcap=c.attn_softcap,
         rotary_emb_dim=rotary_dim, rotary_emb_base=c.rotary_emb_base,
         rotary_emb_interleaved=c.rotary_emb_interleaved,
-        dtype=c.dtype, device=device)
+        dtype=c.dtype, device=device, weight_quant_dtype=c.weight_quant)
 
 
 def _mlp(c: GPTConfig, device) -> nn.Module:
@@ -94,10 +125,10 @@ def _mlp(c: GPTConfig, device) -> nn.Module:
             activation="silu" if c.activation_function == "swiglu"
             else "gelu_approx",
             bias1=c.mlp_fc1_bias, bias2=c.mlp_fc2_bias, multiple_of=1,
-            dtype=c.dtype, device=device)
+            dtype=c.dtype, device=device, weight_quant_dtype=c.weight_quant)
     return Mlp(c.hidden_size, inner, activation=c.activation_function,
                bias1=c.mlp_fc1_bias, bias2=c.mlp_fc2_bias, dtype=c.dtype,
-               device=device)
+               device=device, weight_quant_dtype=c.weight_quant)
 
 
 class GPTModel(nn.Module):
@@ -128,15 +159,23 @@ class GPTModel(nn.Module):
         comes back with advanced lengths and replaces its entry of the
         ``kv_caches`` list, which is returned. segment_ids: (b, s) ids of
         packed sequences, the queries' and the keys' of every layer's
-        attention (JAX gpt.py:270)."""
+        attention (JAX gpt.py:270). With ``config.remat``, grad enabled and
+        no caches, each block runs under checkpointing with
+        ``config.remat_policy`` (JAX gpt.py:228)."""
         hidden = self.embeddings(input_ids, position_ids,
                                  seqlen_offset=seqlen_offset)
         residual = None
+        remat = (self.config.remat and kv_caches is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
-            hidden, residual, cache = layer(hidden, residual, cache,
-                                            seqlen_offset, segment_ids,
-                                            segment_ids)
+            args = (hidden, residual, cache, seqlen_offset, segment_ids,
+                    segment_ids)
+            if remat:
+                hidden, residual, cache = checkpoint_block(
+                    layer, self.config.remat_policy, *args)
+            else:
+                hidden, residual, cache = layer(*args)
             if kv_caches is not None:
                 kv_caches[i] = cache
         if self.norm_f is not None:
@@ -158,8 +197,8 @@ class GPTLMHeadModel(GenerationMixin, nn.Module):
         self.transformer = GPTModel(c, device=device)
         self.lm_head = (
             None if c.tie_word_embeddings else
-            nn.Linear(c.hidden_size, c.padded_vocab_size, bias=c.lm_head_bias,
-                      dtype=c.dtype, device=device))
+            make_linear(c.hidden_size, c.padded_vocab_size, c.lm_head_bias,
+                        c.weight_quant, dtype=c.dtype, device=device))
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(seed)
         self._init_weights(generator)
@@ -219,8 +258,11 @@ def state_dict_from_jax(params: Mapping, config: GPTConfig) -> Dict[str, torch.T
     ``params`` is the flax tree as nested mappings of numpy-convertible
     arrays, with or without the top-level "params" key. Flax Dense kernels
     are (in, out) and become (out, in) Linear weights. Linear and embedding
-    weights take ``config.dtype``; norm parameters stay fp32. Returns CPU
-    tensors for ``load_state_dict``.
+    weights take ``config.dtype``; norm parameters stay fp32. A quantized
+    tree's (kernel_q (in, out) int8 / int4, kernel_scale) become a
+    QuantDense's weight_q (out, in), packed for int4, and weight_scale, its
+    bias fp32 (``config.weight_quant`` says which). Returns CPU tensors for
+    ``load_state_dict``.
     """
     p = params["params"] if "params" in params else params
 
@@ -230,6 +272,16 @@ def state_dict_from_jax(params: Mapping, config: GPTConfig) -> Dict[str, torch.T
         return t.to(dtype or config.dtype)
 
     def linear(prefix, tree):
+        if "kernel_q" in tree:  # a quantized tree (quantize_gpt_params)
+            q = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(tree["kernel_q"]).astype(np.int8).T))
+            out = {f"{prefix}.weight_q": (pack_int4(q) if config.weight_quant
+                                          == "int4" else q),
+                   f"{prefix}.weight_scale": arr(tree["kernel_scale"],
+                                                 torch.float32)}
+            if "bias" in tree:
+                out[f"{prefix}.bias"] = arr(tree["bias"], torch.float32)
+            return out
         out = {f"{prefix}.weight": arr(tree["kernel"], transpose=True)}
         if "bias" in tree:
             out[f"{prefix}.bias"] = arr(tree["bias"])
@@ -266,3 +318,43 @@ def state_dict_from_jax(params: Mapping, config: GPTConfig) -> Dict[str, torch.T
     if not config.tie_word_embeddings:
         sd.update(linear("lm_head", p["lm_head"]))
     return sd
+
+
+def _projection(name: str, config: GPTConfig) -> bool:
+    """Whether state-dict key ``name`` is a projection weight that
+    weight-only quantization replaces (the TPU package quantizes every
+    kernel under mixer, mlp and lm_head)."""
+    if name == "lm_head.weight":
+        return not config.tie_word_embeddings
+    parts = name.split(".")
+    return (len(parts) == 6 and parts[0] == "transformer"
+            and parts[1] == "layers" and parts[-1] == "weight"
+            and parts[3] in ("mixer", "mlp"))
+
+
+def quantize_gpt_params(state_dict: Mapping[str, torch.Tensor],
+                        config: GPTConfig) -> Dict[str, torch.Tensor]:
+    """A float model's state dict -> the state dict of a model built with
+    ``config.weight_quant`` set (≙ the TPU package's gpt.py:380-405):
+    every projection weight (out, in) (Wqkv, out_proj, fc1, fc2 and an
+    untied lm_head) becomes weight_q (int8 (out, in), or int4 packed (out,
+    in / 2) uint8) and weight_scale (out,) fp32, per output channel
+    (ops.quant.quantize_weight over the input axis, the same values as the
+    TPU package's on its (in, out) layout); their biases become fp32.
+    Embeddings and norms stay as they are. Tensors stay on their device."""
+    if config.weight_quant is None:
+        raise ValueError("config.weight_quant must be set")
+    dtype = torch.int8 if config.weight_quant == "int8" else "int4"
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in state_dict.items():
+        if _projection(name, config):
+            prefix = name[: -len("weight")]
+            q, scale = quantize_weight(t, dtype, axis=1)
+            out[prefix + "weight_q"] = pack_int4(q) if dtype == "int4" else q
+            out[prefix + "weight_scale"] = scale
+        elif name.endswith(".bias") and _projection(name[:-4] + "weight",
+                                                    config):
+            out[name] = t.float()
+        else:
+            out[name] = t
+    return out

@@ -20,6 +20,9 @@ the device only (rotary, the cache write, the decode lengths), so a step
 captured in a CUDA graph replays the offset the tensor holds at each replay;
 an int would be baked into the graph.
 
+``weight_quant_dtype`` ("int8" / "int4") makes Wqkv and out_proj
+QuantDense projections (the TPU package's mha.py:99-127).
+
 The TPU package returns new caches; here dense caches and pages are written
 in place and the same tensors are returned. A paged cache comes back as a
 new PagedKVCache over the same pages, with advanced lengths
@@ -42,7 +45,7 @@ from ..ops.flash_attention.fused_heads import (
     packed_qkv_attention,
 )
 from ..ops.flash_attention.interface import flash_attention
-from .linear import RowParallelDense
+from .linear import RowParallelDense, make_linear
 
 __all__ = ["MHA"]
 
@@ -66,6 +69,7 @@ class MHA(nn.Module):
         *,
         dtype=torch.float32,
         device="cuda",
+        weight_quant_dtype: Optional[str] = None,
     ):
         super().__init__()
         h = num_heads
@@ -80,10 +84,11 @@ class MHA(nn.Module):
         self.softcap = softcap
         self.rotary_emb_dim = rotary_emb_dim
         self.rotary_emb_interleaved = rotary_emb_interleaved
-        self.Wqkv = nn.Linear(embed_dim, (h + 2 * hk) * d, bias=qkv_proj_bias,
-                              dtype=dtype, device=device)
-        self.out_proj = RowParallelDense(h * d, embed_dim, bias=out_proj_bias,
-                                         dtype=dtype, device=device)
+        self.Wqkv = make_linear(embed_dim, (h + 2 * hk) * d, qkv_proj_bias,
+                                weight_quant_dtype, dtype=dtype, device=device)
+        self.out_proj = make_linear(h * d, embed_dim, out_proj_bias,
+                                    weight_quant_dtype, dtype=dtype,
+                                    device=device, cls=RowParallelDense)
         self.rotary = (RotaryEmbedding(rotary_emb_dim, base=rotary_emb_base)
                        if rotary_emb_dim > 0 else None)
 

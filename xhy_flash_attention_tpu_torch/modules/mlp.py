@@ -1,4 +1,7 @@
-"""MLP family (≙ xhy_flash_attention_tpu modules/mlp.py)."""
+"""MLP family (≙ xhy_flash_attention_tpu modules/mlp.py).
+
+``weight_quant_dtype`` ("int8" / "int4") makes fc1 and fc2 QuantDense
+projections, as the TPU package's mlp.py:44-107 does."""
 
 from __future__ import annotations
 
@@ -8,7 +11,7 @@ import torch
 from torch import nn
 
 from ..ops.activations import ACTIVATIONS, geglu, swiglu
-from .linear import RowParallelDense
+from .linear import RowParallelDense, make_linear
 
 __all__ = ["GatedMlp", "Mlp"]
 
@@ -17,14 +20,16 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None,
                  activation: str = "gelu_approx", bias1: bool = True,
-                 bias2: bool = True, *, dtype=torch.float32, device="cuda"):
+                 bias2: bool = True, *, dtype=torch.float32, device="cuda",
+                 weight_quant_dtype: Optional[str] = None):
         super().__init__()
         out_features = out_features or in_features
         self.activation = ACTIVATIONS[activation]
-        self.fc1 = nn.Linear(in_features, hidden_features, bias=bias1,
-                             dtype=dtype, device=device)
-        self.fc2 = RowParallelDense(hidden_features, out_features, bias=bias2,
-                                    dtype=dtype, device=device)
+        self.fc1 = make_linear(in_features, hidden_features, bias1,
+                               weight_quant_dtype, dtype=dtype, device=device)
+        self.fc2 = make_linear(hidden_features, out_features, bias2,
+                               weight_quant_dtype, dtype=dtype, device=device,
+                               cls=RowParallelDense)
 
     def forward(self, x):
         return self.fc2(self.activation(self.fc1(x)))
@@ -38,15 +43,16 @@ class GatedMlp(nn.Module):
                  out_features: Optional[int] = None, activation: str = "silu",
                  bias1: bool = False, bias2: bool = False,
                  multiple_of: int = 128, *, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", weight_quant_dtype: Optional[str] = None):
         super().__init__()
         out_features = out_features or in_features
         hidden = (hidden_features + multiple_of - 1) // multiple_of * multiple_of
         self.gate_fn = swiglu if activation == "silu" else geglu
-        self.fc1 = nn.Linear(in_features, 2 * hidden, bias=bias1, dtype=dtype,
-                             device=device)
-        self.fc2 = RowParallelDense(hidden, out_features, bias=bias2,
-                                    dtype=dtype, device=device)
+        self.fc1 = make_linear(in_features, 2 * hidden, bias1,
+                               weight_quant_dtype, dtype=dtype, device=device)
+        self.fc2 = make_linear(hidden, out_features, bias2, weight_quant_dtype,
+                               dtype=dtype, device=device,
+                               cls=RowParallelDense)
 
     def forward(self, x):
         gate, up = self.fc1(x).chunk(2, dim=-1)

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
     + _BIAS_ARGS + [_c_void_p],
+    "xfa_flash_fwd_fp8": [_c_void_p] * 8 + [_c_int64] * 12 + [_c_int] * 6
+    + [_c_float, _c_float, _c_int, _c_int, _c_void_p],
     "xfa_flash_bwd_prep": [_c_void_p] * 5 + [_c_int64] * 9 + [_c_int] * 4
     + [_c_float, _c_void_p],
     "xfa_flash_bwd_dkv": _BWD_ARGS,

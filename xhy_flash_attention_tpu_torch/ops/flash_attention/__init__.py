@@ -13,6 +13,7 @@ from .flashmask import (
 from .common import BlockSizes
 from .interface import (
     flash_attention,
+    flash_attn_fp8_func,
     flash_attn_func,
     flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
@@ -28,7 +29,8 @@ from .reference import (attention_ref, construct_local_mask,
 __all__ = ["BlockSizes", "attention_ref", "blockmask_to_dense",
            "blocksparse_attention", "calc_reduced_attn_scores",
            "causal_document_mask", "construct_local_mask", "flash_attention",
-           "flash_attn_func", "flash_attn_kvpacked_func",
+           "flash_attn_fp8_func", "flash_attn_func",
+           "flash_attn_kvpacked_func",
            "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
            "flash_attn_varlen_kvpacked_func",
            "flash_attn_varlen_qkvpacked_func", "flash_attn_with_kvcache",

@@ -42,8 +42,8 @@ NEG_INF = DEFAULT_MASK_VALUE
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
 SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
-SLICE_DTYPES = ("slice 7 (fp16/fp32 and fp8 inputs, weight-only "
-                "quantization, remat) " + NEXT_SLICES)
+SLICE_DTYPES = ("slice 7b (fp32, then fp16 inputs to the CUDA attention "
+                "kernels) " + NEXT_SLICES)
 SLICE_MODELS = ("slice 8 (the other models and the vision trainer) "
                 + NEXT_SLICES)
 SLICE_PARALLEL = "slice 9 (parallelism) " + NEXT_SLICES
@@ -53,8 +53,9 @@ NO_BACKWARD = (
     "torch.inference_mode()"
 )
 CUDA_DTYPE_NOT_PORTED = (
-    "the CUDA attention kernel (TPU kernels #1 and #5) takes bfloat16 "
-    f"q/k/v; fp16 and fp32 come with {SLICE_DTYPES}"
+    "the CUDA attention kernels (TPU kernels #1-#3, #5, #6) take bfloat16 "
+    "q/k/v (float8_e4m3fn through flash_attn_fp8_func, forward only); fp32 "
+    f"and fp16 come with {SLICE_DTYPES}"
 )
 
 # FlashMask block stats are taken per key tile of each kernel (128 keys for

@@ -29,6 +29,7 @@ from .. import _cuda
 from .bwd import attention_bwd_ref, flash_bwd_prep, launch_flash_bwd
 from .common import SLICE_DROPOUT
 from .fwd import attention_fwd_ref, launch_flash_fwd
+from .remat import saved_attention
 
 __all__ = [
     "MAX_SEQ",
@@ -167,7 +168,8 @@ class _PackedHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal, softcap):
         ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
-        out, lse = fused_heads_fwd(q, k, v, need_lse=True, **ctx.kw)
+        out, lse = saved_attention(lambda: fused_heads_fwd(
+            q, k, v, need_lse=True, **ctx.kw), q)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -193,8 +195,8 @@ class _PackedQKV(torch.autograd.Function):
     def forward(ctx, qkv, h, hk, d, sm_scale, causal, softcap):
         ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
         ctx.heads = (h, hk, d)
-        out, lse = fused_heads_fwd(*_split(qkv, h, hk, d), need_lse=True,
-                                   **ctx.kw)
+        out, lse = saved_attention(lambda: fused_heads_fwd(
+            *_split(qkv, h, hk, d), need_lse=True, **ctx.kw), qkv)
         b, s = qkv.shape[:2]
         out = out.reshape(b, s, h * d)
         ctx.save_for_backward(qkv, out, lse)

@@ -20,7 +20,11 @@ heads by strides (:func:`bias_view`, :func:`bias_c_args`), with any flag
 but FlashMask and block masks (the bias instantiations, which read it in
 each thread's accumulator layout under the scores' product); the backward
 is bwd.py, joined to this forward by interface.py's autograd function.
-Dropout raises NotImplementedError until slice 6, fp8 until slice 7.
+FP8 e4m3 q/k/v with (b, hk) descales (:func:`flash_fwd_fp8`, forward only,
+as in the TPU package) run the kernel's e4m3 instantiation, with causal,
+windows, softcap, GQA and the LSE; it takes no bias, mask, segment ids or
+dropout. Dropout raises NotImplementedError until slice 6; fp16 and fp32
+inputs on the card until the fp32 kernels (:data:`common.SLICE_DTYPES`).
 """
 
 from __future__ import annotations
@@ -31,13 +35,16 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _cuda
-from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, SLICE_DTYPES,
-                     KernelMasks, cdiv, expand_heads, fm_skip_bypass,
-                     resolve_window)
+from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, KernelMasks, cdiv,
+                     expand_heads, fm_skip_bypass, resolve_window)
+from .reference import attention_fp8_ref
 
 __all__ = ["attention_fwd_ref", "bias_c_args", "bias_view", "build_masks",
-           "flash_attention_fwd", "fwd_masked_tile_plan", "fwd_schedule",
-           "fwd_tile_plan", "key_window_plan", "masked_row_block_plan"]
+           "flash_attention_fwd", "flash_fwd_fp8", "fwd_masked_tile_plan",
+           "fwd_schedule", "fwd_tile_plan", "key_window_plan",
+           "masked_row_block_plan"]
+
+FP8 = torch.float8_e4m3fn
 
 # Tiles of the dense (unmasked) kernel, csrc/flash_fwd.cu kTileM / kTileN:
 # query rows per block and keys per tile.
@@ -425,6 +432,117 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     _cuda.check(code, "flash_fwd")
 
 
+def fp8_descale_arg(x, b: int, hk: int, device):
+    """A (b, hk) descale as a contiguous fp32 tensor on ``device``, or None
+    (the kernel reads ones)."""
+    if x is None:
+        return None
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if x.numel() != b * hk:
+        raise ValueError(f"a descale must be ({b}, {hk}), got "
+                         f"{tuple(x.shape)}")
+    return x.reshape(b, hk).contiguous()
+
+
+def launch_flash_fwd_fp8(q, k, v, out, lse, descales, *, sm_scale: float,
+                         window, softcap: float) -> None:
+    """Launch the e4m3 instantiation of csrc/flash_fwd.cu on (b, h, s, d)
+    views of any strides (head dim contiguous): q (b, h, sq, d), k, v (b,
+    hk, sk, d) float8_e4m3fn, out (b, h, sq, d) bf16, lse (b, h, sq) fp32
+    contiguous or None; ``descales`` (q, k, v), each a contiguous (b, hk)
+    fp32 tensor on the card or None (ones); ``window`` (left, right), -1
+    no bound, causal as right 0. The e4m3 inputs are read by TMA, so their
+    pointers and strides must be multiples of 16 bytes (16 elements), and
+    out's of 8 elements: ``ValueError`` otherwise. The callers count the
+    launch."""
+    tensors = [t for t in (q, k, v, out, lse, *descales) if t is not None]
+    _cuda.require_cuda(*tensors)
+    b, h, sq, d = q.shape
+    _, hk, sk, _ = k.shape
+    if any(t.dtype != FP8 for t in (q, k, v)) or out.dtype != torch.bfloat16:
+        raise ValueError("the fp8 forward takes float8_e4m3fn q/k/v and a "
+                         "bfloat16 out")
+    if d not in (64, 128):
+        raise NotImplementedError(f"head dim {d}: the kernel takes 64 or 128")
+    if h % hk or v.shape != k.shape or out.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} out {tuple(out.shape)}")
+    if lse is not None and (lse.shape != (b, h, sq) or not lse.is_contiguous()
+                            or lse.dtype != torch.float32):
+        raise ValueError("lse must be a contiguous fp32 (b, h, sq) tensor")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _cuda.require_aligned(t, 16, name)
+    _cuda.require_aligned(out, 8, "out")
+    for x in descales:
+        if x is not None and (x.shape != (b, hk) or not x.is_contiguous()
+                              or x.dtype != torch.float32):
+            raise ValueError(f"a descale must be a contiguous fp32 ({b}, "
+                             f"{hk}) tensor")
+    code = _cuda.lib().xfa_flash_fwd_fp8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _cuda.ptr(lse), *(_cuda.ptr(x) for x in descales),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
+        int(window[0]), int(window[1]), _cuda.stream())
+    _cuda.check(code, "flash_fwd_fp8")
+
+
+def flash_fwd_fp8(q, k, v, q_descale=None, k_descale=None, v_descale=None,
+                  *, sm_scale: float, causal: bool = False,
+                  window_size: Tuple[int, int] = (-1, -1),
+                  softcap: float = 0.0, need_lse: bool = True):
+    """The fp8 forward on (b, h, s, d) float8_e4m3fn views (≙ the TPU
+    package's fwd.py with fp8 inputs, 111-168, 334-344, 639-655): q
+    (b, h, sq, d), k/v (b, hk, sk, d), descales (b, hk) fp32 or None
+    (ones), q's indexed by KV head. Returns (out (b, h, sq, d) bf16, lse
+    (b, h, sq) fp32 of the descaled scores | None). On CUDA, out is
+    allocated in (b, sq, h, d) memory order, as :func:`flash_attention_fwd`
+    does; on the CPU the plain version :func:`reference.attention_fp8_ref`
+    runs.
+
+    ``flash_fwd_fp8.launches`` counts kernel launches."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    causal, window, _ = resolve_window(causal, window_size, sq, sk, False)
+    if causal:
+        window = (-1, 0)
+    if q.device.type == "cpu":
+        return attention_fp8_ref(q, k, v, q_descale, k_descale, v_descale,
+                                 sm_scale=sm_scale, causal=False,
+                                 window_size=window, softcap=softcap,
+                                 need_lse=need_lse)
+    descales = [fp8_descale_arg(x, b, hk, q.device)
+                for x in (q_descale, k_descale, v_descale)]
+    out = torch.empty(b, sq, h, d, dtype=torch.bfloat16,
+                      device=q.device).transpose(1, 2)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    launch_flash_fwd_fp8(q, k, v, out, lse, descales, sm_scale=sm_scale,
+                         window=window, softcap=softcap)
+    flash_fwd_fp8.launches += 1
+    return out, lse
+
+
+flash_fwd_fp8.launches = 0
+
+
+def check_fp8(q, k, v, bias, dropout_p, flags) -> None:
+    """The fp8 route's refusals, as the TPU package's (fwd.py:639-643; FA3
+    has no such flags either): q, k and v all e4m3; no bias, dropout,
+    FlashMask, block mask, segment ids or positions (``ValueError``)."""
+    if not all(t.dtype == FP8 for t in (q, k, v)):
+        raise ValueError(
+            f"the fp8 forward takes float8_e4m3fn q, k and v, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if bias is not None:  # as the TPU package's fwd.py:641
+        raise ValueError("the fp8 forward takes no attention bias")
+    if dropout_p > 0.0:
+        raise ValueError("the fp8 forward takes no dropout")
+    named = [name for name, t in flags.items() if t is not None]
+    if named:
+        raise ValueError(f"the fp8 forward takes no {named}")
+
+
 def check_supported(dropout_p, where: str) -> None:
     """Raise on what the port lacks: dropout (slice 6)."""
     if dropout_p > 0.0:
@@ -470,6 +588,9 @@ def flash_attention_fwd(
     q_positions=None,
     kv_positions=None,
     masks: Optional[KernelMasks] = None,
+    q_descale=None,
+    k_descale=None,
+    v_descale=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Forward attention on (batch, heads, seq, head_dim) inputs.
 
@@ -497,13 +618,29 @@ def flash_attention_fwd(
     bf16 tensor (:func:`bias_view`), added to the scores after softcap and
     before the masks; not with a FlashMask or block mask.
 
-    ``flash_attention_fwd.launches`` counts kernel launches.
+    float8_e4m3fn q, k and v run :func:`flash_fwd_fp8` with the (b, hk)
+    ``q_descale`` / ``k_descale`` / ``v_descale`` (None: ones); out is then
+    bf16, and bias, dropout and the mask flags raise ``ValueError``.
+
+    ``flash_attention_fwd.launches`` counts the bf16 kernel's launches,
+    ``flash_fwd_fp8.launches`` the e4m3 instantiation's.
     """
+    if FP8 in (q.dtype, k.dtype, v.dtype):
+        if masks is not None:  # made by the autograd entry: a window at most
+            window_size = masks.window
+            flags = dict(flashmask_vecs=masks.fm_vecs, block_mask=masks.bm,
+                         segment_ids=masks.seg, positions=masks.pos)
+        else:
+            flags = dict(flashmask_vecs=flashmask_vecs, block_mask=block_mask,
+                         q_segment_ids=q_segment_ids,
+                         kv_segment_ids=kv_segment_ids,
+                         q_positions=q_positions, kv_positions=kv_positions)
+        check_fp8(q, k, v, bias, dropout_p, flags)
+        return flash_fwd_fp8(q, k, v, q_descale, k_descale, v_descale,
+                             sm_scale=sm_scale, causal=causal,
+                             window_size=window_size, softcap=softcap,
+                             need_lse=need_lse)
     check_supported(dropout_p, "flash_attention_fwd")
-    if q.dtype == torch.float8_e4m3fn:
-        if bias is not None:  # as the TPU package's fwd.py:641
-            raise ValueError("the fp8 forward takes no attention bias")
-        raise NotImplementedError(f"fp8 attention comes with {SLICE_DTYPES}")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if bias is not None:

@@ -29,10 +29,13 @@ from ..quant import QuantizedKV
 from .bwd import flash_attention_bwd
 from .common import BlockSizes
 from .decode_kernel import flash_decode
-from .fwd import bias_view, build_masks, check_supported, flash_attention_fwd
+from .fwd import (FP8, bias_view, build_masks, check_supported,
+                  flash_attention_fwd)
+from .remat import saved_attention
 
 __all__ = ["flash_attention", "flash_attn_func", "flash_attn_kvpacked_func",
-           "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
+           "flash_attn_fp8_func", "flash_attn_qkvpacked_func",
+           "flash_attn_varlen_func",
            "flash_attn_varlen_kvpacked_func",
            "flash_attn_varlen_qkvpacked_func", "flash_attn_with_kvcache"]
 
@@ -42,14 +45,16 @@ class _FlashAttention(torch.autograd.Function):
     for both passes; ``causal`` the plain causal flag build_masks
     returned; ``bias`` an attention bias (fwd.bias_view's shapes) or None.
     The backward launches the dbias kernel only when the bias needs a
-    gradient, and the dK/dV and dQ kernels only when q, k or v does."""
+    gradient, and the dK/dV and dQ kernels only when q, k or v does. Under
+    a rematerialised block the forward's (out, lse) are saved
+    (remat.saved_attention)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, sm_scale, causal, softcap, masks):
         ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
                       masks=masks)
-        out, lse = flash_attention_fwd(q, k, v, bias, need_lse=True,
-                                       **ctx.kw)
+        out, lse = saved_attention(lambda: flash_attention_fwd(
+            q, k, v, bias, need_lse=True, **ctx.kw), q)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse
@@ -121,6 +126,8 @@ def flash_attention(
     per head dim, so ``block_sizes`` is accepted and ignored.
     """
     del block_sizes
+    if dropout_p > 0.0 and FP8 in (q.dtype, k.dtype, v.dtype):
+        raise ValueError("the fp8 forward takes no dropout")
     check_supported(dropout_p, "flash_attention")
     if bias is not None:
         bias_view(bias, q.shape[0], q.shape[1], q.shape[2], k.shape[2])
@@ -245,6 +252,32 @@ def flash_attn_kvpacked_func(q, kv, dropout_p: float = 0.0,
         softmax_scale=softmax_scale, causal=causal, window_size=window_size,
         softcap=softcap, return_attn_probs=return_attn_probs,
         deterministic=deterministic, dropout_seed=dropout_seed)
+
+
+def flash_attn_fp8_func(q, k, v, q_descale=None, k_descale=None,
+                        v_descale=None, softmax_scale: Optional[float] = None,
+                        causal: bool = False,
+                        window_size: Tuple[int, int] = (-1, -1),
+                        softcap: float = 0.0, return_lse: bool = False):
+    """FP8 (e4m3) prefill attention forward with per-(batch, KV head)
+    descales (≙ the TPU package's interface.py:292-330, the FA3 fp8
+    forward). q: (batch, seqlen_q, nheads, head_dim) float8_e4m3fn; k/v:
+    (batch, seqlen_k, nheads_k, head_dim) float8_e4m3fn; descales (batch,
+    nheads_k) fp32 or None (ones), q_descale shared by each GQA group.
+    Returns out (b, sq, h, d) bf16, and with ``return_lse`` also the fp32
+    (b, h, sq) logsumexp of the descaled scores. Forward only, no bias or
+    dropout (``ValueError``), as in the TPU package; on the card the e4m3
+    instantiation of the forward kernel (fwd.flash_fwd_fp8)."""
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out, lse = flash_attention_fwd(
+        qt, kt, vt, sm_scale=float(softmax_scale), causal=causal,
+        window_size=(int(window_size[0]), int(window_size[1])),
+        softcap=float(softcap), need_lse=return_lse, q_descale=q_descale,
+        k_descale=k_descale, v_descale=v_descale)
+    out = out.transpose(1, 2)
+    return (out, lse) if return_lse else out
 
 
 def _segment_ids_from_cu_seqlens(cu_seqlens, total: int):

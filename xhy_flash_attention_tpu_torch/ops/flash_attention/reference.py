@@ -14,7 +14,9 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "construct_local_mask", "generate_qkv_segment_ids"]
+__all__ = ["FP8_LSE_TOL", "FP8_OUT_TOL", "attention_fp8_ref",
+           "attention_ref", "construct_local_mask", "fp8_ref_errors",
+           "generate_qkv_segment_ids"]
 
 
 def construct_local_mask(
@@ -139,3 +141,106 @@ def generate_qkv_segment_ids(query_padding_mask, key_padding_mask,
         rows = rows.to(mask.device)[:, None]
         return torch.where(mask.to(torch.bool), rows, torch.zeros_like(rows))
     return ids(query_padding_mask, seqlen_q), ids(key_padding_mask, seqlen_k)
+
+
+def fp8_descales(descales, b: int, hk: int, device) -> torch.Tensor:
+    """(q, k, v) descales, each (b, hk) fp32 or None (ones), as one (3, b,
+    hk) fp32 tensor on ``device`` (the TPU package's fwd.py:649-655)."""
+    return torch.stack([
+        torch.ones(b, hk, dtype=torch.float32, device=device) if x is None
+        else torch.as_tensor(x, dtype=torch.float32, device=device).reshape(
+            b, hk) for x in descales])
+
+
+def attention_fp8_ref(q, k, v, q_descale=None, k_descale=None,
+                      v_descale=None, *, sm_scale: float,
+                      causal: bool = False, window_size=(-1, -1),
+                      softcap: float = 0.0,
+                      need_lse: bool = True):
+    """Plain version of the fp8 forward (the e4m3 instantiation of
+    csrc/flash_fwd.cu) on (b, h, s, d) float8_e4m3fn tensors, descales (b,
+    hk) fp32 or None (ones). Query head i reads the descales of its KV head
+    i // (h / hk), q's included (FA3, the TPU package's fwd.py:155-157).
+
+    The kernel's arithmetic: the e4m3 products summed in fp32, then times
+    sm_scale * q_descale * k_descale (the "descaled" scores), softcap, the
+    window bottom-right aligned (causal: right bound 0), fp32 softmax with
+    P rounded to fp16 for P.V (V exact in fp16), the sum divided by the
+    row sum and times v_descale, bf16 out. Returns (out (b, h, sq, d)
+    bf16, lse (b, h, sq) fp32 of the descaled scores | None); rows that see
+    no key give 0 and lse +inf."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = h // hk
+    qd, kd, vd = (x.repeat_interleave(g, dim=1)[..., None, None]
+                  for x in fp8_descales((q_descale, k_descale, v_descale),
+                                        b, hk, q.device))
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) * (sm_scale * qd * kd)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    left, right = window_size
+    if causal:
+        right = 0
+    masked = construct_local_mask(sq, sk, (left, right), device=q.device)
+    s = s.masked_fill(masked, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = p.to(torch.float16).float() @ vf
+    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0) * vd
+    lse = None
+    if need_lse:
+        lse = torch.where(l > 0, m + torch.log(l), math.inf)[..., 0]
+    return o.to(torch.bfloat16), lse
+
+
+# Limits on fp8_ref_errors' two readings, about 4x the largest an H100
+# gave over chip_smoke.py phase 15's cases (out 4.7e-5, LSE 2.6e-4;
+# PERF.md, PR 14): a 1% fault in a descale reads 4e-3 or more
+FP8_OUT_TOL = 2e-4
+FP8_LSE_TOL = 1e-3
+
+
+def fp8_ref_errors(out, lse, ref, ref_lse, q, k, q_descale, k_descale,
+                   v_descale, sm_scale: float) -> Tuple[float, float]:
+    """The e4m3 kernel's errors against :func:`attention_fp8_ref`, in units
+    of the accumulation error it may make. out and ref are (b, sq, h, d),
+    lse and ref_lse (b, h, sq), q (b, sq, h, d) and k (b, sk, hk, d)
+    float8_e4m3fn, the descales (b, hk) or None (ones).
+
+    The kernel sums its e4m3 products with fewer mantissa bits than fp32,
+    so a score is off by a fraction of its products' magnitude, at most
+    S = sm_scale * qd * kd * |q row| * max |k row| (Cauchy-Schwarz), and a
+    row's LSE by as much; its output, a softmax average of values of
+    magnitude V = 448 * v_descale at most (per-head quantization puts the
+    largest value on 448), by twice that times V. Beyond that both round
+    P to f16 (2^-10 of V between them) and the output to bf16 (2^-7 of
+    |ref|), and sum in fp32 in another order (1e-5 of 1 + |LSE|). Returns
+    (the largest out error beyond the roundings over S * V of its row, the
+    largest LSE error beyond its fp32 term over S); inf when the rows that
+    see no key differ."""
+    b, _, h, _ = out.shape
+    hk = k.shape[2]
+
+    def per_head(x):  # (b, hk) or None -> (b, h)
+        x = (torch.ones(b, hk, device=out.device) if x is None
+             else x.float().reshape(b, hk))
+        return x.repeat_interleave(h // hk, dim=1)
+    kmax = per_head(k.float().norm(dim=-1).amax(1))
+    score = (sm_scale * per_head(q_descale) * per_head(k_descale) * kmax)[
+        ..., None] * q.float().norm(dim=-1).transpose(1, 2)  # (b, h, sq)
+    score = score.clamp_min(1e-30)
+    vmax = 448.0 * per_head(v_descale)
+    diff = ((out.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs()
+            - 2.0 ** -10 * vmax[:, None, :, None])
+    out_err = (diff / (score.transpose(1, 2) * vmax[:, None, :])[..., None]
+               ).max().item()
+    fin = torch.isfinite(ref_lse)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        return out_err, math.inf
+    lse_err = ((lse[fin] - ref_lse[fin]).abs() - 1e-5 * (1 + ref_lse[fin].abs())
+               ) / score[fin]
+    return out_err, lse_err.max().item() if lse_err.numel() else 0.0

@@ -12,8 +12,10 @@ update. Checkpoints store the masters, the moments, the data cursor and the
 token count, so a resumed run lands bitwise on the same parameters.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"`` (the tests).
-Parallel training (a mesh other than (1, 1), pipeline stages) comes with
-slice 9, the vision task with slice 8 and rematerialisation with slice 7.
+A recipe's ``model.remat`` / ``model.remat_policy`` rematerialise each
+block (models/gpt.py). Parallel training (a mesh other than (1, 1),
+pipeline stages) comes with slice 9, the vision task with slice 8, fp32
+compute on the card with slice 7b.
 """
 
 from __future__ import annotations
@@ -40,15 +42,11 @@ _PDROP = ("embd_pdrop", "resid_pdrop", "attn_pdrop")
 
 
 def _model_config(model: Dict, dtype: torch.dtype) -> GPTConfig:
-    """The config's ``model`` tree as this port's GPTConfig. The dropout
-    rates are dropped: the JAX Trainer applies the model with
-    deterministic=True (train.py:152-158), so it never drops out either.
-    remat is not ported."""
+    """The config's ``model`` tree as this port's GPTConfig, ``remat`` and
+    ``remat_policy`` included. The dropout rates are dropped: the JAX
+    Trainer applies the model with deterministic=True (train.py:152-158),
+    so it never drops out either."""
     model = {k: v for k, v in model.items() if k not in _PDROP}
-    if model.pop("remat", False):
-        raise NotImplementedError(
-            f"remat comes with slice 7 (fp16/fp32 and fp8 inputs, weight-only "
-            f"quantization, remat) {_NEXT}")
     return GPTConfig(**{**model, "dtype": dtype})
 
 
