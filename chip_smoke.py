@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA Hopper card.
 
     python3 chip_smoke.py    # Llama-3-8B and Mistral-7B serving (bf16,
-                             # int8 and int4 weights), GPT-3/GPT-2-medium
-                             # training (8k with remat), fp8 prefill, full
-                             # width and depth, one card
+                             # int8 and int4 weights), GPT-2 XL serving in
+                             # fp32, GPT-3/GPT-2-medium training (8k with
+                             # remat; fp32), fp8 prefill, full width and
+                             # depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
@@ -122,7 +123,37 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      the plain path (phase 5's gate), a profiled decode step, the logits
      against the bf16 model (printed); the engine's 12 requests with int8
      weights and bf16 pages; ms/step, tok/s, peak memory and weight bytes
-     beside the bf16 model's.
+     beside the bf16 model's;
+ 18. cell G: GPT-2 XL (openai-community/gpt2-xl widths: hidden 1600, 48
+     layers, 25 heads of 64, 1024 positions, vocab 50257, gelu_new, the
+     three pdrops 0.1) in fp32, its random weights under Hugging Face's
+     key names through `gpt2_config_to_gpt_config` and
+     `remap_state_dict_hf_gpt2`: request G (batch 4, prompt 896,
+     max_length 1024) through `decode`, graph and uncaptured, exact
+     launches; the prefill and one decode step through the kernels, the
+     fp32 plain versions and float64 plain versions (the gate: the
+     kernels' distance from float64 at most twice the fp32 plain path's
+     plus 1e-4 of the largest logit); the caches through
+     `flash_attn_with_kvcache(num_splits=3)`; 12 requests through
+     InferenceEngine on fp32 pages (prompts 128-896, chunked prefill, the
+     decode step a graph, its tokens equal to the uncaptured engine's);
+ 19. cell T-packed-fp32: `train("experiment/owt/gpt2m-flash.yaml",
+     dtype="float32")` at full width and depth for 4 steps at the largest
+     batch of 32, 16, 8 that fits (a smaller one printed as a cut): step
+     ms, tokens/s, peak memory, exact launches of fp32 #5 / #6 and the
+     pre-pass, no plain version; at depth 2 the loss and every gradient
+     through the kernels, the fp32 and the float64 plain versions under
+     phase 18's gate.
+Phase 3 also holds the fp32 kernels (csrc/flash_fp32.cu, the pre-pass's
+fp32 instantiation and the fp32 decode paths): #1 at G's prefill and #5 at
+T-packed's attention, the whole backward at both shapes (three passes
+bitwise equal), #4 and #9 on fp32 caches at G's decode shape, #10 / #11 on
+fp32 pages at G's and at the Llama-3-8B engine's shapes (decode and
+chunked prefill at sq 512); out and every gradient against float64 within
+twice the fp32 plain version's error plus 1e-4, the decode paths against
+their plain versions within 1e-5 of the largest output; SDPA in fp32 (TF32
+off, printed) beside each with its own error; bound max(3 FLOPs / 495e12,
+bytes / 3.35e12).
 Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
@@ -443,7 +474,8 @@ def graph_ms(fns, reps: int = 10, replays: int = 20) -> float:
 
 
 QUANT = (torch.int8, torch.float8_e4m3fn)
-SHORT = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float8_e4m3fn: "e4m3"}
+SHORT = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float8_e4m3fn: "e4m3",
+         torch.float32: "fp32"}
 DECODE_SHAPES = {  # batch, cache length
     "A": (REQUESTS["A"][0], REQUESTS["A"][2]),
     "B": (REQUESTS["B"][0], REQUESTS["B"][2]),
@@ -768,6 +800,7 @@ def counters():
             "flash_fwd (flash_attention_fwd)": fwd.flash_attention_fwd,
             "flash_fwd (fused_heads)": fused_heads.fused_heads_fwd,
             "flash_fwd_fp8": fwd.flash_fwd_fp8,
+            "flash_fwd_fp32": fwd.flash_fwd_fp32,
             "flash_decode": decode_kernel.flash_decode,
             "flash_decode_splitkv": combine.flash_decode_splitkv,
             "paged_decode (chunked)": paged.paged_decode_chunked,
@@ -775,6 +808,8 @@ def counters():
             "flash_bwd_prep": bwd.flash_bwd_prep,
             "flash_bwd_dkv": bwd.flash_bwd_dkv,
             "flash_bwd_dq": bwd.flash_bwd_dq,
+            "flash_bwd_dkv_fp32": bwd.flash_bwd_dkv_fp32,
+            "flash_bwd_dq_fp32": bwd.flash_bwd_dq_fp32,
             "flash_bwd_dbias": bwd.flash_bwd_dbias,
             "fused_heads_bwd": fused_heads.fused_heads_bwd,
             "ln_bwd": layer_norm.ln_bwd,
@@ -798,16 +833,17 @@ def read_graph_counts():
     return CUDAGraphStep.captures, CUDAGraphStep.replays
 
 
-def decode_launches(what, prompt: int, max_length: int):
+def decode_launches(what, prompt: int, max_length: int,
+                    expect=None):
     """The launches of the decode() run just made through its graph,
-    checked against the eager count, expected_counts(prompt,
-    max_length)."""
-    want = expected_counts(prompt, max_length)
+    checked against the eager count, ``expect(prompt, max_length)``
+    (expected_counts, the Llama-3-8B model's, by default)."""
+    expect = expect or expected_counts
+    want = expect(prompt, max_length)
     counts, replays = replayed_launches(
         what, read_counts(), read_graph_counts(),
-        expected_counts(prompt, prompt + 1),
-        {k: want[k] - expected_counts(prompt, max_length - 1)[k]
-         for k in want})
+        expect(prompt, prompt + 1),
+        {k: want[k] - expect(prompt, max_length - 1)[k] for k in want})
     check(counts == want, f"{what}: launches {counts} != {want}")
     check(replays == max_length - prompt - 1,
           f"{what}: {replays} replays for {max_length - prompt} steps")
@@ -895,14 +931,17 @@ def compare_logits(what, got, want, tokens=None):
 SERVED = {}
 
 
-def serve(model, gen, name):
-    """Phase 4, request ``name``: decode() with its step replayed as a CUDA
+def serve(model, gen, name, request=None, expect=None):
+    """Phase 4, request ``name`` (``request`` (batch, prompt, max_length),
+    else ALL_REQUESTS's; ``expect`` the launches of a decode() run,
+    decode_launches's): decode() with its step replayed as a CUDA
     graph (the main path) and uncaptured (``cuda_graph=False``), one after
     the other on the same prompt. Exact launches of both; graph tokens equal
     to eager tokens; the graph's logits against a second prefill. Returns
     the graph run's launches, sequences and logits."""
     from xhy_flash_attention_tpu_torch import decode
-    b, prompt, max_length = ALL_REQUESTS[name]
+    b, prompt, max_length = request or ALL_REQUESTS[name]
+    expect = expect or expected_counts
     steps = max_length - prompt
     vocab = model.config.vocab_size
     ids = torch.randint(0, vocab, (b, prompt), generator=gen, device="cuda")
@@ -922,9 +961,9 @@ def serve(model, gen, name):
                            peak=torch.cuda.max_memory_allocated())
         if graph:
             counts = decode_launches(f"request {name}, graph", prompt,
-                                     max_length)
+                                     max_length, expect)
         else:
-            want = expected_counts(prompt, max_length)
+            want = expect(prompt, max_length)
             check(read_counts() == want and read_graph_counts() == (0, 0),
                   f"request {name}, eager: launches {read_counts()} "
                   f"{read_graph_counts()} != {want}")
@@ -1085,6 +1124,7 @@ TPU_OF = {
     "flash_fwd (flash_attention_fwd)": "ops/flash_attention/fwd.py:78 _fwd_kernel",
     "flash_fwd (fused_heads)": "ops/flash_attention/fused_heads.py:59 _fwd_kernel",
     "flash_fwd_fp8": "ops/flash_attention/fwd.py:78 _fwd_kernel (fp8)",
+    "flash_fwd_fp32": "ops/flash_attention/fwd.py:78 _fwd_kernel (fp32)",
     "flash_decode": "ops/flash_attention/decode_kernel.py:47 _decode_kernel",
     "flash_decode_splitkv": "inference/combine.py:75 _splitkv_kernel",
     "paged_decode (chunked)": "inference/paged.py:219 _paged_decode_chunked_kernel",
@@ -1092,6 +1132,8 @@ TPU_OF = {
     "flash_bwd_prep": "ops/flash_attention/bwd.py:737 delta (XLA)",
     "flash_bwd_dkv": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel",
     "flash_bwd_dq": "ops/flash_attention/bwd.py:511 _bwd_dq_kernel",
+    "flash_bwd_dkv_fp32": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel (fp32)",
+    "flash_bwd_dq_fp32": "ops/flash_attention/bwd.py:511 _bwd_dq_kernel (fp32)",
     "flash_bwd_dbias": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel (dbias)",
     "fused_heads_bwd": "ops/flash_attention/fused_heads.py:105 _bwd_kernel",
     "ln_bwd": "ops/layer_norm.py:102 _ln_bwd_kernel",
@@ -1340,17 +1382,22 @@ def check_engine_tokens(model, what, reqs, bound):
     return dict(tokens_differ=differ, tokens=total, largest_gap=worst)
 
 
-def serve_engine(model, dtype, seed):
-    """Phase 4b: 12 greedy requests through InferenceEngine at full width
-    and depth, its decode step replayed as a CUDA graph (the main path) and
-    uncaptured (``cuda_graph=False``): exact launches of both, equal
-    tokens, the graph's tokens against a dense prefill. Returns the graph
-    run's launches and model calls."""
+def serve_engine(model, dtype, seed, requests=None, run=None,
+                 kernels=("flash_fwd (fused_heads)", "paged_decode (chunked)")):
+    """Phase 4b: 12 greedy requests (``requests(seed, vocab)``,
+    _engine_requests by default) through InferenceEngine (settings ``run``,
+    ENGINE_RUN by default) at full width and depth, its decode step
+    replayed as a CUDA graph (the main path) and uncaptured
+    (``cuda_graph=False``): exact launches of both (``kernels``: the
+    prefill's attention and the chunk and decode steps' paged entry),
+    equal tokens, the graph's tokens against a dense prefill. Returns the
+    graph run's launches and model calls."""
     layers = model.config.num_hidden_layers
+    requests, run = requests or _engine_requests, run or ENGINE_RUN
     runs = {}
     for graph in (False, True):
-        reqs = _engine_requests(seed, model.config.vocab_size)
-        eng = _timed_engine(model, dtype, cuda_graph=graph, **ENGINE_RUN)
+        reqs = requests(seed, model.config.vocab_size)
+        eng = _timed_engine(model, dtype, cuda_graph=graph, **run)
         for r in reqs:
             eng.add_request(r)
         torch.cuda.synchronize()
@@ -1372,9 +1419,8 @@ def serve_engine(model, dtype, seed):
         calls = st["prefill"] + st["chunk"] + decode_calls
         return {**{k: 0 for k in counters()},
                 "rms_norm_add": (2 * layers + 1) * calls,
-                "flash_fwd (fused_heads)": layers * st["prefill"],
-                "paged_decode (chunked)": layers * (st["chunk"]
-                                                    + decode_calls)}
+                kernels[0]: layers * st["prefill"],
+                kernels[1]: layers * (st["chunk"] + decode_calls)}
 
     want = launches(st["decode"])
     eager = runs[False]
@@ -1390,12 +1436,12 @@ def serve_engine(model, dtype, seed):
     check(replays == st["decode"] - 1,
           f"engine: {replays} replays for {st['decode']} decode steps")
     reqs = runs[True]["reqs"]
-    check(sorted(runs[True]["results"]) == list(range(N_REQUESTS)) and all(
+    check(sorted(runs[True]["results"]) == list(range(len(reqs))) and all(
         len(runs[True]["results"][r.rid]) == r.max_new_tokens for r in reqs),
         "engine: a request did not finish with its tokens")
     gen_tokens = sum(r.max_new_tokens for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
-    print(f"  engine, {SHORT[dtype]} pages: {N_REQUESTS} requests, prompts "
+    print(f"  engine, {SHORT[dtype]} pages: {len(reqs)} requests, prompts "
           f"{[len(r.prompt) for r in reqs]}, new tokens "
           f"{[r.max_new_tokens for r in reqs]}; model calls {dict(st)}",
           flush=True)
@@ -1422,7 +1468,7 @@ def serve_engine(model, dtype, seed):
           flush=True)
     check(same, f"engine {SHORT[dtype]}: the graph's tokens differ from "
                 "eager")
-    bound_ = NEAR_TIE if dtype == torch.bfloat16 else INT8_NEAR_TIE
+    bound_ = INT8_NEAR_TIE if dtype in QUANT else NEAR_TIE
     check_engine_tokens(model, f"engine {SHORT[dtype]} pages, graph", reqs,
                         bound_)
     print(f"  engine {SHORT[dtype]} kernels: " + json.dumps(
@@ -3165,22 +3211,25 @@ MMA_SYNC_BWD_TRAINING = {
     "T-packed": dict(step_ms=287.7, mfu=0.2617, attention_bwd_ms=68.8)}
 
 
-def train_recipe(name, seed, tmp):
-    """Phase 8 for one recipe: ``train(config, **overrides)`` for
-    TRAIN_STEPS steps; each step's launches checked exactly in the log
-    callback. Returns (trainer, per-step records, summary)."""
+def train_recipe(name, seed, tmp, recipe=None, extra=None,
+                 steps=TRAIN_STEPS):
+    """Phase 8 for one recipe (``recipe`` (config, kernels), RECIPES[name]
+    by default; ``extra`` overrides, such as a dtype): ``train(config,
+    **overrides)`` for ``steps`` steps; each step's launches checked
+    exactly in the log callback. Returns (trainer, summary)."""
     from xhy_flash_attention_tpu_torch.training import load_config, train
     from xhy_flash_attention_tpu_torch.training.callbacks import (
         gpt_flops_per_token)
-    path, path_kernels = RECIPES[name]
+    path, path_kernels = recipe or RECIPES[name]
     cfg = load_config(path)
     batch = cfg.data.batch_size // 2 ** BATCH_CUT.get(name, 0)
     seqlen, layers = cfg.data.seqlen, cfg.model["num_hidden_layers"]
     tokens = os.path.join(tmp, f"{name}.bin")
-    write_tokens(tokens, seed, batch * (seqlen + 1) * (TRAIN_STEPS + 2))
+    write_tokens(tokens, seed, batch * (seqlen + 1) * (steps + 2))
     overrides = {"data.path": tokens, "data.batch_size": batch,
-                 "max_steps": TRAIN_STEPS, "log_every": 1, "ckpt_every": 0,
-                 "ckpt_dir": os.path.join(tmp, f"ckpt-{name}")}
+                 "max_steps": steps, "log_every": 1, "ckpt_every": 0,
+                 "ckpt_dir": os.path.join(tmp, f"ckpt-{name}"),
+                 **(extra or {})}
     flops_tok = gpt_flops_per_token(
         layers, cfg.model["hidden_size"], seqlen,
         (cfg.model["vocab_size"] + 127) // 128 * 128)
@@ -3194,7 +3243,8 @@ def train_recipe(name, seed, tmp):
           + (f" (published {cfg.data.batch_size}, halved "
              f"{BATCH_CUT[name]}x to fit)" if name in BATCH_CUT else
              " (as published)")
-          + f", {TRAIN_STEPS} steps, the recipe's AdamW and schedule",
+          + f", {steps} steps, the recipe's AdamW and schedule"
+          + (f", overrides {extra}" if extra else ""),
           flush=True)
 
     def log(msg):
@@ -3216,7 +3266,7 @@ def train_recipe(name, seed, tmp):
         trainer = train(path, **overrides, log=log)
     peak = torch.cuda.max_memory_allocated()
     check(not plain, f"{name}: plain versions ran on the main path: {plain}")
-    check(len(records) == TRAIN_STEPS, f"{name}: {len(records)} steps logged")
+    check(len(records) == steps, f"{name}: {len(records)} steps logged")
     hist = trainer.history
     tok = batch * seqlen
     prev = t0
@@ -3242,11 +3292,13 @@ def train_recipe(name, seed, tmp):
     steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     summary = dict(
         recipe=name, batch=batch, seqlen=seqlen, layers=layers,
-        step_ms_median_2_to_6=steady, tokens_per_s=tok / (steady / 1e3),
+        step_ms_median_of_2_on=steady, tokens_per_s=tok / (steady / 1e3),
         mfu=flops_tok * tok / (steady / 1e3) / PEAK_BF16_FLOPS,
         flops_per_token=flops_tok, peak_memory_gib=peak / 2 ** 30,
         losses=losses, launches={k: v for k, v in launches.items() if v})
     print(f"  {name} summary: {json.dumps(summary)}", flush=True)
+    if name not in MMA_SYNC_TRAINING:
+        return trainer, summary
     before, bwd_before = MMA_SYNC_TRAINING[name], MMA_SYNC_BWD_TRAINING[name]
     print(f"  {name}: step ms {steady:.1f} (mma.sync forward: "
           f"{before['step_ms']}; mma.sync backward: "
@@ -3900,6 +3952,817 @@ def weight_quant_serving(seed, gen, bf16_matmul_ms):
     return out
 
 
+# ------------------- phase 3: the fp32 kernels; phases 18 and 19 (fp32)
+
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
+# an fp32-accurate product on the tensor cores costs three TF32 products
+# (3xTF32); the fp32 rows' bound: max(3 FLOPs / 495e12, bytes / 3.35e12)
+FP32_PRODUCTS = 3
+GPT2_XL = dict(  # openai-community/gpt2-xl config.json
+    vocab_size=50257, n_positions=1024, n_embd=1600, n_layer=48, n_head=25,
+    n_inner=None, layer_norm_epsilon=1e-5, activation_function="gelu_new",
+    resid_pdrop=0.1, embd_pdrop=0.1, attn_pdrop=0.1, initializer_range=0.02)
+G_REQUEST = (4, 896, 1024)  # batch, prompt, max_length
+G_ATTN = dict(b=4, h=25, hk=25, s=896, d=64)  # G's prefill attention
+# G's engine: 12 requests, prompts of 128-896 tokens, pages of 512, two a
+# sequence (n_positions 1024), chunked prefill in pieces of 512. A chunk
+# step writes 512 rows for every active slot, so every slot's length plus
+# 512 must stay within the 1024 positions: all 12 requests are admitted at
+# once (the chunk steps come first, before any slot has decoded more than
+# one token), and no prompt is 512 long (it would take the bucketed
+# prefill, then a second chunk step one token later would run past 1024).
+G_ENGINE_RUN = dict(max_batch=12, page_size=512, max_pages_per_seq=2,
+                    num_pages=25, prefill_chunk=512)
+G_ENGINE_DECODE = dict(b=8, h=25, hk=25, d=64,
+                       lengths=[1024, 960, 896, 700, 512, 300, 128, 0])
+FP32_RECIPE = (f"{CONFIGS}/owt/gpt2m-flash.yaml",
+               ("flash_fwd (fused_heads)", "flash_bwd_prep",
+                "fused_heads_bwd"))
+FP32_STEPS = 4
+
+
+def fp32_bound(flops: float, nbytes: float):
+    return bound(FP32_PRODUCTS * flops, PEAK_TF32_FLOPS, nbytes)
+
+
+def attention64(q, k, v, *, sm_scale, causal, softcap=0.0, lengths=None):
+    """(out, lse) in float64 of (b, h, sq, d) q against (b, hk, sk, d) k/v
+    (GQA by repeat): bottom-right causal, or with ``lengths`` (b,) each
+    batch row's query i seeing keys j <= lengths[b] - sq + i; rows that
+    see no key give 0 (lse -inf)."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    g = h // k.shape[1]
+    s = (q.double() * sm_scale) @ k.double().repeat_interleave(
+        g, 1).transpose(-1, -2)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    if causal or lengths is not None:
+        last = (torch.full((b,), sk, device=q.device) if lengths is None
+                else lengths.long())
+        pos = last[:, None] - sq + torch.arange(sq, device=q.device)
+        keep = torch.arange(sk, device=q.device) <= pos[:, :, None]
+        s = s.masked_fill(~keep[:, None], float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    p = torch.nan_to_num(torch.softmax(s, -1))
+    return p @ v.double().repeat_interleave(g, 1), lse
+
+
+def attention64_grads(q, k, v, do, **kw):
+    """(out, lse, dq, dk, dv) in float64 by autograd of attention64 (also
+    inside an autograd backward, where grad mode is off)."""
+    with torch.enable_grad():
+        ins = [t.detach().double().requires_grad_() for t in (q, k, v)]
+        out, lse = attention64(*ins, **kw)
+        grads = torch.autograd.grad(out, ins, do.double())
+    return (out.detach(), lse) + grads
+
+
+def fp32_contract(what, got, plain, want, tol_abs=1e-4):
+    """The JAX contract for fp32 with its reference in float64: the
+    kernel's error at most twice the fp32 plain version's plus 1e-4.
+    Returns (error, plain error)."""
+    keep = torch.isfinite(want)
+    e = max_err(got[keep], want[keep])
+    e_lp = max_err(plain[keep], want[keep])
+    check(e <= 2 * e_lp + tol_abs,
+          f"{what}: err vs float64 {e} > 2 x fp32 plain {e_lp} + {tol_abs}")
+    return e, e_lp
+
+
+def _fp32_inputs(gen, shape):
+    """q, k, v, dO as (b, h, s, d) views of (b, s, heads, d) fp32 memory,
+    the layout of the models' projections."""
+    b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+    return [torch.randn(b, s, n, d, generator=gen, device="cuda")
+            .transpose(1, 2) for n in (h, hk, hk, h)]
+
+
+def _sdpa_fp32(q, k, v, **kw):
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=q.shape[1] != k.shape[1], **kw)
+
+
+def check_fp32_fwd(gen, label, shape, packed):
+    """#1 in fp32 at ``shape`` (through flash_attention_fwd, or through
+    fused_heads_fwd on the packed layout: #5): out and LSE against float64
+    on the first batch element under the contract, against the fp32 plain
+    version on all of it; SDPA in fp32 (TF32 off) timed beside, with its
+    own error against float64. Bound: 3 TF32 products."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        fused_heads as fh, fwd)
+    b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    if packed:
+        qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=gen, device="cuda")
+        q, k, v = fh._split(qkv, h, hk, d)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def run():
+            out, lse = fh.fused_heads_fwd(q, k, v, need_lse=True, **kw)
+            return out.transpose(1, 2), lse
+    else:
+        qt, kt, vt, _ = _fp32_inputs(gen, shape)
+
+        def run():
+            return fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
+    out, lse = run()
+    p_out, p_lse = fwd.attention_fwd_ref(qt, kt, vt, need_lse=True, **kw)
+    w_out, w_lse = attention64(qt[:1], kt[:1], vt[:1], **kw)
+    torch.cuda.synchronize()
+    err = max(max_err(out, p_out), max_err(lse, p_lse))
+    e, e_lp = fp32_contract(f"{label} out", out[:1], p_out[:1], w_out)
+    el, el_lp = fp32_contract(f"{label} lse", lse[:1], p_lse[:1], w_lse)
+    sdpa_err = max_err(_sdpa_fp32(qt[:1], kt[:1], vt[:1]), w_out)
+    del p_out, p_lse, w_out, w_lse
+    flops = 4.0 * b * h * s * s * d / 2
+    nbytes = 4.0 * b * s * d * (2 * h + 2 * hk) + 4.0 * b * h * s
+    bms, by = fp32_bound(flops, nbytes)
+    name = (f"flash_fwd_fp32 (fused_heads, {label})" if packed
+            else f"flash_fwd_fp32 ({label})")
+    row = dict(
+        name=name, route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu",
+        replaces=("xhy_flash_attention_tpu/ops/flash_attention/fused_heads.py:59"
+                  if packed else
+                  "xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78"),
+        max_abs_err=err, ms=graph_ms([run], reps=4, replays=5),
+        plain_ms=time_ms([lambda: fwd.attention_fwd_ref(
+            qt, kt, vt, need_lse=False, **kw)], iters=3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_ms([lambda: _sdpa_fp32(qt, kt, vt)], reps=4,
+                            replays=5))
+    report(row, f"vs the fp32 plain version (out, lse); vs float64 on batch "
+                f"0: out {e:.3g} <= 2 x fp32 plain {e_lp:.3g} + 1e-4, lse "
+                f"{el:.3g} (plain {el_lp:.3g}); SDPA fp32's own error "
+                f"{sdpa_err:.3g}; {label}: b{b} h{h} hk{hk} s{s} d{d} causal"
+                f"{' packed' if packed else ''}, flops {flops:.4g}, bytes "
+                f"{nbytes:.4g}, {flops / row['ms'] / 1e9:.2f} TFLOP/s "
+                f"({flops / row['ms'] / 1e9 / (PEAK_FP32_FLOPS / 1e12):.3f} "
+                f"of the 67 TFLOP/s FFMA peak); bound 3 TF32 products; ms "
+                "and library_ms from CUDA graphs")
+    return row
+
+
+def check_fp32_bwd(gen, label, shape, packed):
+    """The whole fp32 backward at ``shape``: the pre-pass, dK/dV (#2) and
+    dQ (#3) through flash_attention_bwd, or one packed dqkv through
+    fused_heads_bwd (#6): every gradient against float64 on the first
+    batch element under the contract and against the fp32 plain version;
+    three passes bitwise equal; SDPA's fp32 backward beside. Returns the
+    rows (packed: one for the whole backward; else the pre-pass and each
+    kernel)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, fused_heads as fh, fwd)
+    b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    if packed:
+        qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=gen, device="cuda")
+        q, k, v = fh._split(qkv, h, hk, d)
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        out, lse = fh.fused_heads_fwd(q, k, v, need_lse=True, **kw)
+        dqkv = torch.empty_like(qkv)
+        dst = dict(zip(("dq", "dk", "dv"), fh._split(dqkv, h, hk, d)))
+        qt, kt, vt, dot, ot = (t.transpose(1, 2) for t in (q, k, v, do, out))
+
+        def run():
+            return [g.transpose(1, 2) for g in fh.fused_heads_bwd(
+                q, k, v, out, lse, do, **kw, **dst)]
+    else:
+        qt, kt, vt, dot = _fp32_inputs(gen, shape)
+        ot, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
+
+        def run():
+            return bwd.flash_attention_bwd(qt, kt, vt, ot, lse, dot, **kw)
+    grads = [g.clone() for g in run()]
+    p_grads = bwd.attention_bwd_ref(qt, kt, vt, ot, lse, dot, **kw)
+    err = max(max_err(g, p) for g, p in zip(grads, p_grads))
+    del p_grads
+    # the fp32 plain path end to end (its own forward) and float64, batch 0
+    one = [t[:1] for t in (qt, kt, vt, dot)]
+    p_out, p_lse = fwd.attention_fwd_ref(*one[:3], need_lse=True, **kw)
+    p_one = bwd.attention_bwd_ref(*one[:3], p_out, p_lse, one[3], **kw)
+    want = attention64_grads(*one, **kw)[2:]
+    worst = max(fp32_contract(f"{label} {n}", g[:1], p, w)
+                for n, g, p, w in zip(("dq", "dk", "dv"), grads, p_one, want))
+    del p_one, want
+    _bitwise_three_passes(lambda: [g.clone() for g in run()],
+                          f"fp32 attention backward at {label}")
+    pair = 2.0 * b * h * s * s * d / 2
+    io = 4.0 * b * s * d * (2 * h + 2 * hk)      # q, dO, k, v
+    stats = 2 * 4.0 * b * h * s                   # lse, delta
+    grads_out = 4.0 * b * s * d * (h + 2 * hk)    # dq, dk, dv
+    plain_ms = time_ms([lambda: bwd.attention_bwd_ref(
+        qt, kt, vt, ot, lse, dot, **kw)], iters=3, warmup=1)
+    library = _sdpa_bwd_ms(qt, kt, vt, dot)
+    src = "xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu"
+    note = (f"vs the fp32 plain backward; vs float64 on batch 0: worst "
+            f"{worst[0]:.3g} <= 2 x fp32 plain {worst[1]:.3g} + 1e-4; three "
+            f"passes bitwise equal; b{b} h{h} hk{hk} s{s} d{d} causal; "
+            "plain_ms and library_ms (SDPA fp32 fwd + bwd minus fwd) of the "
+            "whole backward")
+    if packed:
+        bms, by = fp32_bound(5 * pair, io + stats + grads_out)
+        row = dict(name=f"fused_heads_bwd (fp32, {label})", route="cuda",
+                   source=src, replaces="xhy_flash_attention_tpu/ops/"
+                                        "flash_attention/fused_heads.py:105",
+                   max_abs_err=err, ms=time_ms([run], iters=5),
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=library)
+        report(row, note + "; ms includes the pre-pass and both kernels, "
+                           "5-product bound")
+        return [row]
+    qs, delta = bwd.flash_bwd_prep(qt, ot, dot, sm_scale=kw["sm_scale"])
+    want_qs, want_delta = bwd.bwd_prep_ref(qt, ot, dot, sm_scale=kw["sm_scale"])
+    torch.cuda.synchronize()
+    err_delta = max_err(delta, want_delta)
+    check(torch.equal(qs, want_qs) and
+          err_delta <= 1e-5 * want_delta.abs().max().item(),
+          f"fp32 pre-pass at {label}: q_s differs or delta err {err_delta}")
+    del want_qs, want_delta
+    nbytes = 4.0 * b * h * s * d * 4 + 4.0 * b * h * s
+    bms, by = fp32_bound(2.0 * b * h * s * d, nbytes)
+    rows = [dict(name=f"flash_bwd_prep (fp32, {label})", route="cuda",
+                 source="xhy_flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                 replaces="xhy_flash_attention_tpu/ops/flash_attention/bwd.py:737",
+                 max_abs_err=err_delta,
+                 ms=time_ms([lambda: bwd.flash_bwd_prep(
+                     qt, ot, dot, sm_scale=kw["sm_scale"])]),
+                 plain_ms=time_ms([lambda: bwd.bwd_prep_ref(
+                     qt, ot, dot, sm_scale=kw["sm_scale"])], iters=5),
+                 bound_ms=bms, bound_by=by, library_ms=None)]
+    report(rows[0], f"q_s bitwise equal, delta within 1e-5 of max|delta|; "
+                    f"b{b} h{h} s{s} d{d}, bytes {nbytes:.4g}; no single "
+                    "library call")
+    dq, dk, dv = (torch.empty_like(g) for g in grads)
+    args = (qs, kt, vt, dot, lse, delta, dq, dk, dv)
+    kw32 = dict(sm_scale=kw["sm_scale"], window=(-1, 0), softcap=0.0)
+    for name, fn, n_mm, out_bytes, replaces in (
+            ("flash_bwd_dkv_fp32", bwd.flash_bwd_dkv_fp32, 4,
+             2 * 4.0 * b * s * hk * d, "bwd.py:180"),
+            ("flash_bwd_dq_fp32", bwd.flash_bwd_dq_fp32, 3,
+             4.0 * b * s * h * d, "bwd.py:511")):
+        bms, by = fp32_bound(n_mm * pair, io + stats + out_bytes)
+        row = dict(name=f"{name} ({label})", route="cuda", source=src,
+                   replaces="xhy_flash_attention_tpu/ops/flash_attention/"
+                            + replaces,
+                   max_abs_err=err,
+                   ms=time_ms([lambda fn=fn: fn(*args, **kw32)], iters=5),
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=library)
+        report(row, note + f"; {n_mm} products, "
+                           f"{n_mm * pair / row['ms'] / 1e9:.2f} TFLOP/s")
+        rows.append(row)
+    whole = time_ms([run], iters=5)
+    bms, by = fp32_bound(5 * pair, io + stats + grads_out)
+    print(f"  fp32 attention backward ({label}): whole {whole:.4f} ms "
+          f"(pre-pass {rows[0]['ms']:.4f} + dK/dV {rows[1]['ms']:.4f} + dQ "
+          f"{rows[2]['ms']:.4f}) against SDPA fp32's {library:.4f} ms "
+          f"(x{whole / library:.3f}) and the bound {bms:.4f} ms by {by} "
+          f"(share {bms / whole:.3f})", flush=True)
+    return rows
+
+
+def _g_decode_caches(gen, n_sets=3):
+    """(q, [(k, v) fp32 caches], lengths) at G's last decode step: b4 h25
+    d64, caches of n_positions 1024, full; copies rotated past L2."""
+    b, _, max_len = G_REQUEST
+    h, d = G_ATTN["h"], G_ATTN["d"]
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda")
+    sets = [[torch.randn(b, h, max_len, d, generator=gen, device="cuda")
+             for _ in range(2)] for _ in range(n_sets)]
+    lengths = torch.full((b,), max_len, dtype=torch.int32, device="cuda")
+    return q, sets, lengths
+
+
+def check_fp32_decode(gen, split: bool):
+    """#4 (flash_decode) or, with ``split``, #9 (flash_decode_splitkv, the
+    heuristic's split count) on fp32 caches at G's last decode step,
+    against the plain version within 1e-5 of the largest output; ragged
+    lengths first. SDPA in fp32 beside."""
+    from xhy_flash_attention_tpu_torch.inference import combine
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        decode_kernel as dk
+    q, sets, lengths = _g_decode_caches(gen)
+    b, _, h, d = q.shape
+    kc, vc = sets[0]
+    scale = d ** -0.5
+    ragged = lengths.clone()
+    ragged[1::2] -= 29
+    fn = ((lambda kc, vc, ln: combine.flash_decode_splitkv(q, kc, vc, ln))
+          if split else
+          (lambda kc, vc, ln: dk.flash_decode(q, kc, vc, ln,
+                                              softmax_scale=scale)))
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, scale)
+    err = max(max_err(fn(kc, vc, ln), dk.flash_decode_ref(q, kc, vc, ln, scale))
+              for ln in (ragged, lengths))
+    torch.cuda.synchronize()
+    tol = 1e-5 * ref.abs().max().item()
+    name = f"flash_decode{'_splitkv' if split else ''} (fp32, G)"
+    check(err <= tol, f"{name}: err {err} > {tol}")
+    n_tok = int(lengths.sum().item())
+    nbytes = 2 * 4.0 * h * n_tok * d + 2 * 4.0 * b * h * d
+    bms, by = fp32_bound(4.0 * h * n_tok * d, nbytes)
+    row = dict(
+        name=name, route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_decode.cu",
+        replaces=("xhy_flash_attention_tpu/inference/combine.py:75" if split
+                  else "xhy_flash_attention_tpu/ops/flash_attention/"
+                       "decode_kernel.py:47"),
+        max_abs_err=err,
+        ms=graph_ms([lambda kc=kc, vc=vc: fn(kc, vc, lengths)
+                     for kc, vc in sets]),
+        plain_ms=graph_ms([lambda: dk.flash_decode_ref(
+            q, kc, vc, lengths, scale)], reps=2, replays=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_ms([lambda kc=kc, vc=vc: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc, vc) for kc, vc in sets]))
+    splits = combine._split_plan(q, kc, 0, 512) if split else (1, 0)
+    report(row, f"tol {tol:.3g} = 1e-5 of max|out|; G last step: b{b} h{h} "
+                f"len {lengths[0].item()} d{d}, fp32 caches, bytes "
+                f"{nbytes:.4g}, {len(sets)} cache copies rotated; splits "
+                f"{splits}; {_plan_text(q, kc, *splits)}; CUDA graphs of "
+                "calls; library: SDPA fp32")
+    return row
+
+
+def check_fp32_paged(gen, shape, entry, sq):
+    """#10 / #11 on fp32 pages (fp32 queries): the decode regime (sq * g <=
+    16) or the prefill regime (csrc/flash_fp32.cu's paged forward), at
+    ``shape`` (G_ENGINE_DECODE: G's engine, pages of 512, two a sequence;
+    ENGINE_DECODE: the Llama-3-8B engine's), against the plain version
+    within 1e-5 of the largest output, two calls bitwise equal; SDPA fp32
+    with a mask on the dense-equivalent cache beside."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    from xhy_flash_attention_tpu_torch.inference.paged import PagedKVCache
+    c = shape
+    b, h, hk, d = c["b"], c["h"], c["hk"], c["d"]
+    ps = 4096 if entry == "page" and d == 128 else 512
+    npp = (max(c["lengths"]) + ps - 1) // ps
+    n_sets = 3
+    P = n_sets * b * npp + 1
+    kv = torch.randn(P, hk, 2, ps, d, generator=gen, device="cuda")
+    perm = torch.randperm(P - 1, generator=gen, device="cuda").to(torch.int32)
+    lengths = torch.tensor(c["lengths"], dtype=torch.int32, device="cuda")
+    sets = [PagedKVCache(kv, perm[i * b * npp:(i + 1) * b * npp].reshape(
+        b, npp).contiguous(), lengths) for i in range(n_sets)]
+    fn = getattr(paged, f"paged_decode_{entry}")
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda")
+    scale = d ** -0.5
+    cache = sets[0]
+    before = fn.launches
+    out = paged.paged_flash_decode(q, cache)
+    check(fn.launches == before + 1, f"paged_flash_decode did not route to "
+                                     f"the {entry} entry")
+    again = paged.paged_flash_decode(q, cache)
+    ref = paged.paged_flash_decode_ref(q, cache, scale)
+    torch.cuda.synchronize()
+    what = f"paged_decode ({entry}, fp32" + (f", sq {sq})" if sq > 1 else ")")
+    check(torch.equal(out, again), f"{what}: two calls differ")
+    err, tol = max_err(out, ref), 1e-5 * ref.abs().max().item()
+    check(err <= tol, f"{what}: err {err} > {tol}")
+    check(not out[-1].abs().any(), "the empty slot is not zero")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = paged.paged_launch_plan(b, sq, h, hk, ps, npp, sms)
+    cap = ps * npp
+    n_tok = sum(min(L, cap) for L in c["lengths"])
+    nbytes = 2 * 4.0 * hk * n_tok * d + 2 * 4.0 * b * sq * h * d + 4.0 * b * npp
+    flops = 4.0 * h * d * _visible_pairs(c["lengths"], sq, cap)
+    bms, by = fp32_bound(flops, nbytes)
+    k, v, _, _ = paged._gather(cache)
+    k, v = (x.repeat_interleave(h // hk, dim=1) for x in (k, v))
+    pos = lengths.long()[:, None] - sq + torch.arange(sq, device="cuda")
+    mask = (torch.arange(cap, device="cuda")[None, None] <= pos[:, :, None])[:, None]
+    del ref, out, again
+    row = dict(
+        name=what + (" G" if shape is G_ENGINE_DECODE else ""), route="cuda",
+        source=("xhy_flash_attention_tpu_torch/csrc/paged_decode.cu"
+                if sq * (h // hk) <= 16 else
+                "xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu"),
+        replaces=("xhy_flash_attention_tpu/inference/paged.py:219"
+                  if entry == "chunked" else
+                  "xhy_flash_attention_tpu/inference/paged.py:149"),
+        max_abs_err=err,
+        ms=graph_ms([lambda s=s: paged.paged_flash_decode(q, s) for s in sets]),
+        plain_ms=time_ms([lambda: paged.paged_flash_decode_ref(
+            q, cache, scale)], iters=3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_ms([lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v, attn_mask=mask)]))
+    report(row, f"tol {tol:.3g} = 1e-5 of max|out| (P in fp32 on both "
+                f"sides); two calls bitwise equal; b{b} h{h} hk{hk} d{d} sq "
+                f"{sq}, pages of {ps}, {npp} per sequence, lengths "
+                f"{c['lengths']}, flops {flops:.4g}, bytes {nbytes:.4g}; plan "
+                f"{json.dumps(plan)}; CUDA graphs of calls; library: SDPA "
+                "fp32 with a mask on the dense-equivalent cache")
+    del sets, k, v, mask, kv
+    torch.cuda.empty_cache()
+    return row
+
+
+def fp32_kernels(gen):
+    """Phase 3's fp32 rows. The paged rows at the Llama-3-8B engine's shape
+    (d 128: the chunked entry, #11, and the page entry over one page of
+    4096) are printed and left out of the kernels line: no fp32 model of
+    this run has d 128, and G's engine (d 64) takes the page entry, whose
+    rows at G's engine shape are in the line. Returns the rows of the
+    line."""
+    print(f"  torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32} (SDPA and the matmuls in full "
+          "fp32)", flush=True)
+    t_packed = dict(T_PACKED)
+    rows = [check_fp32_fwd(gen, "G prefill", G_ATTN, False),
+            check_fp32_fwd(gen, "T-packed", t_packed, True)]
+    torch.cuda.empty_cache()
+    rows += check_fp32_bwd(gen, "G shape", G_ATTN, False)
+    torch.cuda.empty_cache()
+    rows += check_fp32_bwd(gen, "T-packed", t_packed, True)
+    torch.cuda.empty_cache()
+    rows += [check_fp32_decode(gen, split=False),
+             check_fp32_decode(gen, split=True)]
+    rows += [check_fp32_paged(gen, G_ENGINE_DECODE, "page", 1),
+             check_fp32_paged(gen, G_ENGINE_DECODE, "page", 512)]
+    for entry, sq in (("chunked", 1), ("chunked", 512), ("page", 1)):
+        check_fp32_paged(gen, ENGINE_DECODE, entry, sq)
+    return rows
+
+
+# ------------------------------------ phase 18: GPT-2 XL in fp32 (cell G)
+
+def gpt2_xl_state_dict(seed: int, hf):
+    """A GPT2LMHeadModel state dict under Hugging Face's key names (Conv1D
+    weights (in, out)), numpy fp32, random from ``seed``: normal(0, 0.02)
+    weights and embeddings, LayerNorm weights 1 + normal(0, 0.02), biases
+    normal(0, 0.02)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    e, inner = hf.n_embd, hf.n_inner or 4 * hf.n_embd
+
+    def w(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(hf.initializer_range))
+
+    sd = {"transformer.wte.weight": w(hf.vocab_size, e),
+          "transformer.wpe.weight": w(hf.n_positions, e),
+          "transformer.ln_f.weight": 1 + w(e), "transformer.ln_f.bias": w(e)}
+    for i in range(hf.n_layer):
+        p = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[p + ln + ".weight"], sd[p + ln + ".bias"] = 1 + w(e), w(e)
+        for name, (fan_in, fan_out) in (("attn.c_attn", (e, 3 * e)),
+                                        ("attn.c_proj", (e, e)),
+                                        ("mlp.c_fc", (e, inner)),
+                                        ("mlp.c_proj", (inner, e))):
+            sd[p + name + ".weight"] = w(fan_in, fan_out)
+            sd[p + name + ".bias"] = w(fan_out)
+    return sd
+
+
+def g_expected_counts(prompt: int, max_length: int):
+    """The launches of one decode() run of the GPT-2 XL model: its prefill
+    through the fp32 forward (h d = 1600 is not a multiple of 128: no
+    packed heads), every step through flash_decode on fp32 caches."""
+    steps, layers = max_length - prompt, GPT2_XL["n_layer"]
+    return {**{k: 0 for k in counters()},
+            "rms_norm_add": (2 * layers + 1) * (1 + steps),
+            "flash_fwd_fp32": layers, "flash_decode": layers * steps}
+
+
+def _g_engine_requests(seed: int, vocab: int):
+    """12 prompts of 128-896 tokens (none of 512: G_ENGINE_RUN) and
+    max_new_tokens of 16-64, drawn once from the seed (prompt + new tokens
+    within n_positions 1024)."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch.inference import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(128, 897, N_REQUESTS)
+    lens[lens == 512] = 511
+    news = rng.integers(16, 65, N_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=int(m))
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+@contextlib.contextmanager
+def float64_versions():
+    """Route the model's kernel calls to float64 plain versions (layer norm,
+    the attention forward and backward, packed or not, and decode), which
+    run on the card's tensors in float64: with the model's parameters in
+    float64, the anchor of the fp32 gates. Restored on exit."""
+    ln = importlib.import_module(_PKG + "layer_norm")
+    fh = importlib.import_module(_PKG + "flash_attention.fused_heads")
+    iface = importlib.import_module(_PKG + "flash_attention.interface")
+    dec = importlib.import_module(_PKG + "decode")
+
+    def ln_fwd(x0, residual, weight, bias, eps, is_rms, res_dtype,
+               save_resout, save_stats=False):
+        x = x0.double() + (0 if residual is None else residual.double())
+        mu = None if is_rms else x.mean(-1, keepdim=True)
+        xc = x if is_rms else x - mu
+        rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+        out = xc * rstd * weight.double()
+        if bias is not None:
+            out = out + bias.double()
+        resout = x if save_resout else None
+        if not save_stats:
+            return out, resout
+        return out, resout, None if mu is None else mu[:, 0], rstd[:, 0]
+
+    def ln_bwd(dout, dres_in, resout, mu, rstd, weight, *, is_rms, has_bias,
+               x0_dtype, res_dtype):
+        xhat = (resout if is_rms else resout - mu[:, None]) * rstd[:, None]
+        dy = dout.double() * weight.double()
+        c1 = (dy * xhat).mean(-1, keepdim=True)
+        dres = dy - xhat * c1 - (0 if is_rms else dy.mean(-1, keepdim=True))
+        dres = dres * rstd[:, None]
+        if dres_in is not None:
+            dres = dres + dres_in.double()
+        return (dres, None if res_dtype is None else dres,
+                (dout.double() * xhat).sum(0),
+                dout.double().sum(0) if has_bias else None)
+
+    def attention(q, k, v, *unused, sm_scale, causal, softcap, need_lse,
+                  masks=None, **flags):
+        out, lse = attention64(q, k, v, sm_scale=sm_scale, causal=causal,
+                               softcap=softcap)
+        return out, (lse if need_lse else None)
+
+    def attention_bwd(q, k, v, out, lse, do, *unused, sm_scale, causal,
+                      softcap, masks=None, **flags):
+        return attention64_grads(q, k, v, do, sm_scale=sm_scale,
+                                 causal=causal, softcap=softcap)[2:]
+
+    def packed_fwd(q, k, v, *, sm_scale, causal, softcap, need_lse=False):
+        out, lse = attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                             sm_scale=sm_scale, causal=causal,
+                             softcap=softcap, need_lse=True)
+        out = out.transpose(1, 2).contiguous()
+        return (out, lse) if need_lse else out
+
+    def packed_bwd(q, k, v, out, lse, do, *, sm_scale, causal, softcap,
+                   dq=None, dk=None, dv=None):
+        grads = [g.transpose(1, 2) for g in attention_bwd(
+            *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
+            do.transpose(1, 2), sm_scale=sm_scale, causal=causal,
+            softcap=softcap)]
+        for dst, g in zip((dq, dk, dv), grads):
+            if dst is not None:
+                dst.copy_(g)
+        return tuple(g if dst is None else dst
+                     for dst, g in zip((dq, dk, dv), grads))
+
+    def decode(q, k_cache, v_cache, lengths, *, softmax_scale, window_size,
+               softcap, kv_batch_idx=None, leftpad_k=None):
+        out, _ = attention64(q.transpose(1, 2), k_cache, v_cache,
+                             sm_scale=softmax_scale, causal=False,
+                             softcap=softcap, lengths=lengths)
+        return out.transpose(1, 2)
+
+    patches = [(ln, "ln_fwd", ln_fwd), (ln, "ln_bwd", ln_bwd),
+               (iface, "flash_attention_fwd", attention),
+               (iface, "flash_attention_bwd", attention_bwd),
+               (fh, "fused_heads_fwd", packed_fwd),
+               (fh, "fused_heads_bwd", packed_bwd),
+               (dec, "flash_decode", decode)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def fp32_gate(what, kern, plain, ref):
+    """The fp32 path gate: the kernel path's distance from the float64
+    plain path at most twice the fp32 plain path's own, plus 1e-4 of the
+    largest |reference|. Prints both distances."""
+    kern, plain, ref = (t.double() for t in (kern, plain, ref))
+    d_k, d_p = max_err(kern, ref), max_err(plain, ref)
+    top = ref.abs().max().item()
+    print(f"  {what}: max |kernels - float64| {d_k:.4g}, max |fp32 plain - "
+          f"float64| {d_p:.4g}, max |float64| {top:.4g} (gate "
+          f"{2 * d_p + 1e-4 * top:.4g})", flush=True)
+    check(bool(torch.isfinite(kern).all()), f"{what}: non-finite values")
+    check(d_k <= 2 * d_p + 1e-4 * top,
+          f"{what}: {d_k} > 2 x {d_p} + 1e-4 x {top}")
+    return dict(kernels=d_k, plain=d_p, max_abs=top)
+
+
+def g_kernel_vs_plain(model, gen):
+    """Request G's prefill and one decode step through the kernels, the
+    fp32 plain versions and the float64 plain versions (a float64 copy of
+    the model), same prompt and token, caches filled by each path's own
+    prefill."""
+    import copy
+    b, prompt, max_length = G_REQUEST
+    ids = torch.randint(0, model.config.vocab_size, (b, prompt),
+                        generator=gen, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        model64 = copy.deepcopy(model).double()
+        for path in ("kernels", "plain", "float64"):
+            m = model64 if path == "float64" else model
+            caches = m.allocate_kv_caches(
+                b, max_length, torch.float64 if path == "float64" else None)
+            ctx = {"kernels": contextlib.nullcontext(),
+                   "plain": plain_versions(),
+                   "float64": float64_versions()}[path]
+            reset_counts()
+            with ctx:
+                pre, _ = m(ids, kv_caches=caches, seqlen_offset=0)
+                tok = (out["kernels"][0][:, -1:].argmax(-1)
+                       if "kernels" in out else pre[:, -1:].argmax(-1))
+                step, _ = m(tok, kv_caches=caches, seqlen_offset=prompt)
+            counts = read_counts()
+            if path == "kernels":
+                want = {**{k: 0 for k in counters()},
+                        "rms_norm_add": 2 * (2 * GPT2_XL["n_layer"] + 1),
+                        "flash_fwd_fp32": GPT2_XL["n_layer"],
+                        "flash_decode": GPT2_XL["n_layer"]}
+                check(counts == want, f"G kernels: launches {counts} != {want}")
+            else:
+                check(not any(counts.values()),
+                      f"the {path} path launched a kernel: {counts}")
+            out[path] = (pre, step)
+            del caches
+        del model64
+    torch.cuda.empty_cache()
+    return {what: fp32_gate(f"request G {what}, kernels vs float64",
+                            out["kernels"][i], out["plain"][i],
+                            out["float64"][i])
+            for i, what in enumerate(("prefill", "decode step"))}
+
+
+def g_splitkv(model, gen, seq):
+    """flash_attn_with_kvcache with num_splits 3 on request G's fp32 caches
+    after its prefill (every layer's cache as decode() leaves it), held to
+    flash_decode's output at each layer within 1e-5 of its largest
+    output. Returns the split kernel's launches."""
+    from xhy_flash_attention_tpu_torch import flash_attn_with_kvcache
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import \
+        decode_kernel as dk
+    b, prompt, max_length = G_REQUEST
+    h, d = G_ATTN["h"], G_ATTN["d"]
+    with torch.inference_mode():
+        caches = model.allocate_kv_caches(b, max_length)
+        model(seq[:, :prompt], kv_caches=caches, seqlen_offset=0)
+        q = torch.randn(b, 1, h, d, generator=gen, device="cuda")
+        lengths = torch.full((b,), prompt, dtype=torch.int32, device="cuda")
+        reset_counts()
+        worst = 0.0
+        for kc, vc in caches:
+            got = flash_attn_with_kvcache(
+                q, kc.transpose(1, 2), vc.transpose(1, 2),
+                cache_seqlens=lengths, num_splits=3)
+            want = dk.flash_decode_ref(q, kc, vc, lengths, d ** -0.5)
+            worst = max(worst, max_err(got, want)
+                        / max(want.abs().max().item(), 1e-30))
+        counts = read_counts()
+    check(worst <= 1e-5, f"G split-KV: relative err {worst} > 1e-5")
+    print(f"  request G caches through flash_attn_with_kvcache(num_splits=3):"
+          f" {counts['flash_decode_splitkv']} launches, worst err {worst:.3g}"
+          " of max|out| (<= 1e-5)", flush=True)
+    return counts["flash_decode_splitkv"]
+
+
+def gpt2_xl_serving(seed, gen):
+    """Phase 18: GPT-2 XL at full width and depth in fp32 from a Hugging
+    Face-named state dict (random from the seed) through
+    gpt2_config_to_gpt_config and remap_state_dict_hf_gpt2: request G
+    through decode() (graph and uncaptured), the kernel path against the
+    fp32 and float64 plain paths, then 12 requests through InferenceEngine
+    on fp32 pages (chunked prefill, the decode step a graph, tokens equal
+    to the uncaptured engine's). Returns the launches by row."""
+    from xhy_flash_attention_tpu_torch import (
+        GPTLMHeadModel, gpt2_config_to_gpt_config, remap_state_dict_hf_gpt2)
+    hf = types.SimpleNamespace(**GPT2_XL)
+    cfg = gpt2_config_to_gpt_config(hf)
+    t0 = time.perf_counter()
+    sd = remap_state_dict_hf_gpt2(gpt2_xl_state_dict(seed, hf), cfg)
+    t_sd = time.perf_counter() - t0
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.load_state_dict(sd)
+    del sd
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  GPT-2 XL: {n_params / 1e9:.4f} B parameters, "
+          f"{n_params * 4 / 1e9:.2f} GB fp32; dtype {cfg.dtype}, pdrops "
+          f"{cfg.embd_pdrop}/{cfg.resid_pdrop}/{cfg.attn_pdrop} (deterministic"
+          f" serving); state dict from the seed in {t_sd:.1f} s, on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts, seq, _ = serve(model, gen, "G", G_REQUEST, g_expected_counts)
+    launches = {"flash_fwd_fp32 (G prefill)": counts["flash_fwd_fp32"],
+                "flash_decode (fp32, G)": counts["flash_decode"]}
+    g_kernel_vs_plain(model, gen)
+    launches["flash_decode_splitkv (fp32, G)"] = g_splitkv(model, gen, seq)
+    counts, st = serve_engine(
+        model, torch.float32, seed, _g_engine_requests, G_ENGINE_RUN,
+        ("flash_fwd_fp32", "paged_decode (page)"))
+    launches["flash_fwd_fp32 (G prefill)"] += counts["flash_fwd_fp32"]
+    layers = GPT2_XL["n_layer"]
+    launches["paged_decode (page, fp32) G"] = layers * st["decode"]
+    launches["paged_decode (page, fp32, sq 512) G"] = layers * st["chunk"]
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------- phase 19: T-packed in fp32 (T-packed-fp32)
+
+def train_vs_plain_fp64(name, seed, tmp, batch):
+    """One step's loss and every gradient at depth 2, full width, ``batch``,
+    through the kernels, the fp32 plain versions and the float64 plain
+    versions (the model in float64), same parameters and batch, under
+    fp32_gate."""
+    from xhy_flash_attention_tpu_torch.training import Trainer, load_config
+    path, kernels = FP32_RECIPE
+    cfg = load_config(path)
+    tokens = os.path.join(tmp, f"{name}-depth2.bin")
+    write_tokens(tokens, seed + 1, batch * (cfg.data.seqlen + 1) * 2)
+    cfg = load_config(path, {"data.path": tokens, "data.batch_size": batch,
+                             "model.num_hidden_layers": 2,
+                             "dtype": "float32"})
+    trainer = Trainer(cfg)
+    trainer.init_params()
+    ids, labels = trainer._batch(*next(iter(trainer.data)))
+    res = {}
+    for path_name in ("kernels", "plain", "float64"):
+        reset_counts()
+        if path_name == "float64":
+            trainer.model.double()
+        ctx = {"kernels": contextlib.nullcontext(),
+               "plain": plain_versions(),
+               "float64": float64_versions()}[path_name]
+        with ctx:
+            loss, grads = trainer.compute_grads(ids, labels)
+        counts = read_counts()
+        if path_name == "kernels":
+            check(all(counts[k] > 0 for k in kernels),
+                  f"{name}: the kernel step missed a kernel: {counts}")
+        else:
+            check(not any(counts.values()),
+                  f"the {path_name} step launched a kernel: {counts}")
+        res[path_name] = (loss.double().reshape(1),
+                          {n: g.clone() for n, g in grads.items()})
+    gates = [fp32_gate(f"{name} depth 2 loss", *(res[p][0] for p in (
+        "kernels", "plain", "float64")))]
+    worst = None
+    for n in res["float64"][1]:
+        kern, plain, ref = (res[p][1][n].double()
+                            for p in ("kernels", "plain", "float64"))
+        d_k, d_p = max_err(kern, ref), max_err(plain, ref)
+        top = ref.abs().max().item()
+        check(d_k <= 2 * d_p + 1e-4 * top,
+              f"{name}: gradient of {n}: {d_k} > 2 x {d_p} + 1e-4 x {top}")
+        ratio = d_k / (2 * d_p + 1e-4 * top)
+        if worst is None or ratio > worst[0]:
+            worst = (ratio, n, d_k, d_p, top)
+    print(f"  {name} depth 2, batch {batch}: every gradient of "
+          f"{len(res['float64'][1])} within its gate; the closest "
+          f"{worst[1]} at {worst[0]:.3g} of it (kernels {worst[2]:.3g}, fp32 "
+          f"plain {worst[3]:.3g}, max|float64| {worst[4]:.3g})", flush=True)
+    return gates
+
+
+def train_packed_fp32(seed):
+    """Phase 19: `train(gpt2m-flash.yaml, dtype="float32")` at full width
+    and depth for FP32_STEPS steps at the largest batch of 32, 16, 8 that
+    fits the card (printed as a cut), exact launches of fp32 #5 / #6 and
+    the pre-pass, no plain version; then depth 2 against the plain paths.
+    Returns the launches by row."""
+    name = "T-packed-fp32"
+    with tempfile.TemporaryDirectory() as tmp:
+        while True:
+            try:
+                trainer, summary = train_recipe(
+                    name, seed, tmp, FP32_RECIPE, {"dtype": "float32"},
+                    FP32_STEPS)
+                break
+            except torch.OutOfMemoryError as exc:
+                print(f"  {name}: out of memory at batch "
+                      f"{32 // 2 ** BATCH_CUT.get(name, 0)} ({exc!s:.120}); "
+                      "halving it (a cut)", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            BATCH_CUT[name] = BATCH_CUT.get(name, 0) + 1
+            check(BATCH_CUT[name] <= 2, f"{name}: batch 8 does not fit")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_vs_plain_fp64(name, seed, tmp, summary["batch"])
+    torch.cuda.empty_cache()
+    n = summary["launches"]
+    return {"flash_fwd_fp32 (fused_heads, T-packed)":
+            n["flash_fwd (fused_heads)"],
+            "fused_heads_bwd (fp32, T-packed)": n["fused_heads_bwd"],
+            "flash_bwd_prep (fp32, G shape)": n["flash_bwd_prep"],
+            "flash_bwd_dkv_fp32 (G shape)": n["fused_heads_bwd"],
+            "flash_bwd_dq_fp32 (G shape)": n["fused_heads_bwd"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3979,6 +4842,8 @@ def main():
         lambda g: vl_flags(*(doc_cu_seqlens(g, s, *VL_DOC_LENGTHS),) * 2, s, s))
     torch.cuda.empty_cache()
     rows.append(check_reduced(gen))
+    torch.cuda.empty_cache()
+    rows += fp32_kernels(gen)
     torch.cuda.empty_cache()
 
     print(f"[4] slice: Llama-3-8B width, {LAYERS} layers, random bf16 "
@@ -4124,6 +4989,14 @@ def main():
           "request A, the engine with int8 weights", flush=True)
     weight_quant_serving(args.seed, gen, bf16_matmul_ms)
     torch.cuda.empty_cache()
+    print("[18] cell G: GPT-2 XL in fp32 (hidden 1600, 48 layers, 25 heads, "
+          "random weights under Hugging Face's names): request G (batch 4, "
+          "prompt 896, 128 steps), the engine on fp32 pages", flush=True)
+    launches.update(gpt2_xl_serving(args.seed, gen))
+    print("[19] cell T-packed-fp32: experiment/owt/gpt2m-flash.yaml with "
+          "dtype float32 at full width and depth, then depth 2 against the "
+          "fp32 and float64 plain paths", flush=True)
+    launches.update(train_packed_fp32(args.seed))
 
     for row in rows:
         row["launches"] = launches.get(

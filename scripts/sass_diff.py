@@ -6,16 +6,19 @@
 
 Builds each tree's kernels (its own build directory, in a child process
 with that tree's package) unless built, then for every instantiation of
-`flash_fwd_kernel`, `flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel` and
-`flash_bwd_dbias_kernel` prints, per tree, the ptxas report's registers
+`flash_fwd_kernel`, `flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`,
+`flash_bwd_dbias_kernel`, `flash_bwd_prep_kernel`, `flash_decode_kernel`,
+`paged_decode_kernel`, `paged_prefill_kernel` and the fp32 kernels of
+flash_fp32.cu prints, per tree, the ptxas report's registers
 and spills and the SASS instruction count (`cuobjdump -sass`), and whether
 the opcode streams of the two trees are the same (operands, addresses and
 constants ignored), else how many opcodes a diff of the two streams
-changes. A kernel that gained a trailing template flag (the bias flag of
-the attention kernels, the forward's e4m3 flag) is matched with its
-`false` instantiation: an
-instantiation `<..., false>` of the second tree stands beside `<...>` of
-the first when the first has no `<..., false>`. Last, the second tree's
+changes. A kernel that gained a trailing template argument (the bias flag
+of the attention kernels, the forward's e4m3 flag, the pre-pass's input
+type) is matched with its instantiation at the old behaviour: an
+instantiation `<..., false>` or `<..., __nv_bfloat16>` of the second tree
+stands beside `<...>` of the first when the first has no such name. The
+last line counts the pairs with the same opcodes and those that differ. Last, the second tree's
 e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
 true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
 the script exits non-zero.
@@ -30,17 +33,21 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)_kernel<[^>]*>")
+KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)(_fp32)?|flash_bwd_(dbias|prep)"
+                     r"|flash_decode|paged_decode|paged_prefill)_kernel<[^>]*>")
+# trailing template arguments a kernel gained, at the old behaviour
+OLD_BEHAVIOUR = (", false>", ", __nv_bfloat16>")
 E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
 
 
 def matched(first, second):
     """{name in the second tree: its name in the first}: the same name, or
-    the name without a trailing ", false" flag that the first lacks."""
+    the name without a trailing OLD_BEHAVIOUR argument that the first
+    lacks."""
     out = {}
     for name in second:
-        base = name[:-len(", false>")] + ">" \
-            if name.endswith(", false>") else None
+        base = next((name[:-len(tail)] + ">" for tail in OLD_BEHAVIOUR
+                     if name.endswith(tail)), None)
         out[name] = base if name not in first and base in first else name
     return out
 
@@ -109,10 +116,12 @@ def main():
     reports, codes = [ptxas(lib) for lib in libs], [sass(lib) for lib in libs]
     pairs = matched(codes[0], codes[1])
     pairs.update({n: n for n in codes[0] if n not in pairs.values()})
+    tally = {"same": 0, "differ": 0, "new": 0}
     for name in sorted(pairs):
         old = pairs[name]
         a, b = codes[0].get(old), codes[1].get(name)
         same = "same opcodes"
+        tally["same" if a == b else "new" if a is None else "differ"] += 1
         if a != b:
             ops = difflib.SequenceMatcher(None, a or [], b or [],
                                           autojunk=False).get_opcodes()
@@ -123,6 +132,9 @@ def main():
         print(f"{label}: {len(a) if a else None} / {len(b) if b else None} "
               f"instructions, {same}; {reports[0].get(old)} | "
               f"{reports[1].get(name)}", flush=True)
+    print(f"pairs with the same opcodes: {tally['same']}; differing: "
+          f"{tally['differ']}; only in the second tree: {tally['new']}",
+          flush=True)
     for name, ops in sorted(codes[1].items()):
         if E4M3.fullmatch(name):
             kinds = {k: sum(op.startswith(k) for op in ops)

@@ -2029,3 +2029,247 @@ def test_fp8_unaligned_strides_raise(cuda):
     shifted = flat[1:].view(q8.shape)
     with pytest.raises(ValueError, match="multiples of 16"):
         flash_attn_fp8_func(shifted, k8, v8, qd, kd, vd)
+
+
+# ---- fp32: csrc/flash_fp32.cu (#1/#2/#3, #5/#6 through strides, the
+# prefill regime of #10/#11) and the fp32 decode paths (#4, #9, #10/#11)
+
+def _attention64(q, k, v, do=None, *, causal, window=(-1, -1), softcap=0.0):
+    """float64 attention on (b, h, s, d) tensors: (out, lse) and with
+    ``do`` also (dq, dk, dv); the window bottom-right aligned, causal as
+    right bound 0."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        window_keep)
+    ins = [t.detach().double().requires_grad_(do is not None)
+           for t in (q, k, v)]
+    qd, kd, vd = ins
+    g = qd.shape[1] // kd.shape[1]
+    sq, sk, d = qd.shape[2], kd.shape[2], qd.shape[3]
+    s = (qd * d ** -0.5) @ kd.repeat_interleave(g, 1).transpose(-1, -2)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    left, right = window
+    keep = window_keep(sq, sk, (left, 0 if causal else right), q.device)
+    s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    out = torch.nan_to_num(torch.softmax(s, -1)) @ vd.repeat_interleave(g, 1)
+    if do is None:
+        return out, lse
+    return (out, lse) + torch.autograd.grad(out, ins, do.double())
+
+
+def _fp32_case(cuda, b, h, hk, sq, sk, d):
+    shapes = ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d), (b, sq, h, d))
+    return [torch.randn(s, generator=cuda, device="cuda").transpose(1, 2)
+            for s in shapes]
+
+
+def _fp32_contract(name, got, plain, want):
+    """The JAX contract for fp32 with its reference in float64: the
+    kernel's error at most twice the fp32 plain version's, plus 1e-4."""
+    e, e_lp = _err(got, want), _err(plain, want)
+    assert e <= 2 * e_lp + 1e-4, (name, e, e_lp)
+
+
+FP32_CASES = [  # sq, sk, causal, window, softcap
+    (113, 203, True, (-1, -1), 0.0),
+    (203, 113, False, (-1, -1), 30.0),
+    (257, 257, True, (-1, -1), 0.0),
+    (257, 257, False, (100, 20), 0.0),
+    (257, 257, True, (64, -1), 20.0),
+]
+
+
+@pytest.mark.parametrize("hk", [8, 2])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,window,softcap", FP32_CASES)
+def test_fp32_kernels_meet_the_contract(cuda, sq, sk, causal, window, softcap,
+                                        d, hk):
+    """fp32 forward, pre-pass, dK/dV and dQ through the public wrappers,
+    one launch each; out, LSE and every gradient against float64 within
+    twice the fp32 plain versions' error plus 1e-4."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h = 2, 8
+    q, k, v, do = _fp32_case(cuda, b, h, hk, sq, sk, d)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, window_size=window,
+              softcap=softcap)
+    counts = (fwd.flash_fwd_fp32, bwd.flash_bwd_prep, bwd.flash_bwd_dkv_fp32,
+              bwd.flash_bwd_dq_fp32, fwd.flash_attention_fwd,
+              bwd.flash_bwd_dkv)
+    before = [c.launches for c in counts]
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw)
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == \
+        [1, 1, 1, 1, 0, 0]
+    assert out.dtype == torch.float32 and all(
+        g.dtype == torch.float32 for g in grads)
+    cpu = [t.cpu() for t in (q, k, v, do)]
+    pk = dict(kw)
+    pk["causal"], masks = fwd.build_masks(b, h, sq, sk, causal, window)
+    del pk["window_size"]
+    keep = masks.keep(h)
+    p_out, p_lse = fwd.attention_fwd_ref(*cpu[:3], need_lse=True, mask=keep,
+                                         **pk)
+    p_grads = bwd.attention_bwd_ref(*cpu[:3], p_out, p_lse, cpu[3],
+                                    mask=keep, **pk)
+    want = _attention64(*cpu, causal=causal, window=window, softcap=softcap)
+    seen = torch.isfinite(want[1])
+    _fp32_contract("out", out.cpu(), p_out, want[0])
+    _fp32_contract("lse", lse.cpu()[seen], p_lse[seen], want[1][seen])
+    for name, g, pg, w in zip(("dq", "dk", "dv"), grads, p_grads, want[2:]):
+        _fp32_contract(name, g.cpu(), pg, w)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_backward_is_bitwise_deterministic(cuda, d):
+    """Three fp32 backward passes through flash_attn_func (GQA 8 over 2,
+    causal): dq, dk and dv bitwise equal."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import flash_attn_func
+    b, s, h, hk = 2, 700, 8, 2
+    q, k, v, do = (t.transpose(1, 2).contiguous()
+                   for t in _fp32_case(cuda, b, h, hk, s, s, d))
+    runs = []
+    for _ in range(3):
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attn_func(*ins, causal=True)
+        runs.append(torch.autograd.grad(out, ins, do))
+    for other in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_packed_qkv_attention(cuda, causal):
+    """#5 / #6 in fp32: packed_qkv_attention on a (b, s, 3 h d) Wqkv output
+    (h d = 1024), forward and the packed dqkv, against float64 under the
+    contract; one #5 and one #6 launch."""
+    b, s, h, d = 2, 257, 16, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=cuda, device="cuda")
+    do = torch.randn(b, s, h * d, generator=cuda, device="cuda")
+    before = (fh.fused_heads_fwd.launches, fh.fused_heads_bwd.launches)
+    x = qkv.clone().requires_grad_()
+    out = fh.packed_qkv_attention(x, num_heads=h, num_heads_kv=h, head_dim=d,
+                                  causal=causal)
+    (dqkv,) = torch.autograd.grad(out, (x,), do)
+    torch.cuda.synchronize()
+    assert (fh.fused_heads_fwd.launches, fh.fused_heads_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, s, h, d)
+               .transpose(1, 2).cpu() for i in range(3))
+    dot = do.view(b, s, h, d).transpose(1, 2).cpu()
+    want = _attention64(q, k, v, dot, causal=causal)
+    xp = qkv.cpu().requires_grad_()
+    p_out = fh.packed_qkv_attention(xp, num_heads=h, num_heads_kv=h,
+                                    head_dim=d, causal=causal)
+    (p_dqkv,) = torch.autograd.grad(p_out, (xp,), do.cpu())
+    flat = want[0].transpose(1, 2).reshape(b, s, h * d)
+    _fp32_contract("out", out.detach().cpu(), p_out.detach(), flat)
+    wgrad = torch.cat([g.transpose(1, 2).reshape(b, s, h * d)
+                       for g in want[2:]], -1)
+    _fp32_contract("dqkv", dqkv.cpu(), p_dqkv, wgrad)
+
+
+@pytest.mark.parametrize("d,npp,ps,entry", [(128, 8, 64, "chunked"),
+                                            (64, 8, 64, "page"),
+                                            (64, 2, 512, "page")])
+@pytest.mark.parametrize("sq,window,softcap", [(1, -1, 0.0), (3, 100, 0.0),
+                                               (37, 200, 30.0),
+                                               (512, -1, 0.0)])
+def test_fp32_paged_matches_plain(cuda, sq, window, softcap, d, npp, ps,
+                                  entry):
+    """#10 / #11 on fp32 pages: the decode regime (sq * g <= 16) and the
+    prefill regime (csrc/flash_fp32.cu's paged forward), ragged lengths
+    and an empty slot, against the plain version within 1e-5 of the
+    largest output; two calls bitwise equal."""
+    from xhy_flash_attention_tpu_torch.inference import paged
+    b, h, hk = 4, 8, 2  # sq * g: 4 and 12 rows decode, 148 and 2048 prefill
+    q, cache = _paged_case(cuda, torch.float32, b=b, h=h, hk=hk, d=d, ps=ps,
+                           npp=npp, sq=sq,
+                           lengths=[npp * ps, 0, npp * ps // 2 + sq, sq])
+    q = q.float()
+    fn = getattr(paged, f"paged_decode_{entry}")
+    before = fn.launches
+    out = paged.paged_flash_decode(q, cache, window_size=(window, -1),
+                                   softcap=softcap)
+    again = paged.paged_flash_decode(q, cache, window_size=(window, -1),
+                                     softcap=softcap)
+    ref = paged.paged_flash_decode_ref(q, cache, d ** -0.5, (window, -1),
+                                       softcap)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again)
+    assert not out[1].abs().any()
+    assert _err(out, ref) <= 1e-5 * ref.abs().max().item()
+
+
+def test_fp32_splitkv_matches_plain(cuda):
+    """#9 on an fp32 cache: split partials merged, against the plain
+    version within 1e-5 of the largest output."""
+    from xhy_flash_attention_tpu_torch.inference import combine
+    b, h, hk, d, S = 2, 25, 25, 64, 1024
+    q = torch.randn(b, 1, h, d, generator=cuda, device="cuda")
+    kc, vc = (torch.randn(b, hk, S, d, generator=cuda, device="cuda")
+              for _ in range(2))
+    lengths = torch.tensor([S, 700], dtype=torch.int32, device="cuda")
+    before = combine.flash_decode_splitkv.launches
+    out = combine.flash_decode_splitkv(q, kc, vc, lengths, num_splits=3)
+    ref = dk.flash_decode_ref(q, kc, vc, lengths, d ** -0.5)
+    torch.cuda.synchronize()
+    assert combine.flash_decode_splitkv.launches == before + 1
+    assert out.dtype == torch.float32
+    assert _err(out, ref) <= 1e-5 * ref.abs().max().item()
+
+
+def test_fp32_gpt_config_builds_and_serves_on_the_card(cuda):
+    """GPTLMHeadModel(GPTConfig()): the default config (GPT-2 small width,
+    fp32) on the card, a forward against the same weights on the CPU
+    (plain versions) and a few greedy tokens through decode()."""
+    from xhy_flash_attention_tpu_torch import GPTConfig, GPTLMHeadModel, decode
+    cfg = GPTConfig()
+    assert cfg.dtype == torch.float32
+    model = GPTLMHeadModel(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (2, 96), generator=cuda,
+                        device="cuda")
+    before = fh.fused_heads_fwd.launches
+    with torch.inference_mode():
+        got, _ = model(ids)
+    torch.cuda.synchronize()
+    assert fh.fused_heads_fwd.launches == before + cfg.num_hidden_layers
+    cpu = GPTLMHeadModel(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        want, _ = cpu(ids.cpu())
+    assert _err(got.cpu(), want) <= 1e-4 * want.abs().max().item() + 1e-4
+    seq, _ = decode(model, ids, 104)
+    assert seq.shape == (2, 104) and torch.equal(seq[:, :96], ids)
+
+
+def test_fp32_refuses_what_its_kernels_lack(cuda):
+    """fp32 under a bias, segment ids, a FlashMask, varlen and in the
+    reduced scores raises NotImplementedError on the card, never falling
+    back to a plain version; fp16 raises too."""
+    from xhy_flash_attention_tpu_torch import (
+        flash_attention, flash_attn_varlen_func, flashmask_attention)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        reduced_scores)
+    b, h, s, d = 1, 4, 128, 64
+    q = torch.randn(b, h, s, d, generator=cuda, device="cuda")
+    before = fwd.flash_fwd_fp32.launches
+    with pytest.raises(NotImplementedError, match="Next slices"):
+        flash_attention(q, q, q, torch.zeros(s, s, device="cuda"))
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="Next slices"):
+        flash_attention(q, q, q, None, seg, seg)
+    rows = torch.full((b, 1, s, 1), s, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="Next slices"):
+        flashmask_attention(q, q, q, rows, causal=True)
+    cu = torch.tensor([0, 50, s], dtype=torch.int32, device="cuda")
+    x = torch.randn(s, h, d, generator=cuda, device="cuda")
+    with pytest.raises(NotImplementedError, match="Next slices"):
+        flash_attn_varlen_func(x, x, x, cu, cu, 78, 78, causal=True)
+    with pytest.raises(NotImplementedError):
+        reduced_scores.calc_reduced_attn_scores(
+            q, q, torch.zeros(b, h, s, device="cuda"))
+    with pytest.raises(NotImplementedError):
+        fwd.flash_attention_fwd(q.half(), q.half(), q.half(), sm_scale=1.0)
+    assert fwd.flash_fwd_fp32.launches == before

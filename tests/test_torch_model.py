@@ -150,9 +150,10 @@ def test_gated_activations_match_jax(name):
 
 
 def test_cuda_model_needs_bfloat16():
-    # raised before any weight is allocated, so it runs without a card
-    cfg = llama_config_to_gpt_config(TINY_LLAMA)  # float32
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    # raised before any weight is allocated, so it runs without a card; a
+    # model on the card runs in bfloat16 or float32, fp16 is refused
+    cfg = llama_config_to_gpt_config(TINY_LLAMA, torch.float16)
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
         GPTLMHeadModel(cfg)
     with pytest.raises(NotImplementedError, match="Next slices of the port"):
         GPTLMHeadModel(cfg, device="cuda:0")

@@ -16,8 +16,12 @@ norm, sparse-mask attention (``flashmask_attention``,
 ``calc_reduced_attn_scores``, and sliding windows, segment ids and q/kv
 positions with the varlen and kv-packed entry points and ``bert_padding``,
 the attention bias, the fp8 prefill (``flash_attn_fp8_func``),
-rematerialised training (``GPTConfig.remat``) and weight-only int8 / int4
-serving (``GPTConfig.weight_quant``, ``quantize_gpt_params``).
+rematerialised training (``GPTConfig.remat``), weight-only int8 / int4
+serving (``GPTConfig.weight_quant``, ``quantize_gpt_params``), fp32
+attention kernels (models run in bfloat16 or float32 on the card), and
+GPT-2 from Hugging Face or Megatron-LM weights
+(``gpt2_config_to_gpt_config``, ``remap_state_dict_hf_gpt2``,
+``remap_state_dict_megatron``; ``utils.pretrained`` reads local files).
 """
 
 from .bert_padding import (
@@ -28,8 +32,9 @@ from .bert_padding import (
     unpad_input,
 )
 from .losses import CrossEntropyLoss, cross_entropy_loss
-from .models.gpt import (GPTConfig, GPTLMHeadModel, quantize_gpt_params,
-                         state_dict_from_jax)
+from .models.gpt import (GPTConfig, GPTLMHeadModel, gpt2_config_to_gpt_config,
+                         quantize_gpt_params, remap_state_dict_hf_gpt2,
+                         remap_state_dict_megatron, state_dict_from_jax)
 from .models.llama import (llama_config_to_gpt_config,
                            remap_state_dict_hf_llama)
 from .ops.decode import decode_attention
@@ -99,6 +104,7 @@ __all__ = [
     "flashmask_attention",
     "flashmask_to_dense",
     "global_sliding_window_mask",
+    "gpt2_config_to_gpt_config",
     "index_first_axis",
     "index_first_axis_residual",
     "index_put_first_axis",
@@ -108,7 +114,9 @@ __all__ = [
     "packed_qkv_attention",
     "pad_input",
     "quantize_gpt_params",
+    "remap_state_dict_hf_gpt2",
     "remap_state_dict_hf_llama",
+    "remap_state_dict_megatron",
     "rms_norm",
     "sample_logits",
     "sliding_window_mask",

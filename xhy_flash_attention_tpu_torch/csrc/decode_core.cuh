@@ -163,26 +163,10 @@ __device__ __forceinline__ void load_floats(float* f, const unsigned char* src) 
   for (int e = 0; e < N; ++e) f[e] = elem_to_float(w[e / kPerWord], e % kPerWord, C{});
 }
 
-// cp.async of 16 (or 4) bytes; with ok false nothing is read and the
-// destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using xfa::cp_async16;
+using xfa::cp_async4;
+using xfa::cp_async_commit;
+using xfa::cp_async_wait;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -466,7 +450,7 @@ __device__ __forceinline__ void decode_body(const DecodeParams& p) {
         // P.V takes p * v_scale: folded in here, after the row sum
         const int j = jw + 2 * t4;
         float2 pv = kQuant ? make_float2(p0 * vsc[j], p1 * vsc[j + 1]) : make_float2(p0, p1);
-        if constexpr (kPaged) pv = __bfloat1622float2(__float22bfloat162_rn(pv));
+        if constexpr (kPaged && kMma) pv = __bfloat1622float2(__float22bfloat162_rn(pv));
         *reinterpret_cast<float2*>(&p_w[r * 8 + 2 * t4]) = pv;
         if (t4 == 0) alpha_w[r] = alpha;
       }

@@ -41,7 +41,9 @@
 //   product rounded, summed in a fixed order) in one read of dO and O, and
 //   q_s = bf16(q * sm_scale) once into a contiguous (b, h, sq, d) buffer
 //   that both kernels read through TMA (the plain version's bits; no kernel
-//   scales Q in shared memory).
+//   scales Q in shared memory). Its fp32 instantiation
+//   (flash_bwd_prep_kernel<D, float>: delta and q_s = q * sm_scale in fp32)
+//   serves flash_fp32.cu's fp32 backward.
 //
 // * The kernels, the forward's design (flash_fwd.cu) turned to the
 //   backward: persistent CTAs, one per SM, of three warpgroups; warpgroup 0
@@ -138,6 +140,8 @@
 //   stays the softcap-scaled gradient of the products; dbias, the gradient
 //   before the softcap derivative summed over the bias's broadcast axes, is
 //   flash_bwd_dbias.cu's.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -152,11 +156,12 @@ using sm90::kLog2e;
 
 // ------------------------------------------------------------- pre-pass
 
+template <typename T>
 struct PrepParams {
-  const bf16* q;
-  const bf16* dout;
-  const bf16* out;
-  bf16* qs;      // (b, h, sq, d) contiguous, or null
+  const T* q;
+  const T* dout;
+  const T* out;
+  T* qs;         // (b, h, sq, d) contiguous, or null
   float* delta;  // (b, h, sq) contiguous
   int64_t q_sb, q_sh, q_ss, do_sb, do_sh, do_ss, o_sb, o_sh, o_ss;
   int64_t rows;  // b * h * sq
@@ -166,13 +171,16 @@ struct PrepParams {
 
 constexpr int kPrepThreads = 256;
 
-// D / 8 threads per (batch, head, row), 16 bytes of each tensor a thread.
-template <int D>
-__global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const PrepParams p) {
-  constexpr int kLanes = D / 8;
+// 16 bytes of each tensor a thread (8 bf16 or 4 fp32 values), D / 8 or D / 4
+// threads per (batch, head, row). T is bf16, or fp32 for flash_fp32.cu's
+// backward (q_s = q * sm_scale then stays fp32).
+template <int D, typename T>
+__global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const PrepParams<T> p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kLanes = kF32 ? D / 4 : D / 8;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * (kPrepThreads / kLanes) + threadIdx.x / kLanes;
-  const int c = (threadIdx.x % kLanes) * 8;
+  const int c = (threadIdx.x % kLanes) * (kF32 ? 4 : 8);
   float acc = 0.f;
   if (r < p.rows) {
     const int64_t bh = r / p.sq;
@@ -182,13 +190,20 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const Prep
                                                      row * p.do_ss + c);
     const uint4 ov = *reinterpret_cast<const uint4*>(p.out + batch * p.o_sb + head * p.o_sh +
                                                      row * p.o_ss + c);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    if constexpr (kF32) {
+      const float* d4 = reinterpret_cast<const float*>(&dv);
+      const float* o4 = reinterpret_cast<const float*>(&ov);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 a = __bfloat1622float2(d2[j]), b = __bfloat1622float2(o2[j]);
-      acc += __fmul_rn(a.x, b.x);
-      acc += __fmul_rn(a.y, b.y);
+      for (int j = 0; j < 4; ++j) acc += __fmul_rn(d4[j], o4[j]);
+    } else {
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = __bfloat1622float2(d2[j]), b = __bfloat1622float2(o2[j]);
+        acc += __fmul_rn(a.x, b.x);
+        acc += __fmul_rn(a.y, b.y);
+      }
     }
     if (p.qs != nullptr) {
       uint4 qv = *reinterpret_cast<const uint4*>(p.q + batch * p.q_sb + head * p.q_sh +
@@ -196,8 +211,12 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const Prep
       uint32_t* w = reinterpret_cast<uint32_t*>(&qv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[j]));
-        w[j] = pack_bf16(f.x * p.sm_scale, f.y * p.sm_scale);
+        if constexpr (kF32) {
+          w[j] = __float_as_uint(__fmul_rn(__uint_as_float(w[j]), p.sm_scale));
+        } else {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[j]));
+          w[j] = pack_bf16(f.x * p.sm_scale, f.y * p.sm_scale);
+        }
       }
       *reinterpret_cast<uint4*>(p.qs + r * D + c) = qv;
     }
@@ -1229,20 +1248,26 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
                                   void* delta, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                   int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t o_sb,
                                   int64_t o_sh, int64_t o_ss, int b, int h, int sq, int d,
-                                  float sm_scale, void* stream) {
+                                  float sm_scale, int dtype, void* stream) {
   const int64_t rows = static_cast<int64_t>(b) * h * sq;
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
-  const PrepParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
-                     static_cast<const bf16*>(out), static_cast<bf16*>(qs),
-                     static_cast<float*>(delta), q_sb, q_sh, q_ss, do_sb, do_sh, do_ss, o_sb,
-                     o_sh, o_ss, rows, h, sq, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_block = kPrepThreads / (d / 8);
-  const unsigned grid = static_cast<unsigned>((rows + per_block - 1) / per_block);
-  if (d == 64) flash_bwd_prep_kernel<64><<<grid, kPrepThreads, 0, s>>>(p);
-  else if (d == 128) flash_bwd_prep_kernel<128><<<grid, kPrepThreads, 0, s>>>(p);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto t) -> cudaError_t {
+    using T = decltype(t);
+    const PrepParams<T> p{static_cast<const T*>(q), static_cast<const T*>(dout),
+                          static_cast<const T*>(out), static_cast<T*>(qs),
+                          static_cast<float*>(delta), q_sb, q_sh, q_ss, do_sb, do_sh, do_ss,
+                          o_sb, o_sh, o_ss, rows, h, sq, sm_scale};
+    const int per_block = kPrepThreads / (d * static_cast<int>(sizeof(T)) / 16);
+    const unsigned grid = static_cast<unsigned>((rows + per_block - 1) / per_block);
+    if (d == 64) flash_bwd_prep_kernel<64, T><<<grid, kPrepThreads, 0, s>>>(p);
+    else if (d == 128) flash_bwd_prep_kernel<128, T><<<grid, kPrepThreads, 0, s>>>(p);
+    else return cudaErrorInvalidValue;
+    return cudaGetLastError();
+  };
+  if (dtype == xfa::kBF16) return static_cast<int>(run(bf16{}));
+  if (dtype == xfa::kF32) return static_cast<int>(run(0.f));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The 21 strides, in elements, are (batch, head, seq) of q, k, v, dout, dq,

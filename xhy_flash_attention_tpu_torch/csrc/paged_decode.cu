@@ -23,7 +23,10 @@
 // quantized pages) rounded to bf16 for P.V, as the TPU kernels round it to
 // the query dtype; output divided by the fp32 row sum. int8 and e4m3
 // payloads convert to bf16 exactly, so the TPU kernels' exponent rebias
-// folded into the scales is not needed.
+// folded into the scales is not needed. fp32 pages take fp32 queries: the
+// decode regime runs decode_body's fp32 path (scores on CUDA cores, P kept
+// in fp32, as the plain version keeps it), the prefill regime the paged
+// instantiation of flash_fp32.cu's forward (inference/paged.py routes it).
 //
 // Two regimes with two bounds, chosen on the host from sq * g (a shape,
 // never a device value, so a call can be captured in a CUDA graph):
@@ -87,9 +90,14 @@ using xfa::pack_bf16;
 
 // ------------------------------------------------------------ decode regime
 
+// The query type of a page type: fp32 pages take fp32 queries (the
+// CUDA-core scores of decode_body, P kept in fp32), the others bf16.
+template <typename C>
+using QueryOf = std::conditional_t<std::is_same<C, float>::value, float, bf16>;
+
 template <typename C, int D, int kRows>
 __global__ void __launch_bounds__(kThreads, 2) paged_decode_kernel(const DecodeParams p) {
-  decode_body<bf16, C, D, false, kRows, true>(p);
+  decode_body<QueryOf<C>, C, D, false, kRows, true>(p);
 }
 
 // ----------------------------------------------------------- prefill regime
@@ -481,7 +489,7 @@ cudaError_t decode_d(const DecodeParams& p, int b, int d, int rows, int cluster,
     static std::atomic<uint64_t> done{0};
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = cluster_config(kernel, Smem<bf16, C, D>::kBytes, dim3(cluster, p.hk, b),
+    cudaError_t err = cluster_config(kernel, Smem<QueryOf<C>, C, D>::kBytes, dim3(cluster, p.hk, b),
                                      cluster, s, cfg, attr, done);
     if (err != cudaSuccess) return err;
     err = cudaLaunchKernelEx(&cfg, kernel, p);
@@ -501,23 +509,27 @@ cudaError_t decode_d(const DecodeParams& p, int b, int d, int rows, int cluster,
 
 }  // namespace
 
-// q, out: (b, sq, h, d) bf16 contiguous, q on a 16-byte boundary; pages:
-// (num_pages, hk, 2, ps, d) contiguous of page_dtype (1 bf16, 2 int8 with
-// scales, 3 e4m3 with scales) on a 16-byte boundary; scales: (b, hk, 2, npp
+// q, out: (b, sq, h, d) contiguous, q on a 16-byte boundary, bf16 (fp32
+// with fp32 pages); pages: (num_pages, hk, 2, ps, d) contiguous of
+// page_dtype (0 fp32, 1 bf16, 2 int8 with scales, 3 e4m3 with scales) on a
+// 16-byte boundary; scales: (b, hk, 2, npp
 // * ps) fp32 contiguous or null; table: (b, npp) int32; lengths: (b,) int32
 // counting the sq new tokens. sq * (h / hk) <= 16 rows take the decode
 // regime on clusters of `cluster` CTAs (1, 2, 4 or 8) per (batch, kv head);
-// more rows the prefill regime (cluster is not read).
+// more rows the prefill regime (cluster is not read), which fp32 pages
+// take in flash_fp32.cu (xfa_flash_fwd_fp32 with a page table).
 XFA_EXPORT int xfa_paged_decode(const void* q, const void* pages, const void* scales,
                                 const void* table, const void* lengths, void* out, int b, int sq,
                                 int h, int hk, int ps, int npp, int num_pages, int d,
                                 int page_dtype, float sm_scale, float softcap,
                                 int window_left, int cluster, void* stream) {
   const bool quant = page_dtype == xfa::kI8 || page_dtype == xfa::kE4M3;
-  if (quant != (scales != nullptr) || (!quant && page_dtype != xfa::kBF16))
+  if (quant != (scales != nullptr) || (!quant && page_dtype != xfa::kBF16 && page_dtype != xfa::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   const int rows = sq * (h / hk), cap = npp * ps;
+  // fp32 pages: the decode regime here, the prefill regime in flash_fp32.cu
+  if (page_dtype == xfa::kF32 && rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rows <= kMaxRows) {
@@ -544,6 +556,9 @@ XFA_EXPORT int xfa_paged_decode(const void* q, const void* pages, const void* sc
         break;
       case xfa::kE4M3:
         err = decode_d<__nv_fp8_e4m3>(p, b, d, rows, cluster, s);
+        break;
+      case xfa::kF32:
+        err = decode_d<float>(p, b, d, rows, cluster, s);
         break;
       default:
         err = decode_d<bf16>(p, b, d, rows, cluster, s);

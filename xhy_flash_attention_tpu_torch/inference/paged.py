@@ -20,7 +20,9 @@ call can be captured in a CUDA graph): up to 16 rows per KV head the decode
 regime (csrc/flash_decode.cu's kernel with keys reached through the page
 table: each (batch, kv head) on a cluster of 1-8 CTAs, each CTA a
 tile-aligned run of the visible keys), else the prefill regime (wgmma over
-blocks of 128 rows and tiles of 128 keys). :func:`paged_launch_plan`,
+blocks of 128 rows and tiles of 128 keys). fp32 pages take fp32 queries:
+the decode regime's fp32 instantiation, and for the prefill regime
+csrc/flash_fp32.cu's forward with K/V through the page table. :func:`paged_launch_plan`,
 :func:`decode_cta_runs` and :func:`prefill_tile_plan` mirror the kernel's
 launch plan in plain Python; ``launch_paged(..., cluster=c)`` forces the
 cluster size of the decode regime.
@@ -40,6 +42,7 @@ import torch
 from ..ops import _cuda
 from ..ops.flash_attention.common import (NEG_INF, SLICE_DTYPES, cdiv,
                                           require_inference)
+from ..ops.flash_attention.fwd import launch_flash_fwd_fp32
 from ..ops.flash_attention.decode_kernel import (CLUSTER_SIZES, MAX_ROWS,
                                                  TILE, contiguous_q,
                                                  cta_chunk, decode_launch_plan)
@@ -264,7 +267,9 @@ def prefill_tile_plan(length: int, sq: int, g: int, cap: int,
 def launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
                  window_size=(-1, -1), softcap: float = 0.0,
                  cluster: Optional[int] = None) -> torch.Tensor:
-    """Launch csrc/paged_decode.cu and return the output (b, sq, h, d).
+    """Launch csrc/paged_decode.cu and return the output (b, sq, h, d); on
+    fp32 pages the prefill regime is the paged instantiation of
+    csrc/flash_fp32.cu's forward (fwd.launch_flash_fwd_fp32).
     ``cluster`` forces the CTAs per cluster of the decode regime (1, 2, 4 or
     8; the tests and chip_smoke.py set it), else :func:`paged_launch_plan`
     picks it. The callers count the launch."""
@@ -276,12 +281,14 @@ def launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
     b, sq, h, d = q.shape
     P, hk, _, ps, _ = pages.shape
     npp = cache.page_table.shape[1]
-    if q.dtype != torch.bfloat16 or pages.dtype not in (
-            torch.bfloat16, *QUANT_DTYPES):
+    f32 = q.dtype == torch.float32 and pages.dtype == torch.float32
+    if not f32 and (q.dtype != torch.bfloat16 or pages.dtype not in (
+            torch.bfloat16, *QUANT_DTYPES)):
         raise NotImplementedError(
             f"the CUDA paged kernel takes bfloat16 queries with bfloat16, "
-            f"int8 or float8_e4m3fn pages (got {q.dtype}, {pages.dtype}); "
-            f"fp16 and fp32 come with {SLICE_DTYPES}")
+            f"int8 or float8_e4m3fn pages, or float32 queries with float32 "
+            f"pages (got {q.dtype}, {pages.dtype}); fp16 comes with "
+            f"{SLICE_DTYPES}")
     if d not in (64, 128):
         raise NotImplementedError(f"head dim {d}: the kernel takes 64 or 128")
     if pages.shape[4] != d or h % hk or cache.page_table.shape[0] != b \
@@ -304,6 +311,12 @@ def launch_paged(q, cache: PagedKVCache, *, softmax_scale: float,
                              _cuda.sm_count(q.device.index), cluster)
     q = contiguous_q(q)
     out = torch.empty_like(q)
+    if f32 and plan["regime"] == "prefill":
+        launch_flash_fwd_fp32(
+            q.transpose(1, 2), None, None, out.transpose(1, 2), None,
+            sm_scale=softmax_scale, window=(int(window_size[0]), 0),
+            softcap=softcap, paged=(pages, cache.page_table, cache.lengths))
+        return out
     code = _cuda.lib().xfa_paged_decode(
         q.data_ptr(), pages.data_ptr(), _cuda.ptr(cache.kv_scales),
         cache.page_table.data_ptr(), cache.lengths.data_ptr(), out.data_ptr(),

@@ -19,11 +19,20 @@ block's input alone. ``GPTConfig.weight_quant`` ("int8" / "int4") builds
 the projections (Wqkv, out_proj, fc1, fc2 and an untied lm_head) as
 ``QuantDense`` for serving; :func:`quantize_gpt_params` turns a float
 model's state dict into theirs, as the TPU package's does (gpt.py:380-405).
+A model on CUDA runs in bfloat16 or float32 (the fp32 attention kernels of
+csrc/flash_fp32.cu). The dropout fields ``embd_pdrop``, ``resid_pdrop`` and
+``attn_pdrop`` are kept as the TPU package keeps them (its gpt.py:48-50);
+as there, dropout applies only when a forward is called with
+``deterministic=False``, which raises until slice 6 brings dropout.
+GPT-2 weights load from Hugging Face (:func:`gpt2_config_to_gpt_config`,
+:func:`remap_state_dict_hf_gpt2`) or a Megatron-LM checkpoint
+(:func:`remap_state_dict_megatron`); utils/pretrained.py reads local files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -35,12 +44,14 @@ from ..modules.embedding import GPT2Embeddings
 from ..modules.mha import MHA
 from ..modules.linear import make_linear
 from ..modules.mlp import GatedMlp, Mlp
-from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED
+from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT
 from ..ops.flash_attention.remat import REMAT_POLICIES, checkpoint_block
 from ..ops.quant import QUANT_DTYPES, QuantizedKV, pack_int4, quantize_weight
 from ..utils.generation import GenerationMixin
 
-__all__ = ["GPTConfig", "GPTLMHeadModel", "GPTModel", "quantize_gpt_params",
+__all__ = ["GPTConfig", "GPTLMHeadModel", "GPTModel",
+           "gpt2_config_to_gpt_config", "quantize_gpt_params",
+           "remap_state_dict_hf_gpt2", "remap_state_dict_megatron",
            "state_dict_from_jax"]
 
 WEIGHT_QUANT = (None, "int8", "int4")
@@ -64,6 +75,10 @@ class GPTConfig:
     rotary_emb_interleaved: bool = False
     window_size: Tuple[int, int] = (-1, -1)
     attn_softcap: float = 0.0
+    # dropout, applied only by a forward with deterministic=False (slice 6)
+    embd_pdrop: float = 0.0
+    resid_pdrop: float = 0.0
+    attn_pdrop: float = 0.0
     residual_in_fp32: bool = True
     prenorm: bool = True
     lm_head_bias: bool = False
@@ -135,10 +150,11 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, *, device="cuda"):
         super().__init__()
         c = config
-        if torch.device(device).type == "cuda" and c.dtype != torch.bfloat16:
+        if torch.device(device).type == "cuda" and c.dtype not in (
+                torch.bfloat16, torch.float32):
             raise NotImplementedError(
-                f"a model on CUDA runs in bfloat16 (config.dtype is "
-                f"{c.dtype}): {CUDA_DTYPE_NOT_PORTED}")
+                f"a model on CUDA runs in bfloat16 or float32 (config.dtype "
+                f"is {c.dtype}): {CUDA_DTYPE_NOT_PORTED}")
         self.config = c
         self.embeddings = GPT2Embeddings(
             c.hidden_size, c.padded_vocab_size, c.max_position_embeddings,
@@ -153,15 +169,23 @@ class GPTModel(nn.Module):
                              device=device) if c.prenorm else None)
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset=0, segment_ids=None):
+                seqlen_offset=0, segment_ids=None, deterministic=True):
         """Returns (hidden_states, kv_caches). seqlen_offset: int or (b,)
-        tensor. Dense caches are written in place; a layer's PagedKVCache
+        tensor. ``deterministic`` False asks for the config's dropout (JAX
+        gpt.py:180), which raises while a pdrop is set (slice 6). Dense caches are written in place; a layer's PagedKVCache
         comes back with advanced lengths and replaces its entry of the
         ``kv_caches`` list, which is returned. segment_ids: (b, s) ids of
         packed sequences, the queries' and the keys' of every layer's
         attention (JAX gpt.py:270). With ``config.remat``, grad enabled and
         no caches, each block runs under checkpointing with
         ``config.remat_policy`` (JAX gpt.py:228)."""
+        c = self.config
+        if not deterministic and max(c.embd_pdrop, c.resid_pdrop,
+                                     c.attn_pdrop) > 0.0:
+            raise NotImplementedError(
+                f"dropout (deterministic=False with embd_pdrop "
+                f"{c.embd_pdrop}, resid_pdrop {c.resid_pdrop}, attn_pdrop "
+                f"{c.attn_pdrop}) not ported yet: {SLICE_DROPOUT}")
         hidden = self.embeddings(input_ids, position_ids,
                                  seqlen_offset=seqlen_offset)
         residual = None
@@ -186,7 +210,7 @@ class GPTModel(nn.Module):
 
 class GPTLMHeadModel(GenerationMixin, nn.Module):
     """Decoder with an LM head. Built on ``device`` (CUDA unless the caller
-    says otherwise; there ``config.dtype`` must be bfloat16) with weights
+    says otherwise; there ``config.dtype`` is bfloat16 or float32) with weights
     drawn from ``generator`` (a fresh one seeded with ``seed`` when None)."""
 
     def __init__(self, config: GPTConfig, *, device="cuda",
@@ -217,11 +241,12 @@ class GPTLMHeadModel(GenerationMixin, nn.Module):
         return self.transformer.embeddings.word_embeddings.weight.device
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset=0, segment_ids=None):
+                seqlen_offset=0, segment_ids=None, deterministic=True):
         """Returns (logits (b, s, padded_vocab), kv_caches)."""
         hidden, kv_caches = self.transformer(
             input_ids, position_ids, kv_caches=kv_caches,
-            seqlen_offset=seqlen_offset, segment_ids=segment_ids)
+            seqlen_offset=seqlen_offset, segment_ids=segment_ids,
+            deterministic=deterministic)
         if self.lm_head is None:
             logits = nn.functional.linear(
                 hidden, self.transformer.embeddings.word_embeddings.weight)
@@ -357,4 +382,134 @@ def quantize_gpt_params(state_dict: Mapping[str, torch.Tensor],
             out[name] = t.float()
         else:
             out[name] = t
+    return out
+
+
+# ---------------------------------------------------------------- GPT-2
+
+def gpt2_config_to_gpt_config(hf_config, dtype=torch.float32) -> GPTConfig:
+    """Any object with the Hugging Face GPT2Config field names (a
+    ``types.SimpleNamespace`` will do) -> GPTConfig (≙ the JAX package's
+    gpt.py:417-435): learned positions, LayerNorm, gelu_new
+    ("gelu_approx"), tied embeddings, the three dropout rates kept."""
+    g = hf_config
+    n_inner = getattr(g, "n_inner", None)
+    return GPTConfig(
+        vocab_size=g.vocab_size,
+        hidden_size=g.n_embd,
+        num_hidden_layers=g.n_layer,
+        num_attention_heads=g.n_head,
+        intermediate_size=n_inner if n_inner is not None else 4 * g.n_embd,
+        max_position_embeddings=g.n_positions,
+        activation_function="gelu_approx",
+        layer_norm_epsilon=g.layer_norm_epsilon,
+        embd_pdrop=g.embd_pdrop,
+        resid_pdrop=g.resid_pdrop,
+        attn_pdrop=g.attn_pdrop,
+        tie_word_embeddings=True,
+        dtype=dtype,
+    )
+
+
+def _to_tensor(x, dtype) -> torch.Tensor:
+    """A numpy array or tensor as a CPU tensor of ``dtype``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.detach().to("cpu", dtype)
+
+
+def _vocab_rows(w: torch.Tensor, rows: int, truncate: bool) -> torch.Tensor:
+    """``w`` padded with zero rows to ``rows`` (cut to it with
+    ``truncate``)."""
+    if w.shape[0] < rows:
+        return torch.cat([w, w.new_zeros(rows - w.shape[0], *w.shape[1:])])
+    return w[:rows] if truncate else w
+
+
+def remap_state_dict_hf_gpt2(state_dict: Mapping[str, Any],
+                             config: GPTConfig) -> Dict[str, torch.Tensor]:
+    """A Hugging Face ``GPT2LMHeadModel`` state_dict (torch tensors or
+    numpy arrays) -> this port's ``GPTLMHeadModel`` state_dict (≙ the JAX
+    package's gpt.py:515-565, which builds its flax tree the same way).
+
+    HF's Conv1D weights are (in, out), the flax layout: they are transposed
+    to Linear's (out, in). The embedding is padded with zero rows to
+    ``config.padded_vocab_size``. Linear and embedding weights take
+    ``config.dtype``, norm weights stay fp32. Returns CPU tensors for
+    ``load_state_dict``."""
+    def get(name, dtype=None, transpose=False):
+        t = _to_tensor(state_dict[name], dtype or config.dtype)
+        return t.t().contiguous() if transpose else t
+
+    def norm(dst, src):
+        return {f"{dst}.weight": get(f"{src}.weight", torch.float32),
+                f"{dst}.bias": get(f"{src}.bias", torch.float32)}
+
+    def linear(dst, src):
+        return {f"{dst}.weight": get(f"{src}.weight", transpose=True),
+                f"{dst}.bias": get(f"{src}.bias")}
+
+    sd = {"transformer.embeddings.word_embeddings.weight": _vocab_rows(
+              get("transformer.wte.weight"), config.padded_vocab_size, False),
+          "transformer.embeddings.position_embeddings.weight":
+              get("transformer.wpe.weight")}
+    sd.update(norm("transformer.norm_f", "transformer.ln_f"))
+    for i in range(config.num_hidden_layers):
+        hf, pre = f"transformer.h.{i}.", f"transformer.layers.{i}."
+        sd.update(norm(pre + "norm1", hf + "ln_1"))
+        sd.update(norm(pre + "norm2", hf + "ln_2"))
+        sd.update(linear(pre + "mixer.Wqkv", hf + "attn.c_attn"))
+        sd.update(linear(pre + "mixer.out_proj", hf + "attn.c_proj"))
+        sd.update(linear(pre + "mlp.fc1", hf + "mlp.c_fc"))
+        sd.update(linear(pre + "mlp.fc2", hf + "mlp.c_proj"))
+    return sd
+
+
+def remap_state_dict_megatron(state_dict: Mapping[str, Any],
+                              config: GPTConfig) -> Dict[str, torch.Tensor]:
+    """A Megatron-LM GPT checkpoint's state dict (torch tensors or numpy
+    arrays, keys under ``language_model.`` or ``language_model.encoder.``)
+    -> this port's ``GPTLMHeadModel`` state_dict (≙ the JAX package's
+    gpt.py:438-512).
+
+    Megatron stores Linear weights (out, in), as Linear does, with Wqkv's
+    rows interleaved per head ((h, 3, d) rows): they are de-interleaved to
+    [q | k | v]. The embedding is padded with zero rows to, or cut to,
+    ``config.padded_vocab_size``. Linear and embedding weights take
+    ``config.dtype``, norm weights stay fp32. Returns CPU tensors."""
+    sd = {re.sub(r"^language_model\.(encoder\.)?", "", k): v
+          for k, v in state_dict.items()}
+    h, d = config.num_attention_heads, config.dim_head
+
+    def get(name, dtype=None):
+        return _to_tensor(sd[name], dtype or config.dtype)
+
+    def deinterleave(w):
+        return w.reshape(h, 3, d, *w.shape[1:]).transpose(0, 1).reshape(
+            3 * h * d, *w.shape[1:]).contiguous()
+
+    def norm(dst, src):
+        return {f"{dst}.weight": get(f"{src}.weight", torch.float32),
+                f"{dst}.bias": get(f"{src}.bias", torch.float32)}
+
+    def linear(dst, src):
+        return {f"{dst}.weight": get(f"{src}.weight"),
+                f"{dst}.bias": get(f"{src}.bias")}
+
+    out = {"transformer.embeddings.word_embeddings.weight": _vocab_rows(
+               get("embedding.word_embeddings.weight"),
+               config.padded_vocab_size, True),
+           "transformer.embeddings.position_embeddings.weight":
+               get("embedding.position_embeddings.weight")}
+    out.update(norm("transformer.norm_f", "final_layernorm"))
+    for i in range(config.num_hidden_layers):
+        src, pre = f"layers.{i}.", f"transformer.layers.{i}."
+        out.update(norm(pre + "norm1", src + "input_layernorm"))
+        out.update(norm(pre + "norm2", src + "post_attention_layernorm"))
+        qkv = src + "self_attention.query_key_value"
+        out[pre + "mixer.Wqkv.weight"] = deinterleave(get(qkv + ".weight"))
+        out[pre + "mixer.Wqkv.bias"] = deinterleave(get(qkv + ".bias"))
+        out.update(linear(pre + "mixer.out_proj", src + "self_attention.dense"))
+        out.update(linear(pre + "mlp.fc1", src + "mlp.dense_h_to_4h"))
+        out.update(linear(pre + "mlp.fc2", src + "mlp.dense_4h_to_h"))
     return out

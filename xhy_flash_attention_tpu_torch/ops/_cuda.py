@@ -72,7 +72,14 @@ _SIGNATURES = {
     "xfa_flash_fwd_fp8": [_c_void_p] * 8 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int, _c_int, _c_void_p],
     "xfa_flash_bwd_prep": [_c_void_p] * 5 + [_c_int64] * 9 + [_c_int] * 4
-    + [_c_float, _c_void_p],
+    + [_c_float, _c_int, _c_void_p],
+    # flash_fp32.cu: the forward (a page table and lengths for the paged
+    # instantiation) and the backward (which kernel last)
+    "xfa_flash_fwd_fp32": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
+    + [_c_float, _c_float, _c_int, _c_int] + [_c_void_p] * 2 + [_c_int] * 3
+    + [_c_void_p],
+    "xfa_flash_bwd_fp32": [_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
+    + [_c_float, _c_float, _c_int, _c_int, _c_int, _c_void_p],
     "xfa_flash_bwd_dkv": _BWD_ARGS,
     "xfa_flash_bwd_dq": _BWD_ARGS,
     "xfa_flash_bwd_dbias": [_c_void_p] * 7 + [_c_int64] * 15 + [_c_int] * 8

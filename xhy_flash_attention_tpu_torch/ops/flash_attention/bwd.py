@@ -19,7 +19,12 @@ instantiations), and an attention bias with its gradient: the kernels'
 bias instantiations read the bias to rebuild P, and dbias, summed over the
 batches and heads that share each bias element, comes from a kernel of its
 own (:func:`flash_bwd_dbias`, csrc/flash_bwd_dbias.cu) in a fixed order,
-with no atomics and no workspace beyond dbias itself.
+with no atomics and no workspace beyond dbias itself. float32 tensors run
+csrc/flash_fp32.cu's dK/dV and dQ kernels (full fp32 on the CUDA cores;
+:func:`flash_bwd_dkv_fp32`, :func:`flash_bwd_dq_fp32`, and through
+:func:`launch_flash_bwd` the packed layout) after the pre-pass's fp32
+instantiation, with causal, windows, softcap and GQA; other flags raise
+NotImplementedError (fwd.fp32_window).
 """
 
 from __future__ import annotations
@@ -31,17 +36,18 @@ import torch
 
 from .. import _cuda
 from .common import CUDA_DTYPE_NOT_PORTED, KernelMasks, cdiv, expand_heads
-from .fwd import (MASK_PART, NO_BIAS, MaskTiles, bias_c_args, bias_view,
-                  build_masks, check_supported, cut_to_range,
-                  elementwise_first, key_tile_plan, masked_row_block_plan,
-                  masked_window, pair_schedule)
+from .fwd import (F32, MASK_PART, NO_BIAS, MaskTiles, bias_c_args,
+                  bias_view, build_masks, check_supported, cut_to_range,
+                  elementwise_first, fp32_window, key_tile_plan,
+                  masked_row_block_plan, masked_window, pair_schedule)
 
 __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
            "bwd_dkv_window_plan", "bwd_masked_dkv_tile_plan",
            "bwd_masked_dq_tile_plan",
            "bwd_prep_ref", "bwd_schedule", "flash_attention_bwd",
-           "flash_bwd_dbias", "flash_bwd_dkv", "flash_bwd_dq",
-           "flash_bwd_prep", "launch_flash_bwd"]
+           "flash_bwd_dbias", "flash_bwd_dkv", "flash_bwd_dkv_fp32",
+           "flash_bwd_dq", "flash_bwd_dq_fp32", "flash_bwd_prep",
+           "launch_flash_bwd", "launch_flash_bwd_fp32"]
 
 # Tiles of the kernels, csrc/flash_bwd.cu: a dK/dV block of BWD_DKV_TILE_N
 # keys streams query tiles of BWD_DKV_TILE_M rows (kDkvKeys, kDkvRows); a dQ
@@ -246,9 +252,9 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
     return grads if bias is None else grads + (dbias,)
 
 
-def _check_shapes(q, k, v, do, lse, dq, dk, dv):
+def _check_shapes(q, k, v, do, lse, dq, dk, dv, dtype=torch.bfloat16):
     b, h, sq, d = q.shape
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do, dq, dk, dv)):
+    if any(t.dtype != dtype for t in (q, k, v, do, dq, dk, dv)):
         raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
     if d not in (64, 128):
         raise NotImplementedError(f"head dim {d}: the kernels take 64 or 128")
@@ -262,7 +268,35 @@ def _check_shapes(q, k, v, do, lse, dq, dk, dv):
         raise ValueError("lse must be a contiguous fp32 (b, h, sq) tensor")
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do"), (dq, "dq"),
                     (dk, "dk"), (dv, "dv")):
-        _cuda.require_aligned(t, 8, name)
+        _cuda.require_aligned(t, 16 // t.element_size(), name)
+
+
+def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
+                          *, sm_scale: float, window,
+                          softcap: float) -> None:
+    """Launch one kernel of csrc/flash_fp32.cu's backward (``which``: "dkv"
+    writes dk and dv, "dq" writes dq) on (b, h, s, d) float32 views of any
+    strides (head dim contiguous, pointers and strides multiples of 16
+    bytes): q is q_s = q * sm_scale in fp32 (:func:`flash_bwd_prep`); the
+    others as :func:`launch_flash_bwd`; ``window`` (left, right) as
+    fwd.fp32_window gives it. The callers count the launch."""
+    _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv)
+    _check_shapes(q, k, v, do, lse, dq, dk, dv, F32)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    if min(sq, sk) == 0:  # no pair: zero gradients
+        for t in ((dk, dv) if which == "dkv" else (dq,)):
+            t.zero_()
+        return
+    code = _cuda.lib().xfa_flash_bwd_fp32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
+        *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]),
+        b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
+        int(window[0]), int(window[1]), {"dkv": 0, "dq": 1}[which],
+        _cuda.stream())
+    _cuda.check(code, f"flash_bwd_{which}_fp32")
 
 
 def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
@@ -283,7 +317,17 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     test, as :func:`bwd_masked_dkv_tile_plan` / :func:`bwd_masked_dq_tile_plan`
     count them. ``bias``: the forward's (bb, bh, sq, sk) bias or None; it
     runs the bias instantiations, which read it to rebuild P (dbias is
-    :func:`flash_bwd_dbias`'s). The callers count the launch."""
+    :func:`flash_bwd_dbias`'s). float32 tensors go to
+    :func:`launch_flash_bwd_fp32` (causal and windows only). The callers
+    count the launch."""
+    if q.dtype == F32:
+        if tile_counts is not None:
+            raise ValueError("the fp32 kernels visit every tile: no "
+                             "tile_counts")
+        launch_flash_bwd_fp32(which, q, k, v, do, lse, delta, dq, dk, dv,
+                              sm_scale=sm_scale, softcap=softcap,
+                              window=fp32_window(masks, causal, bias))
+        return
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
                        *(masks.tensors() if masks is not None else ()),
                        *(() if bias is None else (bias,)))
@@ -377,15 +421,16 @@ def bwd_prep_ref(q, out, do, *, sm_scale: float, scale_q: bool = True):
 
 
 def flash_bwd_prep(q, out, do, *, sm_scale: float, scale_q: bool = True):
-    """The pre-pass kernel of the backward on (b, h, sq, d) views of any
-    strides (head dim contiguous, 16-byte aligned rows): returns (q_s,
-    delta) as :func:`bwd_prep_ref` does. ``flash_bwd_prep.launches`` counts
-    its launches."""
+    """The pre-pass kernel of the backward on (b, h, sq, d) bf16 or fp32
+    views of any strides (head dim contiguous, 16-byte aligned rows):
+    returns (q_s, delta) as :func:`bwd_prep_ref` does (q_s in q's dtype).
+    ``flash_bwd_prep.launches`` counts its launches, of either dtype."""
     if q.device.type == "cpu":
         return bwd_prep_ref(q, out, do, sm_scale=sm_scale, scale_q=scale_q)
     _cuda.require_cuda(q, out, do)
     b, h, sq, d = q.shape
-    if any(t.dtype != torch.bfloat16 for t in (q, out, do)):
+    if q.dtype not in (torch.bfloat16, F32) or any(
+            t.dtype != q.dtype for t in (out, do)):
         raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
     if d not in (64, 128):
         raise NotImplementedError(f"head dim {d}: the kernels take 64 or 128")
@@ -393,14 +438,15 @@ def flash_bwd_prep(q, out, do, *, sm_scale: float, scale_q: bool = True):
         raise ValueError(f"shapes q {tuple(q.shape)} out {tuple(out.shape)} "
                          f"do {tuple(do.shape)}")
     for t, name in ((q, "q"), (out, "out"), (do, "do")):
-        _cuda.require_aligned(t, 8, name)
+        _cuda.require_aligned(t, 16 // t.element_size(), name)
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     qs = torch.empty(b, h, sq, d, dtype=q.dtype, device=q.device) \
         if scale_q else None
     code = _cuda.lib().xfa_flash_bwd_prep(
         q.data_ptr(), do.data_ptr(), out.data_ptr(), _cuda.ptr(qs),
         delta.data_ptr(), *q.stride()[:3], *do.stride()[:3],
-        *out.stride()[:3], b, h, sq, d, float(sm_scale), _cuda.stream())
+        *out.stride()[:3], b, h, sq, d, float(sm_scale), _cuda.dtype_code(q),
+        _cuda.stream())
     _cuda.check(code, "flash_bwd_prep")
     flash_bwd_prep.launches += 1
     return qs, delta
@@ -423,8 +469,24 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dq, dk, dv, **kw) -> None:
     flash_bwd_dq.launches += 1
 
 
+def flash_bwd_dkv_fp32(q, k, v, do, lse, delta, dq, dk, dv, **kw) -> None:
+    """The fp32 dK/dV kernel (TPU kernel #2 in fp32);
+    ``flash_bwd_dkv_fp32.launches`` counts its launches."""
+    launch_flash_bwd_fp32("dkv", q, k, v, do, lse, delta, dq, dk, dv, **kw)
+    flash_bwd_dkv_fp32.launches += 1
+
+
+def flash_bwd_dq_fp32(q, k, v, do, lse, delta, dq, dk, dv, **kw) -> None:
+    """The fp32 dQ kernel (TPU kernel #3 in fp32);
+    ``flash_bwd_dq_fp32.launches`` counts its launches."""
+    launch_flash_bwd_fp32("dq", q, k, v, do, lse, delta, dq, dk, dv, **kw)
+    flash_bwd_dq_fp32.launches += 1
+
+
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dkv_fp32.launches = 0
+flash_bwd_dq_fp32.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
@@ -477,14 +539,22 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
     # TMA reads 16-byte aligned bases and strides; autograd may hand over
     # expanded or transposed tensors
     q, k, v, out, do = (_cuda.aligned(t, 8) for t in (q, k, v, out, do))
+    if q.dtype == F32:  # the fp32 kernels' refusals, before any launch
+        window = fp32_window(masks, causal, bias4)
     qs, delta = flash_bwd_prep(q, out, do, sm_scale=sm_scale)
     dq = dk = dv = None
     if need_dqkv:
         dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
-        kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
-                  masks=masks, bias=bias4)
-        flash_bwd_dkv(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
-        flash_bwd_dq(qs, k, v, do, lse, delta, dq, dk, dv, **kw)
+        args = (qs, k, v, do, lse, delta, dq, dk, dv)
+        if q.dtype == F32:
+            kw = dict(sm_scale=sm_scale, window=window, softcap=softcap)
+            flash_bwd_dkv_fp32(*args, **kw)
+            flash_bwd_dq_fp32(*args, **kw)
+        else:
+            kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+                      masks=masks, bias=bias4)
+            flash_bwd_dkv(*args, **kw)
+            flash_bwd_dq(*args, **kw)
     if bias is None:
         return dq, dk, dv
     dbias = None

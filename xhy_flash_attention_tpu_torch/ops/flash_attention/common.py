@@ -42,8 +42,9 @@ NEG_INF = DEFAULT_MASK_VALUE
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
 SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
-SLICE_DTYPES = ("slice 7b (fp32, then fp16 inputs to the CUDA attention "
-                "kernels) " + NEXT_SLICES)
+SLICE_DTYPES = ("slice 7b (fp32 under FlashMask, block masks, segment ids, "
+                "positions and a bias, and in the reduced scores; then fp16 "
+                "inputs to the CUDA attention kernels) " + NEXT_SLICES)
 SLICE_MODELS = ("slice 8 (the other models and the vision trainer) "
                 + NEXT_SLICES)
 SLICE_PARALLEL = "slice 9 (parallelism) " + NEXT_SLICES
@@ -54,8 +55,10 @@ NO_BACKWARD = (
 )
 CUDA_DTYPE_NOT_PORTED = (
     "the CUDA attention kernels (TPU kernels #1-#3, #5, #6) take bfloat16 "
-    "q/k/v (float8_e4m3fn through flash_attn_fp8_func, forward only); fp32 "
-    f"and fp16 come with {SLICE_DTYPES}"
+    "or float32 q/k/v (float8_e4m3fn through flash_attn_fp8_func, forward "
+    "only; float32 with causal, windows, softcap and GQA); fp16, and fp32 "
+    "under FlashMask, block masks, segment ids, positions or a bias, come "
+    f"with {SLICE_DTYPES}"
 )
 
 # FlashMask block stats are taken per key tile of each kernel (128 keys for

@@ -10,7 +10,9 @@ fused_heads.py:105) runs the pre-pass and the dK/dV and dQ kernels of
 csrc/flash_bwd.cu, which write dq/dk/dv through strides:
 `packed_qkv_attention`'s gradient is one packed dqkv in [dq | dk | dv]
 column order, as `_bwd_call_qkv` emits it (fused_heads.py:400-429), with no
-concatenation. Launches are counted here, apart from flash_attention_fwd's,
+concatenation. float32 views run csrc/flash_fp32.cu's forward and backward
+through the same launchers (fwd.launch_flash_fwd, bwd.launch_flash_bwd).
+Launches are counted here, apart from flash_attention_fwd's,
 the pre-pass's and the dK/dV and dQ entries'. On CPU
 tensors the plain versions :func:`fused_heads_fwd_ref` and
 :func:`fused_heads_bwd_ref` run.

@@ -23,8 +23,12 @@ is bwd.py, joined to this forward by interface.py's autograd function.
 FP8 e4m3 q/k/v with (b, hk) descales (:func:`flash_fwd_fp8`, forward only,
 as in the TPU package) run the kernel's e4m3 instantiation, with causal,
 windows, softcap, GQA and the LSE; it takes no bias, mask, segment ids or
-dropout. Dropout raises NotImplementedError until slice 6; fp16 and fp32
-inputs on the card until the fp32 kernels (:data:`common.SLICE_DTYPES`).
+dropout. float32 q/k/v on the card run csrc/flash_fp32.cu (full fp32 on the
+CUDA cores; :func:`flash_fwd_fp32`, and through :func:`launch_flash_fwd`
+the packed layout) with causal, windows, softcap, GQA and the LSE; under a
+FlashMask, block mask, segment ids, positions or a bias they raise
+NotImplementedError, as fp16 does (:data:`common.SLICE_DTYPES`). Dropout
+raises NotImplementedError until slice 6.
 """
 
 from __future__ import annotations
@@ -40,11 +44,13 @@ from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, KernelMasks, cdiv,
 from .reference import attention_fp8_ref
 
 __all__ = ["attention_fwd_ref", "bias_c_args", "bias_view", "build_masks",
-           "flash_attention_fwd", "flash_fwd_fp8", "fwd_masked_tile_plan",
-           "fwd_schedule", "fwd_tile_plan", "key_window_plan",
+           "flash_attention_fwd", "flash_fwd_fp32", "flash_fwd_fp8",
+           "fp32_window", "fwd_masked_tile_plan", "fwd_schedule",
+           "fwd_tile_plan", "key_window_plan", "launch_flash_fwd_fp32",
            "masked_row_block_plan"]
 
 FP8 = torch.float8_e4m3fn
+F32 = torch.float32
 
 # Tiles of the dense (unmasked) kernel, csrc/flash_fwd.cu kTileM / kTileN:
 # query rows per block and keys per tile.
@@ -385,6 +391,13 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     them. ``bias``: a (bb, bh, sq, sk) fp32 or bf16 bias (:func:`bias_view`)
     or None; it runs the bias instantiation, and takes no FlashMask or
     block mask. The callers count the launch."""
+    if q.dtype == F32:
+        if tile_counts is not None:
+            raise ValueError("the fp32 kernel visits every tile: no tile_counts")
+        launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale,
+                              window=fp32_window(masks, causal, bias),
+                              softcap=softcap)
+        return
     tensors = [t for t in (q, k, v, out, lse, bias) if t is not None]
     if masks is not None:
         tensors += masks.tensors()
@@ -430,6 +443,95 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
         _cuda.ptr(masks.bands() if masked else None), _cuda.ptr(counters),
         *bias_args, _cuda.stream())
     _cuda.check(code, "flash_fwd")
+
+
+def fp32_window(masks: Optional[KernelMasks], causal: bool, bias=None):
+    """The (left, right) window of the fp32 kernels (-1 no bound, causal
+    right 0) for the flags ``masks`` carries; ``NotImplementedError`` under
+    a FlashMask, block mask, segment ids, positions or a bias, which the
+    fp32 kernels do not take (:data:`common.SLICE_DTYPES`)."""
+    if bias is not None or (masks is not None and masks.tensors()):
+        raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
+    if masks is None:
+        return -1, 0 if causal else -1
+    return masked_window(masks, causal)
+
+
+def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
+                          softcap: float, paged=None) -> None:
+    """Launch csrc/flash_fp32.cu's forward on (b, h, s, d) float32 views of
+    any strides (head dim contiguous; pointers and strides multiples of 16
+    bytes, 4 elements: ``ValueError`` otherwise): q, out (b, h, sq, d); k,
+    v (b, hk, sk, d); lse (b, h, sq) fp32 contiguous or None; ``window``
+    (left, right), -1 no bound, causal as right 0. ``paged``: (kv_pages
+    (P, hk, 2, ps, d) fp32 contiguous, page_table (b, npp) int32, lengths
+    (b,) int32) in place of k and v (None): each sequence's keys through
+    its page table, its rows the last sq of its lengths[b] keys (the
+    prefill regime of inference/paged.py on fp32 pages). The callers count
+    the launch."""
+    b, h, sq, d = q.shape
+    table = lengths = None
+    ps = npp = num_pages = 0
+    if paged is not None:
+        pages, table, lengths = paged
+        num_pages, hk, _, ps, _ = pages.shape
+        npp = table.shape[1]
+        k = v = pages
+        sk, kstr, vstr = npp * ps, (0, 0, 0), (0, 0, 0)
+        if not pages.is_contiguous() or pages.shape[4] != d:
+            raise ValueError("kv_pages must be contiguous (P, hk, 2, ps, d)")
+        for t, name in ((table, "page_table"), (lengths, "lengths")):
+            if t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous int32")
+    else:
+        hk, sk = k.shape[1], k.shape[2]
+        kstr, vstr = k.stride()[:3], v.stride()[:3]
+        if v.shape != k.shape or k.shape[3] != d:
+            raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                             f"v {tuple(v.shape)}")
+    _cuda.require_cuda(*(t for t in (q, k, v, out, lse, table, lengths)
+                         if t is not None))
+    if any(t.dtype != F32 for t in (q, k, v, out)):
+        raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
+    if d not in (64, 128):
+        raise NotImplementedError(f"head dim {d}: the kernel takes 64 or 128")
+    if h % hk or out.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} out {tuple(out.shape)}, "
+                         f"{hk} kv heads")
+    if lse is not None and (lse.shape != (b, h, sq) or not lse.is_contiguous()
+                            or lse.dtype != F32):
+        raise ValueError("lse must be a contiguous fp32 (b, h, sq) tensor")
+    for t, name in ((q, "q"), (out, "out"), (k, "k"), (v, "v")):
+        _cuda.require_aligned(t, 4, name)
+    code = _cuda.lib().xfa_flash_fwd_fp32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _cuda.ptr(lse), *q.stride()[:3], *kstr, *vstr, *out.stride()[:3],
+        b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
+        int(window[0]), int(window[1]), _cuda.ptr(table), _cuda.ptr(lengths),
+        ps, npp, num_pages, _cuda.stream())
+    _cuda.check(code, "flash_fwd_fp32")
+
+
+def flash_fwd_fp32(q, k, v, *, sm_scale: float, window=(-1, -1),
+                   softcap: float = 0.0, need_lse: bool = True):
+    """The fp32 forward (csrc/flash_fp32.cu) on (b, h, s, d) float32 views
+    on the card: q (b, h, sq, d), k/v (b, hk, sk, d); ``window`` (left,
+    right) as :func:`fp32_window` gives it. Returns (out (b, h, sq, d)
+    fp32, allocated in (b, sq, h, d) memory order as
+    :func:`flash_attention_fwd` does, lse (b, h, sq) fp32 | None).
+
+    ``flash_fwd_fp32.launches`` counts kernel launches."""
+    b, h, sq, d = q.shape
+    out = torch.empty(b, sq, h, d, dtype=F32, device=q.device).transpose(1, 2)
+    lse = (torch.empty(b, h, sq, dtype=F32, device=q.device)
+           if need_lse else None)
+    launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale, window=window,
+                          softcap=softcap)
+    flash_fwd_fp32.launches += 1
+    return out, lse
+
+
+flash_fwd_fp32.launches = 0
 
 
 def fp8_descale_arg(x, b: int, hk: int, device):
@@ -622,8 +724,12 @@ def flash_attention_fwd(
     ``q_descale`` / ``k_descale`` / ``v_descale`` (None: ones); out is then
     bf16, and bias, dropout and the mask flags raise ``ValueError``.
 
+    float32 q/k/v on the card run :func:`flash_fwd_fp32` (causal, windows,
+    softcap, GQA); with any other flag or a bias ``NotImplementedError``.
+
     ``flash_attention_fwd.launches`` counts the bf16 kernel's launches,
-    ``flash_fwd_fp8.launches`` the e4m3 instantiation's.
+    ``flash_fwd_fp8.launches`` the e4m3 instantiation's,
+    ``flash_fwd_fp32.launches`` the fp32 kernel's.
     """
     if FP8 in (q.dtype, k.dtype, v.dtype):
         if masks is not None:  # made by the autograd entry: a window at most
@@ -655,6 +761,10 @@ def flash_attention_fwd(
         return attention_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
                                  softcap=softcap, need_lse=need_lse,
                                  mask=masks.keep(h), bias=bias)
+    if q.dtype == F32:
+        return flash_fwd_fp32(q, k, v, sm_scale=sm_scale,
+                              window=fp32_window(masks, causal, bias),
+                              softcap=softcap, need_lse=need_lse)
     out = torch.empty(b, sq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
