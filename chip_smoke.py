@@ -141,19 +141,21 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      dtype="float32")` at full width and depth for 4 steps at the largest
      batch of 32, 16, 8 that fits (a smaller one printed as a cut): step
      ms, tokens/s, peak memory, exact launches of fp32 #5 / #6 and the
-     pre-pass, no plain version; at depth 2 the loss and every gradient
-     through the kernels, the fp32 and the float64 plain versions under
-     phase 18's gate.
+     pre-pass, no plain version; phase 10's table for one more step
+     (device ms by group, the idle share); at depth 2 the loss and every
+     gradient through the kernels, the fp32 and the float64 plain versions
+     under phase 18's gate.
 Phase 3 also holds the fp32 kernels (csrc/flash_fp32.cu, the pre-pass's
 fp32 instantiation and the fp32 decode paths): #1 at G's prefill and #5 at
 T-packed's attention, the whole backward at both shapes (three passes
-bitwise equal), #4 and #9 on fp32 caches at G's decode shape, #10 / #11 on
-fp32 pages at G's and at the Llama-3-8B engine's shapes (decode and
-chunked prefill at sq 512); out and every gradient against float64 within
-twice the fp32 plain version's error plus 1e-4, the decode paths against
-their plain versions within 1e-5 of the largest output; SDPA in fp32 (TF32
-off, printed) beside each with its own error; bound max(3 FLOPs / 495e12,
-bytes / 3.35e12).
+bitwise equal; beside each gradient's error against float64 that of
+reference.py's emulation of its three TF32 products), #4 and #9 on fp32
+caches at G's decode shape, #10 / #11 on fp32 pages at G's and at the
+Llama-3-8B engine's shapes (decode and chunked prefill at sq 512); out and
+every gradient against float64 within twice the fp32 plain version's error
+plus 1e-4, the decode paths against their plain versions within 1e-5 of the
+largest output; SDPA in fp32 (TF32 off, printed) beside each with its own
+error; bound max(3 FLOPs / 495e12, bytes / 3.35e12).
 Phase 3 also holds the backward kernels (the attention backward's
 pre-pass, dK/dV and dQ at T-long's and at Llama-3-8B width's attention,
 the packed dqkv entry at T-packed's, the norm backward) and the
@@ -1149,10 +1151,13 @@ KERNEL_GROUPS = (  # device kernel name fragment -> group
     ("flash_decode_kernel", "flash_decode"),
     ("flash_fwd_kernel", "flash_fwd"),
     ("flash_fwd_fp8_kernel", "flash_fwd"),
+    ("flash_fwd_fp32_kernel", "flash_fwd"),
     ("flash_bwd_prep_kernel", "attention bwd"),
     ("flash_bwd_dkv_kernel", "attention bwd"),
+    ("flash_bwd_dkv_fp32_kernel", "attention bwd"),
     ("flash_bwd_dbias_kernel", "attention bwd"),
     ("flash_bwd_dq_kernel", "attention bwd"),
+    ("flash_bwd_dq_fp32_kernel", "attention bwd"),
     ("ln_fwd_kernel", "rms_norm_add"),
     ("ln_bwd_kernel", "norm bwd"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("xmma", "matmul"),
@@ -3422,11 +3427,13 @@ def train_breakdown(trainer, name):
                              else "not measured (no kernels under the "
                                   "range); inside other")}
     print(f"  training step breakdown: {json.dumps(out)}", flush=True)
-    print(f"  {name}: attention fwd {groups.get('attention fwd', 0.0):.1f} "
-          f"ms of the step (mma.sync forward: "
-          f"{MMA_SYNC_TRAINING[name]['attention_fwd_ms']}), attention bwd "
-          f"{groups.get('attention bwd', 0.0):.1f} ms (mma.sync backward: "
-          f"{MMA_SYNC_BWD_TRAINING[name]['attention_bwd_ms']})", flush=True)
+    if name in MMA_SYNC_TRAINING:
+        print(f"  {name}: attention fwd {groups.get('attention fwd', 0.0):.1f}"
+              f" ms of the step (mma.sync forward: "
+              f"{MMA_SYNC_TRAINING[name]['attention_fwd_ms']}), attention bwd"
+              f" {groups.get('attention bwd', 0.0):.1f} ms (mma.sync "
+              f"backward: {MMA_SYNC_BWD_TRAINING[name]['attention_bwd_ms']})",
+              flush=True)
     check(busy > 0, f"{name}: the profiler saw no device time")
     return out
 
@@ -4114,6 +4121,8 @@ def check_fp32_bwd(gen, label, shape, packed):
     kernel)."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         bwd, fused_heads as fh, fwd)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import (
+        attention_bwd_tf32x3)
     b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
     kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
     if packed:
@@ -4138,14 +4147,26 @@ def check_fp32_bwd(gen, label, shape, packed):
     p_grads = bwd.attention_bwd_ref(qt, kt, vt, ot, lse, dot, **kw)
     err = max(max_err(g, p) for g, p in zip(grads, p_grads))
     del p_grads
-    # the fp32 plain path end to end (its own forward) and float64, batch 0
+    # the fp32 plain path end to end (its own forward) and float64, batch
+    # 0; beside them reference.py's emulation of the kernels' three TF32
+    # products on the plain forward's out and LSE
     one = [t[:1] for t in (qt, kt, vt, dot)]
     p_out, p_lse = fwd.attention_fwd_ref(*one[:3], need_lse=True, **kw)
     p_one = bwd.attention_bwd_ref(*one[:3], p_out, p_lse, one[3], **kw)
     want = attention64_grads(*one, **kw)[2:]
-    worst = max(fp32_contract(f"{label} {n}", g[:1], p, w)
-                for n, g, p, w in zip(("dq", "dk", "dv"), grads, p_one, want))
-    del p_one, want
+    s1 = one[0].shape[2]
+    keep = torch.ones(s1, s1, dtype=torch.bool, device="cuda").tril()
+    emul = attention_bwd_tf32x3(*one[:3], p_out, p_lse, one[3],
+                                sm_scale=kw["sm_scale"], mask=keep)
+    errs = []
+    for n, g, p, e, w in zip(("dq", "dk", "dv"), grads, p_one, emul, want):
+        errs.append((n,) + fp32_contract(f"{label} {n}", g[:1], p, w)
+                    + (max_err(e, w),))
+    worst = max(e[1:3] for e in errs)
+    del p_one, want, emul
+    emul_note = ", ".join(f"{n} kernel {e:.3g} (three-product emulation "
+                          f"{e3:.3g}, fp32 plain {ep:.3g})"
+                          for n, e, ep, e3 in errs)
     _bitwise_three_passes(lambda: [g.clone() for g in run()],
                           f"fp32 attention backward at {label}")
     pair = 2.0 * b * h * s * s * d / 2
@@ -4157,7 +4178,8 @@ def check_fp32_bwd(gen, label, shape, packed):
     library = _sdpa_bwd_ms(qt, kt, vt, dot)
     src = "xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu"
     note = (f"vs the fp32 plain backward; vs float64 on batch 0: worst "
-            f"{worst[0]:.3g} <= 2 x fp32 plain {worst[1]:.3g} + 1e-4; three "
+            f"{worst[0]:.3g} <= 2 x fp32 plain {worst[1]:.3g} + 1e-4 "
+            f"({emul_note}); three "
             f"passes bitwise equal; b{b} h{h} hk{hk} s{s} d{d} causal; "
             "plain_ms and library_ms (SDPA fp32 fwd + bwd minus fwd) of the "
             "whole backward")
@@ -4749,6 +4771,8 @@ def train_packed_fp32(seed):
             torch.cuda.empty_cache()
             BATCH_CUT[name] = BATCH_CUT.get(name, 0) + 1
             check(BATCH_CUT[name] <= 2, f"{name}: batch 8 does not fit")
+        # phase 10's table for this step: device ms by group, idle share
+        train_breakdown(trainer, name)
         del trainer
         gc.collect()
         torch.cuda.empty_cache()

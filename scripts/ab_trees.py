@@ -20,7 +20,13 @@ arguments made once); in trees whose chip_smoke.py has phase 14, the
 forward, dK/dV, dQ and dbias kernels with an attention bias at its cases
 (``--bias-only``: those alone); in trees whose chip_smoke.py has phase 15,
 the fp8 forward (``flash_attn_fp8_func``) at its timed cases
-(``--fp8-only``: those alone). CUDA events after a warm-up. The trees
+(``--fp8-only``: those alone); with ``--fp32-only``, the fp32 backward
+alone (csrc/flash_fp32.cu's dK/dV and dQ after the pre-pass) at G's shape
+(b4 h25 s896 d64 causal; whole through ``flash_attention_bwd``, the
+pre-pass and each kernel) and at T-packed's (b32 s1024 h16 d64 causal;
+whole through ``fused_heads_bwd`` on the packed layout, and each kernel on
+its strides), with SDPA's fp32 backward beside each (TF32 off). CUDA
+events after a warm-up. The trees
 run first to last, then last to first. Prints the card's name and power
 limit first.
 """
@@ -73,6 +79,47 @@ def fp8_rows(cs, timed):
         torch.cuda.empty_cache()
 
 
+def fp32_rows(cs, bwd, fh, fwd, timed, out):
+    """The fp32 backward at G's and T-packed's shapes: whole, pre-pass,
+    dK/dV and dQ, and SDPA's fp32 backward (forward and backward minus
+    forward)."""
+    import torch
+    for name, packed in (("G", False), ("T-packed", True)):
+        shape = cs.G_ATTN if name == "G" else cs.T_PACKED
+        b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+        if packed:
+            qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=gen,
+                              device="cuda")
+            q, k, v = fh._split(qkv, h, hk, d)
+            do = torch.randn(b, s, h, d, generator=gen, device="cuda")
+            o, lse = fh.fused_heads_fwd(q, k, v, need_lse=True, **kw)
+            dst = dict(zip(("dq", "dk", "dv"),
+                           fh._split(torch.empty_like(qkv), h, hk, d)))
+            timed(f"fp32 bwd whole {name}", lambda: fh.fused_heads_bwd(
+                q, k, v, o, lse, do, **kw, **dst), iters=10)
+            qt, kt, vt, dot, ot = (t.transpose(1, 2) for t in (q, k, v, do, o))
+            grads = [dst[n].transpose(1, 2) for n in ("dq", "dk", "dv")]
+        else:
+            qt, kt, vt, dot = cs._fp32_inputs(gen, shape)
+            ot, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **kw)
+            timed(f"fp32 bwd whole {name}", lambda: bwd.flash_attention_bwd(
+                qt, kt, vt, ot, lse, dot, **kw), iters=10)
+            grads = [torch.empty_like(t) for t in (qt, kt, vt)]
+        timed(f"fp32 prep {name}", lambda: bwd.flash_bwd_prep(
+            qt, ot, dot, sm_scale=kw["sm_scale"]))
+        qs, delta = bwd.flash_bwd_prep(qt, ot, dot, sm_scale=kw["sm_scale"])
+        kw32 = dict(sm_scale=kw["sm_scale"], window=(-1, 0), softcap=0.0)
+        for which, fn in (("dkv", bwd.flash_bwd_dkv_fp32),
+                          ("dq", bwd.flash_bwd_dq_fp32)):
+            timed(f"fp32 {which} {name}", lambda fn=fn: fn(
+                qs, kt, vt, dot, lse, delta, *grads, **kw32), iters=10)
+        out.append(f"fp32 sdpa bwd {name} {cs._sdpa_bwd_ms(qt, kt, vt, dot):.4f}")
+        del qt, kt, vt, dot, ot, lse, qs, delta, grads
+        torch.cuda.empty_cache()
+
+
 def child(root: Path, only: str = "") -> None:
     sys.path.insert(0, str(root))
     import torch
@@ -90,8 +137,12 @@ def child(root: Path, only: str = "") -> None:
         out.append(f"{label} {cs.time_ms([fn], iters=iters):.4f}")
 
     if only:
-        (bias_rows(cs, bwd, fwd, timed) if only == "bias"
-         else fp8_rows(cs, timed))
+        if only == "bias":
+            bias_rows(cs, bwd, fwd, timed)
+        elif only == "fp8":
+            fp8_rows(cs, timed)
+        else:
+            fp32_rows(cs, bwd, fh, fwd, timed, out)
         print(f"{root}: " + "; ".join(out), flush=True)
         return
     for name, (b, h, hk, s, d) in (("A", (2, 32, 8, 2048, 128)),
@@ -195,9 +246,12 @@ def main():
                     help="time phase 14's bias rows alone")
     ap.add_argument("--fp8-only", action="store_true",
                     help="time phase 15's fp8 rows alone")
+    ap.add_argument("--fp32-only", action="store_true",
+                    help="time the fp32 backward alone")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    only = "bias" if args.bias_only else "fp8" if args.fp8_only else ""
+    only = ("bias" if args.bias_only else "fp8" if args.fp8_only
+            else "fp32" if args.fp32_only else "")
     if args.child:
         child(Path(args.child), only)
         return

@@ -21,7 +21,9 @@ stands beside `<...>` of the first when the first has no such name. The
 last line counts the pairs with the same opcodes and those that differ. Last, the second tree's
 e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
 true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
-the script exits non-zero.
+the script exits non-zero; and the second tree's fp32 backward kernels
+(`flash_bwd_dkv_fp32_kernel`, `flash_bwd_dq_fp32_kernel`): each must issue
+`HGMMA ... TF32` and spill nothing, else the script exits non-zero.
 Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
 """
 
@@ -38,6 +40,7 @@ KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)(_fp32)?|flash_bwd_(dbias|prep
 # trailing template arguments a kernel gained, at the old behaviour
 OLD_BEHAVIOUR = (", false>", ", __nv_bfloat16>")
 E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
+FP32_BWD = re.compile(r"flash_bwd_(dkv|dq)_fp32_kernel<[^>]*>")
 
 
 def matched(first, second):
@@ -90,22 +93,25 @@ def ptxas(lib: Path):
 
 
 def sass(lib: Path):
-    """{kernel: [opcodes]} of the library's SASS."""
+    """({kernel: [opcodes]}, {kernel: HGMMA instructions on TF32}) of the
+    library's SASS."""
     txt = subprocess.run(["cuobjdump", "-sass", str(lib)], check=True,
                          capture_output=True, text=True).stdout
-    funcs, cur = {}, None
+    funcs, tf32, cur = {}, {}, None
     for line in txt.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            funcs[cur] = []
+            funcs[cur], tf32[cur] = [], 0
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if cur and m:
             funcs[cur].append(m.group(2))
+            tf32[cur] += m.group(2).startswith("HGMMA") and "TF32" in line
     names = list(funcs)
-    return {KERNELS.search(d).group(0): funcs[n]
-            for n, d in zip(names, demangle(names)) if KERNELS.search(d)}
+    found = [(KERNELS.search(d), n) for n, d in zip(names, demangle(names))]
+    return ({k.group(0): funcs[n] for k, n in found if k},
+            {k.group(0): tf32[n] for k, n in found if k})
 
 
 def main():
@@ -113,7 +119,8 @@ def main():
     if len(roots) != 2:
         raise SystemExit("give two tree roots")
     libs = [build(r) for r in roots]
-    reports, codes = [ptxas(lib) for lib in libs], [sass(lib) for lib in libs]
+    reports = [ptxas(lib) for lib in libs]
+    codes, tf32 = zip(*(sass(lib) for lib in libs))
     pairs = matched(codes[0], codes[1])
     pairs.update({n: n for n in codes[0] if n not in pairs.values()})
     tally = {"same": 0, "differ": 0, "new": 0}
@@ -142,6 +149,14 @@ def main():
             print(f"{name}: {kinds}", flush=True)
             if not kinds["QGMMA"]:
                 raise SystemExit(f"{name} has no QGMMA")
+    for name in sorted(codes[1]):
+        if FP32_BWD.fullmatch(name):
+            report = reports[1].get(name) or ""
+            print(f"{name}: {tf32[1][name]} HGMMA on TF32; {report}", flush=True)
+            if not tf32[1][name]:
+                raise SystemExit(f"{name} issues no TF32 HGMMA")
+            if "spills 0/0 B" not in report:
+                raise SystemExit(f"{name} spills: {report}")
 
 
 if __name__ == "__main__":

@@ -2077,6 +2077,7 @@ FP32_CASES = [  # sq, sk, causal, window, softcap
     (257, 257, True, (-1, -1), 0.0),
     (257, 257, False, (100, 20), 0.0),
     (257, 257, True, (64, -1), 20.0),
+    (1100, 1100, True, (-1, -1), 0.0),  # the rings wrap many times
 ]
 
 
@@ -2138,12 +2139,13 @@ def test_fp32_backward_is_bitwise_deterministic(cuda, d):
         assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
 
 
+@pytest.mark.parametrize("s", [257, 640])
 @pytest.mark.parametrize("causal", [True, False])
-def test_fp32_packed_qkv_attention(cuda, causal):
+def test_fp32_packed_qkv_attention(cuda, causal, s):
     """#5 / #6 in fp32: packed_qkv_attention on a (b, s, 3 h d) Wqkv output
     (h d = 1024), forward and the packed dqkv, against float64 under the
     contract; one #5 and one #6 launch."""
-    b, s, h, d = 2, 257, 16, 64
+    b, h, d = 2, 16, 64
     qkv = torch.randn(b, s, 3 * h * d, generator=cuda, device="cuda")
     do = torch.randn(b, s, h * d, generator=cuda, device="cuda")
     before = (fh.fused_heads_fwd.launches, fh.fused_heads_bwd.launches)

@@ -3,8 +3,8 @@
 // register reallocation (setmaxnreg), and the host side they need: tensor
 // maps, the SM count, the dynamic shared-memory limit. The attention
 // forward (flash_fwd.cu) and backward (flash_bwd.cu), the paged prefill
-// (paged_decode.cu) and the reduced scores (reduced_scores.cu) are built
-// from them.
+// (paged_decode.cu), the reduced scores (reduced_scores.cu) and the fp32
+// backward (flash_fp32.cu, on .tf32 wgmma) are built from them.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile is a stack of 128-byte rows (64 bf16), the 16-byte chunk c
@@ -496,6 +496,97 @@ __device__ __forceinline__ void issue_pv_f16(float (&o)[D / 2],
   wgmma_commit();
 }
 
+// ---- tf32 (flash_fp32.cu's backward): fp32 products as three TF32
+// products on wgmma m64nNk8 .tf32, which takes both shared-memory operands
+// K-major only (the .tf32 form has no transpose bit). Its A fragment in
+// registers (PTX ISA, "wgmma .m64nNk8", tf32): with g = lane / 4, t = lane
+// % 4, a[i] holds row 16w + g + 8 (i % 2), column t + 4 (i / 2) of the
+// k-step's 8 columns; the accumulator is laid out as for bf16 (above).
+
+// The tensor cores read a .tf32 operand's 32 bits and ignore the low 13
+// (the mantissa's last 13 bits: truncation, seen on the H100 by
+// scripts/tf32_probe.cu), so a raw fp32 value serves as its own hi part,
+// tf32(x) = x & 0xffffe000. tf32_lo(x) = x - tf32(x) is exact in fp32 and
+// has at most 13 significant bits, of which the tensor cores keep 11: x =
+// hi + lo to within 2^-21 |x|. An infinite x gives a NaN lo (no test: one
+// made the fp32 backward 1.35x slower, scripts/ab_fp32_bwd.py rna_finite
+// against rna). reference.py split_tf32 emulates this.
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(tf32_lo(x));
+}
+
+// D(64 x 16) += A B: A's tf32 fragment in registers, B (tf32) K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n16_tf32(float (&d)[8], const uint32_t* a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 32) += A B: A's tf32 fragment in registers, B (tf32) K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n32_tf32(float (&d)[16], const uint32_t* a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 64) += A B: A's tf32 fragment in registers, B (tf32) K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64_tf32(float (&d)[32], const uint32_t* a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 128) += A B: A's tf32 fragment in registers, B (tf32) K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n128_tf32(float (&d)[64], const uint32_t* a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // ---- host side
 
 // cuTensorMapEncodeTiled, a driver-API call, found through the runtime so
@@ -540,6 +631,27 @@ inline bool encode_bhsd(CUtensorMap* map, const void* ptr, int b, int h, int s, 
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (b, h, s, d) fp32 view with element strides (sb, sh, ss) and a
+// contiguous head dim as a 4-D map (d, s, h, b) with boxes of 32 columns
+// (128 bytes) x `rows` rows, 128-byte swizzled: a row of d 64 is two boxes,
+// of d 128 four. A box past s is filled with zeros on loads, inside its own
+// batch row and head.
+inline bool encode_bhsd_f32(CUtensorMap* map, const void* ptr, int b, int h, int s, int d,
+                            int64_t sb, int64_t sh, int64_t ss, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {s > 1 ? static_cast<cuuint64_t>(ss) * 4 : 16,
+                                 h > 1 ? static_cast<cuuint64_t>(sh) * 4 : 16,
+                                 b > 1 ? static_cast<cuuint64_t>(sb) * 4 : 16};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -20,7 +20,8 @@ bias instantiations read the bias to rebuild P, and dbias, summed over the
 batches and heads that share each bias element, comes from a kernel of its
 own (:func:`flash_bwd_dbias`, csrc/flash_bwd_dbias.cu) in a fixed order,
 with no atomics and no workspace beyond dbias itself. float32 tensors run
-csrc/flash_fp32.cu's dK/dV and dQ kernels (full fp32 on the CUDA cores;
+csrc/flash_fp32.cu's dK/dV and dQ kernels (every product as three TF32
+products on the tensor cores, fp32-accurate, bitwise repeatable;
 :func:`flash_bwd_dkv_fp32`, :func:`flash_bwd_dq_fp32`, and through
 :func:`launch_flash_bwd` the packed layout) after the pre-pass's fp32
 instantiation, with causal, windows, softcap and GQA; other flags raise

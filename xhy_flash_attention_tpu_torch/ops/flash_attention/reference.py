@@ -16,7 +16,8 @@ import torch
 
 __all__ = ["FP8_LSE_TOL", "FP8_OUT_TOL", "attention_fp8_ref",
            "attention_ref", "construct_local_mask", "fp8_ref_errors",
-           "generate_qkv_segment_ids"]
+           "attention_bwd_tf32x3", "generate_qkv_segment_ids",
+           "matmul_tf32x3", "split_tf32", "tf32_trunc"]
 
 
 def construct_local_mask(
@@ -244,3 +245,67 @@ def fp8_ref_errors(out, lse, ref, ref_lse, q, k, q_descale, k_descale,
     lse_err = ((lse[fin] - ref_lse[fin]).abs() - 1e-5 * (1 + ref_lse[fin].abs())
                ) / score[fin]
     return out_err, lse_err.max().item() if lse_err.numel() else 0.0
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` as the H100's tensor cores read a .tf32 operand: its
+    low 13 mantissa bits ignored (truncation toward zero)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_trunc takes float32, not {x.dtype}")
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x`` as the fp32 backward kernels hand an
+    operand to the tensor cores (csrc/hopper.cuh split_tf32): hi is x
+    itself, read as tf32(x); lo = x - tf32(x), exact in fp32, read as
+    tf32(lo). Returns both as the tensor cores read them, float32 values
+    that TF32 holds exactly: x = hi + lo to within 2^-21 |x|. An infinite
+    x keeps it in hi, with a nan lo; a nan gives nan in both."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of float32 tensors as the fp32 backward kernels compute
+    every product: three TF32 products summed in fp32, the small terms
+    apart, (a_lo b_hi + a_hi b_lo) + a_hi b_hi (lo lo dropped). Each
+    partial product is an fp32 matmul of values TF32 holds exactly: its
+    products are exact and its sums rounded (the tensor cores truncate
+    theirs, which the kernels keep short)."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def attention_bwd_tf32x3(q, k, v, out, lse, do, *, sm_scale: float,
+                         softcap: float = 0.0, mask=None,
+                         matmul=matmul_tf32x3):
+    """The fp32 backward's formulas (csrc/flash_fp32.cu) with every product
+    through ``matmul`` (by default the kernels' three TF32 products) on
+    (b, h, s, d) float32 tensors: q_s = q * sm_scale; S = q_s K^T, softcap;
+    P = exp(S - lse), 0 where ``mask`` (a keep mask broadcastable to (b, h,
+    sq, sk), or None) is False; dP = dO V^T; delta = rowsum(dO * out); dS =
+    P (dP - delta) (1 - t^2); dV = P^T dO, dK = dS^T q_s (both summed over
+    each KV head's group), dQ = dS K sm_scale. Returns (dq, dk, dv)."""
+    b, h, sq, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    qs = q * sm_scale
+    kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = matmul(qs, kr.transpose(-1, -2))
+    fac = 1.0
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+        fac = 1.0 - t * t
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dp = matmul(do, vr.transpose(-1, -2))
+    delta = (do * out).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * fac
+    dv = matmul(p.transpose(-1, -2), do).reshape(b, hk, g, -1, d).sum(2)
+    dk = matmul(ds.transpose(-1, -2), qs).reshape(b, hk, g, -1, d).sum(2)
+    dq = matmul(ds, kr) * sm_scale
+    return dq, dk, dv
