@@ -148,8 +148,8 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
 Phase 3 also holds the fp32 kernels (csrc/flash_fp32.cu, the pre-pass's
 fp32 instantiation and the fp32 decode paths): #1 at G's prefill and #5 at
 T-packed's attention, the whole backward at both shapes (three passes
-bitwise equal; beside each gradient's error against float64 that of
-reference.py's emulation of its three TF32 products), #4 and #9 on fp32
+bitwise equal; beside each output's and gradient's error against float64
+that of reference.py's emulation of the three TF32 products), #4 and #9 on fp32
 caches at G's decode shape, #10 / #11 on fp32 pages at G's and at the
 Llama-3-8B engine's shapes (decode and chunked prefill at sq 512); out and
 every gradient against float64 within twice the fp32 plain version's error
@@ -4053,11 +4053,14 @@ def _sdpa_fp32(q, k, v, **kw):
 def check_fp32_fwd(gen, label, shape, packed):
     """#1 in fp32 at ``shape`` (through flash_attention_fwd, or through
     fused_heads_fwd on the packed layout: #5): out and LSE against float64
-    on the first batch element under the contract, against the fp32 plain
-    version on all of it; SDPA in fp32 (TF32 off) timed beside, with its
-    own error against float64. Bound: 3 TF32 products."""
+    on the first batch element under the contract, beside the error of
+    reference.py's emulation of the kernel's three TF32 products, against
+    the fp32 plain version on all of it; SDPA in fp32 (TF32 off) timed
+    beside, with its own error against float64. Bound: 3 TF32 products."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         fused_heads as fh, fwd)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import (
+        attention_fwd_tf32x3)
     b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
     kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
     if packed:
@@ -4081,7 +4084,11 @@ def check_fp32_fwd(gen, label, shape, packed):
     e, e_lp = fp32_contract(f"{label} out", out[:1], p_out[:1], w_out)
     el, el_lp = fp32_contract(f"{label} lse", lse[:1], p_lse[:1], w_lse)
     sdpa_err = max_err(_sdpa_fp32(qt[:1], kt[:1], vt[:1]), w_out)
-    del p_out, p_lse, w_out, w_lse
+    keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    emul = attention_fwd_tf32x3(qt[:1], kt[:1], vt[:1], sm_scale=kw["sm_scale"],
+                                mask=keep)
+    e3, el3 = max_err(emul[0], w_out), max_err(emul[1], w_lse)
+    del p_out, p_lse, w_out, w_lse, emul
     flops = 4.0 * b * h * s * s * d / 2
     nbytes = 4.0 * b * s * d * (2 * h + 2 * hk) + 4.0 * b * h * s
     bms, by = fp32_bound(flops, nbytes)
@@ -4100,14 +4107,15 @@ def check_fp32_fwd(gen, label, shape, packed):
         library_ms=graph_ms([lambda: _sdpa_fp32(qt, kt, vt)], reps=4,
                             replays=5))
     report(row, f"vs the fp32 plain version (out, lse); vs float64 on batch "
-                f"0: out {e:.3g} <= 2 x fp32 plain {e_lp:.3g} + 1e-4, lse "
-                f"{el:.3g} (plain {el_lp:.3g}); SDPA fp32's own error "
+                f"0: out {e:.3g} <= 2 x fp32 plain {e_lp:.3g} + 1e-4 "
+                f"(three-product emulation {e3:.3g}), lse {el:.3g} (plain "
+                f"{el_lp:.3g}, emulation {el3:.3g}); SDPA fp32's own error "
                 f"{sdpa_err:.3g}; {label}: b{b} h{h} hk{hk} s{s} d{d} causal"
                 f"{' packed' if packed else ''}, flops {flops:.4g}, bytes "
-                f"{nbytes:.4g}, {flops / row['ms'] / 1e9:.2f} TFLOP/s "
-                f"({flops / row['ms'] / 1e9 / (PEAK_FP32_FLOPS / 1e12):.3f} "
-                f"of the 67 TFLOP/s FFMA peak); bound 3 TF32 products; ms "
-                "and library_ms from CUDA graphs")
+                f"{nbytes:.4g}, {flops / row['ms'] / 1e9:.2f} TFLOP/s, "
+                f"{bms / row['ms']:.3f} of the bound (3 TF32 products at "
+                f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, by {by}); ms and "
+                "library_ms from CUDA graphs")
     return row
 
 

@@ -20,12 +20,17 @@ arguments made once); in trees whose chip_smoke.py has phase 14, the
 forward, dK/dV, dQ and dbias kernels with an attention bias at its cases
 (``--bias-only``: those alone); in trees whose chip_smoke.py has phase 15,
 the fp8 forward (``flash_attn_fp8_func``) at its timed cases
-(``--fp8-only``: those alone); with ``--fp32-only``, the fp32 backward
-alone (csrc/flash_fp32.cu's dK/dV and dQ after the pre-pass) at G's shape
-(b4 h25 s896 d64 causal; whole through ``flash_attention_bwd``, the
-pre-pass and each kernel) and at T-packed's (b32 s1024 h16 d64 causal;
-whole through ``fused_heads_bwd`` on the packed layout, and each kernel on
-its strides), with SDPA's fp32 backward beside each (TF32 off). CUDA
+(``--fp8-only``: those alone); with ``--fp32-only``, the fp32 kernels
+alone (csrc/flash_fp32.cu): the forward at G's shape (b4 h25 s896 d64
+causal, through ``flash_attention_fwd``), at T-packed's (b32 s1024 h16
+d64 causal, through ``fused_heads_fwd`` on the packed layout) and on
+fp32 pages at G's engine chunk (b8 h25 d64, sq 512, pages of 512, through
+``paged_flash_decode``), each as CUDA graphs of calls (chip_smoke.py
+graph_ms) with SDPA's fp32 forward beside the first two; the backward
+(dK/dV and dQ after the pre-pass) at G's shape (whole through
+``flash_attention_bwd``, the pre-pass and each kernel) and at T-packed's
+(whole through ``fused_heads_bwd`` on the packed layout, and each kernel
+on its strides), with SDPA's fp32 backward beside each (TF32 off). CUDA
 events after a warm-up. The trees
 run first to last, then last to first. Prints the card's name and power
 limit first.
@@ -79,11 +84,59 @@ def fp8_rows(cs, timed):
         torch.cuda.empty_cache()
 
 
-def fp32_rows(cs, bwd, fh, fwd, timed, out):
-    """The fp32 backward at G's and T-packed's shapes: whole, pre-pass,
-    dK/dV and dQ, and SDPA's fp32 backward (forward and backward minus
-    forward)."""
+def fp32_fwd_rows(cs, fh, fwd, out):
+    """The fp32 forward at G's and T-packed's shapes (SDPA fp32 beside)
+    and on fp32 pages at G's engine chunk, as CUDA graphs of calls."""
     import torch
+    from xhy_flash_attention_tpu_torch.inference import paged
+    for name, packed in (("G", False), ("T-packed", True)):
+        shape = cs.G_ATTN if name == "G" else cs.T_PACKED
+        b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+        if packed:
+            qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=gen,
+                              device="cuda")
+            q, k, v = fh._split(qkv, h, hk, d)
+            ms = cs.graph_ms([lambda: fh.fused_heads_fwd(
+                q, k, v, need_lse=True, **kw)], reps=4, replays=5)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        else:
+            qt, kt, vt, _ = cs._fp32_inputs(gen, shape)
+            ms = cs.graph_ms([lambda: fwd.flash_attention_fwd(
+                qt, kt, vt, need_lse=True, **kw)], reps=4, replays=5)
+        sdpa = cs.graph_ms([lambda: cs._sdpa_fp32(qt, kt, vt)], reps=4,
+                           replays=5)
+        out.append(f"fp32 fwd {name} {ms:.4f}; fp32 sdpa fwd {name} "
+                   f"{sdpa:.4f}")
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+    c = cs.G_ENGINE_DECODE
+    b, h, hk, d, sq, ps = c["b"], c["h"], c["hk"], c["d"], 512, 512
+    npp = (max(c["lengths"]) + ps - 1) // ps
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kv = torch.randn(3 * b * npp + 1, hk, 2, ps, d, generator=gen,
+                     device="cuda")
+    perm = torch.randperm(3 * b * npp, generator=gen, device="cuda").to(
+        torch.int32)
+    lengths = torch.tensor(c["lengths"], dtype=torch.int32, device="cuda")
+    caches = [paged.PagedKVCache(kv, perm[i * b * npp:(i + 1) * b * npp]
+                                 .reshape(b, npp).contiguous(), lengths)
+              for i in range(3)]
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda")
+    ms = cs.graph_ms([lambda cache=cache: paged.paged_flash_decode(q, cache)
+                      for cache in caches])
+    out.append(f"fp32 paged prefill G chunk {ms:.4f}")
+    del kv, caches, q
+    torch.cuda.empty_cache()
+
+
+def fp32_rows(cs, bwd, fh, fwd, timed, out):
+    """The fp32 forward (fp32_fwd_rows), then the fp32 backward at G's and
+    T-packed's shapes: whole, pre-pass, dK/dV and dQ, and SDPA's fp32
+    backward (forward and backward minus forward)."""
+    import torch
+    fp32_fwd_rows(cs, fh, fwd, out)
     for name, packed in (("G", False), ("T-packed", True)):
         shape = cs.G_ATTN if name == "G" else cs.T_PACKED
         b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
@@ -247,7 +300,7 @@ def main():
     ap.add_argument("--fp8-only", action="store_true",
                     help="time phase 15's fp8 rows alone")
     ap.add_argument("--fp32-only", action="store_true",
-                    help="time the fp32 backward alone")
+                    help="time the fp32 kernels alone")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = ("bias" if args.bias_only else "fp8" if args.fp8_only

@@ -21,9 +21,10 @@ stands beside `<...>` of the first when the first has no such name. The
 last line counts the pairs with the same opcodes and those that differ. Last, the second tree's
 e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
 true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
-the script exits non-zero; and the second tree's fp32 backward kernels
-(`flash_bwd_dkv_fp32_kernel`, `flash_bwd_dq_fp32_kernel`): each must issue
-`HGMMA ... TF32` and spill nothing, else the script exits non-zero.
+the script exits non-zero; and the second tree's fp32 attention kernels
+(`flash_fwd_fp32_kernel`, `flash_bwd_dkv_fp32_kernel`,
+`flash_bwd_dq_fp32_kernel`): each must issue `HGMMA ... TF32` and spill
+nothing, else the script exits non-zero.
 Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
 """
 
@@ -40,7 +41,7 @@ KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)(_fp32)?|flash_bwd_(dbias|prep
 # trailing template arguments a kernel gained, at the old behaviour
 OLD_BEHAVIOUR = (", false>", ", __nv_bfloat16>")
 E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
-FP32_BWD = re.compile(r"flash_bwd_(dkv|dq)_fp32_kernel<[^>]*>")
+FP32_TF32 = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_fp32_kernel<[^>]*>")
 
 
 def matched(first, second):
@@ -150,7 +151,7 @@ def main():
             if not kinds["QGMMA"]:
                 raise SystemExit(f"{name} has no QGMMA")
     for name in sorted(codes[1]):
-        if FP32_BWD.fullmatch(name):
+        if FP32_TF32.fullmatch(name):
             report = reports[1].get(name) or ""
             print(f"{name}: {tf32[1][name]} HGMMA on TF32; {report}", flush=True)
             if not tf32[1][name]:

@@ -1,19 +1,20 @@
-"""The fp32 backward's arithmetic on the CPU. csrc/flash_fp32.cu's dK/dV
-and dQ kernels compute every product as three TF32 products on the tensor
-cores, which read a .tf32 operand with its low 13 bits dropped: hi =
-tf32(x), lo = tf32(x - hi), lo·hi + hi·lo + hi·hi summed in fp32.
-reference.py emulates the split (``split_tf32``) and the backward with every
-product through ``matmul_tf32x3`` (``attention_bwd_tf32x3``). The same numpy
-inputs go through the emulation, the port's fp32 plain backward, the JAX
-package's fp32 backward (``jax.vjp``, Pallas in interpret mode) and float64
-autograd: dq, dk and dv of the emulation meet the fp32 contract against
-float64 (error at most twice the fp32 plain version's, plus 1e-4), are as
-close to float64 as JAX's fp32 backward under the same contract, and lie
-within 5e-5 of JAX's relative to each gradient's largest entry (fp32 sums
-in another order). Small shapes: head dims 64 and 128, GQA 4 over 1,
-causal, a window and softcap 30, lengths not a multiple of 64. And why
-three products: with one TF32 product the error against float64 is at least
-ten times larger.
+"""The fp32 attention kernels' arithmetic on the CPU. csrc/flash_fp32.cu's
+forward and its dK/dV and dQ kernels compute every product as three TF32
+products on the tensor cores, which read a .tf32 operand with its low 13
+bits dropped: hi = tf32(x), lo = tf32(x - hi), lo·hi + hi·lo + hi·hi summed
+in fp32. reference.py emulates the split (``split_tf32``), and the forward
+and the backward with every product through ``matmul_tf32x3``
+(``attention_fwd_tf32x3``, ``attention_bwd_tf32x3``). The same numpy inputs
+go through the emulation, the port's fp32 plain version, the JAX package's
+fp32 forward and backward (``jax.vjp``, Pallas in interpret mode) and
+float64: out and LSE, or dq, dk and dv, of the emulation meet the fp32
+contract against float64 (error at most twice the fp32 plain version's,
+plus 1e-4), are as close to float64 as JAX's fp32 results under the same
+contract, and lie within 5e-5 of JAX's relative to each result's largest
+entry (fp32 sums in another order). Small shapes: head dims 64 and 128, GQA
+4 over 1, causal, a window and softcap 30, lengths not a multiple of 64.
+And why three products: with one TF32 product the backward's error against
+float64 is at least ten times larger.
 """
 
 import struct
@@ -31,6 +32,7 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd as tbwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd as tfwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import (
     attention_bwd_tf32x3,
+    attention_fwd_tf32x3,
     construct_local_mask,
     matmul_tf32x3,
     split_tf32,
@@ -96,15 +98,21 @@ def _keep(sq, sk, causal, window):
     return ~construct_local_mask(sq, sk, (left, 0 if causal else right))
 
 
-def _attention64_grads(q, k, v, do, sm_scale, softcap, keep):
-    ins = [t.double().requires_grad_() for t in (q, k, v)]
-    qd, kd, vd = ins
-    g = qd.shape[1] // kd.shape[1]
-    s = (qd * sm_scale) @ kd.repeat_interleave(g, 1).transpose(-1, -2)
+def _attention64(q, k, v, sm_scale, softcap, keep):
+    """(out, lse) in float64; rows that see no key give 0 and lse -inf."""
+    g = q.shape[1] // k.shape[1]
+    s = (q.double() * sm_scale) @ k.double().repeat_interleave(
+        g, 1).transpose(-1, -2)
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     s = s.masked_fill(~keep, float("-inf"))
-    out = torch.nan_to_num(torch.softmax(s, -1)) @ vd.repeat_interleave(g, 1)
+    p = torch.nan_to_num(torch.softmax(s, -1))
+    return p @ v.double().repeat_interleave(g, 1), torch.logsumexp(s, -1)
+
+
+def _attention64_grads(q, k, v, do, sm_scale, softcap, keep):
+    ins = [t.double().requires_grad_() for t in (q, k, v)]
+    out, _ = _attention64(*ins, sm_scale, softcap, keep)
     return torch.autograd.grad(out, ins, do.double())
 
 
@@ -143,6 +151,33 @@ def test_tf32x3_backward_meets_the_fp32_contract(d, sq, sk, causal, window,
     for name, e, p, j, w in zip(("dq", "dk", "dv"), emul, plain, jgrads,
                                 want):
         assert e.dtype == torch.float32 and e.shape == w.shape
+        err, err_plain, err_jax = _err(e, w), _err(p, w), _err(j, w)
+        assert err <= 2 * err_plain + 1e-4, (name, err, err_plain)
+        assert err <= 2 * err_jax + 1e-4, (name, err, err_jax)
+        assert _err(e, j) <= 5e-5 * j.abs().max().item(), (name, _err(e, j))
+
+
+@pytest.mark.parametrize("d,sq,sk,causal,window,softcap", CASES)
+def test_tf32x3_forward_meets_the_fp32_contract(d, sq, sk, causal, window,
+                                                softcap):
+    """The forward's emulation: out and the LSE (on the rows that see a
+    key) under the contract against float64, beside the fp32 plain
+    forward and JAX's fp32 forward, and within 5e-5 of JAX's."""
+    arrays, (q, k, v, _, out, lse), keep, kw = _case(
+        d, sq, sk, causal, window, softcap, seed=d + sq + sk)
+    emul = attention_fwd_tf32x3(q, k, v, mask=keep[None, None], **kw)
+    want = _attention64(q, k, v, kw["sm_scale"], softcap, keep)
+    jout, jlse = jflash_attention(
+        *map(jnp.asarray, arrays[:3]), causal=causal, window_size=window,
+        softcap=softcap, return_lse=True)
+    jax_res = [torch.from_numpy(np.array(x, np.float32)) for x in (jout, jlse)]
+    seen = torch.isfinite(want[1])
+    assert seen.any() and torch.equal(torch.isfinite(emul[1]), seen)
+    for name, e, p, j, w in zip(("out", "lse"), emul, (out, lse), jax_res,
+                                want):
+        assert e.dtype == torch.float32 and e.shape == w.shape
+        if name == "lse":
+            e, p, j, w = e[seen], p[seen], j[seen], w[seen]
         err, err_plain, err_jax = _err(e, w), _err(p, w), _err(j, w)
         assert err <= 2 * err_plain + 1e-4, (name, err, err_plain)
         assert err <= 2 * err_jax + 1e-4, (name, err, err_jax)

@@ -1,6 +1,6 @@
-// fp32 attention: the forward in full fp32 on the CUDA cores (FFMA), and the
-// backward's dK/dV and dQ kernels as three TF32 products on the tensor cores
-// (wgmma .tf32), fed by TMA rings.
+// fp32 attention on the tensor cores: the forward, and the backward's dK/dV
+// and dQ kernels, every product as three TF32 products (wgmma .tf32), fed
+// by TMA rings.
 //
 // Replaces, for float32 q/k/v, the TPU kernels
 //   * xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78 `_fwd_kernel`
@@ -24,78 +24,104 @@
 // Backward: P = exp(S - LSE), dP = dO V^T, dS = P (dP - delta) (1 - t^2),
 // dV = P^T dO, dK = dS^T q_s, dQ = dS K sm_scale; dK/dV summed over the
 // g = h / hk heads of a KV head's group in a fixed order. No value is
-// rounded to a narrower type (the backward's TF32 parts, hi and lo, carry
-// each operand to within 2^-21).
+// rounded to a narrower type (the TF32 parts, hi and lo, carry each operand
+// to within 2^-21).
 //
 // Arithmetic. The JAX contract for fp32 (err <= 2 err_lp + 1e-4 against an
 // fp64 reference, err_lp ~ 1e-6, tests/test_flash_attn.py:23-35) rules out
 // a single TF32 product (10 mantissa bits, about three decimal digits).
-//   * Forward: every product an fp32 FFMA on the CUDA cores.
-//   * Backward: every product A B as three TF32 products into fp32
-//     accumulators, A_lo B_hi + A_hi B_lo (into one) and A_hi B_hi (into
-//     another), lo·lo dropped. The tensor cores ignore a .tf32 operand's low
-//     13 bits (truncation; scripts/tf32_probe.cu shows it on the H100), so
-//     the raw fp32 value is its own hi part, x_hi = x & 0xffffe000 as they
-//     read it, and x_lo = x - x_hi, exact in fp32 (hopper.cuh tf32_lo), of
-//     whose 13 significant bits they keep 11: x = hi + lo to within 2^-21
-//     |x|, and lo·lo is below 2^-20 of each product. Rounding with
-//     cvt.rna.tf32.f32 would halve the hi error but made the kernels 1.23-
-//     1.25x slower (scripts/ab_fp32_bwd.py rna; PERF.md §6, PR 16).
-//     reference.py split_tf32 /
-//     matmul_tf32x3 emulate this on the CPU (tests/test_torch_tf32x3.py).
+//   * Every product A B is three TF32 products into fp32 accumulators,
+//     A_lo B_hi + A_hi B_lo (into one) and A_hi B_hi (into another), lo·lo
+//     dropped. The tensor cores ignore a .tf32 operand's low 13 bits
+//     (truncation; scripts/tf32_probe.cu shows it on the H100), so the raw
+//     fp32 value is its own hi part, x_hi = x & 0xffffe000 as they read it,
+//     and x_lo = x - x_hi, exact in fp32 (hopper.cuh tf32_lo), of whose 13
+//     significant bits they keep 11: x = hi + lo to within 2^-21 |x|, and
+//     lo·lo is below 2^-20 of each product. Rounding with cvt.rna.tf32.f32
+//     would halve the hi error but made the backward 1.23-1.25x slower
+//     (scripts/ab_fp32_bwd.py rna; PERF.md §6). reference.py
+//     split_tf32 / matmul_tf32x3 / attention_fwd_tf32x3 /
+//     attention_bwd_tf32x3 emulate this on the CPU
+//     (tests/test_torch_tf32x3.py).
 //   * The tensor cores add a wgmma's products to its accumulator with
 //     truncation too, so a sum kept on them for thousands of products
 //     drifts toward zero (dV 1.9e-4 from float64 at sq 1100, GQA 4, against
 //     5.7e-6 for the fp32 plain version, before this was done): the hi·hi
-//     terms and the small terms sum in two accumulators, and dK, dV and dQ
-//     are taken a tile at a time on the tensor cores and added to fp32
-//     registers with rounding (product_a_smem, issue_a_acc).
+//     terms and the small terms of the long products sum in two
+//     accumulators, and every sum over the tiles (the forward's O over the
+//     keys, dK, dV and dQ) is taken a tile at a time on the tensor cores
+//     and added to fp32 registers with rounding (product_a_smem,
+//     issue_a_acc).
 //
-// Bound on the H100: operations. FFMA peaks at 67 TFLOP/s; TF32 wgmma at
-// 495 TFLOP/s, so the backward's bound is three TF32 products per product
-// at that rate (the `chip_smoke.py` rows state the forward's bound the same
-// way).
+// Bound on the H100: operations, three TF32 products per product at the
+// tensor cores' 495 TFLOP/s (`chip_smoke.py` states each row's bound so).
 //
-// Forward design: blocks of 256 threads (a 16 x 16 grid: ty = tid / 16, tx
-// = tid % 16), tiles of 64 rows by 64 keys in shared memory, rows padded by
-// four floats so that the 16-byte reads of a quarter warp (eight rows) hit
-// every bank once. A thread computes a 4 x 4 part of each score tile, rows
-// 4 ty .. 4 ty + 3 against keys tx, tx + 16, tx + 32, tx + 48, from float4
-// reads along the head dim; the 16 threads of a row group (half a warp)
-// reduce the row max and sum by shuffles; P V reads P back from shared
-// memory, written and read by the same half warp, into a 4 x (D / 16)
-// accumulator per thread. A block is 64 query rows of one (batch, head); K
-// and V tiles come by cp.async, the next K under this tile's softmax and P
-// V, the next V under the next scores.
-//
-// Backward design: flash_bwd.cu's dense backward (persistent CTAs, one per
-// SM, blocks in equal-work pairs, common.cuh pair_block) on .tf32 wgmma.
-// 384 threads: warpgroup 0 is the producer (setmaxnreg.dec): its thread 0
-// issues every TMA load (4-D fp32 maps, hopper.cuh encode_bhsd_f32: boxes of
-// 32 columns = one 128-byte swizzle row, so a row of d 64 is two boxes),
-// and its warps 1-3 are the converters; warpgroups 1 and 2 are consumers of
-// 64 rows each (setmaxnreg.inc). What differs from bf16, and what the
-// design does about it:
+// Common design (from flash_fwd.cu's dense route and flash_bwd.cu):
+// persistent CTAs, one per SM, blocks in equal-work pairs (common.cuh
+// block_pairs / pair_block), 384 threads: warpgroup 0 is the producer
+// (setmaxnreg.dec): its thread 0 issues every TMA load (4-D fp32 maps,
+// hopper.cuh encode_bhsd_f32: boxes of 32 columns = one 128-byte swizzle
+// row, so a row of d 64 is two boxes), and its warps 1-3 are the
+// converters; warpgroups 1 and 2 are consumers of 64 rows or keys each
+// (setmaxnreg.inc). What differs from bf16, and what the design does
+// about it:
 //   * No transpose bit: .tf32 wgmma takes B from shared memory K-major only.
-//     Three products need B with the query or key index contiguous: dV +=
-//     P^T dO and dK += dS^T q_s need dO^T and q_s^T, dQ += dS K needs K^T.
-//     The converters make them in shared memory from the TMA-landed tile.
+//     Four products need B with the query or key index contiguous: O += P V
+//     needs V^T, dV += P^T dO and dK += dS^T q_s need dO^T and q_s^T, dQ +=
+//     dS K needs K^T. The converters make them in shared memory from the
+//     TMA-landed tile.
 //   * The split. A operands are split in registers k-step by k-step (lo =
-//     x - x_hi, two instructions; hi is x itself): the resident tiles (K, V
-//     in dK/dV; q_s, dO in dQ) are read from shared memory as the m64k8
-//     fragment (a[i]: row g + 8 (i % 2), column t + 4 (i / 2)), P^T, dS^T and
-//     dS come from the accumulators. B operands need both parts in shared
-//     memory: the TMA-landed tile is hi, the converters write lo beside it
-//     (and both parts of the transposes), 16 bytes a load or store. Every
-//     product is then an RS wgmma issued three times.
+//     x - x_hi, two instructions; hi is x itself): the resident tiles (q_s
+//     in the forward and dQ, dO in dQ, K and V in dK/dV) are read from
+//     shared memory as the m64k8 fragment (a[i]: row g + 8 (i % 2), column
+//     t + 4 (i / 2)), P, P^T, dS^T and dS come from the accumulators. B
+//     operands need both parts in shared memory: the TMA-landed tile is hi,
+//     the converters write lo beside it (and both parts of the transposes),
+//     16 bytes a load or store. Every product is then an RS wgmma issued
+//     three times.
 //   * P/dS from the accumulators: a thread holds columns 2t and 2t + 1 of
 //     each 8, where the A fragment wants t and t + 4. The fragment takes
 //     them as they are (a = {x[4kk], x[4kk + 2], x[4kk + 1], x[4kk + 3]}),
 //     and the converters write the transposed B rows in the matching
 //     permuted k order: query or key 8j + 2t + e at k position 8j + t + 4e
-//     (convert_item). No shuffle.
+//     (convert_item, convert_vt). No shuffle.
 //   * Shared memory (227 KB) binds: an fp32 tile is twice bf16's, and each
-//     B operand is there twice (hi, lo), three of them also transposed.
+//     B operand is there twice (hi, lo), four of them also transposed.
+//
+// Forward design (flash_fwd_fp32_kernel<D, PAGED, SOFTCAP>): a block is 128
+// query rows of one (batch, head), consumer c owning rows [64c, 64c + 64);
+// blocks in pairs heaviest last (the causal pairs hold equal work). q
+// arrives by TMA into one resident buffer (128 rows: 32 KB at d 64, 64 KB
+// at d 128), and each consumer scales its rows in place (q_s = q sm_scale,
+// rounded as the plain version rounds it) before its first product. K and
+// V come in a ring of 2 stages of L keys (64 at d 64, 32 at d 128); a stage
+// holds K (landed: its hi), K lo, V (landed), V^T hi and V^T lo, 16 KB each
+// (80 KB; 192 KB in all at d 64, 224 KB at d 128). The producer issues a
+// block's first two tiles before its q (the ring runs on across blocks, so
+// only q's latency is left between blocks). The key tiles are those of the
+// block's rows under the window (fwd_block); a consumer whose rows see
+// none of a tile passes it by, and only tiles that some row of the
+// consumer does not see whole take the elementwise test. Per tile, each
+// consumer runs S = q_s K^T (k-steps issued in chunks of 8, its two
+// accumulators added at the end); the online softmax in registers (ex2 with
+// log2(e) folded in, tanhf for softcap; fwd_softmax); then P V on the
+// tensor cores with P's fragment from S and V^T from the stage, waited for
+// and added to O in fp32 registers after O's rescale (the drift above).
+// The two consumers interleave on the tensor cores. The epilogue divides O
+// by the row sum as the plain version does and stores it with plain stores
+// from the registers, which take any strides (#5's packed layout
+// included); the LSE by one thread per row. Paged K/V (PAGED): the tiles'
+// keys through the page table, clamped pages; by TMA through a 5-D map over
+// the pages (hopper.cuh encode_pages, fp32) when the page size is a
+// multiple of L (a tile inside one page), else by cp.async from the
+// converters into the same swizzled layout; V's keys at or past the row's
+// length are written to V^T as zeros (a page's other rows may hold
+// anything, and 0 · NaN would reach O).
+//
+// Backward design: flash_bwd.cu's dense backward (persistent CTAs, one per
+// SM, blocks in equal-work pairs, common.cuh pair_block) on .tf32 wgmma,
+// with the common design above.
+//   * Shared memory:
 //     - dK/dV, d 64: a block is 128 keys, consumer c owning keys [64c, 64c
 //       + 64); K and V raw (64 KB, one buffer: the next block's load waits
 //       for this block's end); a ring of 2 stages of 32 query rows of one
@@ -132,335 +158,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;        // rows and keys of a tile
-constexpr int kPad = 4;          // floats of padding per shared-memory row
-constexpr int kLdP = kTile + kPad;
-
-template <int D>
-constexpr int kLd = D + kPad;
-
-using xfa::cp_async16;
-using xfa::cp_async_commit;
-using xfa::cp_async_wait;
-
-struct Fp32Params {
-  const float* q;  // (b, h, sq, d) by strides
-  const float* k;  // (b, hk, sk, d) by strides, or pages (P, hk, 2, ps, d)
-  const float* v;
-  float* out;      // (b, h, sq, d) by strides
-  float* lse_out;  // (b, h, sq) contiguous, or null
-  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int h, hk, sq, sk;
-  float sm_scale, softcap;
-  int left, right;  // the window, -1 no bound; causal is right 0
-  // paged K/V (PAGED): key j of batch row b at row j % ps of page
-  // table[b * npp + j / ps] (clamped); lengths[b] keys, of which the last
-  // sq are the queries (off = lengths[b] - sq)
-  const int* table;
-  const int* lengths;
-  int ps, npp, num_pages;
-};
-
-// The keys of batch row `b` (min(length, capacity) when paged) and the
-// causal offset of its rows.
-template <bool PAGED>
-__device__ __forceinline__ void seq_bounds(const Fp32Params& p, int b, int& sk, int& off) {
-  if constexpr (PAGED) {
-    const int len = p.lengths[b];
-    sk = min(len, p.npp * p.ps);
-    off = len - p.sq;
-  } else {
-    sk = p.sk;
-    off = p.sk - p.sq;
-  }
-}
-
-__device__ __forceinline__ bool visible(int r, int j, int off, int sk, int left, int right) {
-  return j < sk && j >= 0 && (right < 0 || j <= r + off + right) &&
-         (left < 0 || j >= r + off - left);
-}
-
-// 64 rows of D floats into shared memory (row stride kLd<D>) by cp.async;
-// rows at or past n_valid are zero-filled. row(r) is the global address of
-// row r (called for r < n_valid only).
-template <int D, typename Row>
-__device__ __forceinline__ void load_rows(float* dst, int n_valid, Row row) {
-  constexpr int kChunks = D / 4;
-#pragma unroll
-  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = r < n_valid;
-    cp_async16(dst + r * kLd<D> + c, row(ok ? r : 0) + c, ok);
-  }
-}
-
-// acc[i][j] += A[4 ty + i] . B[tx + 16 j] over D (rows of A and B in shared
-// memory, stride kLd<D>), the sums in order of the head dim
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A, const float* B,
-                                         int ty, int tx) {
-#pragma unroll 4
-  for (int e = 0; e < D; e += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * kLd<D> + e);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * kLd<D> + e);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-}
-
-// acc[i][4 c + e] += sum_j P[4 ty + i][j] V[j][64 c + 4 tx + e] over the
-// tile's 64 keys in order (P stride kLdP, V stride kLd<D>)
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&acc)[4][D / 16], const float* P, const float* V,
-                                        int ty, int tx) {
-  constexpr int kC = D / 64;
-#pragma unroll 2
-  for (int j = 0; j < kTile; j += 4) {
-    float4 pr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kLdP + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float4 vr[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-        vr[c] = *reinterpret_cast<const float4*>(V + (j + jj) * kLd<D> + 64 * c + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pj = jj == 0 ? pr[i].x : jj == 1 ? pr[i].y : jj == 2 ? pr[i].z : pr[i].w;
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          acc[i][4 * c] = fmaf(pj, vr[c].x, acc[i][4 * c]);
-          acc[i][4 * c + 1] = fmaf(pj, vr[c].y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(pj, vr[c].z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(pj, vr[c].w, acc[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-}
-
-// max and sum over the 16 threads of a row group (lanes tx of one ty)
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float softcapped(float s, float cap, float& t) {
-  if (cap > 0.f) {
-    t = tanhf(s / cap);
-    return t * cap;
-  }
-  t = 0.f;
-  return s;
-}
-
-// ------------------------------------------------------------------ forward
-
-template <int D>
-struct FwdSmem {
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile * kLd<D>;
-  static constexpr int kV = kK + kTile * kLd<D>;
-  static constexpr int kP = kV + kTile * kLd<D>;
-  static constexpr int kBytes = (kP + kTile * kLdP) * 4;
-};
-
-template <int D, bool PAGED>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
-    flash_fwd_fp32_kernel(const Fp32Params p) {
-  using S = FwdSmem<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem + S::kQ;
-  float* k_s = smem + S::kK;
-  float* v_s = smem + S::kV;
-  float* p_s = smem + S::kP;
-  const int m0 = blockIdx.x * kTile, head = blockIdx.y, b = blockIdx.z;
-  const int kh = head / (p.h / p.hk);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  int sk, off;
-  seq_bounds<PAGED>(p, b, sk, off);
-
-  // the key tiles any row of the block sees
-  const int r1 = min(m0 + kTile, p.sq) - 1;
-  int kmax = sk - 1, kmin = 0;
-  if (p.right >= 0) kmax = min(kmax, r1 + off + p.right);
-  if (p.left >= 0) kmin = max(kmin, m0 + off - p.left);
-  const int t_lo = kmin / kTile;
-  const int n_tiles = kmax >= kmin ? kmax / kTile - t_lo + 1 : 0;
-
-  const float* qb = p.q + b * p.q_sb + head * p.q_sh;
-  // key j's row of K (which 0) or V (1)
-  auto key_row = [&](int which, int j) -> const float* {
-    if constexpr (PAGED) {
-      const int page = min(max(p.table[static_cast<int64_t>(b) * p.npp + j / p.ps], 0),
-                           p.num_pages - 1);
-      return p.k + ((static_cast<int64_t>(page) * p.hk + kh) * 2 + which) * p.ps * D +
-             static_cast<int64_t>(j % p.ps) * D;
-    } else {
-      return which == 0 ? p.k + b * p.k_sb + kh * p.k_sh + j * p.k_ss
-                        : p.v + b * p.v_sb + kh * p.v_sh + j * p.v_ss;
-    }
-  };
-  auto load_kv = [&](int which, int t) {
-    const int n0 = (t_lo + t) * kTile;
-    load_rows<D>(which == 0 ? k_s : v_s, min(kTile, sk - n0),
-                 [&](int r) { return key_row(which, n0 + r); });
-  };
-
-  // q_s = q * sm_scale, rounded to fp32 as the plain version rounds it
-  load_rows<D>(q_s, min(kTile, p.sq - m0), [&](int r) { return qb + (m0 + r) * p.q_ss; });
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
-  if (n_tiles > 0) load_kv(1, 0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    float* x = q_s + (i / D) * kLd<D> + i % D;
-    *x = *x * p.sm_scale;
-  }
-
-  float m_r[4], l_r[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_r[i] = -INFINITY;
-    l_r[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<1>();  // K(t) (and q) have landed; V(t) may be in flight
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    dot_tile<D>(s, q_s, k_s, ty, tx);
-    __syncthreads();  // every thread is done with K(t)
-    if (t + 1 < n_tiles) load_kv(0, t + 1);
-    cp_async_commit();
-
-    const int n0 = (t_lo + t) * kTile;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = m0 + 4 * ty + i;
-      float x[4], mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float th;
-        const float sc = softcapped(s[i][j], p.softcap, th);
-        x[j] = visible(r, n0 + tx + 16 * j, off, sk, p.left, p.right) ? sc : -INFINITY;
-        mx = fmaxf(mx, x[j]);
-      }
-      const float m_new = fmaxf(m_r[i], group_max(mx));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m_r[i] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pj = expf(x[j] - m_use);
-        p_s[(4 * ty + i) * kLdP + tx + 16 * j] = pj;
-        sum += pj;
-      }
-      l_r[i] = l_r[i] * alpha + group_sum(sum);
-      m_r[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    cp_async_wait<1>();  // V(t) has landed; K(t + 1) may be in flight
-    __syncthreads();
-    pv_tile<D>(acc, p_s, v_s, ty, tx);
-    __syncthreads();  // every thread is done with V(t) and its P rows
-    if (t + 1 < n_tiles) load_kv(1, t + 1);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // O = acc / l, divided as the plain version divides
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (m0 + r >= p.sq) continue;
-    float* orow = p.out + b * p.o_sb + head * p.o_sh + (m0 + r) * p.o_ss;
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      const float l = l_r[i];
-      const float4 o = l > 0.f ? make_float4(acc[i][4 * c] / l, acc[i][4 * c + 1] / l,
-                                             acc[i][4 * c + 2] / l, acc[i][4 * c + 3] / l)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(orow + 64 * c + 4 * tx) = o;
-    }
-    if (p.lse_out != nullptr && tx == 0) {
-      p.lse_out[(static_cast<int64_t>(b) * p.h + head) * p.sq + m0 + r] =
-          l_r[i] > 0.f ? m_r[i] + logf(l_r[i]) : INFINITY;
-    }
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
 namespace sm90 = xfa::sm90;
 
-constexpr int kBwdThreads = 384;  // producer warpgroup + two consumers
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr int kProducerRegs = 56, kConsumerRegs = 224;  // the converters need the 56
 constexpr int kConverters = 96;  // warps 1-3 of the producer warpgroup
 constexpr int kDqRows = 128;     // query rows of a dQ block (64 a consumer)
 // k-steps issued before a wait (d 128's dK/dV accumulators leave fewer registers)
 template <int D>
 constexpr int kChunk = D == 64 ? 8 : 2;
-
-// The tiles by head dim: dK/dV's keys a block, query rows a stage and
-// stages, whether the two consumers split the block's keys (else both take
-// all 64 keys and split dK's and dV's columns); dQ's keys a stage and
-// stages.
-template <int D>
-struct BwdTiles;
-template <>
-struct BwdTiles<64> {
-  static constexpr int kKeys = 128, kRows = 32, kDkvStages = 2, kDqKeys = 32, kDqStages = 3;
-  static constexpr bool kKeySplit = true;
-};
-template <>
-struct BwdTiles<128> {
-  static constexpr int kKeys = 64, kRows = 16, kDkvStages = 2, kDqKeys = 16, kDqStages = 2;
-  static constexpr bool kKeySplit = false;
-};
-
-struct Fp32BwdParams {
-  const float* lse;    // (b, h, sq) contiguous
-  const float* delta;  // (b, h, sq) contiguous
-  float* dq;
-  float* dk;
-  float* dv;
-  int64_t dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-  int b, h, hk, sq, sk;
-  float sm_scale, softcap;
-  int left, right;  // the window, -1 no bound; causal is right 0
-};
 
 // Byte offset of element (r, c) in a K-major tile of rows of RB bytes, as
 // TMA and wgmma lay it: RB 128 (32 floats) 128-byte swizzled, the 16-byte
@@ -549,17 +255,17 @@ __device__ __forceinline__ void mma_tf32(float (&c)[N / 2], const uint32_t (&a)[
 // that grows over many products drifts toward zero by about half an ulp a
 // product. Each fp32 product below keeps its large accumulators short: the
 // small terms (lo·hi, hi·lo) and the large one (hi·hi) go to separate
-// accumulators, and a long sum (dK, dV over every query row of the group,
-// dQ over every key) is taken a tile at a time on the tensor cores and
-// added to its fp32 registers with rounding.
+// accumulators, and a long sum (the forward's O and dQ over every key, dK
+// and dV over every query row of the group) is taken a tile at a time on
+// the tensor cores and added to its fp32 registers with rounding.
 
 // C(64 x N) = A B^T over k = D (C zero on entry), issued, committed and
-// waited for in chunks of kChunk<D> k-steps: A the 64 rows from a_row0 of a
+// waited for in chunks of CHUNK k-steps: A the 64 rows from a_row0 of a
 // resident raw tile of a_rows rows (boxes of 32 columns x a_rows rows), read
 // as m64k8 fragments and split in registers; B N rows in the natural layout,
 // hi at b_hi and lo at b_lo (boxes of 32 columns x N rows). A_hi B_hi sums
 // into c, A_lo B_hi + A_hi B_lo into a second accumulator, added at the end.
-template <int D, int N>
+template <int D, int N, int CHUNK = kChunk<D>>
 __device__ __forceinline__ void product_a_smem(float (&c)[N / 2], const uint8_t* a_tile,
                                                int a_rows, int a_row0, uint32_t b_hi,
                                                uint32_t b_lo, int w, int g, int t) {
@@ -569,10 +275,10 @@ __device__ __forceinline__ void product_a_smem(float (&c)[N / 2], const uint8_t*
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) small[i] = 0.f;
 #pragma unroll
-  for (int k0 = 0; k0 < D / 8; k0 += kChunk<D>) {
-    uint32_t ah[kChunk<D>][4], al[kChunk<D>][4];
+  for (int k0 = 0; k0 < D / 8; k0 += CHUNK) {
+    uint32_t ah[CHUNK][4], al[CHUNK][4];
 #pragma unroll
-    for (int s = 0; s < kChunk<D>; ++s) {
+    for (int s = 0; s < CHUNK; ++s) {
       const int kk = k0 + s;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -588,7 +294,7 @@ __device__ __forceinline__ void product_a_smem(float (&c)[N / 2], const uint8_t*
     sm90::fence_regs(small);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < kChunk<D>; ++s) {
+    for (int s = 0; s < CHUNK; ++s) {
       const int kk = k0 + s;
       const uint32_t off = (kk >> 2) * (N * 128 >> 4) + (kk & 3) * 2;  // 16-byte units
       mma_tf32<N>(small, al[s], dh + off);
@@ -608,10 +314,11 @@ __device__ __forceinline__ void product_a_smem(float (&c)[N / 2], const uint8_t*
 // committed): X (64 x K) an fp32 accumulator of this warpgroup, split
 // k-step by k-step in registers, its columns 2t, 2t + 1 of each 8 as the
 // fragment's t, t + 4; B K-major, N rows of K floats in that order
-// (convert_item), hi at
-// b_hi and lo at b_lo (rows of 4K bytes: K 32 128-byte swizzled, K 16
-// 64-byte); three products a k-step, the small terms first. The caller
-// waits and adds c to its fp32 registers.
+// (convert_item, convert_vt), hi at b_hi and lo at b_lo (K 16: rows of 64
+// bytes, 64-byte swizzled; K 32: rows of 128 bytes, 128-byte swizzled; K
+// 64: two such boxes of N rows, N * 128 bytes apart); three products a
+// k-step, the small terms first. The caller waits and adds c to its fp32
+// registers.
 template <int N, int K>
 __device__ __forceinline__ void issue_a_acc(float (&c)[N / 2], const float (&x)[K / 2],
                                             uint32_t b_hi, uint32_t b_lo) {
@@ -625,17 +332,18 @@ __device__ __forceinline__ void issue_a_acc(float (&c)[N / 2], const float (&x)[
     sm90::fence_regs(ah[kk]);
     sm90::fence_regs(al[kk]);
   }
-  const uint64_t dh = K == 32 ? sm90::desc_b128(b_hi, 16) : sm90::desc_b64(b_hi);
-  const uint64_t dl = K == 32 ? sm90::desc_b128(b_lo, 16) : sm90::desc_b64(b_lo);
+  const uint64_t dh = K == 16 ? sm90::desc_b64(b_hi) : sm90::desc_b128(b_hi, 16);
+  const uint64_t dl = K == 16 ? sm90::desc_b64(b_lo) : sm90::desc_b128(b_lo, 16);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) c[i] = 0.f;
   sm90::fence_regs(c);
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < K / 8; ++kk) {
-    mma_tf32<N>(c, al[kk], dh + 2 * kk);
-    mma_tf32<N>(c, ah[kk], dl + 2 * kk);
-    mma_tf32<N>(c, ah[kk], dh + 2 * kk);
+    const uint32_t off = (kk >> 2) * (N * 128 >> 4) + (kk & 3) * 2;  // 16-byte units
+    mma_tf32<N>(c, al[kk], dh + off);
+    mma_tf32<N>(c, ah[kk], dl + off);
+    mma_tf32<N>(c, ah[kk], dh + off);
   }
 }
 
@@ -646,6 +354,445 @@ __device__ __forceinline__ void add_part(float (&dst)[N], float (&part)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) dst[i] += part[i];
 }
+
+// ------------------------------------------------------------------ forward
+
+constexpr int kFwdRows = 128;  // query rows of a forward block (64 a consumer)
+// Registers a thread after setmaxnreg (the launch gives each 168): the
+// paged producer and converters need 64 (at 56 they spilled), and the
+// consumers may take only what the producer gives up, 128 x (168 - 64) >=
+// 256 x (216 - 168) (more, and setmaxnreg.inc waits forever).
+constexpr int kFwdProducerRegs = 64, kFwdConsumerRegs = 216;
+static_assert(128 * (168 - kFwdProducerRegs) >= 256 * (kFwdConsumerRegs - 168),
+              "the consumers take more registers than the producer gives up");
+constexpr int kFwdStages = 2;
+constexpr int kFwdChunk = 8;  // S's k-steps issued before a wait
+
+// keys a forward stage: a stage's five tiles of L x D floats are 16 KB each
+template <int D>
+constexpr int kFwdKeys = D == 64 ? 64 : 32;
+
+struct Fp32Params {
+  const float* pages;  // PAGED: (P, hk, 2, ps, d), read by the converters without TMA
+  float* out;          // (b, h, sq, d) by strides
+  float* lse_out;      // (b, h, sq) contiguous, or null
+  int64_t o_sb, o_sh, o_ss;
+  int b, h, hk, sq, sk;
+  float sm_scale, softcap;
+  int left, right;  // the window, -1 no bound; causal is right 0
+  // paged K/V (PAGED): key j of batch row b at row j % ps of page
+  // table[b * npp + j / ps] (clamped); lengths[b] keys, of which the last
+  // sq are the queries (off = lengths[b] - sq)
+  const int* table;
+  const int* lengths;
+  int ps, npp, num_pages;
+  int tma;  // PAGED: tiles by TMA (ps a multiple of the stage's keys), else cp.async
+};
+
+template <int D>
+struct FwdSmem {
+  static constexpr int kQ = kFwdRows * D * 4;     // the resident q block
+  static constexpr int kT = kFwdKeys<D> * D * 4;  // a tile of a stage
+  // a stage: K (landed raw: its hi), K lo, V (landed raw), V^T hi, V^T lo
+  static constexpr int kStage = 5 * kT;
+  // barriers: Q full, Q empty, then per stage full, ready, empty
+  static constexpr int kBar = kQ + kFwdStages * kStage;
+  static constexpr int kBytes = kBar + 8 * (2 + 3 * kFwdStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+// A forward block: its first row, head and batch row, the batch row's keys
+// and causal offset, and its key tiles [first, first + n).
+struct FwdBlock {
+  int q0, head, batch, sk, off, first, n;
+};
+
+// Block `half` of pair `pair` (query blocks of kFwdRows rows, the heavier
+// last) and the key tiles of L keys that its rows below sq see under the
+// window; false when the pair has no second block. Paged, a batch row's
+// keys are min(length, capacity) and its rows the last sq of its length.
+template <int L, bool PAGED>
+__device__ __forceinline__ bool fwd_block(const Fp32Params& p, int pair, int half, int n_mb,
+                                          FwdBlock& fb) {
+  int m_block;
+  if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, fb.head, fb.batch)) return false;
+  fb.q0 = m_block * kFwdRows;
+  if constexpr (PAGED) {
+    const int len = p.lengths[fb.batch];
+    fb.sk = min(len, p.npp * p.ps);
+    fb.off = len - p.sq;
+  } else {
+    fb.sk = p.sk;
+    fb.off = p.sk - p.sq;
+  }
+  const int r1 = min(fb.q0 + kFwdRows, p.sq) - 1;
+  const int kmax = p.right < 0 ? fb.sk - 1 : min(fb.sk - 1, r1 + fb.off + p.right);
+  const int kmin = p.left < 0 ? 0 : max(0, fb.q0 + fb.off - p.left);
+  fb.first = kmin / L;
+  fb.n = kmax >= kmin ? kmax / L - fb.first + 1 : 0;
+  return true;
+}
+
+// The keys [lo, hi] that row `row` of block fb sees (hi < lo for none).
+__device__ __forceinline__ void fwd_row_keys(const Fp32Params& p, const FwdBlock& fb, int row,
+                                             int& lo, int& hi) {
+  lo = p.left < 0 ? 0 : max(0, row + fb.off - p.left);
+  hi = row >= p.sq ? -1 : p.right < 0 ? fb.sk - 1 : min(fb.sk - 1, row + fb.off + p.right);
+}
+
+// Converter item j of a TMA-landed V tile of L keys x D (boxes of 32
+// columns x L rows): V^T as P V's K-major B, raw (its hi) into th and lo
+// into tl, D rows of L floats in boxes of 32 k positions (D * 128 bytes
+// apart), key 8j + 2t + e at k position 8j + t + 4e (convert_item's order,
+// in which S's accumulator serves as P's A fragment). Keys at or past
+// n_valid are written as zeros. Items as convert_item's.
+template <int D, int L>
+__device__ __forceinline__ void convert_vt(const uint8_t* nat, uint8_t* th, uint8_t* tl, int j,
+                                           int n_valid) {
+  constexpr int kQ = L / 16;  // groups of four (j8, e)
+  const int rest = j >> 3;
+  const int kq = (j & 3) + 4 * (rest % kQ);  // 2 j8 + e
+  const int c4 = 2 * (rest / kQ) + ((j >> 2) & 1), e = kq & 1, j8 = kq >> 1;
+  float4 x[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int key = 8 * j8 + 2 * u + e;
+    x[u] = *reinterpret_cast<const float4*>(nat + (c4 >> 3) * (L * 128) +
+                                            swz<128>(key, (c4 & 7) * 4));
+    if (key >= n_valid) x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int kp = 8 * j8 + 4 * e;  // the first of the 4 k positions
+  const uint32_t box = (kp >> 5) * (D * 128);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const uint32_t ot = box + swz<128>(4 * c4 + v, kp & 31);
+    const float4 col = make_float4(reinterpret_cast<const float*>(&x[0])[v],
+                                   reinterpret_cast<const float*>(&x[1])[v],
+                                   reinterpret_cast<const float*>(&x[2])[v],
+                                   reinterpret_cast<const float*>(&x[3])[v]);
+    *reinterpret_cast<float4*>(th + ot) = col;
+    *reinterpret_cast<float4*>(tl + ot) =
+        make_float4(sm90::tf32_lo(col.x), sm90::tf32_lo(col.y), sm90::tf32_lo(col.z),
+                    sm90::tf32_lo(col.w));
+  }
+}
+
+// A forward stage's conversions (K lo; V^T hi and lo), items dealt over
+// the converters in turn; V's keys at or past n_valid as zeros.
+template <int D, int L>
+__device__ __forceinline__ void convert_fwd_stage(uint8_t* sp, int n_valid, int ct) {
+  constexpr int kT = L * D * 4, kItems = L * D / 16;
+  for (int j = ct; j < 2 * kItems; j += kConverters) {
+    if (j < kItems) {
+      convert_item<D, L, false>(sp, sp + kT, nullptr, nullptr, j);
+    } else {
+      convert_vt<D, L>(sp + 2 * kT, sp + 3 * kT, sp + 4 * kT, j - kItems, n_valid);
+    }
+  }
+}
+
+// The keys [n0, n0 + L) of block fb through the page table into a stage's
+// K and V in TMA's layout (boxes of 32 columns x L rows, 128-byte
+// swizzled), by cp.async from the converters (16 bytes each); keys at or
+// past the batch row's sk zero-filled.
+template <int D, int L>
+__device__ __forceinline__ void load_pages(const Fp32Params& p, const FwdBlock& fb, int kv_head,
+                                           int n0, uint8_t* sp, int ct) {
+  constexpr int kChunks = D / 4, kT = L * D * 4;
+  const int* table = p.table + static_cast<int64_t>(fb.batch) * p.npp;
+  for (int idx = ct; idx < L * kChunks; idx += kConverters) {
+    const int j = idx / kChunks, c = idx % kChunks, key = n0 + j;
+    const bool ok = key < fb.sk;
+    const int kk = ok ? key : 0;
+    const int page = min(max(table[kk / p.ps], 0), p.num_pages - 1);
+    const float* src = p.pages + (static_cast<int64_t>(page) * p.hk + kv_head) * 2 * p.ps * D +
+                       static_cast<int64_t>(kk % p.ps) * D + 4 * c;
+    const uint32_t o = (c >> 3) * (L * 128) + swz<128>(j, (c & 7) * 4);
+    xfa::cp_async16(sp + o, src, ok);
+    xfa::cp_async16(sp + 2 * kT + o, src + static_cast<int64_t>(p.ps) * D, ok);
+  }
+}
+
+// The online softmax of one tile's scores s (register i: row g + 8 ((i /
+// 2) % 2), key n0 + 8 (i / 4) + 2t + (i % 2)), in place: softcap, with
+// MASK the elementwise test against each row's keys [lo, hi]; then the
+// running max m, s = P in fp32 (ex2 with the max and log2(e) folded in),
+// this thread's share of the row sums l (the quad is summed at the end) and
+// alpha, the factor that takes the running O to the new max.
+template <int L, bool MASK, bool SOFTCAP>
+__device__ __forceinline__ void fwd_softmax(float (&s)[L / 2], float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], int n0, const int (&lo)[2],
+                                            const int (&hi)[2], float cap, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < L / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float x = s[i];
+    if constexpr (SOFTCAP) x = tanhf(x / cap) * cap;
+    if constexpr (MASK) {
+      const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1);
+      if ((key < lo[r]) | (key > hi[r])) x = -INFINITY;
+    }
+    s[i] = x;
+    mx[r] = fmaxf(mx[r], x);
+  }
+  float shift[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    // a row with nothing visible yet keeps a zero shift, so ex2 gives 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = sm90::ex2((m[r] - m_use) * sm90::kLog2e);
+    shift[r] = m_use * sm90::kLog2e;
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < L / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = sm90::ex2(fmaf(s[i], sm90::kLog2e, -shift[r]));
+    rs[r] += s[i];
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
+template <int D, bool PAGED, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const Fp32Params p) {
+  using S = FwdSmem<D>;
+  constexpr int L = kFwdKeys<D>, kStages = kFwdStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t bar_q = base + S::kBar, bar_qe = bar_q + 8;
+  const uint32_t bar_full = bar_qe + 8, bar_ready = bar_full + 8 * kStages,
+                 bar_empty = bar_ready + 8 * kStages;
+  const int n_mb = (p.sq + kFwdRows - 1) / kFwdRows;
+  const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
+  const int group = p.h / p.hk;
+  // tiles by TMA: always on the dense route, paged when a tile lies in one page
+  const bool tma_tiles = !PAGED || p.tma;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    sm90::mbar_init(bar_qe, 8);  // the eight consumer warps
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(bar_full + 8 * st, 1);
+      sm90::mbar_init(bar_ready + 8 * st, kConverters);
+      sm90::mbar_init(bar_empty + 8 * st, 8);  // the eight consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Every role walks the same blocks and counts the same q loads (qk) and
+  // key tiles (it, the ring position), so stages and parities agree. A
+  // block whose rows see no key loads nothing; its O is zeros, its LSE +inf.
+  const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (warpgroup == 0) {
+    sm90::setmaxnreg_dec<kFwdProducerRegs>();
+    if (threadIdx.x == 0) {  // the loads: a block's first tiles, then its q
+      int it = 0, qk = 0;
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          FwdBlock fb;
+          if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb) || fb.n == 0) continue;
+          const int kv_head = fb.head / group;
+          const int q_at = tma_tiles ? min(kStages, fb.n) : 0;
+          for (int i = 0; i <= fb.n; ++i) {
+            if (i == q_at) {
+              sm90::mbar_wait(bar_qe, (qk & 1) ^ 1);  // the first pass is free
+              sm90::mbar_expect_tx(bar_q, S::kQ);
+              for (int j = 0; j < D / 32; ++j)
+                sm90::tma_load_4d(base + j * kFwdRows * 128, &tq, bar_q, 32 * j, fb.q0, fb.head,
+                                  fb.batch);
+              ++qk;
+              if (!tma_tiles) break;  // the converters load the tiles
+            }
+            if (i == fb.n) break;
+            const int st = it % kStages, n0 = (fb.first + i) * L;
+            const uint32_t k_st = base + S::kQ + st * S::kStage, v_st = k_st + 2 * S::kT;
+            sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+            sm90::mbar_expect_tx(bar_full + 8 * st, 2 * S::kT);
+            if constexpr (PAGED) {
+              const int page = min(max(p.table[static_cast<int64_t>(fb.batch) * p.npp + n0 / p.ps],
+                                       0),
+                                   p.num_pages - 1);
+              const int row = n0 % p.ps;
+              for (int j = 0; j < D / 32; ++j) {
+                sm90::tma_load_5d(k_st + j * L * 128, &tk, bar_full + 8 * st, 32 * j, row, 0,
+                                  kv_head, page);
+                sm90::tma_load_5d(v_st + j * L * 128, &tk, bar_full + 8 * st, 32 * j, row, 1,
+                                  kv_head, page);
+              }
+            } else {
+              for (int j = 0; j < D / 32; ++j) {
+                sm90::tma_load_4d(k_st + j * L * 128, &tk, bar_full + 8 * st, 32 * j, n0, kv_head,
+                                  fb.batch);
+                sm90::tma_load_4d(v_st + j * L * 128, &tv, bar_full + 8 * st, 32 * j, n0, kv_head,
+                                  fb.batch);
+              }
+            }
+            ++it;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // the converters, stage by stage
+      const int ct = threadIdx.x - 32;
+      int it = 0;
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          FwdBlock fb;
+          if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb)) continue;
+          for (int i = 0; i < fb.n; ++i, ++it) {
+            const int st = it % kStages, n0 = (fb.first + i) * L;
+            uint8_t* sp = smem + S::kQ + st * S::kStage;
+            if (tma_tiles) {
+              sm90::mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+            } else {
+              sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+              load_pages<D, L>(p, fb, fb.head / group, n0, sp, ct);
+              xfa::cp_async_commit();
+              xfa::cp_async_wait<0>();
+              sm90::named_barrier(1, kConverters);  // every converter's rows have landed
+            }
+            convert_fwd_stage<D, L>(sp, fb.sk - n0, ct);
+            sm90::fence_proxy_async();  // the writes before the consumers' wgmma
+            sm90::mbar_arrive(bar_ready + 8 * st);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    sm90::setmaxnreg_inc<kFwdConsumerRegs>();
+    const int cw = warpgroup - 1;
+    const int wt = threadIdx.x & 127;
+    const int w = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+    int it = 0, qk = 0;
+    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+      for (int half = 0; half < 2; ++half) {
+        FwdBlock fb;
+        if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb)) continue;
+        const int rc0 = fb.q0 + 64 * cw;     // this consumer's first row
+        const int row0 = rc0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
+        int lo[2], hi[2];                   // the keys each of them sees
+        fwd_row_keys(p, fb, row0, lo[0], hi[0]);
+        fwd_row_keys(p, fb, row0 + 8, lo[1], hi[1]);
+        // the keys of the consumer's first row and of its last row below sq
+        int lo_a, hi_a, lo_b, hi_b;
+        fwd_row_keys(p, fb, rc0, lo_a, hi_a);
+        fwd_row_keys(p, fb, min(rc0 + 63, p.sq - 1), lo_b, hi_b);
+        const bool has_rows = rc0 < p.sq;
+        float o[D / 2];
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+        if (fb.n > 0) {
+          sm90::mbar_wait(bar_q, qk & 1);
+          ++qk;
+          // q_s = q * sm_scale in place over this consumer's rows
+          float4* q4 = reinterpret_cast<float4*>(smem) + 64 * cw * 8;
+          for (int j = 0; j < D / 32; ++j) {
+            for (int i = wt; i < 64 * 8; i += 128) {
+              float4& x = q4[j * kFwdRows * 8 + i];
+              x = make_float4(x.x * p.sm_scale, x.y * p.sm_scale, x.z * p.sm_scale,
+                              x.w * p.sm_scale);
+            }
+          }
+          sm90::fence_proxy_async();  // before the next block's TMA overwrites them
+          sm90::named_barrier(2 + cw, 128);
+          for (int i = 0; i < fb.n; ++i, ++it) {
+            const int st = it % kStages, use = it / kStages;
+            const int n0 = (fb.first + i) * L;
+            const uint32_t stage = base + S::kQ + st * S::kStage;
+            if (tma_tiles) sm90::mbar_wait(bar_full + 8 * st, use & 1);
+            sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+            if (has_rows && n0 <= hi_b && n0 + L - 1 >= lo_a) {
+              float s[L / 2];
+#pragma unroll
+              for (int j = 0; j < L / 2; ++j) s[j] = 0.f;
+              // S = q_s K^T
+              product_a_smem<D, L, kFwdChunk>(s, smem, kFwdRows, 64 * cw, stage, stage + S::kT,
+                                              w, g, t);
+              float alpha[2];
+              if (rc0 + 64 <= p.sq && n0 >= lo_b && n0 + L - 1 <= hi_a) {
+                fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, n0, lo, hi, p.softcap, t);
+              } else {
+                fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, n0, lo, hi, p.softcap, t);
+              }
+#pragma unroll
+              for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+              // O += P V, the tile's part on the tensor cores, added in fp32
+              float pv[D / 2];
+              issue_a_acc<D, L>(pv, s, stage + 3 * S::kT, stage + 4 * S::kT);
+              sm90::wgmma_commit();
+              sm90::wgmma_wait<0>();
+              add_part(o, pv);
+            }
+            if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+          }
+          if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s
+        }
+        // O / l, divided as the plain version divides; 0 where a row saw nothing
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float lr = l[r];
+          lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+          lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+          const int row = row0 + 8 * r;
+          if (row >= p.sq) continue;
+          float* orow = p.out + fb.batch * p.o_sb + fb.head * p.o_sh + row * p.o_ss;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            const float2 v = lr > 0.f ? make_float2(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr)
+                                      : make_float2(0.f, 0.f);
+            *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = v;
+          }
+          if (p.lse_out != nullptr && t == 0)
+            p.lse_out[(static_cast<int64_t>(fb.batch) * p.h + fb.head) * p.sq + row] =
+                lr > 0.f ? m[r] + logf(lr) : INFINITY;
+        }
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+// The tiles by head dim: dK/dV's keys a block, query rows a stage and
+// stages, whether the two consumers split the block's keys (else both take
+// all 64 keys and split dK's and dV's columns); dQ's keys a stage and
+// stages.
+template <int D>
+struct BwdTiles;
+template <>
+struct BwdTiles<64> {
+  static constexpr int kKeys = 128, kRows = 32, kDkvStages = 2, kDqKeys = 32, kDqStages = 3;
+  static constexpr bool kKeySplit = true;
+};
+template <>
+struct BwdTiles<128> {
+  static constexpr int kKeys = 64, kRows = 16, kDkvStages = 2, kDqKeys = 16, kDqStages = 2;
+  static constexpr bool kKeySplit = false;
+};
+
+struct Fp32BwdParams {
+  const float* lse;    // (b, h, sq) contiguous
+  const float* delta;  // (b, h, sq) contiguous
+  float* dq;
+  float* dk;
+  float* dv;
+  int64_t dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+  int b, h, hk, sq, sk;
+  float sm_scale, softcap;
+  int left, right;  // the window, -1 no bound; causal is right 0
+};
 
 // P and dS of one element from its score x and dP, the row's LSE times
 // log2(e) and delta: P = 2^(x log2(e) - lse2) on the SFU (ex2.approx, about
@@ -784,7 +931,7 @@ struct DkvSmem {
 };
 
 template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tdo,
                               const __grid_constant__ CUtensorMap tk,
@@ -972,7 +1119,7 @@ struct DqSmem {
 };
 
 template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tdo,
                              const __grid_constant__ CUtensorMap tk,
@@ -1124,9 +1271,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// ------------------------------------------------------------ launches
+
 // One persistent CTA per SM, or one per pair of blocks when there are fewer.
 template <typename Kernel>
-cudaError_t bwd_grid(Kernel kernel, int bytes, std::atomic<uint64_t>& done, int pairs,
+cudaError_t persistent_grid(Kernel kernel, int bytes, std::atomic<uint64_t>& done, int pairs,
                      int& grid) {
   int sms = 0;
   cudaError_t err = sm90::smem_limit_once(kernel, bytes, done);
@@ -1140,10 +1289,10 @@ cudaError_t launch_dkv(const CUtensorMap* maps, const Fp32BwdParams& p, cudaStre
   static std::atomic<uint64_t> done{0};
   const int n_nb = (p.sk + BwdTiles<D>::kKeys - 1) / BwdTiles<D>::kKeys;
   int grid = 0;
-  const cudaError_t err = bwd_grid(flash_bwd_dkv_fp32_kernel<D, SOFTCAP>, DkvSmem<D>::kBytes,
+  const cudaError_t err = persistent_grid(flash_bwd_dkv_fp32_kernel<D, SOFTCAP>, DkvSmem<D>::kBytes,
                                    done, xfa::block_pairs(n_nb, p.hk, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_fp32_kernel<D, SOFTCAP><<<grid, kBwdThreads, DkvSmem<D>::kBytes, s>>>(
+  flash_bwd_dkv_fp32_kernel<D, SOFTCAP><<<grid, kThreads, DkvSmem<D>::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
   return cudaGetLastError();
 }
@@ -1153,10 +1302,10 @@ cudaError_t launch_dq(const CUtensorMap* maps, const Fp32BwdParams& p, cudaStrea
   static std::atomic<uint64_t> done{0};
   int grid = 0;
   const cudaError_t err =
-      bwd_grid(flash_bwd_dq_fp32_kernel<D, SOFTCAP>, DqSmem<D>::kBytes, done,
+      persistent_grid(flash_bwd_dq_fp32_kernel<D, SOFTCAP>, DqSmem<D>::kBytes, done,
                xfa::block_pairs((p.sq + kDqRows - 1) / kDqRows, p.h, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_fp32_kernel<D, SOFTCAP><<<grid, kBwdThreads, DqSmem<D>::kBytes, s>>>(
+  flash_bwd_dq_fp32_kernel<D, SOFTCAP><<<grid, kThreads, DqSmem<D>::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
@@ -1169,25 +1318,26 @@ cudaError_t launch_bwd(int which, const CUtensorMap* maps, const Fp32BwdParams& 
   return p.softcap > 0.f ? launch_dq<D, true>(maps, p, s) : launch_dq<D, false>(maps, p, s);
 }
 
-// ------------------------------------------------------------ launches
-
-// Launch the forward at head dim D, raising its shared-memory limit once per
-// device.
-template <int D, bool PAGED>
-cudaError_t launch_fwd(dim3 grid, cudaStream_t s, const Fp32Params& p) {
+template <int D, bool PAGED, bool SOFTCAP>
+cudaError_t launch_fwd(const CUtensorMap* maps, const Fp32Params& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
+  int grid = 0;
   const cudaError_t err =
-      sm90::smem_limit_once(flash_fwd_fp32_kernel<D, PAGED>, FwdSmem<D>::kBytes, done);
+      persistent_grid(flash_fwd_fp32_kernel<D, PAGED, SOFTCAP>, FwdSmem<D>::kBytes, done,
+                      xfa::block_pairs((p.sq + kFwdRows - 1) / kFwdRows, p.h, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_fwd_fp32_kernel<D, PAGED><<<grid, kThreads, FwdSmem<D>::kBytes, s>>>(p);
+  flash_fwd_fp32_kernel<D, PAGED, SOFTCAP><<<grid, kThreads, FwdSmem<D>::kBytes, s>>>(
+      maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
-template <bool PAGED>
-cudaError_t launch_fwd_d(int d, dim3 grid, cudaStream_t s, const Fp32Params& p) {
-  if (d == 64) return launch_fwd<64, PAGED>(grid, s, p);
-  if (d == 128) return launch_fwd<128, PAGED>(grid, s, p);
-  return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_fwd_d(const CUtensorMap* maps, const Fp32Params& p, bool paged,
+                         cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
+  if (paged)
+    return cap ? launch_fwd<D, true, true>(maps, p, s) : launch_fwd<D, true, false>(maps, p, s);
+  return cap ? launch_fwd<D, false, true>(maps, p, s) : launch_fwd<D, false, false>(maps, p, s);
 }
 
 }  // namespace
@@ -1197,9 +1347,9 @@ cudaError_t launch_fwd_d(int d, dim3 grid, cudaStream_t s, const Fp32Params& p) 
 // hk, 2, ps, d) fp32 contiguous (the strides unused, sk = npp * ps) with
 // `table` (b, npp) int32 and `lengths` (b,) int32 (key count per batch row,
 // its last sq keys the queries'); every row's head dim contiguous, every
-// pointer and stride a multiple of 4 elements (16 bytes). lse: (b, h, sq)
-// fp32 contiguous or null. window: left, right (-1 no bound; causal is
-// right 0).
+// pointer and stride a multiple of 4 elements (16 bytes; q, k and v are
+// read through TMA tensor maps). lse: (b, h, sq) fp32 contiguous or null.
+// window: left, right (-1 no bound; causal is right 0).
 XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                   int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
@@ -1209,19 +1359,17 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
                                   const void* table, const void* lengths, int ps, int npp,
                                   int num_pages, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
-  if (hk <= 0 || h % hk != 0 || (table != nullptr) != (lengths != nullptr))
+  if (hk <= 0 || h % hk != 0 || (table != nullptr) != (lengths != nullptr) ||
+      (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool paged = table != nullptr;
+  const int keys = d == 64 ? kFwdKeys<64> : kFwdKeys<128>;
   Fp32Params p{};
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
+  p.pages = static_cast<const float*>(k);
   p.out = static_cast<float*>(out);
   p.lse_out = static_cast<float*>(lse);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.h = h; p.hk = hk; p.sq = sq; p.sk = sk;
+  p.b = b; p.h = h; p.hk = hk; p.sq = sq; p.sk = sk;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.left = left;
@@ -1229,10 +1377,22 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
   p.table = static_cast<const int*>(table);
   p.lengths = static_cast<const int*>(lengths);
   p.ps = ps; p.npp = npp; p.num_pages = num_pages;
-  const dim3 grid((sq + kTile - 1) / kTile, h, b);
+  p.tma = paged && ps % keys == 0;
+  // maps: q (blocks of 128 rows); k and v (tiles of `keys` rows), or the
+  // pages (K and V of one page, kv head and tile a box) when paged by TMA
+  CUtensorMap maps[3] = {};
+  bool ok = sm90::encode_bhsd_f32(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kFwdRows);
+  if (!paged) {
+    const int s_k = sk > 0 ? sk : 1;  // no key: no tile is loaded
+    ok = ok && sm90::encode_bhsd_f32(&maps[1], k, b, hk, s_k, d, k_sb, k_sh, k_ss, keys) &&
+         sm90::encode_bhsd_f32(&maps[2], v, b, hk, s_k, d, v_sb, v_sh, v_ss, keys);
+  } else if (p.tma) {
+    ok = ok && sm90::encode_pages(&maps[1], k, num_pages, hk, ps, d, keys, true);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(table != nullptr ? launch_fwd_d<true>(d, grid, s, p)
-                                            : launch_fwd_d<false>(d, grid, s, p));
+  return static_cast<int>(d == 64 ? launch_fwd_d<64>(maps, p, paged, s)
+                                  : launch_fwd_d<128>(maps, p, paged, s));
 }
 
 // which: 0 dK/dV, 1 dQ. q is q_s = q * sm_scale (flash_bwd.cu's pre-pass,

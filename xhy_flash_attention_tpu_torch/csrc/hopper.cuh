@@ -4,7 +4,7 @@
 // maps, the SM count, the dynamic shared-memory limit. The attention
 // forward (flash_fwd.cu) and backward (flash_bwd.cu), the paged prefill
 // (paged_decode.cu), the reduced scores (reduced_scores.cu) and the fp32
-// backward (flash_fp32.cu, on .tf32 wgmma) are built from them.
+// forward and backward (flash_fp32.cu, on .tf32 wgmma) are built from them.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 // reads: a tile is a stack of 128-byte rows (64 bf16), the 16-byte chunk c
@@ -496,7 +496,7 @@ __device__ __forceinline__ void issue_pv_f16(float (&o)[D / 2],
   wgmma_commit();
 }
 
-// ---- tf32 (flash_fp32.cu's backward): fp32 products as three TF32
+// ---- tf32 (flash_fp32.cu): fp32 products as three TF32
 // products on wgmma m64nNk8 .tf32, which takes both shared-memory operands
 // K-major only (the .tf32 form has no transpose bit). Its A fragment in
 // registers (PTX ISA, "wgmma .m64nNk8", tf32): with g = lane / 4, t = lane
@@ -680,18 +680,20 @@ inline bool encode_bhsd_e4m3(CUtensorMap* map, const void* ptr, int b, int h, in
 
 // bf16 KV pages (num_pages, hk, 2, ps, d), contiguous, as a 5-D map (d, ps,
 // 2, hk, num_pages) with boxes of 64 columns x `rows` rows of one page, K or
-// V and head, 128-byte swizzled (rows <= ps).
+// V and head, 128-byte swizzled (rows <= ps); with `f32`, fp32 pages and
+// boxes of 32 columns (128 bytes, as encode_bhsd_f32).
 inline bool encode_pages(CUtensorMap* map, const void* ptr, int num_pages, int hk, int ps, int d,
-                         int rows) {
+                         int rows, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * (f32 ? 4 : 2);
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(ps), 2,
                               static_cast<cuuint64_t>(hk), static_cast<cuuint64_t>(num_pages)};
   const cuuint64_t strides[4] = {row, row * ps, 2 * row * ps, 2 * row * ps * hk};
-  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(rows), 1, 1, 1};
+  const cuuint32_t box[5] = {f32 ? 32u : 64u, static_cast<cuuint32_t>(rows), 1, 1, 1};
   const cuuint32_t step[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+            const_cast<void*>(ptr), dims, strides, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

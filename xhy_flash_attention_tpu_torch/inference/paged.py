@@ -22,7 +22,9 @@ table: each (batch, kv head) on a cluster of 1-8 CTAs, each CTA a
 tile-aligned run of the visible keys), else the prefill regime (wgmma over
 blocks of 128 rows and tiles of 128 keys). fp32 pages take fp32 queries:
 the decode regime's fp32 instantiation, and for the prefill regime
-csrc/flash_fp32.cu's forward with K/V through the page table. :func:`paged_launch_plan`,
+csrc/flash_fp32.cu's forward (three TF32 products on the tensor cores) with
+K/V through the page table: by TMA when the page size is a multiple of its
+key tile (64 keys at d 64, 32 at d 128), else by cp.async. :func:`paged_launch_plan`,
 :func:`decode_cta_runs` and :func:`prefill_tile_plan` mirror the kernel's
 launch plan in plain Python; ``launch_paged(..., cluster=c)`` forces the
 cluster size of the decode regime.

@@ -11,7 +11,8 @@ csrc/flash_bwd.cu, which write dq/dk/dv through strides:
 `packed_qkv_attention`'s gradient is one packed dqkv in [dq | dk | dv]
 column order, as `_bwd_call_qkv` emits it (fused_heads.py:400-429), with no
 concatenation. float32 views run csrc/flash_fp32.cu's forward and backward
-through the same launchers (fwd.launch_flash_fwd, bwd.launch_flash_bwd).
+(every product as three TF32 products on the tensor cores) through the same
+launchers (fwd.launch_flash_fwd, bwd.launch_flash_bwd).
 Launches are counted here, apart from flash_attention_fwd's,
 the pre-pass's and the dK/dV and dQ entries'. On CPU
 tensors the plain versions :func:`fused_heads_fwd_ref` and

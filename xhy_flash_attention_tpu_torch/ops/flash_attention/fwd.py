@@ -23,9 +23,10 @@ is bwd.py, joined to this forward by interface.py's autograd function.
 FP8 e4m3 q/k/v with (b, hk) descales (:func:`flash_fwd_fp8`, forward only,
 as in the TPU package) run the kernel's e4m3 instantiation, with causal,
 windows, softcap, GQA and the LSE; it takes no bias, mask, segment ids or
-dropout. float32 q/k/v on the card run csrc/flash_fp32.cu (full fp32 on the
-CUDA cores; :func:`flash_fwd_fp32`, and through :func:`launch_flash_fwd`
-the packed layout) with causal, windows, softcap, GQA and the LSE; under a
+dropout. float32 q/k/v on the card run csrc/flash_fp32.cu (three TF32
+products on the tensor cores for each fp32 product, fed by TMA rings;
+:func:`flash_fwd_fp32`, and through :func:`launch_flash_fwd` the packed
+layout) with causal, windows, softcap, GQA and the LSE; under a
 FlashMask, block mask, segment ids, positions or a bias they raise
 NotImplementedError, as fp16 does (:data:`common.SLICE_DTYPES`). Dropout
 raises NotImplementedError until slice 6.

@@ -16,7 +16,8 @@ import torch
 
 __all__ = ["FP8_LSE_TOL", "FP8_OUT_TOL", "attention_fp8_ref",
            "attention_ref", "construct_local_mask", "fp8_ref_errors",
-           "attention_bwd_tf32x3", "generate_qkv_segment_ids",
+           "attention_bwd_tf32x3", "attention_fwd_tf32x3",
+           "generate_qkv_segment_ids",
            "matmul_tf32x3", "split_tf32", "tf32_trunc"]
 
 
@@ -256,7 +257,7 @@ def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of float32 ``x`` as the fp32 backward kernels hand an
+    """(hi, lo) of float32 ``x`` as the fp32 attention kernels hand an
     operand to the tensor cores (csrc/hopper.cuh split_tf32): hi is x
     itself, read as tf32(x); lo = x - tf32(x), exact in fp32, read as
     tf32(lo). Returns both as the tensor cores read them, float32 values
@@ -267,7 +268,7 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of float32 tensors as the fp32 backward kernels compute
+    """``a @ b`` of float32 tensors as the fp32 attention kernels compute
     every product: three TF32 products summed in fp32, the small terms
     apart, (a_lo b_hi + a_hi b_lo) + a_hi b_hi (lo lo dropped). Each
     partial product is an fp32 matmul of values TF32 holds exactly: its
@@ -276,6 +277,33 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_hi, a_lo = split_tf32(a)
     b_hi, b_lo = split_tf32(b)
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def attention_fwd_tf32x3(q, k, v, *, sm_scale: float, softcap: float = 0.0,
+                         mask=None, matmul=matmul_tf32x3):
+    """The fp32 forward's formulas (csrc/flash_fp32.cu) with both products
+    through ``matmul`` (by default the kernel's three TF32 products) on (b,
+    h, s, d) float32 tensors: q_s = q * sm_scale; S = q_s K^T, softcap; -inf
+    where ``mask`` (a keep mask broadcastable to (b, h, sq, sk), or None) is
+    False; P = exp(S - m) from these scores, m the row max (0 on a row that
+    sees no key); O = (P V) / rowsum(P), 0 on such a row; LSE = m +
+    log(rowsum), +inf on it. The kernel takes the max and the sums tile by
+    tile (online), which moves P by a rounding. Returns (out (b, h, sq, d),
+    lse (b, h, sq))."""
+    g = q.shape[1] // k.shape[1]
+    s = matmul(q * sm_scale, k.repeat_interleave(g, 1).transpose(-1, -2))
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    if mask is not None:
+        s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = matmul(p, v.repeat_interleave(g, 1))
+    o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    lse = torch.where(l > 0, m + torch.log(l), math.inf)[..., 0]
+    return o, lse
 
 
 def attention_bwd_tf32x3(q, k, v, out, lse, do, *, sm_scale: float,
