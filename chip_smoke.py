@@ -4,8 +4,8 @@
     python3 chip_smoke.py    # Llama-3-8B and Mistral-7B serving (bf16,
                              # int8 and int4 weights), GPT-2 XL serving in
                              # fp32, GPT-3/GPT-2-medium training (8k with
-                             # remat; fp32), fp8 prefill, full width and
-                             # depth, one card
+                             # remat; fp32, fp32 on packed documents), fp8
+                             # prefill, full width and depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
@@ -144,7 +144,27 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      pre-pass, no plain version; phase 10's table for one more step
      (device ms by group, the idle share); at depth 2 the loss and every
      gradient through the kernels, the fp32 and the float64 plain versions
-     under phase 18's gate.
+     under phase 18's gate;
+ 20. cell T-doc-fp32: `gpt2m-flash.yaml` in fp32 at full width, depth and
+     batch, each row packed with documents of 128-1024 tokens drawn from
+     the seed, passed as `segment_ids` to the model (the unpacked route:
+     the masked fp32 #1, #2 and #3 on every layer), 4 AdamW steps through
+     the Trainer: step ms, tokens/s, exact launches, no plain version;
+     phase 10's table for one more step; depth 2 against the fp32 and
+     float64 plain paths under phase 18's gate.
+Phases 11 and 13 also drive FM-doc, FM-swg (with the reduced scores of its
+LSE), BS and VL-doc in fp32 through the same entries (the masked fp32
+kernels; exact launches, within 1e-4 of the fp32 plain version's largest
+entries, a second pass bitwise equal).
+Phase 3 also holds the masked fp32 kernels at FM-doc, BS, FM-swg
+and VL-doc in fp32: out, LSE and every gradient against float64 on a
+subset (batch 0, whole kv-head groups, a token prefix no visible pair
+crosses) within twice the fp32 plain version's error plus 1e-4, against
+the fp32 plain version on all of it, three backward passes bitwise equal,
+the tiles they visit against the fp32 mirrors, bound by 3 TF32 products
+over the visible pairs, SDPA fp32 with the dense mask beside; and #12 in
+fp32 on FM-swg-fp32's LSE (against float64 under phase 18's gate, bound
+by the larger of the products and the exponent units' floor).
 Phase 3 also holds the fp32 kernels (csrc/flash_fp32.cu, the pre-pass's
 fp32 instantiation and the fp32 decode paths): #1 at G's prefill and #5 at
 T-packed's attention, the whole backward at both shapes (three passes
@@ -2070,26 +2090,31 @@ def _dims(shape):
     return tuple(shape[k] for k in ("b", "h", "hk", "s", "d"))
 
 
-def _sparse_inputs(gen, shape):
-    """q, do (b, h, s, d) and k, v (b, hk, s, d): bf16, contiguous."""
+def _sparse_inputs(gen, shape, dtype=torch.bfloat16):
+    """q, do (b, h, s, d) and k, v (b, hk, s, d): bf16 (or ``dtype``),
+    contiguous."""
     b, h, hk, s, d = _dims(shape)
-    q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    q, do = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, hk, s, d, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     return q, k, v, do
 
 
-def doc_indices(gen, b, s):
-    """FM-doc: causal_document_mask of documents whose lengths are drawn
-    uniformly in DOC_LENGTHS, the last one cut at s; (b, 1, s, 1)."""
-    from xhy_flash_attention_tpu_torch import causal_document_mask
+def doc_rows(gen, b, s):
+    """(b, s) document ids of rows packed with documents whose lengths are
+    drawn uniformly in DOC_LENGTHS, the last one cut at s."""
     lo, hi = DOC_LENGTHS
     lens = torch.randint(lo, hi + 1, (b, s // lo + 1), generator=gen,
                          device="cuda")
     docs = torch.arange(lens.shape[1], device="cuda")
-    ids = torch.stack([torch.repeat_interleave(docs, n)[:s] for n in lens])
-    return causal_document_mask(ids)
+    return torch.stack([torch.repeat_interleave(docs, n)[:s] for n in lens])
+
+
+def doc_indices(gen, b, s):
+    """FM-doc: causal_document_mask of doc_rows' documents; (b, 1, s, 1)."""
+    from xhy_flash_attention_tpu_torch import causal_document_mask
+    return causal_document_mask(doc_rows(gen, b, s))
 
 
 def random_bands(gen, nv, b, hm, s):
@@ -2213,20 +2238,39 @@ def exp_floor_ms(pairs: float) -> float:
     return pairs / (SFU_EX2_PER_CLOCK * sms * TENSOR_CLOCK_HZ) * 1e3
 
 
-def mirror_tile_counts(masks, b, h, hk, s, causal, d):
+def mirror_tile_counts(masks, b, h, hk, s, causal, d, fp32=False):
     """[visited, elementwise, candidates] of the masked forward, dK/dV and
-    dQ kernels by fwd.py's and bwd.py's mirrors of their producers: the
-    tiles visited, those of them with the elementwise test, and the
-    unmasked plan's tiles."""
+    dQ kernels (with ``fp32``, csrc/flash_fp32.cu's at their tiles) by
+    fwd.py's and bwd.py's mirrors of their producers: the tiles visited,
+    those of them with the elementwise test, and the unmasked plan's
+    tiles."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        kernel_tiles)
     counts = []
+    window = (-1, 0 if causal else -1)
+    if fp32:
+        rows_dkv, keys_dkv = kernel_tiles("dkv_fp32", d)
+        dense = (fwd.key_tile_plan(s, s, causal, 128,
+                                   kernel_tiles("fwd_fp32", d)[1]),
+                 [bwd.query_tile_order(*bwd.query_window(
+                     n0, s, s, window, rows_dkv, keys_dkv))
+                  for n0 in range(0, s, keys_dkv)],
+                 fwd.key_tile_plan(s, s, causal, 128,
+                                   kernel_tiles("dq_fp32", d)[1]))
+    else:
+        dense = (fwd.fwd_tile_plan(s, s, causal),
+                 bwd.bwd_dkv_tile_plan(s, s, causal),
+                 bwd.bwd_dq_tile_plan(s, s, causal, d))
     for plan, cands in (
-            (fwd.fwd_masked_tile_plan(masks, b, h, s, s, causal),
-             b * h * sum(map(len, fwd.fwd_tile_plan(s, s, causal)))),
-            (bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, s, s, causal),
-             b * h * sum(map(len, bwd.bwd_dkv_tile_plan(s, s, causal)))),
-            (bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, s, s, causal, d),
-             b * h * sum(map(len, bwd.bwd_dq_tile_plan(s, s, causal, d))))):
+            (fwd.fwd_masked_tile_plan(masks, b, h, s, s, causal, d, fp32),
+             b * h * sum(map(len, dense[0]))),
+            (bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, s, s, causal, d,
+                                          fp32),
+             b * h * sum(map(len, dense[1]))),
+            (bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, s, s, causal, d,
+                                         fp32),
+             b * h * sum(map(len, dense[2])))):
         tiles = [e for es in plan.values() for e in es]
         counts.append([len(tiles), sum(1 for e in tiles if e[-2]), cands])
     return counts
@@ -2515,21 +2559,68 @@ def plain_attention(q, k, v, do, causal, keep, upcast):
     return [torch.cat(p, 1) for p in zip(*parts)]
 
 
+def entry_launches(dtype, reduced=False):
+    """The launches of one forward and backward through an attention entry
+    in ``dtype`` (bf16: csrc/flash_fwd.cu and flash_bwd.cu; fp32:
+    csrc/flash_fp32.cu), and of a reduced-scores call when ``reduced``."""
+    f32 = dtype == torch.float32
+    return {**{key: 0 for key in counters()},
+            "flash_fwd_fp32" if f32 else "flash_fwd (flash_attention_fwd)": 1,
+            "flash_bwd_prep": 1,
+            "flash_bwd_dkv_fp32" if f32 else "flash_bwd_dkv": 1,
+            "flash_bwd_dq_fp32" if f32 else "flash_bwd_dq": 1,
+            "reduced_scores": int(reduced)}
+
+
+def entry_errors(name, got, ref, low):
+    """Each of out, the finite LSE and the gradients (``got``, None where
+    absent) against the fp32 plain version ``ref``: bf16 within twice the
+    bf16 plain version's (``low``) error, + 1e-4 (out, LSE) or 1e-3; fp32
+    (``low`` None) within 1e-4 of the largest |ref| + 1e-5 (the kernels'
+    three TF32 products against the plain fp32 products; the contract
+    against float64 is phase 3's). Returns {what: (err, bf16 plain err or
+    the fp32 tolerance)}."""
+    errs = {}
+    for i, (what, g) in enumerate(zip(("out", "lse", "dq", "dk", "dv"), got)):
+        if g is None:
+            continue
+        w, lo = ref[i], None if low is None else low[i]
+        if what == "lse":
+            fin = torch.isfinite(w)
+            check(torch.equal(fin, torch.isfinite(g)),
+                  f"{name}: rows with no key differ")
+            g, w, lo = g[fin], w[fin], None if lo is None else lo[fin]
+        e = max_err(g, w)
+        if lo is None:
+            tol = 1e-4 * w.abs().max().item() + 1e-5
+            errs[what] = (e, tol)
+            check(e <= tol, f"{name} {what}: err vs fp32 plain {e} > {tol}")
+        else:
+            e_lp = max_err(lo, w)
+            errs[what] = (e, e_lp)
+            check(e <= 2 * e_lp + (1e-4 if what in ("out", "lse") else 1e-3),
+                  f"{name} {what}: err vs fp32 plain {e} > 2 x bf16 plain "
+                  f"{e_lp}")
+    return errs
+
+
 def sparse_case(gen, name, shape, causal, indices=None, block_mask=None,
-                reduced=False):
+                reduced=False, dtype=torch.bfloat16):
     """Phase 11, one case: forward and backward through the public entry
     (`flashmask_attention` or `blocksparse_attention`, an autograd
     function), and `calc_reduced_attn_scores` on its LSE when ``reduced``;
-    launches exact; the contract of the fp32 plain version against the bf16
-    plain version on out, the finite LSE and every gradient; a second pass
-    bitwise equal. Returns its launches by kernel."""
+    launches exact; in bf16 the contract of the fp32 plain version against
+    the bf16 plain version on out, the finite LSE and every gradient, in
+    fp32 (``dtype``) the fp32 kernels against the fp32 plain version
+    (entry_errors); a second pass bitwise equal. Returns its launches by
+    kernel."""
     from xhy_flash_attention_tpu_torch import (
         blocksparse_attention, calc_reduced_attn_scores, flashmask_attention)
     from xhy_flash_attention_tpu_torch.ops.flash_attention import common
     from xhy_flash_attention_tpu_torch.ops.flash_attention import \
         reduced_scores as rs
     b, h, hk, s, d = _dims(shape)
-    q, k, v, do = _sparse_inputs(gen, shape)
+    q, k, v, do = _sparse_inputs(gen, shape, dtype)
     flags = _flags(indices, causal, block_mask)
 
     def run():
@@ -2550,39 +2641,25 @@ def sparse_case(gen, name, shape, causal, indices=None, block_mask=None,
     out, lse, grads, red = run()
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {**{key: 0 for key in counters()},
-            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_prep": 1,
-            "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
-            "reduced_scores": int(reduced)}
+    want = entry_launches(dtype, reduced)
     check(counts == want, f"{name}: launches {counts} != {want}")
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
           f"{name}: non-finite output or gradient")
     keep = common.dense_keep_mask(s, s, h, **flags)
     share = visible_pairs(_keep(flags, causal, h, s, s), b, h) / (b * h * s * s)
     ref = plain_attention(q, k, v, do, causal, keep, upcast=True)
-    low = plain_attention(q, k, v, do, causal, keep, upcast=False)
-    errs = {}
-    for what, got, w, lo in zip(("out", "lse", "dq", "dk", "dv"),
-                                (out, lse, *grads), ref, low):
-        if got is None:
-            continue
-        if what == "lse":
-            fin = torch.isfinite(w)
-            check(torch.equal(fin, torch.isfinite(got)),
-                  f"{name}: rows with no key differ")
-            got, w, lo = got[fin], w[fin], lo[fin]
-        e, e_lp = max_err(got, w), max_err(lo, w)
-        errs[what] = (e, e_lp)
-        check(e <= 2 * e_lp + (1e-4 if what in ("out", "lse") else 1e-3),
-              f"{name} {what}: err vs fp32 plain {e} > 2 x bf16 plain {e_lp}")
+    low = (plain_attention(q, k, v, do, causal, keep, upcast=False)
+           if dtype == torch.bfloat16 else None)
+    errs = entry_errors(name, (out, lse, *grads), ref, low)
     del ref, low
     out2, _, grads2, red2 = run()
     check(torch.equal(out, out2) and all(torch.equal(a, c) for a, c in
                                          zip(grads, grads2)),
           f"{name}: a second pass is not bitwise equal")
+    against = "bf16 plain" if dtype == torch.bfloat16 else "tol"
     line = (f"  {name}: b{b} h{h} hk{hk} s{s} d{d} "
             f"{'causal' if causal else 'full'}, visible share {share:.4f}; "
-            + ", ".join(f"{w_} err {e:.3g} (bf16 plain {e_lp:.3g})"
+            + ", ".join(f"{w_} err {e:.3g} ({against} {e_lp:.3g})"
                         for w_, (e, e_lp) in errs.items())
             + "; second pass bitwise equal")
     if reduced:
@@ -2634,7 +2711,7 @@ def sparse_masks(gen):
     add(bs, sparse_case(gen, "BS", BS, False,
                         block_mask=bigbird_mask(gen, b, s // BS_BLOCK)))
     torch.cuda.empty_cache()
-    rows = {}
+    rows = fp32_sparse_masks(gen)
     for label, c in (("FlashMask", fm), ("block-sparse", bs)):
         rows[f"flash_fwd ({label})"] = c["flash_fwd (flash_attention_fwd)"]
         rows[f"flash_bwd_dkv ({label})"] = c["flash_bwd_dkv"]
@@ -2643,6 +2720,43 @@ def sparse_masks(gen):
     rows["flash_bwd_dkv (FM-swg)"] = swg["flash_bwd_dkv"]
     rows["flash_bwd_dq (FM-swg)"] = swg["flash_bwd_dq"]
     rows["reduced_scores"] = fm["reduced_scores"]
+    return rows
+
+
+def own_gen(gen, offset):
+    """A generator of its own, seeded from ``gen``'s seed + ``offset``: the
+    fp32 masked cases draw from it, so that every earlier phase
+    draws what it drew before."""
+    return torch.Generator(device="cuda").manual_seed(gen.initial_seed()
+                                                      + offset)
+
+
+def fp32_sparse_masks(gen):
+    """Phase 11's fp32 cases: FM-doc, FM-swg with the reduced
+    scores of its LSE, and BS, in float32 through the same entries (the
+    masked instantiations of csrc/flash_fp32.cu). Returns the launches of
+    each phase 3 fp32 row on this path."""
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    f32, rows, gen = torch.float32, {}, own_gen(gen, 1811)
+    b, _, _, s, _ = _dims(FM_DOC)
+    cases = (("FM-doc-fp32", FM_DOC, True,
+              dict(indices=doc_indices(gen, b, s))),)
+    b, _, _, s, _ = _dims(FM_SWG)
+    cases += (("FM-swg-fp32", FM_SWG, True, dict(
+        indices=global_sliding_window_mask(b, s, SWG_WINDOW, SWG_GLOBAL),
+        reduced=True)),)
+    b, _, _, s, _ = _dims(BS)
+    cases += (("BS-fp32", BS, False, dict(
+        block_mask=bigbird_mask(gen, b, s // BS_BLOCK))),)
+    for label, shape, causal, kw in cases:
+        counts = sparse_case(gen, label, shape, causal, dtype=f32, **kw)
+        for row in ("flash_fwd_fp32", "flash_bwd_dkv_fp32",
+                    "flash_bwd_dq_fp32"):
+            rows[f"{row} ({label})"] = counts[row]
+        if kw.get("reduced"):
+            rows["reduced_scores (fp32, FM-swg-fp32)"] = \
+                counts["reduced_scores"]
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2729,7 +2843,7 @@ def mistral_serving(seed, gen):
 # ----------------------------------- phase 13: varlen and windowed entries
 
 def varlen_case(gen, name, shape, lengths=None, window=(-1, -1),
-                kvpacked=False):
+                kvpacked=False, dtype=torch.bfloat16):
     """Phase 13, one case: forward and backward through a public entry,
     causal: `flash_attn_varlen_func` (or, with ``kvpacked``,
     `flash_attn_varlen_kvpacked_func` on one (total, 2, hk, d) kv tensor)
@@ -2740,13 +2854,15 @@ def varlen_case(gen, name, shape, lengths=None, window=(-1, -1),
     mask, by kv-head groups) on out, the finite LSE and every gradient; a
     second pass bitwise equal; fwd + bwd ms beside SDPA with the dense
     mask and, for a varlen case without kv packing, the FlashMask route
-    (causal_document_mask) on the same documents. Returns its launches."""
+    (causal_document_mask) on the same documents. In fp32 (``dtype``) the
+    fp32 kernels against the fp32 plain version (entry_errors). Returns its
+    launches."""
     from xhy_flash_attention_tpu_torch import (
         causal_document_mask, flash_attention, flash_attn_varlen_func,
         flash_attn_varlen_kvpacked_func, flashmask_attention)
     from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd
     b, h, hk, s, d = _dims(shape)
-    q, k, v, do = _sparse_inputs(gen, shape)
+    q, k, v, do = _sparse_inputs(gen, shape, dtype)
     flags, cu = {}, None
     if lengths is not None:
         cu = doc_cu_seqlens(gen, s, *lengths)
@@ -2788,30 +2904,16 @@ def varlen_case(gen, name, shape, lengths=None, window=(-1, -1),
         out, lse, grads = run()
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {**{key: 0 for key in counters()},
-            "flash_fwd (flash_attention_fwd)": 1, "flash_bwd_prep": 1,
-            "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    want = entry_launches(dtype)
     check(counts == want, f"{name}: launches {counts} != {want}")
     check(not plain, f"{name}: plain versions ran: {plain}")
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)),
           f"{name}: non-finite output or gradient")
     share = visible_pairs(keep, b, h) / (b * h * s * s)
     ref = plain_attention(q, k, v, do, eff, keep, upcast=True)
-    low = plain_attention(q, k, v, do, eff, keep, upcast=False)
-    errs = {}
-    for what, got, w, lo in zip(("out", "lse", "dq", "dk", "dv"),
-                                (out, lse, *grads), ref, low):
-        if got is None:
-            continue
-        if what == "lse":
-            fin = torch.isfinite(w)
-            check(torch.equal(fin, torch.isfinite(got)),
-                  f"{name}: rows with no key differ")
-            got, w, lo = got[fin], w[fin], lo[fin]
-        e, e_lp = max_err(got, w), max_err(lo, w)
-        errs[what] = (e, e_lp)
-        check(e <= 2 * e_lp + (1e-4 if what in ("out", "lse") else 1e-3),
-              f"{name} {what}: err vs fp32 plain {e} > 2 x bf16 plain {e_lp}")
+    low = (plain_attention(q, k, v, do, eff, keep, upcast=False)
+           if dtype == torch.bfloat16 else None)
+    errs = entry_errors(name, (out, lse, *grads), ref, low)
     del ref, low
     out2, _, grads2 = run()
     check(torch.equal(out, out2) and all(torch.equal(a, c) for a, c in
@@ -2823,8 +2925,9 @@ def varlen_case(gen, name, shape, lengths=None, window=(-1, -1),
             + (f", {cu.numel() - 1} documents of {lengths[0]}-{lengths[1]}"
                if cu is not None else f", window {window}")
             + f", visible share {share:.4f}; "
-            + ", ".join(f"{w_} err {e:.3g} (bf16 plain {e_lp:.3g})"
-                        for w_, (e, e_lp) in errs.items())
+            + ", ".join(f"{w_} err {e:.3g} ("
+                        f"{'bf16 plain' if dtype == torch.bfloat16 else 'tol'}"
+                        f" {e_lp:.3g})" for w_, (e, e_lp) in errs.items())
             + f"; second pass bitwise equal; fwd + bwd {ms:.4f} ms; SDPA "
             f"with the dense mask fwd + bwd {lib_fwd + lib_bwd:.4f} ms")
     if cu is not None and not kvpacked:
@@ -2837,7 +2940,9 @@ def varlen_case(gen, name, shape, lengths=None, window=(-1, -1),
         fm_out, _ = run_fm()
         torch.cuda.synchronize()
         fm_err = max_err(fm_out, out)
-        tol = BF16_ULP * out.float().abs().max().item() + 1e-3
+        tol = ((BF16_ULP if dtype == torch.bfloat16 else 1e-4)
+               * out.float().abs().max().item()
+               + (1e-3 if dtype == torch.bfloat16 else 1e-5))
         check(fm_err <= tol, f"{name}: the FlashMask route differs by "
                              f"{fm_err} > {tol}")
         line += (f"; the FlashMask route on the same documents (FM-doc's "
@@ -2857,12 +2962,20 @@ def varlen_entries(gen):
     for name, shape, kw in (
             ("VL-doc", VL_DOC, dict(lengths=VL_DOC_LENGTHS)),
             ("VL-gqa", VL_GQA, dict(lengths=VL_GQA_LENGTHS, kvpacked=True)),
-            ("SW", SW, dict(window=SW_WINDOW))):
-        counts = varlen_case(gen, name, shape, **kw)
-        label = "SW" if name == "SW" else "VL-doc"
-        for key, row in (("flash_fwd (flash_attention_fwd)", "flash_fwd"),
-                         ("flash_bwd_dkv", "flash_bwd_dkv"),
-                         ("flash_bwd_dq", "flash_bwd_dq")):
+            ("SW", SW, dict(window=SW_WINDOW)),
+            ("VL-doc-fp32", VL_DOC, dict(lengths=VL_DOC_LENGTHS,
+                                         dtype=torch.float32))):
+        counts = varlen_case(own_gen(gen, 1813) if name.endswith("fp32")
+                             else gen, name, shape, **kw)
+        label = {"SW": "SW", "VL-doc-fp32": "VL-doc-fp32"}.get(name, "VL-doc")
+        keys = ((("flash_fwd_fp32", "flash_fwd_fp32"),
+                 ("flash_bwd_dkv_fp32", "flash_bwd_dkv_fp32"),
+                 ("flash_bwd_dq_fp32", "flash_bwd_dq_fp32"))
+                if name.endswith("fp32") else
+                (("flash_fwd (flash_attention_fwd)", "flash_fwd"),
+                 ("flash_bwd_dkv", "flash_bwd_dkv"),
+                 ("flash_bwd_dq", "flash_bwd_dq")))
+        for key, row in keys:
             rows[f"{row} ({label})"] = rows.get(f"{row} ({label})", 0) + \
                 counts[key]
         torch.cuda.empty_cache()
@@ -3992,11 +4105,13 @@ def fp32_bound(flops: float, nbytes: float):
     return bound(FP32_PRODUCTS * flops, PEAK_TF32_FLOPS, nbytes)
 
 
-def attention64(q, k, v, *, sm_scale, causal, softcap=0.0, lengths=None):
+def attention64(q, k, v, *, sm_scale, causal, softcap=0.0, lengths=None,
+                keep=None):
     """(out, lse) in float64 of (b, h, sq, d) q against (b, hk, sk, d) k/v
     (GQA by repeat): bottom-right causal, or with ``lengths`` (b,) each
-    batch row's query i seeing keys j <= lengths[b] - sq + i; rows that
-    see no key give 0 (lse -inf)."""
+    batch row's query i seeing keys j <= lengths[b] - sq + i; ``keep`` a
+    dense keep mask (b|1, hm|1, sq, sk) of the mask flags (head i reads
+    mask head i // (h / hm)); rows that see no key give 0 (lse -inf)."""
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     g = h // k.shape[1]
@@ -4008,8 +4123,12 @@ def attention64(q, k, v, *, sm_scale, causal, softcap=0.0, lengths=None):
         last = (torch.full((b,), sk, device=q.device) if lengths is None
                 else lengths.long())
         pos = last[:, None] - sq + torch.arange(sq, device=q.device)
-        keep = torch.arange(sk, device=q.device) <= pos[:, :, None]
-        s = s.masked_fill(~keep[:, None], float("-inf"))
+        seen = torch.arange(sk, device=q.device) <= pos[:, :, None]
+        s = s.masked_fill(~seen[:, None], float("-inf"))
+    if keep is not None:
+        from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+            expand_heads)
+        s = s.masked_fill(~expand_heads(keep, q.shape[1]), float("-inf"))
     lse = torch.logsumexp(s, -1)
     p = torch.nan_to_num(torch.softmax(s, -1))
     return p @ v.double().repeat_interleave(g, 1), lse
@@ -4418,6 +4537,308 @@ def fp32_kernels(gen):
     return rows
 
 
+# ------------------------- phase 3's fp32 rows under masks and fp32 #12
+
+# float64 references on a subset of at most this many bytes of scores
+FP64_SUBSET_BYTES = 2.2e9
+
+
+def fp32_subset_contract(label, ins, got, masks, eff, n_tok):
+    """The fp32 contract against float64 (fp32_contract) on batch 0, whole
+    kv-head groups (FP64_SUBSET_BYTES of float64 scores at most) and the
+    first ``n_tok`` tokens, a prefix no visible pair crosses: the kernels'
+    out, LSE, dq, dk, dv (``got``) and the fp32 plain version's on the
+    same subset against float64 with the mask flags' keep mask. Rows that
+    see nothing must have the kernels' LSE +inf and out 0. Returns
+    {what: (err, fp32 plain err)}."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, common, fwd)
+    q, k, v, do = ins
+    h, hk, d = q.shape[1], k.shape[1], q.shape[3]
+    g = h // hk
+    n_kv = max(1, min(hk, int(FP64_SUBSET_BYTES // (g * n_tok * n_tok * 8))))
+    cut = (lambda t, heads: t[:1, :heads, :n_tok].contiguous())
+    sub = [cut(q, g * n_kv), cut(k, n_kv), cut(v, n_kv), cut(do, g * n_kv)]
+    keep = common.expand_heads(masks.keep(h, "cuda"), h)
+    keep = keep[:1, :g * n_kv if keep.shape[1] > 1 else 1, :n_tok, :n_tok]
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+    p_out, p_lse = fwd.attention_fwd_ref(*sub[:3], need_lse=True, mask=keep,
+                                         **kw)
+    plain = (p_out, p_lse) + bwd.attention_bwd_ref(*sub[:3], p_out, p_lse,
+                                                   sub[3], mask=keep, **kw)
+    want = attention64_grads(*sub, sm_scale=d ** -0.5, causal=eff, keep=keep)
+    mine = [cut(t, g * n_kv if i in (0, 1, 2) else n_kv)
+            for i, t in enumerate(got)]
+    seen = torch.isfinite(want[1])
+    check(bool(torch.isinf(mine[1][~seen]).all())
+          and not mine[0][~seen].abs().any(),
+          f"{label}: a row that sees nothing is not 0 with LSE +inf")
+    errs = {}
+    for what, a, pl, w in zip(("out", "lse", "dq", "dk", "dv"), mine, plain,
+                              want):
+        if what == "lse":
+            a, pl, w = a[seen], pl[seen], w[seen]
+        errs[what] = fp32_contract(f"{label} {what}", a, pl, w)
+    print(f"  {label}: vs float64 on batch 0, {g * n_kv} heads, "
+          f"{n_tok} tokens ({int((~seen).sum())} rows see nothing): "
+          + ", ".join(f"{w_} {e:.3g} <= 2 x fp32 plain {ep:.3g} + 1e-4"
+                      for w_, (e, ep) in errs.items()), flush=True)
+    return errs
+
+
+def check_sparse_fp32(gen, label, shape, causal, make_flags, n_tok=None):
+    """Phase 3 rows of the masked fp32 forward (#1), dK/dV (#2) and dQ (#3)
+    kernels (csrc/flash_fp32.cu) at ``shape`` under the flags of
+    ``make_flags``: the contract against float64 on a subset
+    (fp32_subset_contract; ``n_tok`` its token prefix, all by default);
+    against the fp32 plain version on all of it (by kv-head groups: 1e-4
+    of the largest |ref|, + 1e-5 for out); three backward passes bitwise
+    equal; the timed launches (the mask arguments made once) into
+    NaN-filled buffers equal to the checked outputs; the tiles they visit
+    equal to the fp32 mirrors of fwd.py and bwd.py; bounds from the visible
+    pairs (3 TF32 products at 495 TFLOP/s), SDPA fp32 (TF32 off) with the
+    dense mask as the library call."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, s, d = _dims(shape)
+    f32 = torch.float32
+    q, k, v, do = _sparse_inputs(gen, shape, f32)
+    flags = make_flags(gen)
+    eff, masks = fwd.build_masks(b, h, s, s, causal, **flags)
+    dense = masks.keep(h, "cuda")
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw,
+                                       masks=masks)
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, **kw, masks=masks)
+    torch.cuda.synchronize()
+    fp32_subset_contract(label, (q, k, v, do), (out, lse, *grads), masks,
+                         eff, n_tok or s)
+    torch.cuda.empty_cache()
+    ref, ref_lse = plain_fwd_groups(q, k, v, dense, **kw)
+    fin = torch.isfinite(ref_lse)
+    check(torch.equal(fin, torch.isfinite(lse)),
+          f"flash_fwd_fp32 ({label}): rows with no key differ")
+    err = max_err(out, ref)
+    tol = 1e-4 * ref.abs().max().item() + 1e-5
+    err_lse = max_err(lse[fin], ref_lse[fin])
+    check(err <= tol and err_lse <= 1e-4,
+          f"flash_fwd_fp32 ({label}): err {err} > {tol} or lse err {err_lse}")
+    del ref, ref_lse
+    want = plain_bwd_groups(q, k, v, out, lse, do, dense, **kw)
+    torch.cuda.synchronize()
+    err_dq = max_err(grads[0], want[0])
+    err_dkv = max(max_err(grads[1], want[1]), max_err(grads[2], want[2]))
+    gtol = 1e-4 * max(w.abs().max().item() for w in want)
+    check(max(err_dq, err_dkv) <= gtol,
+          f"flash_bwd fp32 ({label}): err vs plain {err_dq}, {err_dkv} > "
+          f"{gtol}")
+    del want
+    _bitwise_three_passes(lambda: [t.clone() for t in bwd.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw, masks=masks)],
+        f"fp32 masked backward at {label}")
+    keep = _causal_part(dense, eff, s, s)
+    n_vis = visible_pairs(keep, b, h)
+    share = n_vis / (b * h * s * s)
+    lib_fwd, lib_bwd = _sdpa_masked_ms(q, k, v, do, keep)
+    del keep
+    torch.cuda.empty_cache()
+    io = 4.0 * b * s * d * (2 * h + 2 * hk)  # q, o | do and k, v (fp32)
+    shape_txt = (f"b{b} h{h} hk{hk} s{s} d{d} "
+                 f"{'causal' if causal else 'full'}")
+    masks.bands()  # made once, as the stats
+    fwd_out = torch.full_like(out, float("nan"))
+    fwd_counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fwd.launch_flash_fwd(q, k, v, fwd_out, None, masks=masks,
+                         tile_counts=fwd_counts, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(fwd_out, out),
+          f"flash_fwd_fp32 ({label}): the timed launch differs from the "
+          "checked output")
+    bms, by = fp32_bound(2 * 2 * d * n_vis, io)
+    src = "xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu"
+    rows = [dict(
+        name=f"flash_fwd_fp32 ({label})", route="cuda", source=src,
+        replaces="xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78",
+        max_abs_err=err,
+        ms=time_ms([lambda: fwd.launch_flash_fwd(
+            q, k, v, fwd_out, None, masks=masks, **kw)]),
+        plain_ms=time_ms([lambda: plain_fwd_groups(q, k, v, dense, **kw)],
+                         iters=2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=lib_fwd)]
+    report(rows[0], f"tol {tol:.3g} = 1e-4 of max|out| + 1e-5 vs the fp32 "
+                    f"plain version; lse err {err_lse:.3g}; {shape_txt}, "
+                    f"visible share {share:.4f}, flops {4 * d * n_vis:.4g}, "
+                    f"{bms / rows[0]['ms']:.3f} of the bound (3 TF32 "
+                    f"products at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, by "
+                    f"{by}); library: SDPA fp32 with the dense boolean mask")
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    dq, dk, dv = (torch.full_like(t, float("nan")) for t in grads)
+    args = (qs, k, v, do, lse, delta, dq, dk, dv)
+    kw32 = dict(sm_scale=kw["sm_scale"], window=fwd.fp32_window(masks, eff),
+                softcap=0.0, masks=masks, causal=eff)
+    counted = [fwd_counts[1:].tolist()]
+    for fn in (bwd.flash_bwd_dkv_fp32, bwd.flash_bwd_dq_fp32):
+        counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+        fn(*args, tile_counts=counts, **kw32)
+        counted.append(counts[1:].tolist())
+    mirror = mirror_tile_counts(masks, b, h, hk, s, eff, d, fp32=True)
+    check(counted == [m[:2] for m in mirror],
+          f"flash_fp32 ({label}): the kernels visited {counted} tiles "
+          f"(visited, elementwise), the mirrors {mirror}")
+    print(f"  tile plan ({label}, counted by the fp32 kernels, equal to "
+          "fwd.py's and bwd.py's fp32 mirrors): " + "; ".join(
+              f"{name} {n} visited ({e} elementwise), {c - n} of {c} skipped"
+              for name, (n, e, c) in zip(("forward", "dK/dV", "dQ"), mirror)),
+          flush=True)
+    stats = 2 * 4.0 * b * h * s  # lse, delta (fp32)
+    plain_ms = time_ms([lambda: plain_bwd_groups(
+        q, k, v, out, lse, do, dense, **kw)], iters=1, warmup=1)
+    bwd_rows = []
+    for name, fn, n_mm, out_bytes, e, replaces in (
+            ("flash_bwd_dkv_fp32", bwd.flash_bwd_dkv_fp32, 4,
+             2 * 4.0 * b * s * hk * d, err_dkv, "bwd.py:180"),
+            ("flash_bwd_dq_fp32", bwd.flash_bwd_dq_fp32, 3,
+             4.0 * b * s * h * d, err_dq, "bwd.py:511")):
+        bms, by = fp32_bound(n_mm * 2 * d * n_vis, io + stats + out_bytes)
+        row = dict(
+            name=f"{name} ({label})", route="cuda", source=src,
+            replaces="xhy_flash_attention_tpu/ops/flash_attention/" + replaces,
+            max_abs_err=e,
+            ms=time_ms([lambda fn=fn: fn(*args, **kw32)], iters=10),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+        report(row, f"tol {gtol:.3g} = 1e-4 of max|grad| vs the fp32 plain "
+                    f"backward; {shape_txt}, visible share {share:.4f}, "
+                    f"{n_mm} products over the visible pairs, "
+                    f"{bms / row['ms']:.3f} of the bound; plain_ms and "
+                    "library_ms of the whole backward (SDPA fp32 with the "
+                    "dense mask, fwd + bwd minus fwd)")
+        bwd_rows.append(row)
+    check(all(torch.equal(a, c) for a, c in zip((dq, dk, dv), grads)),
+          f"flash_bwd fp32 ({label}): the timed launches differ from the "
+          "checked gradients")
+    summed = bwd_rows[0]["ms"] + bwd_rows[1]["ms"]
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        KernelMasks)
+
+    def mask_args():  # the host's part of a call: flags, stats, ranges
+        made = fwd.build_masks(b, h, s, s, causal, **flags)[1]
+        for kind in ("fwd_fp32", "dkv_fp32", "dq_fp32"):
+            KernelMasks.c_args(made, eff, kind, d)
+        made.bands()
+    entry = time_ms([lambda: fwd.flash_attention_fwd(
+        q, k, v, need_lse=False, sm_scale=kw["sm_scale"], causal=causal,
+        **flags)])
+    print(f"  fp32 attention backward ({label}): dK/dV + dQ {summed:.4f} ms; "
+          f"SDPA fp32 backward with the mask {lib_bwd:.4f} ms; the entry's "
+          f"forward with its mask arguments made per call {entry:.4f} ms "
+          f"(kernel {rows[0]['ms']:.4f}); the mask arguments of the three "
+          f"fp32 kernels alone (stats, token stats and ranges at their "
+          f"tiles, bands) {time_ms([mask_args], iters=5):.4f} ms", flush=True)
+    return rows + bwd_rows, (q, k, lse)
+
+
+def check_reduced_fp32(q, k, lse):
+    """Phase 3 row of the fp32 reduced-scores kernel (#12 in fp32,
+    csrc/flash_fp32.cu reduced_scores_fp32_kernel) at FM-swg's shape on the
+    LSE of FM-swg-fp32's masked forward: against the fp32 plain version
+    (1e-4 of the largest score) and float64 (the fp32_gate form: at most
+    twice the fp32 plain version's error + 1e-4 of the largest score; the
+    sums reach hundreds), bitwise equal across two launches. No single
+    PyTorch call computes the function: library_ms is null."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        reduced_scores as rs)
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    got = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    again = rs.calc_reduced_attn_scores(q, k, lse, causal=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "reduced_scores fp32: two launches differ")
+    plain = torch.cat([rs.reduced_scores_ref(
+        q[:, j * g:(j + 1) * g], k[:, j:j + 1], lse[:, j * g:(j + 1) * g],
+        sm_scale=d ** -0.5, causal=True) for j in range(hk)], 1)
+    err = max_err(got, plain)
+    tol = 1e-4 * plain.abs().max().item()
+    check(err <= tol, f"reduced_scores fp32 err {err} > {tol}")
+    rows = torch.arange(s, device="cuda")[:, None] + 0
+    cols = torch.arange(s, device="cuda")[None]
+    hidden = cols > rows  # the causal superset, sq == sk
+    want = []
+    for j in range(hk):  # float64, a kv-head group at a time
+        sc = (q[:, j * g:(j + 1) * g].double() @ k[:, j:j + 1].double()
+              .transpose(-1, -2)) * d ** -0.5
+        p = torch.exp(sc - lse[:, j * g:(j + 1) * g].double()[..., None])
+        want.append(p.masked_fill(hidden, 0.0).sum(-2))
+        del sc, p
+    gate = fp32_gate("reduced_scores fp32 (FM-swg-fp32)", got, plain,
+                     torch.cat(want, 1))
+    del want
+    n_vis = b * h * s * (s + 1) / 2.0  # the causal region
+    nbytes = 4.0 * b * s * d * (h + hk) + 4.0 * b * h * s * 2  # q, k | lse, out
+    bms, by = fp32_bound(2 * d * n_vis, nbytes)
+    floor = exp_floor_ms(n_vis)
+    if floor > bms:
+        bms, by = floor, "operations"
+    row = dict(
+        name="reduced_scores (fp32, FM-swg-fp32)", route="cuda",
+        source="xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu",
+        replaces=("xhy_flash_attention_tpu/ops/flash_attention/"
+                  "reduced_scores.py:34"),
+        max_abs_err=err,
+        ms=time_ms([lambda: rs.calc_reduced_attn_scores(q, k, lse,
+                                                        causal=True)]),
+        plain_ms=time_ms([lambda: [rs.reduced_scores_ref(
+            q[:, j * g:(j + 1) * g], k[:, j:j + 1], lse[:, j * g:(j + 1) * g],
+            sm_scale=d ** -0.5, causal=True) for j in range(hk)]],
+            iters=2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    report(row, f"tol {tol:.3g} = 1e-4 of max|score| vs the fp32 plain "
+                f"version; vs float64 {gate['kernels']:.3g} (fp32 plain "
+                f"{gate['plain']:.3g}); two launches bitwise equal; b{b} h{h} "
+                f"hk{hk} s{s} d{d} causal, 3 TF32 products of "
+                f"{2 * d * n_vis:.4g} flops, exponent floor {floor:.4f} ms; "
+                f"{bms / row['ms']:.3f} of the bound; library: none (no "
+                "single PyTorch call computes it)")
+    return row
+
+
+def fp32_masked_kernels(gen):
+    """Phase 3's masked fp32 rows: FM-doc-fp32, BS-fp32,
+    FM-swg-fp32 (then #12 in fp32 on its LSE) and VL-doc-fp32 (its float64
+    subset the documents of the first 4096 tokens or so). Returns the rows
+    of the line."""
+    gen = own_gen(gen, 1803)
+    b, _, _, s, _ = _dims(FM_DOC)
+    rows, _ = check_sparse_fp32(
+        gen, "FM-doc-fp32", FM_DOC, True,
+        lambda g: _flags(doc_indices(g, b, s), causal=True))
+    torch.cuda.empty_cache()
+    b, _, _, s, _ = _dims(BS)
+    more, _ = check_sparse_fp32(
+        gen, "BS-fp32", BS, False,
+        lambda g: _flags(block_mask=bigbird_mask(g, b, s // BS_BLOCK)))
+    rows += more
+    torch.cuda.empty_cache()
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    b, _, _, s, _ = _dims(FM_SWG)
+    more, qkl = check_sparse_fp32(
+        gen, "FM-swg-fp32", FM_SWG, True,
+        lambda g: _flags(global_sliding_window_mask(
+            b, s, SWG_WINDOW, SWG_GLOBAL), causal=True))
+    rows += more
+    torch.cuda.empty_cache()
+    rows.append(check_reduced_fp32(*qkl))
+    del qkl
+    torch.cuda.empty_cache()
+    s = VL_DOC["s"]
+    cu = doc_cu_seqlens(gen, s, *VL_DOC_LENGTHS)
+    n_tok = int(cu[cu >= 4096][0].item())  # a document boundary
+    more, _ = check_sparse_fp32(gen, "VL-doc-fp32", VL_DOC, True,
+                                lambda g: vl_flags(cu, cu, s, s), n_tok=n_tok)
+    rows += more
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------ phase 18: GPT-2 XL in fp32 (cell G)
 
 def gpt2_xl_state_dict(seed: int, hf):
@@ -4512,16 +4933,20 @@ def float64_versions():
                 (dout.double() * xhat).sum(0),
                 dout.double().sum(0) if has_bias else None)
 
+    def keep_of(masks, q):
+        return masks.keep(q.shape[1], q.device) if masks is not None else None
+
     def attention(q, k, v, *unused, sm_scale, causal, softcap, need_lse,
                   masks=None, **flags):
         out, lse = attention64(q, k, v, sm_scale=sm_scale, causal=causal,
-                               softcap=softcap)
+                               softcap=softcap, keep=keep_of(masks, q))
         return out, (lse if need_lse else None)
 
     def attention_bwd(q, k, v, out, lse, do, *unused, sm_scale, causal,
                       softcap, masks=None, **flags):
         return attention64_grads(q, k, v, do, sm_scale=sm_scale,
-                                 causal=causal, softcap=softcap)[2:]
+                                 causal=causal, softcap=softcap,
+                                 keep=keep_of(masks, q))[2:]
 
     def packed_fwd(q, k, v, *, sm_scale, causal, softcap, need_lse=False):
         out, lse = attention(*(t.transpose(1, 2) for t in (q, k, v)),
@@ -4702,13 +5127,30 @@ def gpt2_xl_serving(seed, gen):
 
 # ------------------------------- phase 19: T-packed in fp32 (T-packed-fp32)
 
-def train_vs_plain_fp64(name, seed, tmp, batch):
+def doc_loss(trainer, segment_ids):
+    """``trainer``'s loss with ``segment_ids`` (b, s), the packed
+    documents' ids, passed to the model's forward (every layer's
+    attention sees only its document; JAX gpt.py:270)."""
+    from xhy_flash_attention_tpu_torch.losses.cross_entropy import (
+        cross_entropy_loss)
+
+    def loss_fn(ids, labels):
+        logits, _ = trainer.model(ids, segment_ids=segment_ids)
+        return cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                                  labels.reshape(-1)).mean()
+    return loss_fn
+
+
+def train_vs_plain_fp64(name, seed, tmp, batch, docs=None):
     """One step's loss and every gradient at depth 2, full width, ``batch``,
     through the kernels, the fp32 plain versions and the float64 plain
     versions (the model in float64), same parameters and batch, under
-    fp32_gate."""
+    fp32_gate. ``docs``: (b, s) segment ids of packed documents passed to
+    the model (phase 20), whose step runs the masked fp32 kernels."""
     from xhy_flash_attention_tpu_torch.training import Trainer, load_config
     path, kernels = FP32_RECIPE
+    if docs is not None:
+        kernels = T_DOC_KERNELS
     cfg = load_config(path)
     tokens = os.path.join(tmp, f"{name}-depth2.bin")
     write_tokens(tokens, seed + 1, batch * (cfg.data.seqlen + 1) * 2)
@@ -4717,6 +5159,8 @@ def train_vs_plain_fp64(name, seed, tmp, batch):
                              "dtype": "float32"})
     trainer = Trainer(cfg)
     trainer.init_params()
+    if docs is not None:
+        trainer._loss_fn = doc_loss(trainer, docs[:batch])
     ids, labels = trainer._batch(*next(iter(trainer.data)))
     res = {}
     for path_name in ("kernels", "plain", "float64"):
@@ -4793,6 +5237,99 @@ def train_packed_fp32(seed):
             "flash_bwd_prep (fp32, G shape)": n["flash_bwd_prep"],
             "flash_bwd_dkv_fp32 (G shape)": n["fused_heads_bwd"],
             "flash_bwd_dq_fp32 (G shape)": n["fused_heads_bwd"]}
+
+
+# ---------------------- phase 20: T-doc-fp32, packed documents in fp32
+
+T_DOC_KERNELS = ("flash_fwd_fp32", "flash_bwd_prep", "flash_bwd_dkv_fp32",
+                 "flash_bwd_dq_fp32")
+T_DOC_STEPS = 4
+
+
+def train_doc_fp32(seed):
+    """Phase 20: `owt/gpt2m-flash.yaml` in fp32 at full width,
+    depth and batch, each row packed with documents whose lengths are drawn
+    from ``seed`` in DOC_LENGTHS (FM-doc's draw), cut at the row's end,
+    passed as ``segment_ids`` to GPTLMHeadModel's forward (MHA's unpacked
+    route: the masked fp32 #1, #2 and #3 on every layer); T_DOC_STEPS AdamW
+    steps of the recipe's optimizer through the Trainer, exact launches
+    each step and no plain version; ms a step and tokens/s; phase 10's
+    breakdown of one more step; then depth 2 against the fp32 and float64
+    plain paths (fp32_gate). Returns the launches."""
+    from xhy_flash_attention_tpu_torch.training import Trainer, load_config
+    name = "T-doc-fp32"
+    path = FP32_RECIPE[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(path)
+        seqlen, layers = cfg.data.seqlen, cfg.model["num_hidden_layers"]
+        batch = cfg.data.batch_size // 2 ** BATCH_CUT.get(
+            "T-packed-fp32", 0)
+        tokens = os.path.join(tmp, f"{name}.bin")
+        write_tokens(tokens, seed + 2, batch * (seqlen + 1) * (T_DOC_STEPS + 4))
+        cfg = load_config(path, {"data.path": tokens, "data.batch_size": batch,
+                                 "dtype": "float32"})
+        docs = doc_rows(gen, batch, seqlen).to(torch.int32)
+        lens = torch.unique_consecutive(docs[0], return_counts=True)[1]
+        print(f"  {name}: {path} in float32, hidden "
+              f"{cfg.model['hidden_size']}, {layers} layers, "
+              f"{cfg.model['num_attention_heads']} heads, seqlen {seqlen}, "
+              f"batch {batch}, rows packed with documents of "
+              f"{DOC_LENGTHS[0]}-{DOC_LENGTHS[1]} tokens (row 0: "
+              f"{lens.tolist()}), {T_DOC_STEPS} AdamW steps", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)
+        trainer.init_params()
+        trainer._loss_fn = doc_loss(trainer, docs)
+        build_s = time.perf_counter() - t0
+        want = {k: 0 for k in counters()}
+        want.update({"rms_norm_add": 2 * layers + 1, "ln_bwd": 2 * layers + 1,
+                     **{k: layers for k in T_DOC_KERNELS}})
+        launches = {k: 0 for k in counters()}
+        it = iter(trainer.data)
+        step_ms, losses = [], []
+        with count_plain_calls() as plain:
+            for step in range(T_DOC_STEPS):
+                ids, labels = trainer._batch(*next(it))
+                torch.cuda.synchronize()
+                reset_counts()
+                t1 = time.perf_counter()
+                loss, gnorm = trainer.train_step(ids, labels)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                counts = read_counts()
+                check(counts == want, f"{name} step {step + 1}: launches "
+                                      f"{counts} != {want}")
+                for k_, v_ in counts.items():
+                    launches[k_] += v_
+                print(f"    step {step + 1}: loss {losses[-1]:.4f}, grad norm "
+                      f"{float(gnorm):.4f}, step ms {step_ms[-1]:.2f}, "
+                      f"tokens/s {batch * seqlen / step_ms[-1] * 1e3:.1f}",
+                      flush=True)
+        check(not plain, f"{name}: plain versions ran: {plain}")
+        check(all(math.isfinite(x) for x in losses), f"{name}: {losses}")
+        check(abs(losses[0] - math.log(50257)) <= 0.5,
+              f"{name}: first loss {losses[0]} not within 0.5 of ln(50257)")
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        summary = dict(recipe=name, batch=batch, seqlen=seqlen, layers=layers,
+                       model_build_s=build_s, step_ms=step_ms,
+                       step_ms_median_of_2_on=steady,
+                       tokens_per_s=batch * seqlen / (steady / 1e3),
+                       peak_memory_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30, losses=losses,
+                       launches={k: v for k, v in launches.items() if v})
+        print(f"  {name} summary ({card_line()}): {json.dumps(summary)}",
+              flush=True)
+        train_breakdown(trainer, name)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_vs_plain_fp64(name, seed, tmp, batch, docs=docs)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -4876,6 +5413,8 @@ def main():
     rows.append(check_reduced(gen))
     torch.cuda.empty_cache()
     rows += fp32_kernels(gen)
+    torch.cuda.empty_cache()
+    rows += fp32_masked_kernels(gen)
     torch.cuda.empty_cache()
 
     print(f"[4] slice: Llama-3-8B width, {LAYERS} layers, random bf16 "
@@ -4988,7 +5527,8 @@ def main():
           flush=True)
     torch.cuda.empty_cache()
     print("[11] sparse masks: FM-doc, FM-swg and its reduced scores, FM-full, "
-          "BS", flush=True)
+          "BS; then FM-doc, FM-swg (and its reduced scores) and BS in fp32",
+          flush=True)
     launches.update(sparse_masks(gen))
     torch.cuda.empty_cache()
     print("[12] Mistral-7B width, 32 layers, random bf16 weights: request W "
@@ -4996,7 +5536,7 @@ def main():
     w_counts = mistral_serving(args.seed, gen)
     launches["flash_fwd (SW)"] = w_counts["flash_fwd (flash_attention_fwd)"]
     print("[13] varlen and windowed entries, forward and backward: VL-doc, "
-          "VL-gqa, SW", flush=True)
+          "VL-gqa, SW, VL-doc in fp32", flush=True)
     for key, n in varlen_entries(gen).items():
         launches[key] = launches.get(key, 0) + n
     torch.cuda.empty_cache()
@@ -5029,6 +5569,13 @@ def main():
           "dtype float32 at full width and depth, then depth 2 against the "
           "fp32 and float64 plain paths", flush=True)
     launches.update(train_packed_fp32(args.seed))
+    torch.cuda.empty_cache()
+    print("[20] cell T-doc-fp32: experiment/owt/gpt2m-flash.yaml in float32 "
+          "on packed documents (segment ids), full width and depth, then "
+          "depth 2 against the fp32 and float64 plain paths", flush=True)
+    t_doc = train_doc_fp32(args.seed)
+    print(f"  T-doc-fp32 launches on its main path: "
+          f"{json.dumps({k: v for k, v in t_doc.items() if v})}", flush=True)
 
     for row in rows:
         row["launches"] = launches.get(

@@ -30,8 +30,10 @@ graph_ms) with SDPA's fp32 forward beside the first two; the backward
 (dK/dV and dQ after the pre-pass) at G's shape (whole through
 ``flash_attention_bwd``, the pre-pass and each kernel) and at T-packed's
 (whole through ``fused_heads_bwd`` on the packed layout, and each kernel
-on its strides), with SDPA's fp32 backward beside each (TF32 off). CUDA
-events after a warm-up. The trees
+on its strides), with SDPA's fp32 backward beside each (TF32 off); in
+trees whose chip_smoke.py has phase 3's masked fp32 rows, the masked fp32
+forward, dK/dV and dQ at FM-doc, BS, FM-swg and VL-doc in fp32 (the mask
+arguments made once). CUDA events after a warm-up. The trees
 run first to last, then last to first. Prints the card's name and power
 limit first.
 """
@@ -170,6 +172,47 @@ def fp32_rows(cs, bwd, fh, fwd, timed, out):
                 qs, kt, vt, dot, lse, delta, *grads, **kw32), iters=10)
         out.append(f"fp32 sdpa bwd {name} {cs._sdpa_bwd_ms(qt, kt, vt, dot):.4f}")
         del qt, kt, vt, dot, ot, lse, qs, delta, grads
+        torch.cuda.empty_cache()
+    if hasattr(cs, "fp32_masked_kernels"):
+        fp32_masked_rows(cs, bwd, fwd, timed)
+
+
+def fp32_masked_rows(cs, bwd, fwd, timed):
+    """The masked fp32 kernels (forward, dK/dV, dQ) at phase 3's FM-doc,
+    BS, FM-swg and VL-doc shapes in fp32, the mask arguments made once."""
+    import torch
+    from xhy_flash_attention_tpu_torch import global_sliding_window_mask
+    cases = (
+        ("FM-doc-fp32", cs.FM_DOC, True,
+         lambda g, b, s: cs._flags(cs.doc_indices(g, b, s), causal=True)),
+        ("BS-fp32", cs.BS, False,
+         lambda g, b, s: cs._flags(block_mask=cs.bigbird_mask(
+             g, b, s // cs.BS_BLOCK))),
+        ("FM-swg-fp32", cs.FM_SWG, True,
+         lambda g, b, s: cs._flags(global_sliding_window_mask(
+             b, s, cs.SWG_WINDOW, cs.SWG_GLOBAL), causal=True)),
+        ("VL-doc-fp32", cs.VL_DOC, True,
+         lambda g, b, s: cs.vl_flags(*(cs.doc_cu_seqlens(
+             g, s, *cs.VL_DOC_LENGTHS),) * 2, s, s)))
+    for label, shape, causal, make in cases:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b, h, hk, s, d = cs._dims(shape)
+        q, k, v, do = cs._sparse_inputs(gen, shape, torch.float32)
+        eff, masks = fwd.build_masks(b, h, s, s, causal, **make(gen, b, s))
+        kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+        o, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, masks=masks,
+                                         **kw)
+        timed(f"fp32 masked fwd {label}", lambda: fwd.launch_flash_fwd(
+            q, k, v, o, None, masks=masks, **kw))
+        qs, delta = bwd.flash_bwd_prep(q, o, do, sm_scale=kw["sm_scale"])
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        kw32 = dict(sm_scale=kw["sm_scale"], window=fwd.fp32_window(masks, eff),
+                    softcap=0.0, masks=masks, causal=eff)
+        for which, fn in (("dkv", bwd.flash_bwd_dkv_fp32),
+                          ("dq", bwd.flash_bwd_dq_fp32)):
+            timed(f"fp32 masked {which} {label}", lambda fn=fn: fn(
+                qs, k, v, do, lse, delta, *grads, **kw32), iters=10)
+        del q, k, v, do, o, lse, qs, delta, grads, masks
         torch.cuda.empty_cache()
 
 

@@ -8,8 +8,9 @@ Builds each tree's kernels (its own build directory, in a child process
 with that tree's package) unless built, then for every instantiation of
 `flash_fwd_kernel`, `flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`,
 `flash_bwd_dbias_kernel`, `flash_bwd_prep_kernel`, `flash_decode_kernel`,
-`paged_decode_kernel`, `paged_prefill_kernel` and the fp32 kernels of
-flash_fp32.cu prints, per tree, the ptxas report's registers
+`paged_decode_kernel`, `paged_prefill_kernel`, `reduced_scores_kernel` and
+the fp32 kernels of flash_fp32.cu prints, per tree, the ptxas report's
+registers
 and spills and the SASS instruction count (`cuobjdump -sass`), and whether
 the opcode streams of the two trees are the same (operands, addresses and
 constants ignored), else how many opcodes a diff of the two streams
@@ -21,9 +22,10 @@ stands beside `<...>` of the first when the first has no such name. The
 last line counts the pairs with the same opcodes and those that differ. Last, the second tree's
 e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
 true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
-the script exits non-zero; and the second tree's fp32 attention kernels
-(`flash_fwd_fp32_kernel`, `flash_bwd_dkv_fp32_kernel`,
-`flash_bwd_dq_fp32_kernel`): each must issue `HGMMA ... TF32` and spill
+the script exits non-zero; and the second tree's fp32 kernels, dense and
+MASKED (`flash_fwd_fp32_kernel`, `flash_bwd_dkv_fp32_kernel`,
+`flash_bwd_dq_fp32_kernel`) and the fp32 reduced scores
+(`reduced_scores_fp32_kernel`): each must issue `HGMMA ... TF32` and spill
 nothing, else the script exits non-zero.
 Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
 """
@@ -37,11 +39,13 @@ import sys
 from pathlib import Path
 
 KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)(_fp32)?|flash_bwd_(dbias|prep)"
-                     r"|flash_decode|paged_decode|paged_prefill)_kernel<[^>]*>")
+                     r"|flash_decode|paged_decode|paged_prefill"
+                     r"|reduced_scores(_fp32)?)_kernel<[^>]*>")
 # trailing template arguments a kernel gained, at the old behaviour
 OLD_BEHAVIOUR = (", false>", ", __nv_bfloat16>")
 E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
-FP32_TF32 = re.compile(r"flash_(fwd|bwd_dkv|bwd_dq)_fp32_kernel<[^>]*>")
+FP32_TF32 = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)|reduced_scores)_fp32_kernel"
+                       r"<[^>]*>")
 
 
 def matched(first, second):

@@ -2253,31 +2253,282 @@ def test_fp32_gpt_config_builds_and_serves_on_the_card(cuda):
 
 
 def test_fp32_refuses_what_its_kernels_lack(cuda):
-    """fp32 under a bias, segment ids, a FlashMask, varlen and in the
-    reduced scores raises NotImplementedError on the card, never falling
-    back to a plain version; fp16 raises too."""
-    from xhy_flash_attention_tpu_torch import (
-        flash_attention, flash_attn_varlen_func, flashmask_attention)
+    """fp32 with an attention bias raises NotImplementedError on the card,
+    never falling back to a plain version or a bf16 kernel; fp16 raises
+    too (its forward and the reduced scores)."""
+    from xhy_flash_attention_tpu_torch import flash_attention
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
-        reduced_scores)
+        bwd, reduced_scores)
     b, h, s, d = 1, 4, 128, 64
     q = torch.randn(b, h, s, d, generator=cuda, device="cuda")
-    before = fwd.flash_fwd_fp32.launches
+    before = (fwd.flash_fwd_fp32.launches, fwd.flash_attention_fwd.launches,
+              bwd.flash_bwd_dkv_fp32.launches)
     with pytest.raises(NotImplementedError, match="Next slices"):
         flash_attention(q, q, q, torch.zeros(s, s, device="cuda"))
-    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="Next slices"):
-        flash_attention(q, q, q, None, seg, seg)
-    rows = torch.full((b, 1, s, 1), s, dtype=torch.int32, device="cuda")
+        flash_attention(q, q, q, torch.zeros(b, h, s, s, device="cuda"),
+                        causal=True)
     with pytest.raises(NotImplementedError, match="Next slices"):
-        flashmask_attention(q, q, q, rows, causal=True)
-    cu = torch.tensor([0, 50, s], dtype=torch.int32, device="cuda")
-    x = torch.randn(s, h, d, generator=cuda, device="cuda")
-    with pytest.raises(NotImplementedError, match="Next slices"):
-        flash_attn_varlen_func(x, x, x, cu, cu, 78, 78, causal=True)
-    with pytest.raises(NotImplementedError):
-        reduced_scores.calc_reduced_attn_scores(
-            q, q, torch.zeros(b, h, s, device="cuda"))
-    with pytest.raises(NotImplementedError):
         fwd.flash_attention_fwd(q.half(), q.half(), q.half(), sm_scale=1.0)
-    assert fwd.flash_fwd_fp32.launches == before
+    with pytest.raises(NotImplementedError, match="Next slices"):
+        reduced_scores.calc_reduced_attn_scores(
+            q.half(), q.half(), torch.zeros(b, h, s, device="cuda"))
+    assert (fwd.flash_fwd_fp32.launches, fwd.flash_attention_fwd.launches,
+            bwd.flash_bwd_dkv_fp32.launches) == before
+
+
+# ---- fp32 under FlashMask, block masks, segment ids and positions (the
+# masked instantiations of csrc/flash_fp32.cu) and fp32 #12
+
+def _masked_attention64(q, k, v, do, keep, causal):
+    """(out, lse, dq, dk, dv) in float64 under the dense keep mask (b|1,
+    hm|1, sq, sk) and the bottom-right causal flag; rows that see no key
+    give 0 (lse -inf)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        expand_heads)
+    ins = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    h, g = q.shape[1], q.shape[1] // k.shape[1]
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    s = (ins[0] * d ** -0.5) @ ins[1].repeat_interleave(g, 1).transpose(-1, -2)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + sk - sq
+        s = s.masked_fill(torch.arange(sk, device=q.device) > rows,
+                          float("-inf"))
+    s = s.masked_fill(~expand_heads(keep, h), float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    out = torch.nan_to_num(torch.softmax(s, -1)) @ ins[2].repeat_interleave(
+        g, 1)
+    grads = torch.autograd.grad(out, ins, do.double())
+    return (out.detach(), lse) + grads
+
+
+def _masked_fp32_flags(kind, b, h, s, gen):
+    """(causal, flags, window) of mask ``kind``; causal_2, the block mask,
+    the segment ids and the positions leave rows that see no key."""
+    from xhy_flash_attention_tpu_torch import causal_document_mask
+    if kind.startswith("flashmask"):
+        mode = kind.split()[1]
+        hm = 2 if mode == "full_4" else 1
+        nv = {"causal_1": 1, "causal_2": 2, "full_2": 2, "full_4": 4}[mode]
+        if mode == "causal_1":  # a causal document mask
+            lens = torch.randint(20, 90, (b, s // 20 + 1), generator=gen,
+                                 device="cuda")
+            ids = torch.stack([torch.repeat_interleave(
+                torch.arange(lens.shape[1], device="cuda"), n)[:s]
+                for n in lens])
+            return True, dict(flashmask_vecs=causal_document_mask(
+                ids).movedim(-1, 2), flashmask_mode=mode), (-1, -1)
+        lts = torch.randint(0, s + 1, (b, hm, 1, s), generator=gen,
+                            device="cuda")
+        if mode == "causal_2":
+            vecs = [lts, torch.clamp(lts + torch.randint(
+                0, s, lts.shape, generator=gen, device="cuda"), max=s)]
+        elif mode == "full_2":
+            vecs = [lts, (torch.rand(lts.shape, generator=gen, device="cuda")
+                          * (lts + 1)).long()]
+        else:
+            uts = torch.randint(0, s + 1, lts.shape, generator=gen,
+                                device="cuda")
+            vecs = [lts, torch.clamp(lts + s // 3, max=s), uts,
+                    torch.clamp(uts + s // 3, max=s)]
+        vecs = torch.cat(vecs, 2).to(torch.int32)
+        first = torch.arange(s, device="cuda") < 9
+        vecs[:, :, 0, :] = torch.where(first, 0, vecs[:, :, 0, :])
+        if mode == "causal_2":  # rows 0-8 see only the masked columns 0-8
+            vecs[:, :, 1, :] = torch.where(first, s, vecs[:, :, 1, :])
+        return mode.startswith("causal"), dict(flashmask_vecs=vecs,
+                                               flashmask_mode=mode), (-1, -1)
+    if kind == "block":  # granularity 64, block row 0 off
+        n = -(-s // 64)
+        bm = (torch.rand(b, 1, n, n, generator=gen, device="cuda") < 0.6).to(
+            torch.int32)
+        bm[:, :, 0] = 0
+        return False, dict(block_mask=(bm, 64, 64)), (-1, -1)
+    seg = torch.sort(torch.randint(1, 5, (b, s), generator=gen,
+                                   device="cuda"), -1).values.to(torch.int32)
+    qseg, kseg = seg.clone(), seg.clone()
+    qseg[:, -30:], kseg[:, -17:] = 0, 6  # padded tails, unequal
+    qseg[0, :11] = 9  # an id no key carries: rows that see nothing
+    flags = dict(q_segment_ids=qseg, kv_segment_ids=kseg)
+    if kind == "positions":
+        pos = (2 * torch.arange(s, device="cuda", dtype=torch.int32))[None]
+        flags.update(q_positions=(pos + 40).repeat(b, 1),
+                     kv_positions=pos.repeat(b, 1))
+        return True, flags, (50, -1)
+    return kind == "segments causal", flags, (-1, -1)
+
+
+MASKED_FP32_KINDS = ["flashmask causal_1", "flashmask causal_2",
+                     "flashmask full_2", "flashmask full_4", "block",
+                     "segments", "segments causal", "positions"]
+
+
+@pytest.mark.parametrize("hk", [8, 2])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", MASKED_FP32_KINDS)
+def test_fp32_masked_kernels_meet_the_contract(cuda, kind, d, hk):
+    """The masked fp32 forward, pre-pass, dK/dV and dQ through the public
+    wrappers (one launch each, the fp32 kernels only) under each mask:
+    out, LSE and every gradient against float64 within twice the fp32
+    plain versions' error plus 1e-4; against the plain versions within
+    1e-4 of their largest entries; rows that see no key give 0 and LSE
+    +inf; a second backward bitwise equal; the tiles the kernels visit
+    equal to the fp32 mirrors of fwd.py and bwd.py."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h, s = 2, 8, 300
+    causal, flags, window = _masked_fp32_flags(kind, b, h, s, cuda)
+    q, k, v, do = _fp32_case(cuda, b, h, hk, s, s, d)
+    eff, masks = fwd.build_masks(b, h, s, s, causal, window, **flags)
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+    counts = (fwd.flash_fwd_fp32, bwd.flash_bwd_prep, bwd.flash_bwd_dkv_fp32,
+              bwd.flash_bwd_dq_fp32, fwd.flash_attention_fwd,
+              bwd.flash_bwd_dkv, bwd.flash_bwd_dq)
+    before = [c.launches for c in counts]
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, masks=masks,
+                                       **kw)
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, masks=masks, **kw)
+    again = bwd.flash_attention_bwd(q, k, v, out, lse, do, masks=masks, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == \
+        [1, 2, 2, 2, 0, 0, 0]
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    keep = masks.keep(h, "cuda")
+    p_out, p_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=keep,
+                                         **kw)
+    p_grads = bwd.attention_bwd_ref(q, k, v, p_out, p_lse, do, mask=keep,
+                                    **kw)
+    want = _masked_attention64(q, k, v, do, keep, eff)
+    seen = torch.isfinite(want[1])
+    if kind not in ("flashmask causal_1", "flashmask full_2",
+                    "flashmask full_4"):
+        assert (~seen).any()
+    assert torch.isinf(lse[~seen]).all() and not out[~seen].any()
+    assert torch.equal(torch.isfinite(lse), seen)
+    _fp32_contract("out", out, p_out, want[0])
+    _fp32_contract("lse", lse[seen], p_lse[seen], want[1][seen])
+    for name, g, pg, w in zip(("dq", "dk", "dv"), grads, p_grads, want[2:]):
+        _fp32_contract(name, g, pg, w)
+        assert _err(g, pg) <= 1e-4 * pg.abs().max().item() + 1e-6, name
+    assert _err(out, p_out) <= 1e-4 * p_out.abs().max().item() + 1e-6
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    counted = []
+    cnt = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fwd.launch_flash_fwd(q, k, v, torch.empty_like(out), None, masks=masks,
+                         tile_counts=cnt, **kw)
+    counted.append(cnt[1:].tolist())
+    for which in ("dkv", "dq"):
+        cnt = torch.zeros(3, dtype=torch.int32, device="cuda")
+        bwd.launch_flash_bwd(which, qs, k, v, do, lse, delta,
+                             *(torch.empty_like(g) for g in grads),
+                             masks=masks, tile_counts=cnt, **kw)
+        counted.append(cnt[1:].tolist())
+    mirror = []
+    for plan in (fwd.fwd_masked_tile_plan(masks, b, h, s, s, eff, d, True),
+                 bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, s, s, eff, d,
+                                              True),
+                 bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, s, s, eff, d,
+                                             True)):
+        tiles = [t for ts in plan.values() for t in ts]
+        mirror.append([len(tiles), sum(1 for t in tiles if t[-2])])
+    assert counted == mirror
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_varlen_matches_plain(cuda, d):
+    """flash_attn_varlen_func and flash_attn_varlen_kvpacked_func in fp32
+    (the masked fp32 kernels on segment ids and positions), causal, GQA,
+    cu_seqlens_q != cu_seqlens_k: out and gradients against float64 under
+    the contract, one masked fp32 launch of each kernel per call."""
+    from xhy_flash_attention_tpu_torch import (
+        flash_attn_varlen_func, flash_attn_varlen_kvpacked_func)
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    h, hk = 8, 2
+    cu_q = torch.tensor([0, 100, 130, 400, 410], dtype=torch.int32,
+                        device="cuda")
+    cu_k = torch.tensor([0, 60, 250, 500, 530], dtype=torch.int32,
+                        device="cuda")
+    tq, tk = 410, 530
+    q = torch.randn(tq, h, d, generator=cuda, device="cuda")
+    k, v = (torch.randn(tk, hk, d, generator=cuda, device="cuda")
+            for _ in range(2))
+    do = torch.randn(tq, h, d, generator=cuda, device="cuda")
+    before = [c.launches for c in (fwd.flash_fwd_fp32, bwd.flash_bwd_dkv_fp32,
+                                   bwd.flash_bwd_dq_fp32)]
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attn_varlen_func(*ins, cu_q, cu_k, 300, 300, causal=True)
+    grads = torch.autograd.grad(out, ins, do)
+    kv = torch.stack([k, v], 1).requires_grad_()
+    qp = q.clone().requires_grad_()
+    out2 = flash_attn_varlen_kvpacked_func(qp, kv, cu_q, cu_k, 300, 300,
+                                           causal=True)
+    g2 = torch.autograd.grad(out2, (qp, kv), do)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(
+        (fwd.flash_fwd_fp32, bwd.flash_bwd_dkv_fp32, bwd.flash_bwd_dq_fp32),
+        before)] == [2, 2, 2]
+    assert torch.equal(out, out2) and torch.equal(grads[0], g2[0])
+    assert torch.equal(grads[1], g2[1][:, 0]) and torch.equal(grads[2],
+                                                              g2[1][:, 1])
+    cpu = [t.cpu() for t in (q, k, v, do)]
+    p_ins = [t.clone().requires_grad_() for t in cpu[:3]]
+    p_out = flash_attn_varlen_func(*p_ins, cu_q.cpu(), cu_k.cpu(), 300, 300,
+                                   causal=True)
+    p_grads = torch.autograd.grad(p_out, p_ins, cpu[3])
+    for i, (lo_q, hi_q, lo_k, hi_k) in enumerate(zip(
+            cu_q[:-1].tolist(), cu_q[1:].tolist(), cu_k[:-1].tolist(),
+            cu_k[1:].tolist())):
+        sq, sk = hi_q - lo_q, hi_k - lo_k
+        if sq == 0:
+            continue
+        seg = [t[None].transpose(1, 2) for t in (
+            cpu[0][lo_q:hi_q], cpu[1][lo_k:hi_k], cpu[2][lo_k:hi_k],
+            cpu[3][lo_q:hi_q])]
+        want = _masked_attention64(*seg, torch.ones(1, 1, sq, sk,
+                                                    dtype=torch.bool), True)
+        back = lambda t, lo, hi: t[lo:hi][None].transpose(1, 2)  # noqa: E731
+        _fp32_contract(f"out {i}", back(out.detach().cpu(), lo_q, hi_q),
+                       back(p_out.detach(), lo_q, hi_q), want[0])
+        for name, g, pg, w, lo, hi in (
+                ("dq", grads[0], p_grads[0], want[2], lo_q, hi_q),
+                ("dk", grads[1], p_grads[1], want[3], lo_k, hi_k),
+                ("dv", grads[2], p_grads[2], want[4], lo_k, hi_k)):
+            _fp32_contract(f"{name} {i}", back(g.cpu(), lo, hi),
+                           back(pg, lo, hi), w)
+
+
+@pytest.mark.parametrize("sq,sk,hk,causal", [(700, 700, 2, True),
+                                             (300, 900, 8, False),
+                                             (1000, 200, 4, True)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_reduced_scores_match_plain(cuda, d, sq, sk, hk, causal):
+    """#12 in fp32 (reduced_scores_fp32_kernel): on a masked fp32 forward's
+    LSE with rows +inf, against float64 within twice the fp32 plain
+    version's error + 1e-4 of the largest score, within 1e-4 of it against
+    the plain version; one launch a call, two calls bitwise equal."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        reduced_scores as rs)
+    b, h = 2, 8
+    q = torch.randn(b, h, sq, d, generator=cuda, device="cuda")
+    k = torch.randn(b, hk, sk, d, generator=cuda, device="cuda")
+    _, lse = fwd.flash_attention_fwd(q, k, k, sm_scale=d ** -0.5,
+                                     causal=True)
+    lse[0, 1, :5] = float("inf")
+    before = rs.calc_reduced_attn_scores.launches
+    got = rs.calc_reduced_attn_scores(q, k, lse, causal=causal)
+    again = rs.calc_reduced_attn_scores(q, k, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert rs.calc_reduced_attn_scores.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    plain = rs.reduced_scores_ref(q, k, lse, sm_scale=d ** -0.5,
+                                  causal=causal)
+    kr = k.double().repeat_interleave(h // hk, 1)
+    p = torch.exp((q.double() @ kr.transpose(-1, -2)) * d ** -0.5
+                  - lse.double()[..., None])
+    if causal:
+        hidden = torch.arange(sk, device="cuda")[None] > (
+            torch.arange(sq, device="cuda")[:, None] + sk - sq)
+        p = p.masked_fill(hidden, 0.0)
+    want = p.sum(-2)
+    top = want.abs().max().item()
+    assert _err(got, want) <= 2 * _err(plain, want) + 1e-4 * top
+    assert _err(got, plain) <= 1e-4 * plain.abs().max().item()

@@ -96,8 +96,12 @@ def check_dkv_plan(flags, b, h, hk, sq, sk, causal):
     return plan, _check_dkv(plan, vis, h, hk, sq, sk)
 
 
-def _check_dkv(plan, vis, h, hk, sq, sk):
-    m, n, g = bwd.BWD_DKV_TILE_M, bwd.BWD_DKV_TILE_N, h // hk
+def _check_dkv(plan, vis, h, hk, sq, sk, m=bwd.BWD_DKV_TILE_M,
+               n=bwd.BWD_DKV_TILE_N):
+    """A dK/dV plan over key blocks of ``n`` keys and query tiles of ``m``
+    rows: each consumer's 64 keys (a block of 64 keys: both consumers take
+    it, its two parts the same)."""
+    g = h // hk
     n_qt, visited = -(-sq // m), 0
     for (batch, kv_head, nb), tiles in plan.items():
         n0 = nb * n
@@ -111,7 +115,9 @@ def _check_dkv(plan, vis, h, hk, sq, sk):
                 "an elementwise tile after a free one"
             for t in range(n_qt):
                 e, parts = seen.get((gi, t), (False, (False, False)))
-                for c in (0, 1):
+                if n == 64:
+                    assert parts[0] == parts[1]
+                for c in (0, 1) if n == 128 else (0,):
                     visited += _check_part(
                         vis[batch, kv_head * g + gi],
                         (t * m, min(t * m + m, sq)),
@@ -123,7 +129,7 @@ def _check_dkv(plan, vis, h, hk, sq, sk):
 def _check_row_block_plan(plan, vis, sq, sk, n):
     """A plan over blocks of 128 query rows and key tiles of ``n`` keys
     (the forward's, or dQ's): each consumer's 64 rows against the tile's
-    64-key parts."""
+    64-key parts (a tile of 64 keys or fewer: one part, both the same)."""
     m, visited = 128, 0
     for (batch, head, mb), tiles in plan.items():
         q0 = mb * m
@@ -138,12 +144,13 @@ def _check_row_block_plan(plan, vis, sq, sk, n):
                 assert all(a == c for a, c in parts), \
                     "straddling parts without the elementwise test"
             for c in (0, 1):
-                for j in range(n // 64):
+                width = min(n, 64)
+                for j in range(max(1, n // 64)):
                     visited += _check_part(
                         vis[batch, head], (q0 + 64 * c, min(q0 + 64 * c + 64, sq)),
-                        (t * n + 64 * j, min(t * n + 64 * j + 64, sk)),
+                        (t * n + width * j, min(t * n + width * j + width, sk)),
                         parts[c][j], e)
-                if n == 64:
+                if n <= 64:
                     assert parts[c][0] == parts[c][1]
     return visited
 
@@ -513,3 +520,96 @@ def test_resolve_window():
     assert rw(True, (99, 0), 100, 100, False) == (True, (-1, -1), (-1, -1))
     assert rw(False, (5, 99), 100, 100, False) == (False, (5, -1), (-1, -1))
     assert rw(True, (7, -1), 100, 100, True) == (False, (-1, -1), (7, 0))
+
+
+# ---- the fp32 kernels' tiles (csrc/flash_fp32.cu's masked instantiations)
+
+def test_kernel_tiles_of_the_fp32_kernels():
+    """The fp32 kinds of kernel_tiles are csrc/flash_fp32.cu's tiles (the
+    forward's 64 / 32 keys, dK/dV's 32 / 16 rows against 128 / 64 keys,
+    dQ's 32 / 16 keys, at d 64 / 128; 128-row blocks), every one dividing
+    the FlashMask and token paddings; the bf16 kinds are unchanged."""
+    want = {("fwd_fp32", 64): (128, 64), ("fwd_fp32", 128): (128, 32),
+            ("dkv_fp32", 64): (32, 128), ("dkv_fp32", 128): (16, 64),
+            ("dq_fp32", 64): (128, 32), ("dq_fp32", 128): (128, 16),
+            ("fwd", 64): (128, 128), ("dkv", 128): (64, 128),
+            ("dq", 64): (128, 128), ("dq", 128): (128, 64)}
+    for (kind, d), tiles in want.items():
+        assert common.kernel_tiles(kind, d) == tiles
+        for t in tiles:
+            assert common.FM_PAD_KEYS % t == 0 and common.TOKEN_PAD % t == 0
+
+
+def check_fp32_plans(b, h, hk, sq, sk, causal, window=(-1, -1), **flags):
+    """The fp32 kernels' mirrors (forward, dK/dV, dQ at d 64 and 128, with
+    ``fp32``) under the flags as the entry resolves them, held to the dense
+    keep mask of every flag; the stats, token stats and tile ranges at the
+    fp32 tiles made once per tile size (KernelMasks), the ranges of the
+    "dkv_fp32" kind per key block. Returns the visible pairs counted."""
+    eff, masks = fwd.build_masks(b, h, sq, sk, causal, window, **flags)
+    keep = masks.keep(h)
+    keep = (torch.ones(1, 1, sq, sk, dtype=torch.bool) if keep is None
+            else common.expand_heads(keep, h))
+    vis = keep.expand(b, h, sq, sk)
+    if eff:
+        rows, cols = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+        vis = vis & (cols <= rows + (sk - sq))
+    counted = []
+    for d in (64, 128):
+        m, n = common.kernel_tiles("dkv_fp32", d)
+        counted.append(_check_dkv(
+            bwd.bwd_masked_dkv_tile_plan(masks, b, h, hk, sq, sk, eff, d,
+                                         fp32=True), vis, h, hk, sq, sk, m, n))
+        counted.append(_check_row_block_plan(
+            bwd.bwd_masked_dq_tile_plan(masks, b, h, hk, sq, sk, eff, d,
+                                        fp32=True),
+            vis, sq, sk, common.kernel_tiles("dq_fp32", d)[1]))
+        counted.append(_check_row_block_plan(
+            fwd.fwd_masked_tile_plan(masks, b, h, sq, sk, eff, d, fp32=True),
+            vis, sq, sk, common.kernel_tiles("fwd_fp32", d)[1]))
+        if masks.has_tokens:
+            rng = masks.ranges("dkv_fp32", d)
+            assert rng.shape[1] == -(-sk // n)  # per key block
+            assert masks.ranges("dkv_fp32", d) is rng  # made once
+    assert all(counted)
+    return counted
+
+
+FP32_PLAN_CASES = ["flashmask causal_1", "flashmask full_4 hm4", "block 64",
+                   "segments", "varlen window", "window+block"]
+
+
+@pytest.mark.parametrize("case", FP32_PLAN_CASES)
+def test_fp32_masked_plans_cover_the_flags(case):
+    """The fp32 masked kernels' mirrors cover every visible pair at their
+    own tiles (16- to 64-key tiles, 16- and 32-row query tiles) under a
+    FlashMask (a causal document mask; full_4 with a mask head per query
+    head), a block mask at granularity 64, segment ids with padded tails,
+    varlen positions with a left window, and a window with a block mask;
+    s 200 to 420 (ragged), GQA."""
+    rng = np.random.default_rng(FP32_PLAN_CASES.index(case) + 90)
+    b, h, hk, s = 2, 4, 2, 200
+    if case == "flashmask causal_1":
+        ids = torch.from_numpy(np.sort(rng.integers(0, 5, (b, s)), -1))
+        check_fp32_plans(b, h, hk, s, s, True, flashmask_vecs=(
+            causal_document_mask(ids).movedim(-1, 2)),
+            flashmask_mode="causal_1")
+    elif case == "flashmask full_4 hm4":
+        check_fp32_plans(b, h, hk, s, s, False,
+                         **_fm_flags(7, False, 4, b, h, s))
+    elif case == "block 64":
+        bm = (rng.random((b, 1, 4, 4)) < 0.6).astype(np.int32)
+        check_fp32_plans(b, h, hk, s, s, False,
+                         block_mask=(torch.from_numpy(bm), 64, 64))
+    elif case == "segments":
+        check_fp32_plans(b, h, hk, 333, 333, True,
+                         q_segment_ids=_segments(rng, b, 333, 5, True, 40),
+                         kv_segment_ids=_segments(rng, b, 333, 5, True, 17))
+    elif case == "varlen window":
+        flags = _varlen_flags([0, 100, 130, 400, 410],
+                              [0, 60, 250, 500, 530], 420, 530)
+        check_fp32_plans(1, h, hk, 420, 530, True, (47, -1), **flags)
+    else:
+        bm = (rng.random((b, 1, 4, 4)) < 0.7).astype(np.int32)
+        check_fp32_plans(b, h, hk, s, s, True, (90, 0),
+                         block_mask=(torch.from_numpy(bm), 64, 64))

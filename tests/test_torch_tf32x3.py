@@ -14,8 +14,16 @@ contract, and lie within 5e-5 of JAX's relative to each result's largest
 entry (fp32 sums in another order). Small shapes: head dims 64 and 128, GQA
 4 over 1, causal, a window and softcap 30, lengths not a multiple of 64.
 And why three products: with one TF32 product the backward's error against
-float64 is at least ten times larger.
+float64 is at least ten times larger. Under the masks of the masked fp32
+kernels (a FlashMask, a block mask, segment ids with padding, q/kv
+positions with segment ids; each with rows that see no key) the emulated
+forward and backward meet the same contract against float64 with the
+port's dense keep mask, beside the JAX package's flashmask, block-sparse
+and segment / position attention; and so do the reduced scores (#12) with
+the three-product q . k, beside the JAX kernel's.
 """
+
+import functools
 
 import struct
 
@@ -25,8 +33,17 @@ import numpy as np
 import pytest
 import torch
 
+from xhy_flash_attention_tpu.ops.flash_attention import blocksparse as jbs
+from xhy_flash_attention_tpu.ops.flash_attention import flashmask as jfm
+from xhy_flash_attention_tpu.ops.flash_attention import reduced_scores as jrs
 from xhy_flash_attention_tpu.ops.flash_attention.interface import (
     flash_attention as jflash_attention,
+)
+from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+    causal_document_mask,
+)
+from xhy_flash_attention_tpu_torch.ops.flash_attention.reduced_scores import (
+    reduced_scores_ref,
 )
 from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd as tbwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd as tfwd
@@ -213,3 +230,164 @@ def test_matmul_tf32x3_is_fp32_accurate():
     e1 = _err(tf32_trunc(a) @ tf32_trunc(b), want)
     assert e3 <= 2 * e32 + 1e-6, (e3, e32)
     assert e1 >= 100 * e3, (e1, e3)
+
+
+# ---- the masked fp32 kernels' arithmetic (csrc/flash_fp32.cu, MASKED)
+
+MASK_KINDS = ["flashmask", "block", "segments", "positions"]
+MS, MG = 192, 128  # the masked cases' length; the block mask's granularity
+
+
+def _mask_flags(kind, rng, n):
+    """(causal, the JAX call's mask arguments, the port's flags) of mask
+    ``kind``, each leaving some rows with no visible key."""
+    if kind == "flashmask":  # documents, causal_1; row 0 masked out alone
+        ids = np.repeat(np.arange(6), [20, 50, 31, 40, 30, 21])[None]
+        lts = causal_document_mask(torch.from_numpy(
+            np.repeat(ids, B, 0))).numpy().copy()
+        lts[:, :, 0, 0] = 0
+        return True, dict(idx=lts), dict(
+            flashmask_vecs=torch.from_numpy(lts).movedim(-1, 2),
+            flashmask_mode="causal_1")
+    if kind == "block":  # block row 0 off: its rows see nothing
+        bm = np.array([[[[0, 0], [1, 1]]]], np.int32)
+        return False, dict(bm=bm), dict(
+            block_mask=(torch.from_numpy(bm), MG, MG))
+    seg = np.sort(rng.integers(1, 4, (B, n)), -1).astype(np.int32)
+    qseg, kseg = seg.copy(), seg.copy()
+    qseg[:, -30:], kseg[:, -41:] = 0, 5  # padded tails, unequal
+    qseg[0, :7] = 9                      # an id no key carries
+    flags = dict(q_segment_ids=qseg, kv_segment_ids=kseg)
+    if kind == "positions":  # a ring shard's offsets, a left window on them
+        kpos = np.tile(2 * np.arange(n, dtype=np.int32), (B, 1))
+        flags.update(q_positions=kpos + 40, kv_positions=kpos)
+    return True, flags, {n: torch.from_numpy(a) for n, a in flags.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _masked_case(kind):
+    """numpy q, k, v, dO (d 64, GQA 4 over 1; the block mask's two blocks
+    of MG, the others MS long); the JAX package's fp32 out,
+    LSE (None for the block mask, whose entry returns none) and gradients,
+    one jax.vjp call a kind; the port's keep mask of the flags, causal part
+    included, (b, h, s, s)."""
+    rng = np.random.default_rng(MASK_KINDS.index(kind) + 40)
+    d, n = 64, 2 * MG if kind == "block" else MS
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in
+              ((B, H, n, d), (B, HK, n, d), (B, HK, n, d), (B, H, n, d))]
+    causal, jargs, flags = _mask_flags(kind, rng, n)
+    window = (50, -1) if kind == "positions" else (-1, -1)
+    if kind == "flashmask":
+        fn = lambda q, k, v: jfm.flashmask_attention(  # noqa: E731
+            q, k, v, jnp.asarray(jargs["idx"]), causal=True, return_lse=True)
+    elif kind == "block":
+        fn = lambda q, k, v: jbs.blocksparse_attention(  # noqa: E731
+            q, k, v, jnp.asarray(jargs["bm"]), block_size=MG, causal=False)
+    else:
+        j = {n: jnp.asarray(a) for n, a in jargs.items()}
+        fn = lambda q, k, v: jflash_attention(  # noqa: E731
+            q, k, v, None, j["q_segment_ids"], j["kv_segment_ids"],
+            causal=True, window_size=window, return_lse=True,
+            q_positions=j.get("q_positions"),
+            kv_positions=j.get("kv_positions"))
+    res, vjp = jax.vjp(fn, *map(jnp.asarray, arrays[:3]))
+    do = jnp.asarray(arrays[3])
+    if kind == "block":
+        jout, jlse, grads = res, None, vjp(do)
+    else:
+        (jout, jlse), grads = res, vjp((do, jnp.zeros_like(res[1])))
+    to = lambda x: None if x is None else torch.from_numpy(  # noqa: E731
+        np.array(x, np.float32))
+    eff, masks = tfwd.build_masks(B, H, n, n, causal, window, **flags)
+    keep = masks.keep(H).expand(B, H, n, n)
+    if eff:
+        keep = keep & torch.ones(n, n, dtype=torch.bool).tril()
+    return arrays, (to(jout), to(jlse)), [to(g) for g in grads], keep
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_tf32x3_masked_forward_meets_the_fp32_contract(kind):
+    """The masked forward's emulation under each mask: out and the LSE (on
+    the rows that see a key; +inf and out 0 on the others, which each kind
+    has) under the contract against float64, beside the fp32 plain forward
+    and JAX's fp32 forward, within 5e-5 of JAX's."""
+    arrays, jres, _, keep = _masked_case(kind)
+    q, k, v = (torch.from_numpy(a) for a in arrays[:3])
+    kw = dict(sm_scale=64 ** -0.5, softcap=0.0)
+    emul = attention_fwd_tf32x3(q, k, v, mask=keep, **kw)
+    plain = tfwd.attention_fwd_ref(q, k, v, need_lse=True, causal=False,
+                                   mask=keep, **kw)
+    want = _attention64(q, k, v, kw["sm_scale"], 0.0, keep)
+    seen = torch.isfinite(want[1])
+    assert (~seen).any() and torch.equal(torch.isfinite(emul[1]), seen)
+    assert torch.isinf(emul[1][~seen]).all() and not emul[0][~seen].any()
+    for name, e, p, j, w in zip(("out", "lse"), emul, plain, jres, want):
+        if j is None:  # the block-sparse entry returns no LSE
+            j = p
+        if name == "lse":
+            e, p, j, w = e[seen], p[seen], j[seen], w[seen]
+        err, err_plain, err_jax = _err(e, w), _err(p, w), _err(j, w)
+        assert err <= 2 * err_plain + 1e-4, (name, err, err_plain)
+        assert err <= 2 * err_jax + 1e-4, (name, err, err_jax)
+        assert _err(e, j) <= 5e-5 * j.abs().max().item(), (name, _err(e, j))
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_tf32x3_masked_backward_meets_the_fp32_contract(kind):
+    """The masked backward's emulation under each mask (P 0 where the mask
+    hides a key, and on the rows whose LSE is +inf): dq, dk and dv under
+    the contract against float64, beside the fp32 plain backward and
+    JAX's, within 5e-5 of JAX's."""
+    arrays, _, jgrads, keep = _masked_case(kind)
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    kw = dict(sm_scale=64 ** -0.5, softcap=0.0)
+    out, lse = tfwd.attention_fwd_ref(q, k, v, need_lse=True, causal=False,
+                                      mask=keep, **kw)
+    emul = attention_bwd_tf32x3(q, k, v, out, lse, do, mask=keep, **kw)
+    plain = tbwd.attention_bwd_ref(q, k, v, out, lse, do, causal=False,
+                                   mask=keep, **kw)
+    want = _attention64_grads(q, k, v, do, kw["sm_scale"], 0.0, keep)
+    for name, e, p, j, w in zip(("dq", "dk", "dv"), emul, plain, jgrads,
+                                want):
+        assert bool(torch.isfinite(e).all()), name
+        err, err_plain, err_jax = _err(e, w), _err(p, w), _err(j, w)
+        assert err <= 2 * err_plain + 1e-4, (name, err, err_plain)
+        assert err <= 2 * err_jax + 1e-4, (name, err, err_jax)
+        assert _err(e, j) <= 5e-5 * j.abs().max().item(), (name, _err(e, j))
+
+
+@pytest.mark.parametrize("d,hk,causal", [(64, 1, True), (128, 2, False)])
+def test_tf32x3_reduced_scores_meet_the_fp32_contract(d, hk, causal):
+    """#12 in fp32 (csrc/flash_fp32.cu reduced_scores_fp32_kernel): the sums
+    of exp(sm_scale q . k - lse) with q . k as three TF32 products, on a
+    causal forward's LSE with rows set to +inf, against float64 within
+    twice the fp32 plain version's error + 1e-4 of the largest score (the
+    sums reach tens), beside the JAX kernel's fp32 result, within 5e-5 of
+    it."""
+    rng = np.random.default_rng(d + hk)
+    sq, sk = 96, 160
+    q = rng.standard_normal((B, H, sq, d)).astype(np.float32)
+    k = rng.standard_normal((B, hk, sk, d)).astype(np.float32)
+    qt, kt = torch.from_numpy(q), torch.from_numpy(k)
+    _, lse = tfwd.attention_fwd_ref(qt, kt, kt, sm_scale=d ** -0.5,
+                                    causal=True, softcap=0.0, need_lse=True)
+    lse = lse.numpy().copy()
+    lse[0, 1, :5] = np.inf
+    lt = torch.from_numpy(lse)
+    kr = kt.repeat_interleave(H // hk, 1).transpose(-1, -2)
+    hidden = (torch.arange(sk)[None] > torch.arange(sq)[:, None] + sk - sq
+              if causal else torch.zeros(sq, sk, dtype=torch.bool))
+
+    def sums(s, lse_):
+        return torch.exp(s - lse_[..., None]).masked_fill(hidden, 0.0).sum(-2)
+
+    emul = sums(matmul_tf32x3(qt, kr) * d ** -0.5, lt)
+    want = sums((qt.double() @ kr.double()) * d ** -0.5, lt.double())
+    plain = reduced_scores_ref(qt, kt, lt, sm_scale=d ** -0.5, causal=causal)
+    jax_res = torch.from_numpy(np.array(jrs.calc_reduced_attn_scores(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(lse), causal=causal),
+        np.float32))
+    top = want.abs().max().item()
+    assert _err(emul, want) <= 2 * _err(plain, want) + 1e-4 * top
+    assert _err(emul, want) <= 2 * _err(jax_res, want) + 1e-4 * top
+    assert _err(emul, jax_res) <= 5e-5 * jax_res.abs().max().item()

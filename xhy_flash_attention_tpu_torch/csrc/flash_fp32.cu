@@ -1,6 +1,6 @@
 // fp32 attention on the tensor cores: the forward, and the backward's dK/dV
-// and dQ kernels, every product as three TF32 products (wgmma .tf32), fed
-// by TMA rings.
+// and dQ kernels, dense and under masks, and the reduced scores, every
+// product as three TF32 products (wgmma .tf32), fed by TMA rings.
 //
 // Replaces, for float32 q/k/v, the TPU kernels
 //   * xhy_flash_attention_tpu/ops/flash_attention/fwd.py:78 `_fwd_kernel`
@@ -11,9 +11,14 @@
 //     and :149 `_paged_decode_kernel` (#10) on fp32 pages;
 //   * bwd.py:180 `_bwd_dkv_kernel` (#2) -> flash_bwd_dkv_fp32_kernel;
 //   * bwd.py:511 `_bwd_dq_kernel` (#3) -> flash_bwd_dq_fp32_kernel;
-//     both also through strides for fused_heads.py:105 `_bwd_kernel` (#6).
+//     both also through strides for fused_heads.py:105 `_bwd_kernel` (#6);
+//   * #1-#3 under FlashMask, block masks, segment ids and q/kv positions
+//     (fwd.py:244-296, 353-390; bwd.py's as #1) -> the MASKED
+//     instantiations of the three kernels;
+//   * reduced_scores.py:34 `_reduced_kernel` (#12) ->
+//     reduced_scores_fp32_kernel.
 // The backward's pre-pass (delta, q_s) is flash_bwd.cu's
-// flash_bwd_prep_kernel<D, float>.
+// flash_bwd_prep_kernel<D, float>. An attention bias is not taken in fp32.
 //
 // What they compute, as the TPU kernels do in fp32: S = (q * sm_scale) K^T
 // (q_s = q * sm_scale rounded to fp32, as the plain versions), optional
@@ -151,6 +156,56 @@
 //   order, the group's heads in order), so two runs give the same bits,
 //   with no atomics. Outputs leave by plain stores from the accumulators,
 //   which take any strides (#6's packed layout included).
+//
+// Masked design (the MASKED instantiations of the three kernels: FlashMask
+// in its four modes, block masks, segment ids, q/kv positions and their
+// windows, and any of these with a row/key window; a window alone runs the
+// dense instantiations). The mask semantics are common.cuh's, shared with
+// the bf16 masked kernels of flash_fwd.cu and flash_bwd.cu, at this file's
+// tiles (ops common.py kernel_tiles: the forward's key tiles of 64 / 32
+// keys, dK/dV's query tiles of 32 / 16 rows against key blocks of 128 /
+// 64, dQ's key tiles of 32 / 16 keys, at d 64 / 128; the forward's and
+// dQ's blocks 128 rows), whose FlashMask stats, segment / position stats
+// and tile ranges the wrapper makes once a call.
+//   * Which tiles a block visits depends on the data, so warp 0 of the
+//     producer warpgroup decides and the others follow: blocks from the
+//     dynamic scheduler (common.cuh next_block, the heavier pairs of every
+//     head first: masked work per block is uneven), candidates the tiles of
+//     the row/key window cut to the block's tile range (key_window,
+//     query_window), 32 decided at a time (row_block_tile_flags for the
+//     forward and dQ, dkv_flags for dK/dV; fm_decide, bm_on, token_flags),
+//     those with the elementwise test first (emit_tiles). Lane 0 puts each
+//     visited tile's word (first key or row, head in the group, flags) in
+//     its ring stage with the tile's loads, kEnd after a block's last tile
+//     and kStop after the last block; a block reaches the consumers in a
+//     slot beside its q (forward, dQ) or K/V (dK/dV), kEnd after the last.
+//     The forward's and dQ's producer (row_block_producer) issues a block's
+//     first tiles before its q, as the dense forward does, and takes and
+//     decides the next block while the ring is full, as flash_fwd.cu's
+//     masked producer does. The producer counts the tiles it emitted and
+//     those with the elementwise test (fwd.py fwd_masked_tile_plan, bwd.py
+//     bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan with fp32).
+//   * The converters follow the words (masked_converters): they convert a
+//     tile's stage, pass a kEnd by and stop at kStop.
+//   * The consumers compute a tile when one of their parts is on, and test
+//     elementwise only the tiles flagged for it, branch-free
+//     (rows_visible, keys_visible: a bit a register; the window and the
+//     ragged edge by common.cuh row_limit / key_limit, the FlashMask bands
+//     by banned, the tokens by tokens_meet). Shared memory is full at d 128
+//     (the forward's rings leave 2 KB), so the bands and the tokens' (segment
+//     id, position) are read from global memory through the read-only cache
+//     (L1), not staged; only the words and the slot are. A row that sees no
+//     key keeps m = -inf and l = 0 in the forward (O = 0, LSE = +inf); the
+//     backward's P is a select, so exp2(S - (+inf)) gives 0 and no -inf -
+//     (+inf) is formed.
+//   * Registers: the masked producer needs 72 (at 56 or 64 it spilled), so
+//     the masked consumers take 216; the d 64 dK/dV consumers then issue
+//     their products 4 k-steps at a time, wait for dV's product before dK's,
+//     and read the tile's word again after the products (each of the three
+//     was needed for no spill).
+//
+// The reduced scores (reduced_scores_fp32_kernel, #12): the dK/dV kernel's
+// S^T pipeline alone; see its section below.
 #include <math.h>
 
 #include "common.cuh"
@@ -161,12 +216,278 @@ namespace {
 namespace sm90 = xfa::sm90;
 
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
-constexpr int kProducerRegs = 56, kConsumerRegs = 224;  // the converters need the 56
+// Registers a thread of the backward kernels after setmaxnreg (the launch
+// gives each 168): the dense producer's converters need 56 and the d 64
+// dK/dV consumers 224; the masked producer decides the tiles besides
+// (row_block_producer, dkv_flags) and spilled at 56, so the masked
+// instantiations give it 72 and their consumers 216 (128 x (168 - 72) =
+// 256 x (216 - 168): the consumers may take only what the producer gives
+// up, or setmaxnreg.inc waits forever), the d 64 dK/dV consumers then
+// issuing their products 4 k-steps at a time (kChunk).
+template <bool MASKED>
+constexpr int kProducerRegs = MASKED ? 72 : 56;
+template <bool MASKED>
+constexpr int kConsumerRegs = MASKED ? 216 : 224;
+static_assert(128 * (168 - kProducerRegs<false>) >= 256 * (kConsumerRegs<false> - 168) &&
+                  128 * (168 - kProducerRegs<true>) >= 256 * (kConsumerRegs<true> - 168),
+              "the consumers take more registers than the producer gives up");
 constexpr int kConverters = 96;  // warps 1-3 of the producer warpgroup
 constexpr int kDqRows = 128;     // query rows of a dQ block (64 a consumer)
-// k-steps issued before a wait (d 128's dK/dV accumulators leave fewer registers)
-template <int D>
-constexpr int kChunk = D == 64 ? 8 : 2;
+// k-steps issued before a wait (d 128's dK/dV accumulators leave fewer
+// registers, and so do the masked d 64 dK/dV consumers' 216)
+template <int D, bool MASKED = false>
+constexpr int kChunk = D == 64 ? (MASKED ? 4 : 8) : 2;
+
+// The masked instantiations' tile words and flags (common.cuh kEnd, kElem,
+// kBand, kInfo, kOnShift); kStop, after the last block's kEnd, stops the
+// converters.
+using xfa::kBand;
+using xfa::kElem;
+using xfa::kEnd;
+using xfa::kInfo;
+using xfa::kOnShift;
+constexpr int kStop = -2;
+
+// Visible everywhere: the functor of the tiles with no elementwise test.
+struct AllVisible {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+
+// A token's (segment id, position) of a (b, pad) info array in global
+// memory, through the read-only cache.
+__device__ __forceinline__ int2 token_ldg(const int4* info, int i) {
+  return __ldg(reinterpret_cast<const int2*>(info + i));
+}
+
+// The masked instantiations' elementwise test of a row-major fragment
+// (the forward's S, dQ's S and dP: register i at row row0 + 8 ((i / 2) %
+// 2), key n0 + 8 (i / 4) + 2t + (i % 2)), bit i of the result: the key
+// inside the row's window and below sk (common.cuh row_limit), with NB > 0
+// outside the column's first NB FlashMask bands (`bands`, the mask head's
+// (skp) row), with INFO the tokens' segment ids and positions met (`kinfo`,
+// `qinfo`: the batch row's info). Bands and info are read from global
+// memory through the read-only cache (L1): staged per stage, they did not
+// fit beside the rings at d 128.
+template <int L, int NB, bool INFO>
+__device__ __forceinline__ uint32_t rows_visible(const xfa::MaskParams& m, int sq, int sk, int n0,
+                                                 int row0, const int4* bands, const int4* kinfo,
+                                                 const int4* qinfo, int t) {
+  static_assert(L / 2 <= 32, "a bit per register");
+  int lo[2], hi[2];
+  int4 qt[2] = {};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    xfa::row_limit(m, row0 + 8 * r, sq, sk, lo[r], hi[r]);
+    if (INFO) qt[r] = xfa::query_tokens(m, token_ldg(qinfo, row0 + 8 * r));
+  }
+  uint32_t vis = 0;
+#pragma unroll
+  for (int j = 0; j < L / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + 8 * j + 2 * t + e;
+      const int4 b = NB > 0 ? __ldg(bands + col) : int4{};
+      const int2 kt = INFO ? token_ldg(kinfo, col) : int2{};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        bool v = (col >= lo[r]) & (col <= hi[r]);
+        if (NB > 0) v = v & !xfa::banned<NB>(b, row0 + 8 * r);
+        if (INFO) v = v & xfa::tokens_meet(qt[r], kt);
+        vis |= static_cast<uint32_t>(v) << (4 * j + 2 * r + e);
+      }
+    }
+  }
+  return vis;
+}
+
+// rows_visible for the tests a tile's flags `f` ask for (common.cuh kBand,
+// kInfo; the full modes' two bands).
+template <int L>
+__device__ __forceinline__ uint32_t rows_visible_by(int f, const xfa::MaskParams& m, int sq, int sk,
+                                                    int n0, int row0, const int4* bands,
+                                                    const int4* kinfo, const int4* qinfo, int t) {
+#define XFA_VIS(NB, I) rows_visible<L, NB, I>(m, sq, sk, n0, row0, bands, kinfo, qinfo, t)
+  if (!(f & kBand)) return f & kInfo ? XFA_VIS(0, true) : XFA_VIS(0, false);
+  if (!(f & kInfo)) return m.fm_mode > xfa::kFmCausal2 ? XFA_VIS(2, false) : XFA_VIS(1, false);
+  return XFA_VIS(2, true);  // both tests, rare: the one-band modes' second band is empty
+#undef XFA_VIS
+}
+
+// The same test of a transposed fragment (dK/dV's S^T and dP^T: register i
+// at key key0 + 8 ((i / 2) % 2), query row m0 + 8 (i / 4) + 2t + (i % 2)):
+// the row inside the key's rows (common.cuh key_limit, below sq), with NB
+// > 0 outside the key's first NB bands, with INFO the tokens met.
+template <int R, int NB, bool INFO>
+__device__ __forceinline__ uint32_t keys_visible(const xfa::MaskParams& m, int sq, int sk, int key0,
+                                                 int m0, const int4* bands, const int4* kinfo,
+                                                 const int4* qinfo, int t) {
+  static_assert(R / 2 <= 32, "a bit per register");
+  int rmin[2], rmax[2];
+  int4 kt[2] = {}, b[2] = {};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    xfa::key_limit(m, key0 + 8 * r, sq, sk, rmin[r], rmax[r]);
+    if (INFO) kt[r] = xfa::key_tokens(m, token_ldg(kinfo, key0 + 8 * r));
+    if (NB > 0) b[r] = __ldg(bands + key0 + 8 * r);
+  }
+  uint32_t vis = 0;
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * t + e;
+      const int2 qt = INFO ? token_ldg(qinfo, row) : int2{};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        bool v = (row >= rmin[r]) & (row <= rmax[r]);
+        if (NB > 0) v = v & !xfa::banned<NB>(b[r], row);
+        if (INFO) v = v & xfa::tokens_meet(kt[r], qt);
+        vis |= static_cast<uint32_t>(v) << (4 * j + 2 * r + e);
+      }
+    }
+  }
+  return vis;
+}
+
+template <int R>
+__device__ __forceinline__ uint32_t keys_visible_by(int f, const xfa::MaskParams& m, int sq, int sk,
+                                                    int key0, int m0, const int4* bands,
+                                                    const int4* kinfo, const int4* qinfo, int t) {
+#define XFA_VIS(NB, I) keys_visible<R, NB, I>(m, sq, sk, key0, m0, bands, kinfo, qinfo, t)
+  if (!(f & kBand)) return f & kInfo ? XFA_VIS(0, true) : XFA_VIS(0, false);
+  if (!(f & kInfo)) return m.fm_mode > xfa::kFmCausal2 ? XFA_VIS(2, false) : XFA_VIS(1, false);
+  return XFA_VIS(2, true);
+#undef XFA_VIS
+}
+
+// The masked producer of the forward and dQ kernels (warp 0 of the
+// producer warpgroup; flash_fwd.cu's masked producer at the fp32 key
+// tiles): blocks of kRowBlock query rows from the dynamic scheduler
+// (common.cuh next_block, the heavier first), candidates the key tiles of
+// L keys of the block's window cut to its tile range (key_window), each
+// decided by row_block_tile_flags, 32 at a time, a lane each; lane 0 puts
+// each visited tile's word (first key, flags) in its stage of the ring
+// (`words`, 16 bytes a stage) with its loads (`load_kv(st, n0, head,
+// batch)` on the stage's full barrier), kEnd after a block's last tile and
+// kStop after the last block, and each block's slot (block, head, batch,
+// loaded) after the words with its q (`load_q(q0, head, batch)` on bar_q)
+// once the consumers released the previous q, after the block's first
+// STAGES tiles (the ring runs on across blocks, so only q's latency is left
+// between blocks). While the ring is full it takes and decides the next
+// block. Adds the tiles it emitted, and those with the elementwise test, to
+// next[1] and next[2].
+template <int L, int STAGES, typename LoadQ, typename LoadKV>
+__device__ __forceinline__ void row_block_producer(const xfa::MaskParams& mk, int* next, int b,
+                                                   int h, int sq, int sk, uint8_t* words,
+                                                   uint32_t bar_q, uint32_t bar_qe,
+                                                   uint32_t bar_full, uint32_t bar_empty,
+                                                   LoadQ load_q, LoadKV load_kv) {
+  const int lane = threadIdx.x & 31;
+  const bool lead = lane == 0;
+  const int n_mb = (sq + xfa::kRowBlock - 1) / xfa::kRowBlock;
+  int it = 0, qk = 0, tiles = 0, elem = 0;
+  struct Block {
+    bool more;
+    int m_block, head, batch, lo, hi, f_lo, f_hi, f;
+    __device__ __forceinline__ int n_tiles() const { return hi - lo; }
+  };
+  auto flags_of = [&](const Block& k, int i) {
+    const int tile = k.hi - 1 - i;
+    return xfa::row_block_tile_flags<L>(mk, k.batch, k.head, h, sq, sk,
+                                        k.m_block * xfa::kRowBlock, tile * L,
+                                        (tile < k.f_lo) | (tile >= k.f_hi));
+  };
+  auto take = [&](Block& k) {
+    k.m_block = k.head = k.batch = k.lo = k.hi = k.f_lo = k.f_hi = 0;
+    k.more = xfa::next_block(next, b, n_mb, h, true, k.m_block, k.head, k.batch);
+    if (k.more)
+      xfa::key_window<xfa::kRowBlock, L>(mk, k.batch, k.m_block * xfa::kRowBlock, sq, sk, k.lo,
+                                         k.hi, k.f_lo, k.f_hi);
+  };
+  auto decide = [&](Block& k) { k.f = lane < k.n_tiles() ? flags_of(k, lane) : -1; };
+  auto send_q = [&](const Block& k, bool load) {  // lane 0
+    sm90::mbar_wait(bar_qe, (qk & 1) ^ 1);  // the first pass is free
+    *reinterpret_cast<int4*>(words + 16 * STAGES) =
+        make_int4(k.more ? k.m_block : kEnd, k.head, k.batch, load);
+    if (load) {
+      load_q(k.m_block * xfa::kRowBlock, k.head, k.batch);
+    } else {
+      sm90::mbar_arrive(bar_q);
+    }
+  };
+  auto put = [&](int4 w, int head, int batch) {  // lane 0: w.x >= 0 a tile, else alone
+    const int st = it % STAGES;
+    sm90::mbar_wait(bar_empty + 8 * st, ((it / STAGES) & 1) ^ 1);
+    *reinterpret_cast<int4*>(words + 16 * st) = w;
+    if (w.x >= 0) {
+      load_kv(st, w.x, head, batch);
+    } else {
+      sm90::mbar_arrive(bar_full + 8 * st);
+    }
+    ++it;
+  };
+  Block cur, nxt;
+  take(cur);
+  bool decided = false;  // cur's first candidates decided ahead
+  while (cur.more) {
+    if (!decided) decide(cur);
+    int sent = 0;        // lane 0: the block's tiles put
+    bool ahead = false;  // nxt taken and decided
+    xfa::emit_tiles(
+        cur.n_tiles(),
+        [&](int i, int& n0) {
+          n0 = (cur.hi - 1 - i) * L;
+          return i < 32 ? cur.f : flags_of(cur, i);  // i == lane below 32
+        },
+        [&](int n0, int flags) {
+          put(make_int4(n0, flags, 0, 0), cur.head, cur.batch);
+          ++tiles;
+          elem += flags & kElem;
+          if (++sent == STAGES) send_q(cur, true);
+        },
+        [&]() {  // the whole warp, before each tile
+          if (ahead) return;
+          const int st = it % STAGES;
+          const bool full = lead && !sm90::mbar_test(bar_empty + 8 * st, ((it / STAGES) & 1) ^ 1);
+          if (__shfl_sync(0xffffffffu, static_cast<int>(full), 0)) {
+            take(nxt);
+            decide(nxt);
+            ahead = true;
+          }
+        });
+    if (lead) {
+      if (sent < STAGES) send_q(cur, sent > 0);
+      put(make_int4(kEnd, 0, 0, 0), 0, 0);
+    }
+    ++qk;
+    if (!ahead) take(nxt);
+    cur = nxt;
+    decided = ahead;
+  }
+  if (lead) {
+    send_q(cur, false);                    // the slot kEnd: the consumers stop
+    put(make_int4(kStop, 0, 0, 0), 0, 0);  // and the converters
+    atomicAdd(next + 1, tiles);
+    atomicAdd(next + 2, elem);
+  }
+}
+
+// The converters of a masked kernel (warps 1-3 of the producer warpgroup):
+// the ring's stages in order, each converted (`convert(st, first)`) unless
+// its word (`word_at(st)`) is kEnd, until kStop.
+template <int STAGES, typename WordAt, typename Convert>
+__device__ __forceinline__ void masked_converters(uint32_t bar_full, uint32_t bar_ready,
+                                                  WordAt word_at, Convert convert) {
+  for (int it = 0;; ++it) {
+    const int st = it % STAGES;
+    sm90::mbar_wait(bar_full + 8 * st, (it / STAGES) & 1);
+    const int first = *word_at(st);
+    if (first == kStop) break;
+    if (first != kEnd) convert(st, first);
+    sm90::fence_proxy_async();  // the writes before the consumers' wgmma
+    sm90::mbar_arrive(bar_ready + 8 * st);
+  }
+}
 
 // Byte offset of element (r, c) in a K-major tile of rows of RB bytes, as
 // TMA and wgmma lay it: RB 128 (32 floats) 128-byte swizzled, the 16-byte
@@ -359,11 +680,14 @@ __device__ __forceinline__ void add_part(float (&dst)[N], float (&part)[N]) {
 
 constexpr int kFwdRows = 128;  // query rows of a forward block (64 a consumer)
 // Registers a thread after setmaxnreg (the launch gives each 168): the
-// paged producer and converters need 64 (at 56 they spilled), and the
-// consumers may take only what the producer gives up, 128 x (168 - 64) >=
-// 256 x (216 - 168) (more, and setmaxnreg.inc waits forever).
-constexpr int kFwdProducerRegs = 64, kFwdConsumerRegs = 216;
-static_assert(128 * (168 - kFwdProducerRegs) >= 256 * (kFwdConsumerRegs - 168),
+// paged producer and converters need 64 (at 56 they spilled), the masked
+// producer 72 (row_block_producer spilled at 64), and the consumers may
+// take only what the producer gives up, 128 x (168 - 72) >= 256 x (216 -
+// 168) (more, and setmaxnreg.inc waits forever).
+template <bool MASKED>
+constexpr int kFwdProducerRegs = MASKED ? 72 : 64;
+constexpr int kFwdConsumerRegs = 216;
+static_assert(128 * (168 - kFwdProducerRegs<true>) >= 256 * (kFwdConsumerRegs - 168),
               "the consumers take more registers than the producer gives up");
 constexpr int kFwdStages = 2;
 constexpr int kFwdChunk = 8;  // S's k-steps issued before a wait
@@ -387,16 +711,26 @@ struct Fp32Params {
   const int* lengths;
   int ps, npp, num_pages;
   int tma;  // PAGED: tiles by TMA (ps a multiple of the stage's keys), else cp.async
+  // MASKED: the flags (FlashMask stats per key tile of L keys, segment /
+  // position stats per 128-row block and L-key tile, tile ranges per
+  // block), the FlashMask bands (b, fm_heads, fm_skp) as [lo1, hi1, lo2,
+  // hi2), and three counters: the scheduler's next item, the tiles emitted
+  // and those of them with the elementwise test
+  xfa::MaskParams mask;
+  const int4* bands;
+  int* next;
 };
 
-template <int D>
+template <int D, bool MASKED = false>
 struct FwdSmem {
   static constexpr int kQ = kFwdRows * D * 4;     // the resident q block
   static constexpr int kT = kFwdKeys<D> * D * 4;  // a tile of a stage
   // a stage: K (landed raw: its hi), K lo, V (landed raw), V^T hi, V^T lo
   static constexpr int kStage = 5 * kT;
+  // masked: each stage's word, then the block's slot (row_block_producer)
+  static constexpr int kWords = kQ + kFwdStages * kStage;
   // barriers: Q full, Q empty, then per stage full, ready, empty
-  static constexpr int kBar = kQ + kFwdStages * kStage;
+  static constexpr int kBar = kWords + (MASKED ? 16 * (kFwdStages + 1) : 0);
   static constexpr int kBytes = kBar + 8 * (2 + 3 * kFwdStages) + 1024;  // + alignment slack
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
@@ -515,24 +849,20 @@ __device__ __forceinline__ void load_pages(const Fp32Params& p, const FwdBlock& 
 
 // The online softmax of one tile's scores s (register i: row g + 8 ((i /
 // 2) % 2), key n0 + 8 (i / 4) + 2t + (i % 2)), in place: softcap, with
-// MASK the elementwise test against each row's keys [lo, hi]; then the
+// MASK the elementwise test (`vis(i)`: register i visible); then the
 // running max m, s = P in fp32 (ex2 with the max and log2(e) folded in),
 // this thread's share of the row sums l (the quad is summed at the end) and
 // alpha, the factor that takes the running O to the new max.
-template <int L, bool MASK, bool SOFTCAP>
+template <int L, bool MASK, bool SOFTCAP, typename Vis = AllVisible>
 __device__ __forceinline__ void fwd_softmax(float (&s)[L / 2], float (&m)[2], float (&l)[2],
-                                            float (&alpha)[2], int n0, const int (&lo)[2],
-                                            const int (&hi)[2], float cap, int t) {
+                                            float (&alpha)[2], float cap, Vis vis = {}) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < L / 2; ++i) {
     const int r = (i >> 1) & 1;
     float x = s[i];
     if constexpr (SOFTCAP) x = tanhf(x / cap) * cap;
-    if constexpr (MASK) {
-      const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1);
-      if ((key < lo[r]) | (key > hi[r])) x = -INFINITY;
-    }
+    if constexpr (MASK) x = vis(i) ? x : -INFINITY;
     s[i] = x;
     mx[r] = fmaxf(mx[r], x);
   }
@@ -559,12 +889,39 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[L / 2], float (&m)[2], fl
   l[1] = l[1] * alpha[1] + rs[1];
 }
 
-template <int D, bool PAGED, bool SOFTCAP>
+// A consumer's rows row0 and row0 + 8 of O / l, divided as the plain
+// version divides (0 where a row saw nothing), and their LSE (+inf there).
+template <int D>
+__device__ __forceinline__ void fwd_store(const Fp32Params& p, int batch, int head, int row0,
+                                          const float (&o)[D / 2], const float (&m)[2],
+                                          const float (&l)[2], int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = row0 + 8 * r;
+    if (row >= p.sq) continue;
+    float* orow = p.out + batch * p.o_sb + head * p.o_sh + row * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 v = lr > 0.f ? make_float2(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr)
+                                : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = v;
+    }
+    if (p.lse_out != nullptr && t == 0)
+      p.lse_out[(static_cast<int64_t>(batch) * p.h + head) * p.sq + row] =
+          lr > 0.f ? m[r] + logf(lr) : INFINITY;
+  }
+}
+
+template <int D, bool PAGED, bool SOFTCAP, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const Fp32Params p) {
-  using S = FwdSmem<D>;
+  static_assert(!(PAGED && MASKED), "the paged route takes no mask");
+  using S = FwdSmem<D, MASKED>;
   constexpr int L = kFwdKeys<D>, kStages = kFwdStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -590,13 +947,45 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // Every role walks the same blocks and counts the same q loads (qk) and
-  // key tiles (it, the ring position), so stages and parities agree. A
-  // block whose rows see no key loads nothing; its O is zeros, its LSE +inf.
+  // Dense, every role walks the same blocks and counts the same q loads
+  // (qk) and key tiles (it, the ring position), so stages and parities
+  // agree; a block whose rows see no key loads nothing, its O is zeros, its
+  // LSE +inf. Masked, the consumers take each block from its slot (every
+  // block takes the q buffer, loaded or not) and the consumers and the
+  // converters each tile from its stage's word (row_block_producer).
   const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (warpgroup == 0) {
-    sm90::setmaxnreg_dec<kFwdProducerRegs>();
-    if (threadIdx.x == 0) {  // the loads: a block's first tiles, then its q
+    sm90::setmaxnreg_dec<kFwdProducerRegs<MASKED>>();
+    if constexpr (MASKED) {
+      if (threadIdx.x < 32) {
+        row_block_producer<L, kStages>(
+            p.mask, p.next, p.b, p.h, p.sq, p.sk, smem + S::kWords, bar_q, bar_qe, bar_full,
+            bar_empty,
+            [&](int q0, int head, int batch) {
+              sm90::mbar_expect_tx(bar_q, S::kQ);
+              for (int j = 0; j < D / 32; ++j)
+                sm90::tma_load_4d(base + j * kFwdRows * 128, &tq, bar_q, 32 * j, q0, head, batch);
+            },
+            [&](int st, int n0, int head, int batch) {
+              const uint32_t k_st = base + S::kQ + st * S::kStage, v_st = k_st + 2 * S::kT;
+              sm90::mbar_expect_tx(bar_full + 8 * st, 2 * S::kT);
+              for (int j = 0; j < D / 32; ++j) {
+                sm90::tma_load_4d(k_st + j * L * 128, &tk, bar_full + 8 * st, 32 * j, n0,
+                                  head / group, batch);
+                sm90::tma_load_4d(v_st + j * L * 128, &tv, bar_full + 8 * st, 32 * j, n0,
+                                  head / group, batch);
+              }
+            });
+      } else {
+        masked_converters<kStages>(
+            bar_full, bar_ready,
+            [&](int st) { return reinterpret_cast<const int*>(smem + S::kWords + 16 * st); },
+            [&](int st, int n0) {
+              convert_fwd_stage<D, L>(smem + S::kQ + st * S::kStage, p.sk - n0,
+                                      threadIdx.x - 32);
+            });
+      }
+    } else if (threadIdx.x == 0) {  // the loads: a block's first tiles, then its q
       int it = 0, qk = 0;
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
@@ -675,88 +1064,138 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int wt = threadIdx.x & 127;
     const int w = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     int it = 0, qk = 0;
-    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-      for (int half = 0; half < 2; ++half) {
-        FwdBlock fb;
-        if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb)) continue;
-        const int rc0 = fb.q0 + 64 * cw;     // this consumer's first row
-        const int row0 = rc0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
-        int lo[2], hi[2];                   // the keys each of them sees
-        fwd_row_keys(p, fb, row0, lo[0], hi[0]);
-        fwd_row_keys(p, fb, row0 + 8, lo[1], hi[1]);
-        // the keys of the consumer's first row and of its last row below sq
-        int lo_a, hi_a, lo_b, hi_b;
-        fwd_row_keys(p, fb, rc0, lo_a, hi_a);
-        fwd_row_keys(p, fb, min(rc0 + 63, p.sq - 1), lo_b, hi_b);
-        const bool has_rows = rc0 < p.sq;
-        float o[D / 2];
+    float o[D / 2], m[2], l[2];
+    auto clear = [&]() {
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
-        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-        if (fb.n > 0) {
-          sm90::mbar_wait(bar_q, qk & 1);
-          ++qk;
-          // q_s = q * sm_scale in place over this consumer's rows
-          float4* q4 = reinterpret_cast<float4*>(smem) + 64 * cw * 8;
-          for (int j = 0; j < D / 32; ++j) {
-            for (int i = wt; i < 64 * 8; i += 128) {
-              float4& x = q4[j * kFwdRows * 8 + i];
-              x = make_float4(x.x * p.sm_scale, x.y * p.sm_scale, x.z * p.sm_scale,
-                              x.w * p.sm_scale);
-            }
-          }
-          sm90::fence_proxy_async();  // before the next block's TMA overwrites them
-          sm90::named_barrier(2 + cw, 128);
-          for (int i = 0; i < fb.n; ++i, ++it) {
-            const int st = it % kStages, use = it / kStages;
-            const int n0 = (fb.first + i) * L;
-            const uint32_t stage = base + S::kQ + st * S::kStage;
-            if (tma_tiles) sm90::mbar_wait(bar_full + 8 * st, use & 1);
-            sm90::mbar_wait(bar_ready + 8 * st, use & 1);
-            if (has_rows && n0 <= hi_b && n0 + L - 1 >= lo_a) {
-              float s[L / 2];
-#pragma unroll
-              for (int j = 0; j < L / 2; ++j) s[j] = 0.f;
-              // S = q_s K^T
-              product_a_smem<D, L, kFwdChunk>(s, smem, kFwdRows, 64 * cw, stage, stage + S::kT,
-                                              w, g, t);
-              float alpha[2];
-              if (rc0 + 64 <= p.sq && n0 >= lo_b && n0 + L - 1 <= hi_a) {
-                fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, n0, lo, hi, p.softcap, t);
-              } else {
-                fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, n0, lo, hi, p.softcap, t);
-              }
-#pragma unroll
-              for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
-              // O += P V, the tile's part on the tensor cores, added in fp32
-              float pv[D / 2];
-              issue_a_acc<D, L>(pv, s, stage + 3 * S::kT, stage + 4 * S::kT);
-              sm90::wgmma_commit();
-              sm90::wgmma_wait<0>();
-              add_part(o, pv);
-            }
-            if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
-          }
-          if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s
+      for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+    };
+    // q_s = q * sm_scale in place over this consumer's rows
+    auto scale_q = [&]() {
+      float4* q4 = reinterpret_cast<float4*>(smem) + 64 * cw * 8;
+      for (int j = 0; j < D / 32; ++j) {
+        for (int i = wt; i < 64 * 8; i += 128) {
+          float4& x = q4[j * kFwdRows * 8 + i];
+          x = make_float4(x.x * p.sm_scale, x.y * p.sm_scale, x.z * p.sm_scale, x.w * p.sm_scale);
         }
-        // O / l, divided as the plain version divides; 0 where a row saw nothing
+      }
+      sm90::fence_proxy_async();  // before the wgmma reads them and the next q's TMA
+      sm90::named_barrier(2 + cw, 128);
+    };
+    // The key tile of stage st: S = q_s K^T, the online softmax
+    // (`softmax(s, alpha)`), then O += P V, the tile's part on the tensor
+    // cores, added in fp32 after O's rescale
+    auto tile = [&](int st, auto softmax) {
+      const uint32_t stage = base + S::kQ + st * S::kStage;
+      float s[L / 2];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float lr = l[r];
-          lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-          lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-          const int row = row0 + 8 * r;
-          if (row >= p.sq) continue;
-          float* orow = p.out + fb.batch * p.o_sb + fb.head * p.o_sh + row * p.o_ss;
+      for (int j = 0; j < L / 2; ++j) s[j] = 0.f;
+      product_a_smem<D, L, kFwdChunk>(s, smem, kFwdRows, 64 * cw, stage, stage + S::kT, w, g, t);
+      float alpha[2];
+      softmax(s, alpha);
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            const float2 v = lr > 0.f ? make_float2(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr)
-                                      : make_float2(0.f, 0.f);
-            *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = v;
+      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      float pv[D / 2];
+      issue_a_acc<D, L>(pv, s, stage + 3 * S::kT, stage + 4 * S::kT);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      add_part(o, pv);
+    };
+    if constexpr (MASKED) {
+      // blocks from the slot, tiles from the words; a consumer with no
+      // part of a tile passes it by
+      const xfa::MaskParams& mk = p.mask;
+      for (;;) {
+        sm90::mbar_wait(bar_q, qk & 1);
+        const int4 blk = *reinterpret_cast<const int4*>(smem + S::kWords + 16 * kStages);
+        const int m_block = __shfl_sync(0xffffffffu, blk.x, 0);
+        if (m_block == kEnd) break;
+        ++qk;
+        const int head = __shfl_sync(0xffffffffu, blk.y, 0);
+        const int batch = __shfl_sync(0xffffffffu, blk.z, 0);
+        const int row0 = m_block * kFwdRows + 64 * cw + 16 * w + g;  // rows row0, row0 + 8
+        if (__shfl_sync(0xffffffffu, blk.w, 0)) scale_q();
+        clear();
+        const int4* bands =
+            p.bands == nullptr
+                ? nullptr
+                : p.bands + static_cast<int64_t>(batch * mk.fm_heads +
+                                                 xfa::fm_head(mk, head, p.h)) * mk.fm_skp;
+        const int4* kinfo =
+            mk.k_info == nullptr ? nullptr : mk.k_info + static_cast<int64_t>(batch) * mk.k_pad;
+        const int4* qinfo =
+            mk.q_info == nullptr ? nullptr : mk.q_info + static_cast<int64_t>(batch) * mk.q_pad;
+        for (;;) {
+          const int st = it % kStages, use = it / kStages;
+          sm90::mbar_wait(bar_full + 8 * st, use & 1);
+          sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+          const int4 wd = *reinterpret_cast<const int4*>(smem + S::kWords + 16 * st);
+          const int n0 = __shfl_sync(0xffffffffu, wd.x, 0);
+          const int f = __shfl_sync(0xffffffffu, wd.y, 0);
+          if (n0 != kEnd && ((f >> (kOnShift + 2 * cw)) & 3) != 0) {
+            const uint32_t vis =
+                f & kElem ? rows_visible_by<L>(f, mk, p.sq, p.sk, n0, row0, bands, kinfo, qinfo, t)
+                          : 0u;
+            tile(st, [&](float (&s)[L / 2], float (&alpha)[2]) {
+              if (f & kElem) {
+                fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, p.softcap,
+                                              [&](int i) { return ((vis >> i) & 1u) != 0; });
+              } else {
+                fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, p.softcap);
+              }
+            });
           }
-          if (p.lse_out != nullptr && t == 0)
-            p.lse_out[(static_cast<int64_t>(fb.batch) * p.h + fb.head) * p.sq + row] =
-                lr > 0.f ? m[r] + logf(lr) : INFINITY;
+          if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+          ++it;
+          if (n0 == kEnd) break;
+        }
+        if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s
+        fwd_store<D>(p, batch, head, row0, o, m, l, t);
+      }
+    } else {
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          FwdBlock fb;
+          if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb)) continue;
+          const int rc0 = fb.q0 + 64 * cw;     // this consumer's first row
+          const int row0 = rc0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
+          int lo[2], hi[2];                   // the keys each of them sees
+          fwd_row_keys(p, fb, row0, lo[0], hi[0]);
+          fwd_row_keys(p, fb, row0 + 8, lo[1], hi[1]);
+          // the keys of the consumer's first row and of its last row below sq
+          int lo_a, hi_a, lo_b, hi_b;
+          fwd_row_keys(p, fb, rc0, lo_a, hi_a);
+          fwd_row_keys(p, fb, min(rc0 + 63, p.sq - 1), lo_b, hi_b);
+          const bool has_rows = rc0 < p.sq;
+          clear();
+          if (fb.n > 0) {
+            sm90::mbar_wait(bar_q, qk & 1);
+            ++qk;
+            scale_q();
+            for (int i = 0; i < fb.n; ++i, ++it) {
+              const int st = it % kStages, use = it / kStages;
+              const int n0 = (fb.first + i) * L;
+              if (tma_tiles) sm90::mbar_wait(bar_full + 8 * st, use & 1);
+              sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+              if (has_rows && n0 <= hi_b && n0 + L - 1 >= lo_a) {
+                const bool whole = rc0 + 64 <= p.sq && n0 >= lo_b && n0 + L - 1 <= hi_a;
+                tile(st, [&](float (&s)[L / 2], float (&alpha)[2]) {
+                  if (whole) {
+                    fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, p.softcap);
+                  } else {
+                    fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, p.softcap, [&](int i) {
+                      const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+                      return (key >= lo[r]) & (key <= hi[r]);
+                    });
+                  }
+                });
+              }
+              if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+            }
+            if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s
+          }
+          fwd_store<D>(p, fb.batch, fb.head, row0, o, m, l, t);
         }
       }
     }
@@ -792,11 +1231,17 @@ struct Fp32BwdParams {
   int b, h, hk, sq, sk;
   float sm_scale, softcap;
   int left, right;  // the window, -1 no bound; causal is right 0
+  // MASKED: the flags at the kernel's tiles, the FlashMask bands and the
+  // three counters, as Fp32Params
+  xfa::MaskParams mask;
+  const int4* bands;
+  int* next;
 };
 
 // P and dS of one element from its score x and dP, the row's LSE times
 // log2(e) and delta: P = 2^(x log2(e) - lse2) on the SFU (ex2.approx, about
-// 2^-22 of P; x log2(e) rounded once in the FMA), 0 where not visible.
+// 2^-22 of P; x log2(e) rounded once in the FMA), 0 where not visible (a
+// row that saw nothing has LSE +inf: ex2(-inf) = 0, never NaN).
 template <bool SOFTCAP>
 __device__ __forceinline__ void p_ds(float x, float& dp, float lse2, float delta, bool vis,
                                      float cap, float& pr) {
@@ -836,35 +1281,31 @@ __device__ __forceinline__ bool all_visible(const Fp32BwdParams& p, int r0, int 
 }
 
 // dK/dV: P^T and dS^T of one query tile in place (s: S^T -> P^T, dp: dP^T
-// -> dS^T); rows this thread's keys key0 and key0 + 8 (visible to rows
-// [lo[r], hi[r]]), columns the tile's rows m0 + c with their LSE and delta
-// from the stage.
-template <int R, bool MASK, bool SOFTCAP>
+// -> dS^T); rows this thread's keys key0 and key0 + 8, columns the tile's
+// rows m0 + c with their LSE and delta from the stage; with MASK the
+// elementwise test (`vis(i)`: register i visible).
+template <int R, bool MASK, bool SOFTCAP, typename Vis = AllVisible>
 __device__ __forceinline__ void dkv_p_ds(float (&s)[R / 2], float (&dp)[R / 2], const float* lse,
-                                         const float* delta, const int (&lo)[2],
-                                         const int (&hi)[2], int m0, float cap, int t) {
+                                         const float* delta, float cap, int t, Vis vis = {}) {
 #pragma unroll
   for (int i = 0; i < R / 2; ++i) {
-    const int c = (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
-    const bool vis = !MASK || ((m0 + c >= lo[r]) & (m0 + c <= hi[r]));
-    p_ds<SOFTCAP>(s[i], dp[i], lse[c] * sm90::kLog2e, delta[c], vis, cap, s[i]);
+    const int c = (i >> 2) * 8 + 2 * t + (i & 1);
+    p_ds<SOFTCAP>(s[i], dp[i], lse[c] * sm90::kLog2e, delta[c], !MASK || vis(i), cap, s[i]);
   }
 }
 
 // dQ: dS of one key tile in place (dp: dP -> dS) from S; rows this
-// thread's rows row0 and row0 + 8 (LSE times log2(e) and delta per row,
-// keys [lo[r], hi[r]] visible), columns the tile's keys n0 + c.
-template <int L, bool MASK, bool SOFTCAP>
+// thread's rows row0 and row0 + 8 (LSE times log2(e) and delta per row),
+// columns the tile's keys; with MASK the elementwise test (`vis(i)`).
+template <int L, bool MASK, bool SOFTCAP, typename Vis = AllVisible>
 __device__ __forceinline__ void dq_ds(const float (&s)[L / 2], float (&dp)[L / 2],
-                                      const float (&lse2)[2], const float (&delta)[2],
-                                      const int (&lo)[2], const int (&hi)[2], int n0, float cap,
-                                      int t) {
+                                      const float (&lse2)[2], const float (&delta)[2], float cap,
+                                      Vis vis = {}) {
 #pragma unroll
   for (int i = 0; i < L / 2; ++i) {
-    const int r = (i >> 1) & 1, key = n0 + (i >> 2) * 8 + 2 * t + (i & 1);
-    const bool vis = !MASK || ((key >= lo[r]) & (key <= hi[r]));
+    const int r = (i >> 1) & 1;
     float pr;
-    p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], vis, cap, pr);
+    p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], !MASK || vis(i), cap, pr);
   }
 }
 
@@ -911,26 +1352,66 @@ __device__ __forceinline__ void key_tiles(const Fp32BwdParams& p, int q0, int nr
 
 // ---- dK/dV
 
-template <int D>
+template <int D, bool MASKED = false>
 struct DkvSmem {
   using T = BwdTiles<D>;
   static constexpr int kStages = T::kDkvStages;
   static constexpr int kKV = T::kKeys * D * 4;  // K or V of a block
   static constexpr int kT = T::kRows * D * 4;   // a tile of a stage
   // a stage: q_s (landed raw: its hi), q_s lo, q_s^T hi, q_s^T
-  // lo, then the same four of dO, then the LSE and delta boxes
+  // lo, then the same four of dO, then the LSE box, the masked word (first
+  // row, head in the group, flags; kEnd, kStop) and the delta box
   static constexpr int kStatBox = T::kRows + 4;
   static constexpr int kStats = 8 * kT;
+  static constexpr int kWord = kStats + 256;
   static constexpr int kStage = 8 * kT + 1024;
   static constexpr int kRing = 2 * kKV;
-  // barriers: K/V full, K/V empty, then per stage full, ready, empty
+  // barriers: K/V full, K/V empty, then per stage full, ready, empty; then
+  // the masked block's slot
   static constexpr int kBar = kRing + kStages * kStage;
-  static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr int kBlk = kBar + 8 * (2 + 3 * kStages);
+  static constexpr int kBytes = kBlk + (MASKED ? 16 : 0) + 1024;  // + alignment slack
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
-  static_assert(kStatBox * 4 <= 512, "the LSE and delta boxes fit their half KB");
+  static_assert(kStatBox * 4 <= 256, "the LSE box ends before the word");
 };
 
-template <int D, bool SOFTCAP>
+// The flags of the dK/dV tile of rows [m0, m0 + R) against the key block
+// of KEYS keys at n0 for query head `head`, or -1 when it is skipped
+// (flash_bwd.cu dkv_tile_flags at the fp32 tiles): `st` the FlashMask
+// stats of the block's keys (or null), `elem` the window / ragged test of
+// the plan, the segment / position decision from the stats per R-row tile
+// and KEYS-key block; on bits: at d 64 consumer c's 64 keys [64c, 64c +
+// 64), at d 128 (KEYS 64) both consumers take the block's keys. A
+// block-mask entry covers 64 or more rows and keys, so a tile never needs
+// its test per element. Mirrored by bwd.py bwd_masked_dkv_tile_plan.
+template <int R, int KEYS>
+__device__ __forceinline__ int dkv_flags(const Fp32BwdParams& p, const int* st, int batch,
+                                         int head, int n0, int m0, bool elem) {
+  const xfa::MaskParams& m = p.mask;
+  int flags = elem ? kElem : 0;
+  if (st != nullptr) {
+    bool skip, bypass;
+    xfa::fm_decide(m.fm_mode, st, m0, min(m0 + R, p.sq), skip, bypass);
+    if (skip) return -1;
+    if (!bypass) flags |= kElem | kBand;
+  }
+  if (m.q_info != nullptr) {
+    const int tf = xfa::token_flags(m, m.q_st[static_cast<int64_t>(batch) * m.n_qst + m0 / R],
+                                    m.k_st[static_cast<int64_t>(batch) * m.n_kst + n0 / KEYS]);
+    if (tf < 0) return -1;
+    flags |= tf;
+  }
+  int on = 0;
+#pragma unroll
+  for (int c = 0; c < KEYS / 64; ++c) {
+    const int key = n0 + 64 * c;
+    if (key < p.sk && xfa::bm_on(m, batch, head, p.h, m0, key)) on |= 1 << c;
+  }
+  if (KEYS == 64) on |= on << 1;
+  return on == 0 ? -1 : flags | on << kOnShift;
+}
+
+template <int D, bool SOFTCAP, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tdo,
@@ -939,7 +1420,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const __grid_constant__ CUtensorMap tlse,
                               const __grid_constant__ CUtensorMap tdelta,
                               const Fp32BwdParams p) {
-  using S = DkvSmem<D>;
+  using S = DkvSmem<D, MASKED>;
   using T = BwdTiles<D>;
   constexpr int R = T::kRows, kKeys = T::kKeys, kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -964,13 +1445,112 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // Every role walks the same blocks and counts the same K/V loads (kv) and
-  // query tiles (it, the ring position), so stages and parities agree. A
-  // block whose keys no row sees loads nothing; its dK and dV are zeros.
+  // Dense, every role walks the same blocks and counts the same K/V loads
+  // (kv) and query tiles (it, the ring position), so stages and parities
+  // agree; a block whose keys no row sees loads nothing, its dK and dV are
+  // zeros. Masked, the consumers take each block from its slot and the
+  // consumers and converters each tile from its stage's word.
   const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (warpgroup == 0) {
-    sm90::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {  // the loads
+    sm90::setmaxnreg_dec<kProducerRegs<MASKED>>();
+    // one thread's loads: a block's K and V, a query tile of `head` at m0
+    auto load_kv = [&](int n0, int kv_head, int batch) {
+      sm90::mbar_expect_tx(bar_kv, 2 * S::kKV);
+      for (int j = 0; j < D / 32; ++j) {
+        sm90::tma_load_4d(base + j * kKeys * 128, &tk, bar_kv, 32 * j, n0, kv_head, batch);
+        sm90::tma_load_4d(base + S::kKV + j * kKeys * 128, &tv, bar_kv, 32 * j, n0, kv_head,
+                          batch);
+      }
+    };
+    auto load_tile = [&](int st, int m0, int head, int batch) {
+      const uint32_t stage = base + S::kRing + st * S::kStage;
+      sm90::mbar_expect_tx(bar_full + 8 * st, 2 * S::kT + 2 * S::kStatBox * 4);
+      for (int j = 0; j < D / 32; ++j) {
+        sm90::tma_load_4d(stage + j * R * 128, &tq, bar_full + 8 * st, 32 * j, m0, head, batch);
+        sm90::tma_load_4d(stage + 4 * S::kT + j * R * 128, &tdo, bar_full + 8 * st, 32 * j, m0,
+                          head, batch);
+      }
+      const int c0 = ((batch * p.h + head) * p.sq + m0) & ~3;  // a 1-D box starts 16-byte aligned
+      sm90::tma_load_1d(stage + S::kStats, &tlse, bar_full + 8 * st, c0);
+      sm90::tma_load_1d(stage + S::kStats + 512, &tdelta, bar_full + 8 * st, c0);
+    };
+    if constexpr (MASKED) {
+      if (threadIdx.x < 32) {
+        // ---- the masked producer (flash_bwd.cu's, at the fp32 tiles): its
+        // whole warp decides, lane 0 loads and counts
+        const xfa::MaskParams& mk = p.mask;
+        const bool lead = threadIdx.x == 0;
+        int it = 0, kv = 0, tiles = 0, elem = 0;
+        auto word = [&](int st) {
+          return reinterpret_cast<int4*>(smem + S::kRing + st * S::kStage + S::kWord);
+        };
+        auto put_alone = [&](int w) {  // lane 0: kEnd or kStop in the next stage
+          const int st = it % kStages;
+          sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+          *word(st) = make_int4(w, 0, 0, 0);
+          sm90::mbar_arrive(bar_full + 8 * st);
+          ++it;
+        };
+        for (;;) {
+          int n_block = 0, kv_head = 0, batch = 0;
+          const bool more =
+              xfa::next_block(p.next, p.b, n_nb, p.hk, false, n_block, kv_head, batch);
+          if (lead) {
+            sm90::mbar_wait(bar_kve, (kv & 1) ^ 1);  // the first pass is free
+            *reinterpret_cast<int4*>(smem + S::kBlk) =
+                make_int4(more ? n_block : kEnd, kv_head, batch, 0);
+            if (more) {
+              load_kv(n_block * kKeys, kv_head, batch);
+            } else {
+              sm90::mbar_arrive(bar_kv);
+            }
+          }
+          ++kv;
+          if (!more) break;
+          const int n0 = n_block * kKeys;
+          const xfa::QueryTilePlan pl = xfa::query_window<R, kKeys>(mk, batch, n0, p.sq, p.sk);
+          const int n_masked = pl.n_masked();
+          for (int gi = 0; gi < group; ++gi) {
+            const int head = kv_head * group + gi;
+            const int* st_fm = mk.fm_vecs != nullptr
+                                   ? xfa::fm_tile_stats(mk, batch, xfa::fm_head(mk, head, p.h),
+                                                        n0, kKeys)
+                                   : nullptr;
+            xfa::emit_tiles(
+                pl.n_tiles(),
+                [&](int i, int& m0) {
+                  m0 = pl.tile(i) * R;
+                  return dkv_flags<R, kKeys>(p, st_fm, batch, head, n0, m0, i < n_masked);
+                },
+                [&](int m0, int flags) {
+                  const int st = it % kStages;
+                  sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+                  *word(st) = make_int4(m0, gi, flags, 0);
+                  load_tile(st, m0, head, batch);
+                  ++it;
+                  ++tiles;
+                  elem += flags & kElem;
+                });
+          }
+          if (lead) put_alone(kEnd);
+        }
+        if (lead) {
+          put_alone(kStop);
+          atomicAdd(p.next + 1, tiles);
+          atomicAdd(p.next + 2, elem);
+        }
+      } else {
+        masked_converters<kStages>(
+            bar_full, bar_ready,
+            [&](int st) {
+              return reinterpret_cast<const int*>(smem + S::kRing + st * S::kStage + S::kWord);
+            },
+            [&](int st, int) {
+              uint8_t* sp = smem + S::kRing + st * S::kStage;
+              convert_stage<D, R, true>(sp, sp + 4 * S::kT, S::kT, threadIdx.x - 32);
+            });
+      }
+    } else if (threadIdx.x == 0) {  // the loads
       int it = 0, kv = 0;
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
@@ -980,31 +1560,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           query_tiles<R>(p, n0, kKeys, first, n_qt);
           if (n_qt == 0) continue;
           sm90::mbar_wait(bar_kve, (kv & 1) ^ 1);  // the first pass is free
-          sm90::mbar_expect_tx(bar_kv, 2 * S::kKV);
-          for (int j = 0; j < D / 32; ++j) {
-            sm90::tma_load_4d(base + j * kKeys * 128, &tk, bar_kv, 32 * j, n0, kv_head, batch);
-            sm90::tma_load_4d(base + S::kKV + j * kKeys * 128, &tv, bar_kv, 32 * j, n0, kv_head,
-                              batch);
-          }
+          load_kv(n0, kv_head, batch);
           ++kv;
           for (int gi = 0; gi < group; ++gi) {
-            const int head = kv_head * group + gi;
-            const int stat0 = (batch * p.h + head) * p.sq;
             for (int i = 0; i < n_qt; ++i, ++it) {
               const int st = it % kStages;
-              const uint32_t stage = base + S::kRing + st * S::kStage;
-              const int m0 = (first + i) * R;
               sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
-              sm90::mbar_expect_tx(bar_full + 8 * st, 2 * S::kT + 2 * S::kStatBox * 4);
-              for (int j = 0; j < D / 32; ++j) {
-                sm90::tma_load_4d(stage + j * R * 128, &tq, bar_full + 8 * st, 32 * j, m0, head,
-                                  batch);
-                sm90::tma_load_4d(stage + 4 * S::kT + j * R * 128, &tdo, bar_full + 8 * st,
-                                  32 * j, m0, head, batch);
-              }
-              const int c0 = (stat0 + m0) & ~3;  // a 1-D box starts 16-byte aligned
-              sm90::tma_load_1d(stage + S::kStats, &tlse, bar_full + 8 * st, c0);
-              sm90::tma_load_1d(stage + S::kStats + 512, &tdelta, bar_full + 8 * st, c0);
+              load_tile(st, (first + i) * R, kv_head * group + gi, batch);
             }
           }
         }
@@ -1032,70 +1594,168 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- consumers: at d 64 consumer cw the block's keys [64 cw, 64 cw +
     // 64), at d 128 both the block's 64 keys (S^T and dP^T computed by both),
     // consumer cw dK's and dV's columns [64 cw, 64 cw + 64)
-    sm90::setmaxnreg_inc<kConsumerRegs>();
+    sm90::setmaxnreg_inc<kConsumerRegs<MASKED>>();
     constexpr int kCols = T::kKeySplit ? D : 64;  // dK and dV columns a consumer owns
     const int cw = warpgroup - 1;
     const int wt = threadIdx.x & 127;
     const int w = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+    // the masked d 64 consumers (216 registers) wait for dV's product
+    // before dK's: the split A fragments of both, live until the wait,
+    // spilled beside the masked state
+    constexpr bool kSerial = MASKED && D == 64;
     const int kc = T::kKeySplit ? 64 * cw : 0;    // this consumer's first key in the block
     const int col0 = T::kKeySplit ? 0 : 64 * cw;  // and its first column
     int it = 0, kv = 0;
-    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-      for (int half = 0; half < 2; ++half) {
-        int n_block, kv_head, batch, first, n_qt;
-        if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
-        const int n0 = n_block * kKeys;
-        query_tiles<R>(p, n0, kKeys, first, n_qt);
-        const int key0 = n0 + kc + 16 * w + g;  // this thread's keys: key0, key0 + 8
-        int lo[2], hi[2];  // the rows each of them is visible to
-        key_rows(p, key0, lo[0], hi[0]);
-        key_rows(p, key0 + 8, lo[1], hi[1]);
-        float* dk_out = p.dk + batch * p.dk_sb + kv_head * p.dk_sh + col0;
-        float* dv_out = p.dv + batch * p.dv_sb + kv_head * p.dv_sh + col0;
-        float dk[kCols / 2], dv[kCols / 2];
+    float dk[kCols / 2], dv[kCols / 2];
+    // The query tile of stage st: S^T = K q_s^T and dP^T = V dO^T; then
+    // its rows m0 and head (`at(m0, head)`, asked after the products, so
+    // that nothing of the tile but its stage stays in registers across
+    // them), P^T and dS^T (`pds(s, dp, lse, delta)`); then dV += P^T dO and
+    // dK += dS^T q_s over this consumer's columns (the transposes' rows
+    // col0 on), one wait for both, added in fp32
+    auto tile = [&](int st, int batch, auto at, auto pds) {
+      const uint32_t stage = base + S::kRing + st * S::kStage;
+      const uint8_t* sp = smem + S::kRing + st * S::kStage;
+      float s[R / 2], dp[R / 2];
 #pragma unroll
-        for (int j = 0; j < kCols / 2; ++j) dk[j] = dv[j] = 0.f;
-        if (n_qt > 0) {
-          sm90::mbar_wait(bar_kv, kv & 1);
-          ++kv;
-        }
-        for (int idx = 0; idx < group * n_qt; ++idx, ++it) {
+      for (int j = 0; j < R / 2; ++j) s[j] = dp[j] = 0.f;
+      product_a_smem<D, R, kChunk<D, MASKED>>(s, smem, kKeys, kc, stage, stage + S::kT, w, g, t);
+      product_a_smem<D, R, kChunk<D, MASKED>>(dp, smem + S::kKV, kKeys, kc, stage + 4 * S::kT,
+                                              stage + 5 * S::kT, w, g, t);
+      int m0, head;
+      at(m0, head);
+      const int stat0 = (batch * p.h + head) * p.sq;
+      const float* lse = reinterpret_cast<const float*>(sp + S::kStats) + ((stat0 + m0) & 3);
+      pds(s, dp, lse, lse + 128);  // the delta box 512 bytes on
+      const uint32_t cols = col0 * 4 * R;
+      float pv[kCols / 2], pk[kCols / 2];
+      issue_a_acc<kCols, R>(pv, s, stage + 6 * S::kT + cols, stage + 7 * S::kT + cols);
+      if constexpr (kSerial) {  // dV's product waited for before dK's is issued
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        add_part(dv, pv);
+      }
+      issue_a_acc<kCols, R>(pk, dp, stage + 2 * S::kT + cols, stage + 3 * S::kT + cols);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      if constexpr (!kSerial) add_part(dv, pv);
+      add_part(dk, pk);
+    };
+    auto clear = [&]() {
+#pragma unroll
+      for (int j = 0; j < kCols / 2; ++j) dk[j] = dv[j] = 0.f;
+    };
+    auto store = [&](int batch, int kv_head, int key0) {
+      store_acc<kCols>(p.dk + batch * p.dk_sb + kv_head * p.dk_sh + col0, p.dk_ss, dk, key0, p.sk,
+                       1.f, t);
+      store_acc<kCols>(p.dv + batch * p.dv_sb + kv_head * p.dv_sh + col0, p.dv_ss, dv, key0, p.sk,
+                       1.f, t);
+    };
+    if constexpr (MASKED) {
+      const xfa::MaskParams& mk = p.mask;
+      for (;;) {
+        sm90::mbar_wait(bar_kv, kv & 1);
+        const int4 blk = *reinterpret_cast<const int4*>(smem + S::kBlk);
+        const int n_block = __shfl_sync(0xffffffffu, blk.x, 0);
+        if (n_block == kEnd) break;
+        const int kv_head = __shfl_sync(0xffffffffu, blk.y, 0);
+        const int batch = __shfl_sync(0xffffffffu, blk.z, 0);
+        const int key0 = n_block * kKeys + kc + 16 * w + g;  // this thread's keys: key0, key0 + 8
+        clear();
+        for (;;) {
           const int st = it % kStages, use = it / kStages;
-          const int gi = idx / n_qt, m0 = (first + idx - gi * n_qt) * R;
-          const uint32_t stage = base + S::kRing + st * S::kStage;
-          const uint8_t* sp = smem + S::kRing + st * S::kStage;
           sm90::mbar_wait(bar_full + 8 * st, use & 1);  // the LSE and delta
           sm90::mbar_wait(bar_ready + 8 * st, use & 1);
-          float s[R / 2], dp[R / 2];
-#pragma unroll
-          for (int j = 0; j < R / 2; ++j) s[j] = dp[j] = 0.f;
-          // S^T = K q_s^T, dP^T = V dO^T
-          product_a_smem<D, R>(s, smem, kKeys, kc, stage, stage + S::kT, w, g, t);
-          product_a_smem<D, R>(dp, smem + S::kKV, kKeys, kc, stage + 4 * S::kT,
-                               stage + 5 * S::kT, w, g, t);
-          const int stat0 = (batch * p.h + kv_head * group + gi) * p.sq;
-          const float* lse = reinterpret_cast<const float*>(sp + S::kStats) + ((stat0 + m0) & 3);
-          const float* delta = lse + 128;  // 512 bytes on
-          if (all_visible(p, m0, R, n0 + kc, 64)) {
-            dkv_p_ds<R, false, SOFTCAP>(s, dp, lse, delta, lo, hi, m0, p.softcap, t);
-          } else {
-            dkv_p_ds<R, true, SOFTCAP>(s, dp, lse, delta, lo, hi, m0, p.softcap, t);
+          // the word, read again after the products (the d 64 consumers
+          // spilled when it stayed in registers across them)
+          const int4* word =
+              reinterpret_cast<const int4*>(smem + S::kRing + st * S::kStage + S::kWord);
+          const int m0 = __shfl_sync(0xffffffffu, word->x, 0);
+          const int f = __shfl_sync(0xffffffffu, word->z, 0);
+          if (m0 != kEnd && ((f >> (kOnShift + cw)) & 1) != 0) {
+            tile(
+                st, batch,
+                [&](int& m0_, int& head) {
+                  m0_ = word->x;
+                  head = kv_head * group + word->y;
+                },
+                [&](float (&s)[R / 2], float (&dp)[R / 2], const float* lse,
+                    const float* delta) {
+                  const int4 wd = *word;
+                  if (wd.z & kElem) {
+                    const int head = kv_head * group + wd.y;
+                    const int4* bands =
+                        p.bands == nullptr
+                            ? nullptr
+                            : p.bands + static_cast<int64_t>(batch * mk.fm_heads +
+                                                             xfa::fm_head(mk, head, p.h)) *
+                                            mk.fm_skp;
+                    const int4* kinfo = mk.k_info == nullptr
+                                            ? nullptr
+                                            : mk.k_info + static_cast<int64_t>(batch) * mk.k_pad;
+                    const int4* qinfo = mk.q_info == nullptr
+                                            ? nullptr
+                                            : mk.q_info + static_cast<int64_t>(batch) * mk.q_pad;
+                    const uint32_t vis = keys_visible_by<R>(wd.z, mk, p.sq, p.sk, key0, wd.x,
+                                                            bands, kinfo, qinfo, t);
+                    dkv_p_ds<R, true, SOFTCAP>(s, dp, lse, delta, p.softcap, t, [&](int i) {
+                      return ((vis >> i) & 1u) != 0;
+                    });
+                  } else {
+                    dkv_p_ds<R, false, SOFTCAP>(s, dp, lse, delta, p.softcap, t);
+                  }
+                });
           }
-          // dV += P^T dO, dK += dS^T q_s over this consumer's columns (the
-          // transposes' rows col0 on), one wait for both
-          const uint32_t cols = col0 * 4 * R;
-          float pv[kCols / 2], pk[kCols / 2];
-          issue_a_acc<kCols, R>(pv, s, stage + 6 * S::kT + cols, stage + 7 * S::kT + cols);
-          issue_a_acc<kCols, R>(pk, dp, stage + 2 * S::kT + cols, stage + 3 * S::kT + cols);
-          sm90::wgmma_commit();
-          sm90::wgmma_wait<0>();
-          add_part(dv, pv);
-          add_part(dk, pk);
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+          ++it;
+          if (m0 == kEnd) break;
         }
-        store_acc<kCols>(dk_out, p.dk_ss, dk, key0, p.sk, 1.f, t);
-        store_acc<kCols>(dv_out, p.dv_ss, dv, key0, p.sk, 1.f, t);
-        if (n_qt > 0 && lane == 0) sm90::mbar_arrive(bar_kve);
+        if (lane == 0) sm90::mbar_arrive(bar_kve);  // done with K and V
+        ++kv;
+        store(batch, kv_head, key0);
+      }
+    } else {
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          int n_block, kv_head, batch, first, n_qt;
+          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+          const int n0 = n_block * kKeys;
+          query_tiles<R>(p, n0, kKeys, first, n_qt);
+          const int key0 = n0 + kc + 16 * w + g;  // this thread's keys: key0, key0 + 8
+          int lo[2], hi[2];  // the rows each of them is visible to
+          key_rows(p, key0, lo[0], hi[0]);
+          key_rows(p, key0 + 8, lo[1], hi[1]);
+          clear();
+          if (n_qt > 0) {
+            sm90::mbar_wait(bar_kv, kv & 1);
+            ++kv;
+          }
+          for (int idx = 0; idx < group * n_qt; ++idx, ++it) {
+            const int st = it % kStages, use = it / kStages;
+            const int gi = idx / n_qt, m0 = (first + idx - gi * n_qt) * R;
+            sm90::mbar_wait(bar_full + 8 * st, use & 1);  // the LSE and delta
+            sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+            const bool whole = all_visible(p, m0, R, n0 + kc, 64);
+            tile(st, batch,
+                 [&](int& m0_, int& head) {
+                   m0_ = m0;
+                   head = kv_head * group + gi;
+                 },
+                 [&](float (&s)[R / 2], float (&dp)[R / 2], const float* lse, const float* delta) {
+                   if (whole) {
+                     dkv_p_ds<R, false, SOFTCAP>(s, dp, lse, delta, p.softcap, t);
+                   } else {
+                     dkv_p_ds<R, true, SOFTCAP>(s, dp, lse, delta, p.softcap, t, [&](int i) {
+                       const int row = m0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+                       return (row >= lo[r]) & (row <= hi[r]);
+                     });
+                   }
+                 });
+            if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+          }
+          store(batch, kv_head, key0);
+          if (n_qt > 0 && lane == 0) sm90::mbar_arrive(bar_kve);
+        }
       }
     }
   }
@@ -1103,7 +1763,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- dQ
 
-template <int D>
+template <int D, bool MASKED = false>
 struct DqSmem {
   using T = BwdTiles<D>;
   static constexpr int kStages = T::kDqStages;
@@ -1112,19 +1772,21 @@ struct DqSmem {
   // a stage: K (landed raw: its hi), K lo, K^T hi, K^T lo, V (raw), V lo
   static constexpr int kStage = 6 * kT;
   static constexpr int kRing = 2 * kQ;
+  // masked: each stage's word, then the block's slot (row_block_producer)
+  static constexpr int kWords = kRing + kStages * kStage;
   // barriers: Q full, Q empty, then per stage full, ready, empty
-  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBar = kWords + (MASKED ? 16 * (kStages + 1) : 0);
   static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D, bool SOFTCAP>
+template <int D, bool SOFTCAP, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tdo,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv, const Fp32BwdParams p) {
-  using S = DqSmem<D>;
+  using S = DqSmem<D, MASKED>;
   constexpr int L = BwdTiles<D>::kDqKeys, kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -1134,6 +1796,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  bar_empty = bar_ready + 8 * kStages;
   const int n_mb = (p.sq + kDqRows - 1) / kDqRows;
   const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
+  const int group = p.h / p.hk;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(bar_q, 1);
@@ -1147,12 +1810,46 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // As dK/dV: every role walks the same blocks, Q loads (qk) and key tiles
-  // (it); a block whose rows see no key loads nothing and writes zeros.
+  // As dK/dV: dense, every role walks the same blocks, Q loads (qk) and key
+  // tiles (it), a block whose rows see no key loads nothing and writes
+  // zeros; masked, blocks from the slot and tiles from the words
+  // (row_block_producer).
   const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (warpgroup == 0) {
-    sm90::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {  // the loads
+    sm90::setmaxnreg_dec<kProducerRegs<MASKED>>();
+    // one thread's loads: a block's q_s and dO, a K/V tile at n0
+    auto load_q = [&](int q0, int head, int batch) {
+      sm90::mbar_expect_tx(bar_q, 2 * S::kQ);
+      for (int j = 0; j < D / 32; ++j) {
+        sm90::tma_load_4d(base + j * kDqRows * 128, &tq, bar_q, 32 * j, q0, head, batch);
+        sm90::tma_load_4d(base + S::kQ + j * kDqRows * 128, &tdo, bar_q, 32 * j, q0, head,
+                          batch);
+      }
+    };
+    auto load_kv = [&](int st, int n0, int head, int batch) {
+      const uint32_t stage = base + S::kRing + st * S::kStage;
+      sm90::mbar_expect_tx(bar_full + 8 * st, 2 * S::kT);
+      for (int j = 0; j < D / 32; ++j) {
+        sm90::tma_load_4d(stage + j * L * 128, &tk, bar_full + 8 * st, 32 * j, n0, head / group,
+                          batch);
+        sm90::tma_load_4d(stage + 4 * S::kT + j * L * 128, &tv, bar_full + 8 * st, 32 * j, n0,
+                          head / group, batch);
+      }
+    };
+    if constexpr (MASKED) {
+      if (threadIdx.x < 32) {
+        row_block_producer<L, kStages>(p.mask, p.next, p.b, p.h, p.sq, p.sk, smem + S::kWords,
+                                       bar_q, bar_qe, bar_full, bar_empty, load_q, load_kv);
+      } else {
+        masked_converters<kStages>(
+            bar_full, bar_ready,
+            [&](int st) { return reinterpret_cast<const int*>(smem + S::kWords + 16 * st); },
+            [&](int st, int) {
+              uint8_t* sp = smem + S::kRing + st * S::kStage;
+              convert_stage<D, L, false>(sp, sp + 4 * S::kT, S::kT, threadIdx.x - 32);
+            });
+      }
+    } else if (threadIdx.x == 0) {  // the loads
       int it = 0, qk = 0;
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
@@ -1161,27 +1858,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int q0 = m_block * kDqRows;
           key_tiles<L>(p, q0, kDqRows, first, n_kt);
           if (n_kt == 0) continue;
-          const int kv_head = head / (p.h / p.hk);
           sm90::mbar_wait(bar_qe, (qk & 1) ^ 1);
-          sm90::mbar_expect_tx(bar_q, 2 * S::kQ);
-          for (int j = 0; j < D / 32; ++j) {
-            sm90::tma_load_4d(base + j * kDqRows * 128, &tq, bar_q, 32 * j, q0, head, batch);
-            sm90::tma_load_4d(base + S::kQ + j * kDqRows * 128, &tdo, bar_q, 32 * j, q0, head,
-                              batch);
-          }
+          load_q(q0, head, batch);
           ++qk;
           for (int i = 0; i < n_kt; ++i, ++it) {
             const int st = it % kStages;
-            const uint32_t stage = base + S::kRing + st * S::kStage;
-            const int n0 = (first + i) * L;
             sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
-            sm90::mbar_expect_tx(bar_full + 8 * st, 2 * S::kT);
-            for (int j = 0; j < D / 32; ++j) {
-              sm90::tma_load_4d(stage + j * L * 128, &tk, bar_full + 8 * st, 32 * j, n0, kv_head,
-                                batch);
-              sm90::tma_load_4d(stage + 4 * S::kT + j * L * 128, &tv, bar_full + 8 * st, 32 * j,
-                                n0, kv_head, batch);
-            }
+            load_kv(st, (first + i) * L, head, batch);
           }
         }
       }
@@ -1206,66 +1889,342 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: 64 query rows each
-    sm90::setmaxnreg_inc<kConsumerRegs>();
+    sm90::setmaxnreg_inc<kConsumerRegs<MASKED>>();
     const int cw = warpgroup - 1;
     const int wt = threadIdx.x & 127;
     const int w = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     int it = 0, qk = 0;
-    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-      for (int half = 0; half < 2; ++half) {
-        int m_block, head, batch, first, n_kt;
-        if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
-        const int q0 = m_block * kDqRows;
-        key_tiles<L>(p, q0, kDqRows, first, n_kt);
-        const int r0 = q0 + 64 * cw;                 // this consumer's first row
-        const int row0 = r0 + 16 * w + g;            // this thread's rows: row0, row0 + 8
-        float* dq_out = p.dq + batch * p.dq_sb + head * p.dq_sh;
-        float dq[D / 2];
+    float dq[D / 2];
+    float lse2[2], delta[2];
+    // this thread's rows' LSE times log2(e) and delta (+inf and 0 past sq)
+    auto row_stats = [&](int batch, int head, int row0) {
+      const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
 #pragma unroll
-        for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
-        if (n_kt == 0) {
-          store_acc<D>(dq_out, p.dq_ss, dq, row0, p.sq, 1.f, t);
-          continue;
-        }
-        const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
-        float lse2[2], delta[2];
-        int lo[2], hi[2];  // the keys each row sees
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        lse2[r] = row < p.sq ? p.lse[stat + row] * sm90::kLog2e : INFINITY;
+        delta[r] = row < p.sq ? p.delta[stat + row] : 0.f;
+      }
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = row0 + 8 * r;
-          lse2[r] = row < p.sq ? p.lse[stat + row] * sm90::kLog2e : INFINITY;
-          delta[r] = row < p.sq ? p.delta[stat + row] : 0.f;
-          row_keys(p, row, lo[r], hi[r]);
-        }
+      for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+    };
+    // The key tile of stage st: S = q_s K^T, dP = dO V^T, then dS (`ds(s,
+    // dp)`), then dQ += dS K, added in fp32
+    auto tile = [&](int st, auto ds) {
+      const uint32_t stage = base + S::kRing + st * S::kStage;
+      float s[L / 2], dp[L / 2];
+#pragma unroll
+      for (int j = 0; j < L / 2; ++j) s[j] = dp[j] = 0.f;
+      product_a_smem<D, L>(s, smem, kDqRows, 64 * cw, stage, stage + S::kT, w, g, t);
+      product_a_smem<D, L>(dp, smem + S::kQ, kDqRows, 64 * cw, stage + 4 * S::kT,
+                           stage + 5 * S::kT, w, g, t);
+      ds(s, dp);
+      float pq[D / 2];
+      issue_a_acc<D, L>(pq, dp, stage + 2 * S::kT, stage + 3 * S::kT);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      add_part(dq, pq);
+    };
+    auto store = [&](int batch, int head, int row0) {
+      store_acc<D>(p.dq + batch * p.dq_sb + head * p.dq_sh, p.dq_ss, dq, row0, p.sq, p.sm_scale,
+                   t);
+    };
+    if constexpr (MASKED) {
+      const xfa::MaskParams& mk = p.mask;
+      for (;;) {
         sm90::mbar_wait(bar_q, qk & 1);
+        const int4 blk = *reinterpret_cast<const int4*>(smem + S::kWords + 16 * kStages);
+        const int m_block = __shfl_sync(0xffffffffu, blk.x, 0);
+        if (m_block == kEnd) break;
         ++qk;
-        for (int i = 0; i < n_kt; ++i, ++it) {
+        const int head = __shfl_sync(0xffffffffu, blk.y, 0);
+        const int batch = __shfl_sync(0xffffffffu, blk.z, 0);
+        const int row0 = m_block * kDqRows + 64 * cw + 16 * w + g;  // rows row0, row0 + 8
+        row_stats(batch, head, row0);
+        const int4* bands =
+            p.bands == nullptr
+                ? nullptr
+                : p.bands + static_cast<int64_t>(batch * mk.fm_heads +
+                                                 xfa::fm_head(mk, head, p.h)) * mk.fm_skp;
+        const int4* kinfo =
+            mk.k_info == nullptr ? nullptr : mk.k_info + static_cast<int64_t>(batch) * mk.k_pad;
+        const int4* qinfo =
+            mk.q_info == nullptr ? nullptr : mk.q_info + static_cast<int64_t>(batch) * mk.q_pad;
+        for (;;) {
           const int st = it % kStages, use = it / kStages;
-          const int n0 = (first + i) * L;
-          const uint32_t stage = base + S::kRing + st * S::kStage;
           sm90::mbar_wait(bar_full + 8 * st, use & 1);
           sm90::mbar_wait(bar_ready + 8 * st, use & 1);
-          float s[L / 2], dp[L / 2];
-#pragma unroll
-          for (int j = 0; j < L / 2; ++j) s[j] = dp[j] = 0.f;
-          // S = q_s K^T, dP = dO V^T
-          product_a_smem<D, L>(s, smem, kDqRows, 64 * cw, stage, stage + S::kT, w, g, t);
-          product_a_smem<D, L>(dp, smem + S::kQ, kDqRows, 64 * cw, stage + 4 * S::kT,
-                               stage + 5 * S::kT, w, g, t);
-          if (all_visible(p, r0, 64, n0, L)) {
-            dq_ds<L, false, SOFTCAP>(s, dp, lse2, delta, lo, hi, n0, p.softcap, t);
-          } else {
-            dq_ds<L, true, SOFTCAP>(s, dp, lse2, delta, lo, hi, n0, p.softcap, t);
+          const int4 wd = *reinterpret_cast<const int4*>(smem + S::kWords + 16 * st);
+          const int n0 = __shfl_sync(0xffffffffu, wd.x, 0);
+          const int f = __shfl_sync(0xffffffffu, wd.y, 0);
+          if (n0 != kEnd && ((f >> (kOnShift + 2 * cw)) & 3) != 0) {
+            const uint32_t vis =
+                f & kElem ? rows_visible_by<L>(f, mk, p.sq, p.sk, n0, row0, bands, kinfo, qinfo, t)
+                          : 0u;
+            tile(st, [&](float (&s)[L / 2], float (&dp)[L / 2]) {
+              if (f & kElem) {
+                dq_ds<L, true, SOFTCAP>(s, dp, lse2, delta, p.softcap,
+                                        [&](int i) { return ((vis >> i) & 1u) != 0; });
+              } else {
+                dq_ds<L, false, SOFTCAP>(s, dp, lse2, delta, p.softcap);
+              }
+            });
           }
-          float pq[D / 2];  // dQ += dS K
-          issue_a_acc<D, L>(pq, dp, stage + 2 * S::kT, stage + 3 * S::kT);
-          sm90::wgmma_commit();
-          sm90::wgmma_wait<0>();
-          add_part(dq, pq);
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
+          ++it;
+          if (n0 == kEnd) break;
         }
         if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s and dO
-        store_acc<D>(dq_out, p.dq_ss, dq, row0, p.sq, p.sm_scale, t);
+        store(batch, head, row0);
+      }
+    } else {
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          int m_block, head, batch, first, n_kt;
+          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+          const int q0 = m_block * kDqRows;
+          key_tiles<L>(p, q0, kDqRows, first, n_kt);
+          const int r0 = q0 + 64 * cw;       // this consumer's first row
+          const int row0 = r0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
+          row_stats(batch, head, row0);
+          if (n_kt == 0) {
+            store(batch, head, row0);
+            continue;
+          }
+          int lo[2], hi[2];  // the keys each row sees
+          row_keys(p, row0, lo[0], hi[0]);
+          row_keys(p, row0 + 8, lo[1], hi[1]);
+          sm90::mbar_wait(bar_q, qk & 1);
+          ++qk;
+          for (int i = 0; i < n_kt; ++i, ++it) {
+            const int st = it % kStages, use = it / kStages;
+            const int n0 = (first + i) * L;
+            sm90::mbar_wait(bar_full + 8 * st, use & 1);
+            sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+            const bool whole = all_visible(p, r0, 64, n0, L);
+            tile(st, [&](float (&s)[L / 2], float (&dp)[L / 2]) {
+              if (whole) {
+                dq_ds<L, false, SOFTCAP>(s, dp, lse2, delta, p.softcap);
+              } else {
+                dq_ds<L, true, SOFTCAP>(s, dp, lse2, delta, p.softcap, [&](int i) {
+                  const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+                  return (key >= lo[r]) & (key <= hi[r]);
+                });
+              }
+            });
+            if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
+          }
+          if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s and dO
+          store(batch, head, row0);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ reduced scores
+//
+// #12 in fp32 (reduced_scores_fp32_kernel): reduced[b, h, j] = sum_i
+// 2^(S^T[j, i] sm_scale log2(e) - lse_i log2(e)) with S^T = K q^T on three
+// TF32 products (q not pre-scaled: the TPU kernel scales the fp32 product),
+// the causal superset, GQA; the dK/dV kernel's S^T pipeline alone.
+// Persistent CTAs over equal-work pairs of 128-key blocks of one (batch,
+// kv head) (common.cuh pair_block, heavy first), consumer c owning keys
+// [64c, 64c + 64): K arrives raw by TMA into one resident buffer, the A
+// operand split in registers; a ring of 4 stages of 32 query rows of one
+// head (q raw: its B hi, and its LSE box by 1-D TMA), streaming every head
+// of the group in a fixed order, the converters writing q lo beside q; per
+// tile S^T (product_a_smem), P by ex2 with sm_scale log2(e) and LSE
+// log2(e) folded into one FMA, each key's sums in registers; a head's sums
+// over the quad in a fixed order at the end of its tiles. No atomics: the
+// result is bitwise equal from launch to launch. The diagonal and ragged
+// query tiles (common.cuh query_tiles) come first and take the elementwise
+// test. Bound: the larger of three TF32 products of 2d a visible pair at
+// 495 TFLOP/s and one exponent a pair on the SFU.
+
+constexpr int kRedKeys = 128, kRedRows = 32, kRedStages = 4;
+
+template <int D>
+struct RedSmem {
+  static constexpr int kK = kRedKeys * D * 4;  // K of a block
+  static constexpr int kT = kRedRows * D * 4;  // q of a stage, then its lo
+  static constexpr int kStatBox = kRedRows + 4;
+  static constexpr int kStats = 2 * kT;  // the stage's LSE box
+  static constexpr int kStage = 2 * kT + 1024;
+  // barriers: K full, K empty, then per stage full, ready, empty
+  static constexpr int kBar = kK + kRedStages * kStage;
+  static constexpr int kBytes = kBar + 8 * (2 + 3 * kRedStages) + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+struct RedParams {
+  float* out;  // (b, h, sk) contiguous
+  int b, h, hk, sq, sk;
+  float scale2;  // sm_scale * log2(e)
+  int causal;
+};
+
+// One tile's exponents added to this thread's two key sums: s = S^T (keys
+// key0, key0 + 8 as rows, the tile's rows m0 + c as columns), the LSE per
+// column from the stage; with MASK the elementwise causal / sq test.
+template <bool MASK>
+__device__ __forceinline__ void red_add(const float (&s)[kRedRows / 2], const float* lse, int key0,
+                                        int m0, const RedParams& p, int t, float (&acc)[2]) {
+#pragma unroll
+  for (int i = 0; i < kRedRows / 2; ++i) {
+    const int c = (i >> 2) * 8 + 2 * t + (i & 1);
+    float x = sm90::ex2(fmaf(s[i], p.scale2, -lse[c] * sm90::kLog2e));
+    if (MASK) {
+      const int key = key0 + ((i >> 1) & 1) * 8, row = m0 + c;
+      x = (row < p.sq) & ((p.causal == 0) | (key <= row + p.sk - p.sq)) ? x : 0.f;
+    }
+    acc[(i >> 1) & 1] += x;
+  }
+}
+
+// This thread's key sums over the quad (a fixed order), written by its
+// first thread for keys below sk; acc cleared for the next head.
+__device__ __forceinline__ void red_store(float* out, float (&acc)[2], int key0, int sk, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+    if (t == 0 && key0 + 8 * r < sk) out[key0 + 8 * r] = acc[r];
+    acc[r] = 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    reduced_scores_fp32_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tlse, const RedParams p) {
+  using S = RedSmem<D>;
+  constexpr int R = kRedRows, kStages = kRedStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t bar_k = base + S::kBar, bar_ke = bar_k + 8;
+  const uint32_t bar_full = bar_ke + 8, bar_ready = bar_full + 8 * kStages,
+                 bar_empty = bar_ready + 8 * kStages;
+  const int n_nb = (p.sk + kRedKeys - 1) / kRedKeys;
+  const int n_pairs = xfa::block_pairs(n_nb, p.hk, p.b);
+  const int group = p.h / p.hk;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_k, 1);
+    sm90::mbar_init(bar_ke, 8);  // the eight consumer warps
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(bar_full + 8 * st, 1);
+      sm90::mbar_init(bar_ready + 8 * st, kConverters);
+      sm90::mbar_init(bar_empty + 8 * st, 8);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Every role walks the same blocks and counts the same K loads (kv) and
+  // query tiles (it), so stages and parities agree; a block whose keys no
+  // row sees loads nothing, its sums are zeros.
+  const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (warpgroup == 0) {
+    sm90::setmaxnreg_dec<kProducerRegs<false>>();
+    if (threadIdx.x == 0) {  // the loads
+      int it = 0, kv = 0;
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          int n_block, kv_head, batch;
+          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+          const int n0 = n_block * kRedKeys;
+          const xfa::QueryTilePlan pl = xfa::query_tiles<R, kRedKeys>(n0, p.sq, p.sk, p.causal);
+          if (pl.n_tiles() == 0) continue;
+          sm90::mbar_wait(bar_ke, (kv & 1) ^ 1);  // the first pass is free
+          sm90::mbar_expect_tx(bar_k, S::kK);
+          for (int j = 0; j < D / 32; ++j)
+            sm90::tma_load_4d(base + j * kRedKeys * 128, &tk, bar_k, 32 * j, n0, kv_head, batch);
+          ++kv;
+          for (int gi = 0; gi < group; ++gi) {
+            const int head = kv_head * group + gi;
+            const int stat0 = (batch * p.h + head) * p.sq;
+            for (int i = 0; i < pl.n_tiles(); ++i, ++it) {
+              const int st = it % kStages, m0 = pl.tile(i) * R;
+              const uint32_t stage = base + S::kK + st * S::kStage;
+              sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+              sm90::mbar_expect_tx(bar_full + 8 * st, S::kT + S::kStatBox * 4);
+              for (int j = 0; j < D / 32; ++j)
+                sm90::tma_load_4d(stage + j * R * 128, &tq, bar_full + 8 * st, 32 * j, m0, head,
+                                  batch);
+              sm90::tma_load_1d(stage + S::kStats, &tlse, bar_full + 8 * st, (stat0 + m0) & ~3);
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // the converters: q lo beside q
+      int n = 0;  // this CTA's query tiles
+      for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+        for (int half = 0; half < 2; ++half) {
+          int n_block, kv_head, batch;
+          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+          n += group *
+               xfa::query_tiles<R, kRedKeys>(n_block * kRedKeys, p.sq, p.sk, p.causal).n_tiles();
+        }
+      }
+      for (int it = 0; it < n; ++it) {
+        const int st = it % kStages;
+        uint8_t* sp = smem + S::kK + st * S::kStage;
+        sm90::mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+        for (int j = threadIdx.x - 32; j < R * D / 16; j += kConverters)
+          convert_item<D, R, false>(sp, sp + S::kT, nullptr, nullptr, j);
+        sm90::fence_proxy_async();  // the writes before the consumers' wgmma
+        sm90::mbar_arrive(bar_ready + 8 * st);
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each
+    sm90::setmaxnreg_inc<kConsumerRegs<false>>();
+    const int cw = warpgroup - 1;
+    const int wt = threadIdx.x & 127;
+    const int w = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+    int it = 0, kv = 0;
+    for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+      for (int half = 0; half < 2; ++half) {
+        int n_block, kv_head, batch;
+        if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+        const int n0 = n_block * kRedKeys;
+        const xfa::QueryTilePlan pl = xfa::query_tiles<R, kRedKeys>(n0, p.sq, p.sk, p.causal);
+        const int n_tiles = pl.n_tiles(), n_masked = pl.n_masked();
+        const int key0 = n0 + 64 * cw + 16 * w + g;  // this thread's keys: key0, key0 + 8
+        float* out = p.out + static_cast<int64_t>(batch * p.h + kv_head * group) * p.sk;
+        float acc[2] = {0.f, 0.f};
+        if (n_tiles == 0) {  // no row sees these keys
+          for (int gi = 0; gi < group; ++gi) red_store(out + gi * p.sk, acc, key0, p.sk, t);
+          continue;
+        }
+        sm90::mbar_wait(bar_k, kv & 1);
+        for (int gi = 0; gi < group; ++gi) {
+          const int stat0 = (batch * p.h + kv_head * group + gi) * p.sq;
+          for (int i = 0; i < n_tiles; ++i, ++it) {
+            const int st = it % kStages, use = it / kStages, m0 = pl.tile(i) * R;
+            const uint32_t stage = base + S::kK + st * S::kStage;
+            sm90::mbar_wait(bar_full + 8 * st, use & 1);  // the LSE
+            sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+            float s[R / 2];
+#pragma unroll
+            for (int j = 0; j < R / 2; ++j) s[j] = 0.f;
+            product_a_smem<D, R>(s, smem, kRedKeys, 64 * cw, stage, stage + S::kT, w, g, t);
+            const float* lse = reinterpret_cast<const float*>(smem + S::kK + st * S::kStage +
+                                                              S::kStats) + ((stat0 + m0) & 3);
+            if (i < n_masked) {
+              red_add<true>(s, lse, key0, m0, p, t, acc);
+            } else {
+              red_add<false>(s, lse, key0, m0, p, t, acc);
+            }
+            if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+          }
+          red_store(out + gi * p.sk, acc, key0, p.sk, t);
+        }
+        if (lane == 0) sm90::mbar_arrive(bar_ke);  // after the block's last product
+        ++kv;
       }
     }
   }
@@ -1273,71 +2232,107 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------ launches
 
-// One persistent CTA per SM, or one per pair of blocks when there are fewer.
+// One persistent CTA per SM, or one per work unit (a pair of blocks; a
+// block under a masked kernel's dynamic scheduler) when there are fewer.
 template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, int bytes, std::atomic<uint64_t>& done, int pairs,
-                     int& grid) {
+cudaError_t persistent_grid(Kernel kernel, int bytes, std::atomic<uint64_t>& done, int units,
+                            int& grid) {
   int sms = 0;
   cudaError_t err = sm90::smem_limit_once(kernel, bytes, done);
   if (err == cudaSuccess) err = sm90::sm_count(sms);
-  grid = pairs < sms ? pairs : sms;
+  grid = units < sms ? units : sms;
   return err;
 }
 
-template <int D, bool SOFTCAP>
+template <int D, bool SOFTCAP, bool MASKED>
 cudaError_t launch_dkv(const CUtensorMap* maps, const Fp32BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
   const int n_nb = (p.sk + BwdTiles<D>::kKeys - 1) / BwdTiles<D>::kKeys;
   int grid = 0;
-  const cudaError_t err = persistent_grid(flash_bwd_dkv_fp32_kernel<D, SOFTCAP>, DkvSmem<D>::kBytes,
-                                   done, xfa::block_pairs(n_nb, p.hk, p.b), grid);
+  const cudaError_t err = persistent_grid(
+      flash_bwd_dkv_fp32_kernel<D, SOFTCAP, MASKED>, DkvSmem<D, MASKED>::kBytes, done,
+      MASKED ? n_nb * p.hk * p.b : xfa::block_pairs(n_nb, p.hk, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_fp32_kernel<D, SOFTCAP><<<grid, kThreads, DkvSmem<D>::kBytes, s>>>(
+  flash_bwd_dkv_fp32_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
   return cudaGetLastError();
 }
 
-template <int D, bool SOFTCAP>
+template <int D, bool SOFTCAP, bool MASKED>
 cudaError_t launch_dq(const CUtensorMap* maps, const Fp32BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
+  const int n_mb = (p.sq + kDqRows - 1) / kDqRows;
   int grid = 0;
   const cudaError_t err =
-      persistent_grid(flash_bwd_dq_fp32_kernel<D, SOFTCAP>, DqSmem<D>::kBytes, done,
-               xfa::block_pairs((p.sq + kDqRows - 1) / kDqRows, p.h, p.b), grid);
+      persistent_grid(flash_bwd_dq_fp32_kernel<D, SOFTCAP, MASKED>, DqSmem<D, MASKED>::kBytes, done,
+                      MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_fp32_kernel<D, SOFTCAP><<<grid, kThreads, DqSmem<D>::kBytes, s>>>(
+  flash_bwd_dq_fp32_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DqSmem<D, MASKED>::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch_bwd(int which, const CUtensorMap* maps, const Fp32BwdParams& p,
                        cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
   if (which == 0)
-    return p.softcap > 0.f ? launch_dkv<D, true>(maps, p, s) : launch_dkv<D, false>(maps, p, s);
-  return p.softcap > 0.f ? launch_dq<D, true>(maps, p, s) : launch_dq<D, false>(maps, p, s);
+    return cap ? launch_dkv<D, true, MASKED>(maps, p, s) : launch_dkv<D, false, MASKED>(maps, p, s);
+  return cap ? launch_dq<D, true, MASKED>(maps, p, s) : launch_dq<D, false, MASKED>(maps, p, s);
 }
 
-template <int D, bool PAGED, bool SOFTCAP>
+template <int D, bool PAGED, bool SOFTCAP, bool MASKED>
 cudaError_t launch_fwd(const CUtensorMap* maps, const Fp32Params& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
+  const int n_mb = (p.sq + kFwdRows - 1) / kFwdRows;
   int grid = 0;
   const cudaError_t err =
-      persistent_grid(flash_fwd_fp32_kernel<D, PAGED, SOFTCAP>, FwdSmem<D>::kBytes, done,
-                      xfa::block_pairs((p.sq + kFwdRows - 1) / kFwdRows, p.h, p.b), grid);
+      persistent_grid(flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED>, FwdSmem<D, MASKED>::kBytes,
+                      done, MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_fwd_fp32_kernel<D, PAGED, SOFTCAP><<<grid, kThreads, FwdSmem<D>::kBytes, s>>>(
-      maps[0], maps[1], maps[2], p);
+  flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED><<<grid, kThreads, FwdSmem<D, MASKED>::kBytes,
+                                                     s>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_fwd_d(const CUtensorMap* maps, const Fp32Params& p, bool paged,
+cudaError_t launch_fwd_d(const CUtensorMap* maps, const Fp32Params& p, bool paged, bool masked,
                          cudaStream_t s) {
   const bool cap = p.softcap > 0.f;
   if (paged)
-    return cap ? launch_fwd<D, true, true>(maps, p, s) : launch_fwd<D, true, false>(maps, p, s);
-  return cap ? launch_fwd<D, false, true>(maps, p, s) : launch_fwd<D, false, false>(maps, p, s);
+    return cap ? launch_fwd<D, true, true, false>(maps, p, s)
+               : launch_fwd<D, true, false, false>(maps, p, s);
+  if (masked)
+    return cap ? launch_fwd<D, false, true, true>(maps, p, s)
+               : launch_fwd<D, false, false, true>(maps, p, s);
+  return cap ? launch_fwd<D, false, true, false>(maps, p, s)
+             : launch_fwd<D, false, false, false>(maps, p, s);
+}
+
+template <int D>
+cudaError_t launch_reduced(const CUtensorMap* maps, const RedParams& p, cudaStream_t s) {
+  static std::atomic<uint64_t> done{0};
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(reduced_scores_fp32_kernel<D>, RedSmem<D>::kBytes, done,
+                      xfa::block_pairs((p.sk + kRedKeys - 1) / kRedKeys, p.hk, p.b), grid);
+  if (err != cudaSuccess) return err;
+  reduced_scores_fp32_kernel<D><<<grid, kThreads, RedSmem<D>::kBytes, s>>>(maps[0], maps[1],
+                                                                           maps[2], p);
+  return cudaGetLastError();
+}
+
+// The masked instantiations run with a FlashMask, a block mask, segment ids
+// or positions (a window alone runs the dense ones); they need the
+// counters, and the bands with a FlashMask. Clears the counters on the
+// stream.
+cudaError_t masked_setup(const xfa::MaskParams& m, const void* fm_bands, void* counters,
+                         cudaStream_t s, bool& masked) {
+  masked = m.fm_vecs != nullptr || m.bm != nullptr || m.q_info != nullptr;
+  if (!masked) return cudaSuccess;
+  if (counters == nullptr || (m.fm_vecs != nullptr && fm_bands == nullptr))
+    return cudaErrorInvalidValue;
+  return cudaMemsetAsync(counters, 0, 3 * sizeof(int), s);
 }
 
 }  // namespace
@@ -1349,7 +2344,16 @@ cudaError_t launch_fwd_d(const CUtensorMap* maps, const Fp32Params& p, bool page
 // its last sq keys the queries'); every row's head dim contiguous, every
 // pointer and stride a multiple of 4 elements (16 bytes; q, k and v are
 // read through TMA tensor maps). lse: (b, h, sq) fp32 contiguous or null.
-// window: left, right (-1 no bound; causal is right 0).
+// window: left, right (-1 no bound; causal is right 0). The mask
+// arguments (XFA_MASK_ARGS, common.cuh) carry the FlashMask stats per key
+// tile of the forward (64 keys at d 64, 32 at d 128), the segment /
+// position stats per 128-row block and key tile and the tile range of each
+// 128-row block; with a FlashMask, a block mask, segment ids or positions
+// the masked instantiation runs (not paged): `fm_bands` (b, fm_heads,
+// fm_skp, 4) int32 with a FlashMask, and `counters`, three int32 in device
+// memory cleared here on the stream: the dynamic scheduler's next block,
+// then the tiles visited and those with the elementwise test (fwd.py
+// fwd_masked_tile_plan counts the same).
 XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                   int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
@@ -1357,14 +2361,23 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
                                   int64_t o_ss, int b, int h, int hk, int sq, int sk, int d,
                                   float sm_scale, float softcap, int left, int right,
                                   const void* table, const void* lengths, int ps, int npp,
-                                  int num_pages, void* stream) {
+                                  int num_pages, XFA_MASK_ARGS, const void* fm_bands,
+                                  void* counters, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   if (hk <= 0 || h % hk != 0 || (table != nullptr) != (lengths != nullptr) ||
       (d != 64 && d != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool paged = table != nullptr;
   const int keys = d == 64 ? kFwdKeys<64> : kFwdKeys<128>;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   Fp32Params p{};
+  p.mask = XFA_MASK_VALUES;
+  bool masked = false;
+  const cudaError_t err = masked_setup(p.mask, fm_bands, counters, s, masked);
+  if (err != cudaSuccess || (masked && paged))
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  p.bands = static_cast<const int4*>(fm_bands);
+  p.next = static_cast<int*>(counters);
   p.pages = static_cast<const float*>(k);
   p.out = static_cast<float*>(out);
   p.lse_out = static_cast<float*>(lse);
@@ -1390,9 +2403,8 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
     ok = ok && sm90::encode_pages(&maps[1], k, num_pages, hk, ps, d, keys, true);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 64 ? launch_fwd_d<64>(maps, p, paged, s)
-                                  : launch_fwd_d<128>(maps, p, paged, s));
+  return static_cast<int>(d == 64 ? launch_fwd_d<64>(maps, p, paged, masked, s)
+                                  : launch_fwd_d<128>(maps, p, paged, masked, s));
 }
 
 // which: 0 dK/dV, 1 dQ. q is q_s = q * sm_scale (flash_bwd.cu's pre-pass,
@@ -1401,7 +2413,11 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
 // row's head dim contiguous, pointers and strides multiples of 4 elements
 // (q_s, k, v and dout are read through TMA tensor maps). lse, delta: (b, h,
 // sq) fp32 contiguous. Each launch overwrites its outputs (zero where no
-// pair is visible).
+// pair is visible). The mask arguments as xfa_flash_fwd_fp32's, at the
+// kernel's tiles (dK/dV: query tiles of 32 rows and key blocks of 128 keys
+// at d 64, 16 and 64 at d 128, the tile ranges per key block; dQ: 128-row
+// blocks and key tiles of 32 keys at d 64, 16 at d 128; bwd.py
+// bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan count the tiles).
 XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                   int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
@@ -1411,14 +2427,21 @@ XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, c
                                   int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh,
                                   int64_t dv_ss, int b, int h, int hk, int sq, int sk, int d,
                                   float sm_scale, float softcap, int left, int right, int which,
+                                  XFA_MASK_ARGS, const void* fm_bands, void* counters,
                                   void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
   if (hk <= 0 || h % hk != 0 || (d != 64 && d != 128) || (which != 0 && which != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const xfa::MaskParams mask = XFA_MASK_VALUES;
+  bool masked = false;
+  const cudaError_t err = masked_setup(mask, fm_bands, counters, s, masked);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Fp32BwdParams p{static_cast<const float*>(lse), static_cast<const float*>(delta),
                         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
                         dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h, hk,
-                        sq, sk, sm_scale, softcap, left, right};
+                        sq, sk, sm_scale, softcap, left, right, mask,
+                        static_cast<const int4*>(fm_bands), static_cast<int*>(counters)};
   // boxes: dK/dV's query tiles and key blocks, or dQ's row blocks and key tiles
   const int q_rows = which == 1 ? kDqRows : d == 64 ? BwdTiles<64>::kRows : BwdTiles<128>::kRows;
   const int k_rows = which == 0 ? (d == 64 ? BwdTiles<64>::kKeys : BwdTiles<128>::kKeys)
@@ -1432,7 +2455,33 @@ XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, c
       (which == 0 && (!sm90::encode_flat_f32(&maps[4], lse, stats, q_rows + 4) ||
                       !sm90::encode_flat_f32(&maps[5], delta, stats, q_rows + 4))))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (masked)
+    return static_cast<int>(d == 64 ? launch_bwd<64, true>(which, maps, p, s)
+                                    : launch_bwd<128, true>(which, maps, p, s));
+  return static_cast<int>(d == 64 ? launch_bwd<64, false>(which, maps, p, s)
+                                  : launch_bwd<128, false>(which, maps, p, s));
+}
+
+// #12 in fp32: q (b, h, sq, d) and k (b, hk, sk, d) fp32 with element
+// strides for the (batch, head, seq) axes, head dim contiguous, pointers
+// and strides multiples of 4 elements (the tensor maps' rule); lse (b, h,
+// sq) and out (b, h, sk) fp32 contiguous. Every output element is written.
+XFA_EXPORT int xfa_reduced_scores_fp32(const void* q, const void* k, const void* lse, void* out,
+                                       int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
+                                       int64_t k_sh, int64_t k_ss, int b, int h, int hk, int sq,
+                                       int sk, int d, float sm_scale, int causal, void* stream) {
+  if (b <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
+  if (hk <= 0 || h % hk != 0 || (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 64 ? launch_bwd<64>(which, maps, p, s)
-                                  : launch_bwd<128>(which, maps, p, s));
+  if (sq <= 0)  // no row: every sum is 0
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, static_cast<size_t>(b) * h * sk * sizeof(float), s));
+  CUtensorMap maps[3] = {};
+  if (!sm90::encode_bhsd_f32(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kRedRows) ||
+      !sm90::encode_bhsd_f32(&maps[1], k, b, hk, sk, d, k_sb, k_sh, k_ss, kRedKeys) ||
+      !sm90::encode_flat_f32(&maps[2], lse, static_cast<int64_t>(b) * h * sq, kRedRows + 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RedParams p{static_cast<float*>(out), b, h, hk, sq, sk, sm_scale * sm90::kLog2e, causal};
+  return static_cast<int>(d == 64 ? launch_reduced<64>(maps, p, s) : launch_reduced<128>(maps, p, s));
 }

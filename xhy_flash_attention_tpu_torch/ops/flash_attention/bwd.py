@@ -24,7 +24,10 @@ csrc/flash_fp32.cu's dK/dV and dQ kernels (every product as three TF32
 products on the tensor cores, fp32-accurate, bitwise repeatable;
 :func:`flash_bwd_dkv_fp32`, :func:`flash_bwd_dq_fp32`, and through
 :func:`launch_flash_bwd` the packed layout) after the pre-pass's fp32
-instantiation, with causal, windows, softcap and GQA; other flags raise
+instantiation, with causal, windows, softcap and GQA, and under a
+FlashMask, block mask, segment ids or positions their masked
+instantiations (the tiles :func:`bwd_masked_dkv_tile_plan` and
+:func:`bwd_masked_dq_tile_plan` with ``fp32`` mirror); a bias raises
 NotImplementedError (fwd.fp32_window).
 """
 
@@ -37,10 +40,12 @@ import torch
 
 from .. import _cuda
 from .common import CUDA_DTYPE_NOT_PORTED, KernelMasks, cdiv, expand_heads
+from .common import kernel_tiles
 from .fwd import (F32, MASK_PART, NO_BIAS, MaskTiles, bias_c_args,
-                  bias_view, build_masks, check_supported, cut_to_range,
-                  elementwise_first, fp32_window, key_tile_plan,
-                  masked_row_block_plan, masked_window, pair_schedule)
+                  bias_view, build_masks, check_supported, check_tile_counts,
+                  cut_to_range, elementwise_first, fp32_window, key_tile_plan,
+                  masked_counters, masked_row_block_plan, masked_window,
+                  pair_schedule)
 
 __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
            "bwd_dkv_window_plan", "bwd_masked_dkv_tile_plan",
@@ -128,7 +133,8 @@ def bwd_dq_tile_plan(sq: int, sk: int, causal: bool, d: int):
 
 
 def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
-                             sq: int, sk: int, causal: bool):
+                             sq: int, sk: int, causal: bool, d: int = 64,
+                             fp32: bool = False):
     """The query tiles the masked dK/dV kernel visits (csrc/flash_bwd.cu
     ``dkv_tile_flags`` and its producer): for each block (batch, kv head,
     key block of BWD_DKV_TILE_N keys), a list of (head in the group, tile,
@@ -141,15 +147,22 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
     past sk is off) has its block-mask entry on. ``elementwise``: the
     plan's window / ragged test, the FlashMask band test (not bypassed) or
     the segment / position test; those tiles come first within a head,
-    then the others, each in candidate order."""
-    mt = MaskTiles(masks, h, BWD_DKV_TILE_N, BWD_DKV_TILE_M, "dkv")
-    m, g = BWD_DKV_TILE_M, h // hk
+    then the others, each in candidate order. With ``fp32`` the fp32
+    kernel's at head dim ``d`` (:func:`common.kernel_tiles` "dkv_fp32":
+    query tiles of 32 rows against key blocks of 128 keys at d 64, 16
+    against 64 at d 128, where both consumers take the block's 64 keys:
+    both parts are the one block-mask entry's)."""
+    kind = "dkv_fp32" if fp32 else "dkv"
+    m, n = kernel_tiles(kind, d)
+    mt = MaskTiles(masks, h, n, m, kind, d)
+    g = h // hk
     window = masked_window(masks, causal)
     plan = {}
-    for nb, n0 in enumerate(range(0, sk, BWD_DKV_TILE_N)):
+    for nb, n0 in enumerate(range(0, sk, n)):
+        part_keys = (n0, n0 + MASK_PART) if n == 2 * MASK_PART else (n0, n0)
         for batch in range(b):
             cands = query_tile_order(*query_window(
-                n0, sq, sk, window, rng=mt.range(batch, nb)))
+                n0, sq, sk, window, m, n, rng=mt.range(batch, nb)))
             for kv_head in range(hk):
                 tiles = []
                 for gi in range(g):
@@ -159,10 +172,8 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
                         skip, bypass = mt.decide(batch, head, t * m,
                                                  min(t * m + m, sq), n0)
                         tok = mt.tokens(batch, t * m, n0)
-                        parts = tuple(
-                            n0 + c * MASK_PART < sk
-                            and mt.on(batch, head, t * m, n0 + c * MASK_PART)
-                            for c in (0, 1))
+                        parts = tuple(key < sk and mt.on(batch, head, t * m, key)
+                                      for key in part_keys)
                         if not skip and tok >= 0 and any(parts):
                             found.append((gi, t, masked or not bypass
                                           or tok > 0, parts))
@@ -172,15 +183,18 @@ def bwd_masked_dkv_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
 
 
 def bwd_masked_dq_tile_plan(masks: KernelMasks, b: int, h: int, hk: int,
-                            sq: int, sk: int, causal: bool, d: int):
+                            sq: int, sk: int, causal: bool, d: int,
+                            fp32: bool = False):
     """The key tiles the masked dQ kernel visits at head dim ``d``
     (csrc/flash_bwd.cu, common.cuh ``row_block_tile_flags`` and the
     producer): fwd.py :func:`masked_row_block_plan` over key tiles of
-    bwd_dq_tile_n(d) keys (``hk`` is not needed: each query head is its own
-    block)."""
+    bwd_dq_tile_n(d) keys, or with ``fp32`` of the fp32 kernel's
+    (csrc/flash_fp32.cu, :func:`common.kernel_tiles` "dq_fp32") (``hk`` is
+    not needed: each query head is its own block)."""
     del hk
+    kind = "dq_fp32" if fp32 else "dq"
     return masked_row_block_plan(masks, b, h, sq, sk, causal,
-                                 bwd_dq_tile_n(d), "dq", d)
+                                 kernel_tiles(kind, d)[1], kind, d)
 
 
 def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,
@@ -273,22 +287,30 @@ def _check_shapes(q, k, v, do, lse, dq, dk, dv, dtype=torch.bfloat16):
 
 
 def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
-                          *, sm_scale: float, window,
-                          softcap: float) -> None:
+                          *, sm_scale: float, window, softcap: float,
+                          masks: KernelMasks = None, causal: bool = False,
+                          tile_counts=None) -> None:
     """Launch one kernel of csrc/flash_fp32.cu's backward (``which``: "dkv"
     writes dk and dv, "dq" writes dq) on (b, h, s, d) float32 views of any
     strides (head dim contiguous, pointers and strides multiples of 16
     bytes): q is q_s = q * sm_scale in fp32 (:func:`flash_bwd_prep`); the
     others as :func:`launch_flash_bwd`; ``window`` (left, right) as
-    fwd.fp32_window gives it. The callers count the launch."""
-    _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv)
+    fwd.fp32_window gives it; ``masks`` and ``causal`` the forward's (a
+    FlashMask, block mask, segment ids or positions run the masked
+    instantiation, its counters into ``tile_counts`` when given, as
+    :func:`bwd_masked_dkv_tile_plan` / :func:`bwd_masked_dq_tile_plan` with
+    ``fp32`` count them). The callers count the launch."""
+    _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
+                       *(masks.tensors() if masks is not None else ()))
     _check_shapes(q, k, v, do, lse, dq, dk, dv, F32)
+    check_tile_counts(tile_counts, q.device)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     if min(sq, sk) == 0:  # no pair: zero gradients
         for t in ((dk, dv) if which == "dkv" else (dq,)):
             t.zero_()
         return
+    counters = masked_counters(masks, tile_counts, q.device, fp32=True)
     code = _cuda.lib().xfa_flash_bwd_fp32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -296,7 +318,10 @@ def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
         *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]),
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
         int(window[0]), int(window[1]), {"dkv": 0, "dq": 1}[which],
-        _cuda.stream())
+        *KernelMasks.c_args(masks if counters is not None else None, causal,
+                            which + "_fp32", d),
+        _cuda.ptr(masks.bands() if counters is not None else None),
+        _cuda.ptr(counters), _cuda.stream())
     _cuda.check(code, f"flash_bwd_{which}_fp32")
 
 
@@ -319,26 +344,20 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     count them. ``bias``: the forward's (bb, bh, sq, sk) bias or None; it
     runs the bias instantiations, which read it to rebuild P (dbias is
     :func:`flash_bwd_dbias`'s). float32 tensors go to
-    :func:`launch_flash_bwd_fp32` (causal and windows only). The callers
-    count the launch."""
+    :func:`launch_flash_bwd_fp32` (no bias). The callers count the
+    launch."""
     if q.dtype == F32:
-        if tile_counts is not None:
-            raise ValueError("the fp32 kernels visit every tile: no "
-                             "tile_counts")
         launch_flash_bwd_fp32(which, q, k, v, do, lse, delta, dq, dk, dv,
                               sm_scale=sm_scale, softcap=softcap,
-                              window=fp32_window(masks, causal, bias))
+                              window=fp32_window(masks, causal, bias),
+                              masks=masks, causal=causal,
+                              tile_counts=tile_counts)
         return
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
                        *(masks.tensors() if masks is not None else ()),
                        *(() if bias is None else (bias,)))
     _check_shapes(q, k, v, do, lse, dq, dk, dv)
-    if tile_counts is not None and (
-            tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
-            or tile_counts.device != q.device
-            or not tile_counts.is_contiguous()):
-        raise ValueError("tile_counts must be a contiguous int32 tensor of "
-                         "3 on q's device")
+    check_tile_counts(tile_counts, q.device)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     if min(sq, sk) == 0:  # no pair: zero gradients
@@ -352,10 +371,7 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     if bias is not None:
         bias_view(bias, b, h, sq, sk)
         bias, bias_args = bias_c_args(bias)
-    counters = None
-    if masked:
-        counters = (tile_counts if tile_counts is not None else
-                    torch.empty(3, dtype=torch.int32, device=q.device))
+    counters = masked_counters(masks, tile_counts, q.device)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
               dv.data_ptr(),
@@ -548,7 +564,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
         dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
         args = (qs, k, v, do, lse, delta, dq, dk, dv)
         if q.dtype == F32:
-            kw = dict(sm_scale=sm_scale, window=window, softcap=softcap)
+            kw = dict(sm_scale=sm_scale, window=window, softcap=softcap,
+                      masks=masks, causal=causal)
             flash_bwd_dkv_fp32(*args, **kw)
             flash_bwd_dq_fp32(*args, **kw)
         else:

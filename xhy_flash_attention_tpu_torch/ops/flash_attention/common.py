@@ -42,9 +42,8 @@ NEG_INF = DEFAULT_MASK_VALUE
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
 SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
-SLICE_DTYPES = ("slice 7b (fp32 under FlashMask, block masks, segment ids, "
-                "positions and a bias, and in the reduced scores; then fp16 "
-                "inputs to the CUDA attention kernels) " + NEXT_SLICES)
+SLICE_DTYPES = ("slice 7b (fp16 inputs to the CUDA attention kernels, and "
+                "fp32 with an attention bias) " + NEXT_SLICES)
 SLICE_MODELS = ("slice 8 (the other models and the vision trainer) "
                 + NEXT_SLICES)
 SLICE_PARALLEL = "slice 9 (parallelism) " + NEXT_SLICES
@@ -56,13 +55,13 @@ NO_BACKWARD = (
 CUDA_DTYPE_NOT_PORTED = (
     "the CUDA attention kernels (TPU kernels #1-#3, #5, #6) take bfloat16 "
     "or float32 q/k/v (float8_e4m3fn through flash_attn_fp8_func, forward "
-    "only; float32 with causal, windows, softcap and GQA); fp16, and fp32 "
-    "under FlashMask, block masks, segment ids, positions or a bias, come "
-    f"with {SLICE_DTYPES}"
+    "only; float32 with every flag but an attention bias); fp16, and fp32 "
+    f"with a bias, come with {SLICE_DTYPES}"
 )
 
 # FlashMask block stats are taken per key tile of each kernel (128 keys for
-# the forward and dK/dV, bwd.py bwd_dq_tile_n for dQ). FlashMask vectors are
+# the bf16 forward and dK/dV, bwd.py bwd_dq_tile_n for dQ, 16 to 128 for
+# the fp32 kernels: kernel_tiles). FlashMask vectors are
 # padded to a multiple of FM_PAD_KEYS, which every one of those tiles
 # divides (and which keeps the kernels' TMA starts of the bands 16-byte
 # aligned).
@@ -467,14 +466,23 @@ def tile_ranges(vis: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_tiles(kind: str, d: int):
-    """(query rows, keys) of the tiles of masked kernel ``kind`` ("fwd",
-    "dkv", "dq") at head dim ``d``, at which it reads the stats (dQ's keys
-    depend on the head dim, bwd.py bwd_dq_tile_n)."""
-    if kind == "fwd":
-        return 128, 128
-    if kind == "dkv":
-        return 64, 128
-    return 128, 128 if d == 64 else 64
+    """(query rows, keys) of the tiles of masked kernel ``kind`` at head
+    dim ``d``, at which it reads the stats: the bf16 kernels "fwd", "dkv",
+    "dq" (csrc/flash_fwd.cu, flash_bwd.cu; dQ's keys depend on the head
+    dim, bwd.py bwd_dq_tile_n) and the fp32 kernels "fwd_fp32", "dkv_fp32",
+    "dq_fp32" (csrc/flash_fp32.cu: the forward's key tiles of 64 keys at d
+    64 and 32 at d 128; dK/dV's query tiles of 32 rows against key blocks
+    of 128 keys at d 64, 16 against 64 at d 128; dQ's key tiles of 32 keys
+    at d 64 and 16 at d 128; the forward's and dQ's blocks 128 rows). "dkv"
+    kinds stream query tiles per key block, the others key tiles per query
+    block."""
+    tiles = {
+        "fwd": (128, 128), "dkv": (64, 128), "dq": (128, 128 if d == 64 else 64),
+        "fwd_fp32": (128, 64 if d == 64 else 32),
+        "dkv_fp32": (32, 128) if d == 64 else (16, 64),
+        "dq_fp32": (128, 32 if d == 64 else 16),
+    }
+    return tiles[kind]
 
 
 class KernelMasks:
@@ -600,23 +608,24 @@ class KernelMasks:
         return self._tok[key]
 
     def ranges(self, kind: str, d: int) -> torch.Tensor:
-        """The tile ranges [lo, hi) per block of kernel ``kind`` ("fwd",
-        "dkv", "dq"): per query block over key tiles, or for "dkv" per key
-        block over query tiles (:func:`tile_ranges`); kernels with the same
-        tiles share them."""
+        """The tile ranges [lo, hi) per block of kernel ``kind``
+        (:func:`kernel_tiles`): per query block over key tiles, or for the
+        "dkv" kinds per key block over query tiles (:func:`tile_ranges`);
+        kernels with the same tiles share them."""
         rows, keys = kernel_tiles(kind, d)
-        key = ("range", rows, keys)
+        per_key = kind.startswith("dkv")
+        key = ("range", rows, keys, per_key)
         if key not in self._tok:
             vis = pair_visible(self.tok_stats(0, rows),
                                self.tok_stats(1, keys), self.pos_window)
-            self._tok[key] = tile_ranges(vis.transpose(1, 2) if kind == "dkv"
+            self._tok[key] = tile_ranges(vis.transpose(1, 2) if per_key
                                          else vis)
         return self._tok[key]
 
     @staticmethod
     def c_args(masks, causal: bool, kind: str, d: int) -> tuple:
         """The trailing mask arguments of the C entry point of kernel
-        ``kind`` ("fwd", "dkv", "dq") at head dim ``d`` (XFA_MASK_ARGS):
+        ``kind`` (:func:`kernel_tiles`) at head dim ``d`` (XFA_MASK_ARGS):
         the FlashMask stats, segment / position stats and tile ranges at
         its tiles (:func:`kernel_tiles`). ``causal`` sets the right bound
         of the masked kernels' window to 0."""

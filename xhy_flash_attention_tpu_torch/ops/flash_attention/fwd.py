@@ -26,10 +26,13 @@ windows, softcap, GQA and the LSE; it takes no bias, mask, segment ids or
 dropout. float32 q/k/v on the card run csrc/flash_fp32.cu (three TF32
 products on the tensor cores for each fp32 product, fed by TMA rings;
 :func:`flash_fwd_fp32`, and through :func:`launch_flash_fwd` the packed
-layout) with causal, windows, softcap, GQA and the LSE; under a
-FlashMask, block mask, segment ids, positions or a bias they raise
-NotImplementedError, as fp16 does (:data:`common.SLICE_DTYPES`). Dropout
-raises NotImplementedError until slice 6.
+layout) with causal, windows, softcap, GQA and the LSE, and under a
+FlashMask, block mask, segment ids or positions its masked instantiation
+(the producer decides the tiles as the bf16 masked kernel's does, at the
+fp32 kernel's key tiles: :func:`fwd_masked_tile_plan` with ``fp32``);
+with a bias they raise NotImplementedError, as fp16 does
+(:data:`common.SLICE_DTYPES`). Dropout raises NotImplementedError until
+slice 6.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ import torch
 
 from .. import _cuda
 from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, KernelMasks, cdiv,
-                     expand_heads, fm_skip_bypass, resolve_window)
+                     expand_heads, fm_skip_bypass, kernel_tiles,
+                     resolve_window)
 from .reference import attention_fp8_ref
 
 __all__ = ["attention_fwd_ref", "bias_c_args", "bias_view", "build_masks",
@@ -276,13 +280,20 @@ def masked_row_block_plan(masks: KernelMasks, b: int, h: int, sq: int,
 
 
 def fwd_masked_tile_plan(masks: KernelMasks, b: int, h: int, sq: int,
-                         sk: int, causal: bool):
+                         sk: int, causal: bool, d: int = 64,
+                         fp32: bool = False):
     """The key tiles the masked forward kernel visits: for each block
     (batch, head, query block of FWD_DENSE_TILE_M rows), (tile,
     elementwise, parts) of FWD_DENSE_TILE_N keys in visit order
-    (:func:`masked_row_block_plan`)."""
+    (:func:`masked_row_block_plan`); with ``fp32`` those of the fp32
+    kernel at head dim ``d`` (csrc/flash_fp32.cu, its key tiles
+    :func:`common.kernel_tiles` "fwd_fp32")."""
+    if not fp32:
+        return masked_row_block_plan(masks, b, h, sq, sk, causal,
+                                     FWD_DENSE_TILE_N)
     return masked_row_block_plan(masks, b, h, sq, sk, causal,
-                                 FWD_DENSE_TILE_N)
+                                 kernel_tiles("fwd_fp32", d)[1], "fwd_fp32",
+                                 d)
 
 
 def bias_view(bias: torch.Tensor, b: int, h: int, sq: int,
@@ -391,13 +402,14 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     them with the elementwise test, as :func:`fwd_masked_tile_plan` counts
     them. ``bias``: a (bb, bh, sq, sk) fp32 or bf16 bias (:func:`bias_view`)
     or None; it runs the bias instantiation, and takes no FlashMask or
-    block mask. The callers count the launch."""
+    block mask. float32 tensors go to :func:`launch_flash_fwd_fp32`
+    (``tile_counts`` as :func:`fwd_masked_tile_plan` with ``fp32`` counts
+    them). The callers count the launch."""
     if q.dtype == F32:
-        if tile_counts is not None:
-            raise ValueError("the fp32 kernel visits every tile: no tile_counts")
         launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale,
                               window=fp32_window(masks, causal, bias),
-                              softcap=softcap)
+                              softcap=softcap, masks=masks, causal=causal,
+                              tile_counts=tile_counts)
         return
     tensors = [t for t in (q, k, v, out, lse, bias) if t is not None]
     if masks is not None:
@@ -415,12 +427,7 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     if lse is not None and (lse.shape != (b, h, sq) or not lse.is_contiguous()
                             or lse.dtype != torch.float32):
         raise ValueError("lse must be a contiguous fp32 (b, h, sq) tensor")
-    if tile_counts is not None and (
-            tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
-            or tile_counts.device != q.device
-            or not tile_counts.is_contiguous()):
-        raise ValueError("tile_counts must be a contiguous int32 tensor of "
-                         "3 on q's device")
+    check_tile_counts(tile_counts, q.device)
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         _cuda.require_aligned(t, 8, name)
     masked = masks is not None and masks.active
@@ -431,10 +438,7 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
             raise ValueError("an attention bias takes no FlashMask or block "
                              "mask, as in the TPU package")
         bias, bias_args = bias_c_args(bias)
-    counters = None
-    if masked:
-        counters = (tile_counts if tile_counts is not None else
-                    torch.empty(3, dtype=torch.int32, device=q.device))
+    counters = masked_counters(masks, tile_counts, q.device)
     code = _cuda.lib().xfa_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _cuda.ptr(lse),
@@ -446,12 +450,36 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     _cuda.check(code, "flash_fwd")
 
 
+def check_tile_counts(tile_counts, device) -> None:
+    """``ValueError`` unless ``tile_counts`` is None or a contiguous int32
+    tensor of 3 on ``device``."""
+    if tile_counts is not None and (
+            tile_counts.shape != (3,) or tile_counts.dtype != torch.int32
+            or tile_counts.device != device
+            or not tile_counts.is_contiguous()):
+        raise ValueError("tile_counts must be a contiguous int32 tensor of "
+                         "3 on q's device")
+
+
+def masked_counters(masks: Optional[KernelMasks], tile_counts, device,
+                    fp32: bool = False):
+    """The masked kernels' three int32 counters (``tile_counts`` when
+    given), or None when the dense kernel runs: without flags, and for the
+    fp32 kernels also with a window alone (their dense instantiation takes
+    it)."""
+    if masks is None or not (masks.tensors() if fp32 else masks.active):
+        return None
+    return (tile_counts if tile_counts is not None else
+            torch.empty(3, dtype=torch.int32, device=device))
+
+
 def fp32_window(masks: Optional[KernelMasks], causal: bool, bias=None):
     """The (left, right) window of the fp32 kernels (-1 no bound, causal
-    right 0) for the flags ``masks`` carries; ``NotImplementedError`` under
-    a FlashMask, block mask, segment ids, positions or a bias, which the
-    fp32 kernels do not take (:data:`common.SLICE_DTYPES`)."""
-    if bias is not None or (masks is not None and masks.tensors()):
+    right 0) for the flags ``masks`` carries; ``NotImplementedError`` with
+    a bias, which the fp32 kernels do not take (:data:`common.SLICE_DTYPES`):
+    a FlashMask, block mask, segment ids and positions run their masked
+    instantiations."""
+    if bias is not None:
         raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
     if masks is None:
         return -1, 0 if causal else -1
@@ -459,17 +487,22 @@ def fp32_window(masks: Optional[KernelMasks], causal: bool, bias=None):
 
 
 def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
-                          softcap: float, paged=None) -> None:
+                          softcap: float, paged=None, masks=None,
+                          causal: bool = False, tile_counts=None) -> None:
     """Launch csrc/flash_fp32.cu's forward on (b, h, s, d) float32 views of
     any strides (head dim contiguous; pointers and strides multiples of 16
     bytes, 4 elements: ``ValueError`` otherwise): q, out (b, h, sq, d); k,
     v (b, hk, sk, d); lse (b, h, sq) fp32 contiguous or None; ``window``
-    (left, right), -1 no bound, causal as right 0. ``paged``: (kv_pages
-    (P, hk, 2, ps, d) fp32 contiguous, page_table (b, npp) int32, lengths
-    (b,) int32) in place of k and v (None): each sequence's keys through
-    its page table, its rows the last sq of its lengths[b] keys (the
-    prefill regime of inference/paged.py on fp32 pages). The callers count
-    the launch."""
+    (left, right), -1 no bound, causal as right 0 (:func:`fp32_window`).
+    ``paged``: (kv_pages (P, hk, 2, ps, d) fp32 contiguous, page_table (b,
+    npp) int32, lengths (b,) int32) in place of k and v (None): each
+    sequence's keys through its page table, its rows the last sq of its
+    lengths[b] keys (the prefill regime of inference/paged.py on fp32
+    pages). ``masks``: the flags (and ``causal``, the plain flag
+    fwd.build_masks returned); a FlashMask, block mask, segment ids or
+    positions run the masked instantiation, whose three int32 counters are
+    written to ``tile_counts`` when it is given (as :func:`launch_flash_fwd`
+    does). The callers count the launch."""
     b, h, sq, d = q.shape
     table = lengths = None
     ps = npp = num_pages = 0
@@ -504,21 +537,32 @@ def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
         raise ValueError("lse must be a contiguous fp32 (b, h, sq) tensor")
     for t, name in ((q, "q"), (out, "out"), (k, "k"), (v, "v")):
         _cuda.require_aligned(t, 4, name)
+    check_tile_counts(tile_counts, q.device)
+    counters = masked_counters(masks, tile_counts, q.device, fp32=True)
+    if counters is not None:
+        _cuda.require_cuda(*masks.tensors())
     code = _cuda.lib().xfa_flash_fwd_fp32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _cuda.ptr(lse), *q.stride()[:3], *kstr, *vstr, *out.stride()[:3],
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
         int(window[0]), int(window[1]), _cuda.ptr(table), _cuda.ptr(lengths),
-        ps, npp, num_pages, _cuda.stream())
+        ps, npp, num_pages,
+        *KernelMasks.c_args(masks if counters is not None else None, causal,
+                            "fwd_fp32", d),
+        _cuda.ptr(masks.bands() if counters is not None else None),
+        _cuda.ptr(counters), _cuda.stream())
     _cuda.check(code, "flash_fwd_fp32")
 
 
 def flash_fwd_fp32(q, k, v, *, sm_scale: float, window=(-1, -1),
-                   softcap: float = 0.0, need_lse: bool = True):
+                   softcap: float = 0.0, need_lse: bool = True, masks=None,
+                   causal: bool = False):
     """The fp32 forward (csrc/flash_fp32.cu) on (b, h, s, d) float32 views
     on the card: q (b, h, sq, d), k/v (b, hk, sk, d); ``window`` (left,
-    right) as :func:`fp32_window` gives it. Returns (out (b, h, sq, d)
-    fp32, allocated in (b, sq, h, d) memory order as
+    right) as :func:`fp32_window` gives it; ``masks`` and ``causal`` as
+    :func:`build_masks` made them (the masked instantiation under a
+    FlashMask, block mask, segment ids or positions). Returns (out (b, h,
+    sq, d) fp32, allocated in (b, sq, h, d) memory order as
     :func:`flash_attention_fwd` does, lse (b, h, sq) fp32 | None).
 
     ``flash_fwd_fp32.launches`` counts kernel launches."""
@@ -527,7 +571,7 @@ def flash_fwd_fp32(q, k, v, *, sm_scale: float, window=(-1, -1),
     lse = (torch.empty(b, h, sq, dtype=F32, device=q.device)
            if need_lse else None)
     launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale, window=window,
-                          softcap=softcap)
+                          softcap=softcap, masks=masks, causal=causal)
     flash_fwd_fp32.launches += 1
     return out, lse
 
@@ -725,8 +769,8 @@ def flash_attention_fwd(
     ``q_descale`` / ``k_descale`` / ``v_descale`` (None: ones); out is then
     bf16, and bias, dropout and the mask flags raise ``ValueError``.
 
-    float32 q/k/v on the card run :func:`flash_fwd_fp32` (causal, windows,
-    softcap, GQA); with any other flag or a bias ``NotImplementedError``.
+    float32 q/k/v on the card run :func:`flash_fwd_fp32` (every flag; with
+    a bias ``NotImplementedError``).
 
     ``flash_attention_fwd.launches`` counts the bf16 kernel's launches,
     ``flash_fwd_fp8.launches`` the e4m3 instantiation's,
@@ -765,7 +809,8 @@ def flash_attention_fwd(
     if q.dtype == F32:
         return flash_fwd_fp32(q, k, v, sm_scale=sm_scale,
                               window=fp32_window(masks, causal, bias),
-                              softcap=softcap, need_lse=need_lse)
+                              softcap=softcap, need_lse=need_lse, masks=masks,
+                              causal=causal)
     out = torch.empty(b, sq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

@@ -6,10 +6,14 @@ Given q, k and the softmax LSE of an earlier attention forward,
     reduced[b, h, j] = sum_i exp(softmax_scale * (q_i . k_j) - lse_i)
 
 is how much attention key j received in all (for attention analysis and
-cache eviction). On CUDA tensors it runs in csrc/reduced_scores.cu, the
-counterpart of the TPU kernel `_reduced_kernel` (reduced_scores.py:34,
-kernel #12), bitwise deterministic; on CPU tensors in the plain version
-:func:`reduced_scores_ref`. No gradient: the TPU kernel has none either.
+cache eviction). On CUDA tensors it runs in csrc/reduced_scores.cu (bf16
+q/k) or in csrc/flash_fp32.cu's reduced_scores_fp32_kernel (fp32 q/k: q . k
+as three TF32 products on the tensor cores), the counterparts of the TPU
+kernel `_reduced_kernel` (reduced_scores.py:34, kernel #12), bitwise
+deterministic; on CPU tensors in the plain version
+:func:`reduced_scores_ref`. fp16 raises NotImplementedError
+(:data:`common.SLICE_DTYPES`). No gradient: the TPU kernel has none
+either.
 """
 
 from __future__ import annotations
@@ -54,11 +58,12 @@ def calc_reduced_attn_scores(
     """Reduced per-key attention scores.
 
     q: (b, h, sq, d); k: (b, hk, sk, d) with h % hk == 0; lse: (b, h, sq)
-    fp32 as the attention forward returns it. Returns (b, h, sk) fp32.
-    ``causal`` restricts the sum to the causal region. ``block_sizes`` and
-    ``interpret`` are the JAX package's TPU tiling and interpret switch and
-    are ignored. ``calc_reduced_attn_scores.launches`` counts kernel
-    launches.
+    fp32 as the attention forward returns it; q and k both bfloat16 or
+    both float32. Returns (b, h, sk) fp32. ``causal`` restricts the sum to
+    the causal region. ``block_sizes`` and ``interpret`` are the JAX
+    package's TPU tiling and interpret switch and are ignored.
+    ``calc_reduced_attn_scores.launches`` counts kernel launches (of either
+    kernel).
     """
     del block_sizes, interpret
     b, h, sq, d = q.shape
@@ -73,17 +78,19 @@ def calc_reduced_attn_scores(
         return reduced_scores_ref(q, k, lse, sm_scale=softmax_scale,
                                   causal=causal)
     _cuda.require_cuda(q, k, lse)
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+    if q.dtype != k.dtype or q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            "the CUDA reduced-scores kernel (TPU kernel #12) takes bfloat16 "
-            f"q/k; fp16 and fp32 come with {SLICE_DTYPES}")
+            "the CUDA reduced-scores kernels (TPU kernel #12) take bfloat16 "
+            f"or float32 q/k; fp16 comes with {SLICE_DTYPES}")
     if d not in (64, 128):
         raise NotImplementedError(f"head dim {d}: the kernel takes 64 or 128")
     for t, name in ((q, "q"), (k, "k")):
-        _cuda.require_aligned(t, 8, name)
+        _cuda.require_aligned(t, 16 // t.element_size(), name)
     lse = lse.to(torch.float32).contiguous()
     out = torch.empty(b, h, sk, dtype=torch.float32, device=q.device)
-    code = _cuda.lib().xfa_reduced_scores(
+    fn = (_cuda.lib().xfa_reduced_scores_fp32 if q.dtype == torch.float32
+          else _cuda.lib().xfa_reduced_scores)
+    code = fn(
         q.data_ptr(), k.data_ptr(), lse.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], b, h, hk, sq, sk, d,
         float(softmax_scale), int(causal), _cuda.stream())
