@@ -5,7 +5,8 @@
                              # int8 and int4 weights), GPT-2 XL serving in
                              # fp32, GPT-3/GPT-2-medium training (8k with
                              # remat; fp32, fp32 on packed documents), fp8
-                             # prefill, full width and depth, one card
+                             # prefill, fp32 attention with a bias, full
+                             # width and depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
@@ -151,7 +152,24 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      the masked fp32 #1, #2 and #3 on every layer), 4 AdamW steps through
      the Trainer: step ms, tokens/s, exact launches, no plain version;
      phase 10's table for one more step; depth 2 against the fp32 and
-     float64 plain paths under phase 18's gate.
+     float64 plain paths under phase 18's gate;
+ 21. fp32 with an attention bias through `flash_attention(q, k, v, bias,
+     causal=True)`, q, k, v and bias.requires_grad (the BIAS
+     instantiations of the fp32 forward, dK/dV and dQ kernels and the fp32
+     dbias kernel): G-pad (GPT-2 XL's attention b4 h25 s1024 d64, an
+     attn_mask (b, 1, s, s) of -1e4 past each row's length, lengths
+     512-1024 from the seed), G-alibi (the same, ALiBi (1, h, s, s) with
+     BLOOM's slopes for 25 heads), L-shared (Llama-3-8B's b2 h32 hk8 s2048
+     d128, a shared (1, 1, s, s) bias), L-bh (the same, a (b, h, s, s)
+     bias of 1.07 GB), G-bf16bias (a bf16 bias, dbias bf16; correctness
+     only), then `capi_bridge.attn_fwd` / `attn_bwd` on float32 numpy at
+     G-pad: exact launches (no plain version, no bf16 kernel), out, LSE
+     and every gradient against float64 on all of it (by (batch, kv-group)
+     chunks) under phase 18's gate, dq, dk, dv and dbias bitwise equal
+     over three backward passes; each kernel timed beside its bound (3
+     TF32 products at 495 TFLOP/s; bytes with the bias's causal part read
+     and dbias written), the plain versions and SDPA fp32 with the bias
+     and the causal mask as a float mask (TF32 off).
 Phases 11 and 13 also drive FM-doc, FM-swg (with the reduced scores of its
 LSE), BS and VL-doc in fp32 through the same entries (the masked fp32
 kernels; exact launches, within 1e-4 of the fp32 plain version's largest
@@ -833,6 +851,7 @@ def counters():
             "flash_bwd_dkv_fp32": bwd.flash_bwd_dkv_fp32,
             "flash_bwd_dq_fp32": bwd.flash_bwd_dq_fp32,
             "flash_bwd_dbias": bwd.flash_bwd_dbias,
+            "flash_bwd_dbias_fp32": bwd.flash_bwd_dbias_fp32,
             "fused_heads_bwd": fused_heads.fused_heads_bwd,
             "ln_bwd": layer_norm.ln_bwd,
             "reduced_scores": reduced_scores.calc_reduced_attn_scores}
@@ -1157,6 +1176,8 @@ TPU_OF = {
     "flash_bwd_dkv_fp32": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel (fp32)",
     "flash_bwd_dq_fp32": "ops/flash_attention/bwd.py:511 _bwd_dq_kernel (fp32)",
     "flash_bwd_dbias": "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel (dbias)",
+    "flash_bwd_dbias_fp32":
+        "ops/flash_attention/bwd.py:180 _bwd_dkv_kernel (dbias, fp32)",
     "fused_heads_bwd": "ops/flash_attention/fused_heads.py:105 _bwd_kernel",
     "ln_bwd": "ops/layer_norm.py:102 _ln_bwd_kernel",
     "reduced_scores": "ops/flash_attention/reduced_scores.py:34 _reduced_kernel",
@@ -5332,6 +5353,363 @@ def train_doc_fp32(seed):
     return launches
 
 
+# ------------------------------- phase 21: fp32 with an attention bias
+
+# GPT-2 XL's attention (openai-community/gpt2-xl: 25 heads of 64, 1024
+# positions) at batch 4, and Llama-3-8B's (32 heads, 8 kv heads of 128) at
+# batch 2, s2048
+G_BIAS = dict(b=4, h=25, hk=25, s=1024, d=64)
+L_BIAS = dict(b=2, h=32, hk=8, s=2048, d=128)
+G_PAD_LENGTHS = (512, 1024)  # G-pad's row lengths, drawn from the seed
+PAD_VALUE = -1e4             # an attn_mask's value on padded keys
+# label, shape, bias kind, timed: G-pad (b, 1, s, s) -1e4 past each row's
+# length; G-alibi (1, h, s, s) ALiBi with BLOOM's slopes; L-shared a
+# shared (1, 1, s, s) bias; L-bh a per-head (b, h, s, s) bias (1.07 GB);
+# G-bf16bias a bf16 (b, 1, s, s) bias, correctness only
+FP32_BIAS_CASES = (("G-pad", G_BIAS, "pad", True),
+                   ("G-alibi", G_BIAS, "alibi", True),
+                   ("L-shared", L_BIAS, "shared", True),
+                   ("L-bh", L_BIAS, "bh", True),
+                   ("G-bf16bias", G_BIAS, "bf16", False))
+FP32_BIAS_KERNELS = ("flash_fwd_fp32", "flash_bwd_prep", "flash_bwd_dkv_fp32",
+                     "flash_bwd_dq_fp32", "flash_bwd_dbias_fp32")
+FP32_BIAS_ROWS = (("flash_fwd_fp32", "fwd.py:78"),
+                  ("flash_bwd_dkv_fp32", "bwd.py:180"),
+                  ("flash_bwd_dq_fp32", "bwd.py:511"),
+                  ("flash_bwd_dbias_fp32", "bwd.py:180"))
+# float64 references by chunks of (batch, kv-head group) of at most this
+# many bytes of float64 scores
+FP64_CHUNK_BYTES = 1.1e9
+
+
+def alibi_slopes(h: int):
+    """ALiBi slopes of h heads as BLOOM computes them (transformers'
+    build_alibi_tensor): the geometric series of the largest power of two
+    below h, then every other term of the next one's."""
+    p2 = 2 ** math.floor(math.log2(h))
+    base = 2.0 ** (-(2.0 ** -(math.log2(p2) - 3)))
+    slopes = [base ** i for i in range(1, p2 + 1)]
+    if p2 != h:
+        extra = 2.0 ** (-(2.0 ** -(math.log2(2 * p2) - 3)))
+        slopes += [extra ** i for i in range(1, 2 * (h - p2), 2)]
+    return torch.tensor(slopes, dtype=torch.float32, device="cuda")
+
+
+def fp32_bias_tensor(gen, kind, b, h, s):
+    """The case's bias (bias.requires_grad is the caller's): see
+    FP32_BIAS_CASES."""
+    if kind in ("pad", "bf16"):
+        lengths = torch.randint(G_PAD_LENGTHS[0], G_PAD_LENGTHS[1] + 1, (b,),
+                                generator=gen, device="cuda")
+        if kind == "bf16":
+            return torch.randn(b, 1, s, s, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+        keys = torch.arange(s, device="cuda")
+        pad = torch.where(keys[None] >= lengths[:, None], PAD_VALUE, 0.0)
+        return pad[:, None, None, :].expand(b, 1, s, s).contiguous()
+    if kind == "alibi":
+        rel = (torch.arange(s, device="cuda")[None]
+               - torch.arange(s, device="cuda")[:, None]).float()
+        return (alibi_slopes(h)[:, None, None] * rel)[None].contiguous()
+    shape = {"shared": (1, 1, s, s), "bh": (b, h, s, s)}[kind]
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def fp32_bias_contract(label, ins, got, bias):
+    """Phase 18's gate (fp32_contract) for fp32 attention with a bias,
+    causal: the kernels' out, LSE, dq, dk, dv and dbias (``got``) against
+    float64 within twice the fp32 plain version's error plus 1e-4, all of
+    it, by chunks of (batch, kv-head group) (FP64_CHUNK_BYTES): each chunk
+    through float64 autograd and through the fp32 plain versions (its own
+    forward), dbias summed over the chunks that share it. Returns
+    ({what: (err, fp32 plain err)}, {what: kernel err against the fp32
+    plain version})."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    q, k, v, do = ins
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    bias4 = fwd.bias_view(bias, b, h, s, s)
+    bb, bh = bias4.shape[:2]
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    n_kv = max(1, min(hk, int(FP64_CHUNK_BYTES // (g * s * s * 8))))
+    while hk % n_kv:
+        n_kv -= 1
+    db64 = torch.zeros(bias4.shape, dtype=torch.float64, device="cuda")
+    db32 = torch.zeros(bias4.shape, dtype=torch.float32, device="cuda")
+    worst = {w: [0.0, 0.0, 0.0] for w in ("out", "lse", "dq", "dk", "dv")}
+    for bi in range(b):
+        for j in range(0, hk, n_kv):
+            hs, ks = slice(j * g, (j + n_kv) * g), slice(j, j + n_kv)
+            part = [t[bi:bi + 1, sl] for t, sl in zip(ins, (hs, ks, ks, hs))]
+            bsl = bias4[bi:bi + 1] if bb > 1 else bias4
+            bsl = bsl[:, hs] if bh > 1 else bsl
+            with torch.enable_grad():
+                x64 = [t.detach().double().requires_grad_()
+                       for t in part[:3] + [bsl]]
+                sc = (x64[0] * kw["sm_scale"]) @ x64[1].repeat_interleave(
+                    g, 1).transpose(-1, -2) + x64[3]
+                sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                               device="cuda").triu(1),
+                                    float("-inf"))
+                o64 = torch.softmax(sc, -1) @ x64[2].repeat_interleave(g, 1)
+                g64 = torch.autograd.grad(o64, x64, part[3].double())
+            want = [o64.detach(), torch.logsumexp(sc, -1).detach()] + list(
+                g64[:3])
+            del sc, o64
+            p_out, p_lse = fwd.attention_fwd_ref(*part[:3], need_lse=True,
+                                                 bias=bsl, **kw)
+            pg = bwd.attention_bwd_ref(*part[:3], p_out, p_lse, part[3],
+                                       bias=bsl, **kw)
+            plain = [p_out, p_lse] + list(pg[:3])
+            mine = [got[0][bi:bi + 1, hs], got[1][bi:bi + 1, hs],
+                    got[2][bi:bi + 1, hs], got[3][bi:bi + 1, ks],
+                    got[4][bi:bi + 1, ks]]
+            for w_, a, p_, ref in zip(worst, mine, plain, want):
+                worst[w_][0] = max(worst[w_][0], max_err(a, ref))
+                worst[w_][1] = max(worst[w_][1], max_err(p_, ref))
+                worst[w_][2] = max(worst[w_][2], max_err(a, p_))
+            at = (slice(bi, bi + 1) if bb > 1 else slice(0, 1),
+                  hs if bh > 1 else slice(0, 1))
+            db64[at] += g64[3]
+            db32[at] += pg[3].float()
+            del want, plain, g64, pg
+    errs = {w_: (e, ep) for w_, (e, ep, _) in worst.items()}
+    vs_plain = {w_: e for w_, (_, _, e) in worst.items()}
+    dbias = got[5].reshape(bias4.shape)
+    errs["dbias"] = (max_err(dbias, db64), max_err(db32, db64))
+    vs_plain["dbias"] = max_err(dbias, db32)
+    for w_, (e, ep) in errs.items():
+        check(e <= 2 * ep + 1e-4, f"fp32 bias {label} {w_}: err vs float64 "
+                                  f"{e} > 2 x fp32 plain {ep} + 1e-4")
+    return errs, vs_plain
+
+
+def _sdpa_fp32_bias_ms(q, k, v, do, bias):
+    """SDPA in fp32 (TF32 off) with the bias and the causal mask as one
+    float attn_mask, enable_gqa (or k and v repeated to every query head
+    where no backend takes GQA with a float mask): (forward ms, backward ms
+    as fwd + bwd minus fwd, the mask's gradient included). Its own
+    yardstick, used nowhere in the port."""
+    s, g = q.shape[2], q.shape[1] // k.shape[1]
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    mask = torch.where(causal, bias.detach().float(), float("-inf"))
+    mask.requires_grad_()
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    gqa = g > 1
+
+    def run():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              enable_gqa=gqa)
+    if gqa:
+        try:
+            with torch.no_grad():
+                run()
+        except RuntimeError as exc:  # no backend with GQA and a float mask
+            print(f"  SDPA fp32 with enable_gqa and a float mask: {exc}; k "
+                  "and v repeated to every query head first", flush=True)
+            kg, vg = (t.detach().repeat_interleave(g, 1).requires_grad_()
+                      for t in (k, v))
+            gqa = False
+    with torch.no_grad():
+        only = time_ms([run], iters=3, warmup=1)
+    both = time_ms([lambda: torch.autograd.grad(run(), (qg, kg, vg, mask),
+                                                do)], iters=3, warmup=1)
+    return only, both - only
+
+
+def fp32_bias_case(gen, label, shape, kind, timed):
+    """Phase 21, one case: fp32 `flash_attention(q, k, v, bias,
+    causal=True)` with q, k, v and bias.requires_grad through the autograd
+    function (the main path: exact launches of the fp32 forward, pre-pass,
+    dK/dV, dQ and dbias kernels, no plain version and no bf16 kernel);
+    out, LSE and every gradient under phase 18's gate against float64
+    (fp32_bias_contract); the backward's dq, dk, dv and dbias bitwise equal
+    over three passes; then, ``timed``, each kernel alone beside its bound
+    (3 TF32 products a product at 495 TFLOP/s, the bytes with the bias's
+    causal part read and dbias written), the plain versions and SDPA fp32
+    with the bias as a float mask. Returns (rows, launches)."""
+    from xhy_flash_attention_tpu_torch import flash_attention
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, s, d = _dims(shape)
+    q, k, v, do = _fp32_inputs(gen, shape)
+    bias = fp32_bias_tensor(gen, kind, b, h, s)
+    bias_bytes = bias.numel() * bias.element_size()
+
+    def run():
+        ins = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        out = flash_attention(*ins, causal=True, return_lse=True)
+        grads = torch.autograd.grad(out[0], ins, do)
+        return [out[0].detach(), out[1]] + list(grads)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with count_plain_calls() as plain:
+        got = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()},
+            **{key: 1 for key in FP32_BIAS_KERNELS}}
+    check(counts == want, f"fp32 bias {label}: launches {counts} != {want}")
+    check(not plain, f"fp32 bias {label}: plain versions ran: {plain}")
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"fp32 bias {label}: non-finite output or gradient")
+    check(got[0].dtype == torch.float32 and got[5].shape == bias.shape
+          and got[5].dtype == bias.dtype,
+          f"fp32 bias {label}: out {got[0].dtype}, dbias "
+          f"{tuple(got[5].shape)} {got[5].dtype}")
+    errs, vs_plain = fp32_bias_contract(label, (q, k, v, do), got, bias)
+    torch.cuda.empty_cache()
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    out, lse = got[0], got[1]
+    first = None
+    for _ in range(3):
+        grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, bias, **kw)
+        if first is None:
+            first = grads
+        check(all(torch.equal(a, c) for a, c in zip(first, grads)),
+              f"fp32 bias {label}: dq, dk, dv or dbias differ pass to pass")
+    del first, grads
+    print(f"  fp32 bias {label}: b{b} h{h} hk{hk} s{s} d{d} causal, bias "
+          f"{tuple(bias.shape)} {str(bias.dtype)[6:]} "
+          f"({bias_bytes / 1e9:.4g} GB); vs float64 (all of it, by "
+          "(batch, kv-group) chunks): "
+          + ", ".join(f"{w} {e:.3g} <= 2 x fp32 plain {ep:.3g} + 1e-4"
+                      for w, (e, ep) in errs.items())
+          + "; three backward passes bitwise equal (dq, dk, dv, dbias); "
+          f"launches {json.dumps({k_: v_ for k_, v_ in counts.items() if v_})}",
+          flush=True)
+    if not timed:
+        return [], counts
+    bias4 = fwd.bias_view(bias, b, h, s, s)
+    qs, delta = bwd.flash_bwd_prep(q, out, do, sm_scale=kw["sm_scale"])
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    args = (qs, k, v, do, lse, delta, dq, dk, dv)
+    kw32 = dict(sm_scale=kw["sm_scale"], window=(-1, 0), softcap=0.0,
+                bias=bias4)
+    runs = {
+        "flash_fwd_fp32": lambda: fwd.flash_fwd_fp32(
+            q, k, v, sm_scale=kw["sm_scale"], window=(-1, 0), bias=bias4),
+        "flash_bwd_dkv_fp32": lambda: bwd.flash_bwd_dkv_fp32(*args, **kw32),
+        "flash_bwd_dq_fp32": lambda: bwd.flash_bwd_dq_fp32(*args, **kw32),
+        "flash_bwd_dbias_fp32": lambda: bwd.flash_bwd_dbias_fp32(
+            qs, k, v, do, lse, delta, bias4, causal=True, softcap=0.0)}
+    ms = {name: time_ms([fn], iters=10) for name, fn in runs.items()}
+    plain_fwd = time_ms([lambda: fwd.attention_fwd_ref(
+        q, k, v, need_lse=True, bias=bias4, **kw)], iters=2, warmup=1)
+    plain_bwd = time_ms([lambda: bwd.attention_bwd_ref(
+        q, k, v, out, lse, do, bias=bias4, **kw)], iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    lib_fwd, lib_bwd = _sdpa_fp32_bias_ms(q, k, v, do, bias)
+    torch.cuda.empty_cache()
+    pair = 2.0 * b * h * s * s * d / 2  # one causal s x s x d product
+    io = 4.0 * b * s * d * (2 * h + 2 * hk)  # q, do | out, k, v (fp32)
+    stats = 2 * 4.0 * b * h * s  # lse, delta
+    seen = bias_bytes * (s + 1) / (2 * s)  # the causal part of the bias
+    work = {"flash_fwd_fp32": (2, io + 4.0 * b * h * s + seen),
+            "flash_bwd_dkv_fp32": (4, io + stats + 2 * 4.0 * b * s * hk * d
+                                   + seen),
+            "flash_bwd_dq_fp32": (3, io + stats + 4.0 * b * s * h * d + seen),
+            "flash_bwd_dbias_fp32": (2, io + stats + seen + bias_bytes)}
+    errors = {"flash_fwd_fp32": max(vs_plain["out"], vs_plain["lse"]),
+              "flash_bwd_dkv_fp32": max(vs_plain["dk"], vs_plain["dv"]),
+              "flash_bwd_dq_fp32": vs_plain["dq"],
+              "flash_bwd_dbias_fp32": vs_plain["dbias"]}
+    rows = []
+    for name, where in FP32_BIAS_ROWS:
+        n_mm, nbytes = work[name]
+        bms, by = fp32_bound(n_mm * pair, nbytes)
+        row = dict(
+            name=f"{name} (bias {label})", route="cuda",
+            source="xhy_flash_attention_tpu_torch/csrc/flash_fp32.cu",
+            replaces=f"xhy_flash_attention_tpu/ops/flash_attention/{where}",
+            kernel=name, launches=counts[name], max_abs_err=errors[name],
+            ms=ms[name],
+            plain_ms=plain_fwd if name == "flash_fwd_fp32" else plain_bwd,
+            bound_ms=bms, bound_by=by,
+            library_ms=lib_fwd if name == "flash_fwd_fp32" else lib_bwd)
+        report(row, f"max_abs_err against the fp32 plain version; b{b} h{h} "
+                    f"hk{hk} s{s} d{d} causal, bias {tuple(bias.shape)} fp32 "
+                    f"({bias_bytes / 1e9:.4g} GB, {seen / 1e9:.4g} GB of it "
+                    f"causal), {n_mm} products (3 TF32 each), bytes "
+                    f"{nbytes:.4g}; "
+                    + ("plain_ms: the plain forward; library_ms: SDPA fp32 "
+                       "with the bias and the causal mask as a float mask"
+                       if name == "flash_fwd_fp32" else
+                       "plain_ms: the plain backward, library_ms: SDPA fp32's "
+                       "backward with the mask's gradient, both whole"))
+        rows.append(row)
+    whole = sum(ms[n] for n in ms if n != "flash_fwd_fp32")
+    print(f"  fp32 bias {label}: forward {ms['flash_fwd_fp32']:.4f} ms (SDPA "
+          f"fp32 {lib_fwd:.4f}); backward kernels dK/dV + dQ + dbias "
+          f"{whole:.4f} ms (SDPA fp32's backward {lib_bwd:.4f})", flush=True)
+    return rows, counts
+
+
+def fp32_bridge_on_card(gen):
+    """Phase 21's end: `capi_bridge.attn_fwd` and `attn_bwd` with G-pad's
+    attn_mask on float32 numpy arrays (b, s, h, d) on the card: exact
+    launches of the five fp32 kernels, phase 18's gate against float64
+    (fp32_bias_contract), three attn_bwd calls bitwise equal."""
+    import numpy as np
+    from xhy_flash_attention_tpu_torch import capi_bridge
+    b, h, hk, s, d = _dims(G_BIAS)
+    q, k, v, do = (t.transpose(1, 2).contiguous()
+                   for t in _fp32_inputs(gen, G_BIAS))  # (b, s, heads, d)
+    mask = fp32_bias_tensor(gen, "pad", b, h, s)
+    host = [t.cpu().numpy() for t in (q, k, v, do, mask)]
+    reset_counts()
+    out, lse = capi_bridge.attn_fwd(*host[:3], host[4], None, 0.0, 0, 0.0, 1,
+                                    -1, -1, 0.0)
+    bwds = [capi_bridge.attn_bwd(host[3], *host[:3], out, lse, host[4], None,
+                                 0.0, 0, 0.0, 1, -1, -1, 0.0)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**{key: 0 for key in counters()},
+            **{key: 1 for key in FP32_BIAS_KERNELS}}
+    want.update({key: 3 for key in FP32_BIAS_KERNELS[1:]})
+    check(counts == want, f"fp32 capi_bridge: launches {counts} != {want}")
+    check(all(all(np.array_equal(a, c) for a, c in zip(bwds[0], other))
+              for other in bwds[1:]),
+          "fp32 capi_bridge: attn_bwd differs call to call")
+    dq, dk, dv, dbias = bwds[0]
+    check(out.dtype == np.float32 and dbias.dtype == np.float32
+          and dbias.shape == (b, 1, s, s),
+          f"fp32 capi_bridge: out {out.dtype}, dbias {dbias.dtype} "
+          f"{dbias.shape}")
+    to = lambda a, bshd=True: (  # noqa: E731
+        torch.from_numpy(a).cuda().transpose(1, 2) if bshd
+        else torch.from_numpy(a).cuda())
+    got = [to(out), to(lse, False), to(dq), to(dk), to(dv), to(dbias, False)]
+    errs, _ = fp32_bias_contract("capi_bridge", [t.transpose(1, 2) for t in
+                                                 (q, k, v, do)], got, mask)
+    print(f"  fp32 capi_bridge on the card: attn_fwd + attn_bwd (three calls, "
+          f"bitwise equal) with an attn_mask (b{b} h{h} s{s} d{d} causal, "
+          f"mask {tuple(mask.shape)} fp32, numpy float32): "
+          + ", ".join(f"{w} {e:.3g} <= 2 x fp32 plain {ep:.3g} + 1e-4"
+                      for w, (e, ep) in errs.items())
+          + f"; launches {json.dumps({k_: v_ for k_, v_ in counts.items() if v_})}",
+          flush=True)
+
+
+def fp32_bias_entries(gen):
+    """Phase 21: every fp32 bias case, then the C-API bridge. Returns the
+    rows and each kernel's launches on this path."""
+    rows, launches = [], {}
+    for label, shape, kind, timed in FP32_BIAS_CASES:
+        case_rows, counts = fp32_bias_case(gen, label, shape, kind, timed)
+        for key in FP32_BIAS_KERNELS:
+            launches[key] = launches.get(key, 0) + counts[key]
+        for row in case_rows:
+            row["launches"] = counts[row["kernel"]]
+        rows += case_rows
+        torch.cuda.empty_cache()
+    fp32_bridge_on_card(gen)
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5576,6 +5954,14 @@ def main():
     t_doc = train_doc_fp32(args.seed)
     print(f"  T-doc-fp32 launches on its main path: "
           f"{json.dumps({k: v for k, v in t_doc.items() if v})}", flush=True)
+    torch.cuda.empty_cache()
+    print("[21] fp32 with an attention bias, forward and backward with "
+          "dbias: G-pad, G-alibi (GPT-2 XL's attention), L-shared, L-bh "
+          "(Llama-3-8B's), G-bf16bias, then the C-API bridge", flush=True)
+    bias_rows, _ = fp32_bias_entries(gen)
+    for row in bias_rows:
+        launches[row["name"]] = row["launches"]
+    rows += bias_rows
 
     for row in rows:
         row["launches"] = launches.get(

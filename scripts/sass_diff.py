@@ -23,8 +23,9 @@ last line counts the pairs with the same opcodes and those that differ. Last, th
 e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
 true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
 the script exits non-zero; and the second tree's fp32 kernels, dense and
-MASKED (`flash_fwd_fp32_kernel`, `flash_bwd_dkv_fp32_kernel`,
-`flash_bwd_dq_fp32_kernel`) and the fp32 reduced scores
+MASKED, with and without BIAS (`flash_fwd_fp32_kernel`,
+`flash_bwd_dkv_fp32_kernel`, `flash_bwd_dq_fp32_kernel`), the fp32 dbias
+kernel (`flash_bwd_dbias_fp32_kernel`) and the fp32 reduced scores
 (`reduced_scores_fp32_kernel`): each must issue `HGMMA ... TF32` and spill
 nothing, else the script exits non-zero.
 Needs the CUDA toolkit (nvcc, cuobjdump) and no card.
@@ -38,13 +39,13 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)(_fp32)?|flash_bwd_(dbias|prep)"
+KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)(_fp32)?|flash_bwd_prep"
                      r"|flash_decode|paged_decode|paged_prefill"
                      r"|reduced_scores(_fp32)?)_kernel<[^>]*>")
 # trailing template arguments a kernel gained, at the old behaviour
 OLD_BEHAVIOUR = (", false>", ", __nv_bfloat16>")
 E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
-FP32_TF32 = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq)|reduced_scores)_fp32_kernel"
+FP32_TF32 = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)|reduced_scores)_fp32_kernel"
                        r"<[^>]*>")
 
 

@@ -17,7 +17,12 @@ its inputs.
     units of the largest JAX entry (out, lse: 1e-3 absolute), bf16
     gradients within four (the two round P and dS to bf16 in sums of another
     order), fp32 dbias and reduced scores within 1e-3 of the largest entry;
-    and the same ValueErrors.
+    and the same ValueErrors;
+  * `attn_fwd` / `attn_bwd` on float32 numpy inputs with an attn_mask (b, 1,
+    s, s), causal with GQA (the fp32 kernels' BIAS instantiations and the
+    fp32 dbias kernel on the card): out within 1e-5 and the LSE within 1e-5
+    of the largest JAX entry, dq/dk/dv and dbias within 5e-5 (fp32 in sums
+    of another order, as above), dbias fp32 in the mask's broadcast shape.
 """
 
 import functools
@@ -255,6 +260,43 @@ def _port_bridge(which):
                               1, 30, -1, 5.0, device="cpu")
     return tcapi.attn_bwd(do, q, k, v, out, lse, None, fm, 0.0, 0, 0.0, 1,
                           -1, -1, 0.0, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _bridge_f32():
+    """float32 (b, s, h, d) inputs with a (b, 1, s, s) attn_mask, as the
+    reference C API takes PaddlePaddle's, and the JAX bridge's forward and
+    backward on them (causal, GQA 2)."""
+    rng = np.random.default_rng(23)
+    b, s, h, hk, d = 2, 72, 4, 2, 64
+    q, do = (_randn(rng, (b, s, h, d)) for _ in range(2))
+    k, v = (_randn(rng, (b, s, hk, d)) for _ in range(2))
+    mask = _randn(rng, (b, 1, s, s), 2.0)
+    out, lse = jcapi.attn_fwd(q, k, v, mask, None, 0.0, 0, 0.0, 1, -1, -1,
+                              0.0)
+    grads = jcapi.attn_bwd(do, q, k, v, out, lse, mask, None, 0.0, 0, 0.0, 1,
+                           -1, -1, 0.0)
+    return (q, k, v, do, mask), (out, lse), grads
+
+
+def test_bridge_fp32_attn_mask_matches_jax():
+    """attn_fwd and attn_bwd on float32 arrays with an attn_mask: fp32
+    out, LSE and gradients, dbias (b, 1, s, s) fp32, against the JAX
+    bridge on the same inputs (the backward from the JAX forward's out and
+    lse, handed to both)."""
+    (q, k, v, do, mask), (want_out, want_lse), want = _bridge_f32()
+    out, lse = tcapi.attn_fwd(q, k, v, mask, None, 0.0, 0, 0.0, 1, -1, -1,
+                              0.0, device="cpu")
+    assert out.dtype == np.float32 and out.shape == want_out.shape
+    _close(out, want_out, 1e-5)
+    _close(lse, want_lse, 1e-5)
+    got = tcapi.attn_bwd(do, q, k, v, want_out, want_lse, mask, None, 0.0, 0,
+                         0.0, 1, -1, -1, 0.0, device="cpu")
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == np.float32
+        _close(g, w, 5e-5)
+    assert got[3].dtype == np.float32 and got[3].shape == mask.shape
+    _close(got[3], want[3], 5e-5)
 
 
 @pytest.mark.parametrize("which", ["fwd_bias", "fwd_fm"])

@@ -2253,10 +2253,9 @@ def test_fp32_gpt_config_builds_and_serves_on_the_card(cuda):
 
 
 def test_fp32_refuses_what_its_kernels_lack(cuda):
-    """fp32 with an attention bias raises NotImplementedError on the card,
-    never falling back to a plain version or a bf16 kernel; fp16 raises
-    too (its forward and the reduced scores)."""
-    from xhy_flash_attention_tpu_torch import flash_attention
+    """fp16 raises NotImplementedError on the card (its forward and the
+    reduced scores), never falling back to a plain version or another
+    kernel."""
     from xhy_flash_attention_tpu_torch.ops.flash_attention import (
         bwd, reduced_scores)
     b, h, s, d = 1, 4, 128, 64
@@ -2264,17 +2263,156 @@ def test_fp32_refuses_what_its_kernels_lack(cuda):
     before = (fwd.flash_fwd_fp32.launches, fwd.flash_attention_fwd.launches,
               bwd.flash_bwd_dkv_fp32.launches)
     with pytest.raises(NotImplementedError, match="Next slices"):
-        flash_attention(q, q, q, torch.zeros(s, s, device="cuda"))
-    with pytest.raises(NotImplementedError, match="Next slices"):
-        flash_attention(q, q, q, torch.zeros(b, h, s, s, device="cuda"),
-                        causal=True)
-    with pytest.raises(NotImplementedError, match="Next slices"):
         fwd.flash_attention_fwd(q.half(), q.half(), q.half(), sm_scale=1.0)
     with pytest.raises(NotImplementedError, match="Next slices"):
         reduced_scores.calc_reduced_attn_scores(
             q.half(), q.half(), torch.zeros(b, h, s, device="cuda"))
     assert (fwd.flash_fwd_fp32.launches, fwd.flash_attention_fwd.launches,
             bwd.flash_bwd_dkv_fp32.launches) == before
+
+
+# ---- fp32 with an attention bias: the BIAS instantiations of the three
+# fp32 kernels (dense and masked) and the fp32 dbias kernel
+
+def _bias_attention64(q, k, v, do, bias, keep):
+    """(out, lse, dq, dk, dv, dbias) in float64 with the (bb, bh, sq, sk)
+    bias added after softcap-free scores and the keep mask (b|1, h|1, sq,
+    sk); dbias in the bias's shape; rows that see no key give 0."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        expand_heads)
+    ins = [t.detach().double().requires_grad_() for t in (q, k, v, bias)]
+    h, g = q.shape[1], q.shape[1] // k.shape[1]
+    s = (ins[0] * q.shape[3] ** -0.5) @ ins[1].repeat_interleave(
+        g, 1).transpose(-1, -2) + ins[3]
+    s = s.masked_fill(~expand_heads(keep, h), float("-inf"))
+    out = torch.nan_to_num(torch.softmax(s, -1)) @ ins[2].repeat_interleave(
+        g, 1)
+    grads = torch.autograd.grad(out, ins, do.double())
+    return (out.detach(), torch.logsumexp(s, -1).detach()) + grads
+
+
+def _fp32_bias_run(cuda, kind, d, hk, sq, sk, causal=True, window=(-1, -1),
+                   bias_dtype=torch.float32, **flags):
+    """fp32 q/k/v with a bias of ``kind`` through flash_attention_fwd and
+    flash_attention_bwd (bias.requires_grad's path): exact launches of the
+    fp32 forward, pre-pass, dK/dV, dQ and dbias kernels (no bf16 kernel);
+    out, LSE, dq, dk, dv and dbias against float64 within twice the fp32
+    plain versions' error plus 1e-4 (_fp32_contract); rows that see no key
+    0 with LSE +inf; three backward passes bitwise equal (dQ and dbias
+    included)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h = 2, 8
+    q, k, v, do = _fp32_case(cuda, b, h, hk, sq, sk, d)
+    bias = (2 * torch.randn(_bias_shape(kind, b, h, sq, sk), generator=cuda,
+                            device="cuda")).to(bias_dtype)
+    eff, masks = fwd.build_masks(b, h, sq, sk, causal, window, **flags)
+    kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0)
+    counts = (fwd.flash_fwd_fp32, bwd.flash_bwd_prep, bwd.flash_bwd_dkv_fp32,
+              bwd.flash_bwd_dq_fp32, bwd.flash_bwd_dbias_fp32,
+              fwd.flash_attention_fwd, bwd.flash_bwd_dkv, bwd.flash_bwd_dq,
+              bwd.flash_bwd_dbias)
+    before = [c.launches for c in counts]
+    out, lse = fwd.flash_attention_fwd(q, k, v, bias, need_lse=True,
+                                       masks=masks, **kw)
+    runs = [bwd.flash_attention_bwd(q, k, v, out, lse, do, bias, masks=masks,
+                                    **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == \
+        [1, 3, 3, 3, 3, 0, 0, 0, 0]
+    for other in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(runs[0], other))
+    grads = runs[0]
+    assert grads[3].shape == bias.shape and grads[3].dtype == bias_dtype
+    bias4 = fwd.bias_view(bias, b, h, sq, sk)
+    keep = torch.ones(1, 1, sq, sk, dtype=torch.bool, device="cuda")
+    if eff:
+        keep = keep.tril(sk - sq)
+    if masks.keep(h, "cuda") is not None:
+        keep = keep & masks.keep(h, "cuda")
+    p_out, p_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=keep,
+                                         bias=bias4, **dict(kw, causal=False))
+    p_grads = bwd.attention_bwd_ref(q, k, v, p_out, p_lse, do, mask=keep,
+                                    bias=bias4, **dict(kw, causal=False))
+    want = _bias_attention64(q, k, v, do, bias4, keep)
+    seen = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert torch.isinf(lse[~seen]).all() and not out[~seen].any()
+    _fp32_contract("out", out, p_out, want[0])
+    _fp32_contract("lse", lse[seen], p_lse[seen], want[1][seen])
+    for name, g, pg, w in zip(("dq", "dk", "dv", "dbias"), grads, p_grads,
+                              want[2:]):
+        _fp32_contract(name, g.reshape(w.shape), pg.reshape(w.shape), w)
+
+
+@pytest.mark.parametrize("hk", [8, 2])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["2d", "3d", "1h", "b1", "bh"])
+def test_fp32_bias_kernels_meet_the_contract(cuda, kind, d, hk):
+    """Every bias kind through the dense BIAS instantiations, causal, GQA 1
+    and 4, sq 257 != sk 333 (odd: the bias copied once into rows of even
+    length)."""
+    _fp32_bias_run(cuda, kind, d, hk, 257, 333)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("flag", ["softcap", "window", "segments",
+                                  "positions", "bf16 bias", "full"])
+def test_fp32_bias_with_flags(cuda, flag, d):
+    """A bias with softcap (added after it), a window (100, 0), segment ids
+    with a padded tail and positions with a window (the masked BIAS
+    instantiations), a bf16 bias (widened in the kernels; dbias bf16) and
+    no causal mask, GQA 4, odd lengths."""
+    if flag == "softcap":
+        _fp32_bias_softcap(cuda, d)
+        return
+    s, kw = 301, {}
+    if flag == "window":
+        kw = dict(window=(100, -1))
+    elif flag in ("segments", "positions"):
+        b = 2
+        seg = torch.sort(torch.randint(1, 4, (b, s), generator=cuda,
+                                       device="cuda"), -1).values.int()
+        qseg, kseg = seg.clone(), seg.clone()
+        qseg[:, -30:], kseg[:, -17:] = 0, 6
+        kw = dict(q_segment_ids=qseg, kv_segment_ids=kseg)
+        if flag == "positions":
+            pos = (2 * torch.arange(s, device="cuda", dtype=torch.int32))[None]
+            kw.update(q_positions=(pos + 40).repeat(b, 1),
+                      kv_positions=pos.repeat(b, 1), window=(50, -1))
+    elif flag == "bf16 bias":
+        kw = dict(bias_dtype=torch.bfloat16)
+    elif flag == "full":
+        kw = dict(causal=False)
+    _fp32_bias_run(cuda, "b1" if d == 64 else "1h", d, 2, s, s, **kw)
+
+
+def _fp32_bias_softcap(cuda, d):
+    """The bias after softcap 20 through the fp32 kernels against the fp32
+    plain versions and float64 (its scores softcapped before the bias)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    b, h, hk, s = 2, 8, 2, 301
+    q, k, v, do = _fp32_case(cuda, b, h, hk, s, s, d)
+    bias = 2 * torch.randn(1, h, s, s, generator=cuda, device="cuda")
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=20.0)
+    out, lse = fwd.flash_attention_fwd(q, k, v, bias, need_lse=True, **kw)
+    grads = bwd.flash_attention_bwd(q, k, v, out, lse, do, bias, **kw)
+    p_out, p_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, bias=bias,
+                                         **kw)
+    p_grads = bwd.attention_bwd_ref(q, k, v, p_out, p_lse, do, bias=bias,
+                                    **kw)
+    ins = [t.detach().double().requires_grad_() for t in (q, k, v, bias)]
+    sc = (ins[0] * d ** -0.5) @ ins[1].repeat_interleave(h // hk, 1).transpose(
+        -1, -2)
+    sc = torch.tanh(sc / 20.0) * 20.0 + ins[3]
+    sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                   device="cuda").triu(1), float("-inf"))
+    o64 = torch.softmax(sc, -1) @ ins[2].repeat_interleave(h // hk, 1)
+    want = torch.autograd.grad(o64, ins, do.double())
+    _fp32_contract("out", out, p_out, o64.detach())
+    _fp32_contract("lse", lse, p_lse, torch.logsumexp(sc, -1).detach())
+    for name, g, pg, w in zip(("dq", "dk", "dv", "dbias"), grads, p_grads,
+                              want):
+        _fp32_contract(name, g, pg.reshape(w.shape), w)
 
 
 # ---- fp32 under FlashMask, block masks, segment ids and positions (the

@@ -20,7 +20,13 @@ positions with segment ids; each with rows that see no key) the emulated
 forward and backward meet the same contract against float64 with the
 port's dense keep mask, beside the JAX package's flashmask, block-sparse
 and segment / position attention; and so do the reduced scores (#12) with
-the three-product q . k, beside the JAX kernel's.
+the three-product q . k, beside the JAX kernel's. With an attention bias of
+each kind ((sq, sk), (b, sq, sk), (1, h, sq, sk), (b, 1, sq, sk), (b, h, sq,
+sk); the BIAS instantiations and the fp32 dbias kernel) the emulated forward
+and backward, dbias included, meet the same contract against float64
+beside the fp32 plain versions and the JAX package's fp32 flash_attention
+(one jax.vjp call a kind), and dbias is the per-head one summed over the
+bias's broadcast axes.
 """
 
 import functools
@@ -53,6 +59,7 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import (
     construct_local_mask,
     matmul_tf32x3,
     split_tf32,
+    sum_bias_members,
     tf32_trunc,
 )
 
@@ -391,3 +398,91 @@ def test_tf32x3_reduced_scores_meet_the_fp32_contract(d, hk, causal):
     assert _err(emul, want) <= 2 * _err(plain, want) + 1e-4 * top
     assert _err(emul, want) <= 2 * _err(jax_res, want) + 1e-4 * top
     assert _err(emul, jax_res) <= 5e-5 * jax_res.abs().max().item()
+
+
+# ---- the fp32 kernels with an attention bias (the BIAS instantiations of
+# csrc/flash_fp32.cu and flash_bwd_dbias_fp32_kernel)
+
+BS, BK = 80, 112  # the bias cases' lengths (causal, sq != sk)
+# (bias kind, head dim); GQA 4 over 1
+BIAS_CASES = [("2d", 64), ("3d", 128), ("1h", 64), ("b1", 128), ("bh", 64)]
+
+
+def _bias_shape(kind):
+    return {"2d": (BS, BK), "3d": (B, BS, BK), "1h": (1, H, BS, BK),
+            "b1": (B, 1, BS, BK), "bh": (B, H, BS, BK)}[kind]
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_case(kind, d):
+    """numpy q, k, v, bias, dO and the JAX package's fp32 out, LSE, dq, dk,
+    dv and dbias of a causal call with the bias (one jax.vjp call)."""
+    rng = np.random.default_rng(BIAS_CASES.index((kind, d)) + 70)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in
+              ((B, H, BS, d), (B, HK, BK, d), (B, HK, BK, d))]
+    arrays.append(2 * rng.standard_normal(_bias_shape(kind)).astype(np.float32))
+    do = rng.standard_normal((B, H, BS, d)).astype(np.float32)
+    (out, lse), vjp = jax.vjp(
+        lambda q, k, v, bias: jflash_attention(q, k, v, bias, causal=True,
+                                               return_lse=True),
+        *map(jnp.asarray, arrays))
+    grads = vjp((jnp.asarray(do), jnp.zeros_like(lse)))
+    to = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
+    return arrays, do, [to(out), to(lse)], [to(g) for g in grads]
+
+
+def _attention64_bias(q, k, v, bias, do):
+    """(out, lse, dq, dk, dv, dbias) in float64, causal, with the bias
+    (broadcast as tfwd.bias_view does); dbias in the bias's own shape
+    (autograd sums the broadcast axes)."""
+    ins = [t.double().requires_grad_() for t in (q, k, v, bias)]
+    g = q.shape[1] // k.shape[1]
+    s = (ins[0] * q.shape[-1] ** -0.5) @ ins[1].repeat_interleave(
+        g, 1).transpose(-1, -2) + ins[3].reshape(
+        tfwd.bias_view(bias, B, H, BS, BK).shape)
+    s = s.masked_fill(~_keep(BS, BK, True, (-1, -1)), float("-inf"))
+    out = torch.softmax(s, -1) @ ins[2].repeat_interleave(g, 1)
+    return [out.detach(), torch.logsumexp(s, -1).detach()] + list(
+        torch.autograd.grad(out, ins, do.double()))
+
+
+@pytest.mark.parametrize("kind,d", BIAS_CASES)
+def test_tf32x3_bias_meets_the_fp32_contract(kind, d):
+    """The emulation with a bias (added after softcap, in fp32): out, LSE,
+    dq, dk, dv and dbias under the fp32 contract against float64 (at most
+    twice the fp32 plain versions' error + 1e-4, and twice JAX's + 1e-4),
+    within 5e-5 of JAX's relative to its largest entry; dbias in the
+    bias's broadcast shape, equal to the per-head dbias of the bias
+    expanded to (b, h, sq, sk) summed member by member in the kernel's
+    order, and within 1e-6 of its largest entry of that sum in torch's
+    order."""
+    arrays, do, jres, jgrads = _bias_case(kind, d)
+    q, k, v, bias = (torch.from_numpy(a) for a in arrays)
+    do = torch.from_numpy(do)
+    bias4 = tfwd.bias_view(bias, B, H, BS, BK)
+    keep = _keep(BS, BK, True, (-1, -1))[None, None]
+    kw = dict(sm_scale=d ** -0.5, softcap=0.0)
+    out, lse = attention_fwd_tf32x3(q, k, v, mask=keep, bias=bias4, **kw)
+    p_out, p_lse = tfwd.attention_fwd_ref(q, k, v, need_lse=True,
+                                          causal=True, bias=bias4, **kw)
+    grads = attention_bwd_tf32x3(q, k, v, p_out, p_lse, do, mask=keep,
+                                 bias=bias4, **kw)
+    plain = tbwd.attention_bwd_ref(q, k, v, p_out, p_lse, do, causal=True,
+                                   bias=bias4, **kw)
+    want = _attention64_bias(q, k, v, bias, do)
+    assert grads[3].shape == bias4.shape and grads[3].dtype == torch.float32
+    for name, e, p, j, w in zip(
+            ("out", "lse", "dq", "dk", "dv", "dbias"), (out, lse) + grads,
+            (p_out, p_lse) + plain, jres + jgrads, want):
+        e, p = e.reshape(w.shape), p.reshape(w.shape)
+        err, err_plain, err_jax = _err(e, w), _err(p, w), _err(j, w)
+        assert err <= 2 * err_plain + 1e-4, (name, err, err_plain)
+        assert err <= 2 * err_jax + 1e-4, (name, err, err_jax)
+        assert _err(e, j) <= 5e-5 * j.abs().max().item(), (name, _err(e, j))
+    full = attention_bwd_tf32x3(
+        q, k, v, p_out, p_lse, do, mask=keep,
+        bias=bias4.expand(B, H, BS, BK).contiguous(), **kw)[3]
+    assert torch.equal(grads[3], sum_bias_members(full, bias4.shape))
+    dims = tuple(i for i in (0, 1) if bias4.shape[i] == 1)
+    summed = full.sum(dims, keepdim=True) if dims else full
+    assert _err(grads[3], summed) <= 1e-6 * summed.abs().max().item()

@@ -21,11 +21,13 @@ softmax_lse (b, h, sq) fp32 (varlen: (h, total_q)), the attention bias
 flashmask mask the (b, hm, sk, nv) startend_row_indices tensor (nv in {1,
 2, 4}).
 
-dtype: float32 or bfloat16. bf16 crosses the ABI as raw 2-byte elements:
-a numpy ``uint16`` array (or an ``ml_dtypes.bfloat16`` one) is read as
-bf16, and bf16 results come back as :func:`np_dtype` ("bfloat16") arrays:
-``ml_dtypes.bfloat16`` where that package imports, else ``uint16`` holding
-the same bits.
+dtype: float32 or bfloat16, with every option of each function (float32
+with an attn_mask runs the fp32 kernels' bias instantiations and, in
+`attn_bwd`, the fp32 dbias kernel). bf16 crosses the ABI as raw 2-byte
+elements: a numpy ``uint16`` array (or an ``ml_dtypes.bfloat16`` one) is
+read as bf16, and bf16 results come back as :func:`np_dtype` ("bfloat16")
+arrays: ``ml_dtypes.bfloat16`` where that package imports, else ``uint16``
+holding the same bits.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 // The gradient of the attention bias, dbias = P (dP - delta) summed over
 // the batches and heads that share each bias element, for bf16 q/k/v/dO
-// and an fp32 or bf16 bias, accumulated in fp32.
+// and an fp32 or bf16 bias, accumulated in fp32 (fp32 q/k/v/dO run
+// flash_fp32.cu's flash_bwd_dbias_fp32_kernel).
 //
 // Replaces the dbias output of the TPU kernel
 // xhy_flash_attention_tpu/ops/flash_attention/bwd.py:180 `_bwd_dkv_kernel`

@@ -15,10 +15,14 @@
 //   * #1-#3 under FlashMask, block masks, segment ids and q/kv positions
 //     (fwd.py:244-296, 353-390; bwd.py's as #1) -> the MASKED
 //     instantiations of the three kernels;
+//   * #1-#3 with an attention bias (fwd.py:353-354, bwd.py:131-132) -> the
+//     BIAS instantiations of the three kernels, dense or MASKED, and the
+//     dbias output of #2 (bwd.py:173, 411-481, 757-800, 1302-1312) ->
+//     flash_bwd_dbias_fp32_kernel;
 //   * reduced_scores.py:34 `_reduced_kernel` (#12) ->
 //     reduced_scores_fp32_kernel.
 // The backward's pre-pass (delta, q_s) is flash_bwd.cu's
-// flash_bwd_prep_kernel<D, float>. An attention bias is not taken in fp32.
+// flash_bwd_prep_kernel<D, float>.
 //
 // What they compute, as the TPU kernels do in fp32: S = (q * sm_scale) K^T
 // (q_s = q * sm_scale rounded to fp32, as the plain versions), optional
@@ -93,8 +97,9 @@
 //   * Shared memory (227 KB) binds: an fp32 tile is twice bf16's, and each
 //     B operand is there twice (hi, lo), four of them also transposed.
 //
-// Forward design (flash_fwd_fp32_kernel<D, PAGED, SOFTCAP>): a block is 128
-// query rows of one (batch, head), consumer c owning rows [64c, 64c + 64);
+// Forward design (flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED, BIAS>):
+// a block is 128 query rows of one (batch, head), consumer c owning rows
+// [64c, 64c + 64);
 // blocks in pairs heaviest last (the causal pairs hold equal work). q
 // arrives by TMA into one resident buffer (128 rows: 32 KB at d 64, 64 KB
 // at d 128), and each consumer scales its rows in place (q_s = q sm_scale,
@@ -203,6 +208,25 @@
 //     their products 4 k-steps at a time, wait for dV's product before dK's,
 //     and read the tile's word again after the products (each of the three
 //     was needed for no spill).
+//
+// Bias design (the BIAS instantiations; never PAGED; not with a FlashMask
+// or block mask, as in the TPU package): a (bb, bh, sq, sk) fp32 or bf16
+// bias, broadcast by strides (common.cuh BiasParams), added in fp32 to each
+// score after softcap and before the mask, as flash_fwd.cu's and
+// flash_bwd.cu's bias instantiations add it. Each consumer thread reads its
+// accumulator fragment's bias straight from global memory (common.cuh
+// load_bias_rows: a key pair a load, the forward's and dQ's S at their
+// 64- / 32- / 16-key tiles; load_bias_cols: an element a load, dK/dV's
+// S^T at its 32- / 16-row tiles) after the tile's products, its lines
+// prefetched into L1 before them (prefetch_bias, a line a lane): loads
+// issued before the products held their registers across them and spilled
+// in the masked kernels (whose registers are spent, the masked d 64 dK/dV
+// and d 128 forward and dQ do not prefetch either). Shared memory is full,
+// so the bias is not staged. A bias shared by the batches orders the dense
+// blocks batch first (common.cuh pair_block_by), so that the blocks running
+// together read the same rows. dS keeps the softcap derivative; dbias, the gradient
+// before it summed over the bias's broadcast axes, is
+// flash_bwd_dbias_fp32_kernel's (its section below).
 //
 // The reduced scores (reduced_scores_fp32_kernel, #12): the dK/dV kernel's
 // S^T pipeline alone; see its section below.
@@ -719,6 +743,7 @@ struct Fp32Params {
   xfa::MaskParams mask;
   const int4* bands;
   int* next;
+  xfa::BiasParams bias;  // BIAS: the attention bias (common.cuh BiasParams)
 };
 
 template <int D, bool MASKED = false>
@@ -745,11 +770,17 @@ struct FwdBlock {
 // last) and the key tiles of L keys that its rows below sq see under the
 // window; false when the pair has no second block. Paged, a batch row's
 // keys are min(length, capacity) and its rows the last sq of its length.
-template <int L, bool PAGED>
+template <int L, bool PAGED, bool BIAS = false>
 __device__ __forceinline__ bool fwd_block(const Fp32Params& p, int pair, int half, int n_mb,
                                           FwdBlock& fb) {
   int m_block;
-  if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, fb.head, fb.batch)) return false;
+  if constexpr (BIAS) {  // a bias shared by every batch: blocks batch first
+    if (!xfa::pair_block_by(p.bias.sb == 0 && p.b > 1, pair, half, n_mb, p.h, p.b, true, m_block,
+                            fb.head, fb.batch))
+      return false;
+  } else if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, fb.head, fb.batch)) {
+    return false;
+  }
   fb.q0 = m_block * kFwdRows;
   if constexpr (PAGED) {
     const int len = p.lengths[fb.batch];
@@ -889,6 +920,41 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[L / 2], float (&m)[2], fl
   l[1] = l[1] * alpha[1] + rs[1];
 }
 
+// The forward's BIAS: softcap, then the bias `bv` of the same fragment
+// (common.cuh load_bias_rows) added in fp32, in place on the scores s, as
+// the TPU kernel adds it (fwd.py:353-354): before the mask and the softmax
+// (fwd_softmax then runs without SOFTCAP).
+template <int N, bool SOFTCAP>
+__device__ __forceinline__ void cap_and_bias(float (&s)[N / 2], const float (&bv)[N / 2],
+                                             float cap) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    float x = s[i];
+    if constexpr (SOFTCAP) x = tanhf(x / cap) * cap;
+    s[i] = x + bv[i];
+  }
+}
+
+// The bias lines of a warp's tile, one 128-byte line a lane, prefetched into
+// L1 before the tile's products, so that its fragment loads after them
+// (common.cuh load_bias_rows / load_bias_cols) find them there: loads held
+// in registers across the products spilled in the masked forward and dQ.
+// A warp's fragment covers ROWS bias rows from r0 (clamped below sq, as the
+// loads clamp) by KEYS keys from k0, ROWS * KEYS * 4 bytes at most 32
+// lines.
+template <int ROWS, int KEYS>
+__device__ __forceinline__ void prefetch_bias(const xfa::BiasParams& bp, int64_t base, int r0,
+                                              int k0, int sq, int sk, int lane) {
+  static_assert(ROWS <= 32 && 32 % ROWS == 0, "a row per lane group");
+  const int es = bp.dtype == xfa::kBF16 ? 2 : 4;
+  const int key = k0 + (lane / ROWS) * (128 / es);  // the lane's line of its row
+  if (key < k0 + KEYS) {
+    const char* at = static_cast<const char*>(bp.ptr) +
+                     (base + min(r0 + lane % ROWS, sq - 1) * bp.ss + min(key, sk - 1)) * es;
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(at));
+  }
+}
+
 // A consumer's rows row0 and row0 + 8 of O / l, divided as the plain
 // version divides (0 where a row saw nothing), and their LSE (+inf there).
 template <int D>
@@ -915,12 +981,13 @@ __device__ __forceinline__ void fwd_store(const Fp32Params& p, int batch, int he
   }
 }
 
-template <int D, bool PAGED, bool SOFTCAP, bool MASKED>
+template <int D, bool PAGED, bool SOFTCAP, bool MASKED, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const Fp32Params p) {
   static_assert(!(PAGED && MASKED), "the paged route takes no mask");
+  static_assert(!(PAGED && BIAS), "the paged route takes no bias");
   using S = FwdSmem<D, MASKED>;
   constexpr int L = kFwdKeys<D>, kStages = kFwdStages;
   extern __shared__ uint8_t smem_raw[];
@@ -990,7 +1057,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           FwdBlock fb;
-          if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb) || fb.n == 0) continue;
+          if (!fwd_block<L, PAGED, BIAS>(p, pair, half, n_mb, fb) || fb.n == 0) continue;
           const int kv_head = fb.head / group;
           const int q_at = tma_tiles ? min(kStages, fb.n) : 0;
           for (int i = 0; i <= fb.n; ++i) {
@@ -1037,7 +1104,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           FwdBlock fb;
-          if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb)) continue;
+          if (!fwd_block<L, PAGED, BIAS>(p, pair, half, n_mb, fb)) continue;
           for (int i = 0; i < fb.n; ++i, ++it) {
             const int st = it % kStages, n0 = (fb.first + i) * L;
             uint8_t* sp = smem + S::kQ + st * S::kStage;
@@ -1065,6 +1132,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int w = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
     int it = 0, qk = 0;
     float o[D / 2], m[2], l[2];
+    // BIAS: the tile's bias, its lines prefetched before the product
+    // (`fetch`), loaded after it (`bias_in`) and added after softcap;
+    // fwd_softmax then without softcap. The masked consumers (216 registers)
+    // issue S's k-steps 4 at a time, and at d 128 do not prefetch: with 8 a
+    // wait they spilled 96-164 bytes, with the prefetch at d 128 8-24 (ptxas
+    // hoists the bias loads into the product; PERF.md section 6)
+    float bv[BIAS ? L / 2 : 1];
+    constexpr int kChunkS = MASKED && BIAS ? 4 : kFwdChunk;
+    constexpr bool kCap = SOFTCAP && !BIAS;
+    auto fetch = [&](int batch, int head, int q0, int n0) {
+      if constexpr (BIAS && !(MASKED && D == 128))
+        prefetch_bias<16, L>(p.bias, batch * p.bias.sb + head * p.bias.sh, q0 + 64 * cw + 16 * w,
+                             n0, p.sq, p.sk, lane);
+    };
+    auto load_bias = [&](int batch, int head, int row0, int n0) {
+      if constexpr (BIAS)
+        xfa::load_bias_rows<L>(bv, p.bias, batch * p.bias.sb + head * p.bias.sh, row0, n0, p.sq,
+                               p.sk, t);
+    };
     auto clear = [&]() {
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
@@ -1086,12 +1172,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     // The key tile of stage st: S = q_s K^T, the online softmax
     // (`softmax(s, alpha)`), then O += P V, the tile's part on the tensor
     // cores, added in fp32 after O's rescale
-    auto tile = [&](int st, auto softmax) {
+    auto tile = [&](int st, auto bias_in, auto softmax) {
       const uint32_t stage = base + S::kQ + st * S::kStage;
       float s[L / 2];
 #pragma unroll
       for (int j = 0; j < L / 2; ++j) s[j] = 0.f;
-      product_a_smem<D, L, kFwdChunk>(s, smem, kFwdRows, 64 * cw, stage, stage + S::kT, w, g, t);
+      product_a_smem<D, L, kChunkS>(s, smem, kFwdRows, 64 * cw, stage, stage + S::kT, w, g, t);
+      if constexpr (BIAS) {
+        bias_in();
+        cap_and_bias<L, SOFTCAP>(s, bv, p.softcap);
+      }
       float alpha[2];
       softmax(s, alpha);
 #pragma unroll
@@ -1137,14 +1227,28 @@ __global__ void __launch_bounds__(kThreads, 1)
             const uint32_t vis =
                 f & kElem ? rows_visible_by<L>(f, mk, p.sq, p.sk, n0, row0, bands, kinfo, qinfo, t)
                           : 0u;
-            tile(st, [&](float (&s)[L / 2], float (&alpha)[2]) {
-              if (f & kElem) {
-                fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, p.softcap,
-                                              [&](int i) { return ((vis >> i) & 1u) != 0; });
-              } else {
-                fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, p.softcap);
-              }
-            });
+            if constexpr (BIAS) {
+              fetch(batch, head, m_block * kFwdRows, n0);
+              tile(
+                  st, [&] { load_bias(batch, head, row0, n0); },
+                  [&](float (&s)[L / 2], float (&alpha)[2]) {
+                    if (f & kElem) {
+                      fwd_softmax<L, true, false>(s, m, l, alpha, p.softcap,
+                                                  [&](int i) { return ((vis >> i) & 1u) != 0; });
+                    } else {
+                      fwd_softmax<L, false, false>(s, m, l, alpha, p.softcap);
+                    }
+                  });
+            } else {  // the lambdas capture only what the kernel without a bias did
+              tile(st, [] {}, [&](float (&s)[L / 2], float (&alpha)[2]) {
+                if (f & kElem) {
+                  fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, p.softcap,
+                                                [&](int i) { return ((vis >> i) & 1u) != 0; });
+                } else {
+                  fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, p.softcap);
+                }
+              });
+            }
           }
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
           ++it;
@@ -1157,7 +1261,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           FwdBlock fb;
-          if (!fwd_block<L, PAGED>(p, pair, half, n_mb, fb)) continue;
+          if (!fwd_block<L, PAGED, BIAS>(p, pair, half, n_mb, fb)) continue;
           const int rc0 = fb.q0 + 64 * cw;     // this consumer's first row
           const int row0 = rc0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
           int lo[2], hi[2];                   // the keys each of them sees
@@ -1180,16 +1284,19 @@ __global__ void __launch_bounds__(kThreads, 1)
               sm90::mbar_wait(bar_ready + 8 * st, use & 1);
               if (has_rows && n0 <= hi_b && n0 + L - 1 >= lo_a) {
                 const bool whole = rc0 + 64 <= p.sq && n0 >= lo_b && n0 + L - 1 <= hi_a;
-                tile(st, [&](float (&s)[L / 2], float (&alpha)[2]) {
-                  if (whole) {
-                    fwd_softmax<L, false, SOFTCAP>(s, m, l, alpha, p.softcap);
-                  } else {
-                    fwd_softmax<L, true, SOFTCAP>(s, m, l, alpha, p.softcap, [&](int i) {
-                      const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
-                      return (key >= lo[r]) & (key <= hi[r]);
+                fetch(fb.batch, fb.head, fb.q0, n0);
+                tile(
+                    st, [&] { load_bias(fb.batch, fb.head, row0, n0); },
+                    [&](float (&s)[L / 2], float (&alpha)[2]) {
+                      if (whole) {
+                        fwd_softmax<L, false, kCap>(s, m, l, alpha, p.softcap);
+                      } else {
+                        fwd_softmax<L, true, kCap>(s, m, l, alpha, p.softcap, [&](int i) {
+                          const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+                          return (key >= lo[r]) & (key <= hi[r]);
+                        });
+                      }
                     });
-                  }
-                });
               }
               if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
             }
@@ -1236,21 +1343,38 @@ struct Fp32BwdParams {
   xfa::MaskParams mask;
   const int4* bands;
   int* next;
+  xfa::BiasParams bias;  // BIAS: the forward's attention bias
 };
+
+// Block `half` of pair `pair` (common.cuh pair_block over `heads`); with
+// BIAS and a bias shared by every batch, the batches of a head first, so
+// that the blocks running together read the same bias rows.
+template <bool BIAS>
+__device__ __forceinline__ bool bwd_pair_block(const Fp32BwdParams& p, int pair, int half,
+                                               int n_blocks, int heads, bool heavy_last,
+                                               int& block, int& head, int& batch) {
+  if constexpr (BIAS)
+    return xfa::pair_block_by(p.bias.sb == 0 && p.b > 1, pair, half, n_blocks, heads, p.b,
+                              heavy_last, block, head, batch);
+  return xfa::pair_block(pair, half, n_blocks, heads, heavy_last, block, head, batch);
+}
 
 // P and dS of one element from its score x and dP, the row's LSE times
 // log2(e) and delta: P = 2^(x log2(e) - lse2) on the SFU (ex2.approx, about
 // 2^-22 of P; x log2(e) rounded once in the FMA), 0 where not visible (a
-// row that saw nothing has LSE +inf: ex2(-inf) = 0, never NaN).
-template <bool SOFTCAP>
+// row that saw nothing has LSE +inf: ex2(-inf) = 0, never NaN); with BIAS
+// the element's bias added after softcap, as the forward adds it (dS keeps
+// the softcap derivative; the bias enters after it).
+template <bool SOFTCAP, bool BIAS = false>
 __device__ __forceinline__ void p_ds(float x, float& dp, float lse2, float delta, bool vis,
-                                     float cap, float& pr) {
+                                     float cap, float& pr, float bias = 0.f) {
   float fac = 1.f;
   if constexpr (SOFTCAP) {
     const float th = tanhf(x / cap);
     x = th * cap;
     fac = 1.f - th * th;
   }
+  if constexpr (BIAS) x += bias;
   pr = vis ? sm90::ex2(fmaf(x, sm90::kLog2e, -lse2)) : 0.f;
   dp = pr * (dp - delta) * fac;
 }
@@ -1283,29 +1407,34 @@ __device__ __forceinline__ bool all_visible(const Fp32BwdParams& p, int r0, int 
 // dK/dV: P^T and dS^T of one query tile in place (s: S^T -> P^T, dp: dP^T
 // -> dS^T); rows this thread's keys key0 and key0 + 8, columns the tile's
 // rows m0 + c with their LSE and delta from the stage; with MASK the
-// elementwise test (`vis(i)`: register i visible).
-template <int R, bool MASK, bool SOFTCAP, typename Vis = AllVisible>
+// elementwise test (`vis(i)`: register i visible); with BIAS the tile's
+// bias `bv` in the same layout (common.cuh load_bias_cols).
+template <int R, bool MASK, bool SOFTCAP, bool BIAS = false, typename Vis = AllVisible>
 __device__ __forceinline__ void dkv_p_ds(float (&s)[R / 2], float (&dp)[R / 2], const float* lse,
-                                         const float* delta, float cap, int t, Vis vis = {}) {
+                                         const float* delta, float cap, int t, Vis vis = {},
+                                         const float* bv = nullptr) {
 #pragma unroll
   for (int i = 0; i < R / 2; ++i) {
     const int c = (i >> 2) * 8 + 2 * t + (i & 1);
-    p_ds<SOFTCAP>(s[i], dp[i], lse[c] * sm90::kLog2e, delta[c], !MASK || vis(i), cap, s[i]);
+    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse[c] * sm90::kLog2e, delta[c], !MASK || vis(i), cap, s[i],
+                        BIAS ? bv[i] : 0.f);
   }
 }
 
 // dQ: dS of one key tile in place (dp: dP -> dS) from S; rows this
 // thread's rows row0 and row0 + 8 (LSE times log2(e) and delta per row),
-// columns the tile's keys; with MASK the elementwise test (`vis(i)`).
-template <int L, bool MASK, bool SOFTCAP, typename Vis = AllVisible>
+// columns the tile's keys; with MASK the elementwise test (`vis(i)`); with
+// BIAS the tile's bias `bv` (common.cuh load_bias_rows).
+template <int L, bool MASK, bool SOFTCAP, bool BIAS = false, typename Vis = AllVisible>
 __device__ __forceinline__ void dq_ds(const float (&s)[L / 2], float (&dp)[L / 2],
                                       const float (&lse2)[2], const float (&delta)[2], float cap,
-                                      Vis vis = {}) {
+                                      Vis vis = {}, const float* bv = nullptr) {
 #pragma unroll
   for (int i = 0; i < L / 2; ++i) {
     const int r = (i >> 1) & 1;
     float pr;
-    p_ds<SOFTCAP>(s[i], dp[i], lse2[r], delta[r], !MASK || vis(i), cap, pr);
+    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse2[r], delta[r], !MASK || vis(i), cap, pr,
+                        BIAS ? bv[i] : 0.f);
   }
 }
 
@@ -1411,7 +1540,7 @@ __device__ __forceinline__ int dkv_flags(const Fp32BwdParams& p, const int* st, 
   return on == 0 ? -1 : flags | on << kOnShift;
 }
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tdo,
@@ -1555,7 +1684,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int n_block, kv_head, batch, first, n_qt;
-          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+          if (!bwd_pair_block<BIAS>(p, pair, half, n_nb, p.hk, false, n_block, kv_head, batch))
+            continue;
           const int n0 = n_block * kKeys;
           query_tiles<R>(p, n0, kKeys, first, n_qt);
           if (n_qt == 0) continue;
@@ -1576,7 +1706,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int n_block, kv_head, batch, first, n_qt;
-          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+          if (!bwd_pair_block<BIAS>(p, pair, half, n_nb, p.hk, false, n_block, kv_head, batch))
+            continue;
           query_tiles<R>(p, n_block * kKeys, kKeys, first, n_qt);
           n += group * n_qt;
         }
@@ -1607,6 +1738,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int col0 = T::kKeySplit ? 0 : 64 * cw;  // and its first column
     int it = 0, kv = 0;
     float dk[kCols / 2], dv[kCols / 2];
+    // BIAS: the tile's bias in S^T's layout, its lines prefetched before
+    // the products (`fetch`: a query row's 16 keys of a warp a lane), loaded
+    // after them (common.cuh load_bias_cols, an element a load); the masked
+    // d 64 consumers, whose registers are spent (kSerial), do not prefetch
+    // (with it they spilled 8 bytes)
+    float bv[BIAS ? R / 2 : 1];
+    auto fetch = [&](int batch, int head, int key0, int m0) {
+      if constexpr (BIAS && !(MASKED && D == 64))
+        prefetch_bias<R, 16>(p.bias, batch * p.bias.sb + head * p.bias.sh, m0, key0 - g, p.sq,
+                             p.sk, lane);
+    };
+    auto load_bias = [&](int batch, int head, int key0, int m0) {
+      if constexpr (BIAS)
+        xfa::load_bias_cols<R>(bv, p.bias, batch * p.bias.sb + head * p.bias.sh, key0, m0, p.sq,
+                               p.sk, t);
+    };
     // The query tile of stage st: S^T = K q_s^T and dP^T = V dO^T; then
     // its rows m0 and head (`at(m0, head)`, asked after the products, so
     // that nothing of the tile but its stage stays in registers across
@@ -1673,6 +1820,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int m0 = __shfl_sync(0xffffffffu, word->x, 0);
           const int f = __shfl_sync(0xffffffffu, word->z, 0);
           if (m0 != kEnd && ((f >> (kOnShift + cw)) & 1) != 0) {
+            fetch(batch, kv_head * group + word->y, key0, m0);
             tile(
                 st, batch,
                 [&](int& m0_, int& head) {
@@ -1682,6 +1830,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 [&](float (&s)[R / 2], float (&dp)[R / 2], const float* lse,
                     const float* delta) {
                   const int4 wd = *word;
+                  load_bias(batch, kv_head * group + wd.y, key0, wd.x);
                   if (wd.z & kElem) {
                     const int head = kv_head * group + wd.y;
                     const int4* bands =
@@ -1698,11 +1847,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                                             : mk.q_info + static_cast<int64_t>(batch) * mk.q_pad;
                     const uint32_t vis = keys_visible_by<R>(wd.z, mk, p.sq, p.sk, key0, wd.x,
                                                             bands, kinfo, qinfo, t);
-                    dkv_p_ds<R, true, SOFTCAP>(s, dp, lse, delta, p.softcap, t, [&](int i) {
-                      return ((vis >> i) & 1u) != 0;
-                    });
+                    dkv_p_ds<R, true, SOFTCAP, BIAS>(
+                        s, dp, lse, delta, p.softcap, t,
+                        [&](int i) { return ((vis >> i) & 1u) != 0; }, bv);
                   } else {
-                    dkv_p_ds<R, false, SOFTCAP>(s, dp, lse, delta, p.softcap, t);
+                    dkv_p_ds<R, false, SOFTCAP, BIAS>(s, dp, lse, delta, p.softcap, t,
+                                                      AllVisible{}, bv);
                   }
                 });
           }
@@ -1718,7 +1868,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int n_block, kv_head, batch, first, n_qt;
-          if (!xfa::pair_block(pair, half, n_nb, p.hk, false, n_block, kv_head, batch)) continue;
+          if (!bwd_pair_block<BIAS>(p, pair, half, n_nb, p.hk, false, n_block, kv_head, batch))
+            continue;
           const int n0 = n_block * kKeys;
           query_tiles<R>(p, n0, kKeys, first, n_qt);
           const int key0 = n0 + kc + 16 * w + g;  // this thread's keys: key0, key0 + 8
@@ -1736,19 +1887,25 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::mbar_wait(bar_full + 8 * st, use & 1);  // the LSE and delta
             sm90::mbar_wait(bar_ready + 8 * st, use & 1);
             const bool whole = all_visible(p, m0, R, n0 + kc, 64);
+            fetch(batch, kv_head * group + gi, key0, m0);
             tile(st, batch,
                  [&](int& m0_, int& head) {
                    m0_ = m0;
                    head = kv_head * group + gi;
                  },
                  [&](float (&s)[R / 2], float (&dp)[R / 2], const float* lse, const float* delta) {
+                   load_bias(batch, kv_head * group + gi, key0, m0);
                    if (whole) {
-                     dkv_p_ds<R, false, SOFTCAP>(s, dp, lse, delta, p.softcap, t);
+                     dkv_p_ds<R, false, SOFTCAP, BIAS>(s, dp, lse, delta, p.softcap, t,
+                                                       AllVisible{}, bv);
                    } else {
-                     dkv_p_ds<R, true, SOFTCAP>(s, dp, lse, delta, p.softcap, t, [&](int i) {
-                       const int row = m0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
-                       return (row >= lo[r]) & (row <= hi[r]);
-                     });
+                     dkv_p_ds<R, true, SOFTCAP, BIAS>(
+                         s, dp, lse, delta, p.softcap, t,
+                         [&](int i) {
+                           const int row = m0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+                           return (row >= lo[r]) & (row <= hi[r]);
+                         },
+                         bv);
                    }
                  });
             if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
@@ -1780,7 +1937,7 @@ struct DqSmem {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tdo,
@@ -1854,7 +2011,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int m_block, head, batch, first, n_kt;
-          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+          if (!bwd_pair_block<BIAS>(p, pair, half, n_mb, p.h, true, m_block, head, batch))
+            continue;
           const int q0 = m_block * kDqRows;
           key_tiles<L>(p, q0, kDqRows, first, n_kt);
           if (n_kt == 0) continue;
@@ -1873,7 +2031,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int m_block, head, batch, first, n_kt;
-          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+          if (!bwd_pair_block<BIAS>(p, pair, half, n_mb, p.h, true, m_block, head, batch))
+            continue;
           key_tiles<L>(p, m_block * kDqRows, kDqRows, first, n_kt);
           n += n_kt;
         }
@@ -1896,6 +2055,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     int it = 0, qk = 0;
     float dq[D / 2];
     float lse2[2], delta[2];
+    // BIAS: the tile's bias in S's layout, its lines prefetched before the
+    // products (`fetch`), loaded after them (common.cuh load_bias_rows); the
+    // masked consumers (216 registers) issue 4 k-steps a wait at d 64 (with
+    // 8 they spilled 140 bytes: ptxas hoists the bias loads into the
+    // products) and at d 128 do not prefetch, as the forward's
+    float bv[BIAS ? L / 2 : 1];
+    constexpr int kDqChunk = MASKED && BIAS && D == 64 ? 4 : kChunk<D>;
+    auto fetch = [&](int batch, int head, int row0, int n0) {
+      if constexpr (BIAS && !(MASKED && D == 128))
+        prefetch_bias<16, L>(p.bias, batch * p.bias.sb + head * p.bias.sh, row0 - g, n0, p.sq,
+                             p.sk, lane);
+    };
+    auto load_bias = [&](int batch, int head, int row0, int n0) {
+      if constexpr (BIAS)
+        xfa::load_bias_rows<L>(bv, p.bias, batch * p.bias.sb + head * p.bias.sh, row0, n0, p.sq,
+                               p.sk, t);
+    };
     // this thread's rows' LSE times log2(e) and delta (+inf and 0 past sq)
     auto row_stats = [&](int batch, int head, int row0) {
       const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
@@ -1915,9 +2091,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       float s[L / 2], dp[L / 2];
 #pragma unroll
       for (int j = 0; j < L / 2; ++j) s[j] = dp[j] = 0.f;
-      product_a_smem<D, L>(s, smem, kDqRows, 64 * cw, stage, stage + S::kT, w, g, t);
-      product_a_smem<D, L>(dp, smem + S::kQ, kDqRows, 64 * cw, stage + 4 * S::kT,
-                           stage + 5 * S::kT, w, g, t);
+      product_a_smem<D, L, kDqChunk>(s, smem, kDqRows, 64 * cw, stage, stage + S::kT, w, g, t);
+      product_a_smem<D, L, kDqChunk>(dp, smem + S::kQ, kDqRows, 64 * cw, stage + 4 * S::kT,
+                                     stage + 5 * S::kT, w, g, t);
       ds(s, dp);
       float pq[D / 2];
       issue_a_acc<D, L>(pq, dp, stage + 2 * S::kT, stage + 3 * S::kT);
@@ -1961,14 +2137,29 @@ __global__ void __launch_bounds__(kThreads, 1)
             const uint32_t vis =
                 f & kElem ? rows_visible_by<L>(f, mk, p.sq, p.sk, n0, row0, bands, kinfo, qinfo, t)
                           : 0u;
-            tile(st, [&](float (&s)[L / 2], float (&dp)[L / 2]) {
-              if (f & kElem) {
-                dq_ds<L, true, SOFTCAP>(s, dp, lse2, delta, p.softcap,
-                                        [&](int i) { return ((vis >> i) & 1u) != 0; });
-              } else {
-                dq_ds<L, false, SOFTCAP>(s, dp, lse2, delta, p.softcap);
-              }
-            });
+            if constexpr (BIAS) {
+              fetch(batch, head, row0, n0);
+              tile(st, [&](float (&s)[L / 2], float (&dp)[L / 2]) {
+                load_bias(batch, head, row0, n0);
+                if (f & kElem) {
+                  dq_ds<L, true, SOFTCAP, true>(
+                      s, dp, lse2, delta, p.softcap,
+                      [&](int i) { return ((vis >> i) & 1u) != 0; }, bv);
+                } else {
+                  dq_ds<L, false, SOFTCAP, true>(s, dp, lse2, delta, p.softcap, AllVisible{},
+                                                 bv);
+                }
+              });
+            } else {  // the lambdas capture only what the kernel without a bias did
+              tile(st, [&](float (&s)[L / 2], float (&dp)[L / 2]) {
+                if (f & kElem) {
+                  dq_ds<L, true, SOFTCAP>(s, dp, lse2, delta, p.softcap,
+                                          [&](int i) { return ((vis >> i) & 1u) != 0; });
+                } else {
+                  dq_ds<L, false, SOFTCAP>(s, dp, lse2, delta, p.softcap);
+                }
+              });
+            }
           }
           if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
           ++it;
@@ -1981,7 +2172,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
         for (int half = 0; half < 2; ++half) {
           int m_block, head, batch, first, n_kt;
-          if (!xfa::pair_block(pair, half, n_mb, p.h, true, m_block, head, batch)) continue;
+          if (!bwd_pair_block<BIAS>(p, pair, half, n_mb, p.h, true, m_block, head, batch))
+            continue;
           const int q0 = m_block * kDqRows;
           key_tiles<L>(p, q0, kDqRows, first, n_kt);
           const int r0 = q0 + 64 * cw;       // this consumer's first row
@@ -2002,20 +2194,296 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::mbar_wait(bar_full + 8 * st, use & 1);
             sm90::mbar_wait(bar_ready + 8 * st, use & 1);
             const bool whole = all_visible(p, r0, 64, n0, L);
+            fetch(batch, head, row0, n0);
             tile(st, [&](float (&s)[L / 2], float (&dp)[L / 2]) {
+              load_bias(batch, head, row0, n0);
               if (whole) {
-                dq_ds<L, false, SOFTCAP>(s, dp, lse2, delta, p.softcap);
+                dq_ds<L, false, SOFTCAP, BIAS>(s, dp, lse2, delta, p.softcap, AllVisible{}, bv);
               } else {
-                dq_ds<L, true, SOFTCAP>(s, dp, lse2, delta, p.softcap, [&](int i) {
-                  const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
-                  return (key >= lo[r]) & (key <= hi[r]);
-                });
+                dq_ds<L, true, SOFTCAP, BIAS>(
+                    s, dp, lse2, delta, p.softcap,
+                    [&](int i) {
+                      const int key = n0 + (i >> 2) * 8 + 2 * t + (i & 1), r = (i >> 1) & 1;
+                      return (key >= lo[r]) & (key <= hi[r]);
+                    },
+                    bv);
               }
             });
             if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);
           }
           if (lane == 0) sm90::mbar_arrive(bar_qe);  // done with q_s and dO
           store(batch, head, row0);
+        }
+      }
+    }
+  }
+}
+
+// ---- dbias
+//
+// The bias gradient in fp32 (flash_bwd_dbias_fp32_kernel; bf16 q/k/v run
+// flash_bwd_dbias.cu): dbias = P (dP - delta), the scores' gradient before
+// the softcap derivative (the bias enters after softcap), summed over the
+// (batch, head) pairs that share each element of a (bb, bh, sq, sk) bias,
+// for fp32 q_s/k/v/dO and an fp32 or bf16 bias (dbias in its dtype). It
+// replaces the dbias output of TPU kernel #2 (bwd.py:180 `_bwd_dkv_kernel`
+// with has_bias: bwd.py:173, 411-481, 757-800, 1302-1312) by
+// flash_bwd_dbias.cu's rules: every element summed by one thread over its
+// pairs in a fixed order (batch, then head), in registers, and written once
+// (no atomics, no (b, h, sq, sk) workspace: a second pass gives the same
+// bits); units that the row/key window masks whole are skipped and keep
+// the wrapper's zeros.
+//
+// A unit is a bias tile of 128 query rows x 64 keys, consumer c owning rows
+// [64c, 64c + 64), its sums 32 registers a thread. For each pair that
+// shares it, S = q_s K^T and dP = dO V^T, each as three TF32 products
+// (product_a_smem: q_s and dO the A operands, read raw from shared memory
+// and split in registers; K and V the B operands, their lo parts from the
+// converters), as the dQ kernel forms them. bf16's stage plan (a stage of
+// a pair's q_s, dO, K and V) would be one stage of 192 KB at d 128 with K's
+// and V's lo parts, so the ring takes the head dim in boxes of 32 columns:
+// a stage is one box of q_s (or dO) over the unit's 128 rows (16 KB) with
+// the same box of K (or V) over its 64 keys and its lo (8 KB each), 32 KB,
+// six stages. A pair runs D / 32 stages of (q_s, K) into S, then P in place
+// (softcap, the bias, the elementwise test, exp2 against the LSE), then D /
+// 32 stages of (dO, V) into dP, then acc += P (dP - delta). The hi·hi terms
+// of a product sum on the tensor cores over the boxes, its small terms in
+// fp32 registers a box at a time (product_a_smem), as the forward's S. The
+// unit's bias is read once from global memory into shared memory, each
+// thread's own 32 values (32 KB): in registers beside S, dP and the sums it
+// left the products too few. Bound: the two products of every pair, 6 TF32
+// products a pair element, and each pair's q_s, dO, K and V tiles (two 128 x
+// 64 x D products for 384 x D x 4 bytes from L2, as bf16's for half the
+// bytes).
+
+constexpr int kDbRows = 128, kDbKeys = 64, kDbStages = 6;
+constexpr int kDbChunk = 4;  // k-steps issued before a wait: one box
+
+struct DbSmem {
+  static constexpr int kA = kDbRows * 128;          // a box of q_s or dO (landed raw)
+  static constexpr int kB = kDbKeys * 128;          // a box of K or V (landed raw: its hi)
+  static constexpr int kStage = kA + 2 * kB;        // A, B, B lo
+  static constexpr int kBias = kDbStages * kStage;  // the unit's bias: [32][256] floats
+  static constexpr int kBar = kBias + (kDbKeys / 2) * 256 * 4;
+  // barriers: per stage full, ready, empty
+  static constexpr int kBytes = kBar + 8 * 3 * kDbStages + 1024;  // + alignment slack
+  static_assert(kStage % 1024 == 0 && kA % 1024 == 0 && kB % 1024 == 0,
+                "128-byte swizzled tiles start 1024-byte aligned");
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+};
+
+struct DbFp32Params {
+  const float* lse;    // (b, h, sq) contiguous
+  const float* delta;  // (b, h, sq) contiguous
+  xfa::BiasParams bias;
+  void* dbias;  // (bb, bh, sq, sk) in the bias's dtype, by the strides below
+  int64_t db_sb, db_sh, db_ss;
+  int b, h, hk, sq, sk, bb, bh;
+  float softcap;
+  int causal;
+  xfa::MaskParams mask;  // MASKED: the row/key window, segment ids and positions
+};
+
+// Unit u: (bias batch bi, bias head hi, query block at q0, key tile at n0),
+// key tile fastest; false when the row/key window masks every pair of it.
+template <bool MASKED>
+__device__ __forceinline__ bool db_unit(const DbFp32Params& p, int u, int n_mb, int n_nt, int& bi,
+                                        int& hi, int& q0, int& n0) {
+  n0 = (u % n_nt) * kDbKeys;
+  u /= n_nt;
+  q0 = (u % n_mb) * kDbRows;
+  u /= n_mb;
+  hi = u % p.bh;
+  bi = u / p.bh;
+  const int left = MASKED ? p.mask.left : -1;
+  const int right = MASKED ? p.mask.right : (p.causal ? 0 : -1);
+  const int off = p.sk - p.sq, q1 = min(q0 + kDbRows, p.sq) - 1, n1 = min(n0 + kDbKeys, p.sk) - 1;
+  return !(right >= 0 && n0 > q1 + off + right) && !(left >= 0 && n1 < q0 + off - left);
+}
+
+// The (batch, head) of member mi of a unit: every batch for a
+// batch-broadcast bias (else bi), every head for a head-broadcast one (else
+// hi), batch first.
+__device__ __forceinline__ void db_member(const DbFp32Params& p, int mi, int bi, int hi,
+                                          int& batch, int& head) {
+  const int heads = p.bh == 1 ? p.h : 1;
+  batch = p.bb == 1 ? mi / heads : bi;
+  head = p.bh == 1 ? mi % heads : hi;
+}
+
+template <int D, bool SOFTCAP, bool MASKED>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dbias_fp32_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, const DbFp32Params p) {
+  using S = DbSmem;
+  constexpr int kBoxes = D / 32, kStages = kDbStages, N = kDbKeys;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = sm90::smem_addr(smem);
+  const uint32_t bar_full = base + S::kBar, bar_ready = bar_full + 8 * kStages,
+                 bar_empty = bar_ready + 8 * kStages;
+  const int n_mb = (p.sq + kDbRows - 1) / kDbRows, n_nt = (p.sk + N - 1) / N;
+  const int n_units = p.bb * p.bh * n_mb * n_nt;
+  const int members = (p.bb == 1 ? p.b : 1) * (p.bh == 1 ? p.h : 1);
+  const int group = p.h / p.hk;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(bar_full + 8 * st, 1);
+      sm90::mbar_init(bar_ready + 8 * st, kConverters);
+      sm90::mbar_init(bar_empty + 8 * st, 8);  // the eight consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Every role walks the same units, members and boxes and counts the same
+  // stages (it), so stages and parities agree: per member, kBoxes stages of
+  // (q_s, K), then kBoxes of (dO, V).
+  const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (warpgroup == 0) {
+    sm90::setmaxnreg_dec<kProducerRegs<false>>();
+    if (threadIdx.x == 0) {  // the loads
+      int it = 0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        int bi, hi, q0, n0;
+        if (!db_unit<MASKED>(p, u, n_mb, n_nt, bi, hi, q0, n0)) continue;
+        for (int mi = 0; mi < members; ++mi) {
+          int batch, head;
+          db_member(p, mi, bi, hi, batch, head);
+          for (int c = 0; c < 2 * kBoxes; ++c, ++it) {
+            const int st = it % kStages, box = c % kBoxes;
+            const bool second = c >= kBoxes;  // dO and V
+            const uint32_t stage = base + st * S::kStage;
+            // the first pass is free
+            sm90::mbar_wait(bar_empty + 8 * st, ((it / kStages) & 1) ^ 1);
+            sm90::mbar_expect_tx(bar_full + 8 * st, S::kA + S::kB);
+            sm90::tma_load_4d(stage, second ? &tdo : &tq, bar_full + 8 * st, 32 * box, q0, head,
+                              batch);
+            sm90::tma_load_4d(stage + S::kA, second ? &tv : &tk, bar_full + 8 * st, 32 * box, n0,
+                              head / group, batch);
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // the converters: the lo of each stage's B
+      int n = 0;                     // this CTA's stages
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        int bi, hi, q0, n0;
+        if (db_unit<MASKED>(p, u, n_mb, n_nt, bi, hi, q0, n0)) n += members * 2 * kBoxes;
+      }
+      for (int it = 0; it < n; ++it) {
+        const int st = it % kStages;
+        uint8_t* sp = smem + st * S::kStage + S::kA;
+        sm90::mbar_wait(bar_full + 8 * st, (it / kStages) & 1);
+        for (int j = threadIdx.x - 32; j < N * 32 / 16; j += kConverters)
+          convert_item<32, N, false>(sp, sp + S::kB, nullptr, nullptr, j);
+        sm90::fence_proxy_async();  // the writes before the consumers' wgmma
+        sm90::mbar_arrive(bar_ready + 8 * st);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    sm90::setmaxnreg_inc<kConsumerRegs<false>>();
+    const int cw = warpgroup - 1;
+    const int ct = threadIdx.x - 128;
+    const int w = (ct & 127) >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+    const xfa::MaskParams& m = p.mask;
+    const bool info = MASKED && m.q_info != nullptr;
+    float* bias_slots = reinterpret_cast<float*>(smem + S::kBias) + ct;  // [i][256]
+    int it = 0;
+    // C += A B over the head dim, a stage a box (A the unit's rows, B the
+    // tile's keys; `second`: dO and V), each stage released after its wait
+    auto product = [&](float (&c)[N / 2]) {
+      for (int box = 0; box < kBoxes; ++box, ++it) {
+        const int st = it % kStages, use = it / kStages;
+        const uint32_t stage = base + st * S::kStage;
+        sm90::mbar_wait(bar_full + 8 * st, use & 1);
+        sm90::mbar_wait(bar_ready + 8 * st, use & 1);
+        product_a_smem<32, N, kDbChunk>(c, smem + st * S::kStage, kDbRows, 64 * cw,
+                                        stage + S::kA, stage + S::kA + S::kB, w, g, t);
+        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // one arrival per warp
+      }
+    };
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      int bi, hi, q0, n0;
+      if (!db_unit<MASKED>(p, u, n_mb, n_nt, bi, hi, q0, n0)) continue;
+      const int row0 = q0 + 64 * cw + 16 * w + g;  // this thread's rows: row0, row0 + 8
+      {
+        float bv[N / 2];
+        xfa::load_bias_rows<N>(bv, p.bias, bi * p.bias.sb + hi * p.bias.sh, row0, n0, p.sq, p.sk,
+                               t);
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) bias_slots[i * 256] = bv[i];
+      }
+      float acc[N / 2];
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      for (int mi = 0; mi < members; ++mi) {
+        int batch, head;
+        db_member(p, mi, bi, hi, batch, head);
+        float s[N / 2], dp[N / 2];
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.f;
+        product(s);  // S = q_s K^T
+        // P in place: softcap, the bias, the elementwise test (causal and
+        // sk; MASKED: each row's window [lo, hi] and, with segment ids or
+        // positions, the tokens), exp2 against the row's LSE (+inf past sq)
+        const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
+        float lse2[2], delta[2];
+        int lo[2] = {0, 0}, hi_[2] = {0, 0};
+        int4 qt[2] = {};
+        const int4* kinfo = info ? m.k_info + static_cast<int64_t>(batch) * m.k_pad : nullptr;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          lse2[r] = row < p.sq ? p.lse[stat + row] * sm90::kLog2e : INFINITY;
+          delta[r] = row < p.sq ? p.delta[stat + row] : 0.f;
+          if constexpr (MASKED) xfa::row_limit(m, row, p.sq, p.sk, lo[r], hi_[r]);
+          if (info)
+            qt[r] = xfa::query_tokens(
+                m, row < p.sq ? token_ldg(m.q_info + static_cast<int64_t>(batch) * m.q_pad, row)
+                              : make_int2(INT_MIN, 0));
+        }
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) {
+          const int r = (i >> 1) & 1, col = n0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          bool visible;
+          if constexpr (MASKED) {
+            visible = (col >= lo[r]) & (col <= hi_[r]);
+            if (info) {
+              const int2 kt = col < p.sk ? token_ldg(kinfo, col) : make_int2(INT_MIN, 0);
+              visible = visible & xfa::tokens_meet(qt[r], kt);
+            }
+          } else {
+            visible = (col < p.sk) & (!p.causal | (col <= row0 + 8 * r + p.sk - p.sq));
+          }
+          float x = s[i];
+          if constexpr (SOFTCAP) x = tanhf(x / p.softcap) * p.softcap;
+          x += bias_slots[i * 256];
+          s[i] = visible ? sm90::ex2(fmaf(x, sm90::kLog2e, -lse2[r])) : 0.f;
+        }
+        product(dp);  // dP = dO V^T
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[i] += s[i] * (dp[i] - delta[(i >> 1) & 1]);
+      }
+      // the unit's dbias, once, in the bias's dtype
+      const int64_t out = bi * p.db_sb + hi * p.db_sh;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r, col = n0 + 8 * j + 2 * t;
+          if (row >= p.sq || col >= p.sk) continue;
+          const int64_t off = out + row * p.db_ss + col;
+          const float x = acc[4 * j + 2 * r], y = acc[4 * j + 2 * r + 1];
+          if (p.bias.dtype == xfa::kBF16) {
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dbias) + off) =
+                xfa::pack_bf16(x, y);
+          } else {
+            *reinterpret_cast<float2*>(static_cast<float*>(p.dbias) + off) = make_float2(x, y);
+          }
         }
       }
     }
@@ -2244,69 +2712,99 @@ cudaError_t persistent_grid(Kernel kernel, int bytes, std::atomic<uint64_t>& don
   return err;
 }
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 cudaError_t launch_dkv(const CUtensorMap* maps, const Fp32BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
   const int n_nb = (p.sk + BwdTiles<D>::kKeys - 1) / BwdTiles<D>::kKeys;
   int grid = 0;
   const cudaError_t err = persistent_grid(
-      flash_bwd_dkv_fp32_kernel<D, SOFTCAP, MASKED>, DkvSmem<D, MASKED>::kBytes, done,
+      flash_bwd_dkv_fp32_kernel<D, SOFTCAP, MASKED, BIAS>, DkvSmem<D, MASKED>::kBytes, done,
       MASKED ? n_nb * p.hk * p.b : xfa::block_pairs(n_nb, p.hk, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_fp32_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  flash_bwd_dkv_fp32_kernel<D, SOFTCAP, MASKED, BIAS>
+      <<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                                          maps[4], maps[5], p);
   return cudaGetLastError();
 }
 
-template <int D, bool SOFTCAP, bool MASKED>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
 cudaError_t launch_dq(const CUtensorMap* maps, const Fp32BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
   const int n_mb = (p.sq + kDqRows - 1) / kDqRows;
   int grid = 0;
-  const cudaError_t err =
-      persistent_grid(flash_bwd_dq_fp32_kernel<D, SOFTCAP, MASKED>, DqSmem<D, MASKED>::kBytes, done,
-                      MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b), grid);
+  const cudaError_t err = persistent_grid(
+      flash_bwd_dq_fp32_kernel<D, SOFTCAP, MASKED, BIAS>, DqSmem<D, MASKED>::kBytes, done,
+      MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_fp32_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DqSmem<D, MASKED>::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], p);
+  flash_bwd_dq_fp32_kernel<D, SOFTCAP, MASKED, BIAS>
+      <<<grid, kThreads, DqSmem<D, MASKED>::kBytes, s>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool BIAS>
 cudaError_t launch_bwd(int which, const CUtensorMap* maps, const Fp32BwdParams& p,
                        cudaStream_t s) {
   const bool cap = p.softcap > 0.f;
   if (which == 0)
-    return cap ? launch_dkv<D, true, MASKED>(maps, p, s) : launch_dkv<D, false, MASKED>(maps, p, s);
-  return cap ? launch_dq<D, true, MASKED>(maps, p, s) : launch_dq<D, false, MASKED>(maps, p, s);
+    return cap ? launch_dkv<D, true, MASKED, BIAS>(maps, p, s)
+               : launch_dkv<D, false, MASKED, BIAS>(maps, p, s);
+  return cap ? launch_dq<D, true, MASKED, BIAS>(maps, p, s)
+             : launch_dq<D, false, MASKED, BIAS>(maps, p, s);
 }
 
-template <int D, bool PAGED, bool SOFTCAP, bool MASKED>
+template <int D, bool PAGED, bool SOFTCAP, bool MASKED, bool BIAS>
 cudaError_t launch_fwd(const CUtensorMap* maps, const Fp32Params& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
   const int n_mb = (p.sq + kFwdRows - 1) / kFwdRows;
   int grid = 0;
-  const cudaError_t err =
-      persistent_grid(flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED>, FwdSmem<D, MASKED>::kBytes,
-                      done, MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b), grid);
+  const cudaError_t err = persistent_grid(
+      flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED, BIAS>, FwdSmem<D, MASKED>::kBytes, done,
+      MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b), grid);
   if (err != cudaSuccess) return err;
-  flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED><<<grid, kThreads, FwdSmem<D, MASKED>::kBytes,
-                                                     s>>>(maps[0], maps[1], maps[2], p);
+  flash_fwd_fp32_kernel<D, PAGED, SOFTCAP, MASKED, BIAS>
+      <<<grid, kThreads, FwdSmem<D, MASKED>::kBytes, s>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
+}
+
+template <int D, bool BIAS>
+cudaError_t launch_fwd_b(const CUtensorMap* maps, const Fp32Params& p, bool masked,
+                         cudaStream_t s) {
+  const bool cap = p.softcap > 0.f;
+  if (masked)
+    return cap ? launch_fwd<D, false, true, true, BIAS>(maps, p, s)
+               : launch_fwd<D, false, false, true, BIAS>(maps, p, s);
+  return cap ? launch_fwd<D, false, true, false, BIAS>(maps, p, s)
+             : launch_fwd<D, false, false, false, BIAS>(maps, p, s);
 }
 
 template <int D>
 cudaError_t launch_fwd_d(const CUtensorMap* maps, const Fp32Params& p, bool paged, bool masked,
                          cudaStream_t s) {
-  const bool cap = p.softcap > 0.f;
   if (paged)
-    return cap ? launch_fwd<D, true, true, false>(maps, p, s)
-               : launch_fwd<D, true, false, false>(maps, p, s);
-  if (masked)
-    return cap ? launch_fwd<D, false, true, true>(maps, p, s)
-               : launch_fwd<D, false, false, true>(maps, p, s);
-  return cap ? launch_fwd<D, false, true, false>(maps, p, s)
-             : launch_fwd<D, false, false, false>(maps, p, s);
+    return p.softcap > 0.f ? launch_fwd<D, true, true, false, false>(maps, p, s)
+                           : launch_fwd<D, true, false, false, false>(maps, p, s);
+  return p.bias.ptr != nullptr ? launch_fwd_b<D, true>(maps, p, masked, s)
+                               : launch_fwd_b<D, false>(maps, p, masked, s);
+}
+
+template <int D, bool SOFTCAP, bool MASKED>
+cudaError_t launch_dbias(const CUtensorMap* maps, const DbFp32Params& p, cudaStream_t s) {
+  static std::atomic<uint64_t> done{0};
+  const int units = p.bb * p.bh * ((p.sq + kDbRows - 1) / kDbRows) *
+                    ((p.sk + kDbKeys - 1) / kDbKeys);
+  int grid = 0;
+  const cudaError_t err = persistent_grid(flash_bwd_dbias_fp32_kernel<D, SOFTCAP, MASKED>,
+                                          DbSmem::kBytes, done, units, grid);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dbias_fp32_kernel<D, SOFTCAP, MASKED><<<grid, kThreads, DbSmem::kBytes, s>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+template <int D, bool MASKED>
+cudaError_t launch_dbias_cap(const CUtensorMap* maps, const DbFp32Params& p, cudaStream_t s) {
+  return p.softcap > 0.f ? launch_dbias<D, true, MASKED>(maps, p, s)
+                         : launch_dbias<D, false, MASKED>(maps, p, s);
 }
 
 template <int D>
@@ -2353,7 +2851,10 @@ cudaError_t masked_setup(const xfa::MaskParams& m, const void* fm_bands, void* c
 // fm_skp, 4) int32 with a FlashMask, and `counters`, three int32 in device
 // memory cleared here on the stream: the dynamic scheduler's next block,
 // then the tiles visited and those with the elementwise test (fwd.py
-// fwd_masked_tile_plan counts the same).
+// fwd_masked_tile_plan counts the same). The bias (XFA_BIAS_ARGS,
+// common.cuh BiasParams: fp32 or bf16, (bb, bh, sq, sk) by strides), or a
+// null pointer, selects the BIAS instantiation of the dense or masked
+// route; it takes no page table, FlashMask or block mask.
 XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                   int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
@@ -2362,10 +2863,11 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
                                   float sm_scale, float softcap, int left, int right,
                                   const void* table, const void* lengths, int ps, int npp,
                                   int num_pages, XFA_MASK_ARGS, const void* fm_bands,
-                                  void* counters, void* stream) {
+                                  void* counters, XFA_BIAS_ARGS, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   if (hk <= 0 || h % hk != 0 || (table != nullptr) != (lengths != nullptr) ||
-      (d != 64 && d != 128))
+      (d != 64 && d != 128) ||
+      (bias != nullptr && (table != nullptr || fm_vecs != nullptr || bm != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool paged = table != nullptr;
   const int keys = d == 64 ? kFwdKeys<64> : kFwdKeys<128>;
@@ -2391,6 +2893,7 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
   p.lengths = static_cast<const int*>(lengths);
   p.ps = ps; p.npp = npp; p.num_pages = num_pages;
   p.tma = paged && ps % keys == 0;
+  p.bias = XFA_BIAS_VALUES;
   // maps: q (blocks of 128 rows); k and v (tiles of `keys` rows), or the
   // pages (K and V of one page, kv head and tile a box) when paged by TMA
   CUtensorMap maps[3] = {};
@@ -2418,6 +2921,9 @@ XFA_EXPORT int xfa_flash_fwd_fp32(const void* q, const void* k, const void* v, v
 // at d 64, 16 and 64 at d 128, the tile ranges per key block; dQ: 128-row
 // blocks and key tiles of 32 keys at d 64, 16 at d 128; bwd.py
 // bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan count the tiles).
+// The forward's bias (XFA_BIAS_ARGS), or a null pointer, selects the BIAS
+// instantiation (no FlashMask or block mask with it); dbias is
+// xfa_flash_bwd_dbias_fp32's.
 XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                   int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
@@ -2428,9 +2934,10 @@ XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, c
                                   int64_t dv_ss, int b, int h, int hk, int sq, int sk, int d,
                                   float sm_scale, float softcap, int left, int right, int which,
                                   XFA_MASK_ARGS, const void* fm_bands, void* counters,
-                                  void* stream) {
+                                  XFA_BIAS_ARGS, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
-  if (hk <= 0 || h % hk != 0 || (d != 64 && d != 128) || (which != 0 && which != 1))
+  if (hk <= 0 || h % hk != 0 || (d != 64 && d != 128) || (which != 0 && which != 1) ||
+      (bias != nullptr && (fm_vecs != nullptr || bm != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const xfa::MaskParams mask = XFA_MASK_VALUES;
@@ -2441,7 +2948,8 @@ XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, c
                         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
                         dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h, hk,
                         sq, sk, sm_scale, softcap, left, right, mask,
-                        static_cast<const int4*>(fm_bands), static_cast<int*>(counters)};
+                        static_cast<const int4*>(fm_bands), static_cast<int*>(counters),
+                        XFA_BIAS_VALUES};
   // boxes: dK/dV's query tiles and key blocks, or dQ's row blocks and key tiles
   const int q_rows = which == 1 ? kDqRows : d == 64 ? BwdTiles<64>::kRows : BwdTiles<128>::kRows;
   const int k_rows = which == 0 ? (d == 64 ? BwdTiles<64>::kKeys : BwdTiles<128>::kKeys)
@@ -2455,11 +2963,67 @@ XFA_EXPORT int xfa_flash_bwd_fp32(const void* q, const void* k, const void* v, c
       (which == 0 && (!sm90::encode_flat_f32(&maps[4], lse, stats, q_rows + 4) ||
                       !sm90::encode_flat_f32(&maps[5], delta, stats, q_rows + 4))))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (masked)
-    return static_cast<int>(d == 64 ? launch_bwd<64, true>(which, maps, p, s)
-                                    : launch_bwd<128, true>(which, maps, p, s));
-  return static_cast<int>(d == 64 ? launch_bwd<64, false>(which, maps, p, s)
-                                  : launch_bwd<128, false>(which, maps, p, s));
+  cudaError_t e;
+  if (bias != nullptr) {
+    if (masked)
+      e = d == 64 ? launch_bwd<64, true, true>(which, maps, p, s)
+                  : launch_bwd<128, true, true>(which, maps, p, s);
+    else
+      e = d == 64 ? launch_bwd<64, false, true>(which, maps, p, s)
+                  : launch_bwd<128, false, true>(which, maps, p, s);
+  } else if (masked) {
+    e = d == 64 ? launch_bwd<64, true, false>(which, maps, p, s)
+                : launch_bwd<128, true, false>(which, maps, p, s);
+  } else {
+    e = d == 64 ? launch_bwd<64, false, false>(which, maps, p, s)
+                : launch_bwd<128, false, false>(which, maps, p, s);
+  }
+  return static_cast<int>(e);
+}
+
+// dbias for fp32 q/k/v (flash_bwd_dbias_fp32_kernel), the arguments as
+// xfa_flash_bwd_dbias's (flash_bwd_dbias.cu): q is q_s (the pre-pass's
+// fp32 q * sm_scale); q, k, v and dout (b, h|hk, s, d) fp32 views with
+// element strides (batch, head, seq) and a contiguous head dim, read
+// through TMA tensor maps (pointers and strides multiples of 4 elements);
+// lse and delta (b, h, sq) fp32 contiguous. The bias (XFA_BIAS_ARGS) is
+// (bb, bh, sq, sk), bb in {1, b}, bh in {1, h}, fp32 or bf16; dbias, of
+// the bias's dtype, by its strides db_* (even, as the bias's), is written
+// on every tile that the row/key window leaves a pair in and must be zero
+// elsewhere. The mask arguments carry the row/key window, segment ids and
+// positions (no FlashMask or block mask).
+XFA_EXPORT int xfa_flash_bwd_dbias_fp32(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        void* dbias, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                                        int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
+                                        int64_t v_sh, int64_t v_ss, int64_t do_sb, int64_t do_sh,
+                                        int64_t do_ss, int64_t db_sb, int64_t db_sh,
+                                        int64_t db_ss, int b, int h, int hk, int sq, int sk, int d,
+                                        int bb, int bh, float softcap, int causal, XFA_MASK_ARGS,
+                                        XFA_BIAS_ARGS, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
+  if ((d != 64 && d != 128) || hk <= 0 || h % hk != 0 || bias == nullptr || dbias == nullptr ||
+      (bb != 1 && bb != b) || (bh != 1 && bh != h) || fm_vecs != nullptr || bm != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const xfa::MaskParams mask = XFA_MASK_VALUES;
+  const bool masked = xfa::mask_active(mask);
+  const DbFp32Params p{static_cast<const float*>(lse), static_cast<const float*>(delta),
+                       XFA_BIAS_VALUES, dbias, db_sb, db_sh, db_ss, b, h, hk, sq, sk, bb, bh,
+                       softcap, causal, mask};
+  CUtensorMap maps[4] = {};
+  if (!sm90::encode_bhsd_f32(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kDbRows) ||
+      !sm90::encode_bhsd_f32(&maps[1], dout, b, h, sq, d, do_sb, do_sh, do_ss, kDbRows) ||
+      !sm90::encode_bhsd_f32(&maps[2], k, b, hk, sk, d, k_sb, k_sh, k_ss, kDbKeys) ||
+      !sm90::encode_bhsd_f32(&maps[3], v, b, hk, sk, d, v_sb, v_sh, v_ss, kDbKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (d == 64)
+    err = masked ? launch_dbias_cap<64, true>(maps, p, s) : launch_dbias_cap<64, false>(maps, p, s);
+  else
+    err = masked ? launch_dbias_cap<128, true>(maps, p, s)
+                 : launch_dbias_cap<128, false>(maps, p, s);
+  return static_cast<int>(err);
 }
 
 // #12 in fp32: q (b, h, sq, d) and k (b, hk, sk, d) fp32 with element

@@ -75,14 +75,18 @@ _SIGNATURES = {
     + [_c_float, _c_int, _c_void_p],
     # flash_fp32.cu: the forward (a page table and lengths for the paged
     # instantiation) and the backward (which kernel), each then with the
-    # mask arguments, the FlashMask bands and the masked kernels' counters;
-    # the reduced scores (#12) as reduced_scores.cu's
+    # mask arguments, the FlashMask bands, the masked kernels' counters and
+    # the bias; dbias as flash_bwd_dbias.cu's; the reduced scores (#12) as
+    # reduced_scores.cu's
     "xfa_flash_fwd_fp32": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int, _c_int] + [_c_void_p] * 2 + [_c_int] * 3
-    + _MASK_ARGS + [_c_void_p] * 3,
+    + _MASK_ARGS + [_c_void_p] * 2 + _BIAS_ARGS + [_c_void_p],
     "xfa_flash_bwd_fp32": [_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
     + [_c_float, _c_float, _c_int, _c_int, _c_int] + _MASK_ARGS
-    + [_c_void_p] * 3,
+    + [_c_void_p] * 2 + _BIAS_ARGS + [_c_void_p],
+    "xfa_flash_bwd_dbias_fp32": [_c_void_p] * 7 + [_c_int64] * 15
+    + [_c_int] * 8 + [_c_float, _c_int] + _MASK_ARGS + _BIAS_ARGS
+    + [_c_void_p],
     "xfa_reduced_scores_fp32": [_c_void_p] * 4 + [_c_int64] * 6
     + [_c_int] * 6 + [_c_float, _c_int, _c_void_p],
     "xfa_flash_bwd_dkv": _BWD_ARGS,

@@ -24,11 +24,13 @@ csrc/flash_fp32.cu's dK/dV and dQ kernels (every product as three TF32
 products on the tensor cores, fp32-accurate, bitwise repeatable;
 :func:`flash_bwd_dkv_fp32`, :func:`flash_bwd_dq_fp32`, and through
 :func:`launch_flash_bwd` the packed layout) after the pre-pass's fp32
-instantiation, with causal, windows, softcap and GQA, and under a
-FlashMask, block mask, segment ids or positions their masked
-instantiations (the tiles :func:`bwd_masked_dkv_tile_plan` and
-:func:`bwd_masked_dq_tile_plan` with ``fp32`` mirror); a bias raises
-NotImplementedError (fwd.fp32_window).
+instantiation, with causal, windows, softcap and GQA, under a FlashMask,
+block mask, segment ids or positions their masked instantiations (the
+tiles :func:`bwd_masked_dkv_tile_plan` and :func:`bwd_masked_dq_tile_plan`
+with ``fp32`` mirror), and with a bias their bias instantiations, with
+dbias from flash_fp32.cu's own dbias kernel (:func:`flash_bwd_dbias_fp32`,
+which :func:`flash_bwd_dbias` runs for fp32 q_s), by the bf16 kernel's
+rules.
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ import torch
 from .. import _cuda
 from .common import CUDA_DTYPE_NOT_PORTED, KernelMasks, cdiv, expand_heads
 from .common import kernel_tiles
-from .fwd import (F32, MASK_PART, NO_BIAS, MaskTiles, bias_c_args,
-                  bias_view, build_masks, check_supported, check_tile_counts,
-                  cut_to_range, elementwise_first, fp32_window, key_tile_plan,
+from .fwd import (F32, MASK_PART, MaskTiles, bias_view, build_masks,
+                  check_supported, check_tile_counts, cut_to_range,
+                  elementwise_first, fp32_window, kernel_bias, key_tile_plan,
                   masked_counters, masked_row_block_plan, masked_window,
                   pair_schedule)
 
@@ -51,7 +53,8 @@ __all__ = ["attention_bwd_ref", "bwd_dkv_tile_plan", "bwd_dq_tile_plan",
            "bwd_dkv_window_plan", "bwd_masked_dkv_tile_plan",
            "bwd_masked_dq_tile_plan",
            "bwd_prep_ref", "bwd_schedule", "flash_attention_bwd",
-           "flash_bwd_dbias", "flash_bwd_dkv", "flash_bwd_dkv_fp32",
+           "flash_bwd_dbias", "flash_bwd_dbias_fp32", "flash_bwd_dkv",
+           "flash_bwd_dkv_fp32",
            "flash_bwd_dq", "flash_bwd_dq_fp32", "flash_bwd_prep",
            "launch_flash_bwd", "launch_flash_bwd_fp32"]
 
@@ -289,7 +292,7 @@ def _check_shapes(q, k, v, do, lse, dq, dk, dv, dtype=torch.bfloat16):
 def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
                           *, sm_scale: float, window, softcap: float,
                           masks: KernelMasks = None, causal: bool = False,
-                          tile_counts=None) -> None:
+                          tile_counts=None, bias=None) -> None:
     """Launch one kernel of csrc/flash_fp32.cu's backward (``which``: "dkv"
     writes dk and dv, "dq" writes dq) on (b, h, s, d) float32 views of any
     strides (head dim contiguous, pointers and strides multiples of 16
@@ -299,13 +302,18 @@ def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
     FlashMask, block mask, segment ids or positions run the masked
     instantiation, its counters into ``tile_counts`` when given, as
     :func:`bwd_masked_dkv_tile_plan` / :func:`bwd_masked_dq_tile_plan` with
-    ``fp32`` count them). The callers count the launch."""
+    ``fp32`` count them); ``bias`` the forward's (bb, bh, sq, sk) fp32 or
+    bf16 bias or None (the bias instantiation, which reads it to rebuild
+    P; dbias is :func:`flash_bwd_dbias_fp32`'s). The callers count the
+    launch."""
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
-                       *(masks.tensors() if masks is not None else ()))
+                       *(masks.tensors() if masks is not None else ()),
+                       *(() if bias is None else (bias,)))
     _check_shapes(q, k, v, do, lse, dq, dk, dv, F32)
     check_tile_counts(tile_counts, q.device)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    bias, bias_args = kernel_bias(bias, masks, b, h, sq, sk)
     if min(sq, sk) == 0:  # no pair: zero gradients
         for t in ((dk, dv) if which == "dkv" else (dq,)):
             t.zero_()
@@ -321,7 +329,7 @@ def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
         *KernelMasks.c_args(masks if counters is not None else None, causal,
                             which + "_fp32", d),
         _cuda.ptr(masks.bands() if counters is not None else None),
-        _cuda.ptr(counters), _cuda.stream())
+        _cuda.ptr(counters), *bias_args, _cuda.stream())
     _cuda.check(code, f"flash_bwd_{which}_fp32")
 
 
@@ -344,14 +352,14 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     count them. ``bias``: the forward's (bb, bh, sq, sk) bias or None; it
     runs the bias instantiations, which read it to rebuild P (dbias is
     :func:`flash_bwd_dbias`'s). float32 tensors go to
-    :func:`launch_flash_bwd_fp32` (no bias). The callers count the
+    :func:`launch_flash_bwd_fp32` (the bias too). The callers count the
     launch."""
     if q.dtype == F32:
         launch_flash_bwd_fp32(which, q, k, v, do, lse, delta, dq, dk, dv,
                               sm_scale=sm_scale, softcap=softcap,
-                              window=fp32_window(masks, causal, bias),
+                              window=fp32_window(masks, causal),
                               masks=masks, causal=causal,
-                              tile_counts=tile_counts)
+                              tile_counts=tile_counts, bias=bias)
         return
     _cuda.require_cuda(q, k, v, do, lse, delta, dq, dk, dv,
                        *(masks.tensors() if masks is not None else ()),
@@ -367,10 +375,7 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     fn = {"dkv": _cuda.lib().xfa_flash_bwd_dkv,
           "dq": _cuda.lib().xfa_flash_bwd_dq}[which]
     masked = masks is not None and masks.active
-    bias_args = NO_BIAS
-    if bias is not None:
-        bias_view(bias, b, h, sq, sk)
-        bias, bias_args = bias_c_args(bias)
+    bias, bias_args = kernel_bias(bias, masks, b, h, sq, sk)
     counters = masked_counters(masks, tile_counts, q.device)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -385,46 +390,70 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
 
 def flash_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool,
                     softcap: float, masks: KernelMasks = None):
-    """The bias gradient (csrc/flash_bwd_dbias.cu, the dbias output of TPU
-    kernel #2): dbias = P (dP - delta), the scores' gradient before the
-    softcap derivative, summed in fp32 over the batches and heads that
-    share each element of the (bb, bh, sq, sk) ``bias`` (fwd.bias_view), in
-    a fixed order, and returned as a (bb, bh, sq, sk) tensor of its dtype
-    (a view of a buffer whose rows are padded to an even length when sk is
-    odd; the kernel writes key pairs). ``q`` is q_s, the pre-pass's
-    bf16(q * sm_scale); k, v, do, lse and delta as
+    """The bias gradient (the dbias output of TPU kernel #2): dbias = P (dP
+    - delta), the scores' gradient before the softcap derivative, summed in
+    fp32 over the batches and heads that share each element of the (bb,
+    bh, sq, sk) ``bias`` (fwd.bias_view), in a fixed order, and returned
+    as a (bb, bh, sq, sk) tensor of its dtype (a view of a buffer whose
+    rows are padded to an even length when sk is odd; the kernel writes
+    key pairs). ``q`` is q_s, the pre-pass's q * sm_scale: bf16 runs
+    csrc/flash_bwd_dbias.cu, counted by ``flash_bwd_dbias.launches``;
+    float32 runs :func:`flash_bwd_dbias_fp32`. k, v, do, lse and delta as
     :func:`launch_flash_bwd`. Pairs that the masks hide and tiles the
-    row/key window skips get 0. ``flash_bwd_dbias.launches`` counts its
-    launches."""
+    row/key window skips get 0."""
+    if q.dtype == F32:
+        return flash_bwd_dbias_fp32(q, k, v, do, lse, delta, bias,
+                                    causal=causal, softcap=softcap,
+                                    masks=masks)
+    dbias = _launch_dbias("xfa_flash_bwd_dbias", q, k, v, do, lse, delta,
+                          bias, causal, softcap, masks, torch.bfloat16, "dq")
+    flash_bwd_dbias.launches += 1
+    return dbias
+
+
+def flash_bwd_dbias_fp32(q, k, v, do, lse, delta, bias, *, causal: bool,
+                         softcap: float, masks: KernelMasks = None):
+    """The fp32 dbias kernel (csrc/flash_fp32.cu
+    flash_bwd_dbias_fp32_kernel): :func:`flash_bwd_dbias` for float32 q_s,
+    k, v and do (q_s the pre-pass's fp32 q * sm_scale; every product as
+    three TF32 products), an fp32 or bf16 bias, dbias in its dtype.
+    ``flash_bwd_dbias_fp32.launches`` counts its launches."""
+    dbias = _launch_dbias("xfa_flash_bwd_dbias_fp32", q, k, v, do, lse, delta,
+                          bias, causal, softcap, masks, F32, "dq_fp32")
+    flash_bwd_dbias_fp32.launches += 1
+    return dbias
+
+
+def _launch_dbias(entry, q, k, v, do, lse, delta, bias, causal, softcap,
+                  masks, dtype, kind):
+    """One launch of the dbias C entry ``entry`` on q_s, k, v, do of
+    ``dtype``, the mask arguments at kernel ``kind``'s tiles (the kernels
+    read the window, segment ids and positions only); the zero-filled
+    dbias buffer the kernel writes, as its (bb, bh, sq, sk) view."""
     _cuda.require_cuda(q, k, v, do, lse, delta, bias,
                        *(masks.tensors() if masks is not None else ()))
-    _check_shapes(q, k, v, do, lse, q, k, v)
+    _check_shapes(q, k, v, do, lse, q, k, v, dtype)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    bias = bias_view(bias, b, h, sq, sk)
-    if masks is not None and (masks.fm_vecs is not None
-                              or masks.bm is not None):
-        raise ValueError("an attention bias takes no FlashMask or block "
-                         "mask, as in the TPU package")
+    bias, bias_args = kernel_bias(bias, masks, b, h, sq, sk)
     bb, bh = bias.shape[:2]
     dbias = torch.zeros(bb, bh, sq, sk + sk % 2, dtype=bias.dtype,
                         device=q.device)
     if min(sq, sk) == 0:
         return dbias[..., :sk]
-    bias, bias_args = bias_c_args(bias)
-    code = _cuda.lib().xfa_flash_bwd_dbias(
+    code = getattr(_cuda.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
         *(s for t in (q, k, v, do, dbias) for s in t.stride()[:3]),
         b, h, hk, sq, sk, d, bb, bh, float(softcap), int(causal),
-        *KernelMasks.c_args(masks, causal, "dq", d), *bias_args,
+        *KernelMasks.c_args(masks, causal, kind, d), *bias_args,
         _cuda.stream())
-    _cuda.check(code, "flash_bwd_dbias")
-    flash_bwd_dbias.launches += 1
+    _cuda.check(code, entry[4:])
     return dbias[..., :sk]
 
 
 flash_bwd_dbias.launches = 0
+flash_bwd_dbias_fp32.launches = 0
 
 
 def bwd_prep_ref(q, out, do, *, sm_scale: float, scale_q: bool = True):
@@ -556,16 +585,15 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
     # TMA reads 16-byte aligned bases and strides; autograd may hand over
     # expanded or transposed tensors
     q, k, v, out, do = (_cuda.aligned(t, 8) for t in (q, k, v, out, do))
-    if q.dtype == F32:  # the fp32 kernels' refusals, before any launch
-        window = fp32_window(masks, causal, bias4)
     qs, delta = flash_bwd_prep(q, out, do, sm_scale=sm_scale)
     dq = dk = dv = None
     if need_dqkv:
         dq, dk, dv = grad_like(h, sq), grad_like(hk, sk), grad_like(hk, sk)
         args = (qs, k, v, do, lse, delta, dq, dk, dv)
         if q.dtype == F32:
-            kw = dict(sm_scale=sm_scale, window=window, softcap=softcap,
-                      masks=masks, causal=causal)
+            kw = dict(sm_scale=sm_scale, window=fp32_window(masks, causal),
+                      softcap=softcap, masks=masks, causal=causal,
+                      bias=bias4)
             flash_bwd_dkv_fp32(*args, **kw)
             flash_bwd_dq_fp32(*args, **kw)
         else:

@@ -42,8 +42,8 @@ NEG_INF = DEFAULT_MASK_VALUE
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
 SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
-SLICE_DTYPES = ("slice 7b (fp16 inputs to the CUDA attention kernels, and "
-                "fp32 with an attention bias) " + NEXT_SLICES)
+SLICE_DTYPES = ("slice 7b (fp16 inputs to the CUDA attention kernels) "
+                + NEXT_SLICES)
 SLICE_MODELS = ("slice 8 (the other models and the vision trainer) "
                 + NEXT_SLICES)
 SLICE_PARALLEL = "slice 9 (parallelism) " + NEXT_SLICES
@@ -55,8 +55,7 @@ NO_BACKWARD = (
 CUDA_DTYPE_NOT_PORTED = (
     "the CUDA attention kernels (TPU kernels #1-#3, #5, #6) take bfloat16 "
     "or float32 q/k/v (float8_e4m3fn through flash_attn_fp8_func, forward "
-    "only; float32 with every flag but an attention bias); fp16, and fp32 "
-    f"with a bias, come with {SLICE_DTYPES}"
+    f"only); fp16 comes with {SLICE_DTYPES}"
 )
 
 # FlashMask block stats are taken per key tile of each kernel (128 keys for

@@ -26,13 +26,14 @@ windows, softcap, GQA and the LSE; it takes no bias, mask, segment ids or
 dropout. float32 q/k/v on the card run csrc/flash_fp32.cu (three TF32
 products on the tensor cores for each fp32 product, fed by TMA rings;
 :func:`flash_fwd_fp32`, and through :func:`launch_flash_fwd` the packed
-layout) with causal, windows, softcap, GQA and the LSE, and under a
+layout) with causal, windows, softcap, GQA and the LSE, under a
 FlashMask, block mask, segment ids or positions its masked instantiation
 (the producer decides the tiles as the bf16 masked kernel's does, at the
-fp32 kernel's key tiles: :func:`fwd_masked_tile_plan` with ``fp32``);
-with a bias they raise NotImplementedError, as fp16 does
-(:data:`common.SLICE_DTYPES`). Dropout raises NotImplementedError until
-slice 6.
+fp32 kernel's key tiles: :func:`fwd_masked_tile_plan` with ``fp32``),
+and with an fp32 or bf16 bias its bias instantiation (dense or masked;
+not with a FlashMask or block mask), which reads the bias as the bf16
+kernel does. fp16 raises NotImplementedError
+(:data:`common.SLICE_DTYPES`), and so does dropout until slice 6.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ from .reference import attention_fp8_ref
 __all__ = ["attention_fwd_ref", "bias_c_args", "bias_view", "build_masks",
            "flash_attention_fwd", "flash_fwd_fp32", "flash_fwd_fp8",
            "fp32_window", "fwd_masked_tile_plan", "fwd_schedule",
-           "fwd_tile_plan", "key_window_plan", "launch_flash_fwd_fp32",
+           "fwd_tile_plan", "kernel_bias", "key_window_plan",
+           "launch_flash_fwd_fp32",
            "masked_row_block_plan"]
 
 FP8 = torch.float8_e4m3fn
@@ -404,12 +406,12 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     or None; it runs the bias instantiation, and takes no FlashMask or
     block mask. float32 tensors go to :func:`launch_flash_fwd_fp32`
     (``tile_counts`` as :func:`fwd_masked_tile_plan` with ``fp32`` counts
-    them). The callers count the launch."""
+    them; ``bias`` as here). The callers count the launch."""
     if q.dtype == F32:
         launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale,
-                              window=fp32_window(masks, causal, bias),
+                              window=fp32_window(masks, causal),
                               softcap=softcap, masks=masks, causal=causal,
-                              tile_counts=tile_counts)
+                              tile_counts=tile_counts, bias=bias)
         return
     tensors = [t for t in (q, k, v, out, lse, bias) if t is not None]
     if masks is not None:
@@ -431,13 +433,7 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         _cuda.require_aligned(t, 8, name)
     masked = masks is not None and masks.active
-    bias_args = NO_BIAS
-    if bias is not None:
-        bias_view(bias, b, h, sq, sk)
-        if masked and (masks.fm_vecs is not None or masks.bm is not None):
-            raise ValueError("an attention bias takes no FlashMask or block "
-                             "mask, as in the TPU package")
-        bias, bias_args = bias_c_args(bias)
+    bias, bias_args = kernel_bias(bias, masks, b, h, sq, sk)
     counters = masked_counters(masks, tile_counts, q.device)
     code = _cuda.lib().xfa_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -473,14 +469,26 @@ def masked_counters(masks: Optional[KernelMasks], tile_counts, device,
             torch.empty(3, dtype=torch.int32, device=device))
 
 
-def fp32_window(masks: Optional[KernelMasks], causal: bool, bias=None):
+def kernel_bias(bias, masks: Optional[KernelMasks], b: int, h: int, sq: int,
+                sk: int):
+    """(bias, XFA_BIAS_ARGS) of a kernel's bias argument: :data:`NO_BIAS`
+    without one; else the (bb, bh, sq, sk) view (:func:`bias_view`) as
+    :func:`bias_c_args` hands it over. ``ValueError`` for a bias beside a
+    FlashMask or block mask, which the TPU package refuses too."""
+    if bias is None:
+        return None, NO_BIAS
+    bias = bias_view(bias, b, h, sq, sk)
+    if masks is not None and (masks.fm_vecs is not None
+                              or masks.bm is not None):
+        raise ValueError("an attention bias takes no FlashMask or block "
+                         "mask, as in the TPU package")
+    return bias_c_args(bias)
+
+
+def fp32_window(masks: Optional[KernelMasks], causal: bool):
     """The (left, right) window of the fp32 kernels (-1 no bound, causal
-    right 0) for the flags ``masks`` carries; ``NotImplementedError`` with
-    a bias, which the fp32 kernels do not take (:data:`common.SLICE_DTYPES`):
-    a FlashMask, block mask, segment ids and positions run their masked
-    instantiations."""
-    if bias is not None:
-        raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
+    right 0) for the flags ``masks`` carries: a FlashMask, block mask,
+    segment ids and positions run their masked instantiations."""
     if masks is None:
         return -1, 0 if causal else -1
     return masked_window(masks, causal)
@@ -488,7 +496,8 @@ def fp32_window(masks: Optional[KernelMasks], causal: bool, bias=None):
 
 def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
                           softcap: float, paged=None, masks=None,
-                          causal: bool = False, tile_counts=None) -> None:
+                          causal: bool = False, tile_counts=None,
+                          bias=None) -> None:
     """Launch csrc/flash_fp32.cu's forward on (b, h, s, d) float32 views of
     any strides (head dim contiguous; pointers and strides multiples of 16
     bytes, 4 elements: ``ValueError`` otherwise): q, out (b, h, sq, d); k,
@@ -502,7 +511,10 @@ def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
     fwd.build_masks returned); a FlashMask, block mask, segment ids or
     positions run the masked instantiation, whose three int32 counters are
     written to ``tile_counts`` when it is given (as :func:`launch_flash_fwd`
-    does). The callers count the launch."""
+    does). ``bias``: a (bb, bh, sq, sk) fp32 or bf16 bias
+    (:func:`bias_view`) or None; it runs the bias instantiation (dense or
+    masked), and takes no page table, FlashMask or block mask. The callers
+    count the launch."""
     b, h, sq, d = q.shape
     table = lengths = None
     ps = npp = num_pages = 0
@@ -523,8 +535,10 @@ def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
         if v.shape != k.shape or k.shape[3] != d:
             raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                              f"v {tuple(v.shape)}")
-    _cuda.require_cuda(*(t for t in (q, k, v, out, lse, table, lengths)
-                         if t is not None))
+    _cuda.require_cuda(*(t for t in (q, k, v, out, lse, table, lengths,
+                                     bias) if t is not None))
+    if paged is not None and bias is not None:
+        raise ValueError("the paged fp32 forward takes no attention bias")
     if any(t.dtype != F32 for t in (q, k, v, out)):
         raise NotImplementedError(CUDA_DTYPE_NOT_PORTED)
     if d not in (64, 128):
@@ -538,6 +552,7 @@ def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
     for t, name in ((q, "q"), (out, "out"), (k, "k"), (v, "v")):
         _cuda.require_aligned(t, 4, name)
     check_tile_counts(tile_counts, q.device)
+    bias, bias_args = kernel_bias(bias, masks, b, h, sq, sk)
     counters = masked_counters(masks, tile_counts, q.device, fp32=True)
     if counters is not None:
         _cuda.require_cuda(*masks.tensors())
@@ -550,19 +565,20 @@ def launch_flash_fwd_fp32(q, k, v, out, lse, *, sm_scale: float, window,
         *KernelMasks.c_args(masks if counters is not None else None, causal,
                             "fwd_fp32", d),
         _cuda.ptr(masks.bands() if counters is not None else None),
-        _cuda.ptr(counters), _cuda.stream())
+        _cuda.ptr(counters), *bias_args, _cuda.stream())
     _cuda.check(code, "flash_fwd_fp32")
 
 
 def flash_fwd_fp32(q, k, v, *, sm_scale: float, window=(-1, -1),
                    softcap: float = 0.0, need_lse: bool = True, masks=None,
-                   causal: bool = False):
+                   causal: bool = False, bias=None):
     """The fp32 forward (csrc/flash_fp32.cu) on (b, h, s, d) float32 views
     on the card: q (b, h, sq, d), k/v (b, hk, sk, d); ``window`` (left,
     right) as :func:`fp32_window` gives it; ``masks`` and ``causal`` as
     :func:`build_masks` made them (the masked instantiation under a
-    FlashMask, block mask, segment ids or positions). Returns (out (b, h,
-    sq, d) fp32, allocated in (b, sq, h, d) memory order as
+    FlashMask, block mask, segment ids or positions); ``bias`` a (bb, bh,
+    sq, sk) fp32 or bf16 bias or None (the bias instantiation). Returns
+    (out (b, h, sq, d) fp32, allocated in (b, sq, h, d) memory order as
     :func:`flash_attention_fwd` does, lse (b, h, sq) fp32 | None).
 
     ``flash_fwd_fp32.launches`` counts kernel launches."""
@@ -571,7 +587,8 @@ def flash_fwd_fp32(q, k, v, *, sm_scale: float, window=(-1, -1),
     lse = (torch.empty(b, h, sq, dtype=F32, device=q.device)
            if need_lse else None)
     launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale, window=window,
-                          softcap=softcap, masks=masks, causal=causal)
+                          softcap=softcap, masks=masks, causal=causal,
+                          bias=bias)
     flash_fwd_fp32.launches += 1
     return out, lse
 
@@ -769,8 +786,8 @@ def flash_attention_fwd(
     ``q_descale`` / ``k_descale`` / ``v_descale`` (None: ones); out is then
     bf16, and bias, dropout and the mask flags raise ``ValueError``.
 
-    float32 q/k/v on the card run :func:`flash_fwd_fp32` (every flag; with
-    a bias ``NotImplementedError``).
+    float32 q/k/v on the card run :func:`flash_fwd_fp32` (every flag, and
+    the bias).
 
     ``flash_attention_fwd.launches`` counts the bf16 kernel's launches,
     ``flash_fwd_fp8.launches`` the e4m3 instantiation's,
@@ -808,9 +825,9 @@ def flash_attention_fwd(
                                  mask=masks.keep(h), bias=bias)
     if q.dtype == F32:
         return flash_fwd_fp32(q, k, v, sm_scale=sm_scale,
-                              window=fp32_window(masks, causal, bias),
+                              window=fp32_window(masks, causal),
                               softcap=softcap, need_lse=need_lse, masks=masks,
-                              causal=causal)
+                              causal=causal, bias=bias)
     out = torch.empty(b, sq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

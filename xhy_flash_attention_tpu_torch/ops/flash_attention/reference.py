@@ -18,7 +18,8 @@ __all__ = ["FP8_LSE_TOL", "FP8_OUT_TOL", "attention_fp8_ref",
            "attention_ref", "construct_local_mask", "fp8_ref_errors",
            "attention_bwd_tf32x3", "attention_fwd_tf32x3",
            "generate_qkv_segment_ids",
-           "matmul_tf32x3", "split_tf32", "tf32_trunc"]
+           "matmul_tf32x3", "split_tf32", "sum_bias_members",
+           "tf32_trunc"]
 
 
 def construct_local_mask(
@@ -280,11 +281,13 @@ def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def attention_fwd_tf32x3(q, k, v, *, sm_scale: float, softcap: float = 0.0,
-                         mask=None, matmul=matmul_tf32x3):
+                         mask=None, bias=None, matmul=matmul_tf32x3):
     """The fp32 forward's formulas (csrc/flash_fp32.cu) with both products
     through ``matmul`` (by default the kernel's three TF32 products) on (b,
-    h, s, d) float32 tensors: q_s = q * sm_scale; S = q_s K^T, softcap; -inf
-    where ``mask`` (a keep mask broadcastable to (b, h, sq, sk), or None) is
+    h, s, d) float32 tensors: q_s = q * sm_scale; S = q_s K^T, softcap;
+    plus ``bias`` in fp32 (a (bb, bh, sq, sk) fp32 or bf16 tensor, bb in
+    {1, b}, bh in {1, h}, or None: the BIAS instantiation); -inf where
+    ``mask`` (a keep mask broadcastable to (b, h, sq, sk), or None) is
     False; P = exp(S - m) from these scores, m the row max (0 on a row that
     sees no key); O = (P V) / rowsum(P), 0 on such a row; LSE = m +
     log(rowsum), +inf on it. The kernel takes the max and the sums tile by
@@ -294,6 +297,8 @@ def attention_fwd_tf32x3(q, k, v, *, sm_scale: float, softcap: float = 0.0,
     s = matmul(q * sm_scale, k.repeat_interleave(g, 1).transpose(-1, -2))
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
+    if bias is not None:
+        s = s + bias.float()
     if mask is not None:
         s = s.masked_fill(~mask, -math.inf)
     m = s.amax(-1, keepdim=True)
@@ -307,15 +312,21 @@ def attention_fwd_tf32x3(q, k, v, *, sm_scale: float, softcap: float = 0.0,
 
 
 def attention_bwd_tf32x3(q, k, v, out, lse, do, *, sm_scale: float,
-                         softcap: float = 0.0, mask=None,
+                         softcap: float = 0.0, mask=None, bias=None,
                          matmul=matmul_tf32x3):
     """The fp32 backward's formulas (csrc/flash_fp32.cu) with every product
     through ``matmul`` (by default the kernels' three TF32 products) on
     (b, h, s, d) float32 tensors: q_s = q * sm_scale; S = q_s K^T, softcap;
-    P = exp(S - lse), 0 where ``mask`` (a keep mask broadcastable to (b, h,
-    sq, sk), or None) is False; dP = dO V^T; delta = rowsum(dO * out); dS =
-    P (dP - delta) (1 - t^2); dV = P^T dO, dK = dS^T q_s (both summed over
-    each KV head's group), dQ = dS K sm_scale. Returns (dq, dk, dv)."""
+    plus ``bias`` in fp32 (as :func:`attention_fwd_tf32x3`); P = exp(S -
+    lse), 0 where ``mask`` (a keep mask broadcastable to (b, h, sq, sk), or
+    None) is False; dP = dO V^T; delta = rowsum(dO * out); dS = P (dP -
+    delta) (1 - t^2); dV = P^T dO, dK = dS^T q_s (both summed over each KV
+    head's group), dQ = dS K sm_scale. Returns (dq, dk, dv), and with a
+    bias also dbias: P (dP - delta), before the softcap derivative, summed
+    over the bias's broadcast axes as the dbias kernel sums it (each
+    element over its (batch, head) pairs in turn, batch first, in fp32;
+    :func:`sum_bias_members`), in the bias's (bb, bh, sq, sk) shape and
+    dtype."""
     b, h, sq, d = q.shape
     hk = k.shape[1]
     g = h // hk
@@ -327,13 +338,36 @@ def attention_bwd_tf32x3(q, k, v, out, lse, do, *, sm_scale: float,
         t = torch.tanh(s / softcap)
         s = t * softcap
         fac = 1.0 - t * t
+    if bias is not None:
+        s = s + bias.float()
     p = torch.exp(s - lse[..., None])
     if mask is not None:
         p = torch.where(mask, p, torch.zeros_like(p))
     dp = matmul(do, vr.transpose(-1, -2))
     delta = (do * out).sum(-1, keepdim=True)
-    ds = p * (dp - delta) * fac
+    ds = p * (dp - delta)
+    dbias = None if bias is None else sum_bias_members(ds, bias.shape)
+    ds = ds * fac
     dv = matmul(p.transpose(-1, -2), do).reshape(b, hk, g, -1, d).sum(2)
     dk = matmul(ds.transpose(-1, -2), qs).reshape(b, hk, g, -1, d).sum(2)
     dq = matmul(ds, kr) * sm_scale
-    return dq, dk, dv
+    if bias is None:
+        return dq, dk, dv
+    return dq, dk, dv, dbias.to(bias.dtype)
+
+
+def sum_bias_members(ds: torch.Tensor, shape) -> torch.Tensor:
+    """(b, h, sq, sk) ``ds`` summed to a bias of ``shape`` (bb, bh, sq, sk),
+    bb in {1, b}, bh in {1, h}: each element over the (batch, head) pairs
+    that share it, added one pair at a time in the dbias kernels' order
+    (every batch for bb 1, every head for bh 1, batch first)."""
+    b, h = ds.shape[:2]
+    bb, bh = shape[:2]
+    out = torch.zeros((bb, bh) + tuple(ds.shape[2:]), dtype=ds.dtype,
+                      device=ds.device)
+    for bi in range(bb):
+        for hi in range(bh):
+            for batch in (range(b) if bb == 1 else (bi,)):
+                for head in (range(h) if bh == 1 else (hi,)):
+                    out[bi, hi] += ds[batch, head]
+    return out
