@@ -5,7 +5,8 @@
                              # int8 and int4 weights), GPT-2 XL serving in
                              # fp32, GPT-3/GPT-2-medium training (8k with
                              # remat; fp32, fp32 on packed documents), fp8
-                             # prefill, fp32 attention with a bias, full
+                             # prefill, fp32 attention with a bias,
+                             # GPT-2 medium with attention dropout, full
                              # width and depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
@@ -169,7 +170,29 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      over three backward passes; each kernel timed beside its bound (3
      TF32 products at 495 TFLOP/s; bytes with the bias's causal part read
      and dbias written), the plain versions and SDPA fp32 with the bias
-     and the causal mask as a float mask (TF32 off).
+     and the causal mask as a float mask (TF32 off);
+ 22. attention dropout (p 0.1, the dropout instantiations of #1, #2 and
+     #3): the keep mask each kernel applies read back bit for bit against
+     `common.dropout_keep_mask` (q = 0 so that P is uniform; V, dO or K
+     one-hot on windows of d keys or rows; d 64 and 128, dense and masked
+     (a block mask, causal with sq != sk), seeds 0, 77, -3, p 0.1, 0.5,
+     0.9); #1, #2 and #3 at A (Llama-3-8B's attention, d 128), T-long
+     (d 64) and FM-doc (its causal document FlashMask: the masked
+     instantiations), #5 / #6 at T-packed: against their plain versions
+     (a batch
+     row at a time), the 2x contract under the same keep mask, three
+     backward passes bitwise equal, each timed beside itself without
+     dropout, its bound (products, bytes and the integer floor of the hash,
+     HASH_OPS a hashed pair) and SDPA with dropout_p 0.1; then GPT-2 medium
+     (openai-community/gpt2-medium widths, attn_pdrop 0.1, embd_pdrop and
+     resid_pdrop cut to 0: the JAX model raises on them) from random bf16
+     weights at gpt2m-flash.yaml's batch 32 x 1024 for 3 steps of
+     deterministic=False forward, cross-entropy, backward and the recipe's
+     AdamW on the packed route: exact launches (each layer's dropout
+     instantiations of #5, #6), no plain version, finite losses, step 1
+     repeated with the same seeds bitwise equal (loss and every gradient),
+     another seed different, and at depth 2 the kernels against the plain
+     versions under the same seeds (phase 9's limits).
 Phases 11 and 13 also drive FM-doc, FM-swg (with the reduced scores of its
 LSE), BS and VL-doc in fp32 through the same entries (the masked fp32
 kernels; exact launches, within 1e-4 of the fp32 plain version's largest
@@ -213,6 +236,7 @@ The last lines: the card, one JSON object with a row per kernel, and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import importlib
@@ -1072,14 +1096,17 @@ def plain_versions():
     dk = importlib.import_module(_PKG + "flash_attention.decode_kernel")
     dec = importlib.import_module(_PKG + "decode")
     paged = importlib.import_module("xhy_flash_attention_tpu_torch.inference.paged")
+    Dropout = importlib.import_module(_PKG + "flash_attention.common").Dropout
 
     def attention(q, k, v, *unused, sm_scale, causal, softcap, need_lse,
-                  masks=None, **flags):
+                  masks=None, dropout_p=0.0, dropout_seed=None, **flags):
         keep = masks.keep(q.shape[1], q.device) if masks is not None else None
-        if keep is None:
+        dropout = Dropout.make(dropout_p, dropout_seed)
+        if keep is None or dropout is not None:  # the salts need all heads
             return fwd.attention_fwd_ref(q, k, v, sm_scale=sm_scale,
                                          causal=causal, softcap=softcap,
-                                         need_lse=need_lse)
+                                         need_lse=need_lse, mask=keep,
+                                         dropout=dropout)
         out, lse = plain_fwd_groups(q, k, v, keep, sm_scale=sm_scale,
                                     causal=causal, softcap=softcap)
         return out, (lse if need_lse else None)
@@ -1095,12 +1122,15 @@ def plain_versions():
                                             window_size, softcap)
 
     def attention_bwd(q, k, v, out, lse, do, *unused, sm_scale, causal,
-                      softcap, masks=None, **flags):
+                      softcap, masks=None, dropout_p=0.0, dropout_seed=None,
+                      **flags):
         keep = masks.keep(q.shape[1], q.device) if masks is not None else None
-        if keep is None:
+        dropout = Dropout.make(dropout_p, dropout_seed)
+        if keep is None or dropout is not None:  # the salts need all heads
             return bwd.attention_bwd_ref(q, k, v, out, lse, do,
                                          sm_scale=sm_scale, causal=causal,
-                                         softcap=softcap)
+                                         softcap=softcap, mask=keep,
+                                         dropout=dropout)
         return plain_bwd_groups(q, k, v, out, lse, do, keep,
                                 sm_scale=sm_scale, causal=causal,
                                 softcap=softcap)
@@ -4957,19 +4987,26 @@ def float64_versions():
     def keep_of(masks, q):
         return masks.keep(q.shape[1], q.device) if masks is not None else None
 
+    def no_dropout(dropout):
+        check(not dropout, "the float64 versions take no dropout")
+
     def attention(q, k, v, *unused, sm_scale, causal, softcap, need_lse,
-                  masks=None, **flags):
+                  masks=None, dropout_p=0.0, **flags):
+        no_dropout(dropout_p)
         out, lse = attention64(q, k, v, sm_scale=sm_scale, causal=causal,
                                softcap=softcap, keep=keep_of(masks, q))
         return out, (lse if need_lse else None)
 
     def attention_bwd(q, k, v, out, lse, do, *unused, sm_scale, causal,
-                      softcap, masks=None, **flags):
+                      softcap, masks=None, dropout_p=0.0, **flags):
+        no_dropout(dropout_p)
         return attention64_grads(q, k, v, do, sm_scale=sm_scale,
                                  causal=causal, softcap=softcap,
                                  keep=keep_of(masks, q))[2:]
 
-    def packed_fwd(q, k, v, *, sm_scale, causal, softcap, need_lse=False):
+    def packed_fwd(q, k, v, *, sm_scale, causal, softcap, need_lse=False,
+                   dropout=None):
+        no_dropout(dropout)
         out, lse = attention(*(t.transpose(1, 2) for t in (q, k, v)),
                              sm_scale=sm_scale, causal=causal,
                              softcap=softcap, need_lse=True)
@@ -4977,7 +5014,8 @@ def float64_versions():
         return (out, lse) if need_lse else out
 
     def packed_bwd(q, k, v, out, lse, do, *, sm_scale, causal, softcap,
-                   dq=None, dk=None, dv=None):
+                   dq=None, dk=None, dv=None, dropout=None):
+        no_dropout(dropout)
         grads = [g.transpose(1, 2) for g in attention_bwd(
             *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
             do.transpose(1, 2), sm_scale=sm_scale, causal=causal,
@@ -5710,6 +5748,758 @@ def fp32_bias_entries(gen):
     return rows, launches
 
 
+# ---------------------------------------------------------------- phase 22
+
+DROP_P = 0.1  # gpt2-medium's attn_pdrop (Hugging Face config.json)
+DROP_SEED = 1234
+# openai-community/gpt2-medium config.json widths; its embd_pdrop and
+# resid_pdrop (0.1) are cut to 0 in phase 22: the JAX model raises on them
+# with deterministic=False (its GPTModel hands no seed to the blocks)
+GPT2_MEDIUM = dict(vocab_size=50257, n_embd=1024, n_layer=24, n_head=16,
+                   n_positions=1024, layer_norm_epsilon=1e-5, attn_pdrop=0.1,
+                   embd_pdrop=0.1, resid_pdrop=0.1)
+DROPOUT_STEPS = 3
+INT32_PER_CLOCK = 64  # int32 lanes a clock per SM (compute capability 9.0)
+# Integer instructions the kernels spend on one hashed element
+# (csrc/common.cuh dropout_each / dropout_keep): the add of the element's
+# constant, three shift-xor pairs, two multiplies, the compare, the select.
+HASH_OPS = 11
+
+
+def int_floor_ms(elements: float) -> float:
+    """The least time the card's integer units take for HASH_OPS
+    instructions per hashed element: INT32_PER_CLOCK a clock per SM at the
+    clock of the bf16 peak."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return elements * HASH_OPS / (INT32_PER_CLOCK * sms * TENSOR_CLOCK_HZ) * 1e3
+
+
+def _drop(p, seed):
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import \
+        Dropout
+    return Dropout(p, seed & 0xFFFFFFFF)
+
+
+def _dkw(drop):
+    """The entries' dropout keywords of a Dropout."""
+    return dict(dropout_p=drop.p, dropout_seed=drop.seed)
+
+
+def dropout_launches():
+    """The dropout instantiations' launches so far, by kernel and
+    instantiation: "fwd d64", "dkv d128", "dq d64 masked", ..."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    n = {f"fwd {k}": v for k, v in
+         fwd.launch_flash_fwd.dropout_launches.items() if v}
+    n.update((k, v) for k, v in bwd.launch_flash_bwd.dropout_launches.items()
+             if v)
+    return n
+
+
+def reset_dropout_launches():
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    fwd.launch_flash_fwd.dropout_launches.clear()
+    bwd.launch_flash_bwd.dropout_launches.clear()
+
+
+def _each(inst, n=1):
+    """The launch counts of n forwards and backwards of one dropout
+    instantiation (fwd.dropout_instance's name)."""
+    return {f"{k} {inst}": n for k in ("fwd", "dkv", "dq")}
+
+
+class _BatchRow:
+    """Batch row ``i`` of ``drop``'s keep masks, for the plain versions run
+    on that row alone: the rows of drop.keep(b, ...)[i], made for one row
+    so that the masks of a whole batch are never held."""
+
+    def __init__(self, drop, i):
+        self.p, self.scale, self.seed, self.i = drop.p, drop.scale, drop.seed, i
+
+    def keep(self, b, h, sq, sk, device=None):
+        from xhy_flash_attention_tpu_torch.ops.flash_attention.common import \
+            dropout_keep_mask
+        salt = self.i * h + torch.arange(h, device=device)
+        return dropout_keep_mask(
+            self.seed, salt[None, :, None, None],
+            torch.arange(sq, device=device)[:, None],
+            torch.arange(sk, device=device)[None, :], self.p)
+
+
+def dropout_mask_probe(device="cuda"):
+    """The keep mask that each dropout kernel applies, read back bit for
+    bit against `common.dropout_keep_mask` (b2 h4 hk2 sq320 sk512, d 64
+    and 128, the dense instantiations without a mask and the masked ones
+    under a block mask of ones and causal (sq != sk: the bottom-right
+    diagonal), seeds 0, 77 and -3, p 0.1, 0.5, 0.9). q = 0 makes P uniform
+    over each row's visible keys, so that:
+      #1: V one-hot on a window of d keys (key w0 + j carries column j, the
+          other keys' rows 0): out[r, j] != 0 exactly where (r, w0 + j) is
+          kept and visible;
+      #2: dO one-hot on a window of d rows: dV[c, j] != 0 exactly where
+          (r0 + j, c) is kept and visible;
+      #3: K one-hot on a window of d keys, V and dO the first unit vector
+          (dP = 1): dS = P (kept ? 1 / (1 - p) - delta : -delta), delta
+          between the two, so dQ[r, j] > 0 exactly where (r, w0 + j) is
+          kept and visible.
+    The windows cover every key (and row) of the call. On a CPU device the
+    plain versions run (a rehearsal of the probe itself)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, sq, sk = 2, 4, 2, 320, 512
+    z = dict(dtype=torch.bfloat16, device=device)
+    n_calls = 0
+    for d in (64, 128):
+        eye = torch.eye(d, **z)
+        for masked in (False, True):
+            flags = dict(block_mask=(torch.ones(1, 1, 3, 4, dtype=torch.int32,
+                                                device=device), 128, 128)
+                         ) if masked else {}
+            causal = masked
+            rows = torch.arange(sq, device=device)[:, None]
+            cols = torch.arange(sk, device=device)[None, :]
+            vis = (cols <= rows + (sk - sq)) if causal else \
+                torch.ones(sq, sk, dtype=torch.bool, device=device)
+            kw = dict(sm_scale=d ** -0.5, causal=causal, softcap=0.0, **flags)
+            for seed in (0, 77, -3):
+                for p in (0.1, 0.5, 0.9):
+                    drop = _drop(p, seed)
+                    keep = drop.keep(b, h, sq, sk, device) & vis
+                    q = torch.zeros(b, h, sq, d, **z)
+                    zk = torch.zeros(b, hk, sk, d, **z)
+                    for w0 in range(0, sk, d):  # #1
+                        v = torch.zeros(b, hk, sk, d, **z)
+                        v[:, :, w0:w0 + d] = eye
+                        out, _ = fwd.flash_attention_fwd(
+                            q, zk, v, need_lse=False, **_dkw(drop), **kw)
+                        check(torch.equal(out != 0, keep[..., w0:w0 + d]),
+                              f"#1's keep mask (d {d}, masked {masked}, "
+                              f"seed {seed}, p {p}, keys {w0}+)")
+                        n_calls += 1
+                    v = torch.zeros(b, hk, sk, d, **z)
+                    v[..., 0] = 1
+                    out, lse = fwd.flash_attention_fwd(
+                        q, zk, v, need_lse=True, **_dkw(drop), **kw)
+                    for r0 in range(0, sq, d):  # #2
+                        do = torch.zeros(b, h, sq, d, **z)
+                        n = min(d, sq - r0)
+                        do[:, :, r0:r0 + n] = eye[:n]
+                        # dV sums the group's heads: per head, one at a time
+                        for hh in range(h):
+                            one = torch.zeros_like(do)
+                            one[:, hh] = do[:, hh]
+                            _, _, dv = bwd.flash_attention_bwd(
+                                q, zk, v, out, lse, one, **_dkw(drop), **kw)
+                            got = dv[:, hh // (h // hk), :, :n] != 0
+                            want = keep[:, hh, r0:r0 + n].transpose(-1, -2)
+                            check(torch.equal(got, want),
+                                  f"#2's keep mask (d {d}, masked {masked}, "
+                                  f"seed {seed}, p {p}, rows {r0}+, head "
+                                  f"{hh})")
+                            n_calls += 1
+                    do = torch.zeros(b, h, sq, d, **z)
+                    do[..., 0] = 1
+                    for w0 in range(0, sk, d):  # #3
+                        k1 = torch.zeros(b, hk, sk, d, **z)
+                        k1[:, :, w0:w0 + d] = eye
+                        dq, _, _ = bwd.flash_attention_bwd(
+                            q, k1, v, out, lse, do, **_dkw(drop), **kw)
+                        check(torch.equal(dq > 0, keep[..., w0:w0 + d]),
+                              f"#3's keep mask (d {d}, masked {masked}, "
+                              f"seed {seed}, p {p}, keys {w0}+)")
+                        n_calls += 1
+                    torch.cuda.synchronize()
+    drop = _drop(DROP_P, DROP_SEED)
+    whole = drop.keep(b, h, sq, sk, device)
+    check(all(torch.equal(_BatchRow(drop, i).keep(1, h, sq, sk, device),
+                          whole[i:i + 1]) for i in range(b)),
+          "the plain versions' batch rows are not the batch's masks")
+    print(f"  keep masks read back from #1, #2 and #3: bitwise equal to "
+          f"dropout_keep_mask in {n_calls} readings (b{b} h{h} hk{hk} "
+          f"sq{sq} sk{sk}; d 64 and 128; dense and masked (block mask, "
+          "causal); seeds 0, 77, -3; p 0.1, 0.5, 0.9)", flush=True)
+
+
+def _row_mask(keep, i):
+    """Batch row i of a dense keep mask (b|1, hm|1, sq, sk), or None."""
+    if keep is None:
+        return None
+    return keep[i:i + 1] if keep.shape[0] > 1 else keep
+
+
+def plain_dropout_fwd(qt, kt, vt, drop, kw, keep=None):
+    """The plain forward with dropout a batch row at a time (each row with
+    its own masks, _BatchRow), under the dense keep mask ``keep`` (or
+    none): out, lse."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd
+    parts = [fwd.attention_fwd_ref(
+        qt[i:i + 1], kt[i:i + 1], vt[i:i + 1], need_lse=True,
+        mask=_row_mask(keep, i),
+        dropout=_BatchRow(drop, i), **kw) for i in range(qt.shape[0])]
+    return [torch.cat(t) for t in zip(*parts)]
+
+
+def plain_dropout_bwd(qt, kt, vt, out, lse, dot, drop, kw, keep=None):
+    """The plain backward with dropout a batch row at a time: dq, dk, dv."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    parts = [bwd.attention_bwd_ref(
+        qt[i:i + 1], kt[i:i + 1], vt[i:i + 1], out[i:i + 1], lse[i:i + 1],
+        dot[i:i + 1], mask=_row_mask(keep, i),
+        dropout=_BatchRow(drop, i), **kw) for i in range(qt.shape[0])]
+    return [torch.cat(t) for t in zip(*parts)]
+
+
+def _dropout_contract(outs, q, k, v, do, drop, causal=True):
+    """The repository's contract with dropout, on batch row 0: out (and the
+    gradients, with ``do``) within twice the bf16 reorder-ops baseline's
+    error of the fp32 `attention_ref` under the same keep mask. ``outs``
+    (b, s, h, d) tensors: out, or dq, dk, dv. Returns the worst (error,
+    baseline error) pair."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.reference import \
+        attention_ref
+    sq, h, sk = q.shape[1], q.shape[2], k.shape[1]
+    keep = drop.keep(1, h, sq, sk, "cuda")
+
+    def ref(upcast, reorder):
+        ins = [t[:1].detach().clone().requires_grad_(do is not None)
+               for t in (q, k, v)]
+        out, _ = attention_ref(*ins, causal=causal, upcast=upcast,
+                               reorder_ops=reorder, dropout_p=drop.p,
+                               dropout_mask=keep)
+        if do is None:
+            return [out.detach()]
+        return torch.autograd.grad(out, ins, do[:1])
+    want, low = ref(True, False), ref(False, True)
+    worst = (0.0, 0.0)
+    for g, w, lo in zip(outs, want, low):
+        e, e_lp = max_err(g[:1], w), max_err(lo, w)
+        check(e <= 2 * e_lp + (1e-3 if do is not None else 1e-4),
+              f"dropout: err vs fp32 ref {e} > 2 x bf16 baseline {e_lp}")
+        worst = max(worst, (e, e_lp))
+    return worst
+
+
+def _sdpa_dropout_ms(qt, kt, vt, dot, keep=None):
+    """SDPA with dropout_p=DROP_P (other random bits, the same work),
+    causal or under the dense keep mask ``keep``: (forward ms, backward ms
+    as fwd + bwd minus fwd)."""
+    g = qt.shape[1] // kt.shape[1]  # GQA: k and v repeated first, untimed
+    qg, kg, vg = (t.detach().repeat_interleave(n, 1).requires_grad_()
+                  for t, n in ((qt, 1), (kt, g), (vt, g)))
+
+    def run():
+        return F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=keep, is_causal=keep is None,
+            dropout_p=DROP_P)
+    with torch.no_grad():
+        only = time_ms([run], iters=10)
+    both = time_ms([lambda: torch.autograd.grad(run(), (qg, kg, vg), dot)],
+                   iters=10)
+    return only, both - only
+
+
+def dropout_kernels(gen, label, shape):
+    """#1, #2 and #3 with dropout (p 0.1) through flash_attention_fwd /
+    flash_attention_bwd at ``shape`` (causal): against their plain versions
+    (4 bf16 units of the largest gradient; out by row_excess), the 2x
+    contract under the same keep mask on batch row 0, three backward passes
+    bitwise equal, the launches of the dropout instantiations exact; rows
+    timed beside the same kernels without dropout, the bound (the dense
+    products at the bf16 rate, the bytes, and the integer floor of the
+    hash, the largest of the three) and SDPA with dropout_p 0.1."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, s, d = (shape[k] for k in ("b", "h", "hk", "s", "d"))
+    drop = _drop(DROP_P, DROP_SEED)
+    (q, k, v, do), (qt, kt, vt, dot, _, _), kw = _bwd_inputs(gen, shape)
+    reset_dropout_launches()
+    out, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True,
+                                       **_dkw(drop), **kw)
+    grads = bwd.flash_attention_bwd(qt, kt, vt, out, lse, dot, **_dkw(drop),
+                                    **kw)
+    torch.cuda.synchronize()
+    inst = fwd.dropout_instance(d, False)
+    check(dropout_launches() == _each(inst),
+          f"dropout {label}: launches {dropout_launches()} != {_each(inst)}")
+    p_out, p_lse = plain_dropout_fwd(qt, kt, vt, drop, kw)
+    err_out, exc = max_err(out, p_out), row_excess(out, p_out)
+    err_lse = max_err(lse, p_lse)
+    check(exc <= 1 and err_lse <= 1e-3,
+          f"dropout {label}: out row excess {exc}, lse err {err_lse}")
+    del p_out, p_lse
+    want = plain_dropout_bwd(qt, kt, vt, out, lse, dot, drop, kw)
+    err_dq = max_err(grads[0], want[0])
+    err_dkv = max(max_err(grads[1], want[1]), max_err(grads[2], want[2]))
+    tol = 4 * BF16_ULP * max(w.float().abs().max().item() for w in want)
+    check(max(err_dq, err_dkv) <= tol,
+          f"dropout {label}: grads vs plain {err_dq}, {err_dkv} > {tol}")
+    del want
+    e_o, lp_o = _dropout_contract([out.transpose(1, 2)], q, k, v, None, drop)
+    e_g, lp_g = _dropout_contract([g.transpose(1, 2) for g in grads], q, k,
+                                  v, do, drop)
+    _bitwise_three_passes(lambda: bwd.flash_attention_bwd(
+        qt, kt, vt, out, lse, dot, **_dkw(drop), **kw),
+        f"attention backward with dropout at {label}")
+    qs, delta = bwd.flash_bwd_prep(qt, out, dot, sm_scale=kw["sm_scale"])
+    dq, dk, dv = (torch.empty_like(t) for t in grads)
+    args = (qs, kt, vt, dot, lse, delta, dq, dk, dv)
+    del grads
+    pair = 2.0 * b * h * s * s * d / 2  # one causal s x s x d product
+    pairs = b * h * s * (s + 1) / 2.0   # visible (row, key) pairs
+    io = 2.0 * b * s * d * (2 * h + 2 * hk)
+    stats = 2 * 4.0 * b * h * s
+    lib_fwd, lib_bwd = _sdpa_dropout_ms(qt, kt, vt, dot)
+    plain_fwd = time_ms([lambda: plain_dropout_fwd(qt, kt, vt, drop, kw)],
+                        iters=2, warmup=1)
+    plain_bwd = time_ms([lambda: plain_dropout_bwd(
+        qt, kt, vt, out, lse, dot, drop, kw)], iters=2, warmup=1)
+    src_b = "xhy_flash_attention_tpu_torch/csrc/flash_bwd.cu"
+    base = "xhy_flash_attention_tpu/ops/flash_attention/"
+    rows = []
+    for name, src, rep, n_mm, nbytes, err, plain, lib, run, run_nd in (
+            ("flash_fwd", "xhy_flash_attention_tpu_torch/csrc/flash_fwd.cu",
+             base + "fwd.py:78", 2, io, err_out, plain_fwd, lib_fwd,
+             lambda: fwd.flash_attention_fwd(qt, kt, vt, need_lse=True,
+                                             **_dkw(drop), **kw),
+             lambda: fwd.flash_attention_fwd(qt, kt, vt, need_lse=True,
+                                             **kw)),
+            ("flash_bwd_dkv", src_b, base + "bwd.py:180", 4,
+             io + stats + 2 * 2.0 * b * s * hk * d, err_dkv, plain_bwd,
+             lib_bwd, lambda: bwd.flash_bwd_dkv(*args, dropout=drop, **kw),
+             lambda: bwd.flash_bwd_dkv(*args, **kw)),
+            ("flash_bwd_dq", src_b, base + "bwd.py:511", 3,
+             io + stats + 2.0 * b * s * h * d, err_dq, plain_bwd, lib_bwd,
+             lambda: bwd.flash_bwd_dq(*args, dropout=drop, **kw),
+             lambda: bwd.flash_bwd_dq(*args, **kw))):
+        t_ops, _ = bound(n_mm * pair, PEAK_BF16_FLOPS, 0.0)
+        t_int = int_floor_ms(pairs)
+        bms, by = bound(n_mm * pair, PEAK_BF16_FLOPS, nbytes)
+        bms = max(bms, t_int)
+        by = by if bms > t_int else "operations"
+        ms = time_ms([run], iters=10)
+        ms_nd = time_ms([run_nd], iters=10)
+        row = dict(
+            name=f"{name} (dropout, {label})", route="cuda", source=src,
+            replaces=rep, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bms, bound_by=by, library_ms=lib,
+            instance=f"{name.split('_')[-1]} {inst}")
+        report(row, f"vs its plain version ({'row excess %.3g <= 1' % exc if name == 'flash_fwd' else 'tol %.3g = 4 bf16 ulp' % tol}); "
+                    f"vs fp32 attention_ref under the same keep mask, out "
+                    f"{e_o:.3g} <= 2 x {lp_o:.3g}, grads {e_g:.3g} <= 2 x "
+                    f"{lp_g:.3g}; b{b} h{h} hk{hk} s{s} d{d} causal, p "
+                    f"{DROP_P}; {n_mm} products {t_ops:.4f} ms, integer "
+                    f"floor {t_int:.4f} ms ({HASH_OPS} ops x {pairs:.4g} "
+                    f"hashed pairs), bytes {nbytes:.4g}; without dropout "
+                    f"{ms_nd:.4f} ms (x{ms / ms_nd:.3f} with it); plain_ms "
+                    f"and library_ms (SDPA, dropout_p {DROP_P}) of the "
+                    f"whole {'forward' if name == 'flash_fwd' else 'backward'}")
+        rows.append(row)
+    return rows
+
+
+def dropout_packed(gen):
+    """#5 and #6 with dropout at T-packed's shape (the packed dqkv entry):
+    against the plain versions, the contract, three passes bitwise equal,
+    each timed beside itself without dropout and SDPA with dropout."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads as fh
+    c = T_PACKED
+    b, h, hk, s, d = (c[k] for k in ("b", "h", "hk", "s", "d"))
+    drop = _drop(DROP_P, DROP_SEED + 1)
+    qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=gen,
+                      device="cuda").bfloat16()
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    q, k, v = fh._split(qkv, h, hk, d)
+    kw = dict(sm_scale=d ** -0.5, causal=True, softcap=0.0)
+    reset_dropout_launches()
+    out, lse = fh.fused_heads_fwd(q, k, v, need_lse=True, dropout=drop, **kw)
+    dqkv = torch.empty_like(qkv)
+    dst = dict(zip(("dq", "dk", "dv"), fh._split(dqkv, h, hk, d)))
+    grads = fh.fused_heads_bwd(q, k, v, out, lse, do, dropout=drop, **kw,
+                               **dst)
+    torch.cuda.synchronize()
+    check(dropout_launches() == _each("d64"),
+          f"dropout T-packed: launches {dropout_launches()}")
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    p_out, _ = plain_dropout_fwd(qt, kt, vt, drop, kw)
+    exc = row_excess(out, p_out.transpose(1, 2))
+    err_out = max_err(out, p_out.transpose(1, 2))
+    del p_out
+    want = [t.transpose(1, 2) for t in plain_dropout_bwd(
+        qt, kt, vt, out.transpose(1, 2), lse, dot, drop, kw)]
+    err = max(max_err(g, w) for g, w in zip(grads, want))
+    tol = 4 * BF16_ULP * max(w.float().abs().max().item() for w in want)
+    check(exc <= 1 and err <= tol,
+          f"dropout T-packed: out row excess {exc}, grads err {err} > {tol}")
+    del want
+    e_o, lp_o = _dropout_contract([out], q, k, v, None, drop)
+    e_g, lp_g = _dropout_contract(grads, q, k, v, do, drop)
+    _bitwise_three_passes(lambda: [t.clone() for t in fh.fused_heads_bwd(
+        q, k, v, out, lse, do, dropout=drop, **kw, **dst)],
+        "packed backward with dropout at T-packed")
+    pair = 2.0 * b * h * s * s * d / 2
+    pairs = b * h * s * (s + 1) / 2.0
+    io = 2.0 * b * s * d * (2 * h + 2 * hk)
+    lib_fwd, lib_bwd = _sdpa_dropout_ms(qt, kt, vt, dot)
+    rows = []
+    for name, src, rep, n_mm, n_hash, nbytes, e, plain, lib, run, run_nd in (
+            ("flash_fwd (fused_heads, dropout, T-packed)", "flash_fwd.cu",
+             "fused_heads.py:59",
+             2, 1, io, err_out,
+             time_ms([lambda: fh.fused_heads_fwd_ref(
+                 q, k, v, dropout=drop, **kw)], iters=2, warmup=1), lib_fwd,
+             lambda: fh.fused_heads_fwd(q, k, v, need_lse=True, dropout=drop,
+                                        **kw),
+             lambda: fh.fused_heads_fwd(q, k, v, need_lse=True, **kw)),
+            ("fused_heads_bwd (dropout, T-packed)", "flash_bwd.cu",
+             "fused_heads.py:105", 5, 2,
+             io + 2 * 4.0 * b * h * s + 2.0 * b * s * d * (h + 2 * hk), err,
+             time_ms([lambda: fh.fused_heads_bwd_ref(
+                 q, k, v, out, lse, do, dropout=drop, **kw)], iters=2,
+                 warmup=1), lib_bwd,
+             lambda: fh.fused_heads_bwd(q, k, v, out, lse, do, dropout=drop,
+                                        **kw, **dst),
+             lambda: fh.fused_heads_bwd(q, k, v, out, lse, do, **kw,
+                                        **dst))):
+        t_int = int_floor_ms(n_hash * pairs)
+        bms, by = bound(n_mm * pair, PEAK_BF16_FLOPS, nbytes)
+        if t_int > bms:
+            bms, by = t_int, "operations"
+        ms = time_ms([run], iters=10)
+        ms_nd = time_ms([run_nd], iters=10)
+        row = dict(
+            name=name, route="cuda",
+            source=f"xhy_flash_attention_tpu_torch/csrc/{src}",
+            replaces=f"xhy_flash_attention_tpu/ops/flash_attention/{rep}",
+            max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            library_ms=lib, instance="fwd d64" if n_hash == 1 else None)
+        report(row, f"out row excess {exc:.3g} <= 1, grads tol {tol:.3g}; "
+                    f"vs fp32 attention_ref under the same keep mask, out "
+                    f"{e_o:.3g} <= 2 x {lp_o:.3g}, grads {e_g:.3g} <= 2 x "
+                    f"{lp_g:.3g}; packed b{b} s{s} h{h} d{d} causal, p "
+                    f"{DROP_P}; integer floor {t_int:.4f} ms; without "
+                    f"dropout {ms_nd:.4f} ms (x{ms / ms_nd:.3f} with it); "
+                    "the backward's ms includes the pre-pass")
+        rows.append(row)
+    return rows
+
+
+def dropout_masked(gen):
+    """#1, #2 and #3 with dropout under FM-doc's causal document FlashMask
+    (T-long's attention): the masked dropout instantiations against their
+    plain versions (a batch row at a time under the dense keep mask; out by
+    row_excess, gradients to 4 bf16 units), three backward passes bitwise
+    equal, each timed beside itself without dropout; bound over the
+    visible pairs (the products at the bf16 rate, the bytes, and the
+    integer floor of the hash), library SDPA with the dense mask and
+    dropout_p 0.1."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd, fwd
+    b, h, hk, s, d = (T_LONG[k] for k in ("b", "h", "hk", "s", "d"))
+    drop = _drop(DROP_P, DROP_SEED + 2)
+    flags = _flags(doc_indices(gen, b, s), causal=True)
+    _, (qt, kt, vt, dot, _, _), kw = _bwd_inputs(gen, T_LONG)
+    causal, masks = fwd.build_masks(b, h, s, s, True, **flags)
+    kw = dict(kw, causal=causal)
+    mk = dict(masks=masks, **_dkw(drop))  # the entries'
+    lk = dict(masks=masks, dropout=drop)  # the kernels' wrappers
+    reset_dropout_launches()
+    out, lse = fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **mk, **kw)
+    grads = bwd.flash_attention_bwd(qt, kt, vt, out, lse, dot, **mk, **kw)
+    torch.cuda.synchronize()
+    check(dropout_launches() == _each("d64 masked"),
+          f"dropout FM-doc: launches {dropout_launches()}")
+    keep = masks.keep(h, qt.device)
+    p_out, _ = plain_dropout_fwd(qt, kt, vt, drop, kw, keep)
+    exc, err_out = row_excess(out, p_out), max_err(out, p_out)
+    del p_out
+    want = plain_dropout_bwd(qt, kt, vt, out, lse, dot, drop, kw, keep)
+    err_dq = max_err(grads[0], want[0])
+    err_dkv = max(max_err(grads[1], want[1]), max_err(grads[2], want[2]))
+    tol = 4 * BF16_ULP * max(w.float().abs().max().item() for w in want)
+    check(exc <= 1 and max(err_dq, err_dkv) <= tol,
+          f"dropout FM-doc: out row excess {exc}, grads {err_dq}, "
+          f"{err_dkv} > {tol}")
+    del want
+    _bitwise_three_passes(lambda: bwd.flash_attention_bwd(
+        qt, kt, vt, out, lse, dot, **mk, **kw),
+        "masked attention backward with dropout at FM-doc")
+    qs, delta = bwd.flash_bwd_prep(qt, out, dot, sm_scale=kw["sm_scale"])
+    args = (qs, kt, vt, dot, lse, delta,
+            *(torch.empty_like(t) for t in grads))
+    del grads
+    full = _keep(flags, True, h, s, s)
+    pairs = visible_pairs(full, b, h)
+    lib_fwd, lib_bwd = _sdpa_dropout_ms(qt, kt, vt, dot, full)
+    del full
+    io = 2.0 * b * s * d * (2 * h + 2 * hk)
+    stats = 2 * 4.0 * b * h * s
+    plain_fwd = time_ms([lambda: plain_dropout_fwd(qt, kt, vt, drop, kw,
+                                                   keep)], iters=2, warmup=1)
+    plain_bwd = time_ms([lambda: plain_dropout_bwd(
+        qt, kt, vt, out, lse, dot, drop, kw, keep)], iters=2, warmup=1)
+    base = "xhy_flash_attention_tpu/ops/flash_attention/"
+    rows = []
+    for name, src, rep, n_mm, nbytes, err, plain, lib, run, run_nd in (
+            ("flash_fwd", "flash_fwd.cu", "fwd.py:78", 2, io, err_out,
+             plain_fwd, lib_fwd,
+             lambda: fwd.flash_attention_fwd(qt, kt, vt, need_lse=True, **mk,
+                                             **kw),
+             lambda: fwd.flash_attention_fwd(qt, kt, vt, need_lse=True,
+                                             masks=masks, **kw)),
+            ("flash_bwd_dkv", "flash_bwd.cu", "bwd.py:180", 4,
+             io + stats + 2 * 2.0 * b * s * hk * d, err_dkv, plain_bwd,
+             lib_bwd, lambda: bwd.flash_bwd_dkv(*args, **lk, **kw),
+             lambda: bwd.flash_bwd_dkv(*args, masks=masks, **kw)),
+            ("flash_bwd_dq", "flash_bwd.cu", "bwd.py:511", 3,
+             io + stats + 2.0 * b * s * h * d, err_dq, plain_bwd, lib_bwd,
+             lambda: bwd.flash_bwd_dq(*args, **lk, **kw),
+             lambda: bwd.flash_bwd_dq(*args, masks=masks, **kw))):
+        t_int = int_floor_ms(pairs)
+        bms, by = bound(n_mm * 2.0 * pairs * d, PEAK_BF16_FLOPS, nbytes)
+        if t_int > bms:
+            bms, by = t_int, "operations"
+        ms = time_ms([run], iters=10)
+        ms_nd = time_ms([run_nd], iters=10)
+        row = dict(
+            name=f"{name} (dropout, FM-doc)", route="cuda",
+            source=f"xhy_flash_attention_tpu_torch/csrc/{src}",
+            replaces=base + rep, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bms, bound_by=by, library_ms=lib,
+            instance=f"{name.split('_')[-1]} d64 masked")
+        report(row, f"out row excess {exc:.3g} <= 1, grads tol {tol:.3g}; "
+                    f"b{b} h{h} s{s} d{d}, causal document FlashMask, "
+                    f"visible {pairs / (b * h * s * s):.3f}, p {DROP_P}; "
+                    f"integer floor {t_int:.4f} ms; without dropout "
+                    f"{ms_nd:.4f} ms (x{ms / ms_nd:.3f} with it); library: "
+                    "SDPA with the dense mask and dropout_p 0.1")
+        rows.append(row)
+    return rows
+
+
+def gpt2m_dropout_model(seed, layers=None):
+    """GPT-2 medium (GPT2_MEDIUM) in bf16 from random weights with
+    attn_pdrop 0.1 and the embedding and residual rates cut to 0, and its
+    fp32 master parameters (the Trainer's, training/train.py)."""
+    import dataclasses
+    from xhy_flash_attention_tpu_torch import GPTLMHeadModel
+    from xhy_flash_attention_tpu_torch.models.gpt import \
+        gpt2_config_to_gpt_config
+    cfg = dataclasses.replace(
+        gpt2_config_to_gpt_config(types.SimpleNamespace(**GPT2_MEDIUM),
+                                  torch.bfloat16),
+        embd_pdrop=0.0, resid_pdrop=0.0,
+        num_hidden_layers=layers or GPT2_MEDIUM["n_layer"])
+    model = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+    params = {n: p.detach() if p.dtype == torch.float32 else
+              p.detach().float().clone() for n, p in model.named_parameters()}
+    return model, params
+
+
+def dropout_grads(model, ids, labels, seed):
+    """Loss and fp32 gradients of one deterministic=False step, each
+    layer's dropout seed drawn from a CPU generator seeded ``seed``."""
+    from xhy_flash_attention_tpu_torch.losses.cross_entropy import \
+        cross_entropy_loss
+    for p in model.parameters():
+        p.grad = None
+    gen = torch.Generator().manual_seed(seed)
+    logits, _ = model(ids, deterministic=False, dropout_generator=gen)
+    loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                              labels.reshape(-1)).mean()
+    loss.backward()
+    return loss.detach(), {n: p.grad.float()
+                           for n, p in model.named_parameters()}
+
+
+def train_dropout_gpt2m(seed, gen):
+    """GPT-2 medium with attention dropout, trained for DROPOUT_STEPS steps
+    of deterministic=False forward, cross-entropy, backward and the port's
+    AdamW (gpt2m-flash.yaml's optimizer and schedule) at the recipe's batch
+    and seqlen; attention on the packed route (#5 / #6) with the dropout
+    instantiations. Gates: exact launches (and of the dropout
+    instantiations), no plain version, finite losses, a repeat of step 1
+    with the same seeds bitwise equal (loss and every gradient), another
+    seed different, and at depth 2 the kernels against the plain versions
+    under the same seeds (phase 9's limits). Returns the launches."""
+    from xhy_flash_attention_tpu_torch.training import load_config
+    from xhy_flash_attention_tpu_torch.training.optim import Optimizer
+    rc = load_config(RECIPES["T-packed"][0])
+    batch, seqlen = rc.data.batch_size, rc.data.seqlen
+    layers = GPT2_MEDIUM["n_layer"]
+    vocab = GPT2_MEDIUM["vocab_size"]
+    model, params = gpt2m_dropout_model(seed)
+    opt = Optimizer(rc.optimizer, rc.scheduler)
+    state = opt.init(params)
+    toks = torch.randint(0, vocab, (DROPOUT_STEPS, batch, seqlen + 1),
+                         generator=gen, device="cuda")
+
+    def sync():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if params[n].data_ptr() != p.data_ptr():
+                    p.copy_(params[n])
+    print(f"  GPT-2 medium widths (hidden {GPT2_MEDIUM['n_embd']}, {layers} "
+          f"layers, {GPT2_MEDIUM['n_head']} heads of 64, vocab {vocab}), "
+          f"bf16, random weights; attn_pdrop {DROP_P}, embd_pdrop and "
+          f"resid_pdrop cut from 0.1 to 0; batch {batch} x seqlen {seqlen} "
+          f"(gpt2m-flash.yaml), {DROPOUT_STEPS} steps, the recipe's AdamW",
+          flush=True)
+    ids, labels = toks[0, :, :-1], toks[0, :, 1:]
+    loss_a, grads_a = dropout_grads(model, ids, labels, DROP_SEED)
+    loss_b, grads_b = dropout_grads(model, ids, labels, DROP_SEED)
+    same = float(loss_a) == float(loss_b) and all(
+        torch.equal(grads_a[n], grads_b[n]) for n in grads_a)
+    check(same, "GPT-2 medium dropout: a repeat with the same seeds differs")
+    dq_name = "transformer.layers.0.mixer.Wqkv.weight"
+    del grads_b
+    loss_c, grads_c = dropout_grads(model, ids, labels, DROP_SEED + 1)
+    check(float(loss_c) != float(loss_a)
+          and not torch.equal(grads_c[dq_name], grads_a[dq_name]),
+          "GPT-2 medium dropout: another seed gives the same step")
+    print(f"  step 1 twice with the same seeds: loss {float(loss_a):.6f} "
+          f"both times, every gradient bitwise equal; another seed: loss "
+          f"{float(loss_c):.6f}", flush=True)
+    del grads_a, grads_c
+    want = {k: 0 for k in counters()}
+    want.update({"rms_norm_add": 2 * layers + 1, "ln_bwd": 2 * layers + 1,
+                 "flash_fwd (fused_heads)": layers, "flash_bwd_prep": layers,
+                 "fused_heads_bwd": layers})
+    launches = {k: 0 for k in counters()}
+    drops = collections.Counter()
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_calls() as plain:
+        for i in range(DROPOUT_STEPS):
+            ids, labels = toks[i, :, :-1], toks[i, :, 1:]
+            reset_counts()
+            reset_dropout_launches()
+            t0 = time.perf_counter()
+            loss, grads = dropout_grads(model, ids, labels, DROP_SEED + 10 + i)
+            gnorm = opt.update(grads, state, params)
+            sync()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            check(counts == want, f"GPT-2 medium dropout step {i + 1}: "
+                                  f"launches {counts} != {want}")
+            check(dropout_launches() == _each("d64", layers),
+                  f"GPT-2 medium dropout step {i + 1}: dropout launches "
+                  f"{dropout_launches()}")
+            for k, v in counts.items():
+                launches[k] += v
+            drops.update(dropout_launches())
+            losses.append(float(loss))
+            print(f"    step {i + 1}: loss {losses[-1]:.4f}, grad norm "
+                  f"{float(gnorm):.4f}, step ms {step_ms[-1]:.2f}, tokens/s "
+                  f"{batch * seqlen / (step_ms[-1] / 1e3):.1f}", flush=True)
+            del grads
+    check(not plain, f"GPT-2 medium dropout: plain versions ran: {plain}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(vocab)) <= 0.5,
+          f"first loss {losses[0]} not within 0.5 of ln({vocab})")
+    print(f"  GPT-2 medium dropout: {DROPOUT_STEPS} steps, launches exact "
+          f"({layers} a step of #5, the pre-pass and #6, each kernel's "
+          f"dropout instantiation), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del model, params, state, opt
+    torch.cuda.empty_cache()
+    model, _ = gpt2m_dropout_model(seed, layers=2)
+    ids, labels = toks[0, :, :-1], toks[0, :, 1:]
+    loss_k, grads_k = dropout_grads(model, ids, labels, DROP_SEED)
+    grads_k = {n: g.clone() for n, g in grads_k.items()}
+    reset_counts()
+    with plain_versions():
+        loss_p, grads_p = dropout_grads(model, ids, labels, DROP_SEED)
+    check(all(v == 0 for v in read_counts().values()),
+          f"the plain step launched a kernel: {read_counts()}")
+    dl = abs(float(loss_k) - float(loss_p))
+    rel = {n: max_err(grads_k[n], grads_p[n])
+           / max(grads_p[n].abs().max().item(), 1e-30) for n in grads_p}
+    worst = max(rel, key=rel.get)
+    print(f"  depth 2, batch {batch}, same seeds: loss kernels "
+          f"{float(loss_k):.5f} plain {float(loss_p):.5f} (|diff| {dl:.3g}, "
+          f"tol {TRAIN_LOSS_TOL}); gradients, max |diff| / max |plain| over "
+          f"{len(rel)} parameters: largest {rel[worst]:.4g} ({worst}), median "
+          f"{sorted(rel.values())[len(rel) // 2]:.4g} (tol {TRAIN_GRAD_TOL})",
+          flush=True)
+    check(dl <= TRAIN_LOSS_TOL, f"dropout depth 2: loss differs by {dl}")
+    check(rel[worst] <= TRAIN_GRAD_TOL,
+          f"dropout depth 2: gradient of {worst} differs by {rel[worst]}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return launches, drops
+
+
+def dropout_entries(gen):
+    """The phase's main paths of the d 128 and the masked dropout
+    instantiations, through the entries a user calls: flash_attn_func at
+    A's Llama-3-8B width (GQA, d 128, causal) and flash_attn_varlen_func
+    on VL-doc's packed documents (T-long's attention, causal: d 64
+    masked), each a forward and a backward with dropout_p DROP_P, the
+    counts set to 0 just before and read just after, no plain version.
+    Returns the dropout launches by instantiation."""
+    from xhy_flash_attention_tpu_torch import (flash_attn_func,
+                                               flash_attn_varlen_func)
+    b, h, hk, s, d = _dims(T_GQA)
+    z = dict(generator=gen, device="cuda")
+    qkv = [torch.randn(b, s, n, d, **z).bfloat16().requires_grad_()
+           for n in (h, hk, hk)]
+    _, h_vl, hk_vl, s_vl, d_vl = _dims(VL_DOC)
+    cu = doc_cu_seqlens(gen, s_vl, *VL_DOC_LENGTHS)
+    longest = int((cu[1:] - cu[:-1]).max())
+    vl = [torch.randn(s_vl, n, d_vl, **z).bfloat16().requires_grad_()
+          for n in (h_vl, hk_vl, hk_vl)]
+    total = collections.Counter()
+    for label, inst, run in (
+            ("flash_attn_func at A", "d128", lambda: flash_attn_func(
+                *qkv, dropout_p=DROP_P, causal=True,
+                dropout_seed=DROP_SEED + 3)),
+            ("flash_attn_varlen_func at VL-doc", "d64 masked",
+             lambda: flash_attn_varlen_func(
+                 *vl, cu, cu, longest, longest, dropout_p=DROP_P,
+                 causal=True, dropout_seed=DROP_SEED + 4))):
+        with count_plain_calls() as plain:
+            reset_dropout_launches()
+            out = run()
+            out.backward(torch.randn(out.shape, **z).bfloat16())
+            torch.cuda.synchronize()
+            n = dropout_launches()
+        check(not plain, f"dropout {label}: plain versions ran: {plain}")
+        check(n == _each(inst), f"dropout {label}: launches {n}")
+        check(bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(t.grad).all()) for t in qkv + vl
+            if t.grad is not None), f"dropout {label}: non-finite values")
+        print(f"  {label}: forward and backward, launches {dict(n)}",
+              flush=True)
+        total.update(n)
+    return total
+
+
+def dropout_phase(seed, gen):
+    """Phase 22: the keep masks bit for bit, the dropout kernels at A,
+    T-long, T-packed and FM-doc, then the phase's main paths: GPT-2 medium
+    trained with attention dropout (the d 64 instantiations, #5 / #6) and
+    dropout_entries (d 128, d 64 masked). Returns the kernel rows, each
+    with the launches of its own instantiation on those paths."""
+    dropout_mask_probe()
+    rows = dropout_kernels(gen, "A", T_GQA)
+    torch.cuda.empty_cache()
+    rows += dropout_kernels(gen, "T-long", T_LONG)
+    torch.cuda.empty_cache()
+    rows += dropout_packed(gen)
+    torch.cuda.empty_cache()
+    rows += dropout_masked(gen)
+    torch.cuda.empty_cache()
+    reset_counts()
+    launches, drops = train_dropout_gpt2m(seed, gen)
+    drops.update(dropout_entries(gen))
+    for row in rows:
+        inst = row.pop("instance")
+        row["launches"] = (launches["fused_heads_bwd"] if inst is None
+                           else drops[inst])
+    print(f"  dropout launches on the phase's main paths, by instantiation: "
+          f"{json.dumps(dict(sorted(drops.items())))}", flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5962,6 +6752,13 @@ def main():
     for row in bias_rows:
         launches[row["name"]] = row["launches"]
     rows += bias_rows
+    torch.cuda.empty_cache()
+    print("[22] attention dropout: the keep masks of #1, #2 and #3 bit for "
+          "bit, the dropout kernels at A, T-long, T-packed and FM-doc, then "
+          "GPT-2 medium trained with attn_pdrop 0.1", flush=True)
+    for row in dropout_phase(args.seed, gen):
+        launches[row["name"]] = row["launches"]
+        rows.append(row)
 
     for row in rows:
         row["launches"] = launches.get(

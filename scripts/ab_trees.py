@@ -20,7 +20,10 @@ arguments made once); in trees whose chip_smoke.py has phase 14, the
 forward, dK/dV, dQ and dbias kernels with an attention bias at its cases
 (``--bias-only``: those alone); in trees whose chip_smoke.py has phase 15,
 the fp8 forward (``flash_attn_fp8_func``) at its timed cases
-(``--fp8-only``: those alone); with ``--fp32-only``, the fp32 kernels
+(``--fp8-only``: those alone); with ``--dropout-only``, the dropout
+instantiations of the forward, dK/dV and dQ kernels (p 0.1, dense at A's
+and T-long's shapes, masked under FM-doc's causal document FlashMask),
+each beside the same kernel without dropout; with ``--fp32-only``, the fp32 kernels
 alone (csrc/flash_fp32.cu): the forward at G's shape (b4 h25 s896 d64
 causal, through ``flash_attention_fwd``), at T-packed's (b32 s1024 h16
 d64 causal, through ``fused_heads_fwd`` on the packed layout) and on
@@ -83,6 +86,37 @@ def fp8_rows(cs, timed):
         timed(f"fp8 {label}", lambda: flash_attn_fp8_func(
             *x, return_lse=True, **kw))
         del x
+        torch.cuda.empty_cache()
+
+
+def dropout_rows(cs, bwd, common, fwd, timed):
+    """The forward, dK/dV and dQ kernels with dropout p 0.1 and without
+    it: dense at A and T-long, masked under FM-doc's document mask."""
+    import torch
+    drop = common.Dropout(0.1, 1234)
+    for name, shape, flags in (
+            ("A", cs.T_GQA, lambda g, b, s: {}),
+            ("T-long", cs.T_LONG, lambda g, b, s: {}),
+            ("FM-doc", cs.FM_DOC, lambda g, b, s: cs._flags(
+                cs.doc_indices(g, b, s), causal=True))):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b, h, hk, s, d = cs._dims(shape)
+        q, k, v, do = cs._sparse_inputs(gen, shape)
+        eff, masks = fwd.build_masks(b, h, s, s, True, **flags(gen, b, s))
+        kw = dict(sm_scale=d ** -0.5, causal=eff, softcap=0.0, masks=masks)
+        o, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **kw)
+        dst = torch.empty_like(o)
+        qs, delta = bwd.flash_bwd_prep(q, o, do, sm_scale=kw["sm_scale"])
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        for tag, dr in (("dropout", drop), ("none", None)):
+            timed(f"fwd {tag} {name}", lambda dr=dr: fwd.launch_flash_fwd(
+                q, k, v, dst, lse, dropout=dr, **kw))
+            for which, fn in (("dkv", bwd.flash_bwd_dkv),
+                              ("dq", bwd.flash_bwd_dq)):
+                timed(f"{which} {tag} {name}", lambda fn=fn, dr=dr: fn(
+                    qs, k, v, do, lse, delta, *grads, dropout=dr, **kw),
+                    iters=10)
+        del q, k, v, do, o, lse, dst, qs, delta, grads, masks
         torch.cuda.empty_cache()
 
 
@@ -237,6 +271,8 @@ def child(root: Path, only: str = "") -> None:
             bias_rows(cs, bwd, fwd, timed)
         elif only == "fp8":
             fp8_rows(cs, timed)
+        elif only == "dropout":
+            dropout_rows(cs, bwd, common, fwd, timed)
         else:
             fp32_rows(cs, bwd, fh, fwd, timed, out)
         print(f"{root}: " + "; ".join(out), flush=True)
@@ -344,10 +380,13 @@ def main():
                     help="time phase 15's fp8 rows alone")
     ap.add_argument("--fp32-only", action="store_true",
                     help="time the fp32 kernels alone")
+    ap.add_argument("--dropout-only", action="store_true",
+                    help="time the dropout kernels beside their twins")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = ("bias" if args.bias_only else "fp8" if args.fp8_only
-            else "fp32" if args.fp32_only else "")
+            else "fp32" if args.fp32_only
+            else "dropout" if args.dropout_only else "")
     if args.child:
         child(Path(args.child), only)
         return

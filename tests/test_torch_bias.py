@@ -243,6 +243,13 @@ def _jax_bridge(which):
         out, lse = _jax_bridge("fwd_fm")
         return jcapi.attn_bwd(do, q, k, v, out, lse, None, fm, 0.0, 0, 0.0,
                               1, -1, -1, 0.0)
+    if which == "fwd_drop":
+        return jcapi.attn_fwd(q, k, v, None, None, 0.1, 7, 0.0, 1, -1, -1,
+                              0.0)
+    if which == "bwd_drop":
+        out, lse = _jax_bridge("fwd_drop")
+        return jcapi.attn_bwd(do, q, k, v, out, lse, None, None, 0.1, 7, 0.0,
+                              1, -1, -1, 0.0)
     raise KeyError(which)
 
 
@@ -254,7 +261,13 @@ def _port_bridge(which):
     if which == "fwd_fm":
         return tcapi.attn_fwd(q, k, v, None, fm, 0.0, 0, 0.0, 1, -1, -1, 0.0,
                               device="cpu")
+    if which == "fwd_drop":
+        return tcapi.attn_fwd(q, k, v, None, None, 0.1, 7, 0.0, 1, -1, -1,
+                              0.0, device="cpu")
     out, lse = (_raw(a) for a in _jax_bridge(which.replace("bwd", "fwd")))
+    if which == "bwd_drop":
+        return tcapi.attn_bwd(do, q, k, v, out, lse, None, None, 0.1, 7, 0.0,
+                              1, -1, -1, 0.0, device="cpu")
     if which == "bwd_bias":
         return tcapi.attn_bwd(do, q, k, v, out, lse, bias, None, 0.0, 0, 0.0,
                               1, 30, -1, 5.0, device="cpu")
@@ -382,11 +395,20 @@ def test_bridge_value_errors_match_jax(fn, args):
 
 
 def test_bridge_dropout_refused_and_dtypes():
-    """Dropout names the slice that brings it; np_dtype gives numpy's bf16
-    where ml_dtypes imports (here) and float32."""
-    q, k, v, _, _, _ = _bridge_inputs()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tcapi.attn_fwd(_raw(q), _raw(k), _raw(v), None, None, 0.1, 0, 0.0,
-                       1, -1, -1, 0.0, device="cpu")
+    """Dropout, once refused here, runs as in the JAX bridge: attn_fwd and
+    attn_bwd with p_dropout 0.1 and a seed (causal, GQA 2, bf16) against
+    the JAX bridge's, the backward from its forward's saved out and lse;
+    np_dtype gives numpy's bf16 where ml_dtypes imports (here) and
+    float32."""
+    got_out, got_lse = _port_bridge("fwd_drop")
+    want_out, want_lse = _jax_bridge("fwd_drop")
+    assert got_out.dtype == tcapi.np_dtype("bfloat16")
+    _close(got_out, want_out, 2 * BF16_ULP, 1e-3)
+    _close(got_lse, want_lse, 0.0, 1e-3)
+    got, want = _port_bridge("bwd_drop"), _jax_bridge("bwd_drop")
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == tcapi.np_dtype("bfloat16")
+        _close(g, w, 4 * BF16_ULP, 1e-4)
+    assert got[3] is None and want[3] is None
     assert tcapi.np_dtype("bfloat16") == ml_dtypes.bfloat16
     assert tcapi.np_dtype("float32") == np.float32

@@ -5,7 +5,8 @@ the JAX package's ``blocksparse_attention`` (Pallas kernels in interpret
 mode on the CPU) and ``torch.autograd.grad`` of the port's (the plain
 versions with the dense mask on CPU tensors): causal and full, one block
 mask for all heads and one per head, with GQA (h 4 over hk 2), at
-granularity 128; and the packed ``flash_blocksparse_attn_func``. Tolerances:
+granularity 128, and with dropout (p 0.1, a seed: the same keep mask in
+both packages); and the packed ``flash_blocksparse_attn_func``. Tolerances:
 out and dq/dk/dv within 5e-5 of the largest entry (fp32 on both sides, sums
 in another order). ``blockmask_to_dense`` agrees bit for bit.
 """
@@ -53,22 +54,26 @@ def _inputs(case):
     return (q, k, v), do, bm
 
 
+DROPOUT = dict(dropout_p=0.1, dropout_seed=3)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_run(case):
+def _jax_run(case, dropout=False):
     causal = case[0]
     arrays, do, bm = _inputs(case)
     fn = lambda q, k, v: jbs.blocksparse_attention(  # noqa: E731
-        q, k, v, jnp.asarray(bm), block_size=G, causal=causal)
+        q, k, v, jnp.asarray(bm), block_size=G, causal=causal,
+        **(DROPOUT if dropout else {}))
     out, vjp = jax.vjp(fn, *map(jnp.asarray, arrays))
     return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
 
-def _torch_run(case):
+def _torch_run(case, dropout=False):
     causal = case[0]
     arrays, do, bm = _inputs(case)
     ins = [torch.from_numpy(a).requires_grad_() for a in arrays]
     out = blocksparse_attention(*ins, torch.from_numpy(bm), block_size=G,
-                                causal=causal)
+                                causal=causal, **(DROPOUT if dropout else {}))
     grads = torch.autograd.grad(out, ins, torch.from_numpy(do))
     return out.detach().numpy(), [g.numpy() for g in grads]
 
@@ -122,11 +127,19 @@ def test_blockmask_to_dense_matches_jax():
 
 
 def test_blocksparse_refusals():
+    """Granularities that are not multiples of 128 and a mask of the wrong
+    shape raise; dropout, which once raised here, runs as in the JAX
+    package: out and dq/dk/dv with the same keep mask (causal, a mask per
+    head)."""
     q = torch.zeros(1, 2, 256, D)
     bm = torch.ones(2, 2, dtype=torch.int32)
     with pytest.raises(ValueError):
         blocksparse_attention(q, q, q, bm, block_size=64)
     with pytest.raises(ValueError):
         blocksparse_attention(q, q, q, torch.ones(3, 2), block_size=128)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        blocksparse_attention(q, q, q, bm, block_size=128, dropout_p=0.1)
+    out, grads = _torch_run(CASES[-1], dropout=True)
+    want, want_grads = _jax_run(CASES[-1], dropout=True)
+    _close(out, want, 5e-5)
+    for g, w in zip(grads, want_grads):
+        _close(g, w, 5e-5)
+    assert not np.allclose(out, _jax_run(CASES[-1])[0], atol=1e-3)

@@ -9,8 +9,13 @@ interpret mode on the CPU) and the port (plain versions on CPU tensors):
   * packed_heads_attention and packed_qkv_attention (the projection-layout
     kernel's entries) within 2e-5 of JAX in fp32;
   * the dense CUDA kernel's tile plan (`fwd_tile_plan`, the mirror of its
-    `dense_tiles`) against the pairs the plain version lets through.
+    `dense_tiles`) against the pairs the plain version lets through;
+  * flash_attn_func with dropout (p 0.1, a seed) against JAX in fp32 and
+    by the contract in bf16, and the refusals that stay on the card.
 """
+
+import functools
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 from xhy_flash_attention_tpu.ops.flash_attention import fused_heads as jfh
 from xhy_flash_attention_tpu.ops.flash_attention.interface import (
     flash_attention as jflash_attention,
+    flash_attn_func as jflash_attn_func,
 )
 from xhy_flash_attention_tpu_torch.ops.flash_attention import (
     attention_ref,
@@ -30,6 +36,7 @@ from xhy_flash_attention_tpu_torch.ops.flash_attention import fused_heads as tfh
 from xhy_flash_attention_tpu_torch.ops.flash_attention import fwd as tfwd
 from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
     NO_BACKWARD,
+    Dropout,
 )
 from xhy_flash_attention_tpu_torch.ops.flash_attention.decode_kernel import (
     flash_decode,
@@ -169,14 +176,49 @@ def test_attention_inputs_needing_grad_raise():
     assert "no backward" in NO_BACKWARD
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_dropout():
+    """fp32 inputs (b, s, h, d) and the JAX package's flash_attn_func with
+    dropout 0.1, seed 0, causal: one JAX call for the module."""
+    rng = np.random.default_rng(21)
+    q = _randn(rng, (B, 128, H, D))
+    k, v = _randn(rng, (B, 128, HK, D)), _randn(rng, (B, 128, HK, D))
+    out = jflash_attn_func(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           dropout_p=0.1, causal=True, dropout_seed=0)
+    return q, k, v, np.asarray(out)
+
+
 @pytest.mark.parametrize("kw", [dict(dtype=torch.bfloat16, dropout_p=0.1,
                                      dropout_seed=0),
                                 dict(dropout_p=0.1, dropout_seed=0)])
 def test_unported_flags_raise(kw):
+    """Dropout, once refused, runs on the CPU as in the JAX package: fp32
+    within 2e-5 of JAX's flash_attn_func, bf16 by the contract against the
+    fp32 reference under the same keep mask. What stays refused on the card
+    raises before any work (a meta tensor stands in for the card's): dropout
+    in float32, and in bf16 beside an attention bias."""
     kw = dict(kw)
-    q = torch.randn(1, 2, 8, 64).to(kw.pop("dtype", torch.float32))
+    dtype = kw.pop("dtype", torch.float32)
+    q, k, v, want = _jax_dropout()
+    ins = [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
+    got = flash_attn_func(*ins, causal=True, **kw)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), want, rtol=0, atol=2e-5)
+    else:
+        keep = Dropout.make(0.1, 0).keep(B, H, 128, 128)
+        ref, _ = attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=True, dropout_p=0.1, dropout_mask=keep)
+        lp, _ = attention_ref(*ins, causal=True, dropout_p=0.1,
+                              dropout_mask=keep, upcast=False,
+                              reorder_ops=True)
+        np.testing.assert_allclose(ref.numpy(), want, rtol=0, atol=2e-5)
+        err = (got.float() - ref).abs().max().item()
+        assert err <= 2 * (lp.float() - ref).abs().max().item() + 1e-4
+    meta = torch.empty(1, 2, 8, 64, dtype=dtype, device="meta")
+    bias = None if dtype == torch.float32 else torch.zeros(8, 8,
+                                                           device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q, q, causal=True, **kw)
+        flash_attention(meta, meta, meta, bias, causal=True, **kw)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -14,6 +14,7 @@ baseline); decode, whose kernel and plain version both keep P in fp32, to
 one bf16 unit of the largest output (fp32 caches: 1e-5).
 """
 
+import collections
 import types
 
 import pytest
@@ -2670,3 +2671,180 @@ def test_fp32_reduced_scores_match_plain(cuda, d, sq, sk, hk, causal):
     top = want.abs().max().item()
     assert _err(got, want) <= 2 * _err(plain, want) + 1e-4 * top
     assert _err(got, plain) <= 1e-4 * plain.abs().max().item()
+
+
+# ------------------------------------------------------- attention dropout
+
+def _dropout_counts():
+    """Copies of the dropout instantiations' launch counts: the forward's
+    and the backward's (fwd.dropout_instance's names)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    return (collections.Counter(fwd.launch_flash_fwd.dropout_launches),
+            collections.Counter(bwd.launch_flash_bwd.dropout_launches))
+
+
+def _dropout_kernels_vs_plain(cuda, b, h, hk, sq, sk, d, causal, softcap=0.0,
+                              seed=5, **flags):
+    """#1, #2 and #3 with dropout (p 0.1) through flash_attention_fwd /
+    flash_attention_bwd, one launch of each dropout instantiation, against
+    the plain versions under the same keep mask: out to one bf16 unit of
+    its largest entry + 1e-3, the LSE to 1e-3, each gradient to four bf16
+    units (P, dS rounded in sums of another order); a second backward
+    bitwise equal."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import bwd
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        Dropout)
+    (_, _, _, _), (q, k, v, _, _, do), kw = _bwd_case(
+        cuda, b, h, hk, sq, sk, d, causal, softcap)
+    drop = Dropout.make(0.1, seed)
+    causal_eff, kmasks = fwd.build_masks(b, h, sq, sk, causal,
+                                         flags.pop("window", (-1, -1)),
+                                         **flags)
+    kw = dict(kw, causal=causal_eff)
+    inst = fwd.dropout_instance(d, kmasks is not None and kmasks.active)
+    entry = dict(kw, masks=kmasks, dropout_p=0.1, dropout_seed=seed)
+    f0, b0 = _dropout_counts()
+    out, lse = fwd.flash_attention_fwd(q, k, v, need_lse=True, **entry)
+    got = bwd.flash_attention_bwd(q, k, v, out, lse, do, **entry)
+    torch.cuda.synchronize()
+    f1, b1 = _dropout_counts()
+    assert f1 - f0 == {inst: 1}
+    assert b1 - b0 == {f"dkv {inst}": 1, f"dq {inst}": 1}
+    mask = kmasks.keep(h, q.device)
+    ref, ref_lse = fwd.attention_fwd_ref(q, k, v, need_lse=True, mask=mask,
+                                         dropout=drop, **kw)
+    want = bwd.attention_bwd_ref(q, k, v, out, lse, do, mask=mask,
+                                 dropout=drop, **kw)
+    assert _err(out, ref) <= BF16_ULP * ref.float().abs().max().item() + 1e-3
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert _err(lse[finite], ref_lse[finite]) <= 1e-3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert _err(g, w) <= 4 * BF16_ULP * w.float().abs().max().item() + 1e-4
+    again = bwd.flash_attention_bwd(q, k, v, out, lse, do, **entry)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,softcap", [(True, 0.0), (False, 0.0),
+                                            (True, 20.0)])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 333), (1000, 100)])
+def test_dropout_kernels_match_plain(cuda, sq, sk, g, causal, softcap, d):
+    """The dense dropout instantiations: GQA groups 1 and 4 (every head its
+    own mask), sq != sk (the bottom-right diagonal), ragged tiles,
+    softcap."""
+    _dropout_kernels_vs_plain(cuda, 2, 2 * g, 2, sq, sk, d, causal, softcap)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("flag", ["window", "segments", "positions",
+                                  "block_mask", "flashmask"])
+def test_dropout_masked_kernels_match_plain(cuda, flag, d):
+    """The masked dropout instantiations under each flag (s 333, GQA 2)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        fm_mode_for)
+    b, h, hk, s = 2, 4, 2, 333
+    flags = {}
+    if flag == "window":
+        flags = dict(window=(100, -1))
+    elif flag == "segments":
+        flags = dict(q_segment_ids=_ids(cuda, b, s, 4, True, pad=30),
+                     kv_segment_ids=_ids(cuda, b, s, 4, True, pad=11))
+    elif flag == "positions":
+        pos = torch.arange(s, device="cuda", dtype=torch.int32)
+        flags = dict(q_positions=(pos // 2)[None].repeat(b, 1),
+                     kv_positions=pos[None].repeat(b, 1))
+    elif flag == "block_mask":
+        bm = torch.randint(0, 2, (b, 1, 3, 3), generator=cuda,
+                           device="cuda").to(torch.int32)
+        bm[:, :, :, 0] = 1
+        flags = dict(block_mask=(bm, 128, 128))
+    else:
+        ends = torch.randint(s // 2, s + 1, (b, 1, 1, s), generator=cuda,
+                             device="cuda").to(torch.int32)
+        flags = dict(flashmask_vecs=ends.sort(-1).values,
+                     flashmask_mode=fm_mode_for(True, 1))
+    _dropout_kernels_vs_plain(cuda, b, h, hk, s, s, d, True, **flags)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_dropout_keep_mask_bitwise(cuda, masked, d):
+    """The keep mask the forward applies, read back bit for bit: q = 0
+    makes P uniform over a row's visible keys, and V one-hot on a window of
+    d keys puts key w0 + j's kept bit in column j of the output (every
+    window, so every key of the call; sq 320, sk 512, causal under a block
+    mask of ones for the masked instantiation)."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention.common import (
+        Dropout)
+    b, h, hk, sq, sk = 2, 4, 2, 320, 512
+    z = dict(dtype=torch.bfloat16, device="cuda")
+    flags = dict(block_mask=(torch.ones(1, 1, 3, 4, dtype=torch.int32,
+                                        device="cuda"), 128, 128)) \
+        if masked else {}
+    rows = torch.arange(sq, device="cuda")[:, None]
+    cols = torch.arange(sk, device="cuda")[None, :]
+    vis = cols <= rows + (sk - sq) if masked else torch.ones_like(rows == cols)
+    q, kz = torch.zeros(b, h, sq, d, **z), torch.zeros(b, hk, sk, d, **z)
+    for seed, p in ((0, 0.1), (-3, 0.5), (77, 0.9)):
+        drop = Dropout.make(p, seed)
+        keep = drop.keep(b, h, sq, sk, "cuda") & vis
+        for w0 in range(0, sk, d):
+            v = torch.zeros(b, hk, sk, d, **z)
+            v[:, :, w0:w0 + d] = torch.eye(d, **z)
+            out, _ = fwd.flash_attention_fwd(q, kz, v, sm_scale=d ** -0.5,
+                                             causal=masked, need_lse=False,
+                                             dropout_p=p, dropout_seed=seed,
+                                             **flags)
+            assert torch.equal(out != 0, keep[..., w0:w0 + d])
+
+
+def test_dropout_packed_matches_plain(cuda):
+    """#5 / #6 with dropout through the packed qkv entry's autograd: out and
+    the packed dqkv against the plain versions, the dropout instantiations
+    launched once each."""
+    b, s, h, d = 2, 300, 4, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=cuda,
+                      device="cuda").bfloat16().requires_grad_()
+    do = torch.randn(b, s, h * d, generator=cuda, device="cuda").bfloat16()
+    kw = dict(num_heads=h, num_heads_kv=h, head_dim=d, causal=True,
+              dropout_p=0.1, dropout_seed=9)
+    f0, b0 = _dropout_counts()
+    out = fh.packed_qkv_attention(qkv, **kw)
+    (g,) = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    f1, b1 = _dropout_counts()
+    assert f1 - f0 == {"d64": 1} and b1 - b0 == {"dkv d64": 1, "dq d64": 1}
+    cpu = qkv.detach().cpu().requires_grad_()
+    want = fh.packed_qkv_attention(cpu, **kw)
+    (want_g,) = torch.autograd.grad(want, cpu, do.cpu())
+    out, g = out.cpu(), g.cpu()
+    assert _err(out, want) <= BF16_ULP * want.float().abs().max().item() + 1e-3
+    assert _err(g, want_g) <= 4 * BF16_ULP * want_g.float().abs().max().item() \
+        + 1e-4
+
+
+def test_dropout_refusals_launch_nothing(cuda):
+    """On the card: dropout with float32 q/k/v or beside an attention bias
+    raises NotImplementedError, with e4m3 ValueError, each before any
+    launch."""
+    from xhy_flash_attention_tpu_torch.ops.flash_attention import (
+        bwd, flash_attention)
+    q = torch.randn(1, 2, 128, 64, generator=cuda, device="cuda")
+    drop = dict(dropout_p=0.1, dropout_seed=1)
+    count = lambda: (fwd.flash_attention_fwd.launches,  # noqa: E731
+                     fwd.flash_fwd_fp32.launches, fwd.flash_fwd_fp8.launches,
+                     bwd.flash_bwd_prep.launches)
+    before = count()
+    with pytest.raises(NotImplementedError, match="float32"):
+        flash_attention(q, q, q, **drop)
+    with pytest.raises(NotImplementedError, match="bias"):
+        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                        torch.zeros(128, 128, device="cuda"), **drop)
+    with pytest.raises(ValueError):
+        e4 = q.to(torch.float8_e4m3fn)
+        flash_attention(e4, e4, e4, **drop)
+    torch.cuda.synchronize()
+    assert count() == before

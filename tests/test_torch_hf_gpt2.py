@@ -152,8 +152,12 @@ def test_gpt2_decode_matches_prefill():
 def test_gpt2_dropout_fields():
     """Published GPT-2 configs set every pdrop to 0.1: kept in the config;
     a deterministic forward ignores them (as the JAX model's default
-    deterministic=True does), a non-deterministic one raises until slice
-    6."""
+    deterministic=True does). A non-deterministic forward of that config
+    raises the JAX model's ValueError in both packages (the JAX GPTModel
+    hands its blocks no seed for the embedding and residual dropout); with
+    attention dropout alone it runs, each layer's seed drawn from the
+    caller's generator: the same generator seed repeats the logits, and
+    they differ from the deterministic ones."""
     hf_cfg, model, ids, _ = _hf()
     cfg, port = _port(_hf_config(0.1), model.state_dict())
     assert (cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop) == (0.1,) * 3
@@ -163,9 +167,26 @@ def test_gpt2_dropout_fields():
         got, _ = port(x, deterministic=True)
         want, _ = plain(x)
         assert torch.equal(got, want)
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            port(x, deterministic=False)
+        with pytest.raises(ValueError, match="dropout_p > 0 requires a seed"):
+            port(x, deterministic=False,
+                 dropout_generator=torch.Generator().manual_seed(0))
         plain(x, deterministic=False)  # no pdrop: nothing to drop
+    jcfg = jgpt2_config(_hf_config(0.1))
+    with pytest.raises(ValueError, match="dropout_p > 0 requires a seed"):
+        JGPTLMHeadModel(jcfg).apply(
+            _jax_hf()[0], jnp.asarray(ids[:, :16], jnp.int32),
+            deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)})
+    attn = transformers.GPT2Config(**{**_hf_config().to_dict(),
+                                      "attn_pdrop": 0.1})
+    _, port = _port(attn, model.state_dict())
+    with torch.inference_mode():
+        runs = [port(x, deterministic=False,
+                     dropout_generator=torch.Generator().manual_seed(s))[0]
+                for s in (1, 1, 2)]
+    assert torch.isfinite(runs[0]).all()
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    assert not torch.equal(runs[0], want)
 
 
 MEGATRON = dict(h=4, d=16, hidden=64, vocab=100, layers=2, inner=128,

@@ -23,7 +23,11 @@ flashmask mask the (b, hm, sk, nv) startend_row_indices tensor (nv in {1,
 
 dtype: float32 or bfloat16, with every option of each function (float32
 with an attn_mask runs the fp32 kernels' bias instantiations and, in
-`attn_bwd`, the fp32 dbias kernel). bf16 crosses the ABI as raw 2-byte
+`attn_bwd`, the fp32 dbias kernel). ``p_dropout`` > 0 drops attention
+probabilities by the keep mask keyed on ``seed``, as the JAX bridge does;
+on the card in bf16 without an attn_mask (the port's other combinations
+raise NotImplementedError there), and not with the flashmask mask in
+`attn_fwd` (``ValueError``, as the JAX bridge). bf16 crosses the ABI as raw 2-byte
 elements: a numpy ``uint16`` array (or an ``ml_dtypes.bfloat16`` one) is
 read as bf16, and bf16 results come back as :func:`np_dtype` ("bfloat16")
 arrays: ``ml_dtypes.bfloat16`` where that package imports, else ``uint16``
@@ -37,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ops.flash_attention.common import SLICE_DROPOUT, fm_mode_for
+from .ops.flash_attention.common import fm_mode_for
 
 __all__ = [
     "attn_fwd", "attn_bwd", "varlen_fwd", "varlen_bwd", "reduced_scores",
@@ -90,9 +94,10 @@ def _scale(softmax_scale, d: int) -> float:
     return float(softmax_scale) if softmax_scale > 0 else d ** -0.5
 
 
-def _check_dropout(p_dropout) -> None:
-    if p_dropout > 0:
-        raise NotImplementedError(f"dropout: {SLICE_DROPOUT}")
+def _dropout(p_dropout, seed) -> dict:
+    """The entries' dropout keywords, as the JAX bridge passes them."""
+    return dict(dropout_p=float(p_dropout),
+                dropout_seed=int(seed) if p_dropout > 0 else None)
 
 
 def attn_fwd(q, k, v, bias, fm_idx, p_dropout, seed, softmax_scale,
@@ -108,7 +113,6 @@ def attn_fwd(q, k, v, bias, fm_idx, p_dropout, seed, softmax_scale,
         raise ValueError(
             "flashmask composes with causal/scale only "
             "(no dropout/window/softcap), like flashmask_attention")
-    _check_dropout(p_dropout)
     from .ops.flash_attention.flashmask import flashmask_attention
     from .ops.flash_attention.interface import flash_attention
 
@@ -125,7 +129,8 @@ def attn_fwd(q, k, v, bias, fm_idx, p_dropout, seed, softmax_scale,
             out, lse = flash_attention(
                 qt, kt, vt, b, softmax_scale=scale, causal=bool(causal),
                 window_size=(int(window_left), int(window_right)),
-                softcap=float(softcap), return_lse=True)
+                softcap=float(softcap), return_lse=True,
+                **_dropout(p_dropout, seed))
     return _numpy(out.transpose(1, 2)), _numpy(lse.float())
 
 
@@ -139,14 +144,13 @@ def attn_bwd(dout, q, k, v, out, lse, bias, fm_idx, p_dropout, seed,
     bias."""
     if bias is not None and fm_idx is not None:
         raise ValueError("attn_mask and flashmask are mutually exclusive")
-    _check_dropout(p_dropout)
     from .ops.flash_attention.bwd import flash_attention_bwd
 
     dev = _device(device)
     kwargs = dict(sm_scale=_scale(softmax_scale, q.shape[-1]),
                   causal=bool(causal),
                   window_size=(int(window_left), int(window_right)),
-                  softcap=float(softcap))
+                  softcap=float(softcap), **_dropout(p_dropout, seed))
     if fm_idx is not None:
         idx = _tensor(fm_idx, dev, torch.int32)
         kwargs.update(flashmask_vecs=idx.movedim(-1, 2).contiguous(),
@@ -181,13 +185,12 @@ def varlen_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, p_dropout, seed,
     """Packed varlen forward (≙ flash_attn_varlen_fwd). q (total_q, h, d),
     k/v (total_k, hk, d), cu_seqlens (b + 1,) int32. Returns (out (total_q,
     h, d), lse (h, total_q) fp32)."""
-    _check_dropout(p_dropout)
     dev = _device(device)
     with torch.no_grad():
         out, lse = _varlen(*(_tensor(x, dev) for x in (q, k, v)),
                            cu_seqlens_q, cu_seqlens_k, softmax_scale, causal,
                            window_left, window_right, softcap,
-                           return_lse=True)
+                           return_lse=True, **_dropout(p_dropout, seed))
     return _numpy(out), _numpy(lse.float())
 
 
@@ -196,13 +199,14 @@ def varlen_bwd(dout, q, k, v, cu_seqlens_q, cu_seqlens_k, p_dropout, seed,
                device=None):
     """Packed varlen backward (≙ flash_attn_varlen_bwd), as the gradient of
     the packed forward through its autograd function (one forward
-    recompute, as the TPU package's bridge). Returns (dq, dk, dv)."""
-    _check_dropout(p_dropout)
+    recompute, as the TPU package's bridge; the same seed regenerates the
+    forward's keep mask). Returns (dq, dk, dv)."""
     dev = _device(device)
     ins = [_tensor(x, dev).requires_grad_() for x in (q, k, v)]
     with torch.enable_grad():
         out = _varlen(*ins, cu_seqlens_q, cu_seqlens_k, softmax_scale,
-                      causal, window_left, window_right, softcap)
+                      causal, window_left, window_right, softcap,
+                      **_dropout(p_dropout, seed))
         grads = torch.autograd.grad(out, ins, _tensor(dout, dev, out.dtype))
     return tuple(_numpy(g) for g in grads)
 

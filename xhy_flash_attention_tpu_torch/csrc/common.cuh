@@ -659,6 +659,79 @@ __device__ __forceinline__ void load_bias_cols(float (&b)[M / 2], const BiasPara
     bias_cols<M>(b, static_cast<const float*>(bp.ptr) + base, bp.ss, key0, m0, sq, sk, t);
 }
 
+// ---- attention dropout (ops common.py Dropout and dropout_keep_mask; the
+// TPU package's common.py:120-144): an element of P at (row, col), the
+// global positions in the (b, h, s) tensors, is kept when a counter-based
+// hash of (seed, salt, row, col) is at or above the threshold, so that the
+// backward, with other tiles, regenerates the forward's mask. The salt is
+// batch * h + head over the query heads. Kept elements are
+// scaled by 1 / (1 - p), which the kernels fold into their epilogue (the
+// forward's O, dV) or into dP.
+struct DropoutParams {
+  int on;              // 0: no dropout
+  uint32_t seed;       // the seed's low 32 bits
+  uint32_t threshold;  // keep when the hash is >= threshold
+  float scale;         // 1 / (1 - p)
+};
+
+#define XFA_DROPOUT_ARGS \
+  int drop, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale
+#define XFA_DROPOUT_VALUES \
+  xfa::DropoutParams { drop, drop_seed, drop_threshold, drop_scale }
+
+constexpr uint32_t kDropRow = 0x9E3779B1u, kDropCol = 0x85EBCA77u, kDropSalt = 0xC2B2AE3Du;
+
+// The part of the hash that a (batch, query head) shares: seed ^ salt * C.
+__device__ __forceinline__ uint32_t dropout_key(const DropoutParams& d, int batch, int head,
+                                                int h) {
+  return d.seed ^ (static_cast<uint32_t>(batch * h + head) * kDropSalt);
+}
+
+// The finalizer of the mix x = row * kDropRow + col * kDropCol + key.
+__device__ __forceinline__ bool dropout_keep(uint32_t x, uint32_t threshold) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= threshold;
+}
+
+// The mix of a thread's first register of an accumulator fragment (wgmma
+// m64nN: register i at fragment row r0 + ((i >> 1) & 1) * 8 and column c0
+// + (i >> 2) * 8 + 2t + (i & 1), the map of load_bias_rows): the mix of
+// register i is this base plus a constant of i, so a tile holds one
+// register for its hash and an element costs the finalizer and an add.
+// The fragment's rows are query rows and its columns keys (the forward's
+// S, dQ's S and dP), or TRANSPOSED its rows keys and its columns query
+// rows (dK/dV's S^T and dP^T).
+template <bool TRANSPOSED>
+__device__ __forceinline__ uint32_t dropout_base(uint32_t key, int r0, int c0, int t) {
+  constexpr uint32_t kR = TRANSPOSED ? kDropCol : kDropRow;
+  constexpr uint32_t kC = TRANSPOSED ? kDropRow : kDropCol;
+  return static_cast<uint32_t>(r0) * kR + static_cast<uint32_t>(c0 + 2 * t) * kC + key;
+}
+
+// Whether register i of the fragment whose base is `base` is kept.
+template <bool TRANSPOSED>
+__device__ __forceinline__ bool dropout_keep_at(uint32_t base, uint32_t threshold, int i) {
+  constexpr uint32_t kR = TRANSPOSED ? kDropCol : kDropRow;
+  constexpr uint32_t kC = TRANSPOSED ? kDropRow : kDropCol;
+  return dropout_keep(base + static_cast<uint32_t>((i >> 1) & 1) * 8u * kR +
+                          static_cast<uint32_t>((i >> 2) * 8 + (i & 1)) * kC,
+                      threshold);
+}
+
+// f(i, keep) for each of the E registers of the fragment, the forward's
+// pass over P.
+template <int E, bool TRANSPOSED, typename F>
+__device__ __forceinline__ void dropout_each(const DropoutParams& d, uint32_t key, int r0, int c0,
+                                             int t, F f) {
+  const uint32_t base = dropout_base<TRANSPOSED>(key, r0, c0, t);
+#pragma unroll
+  for (int i = 0; i < E; ++i) f(i, dropout_keep_at<TRANSPOSED>(base, d.threshold, i));
+}
+
 __device__ __forceinline__ bool next_block_by(bool batch_fast, int* next, int b, int n_blocks,
                                               int heads, bool heavy_last, int& block, int& head,
                                               int& batch) {

@@ -65,8 +65,9 @@
 //     the elementwise test (causal diagonal tiles, the ragged last tile)
 //     come first, the interior ones run with no test (bwd.py
 //     bwd_dkv_tile_plan).
-//   - dQ (flash_bwd_dq_kernel): a block is 128 query rows of one (batch,
-//     head) with q_s and dO resident (two buffers); K/V tiles (128 keys at
+//   - dQ (flash_bwd_dq_kernel, in flash_bwd_dq.cu, a source of its own so
+//     that nvcc compiles it beside this one; what the two share is in
+//     flash_bwd.cuh): a block is 128 query rows of one (batch, head) with q_s and dO resident (two buffers); K/V tiles (128 keys at
 //     d 64, 64 at d 128) stream through a ring, last to first, the masked
 //     ones first (common.cuh key_tiles; bwd.py bwd_dq_tile_plan). Per tile:
 //     S = q_s K^T and dP = dO V^T by SS wgmma, P and dS in registers with
@@ -140,19 +141,20 @@
 //   stays the softcap-scaled gradient of the products; dbias, the gradient
 //   before the softcap derivative summed over the bias's broadcast axes, is
 //   flash_bwd_dbias.cu's.
-#include <type_traits>
-
-#include "common.cuh"
-#include "hopper.cuh"
+//
+// * Attention dropout (DROPOUT, both kernels and instantiations, no bias;
+//   bwd.py:158-172 of the TPU package): each consumer thread
+//   regenerates the forward's keep mask inside the P / dS loop, one hash
+//   per element (common.cuh dropout_base / dropout_keep_at; dK/dV's
+//   transposed fragment has its keys as rows): dP is 0 where the mask
+//   drops and times 1 / (1 - p) where it keeps, dS = P (dP - delta) with
+//   the undropped P, and dV takes the dropped P, its 1 / (1 - p) in the
+//   epilogue. Hashed in the loop rather than in a pass of its own before
+//   it, the masked instantiations spill less (PERF.md section 6). The
+//   pre-pass is unchanged: delta = rowsum(dO O) and O carries the dropout.
+#include "flash_bwd.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using xfa::pack_bf16;
-namespace sm90 = xfa::sm90;
-using sm90::ex2;
-using sm90::issue_ss;
-using sm90::kLog2e;
 
 // ------------------------------------------------------------- pre-pass
 
@@ -226,35 +228,6 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(const Prep
   if (r < p.rows && threadIdx.x % kLanes == 0) p.delta[r] = acc;
 }
 
-
-// ------------------------------------------------------------ the kernels
-
-constexpr int kThreads = 384;  // producer warpgroup + two consumers
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kRow = 128;  // bytes of a swizzled row: 64 bf16
-// dK/dV: keys per block (64 per consumer) and query rows per streamed tile
-// (bwd.py BWD_DKV_TILE_N / BWD_DKV_TILE_M)
-constexpr int kDkvKeys = 128;
-constexpr int kDkvRows = 64;
-// A tile's LSE or delta arrives by 1-D TMA as kStatBox floats from the
-// 16-byte aligned element at or before its first row (TMA reads a box from
-// an aligned start): the tile's rows sit `(first row) % 4` floats in.
-constexpr int kStatBox = kDkvRows + 4;
-// dQ: query rows per block (64 per consumer) and keys per streamed tile
-// (bwd.py BWD_DQ_TILE_M / bwd_dq_tile_n)
-constexpr int kDqRows = 128;
-__host__ __device__ constexpr int dq_keys(int d) { return d == 64 ? 128 : 64; }
-
-// The masked instantiations' tile word and flags: common.cuh (kEnd,
-// kElem, kBand, kOnShift); dQ's row block is common.cuh kRowBlock.
-using xfa::kBand;
-using xfa::kElem;
-using xfa::kEnd;
-using xfa::kBlockInfoBytes;
-using xfa::kInfo;
-using xfa::kOnShift;
-static_assert(kDqRows == xfa::kRowBlock, "the dQ block is the masked producer's row block");
-
 template <int D, bool MASKED = false>
 struct DkvSmem {
   static constexpr int kStages = D == 64 ? 4 : 2;
@@ -284,56 +257,6 @@ struct DkvSmem {
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D, bool MASKED>
-struct DqSmem {
-  static constexpr int kN = dq_keys(D);
-  static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr int kHalves = D / 64;
-  // q_s or dO of a block: [half][128 rows][128 B]; buffer qb holds q_s at
-  // kQ0 + 2 qb kQ and dO after it
-  static constexpr int kQ = kDqRows * D * 2;
-  static constexpr int kQ0 = 0;
-  // a stage of the key ring: K then V, [half][kN keys][128 B]; masked: the
-  // tile's FlashMask bands (kN x 16 B), its keys' (segment, position) info
-  // (kN x 16 B) and its word
-  static constexpr int kKV = kN * D * 2;
-  static constexpr int kRing = kQ0 + 4 * kQ;
-  static constexpr int kBands = 2 * kKV;
-  static constexpr int kKInfo = kBands + kN * 16;
-  static constexpr int kWord = kKInfo + kN * 16;
-  static constexpr int kStage =
-      2 * kKV + (MASKED ? (2 * kN * 16 + 16 + 1023) / 1024 * 1024 : 0);
-  static_assert(!MASKED || kWord + 16 <= kStage, "the bands and the word fit the stage");
-  // masked: each Q buffer's queries' (segment, position) info; barriers: Q
-  // full[2], Q empty[2], K/V full[], K/V empty[]; then the block of each Q
-  // buffer (masked)
-  static constexpr int kQInfo = kRing + kStages * kStage;
-  static constexpr int kBar = kQInfo + (MASKED ? 2 * kBlockInfoBytes : 0);
-  static constexpr int kBlk = kBar + 8 * (4 + 2 * kStages);
-  static constexpr int kBytes = kBlk + 32 + 1024;
-  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
-};
-
-struct BwdParams {
-  const float* lse;    // (b, h, sq) contiguous
-  const float* delta;  // (b, h, sq) contiguous
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int64_t dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-  int b, h, hk, sq, sk;
-  float sm_scale, softcap;
-  int causal;
-  // the masked instantiations: the flags (FlashMask stats per kernel
-  // tile), the FlashMask bands (b, fm_heads, fm_skp) as [lo1, hi1, lo2,
-  // hi2) or null, and three counters: the dynamic scheduler's next item,
-  // the tiles the producers emit and those of them with the elementwise test
-  xfa::MaskParams mask;
-  const int4* bands;
-  int* next;
-  // the bias instantiations' bias (common.cuh BiasParams)
-  xfa::BiasParams bias;
-};
 
 // The query tiles of a dK/dV block (common.cuh query_tiles; bwd.py
 // bwd_dkv_tile_plan).
@@ -374,55 +297,22 @@ __device__ __forceinline__ int dkv_tile_flags(const BwdParams& p, const int* st,
   return on == 0 ? -1 : flags | on << kOnShift;
 }
 
-// ---- products and the elementwise work
-
-// C(64 x D) += A B over k = K (issued, not committed): A's bf16 pairs in
-// registers (4 a k-step), B (K rows x D) MN-major, 16 rows of 128 B a
-// k-step, its 64-column halves b_half bytes apart.
-template <int D, int K>
-__device__ __forceinline__ void issue_rs(float (&c)[D / 2], const uint32_t (&a)[K / 4], uint32_t b,
-                                         uint32_t b_half) {
-  const uint64_t db = sm90::desc_b128(b, b_half);
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    if constexpr (D == 64) {
-      sm90::wgmma_rs_n64(c, &a[4 * kk], db + kk * (16 * kRow >> 4));
-    } else {
-      sm90::wgmma_rs_n128(c, &a[4 * kk], db + kk * (16 * kRow >> 4));
-    }
-  }
-}
-
-// P and dS of one element: the score x (fp32, before softcap), dp its dP,
-// lse2 = LSE log2(e), delta; visible false gives 0 for both; with BIAS the
-// element's bias added after softcap, as the forward adds it. SOFTCAP and
-// BIAS are template flags so that the unrolled loops carry no test per
-// element.
-template <bool SOFTCAP, bool BIAS = false>
-__device__ __forceinline__ void p_ds(float x, float dp, float lse2, float delta, bool visible,
-                                     float softcap, float& pr, float& ds, float bias = 0.f) {
-  float fac = 1.f;
-  if (SOFTCAP) {
-    const float th = tanhf(x / softcap);
-    x = th * softcap;
-    fac = 1.f - th * th;
-  }
-  if constexpr (BIAS) x += bias;
-  pr = visible ? ex2(fmaf(x, kLog2e, -lse2)) : 0.f;
-  ds = pr * (dp - delta) * fac;
-}
+// ---- the elementwise work of dK/dV
 
 // dK/dV: P^T and dS^T of one query tile, in place in fp32 (s: S^T -> P^T,
 // dp: dP^T -> dS^T), this thread's keys key0 and key0 + 8 as rows and the
 // tile's rows m0 + c as columns; LSE and delta per column from shared
 // memory; with MASK the elementwise causal / sq test, with NB > 0 also the
 // first NB FlashMask bands of the two keys (b0, b1); with BIAS the tile's
-// bias `bv` (common.cuh load_bias_cols).
-template <bool MASK, bool SOFTCAP, int NB = 0, bool BIAS = false>
+// bias `bv` (common.cuh load_bias_cols); with DROP the tile's dropout `dt`
+// base `dbase` (common.cuh dropout_base, transposed), each element hashed in
+// the loop.
+template <bool MASK, bool SOFTCAP, int NB = 0, bool BIAS = false, bool DROP = false>
 __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[kDkvRows / 2],
                                          const float* lse, const float* delta, int key0, int m0,
                                          const BwdParams& p, int t, int4 b0 = int4{},
-                                         int4 b1 = int4{}, const float* bv = nullptr) {
+                                         int4 b1 = int4{}, const float* bv = nullptr,
+                                         uint32_t dbase = 0) {
 #pragma unroll
   for (int i = 0; i < kDkvRows / 2; ++i) {
     const int c = (i >> 2) * 8 + 2 * t + (i & 1);  // the query row in the tile
@@ -432,8 +322,10 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
       visible = row < p.sq && (!p.causal || key <= row + p.sk - p.sq);
       if (NB > 0) visible = visible & !xfa::banned<NB>((i >> 1) & 1 ? b1 : b0, row);
     }
-    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i],
-                        BIAS ? bv[i] : 0.f);
+    p_ds<SOFTCAP, BIAS, DROP>(
+        s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i],
+        BIAS ? bv[i] : 0.f, DROP ? xfa::dropout_keep_at<true>(dbase, p.drop.threshold, i) : true,
+        p.drop.scale);
   }
 }
 
@@ -443,13 +335,14 @@ __device__ __forceinline__ void dkv_p_ds(float (&s)[kDkvRows / 2], float (&dp)[k
 // FlashMask bands (b0, b1) and with INFO each row's segment id and position
 // (`qinfo`, in the stage) against the key's (`kinfo`: key0's, staged with
 // K/V; key0 + 8's 8 further); P and dS as dkv_p_ds.
-template <bool SOFTCAP, int NB, bool INFO, bool BIAS = false>
+template <bool SOFTCAP, int NB, bool INFO, bool BIAS = false, bool DROP = false>
 __device__ __forceinline__ void dkv_p_ds_masked(float (&s)[kDkvRows / 2],
                                                 float (&dp)[kDkvRows / 2], const float* lse,
                                                 const float* delta, int key0, int m0,
                                                 const int4* qinfo, const int4* kinfo,
                                                 const BwdParams& p, int t, int4 b0, int4 b1,
-                                                const float* bv = nullptr) {
+                                                const float* bv = nullptr,
+                                                uint32_t dbase = 0) {
   int rmin[2], rmax[2];
   int4 kt[2];
 #pragma unroll
@@ -464,93 +357,10 @@ __device__ __forceinline__ void dkv_p_ds_masked(float (&s)[kDkvRows / 2],
     bool visible = (row >= rmin[r]) & (row <= rmax[r]);
     if (NB > 0) visible = visible & !xfa::banned<NB>(r ? b1 : b0, row);
     if (INFO) visible = visible & xfa::tokens_meet(kt[r], xfa::token_at(qinfo, c));
-    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i],
-                        BIAS ? bv[i] : 0.f);
-  }
-}
-
-// dQ: dS of one key tile, in place in fp32 (dp: dP -> dS), from S (s), this
-// thread's rows row0 and row0 + 8 (lse2, delta per row) and the tile's keys
-// n0 + c as columns; with MASK the elementwise causal / sk test and the
-// parts of the tile's keys that are on (`parts`: bit 0 keys [0, 64), bit
-// 1 [64, 128)); with NB > 0 also each column's first NB FlashMask bands
-// (`bands`, in shared memory); with BIAS the tile's bias `bv`.
-template <bool MASK, bool SOFTCAP, int N, int NB = 0, bool BIAS = false>
-__device__ __forceinline__ void dq_ds(const float (&s)[N / 2], float (&dp)[N / 2],
-                                      const float (&lse2)[2], const float (&delta)[2], int row0,
-                                      int n0, const BwdParams& p, int t, int parts = 3,
-                                      const int4* bands = nullptr, const float* bv = nullptr) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    bool visible = true;
-    if (MASK) {
-      const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = n0 + c, row = row0 + 8 * r;
-      visible = col < p.sk && (!p.causal || col <= row + p.sk - p.sq) &&
-                ((parts >> ((i >> 2) >= 8 ? 1 : 0)) & 1);
-      if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
-    }
-    float pr;
-    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i],
-                        BIAS ? bv[i] : 0.f);
-  }
-}
-
-// dQ's elementwise test in the masked instantiations, all bitwise: the key
-// below sk, the row/key window, the parts of the tile's keys that are on,
-// with NB > 0 each column's first NB FlashMask bands (`bands`) and with
-// INFO each key's segment id and position (`kinfo`), both in the stage,
-// against the row's (`qinfo`: row0's, staged with q_s; row0 + 8's 8
-// further); dS as dq_ds.
-template <bool SOFTCAP, int N, int NB, bool INFO, bool BIAS = false>
-__device__ __forceinline__ void dq_ds_masked(const float (&s)[N / 2], float (&dp)[N / 2],
-                                             const float (&lse2)[2], const float (&delta)[2],
-                                             int row0, int n0, const BwdParams& p, int t,
-                                             int parts, const int4* bands, const int4* kinfo,
-                                             const int4* qinfo, const float* bv = nullptr) {
-  int lo[2], hi[2];
-  int4 qt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    xfa::row_limit(p.mask, row0 + 8 * r, p.sq, p.sk, lo[r], hi[r]);
-    if (INFO) qt[r] = xfa::query_tokens(p.mask, xfa::token_at(qinfo, 8 * r));
-  }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    const int c = (i >> 2) * 8 + 2 * t + (i & 1), col = n0 + c, row = row0 + 8 * r;
-    bool visible = (col <= hi[r]) & (col >= lo[r]) &
-                   (((parts >> ((i >> 2) >= 8 ? 1 : 0)) & 1) != 0);
-    if (NB > 0) visible = visible & !xfa::banned<NB>(bands[c], row);  // the load unconditional
-    if (INFO) visible = visible & xfa::tokens_meet(qt[r], xfa::token_at(kinfo, c));
-    float pr;
-    p_ds<SOFTCAP, BIAS>(s[i], dp[i], lse2[r], delta[r], visible, p.softcap, pr, dp[i],
-                        BIAS ? bv[i] : 0.f);
-  }
-}
-
-// An fp32 accumulator as bf16 pairs: a[4kk .. 4kk + 3] is the A fragment of
-// k-step kk of a following RS product
-template <int N>
-__device__ __forceinline__ void pack_pairs(const float (&x)[N], uint32_t (&a)[N / 2]) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
-}
-
-// Store this thread's share of a (64 x D) fp32 accumulator, scaled, as bf16
-// rows row0 and row0 + 8 of `dst` (row stride ss); rows at or past `limit`
-// are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, int64_t ss, const float (&c)[D / 2],
-                                           int row0, int limit, float scale, int t) {
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = row0 + 8 * rr;
-    if (row >= limit) continue;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + row * ss + 8 * j + 2 * t) =
-          pack_bf16(c[4 * j + 2 * rr] * scale, c[4 * j + 2 * rr + 1] * scale);
+    p_ds<SOFTCAP, BIAS, DROP>(
+        s[i], dp[i], lse[c] * kLog2e, delta[c], visible, p.softcap, s[i], dp[i],
+        BIAS ? bv[i] : 0.f, DROP ? xfa::dropout_keep_at<true>(dbase, p.drop.threshold, i) : true,
+        p.drop.scale);
   }
 }
 
@@ -580,7 +390,7 @@ __device__ __forceinline__ void dkv_load_tile(const CUtensorMap* tq, const CUten
   sm90::tma_load_1d(t_st + 2 * S::kTile + S::kStatStride, tdelta, bar_t + 8 * st, c0);
 }
 
-template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS, bool DROPOUT = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo,
@@ -836,18 +646,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int stat0 = (batch * p.h + kv_head * group + gi) * p.sq;
         const float* lse = reinterpret_cast<const float*>(stage + 2 * S::kTile) + ((stat0 + m0) & 3);
         const float* delta = lse + S::kStatStride / 4;
+        // DROPOUT: the forward's keep mask regenerated in the loops below
+        // (rows of the transposed fragment are this thread's keys)
+        uint32_t dbase = 0;
+        if constexpr (DROPOUT)
+          dbase = xfa::dropout_base<true>(
+              xfa::dropout_key(p.drop, batch, kv_head * group + gi, p.h), key0, m0, t);
         if (!(flags & kElem)) {
-          dkv_p_ds<false, SOFTCAP, 0, BIAS>(s, dp, lse, delta, key0, m0, p, t, {}, {}, bv);
+          dkv_p_ds<false, SOFTCAP, 0, BIAS, DROPOUT>(s, dp, lse, delta, key0, m0, p, t, {}, {}, bv,
+                                                     dbase);
         } else if constexpr (!MASKED) {
-          dkv_p_ds<true, SOFTCAP, 0, BIAS>(s, dp, lse, delta, key0, m0, p, t, {}, {}, bv);
+          dkv_p_ds<true, SOFTCAP, 0, BIAS, DROPOUT>(s, dp, lse, delta, key0, m0, p, t, {}, {}, bv,
+                                                    dbase);
         } else {
           const int4* qinfo = reinterpret_cast<const int4*>(stage + S::kQInfo);
           const int4* kinfo = reinterpret_cast<const int4*>(smem + S::kKInfo +
                                                             kb * kBlockInfoBytes) +
                               (key0 - n0);
-#define XFA_DKV(NB, I)                                                                        \
-  dkv_p_ds_masked<SOFTCAP, NB, I, BIAS>(s, dp, lse, delta, key0, m0, qinfo, kinfo, p, t, b0, b1, \
-                                        bv)
+#define XFA_DKV(NB, I)                                                                    \
+  dkv_p_ds_masked<SOFTCAP, NB, I, BIAS, DROPOUT>(s, dp, lse, delta, key0, m0, qinfo, kinfo, p, \
+                                                 t, b0, b1, bv, dbase)
           const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
           if (!(flags & kBand)) {
             if (flags & kInfo) XFA_DKV(0, true);
@@ -879,363 +697,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) sm90::mbar_arrive(bar_kve + 8 * kb);
       ++kv;
       store_rows<D>(p.dk + batch * p.dk_sb + kv_head * p.dk_sh, p.dk_ss, dk, key0, p.sk, 1.f, t);
-      store_rows<D>(p.dv + batch * p.dv_sb + kv_head * p.dv_sh, p.dv_ss, dv, key0, p.sk, 1.f, t);
+      store_rows<D>(p.dv + batch * p.dv_sb + kv_head * p.dv_sh, p.dv_ss, dv, key0, p.sk,
+                    DROPOUT ? p.drop.scale : 1.f, t);
     }
   }
 }
 
-// ---- dQ
-
-template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tdo,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tbands,
-                        const __grid_constant__ CUtensorMap tkinfo,
-                        const __grid_constant__ CUtensorMap tqinfo, const BwdParams p) {
-  using S = DqSmem<D, MASKED>;
-  constexpr int kN = S::kN;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
-  const uint32_t base = sm90::smem_addr(smem);
-  const uint32_t bar_q = base + S::kBar, bar_qe = bar_q + 16;  // [2] each
-  const uint32_t bar_kv = bar_qe + 16, bar_e = bar_kv + 8 * S::kStages;
-  const int n_mb = (p.sq + kDqRows - 1) / kDqRows;
-  const int n_pairs = xfa::block_pairs(n_mb, p.h, p.b);
-  // a bias shared by every batch: blocks batch first (common.cuh pair_block_by)
-  const bool batch_fast = BIAS && p.bias.sb == 0 && p.b > 1;
-
-  if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
-      sm90::mbar_init(bar_q + 8 * qb, 1);
-      sm90::mbar_init(bar_qe + 8 * qb, 8);
-    }
-    for (int st = 0; st < S::kStages; ++st) {
-      sm90::mbar_init(bar_kv + 8 * st, 1);
-      sm90::mbar_init(bar_e + 8 * st, 8);
-    }
-    sm90::fence_barrier_init();
-  }
-  __syncthreads();
-
-  // As in flash_fwd_kernel: unmasked, both roles count the same Q loads
-  // (qk) and K/V tiles (it); masked, the consumers take each block from its
-  // Q buffer's slot (every block takes a buffer, loaded or not) and each
-  // tile from its stage's word.
-  const int warpgroup = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
-  if (warpgroup == 0) {
-    sm90::setmaxnreg_dec<kProducerRegs>();
-    int it = 0, qk = 0;
-    auto load_kv = [&](int n0, int kv_head, int batch, uint32_t extra) {
-      const int st = it % S::kStages;
-      const uint32_t k_st = base + S::kRing + st * S::kStage, v_st = k_st + S::kKV;
-      sm90::mbar_expect_tx(bar_kv + 8 * st, 2 * S::kKV + extra);
-      for (int hf = 0; hf < S::kHalves; ++hf) {
-        sm90::tma_load_4d(k_st + hf * kN * kRow, &tk, bar_kv + 8 * st, hf * 64, n0, kv_head, batch);
-        sm90::tma_load_4d(v_st + hf * kN * kRow, &tv, bar_kv + 8 * st, hf * 64, n0, kv_head, batch);
-      }
-    };
-    auto load_q = [&](int q0, int head, int batch, uint32_t extra = 0) {
-      const int qb = qk & 1;
-      const uint32_t q_buf = base + S::kQ0 + qb * 2 * S::kQ;
-      sm90::mbar_expect_tx(bar_q + 8 * qb, 2 * S::kQ + extra);
-      for (int hf = 0; hf < S::kHalves; ++hf) {
-        sm90::tma_load_4d(q_buf + hf * kDqRows * kRow, &tq, bar_q + 8 * qb, hf * 64, q0, head,
-                          batch);
-        sm90::tma_load_4d(q_buf + S::kQ + hf * kDqRows * kRow, &tdo, bar_q + 8 * qb, hf * 64, q0,
-                          head, batch);
-      }
-    };
-    if constexpr (!MASKED) {
-      if (threadIdx.x == 0) {
-        for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
-          for (int half = 0; half < 2; ++half) {
-            int m_block, head, batch, n_tiles, n_free;
-            if (!xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true, m_block, head,
-                                    batch))
-              continue;
-            const int q0 = m_block * kDqRows;
-            xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
-            if (n_tiles == 0) continue;
-            const int kv_head = head / (p.h / p.hk);
-            sm90::mbar_wait(bar_qe + 8 * (qk & 1), ((qk >> 1) & 1) ^ 1);
-            load_q(q0, head, batch);
-            ++qk;
-            for (int i = 0; i < n_tiles; ++i, ++it) {
-              const int st = it % S::kStages;
-              sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
-              load_kv((n_tiles - 1 - i) * kN, kv_head, batch, 0);
-            }
-          }
-        }
-      }
-    } else if (threadIdx.x < 32) {
-      // ---- the masked producer: its whole warp decides, lane 0 issues (and
-      // counts the tiles it emits, as in dK/dV)
-      const xfa::MaskParams& m = p.mask;
-      const bool lead = threadIdx.x == 0;
-      int tiles = 0, elem = 0;
-      for (;;) {
-        int m_block = 0, head = 0, batch = 0, lo = 0, hi = 0, f_lo = 0, f_hi = 0;
-        const bool more =
-            xfa::next_block_by(batch_fast, p.next, p.b, n_mb, p.h, true, m_block, head, batch);
-        const int q0 = m_block * kDqRows;
-        if (more) xfa::key_window<kDqRows, kN>(m, batch, q0, p.sq, p.sk, lo, hi, f_lo, f_hi);
-        const int n_tiles = hi - lo;
-        const int qb = qk & 1;
-        if (lead) {
-          sm90::mbar_wait(bar_qe + 8 * qb, ((qk >> 1) & 1) ^ 1);
-          *reinterpret_cast<int4*>(smem + S::kBlk + 16 * qb) =
-              make_int4(more ? m_block : kEnd, head, batch, 0);
-          if (n_tiles > 0) {
-            // with segments or positions, the block's queries' info too
-            const bool info = m.q_info != nullptr;
-            load_q(q0, head, batch, info ? kBlockInfoBytes : 0);
-            if (info)
-              sm90::tma_load_2d(base + S::kQInfo + qb * kBlockInfoBytes, &tqinfo, bar_q + 8 * qb,
-                                0, batch * m.q_pad + q0);
-          } else {
-            sm90::mbar_arrive(bar_q + 8 * qb);
-          }
-        }
-        ++qk;
-        if (!more) break;
-        const int kv_head = head / (p.h / p.hk);
-        const int64_t band_row =
-            m.fm_vecs != nullptr
-                ? static_cast<int64_t>(batch * m.fm_heads + xfa::fm_head(m, head, p.h)) * m.fm_skp
-                : 0;
-        const int info_row = batch * m.k_pad;
-        xfa::emit_tiles(
-            n_tiles,
-            [&](int i, int& n0) {
-              const int tile = hi - 1 - i;
-              n0 = tile * kN;
-              return xfa::row_block_tile_flags<kN>(p.mask, batch, head, p.h, p.sq, p.sk, q0,
-                                                    n0, (tile < f_lo) | (tile >= f_hi));
-            },
-            [&](int n0, int flags) {
-              const int st = it % S::kStages;
-              sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
-              const int band = flags & kBand, info = flags & kInfo;
-              *reinterpret_cast<int4*>(smem + S::kRing + st * S::kStage + S::kWord) =
-                  make_int4(n0, flags, 0, 0);
-              load_kv(n0, kv_head, batch, (band ? kN * 16 : 0) + (info ? kN * 16 : 0));
-              if (band)
-                sm90::tma_load_2d(base + S::kRing + st * S::kStage + S::kBands, &tbands,
-                                  bar_kv + 8 * st, 0, static_cast<int>(band_row + n0));
-              if (info)
-                sm90::tma_load_2d(base + S::kRing + st * S::kStage + S::kKInfo, &tkinfo,
-                                  bar_kv + 8 * st, 0, info_row + n0);
-              ++it;
-              ++tiles;
-              elem += flags & kElem;
-            });
-        if (lead) {  // the block's end
-          const int st = it % S::kStages;
-          sm90::mbar_wait(bar_e + 8 * st, ((it / S::kStages) & 1) ^ 1);
-          *reinterpret_cast<int4*>(smem + S::kRing + st * S::kStage + S::kWord) =
-              make_int4(kEnd, 0, 0, 0);
-          sm90::mbar_arrive(bar_kv + 8 * st);
-        }
-        ++it;
-      }
-      if (lead) {
-        atomicAdd(p.next + 1, tiles);
-        atomicAdd(p.next + 2, elem);
-      }
-    }
-  } else {
-    // ---- consumer warpgroups: 64 query rows each
-    sm90::setmaxnreg_inc<kConsumerRegs>();
-    const int cw = warpgroup - 1;
-    const int wt = threadIdx.x & 127;
-    const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
-    int it = 0, qk = 0;
-    int pair = blockIdx.x, half = 0;
-    for (;;) {
-      int m_block, head, batch, n_tiles = 0, n_free = 0;
-      const int qb = qk & 1;
-      if constexpr (MASKED) {
-        sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
-        const int4 blk = *reinterpret_cast<const int4*>(smem + S::kBlk + 16 * qb);
-        if (blk.x == kEnd) break;
-        ++qk;
-        m_block = blk.x;
-        head = blk.y;
-        batch = blk.z;
-      } else {
-        if (pair >= n_pairs) break;
-        const bool ok = xfa::pair_block_by(batch_fast, pair, half, n_mb, p.h, p.b, true,
-                                           m_block, head, batch);
-        if (half == 1) pair += gridDim.x;
-        half ^= 1;
-        if (!ok) continue;
-      }
-      const int q0 = m_block * kDqRows;
-      xfa::key_tiles<kDqRows, kN>(q0, p.sq, p.sk, p.causal, n_tiles, n_free);
-      const int n_masked = n_tiles - n_free;  // the first tiles visited
-      const int row0 = q0 + cw * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-      const int64_t stat = (static_cast<int64_t>(batch) * p.h + head) * p.sq;
-      float lse2[2], delta[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        lse2[r] = row < p.sq ? p.lse[stat + row] * kLog2e : INFINITY;
-        delta[r] = row < p.sq ? p.delta[stat + row] : 0.f;
-      }
-      float dq[D / 2];
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
-      const uint32_t q_wg = base + S::kQ0 + qb * 2 * S::kQ + cw * 64 * kRow;
-      const uint32_t do_wg = q_wg + S::kQ;
-      if (!MASKED && n_tiles > 0) {
-        sm90::mbar_wait(bar_q + 8 * qb, (qk >> 1) & 1);
-        ++qk;
-      }
-      for (int i = 0;; ++i, ++it) {
-        const int st = it % S::kStages;
-        const uint8_t* stage = smem + S::kRing + st * S::kStage;
-        const uint32_t k_st = base + S::kRing + st * S::kStage, v_st = k_st + S::kKV;
-        int n0, flags, parts = 3;
-        if constexpr (MASKED) {
-          sm90::mbar_wait(bar_kv + 8 * st, (it / S::kStages) & 1);
-          const int4 w = *reinterpret_cast<const int4*>(stage + S::kWord);
-          parts = (w.y >> (kOnShift + 2 * cw)) & 3;
-          if (w.x == kEnd || parts == 0) {
-            if (lane == 0) {
-              sm90::mbar_arrive(bar_e + 8 * st);
-              // after the block's last products on q_s and dO in shared memory
-              if (w.x == kEnd) sm90::mbar_arrive(bar_qe + 8 * qb);
-            }
-            if (w.x == kEnd) {
-              ++it;
-              break;
-            }
-            continue;
-          }
-          n0 = w.x;
-          flags = w.y;
-        } else {
-          if (i == n_tiles) break;
-          n0 = (n_tiles - 1 - i) * kN;
-          flags = i < n_masked ? kElem : 0;
-          sm90::mbar_wait(bar_kv + 8 * st, (it / S::kStages) & 1);
-        }
-        float s[kN / 2], dp[kN / 2];
-        sm90::wgmma_fence();
-        issue_ss<D, kN>(s, q_wg, kDqRows * kRow, k_st, kN * kRow);  // S = q_s K^T
-        issue_ss<D, kN>(dp, do_wg, kDqRows * kRow, v_st, kN * kRow);  // dP = dO V^T
-        sm90::wgmma_commit();
-        float bv[BIAS ? kN / 2 : 1];  // BIAS: the tile's bias, under the products
-        if constexpr (BIAS)
-          xfa::load_bias_rows<kN>(bv, p.bias, batch * p.bias.sb + head * p.bias.sh, row0, n0,
-                                  p.sq, p.sk, t);
-        sm90::wgmma_wait<0>();
-        sm90::fence_regs(s);
-        sm90::fence_regs(dp);
-        // after the block's last products on q_s and dO in shared memory
-        if (!MASKED && i == n_tiles - 1 && lane == 0) sm90::mbar_arrive(bar_qe + 8 * qb);
-        if (!(flags & kElem)) {
-          dq_ds<false, SOFTCAP, kN, 0, BIAS>(s, dp, lse2, delta, row0, n0, p, t, 3, nullptr, bv);
-        } else if constexpr (!MASKED) {
-          dq_ds<true, SOFTCAP, kN, 0, BIAS>(s, dp, lse2, delta, row0, n0, p, t, parts, nullptr, bv);
-        } else {
-          const int4* bands = reinterpret_cast<const int4*>(stage + S::kBands);
-          const int4* kinfo = reinterpret_cast<const int4*>(stage + S::kKInfo);
-          const int4* qinfo = reinterpret_cast<const int4*>(smem + S::kQInfo +
-                                                            qb * kBlockInfoBytes) +
-                              (row0 - q0);
-#define XFA_DQ(NB, I)                                                                       \
-  dq_ds_masked<SOFTCAP, kN, NB, I, BIAS>(s, dp, lse2, delta, row0, n0, p, t, parts, bands, kinfo, \
-                                         qinfo, bv)
-          const bool one_band = p.mask.fm_mode <= xfa::kFmCausal2;
-          if (!(flags & kBand)) {
-            if (flags & kInfo) XFA_DQ(0, true);
-            else XFA_DQ(0, false);
-          } else if (!(flags & kInfo)) {
-            if (one_band) XFA_DQ(1, false);
-            else XFA_DQ(2, false);
-          } else {  // both tests, rare: the one-band modes' second band is empty
-            XFA_DQ(2, true);
-          }
-#undef XFA_DQ
-        }
-        uint32_t da[kN / 4];
-        pack_pairs(dp, da);
-        sm90::fence_regs(dq);
-        sm90::fence_regs(da);
-        sm90::wgmma_fence();
-        issue_rs<D, kN>(dq, da, k_st, kN * kRow);  // dQ += dS K
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::fence_regs(dq);
-        if (lane == 0) sm90::mbar_arrive(bar_e + 8 * st);  // one arrival per consumer warp
-      }
-      store_rows<D>(p.dq + batch * p.dq_sb + head * p.dq_sh, p.dq_ss, dq, row0, p.sq, p.sm_scale,
-                    t);
-    }
-  }
-}
-
-// ---- launches
-
-// One persistent CTA per SM (shared memory allows no second), or one per
-// pair of blocks (per block under the masked kernels' dynamic scheduler)
-// when there are fewer.
-inline cudaError_t grid_size(int n_blocks, int heads, const BwdParams& p, bool masked, int& grid) {
-  int sms = 0;
-  const cudaError_t err = sm90::sm_count(sms);
-  const int units = masked ? n_blocks * heads * p.b : xfa::block_pairs(n_blocks, heads, p.b);
-  grid = units < sms ? units : sms;
-  return err;
-}
-
-template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
+template <int D, bool SOFTCAP, bool MASKED, bool BIAS, bool DROPOUT = false>
 cudaError_t launch_dkv_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
   static std::atomic<uint64_t> done{0};
-  cudaError_t err = sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP, MASKED, BIAS>,
+  cudaError_t err = sm90::smem_limit_once(flash_bwd_dkv_kernel<D, SOFTCAP, MASKED, BIAS, DROPOUT>,
                                           DkvSmem<D, MASKED>::kBytes, done);
   int grid = 0;
   if (err == cudaSuccess) err = grid_size((p.sk + kDkvKeys - 1) / kDkvKeys, p.hk, p, MASKED, grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED, BIAS><<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], p);
-  return cudaGetLastError();
-}
-
-template <int D, bool SOFTCAP, bool MASKED, bool BIAS>
-cudaError_t launch_dq_kernel(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
-  using S = DqSmem<D, MASKED>;
-  static std::atomic<uint64_t> done{0};
-  cudaError_t err =
-      sm90::smem_limit_once(flash_bwd_dq_kernel<D, SOFTCAP, MASKED, BIAS>, S::kBytes, done);
-  int grid = 0;
-  if (err == cudaSuccess) err = grid_size((p.sq + kDqRows - 1) / kDqRows, p.h, p, MASKED, grid);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, SOFTCAP, MASKED, BIAS><<<grid, kThreads, S::kBytes, s>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
+  flash_bwd_dkv_kernel<D, SOFTCAP, MASKED, BIAS, DROPOUT>
+      <<<grid, kThreads, DkvSmem<D, MASKED>::kBytes, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                                         maps[4], maps[5], maps[6], maps[7], p);
   return cudaGetLastError();
 }
 
 template <int D, bool MASKED>
 cudaError_t launch_dkv(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
+  if (p.drop.on)
+    return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED, false, true>(maps, p, s)
+                           : launch_dkv_kernel<D, false, MASKED, false, true>(maps, p, s);
   if (p.bias.ptr != nullptr)
     return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED, true>(maps, p, s)
                            : launch_dkv_kernel<D, false, MASKED, true>(maps, p, s);
   return p.softcap > 0.f ? launch_dkv_kernel<D, true, MASKED, false>(maps, p, s)
                          : launch_dkv_kernel<D, false, MASKED, false>(maps, p, s);
-}
-
-template <int D, bool MASKED>
-cudaError_t launch_dq(const CUtensorMap* maps, const BwdParams& p, cudaStream_t s) {
-  if (p.bias.ptr != nullptr)
-    return p.softcap > 0.f ? launch_dq_kernel<D, true, MASKED, true>(maps, p, s)
-                           : launch_dq_kernel<D, false, MASKED, true>(maps, p, s);
-  return p.softcap > 0.f ? launch_dq_kernel<D, true, MASKED, false>(maps, p, s)
-                         : launch_dq_kernel<D, false, MASKED, false>(maps, p, s);
 }
 
 }  // namespace
@@ -1270,51 +761,6 @@ XFA_EXPORT int xfa_flash_bwd_prep(const void* q, const void* dout, const void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The 21 strides, in elements, are (batch, head, seq) of q, k, v, dout, dq,
-// dk and dv in that order; the head-dim axis of every tensor is contiguous;
-// `q` is q_s, the pre-pass's bf16(q * sm_scale), and q_s, k, v and dout are
-// read through TMA tensor maps: pointers and strides multiples of 16 bytes.
-// lse and delta are (b, h, sq) fp32 contiguous. The mask arguments
-// (XFA_MASK_ARGS, common.cuh) carry FlashMask stats per key tile of the
-// kernel launched: 128 keys for dK/dV, dq_keys(d) (128 at d 64, 64 at
-// d 128) for dQ; with a FlashMask, `fm_bands` is (b, fm_heads, fm_skp, 4)
-// int32 contiguous, each column's two bands [lo1, hi1) and [lo2, hi2); with
-// segment ids or positions, their stats per query tile (64 rows for dK/dV,
-// 128 for dQ) and key tile of the kernel launched, and the tile range per
-// block (dK/dV: per 128-key block over query tiles; dQ: per 128-row block
-// over key tiles). With a mask, `counters` is three int32 in device memory,
-// cleared here on
-// the stream: the dynamic scheduler's next block, then the tiles the
-// kernel visits and those of them with the elementwise test (bwd.py
-// bwd_masked_dkv_tile_plan / bwd_masked_dq_tile_plan count the same).
-// dk/dv are written by xfa_flash_bwd_dkv, dq by xfa_flash_bwd_dq; each
-// launch overwrites its outputs (no zero fill needed) for sq, sk > 0. The
-// forward's bias (XFA_BIAS_ARGS), or a null pointer, selects the bias
-// instantiations.
-#define XFA_BWD_ARGS                                                                           \
-  const void *q, const void *k, const void *v, const void *dout, const void *lse,              \
-      const void *delta, void *dq, void *dk, void *dv, int64_t q_sb, int64_t q_sh, int64_t q_ss, \
-      int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,      \
-      int64_t do_sb, int64_t do_sh, int64_t do_ss, int64_t dq_sb, int64_t dq_sh, int64_t dq_ss, \
-      int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb, int64_t dv_sh, int64_t dv_ss, \
-      int b, int h, int hk, int sq, int sk, int d, float sm_scale, float softcap, int causal,    \
-      XFA_MASK_ARGS, const void *fm_bands, void *counters, XFA_BIAS_ARGS, void *stream
-#define XFA_BWD_PARAMS                                                                         \
-  const xfa::MaskParams mask = XFA_MASK_VALUES;                                                \
-  const bool masked = xfa::mask_active(mask);                                                  \
-  const BwdParams p{static_cast<const float*>(lse), static_cast<const float*>(delta),          \
-                    static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),    \
-                    dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, b, h, hk,   \
-                    sq, sk, sm_scale, softcap, causal, mask,                                   \
-                    static_cast<const int4*>(fm_bands),                                        \
-                    static_cast<int*>(counters), XFA_BIAS_VALUES};                             \
-  cudaStream_t s = static_cast<cudaStream_t>(stream);                                          \
-  if (masked) {                                                                                \
-    if (counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);                   \
-    const cudaError_t err = cudaMemsetAsync(counters, 0, 3 * sizeof(int), s);                  \
-    if (err != cudaSuccess) return static_cast<int>(err);                                      \
-  }
-
 XFA_EXPORT int xfa_flash_bwd_dkv(XFA_BWD_ARGS) {
   if (b <= 0 || sk <= 0) return static_cast<int>(cudaGetLastError());
   if ((d != 64 && d != 128) || sq <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -1333,27 +779,5 @@ XFA_EXPORT int xfa_flash_bwd_dkv(XFA_BWD_ARGS) {
   cudaError_t err;
   if (d == 64) err = masked ? launch_dkv<64, true>(maps, p, s) : launch_dkv<64, false>(maps, p, s);
   else err = masked ? launch_dkv<128, true>(maps, p, s) : launch_dkv<128, false>(maps, p, s);
-  return static_cast<int>(err);
-}
-
-XFA_EXPORT int xfa_flash_bwd_dq(XFA_BWD_ARGS) {
-  if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
-  if ((d != 64 && d != 128) || sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  XFA_BWD_PARAMS;
-  CUtensorMap maps[7] = {};
-  if (!sm90::encode_bhsd(&maps[0], q, b, h, sq, d, q_sb, q_sh, q_ss, kDqRows) ||
-      !sm90::encode_bhsd(&maps[1], dout, b, h, sq, d, do_sb, do_sh, do_ss, kDqRows) ||
-      !sm90::encode_bhsd(&maps[2], k, b, hk, sk, d, k_sb, k_sh, k_ss, dq_keys(d)) ||
-      !sm90::encode_bhsd(&maps[3], v, b, hk, sk, d, v_sb, v_sh, v_ss, dq_keys(d)) ||
-      (fm_bands != nullptr &&
-       !sm90::encode_rows_i32x4(&maps[4], fm_bands,
-                                static_cast<int64_t>(b) * fm_heads * fm_skp, dq_keys(d))) ||
-      (masked && k_info != nullptr &&
-       (!sm90::encode_rows_i32x4(&maps[5], k_info, static_cast<int64_t>(b) * k_pad, dq_keys(d)) ||
-        !sm90::encode_rows_i32x4(&maps[6], q_info, static_cast<int64_t>(b) * q_pad, kDqRows))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (d == 64) err = masked ? launch_dq<64, true>(maps, p, s) : launch_dq<64, false>(maps, p, s);
-  else err = masked ? launch_dq<128, true>(maps, p, s) : launch_dq<128, false>(maps, p, s);
   return static_cast<int>(err);
 }

@@ -32,7 +32,7 @@
 // mask the work is that of the visible pairs, still operations-bound
 // unless the mask leaves a few percent of them.
 //
-// One kernel, flash_fwd_kernel<D, MASKED, BIAS, FP8>: persistent CTAs, one per SM, of
+// One kernel, flash_fwd_kernel<D, MASKED, BIAS, FP8, DROPOUT>: persistent CTAs, one per SM, of
 // three warpgroups; a CTA runs blocks of 128 query rows (kTileM) of one
 // (batch, head).
 //   - Warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
@@ -130,6 +130,17 @@
 //   is L2 traffic: a tile's fp32 bias is 64 KB a CTA, as much as its K and
 //   V at d 128, twice them at d 64, read again by every (batch, head) that
 //   shares it.
+//
+// * Attention dropout (DROPOUT true, either instantiation, no bias and no
+//   e4m3; fwd.py:312-327 of the TPU package): after each tile's online
+//   softmax has taken the undropped P into the row sums, each consumer
+//   thread hashes the global (row, key) of its accumulator registers
+//   (common.cuh dropout_each: the fragment map of the mask code, a base
+//   per row and a constant per register, then the finalizer) with the
+//   (batch, head) key of the seed and salt, and zeroes the dropped
+//   elements of P before it goes to P.V; 1 / (1 - p) joins the epilogue's
+//   1 / l. The hash is integer work, about 11 instructions an element: at
+//   d 64 it is as much as the tile's tensor-core time (PERF.md section 6).
 //
 // * e4m3 (FP8 true, with the dense schedule; flash_attn_fp8_func, the TPU
 //   kernel's fp8 flag, fwd.py:111, 153-168, 334-344, 392, 639-652, 915): q,
@@ -235,6 +246,8 @@ struct FwdParams {
   // the e4m3 instantiation's (b, hk) descales, each null for ones; its
   // window is mask.left / mask.right (causal: right 0)
   const float *qd, *kd, *vd;
+  // the dropout instantiations' seed, threshold and scale
+  xfa::DropoutParams drop;
 };
 
 // The online softmax of one tile's scores s (columns n0 .. n0 + kTileN - 1;
@@ -436,7 +449,7 @@ __device__ __forceinline__ void fp8_softmax(float (&s)[kTileN / 2], float (&m_i)
   sm90::softmax_step(s, m_i, l_i, alpha);
 }
 
-template <int D, bool MASKED, bool BIAS, bool FP8>
+template <int D, bool MASKED, bool BIAS, bool FP8, bool DROPOUT = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
@@ -444,6 +457,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tkinfo,
                      const __grid_constant__ CUtensorMap tqinfo, const FwdParams p) {
   static_assert(!FP8 || !(MASKED || BIAS), "the e4m3 instantiation is dense, with no bias");
+  static_assert(!DROPOUT || !(FP8 || BIAS), "dropout takes no e4m3 and no bias");
   using S = FwdSmem<D, MASKED, FP8>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -782,6 +796,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           float s[kTileN / 2];
           uint32_t pa[kTileN / 4];
           float alpha[2];
+          // DROPOUT: P's dropped elements of the tile at n0 to 0, after the
+          // row sums took them (1 / (1 - p) joins the epilogue)
+          const uint32_t dkey = DROPOUT ? xfa::dropout_key(p.drop, batch, head, p.h) : 0u;
+          auto drop_p = [&](int n0) {
+            if constexpr (DROPOUT)
+              xfa::dropout_each<kTileN / 2, false>(p.drop, dkey, row0, n0, t,
+                                                   [&](int i, bool keep) {
+                                                     if (!keep) s[i] = 0.f;
+                                                   });
+          };
           if constexpr (D == 64 && !FP8) {
             // Tile i's softmax runs while tile i - 1's P.V is on the tensor
             // cores: QK^T(i) and PV(i - 1) are issued together, QK^T(i) is
@@ -801,6 +825,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               } else {
                 online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(0), row0, p, t, bv);
               }
+              drop_p(col0(0));
               pack_p(s, pa);
             }
             for (int i = 1; i < n_tiles; ++i) {
@@ -821,6 +846,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               } else {
                 online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
               }
+              drop_p(col0(i));
               sm90::wgmma_wait<0>();
               sm90::fence_regs(o);
               sm90::fence_regs(pa);
@@ -866,6 +892,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 } else {
                   online_softmax<false, BIAS>(s, m_i, l_i, alpha, col0(i), row0, p, t, bv);
                 }
+                drop_p(col0(i));
                 pack_p(s, pa);
               }
 #pragma unroll
@@ -890,6 +917,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           if constexpr (FP8) {
             inv[0] *= v_scale;
             inv[1] *= v_scale;
+          }
+          if constexpr (DROPOUT) {
+            inv[0] *= p.drop.scale;
+            inv[1] *= p.drop.scale;
           }
           // O into this consumer's staging rows once the previous block's
           // store has read them
@@ -940,6 +971,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         float alpha[2];
         const int64_t bias_base = batch * p.bias.sb + head * p.bias.sh;
         float bv[BIAS ? kTileN / 2 : 1];  // BIAS: the tile's bias, loaded under its QK^T
+        const uint32_t dkey = DROPOUT ? xfa::dropout_key(p.drop, batch, head, p.h) : 0u;
         int4 w;  // the word of the tile at `it`
         // Wait for the next tile this consumer computes (at `it`), passing
         // by the tiles with none of its parts; false at the block's end (it
@@ -995,6 +1027,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           sm90::wgmma_wait<0>();
           sm90::fence_regs(s);
           softmax_tile();
+          if constexpr (DROPOUT)  // P's dropped elements to 0, after the row sums
+            xfa::dropout_each<kTileN / 2, false>(p.drop, dkey, row0, w.x, t,
+                                                 [&](int i, bool keep) {
+                                                   if (!keep) s[i] = 0.f;
+                                                 });
           pack_p(s, pa);
 #pragma unroll
           for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
@@ -1011,6 +1048,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         float inv[2];
         row_sums(l_i, inv);
+        if constexpr (DROPOUT) {
+          inv[0] *= p.drop.scale;
+          inv[1] *= p.drop.scale;
+        }
         // O into this consumer's Q rows, once every warp's products have
         // read them; the buffer is released when the store has read it
         sm90::named_barrier(1 + cw, 128);
@@ -1035,18 +1076,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 // One persistent CTA per SM (shared memory allows no second), or one per
 // pair of query blocks (per block under the masked kernel's dynamic
 // scheduler) when there are fewer.
-template <int D, bool MASKED, bool BIAS, bool FP8 = false>
+template <int D, bool MASKED, bool BIAS, bool FP8 = false, bool DROPOUT = false>
 cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t s) {
   using S = FwdSmem<D, MASKED, FP8>;
   static std::atomic<uint64_t> done{0};
   cudaError_t err =
-      sm90::smem_limit_once(flash_fwd_kernel<D, MASKED, BIAS, FP8>, S::kBytes, done);
+      sm90::smem_limit_once(flash_fwd_kernel<D, MASKED, BIAS, FP8, DROPOUT>, S::kBytes, done);
   int sms = 0;
   if (err == cudaSuccess) err = sm90::sm_count(sms);
   if (err != cudaSuccess) return err;
   const int n_mb = (p.sq + kTileM - 1) / kTileM;
   const int units = MASKED ? n_mb * p.h * p.b : xfa::block_pairs(n_mb, p.h, p.b);
-  flash_fwd_kernel<D, MASKED, BIAS, FP8><<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
+  flash_fwd_kernel<D, MASKED, BIAS, FP8, DROPOUT>
+      <<<units < sms ? units : sms, kThreads, S::kBytes, s>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
@@ -1067,15 +1109,18 @@ cudaError_t launch_fwd(const CUtensorMap* maps, const FwdParams& p, cudaStream_t
 // same); with none given the dense instantiation runs. The bias
 // (XFA_BIAS_ARGS, common.cuh BiasParams), or a null pointer, selects the
 // bias instantiation of either; it takes no FlashMask or block mask.
+// Dropout (XFA_DROPOUT_ARGS, common.cuh DropoutParams) with `drop` set
+// selects the dropout instantiation of either; it takes no bias.
 XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
                              int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                              int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int b,
                              int h, int hk, int sq, int sk, int d, float sm_scale,
                              float softcap, int causal, XFA_MASK_ARGS, const void* fm_bands,
-                             void* counters, XFA_BIAS_ARGS, void* stream) {
+                             void* counters, XFA_BIAS_ARGS, XFA_DROPOUT_ARGS, void* stream) {
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (drop && bias != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const xfa::MaskParams mask = XFA_MASK_VALUES;
   const bool masked = xfa::mask_active(mask);
@@ -1098,10 +1143,18 @@ XFA_EXPORT int xfa_flash_fwd(const void* q, const void* k, const void* v, void* 
     const cudaError_t err = cudaMemsetAsync(counters, 0, 3 * sizeof(int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const FwdParams p{static_cast<float*>(lse), b, h, hk, sq, sk, sm_scale, softcap, causal, mask,
-                    static_cast<int*>(counters), XFA_BIAS_VALUES};
+  FwdParams p{static_cast<float*>(lse), b, h, hk, sq, sk, sm_scale, softcap, causal, mask,
+              static_cast<int*>(counters), XFA_BIAS_VALUES};
+  p.drop = XFA_DROPOUT_VALUES;
   cudaError_t err;
-  if (bias != nullptr) {
+  if (drop) {
+    if (d == 64)
+      err = masked ? launch_fwd<64, true, false, false, true>(maps, p, s)
+                   : launch_fwd<64, false, false, false, true>(maps, p, s);
+    else
+      err = masked ? launch_fwd<128, true, false, false, true>(maps, p, s)
+                   : launch_fwd<128, false, false, false, true>(maps, p, s);
+  } else if (bias != nullptr) {
     if (d == 64)
       err = masked ? launch_fwd<64, true, true>(maps, p, s)
                    : launch_fwd<64, false, true>(maps, p, s);

@@ -23,7 +23,12 @@ A model on CUDA runs in bfloat16 or float32 (the fp32 attention kernels of
 csrc/flash_fp32.cu). The dropout fields ``embd_pdrop``, ``resid_pdrop`` and
 ``attn_pdrop`` are kept as the TPU package keeps them (its gpt.py:48-50);
 as there, dropout applies only when a forward is called with
-``deterministic=False``, which raises until slice 6 brings dropout.
+``deterministic=False``: ``attn_pdrop`` in every layer's attention (the
+attention kernels' dropout instantiations in bf16 on the card), each
+layer's seed drawn from the caller's ``dropout_generator``. Embedding and
+residual dropout raise ``ValueError("dropout_p > 0 requires a seed")``
+there, as the TPU package's model does: its GPTModel hands every block
+``seeds=(None, None)`` (its gpt.py:269).
 GPT-2 weights load from Hugging Face (:func:`gpt2_config_to_gpt_config`,
 :func:`remap_state_dict_hf_gpt2`) or a Megatron-LM checkpoint
 (:func:`remap_state_dict_megatron`); utils/pretrained.py reads local files.
@@ -41,10 +46,10 @@ from torch import nn
 
 from ..modules.block import Block, _Norm
 from ..modules.embedding import GPT2Embeddings
-from ..modules.mha import MHA
+from ..modules.mha import MHA, draw_dropout_seed
 from ..modules.linear import make_linear
 from ..modules.mlp import GatedMlp, Mlp
-from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT
+from ..ops.flash_attention.common import CUDA_DTYPE_NOT_PORTED
 from ..ops.flash_attention.remat import REMAT_POLICIES, checkpoint_block
 from ..ops.quant import QUANT_DTYPES, QuantizedKV, pack_int4, quantize_weight
 from ..utils.generation import GenerationMixin
@@ -75,7 +80,8 @@ class GPTConfig:
     rotary_emb_interleaved: bool = False
     window_size: Tuple[int, int] = (-1, -1)
     attn_softcap: float = 0.0
-    # dropout, applied only by a forward with deterministic=False (slice 6)
+    # dropout, applied only by a forward with deterministic=False; the
+    # embedding and residual rates then raise, as in the TPU package
     embd_pdrop: float = 0.0
     resid_pdrop: float = 0.0
     attn_pdrop: float = 0.0
@@ -129,7 +135,8 @@ def _mixer(c: GPTConfig, device) -> MHA:
         window_size=c.window_size, softcap=c.attn_softcap,
         rotary_emb_dim=rotary_dim, rotary_emb_base=c.rotary_emb_base,
         rotary_emb_interleaved=c.rotary_emb_interleaved,
-        dtype=c.dtype, device=device, weight_quant_dtype=c.weight_quant)
+        dropout=c.attn_pdrop, dtype=c.dtype, device=device,
+        weight_quant_dtype=c.weight_quant)
 
 
 def _mlp(c: GPTConfig, device) -> nn.Module:
@@ -169,10 +176,15 @@ class GPTModel(nn.Module):
                              device=device) if c.prenorm else None)
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset=0, segment_ids=None, deterministic=True):
+                seqlen_offset=0, segment_ids=None, deterministic=True,
+                dropout_generator: Optional[torch.Generator] = None):
         """Returns (hidden_states, kv_caches). seqlen_offset: int or (b,)
         tensor. ``deterministic`` False asks for the config's dropout (JAX
-        gpt.py:180), which raises while a pdrop is set (slice 6). Dense caches are written in place; a layer's PagedKVCache
+        gpt.py:180): ``attn_pdrop`` in each layer's attention, keyed on a
+        seed per layer drawn from ``dropout_generator`` before the layers
+        run (so that a rematerialised block redraws nothing); with
+        ``embd_pdrop`` or ``resid_pdrop`` set it raises the TPU package's
+        ``ValueError``. Dense caches are written in place; a layer's PagedKVCache
         comes back with advanced lengths and replaces its entry of the
         ``kv_caches`` list, which is returned. segment_ids: (b, s) ids of
         packed sequences, the queries' and the keys' of every layer's
@@ -180,12 +192,13 @@ class GPTModel(nn.Module):
         no caches, each block runs under checkpointing with
         ``config.remat_policy`` (JAX gpt.py:228)."""
         c = self.config
-        if not deterministic and max(c.embd_pdrop, c.resid_pdrop,
-                                     c.attn_pdrop) > 0.0:
-            raise NotImplementedError(
-                f"dropout (deterministic=False with embd_pdrop "
-                f"{c.embd_pdrop}, resid_pdrop {c.resid_pdrop}, attn_pdrop "
-                f"{c.attn_pdrop}) not ported yet: {SLICE_DROPOUT}")
+        seeds = [None] * len(self.layers)
+        if not deterministic:
+            if max(c.embd_pdrop, c.resid_pdrop) > 0.0:
+                raise ValueError("dropout_p > 0 requires a seed")
+            if c.attn_pdrop > 0.0:
+                seeds = [draw_dropout_seed(dropout_generator)
+                         for _ in self.layers]
         hidden = self.embeddings(input_ids, position_ids,
                                  seqlen_offset=seqlen_offset)
         residual = None
@@ -194,7 +207,7 @@ class GPTModel(nn.Module):
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
             args = (hidden, residual, cache, seqlen_offset, segment_ids,
-                    segment_ids)
+                    segment_ids, deterministic, seeds[i])
             if remat:
                 hidden, residual, cache = checkpoint_block(
                     layer, self.config.remat_policy, *args)
@@ -241,12 +254,14 @@ class GPTLMHeadModel(GenerationMixin, nn.Module):
         return self.transformer.embeddings.word_embeddings.weight.device
 
     def forward(self, input_ids, position_ids=None, *, kv_caches=None,
-                seqlen_offset=0, segment_ids=None, deterministic=True):
-        """Returns (logits (b, s, padded_vocab), kv_caches)."""
+                seqlen_offset=0, segment_ids=None, deterministic=True,
+                dropout_generator: Optional[torch.Generator] = None):
+        """Returns (logits (b, s, padded_vocab), kv_caches); dropout as
+        :meth:`GPTModel.forward`."""
         hidden, kv_caches = self.transformer(
             input_ids, position_ids, kv_caches=kv_caches,
             seqlen_offset=seqlen_offset, segment_ids=segment_ids,
-            deterministic=deterministic)
+            deterministic=deterministic, dropout_generator=dropout_generator)
         if self.lm_head is None:
             logits = nn.functional.linear(
                 hidden, self.transformer.embeddings.word_embeddings.weight)

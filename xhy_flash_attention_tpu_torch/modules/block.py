@@ -53,12 +53,15 @@ class Block(nn.Module):
         self.norm2 = _Norm(dim, rms_norm, norm_eps, device=device)
 
     def forward(self, hidden_states, residual=None, kv_cache=None,
-                seqlen_offset=0, q_segment_ids=None, kv_segment_ids=None):
+                seqlen_offset=0, q_segment_ids=None, kv_segment_ids=None,
+                deterministic: bool = True, dropout_seed=None):
         """Returns (hidden_states, residual, kv_cache). residual is the
         running residual stream (None into the first block; None out of a
-        postnorm block). The segment ids go to the mixer's attention."""
+        postnorm block). The segment ids, ``deterministic`` and the
+        attention dropout's ``dropout_seed`` go to the mixer."""
         segs = dict(q_segment_ids=q_segment_ids,
-                    kv_segment_ids=kv_segment_ids)
+                    kv_segment_ids=kv_segment_ids,
+                    deterministic=deterministic, dropout_seed=dropout_seed)
         if not self.prenorm:
             attn_out, kv_cache = self.mixer(hidden_states, kv_cache,
                                             seqlen_offset, **segs)

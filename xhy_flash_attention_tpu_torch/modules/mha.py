@@ -23,6 +23,13 @@ an int would be baked into the graph.
 ``weight_quant_dtype`` ("int8" / "int4") makes Wqkv and out_proj
 QuantDense projections (the TPU package's mha.py:99-127).
 
+``dropout`` is the attention dropout rate, applied by a forward with
+``deterministic=False`` (the TPU package's mha.py:186-195, 261-265) in the
+attention of a call without a cache or of a prefill: with the
+``dropout_seed`` given, or else a seed drawn from the caller's
+``dropout_generator`` (a ``torch.Generator``, the counterpart of the TPU
+package's "dropout" rng stream), uniform in [0, 2^31 - 1) as there.
+
 The TPU package returns new caches; here dense caches and pages are written
 in place and the same tensors are returned. A paged cache comes back as a
 new PagedKVCache over the same pages, with advanced lengths
@@ -47,7 +54,18 @@ from ..ops.flash_attention.fused_heads import (
 from ..ops.flash_attention.interface import flash_attention
 from .linear import RowParallelDense, make_linear
 
-__all__ = ["MHA"]
+__all__ = ["MHA", "draw_dropout_seed"]
+
+
+def draw_dropout_seed(generator: Optional[torch.Generator]) -> int:
+    """An attention dropout seed uniform in [0, 2^31 - 1) from the caller's
+    ``generator`` (the TPU package's randint on its "dropout" rng stream,
+    mha.py:188-190), read on the host; ``ValueError`` without one."""
+    if generator is None:
+        raise ValueError("dropout_p > 0 requires a seed: pass dropout_seed "
+                         "or dropout_generator")
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device))
 
 
 class MHA(nn.Module):
@@ -66,6 +84,7 @@ class MHA(nn.Module):
         rotary_emb_dim: int = 0,
         rotary_emb_base: float = 10000.0,
         rotary_emb_interleaved: bool = False,
+        dropout: float = 0.0,
         *,
         dtype=torch.float32,
         device="cuda",
@@ -82,6 +101,7 @@ class MHA(nn.Module):
         self.causal = causal
         self.window_size = tuple(window_size)
         self.softcap = softcap
+        self.dropout = dropout
         self.rotary_emb_dim = rotary_emb_dim
         self.rotary_emb_interleaved = rotary_emb_interleaved
         self.Wqkv = make_linear(embed_dim, (h + 2 * hk) * d, qkv_proj_bias,
@@ -93,7 +113,9 @@ class MHA(nn.Module):
                        if rotary_emb_dim > 0 else None)
 
     def forward(self, x, kv_cache=None, seqlen_offset=0, *,
-                q_segment_ids=None, kv_segment_ids=None):
+                q_segment_ids=None, kv_segment_ids=None,
+                deterministic: bool = True, dropout_seed=None,
+                dropout_generator: Optional[torch.Generator] = None):
         """x: (batch, seqlen, embed_dim). Returns (out, kv_cache).
 
         kv_cache: (k_cache, v_cache), each a (batch, hk, max_seqlen, d)
@@ -102,9 +124,13 @@ class MHA(nn.Module):
         (batch,) tensor. q_segment_ids / kv_segment_ids: (batch, seqlen)
         ids for packed sequences (only equal ids attend), read by the
         attention of a prefill or a call without a cache.
+        ``deterministic`` False applies ``self.dropout`` there, keyed on
+        ``dropout_seed`` or on a seed drawn from ``dropout_generator``
+        (one of them is needed; ``ValueError`` else).
         """
         b, sq, _ = x.shape
         h, hk, d = self.h, self.hk, self.d
+        drop = self._dropout(deterministic, dropout_seed, dropout_generator)
         qkv = self.Wqkv(x)
         segs = (q_segment_ids, kv_segment_ids)
         if (kv_cache is None and self.rotary is None and h == hk
@@ -115,7 +141,7 @@ class MHA(nn.Module):
             out = packed_qkv_attention(
                 qkv, num_heads=h, num_heads_kv=hk, head_dim=d,
                 softmax_scale=self.softmax_scale, causal=self.causal,
-                softcap=self.softcap)
+                softcap=self.softcap, **drop)
             return self.out_proj(out), None
         q = qkv[..., : h * d].view(b, sq, h, d)
         k = qkv[..., h * d: (h + hk) * d].view(b, sq, hk, d)
@@ -134,13 +160,13 @@ class MHA(nn.Module):
                                      window_size=self.window_size,
                                      softcap=self.softcap)
         elif kv_cache is None:
-            out = self._attend(q, k, v, *segs)
+            out = self._attend(q, k, v, *segs, **drop)
         else:
             k_cache, v_cache = kv_cache
             write_kv(k_cache, k, seqlen_offset)
             write_kv(v_cache, v, seqlen_offset)
             if isinstance(seqlen_offset, int) and seqlen_offset == 0:
-                out = self._attend(q, k, v, *segs)
+                out = self._attend(q, k, v, *segs, **drop)
             else:
                 if isinstance(seqlen_offset, torch.Tensor):
                     lengths = (seqlen_offset.to(torch.int32) + sq).expand(
@@ -153,17 +179,27 @@ class MHA(nn.Module):
                     window_size=self.window_size, softcap=self.softcap)
         return self.out_proj(out.reshape(b, sq, h * d)), kv_cache
 
-    def _attend(self, q, k, v, q_seg=None, kv_seg=None):
+    def _dropout(self, deterministic: bool, seed, generator) -> dict:
+        """The attention's dropout keywords: none when deterministic or
+        the rate is 0; else the rate and ``seed``, or one drawn from
+        ``generator`` (the TPU package's randint(0, 2^31 - 1))."""
+        if deterministic or self.dropout <= 0.0:
+            return {}
+        if seed is None:
+            seed = draw_dropout_seed(generator)
+        return dict(dropout_p=self.dropout, dropout_seed=seed)
+
+    def _attend(self, q, k, v, q_seg=None, kv_seg=None, **drop):
         if (q_seg is None and kv_seg is None
                 and packed_heads_supported(
                     q.shape, k.shape, causal=self.causal,
                     window_size=self.window_size, softcap=self.softcap)):
             return packed_heads_attention(
                 q, k, v, softmax_scale=self.softmax_scale, causal=self.causal,
-                softcap=self.softcap)
+                softcap=self.softcap, **drop)
         out = flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), None,
             q_seg, kv_seg, softmax_scale=self.softmax_scale,
             causal=self.causal, window_size=self.window_size,
-            softcap=self.softcap)
+            softcap=self.softcap, **drop)
         return out.transpose(1, 2)

@@ -52,12 +52,15 @@ _MASK_ARGS = ([_c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
 # XFA_BIAS_ARGS of csrc/common.cuh: the attention bias's pointer, batch,
 # head and row strides and dtype code
 _BIAS_ARGS = [_c_void_p] + [_c_int64] * 3 + [_c_int]
+# XFA_DROPOUT_ARGS of csrc/common.cuh: on, the seed's 32 bits, the keep
+# threshold and 1 / (1 - p) (ops common.py Dropout.c_args)
+_DROPOUT_ARGS = [_c_int, ctypes.c_uint32, ctypes.c_uint32, _c_float]
 # the backward's (and the forward's, after its own arguments): the mask
 # arguments, then the FlashMask bands, the masked kernels' three counters,
-# the bias and the stream
+# the bias, dropout and the stream
 _BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
              + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
-             + _BIAS_ARGS + [_c_void_p])
+             + _BIAS_ARGS + _DROPOUT_ARGS + [_c_void_p])
 _SIGNATURES = {
     "xfa_ln_fwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p,
                    _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
@@ -68,7 +71,7 @@ _SIGNATURES = {
                    _c_int, _c_int, _c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
-    + _BIAS_ARGS + [_c_void_p],
+    + _BIAS_ARGS + _DROPOUT_ARGS + [_c_void_p],
     "xfa_flash_fwd_fp8": [_c_void_p] * 8 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int, _c_int, _c_void_p],
     "xfa_flash_bwd_prep": [_c_void_p] * 5 + [_c_int64] * 9 + [_c_int] * 4

@@ -6,7 +6,8 @@ package, turns (query block, key block) pairs on or off. On CUDA tensors the
 forward and both backward kernels read the mask at its own granularity and
 skip every off tile before loading it (the kernels' tiles of 32 or 64 divide
 any such block); on CPU tensors the plain versions apply the dense mask.
-Combines with causal masking. Dropout comes with slice 6.
+Combines with causal masking and dropout (the kernels' masked dropout
+instantiations).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import SLICE_DROPOUT, block_keep_mask, cdiv
+from .common import block_keep_mask, cdiv
+from .fwd import check_supported
 from .interface import attention
 
 __all__ = [
@@ -48,14 +50,12 @@ def blocksparse_attention(
     block_mask: (b|1, hm|1, ceil(sq/gq), ceil(sk/gk)) 0/1, or a 2-D mask
     shared by every batch element and head; an off block is skipped entirely.
     Granularities must be multiples of 128. Differentiable in q, k, v.
+    dropout_p > 0 needs ``dropout_seed`` (as interface.flash_attention).
     """
     gq, gk = _pair(block_size)
     if gq % 128 or gk % 128:
         raise ValueError(f"block_size must be multiples of 128, got {block_size}")
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            f"blocksparse_attention: dropout not ported yet: {SLICE_DROPOUT}")
-    del dropout_seed
+    check_supported(q, None, dropout_p, "blocksparse_attention")
     sq, sk = q.shape[2], k.shape[2]
     bm = torch.as_tensor(block_mask, device=q.device).to(torch.int32)
     if bm.dim() == 2:
@@ -64,7 +64,8 @@ def blocksparse_attention(
     if tuple(bm.shape[2:]) != expect:
         raise ValueError(f"block_mask {tuple(bm.shape[2:])} != expected {expect}")
     return attention(q, k, v, softmax_scale=softmax_scale, causal=causal,
-                     masks=dict(block_mask=(bm, gq, gk)))
+                     masks=dict(block_mask=(bm, gq, gk)),
+                     dropout_p=dropout_p, dropout_seed=dropout_seed)
 
 
 def blockmask_to_dense(block_mask: torch.Tensor, seqlen_q: int, seqlen_k: int,

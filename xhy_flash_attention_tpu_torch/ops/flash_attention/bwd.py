@@ -30,22 +30,28 @@ tiles :func:`bwd_masked_dkv_tile_plan` and :func:`bwd_masked_dq_tile_plan`
 with ``fp32`` mirror), and with a bias their bias instantiations, with
 dbias from flash_fp32.cu's own dbias kernel (:func:`flash_bwd_dbias_fp32`,
 which :func:`flash_bwd_dbias` runs for fp32 q_s), by the bf16 kernel's
-rules.
+rules. With the forward's dropout (a :class:`common.Dropout`) the bf16
+kernels' dropout instantiations regenerate its keep mask element by
+element (dP masked and scaled, dV from the dropped P; the pre-pass is
+unchanged, since O already carries the dropout).
 """
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _cuda
-from .common import CUDA_DTYPE_NOT_PORTED, KernelMasks, cdiv, expand_heads
+from .common import (CUDA_DTYPE_NOT_PORTED, Dropout, KernelMasks, cdiv,
+                     expand_heads)
 from .common import kernel_tiles
 from .fwd import (F32, MASK_PART, MaskTiles, bias_view, build_masks,
                   check_supported, check_tile_counts, cut_to_range,
-                  elementwise_first, fp32_window, kernel_bias, key_tile_plan,
+                  dropout_instance, elementwise_first, fp32_window,
+                  kernel_bias, key_tile_plan,
                   masked_counters, masked_row_block_plan, masked_window,
                   pair_schedule)
 
@@ -214,7 +220,8 @@ def bwd_schedule(which: str, sq: int, sk: int, h: int, hk: int, b: int,
 
 
 def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
-                      causal: bool, softcap: float, mask=None, bias=None):
+                      causal: bool, softcap: float, mask=None, bias=None,
+                      dropout: Optional[Dropout] = None):
     """Plain version of the kernels on (b, h, s, d) tensors of any strides.
 
     P = exp(S - LSE) is rebuilt from the forward's LSE with the forward's
@@ -226,6 +233,11 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
     group; with a bias also dbias = P (dP - delta) (the scores' gradient
     before the softcap derivative: the bias enters after softcap), summed
     in fp32 over the axes it broadcasts, (bb, bh, sq, sk) in its dtype.
+    With ``dropout`` (the forward's :class:`common.Dropout`), as the TPU
+    kernels (bwd.py:158-172): dP is 0 where the mask drops and scaled by
+    1 / (1 - p) where it keeps, dS = P (dP - delta) with the undropped P,
+    and dV takes the dropped P, its scale applied to dV (the kernel's
+    epilogue).
     """
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -251,6 +263,9 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
     dof = do.float()
     delta = (dof * out.float()).sum(-1, keepdim=True)
     dp = dof @ vf.transpose(-1, -2)
+    if dropout is not None:
+        keep = dropout.keep(b, h, sq, sk, q.device)
+        dp = torch.where(keep, dp * dropout.scale, 0.0)
     ds = p * (dp - delta)
     dbias = None
     if bias is not None:
@@ -258,9 +273,13 @@ def attention_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
         dbias = (ds.sum(dims, keepdim=True) if dims else ds).to(bias.dtype)
     if th is not None:
         ds = ds * (1.0 - th * th)
+    if dropout is not None:
+        p = p.masked_fill(~keep, 0.0)
     p = p.to(v.dtype).float()
     ds = ds.to(dt).float()
     dv = p.transpose(-1, -2) @ dof
+    if dropout is not None:
+        dv = dv * dropout.scale
     dk = ds.transpose(-1, -2) @ qs.float()
     dq = (ds @ kf) * sm_scale
     if g > 1:
@@ -336,7 +355,7 @@ def launch_flash_bwd_fp32(which: str, q, k, v, do, lse, delta, dq, dk, dv,
 def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
                      sm_scale: float, causal: bool, softcap: float,
                      masks: KernelMasks = None, tile_counts=None,
-                     bias=None) -> None:
+                     bias=None, dropout: Optional[Dropout] = None) -> None:
     """Launch one kernel of csrc/flash_bwd.cu (``which``: "dkv" writes dk
     and dv, "dq" writes dq) on (b, h, s, d)-shaped views of any strides
     (head dim contiguous, pointers and strides multiples of 16 bytes): q,
@@ -351,9 +370,16 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
     test, as :func:`bwd_masked_dkv_tile_plan` / :func:`bwd_masked_dq_tile_plan`
     count them. ``bias``: the forward's (bb, bh, sq, sk) bias or None; it
     runs the bias instantiations, which read it to rebuild P (dbias is
-    :func:`flash_bwd_dbias`'s). float32 tensors go to
-    :func:`launch_flash_bwd_fp32` (the bias too). The callers count the
-    launch."""
+    :func:`flash_bwd_dbias`'s). ``dropout``: the forward's
+    :class:`common.Dropout` or None; it runs the dropout instantiations
+    (bf16, no bias), which regenerate the forward's keep mask in the
+    accumulators (dP masked and scaled, dV's P dropped, its scale in the
+    epilogue); ``launch_flash_bwd.dropout_launches`` counts their
+    launches by kernel and instantiation ("dkv d64", "dq d128 masked").
+    float32 tensors go to :func:`launch_flash_bwd_fp32` (the bias too).
+    The callers count the launch."""
+    if dropout is not None:
+        check_supported(q, bias, dropout.p, f"flash_bwd_{which}")
     if q.dtype == F32:
         launch_flash_bwd_fp32(which, q, k, v, do, lse, delta, dq, dk, dv,
                               sm_scale=sm_scale, softcap=softcap,
@@ -384,8 +410,15 @@ def launch_flash_bwd(which: str, q, k, v, do, lse, delta, dq, dk, dv, *,
               b, h, hk, sq, sk, d, float(sm_scale), float(softcap),
               int(causal), *KernelMasks.c_args(masks, causal, which, d),
               _cuda.ptr(masks.bands() if masked else None),
-              _cuda.ptr(counters), *bias_args, _cuda.stream())
+              _cuda.ptr(counters), *bias_args, *Dropout.c_args(dropout),
+              _cuda.stream())
     _cuda.check(code, f"flash_bwd_{which}")
+    if dropout is not None:
+        launch_flash_bwd.dropout_launches[
+            f"{which} {dropout_instance(d, masked)}"] += 1
+
+
+launch_flash_bwd.dropout_launches = collections.Counter()
 
 
 def flash_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool,
@@ -540,6 +573,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
                         causal: bool = False,
                         window_size: Tuple[int, int] = (-1, -1),
                         softcap: float = 0.0, dropout_p: float = 0.0,
+                        dropout_seed=None,
                         flashmask_vecs=None, flashmask_mode=None,
                         block_mask=None, q_positions=None, kv_positions=None,
                         masks: KernelMasks = None, need_dqkv: bool = True,
@@ -555,9 +589,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
     `flash_attention_fwd`), or ``masks`` as :func:`fwd.build_masks` made
     them (then ``causal`` must be the flag it returned). ``need_dqkv`` and
     ``need_dbias`` False leave (dq, dk, dv) or dbias None, and their
-    kernels unlaunched.
+    kernels unlaunched. ``dropout_p`` and ``dropout_seed`` are the
+    forward's (fwd.py `flash_attention_fwd`); the backward regenerates its
+    keep mask.
     """
-    check_supported(dropout_p, "flash_attention_bwd")
+    check_supported(q, bias, dropout_p, "flash_attention_bwd")
+    drop = Dropout.make(dropout_p, dropout_seed)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     bias4 = None if bias is None else bias_view(bias, b, h, sq, sk)
@@ -570,7 +607,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
     if q.device.type == "cpu":
         grads = attention_bwd_ref(q, k, v, out, lse, do, sm_scale=sm_scale,
                                   causal=causal, softcap=softcap,
-                                  mask=masks.keep(h), bias=bias4)
+                                  mask=masks.keep(h), bias=bias4,
+                                  dropout=drop)
         if not need_dqkv:
             grads = (None,) * 3 + grads[3:]
         if bias is None:
@@ -598,7 +636,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, bias=None, q_segment_ids=None,
             flash_bwd_dq_fp32(*args, **kw)
         else:
             kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
-                      masks=masks, bias=bias4)
+                      masks=masks, bias=bias4, dropout=drop)
             flash_bwd_dkv(*args, **kw)
             flash_bwd_dq(*args, **kw)
     if bias is None:

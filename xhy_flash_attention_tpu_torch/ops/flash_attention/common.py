@@ -14,6 +14,13 @@ everywhere and bypass the elementwise band test on tiles masked nowhere.
 DMA descriptors, while the CUDA kernels read the block mask at its own
 granularity.
 
+Attention dropout (`common.py:120-144` in the JAX package): the keep mask
+is a counter-based hash of (seed, salt, global row, global column), so the
+forward and the backward, with their different tilings, regenerate the
+same mask; :func:`dropout_keep_mask` is its bit-exact plain version and
+:class:`Dropout` the form in which the kernels and their plain versions
+take it.
+
 Sliding windows, segment ids and q/kv positions (`common.py:286-330` in
 the JAX package, its forward `fwd.py:602-635`): a window bounds the keys of
 each row, bottom-right aligned (key c visible to row r when r + offset -
@@ -29,6 +36,7 @@ tiles its producer considers.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -41,7 +49,8 @@ NEG_INF = DEFAULT_MASK_VALUE
 # ROADMAP.md queue B). What is not ported yet names the slice that brings
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
-SLICE_DROPOUT = "slice 6 (dropout) " + NEXT_SLICES
+SLICE_DROPOUT = ("slice 6's rest (dropout in fp32 or with an attention bias "
+                 "on the card, and in the fused norm) " + NEXT_SLICES)
 SLICE_DTYPES = ("slice 7b (fp16 inputs to the CUDA attention kernels) "
                 + NEXT_SLICES)
 SLICE_MODELS = ("slice 8 (the other models and the vision trainer) "
@@ -93,6 +102,103 @@ class BlockSizes:
         change them)."""
         del seqlen_q, seqlen_k, dtype
         return BlockSizes(block_k_dq=128 if head_dim == 64 else 64)
+
+
+# ------------------------------------------------------------------ dropout
+
+_U32 = 0xFFFFFFFF
+# the hash's multipliers (JAX common.py:133-141; csrc/common.cuh)
+DROP_ROW, DROP_COL, DROP_SALT = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
+DROP_MIX1, DROP_MIX2 = 0x7FEB352D, 0x846CA68B
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 of int64 ``x`` in [0, 2^32) with no int64 overflow:
+    c's low and high 16 bits apart (each partial product below 2^48)."""
+    hi = x * (c >> 16)
+    hi &= 0xFFFF
+    hi <<= 16
+    hi += x * (c & 0xFFFF)
+    return hi.bitwise_and_(_U32)
+
+
+def dropout_threshold(dropout_p: float) -> int:
+    """The uint32 threshold of keep probability 1 - p: an element is kept
+    when its hash is at or above it (JAX common.py:142)."""
+    return min(int(dropout_p * 4294967296.0), 4294967295)
+
+
+def dropout_keep_mask(seed, salt, rows, cols, dropout_p: float):
+    """Counter-based keep mask (True = keep), keyed on global positions,
+    bit for bit the JAX package's (common.py:120-144): a Weyl-sequence mix
+    of (row, col, seed ^ salt * C) and a Murmur3-style finalizer, all in
+    uint32, emulated here in int64 with every product reduced to 32 bits.
+    seed, salt: ints or int tensors (any sign: their low 32 bits, as
+    JAX's int32 -> uint32 cast); rows, cols: int tensors of global row and
+    column ids, broadcast against each other and the salt."""
+    dev = rows.device if isinstance(rows, torch.Tensor) else None
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=dev) & _U32
+    salt = torch.as_tensor(salt, dtype=torch.int64, device=dev) & _U32
+    rows = torch.as_tensor(rows, device=dev).long() & _U32
+    cols = torch.as_tensor(cols, device=dev).long() & _U32
+    x = (_mul_u32(rows, DROP_ROW) + _mul_u32(cols, DROP_COL)
+         + (seed ^ _mul_u32(salt, DROP_SALT))).bitwise_and_(_U32)
+    for shift, mix in ((16, DROP_MIX1), (15, DROP_MIX2)):
+        x ^= x >> shift
+        x = _mul_u32(x, mix)
+    x ^= x >> 16
+    return x >= dropout_threshold(dropout_p)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dropout:
+    """Attention dropout as the kernels and their plain versions take it:
+    rate ``p`` (0 < p < 1) and the seed's low 32 bits. The mask of query
+    head ``head`` of batch row ``batch`` (h query heads) has salt batch *
+    h + head, so every head of a GQA group has its own (JAX
+    fwd.py:323-326); rows and columns are the positions in the (b, h, s,
+    d) tensors (the packed positions under varlen). Kept elements of P are
+    scaled by 1 / (1 - p): the kernels fold it into the output's (dV's)
+    epilogue and into dP."""
+
+    p: float
+    seed: int
+
+    @staticmethod
+    def make(dropout_p: float, dropout_seed) -> Optional[Dropout]:
+        """None for ``dropout_p`` <= 0; ``ValueError`` without a seed (as
+        the JAX package's interface.py:173-174). ``dropout_seed``: an int
+        or a one-element int tensor (read on the host)."""
+        if dropout_p <= 0.0:
+            return None
+        if dropout_seed is None:
+            raise ValueError("dropout_p > 0 requires dropout_seed")
+        return Dropout(float(dropout_p), int(dropout_seed) & _U32)
+
+    @property
+    def threshold(self) -> int:
+        return dropout_threshold(self.p)
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / (1.0 - self.p)
+
+    def keep(self, b: int, h: int, sq: int, sk: int, device=None):
+        """The (b, h, sq, sk) keep mask of every (batch, query head)."""
+        salt = (torch.arange(b, device=device)[:, None] * h
+                + torch.arange(h, device=device)[None, :])
+        rows = torch.arange(sq, device=device)[:, None]
+        cols = torch.arange(sk, device=device)[None, :]
+        return dropout_keep_mask(self.seed, salt[..., None, None], rows,
+                                 cols, self.p)
+
+    @staticmethod
+    def c_args(drop: Optional[Dropout]) -> tuple:
+        """XFA_DROPOUT_ARGS of csrc/common.cuh: on, seed, threshold, scale
+        (all 0 without dropout)."""
+        if drop is None:
+            return 0, 0, 0, 0.0
+        return 1, drop.seed, drop.threshold, drop.scale
 
 
 def cdiv(a: int, b: int) -> int:

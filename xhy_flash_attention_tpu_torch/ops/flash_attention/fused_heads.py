@@ -19,7 +19,9 @@ tensors the plain versions :func:`fused_heads_fwd_ref` and
 :func:`fused_heads_bwd_ref` run.
 
 Scope, as in the TPU package: sq == sk <= MAX_SEQ, causal or full, softcap,
-MQA/GQA; no bias, windows or segments. Dropout comes with slice 6.
+MQA/GQA, dropout (the kernels' dropout instantiations, the salt of batch
+row b and query head i being b * h + i as in the TPU package's
+fused_heads.py:86-87); no bias, windows or segments.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 
 from .. import _cuda
 from .bwd import attention_bwd_ref, flash_bwd_prep, launch_flash_bwd
-from .common import SLICE_DROPOUT
-from .fwd import attention_fwd_ref, launch_flash_fwd
+from .common import Dropout
+from .fwd import attention_fwd_ref, check_supported, launch_flash_fwd
 from .remat import saved_attention
 
 __all__ = [
@@ -75,25 +77,29 @@ def _bhsd(*ts):
 
 
 def fused_heads_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
-                        softcap: float, need_lse: bool = False):
+                        softcap: float, need_lse: bool = False,
+                        dropout: Optional[Dropout] = None):
     """Plain version on (b, s, h, d) / (b, s, hk, d) views; returns
     (b, s, h, d), and with ``need_lse`` also the fp32 (b, h, s) LSE."""
     out, lse = attention_fwd_ref(
         *_bhsd(q, k, v), sm_scale=sm_scale, causal=causal, softcap=softcap,
-        need_lse=need_lse)
+        need_lse=need_lse, dropout=dropout)
     out = out.transpose(1, 2)
     return (out, lse) if need_lse else out
 
 
 def fused_heads_fwd(q, k, v, *, sm_scale: float, causal: bool,
-                    softcap: float, need_lse: bool = False):
+                    softcap: float, need_lse: bool = False,
+                    dropout: Optional[Dropout] = None):
     """Kernel wrapper on (b, s, h, d) / (b, s, hk, d) views of the
     projection layout. Returns a contiguous (b, s, h, d) tensor, and with
-    ``need_lse`` also the fp32 (b, h, s) LSE.
+    ``need_lse`` also the fp32 (b, h, s) LSE. ``dropout``: a
+    :class:`common.Dropout` or None.
 
     ``fused_heads_fwd.launches`` counts kernel launches.
     """
-    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+              dropout=dropout)
     if q.device.type == "cpu":
         return fused_heads_fwd_ref(q, k, v, need_lse=need_lse, **kw)
     b, s, h, _ = q.shape
@@ -110,12 +116,12 @@ fused_heads_fwd.launches = 0
 
 def fused_heads_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
                         causal: bool, softcap: float, dq=None, dk=None,
-                        dv=None):
+                        dv=None, dropout: Optional[Dropout] = None):
     """Plain version of :func:`fused_heads_bwd`: the same gradients from
     `attention_bwd_ref`, copied into dq/dk/dv where they are given."""
     grads = attention_bwd_ref(*_bhsd(q, k, v, out), lse, do.transpose(1, 2),
                               sm_scale=sm_scale, causal=causal,
-                              softcap=softcap)
+                              softcap=softcap, dropout=dropout)
     grads = [g.transpose(1, 2) for g in grads]
     for dst, g in zip((dq, dk, dv), grads):
         if dst is not None:
@@ -125,18 +131,21 @@ def fused_heads_bwd_ref(q, k, v, out, lse, do, *, sm_scale: float,
 
 
 def fused_heads_bwd(q, k, v, out, lse, do, *, sm_scale: float, causal: bool,
-                    softcap: float, dq=None, dk=None, dv=None):
+                    softcap: float, dq=None, dk=None, dv=None,
+                    dropout: Optional[Dropout] = None):
     """Backward of the packed-layout attention on (b, s, h, d) / (b, s, hk,
     d) views: q/k/v and out of the forward, its fp32 (b, h, s) LSE and the
     output gradient do. dq/dk/dv, where given, are (b, s, ·, d) views to
     write (column ranges of a packed dqkv); the others are allocated.
-    Returns (dq, dk, dv).
+    ``dropout``: the forward's :class:`common.Dropout` or None. Returns
+    (dq, dk, dv).
 
     ``fused_heads_bwd.launches`` counts its entries on CUDA (each runs the
     pre-pass, counted by ``bwd.flash_bwd_prep.launches``, then the dK/dV
     and the dQ kernel).
     """
-    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+    kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+              dropout=dropout)
     if q.device.type == "cpu":
         return fused_heads_bwd_ref(q, k, v, out, lse, do, dq=dq, dk=dk,
                                    dv=dv, **kw)
@@ -159,18 +168,13 @@ def fused_heads_bwd(q, k, v, out, lse, do, *, sm_scale: float, causal: bool,
 fused_heads_bwd.launches = 0
 
 
-def _check(dropout_p):
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            f"dropout in packed attention comes with {SLICE_DROPOUT}")
-
-
 class _PackedHeads(torch.autograd.Function):
     """(b, s, h, d) q and (b, s, hk, d) k/v -> (b, s, h, d)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, softcap):
-        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+    def forward(ctx, q, k, v, sm_scale, causal, softcap, dropout):
+        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+                      dropout=dropout)
         out, lse = saved_attention(lambda: fused_heads_fwd(
             q, k, v, need_lse=True, **ctx.kw), q)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -180,7 +184,7 @@ class _PackedHeads(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = fused_heads_bwd(q, k, v, out, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def _split(qkv, h, hk, d):
@@ -195,8 +199,9 @@ class _PackedQKV(torch.autograd.Function):
     packed dqkv."""
 
     @staticmethod
-    def forward(ctx, qkv, h, hk, d, sm_scale, causal, softcap):
-        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap)
+    def forward(ctx, qkv, h, hk, d, sm_scale, causal, softcap, dropout):
+        ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
+                      dropout=dropout)
         ctx.heads = (h, hk, d)
         out, lse = saved_attention(lambda: fused_heads_fwd(
             *_split(qkv, h, hk, d), need_lse=True, **ctx.kw), qkv)
@@ -215,7 +220,7 @@ class _PackedQKV(torch.autograd.Function):
                         dout.reshape(b, s, h, d), **ctx.kw,
                         **dict(zip(("dq", "dk", "dv"),
                                    _split(dqkv, h, hk, d))))
-        return dqkv, None, None, None, None, None, None
+        return dqkv, None, None, None, None, None, None, None
 
 
 def _needs_grad(*ts):
@@ -227,13 +232,15 @@ def packed_heads_attention(q, k, v, *, softmax_scale: Optional[float] = None,
                            dropout_p: float = 0.0, dropout_seed=None):
     """Attention on (b, s, h, d) inputs without layout transposes. Returns
     (b, s, h, d); differentiable in q, k and v. The caller checks
-    :func:`packed_heads_supported` first."""
-    _check(dropout_p)
+    :func:`packed_heads_supported` first. dropout_p > 0 needs
+    ``dropout_seed`` (as interface.flash_attention)."""
+    check_supported(q, None, dropout_p, "packed_heads_attention")
     d = q.shape[-1]
     if softmax_scale is None:
         softmax_scale = d ** -0.5
     kw = dict(sm_scale=float(softmax_scale), causal=bool(causal),
-              softcap=float(softcap))
+              softcap=float(softcap),
+              dropout=Dropout.make(dropout_p, dropout_seed))
     if _needs_grad(q, k, v):
         return _PackedHeads.apply(q, k, v, *kw.values())
     return fused_heads_fwd(q, k, v, **kw)
@@ -245,8 +252,9 @@ def packed_qkv_attention(qkv, *, num_heads: int, num_heads_kv: int,
                          dropout_p: float = 0.0, dropout_seed=None):
     """Attention directly on the packed Wqkv output (b, s, (h + 2hk)*d) in
     [q | k | v] column order. Returns (b, s, h*d), ready for out_proj;
-    differentiable in qkv, whose gradient comes back packed."""
-    _check(dropout_p)
+    differentiable in qkv, whose gradient comes back packed. dropout_p > 0
+    needs ``dropout_seed``."""
+    check_supported(qkv, None, dropout_p, "packed_qkv_attention")
     h, hk, d = num_heads, num_heads_kv, head_dim
     b, s, w = qkv.shape
     if w != (h + 2 * hk) * d:
@@ -255,7 +263,8 @@ def packed_qkv_attention(qkv, *, num_heads: int, num_heads_kv: int,
     if softmax_scale is None:
         softmax_scale = d ** -0.5
     kw = dict(sm_scale=float(softmax_scale), causal=bool(causal),
-              softcap=float(softcap))
+              softcap=float(softcap),
+              dropout=Dropout.make(dropout_p, dropout_seed))
     if _needs_grad(qkv):
         return _PackedQKV.apply(qkv, h, hk, d, *kw.values())
     return fused_heads_fwd(*_split(qkv, h, hk, d), **kw).reshape(b, s, h * d)

@@ -32,21 +32,25 @@ FlashMask, block mask, segment ids or positions its masked instantiation
 fp32 kernel's key tiles: :func:`fwd_masked_tile_plan` with ``fp32``),
 and with an fp32 or bf16 bias its bias instantiation (dense or masked;
 not with a FlashMask or block mask), which reads the bias as the bf16
-kernel does. fp16 raises NotImplementedError
-(:data:`common.SLICE_DTYPES`), and so does dropout until slice 6.
+kernel does. Attention dropout (a :class:`common.Dropout`) runs the bf16
+kernel's dropout instantiations (dense or masked, no bias), which hash
+each element of P in the accumulators (:func:`common.dropout_keep_mask`);
+in float32 or beside a bias it raises NotImplementedError on the card
+(:func:`check_supported`), as fp16 does (:data:`common.SLICE_DTYPES`).
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from .. import _cuda
-from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, KernelMasks, cdiv,
-                     expand_heads, fm_skip_bypass, kernel_tiles,
-                     resolve_window)
+from .common import (CUDA_DTYPE_NOT_PORTED, SLICE_DROPOUT, Dropout,
+                     KernelMasks, cdiv, expand_heads, fm_skip_bypass,
+                     kernel_tiles, resolve_window)
 from .reference import attention_fp8_ref
 
 __all__ = ["attention_fwd_ref", "bias_c_args", "bias_view", "build_masks",
@@ -347,7 +351,8 @@ NO_BIAS = (None, 0, 0, 0, 0)  # XFA_BIAS_ARGS without a bias
 
 
 def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
-                      softcap: float, need_lse: bool, mask=None, bias=None):
+                      softcap: float, need_lse: bool, mask=None, bias=None,
+                      dropout: Optional[Dropout] = None):
     """Plain version of the kernel on (b, h, s, d) tensors of any strides.
 
     The same arithmetic as the kernel and the TPU kernels: q scaled in fp32
@@ -355,9 +360,12 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
     bh, sq, sk) in fp32 (:func:`bias_view`), bottom-right causal mask, the
     optional dense keep mask ``mask`` (b|1, hm|1, sq, sk), True = attend,
     head i reading mask head i // (h / hm), fp32 softmax with P rounded to
-    v's dtype for P.V, division by the fp32 row sum. Returns (out (b, h,
-    sq, d), lse (b, h, sq) fp32 | None); rows that see no key give 0 and
-    lse +inf.
+    v's dtype for P.V, division by the fp32 row sum. With ``dropout``
+    (:class:`common.Dropout`) the row sum and the LSE are the undropped
+    P's, the dropped elements of P are 0 in P.V, and the output is scaled
+    by 1 / (1 - p) with the division, as the kernel's epilogue does.
+    Returns (out (b, h, sq, d), lse (b, h, sq) fp32 | None); rows that see
+    no key give 0 and lse +inf.
     """
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -380,8 +388,12 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
     m = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
+    if dropout is not None:
+        p = p.masked_fill(~dropout.keep(b, h, sq, sk, q.device), 0.0)
     o = p.to(v.dtype).float() @ vf
     o = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    if dropout is not None:
+        o = o * dropout.scale
     lse = None
     if need_lse:
         lse = torch.where(l > 0, m + torch.log(l), math.inf)[..., 0]
@@ -390,7 +402,8 @@ def attention_fwd_ref(q, k, v, *, sm_scale: float, causal: bool,
 
 def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
                      softcap: float, masks: KernelMasks = None,
-                     tile_counts=None, bias=None) -> None:
+                     tile_counts=None, bias=None,
+                     dropout: Optional[Dropout] = None) -> None:
     """Launch csrc/flash_fwd.cu on (b, h, s, d)-shaped views of any strides
     (head dim contiguous): q, out (b, h, sq, d); k, v (b, hk, sk, d); lse
     (b, h, sq) fp32 contiguous or None; ``masks`` the FlashMask and block
@@ -404,9 +417,16 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
     them with the elementwise test, as :func:`fwd_masked_tile_plan` counts
     them. ``bias``: a (bb, bh, sq, sk) fp32 or bf16 bias (:func:`bias_view`)
     or None; it runs the bias instantiation, and takes no FlashMask or
-    block mask. float32 tensors go to :func:`launch_flash_fwd_fp32`
-    (``tile_counts`` as :func:`fwd_masked_tile_plan` with ``fp32`` counts
-    them; ``bias`` as here). The callers count the launch."""
+    block mask. ``dropout``: a :class:`common.Dropout` or None; it runs
+    the dropout instantiations (bf16, no bias), which hash each element of
+    P in the accumulators and fold 1 / (1 - p) into the epilogue;
+    ``launch_flash_fwd.dropout_launches`` counts their launches by
+    instantiation (:func:`dropout_instance`). float32
+    tensors go to :func:`launch_flash_fwd_fp32` (``tile_counts`` as
+    :func:`fwd_masked_tile_plan` with ``fp32`` counts them; ``bias`` as
+    here). The callers count the launch."""
+    if dropout is not None:
+        check_supported(q, bias, dropout.p, "flash_fwd")
     if q.dtype == F32:
         launch_flash_fwd_fp32(q, k, v, out, lse, sm_scale=sm_scale,
                               window=fp32_window(masks, causal),
@@ -442,8 +462,19 @@ def launch_flash_fwd(q, k, v, out, lse, *, sm_scale: float, causal: bool,
         b, h, hk, sq, sk, d, float(sm_scale), float(softcap), int(causal),
         *KernelMasks.c_args(masks, causal, "fwd", d),
         _cuda.ptr(masks.bands() if masked else None), _cuda.ptr(counters),
-        *bias_args, _cuda.stream())
+        *bias_args, *Dropout.c_args(dropout), _cuda.stream())
     _cuda.check(code, "flash_fwd")
+    if dropout is not None:
+        launch_flash_fwd.dropout_launches[dropout_instance(d, masked)] += 1
+
+
+launch_flash_fwd.dropout_launches = collections.Counter()
+
+
+def dropout_instance(d: int, masked: bool) -> str:
+    """The name of a dropout instantiation in the launch counts: its head
+    dim, and whether it is the masked one ("d64", "d128 masked")."""
+    return f"d{d} masked" if masked else f"d{d}"
 
 
 def check_tile_counts(tile_counts, device) -> None:
@@ -707,11 +738,16 @@ def check_fp8(q, k, v, bias, dropout_p, flags) -> None:
         raise ValueError(f"the fp8 forward takes no {named}")
 
 
-def check_supported(dropout_p, where: str) -> None:
-    """Raise on what the port lacks: dropout (slice 6)."""
-    if dropout_p > 0.0:
+def check_supported(q, bias, dropout_p, where: str) -> None:
+    """Raise on what the port lacks on the card, before any work: dropout
+    in float32 or beside an attention bias (:data:`common.SLICE_DROPOUT`;
+    the plain versions on CPU tensors take both). fp8 with dropout is
+    check_fp8's ``ValueError``, as in the TPU package."""
+    if dropout_p > 0.0 and q.device.type != "cpu" and (
+            q.dtype == F32 or bias is not None):
+        what = "float32" if q.dtype == F32 else "an attention bias"
         raise NotImplementedError(
-            f"{where}: dropout not ported yet: {SLICE_DROPOUT}")
+            f"{where}: dropout with {what} on the card: {SLICE_DROPOUT}")
 
 
 def build_masks(b: int, h: int, sq: int, sk: int, causal: bool,
@@ -789,6 +825,11 @@ def flash_attention_fwd(
     float32 q/k/v on the card run :func:`flash_fwd_fp32` (every flag, and
     the bias).
 
+    dropout_p > 0 drops elements of P by :func:`common.dropout_keep_mask`
+    keyed on ``dropout_seed`` (an int or a one-element int tensor); on the
+    card in bf16 without a bias (else ``NotImplementedError``,
+    :func:`check_supported`).
+
     ``flash_attention_fwd.launches`` counts the bf16 kernel's launches,
     ``flash_fwd_fp8.launches`` the e4m3 instantiation's,
     ``flash_fwd_fp32.launches`` the fp32 kernel's.
@@ -808,7 +849,8 @@ def flash_attention_fwd(
                              sm_scale=sm_scale, causal=causal,
                              window_size=window_size, softcap=softcap,
                              need_lse=need_lse)
-    check_supported(dropout_p, "flash_attention_fwd")
+    check_supported(q, bias, dropout_p, "flash_attention_fwd")
+    drop = Dropout.make(dropout_p, dropout_seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if bias is not None:
@@ -822,7 +864,7 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return attention_fwd_ref(q, k, v, sm_scale=sm_scale, causal=causal,
                                  softcap=softcap, need_lse=need_lse,
-                                 mask=masks.keep(h), bias=bias)
+                                 mask=masks.keep(h), bias=bias, dropout=drop)
     if q.dtype == F32:
         return flash_fwd_fp32(q, k, v, sm_scale=sm_scale,
                               window=fp32_window(masks, causal),
@@ -833,7 +875,7 @@ def flash_attention_fwd(
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
            if need_lse else None)
     launch_flash_fwd(q, k, v, out, lse, sm_scale=sm_scale, causal=causal,
-                     softcap=softcap, masks=masks, bias=bias)
+                     softcap=softcap, masks=masks, bias=bias, dropout=drop)
     flash_attention_fwd.launches += 1
     return out, lse
 

@@ -10,7 +10,9 @@ hands the same arguments to the backward, which calls
 `flash_attention_bwd` (the dK/dV and dQ kernels, and the dbias kernel when
 the bias needs its gradient). The same function carries the FlashMask and
 block-sparse entries (flashmask.py, blocksparse.py), sliding windows,
-segment ids and q/kv positions. Varlen is packed attention over a batch
+segment ids and q/kv positions, and attention dropout (``dropout_p`` and
+``dropout_seed`` handed to both passes, which regenerate one keep mask).
+Varlen is packed attention over a batch
 of 1, as in the TPU package (interface.py:365-433): segment ids from
 ``cu_seqlens``, and under a causal or windowed mask per-sequence positions
 aligned to the bottom right, all made on the device. Decode against a
@@ -27,7 +29,7 @@ import torch
 from ..decode import write_kv
 from ..quant import QuantizedKV
 from .bwd import flash_attention_bwd
-from .common import BlockSizes
+from .common import BlockSizes, Dropout
 from .decode_kernel import flash_decode
 from .fwd import (FP8, bias_view, build_masks, check_supported,
                   flash_attention_fwd)
@@ -45,14 +47,16 @@ class _FlashAttention(torch.autograd.Function):
     for both passes; ``causal`` the plain causal flag build_masks
     returned; ``bias`` an attention bias (fwd.bias_view's shapes) or None.
     The backward launches the dbias kernel only when the bias needs a
-    gradient, and the dK/dV and dQ kernels only when q, k or v does. Under
-    a rematerialised block the forward's (out, lse) are saved
-    (remat.saved_attention)."""
+    gradient, and the dK/dV and dQ kernels only when q, k or v does.
+    ``dropout_p`` and ``dropout_seed``: the same for both passes. Under a rematerialised block the forward's (out, lse) are
+    saved (remat.saved_attention)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, sm_scale, causal, softcap, masks):
+    def forward(ctx, q, k, v, bias, sm_scale, causal, softcap, masks,
+                dropout_p, dropout_seed):
         ctx.kw = dict(sm_scale=sm_scale, causal=causal, softcap=softcap,
-                      masks=masks)
+                      masks=masks, dropout_p=dropout_p,
+                      dropout_seed=dropout_seed)
         out, lse = saved_attention(lambda: flash_attention_fwd(
             q, k, v, bias, need_lse=True, **ctx.kw), q)
         ctx.save_for_backward(q, k, v, bias, out, lse)
@@ -67,25 +71,28 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, out, lse, dout, bias, need_dqkv=any(need[:3]),
             need_dbias=bias is not None and need[3], **ctx.kw)
         dbias = grads[3] if bias is not None else None
-        return (*grads[:3], dbias, None, None, None, None)
+        return (*grads[:3], dbias, None, None, None, None, None, None)
 
 
 def attention(q, k, v, *, softmax_scale: Optional[float], causal: bool,
               softcap: float = 0.0, return_lse: bool = False, masks=None,
-              window_size: Tuple[int, int] = (-1, -1), bias=None):
+              window_size: Tuple[int, int] = (-1, -1), bias=None,
+              dropout_p: float = 0.0, dropout_seed=None):
     """(b, h, s, d) attention through the autograd function when an input
     (the bias included) needs a gradient, else the forward alone.
     ``masks``: a dict of the forward's mask flags
     (``flashmask_vecs``/``flashmask_mode``, ``block_mask``,
     ``q_segment_ids``/``kv_segment_ids``, ``q_positions``/``kv_positions``)
-    or None. Returns out, or (out, lse) with ``return_lse``."""
+    or None. ``dropout_p`` / ``dropout_seed``: as :func:`flash_attention`.
+    Returns out, or (out, lse) with ``return_lse``."""
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     b, h, sq, _ = q.shape
     causal, kmasks = build_masks(b, h, sq, k.shape[2], causal, window_size,
                                  **(masks or {}))
     kw = dict(sm_scale=float(softmax_scale), causal=causal,
-              softcap=float(softcap), masks=kmasks)
+              softcap=float(softcap), masks=kmasks,
+              dropout_p=float(dropout_p), dropout_seed=dropout_seed)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
         out, lse = _FlashAttention.apply(q, k, v, bias, *kw.values())
@@ -122,13 +129,18 @@ def flash_attention(
     int): only equal ids attend. q_positions / kv_positions ((b, sq) / (b,
     sk) int): the causal and window bounds apply to the positions instead
     (kpos <= qpos + right, kpos >= qpos - left), as ring attention and
-    varlen with different q/k packings use them. The CUDA tiles are fixed
-    per head dim, so ``block_sizes`` is accepted and ignored.
+    varlen with different q/k packings use them. dropout_p > 0 drops
+    elements of the attention probabilities by the keep mask
+    :func:`common.dropout_keep_mask` keyed on ``dropout_seed`` (an int or a
+    one-element int tensor, required), the same in the backward; on the
+    card in bf16 without a bias (``NotImplementedError`` else). The CUDA
+    tiles are fixed per head dim, so ``block_sizes`` is accepted and
+    ignored.
     """
     del block_sizes
     if dropout_p > 0.0 and FP8 in (q.dtype, k.dtype, v.dtype):
         raise ValueError("the fp8 forward takes no dropout")
-    check_supported(dropout_p, "flash_attention")
+    check_supported(q, bias, dropout_p, "flash_attention")
     if bias is not None:
         bias_view(bias, q.shape[0], q.shape[1], q.shape[2], k.shape[2])
     flags = {name: t for name, t in (
@@ -137,17 +149,19 @@ def flash_attention(
         if t is not None}
     return attention(q, k, v, softmax_scale=softmax_scale, causal=causal,
                      softcap=softcap, return_lse=return_lse, masks=flags,
-                     window_size=window_size, bias=bias)
+                     window_size=window_size, bias=bias,
+                     dropout_p=dropout_p, dropout_seed=dropout_seed)
 
 
 def _attn_probs_debug(qt, kt, lse, *, softmax_scale, causal, window_size,
-                      softcap, q_seg=None, k_seg=None, qpos=None,
-                      kpos=None):
+                      softcap, dropout_p=0.0, dropout_seed=None, q_seg=None,
+                      k_seg=None, qpos=None, kpos=None):
     """The S_dmask debug tensor (b, h, sq, sk) of the TPU package
     (interface.py:187-241): the softmax probabilities recomputed from the
     LSE in plain PyTorch (an O(sq * sk) tensor; the kernels never make
-    it); masked pairs and rows with no key give 0. Without dropout no
-    entry is negated."""
+    it); masked pairs and rows with no key give 0; with dropout the
+    entries the keep mask drops are negated (the reference's encoding:
+    the mask is S_dmask >= 0)."""
     b, h, sq, _ = qt.shape
     hk, sk = kt.shape[1], kt.shape[2]
     kf = kt.float().repeat_interleave(h // hk, dim=1)
@@ -170,12 +184,11 @@ def _attn_probs_debug(qt, kt, lse, *, softmax_scale, causal, window_size,
     if q_seg is not None:
         s = s.masked_fill(q_seg[:, None, :, None] != k_seg[:, None, None, :],
                           -math.inf)
-    return torch.exp(s - lse[..., None])
-
-
-def _check_probs(return_attn_probs: bool, dropout_p: float) -> None:
-    if return_attn_probs and dropout_p > 0.0:
-        check_supported(dropout_p, "return_attn_probs")
+    p = torch.exp(s - lse[..., None])
+    drop = Dropout.make(dropout_p, dropout_seed)
+    if drop is not None:
+        p = torch.where(drop.keep(b, h, sq, sk, qt.device), p, -p)
+    return p
 
 
 def flash_attn_func(q, k, v, dropout_p: float = 0.0,
@@ -196,9 +209,10 @@ def flash_attn_func(q, k, v, dropout_p: float = 0.0,
     output and the gradients come back in (b, s, h, d) memory order. The
     kernels are deterministic, so ``deterministic`` is accepted and
     ignored; so is ``block_sizes`` (the CUDA tiles are fixed per head dim).
+    Dropout as :func:`flash_attention`; S_dmask then negates the dropped
+    entries.
     """
     del deterministic
-    _check_probs(return_attn_probs, dropout_p)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     res = flash_attention(
         qt, kt, vt, softmax_scale=softmax_scale, causal=causal,
@@ -211,7 +225,8 @@ def flash_attn_func(q, k, v, dropout_p: float = 0.0,
     scale = softmax_scale if softmax_scale is not None \
         else 1.0 / math.sqrt(q.shape[-1])
     probs = _attn_probs_debug(qt, kt, lse, softmax_scale=scale, causal=causal,
-                              window_size=window_size, softcap=softcap)
+                              window_size=window_size, softcap=softcap,
+                              dropout_p=dropout_p, dropout_seed=dropout_seed)
     return out.transpose(1, 2), lse, probs
 
 
@@ -323,7 +338,6 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
     S_dmask (nheads, total_q, total_k)).
     """
     del max_seqlen_q, max_seqlen_k, deterministic
-    _check_probs(return_attn_probs, dropout_p)
     total_q, total_k = q.shape[0], k.shape[0]
     # one packing for both sides (the qkv-packed entry): made once
     same = cu_seqlens_q is cu_seqlens_k and total_q == total_k
@@ -359,6 +373,7 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
         else 1.0 / math.sqrt(q.shape[-1])
     probs = _attn_probs_debug(qt, kt, lse, softmax_scale=scale, causal=causal,
                               window_size=window_size, softcap=softcap,
+                              dropout_p=dropout_p, dropout_seed=dropout_seed,
                               q_seg=q_seg, k_seg=k_seg, qpos=qpos, kpos=kpos)
     return out, lse[0], probs[0]
 
