@@ -6,8 +6,9 @@
                              # fp32, GPT-3/GPT-2-medium training (8k with
                              # remat; fp32, fp32 on packed documents), fp8
                              # prefill, fp32 attention with a bias,
-                             # GPT-2 medium with attention dropout, full
-                             # width and depth, one card
+                             # GPT-2 medium with attention and residual
+                             # dropout, GPT-NeoX at Pythia-6.9B widths,
+                             # full width and depth, one card
 
 Phases (any failure raises and exits non-zero, with no "ok" line):
   1. the card: name and power limit (nvidia-smi), capability (9, 0);
@@ -192,7 +193,40 @@ Phases (any failure raises and exits non-zero, with no "ok" line):
      instantiations of #5, #6), no plain version, finite losses, step 1
      repeated with the same seeds bitwise equal (loss and every gradient),
      another seed different, and at depth 2 the kernels against the plain
-     versions under the same seeds (phase 9's limits).
+     versions under the same seeds (phase 9's limits);
+ 23. T-drop-resid: GPT-2 medium's widths with its published embd_pdrop,
+     resid_pdrop and attn_pdrop (0.1), its 24 Blocks built by the port's
+     GPTLMHeadModel as the JAX GPTModel builds them and driven with
+     deterministic=False and explicit seeds (norm1, norm2 and the
+     attention's, drawn per block and step from a generator; the JAX
+     model's own forward refuses residual dropout), the embedding, the
+     final norm (no dropout) and the tied head around them, random bf16
+     weights, batch 32 x 1024, 3 AdamW steps: exact launches (the fused
+     norm's dropout-only LayerNorm instantiation 2 a block forward and 2
+     backward), no
+     plain version, a repeat bitwise equal, depth 2 against the plain
+     versions; step ms beside phase 22's T-drop; then
+     `dropout_add_layer_norm` at T-long's norm and `dropout_add_rms_norm`
+     at Llama-3-8B width with p 0.1, a rowscale and a layerscale, forward
+     and backward through the entries;
+ 24. NeoX-6.9B: GPT-NeoX at EleutherAI/pythia-6.9b's widths (hidden 4096,
+     32 layers, 32 heads of 128, intermediate 16384, rotary_pct 0.25,
+     vocab 50432, parallel residual, untied embeddings) through
+     `gpt_neox_config_to_gpt_config`, random bf16 weights at full depth:
+     request N (batch 2, prompt 1024, 64 new tokens) through `decode`,
+     eager and as a CUDA graph (prefill tok/s, decode ms/step, graph tokens
+     equal to eager tokens, exact launches), then the kernel path against
+     the plain path on the prefill and one decode step (phase 5's bounds).
+Phase 3 also holds #7 and #8 with dropout (p 0.1), a rowscale and a
+layerscale at T-long's norm (32768 x 1024 LayerNorm) and Llama-3-8B width
+(4096 x 4096 RMSNorm), and with dropout alone at T-drop-resid's norm
+(32768 x 1024 LayerNorm), prenorm with bf16 x0 and an fp32 residual: the keep
+mask bit for bit (residual_out with x0 = 1, residual 0 and unit scales;
+dx0's zeros), every output within twice the bf16 plain version's error
+against the fp32 plain version, dgamma / dbeta / dcolscale bitwise equal
+over three runs, each timed beside its no-flag twin, the plain version and
+the composed library calls, bound by bytes or the hash's integer floor;
+each row's launches are its own instantiation's on phase 23's paths.
 Phases 11 and 13 also drive FM-doc, FM-swg (with the reduced scores of its
 LSE), BS and VL-doc in fp32 through the same entries (the masked fp32
 kernels; exact launches, within 1e-4 of the fp32 plain version's largest
@@ -268,12 +302,21 @@ MISTRAL_7B = dict(  # mistralai/Mistral-7B-v0.1 config.json
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
     sliding_window=4096, rope_theta=10000.0, rms_norm_eps=1e-5,
     tie_word_embeddings=False)
+PYTHIA_6_9B = dict(  # EleutherAI/pythia-6.9b config.json
+    vocab_size=50432, hidden_size=4096, intermediate_size=16384,
+    num_hidden_layers=32, num_attention_heads=32, rotary_pct=0.25,
+    rotary_emb_base=10000, max_position_embeddings=2048, layer_norm_eps=1e-5,
+    hidden_act="gelu", use_parallel_residual=True, tie_word_embeddings=False,
+    initializer_range=0.02)
 LAYERS = LLAMA3_8B["num_hidden_layers"]
 assert MISTRAL_7B["num_hidden_layers"] == LAYERS
+assert PYTHIA_6_9B["num_hidden_layers"] == LAYERS
 REQUESTS = {"A": (2, 2048, 2080), "B": (2, 960, 1024)}  # batch, prompt, max_length
 # request W of the Mistral-7B model (phase 12): a prompt of twice the window
 MISTRAL_REQUESTS = {"W": (2, 8192, 8224)}
-ALL_REQUESTS = {**REQUESTS, **MISTRAL_REQUESTS}
+# request N of the Pythia-6.9B-width model (phase 24)
+NEOX_REQUESTS = {"N": (2, 1024, 1088)}
+ALL_REQUESTS = {**REQUESTS, **MISTRAL_REQUESTS, **NEOX_REQUESTS}
 
 
 def card_line() -> str:
@@ -4957,8 +5000,13 @@ def float64_versions():
     iface = importlib.import_module(_PKG + "flash_attention.interface")
     dec = importlib.import_module(_PKG + "decode")
 
+    def no_flags(flags):
+        check(not any(v for k, v in flags.items() if k != "x0"),
+              "the float64 versions take no dropout, rowscale or colscale")
+
     def ln_fwd(x0, residual, weight, bias, eps, is_rms, res_dtype,
-               save_resout, save_stats=False):
+               save_resout, save_stats=False, **flags):
+        no_flags(flags)
         x = x0.double() + (0 if residual is None else residual.double())
         mu = None if is_rms else x.mean(-1, keepdim=True)
         xc = x if is_rms else x - mu
@@ -4972,7 +5020,8 @@ def float64_versions():
         return out, resout, None if mu is None else mu[:, 0], rstd[:, 0]
 
     def ln_bwd(dout, dres_in, resout, mu, rstd, weight, *, is_rms, has_bias,
-               x0_dtype, res_dtype):
+               x0_dtype, res_dtype, **flags):
+        no_flags(flags)
         xhat = (resout if is_rms else resout - mu[:, None]) * rstd[:, None]
         dy = dout.double() * weight.double()
         c1 = (dy * xhat).mean(-1, keepdim=True)
@@ -4982,7 +5031,7 @@ def float64_versions():
             dres = dres + dres_in.double()
         return (dres, None if res_dtype is None else dres,
                 (dout.double() * xhat).sum(0),
-                dout.double().sum(0) if has_bias else None)
+                dout.double().sum(0) if has_bias else None, None)
 
     def keep_of(masks, q):
         return masks.keep(q.shape[1], q.device) if masks is not None else None
@@ -5759,6 +5808,7 @@ GPT2_MEDIUM = dict(vocab_size=50257, n_embd=1024, n_layer=24, n_head=16,
                    n_positions=1024, layer_norm_epsilon=1e-5, attn_pdrop=0.1,
                    embd_pdrop=0.1, resid_pdrop=0.1)
 DROPOUT_STEPS = 3
+STEP_MS = {}  # phase -> its training steps' ms (host clock), this run
 INT32_PER_CLOCK = 64  # int32 lanes a clock per SM (compute capability 9.0)
 # Integer instructions the kernels spend on one hashed element
 # (csrc/common.cuh dropout_each / dropout_keep): the add of the element's
@@ -6377,6 +6427,7 @@ def train_dropout_gpt2m(seed, gen):
             sync()
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            STEP_MS["T-drop"] = list(step_ms)
             counts = read_counts()
             check(counts == want, f"GPT-2 medium dropout step {i + 1}: "
                                   f"launches {counts} != {want}")
@@ -6500,6 +6551,544 @@ def dropout_phase(seed, gen):
     return rows
 
 
+# ------------------ phase 3: the fused norm's flags (#7 / #8), and phase 23
+
+NORM_P = 0.1          # gpt2-medium's resid_pdrop
+NORM_SEED = 4321
+# (label, rows, hidden, RMSNorm, rowscale and layerscale): T-long's norm
+# (gpt3m-flash.yaml: b16 s2048, hidden 1024, LayerNorm) with the scales;
+# the same shape with dropout alone, as T-drop-resid's blocks run it (b32
+# s1024); and Llama-3-8B's width with the scales
+NORM_FLAG_SHAPES = (("LayerNorm 32768x1024", 32768, 1024, False, True),
+                    ("LayerNorm 32768x1024", 32768, 1024, False, False),
+                    ("RMSNorm 4096x4096", 4096, 4096, True, True))
+
+
+def norm_flag_inputs(gen, rows, hidden, rms, scales):
+    """bf16 x0, an fp32 residual, fp32 gamma (beta for LayerNorm) and, with
+    ``scales``, a rowscale in [0.5, 1.5) and a layerscale near 1."""
+    z = dict(generator=gen, device="cuda")
+    x0 = torch.randn(rows, hidden, **z).bfloat16()
+    res = 4 * torch.randn(rows, hidden, **z)
+    w = 1 + 0.1 * torch.randn(hidden, **z)
+    b = None if rms else 0.1 * torch.randn(hidden, **z)
+    rs = 0.5 + torch.rand(rows, **z) if scales else None
+    cs = 1 + 0.1 * torch.randn(hidden, **z) if scales else None
+    flags = dict(rowscale=rs, colscale=cs, dropout_p=NORM_P, seed=NORM_SEED)
+    return x0, res, w, b, flags
+
+
+def norm_mask_probe(rows, hidden, rms, scales):
+    """Gate: the keep mask that #7 and #8 apply (with a rowscale and a
+    layerscale where ``scales``), read
+    back bit for bit against ops common.py's dropout_keep_mask (salt 0, the
+    global row and column): #7's residual_out with x0 = 1, residual 0 and
+    unit scales is the mask times 1 / (1 - p) exactly; #8's dx0 is 0
+    exactly where an element was dropped. Returns the readings."""
+    from xhy_flash_attention_tpu_torch.ops import layer_norm as ln
+    z = dict(device="cuda")
+    ones = torch.ones(rows, hidden, dtype=torch.bfloat16, **z)
+    flags = dict(rowscale=torch.ones(rows, **z) if scales else None,
+                 colscale=torch.ones(hidden, **z) if scales else None,
+                 dropout_p=NORM_P, seed=NORM_SEED)
+    w = torch.ones(hidden, **z)
+    b = None if rms else torch.zeros(hidden, **z)
+    _, resout, mu, rstd = ln.ln_fwd(ones, torch.zeros(rows, hidden, **z), w,
+                                    b, 1e-5, rms, torch.float32, True, True,
+                                    **flags)
+    keep = ln.norm_keep_mask(NORM_SEED, NORM_P, rows, hidden, "cuda")
+    want = torch.where(keep, torch.ones(rows, hidden, **z), 0.0) * (
+        1.0 / (1.0 - NORM_P))
+    check(torch.equal(resout, want),
+          f"#7's keep mask at {rows}x{hidden} differs from dropout_keep_mask")
+    dout = torch.randn(rows, hidden, **z).bfloat16()
+    dx0 = ln.ln_bwd(dout, None, resout, mu, rstd, w, is_rms=rms,
+                    has_bias=b is not None, x0_dtype=torch.bfloat16,
+                    res_dtype=torch.float32, x0=ones, **flags)[0]
+    check(torch.equal(dx0 != 0, keep),
+          f"#8's keep mask at {rows}x{hidden} differs from dropout_keep_mask")
+    kept = keep.float().mean().item()
+    print(f"  norm keep mask {rows}x{hidden}: #7 (residual_out) and #8 "
+          f"(dx0's zeros) equal dropout_keep_mask bit for bit, "
+          f"{rows * hidden} elements each, kept share {kept:.5f} (1 - p = "
+          f"{1 - NORM_P})", flush=True)
+    return 2 * rows * hidden
+
+
+def _contract(what, got, fp32_ref, low, rel):
+    """got within twice the bf16 plain version's (``low``) error against
+    the fp32 plain version, plus ``rel`` of the largest |fp32_ref|."""
+    e, e_low = max_err(got, fp32_ref), max_err(low, fp32_ref)
+    tol = 2 * e_low + rel * fp32_ref.float().abs().max().item()
+    check(e <= tol, f"{what}: err {e} > 2 x {e_low} + {rel} x max")
+    return e, e_low
+
+
+def check_norm_flags(gen, label, rows, hidden, rms, scales):
+    """Phase 3, #7 and #8 with p 0.1 (and, with ``scales``, a rowscale and
+    a layerscale; prenorm,
+    bf16 x0, fp32 residual, the training path's saved stats): the keep mask
+    (norm_mask_probe); every output within twice the bf16 plain version's
+    error against the fp32 plain version (1e-5 of the largest entry for
+    the fp32 outputs, 1e-4 for the column sums); dgamma, dbeta and
+    dcolscale bitwise equal over three runs; times beside the no-flag
+    twins, the plain versions and the composed library calls (F.dropout,
+    the scales and the add, then F.layer_norm / F.rms_norm: several
+    calls), bound by bytes or by the hash's integer floor. Returns the
+    forward and backward rows (launches filled from phase 23, by
+    instantiation)."""
+    from xhy_flash_attention_tpu_torch.ops import layer_norm as ln
+    norm_mask_probe(rows, hidden, rms, scales)
+    inst = ln.norm_instance(rms, scales, scales)
+    eps = 1e-5
+    x0, res, w, b, flags = norm_flag_inputs(gen, rows, hidden, rms, scales)
+    args = (x0, res, w, b, eps, rms, torch.float32, True, True)
+    out, resout, mu, rstd = ln.ln_fwd(*args, **flags)
+    low = ln.ln_fwd_ref(*args, **flags)
+    f32 = ln.ln_fwd_ref(x0.float(), *args[1:], **flags)
+    torch.cuda.synchronize()
+    e_out, e_out_low = _contract(f"{label} #7 out", out, f32[0], low[0], 1e-6)
+    e_res, _ = _contract(f"{label} #7 residual_out", resout, f32[1], low[1],
+                         1e-6)
+    del low, f32
+    dout = torch.randn(rows, hidden, generator=gen, device="cuda").bfloat16()
+    dres_in = torch.randn(rows, hidden, generator=gen, device="cuda")
+    kw = dict(is_rms=rms, has_bias=b is not None, x0_dtype=torch.bfloat16,
+              res_dtype=torch.float32, x0=x0, **flags)
+    bargs = (dout, dres_in, resout, mu, rstd, w)
+    runs = [ln.ln_bwd(*bargs, **kw) for _ in range(3)]
+    got = runs[0]
+    same = all(torch.equal(a, c) for run in runs[1:]
+               for a, c in zip(got[2:], run[2:]) if a is not None)
+    check(same, f"{label} #8: dgamma / dbeta / dcolscale differ run to run")
+    del runs
+    low = ln.ln_bwd_ref(*bargs, **kw)
+    f32 = ln.ln_bwd_ref(*bargs, **{**kw, "x0_dtype": torch.float32})
+    errs = {}
+    for i, name in enumerate(("dx0", "dresidual", "dgamma", "dbeta",
+                              "dcolscale")):
+        if got[i] is not None:
+            errs[name] = _contract(f"{label} #8 {name}", got[i], f32[i],
+                                   low[i], 1e-5 if i < 2 else 1e-4)[0]
+    del low, f32
+    torch.cuda.synchronize()
+
+    n = rows * hidden
+    # the column vectors read forward (gamma, beta, colscale), and the sums
+    # the backward writes as partials (dgamma, dbeta, dcolscale)
+    vecs = 1 + (b is not None) + scales
+    # rowscale (with the scales), then the stats: rstd, and mu for
+    # LayerNorm (RMSNorm neither writes nor reads one)
+    row_bytes = rows * (4 * scales + (4 if rms else 8))
+    fwd_bytes = n * (2 + 4 + 2 + 4) + row_bytes + hidden * 4 * vecs
+    # dout, residual_out, dres_in (and x0, read again for dcolscale) in;
+    # dx0 and dresidual out; the row values; gamma (and colscale); the
+    # partials (one row of hidden per block of rows, each sum)
+    blocks = -(-rows // max(1, min(64, -(-rows // 264))))
+    bwd_bytes = (n * (2 + 4 + 4 + 2 * scales + 2 + 4) + row_bytes
+                 + hidden * 4 * (1 + scales) + blocks * hidden * 4 * vecs)
+    floor = int_floor_ms(n)
+    fwd_bound = max((fwd_bytes / PEAK_BYTES * 1e3, "bytes"),
+                    (floor, "operations"))
+    bwd_bound = max((bwd_bytes / PEAK_BYTES * 1e3, "bytes"),
+                    (floor, "operations"))
+    rs = flags["rowscale"]
+    lx0, lres, lw, lcs, lb = (
+        None if t is None else t.detach().requires_grad_()
+        for t in (x0, res, w, flags["colscale"], b))
+    leaves = [t for t in (lx0, lres, lw, lcs, lb) if t is not None]
+
+    def lib_fwd():
+        xs = lx0.float()
+        if scales:
+            xs = xs * rs[:, None] * lcs
+        xs = F.dropout(xs, NORM_P) + lres
+        y = (F.rms_norm(xs, (hidden,), lw, eps) if rms else
+             F.layer_norm(xs, (hidden,), lw, lb, eps))
+        return y.bfloat16(), xs
+    with torch.no_grad():
+        lib_f = time_ms([lib_fwd])
+    both = time_ms([lambda: torch.autograd.grad(lib_fwd(), leaves,
+                                                (dout, dres_in))])
+    twin = time_ms([lambda: ln.ln_fwd(*args)])
+    ms_f = time_ms([lambda: ln.ln_fwd(*args, **flags)])
+    twin_b = time_ms([lambda: ln.ln_bwd(*bargs, **{
+        **kw, "x0": None, "rowscale": None, "colscale": None,
+        "dropout_p": 0.0, "seed": None})])
+    ms_b = time_ms([lambda: ln.ln_bwd(*bargs, **kw)])
+    plain_f = time_ms([lambda: ln.ln_fwd_ref(*args, **flags)], iters=5)
+    plain_b = time_ms([lambda: ln.ln_bwd_ref(*bargs, **kw)], iters=5)
+    src = "xhy_flash_attention_tpu_torch/csrc/rms_norm_add.cu"
+    what = f"p {NORM_P}, rowscale, layerscale" if scales else f"p {NORM_P}"
+    fwd_row = dict(
+        name=f"rms_norm_add ({what}; {label})",
+        route="cuda", source=src,
+        replaces="xhy_flash_attention_tpu/ops/layer_norm.py:48",
+        instance=("fwd", inst), max_abs_err=max(e_out, e_res), ms=ms_f,
+        plain_ms=plain_f, bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+        library_ms=lib_f)
+    report(fwd_row, f"out err {e_out:.3g} (bf16 plain {e_out_low:.3g}), "
+                    f"residual_out err {e_res:.3g} against the fp32 plain "
+                    f"version; no-flag twin {twin:.4f} ms (x{ms_f / twin:.3f}"
+                    f"); bytes {fwd_bytes:.4g}, integer floor {floor:.4f} "
+                    "ms; library: " + ("the scales, " if scales else "")
+                    + "F.dropout, the add and F."
+                    + ("rms_norm" if rms else "layer_norm")
+                    + " (several calls)")
+    bwd_row = dict(
+        name=f"ln_bwd ({what}; {label})",
+        route="cuda", source=src,
+        replaces="xhy_flash_attention_tpu/ops/layer_norm.py:102",
+        instance=("bwd", inst), max_abs_err=max(errs.values()), ms=ms_b,
+        plain_ms=plain_b, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+        library_ms=both - lib_f)
+    report(bwd_row, "errors against the fp32 plain version "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                    + "; dgamma / dbeta" + (" / dcolscale" if scales else "")
+                    + " bitwise equal over 3 runs"
+                    f"; no-flag twin {twin_b:.4f} ms (x{ms_b / twin_b:.3f}); "
+                    f"bytes {bwd_bytes:.4g}"
+                    + (" (x0 read again for dcolscale)" if scales else "")
+                    + ", "
+                    f"integer floor {floor:.4f} ms; library: autograd of the "
+                    "composed forward, backward alone")
+    return [fwd_row, bwd_row]
+
+
+def norm_flag_kernels(gen):
+    rows = []
+    for label, n, h, rms, scales in NORM_FLAG_SHAPES:
+        rows += check_norm_flags(gen, label, n, h, rms, scales)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def norm_dropout_launches():
+    """The fused norm's dropout launches since the last reset, forward and
+    backward, each a Counter by instantiation (ln.norm_instance)."""
+    from xhy_flash_attention_tpu_torch.ops import layer_norm as ln
+    return (collections.Counter(ln.ln_fwd.dropout_launches),
+            collections.Counter(ln.ln_bwd.dropout_launches))
+
+
+def reset_norm_dropout_launches():
+    from xhy_flash_attention_tpu_torch.ops import layer_norm as ln
+    ln.ln_fwd.dropout_launches.clear()
+    ln.ln_bwd.dropout_launches.clear()
+
+
+def resid_dropout_model(seed, layers=None):
+    """GPT-2 medium (GPT2_MEDIUM) in bf16 from random weights with its
+    published dropout rates (embd_pdrop, resid_pdrop, attn_pdrop 0.1): the
+    port's GPTLMHeadModel builds its Blocks as the JAX GPTModel does (block
+    0's resid_dropout1 is embd_pdrop); and its fp32 master parameters."""
+    import dataclasses
+    from xhy_flash_attention_tpu_torch import GPTLMHeadModel
+    from xhy_flash_attention_tpu_torch.models.gpt import \
+        gpt2_config_to_gpt_config
+    cfg = gpt2_config_to_gpt_config(types.SimpleNamespace(**GPT2_MEDIUM),
+                                    torch.bfloat16)
+    cfg = dataclasses.replace(
+        cfg, num_hidden_layers=layers or GPT2_MEDIUM["n_layer"])
+    check((cfg.embd_pdrop, cfg.resid_pdrop, cfg.attn_pdrop) == (DROP_P,) * 3,
+          "T-drop-resid takes gpt2-medium's published dropout rates")
+    model = GPTLMHeadModel(cfg, device="cuda", seed=seed)
+    blocks = model.transformer.layers
+    check(blocks[0].resid_dropout1 == cfg.embd_pdrop and all(
+        (blk.resid_dropout1, blk.resid_dropout2) == (cfg.resid_pdrop,) * 2
+        for blk in blocks[1:]), "the blocks' residual dropout rates")
+    params = {n: p.detach() if p.dtype == torch.float32 else
+              p.detach().float().clone() for n, p in model.named_parameters()}
+    return model, params
+
+
+def resid_dropout_grads(model, ids, labels, seed):
+    """Loss and fp32 gradients of one training forward through the port's
+    Blocks with residual and attention dropout: each block's three seeds
+    (norm1, norm2, attention) drawn in turn from a CPU generator seeded
+    ``seed``, as the JAX Block takes them (seeds=(s1, s2) and the mixer's
+    own); the embedding, the final norm (no dropout: the reference's final
+    norm takes no seed) and the tied LM head around them."""
+    from xhy_flash_attention_tpu_torch.losses.cross_entropy import \
+        cross_entropy_loss
+    from xhy_flash_attention_tpu_torch.modules.mha import draw_dropout_seed
+    for p in model.parameters():
+        p.grad = None
+    gen = torch.Generator().manual_seed(seed)
+    t = model.transformer
+    hidden, residual = t.embeddings(ids), None
+    for layer in t.layers:
+        s1, s2, sa = (draw_dropout_seed(gen) for _ in range(3))
+        hidden, residual, _ = layer(hidden, residual, deterministic=False,
+                                    dropout_seed=sa, seeds=(s1, s2))
+    hidden = t.norm_f(hidden, residual, False, model.config.residual_in_fp32)
+    logits = F.linear(hidden, t.embeddings.word_embeddings.weight)
+    loss = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                              labels.reshape(-1)).mean()
+    loss.backward()
+    return loss.detach(), {n: p.grad.float()
+                           for n, p in model.named_parameters()}
+
+
+def train_resid_dropout_gpt2m(seed, gen):
+    """Phase 23, T-drop-resid: GPT-2 medium with embedding, residual and
+    attention dropout at 0.1 through the port's Blocks (resid_dropout_grads)
+    for DROPOUT_STEPS steps of the recipe's AdamW at gpt2m-flash.yaml's
+    batch and seqlen. Gates: exact launches, with the fused norm's dropout
+    instantiations 2 a block forward and 2 backward and the attention's
+    dropout instantiations; no plain version; finite losses; step 1 twice
+    with the same seeds bitwise equal, another seed different; at depth 2
+    the kernels against the plain versions under the same seeds (phase 9's
+    limits). Returns the norm's dropout launches (forward, backward), by
+    instantiation."""
+    from xhy_flash_attention_tpu_torch.training import load_config
+    from xhy_flash_attention_tpu_torch.training.optim import Optimizer
+    rc = load_config(RECIPES["T-packed"][0])
+    batch, seqlen = rc.data.batch_size, rc.data.seqlen
+    layers = GPT2_MEDIUM["n_layer"]
+    vocab = GPT2_MEDIUM["vocab_size"]
+    model, params = resid_dropout_model(seed)
+    opt = Optimizer(rc.optimizer, rc.scheduler)
+    state = opt.init(params)
+    toks = torch.randint(0, vocab, (DROPOUT_STEPS, batch, seqlen + 1),
+                         generator=gen, device="cuda")
+
+    def sync():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if params[n].data_ptr() != p.data_ptr():
+                    p.copy_(params[n])
+    print(f"  GPT-2 medium widths ({layers} layers, hidden "
+          f"{GPT2_MEDIUM['n_embd']}), bf16, random weights; embd_pdrop, "
+          f"resid_pdrop and attn_pdrop {DROP_P} (published); batch {batch} "
+          f"x seqlen {seqlen}, {DROPOUT_STEPS} steps, the recipe's AdamW",
+          flush=True)
+    ids, labels = toks[0, :, :-1], toks[0, :, 1:]
+    loss_a, grads_a = resid_dropout_grads(model, ids, labels, DROP_SEED)
+    loss_b, grads_b = resid_dropout_grads(model, ids, labels, DROP_SEED)
+    check(float(loss_a) == float(loss_b) and all(
+        torch.equal(grads_a[n], grads_b[n]) for n in grads_a),
+        "T-drop-resid: a repeat with the same seeds differs")
+    del grads_b
+    loss_c, grads_c = resid_dropout_grads(model, ids, labels, DROP_SEED + 1)
+    name = "transformer.layers.0.norm1.weight"
+    check(float(loss_c) != float(loss_a)
+          and not torch.equal(grads_c[name], grads_a[name]),
+          "T-drop-resid: another seed gives the same step")
+    print(f"  step 1 twice with the same seeds: loss {float(loss_a):.6f} "
+          f"both times, every gradient bitwise equal; another seed: loss "
+          f"{float(loss_c):.6f}", flush=True)
+    del grads_a, grads_c
+    want = {k: 0 for k in counters()}
+    want.update({"rms_norm_add": 2 * layers + 1, "ln_bwd": 2 * layers + 1,
+                 "flash_fwd (fused_heads)": layers, "flash_bwd_prep": layers,
+                 "fused_heads_bwd": layers})
+    drop_ln = {"layer_norm": 2 * layers}  # dropout alone, no scales
+    norm_drops = [collections.Counter(), collections.Counter()]
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_calls() as plain:
+        for i in range(DROPOUT_STEPS):
+            ids, labels = toks[i, :, :-1], toks[i, :, 1:]
+            reset_counts()
+            reset_dropout_launches()
+            reset_norm_dropout_launches()
+            t0 = time.perf_counter()
+            loss, grads = resid_dropout_grads(model, ids, labels,
+                                              DROP_SEED + 10 + i)
+            gnorm = opt.update(grads, state, params)
+            sync()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            check(counts == want, f"T-drop-resid step {i + 1}: launches "
+                                  f"{counts} != {want}")
+            check(dropout_launches() == _each("d64", layers),
+                  f"T-drop-resid step {i + 1}: attention dropout launches "
+                  f"{dropout_launches()}")
+            nd = norm_dropout_launches()
+            check(nd == (drop_ln, drop_ln),
+                  f"T-drop-resid step {i + 1}: the norm's dropout launches "
+                  f"{nd}, not 2 a block forward and backward")
+            for total, c in zip(norm_drops, nd):
+                total.update(c)
+            losses.append(float(loss))
+            print(f"    step {i + 1}: loss {losses[-1]:.4f}, grad norm "
+                  f"{float(gnorm):.4f}, step ms {step_ms[-1]:.2f}, tokens/s "
+                  f"{batch * seqlen / (step_ms[-1] / 1e3):.1f}", flush=True)
+            del grads
+    STEP_MS["T-drop-resid"] = step_ms
+    check(not plain, f"T-drop-resid: plain versions ran: {plain}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(vocab)) <= 0.5,
+          f"first loss {losses[0]} not within 0.5 of ln({vocab})")
+    t_drop = STEP_MS.get("T-drop", [])
+    print(f"  T-drop-resid: {DROPOUT_STEPS} steps, launches exact (the "
+          f"norm's dropout instantiations {2 * layers} forward and "
+          f"{2 * layers} backward a step), step ms "
+          f"{', '.join(f'{x:.2f}' for x in step_ms)} beside phase 22's "
+          f"T-drop (attention dropout alone) "
+          f"{', '.join(f'{x:.2f}' for x in t_drop)} in this run; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    del model, params, state, opt
+    torch.cuda.empty_cache()
+    model, _ = resid_dropout_model(seed, layers=2)
+    ids, labels = toks[0, :, :-1], toks[0, :, 1:]
+    loss_k, grads_k = resid_dropout_grads(model, ids, labels, DROP_SEED)
+    grads_k = {n: g.clone() for n, g in grads_k.items()}
+    reset_counts()
+    with plain_versions():
+        loss_p, grads_p = resid_dropout_grads(model, ids, labels, DROP_SEED)
+    check(all(v == 0 for v in read_counts().values()),
+          f"the plain step launched a kernel: {read_counts()}")
+    dl = abs(float(loss_k) - float(loss_p))
+    rel = {n: max_err(grads_k[n], grads_p[n])
+           / max(grads_p[n].abs().max().item(), 1e-30) for n in grads_p}
+    worst = max(rel, key=rel.get)
+    print(f"  depth 2, batch {batch}, same seeds: loss kernels "
+          f"{float(loss_k):.5f} plain {float(loss_p):.5f} (|diff| {dl:.3g}, "
+          f"tol {TRAIN_LOSS_TOL}); gradients, max |diff| / max |plain| over "
+          f"{len(rel)} parameters: largest {rel[worst]:.4g} ({worst}), median "
+          f"{sorted(rel.values())[len(rel) // 2]:.4g} (tol {TRAIN_GRAD_TOL})",
+          flush=True)
+    check(dl <= TRAIN_LOSS_TOL, f"T-drop-resid depth 2: loss differs by {dl}")
+    check(rel[worst] <= TRAIN_GRAD_TOL,
+          f"T-drop-resid depth 2: gradient of {worst} differs by "
+          f"{rel[worst]}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return norm_drops
+
+
+def norm_flag_entries(gen):
+    """The rowscale and layerscale instantiations' main paths, through the
+    entries a user calls: dropout_add_layer_norm at T-long's norm and
+    dropout_add_rms_norm at Llama-3-8B's width, each with p 0.1, a rowscale
+    and a layerscale, prenorm with an fp32 residual, forward and backward
+    through the autograd function; counts set to 0 just before and read
+    just after, no plain version. Returns the norm's dropout launches, by
+    instantiation."""
+    from xhy_flash_attention_tpu_torch import (dropout_add_layer_norm,
+                                               dropout_add_rms_norm)
+    from xhy_flash_attention_tpu_torch.ops import layer_norm as ln
+    total = [collections.Counter(), collections.Counter()]
+    for label, rows, hidden, rms, scales in NORM_FLAG_SHAPES:
+        if not scales:  # T-drop-resid's blocks run it
+            continue
+        x0, res, w, b, flags = norm_flag_inputs(gen, rows, hidden, rms,
+                                                scales)
+        leaves = [t.requires_grad_() for t in (x0, res, w, flags["colscale"])
+                  ] + ([b.requires_grad_()] if b is not None else [])
+        fn = dropout_add_rms_norm if rms else dropout_add_layer_norm
+        with count_plain_calls() as plain:
+            reset_counts()
+            reset_norm_dropout_launches()
+            out, resout = fn(x0.view(-1, 1024, hidden),
+                             res.view(-1, 1024, hidden), w, b, NORM_P, 1e-5,
+                             rowscale=flags["rowscale"].view(-1, 1024),
+                             layerscale=flags["colscale"], prenorm=True,
+                             residual_in_fp32=True, seed=NORM_SEED + 1)
+            grads = torch.autograd.grad((out, resout), leaves,
+                                        (torch.ones_like(out),
+                                         torch.ones_like(resout)))
+            torch.cuda.synchronize()
+            nd = norm_dropout_launches()
+            counts = read_counts()
+        check(not plain, f"norm entry {label}: plain versions ran: {plain}")
+        one = collections.Counter({ln.norm_instance(rms, True, True): 1})
+        check(nd == (one, one) and counts["rms_norm_add"] == 1
+              and counts["ln_bwd"] == 1,
+              f"norm entry {label}: launches {nd} {counts}")
+        check(all(bool(torch.isfinite(g).all()) for g in grads)
+              and bool(torch.isfinite(out).all()),
+              f"norm entry {label}: non-finite values")
+        print(f"  {fn.__name__} at {label}: forward and backward with p "
+              f"{NORM_P}, rowscale and layerscale, launches "
+              f"{dict(nd[0])} forward, {dict(nd[1])} backward", flush=True)
+        for t, c in zip(total, nd):
+            t.update(c)
+        del x0, res, out, resout, grads, leaves
+        torch.cuda.empty_cache()
+    return total
+
+
+def resid_dropout_phase(seed, gen, rows):
+    """Phase 23: T-drop-resid, then the norm's flagged entries; fills the
+    launches of phase 3's flagged #7 / #8 rows with their own
+    instantiation's dropout launches on those paths."""
+    fwd, bwd = train_resid_dropout_gpt2m(seed, gen)
+    ef, eb = norm_flag_entries(gen)
+    fwd.update(ef)
+    bwd.update(eb)
+    for row in rows:
+        inst = row.pop("instance", None)
+        if inst is not None:
+            row["launches"] = (fwd if inst[0] == "fwd" else bwd)[inst[1]]
+    print(f"  the norm's dropout launches on the phase's main paths, by "
+          f"instantiation: forward {json.dumps(dict(sorted(fwd.items())))}, "
+          f"backward {json.dumps(dict(sorted(bwd.items())))}", flush=True)
+
+
+# ---------------------------------------------------------------- phase 24
+
+def neox_config():
+    """Pythia-6.9B's config as a transformers.GPTNeoXConfig where
+    transformers is installed, else an object with its field names."""
+    try:
+        import transformers
+    except ImportError:
+        return types.SimpleNamespace(**PYTHIA_6_9B), "SimpleNamespace"
+    return transformers.GPTNeoXConfig(**PYTHIA_6_9B), "GPTNeoXConfig"
+
+
+def neox_serving(seed, gen):
+    """Phase 24, NeoX-6.9B: GPT-NeoX at EleutherAI/pythia-6.9b's widths
+    (PYTHIA_6_9B through gpt_neox_config_to_gpt_config: parallel block with
+    untied norms, partial rotary 32 of 128, untied embeddings) with random
+    bf16 weights at full depth serves request N (serve: eager and graph,
+    exact launches, graph tokens equal to eager tokens, no plain version),
+    and its kernel path is held to the plain path (kernel_vs_plain) on the
+    prefill and one decode step. Returns the graph run's launches."""
+    from xhy_flash_attention_tpu_torch import (GPTLMHeadModel,
+                                               gpt_neox_config_to_gpt_config)
+    hf, kind = neox_config()
+    print(f"  {kind}'s rotary fields: " + ", ".join(
+        f"{k} {getattr(hf, k, None)}" for k in (
+            "rotary_pct", "rotary_emb_base", "partial_rotary_factor",
+            "rope_theta", "rope_parameters")), flush=True)
+    cfg = gpt_neox_config_to_gpt_config(hf, torch.bfloat16)
+    check(cfg.parallel_block and not cfg.parallel_block_tied_norm
+          and int(cfg.dim_head * cfg.rotary_emb_fraction) == 32
+          and cfg.rotary_emb_base == PYTHIA_6_9B["rotary_emb_base"]
+          and not cfg.tie_word_embeddings,
+          f"Pythia-6.9B maps to {cfg}")
+    t0 = time.perf_counter()
+    model = GPTLMHeadModel(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  config from a {kind} (rotary fraction "
+          f"{cfg.rotary_emb_fraction}, base {cfg.rotary_emb_base}); "
+          f"{n_params / 1e9:.3f} B parameters built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with count_plain_calls() as plain:
+        counts, _, _ = serve(model, gen, "N")
+    check(not plain, f"request N: plain versions ran: {plain}")
+    for what in ("eager", "graph"):
+        r = SERVED[("N", what)]
+        print(f"  NeoX-6.9B request N, {what}: prefill "
+              f"{r['prefill_tok_s']:.1f} tok/s, decode "
+              f"{r['ms_per_step']:.3f} ms/step ({r['tok_s']:.1f} tok/s), "
+              f"peak {r['peak_gib']:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    kernel_vs_plain(model, gen, "N")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6553,6 +7142,8 @@ def main():
     rows += [check_ln_bwd(gen, 32768, 1024, False, "LayerNorm 32768x1024"),
              check_ln_bwd(gen, 4096, 4096, True, "RMSNorm 4096x4096")]
     torch.cuda.empty_cache()
+    norm_rows = norm_flag_kernels(gen)
+    rows += norm_rows
     b, _, _, s, _ = _dims(FM_DOC)
     rows += check_sparse_kernels(
         gen, "FlashMask", FM_DOC, True,
@@ -6759,6 +7350,19 @@ def main():
     for row in dropout_phase(args.seed, gen):
         launches[row["name"]] = row["launches"]
         rows.append(row)
+    torch.cuda.empty_cache()
+    print("[23] T-drop-resid: GPT-2 medium through the port's Blocks with "
+          "embd_pdrop, resid_pdrop and attn_pdrop 0.1, then the norm's "
+          "entries with p 0.1, a rowscale and a layerscale", flush=True)
+    resid_dropout_phase(args.seed, gen, norm_rows)
+    for row in norm_rows:
+        launches[row["name"]] = row["launches"]
+    torch.cuda.empty_cache()
+    print("[24] NeoX-6.9B: GPT-NeoX at pythia-6.9b's widths (hidden 4096, "
+          "32 layers, 32 heads of 128, partial rotary 0.25, parallel block "
+          "with untied norms), random bf16 weights: request N (batch 2, "
+          "prompt 1024, 64 decode steps)", flush=True)
+    neox_serving(args.seed, gen)
 
     for row in rows:
         row["launches"] = launches.get(

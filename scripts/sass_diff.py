@@ -14,11 +14,14 @@ registers
 and spills and the SASS instruction count (`cuobjdump -sass`), and whether
 the opcode streams of the two trees are the same (operands, addresses and
 constants ignored), else how many opcodes a diff of the two streams
-changes. A kernel that gained a trailing template argument (the bias flag
+changes. A kernel that gained trailing template arguments (the bias flag
 of the attention kernels, the forward's e4m3 flag, the pre-pass's input
-type) is matched with its instantiation at the old behaviour: an
-instantiation `<..., false>` or `<..., __nv_bfloat16>` of the second tree
-stands beside `<...>` of the first when the first has no such name. The
+type, the fused norm's rowscale, colscale and dropout flags) is matched
+with its instantiation at the old behaviour: an instantiation `<...,
+false>` (`<..., false, false, false>`) or `<..., __nv_bfloat16>` of the
+second tree stands beside `<...>` of the first when the first has no such
+name. The fused norm's kernels (`ln_fwd_kernel`, `ln_bwd_kernel`, every
+flag instantiation) must spill nothing, else the script exits non-zero. The
 last line counts the pairs with the same opcodes and those that differ. Last, the second tree's
 e4m3 instantiations of the forward (`flash_fwd_kernel<D, false, false,
 true>`) by tensor-core product: their QK^T must be `QGMMA` (e4m3), else
@@ -41,7 +44,8 @@ from pathlib import Path
 
 KERNELS = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)(_fp32)?|flash_bwd_prep"
                      r"|flash_decode|paged_decode|paged_prefill"
-                     r"|reduced_scores(_fp32)?)_kernel<[^>]*>")
+                     r"|reduced_scores(_fp32)?|ln_(fwd|bwd))_kernel<[^>]*>")
+LN = re.compile(r"ln_(fwd|bwd)_kernel<[^>]*>")
 # trailing template arguments a kernel gained, at the old behaviour
 OLD_BEHAVIOUR = (", false>", ", __nv_bfloat16>")
 E4M3 = re.compile(r"flash_fwd_kernel<\d+, false, false, true>")
@@ -51,13 +55,17 @@ FP32_TF32 = re.compile(r"(flash_(fwd|bwd_dkv|bwd_dq|bwd_dbias)|reduced_scores)_f
 
 def matched(first, second):
     """{name in the second tree: its name in the first}: the same name, or
-    the name without a trailing OLD_BEHAVIOUR argument that the first
-    lacks."""
+    the name without trailing OLD_BEHAVIOUR arguments (one or more, as the
+    norm's three flags) that the first lacks."""
     out = {}
     for name in second:
-        base = next((name[:-len(tail)] + ">" for tail in OLD_BEHAVIOUR
-                     if name.endswith(tail)), None)
-        out[name] = base if name not in first and base in first else name
+        base = name
+        while base not in first:
+            tail = next((t for t in OLD_BEHAVIOUR if base.endswith(t)), None)
+            if tail is None:
+                break
+            base = base[:-len(tail)] + ">"
+        out[name] = base if base in first else name
     return out
 
 
@@ -161,6 +169,12 @@ def main():
             print(f"{name}: {tf32[1][name]} HGMMA on TF32; {report}", flush=True)
             if not tf32[1][name]:
                 raise SystemExit(f"{name} issues no TF32 HGMMA")
+            if "spills 0/0 B" not in report:
+                raise SystemExit(f"{name} spills: {report}")
+    for name in sorted(codes[1]):
+        if LN.fullmatch(name):
+            report = reports[1].get(name) or ""
+            print(f"{name}: {report}", flush=True)
             if "spills 0/0 B" not in report:
                 raise SystemExit(f"{name} spills: {report}")
 

@@ -921,6 +921,168 @@ def test_ln_bwd_matches_plain(cuda, rows, hidden, prenorm, residual, rms,
             assert _err(g, wt) <= 1e-4 * scale
 
 
+# ------------------------------ the fused norm's dropout, rowscale, colscale
+
+NORM_SEED = (1 << 31) + 12345  # above int32: the low 32 bits key the mask
+
+
+def _norm_inputs(gen, rows, hidden, dtype, rms, rowscale, colscale):
+    z = dict(generator=gen, device="cuda")
+    x0 = torch.randn(rows, hidden, **z).to(dtype)
+    res = 3 * torch.randn(rows, hidden, **z)
+    w = 1 + 0.1 * torch.randn(hidden, **z)
+    b = None if rms else 0.1 * torch.randn(hidden, **z)
+    rs = 0.5 + torch.rand(rows, **z) if rowscale else None
+    cs = 1 + 0.2 * torch.randn(hidden, **z) if colscale else None
+    return x0, res, w, b, rs, cs
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("colscale", [False, True])
+@pytest.mark.parametrize("rowscale", [False, True])
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,hidden", [(37, 4096), (5000, 1024)])
+def test_norm_flags_match_plain(cuda, rows, hidden, dtype, rms, rowscale,
+                                colscale, dropout):
+    """Every flag combination of #7 / #8 against the plain versions, prenorm
+    with an fp32 residual, at a row count that no block of the backward
+    divides (5000 rows, 19 a block): residual_out bit for bit (the same
+    fp32 products in the same order), out to one bf16 unit of its largest
+    entry (1e-6 in fp32), dx0 and dresidual likewise, dgamma / dbeta /
+    dcolscale to 1e-4 of theirs; with dropout dx0's zeros are the keep
+    mask's."""
+    x0, res, w, b, rs, cs = _norm_inputs(cuda, rows, hidden, dtype, rms,
+                                         rowscale, colscale)
+    flags = dict(rowscale=rs, colscale=cs, dropout_p=0.17 if dropout else 0.0,
+                 seed=NORM_SEED & 0xFFFFFFFF if dropout else None)
+    args = (x0, res, w, b, 1e-5, rms, torch.float32, True, True)
+    inst = ln.norm_instance(rms, rowscale, colscale)
+    before = (ln.ln_fwd.launches, ln.ln_fwd.dropout_launches[inst])
+    out, resout, mu, rstd = ln.ln_fwd(*args, **flags)
+    ref, ref_res, _, _ = ln.ln_fwd_ref(*args, **flags)
+    torch.cuda.synchronize()
+    assert (ln.ln_fwd.launches, ln.ln_fwd.dropout_launches[inst]) == (
+        before[0] + 1, before[1] + dropout)
+    assert torch.equal(resout, ref_res)
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 1e-6
+    assert _err(out, ref) <= ulp * ref.float().abs().max().item()
+    dout = torch.randn(rows, hidden, generator=cuda, device="cuda").to(dtype)
+    dres_in = torch.randn(rows, hidden, generator=cuda, device="cuda")
+    kw = dict(is_rms=rms, has_bias=b is not None, x0_dtype=dtype,
+              res_dtype=torch.float32, x0=x0, **flags)
+    before = (ln.ln_bwd.launches, ln.ln_bwd.dropout_launches[inst])
+    got = ln.ln_bwd(dout, dres_in, resout, mu, rstd, w, **kw)
+    want = ln.ln_bwd_ref(dout, dres_in, resout, mu, rstd, w, **kw)
+    torch.cuda.synchronize()
+    assert (ln.ln_bwd.launches, ln.ln_bwd.dropout_launches[inst]) == (
+        before[0] + 1, before[1] + dropout)
+    assert (got[4] is None) == (not colscale)
+    for i, (g, wt) in enumerate(zip(got, want)):
+        assert (g is None) == (wt is None)
+        if g is None:
+            continue
+        assert g.dtype == wt.dtype and g.shape == wt.shape
+        scale = wt.float().abs().max().item()
+        if i < 2:
+            u = BF16_ULP if g.dtype == torch.bfloat16 else 1e-6
+            assert _err(g, wt) <= u * scale + 1e-6, i
+        else:
+            assert _err(g, wt) <= 1e-4 * scale, i
+    if dropout:
+        keep = ln.norm_keep_mask(flags["seed"], 0.17, rows, hidden, "cuda")
+        assert torch.equal(got[0] != 0, keep)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.17])
+@pytest.mark.parametrize("rows,hidden", [(37, 4096), (5000, 1024)])
+def test_norm_keep_mask_bit_for_bit(cuda, rows, hidden, p):
+    """x0 = 1, residual 0, unit scales: residual_out is the keep mask times
+    1 / (1 - p), exactly, against ops common.py's dropout_keep_mask on the
+    global (row, col) with salt 0; the seed above int32 keys by its low 32
+    bits."""
+    ones = torch.ones(rows, hidden, device="cuda")
+    zeros = torch.zeros(rows, hidden, device="cuda")
+    unit_r = torch.ones(rows, device="cuda")
+    unit_c = torch.ones(hidden, device="cuda")
+    _, resout = ln.ln_fwd(ones, zeros, unit_c, None, 1e-5, True,
+                          torch.float32, True, rowscale=unit_r,
+                          colscale=unit_c, dropout_p=p,
+                          seed=NORM_SEED & 0xFFFFFFFF)
+    keep = ln.norm_keep_mask(NORM_SEED, p, rows, hidden, "cuda")
+    want = torch.where(keep, torch.ones_like(ones), 0.0) * (1.0 / (1.0 - p))
+    assert torch.equal(resout, want)
+    assert abs(keep.float().mean().item() - (1 - p)) < 0.02
+
+
+@pytest.mark.parametrize("rms", [True, False])
+def test_norm_flags_backward_is_bitwise_repeatable(cuda, rms):
+    """Three backward passes with every flag: dx0, dresidual and the
+    dgamma / dbeta / dcolscale sums bitwise equal (partials summed in a
+    fixed order, no atomics)."""
+    rows, hidden = 5000, 1024
+    x0, res, w, b, rs, cs = _norm_inputs(cuda, rows, hidden, torch.bfloat16,
+                                         rms, True, True)
+    flags = dict(rowscale=rs, colscale=cs, dropout_p=0.1, seed=7)
+    _, resout, mu, rstd = ln.ln_fwd(x0, res, w, b, 1e-5, rms, torch.float32,
+                                    True, True, **flags)
+    dout = torch.randn(rows, hidden, generator=cuda, device="cuda").bfloat16()
+    kw = dict(is_rms=rms, has_bias=b is not None, x0_dtype=torch.bfloat16,
+              res_dtype=torch.float32, x0=x0, **flags)
+    runs = [ln.ln_bwd(dout, None, resout, mu, rstd, w, **kw)
+            for _ in range(3)]
+    for run in runs[1:]:
+        for a, c in zip(runs[0], run):
+            assert (a is None and c is None) or torch.equal(a, c)
+
+
+def test_norm_autograd_with_flags_on_the_card(cuda, monkeypatch):
+    """dropout_add_layer_norm with dropout, rowscale and layerscale through
+    the autograd function on the card (the plain versions patched to raise:
+    a CUDA tensor never takes them) against the same call on CPU tensors
+    (the plain versions): residual_out bit for bit, out and the bf16
+    gradients to one bf16 unit of their largest entry, the fp32 ones to
+    1e-4 of theirs; fp16 is refused."""
+    rows, hidden = 300, 512
+    x0, res, w, b, rs, cs = _norm_inputs(cuda, rows, hidden, torch.bfloat16,
+                                         False, True, True)
+    leaves = [t.detach().requires_grad_() for t in (x0, res, w, b, cs)]
+    cpu = [t.detach().cpu().requires_grad_() for t in (x0, res, w, b, cs)]
+
+    def call(x0_, res_, w_, b_, cs_, rs_):
+        return ln.dropout_add_layer_norm(
+            x0_.view(3, 100, hidden), res_.view(3, 100, hidden), w_, b_, 0.1,
+            1e-5, rowscale=rs_.view(3, 100), layerscale=cs_, prenorm=True,
+            residual_in_fp32=True, seed=NORM_SEED)
+    want = call(*cpu, rs.cpu())
+    grads_want = torch.autograd.grad(want, cpu, [torch.ones_like(want[0]),
+                                                 torch.ones_like(want[1])])
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    monkeypatch.setattr(ln, "ln_fwd_ref", refuse)
+    monkeypatch.setattr(ln, "ln_bwd_ref", refuse)
+    inst = ln.norm_instance(False, True, True)
+    before = (collections.Counter(ln.ln_fwd.dropout_launches),
+              collections.Counter(ln.ln_bwd.dropout_launches))
+    got = call(*leaves, rs)
+    grads = torch.autograd.grad(got, leaves, [torch.ones_like(got[0]),
+                                              torch.ones_like(got[1])])
+    torch.cuda.synchronize()
+    assert (ln.ln_fwd.dropout_launches - before[0],
+            ln.ln_bwd.dropout_launches - before[1]) == (
+        collections.Counter({inst: 1}), collections.Counter({inst: 1}))
+    assert torch.equal(got[1].cpu(), want[1].detach())
+    scale = want[0].float().abs().max().item()
+    assert _err(got[0].cpu(), want[0]) <= BF16_ULP * scale
+    for g, wt in zip(grads, grads_want):
+        assert g.dtype == wt.dtype
+        u = BF16_ULP if g.dtype == torch.bfloat16 else 1e-4
+        assert _err(g.cpu(), wt) <= u * wt.float().abs().max().item() + 1e-5
+    with pytest.raises(TypeError):
+        ln.dropout_add_layer_norm(x0.half(), None, w, b, 0.1, 1e-5, seed=1)
+
+
 @pytest.mark.parametrize("rotary", [False, True])
 def test_two_layer_model_trains_on_the_card(cuda, rotary):
     """A 2-layer bf16 GPT on the card: the norm's outputs carry a grad_fn

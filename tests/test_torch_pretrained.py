@@ -5,8 +5,8 @@ tiny Hugging Face GPT-2 (built locally from a config object; nothing
 downloaded), in safetensors and in ``pytorch_model.bin`` form, and must
 return the JAX function's arrays; ``gpt_params_from_pretrained`` must give
 the JAX package's config and, through ``state_dict_from_jax``, its
-parameters bit for bit for GPT-2 and Llama, and refuse the families whose
-models are not ported (slice 8) and unknown ones.
+parameters bit for bit for GPT-2, Llama and GPT-NeoX, and refuse the
+families whose models are not ported (slice 8) and unknown ones.
 """
 
 import functools
@@ -36,7 +36,7 @@ def _one_thread():
 
 @functools.lru_cache(maxsize=None)
 def _models():
-    """A tiny HF GPT-2 and Llama (random weights, eval mode)."""
+    """A tiny HF GPT-2, Llama and GPT-NeoX (random weights, eval mode)."""
     torch.manual_seed(0)
     gpt2 = transformers.GPT2LMHeadModel(transformers.GPT2Config(
         vocab_size=211, n_positions=64, n_embd=64, n_layer=2, n_head=4)).eval()
@@ -44,7 +44,11 @@ def _models():
         vocab_size=128, hidden_size=64, intermediate_size=128,
         num_hidden_layers=2, num_attention_heads=4,
         num_key_value_heads=2)).eval()
-    return {"gpt2": gpt2, "llama": llama}
+    neox = transformers.GPTNeoXForCausalLM(transformers.GPTNeoXConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, rotary_pct=0.25,
+        tie_word_embeddings=False)).eval()
+    return {"gpt2": gpt2, "llama": llama, "gpt_neox": neox}
 
 
 @pytest.mark.parametrize("safe", [True, False], ids=["safetensors", "bin"])
@@ -64,7 +68,7 @@ def test_state_dict_from_pretrained_needs_a_checkpoint(tmp_path):
         tpre.state_dict_from_pretrained(str(tmp_path))
 
 
-@pytest.mark.parametrize("family", ["gpt2", "llama"])
+@pytest.mark.parametrize("family", ["gpt2", "llama", "gpt_neox"])
 def test_gpt_params_from_pretrained_matches_jax(tmp_path, family):
     """From a save_pretrained directory (the state dict read there) and
     from an in-memory state dict: the port's config fields and state dict
@@ -83,7 +87,9 @@ def test_gpt_params_from_pretrained_matches_jax(tmp_path, family):
                       "num_attention_heads", "num_attention_heads_kv",
                       "intermediate_size",
                       "max_position_embeddings", "rms_norm",
-                      "tie_word_embeddings", "layer_norm_epsilon"):
+                      "tie_word_embeddings", "layer_norm_epsilon",
+                      "parallel_block", "parallel_block_tied_norm",
+                      "rotary_emb_fraction"):
             assert getattr(cfg, field) == getattr(jcfg, field), field
         assert cfg.dtype == torch.float32
         want = state_dict_from_jax(jparams, cfg)
@@ -97,7 +103,7 @@ def test_gpt_params_from_pretrained_matches_jax(tmp_path, family):
 
 
 def test_gpt_params_from_pretrained_refusals():
-    for family in ("opt", "gptj", "gpt_neox", "falcon"):
+    for family in ("opt", "gptj", "falcon"):
         cfg = types.SimpleNamespace(model_type=family)
         with pytest.raises(NotImplementedError, match="slice 8"):
             tpre.gpt_params_from_pretrained(f"org/{family}-tiny", cfg,

@@ -21,7 +21,10 @@ serving (``GPTConfig.weight_quant``, ``quantize_gpt_params``), fp32
 attention kernels (models run in bfloat16 or float32 on the card), and
 GPT-2 from Hugging Face or Megatron-LM weights
 (``gpt2_config_to_gpt_config``, ``remap_state_dict_hf_gpt2``,
-``remap_state_dict_megatron``; ``utils.pretrained`` reads local files).
+``remap_state_dict_megatron``; ``utils.pretrained`` reads local files),
+GPT-NeoX (``gpt_neox_config_to_gpt_config``, ``remap_state_dict_hf_gpt_neox``;
+the parallel block), and dropout, rowscale and layerscale in the fused
+norm with its parallel-residual and subset forms.
 """
 
 from .bert_padding import (
@@ -35,6 +38,8 @@ from .losses import CrossEntropyLoss, cross_entropy_loss
 from .models.gpt import (GPTConfig, GPTLMHeadModel, gpt2_config_to_gpt_config,
                          quantize_gpt_params, remap_state_dict_hf_gpt2,
                          remap_state_dict_megatron, state_dict_from_jax)
+from .models.gpt_neox import (gpt_neox_config_to_gpt_config,
+                              remap_state_dict_hf_gpt_neox)
 from .models.llama import (llama_config_to_gpt_config,
                            remap_state_dict_hf_llama)
 from .ops.decode import decode_attention
@@ -67,7 +72,10 @@ from .ops.flash_attention.fused_heads import (
 )
 from .ops.layer_norm import (
     dropout_add_layer_norm,
+    dropout_add_layer_norm_parallel_residual,
+    dropout_add_layer_norm_subset,
     dropout_add_rms_norm,
+    dropout_add_rms_norm_parallel_residual,
     layer_norm,
     rms_norm,
 )
@@ -89,7 +97,10 @@ __all__ = [
     "decode",
     "decode_attention",
     "dropout_add_layer_norm",
+    "dropout_add_layer_norm_parallel_residual",
+    "dropout_add_layer_norm_subset",
     "dropout_add_rms_norm",
+    "dropout_add_rms_norm_parallel_residual",
     "flash_attention",
     "flash_attn_fp8_func",
     "flash_attn_func",
@@ -105,6 +116,7 @@ __all__ = [
     "flashmask_to_dense",
     "global_sliding_window_mask",
     "gpt2_config_to_gpt_config",
+    "gpt_neox_config_to_gpt_config",
     "index_first_axis",
     "index_first_axis_residual",
     "index_put_first_axis",
@@ -115,6 +127,7 @@ __all__ = [
     "pad_input",
     "quantize_gpt_params",
     "remap_state_dict_hf_gpt2",
+    "remap_state_dict_hf_gpt_neox",
     "remap_state_dict_hf_llama",
     "remap_state_dict_megatron",
     "rms_norm",

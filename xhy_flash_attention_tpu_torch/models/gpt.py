@@ -1,8 +1,9 @@
 """GPT model hub (≙ xhy_flash_attention_tpu models/gpt.py).
 
-Every decoder-only family of this slice (GPT-2-style and Llama-style) is
-this skeleton plus a config translation. Linear and embedding weights live
-in ``config.dtype``; norm weights stay fp32, as in the TPU package. Weights
+Every decoder-only family of this slice (GPT-2-style, Llama-style and
+GPT-NeoX's parallel block) is this skeleton plus a config translation.
+Linear and embedding weights live in ``config.dtype``; norm weights stay
+fp32, as in the TPU package. Weights
 are drawn from ``normal(0, initializer_range)`` with an explicit
 ``torch.Generator``; `state_dict_from_jax` converts the TPU package's
 parameter tree instead. The forward without caches is differentiable (the
@@ -28,7 +29,9 @@ attention kernels' dropout instantiations in bf16 on the card), each
 layer's seed drawn from the caller's ``dropout_generator``. Embedding and
 residual dropout raise ``ValueError("dropout_p > 0 requires a seed")``
 there, as the TPU package's model does: its GPTModel hands every block
-``seeds=(None, None)`` (its gpt.py:269).
+``seeds=(None, None)`` (its gpt.py:269). The blocks carry those rates
+(block 0's ``resid_dropout1`` is ``embd_pdrop``, as there) and run them in
+the fused norm when called with seeds (modules/block.py).
 GPT-2 weights load from Hugging Face (:func:`gpt2_config_to_gpt_config`,
 :func:`remap_state_dict_hf_gpt2`) or a Megatron-LM checkpoint
 (:func:`remap_state_dict_megatron`); utils/pretrained.py reads local files.
@@ -87,6 +90,10 @@ class GPTConfig:
     attn_pdrop: float = 0.0
     residual_in_fp32: bool = True
     prenorm: bool = True
+    # attention and MLP from one residual stream, their outputs summed
+    # (GPT-J / NeoX); untied: the MLP reads a norm of its own
+    parallel_block: bool = False
+    parallel_block_tied_norm: bool = True
     lm_head_bias: bool = False
     tie_word_embeddings: bool = True
     pad_vocab_size_multiple: int = 1
@@ -169,9 +176,14 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList(
             Block(c.hidden_size, _mixer(c, device), _mlp(c, device),
                   norm_eps=c.layer_norm_epsilon, rms_norm=c.rms_norm,
-                  prenorm=c.prenorm, residual_in_fp32=c.residual_in_fp32,
+                  prenorm=c.prenorm,
+                  resid_dropout1=c.embd_pdrop if i == 0 else c.resid_pdrop,
+                  resid_dropout2=c.resid_pdrop,
+                  residual_in_fp32=c.residual_in_fp32,
+                  parallel_block=c.parallel_block,
+                  parallel_block_tied_norm=c.parallel_block_tied_norm,
                   device=device)
-            for _ in range(c.num_hidden_layers))
+            for i in range(c.num_hidden_layers))
         self.norm_f = (_Norm(c.hidden_size, c.rms_norm, c.layer_norm_epsilon,
                              device=device) if c.prenorm else None)
 
@@ -348,7 +360,8 @@ def state_dict_from_jax(params: Mapping, config: GPTConfig) -> Dict[str, torch.T
         layer = tr[f"layers_{i}"]
         pre = f"transformer.layers.{i}"
         sd.update(norm(f"{pre}.norm1", layer["norm1"]))
-        sd.update(norm(f"{pre}.norm2", layer["norm2"]))
+        if "norm2" in layer:  # a tied parallel block has none
+            sd.update(norm(f"{pre}.norm2", layer["norm2"]))
         sd.update(linear(f"{pre}.mixer.Wqkv", layer["mixer"]["Wqkv"]))
         sd.update(linear(f"{pre}.mixer.out_proj", layer["mixer"]["out_proj"]))
         sd.update(linear(f"{pre}.mlp.fc1", layer["mlp"]["fc1"]))

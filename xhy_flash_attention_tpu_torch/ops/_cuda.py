@@ -62,13 +62,17 @@ _BWD_ARGS = ([_c_void_p] * 9 + [_c_int64] * 21 + [_c_int] * 6
              + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
              + _BIAS_ARGS + _DROPOUT_ARGS + [_c_void_p])
 _SIGNATURES = {
+    # the fused norm (#7 / #8): ..., rowscale, colscale (the backward also
+    # x0, its dtype code and the dcolscale partials before them), dropout
     "xfa_ln_fwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p,
                    _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p,
-                   _c_void_p, _c_int64, _c_int, _c_float, _c_int, _c_void_p],
+                   _c_void_p, _c_int64, _c_int, _c_float, _c_int, _c_void_p,
+                   _c_void_p] + _DROPOUT_ARGS + [_c_void_p],
     "xfa_ln_bwd": [_c_void_p, _c_int, _c_void_p, _c_int, _c_void_p, _c_int,
                    _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
                    _c_void_p, _c_int, _c_void_p, _c_void_p, _c_int64, _c_int,
-                   _c_int, _c_int, _c_void_p],
+                   _c_int, _c_int, _c_void_p, _c_int, _c_void_p, _c_void_p,
+                   _c_void_p] + _DROPOUT_ARGS + [_c_void_p],
     "xfa_flash_fwd": [_c_void_p] * 5 + [_c_int64] * 12 + [_c_int] * 6
     + [_c_float, _c_float, _c_int] + _MASK_ARGS + [_c_void_p] * 2
     + _BIAS_ARGS + _DROPOUT_ARGS + [_c_void_p],

@@ -49,8 +49,8 @@ NEG_INF = DEFAULT_MASK_VALUE
 # ROADMAP.md queue B). What is not ported yet names the slice that brings
 # it.
 NEXT_SLICES = "(ROADMAP.md, 'Next slices of the port')"
-SLICE_DROPOUT = ("slice 6's rest (dropout in fp32 or with an attention bias "
-                 "on the card, and in the fused norm) " + NEXT_SLICES)
+SLICE_DROPOUT = ("slice 6's rest (attention dropout in fp32 or with an "
+                 "attention bias on the card) " + NEXT_SLICES)
 SLICE_DTYPES = ("slice 7b (fp16 inputs to the CUDA attention kernels) "
                 + NEXT_SLICES)
 SLICE_MODELS = ("slice 8 (the other models and the vision trainer) "

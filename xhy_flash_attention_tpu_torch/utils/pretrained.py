@@ -5,8 +5,9 @@ directory (``model.safetensors`` or ``pytorch_model.bin``) or, for a hub
 id, through ``transformers`` (imported only then); values come back as
 numpy arrays, as the JAX package returns them. :func:`gpt_params_from_pretrained`
 dispatches on the model family to its config translation and remap onto the
-GPT skeleton. The families of slice 8 (OPT, GPT-J, GPT-NeoX, Falcon) raise
-NotImplementedError until their models are ported.
+GPT skeleton: GPT-2, Llama / Mistral and GPT-NeoX. The other families of
+slice 8 (OPT, GPT-J, Falcon) raise NotImplementedError until their models
+are ported.
 """
 
 from __future__ import annotations
@@ -73,18 +74,20 @@ def gpt_params_from_pretrained(
     state_dict: Optional[Dict[str, Any]] = None,
     dtype=torch.float32,
 ) -> Tuple[Any, Dict[str, torch.Tensor]]:
-    """(GPTConfig, the port's state dict) for a GPT-2 or Llama / Mistral
-    checkpoint: ``hf_config`` an object with the Hugging Face config's
+    """(GPTConfig, the port's state dict) for a GPT-2, Llama / Mistral or
+    GPT-NeoX checkpoint: ``hf_config`` an object with the Hugging Face config's
     field names, ``state_dict`` the checkpoint's (read by
     :func:`state_dict_from_pretrained` when None). Load the result with
     ``GPTLMHeadModel(config, ...).load_state_dict(state_dict)``."""
-    from ..models import gpt, llama
+    from ..models import gpt, gpt_neox, llama
 
     fam = _family_of(model_name, hf_config)
     table = {
         "gpt2": (gpt.gpt2_config_to_gpt_config, gpt.remap_state_dict_hf_gpt2),
         "llama": (llama.llama_config_to_gpt_config,
                   llama.remap_state_dict_hf_llama),
+        "gpt_neox": (gpt_neox.gpt_neox_config_to_gpt_config,
+                     gpt_neox.remap_state_dict_hf_gpt_neox),
     }
     if fam not in table:
         raise NotImplementedError(
